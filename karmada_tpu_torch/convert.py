@@ -1,0 +1,63 @@
+"""Carrying state across from the JAX package, and numpy tables onto a
+device.
+
+`from_reference_objects` copies an API object of the JAX package (a
+Cluster, ResourceBinding, Placement, ...) into the port's dataclass of the
+same name, field by field, keeping the uid. Tie-breaks are seeded by the
+binding UID (models/batch.py uid_seed), so converted objects make both
+packages solve the same problem. It matches classes by NAME and never
+imports the JAX package.
+
+`batch_from_numpy` turns a BindingBatch's or FleetArrays' numpy tables into
+torch tensors on one device.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .api import cluster, meta, policy, work
+
+_PORT_CLASSES = {
+    name: obj
+    for mod in (meta, cluster, policy, work)
+    for name, obj in vars(mod).items()
+    if isinstance(obj, type) and dataclasses.is_dataclass(obj)
+}
+
+
+def from_reference_objects(obj):
+    """Deep copy of `obj` in which every dataclass instance is rebuilt as
+    the port's class of the same name (lists, tuples and dicts are walked;
+    other values are copied as they are)."""
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        name = type(obj).__name__
+        cls = _PORT_CLASSES.get(name)
+        if cls is None:
+            raise TypeError(f"the port has no API class named {name!r}")
+        return cls(**{
+            f.name: from_reference_objects(getattr(obj, f.name))
+            for f in dataclasses.fields(obj)
+        })
+    if isinstance(obj, list):
+        return [from_reference_objects(x) for x in obj]
+    if isinstance(obj, tuple):
+        return tuple(from_reference_objects(x) for x in obj)
+    if isinstance(obj, dict):
+        return {k: from_reference_objects(v) for k, v in obj.items()}
+    return obj
+
+
+def batch_from_numpy(d, device) -> dict:
+    """{name: contiguous tensor on device} for a dict of numpy arrays (a
+    BindingBatch or FleetArrays given by field). uint64 (the tie seeds)
+    travels as its int64 bit pattern: torch has no uint64 shifts."""
+    out = {}
+    for k, v in d.items():
+        a = np.ascontiguousarray(v)
+        if a.dtype == np.uint64:
+            a = a.view(np.int64)
+        out[k] = torch.from_numpy(a).to(device)
+    return out

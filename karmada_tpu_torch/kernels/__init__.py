@@ -1,0 +1,317 @@
+"""Kernel wrappers of the compact candidate round, each beside its plain
+PyTorch version.
+
+- `candidate_select` (csrc/candidate_select.cu): filters + locality score
+  over [B, C], the top-K window, and everything gathered to [B, K]; the
+  plain version is `select_plain`.
+- `candidate_tail` (csrc/candidate_tail.cu): the replica-division tail over
+  [rows, K] windows plus the compact output window; the plain version is
+  `tail_plain`.
+
+A wrapper runs the plain version only for tensors that lie on the CPU. For
+CUDA tensors it checks device, dtype, shape and contiguity, launches the
+kernel on PyTorch's current stream, raises when the launch reports an
+error, and adds one to its `launches` count. There is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..sched import core
+
+I64, I32, BOOL, U8 = torch.int64, torch.int32, torch.bool, torch.uint8
+
+# the tail kernel runs one 128-thread block per row, one thread per window
+# column; the select kernel sorts the row's padded keys in shared memory
+MAX_TAIL_K = 128
+MAX_SELECT_SMEM = 232448  # bytes a block may use on sm_90
+
+
+# --------------------------------------------------------------------------
+# plain versions
+# --------------------------------------------------------------------------
+
+
+def select_plain(
+    alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
+    replicas, unknown_request, gvk, tol_tables, tol_idx,
+    aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
+    req_unique, req_idx, extra_avail, *, k: int, plugin_bits: int,
+):
+    """Plain version of the candidate-select kernel (the reference's
+    `_candidate_select_kernel`). Returns (cand_idx i32[B,K], c_feas bool,
+    c_score i32, c_avail i32, c_prev i32, c_tie i32, feas_count i32[B],
+    packed u8[B,ceil(C/8)]). `extra_avail` is None or i32[B,C] (-1 = no
+    answer)."""
+    from ..sched.candidates import compact_estimate
+
+    C = alive.shape[0]
+    prev_member, prev_replicas, eviction_ok = core.sparse_rows(prev_idx, prev_rep, evict_idx, C)
+    feasible, score = core.filter_phase(
+        alive, taint_key, taint_value, taint_effect, api_ok, gvk,
+        tol_tables, tol_idx, aff_masks[aff_idx.long()], eviction_ok, prev_member,
+        plugin_bits=plugin_bits,
+    )
+    key = (feasible.to(I64) << 33) + score.to(I64)
+    cand = torch.sort(core.top_k_ordered(key, k), dim=-1).values
+    c_extra = None if extra_avail is None else extra_avail.gather(-1, cand)
+    c_avail = compact_estimate(
+        capacity, has_summary, req_unique, req_idx, replicas, unknown_request,
+        cand, c_extra,
+    )
+    return (
+        cand.to(I32), feasible.gather(-1, cand), score.gather(-1, cand), c_avail,
+        prev_replicas.gather(-1, cand), core.tie_at(seeds, cand),
+        feasible.sum(-1).to(I32), core.pack_bits(feasible),
+    )
+
+
+def tail_plain(
+    c_feas, c_avail, c_prev, c_tie, cand_idx,
+    weight_tables, weight_idx, strategy, replicas, fresh, *, topk: int, has_agg: bool,
+):
+    """Plain version of the candidate-tail kernel (the reference's
+    `_candidate_tail_kernel`): the division tail over [rows, K] windows,
+    then the top-`min(K, topk)` output window mapped to GLOBAL cluster ids
+    through cand_idx. Returns (result i32[rows,K], unschedulable bool[rows],
+    avail_sum i32[rows], nnz i32[rows], top_idx i32, top_val i32)."""
+    static_weight = weight_tables[weight_idx.long()[:, None], cand_idx.long()]
+    result, unschedulable, avail_sum = core.assignment_tail(
+        c_feas, strategy, static_weight, c_avail, c_prev, c_tie,
+        replicas, fresh, has_agg=has_agg,
+    )
+    K = c_feas.shape[1]
+    _, nnz, l_idx, top_val = core.compact_outputs(c_feas, result, min(K, topk))
+    top_idx = cand_idx.gather(-1, l_idx.long())
+    return result, unschedulable, avail_sum, nnz, top_idx, top_val
+
+
+# --------------------------------------------------------------------------
+# wrappers
+# --------------------------------------------------------------------------
+
+
+def _check(name: str, t, dtype, shape, device):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+
+def _stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {rc}")
+
+
+def _pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def select_smem_bytes(C: int, k: int, Kt: int, Kp: int, Ke: int) -> int:
+    """Dynamic shared memory of one candidate-select block: the row's
+    padded int64 keys, the sorted window, the toleration row and the
+    prev/evict lists."""
+    cp = _pow2(max(C, 1024))
+    return 8 * cp + 4 * (_pow2(k) + 4 * Kt + 2 * Kp + Ke)
+
+
+def candidate_select(
+    alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
+    replicas, unknown_request, gvk, tol_tables, tol_idx,
+    aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
+    req_unique, req_idx, extra_avail, *, k: int, plugin_bits: int,
+):
+    """Candidate select over the fleet and a padded batch (see
+    select_plain for the contract)."""
+    args = (alive, capacity, has_summary, taint_key, taint_value, taint_effect,
+            api_ok, replicas, unknown_request, gvk, tol_tables, tol_idx,
+            aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
+            req_unique, req_idx, extra_avail)
+    dev = alive.device
+    if dev.type == "cpu":
+        return select_plain(*args, k=k, plugin_bits=plugin_bits)
+    if dev.type != "cuda":
+        raise ValueError(f"candidate_select: unsupported device {dev}")
+    out = _select_launch(*args, k=k, plugin_bits=plugin_bits)
+    candidate_select.launches += 1
+    return out
+
+
+def _select_launch(
+    alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
+    replicas, unknown_request, gvk, tol_tables, tol_idx,
+    aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
+    req_unique, req_idx, extra_avail, *, k: int, plugin_bits: int,
+):
+    """Check, allocate and launch candidate_select_kernel."""
+    dev = alive.device
+    C, R = capacity.shape
+    T = taint_key.shape[1]
+    G = api_ok.shape[1]
+    B = replicas.shape[0]
+    Tt, _, Kt = tol_tables.shape
+    P = aff_masks.shape[0]
+    Kp = prev_idx.shape[1]
+    Ke = evict_idx.shape[1]
+    U = req_unique.shape[0]
+    for name, t, dt, shape in (
+        ("alive", alive, BOOL, (C,)), ("capacity", capacity, I64, (C, R)),
+        ("has_summary", has_summary, BOOL, (C,)),
+        ("taint_key", taint_key, I32, (C, T)), ("taint_value", taint_value, I32, (C, T)),
+        ("taint_effect", taint_effect, I32, (C, T)), ("api_ok", api_ok, BOOL, (C, G)),
+        ("replicas", replicas, I32, (B,)), ("unknown_request", unknown_request, BOOL, (B,)),
+        ("gvk", gvk, I32, (B,)), ("tol_tables", tol_tables, I32, (Tt, 4, Kt)),
+        ("tol_idx", tol_idx, I32, (B,)), ("aff_masks", aff_masks, BOOL, (P, C)),
+        ("aff_idx", aff_idx, I32, (B,)), ("prev_idx", prev_idx, I32, (B, Kp)),
+        ("prev_rep", prev_rep, I32, (B, Kp)), ("evict_idx", evict_idx, I32, (B, Ke)),
+        ("seeds", seeds, I64, (B,)), ("req_unique", req_unique, I64, (U, R)),
+        ("req_idx", req_idx, I32, (B,)),
+    ):
+        _check(name, t, dt, shape, dev)
+    if extra_avail is not None:
+        _check("extra_avail", extra_avail, I32, (B, C), dev)
+    if not 0 < k <= C:
+        raise ValueError(f"candidate_select: k={k} must be in (0, C={C}]")
+    smem = select_smem_bytes(C, k, Kt, Kp, Ke)
+    if smem > MAX_SELECT_SMEM:
+        raise NotImplementedError(
+            f"candidate_select: a fleet of C={C} needs {smem} bytes of shared "
+            "memory per row (the in-block bitonic sort); wider fleets need the "
+            "radix select of a later PR"
+        )
+    nbytes = (C + 7) // 8
+    cand = torch.empty((B, k), dtype=I32, device=dev)
+    c_feas = torch.empty((B, k), dtype=BOOL, device=dev)
+    c_score = torch.empty((B, k), dtype=I32, device=dev)
+    c_avail = torch.empty((B, k), dtype=I32, device=dev)
+    c_prev = torch.empty((B, k), dtype=I32, device=dev)
+    c_tie = torch.empty((B, k), dtype=I32, device=dev)
+    feas_count = torch.empty((B,), dtype=I32, device=dev)
+    packed = torch.empty((B, nbytes), dtype=U8, device=dev)
+    if B == 0:
+        return cand, c_feas, c_score, c_avail, c_prev, c_tie, feas_count, packed
+    from .build import library
+
+    fn = library("candidate_select").candidate_select_launch
+    fn.restype = ctypes.c_int
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 13 + [ci] * 7 + [vp] * 9 + [vp]
+    rc = fn(
+        _ptr(alive), _ptr(capacity), _ptr(has_summary), _ptr(taint_key),
+        _ptr(taint_value), _ptr(taint_effect), _ptr(api_ok),
+        C, R, T, G,
+        _ptr(replicas), _ptr(unknown_request), _ptr(gvk), _ptr(tol_tables),
+        _ptr(tol_idx), _ptr(aff_masks), _ptr(aff_idx), _ptr(prev_idx),
+        _ptr(prev_rep), _ptr(evict_idx), _ptr(seeds), _ptr(req_unique),
+        _ptr(req_idx),
+        B, Kt, Kp, Ke, k, plugin_bits, 1 if extra_avail is not None else 0,
+        _ptr(extra_avail), _ptr(cand), _ptr(c_feas), _ptr(c_score),
+        _ptr(c_avail), _ptr(c_prev), _ptr(c_tie), _ptr(feas_count),
+        _ptr(packed), _stream(dev),
+    )
+    _raise_on(rc, "candidate_select")
+    return cand, c_feas, c_score, c_avail, c_prev, c_tie, feas_count, packed
+
+
+candidate_select.launches = 0
+
+
+def candidate_tail(
+    c_feas, c_avail, c_prev, c_tie, cand_idx,
+    weight_tables, weight_idx, strategy, replicas, fresh, *, topk: int, has_agg: bool,
+):
+    """Division tail over [rows, K] candidate windows (see tail_plain for
+    the contract)."""
+    args = (c_feas, c_avail, c_prev, c_tie, cand_idx, weight_tables,
+            weight_idx, strategy, replicas, fresh)
+    dev = c_feas.device
+    if dev.type == "cpu":
+        return tail_plain(*args, topk=topk, has_agg=has_agg)
+    if dev.type != "cuda":
+        raise ValueError(f"candidate_tail: unsupported device {dev}")
+    out = _tail_launch(*args, topk=topk, has_agg=has_agg)
+    candidate_tail.launches += 1
+    return out
+
+
+def _tail_launch(
+    c_feas, c_avail, c_prev, c_tie, cand_idx,
+    weight_tables, weight_idx, strategy, replicas, fresh, *, topk: int, has_agg: bool,
+):
+    """Check, allocate and launch candidate_tail_kernel."""
+    dev = c_feas.device
+    rows, K = c_feas.shape
+    W, Cw = weight_tables.shape
+    for name, t, dt, shape in (
+        ("c_feas", c_feas, BOOL, (rows, K)), ("c_avail", c_avail, I32, (rows, K)),
+        ("c_prev", c_prev, I32, (rows, K)), ("c_tie", c_tie, I32, (rows, K)),
+        ("cand_idx", cand_idx, I32, (rows, K)),
+        ("weight_tables", weight_tables, I64, (W, Cw)),
+        ("weight_idx", weight_idx, I32, (rows,)), ("strategy", strategy, I32, (rows,)),
+        ("replicas", replicas, I32, (rows,)), ("fresh", fresh, BOOL, (rows,)),
+    ):
+        _check(name, t, dt, shape, dev)
+    if not 0 < K <= MAX_TAIL_K:
+        raise NotImplementedError(
+            f"candidate_tail: window K={K} outside (0, {MAX_TAIL_K}] (one thread "
+            "per window column in a 128-thread block)"
+        )
+    tw = min(K, topk)
+    result = torch.empty((rows, K), dtype=I32, device=dev)
+    unsched = torch.empty((rows,), dtype=BOOL, device=dev)
+    avail_sum = torch.empty((rows,), dtype=I32, device=dev)
+    nnz = torch.empty((rows,), dtype=I32, device=dev)
+    top_idx = torch.empty((rows, tw), dtype=I32, device=dev)
+    top_val = torch.empty((rows, tw), dtype=I32, device=dev)
+    if rows == 0:
+        return result, unsched, avail_sum, nnz, top_idx, top_val
+    from .build import library
+
+    fn = library("candidate_tail").candidate_tail_launch
+    fn.restype = ctypes.c_int
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp] * 6 + [ci] + [vp] * 4 + [ci] * 4 + [vp] * 6 + [vp]
+    rc = fn(
+        _ptr(c_feas), _ptr(c_avail), _ptr(c_prev), _ptr(c_tie), _ptr(cand_idx),
+        _ptr(weight_tables), Cw, _ptr(weight_idx), _ptr(strategy),
+        _ptr(replicas), _ptr(fresh),
+        rows, K, tw, 1 if has_agg else 0,
+        _ptr(result), _ptr(unsched), _ptr(avail_sum), _ptr(nnz),
+        _ptr(top_idx), _ptr(top_val), _stream(dev),
+    )
+    _raise_on(rc, "candidate_tail")
+    return result, unsched, avail_sum, nnz, top_idx, top_val
+
+
+candidate_tail.launches = 0
+
+KERNELS = (candidate_select, candidate_tail)
+
+
+def reset_launches() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
