@@ -1,23 +1,29 @@
 """On-card smoke test of the PyTorch/CUDA port (karmada_tpu_torch).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels-only]
 
 Needs one CUDA card (an H100 is the target) and nvcc; exits non-zero with no
 result line otherwise. Phases, each of which raises on failure:
 
 1. the device line: torch's device name, and nvidia-smi's name and power
    limit;
-2. the build of every kernel of the compact candidate round from the
-   sources in karmada_tpu_torch/kernels/csrc, with its seconds;
+2. the build of every kernel from the sources in
+   karmada_tpu_torch/kernels/csrc, with its seconds;
 3. each kernel against its plain PyTorch version on the card, exactly
    (integer outputs): on seeded tie-heavy random inputs at the flagship
-   shapes and on the flagship's own encoded batch; with each kernel's time,
-   its plain version's time and its bound;
-4. the main path: the flagship round (bench.py build_flagship's mix: 5 000
-   clusters x 10 000 bindings, seed 0) through ArrayScheduler.schedule() on
-   the card — one warm round, then timed rounds with p50/p99 — with every
-   launch count set to 0 just before and read just after, and its
-   decisions held against the same round run by the port on the CPU;
+   shapes (the dense tail also at 16 384 columns) and on the flagship's own
+   encoded batches, compact and dense; with each kernel's time, its plain
+   version's time, its bound and, for feas_idx, the time of the one torch
+   call that computes the same function (`--kernels-only` stops here);
+4. the main paths through ArrayScheduler.schedule() on the card, each with
+   every launch count set to 0 just before it and read just after, timed
+   rounds with p50/p99, and decisions held against the port's CPU round:
+   the compact flagship round (bench.py build_flagship's mix: 5 000
+   clusters x 10 000 bindings, seed 0); the same flagship as a dense round
+   (every binding annotated dense-solve); that dense flagship with the
+   Duplicated quarter placed over the whole fleet (packed mask rows); the
+   static-weight split of bench.py build_static (100 x 1 000, reason
+   small_fleet); and the 3-cluster Duplicated slice of bench.py build_dup3;
 5. the `kernels` JSON line, then the card's name and power limit, then the
    last line {"ok": true, "device": {...}}.
 """
@@ -45,7 +51,7 @@ from karmada_tpu_torch.api.work import (
 from karmada_tpu_torch.convert import batch_from_numpy
 from karmada_tpu_torch.kernels import build
 from karmada_tpu_torch.models.batch import pow2_bucket
-from karmada_tpu_torch.sched.candidates import effective_k
+from karmada_tpu_torch.sched.candidates import DENSE_SOLVE_ANNOTATION, effective_k
 from karmada_tpu_torch.sched.core import (
     TOPK_TARGETS,
     ArrayScheduler,
@@ -67,6 +73,9 @@ ALU_OPS_PER_S = 67e12
 N_CLUSTERS = 5000
 N_BINDINGS = 10000
 TIMED_ROUNDS = 110  # p90 then has 11 samples beyond it
+VARIANT_ROUNDS = 20  # timed rounds of the whole-fleet Duplicated variant
+WIDE_C = 16384  # the dense tail's width check
+DEVICE = "cuda"
 
 FLEET = ("alive", "capacity", "has_summary", "taint_key", "taint_value", "taint_effect", "api_ok")
 SELECT_BATCH = ("replicas", "unknown_request", "gvk", "tol_tables", "tol_idx", "aff_masks",
@@ -74,6 +83,7 @@ SELECT_BATCH = ("replicas", "unknown_request", "gvk", "tol_tables", "tol_idx", "
 SELECT_OUT = ("cand_idx", "c_feas", "c_score", "c_avail", "c_prev", "c_tie", "feas_count",
               "packed")
 TAIL_OUT = ("result", "unschedulable", "avail_sum", "nnz", "top_idx", "top_val")
+FILTER_OUT = ("feasible", "score", "avail", "prev", "tie", "feas_count")
 
 
 def log(msg: str) -> None:
@@ -122,15 +132,19 @@ def _binding(i, replicas, placement, cpu, prev=None, ns="bench"):
     )
 
 
-def build_flagship(seed=0, n_clusters=N_CLUSTERS, n_bindings=N_BINDINGS):
+def build_flagship(seed=0, n_clusters=N_CLUSTERS, n_bindings=N_BINDINGS, dense=False,
+                   whole_fleet_dup=False):
     """The north-star mixed round: duplicated / static-weight /
     dynamic-weight / aggregated rows, one in three with a previous
-    placement (bench.py:398-423, the same draws from the same seed)."""
+    placement (bench.py:398-423, the same draws from the same seed).
+    `dense` annotates every binding dense-solve (the dense round, reason
+    policy); `whole_fleet_dup` places the Duplicated quarter over the whole
+    fleet instead of 16 clusters."""
     rng = np.random.default_rng(seed)
     clusters = synthetic_fleet(n_clusters, seed=seed)
     names = [c.name for c in clusters]
     placements = [
-        duplicated_placement(names[:16]),
+        pol.Placement() if whole_fleet_dup else duplicated_placement(names[:16]),
         static_weight_placement({names[j]: j + 1 for j in range(8)}),
         _dyn_placement(aggregated=False),
         _dyn_placement(aggregated=True),
@@ -140,7 +154,40 @@ def build_flagship(seed=0, n_clusters=N_CLUSTERS, n_bindings=N_BINDINGS):
         prev = {names[int(rng.integers(n_clusters))]: 2} if i % 3 == 0 else None
         bindings.append(_binding(i, int(rng.integers(1, 64)), placements[i % 4],
                                  float(rng.choice([0.1, 0.25, 0.5, 1.0])), prev=prev))
+    if dense:
+        for rb in bindings:
+            rb.metadata.annotations = {DENSE_SOLVE_ANNOTATION: "true"}
     return clusters, bindings
+
+
+def build_static(seed=0, n_clusters=100, n_bindings=1000):
+    """BASELINE config 2 (bench.py:151 build_static, the same draws): a
+    static-weight Divided split, 100 clusters x 1 000 bindings over 16
+    weight lists of 8 clusters each."""
+    rng = np.random.default_rng(seed)
+    clusters = synthetic_fleet(n_clusters, seed=seed)
+    names = [c.name for c in clusters]
+    placements = [
+        static_weight_placement(
+            {names[j]: int(rng.integers(1, 10))
+             for j in rng.choice(n_clusters, size=min(8, n_clusters), replace=False)}
+        )
+        for _ in range(16)
+    ]
+    bindings = [
+        _binding(i, int(rng.integers(1, 64)), placements[i % 16],
+                 float(rng.choice([0.1, 0.25, 0.5])))
+        for i in range(n_bindings)
+    ]
+    return clusters, bindings
+
+
+def build_dup3(seed=0, n_bindings=100):
+    """BASELINE config 1 (bench.py:139 build_dup3): the local-up slice, 3
+    member clusters and Duplicated nginx-alikes."""
+    clusters = synthetic_fleet(3, seed=seed)
+    p = duplicated_placement([c.name for c in clusters])
+    return clusters, [_binding(i, 2, p, 0.1) for i in range(n_bindings)]
 
 
 # --------------------------------------------------------------------------
@@ -179,7 +226,7 @@ def tail_args(sel, t, idx):
                                          ("weight_idx", "strategy", "replicas", "fresh")]
 
 
-def random_select_inputs(rng, dev, B, C, k):
+def random_select_inputs(rng, dev, B, C):
     """Seeded tie-heavy select inputs at the flagship shapes: few distinct
     keys per row (so the window's tie order decides most winners), taints
     and tolerations, unknown GVKs, prev lists with sentinels, out-of-range
@@ -246,6 +293,39 @@ def random_tail_inputs(rng, dev, rows, K, C):
         "replicas": replicas.astype(np.int32),
         "fresh": mode == 3,
     }
+    return list(batch_from_numpy(d, dev).values())
+
+
+def random_dense_tail_inputs(rng, dev, B, C, n):
+    """Seeded tie-heavy dense-tail inputs: [B, C] filter outputs with few
+    distinct weights, last values and ties (so `rem` splits the cutoff tie
+    group), every strategy, Steady up/down/eq and Fresh rows, n row ids
+    with repeats, and one row in eight with negative previous replicas or
+    availability (the exact quadratic Aggregated prefix)."""
+    feas = rng.random((B, C)) < 0.8
+    prev = np.where(rng.random((B, C)) < 0.03, rng.integers(1, 4, (B, C)), 0)
+    avail = rng.choice([0, 2, 2, 2, 7, 40], (B, C))
+    odd = rng.random(B) < 0.125
+    prev = np.where(odd[:, None] & (rng.random((B, C)) < 0.05), -rng.integers(1, 3, (B, C)), prev)
+    avail = np.where(odd[:, None] & (rng.random((B, C)) < 0.05), -1, avail)
+    assigned = np.where(feas, prev, 0).sum(-1)
+    replicas = rng.integers(0, 4 * C, B)
+    mode = np.arange(B) % 4
+    replicas = np.where(mode == 2, assigned, replicas)
+    replicas = np.where((mode == 1) & (assigned > 1), assigned - 1, replicas)
+    d = {
+        "feasible": feas,
+        "avail": avail.astype(np.int32),
+        "prev": prev.astype(np.int32),
+        "tie": rng.integers(0, 3, (B, C)).astype(np.int32),
+        "rows": rng.integers(0, B, n).astype(np.int32),
+        "weight_tables": rng.choice([0, 3, 3, 3, 5], (4, C)).astype(np.int64),
+        "weight_idx": rng.integers(0, 4, B).astype(np.int32),
+        "strategy": rng.choice([0, 1, 2, 3, 4, 4], B).astype(np.int32),
+        "replicas": np.maximum(replicas, 0).astype(np.int32),
+        "fresh": mode == 3,
+    }
+    d["weight_tables"][0] = 0  # the encoder's all-zero row
     return list(batch_from_numpy(d, dev).values())
 
 
@@ -318,41 +398,139 @@ def tail_bound(args_list, outs_list):
     return bound(moved, ops)
 
 
+def dense_filter_bound(args, outs):
+    """Bytes: every input read once, every output written once. Operations:
+    per (row, column) the filter chain (one compare per taint slot, prev
+    entry and evict entry plus 8), the estimate (4 per requested resource
+    plus 4) and the splitmix64 tie (12)."""
+    B, C = args[7].shape[0], args[0].shape[0]
+    T, Kp, Ke, R = args[3].shape[1], args[14].shape[1], args[16].shape[1], args[1].shape[1]
+    return bound(nbytes(args) + nbytes(outs), B * C * (T + Kp + Ke + 4 * R + 24))
+
+
+def dense_tail_bound(filt_outs, rows_list, weight_tables, outs_list):
+    """Bytes: the four filter outputs of each tail row read once (13 bytes a
+    column), the weight table and every output written once. Operations:
+    ~40 elementwise int64 operations per column (the weights, quota and
+    bonus compare), as for the compact tail."""
+    C = filt_outs[0].shape[1]
+    moved = nbytes([weight_tables]) + sum(nbytes(o) for o in outs_list)
+    ops = 0
+    for rows in rows_list:
+        n = rows.numel()
+        moved += n * C * 13 + nbytes([rows])
+        ops += n * C * 40
+    return bound(moved, ops)
+
+
+def mask_bound(feas, out):
+    """One read of the bool rows, one write of the output, one operation per
+    column."""
+    return bound(nbytes([feas, out]), feas.numel())
+
+
+def dense_kernel_inputs(sched: ArrayScheduler, bindings):
+    """The dense round's own kernel inputs, as _launch_once_partitioned
+    builds them: rows permuted by class and encoded, the filter arguments,
+    the class-1 / class-2 row ids with their windows, and the mask rows."""
+    cls = np.asarray([sched._row_class(rb, False) for rb in bindings], np.int8)
+    order = np.argsort(cls, kind="stable")
+    bindings = [bindings[i] for i in order]
+    cls = cls[order]
+    raw = sched.batch_encoder.encode(bindings)
+    batch = sched._pad(raw)
+    dev = sched.device
+    t = batch_from_numpy({n: getattr(batch, n) for n in SELECT_BATCH + (
+        "strategy", "fresh", "weight_tables", "weight_idx")}, dev)
+    filt_args = [sched._fleet_dev[n] for n in FLEET] + [t[n] for n in SELECT_BATCH] + [None]
+    tails = []
+    for want_cls, has_agg in ((1, False), (2, True)):
+        idx_pad, nr = _pad_rows_idx(np.flatnonzero(cls == want_cls), sched._bucket)
+        topk = min(pow2_bucket(min(int(raw.replicas[idx_pad[:nr]].max()), TOPK_TARGETS), lo=8),
+                   TOPK_TARGETS)
+        tails.append((torch.from_numpy(idx_pad).to(dev), topk, has_agg))
+    mask_rows = np.flatnonzero(cls == 0)
+    mask_idx, _ = _pad_rows_idx(mask_rows, sched._bucket)
+    pc = raw.aff_masks.sum(axis=1)
+    mk = int(pc[raw.aff_idx[mask_rows]].max(initial=0))
+    k = min(pow2_bucket(mk, lo=8), len(sched.fleet.names))
+    return filt_args, t, tails, torch.from_numpy(mask_idx.astype(np.int64)).to(dev), k
+
+
+def dense_tail_args(filt, t, rows):
+    feas, _score, avail, prev, tie, _fc = filt
+    return [feas, avail, prev, tie, rows, t["weight_tables"], t["weight_idx"], t["strategy"],
+            t["replicas"], t["fresh"]]
+
+
 def decision_view(d):
     return (d.key, d.error, d.affinity_name,
             None if d.targets is None else [(t.name, t.replicas) for t in d.targets],
             list(d.feasible))
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this smoke test runs on the card only",
-              file=sys.stderr)
-        return 2
-    dev = torch.device("cuda")
-    name = torch.cuda.get_device_name(0)
-    smi = nvidia_smi_line()
-    log(f"device: {name} | nvidia-smi: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
-
-    # ---- phase 2: build ----
+def drive(label, sched, bindings, rounds, expect, smi):
+    """One main path: launch counts set to 0, a warm round and `rounds`
+    timed rounds (host clock around a synchronised round), counts read.
+    `expect` maps kernel name -> launches per round (exact); the other
+    kernels must stay at 0. Returns (decisions, launch counts, times)."""
+    kernels.reset_launches()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    libs = build.build_all(verbose=True)
-    log(f"build: {len(libs)} kernels in {time.perf_counter() - t0:.1f} s")
+    decisions = sched.schedule(bindings)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    times, gc_rounds = [], []
+    for _ in range(rounds):
+        full_gcs = gc.get_stats()[2]["collections"]
+        t0 = time.perf_counter()
+        decisions = sched.schedule(bindings)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        gc_rounds.append(gc.get_stats()[2]["collections"] > full_gcs)
+    launches = kernels.launch_counts()
+    n_rounds = rounds + 1
+    for n, c in launches.items():
+        want = expect.get(n, 0) * n_rounds
+        if c != want:
+            raise AssertionError(f"{label}: {n} launched {c} times in {n_rounds} rounds, "
+                                 f"expected {want}")
+    p50, p90, p99 = (float(np.percentile(times, q)) for q in (50, 90, 99))
+    with_gc = [x for x, g in zip(times, gc_rounds) if g]
+    log(f"{label} on {smi}: warm {warm:.4f} s; p50 {p50:.4f} s p90 {p90:.4f} s p99 {p99:.4f} s "
+        f"min {min(times):.4f} s max {max(times):.4f} s over {rounds} rounds; launches "
+        f"{launches} over {n_rounds} rounds; {len(with_gc)} rounds with a full garbage "
+        f"collection (median {np.median(with_gc) if with_gc else float('nan'):.4f} s)")
+    return decisions, launches, times
 
-    # ---- the flagship and its scheduler (the batch feeds phase 3 too) ----
+
+def hold_against_cpu(label, clusters, bindings, decisions):
+    """Run the same bindings through the port's CPU round and require
+    identical decisions."""
     t0 = time.perf_counter()
-    clusters, bindings = build_flagship()
-    sched = ArrayScheduler(clusters, device=dev)
-    log(f"flagship: {len(clusters)} clusters x {len(bindings)} bindings built in "
-        f"{time.perf_counter() - t0:.1f} s (fleet width {len(sched.fleet.names)})")
+    want = ArrayScheduler(clusters, device="cpu").schedule(bindings)
+    cpu_s = time.perf_counter() - t0
+    got = [decision_view(d) for d in decisions]
+    want = [decision_view(d) for d in want]
+    if got != want:
+        bad = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        raise AssertionError(f"{label}: card and cpu decisions differ at row {bad}: "
+                             f"{got[bad]} vs {want[bad]}")
+    placed = sum(1 for d in decisions if d.ok)
+    reps = sum(t.replicas for d in decisions if d.ok for t in d.targets)
+    errs = sorted({d.error.split(" ")[0] for d in decisions if d.error})
+    log(f"{label}: decisions identical to the cpu round on all {len(decisions)} rows "
+        f"({placed} placed, {reps} replicas, error kinds {errs}); cpu round {cpu_s:.1f} s")
 
-    # ---- phase 3: kernels against their plain versions on the card ----
+
+def check_compact_kernels(sched, bindings, dev, results):
+    """Phase 3 for the compact round's kernels (B1, B2); returns their
+    ms per round."""
     sel_args, k, t, tails = flagship_kernel_inputs(sched, bindings)
     B, C = sel_args[7].shape[0], sel_args[0].shape[0]
     n_tail = sum(int(idx.numel()) for idx, _, _ in tails)
     rng = np.random.default_rng(0)
-    results = {}
-    r_args = random_select_inputs(rng, dev, B, C, k)
+    r_args = random_select_inputs(rng, dev, B, C)
     err = compare("candidate_select[random]",
                   kernels._select_launch(*r_args, k=k, plugin_bits=31),
                   kernels.select_plain(*r_args, k=k, plugin_bits=31), SELECT_OUT)
@@ -362,8 +540,9 @@ def main() -> int:
                                kernels._tail_launch(*r_tail, topk=topk, has_agg=has_agg),
                                kernels.tail_plain(*r_tail, topk=topk, has_agg=has_agg),
                                TAIL_OUT))
-    log(f"random inputs (select {B}x{C} k={k}, tail {n_tail}x{k}): both kernels equal "
+    log(f"random inputs (select {B}x{C} k={k}, tail {n_tail}x{k}): both compact kernels equal "
         "their plain versions (tolerance 0: integer outputs, compared exactly)")
+    del r_args, r_tail
 
     bits = sched._plugin_bits
     sel = kernels._select_launch(*sel_args, k=k, plugin_bits=bits)
@@ -378,7 +557,7 @@ def main() -> int:
                                          kernels.tail_plain(*a, topk=topk, has_agg=has_agg),
                                          TAIL_OUT))
         t_outs.append(out)
-    log(f"flagship batch: select k={k}, tail rows "
+    log(f"compact flagship batch: select k={k}, tail rows "
         f"{[int(idx.numel()) for idx, _, _ in tails]}: both kernels equal their plain versions")
 
     sel_ms = cuda_ms(lambda: kernels._select_launch(*sel_args, k=k, plugin_bits=bits), 10)
@@ -393,50 +572,131 @@ def main() -> int:
     tb, tb_by = tail_bound(t_args, t_outs)
     results["candidate_select"] = dict(
         source="karmada_tpu_torch/kernels/csrc/candidate_select.cu",
-        replaces="karmada_tpu/sched/candidates.py:209",
+        replaces="karmada_tpu/sched/candidates.py:210",
         max_abs_err=max(err, sel_err), ms=sel_ms, plain_ms=sel_plain_ms,
-        bound_ms=sb, bound_by=sb_by)
+        bound_ms=sb, bound_by=sb_by, library_ms=None)
     results["candidate_tail"] = dict(
         source="karmada_tpu_torch/kernels/csrc/candidate_tail.cu",
-        replaces="karmada_tpu/sched/candidates.py:279",
+        replaces="karmada_tpu/sched/candidates.py:280",
         max_abs_err=max(err, tail_err), ms=tail_ms, plain_ms=tail_plain_ms,
-        bound_ms=tb, bound_by=tb_by)
+        bound_ms=tb, bound_by=tb_by, library_ms=None)
     log(f"timing: select {sel_ms:.3f} ms (plain {sel_plain_ms:.3f}, bound {sb:.4f} {sb_by}); "
         f"tail, both launches of a round {tail_ms:.3f} ms (plain {tail_plain_ms:.3f}, "
         f"bound {tb:.4f} {tb_by})")
+    return sel_ms + tail_ms
 
-    # ---- phase 4: the main path ----
-    kernels.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    decisions = sched.schedule(bindings)
-    torch.cuda.synchronize()
-    log(f"warm round: {time.perf_counter() - t0:.3f} s")
-    times, gc_rounds = [], []
-    for _ in range(TIMED_ROUNDS):
-        full_gcs = gc.get_stats()[2]["collections"]
-        t0 = time.perf_counter()
-        decisions = sched.schedule(bindings)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        gc_rounds.append(gc.get_stats()[2]["collections"] > full_gcs)
-    launches = kernels.launch_counts()
-    p50, p90, p99 = (float(np.percentile(times, q)) for q in (50, 90, 99))
-    log(f"flagship round on {name} ({smi}): p50 {p50:.4f} s p90 {p90:.4f} s "
-        f"p99 {p99:.4f} s min {min(times):.4f} s max {max(times):.4f} s over "
-        f"{TIMED_ROUNDS} rounds; launches {launches}; "
-        f"candidate stats {sched.last_candidate_stats}")
-    with_gc = [x for x, g in zip(times, gc_rounds) if g]
-    without = [x for x, g in zip(times, gc_rounds) if not g]
-    log(f"rounds with a full (generation 2) garbage collection: {len(with_gc)}, median "
-        f"{np.median(with_gc) if with_gc else float('nan'):.4f} s; without: {len(without)}, "
-        f"median {np.median(without) if without else float('nan'):.4f} s")
-    for n, c in launches.items():
-        if c <= 0:
-            raise AssertionError(f"{n} was not launched by the flagship round")
 
-    # where a round's time goes: one more round split at its seams (host
-    # clock), and the batch encode alone (row cache warm, as in these rounds)
+def check_dense_kernels(sched, bindings, dev, results):
+    """Phase 3 for the dense round's kernels (B3, B4, B5', B6); returns
+    their ms per dense flagship round."""
+    filt_args, t, tails, mask_idx, mk = dense_kernel_inputs(sched, bindings)
+    B, C = filt_args[7].shape[0], filt_args[0].shape[0]
+    rng = np.random.default_rng(1)
+
+    # ---- seeded tie-heavy random inputs at the dense flagship shapes ----
+    r_args = random_select_inputs(rng, dev, B, C)
+    err_f = compare("dense_filter[random]", kernels._dense_filter_launch(*r_args, plugin_bits=31),
+                    kernels.dense_filter_plain(*r_args, plugin_bits=31), FILTER_OUT)
+    del r_args
+    err_t = 0
+    shapes = [(B, C, int(r.numel()), topk, h) for r, topk, h in tails]
+    shapes += [(B, C, int(tails[1][0].numel()), 8, True), (64, WIDE_C, 48, 128, True),
+               (64, WIDE_C, 48, 16, False)]
+    for rb, rc, n, topk, has_agg in shapes:
+        a = random_dense_tail_inputs(rng, dev, rb, rc, n)
+        err_t = max(err_t, compare(f"dense_tail[random,{rc},{n},{topk},{has_agg}]",
+                                   kernels._dense_tail_launch(*a, topk=topk, has_agg=has_agg),
+                                   kernels.dense_tail_plain(*a, topk=topk, has_agg=has_agg),
+                                   TAIL_OUT))
+        del a
+    m = torch.from_numpy(rng.random((int(mask_idx.numel()), C)) <
+                         rng.random((int(mask_idx.numel()), 1))).to(dev)
+    m[::7] = torch.rand(m[::7].shape, device=dev) < 0.003
+    err_m = compare("pack_rows[random]", [kernels._pack_rows_launch(m)],
+                    [kernels.pack_rows_plain(m)], ("packed",))
+    err_i = 0
+    for k in (mk, 128):
+        err_i = max(err_i, compare(f"feas_idx[random,{k}]", [kernels._feas_idx_launch(m, k)],
+                                   [kernels.feas_idx_plain(m, k)], ("idx",)))
+    log(f"random inputs (filter {B}x{C}; tail {[s[:4] for s in shapes]}; masks "
+        f"{tuple(m.shape)}): the dense kernels equal their plain versions exactly")
+    del m
+
+    # ---- the dense flagship's own batch ----
+    bits = sched._plugin_bits
+    filt = kernels._dense_filter_launch(*filt_args, plugin_bits=bits)
+    err_f = max(err_f, compare("dense_filter[flagship]", filt,
+                               kernels.dense_filter_plain(*filt_args, plugin_bits=bits),
+                               FILTER_OUT))
+    t_args = [dense_tail_args(filt, t, rows) for rows, _, _ in tails]
+    t_outs = []
+    for a, (_, topk, has_agg) in zip(t_args, tails):
+        out = kernels._dense_tail_launch(*a, topk=topk, has_agg=has_agg)
+        err_t = max(err_t, compare(f"dense_tail[flagship,{has_agg}]", out,
+                                   kernels.dense_tail_plain(*a, topk=topk, has_agg=has_agg),
+                                   TAIL_OUT))
+        t_outs.append(out)
+    m_feas = filt[0].index_select(0, mask_idx)
+    idx = kernels._feas_idx_launch(m_feas, mk)
+    err_i = max(err_i, compare("feas_idx[flagship]", [idx], [kernels.feas_idx_plain(m_feas, mk)],
+                               ("idx",)))
+    packed = kernels._pack_rows_launch(m_feas)
+    err_m = max(err_m, compare("pack_rows[flagship]", [packed], [kernels.pack_rows_plain(m_feas)],
+                               ("packed",)))
+    log(f"dense flagship batch: filter {B}x{C}, tail rows "
+        f"{[int(r.numel()) for r, _, _ in tails]} windows {[w for _, w, _ in tails]}, mask rows "
+        f"{int(mask_idx.numel())} (k={mk}): the dense kernels equal their plain versions")
+
+    # ---- timing on the dense flagship's own inputs ----
+    f_ms = cuda_ms(lambda: kernels._dense_filter_launch(*filt_args, plugin_bits=bits), 10)
+    f_plain = cuda_ms(lambda: kernels.dense_filter_plain(*filt_args, plugin_bits=bits), 3)
+
+    def both_tails(fn):
+        return lambda: [fn(*a, topk=w, has_agg=h) for a, (_, w, h) in zip(t_args, tails)]
+
+    t_ms = cuda_ms(both_tails(kernels._dense_tail_launch), 5)
+    t_plain = cuda_ms(both_tails(kernels.dense_tail_plain), 3)
+    i_ms = cuda_ms(lambda: kernels._feas_idx_launch(m_feas, mk), 20)
+    i_plain = cuda_ms(lambda: kernels.feas_idx_plain(m_feas, mk), 20)
+    key = torch.where(m_feas, torch.arange(C, dtype=torch.int32, device=dev),
+                      torch.tensor(kernels.FEAS_IDX_PAD, dtype=torch.int32, device=dev))
+    if not torch.equal(torch.topk(key, mk, largest=False, sorted=True).values, idx):
+        raise AssertionError("torch.topk disagrees with feas_idx on the flagship mask rows")
+    i_lib = cuda_ms(lambda: torch.topk(key, mk, largest=False, sorted=True).values, 20)
+    p_ms = cuda_ms(lambda: kernels._pack_rows_launch(m_feas), 20)
+    p_plain = cuda_ms(lambda: kernels.pack_rows_plain(m_feas), 20)
+    fb, fb_by = dense_filter_bound(filt_args, filt)
+    tb, tb_by = dense_tail_bound(filt, [r for r, _, _ in tails], t["weight_tables"], t_outs)
+    ib, ib_by = mask_bound(m_feas, idx)
+    pb, pb_by = mask_bound(m_feas, packed)
+    csrc = "karmada_tpu_torch/kernels/csrc/"
+    results["dense_filter"] = dict(
+        source=csrc + "dense_filter.cu", replaces="karmada_tpu/sched/core.py:452",
+        max_abs_err=err_f, ms=f_ms, plain_ms=f_plain, bound_ms=fb, bound_by=fb_by,
+        library_ms=None)
+    results["dense_tail"] = dict(
+        source=csrc + "dense_tail.cu", replaces="karmada_tpu/sched/core.py:502",
+        max_abs_err=err_t, ms=t_ms, plain_ms=t_plain, bound_ms=tb, bound_by=tb_by,
+        library_ms=None)
+    results["pack_rows"] = dict(
+        source=csrc + "dense_mask.cu", replaces="karmada_tpu/sched/core.py:530",
+        max_abs_err=err_m, ms=p_ms, plain_ms=p_plain, bound_ms=pb, bound_by=pb_by,
+        library_ms=None)
+    results["feas_idx"] = dict(
+        source=csrc + "dense_mask.cu", replaces="karmada_tpu/sched/core.py:539",
+        max_abs_err=err_i, ms=i_ms, plain_ms=i_plain, bound_ms=ib, bound_by=ib_by,
+        library_ms=i_lib)
+    log(f"timing (dense flagship inputs): dense_filter {f_ms:.3f} ms (plain {f_plain:.3f}, bound "
+        f"{fb:.4f} {fb_by}); dense_tail, both launches of a round {t_ms:.3f} ms (plain "
+        f"{t_plain:.3f}, bound {tb:.4f} {tb_by}); feas_idx {i_ms:.4f} ms (plain {i_plain:.4f}, "
+        f"torch.topk {i_lib:.4f}, bound {ib:.4f} {ib_by}); pack_rows {p_ms:.4f} ms (plain "
+        f"{p_plain:.4f}, bound {pb:.4f} {pb_by})")
+    return f_ms + t_ms + i_ms
+
+
+def round_breakdown(label, sched, bindings, kernel_ms, p50):
+    """One more round split at its seams (host clock), and the batch
+    encode alone (row cache warm, as in the timed rounds)."""
     t0 = time.perf_counter()
     state = sched._launch_solve(bindings)
     t1 = time.perf_counter()
@@ -446,32 +706,96 @@ def main() -> int:
     t3 = time.perf_counter()
     sched.batch_encoder.encode(bindings)
     t4 = time.perf_counter()
-    kernel_s = (sel_ms + tail_ms) / 1e3
-    log(f"round breakdown: launch (classify + encode + upload + dispatch) {t1 - t0:.4f} s "
-        f"[of which encode {t4 - t3:.4f} s], wait for the device {t2 - t1:.4f} s, "
-        f"materialize (copy back + decode) {t3 - t2:.4f} s; kernel time per round "
-        f"{kernel_s:.4f} s = {kernel_s / p50:.3f} of the p50 round (device busy share, "
+    kernel_s = kernel_ms / 1e3
+    log(f"{label} round breakdown: launch (classify + encode + upload + dispatch) "
+        f"{t1 - t0:.4f} s [of which encode {t4 - t3:.4f} s], wait for the device "
+        f"{t2 - t1:.4f} s, materialize (copy back + decode) {t3 - t2:.4f} s; kernel time per "
+        f"round {kernel_s:.4f} s = {kernel_s / p50:.3f} of the p50 round (device busy share, "
         "from the phase-3 kernel timings)")
 
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    kernels_only = "--kernels-only" in argv
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke test runs on the card only",
+              file=sys.stderr)
+        return 2
+    dev = torch.device(DEVICE)
+    name = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    log(f"device: {name} | nvidia-smi: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
+
+    # ---- phase 2: build ----
     t0 = time.perf_counter()
-    cpu_sched = ArrayScheduler(clusters, device="cpu")
-    cpu_dec = cpu_sched.schedule(bindings)
-    log(f"cpu round (plain PyTorch path): {time.perf_counter() - t0:.1f} s")
-    got = [decision_view(d) for d in decisions]
-    want = [decision_view(d) for d in cpu_dec]
-    if got != want:
-        bad = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
-        raise AssertionError(f"card and cpu decisions differ at row {bad}: {got[bad]} vs {want[bad]}")
-    placed = sum(1 for d in decisions if d.ok)
-    replicas = sum(t.replicas for d in decisions if d.ok for t in d.targets)
-    log(f"decisions identical to the cpu round: {len(decisions)} rows, {placed} placed, "
-        f"{replicas} replicas")
+    libs = build.build_all(verbose=True)
+    log(f"build: {len(libs)} kernel sources in {time.perf_counter() - t0:.1f} s")
+
+    # ---- the flagship schedulers (their batches feed phase 3 too) ----
+    t0 = time.perf_counter()
+    clusters, bindings = build_flagship()
+    sched = ArrayScheduler(clusters, device=dev)
+    d_clusters, d_bindings = build_flagship(dense=True)
+    d_sched = ArrayScheduler(d_clusters, device=dev)
+    log(f"flagship: {len(clusters)} clusters x {len(bindings)} bindings, compact and dense "
+        f"(dense-solve), built in {time.perf_counter() - t0:.1f} s (fleet width "
+        f"{len(sched.fleet.names)})")
+
+    # ---- phase 3: kernels against their plain versions on the card ----
+    results = {}
+    compact_ms = check_compact_kernels(sched, bindings, dev, results)
+    dense_ms = check_dense_kernels(d_sched, d_bindings, dev, results)
+    torch.cuda.empty_cache()
+    if kernels_only:
+        log("kernels-only: phase 3 passed; no main path was run")
+        return 0
+
+    # ---- phase 4: the main paths ----
+    path_launches = {}
+    decisions, launches, times = drive(
+        "compact flagship round", sched, bindings, TIMED_ROUNDS,
+        {"candidate_select": 1, "candidate_tail": 2}, smi)
+    path_launches.update({n: launches[n] for n in ("candidate_select", "candidate_tail")})
+    log(f"candidate stats {sched.last_candidate_stats}")
+    round_breakdown("compact flagship", sched, bindings, compact_ms,
+                    float(np.percentile(times, 50)))
+    hold_against_cpu("compact flagship", clusters, bindings, decisions)
+
+    decisions, launches, times = drive(
+        "dense flagship round (reason policy)", d_sched, d_bindings, TIMED_ROUNDS,
+        {"dense_filter": 1, "dense_tail": 2, "feas_idx": 1}, smi)
+    path_launches.update({n: launches[n] for n in ("dense_filter", "dense_tail", "feas_idx")})
+    round_breakdown("dense flagship", d_sched, d_bindings, dense_ms,
+                    float(np.percentile(times, 50)))
+    hold_against_cpu("dense flagship", d_clusters, d_bindings, decisions)
+    del d_sched
+
+    w_clusters, w_bindings = build_flagship(dense=True, whole_fleet_dup=True)
+    w_sched = ArrayScheduler(w_clusters, device=dev)
+    decisions, launches, _ = drive(
+        "dense flagship, Duplicated over the whole fleet", w_sched, w_bindings, VARIANT_ROUNDS,
+        {"dense_filter": 1, "dense_tail": 2, "pack_rows": 1}, smi)
+    path_launches["pack_rows"] = launches["pack_rows"]
+    hold_against_cpu("whole-fleet Duplicated", w_clusters, w_bindings, decisions)
+    del w_sched
+
+    s_clusters, s_bindings = build_static()
+    decisions, _, _ = drive("config 2 (build_static, reason small_fleet)",
+                            ArrayScheduler(s_clusters, device=dev), s_bindings, TIMED_ROUNDS,
+                            {"dense_filter": 1, "dense_tail": 1}, smi)
+    hold_against_cpu("config 2", s_clusters, s_bindings, decisions)
+
+    c_clusters, c_bindings = build_dup3()
+    decisions, _, _ = drive("config 1 (build_dup3, reason small_fleet)",
+                            ArrayScheduler(c_clusters, device=dev), c_bindings, TIMED_ROUNDS,
+                            {"dense_filter": 1, "feas_idx": 1}, smi)
+    hold_against_cpu("config 1", c_clusters, c_bindings, decisions)
 
     line = {"kernels": [
-        {"name": n, "route": "cuda", **{k_: v for k_, v in r.items() if k_ in ("source", "replaces")},
-         "launches": launches[n], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        {"name": n, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
+         "launches": path_launches[n], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": None, "matches_plain": True}
+         "library_ms": r["library_ms"], "matches_plain": True}
         for n, r in results.items()
     ]}
     print(json.dumps(line), flush=True)

@@ -1,12 +1,24 @@
-"""Kernel wrappers of the compact candidate round, each beside its plain
-PyTorch version.
+"""Kernel wrappers of the schedule rounds, each beside its plain PyTorch
+version.
 
+Compact candidate round:
 - `candidate_select` (csrc/candidate_select.cu): filters + locality score
   over [B, C], the top-K window, and everything gathered to [B, K]; the
   plain version is `select_plain`.
 - `candidate_tail` (csrc/candidate_tail.cu): the replica-division tail over
   [rows, K] windows plus the compact output window; the plain version is
   `tail_plain`.
+
+Dense round:
+- `dense_filter` (csrc/dense_filter.cu): filters, score, the [B, C]
+  estimator answer, previous replicas, tie values and the feasible count;
+  the plain version is `dense_filter_plain`.
+- `dense_tail` (csrc/dense_tail.cu): the replica-division tail over full
+  rows of width C, read from the filter outputs through row ids, plus the
+  compact output window; the plain version is `dense_tail_plain`.
+- `pack_rows` and `feas_idx` (csrc/dense_mask.cu): bit-packed feasible rows
+  and the first k feasible column ids per row; the plain versions are
+  `pack_rows_plain` and `feas_idx_plain`.
 
 A wrapper runs the plain version only for tensors that lie on the CPU. For
 CUDA tensors it checks device, dtype, shape and contiguity, launches the
@@ -27,6 +39,9 @@ I64, I32, BOOL, U8 = torch.int64, torch.int32, torch.bool, torch.uint8
 # column; the select kernel sorts the row's padded keys in shared memory
 MAX_TAIL_K = 128
 MAX_SELECT_SMEM = 232448  # bytes a block may use on sm_90
+# the dense tail sorts its output window in shared memory
+MAX_DENSE_TOPK = 128
+FEAS_IDX_PAD = 1 << 30  # feas_idx's value past a row's feasible count
 
 
 # --------------------------------------------------------------------------
@@ -88,6 +103,70 @@ def tail_plain(
     return result, unschedulable, avail_sum, nnz, top_idx, top_val
 
 
+def dense_filter_plain(
+    alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
+    replicas, unknown_request, gvk, tol_tables, tol_idx,
+    aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
+    req_unique, req_idx, extra_avail, *, plugin_bits: int,
+):
+    """Plain version of the dense-filter kernel (the reference's
+    `_filter_kernel_compact`): over the full [B, C] grid. Returns (feasible
+    bool[B,C], score i32, avail i32, prev_replicas i32, tie i32,
+    feas_count i32[B]). `extra_avail` is None or i32[B,C] (-1 = no
+    answer), min-merged into avail."""
+    C = alive.shape[0]
+    prev_member, prev_replicas, eviction_ok = core.sparse_rows(prev_idx, prev_rep, evict_idx, C)
+    feasible, score, avail = core.filter_estimate_phase(
+        alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
+        replicas, unknown_request, gvk, tol_tables, tol_idx,
+        aff_masks[aff_idx.long()], eviction_ok, prev_member, req_unique, req_idx,
+        plugin_bits=plugin_bits,
+    )
+    if extra_avail is not None:
+        avail = torch.where(extra_avail >= 0, torch.minimum(avail, extra_avail), avail)
+    tie = core.tie_at(seeds, torch.arange(C, device=alive.device)[None, :])
+    return feasible, score, avail, prev_replicas, tie, feasible.sum(-1).to(I32)
+
+
+def dense_tail_plain(
+    feasible, avail, prev, tie, rows,
+    weight_tables, weight_idx, strategy, replicas, fresh, *, topk: int, has_agg: bool,
+):
+    """Plain version of the dense-tail kernel (the reference's `_tail_kernel`
+    on the filter outputs' rows `rows`): `feasible`/`avail`/`prev`/`tie` are
+    the [B, C] filter outputs and `weight_idx`/`strategy`/`replicas`/`fresh`
+    the batch's [B] columns, all read at `rows` (i32[n]). Returns (result
+    i32[n,C], unschedulable bool[n], avail_sum i32[n], nnz i32[n], top_idx
+    i32[n,w], top_val i32[n,w]) with w = min(C, topk), the window in
+    (value desc, column asc) order."""
+    r = rows.long()
+    f = feasible.index_select(0, r)
+    static_weight = weight_tables[weight_idx.index_select(0, r).long()]
+    result, unschedulable, avail_sum = core.assignment_tail(
+        f, strategy.index_select(0, r), static_weight, avail.index_select(0, r),
+        prev.index_select(0, r), tie.index_select(0, r), replicas.index_select(0, r),
+        fresh.index_select(0, r), has_agg=has_agg,
+    )
+    _, nnz, top_idx, top_val = core.compact_outputs(f, result, min(f.shape[1], topk))
+    return result, unschedulable, avail_sum, nnz, top_idx, top_val
+
+
+pack_rows_plain = core.pack_bits
+
+
+def feas_idx_plain(feasible, k: int):
+    """Plain version of the feasible-index kernel (the reference's
+    `_feas_idx_kernel`): the ascending ids of the first k feasible columns
+    of each row, padded with 2**30 past the row's feasible count (i32[B,k])."""
+    B, C = feasible.shape
+    out = torch.full((B, k + 1), FEAS_IDX_PAD, dtype=I32, device=feasible.device)
+    pos = feasible.to(I64).cumsum(-1) - 1
+    pos = torch.where(feasible & (pos < k), pos, k)  # the rest lands in column k
+    iota = torch.arange(C, dtype=I32, device=feasible.device).expand(B, C)
+    out.scatter_(1, pos, iota)
+    return out[:, :k].contiguous()
+
+
 # --------------------------------------------------------------------------
 # wrappers
 # --------------------------------------------------------------------------
@@ -124,6 +203,43 @@ def _pow2(n: int) -> int:
     while p < n:
         p *= 2
     return p
+
+
+def _check_filter_args(
+    alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
+    replicas, unknown_request, gvk, tol_tables, tol_idx,
+    aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
+    req_unique, req_idx, extra_avail,
+):
+    """Check the fleet and factored-batch inputs shared by candidate_select
+    and dense_filter; returns (C, R, T, G, B, Kt, Kp, Ke)."""
+    dev = alive.device
+    C, R = capacity.shape
+    T = taint_key.shape[1]
+    G = api_ok.shape[1]
+    B = replicas.shape[0]
+    Tt, _, Kt = tol_tables.shape
+    P = aff_masks.shape[0]
+    Kp = prev_idx.shape[1]
+    Ke = evict_idx.shape[1]
+    U = req_unique.shape[0]
+    for name, t, dt, shape in (
+        ("alive", alive, BOOL, (C,)), ("capacity", capacity, I64, (C, R)),
+        ("has_summary", has_summary, BOOL, (C,)),
+        ("taint_key", taint_key, I32, (C, T)), ("taint_value", taint_value, I32, (C, T)),
+        ("taint_effect", taint_effect, I32, (C, T)), ("api_ok", api_ok, BOOL, (C, G)),
+        ("replicas", replicas, I32, (B,)), ("unknown_request", unknown_request, BOOL, (B,)),
+        ("gvk", gvk, I32, (B,)), ("tol_tables", tol_tables, I32, (Tt, 4, Kt)),
+        ("tol_idx", tol_idx, I32, (B,)), ("aff_masks", aff_masks, BOOL, (P, C)),
+        ("aff_idx", aff_idx, I32, (B,)), ("prev_idx", prev_idx, I32, (B, Kp)),
+        ("prev_rep", prev_rep, I32, (B, Kp)), ("evict_idx", evict_idx, I32, (B, Ke)),
+        ("seeds", seeds, I64, (B,)), ("req_unique", req_unique, I64, (U, R)),
+        ("req_idx", req_idx, I32, (B,)),
+    ):
+        _check(name, t, dt, shape, dev)
+    if extra_avail is not None:
+        _check("extra_avail", extra_avail, I32, (B, C), dev)
+    return C, R, T, G, B, Kt, Kp, Ke
 
 
 def select_smem_bytes(C: int, k: int, Kt: int, Kp: int, Ke: int) -> int:
@@ -164,31 +280,12 @@ def _select_launch(
 ):
     """Check, allocate and launch candidate_select_kernel."""
     dev = alive.device
-    C, R = capacity.shape
-    T = taint_key.shape[1]
-    G = api_ok.shape[1]
-    B = replicas.shape[0]
-    Tt, _, Kt = tol_tables.shape
-    P = aff_masks.shape[0]
-    Kp = prev_idx.shape[1]
-    Ke = evict_idx.shape[1]
-    U = req_unique.shape[0]
-    for name, t, dt, shape in (
-        ("alive", alive, BOOL, (C,)), ("capacity", capacity, I64, (C, R)),
-        ("has_summary", has_summary, BOOL, (C,)),
-        ("taint_key", taint_key, I32, (C, T)), ("taint_value", taint_value, I32, (C, T)),
-        ("taint_effect", taint_effect, I32, (C, T)), ("api_ok", api_ok, BOOL, (C, G)),
-        ("replicas", replicas, I32, (B,)), ("unknown_request", unknown_request, BOOL, (B,)),
-        ("gvk", gvk, I32, (B,)), ("tol_tables", tol_tables, I32, (Tt, 4, Kt)),
-        ("tol_idx", tol_idx, I32, (B,)), ("aff_masks", aff_masks, BOOL, (P, C)),
-        ("aff_idx", aff_idx, I32, (B,)), ("prev_idx", prev_idx, I32, (B, Kp)),
-        ("prev_rep", prev_rep, I32, (B, Kp)), ("evict_idx", evict_idx, I32, (B, Ke)),
-        ("seeds", seeds, I64, (B,)), ("req_unique", req_unique, I64, (U, R)),
-        ("req_idx", req_idx, I32, (B,)),
-    ):
-        _check(name, t, dt, shape, dev)
-    if extra_avail is not None:
-        _check("extra_avail", extra_avail, I32, (B, C), dev)
+    C, R, T, G, B, Kt, Kp, Ke = _check_filter_args(
+        alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
+        replicas, unknown_request, gvk, tol_tables, tol_idx,
+        aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
+        req_unique, req_idx, extra_avail,
+    )
     if not 0 < k <= C:
         raise ValueError(f"candidate_select: k={k} must be in (0, C={C}]")
     smem = select_smem_bytes(C, k, Kt, Kp, Ke)
@@ -304,7 +401,215 @@ def _tail_launch(
 
 candidate_tail.launches = 0
 
-KERNELS = (candidate_select, candidate_tail)
+
+def dense_filter(
+    alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
+    replicas, unknown_request, gvk, tol_tables, tol_idx,
+    aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
+    req_unique, req_idx, extra_avail, *, plugin_bits: int,
+):
+    """Dense filter + estimate over the fleet and a padded batch (see
+    dense_filter_plain for the contract)."""
+    args = (alive, capacity, has_summary, taint_key, taint_value, taint_effect,
+            api_ok, replicas, unknown_request, gvk, tol_tables, tol_idx,
+            aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
+            req_unique, req_idx, extra_avail)
+    dev = alive.device
+    if dev.type == "cpu":
+        return dense_filter_plain(*args, plugin_bits=plugin_bits)
+    if dev.type != "cuda":
+        raise ValueError(f"dense_filter: unsupported device {dev}")
+    out = _dense_filter_launch(*args, plugin_bits=plugin_bits)
+    dense_filter.launches += 1
+    return out
+
+
+def _dense_filter_launch(
+    alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
+    replicas, unknown_request, gvk, tol_tables, tol_idx,
+    aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
+    req_unique, req_idx, extra_avail, *, plugin_bits: int,
+):
+    """Check, allocate and launch dense_filter_kernel."""
+    dev = alive.device
+    C, R, T, G, B, Kt, Kp, Ke = _check_filter_args(
+        alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
+        replicas, unknown_request, gvk, tol_tables, tol_idx,
+        aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
+        req_unique, req_idx, extra_avail,
+    )
+    feasible = torch.empty((B, C), dtype=BOOL, device=dev)
+    score = torch.empty((B, C), dtype=I32, device=dev)
+    avail = torch.empty((B, C), dtype=I32, device=dev)
+    prev = torch.empty((B, C), dtype=I32, device=dev)
+    tie = torch.empty((B, C), dtype=I32, device=dev)
+    feas_count = torch.empty((B,), dtype=I32, device=dev)
+    if B == 0 or C == 0:
+        return feasible, score, avail, prev, tie, feas_count.zero_()
+    from .build import library
+
+    fn = library("dense_filter").dense_filter_launch
+    fn.restype = ctypes.c_int
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 13 + [ci] * 6 + [vp] * 7 + [vp]
+    rc = fn(
+        _ptr(alive), _ptr(capacity), _ptr(has_summary), _ptr(taint_key),
+        _ptr(taint_value), _ptr(taint_effect), _ptr(api_ok),
+        C, R, T, G,
+        _ptr(replicas), _ptr(unknown_request), _ptr(gvk), _ptr(tol_tables),
+        _ptr(tol_idx), _ptr(aff_masks), _ptr(aff_idx), _ptr(prev_idx),
+        _ptr(prev_rep), _ptr(evict_idx), _ptr(seeds), _ptr(req_unique),
+        _ptr(req_idx),
+        B, Kt, Kp, Ke, plugin_bits, 1 if extra_avail is not None else 0,
+        _ptr(extra_avail), _ptr(feasible), _ptr(score), _ptr(avail), _ptr(prev),
+        _ptr(tie), _ptr(feas_count), _stream(dev),
+    )
+    _raise_on(rc, "dense_filter")
+    return feasible, score, avail, prev, tie, feas_count
+
+
+dense_filter.launches = 0
+
+
+def dense_tail(
+    feasible, avail, prev, tie, rows,
+    weight_tables, weight_idx, strategy, replicas, fresh, *, topk: int, has_agg: bool,
+):
+    """Division tail over the full filter rows `rows` (see dense_tail_plain
+    for the contract)."""
+    args = (feasible, avail, prev, tie, rows, weight_tables, weight_idx,
+            strategy, replicas, fresh)
+    dev = feasible.device
+    if dev.type == "cpu":
+        return dense_tail_plain(*args, topk=topk, has_agg=has_agg)
+    if dev.type != "cuda":
+        raise ValueError(f"dense_tail: unsupported device {dev}")
+    out = _dense_tail_launch(*args, topk=topk, has_agg=has_agg)
+    dense_tail.launches += 1
+    return out
+
+
+def _dense_tail_launch(
+    feasible, avail, prev, tie, rows,
+    weight_tables, weight_idx, strategy, replicas, fresh, *, topk: int, has_agg: bool,
+):
+    """Check, allocate and launch dense_tail_kernel. Row ids must lie in
+    [0, B): the kernel reads them as they are."""
+    dev = feasible.device
+    B, C = feasible.shape
+    n = rows.shape[0]
+    W = weight_tables.shape[0]
+    for name, t, dt, shape in (
+        ("feasible", feasible, BOOL, (B, C)), ("avail", avail, I32, (B, C)),
+        ("prev", prev, I32, (B, C)), ("tie", tie, I32, (B, C)),
+        ("rows", rows, I32, (n,)), ("weight_tables", weight_tables, I64, (W, C)),
+        ("weight_idx", weight_idx, I32, (B,)), ("strategy", strategy, I32, (B,)),
+        ("replicas", replicas, I32, (B,)), ("fresh", fresh, BOOL, (B,)),
+    ):
+        _check(name, t, dt, shape, dev)
+    w = min(C, topk)
+    if not 0 < w <= MAX_DENSE_TOPK:
+        raise NotImplementedError(
+            f"dense_tail: output window {w} outside (0, {MAX_DENSE_TOPK}] (the "
+            "window is sorted in shared memory)"
+        )
+    result = torch.empty((n, C), dtype=I32, device=dev)
+    unsched = torch.empty((n,), dtype=BOOL, device=dev)
+    avail_sum = torch.empty((n,), dtype=I32, device=dev)
+    nnz = torch.empty((n,), dtype=I32, device=dev)
+    top_idx = torch.empty((n, w), dtype=I32, device=dev)
+    top_val = torch.empty((n, w), dtype=I32, device=dev)
+    if n == 0:
+        return result, unsched, avail_sum, nnz, top_idx, top_val
+    from .build import library
+
+    fn = library("dense_tail").dense_tail_launch
+    fn.restype = ctypes.c_int
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp] * 4 + [ci, vp, ci] + [vp] * 5 + [ci] * 2 + [vp] * 6 + [vp]
+    rc = fn(
+        _ptr(feasible), _ptr(avail), _ptr(prev), _ptr(tie), C, _ptr(rows), n,
+        _ptr(weight_tables), _ptr(weight_idx), _ptr(strategy), _ptr(replicas),
+        _ptr(fresh), w, 1 if has_agg else 0,
+        _ptr(result), _ptr(unsched), _ptr(avail_sum), _ptr(nnz),
+        _ptr(top_idx), _ptr(top_val), _stream(dev),
+    )
+    _raise_on(rc, "dense_tail")
+    return result, unsched, avail_sum, nnz, top_idx, top_val
+
+
+dense_tail.launches = 0
+
+
+def pack_rows(feasible):
+    """bool[B, C] -> u8[B, ceil(C/8)], bit j of byte i = column 8i+j (see
+    pack_rows_plain)."""
+    dev = feasible.device
+    if dev.type == "cpu":
+        return pack_rows_plain(feasible)
+    if dev.type != "cuda":
+        raise ValueError(f"pack_rows: unsupported device {dev}")
+    out = _pack_rows_launch(feasible)
+    pack_rows.launches += 1
+    return out
+
+
+def _pack_rows_launch(feasible):
+    """Check, allocate and launch pack_rows_kernel."""
+    dev = feasible.device
+    B, C = feasible.shape
+    _check("feasible", feasible, BOOL, (B, C), dev)
+    out = torch.empty((B, (C + 7) // 8), dtype=U8, device=dev)
+    if B == 0 or C == 0:
+        return out
+    from .build import library
+
+    fn = library("dense_mask").pack_rows_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    _raise_on(fn(_ptr(feasible), B, C, _ptr(out), _stream(dev)), "pack_rows")
+    return out
+
+
+pack_rows.launches = 0
+
+
+def feas_idx(feasible, k: int):
+    """The first k feasible column ids per row (see feas_idx_plain)."""
+    dev = feasible.device
+    if dev.type == "cpu":
+        return feas_idx_plain(feasible, k)
+    if dev.type != "cuda":
+        raise ValueError(f"feas_idx: unsupported device {dev}")
+    out = _feas_idx_launch(feasible, k)
+    feas_idx.launches += 1
+    return out
+
+
+def _feas_idx_launch(feasible, k: int):
+    """Check, allocate and launch feas_idx_kernel."""
+    dev = feasible.device
+    B, C = feasible.shape
+    _check("feasible", feasible, BOOL, (B, C), dev)
+    if not 0 < k <= C:
+        raise ValueError(f"feas_idx: k={k} must be in (0, C={C}]")
+    out = torch.empty((B, k), dtype=I32, device=dev)
+    if B == 0:
+        return out
+    from .build import library
+
+    fn = library("dense_mask").feas_idx_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    _raise_on(fn(_ptr(feasible), B, C, k, _ptr(out), _stream(dev)), "feas_idx")
+    return out
+
+
+feas_idx.launches = 0
+
+KERNELS = (candidate_select, candidate_tail, dense_filter, dense_tail, pack_rows, feas_idx)
 
 
 def reset_launches() -> None:
@@ -314,4 +619,3 @@ def reset_launches() -> None:
 
 def launch_counts() -> dict[str, int]:
     return {fn.__name__: fn.launches for fn in KERNELS}
-

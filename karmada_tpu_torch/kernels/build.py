@@ -2,8 +2,9 @@
 
 Each source under `csrc/` compiles on its own with
 `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC`
-into `_build/<name>-<hash of the source>.so` beside this file; all nvcc
-processes start together. A library whose source hash is already built is
+into `_build/<name>-<hash>.so` beside this file, the hash covering the
+source, the shared headers (`csrc/*.cuh`) and the flags; all nvcc
+processes start together. A library whose hash is already built is
 reused. The sources have a plain C interface (no PyTorch headers), so a
 build takes seconds.
 """
@@ -19,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("candidate_select", "candidate_tail")
+SOURCES = ("candidate_select", "candidate_tail", "dense_filter", "dense_tail", "dense_mask")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -43,7 +44,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -1,6 +1,6 @@
 // candidate_select: the candidate prepass of the compact schedule round.
 //
-// Replaces karmada_tpu/sched/candidates.py:209 `_candidate_select_kernel`
+// Replaces karmada_tpu/sched/candidates.py:210 `_candidate_select_kernel`
 // (with spread_batch.py:434 `_pack_bits`, candidates.py:166 `_tie_at` and
 // candidates.py:177 `_compact_estimate` fused in). For each binding row b
 // and cluster column c: the in-tree filters (alive, taints against the
@@ -24,53 +24,28 @@
 // keeps the keys on chip and never writes a [B, C] tensor. A radix select
 // of the K-th key is the planned faster version.
 //
-// Built by karmada_tpu_torch/kernels/build.py with nvcc for sm_90a and
-// called through the plain C entry point at the bottom (ctypes).
+// The per-column filter, estimate and tie live in filter_common.cuh,
+// shared with dense_filter.cu. Built by karmada_tpu_torch/kernels/build.py
+// with nvcc for sm_90a and called through the plain C entry point at the
+// bottom (ctypes).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "filter_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kBitApi = 1;
-constexpr int kBitTaint = 2;
-constexpr int kBitAffinity = 4;
-constexpr int kBitEviction = 8;
-constexpr int kBitLocality = 16;
-constexpr int kTolOpNone = 0;
-constexpr int kTolOpExists = 2;
-constexpr int kEffNoSchedule = 1;
-constexpr int kEffNoExecute = 3;
-constexpr int64_t kBig = int64_t(1) << 62;
-constexpr int64_t kI32Max = 2147483647;
+using filter_common::ColEval;
+using filter_common::FilterArgs;
+using filter_common::estimate;
+using filter_common::eval_col;
+using filter_common::tie_value;
 
-struct SelParams {
-  // fleet
-  const uint8_t* alive;         // [C]
-  const int64_t* capacity;      // [C,R]
-  const uint8_t* has_summary;   // [C]
-  const int32_t* taint_key;     // [C,T]
-  const int32_t* taint_value;   // [C,T]
-  const int32_t* taint_effect;  // [C,T]
-  const uint8_t* api_ok;        // [C,G]
-  int C, R, T, G;
-  // batch
-  const int32_t* replicas;         // [B]
-  const uint8_t* unknown_request;  // [B]
-  const int32_t* gvk;              // [B]
-  const int32_t* tol_tables;       // [Tt,4,Kt]
-  const int32_t* tol_idx;          // [B]
-  const uint8_t* aff_masks;        // [P,C]
-  const int32_t* aff_idx;          // [B]
-  const int32_t* prev_idx;         // [B,Kp]
-  const int32_t* prev_rep;         // [B,Kp]
-  const int32_t* evict_idx;        // [B,Ke]
-  const uint64_t* seeds;           // [B]
-  const int64_t* req_unique;       // [U,R]
-  const int32_t* req_idx;          // [B]
-  const int32_t* extra_avail;      // [B,C] or null
-  int B, Kt, Kp, Ke, K, plugin_bits;
+constexpr int kThreads = 512;
+
+struct SelParams : FilterArgs {
+  int K;
   int Cp;      // C padded to a power of two (>= 1024)
   int Kw;      // K padded to a power of two
   int cb;      // bits of the column field in the sort key
@@ -85,114 +60,6 @@ struct SelParams {
   int32_t* feas_count;  // [B]
   uint8_t* packed;      // [B,nbytes]
 };
-
-struct ColEval {
-  bool feasible;
-  int32_t score;
-  int32_t prev;
-};
-
-// Filters + locality score for column c of row b. `tol` is the row's
-// [4,Kt] toleration table row, `pidx`/`prep`/`ev` its prev/evict lists,
-// all in shared memory. A prev column listed twice takes its LAST entry.
-__device__ ColEval eval_col(const SelParams& p, int b, int c, const int32_t* tol,
-                            const int32_t* pidx, const int32_t* prep,
-                            const int32_t* ev) {
-  bool ok = p.alive[c] != 0;
-  if (p.plugin_bits & kBitTaint) {
-    for (int t = 0; t < p.T; ++t) {
-      const int te = p.taint_effect[c * p.T + t];
-      if (te != kEffNoSchedule && te != kEffNoExecute) continue;
-      const int tk = p.taint_key[c * p.T + t];
-      const int tv = p.taint_value[c * p.T + t];
-      bool tolerated = false;
-      for (int k = 0; k < p.Kt; ++k) {
-        const int op = tol[3 * p.Kt + k];
-        if (op == kTolOpNone) continue;
-        const int key = tol[k];
-        const int val = tol[p.Kt + k];
-        const int eff = tol[2 * p.Kt + k];
-        const bool key_match = key == tk || (key == 0 && op == kTolOpExists);
-        const bool effect_match = eff == 0 || eff == te;
-        const bool value_match = op == kTolOpExists || val == tv;
-        if (key_match && effect_match && value_match) {
-          tolerated = true;
-          break;
-        }
-      }
-      if (!tolerated) ok = false;
-    }
-  }
-  if (p.plugin_bits & kBitApi) {
-    const int g = p.gvk[b];
-    bool api = false;
-    if (p.G > 0 && g < p.G) {
-      const int gc = g < 0 ? 0 : g;
-      api = p.api_ok[(int64_t)c * p.G + gc] != 0;
-    }
-    ok = ok && api;
-  }
-  if (p.plugin_bits & kBitAffinity) {
-    ok = ok && p.aff_masks[(int64_t)p.aff_idx[b] * p.C + c] != 0;
-  }
-  if (p.plugin_bits & kBitEviction) {
-    for (int k = 0; k < p.Ke; ++k) {
-      if (ev[k] == c) ok = false;
-    }
-  }
-  bool member = false;
-  int32_t prev = 0;
-  for (int k = 0; k < p.Kp; ++k) {
-    if (pidx[k] == c) {
-      member = true;
-      prev = prep[k];
-    }
-  }
-  ColEval out;
-  out.feasible = ok;
-  out.score = (p.plugin_bits & kBitLocality) && member ? 100 : 0;
-  out.prev = prev;
-  return out;
-}
-
-__device__ __forceinline__ int32_t tie_value(uint64_t seed, int col) {
-  uint64_t x = seed ^ ((uint64_t)col + 1ull);
-  x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9ull;
-  x = (x ^ (x >> 27)) * 0x94D049BB133111EBull;
-  x = x ^ (x >> 31);
-  return (int32_t)(x >> 33);
-}
-
-// GeneralEstimator answer for row b at column c, in the order of the
-// reference's _compact_estimate / general_estimate_unique: per requested
-// resource cap // req (cap > 0, req >= 1, so C's truncating division
-// equals the floor), 0 where cap <= 0; no requested resource -> replicas;
-// no summary -> 0; >= INT32_MAX -> replicas; unknown request -> 0; then
-// the min-merge with a non-negative registered-estimator answer.
-__device__ int32_t estimate(const SelParams& p, int b, int c) {
-  const int r = p.req_idx[b];
-  bool any_req = false;
-  int64_t est = kBig;
-  for (int i = 0; i < p.R; ++i) {
-    const int64_t q = p.req_unique[(int64_t)r * p.R + i];
-    if (q <= 0) continue;
-    any_req = true;
-    const int64_t cap = p.capacity[(int64_t)c * p.R + i];
-    const int64_t v = cap <= 0 ? 0 : cap / q;
-    est = v < est ? v : est;
-  }
-  const int64_t reps = p.replicas[b];
-  if (!any_req) est = reps;
-  if (!p.has_summary[c]) est = 0;
-  if (est >= kI32Max) est = reps;
-  int32_t avail = (int32_t)(uint32_t)(uint64_t)est;
-  if (p.unknown_request[b]) avail = 0;
-  if (p.extra_avail != nullptr) {
-    const int32_t e = p.extra_avail[(int64_t)b * p.C + c];
-    if (e >= 0 && e < avail) avail = e;
-  }
-  return avail;
-}
 
 // In-place bitonic sort of n (a power of two) keys in shared memory, all
 // threads of the block taking part. descending = true sorts high first.
@@ -229,13 +96,7 @@ candidate_select_kernel(SelParams p) {
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  const int32_t* tol_row = p.tol_tables + (int64_t)p.tol_idx[b] * 4 * p.Kt;
-  for (int i = tid; i < 4 * p.Kt; i += blockDim.x) tol[i] = tol_row[i];
-  for (int i = tid; i < p.Kp; i += blockDim.x) {
-    pidx[i] = p.prev_idx[(int64_t)b * p.Kp + i];
-    prep[i] = p.prev_rep[(int64_t)b * p.Kp + i];
-  }
-  for (int i = tid; i < p.Ke; i += blockDim.x) ev[i] = p.evict_idx[(int64_t)b * p.Ke + i];
+  filter_common::load_row_lists(p, b, tol, pidx, prep, ev);
   if (tid == 0) count = 0;
   __syncthreads();
 
@@ -321,37 +182,12 @@ extern "C" int candidate_select_launch(
     void* c_score, void* c_avail, void* c_prev, void* c_tie, void* feas_count,
     void* packed, void* stream) {
   SelParams p;
-  p.alive = static_cast<const uint8_t*>(alive);
-  p.capacity = static_cast<const int64_t*>(capacity);
-  p.has_summary = static_cast<const uint8_t*>(has_summary);
-  p.taint_key = static_cast<const int32_t*>(taint_key);
-  p.taint_value = static_cast<const int32_t*>(taint_value);
-  p.taint_effect = static_cast<const int32_t*>(taint_effect);
-  p.api_ok = static_cast<const uint8_t*>(api_ok);
-  p.C = C;
-  p.R = R;
-  p.T = T;
-  p.G = G;
-  p.replicas = static_cast<const int32_t*>(replicas);
-  p.unknown_request = static_cast<const uint8_t*>(unknown_request);
-  p.gvk = static_cast<const int32_t*>(gvk);
-  p.tol_tables = static_cast<const int32_t*>(tol_tables);
-  p.tol_idx = static_cast<const int32_t*>(tol_idx);
-  p.aff_masks = static_cast<const uint8_t*>(aff_masks);
-  p.aff_idx = static_cast<const int32_t*>(aff_idx);
-  p.prev_idx = static_cast<const int32_t*>(prev_idx);
-  p.prev_rep = static_cast<const int32_t*>(prev_rep);
-  p.evict_idx = static_cast<const int32_t*>(evict_idx);
-  p.seeds = static_cast<const uint64_t*>(seeds);
-  p.req_unique = static_cast<const int64_t*>(req_unique);
-  p.req_idx = static_cast<const int32_t*>(req_idx);
-  p.extra_avail = has_extra ? static_cast<const int32_t*>(extra_avail) : nullptr;
-  p.B = B;
-  p.Kt = Kt;
-  p.Kp = Kp;
-  p.Ke = Ke;
+  static_cast<FilterArgs&>(p) = filter_common::make_filter_args(
+      alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok, C, R, T, G,
+      replicas, unknown_request, gvk, tol_tables, tol_idx, aff_masks, aff_idx, prev_idx,
+      prev_rep, evict_idx, seeds, req_unique, req_idx, B, Kt, Kp, Ke, plugin_bits, has_extra,
+      extra_avail);
   p.K = K;
-  p.plugin_bits = plugin_bits;
   p.Cp = pow2_at_least(C < 1024 ? 1024 : C);
   p.Kw = pow2_at_least(K);
   p.cb = bit_length(C - 1) > 0 ? bit_length(C - 1) : 1;

@@ -1,6 +1,6 @@
 // candidate_tail: the replica-division tail over compact candidate windows.
 //
-// Replaces karmada_tpu/sched/candidates.py:279 `_candidate_tail_kernel`
+// Replaces karmada_tpu/sched/candidates.py:280 `_candidate_tail_kernel`
 // (with core.py:230 `assignment_tail`, ops/assign.py:279 `combined_assign`,
 // `take_by_weight`, `_aggregated_keep` and core.py:254 `compact_outputs`
 // fused in). One block of 128 threads per row; thread j holds window

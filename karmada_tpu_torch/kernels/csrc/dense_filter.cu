@@ -1,0 +1,115 @@
+// dense_filter: phase 1 of the dense schedule round.
+//
+// Replaces karmada_tpu/sched/core.py:452 `_filter_kernel_compact` (with
+// decompress_batch's prev/evict scatters, `_device_tie` and
+// filter_estimate_phase fused in). For every binding row b and cluster
+// column c of the full [B, C] grid: feasibility under the in-tree filters,
+// the locality score, the GeneralEstimator answer (min over requested
+// resources of cap // req, with the reference's clamps in its order) and
+// its min-merge with a registered-estimator answer, the previous replicas
+// (the row's prev list scattered, last entry wins, ids outside [0, C)
+// dropped), and the splitmix64 tie over the global cluster id; plus the
+// row's feasible count. The per-column code is filter_common.cuh, shared
+// with candidate_select.cu.
+//
+// What bounds it on an H100: it is elementwise and writes four i32 and one
+// bool [B, C] tensors, 17 bytes per element (about 0.9 GB at 10240 x 5120),
+// so it is bound by memory bandwidth; the reads are the fleet tables (L2
+// resident) and one affinity-mask row per binding. The per-element work is
+// the taint x toleration loop, the prev/evict list scans from shared
+// memory, one int64 division per requested resource and the splitmix64
+// hash. One block of 256 threads per row: the row's toleration row and
+// prev/evict lists are staged in shared memory once, the threads stride
+// over the columns with coalesced stores, and the feasible count is a
+// shared-memory sum, so no [B, C] tensor is read back.
+//
+// Built by karmada_tpu_torch/kernels/build.py with nvcc for sm_90a and
+// called through the plain C entry point at the bottom (ctypes).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "filter_common.cuh"
+
+namespace {
+
+using filter_common::ColEval;
+using filter_common::FilterArgs;
+
+constexpr int kThreads = 256;
+
+struct DenseOut {
+  uint8_t* feasible;    // [B,C]
+  int32_t* score;       // [B,C]
+  int32_t* avail;       // [B,C]
+  int32_t* prev;        // [B,C]
+  int32_t* tie;         // [B,C]
+  int32_t* feas_count;  // [B]
+};
+
+__global__ void __launch_bounds__(kThreads)
+dense_filter_kernel(FilterArgs p, DenseOut o) {
+  extern __shared__ int32_t lists[];
+  int32_t* tol = lists;              // [4*Kt]
+  int32_t* pidx = tol + 4 * p.Kt;    // [Kp]
+  int32_t* prep = pidx + p.Kp;       // [Kp]
+  int32_t* ev = prep + p.Kp;         // [Ke]
+  __shared__ unsigned int count;
+
+  const int b = blockIdx.x;
+  filter_common::load_row_lists(p, b, tol, pidx, prep, ev);
+  if (threadIdx.x == 0) count = 0;
+  __syncthreads();
+
+  const uint64_t seed = p.seeds[b];
+  const int64_t row = (int64_t)b * p.C;
+  unsigned int local = 0;
+  for (int c = threadIdx.x; c < p.C; c += blockDim.x) {
+    const ColEval e = filter_common::eval_col(p, b, c, tol, pidx, prep, ev);
+    o.feasible[row + c] = e.feasible ? 1 : 0;
+    o.score[row + c] = e.score;
+    o.avail[row + c] = filter_common::estimate(p, b, c);
+    o.prev[row + c] = e.prev;
+    o.tie[row + c] = filter_common::tie_value(seed, c);
+    local += e.feasible ? 1u : 0u;
+  }
+  atomicAdd(&count, local);
+  __syncthreads();
+  if (threadIdx.x == 0) o.feas_count[b] = (int32_t)count;
+}
+
+}  // namespace
+
+extern "C" int dense_filter_launch(
+    const void* alive, const void* capacity, const void* has_summary,
+    const void* taint_key, const void* taint_value, const void* taint_effect,
+    const void* api_ok, int C, int R, int T, int G,
+    const void* replicas, const void* unknown_request, const void* gvk,
+    const void* tol_tables, const void* tol_idx, const void* aff_masks,
+    const void* aff_idx, const void* prev_idx, const void* prev_rep,
+    const void* evict_idx, const void* seeds, const void* req_unique,
+    const void* req_idx, int B, int Kt, int Kp, int Ke, int plugin_bits,
+    int has_extra, const void* extra_avail, void* feasible, void* score,
+    void* avail, void* prev, void* tie, void* feas_count, void* stream) {
+  if (B <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+  const FilterArgs p = filter_common::make_filter_args(
+      alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok, C, R, T, G,
+      replicas, unknown_request, gvk, tol_tables, tol_idx, aff_masks, aff_idx, prev_idx,
+      prev_rep, evict_idx, seeds, req_unique, req_idx, B, Kt, Kp, Ke, plugin_bits, has_extra,
+      extra_avail);
+  DenseOut o;
+  o.feasible = static_cast<uint8_t*>(feasible);
+  o.score = static_cast<int32_t*>(score);
+  o.avail = static_cast<int32_t*>(avail);
+  o.prev = static_cast<int32_t*>(prev);
+  o.tie = static_cast<int32_t*>(tie);
+  o.feas_count = static_cast<int32_t*>(feas_count);
+  const size_t smem = 4 * (size_t)(4 * Kt + 2 * Kp + Ke);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        dense_filter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dense_filter_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p, o);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,619 @@
+// dense_tail: the replica-division tail over full fleet rows (phase 2 of
+// the dense schedule round).
+//
+// Replaces karmada_tpu/sched/core.py:502 `_tail_kernel` (with core.py:230
+// `assignment_tail`, ops/assign.py:279 `combined_assign`, :149
+// `take_by_weight`, :178 `_aggregated_keep`, :113 `_cutoff_le` and
+// core.py:254 `compact_outputs` fused in). One block per output row reads
+// the dense-filter outputs (feasible, avail, prev, tie) of its batch row
+// through the row id, in int64 as the reference with x64 on:
+//   - static weights (feasible-masked; an all-zero row weighs 1 on every
+//     feasible column) and dynamic weights with the Steady up/down/eq and
+//     Fresh modes;
+//   - the Aggregated truncation: keep the shortest (prior desc, weight
+//     desc, column asc) prefix whose exclusive weighted prefix sum stays
+//     below the target;
+//   - TakeByWeight: quota = floor(w * t / sum w), then +1 to the first
+//     `rem` columns in (weight desc, (last desc, tie asc), column asc);
+//   - the result row, nnz, and the top min(C, topk) of the result by
+//     (value desc, column asc).
+//
+// Rows are thousands of columns wide, so nothing is sorted. Every order
+// statistic is a SELECTION: an MSB-first radix select with 8-bit digit
+// histograms in shared memory, over keys rebased to the row's key range so
+// that small ranges take few passes, each pass re-reading the row from
+// global memory (L1/L2 resident). The bonus cutoff selects the rem-th
+// (weight, packed last/tie, column) triple one key at a time; a column is
+// in the bonus set iff its triple is at or before the cutoff, which is the
+// reference's `_cutoff_le` compare. The Aggregated prefix walks the same
+// digits with per-digit weight sums beside the counts: the boundary key is
+// the largest one whose weighted rank is below the target, and inside its
+// group of equal keys (all of one weight) the count follows by division.
+// That walk needs non-negative weights (a monotone prefix sum); a row with
+// a negative weight, which no encoded batch produces, counts its prefix
+// exactly by a quadratic pass instead. The output window holds at most 128
+// entries: its cutoff is selected the same way and its members are sorted
+// in shared memory. Any width works; shared memory is fixed (about 4.2 KB).
+//
+// What bounds it on an H100: bytes are 13 per input element read once plus
+// the i32 result row (about 0.6 GB for the 8k rows x 5120 columns of the
+// dense flagship), so the bound is memory; this first version re-reads each
+// row once per selection pass (some 10-30 passes) and serialises its
+// histograms through shared-memory atomics, so it runs well above that
+// bound. Built by karmada_tpu_torch/kernels/build.py with nvcc for sm_90a
+// and called through the plain C entry point at the bottom (ctypes).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 512;
+constexpr int kDuplicated = 1;
+constexpr int kStaticWeight = 2;
+constexpr int kDynamicWeight = 3;
+constexpr int kAggregated = 4;
+constexpr int64_t kI32Max = 2147483647;
+constexpr uint64_t kSign = 1ull << 63;
+constexpr uint64_t kLow32 = 0xffffffffull;
+constexpr int kTopMax = 128;
+
+struct TailParams {
+  const uint8_t* feas;  // [B,C] dense-filter outputs
+  const int32_t* avail;
+  const int32_t* prev;
+  const int32_t* tie;
+  int C;
+  const int32_t* rows;           // [n] batch row of each output row
+  const int64_t* weight_tables;  // [W,C]
+  const int32_t* weight_idx;     // [B]
+  const int32_t* strategy;       // [B]
+  const int32_t* replicas;       // [B]
+  const uint8_t* fresh;          // [B]
+  int topk, has_agg;
+  int32_t* result;     // [n,C]
+  uint8_t* unsched;    // [n]
+  int32_t* avail_sum;  // [n]
+  int32_t* nnz;        // [n]
+  int32_t* top_idx;    // [n,topk]
+  int32_t* top_val;    // [n,topk]
+};
+
+struct Shared {
+  unsigned long long acc[3];
+  long long mins[3];
+  unsigned long long sel[4];
+  unsigned int hist[256];
+  unsigned long long wsum[256];
+  unsigned long long topkey[kTopMax];
+  unsigned int slots;
+};
+
+__device__ __forceinline__ int64_t wrap_mul(int64_t a, int64_t b) {
+  return (int64_t)((uint64_t)a * (uint64_t)b);
+}
+
+__device__ __forceinline__ int32_t wrap_i32(int64_t v) {
+  return (int32_t)(uint32_t)(uint64_t)v;
+}
+
+// floor division for b >= 1 (torch's floor division on int64)
+__device__ __forceinline__ int64_t floordiv(int64_t a, int64_t b) {
+  int64_t q = a / b;
+  if ((a % b != 0) && (a < 0)) q -= 1;
+  return q;
+}
+
+// true when r and prefix agree on every bit at position >= s
+__device__ __forceinline__ bool same_above(uint64_t r, uint64_t prefix, int s) {
+  return s >= 64 || ((r ^ prefix) >> s) == 0;
+}
+
+__device__ __forceinline__ int bit_length(uint64_t v) {
+  return v == 0 ? 0 : 64 - __clzll((long long)v);
+}
+
+__device__ __forceinline__ bool triple_le(uint64_t a, uint64_t b, int c, uint64_t a0,
+                                          uint64_t b0, int c0) {
+  if (a != a0) return a < a0;
+  if (b != b0) return b < b0;
+  return c <= c0;
+}
+
+// Block-wide wrapping sum; every thread gets the total.
+__device__ uint64_t block_sum(Shared& s, uint64_t v) {
+  __syncthreads();
+  if (threadIdx.x == 0) s.acc[0] = 0;
+  __syncthreads();
+  atomicAdd(&s.acc[0], (unsigned long long)v);
+  __syncthreads();
+  return s.acc[0];
+}
+
+// Range [lo, hi] and count of the member keys (lo > hi when none).
+template <class Key, class Member>
+__device__ void key_range(Shared& s, int C, Key key_of, Member member, uint64_t* lo_out,
+                          uint64_t* hi_out, uint64_t* count_out) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    s.acc[0] = ~0ull;
+    s.acc[1] = 0;
+    s.acc[2] = 0;
+  }
+  __syncthreads();
+  uint64_t lo = ~0ull, hi = 0, cnt = 0;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    if (!member(c)) continue;
+    const uint64_t v = key_of(c);
+    lo = v < lo ? v : lo;
+    hi = v > hi ? v : hi;
+    ++cnt;
+  }
+  atomicMin(&s.acc[0], (unsigned long long)lo);
+  atomicMax(&s.acc[1], (unsigned long long)hi);
+  atomicAdd(&s.acc[2], (unsigned long long)cnt);
+  __syncthreads();
+  *lo_out = s.acc[0];
+  *hi_out = s.acc[1];
+  *count_out = s.acc[2];
+}
+
+// The k-th smallest member key (1 <= k <= member count) by an MSB-first
+// radix select; *less gets the number of members strictly below it.
+template <class Key, class Member>
+__device__ uint64_t select_kth(Shared& s, int C, uint64_t k, Key key_of, Member member,
+                               uint64_t* less) {
+  uint64_t lo, hi, cnt;
+  key_range(s, C, key_of, member, &lo, &hi, &cnt);
+  const int bits = hi > lo ? bit_length(hi - lo) : 0;
+  uint64_t prefix = 0, kk = k, below = 0;
+  for (int shift = ((bits + 7) / 8 - 1) * 8; shift >= 0; shift -= 8) {
+    for (int d = threadIdx.x; d < 256; d += blockDim.x) s.hist[d] = 0;
+    __syncthreads();
+    for (int c = threadIdx.x; c < C; c += blockDim.x) {
+      if (!member(c)) continue;
+      const uint64_t r = key_of(c) - lo;
+      if (same_above(r, prefix, shift + 8)) atomicAdd(&s.hist[(r >> shift) & 255], 1u);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      uint64_t cum = 0;
+      int d = 0;
+      for (; d < 255; ++d) {
+        if (cum + s.hist[d] >= kk) break;
+        cum += s.hist[d];
+      }
+      s.sel[0] = (unsigned long long)d;
+      s.sel[1] = cum;
+    }
+    __syncthreads();
+    prefix |= (uint64_t)s.sel[0] << shift;
+    kk -= s.sel[1];
+    below += s.sel[1];
+  }
+  *less = below;
+  return lo + prefix;
+}
+
+struct Walk {
+  bool found;
+  uint64_t v;       // the boundary key
+  int64_t rank;     // its weighted rank: the sum of member weights below it
+  uint64_t before;  // members strictly below it
+  uint64_t n;       // members equal to it
+};
+
+// The largest member key v whose weighted rank (the sum of the weights of
+// the members with a smaller key) is below tgt. Weights must be
+// non-negative with a sum that fits int64, so the rank is monotone in the
+// key and the walk keeps, at every digit, the last bucket that starts
+// below tgt.
+template <class Key, class Weight, class Member>
+__device__ Walk weighted_walk(Shared& s, int C, int64_t tgt, Key key_of, Weight w_of,
+                              Member member) {
+  uint64_t lo, hi, cnt;
+  key_range(s, C, key_of, member, &lo, &hi, &cnt);
+  Walk out;
+  out.found = cnt > 0 && 0 < tgt;
+  out.v = lo;
+  out.rank = 0;
+  out.before = 0;
+  out.n = cnt;
+  if (!out.found) return out;
+  const int bits = hi > lo ? bit_length(hi - lo) : 0;
+  uint64_t prefix = 0;
+  for (int shift = ((bits + 7) / 8 - 1) * 8; shift >= 0; shift -= 8) {
+    for (int d = threadIdx.x; d < 256; d += blockDim.x) {
+      s.hist[d] = 0;
+      s.wsum[d] = 0;
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < C; c += blockDim.x) {
+      if (!member(c)) continue;
+      const uint64_t r = key_of(c) - lo;
+      if (!same_above(r, prefix, shift + 8)) continue;
+      const int d = (int)((r >> shift) & 255);
+      atomicAdd(&s.hist[d], 1u);
+      atomicAdd(&s.wsum[d], (unsigned long long)w_of(c));
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int64_t rank = out.rank;
+      uint64_t before = out.before;
+      int best = 0;
+      int64_t best_rank = rank;
+      uint64_t best_before = before;
+      for (int d = 0; d < 256; ++d) {
+        if (s.hist[d] > 0 && rank < tgt) {
+          best = d;
+          best_rank = rank;
+          best_before = before;
+        }
+        rank += (int64_t)s.wsum[d];
+        before += s.hist[d];
+      }
+      s.sel[0] = (unsigned long long)best;
+      s.sel[1] = (unsigned long long)best_rank;
+      s.sel[2] = best_before;
+      s.sel[3] = s.hist[best];
+    }
+    __syncthreads();
+    prefix |= (uint64_t)s.sel[0] << shift;
+    out.rank = (int64_t)s.sel[1];
+    out.before = s.sel[2];
+    out.n = s.sel[3];
+  }
+  out.v = lo + prefix;
+  return out;
+}
+
+struct Cutoff {
+  bool any;  // false: no column qualifies
+  uint64_t a, b;
+  int col;
+};
+
+// The k-th smallest (a, b, column) triple over all columns, one key at a
+// time (1 <= k <= C).
+template <class KeyA, class KeyB>
+__device__ Cutoff select_triple(Shared& s, int C, uint64_t k, KeyA a_of, KeyB b_of) {
+  Cutoff t;
+  t.any = true;
+  uint64_t less;
+  t.a = select_kth(s, C, k, a_of, [](int) { return true; }, &less);
+  k -= less;
+  const uint64_t a0 = t.a;
+  t.b = select_kth(s, C, k, b_of, [&](int c) { return a_of(c) == a0; }, &less);
+  k -= less;
+  const uint64_t b0 = t.b;
+  t.col = (int)select_kth(
+      s, C, k, [](int c) { return (uint64_t)c; },
+      [&](int c) { return a_of(c) == a0 && b_of(c) == b0; }, &less);
+  return t;
+}
+
+struct RowCtx {
+  int64_t base;         // offset of the batch row in the [B,C] inputs
+  const int64_t* wrow;  // its static weight table row
+  bool is_static, fresh, up, down, all_zero;
+  bool trunc;  // the Aggregated truncation applies
+  Cutoff agg;  // keep a column iff its (prior, weight, column) is at or before
+};
+
+__device__ __forceinline__ uint64_t neg_key(int64_t v) {  // ascending -v
+  return (0ull - (uint64_t)v) ^ kSign;
+}
+
+// The dynamic weight of column c before the truncation, and its prev_m.
+__device__ __forceinline__ int64_t dyn_weight(const TailParams& p, const RowCtx& r, int c,
+                                              int64_t* prev_m) {
+  const bool f = p.feas[r.base + c] != 0;
+  const int64_t am = f ? (int64_t)p.avail[r.base + c] : 0;
+  const int64_t pm = f ? (int64_t)p.prev[r.base + c] : 0;
+  *prev_m = pm;
+  return r.fresh ? am + pm : (r.down ? pm : am);
+}
+
+__device__ __forceinline__ uint64_t prior_key(const RowCtx& r, int64_t prev_m) {
+  return (r.up && prev_m > 0) ? 0 : 1;  // ascending -prior
+}
+
+struct DivIn {
+  int64_t weight;
+  int32_t last;
+  int32_t init;
+};
+
+// The dispenser inputs of column c (combined_assign's row-select).
+__device__ DivIn div_in(const TailParams& p, const RowCtx& r, int c) {
+  DivIn d;
+  if (r.is_static) {
+    const bool f = p.feas[r.base + c] != 0;
+    int64_t w = f ? r.wrow[c] : 0;
+    if (r.all_zero && f) w = 1;
+    d.weight = w;
+    d.last = f ? p.prev[r.base + c] : 0;
+    d.init = 0;
+    return d;
+  }
+  int64_t pm;
+  int64_t w = dyn_weight(p, r, c, &pm);
+  if (r.trunc &&
+      !(r.agg.any && triple_le(prior_key(r, pm), neg_key(w), c, r.agg.a, r.agg.b, r.agg.col))) {
+    w = 0;
+  }
+  d.weight = w;
+  d.last = r.up ? wrap_i32(pm) : 0;
+  d.init = d.last;
+  return d;
+}
+
+// The Aggregated truncation cutoff: the k-th (prior desc, weight desc,
+// column asc) triple, k the number of sorted positions whose exclusive
+// weighted prefix sum is below tgt.
+__device__ Cutoff aggregated_cutoff(const TailParams& p, const RowCtx& r, Shared& s,
+                                    int64_t tgt, bool monotone) {
+  const int C = p.C;
+  auto a_of = [&](int c) {
+    int64_t pm;
+    dyn_weight(p, r, c, &pm);
+    return prior_key(r, pm);
+  };
+  auto b_of = [&](int c) {
+    int64_t pm;
+    return neg_key(dyn_weight(p, r, c, &pm));
+  };
+  Cutoff cut;
+  cut.any = false;
+  if (monotone) {
+    // every weight lies in [0, 2^32): one 33-bit key (prior, weight)
+    auto comp = [&](int c) {
+      int64_t pm;
+      const int64_t w = dyn_weight(p, r, c, &pm);
+      return (prior_key(r, pm) << 32) | (kLow32 - (uint64_t)w);
+    };
+    auto w_of = [&](int c) {
+      int64_t pm;
+      return (uint64_t)dyn_weight(p, r, c, &pm);
+    };
+    const Walk wk = weighted_walk(s, C, tgt, comp, w_of, [](int) { return true; });
+    if (!wk.found) return cut;
+    // inside the boundary group every member weighs w_g: member j (in column
+    // order) starts at rank + j * w_g
+    const int64_t w_g = (int64_t)(kLow32 - (wk.v & kLow32));
+    uint64_t in = wk.n;
+    if (w_g > 0) {
+      const uint64_t need = (uint64_t)((tgt - wk.rank + w_g - 1) / w_g);
+      in = need < in ? need : in;
+    }
+    const uint64_t v = wk.v;
+    uint64_t less;
+    cut.col = (int)select_kth(
+        s, C, in, [](int c) { return (uint64_t)c; }, [&](int c) { return comp(c) == v; }, &less);
+    cut.any = true;
+    cut.a = v >> 32;
+    cut.b = neg_key(w_g);
+    return cut;
+  }
+  // a negative weight: count the positions by their exact prefix sums
+  uint64_t count = 0;
+  for (int j = threadIdx.x; j < C; j += blockDim.x) {
+    const uint64_t aj = a_of(j), bj = b_of(j);
+    uint64_t before = 0;
+    for (int i = 0; i < C; ++i) {
+      int64_t pm;
+      const int64_t wi = dyn_weight(p, r, i, &pm);
+      if (i != j && triple_le(prior_key(r, pm), neg_key(wi), i, aj, bj, j)) {
+        before += (uint64_t)wi;
+      }
+    }
+    count += (int64_t)before < tgt ? 1 : 0;
+  }
+  count = block_sum(s, count);
+  if (count == 0) return cut;
+  return select_triple(s, C, count, a_of, b_of);
+}
+
+__global__ void __launch_bounds__(kThreads)
+dense_tail_kernel(TailParams p) {
+  __shared__ Shared s;
+  const int j = blockIdx.x;
+  const int b = p.rows[j];
+  const int C = p.C;
+  const int tid = threadIdx.x;
+
+  RowCtx r;
+  r.base = (int64_t)b * C;
+  r.wrow = p.weight_tables + (int64_t)p.weight_idx[b] * C;
+  const int strat = p.strategy[b];
+  r.is_static = strat == kStaticWeight;
+  const bool is_dyn = strat == kDynamicWeight || strat == kAggregated;
+  r.fresh = p.fresh[b] != 0;
+  const int32_t reps = p.replicas[b];
+
+  // ---- pass 1: the row sums and the weights' signs ----
+  if (tid == 0) {
+    s.mins[0] = s.mins[1] = s.mins[2] = 0;
+  }
+  uint64_t sw = 0, sa = 0, sp = 0;
+  long long ma = 0, mp = 0, mf = 0;
+  for (int c = tid; c < C; c += blockDim.x) {
+    const bool f = p.feas[r.base + c] != 0;
+    const int64_t am = f ? (int64_t)p.avail[r.base + c] : 0;
+    const int64_t pm = f ? (int64_t)p.prev[r.base + c] : 0;
+    sw += f ? (uint64_t)r.wrow[c] : 0;
+    sa += (uint64_t)am;
+    sp += (uint64_t)pm;
+    ma = am < ma ? am : ma;
+    mp = pm < mp ? pm : mp;
+    mf = am + pm < mf ? am + pm : mf;
+  }
+  __syncthreads();
+  atomicMin(&s.mins[0], ma);
+  atomicMin(&s.mins[1], mp);
+  atomicMin(&s.mins[2], mf);
+  sw = block_sum(s, sw);
+  sa = block_sum(s, sa);
+  sp = block_sum(s, sp);
+  r.all_zero = sw == 0;
+  const int64_t assigned = (int64_t)sp;
+  const int64_t target = reps;
+  r.down = !r.fresh && assigned > target;
+  r.up = !r.fresh && assigned < target;
+  const bool eq = !r.fresh && assigned == target;
+  const int64_t tgt_dyn = r.up ? target - assigned : target;
+  const int64_t asum = (int64_t)(r.fresh ? sa + sp : (r.down ? sp : sa));
+  const bool unsched = is_dyn && !eq && asum < tgt_dyn;
+  const long long w_min = r.fresh ? s.mins[2] : (r.down ? s.mins[1] : s.mins[0]);
+
+  // ---- the dispenser, for the rows whose result it decides ----
+  const bool dispense = r.is_static || (is_dyn && !eq && !unsched);
+  r.trunc = p.has_agg && strat == kAggregated && !eq;
+  r.agg.any = false;
+  int64_t sum_w = 0, t64 = 0, safe = 1;
+  Cutoff bonus;
+  bonus.any = false;
+  bool bonus_all = false;
+  if (dispense) {
+    if (r.trunc) r.agg = aggregated_cutoff(p, r, s, tgt_dyn, w_min >= 0);
+    uint64_t acc = 0;
+    for (int c = tid; c < C; c += blockDim.x) acc += (uint64_t)div_in(p, r, c).weight;
+    sum_w = (int64_t)block_sum(s, acc);
+    t64 = wrap_i32(r.is_static ? target : tgt_dyn);
+    safe = sum_w > 1 ? sum_w : 1;
+    acc = 0;
+    for (int c = tid; c < C; c += blockDim.x) {
+      acc += (uint64_t)floordiv(wrap_mul(div_in(p, r, c).weight, t64), safe);
+    }
+    const int64_t rem = (int64_t)((uint64_t)t64 - block_sum(s, acc));
+    if (sum_w > 0 && rem > 0) {
+      if (rem >= C) {
+        bonus_all = true;
+      } else {
+        auto a_of = [&](int c) { return neg_key(div_in(p, r, c).weight); };
+        auto b_of = [&](int c) {
+          const DivIn d = div_in(p, r, c);
+          const uint64_t k2 = ((uint64_t)(kI32Max - (int64_t)d.last) << 32) |
+                              (uint64_t)(int64_t)p.tie[r.base + c];
+          return k2 ^ kSign;
+        };
+        bonus = select_triple(s, C, (uint64_t)rem, a_of, b_of);
+      }
+    }
+  }
+
+  // ---- the result row and nnz ----
+  int32_t* res_row = p.result + (int64_t)j * C;
+  uint64_t pos = 0;
+  for (int c = tid; c < C; c += blockDim.x) {
+    const bool f = p.feas[r.base + c] != 0;
+    int32_t v = 0;
+    if (strat == kDuplicated) {
+      v = f ? reps : 0;
+    } else if (r.is_static || is_dyn) {
+      if (unsched) {
+        v = 0;
+      } else if (is_dyn && eq) {
+        v = f ? p.prev[r.base + c] : 0;
+      } else {
+        const DivIn d = div_in(p, r, c);
+        bool plus = false;
+        if (d.weight > 0) {
+          if (bonus_all) {
+            plus = true;
+          } else if (bonus.any) {
+            const uint64_t k2 = ((uint64_t)(kI32Max - (int64_t)d.last) << 32) |
+                                (uint64_t)(int64_t)p.tie[r.base + c];
+            plus = triple_le(neg_key(d.weight), k2 ^ kSign, c, bonus.a, bonus.b, bonus.col);
+          }
+        }
+        int32_t q = wrap_i32(floordiv(wrap_mul(d.weight, t64), safe) + (plus ? 1 : 0));
+        if (!(sum_w > 0)) q = 0;
+        v = (int32_t)((uint32_t)d.init + (uint32_t)q);
+      }
+    }
+    res_row[c] = v;
+    pos += v > 0 ? 1 : 0;
+  }
+  pos = block_sum(s, pos);  // its barrier also publishes the result row
+  if (tid == 0) {
+    p.unsched[j] = unsched ? 1 : 0;
+    p.avail_sum[j] = wrap_i32(asum);
+    p.nnz[j] = (int32_t)pos;
+    s.slots = 0;
+  }
+
+  // ---- the output window: top `topk` by (value desc, column asc) ----
+  auto top_key = [&](int c) {
+    return ((uint64_t)(kI32Max - (int64_t)res_row[c]) << 32) | (uint64_t)c;
+  };
+  uint64_t cut = ~0ull;
+  if (p.topk < C) {
+    uint64_t less;
+    cut = select_kth(s, C, (uint64_t)p.topk, top_key, [](int) { return true; }, &less);
+  }
+  __syncthreads();
+  for (int c = tid; c < C; c += blockDim.x) {
+    const uint64_t k = top_key(c);
+    if (k <= cut) s.topkey[atomicAdd(&s.slots, 1u)] = k;
+  }
+  __syncthreads();
+  for (int i = p.topk + tid; i < kTopMax; i += blockDim.x) s.topkey[i] = ~0ull;
+  __syncthreads();
+  // bitonic sort of the kTopMax window keys, ascending
+  for (int k = 2; k <= kTopMax; k <<= 1) {
+    for (int m = k >> 1; m > 0; m >>= 1) {
+      if (tid < kTopMax / 2) {
+        const int i = 2 * tid - (tid & (m - 1));
+        const int ixm = i + m;
+        const bool up = (i & k) == 0;
+        const unsigned long long x = s.topkey[i], y = s.topkey[ixm];
+        if (up == (x > y)) {
+          s.topkey[i] = y;
+          s.topkey[ixm] = x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int i = tid; i < p.topk; i += blockDim.x) {
+    const uint64_t k = s.topkey[i];
+    p.top_idx[(int64_t)j * p.topk + i] = (int32_t)(k & kLow32);
+    p.top_val[(int64_t)j * p.topk + i] = (int32_t)(kI32Max - (int64_t)(k >> 32));
+  }
+}
+
+}  // namespace
+
+extern "C" int dense_tail_launch(
+    const void* feas, const void* avail, const void* prev, const void* tie, int C,
+    const void* rows, int n, const void* weight_tables, const void* weight_idx,
+    const void* strategy, const void* replicas, const void* fresh, int topk, int has_agg,
+    void* result, void* unsched, void* avail_sum, void* nnz, void* top_idx, void* top_val,
+    void* stream) {
+  if (n <= 0 || C <= 0 || topk <= 0 || topk > kTopMax || topk > C) {
+    return (int)cudaErrorInvalidValue;
+  }
+  TailParams p;
+  p.feas = static_cast<const uint8_t*>(feas);
+  p.avail = static_cast<const int32_t*>(avail);
+  p.prev = static_cast<const int32_t*>(prev);
+  p.tie = static_cast<const int32_t*>(tie);
+  p.C = C;
+  p.rows = static_cast<const int32_t*>(rows);
+  p.weight_tables = static_cast<const int64_t*>(weight_tables);
+  p.weight_idx = static_cast<const int32_t*>(weight_idx);
+  p.strategy = static_cast<const int32_t*>(strategy);
+  p.replicas = static_cast<const int32_t*>(replicas);
+  p.fresh = static_cast<const uint8_t*>(fresh);
+  p.topk = topk;
+  p.has_agg = has_agg;
+  p.result = static_cast<int32_t*>(result);
+  p.unsched = static_cast<uint8_t*>(unsched);
+  p.avail_sum = static_cast<int32_t*>(avail_sum);
+  p.nnz = static_cast<int32_t*>(nnz);
+  p.top_idx = static_cast<int32_t*>(top_idx);
+  p.top_val = static_cast<int32_t*>(top_val);
+  dense_tail_kernel<<<n, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,233 @@
+// filter_common.cuh: the per-(row, column) filter, estimate and tie of the
+// schedule rounds, shared by candidate_select.cu and dense_filter.cu so the
+// two kernels cannot drift apart.
+//
+// - eval_col: the in-tree filters (alive, taints against the row's
+//   toleration table row, API enablement, affinity mask, eviction list),
+//   the locality score and the previous replicas (the prev list scattered
+//   with the last entry winning; ids outside [0, C) never match);
+// - tie_value: splitmix64 over the global cluster id (uint64);
+// - estimate: the GeneralEstimator answer with the reference's clamps in
+//   its order, then the registered-estimator min-merge.
+//
+// Mirrors karmada_tpu/sched/core.py filter_phase / filter_estimate_phase,
+// decompress_batch and tie_from_index, and ops/assign.py
+// general_estimate_unique / general_estimate_apply.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace filter_common {
+
+constexpr int kBitApi = 1;
+constexpr int kBitTaint = 2;
+constexpr int kBitAffinity = 4;
+constexpr int kBitEviction = 8;
+constexpr int kBitLocality = 16;
+constexpr int kTolOpNone = 0;
+constexpr int kTolOpExists = 2;
+constexpr int kEffNoSchedule = 1;
+constexpr int kEffNoExecute = 3;
+constexpr int64_t kBig = int64_t(1) << 62;
+constexpr int64_t kI32Max = 2147483647;
+
+// The fleet tables and the factored batch (models/batch.py BindingBatch).
+struct FilterArgs {
+  // fleet
+  const uint8_t* alive;         // [C]
+  const int64_t* capacity;      // [C,R]
+  const uint8_t* has_summary;   // [C]
+  const int32_t* taint_key;     // [C,T]
+  const int32_t* taint_value;   // [C,T]
+  const int32_t* taint_effect;  // [C,T]
+  const uint8_t* api_ok;        // [C,G]
+  int C, R, T, G;
+  // batch
+  const int32_t* replicas;         // [B]
+  const uint8_t* unknown_request;  // [B]
+  const int32_t* gvk;              // [B]
+  const int32_t* tol_tables;       // [Tt,4,Kt]
+  const int32_t* tol_idx;          // [B]
+  const uint8_t* aff_masks;        // [P,C]
+  const int32_t* aff_idx;          // [B]
+  const int32_t* prev_idx;         // [B,Kp]
+  const int32_t* prev_rep;         // [B,Kp]
+  const int32_t* evict_idx;        // [B,Ke]
+  const uint64_t* seeds;           // [B]
+  const int64_t* req_unique;       // [U,R]
+  const int32_t* req_idx;          // [B]
+  const int32_t* extra_avail;      // [B,C] or null
+  int B, Kt, Kp, Ke, plugin_bits;
+};
+
+// Row b's toleration table row and prev/evict lists, copied into shared
+// memory by the whole block (the caller synchronises after).
+__device__ inline void load_row_lists(const FilterArgs& p, int b, int32_t* tol,
+                                      int32_t* pidx, int32_t* prep, int32_t* ev) {
+  const int32_t* tol_row = p.tol_tables + (int64_t)p.tol_idx[b] * 4 * p.Kt;
+  for (int i = threadIdx.x; i < 4 * p.Kt; i += blockDim.x) tol[i] = tol_row[i];
+  for (int i = threadIdx.x; i < p.Kp; i += blockDim.x) {
+    pidx[i] = p.prev_idx[(int64_t)b * p.Kp + i];
+    prep[i] = p.prev_rep[(int64_t)b * p.Kp + i];
+  }
+  for (int i = threadIdx.x; i < p.Ke; i += blockDim.x) ev[i] = p.evict_idx[(int64_t)b * p.Ke + i];
+}
+
+struct ColEval {
+  bool feasible;
+  int32_t score;
+  int32_t prev;
+};
+
+// Filters + locality score for column c of row b. `tol` is the row's
+// [4,Kt] toleration table row, `pidx`/`prep`/`ev` its prev/evict lists,
+// all in shared memory. A prev column listed twice takes its LAST entry.
+__device__ inline ColEval eval_col(const FilterArgs& p, int b, int c, const int32_t* tol,
+                                   const int32_t* pidx, const int32_t* prep,
+                                   const int32_t* ev) {
+  bool ok = p.alive[c] != 0;
+  if (p.plugin_bits & kBitTaint) {
+    for (int t = 0; t < p.T; ++t) {
+      const int te = p.taint_effect[(int64_t)c * p.T + t];
+      if (te != kEffNoSchedule && te != kEffNoExecute) continue;
+      const int tk = p.taint_key[(int64_t)c * p.T + t];
+      const int tv = p.taint_value[(int64_t)c * p.T + t];
+      bool tolerated = false;
+      for (int k = 0; k < p.Kt; ++k) {
+        const int op = tol[3 * p.Kt + k];
+        if (op == kTolOpNone) continue;
+        const int key = tol[k];
+        const int val = tol[p.Kt + k];
+        const int eff = tol[2 * p.Kt + k];
+        const bool key_match = key == tk || (key == 0 && op == kTolOpExists);
+        const bool effect_match = eff == 0 || eff == te;
+        const bool value_match = op == kTolOpExists || val == tv;
+        if (key_match && effect_match && value_match) {
+          tolerated = true;
+          break;
+        }
+      }
+      if (!tolerated) ok = false;
+    }
+  }
+  if (p.plugin_bits & kBitApi) {
+    const int g = p.gvk[b];
+    bool api = false;
+    if (p.G > 0 && g < p.G) {
+      const int gc = g < 0 ? 0 : g;
+      api = p.api_ok[(int64_t)c * p.G + gc] != 0;
+    }
+    ok = ok && api;
+  }
+  if (p.plugin_bits & kBitAffinity) {
+    ok = ok && p.aff_masks[(int64_t)p.aff_idx[b] * p.C + c] != 0;
+  }
+  if (p.plugin_bits & kBitEviction) {
+    for (int k = 0; k < p.Ke; ++k) {
+      if (ev[k] == c) ok = false;
+    }
+  }
+  bool member = false;
+  int32_t prev = 0;
+  for (int k = 0; k < p.Kp; ++k) {
+    if (pidx[k] == c) {
+      member = true;
+      prev = prep[k];
+    }
+  }
+  ColEval out;
+  out.feasible = ok;
+  out.score = (p.plugin_bits & kBitLocality) && member ? 100 : 0;
+  out.prev = prev;
+  return out;
+}
+
+// splitmix64 at the 0-based global cluster id `col` (the stream of
+// models/batch.py tie_matrix, which counts ids from 1).
+__device__ __forceinline__ int32_t tie_value(uint64_t seed, int col) {
+  uint64_t x = seed ^ ((uint64_t)col + 1ull);
+  x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9ull;
+  x = (x ^ (x >> 27)) * 0x94D049BB133111EBull;
+  x = x ^ (x >> 31);
+  return (int32_t)(x >> 33);
+}
+
+// GeneralEstimator answer for row b at column c, in the order of the
+// reference's general_estimate_unique / general_estimate_apply: per
+// requested resource cap // req (cap > 0, req >= 1, so C's truncating
+// division equals the floor), 0 where cap <= 0; no requested resource ->
+// replicas; no summary -> 0; >= INT32_MAX -> replicas; i32 cast; unknown
+// request -> 0; then the min-merge with a non-negative registered-estimator
+// answer.
+__device__ inline int32_t estimate(const FilterArgs& p, int b, int c) {
+  const int r = p.req_idx[b];
+  bool any_req = false;
+  int64_t est = kBig;
+  for (int i = 0; i < p.R; ++i) {
+    const int64_t q = p.req_unique[(int64_t)r * p.R + i];
+    if (q <= 0) continue;
+    any_req = true;
+    const int64_t cap = p.capacity[(int64_t)c * p.R + i];
+    const int64_t v = cap <= 0 ? 0 : cap / q;
+    est = v < est ? v : est;
+  }
+  const int64_t reps = p.replicas[b];
+  if (!any_req) est = reps;
+  if (!p.has_summary[c]) est = 0;
+  if (est >= kI32Max) est = reps;
+  int32_t avail = (int32_t)(uint32_t)(uint64_t)est;
+  if (p.unknown_request[b]) avail = 0;
+  if (p.extra_avail != nullptr) {
+    const int32_t e = p.extra_avail[(int64_t)b * p.C + c];
+    if (e >= 0 && e < avail) avail = e;
+  }
+  return avail;
+}
+
+// Fill the FilterArgs of a launch from its plain C arguments.
+inline FilterArgs make_filter_args(
+    const void* alive, const void* capacity, const void* has_summary,
+    const void* taint_key, const void* taint_value, const void* taint_effect,
+    const void* api_ok, int C, int R, int T, int G, const void* replicas,
+    const void* unknown_request, const void* gvk, const void* tol_tables,
+    const void* tol_idx, const void* aff_masks, const void* aff_idx,
+    const void* prev_idx, const void* prev_rep, const void* evict_idx,
+    const void* seeds, const void* req_unique, const void* req_idx, int B, int Kt,
+    int Kp, int Ke, int plugin_bits, int has_extra, const void* extra_avail) {
+  FilterArgs p;
+  p.alive = static_cast<const uint8_t*>(alive);
+  p.capacity = static_cast<const int64_t*>(capacity);
+  p.has_summary = static_cast<const uint8_t*>(has_summary);
+  p.taint_key = static_cast<const int32_t*>(taint_key);
+  p.taint_value = static_cast<const int32_t*>(taint_value);
+  p.taint_effect = static_cast<const int32_t*>(taint_effect);
+  p.api_ok = static_cast<const uint8_t*>(api_ok);
+  p.C = C;
+  p.R = R;
+  p.T = T;
+  p.G = G;
+  p.replicas = static_cast<const int32_t*>(replicas);
+  p.unknown_request = static_cast<const uint8_t*>(unknown_request);
+  p.gvk = static_cast<const int32_t*>(gvk);
+  p.tol_tables = static_cast<const int32_t*>(tol_tables);
+  p.tol_idx = static_cast<const int32_t*>(tol_idx);
+  p.aff_masks = static_cast<const uint8_t*>(aff_masks);
+  p.aff_idx = static_cast<const int32_t*>(aff_idx);
+  p.prev_idx = static_cast<const int32_t*>(prev_idx);
+  p.prev_rep = static_cast<const int32_t*>(prev_rep);
+  p.evict_idx = static_cast<const int32_t*>(evict_idx);
+  p.seeds = static_cast<const uint64_t*>(seeds);
+  p.req_unique = static_cast<const int64_t*>(req_unique);
+  p.req_idx = static_cast<const int32_t*>(req_idx);
+  p.extra_avail = has_extra ? static_cast<const int32_t*>(extra_avail) : nullptr;
+  p.B = B;
+  p.Kt = Kt;
+  p.Kp = Kp;
+  p.Ke = Ke;
+  p.plugin_bits = plugin_bits;
+  return p;
+}
+
+}  // namespace filter_common

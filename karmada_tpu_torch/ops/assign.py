@@ -196,3 +196,16 @@ def general_estimate_unique(capacity, has_summary, request_u):
     else:
         est_u = per_res.min(-1).values
     return est_u, has_req.any(-1)
+
+
+def general_estimate_apply(est_u, any_req_u, req_idx, has_summary, replicas):
+    """Row gather of `general_estimate_unique` to [B,C] plus the per-row
+    clamps, in the reference's order: no requested resource -> replicas, no
+    summary -> 0, >= INT32_MAX -> replicas, then the i32 cast."""
+    ridx = req_idx.long()
+    est = est_u[ridx]  # i64[B,C]
+    replicas64 = replicas.to(I64)[:, None]
+    est = torch.where(any_req_u[ridx][:, None], est, replicas64)
+    est = torch.where(has_summary[None, :], est, 0)
+    est = torch.where(est >= I32_MAX, replicas64, est)
+    return est.to(I32)

@@ -16,8 +16,9 @@ Aggregated rows) divides replicas over [rows, K] windows; duplicated and
 non-workload rows decode from the packed masks. One device→host sync and
 the host decode finish the round.
 
-Paths of the reference outside this slice raise NotImplementedError:
-the dense round (`dense_reason` not None) and spread-constrained rows.
+Spread-constrained rows, a path of the reference outside this slice,
+raise NotImplementedError. Rounds with a `dense_reason` run the dense round
+of sched/core.py instead.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..models.batch import NON_WORKLOAD, pow2_bucket, shape_bucket
+from ..models.batch import pow2_bucket, shape_bucket
 from . import plugins as plugin_mod
 from .core import (
     I32,
@@ -145,36 +146,12 @@ def launch_candidates(array, bindings: Sequence, term_indices=None) -> dict:
     sync here."""
     n_real = len(bindings)
     if n_real == 0:
-        return {"n_real": 0}
+        return {"candidates": True, "n_real": 0}
     C = len(array.fleet.names)
     dev = array.device
 
-    spread = array._classify_spread(bindings)
-    if spread:
-        raise NotImplementedError(
-            f"{len(spread)} binding(s) carry spread constraints; the spread "
-            "paths are a later slice of the PyTorch port"
-        )
-    cls = np.asarray([array._row_class(rb, False) for rb in bindings], np.int8)
-    order = np.argsort(cls, kind="stable")
-    bindings = [bindings[i] for i in order]
-    cls = cls[order]
-    if term_indices is not None:
-        term_indices = [term_indices[i] for i in order]
-
-    from ..convert import batch_from_numpy
-
-    raw = array.batch_encoder.encode(bindings, term_indices=term_indices)
-    batch = array._pad(raw)
+    bindings, cls, order, raw, t = array._encode_round(bindings, term_indices)
     k = effective_k(array, raw, C)
-    t = batch_from_numpy({
-        name: getattr(batch, name) for name in (
-            "replicas", "unknown_request", "gvk", "strategy", "fresh",
-            "tol_tables", "tol_idx", "aff_masks", "aff_idx", "weight_tables",
-            "weight_idx", "prev_idx", "prev_rep", "evict_idx", "seeds",
-            "req_unique", "req_idx",
-        )
-    }, dev)
     f = array._fleet_dev
 
     (cand_idx, c_feas, _c_score, c_avail, c_prev, c_tie, dev_fc,
@@ -216,8 +193,8 @@ def launch_candidates(array, bindings: Sequence, term_indices=None) -> dict:
         mask_pack = dev_packed.index_select(0, _rows_tensor(np.asarray(mask_rows), dev))
 
     return {
-        "bindings": bindings, "raw": raw, "cls": cls, "order": order,
-        "n_real": n_real, "k": k, "dev_fc": dev_fc, "tails": tails,
+        "candidates": True, "bindings": bindings, "raw": raw, "cls": cls,
+        "order": order, "n_real": n_real, "k": k, "dev_fc": dev_fc, "tails": tails,
         "mask_rows": mask_rows, "mask_pack": mask_pack,
     }
 
@@ -277,7 +254,7 @@ def materialize_candidates(array, p: dict) -> list[ScheduleDecision]:
         for j, b in enumerate(p["mask_rows"]):
             if feas_count[b] <= 0:
                 continue  # FitError branch
-            reps = 0 if int(raw.strategy[b]) == NON_WORKLOAD else int(bindings[b].spec.replicas)
+            reps = array._mask_replicas(raw, bindings, b)
             row_feas_src[b] = ("mask", names, packed_h[j], C)
             row_target_src[b] = ("mask", names, packed_h[j], C, reps)
 

@@ -1,13 +1,20 @@
-"""The batched scheduling core (PyTorch port, compact candidate round).
+"""The batched scheduling core (PyTorch port).
 
-Port of sched/core.py's ArrayScheduler for the round every fleet wider than
-the candidate window takes (sched/candidates.py): the per-binding
-sequential loop of pkg/scheduler/core/generic_scheduler.go:70-115 becomes
-one candidate-select launch over [B, C] and one division-tail launch per
-row class over [rows, K] windows.
+Port of sched/core.py's ArrayScheduler: the per-binding sequential loop of
+pkg/scheduler/core/generic_scheduler.go:70-115 becomes a few kernel
+launches over the whole round. Two rounds, as in the reference:
 
-The dense round, spread constraints, tiers, the mesh and the incremental
-replay are later slices; the paths that would reach them raise
+- the compact candidate round (sched/candidates.py) for fleets wider than
+  the candidate window: one candidate-select launch over [B, C], then one
+  division-tail launch per row class over [rows, K] windows;
+- the dense round for small fleets, `candidate_k=0` and the `dense-solve`
+  annotation (`dense_reason` not None): one dense-filter launch over
+  [B, C], one wide-row division-tail launch per row class over full rows,
+  and the feasible-index or packed-row launch for Duplicated and
+  non-workload rows.
+
+Spread constraints, tiers, the mesh, registered estimators and the
+incremental replay are later slices; the paths that would reach them raise
 NotImplementedError instead of running anything else.
 """
 from __future__ import annotations
@@ -24,9 +31,11 @@ from ..models.batch import (
     AGGREGATED,
     DUPLICATED,
     DYNAMIC_WEIGHT,
+    NON_WORKLOAD,
     STATIC_WEIGHT,
     BatchEncoder,
     BindingBatch,
+    pow2_bucket,
     shape_bucket,
     shape_floor,
 )
@@ -37,6 +46,13 @@ from . import plugins as plugin_mod
 
 I64 = torch.int64
 I32 = torch.int32
+
+# the batch fields a round uploads to the device
+_BATCH_FIELDS = (
+    "replicas", "unknown_request", "gvk", "strategy", "fresh", "tol_tables", "tol_idx",
+    "aff_masks", "aff_idx", "weight_tables", "weight_idx", "prev_idx", "prev_rep",
+    "evict_idx", "seeds", "req_unique", "req_idx",
+)
 
 # compact-output width: covers every row whose target count is <= this
 # (divided rows are bounded by spec.replicas; wider rows fetch their full
@@ -102,8 +118,13 @@ class ScheduleDecision:
     @property
     def feasible(self) -> list[str]:
         if self._feasible is None and self._feasible_src is not None:
-            _, names, packed, n_cols = self._feasible_src  # ("mask", ...)
-            self._feasible = [names[int(i)] for i in unpack_row(packed, n_cols)]
+            src = self._feasible_src
+            if src[0] == "mask":
+                _, names, packed, n_cols = src
+                self._feasible = [names[int(i)] for i in unpack_row(packed, n_cols)]
+            else:  # ("idx", names, idx_array)
+                _, names, idxs = src
+                self._feasible = [names[int(i)] for i in idxs]
         return self._feasible if self._feasible is not None else []
 
     @feasible.setter
@@ -153,6 +174,27 @@ def filter_phase(
         else torch.zeros((B, C), dtype=I32, device=feasible.device)
     )
     return feasible, score
+
+
+def filter_estimate_phase(
+    alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
+    replicas, unknown_request, gvk, tol_tables, tol_idx,
+    affinity_ok, eviction_ok, prev_member, req_unique, req_idx,
+    plugin_bits: int = plugin_mod.ALL_PLUGIN_BITS,
+):
+    """Filters + score + the GeneralEstimator over [B, C]: `filter_phase`,
+    the unique-request estimate gathered to rows with its clamps, and 0
+    available where a request names a resource outside the encoded
+    vocabulary (general.go:166-169)."""
+    feasible, score = filter_phase(
+        alive, taint_key, taint_value, taint_effect, api_ok, gvk,
+        tol_tables, tol_idx, affinity_ok, eviction_ok, prev_member,
+        plugin_bits=plugin_bits,
+    )
+    est_u, any_u = assign_ops.general_estimate_unique(capacity, has_summary, req_unique)
+    avail = assign_ops.general_estimate_apply(est_u, any_u, req_idx, has_summary, replicas)
+    avail = torch.where(unknown_request[:, None], 0, avail)
+    return feasible, score, avail
 
 
 def sparse_rows(prev_idx, prev_rep, evict_idx, n_cols: int):
@@ -274,6 +316,15 @@ def _pad_rows_idx(rows: Sequence[int], bucket_fn) -> tuple[np.ndarray, int]:
     idx[:n] = rows
     idx[n:] = rows[0] if n else 0
     return idx, n
+
+
+def fetch_rows(dev_tensor, rows: Sequence[int], bucket_fn) -> np.ndarray:
+    """A row subset of a device tensor on the host: a gather on the device
+    (rows padded to the bucket lattice) and one copy, never the full
+    [B, C] fetch."""
+    idx, n = _pad_rows_idx(rows, bucket_fn)
+    sel = torch.from_numpy(idx.astype(np.int64)).to(dev_tensor.device)
+    return dev_tensor.index_select(0, sel).cpu().numpy()[:n]
 
 
 def pad_batch(batch: BindingBatch, bucket_fn) -> BindingBatch:
@@ -486,25 +537,237 @@ class ArrayScheduler:
         return self._materialize_once(self._launch_once(bindings, term_indices))
 
     def _launch_once(self, bindings: Sequence, term_indices=None) -> dict:
+        """Encode + kernel dispatch for one round (no device sync): the
+        compact candidate round, or the dense round when `dense_reason`
+        names one."""
         from . import candidates as cand_mod
 
         self.last_candidate_stats = {}
-        reason = cand_mod.dense_reason(self, bindings)
-        if reason is not None:
-            raise NotImplementedError(
-                f"this round needs the dense solve (reason {reason!r}); the "
-                "dense round is a later slice of the PyTorch port"
-            )
-        return cand_mod.launch_candidates(self, bindings, term_indices)
+        if cand_mod.dense_reason(self, bindings) is None:
+            return cand_mod.launch_candidates(self, bindings, term_indices)
+        return self._launch_once_partitioned(bindings, term_indices)
 
     def _materialize_once(self, pending: dict) -> list[ScheduleDecision]:
-        from . import candidates as cand_mod
+        if pending.get("candidates"):
+            from . import candidates as cand_mod
 
-        return cand_mod.materialize_candidates(self, pending)
+            return cand_mod.materialize_candidates(self, pending)
+        return self._materialize_once_partitioned(pending)
+
+    def _encode_round(self, bindings: Sequence, term_indices=None):
+        """The shared prefix of the compact and dense rounds: classify the
+        rows (spread rows raise), permute them class-contiguous, encode,
+        pad and upload the batch. Returns (bindings, cls, order, raw, t)
+        in the permuted row order, `t` the batch tensors by field."""
+        spread = self._classify_spread(bindings)
+        if spread:
+            raise NotImplementedError(
+                f"{len(spread)} binding(s) carry spread constraints; the spread "
+                "paths are a later slice of the PyTorch port"
+            )
+        cls = np.asarray([self._row_class(rb, False) for rb in bindings], np.int8)
+        order = np.argsort(cls, kind="stable")
+        bindings = [bindings[i] for i in order]
+        cls = cls[order]
+        if term_indices is not None:
+            term_indices = [term_indices[i] for i in order]
+
+        from ..convert import batch_from_numpy
+
+        raw = self.batch_encoder.encode(bindings, term_indices=term_indices)
+        batch = self._pad(raw)
+        t = batch_from_numpy({name: getattr(batch, name) for name in _BATCH_FIELDS}, self.device)
+        return bindings, cls, order, raw, t
+
+    def _launch_once_partitioned(self, bindings: Sequence, term_indices=None) -> dict:
+        """LAUNCH half of the dense round, partitioned by row class (rows
+        are permuted class-contiguous before encoding and unpermuted by the
+        materialize half):
+
+          phase 1  dense filter + estimate over ALL rows (one launch)
+          phase 2  the wide-row division tail over ONLY the divided rows:
+                   static/dynamic-weight rows and Aggregated rows as two
+                   launches, so the truncation runs only where needed
+          masks    duplicated / non-workload target sets: the first k
+                   feasible indices when the affinity popcount bounds them,
+                   else complete packed feasible rows
+
+        Every phase-2 launch reads only phase-1 device outputs, so the
+        round pays one device->host sync, in the materialize half."""
+        n_real = len(bindings)
+        if n_real == 0:
+            return {"n_real": 0}
+        C = len(self.fleet.names)
+        dev = self.device
+
+        from .. import kernels
+
+        bindings, cls, order, raw, t = self._encode_round(bindings, term_indices)
+        f = self._fleet_dev
+
+        dev_feasible, _dev_score, dev_avail, dev_prev, dev_tie, dev_fc = kernels.dense_filter(
+            f["alive"], f["capacity"], f["has_summary"], f["taint_key"],
+            f["taint_value"], f["taint_effect"], f["api_ok"],
+            t["replicas"], t["unknown_request"], t["gvk"],
+            t["tol_tables"], t["tol_idx"], t["aff_masks"], t["aff_idx"],
+            t["prev_idx"], t["prev_rep"], t["evict_idx"], t["seeds"],
+            t["req_unique"], t["req_idx"], None,
+            plugin_bits=self._plugin_bits,
+        )
+
+        # ---- phase 2: division tails per sub-class, read through row ids ----
+        tails = []
+        for want_cls, has_agg in ((1, False), (2, True)):
+            rows = [b for b in range(n_real) if cls[b] == want_cls]
+            if not rows:
+                continue
+            idx_pad, _nr = _pad_rows_idx(rows, self._bucket)
+            max_repl = int(raw.replicas[rows].max(initial=0))
+            topk = min(pow2_bucket(min(max_repl, TOPK_TARGETS), lo=8), TOPK_TARGETS)
+            t_out = kernels.dense_tail(
+                dev_feasible, dev_avail, dev_prev, dev_tie,
+                torch.from_numpy(idx_pad).to(dev),
+                t["weight_tables"], t["weight_idx"], t["strategy"], t["replicas"],
+                t["fresh"], topk=topk, has_agg=has_agg,
+            )
+            tails.append({"rows": rows, "t_out": t_out})
+
+        # ---- phase 2: duplicated / non-workload target sets ----
+        mask_rows = [b for b in range(n_real) if cls[b] == 0]
+        packed_dev = midx_dev = None
+        if mask_rows:
+            mask_idx, _nm = _pad_rows_idx(mask_rows, self._bucket)
+            m_feas = dev_feasible.index_select(
+                0, torch.from_numpy(mask_idx.astype(np.int64)).to(dev)
+            )
+            pc = raw.aff_masks.sum(axis=1)
+            mk = int(pc[raw.aff_idx[np.asarray(mask_rows)]].max(initial=0))
+            # the popcount bounds the feasible set only while feasible is
+            # inside the affinity mask; with ClusterAffinity disabled the
+            # filter substitutes all-ones, so those rows ship packed masks
+            if self._plugin_bits & plugin_mod.BIT_AFFINITY and 0 < mk <= TOPK_TARGETS:
+                midx_dev = kernels.feas_idx(m_feas, min(pow2_bucket(mk, lo=8), C))
+            else:
+                packed_dev = kernels.pack_rows(m_feas)
+
+        return {
+            "bindings": bindings, "raw": raw, "cls": cls, "order": order,
+            "n_real": n_real, "dev_feasible": dev_feasible, "dev_fc": dev_fc,
+            "tails": tails, "packed_dev": packed_dev, "midx_dev": midx_dev,
+            "mask_rows": mask_rows,
+        }
+
+    def _materialize_once_partitioned(self, p: dict) -> list[ScheduleDecision]:
+        """MATERIALIZE half of the dense round: ONE device->host sync for
+        everything the launch half dispatched, the decode (with row fetches
+        for tail rows whose nonzero count outruns the output window and for
+        mask rows whose feasible count outruns the index window), then the
+        decisions, unpermuted."""
+        n_real = p["n_real"]
+        if n_real == 0:
+            return []
+        bindings, raw, cls, order = p["bindings"], p["raw"], p["cls"], p["order"]
+        tails, mask_rows = p["tails"], p["mask_rows"]
+        names = self.fleet.names
+
+        unsched = np.zeros(n_real, bool)
+        avail_sum = np.zeros(n_real, np.int64)
+        row_target_src: dict[int, tuple] = {}
+        row_feas_src: dict[int, tuple] = {}
+
+        # ---- THE sync ----
+        host = [p["dev_fc"]] + [x for tl in tails for x in tl["t_out"][1:]]
+        host += [x for x in (p["packed_dev"], p["midx_dev"]) if x is not None]
+        host = [x.cpu().numpy() for x in host]
+        feas_count = host[0][:n_real].astype(np.int64)
+
+        # ---- decode: division tails ----
+        for i, tl in enumerate(tails):
+            t_unsched, t_asum, t_nnz, t_ti, t_tv = host[1 + 5 * i: 6 + 5 * i]
+            tis, tvs = _sorted_pairs(t_ti, t_tv)
+            overflow = []
+            for k, b in enumerate(tl["rows"]):
+                unsched[b] = bool(t_unsched[k])
+                avail_sum[b] = int(t_asum[k])
+                n = int(t_nnz[k])
+                if n > t_ti.shape[1]:
+                    overflow.append((k, b))
+                    continue
+                row_target_src[b] = ("pairs", names, tis[k, :n], tvs[k, :n])
+            if overflow:
+                o_res = fetch_rows(tl["t_out"][0], [k for k, _ in overflow], self._bucket)
+                for j, (_, b) in enumerate(overflow):
+                    pos = np.nonzero(o_res[j] > 0)[0]
+                    row_target_src[b] = ("pairs", names, pos, o_res[j, pos].astype(np.int64))
+
+        # ---- decode: duplicated / non-workload target sets ----
+        if mask_rows:
+            packed_h = host[-1] if p["packed_dev"] is not None else None
+            midx_h = host[-1] if p["midx_dev"] is not None else None
+            mask_overflow: list[int] = []
+            for k, b in enumerate(mask_rows):
+                n = int(feas_count[b])
+                if n <= 0:
+                    continue  # FitError branch
+                reps = self._mask_replicas(raw, bindings, b)
+                if midx_h is not None:
+                    if n > midx_h.shape[1]:
+                        # the feasible set outran the popcount-derived
+                        # window: fetch the dense row, never truncate
+                        mask_overflow.append(b)
+                        continue
+                    fidx = np.asarray(midx_h[k][:n], np.int64)
+                    row_feas_src[b] = ("idx", names, fidx)
+                    row_target_src[b] = ("pairs", names, fidx, np.full(n, reps, np.int64))
+                else:
+                    row_feas_src[b] = ("mask", names, packed_h[k], len(names))
+                    row_target_src[b] = ("mask", names, packed_h[k], len(names), reps)
+            if mask_overflow:
+                o_feas = fetch_rows(p["dev_feasible"], mask_overflow, self._bucket)
+                for j, b in enumerate(mask_overflow):
+                    fidx = np.nonzero(o_feas[j])[0]
+                    reps = self._mask_replicas(raw, bindings, b)
+                    row_feas_src[b] = ("idx", names, fidx)
+                    row_target_src[b] = (
+                        "pairs", names, fidx, np.full(len(fidx), reps, np.int64),
+                    )
+
+        # ---- build decisions, then unpermute ----
+        out: list[Optional[ScheduleDecision]] = [None] * n_real
+        for b, key in enumerate(raw.keys):
+            dec = ScheduleDecision(key=key)
+            if b in row_feas_src:
+                dec._feasible_src = row_feas_src[b]
+            if feas_count[b] == 0:
+                # FitError diagnosis (generic_scheduler.go:83-88)
+                dec.error = f"0/{self.n_real_clusters} clusters are available"
+            elif unsched[b]:
+                dec.error = (
+                    f"Clusters available replicas {int(avail_sum[b])} are not "
+                    "enough to schedule."
+                )
+            elif b in row_target_src:
+                dec._targets_src = row_target_src[b]
+            else:
+                # every live row must get a decode source from exactly one
+                # phase-2 path; a misrouted row decoding to empty targets
+                # would look like a successful no-op placement
+                raise AssertionError(
+                    "schedule round produced no decode source for live row "
+                    f"{key!r} (class {int(cls[b])}, strategy "
+                    f"{int(raw.strategy[b])})"
+                )
+            out[int(order[b])] = dec
+        return out
+
+    @staticmethod
+    def _mask_replicas(raw: BindingBatch, bindings, b: int) -> int:
+        """Replicas per target of a duplicated / non-workload row."""
+        return 0 if int(raw.strategy[b]) == NON_WORKLOAD else int(bindings[b].spec.replicas)
 
     def _classify_spread(self, bindings) -> list[int]:
         """Rows whose spread constraints take part in selection. The spread
-        paths are a later slice: the candidate round raises on them."""
+        paths are a later slice: both rounds raise on them."""
         return [
             b for b, rb in enumerate(bindings)
             if rb.spec.placement is not None

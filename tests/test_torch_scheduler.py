@@ -185,16 +185,6 @@ def test_spread_row_raises():
         port.schedule([rb])
 
 
-@pytest.mark.parametrize("candidate_k", [0, 128])
-def test_dense_round_raises(candidate_k):
-    """A small fleet (C within the window) or a disabled window needs the
-    dense round, a later slice: the port raises instead of running it."""
-    clusters, bindings = flagship_mix(n_bindings=8)
-    port = TorchScheduler(from_reference_objects(clusters), candidate_k=candidate_k, device="cpu")
-    with pytest.raises(NotImplementedError, match="dense"):
-        port.schedule(from_reference_objects(bindings))
-
-
 def test_extra_avail_raises():
     clusters, bindings = flagship_mix(n_bindings=8)
     port = TorchScheduler(from_reference_objects(clusters), candidate_k=16, device="cpu")
