@@ -12,23 +12,41 @@ result line otherwise. Phases, each of which raises on failure:
 3. each kernel against its plain PyTorch version on the card, exactly
    (integer outputs): on seeded tie-heavy random inputs at the flagship
    shapes (the dense tail also at 16 384 columns) and on the flagship's own
-   encoded batches, compact and dense; with each kernel's time, its plain
-   version's time, its bound and, for feas_idx, the time of the one torch
-   call that computes the same function (`--kernels-only` stops here);
+   encoded batches, compact and dense; the spread kernels on the
+   arguments the main path itself passes them in one round each of
+   config 4, config 4b and the drain cell (captured at launch), then on
+   seeded tie-heavy inputs over the config-4 and config-4b region layouts
+   (group_score also with negative availability and on a single-region
+   fleet of 16 384 columns; combo_select at 4 096 rows over a config-4
+   combination table, then select_regions_batch through it against its
+   host path); with each kernel's time, its plain version's time, its
+   bound and, for feas_idx, the time of the one torch call that computes
+   the same function — the spread kernels' per round of config 4 (of the
+   drain cell for combo_select) (`--kernels-only` stops here);
 4. the main paths through ArrayScheduler.schedule() on the card, each with
    every launch count set to 0 just before it and read just after, timed
-   rounds with p50/p99, and decisions held against the port's CPU round:
-   the compact flagship round (bench.py build_flagship's mix: 5 000
+   rounds with p50/p90/p99, and decisions held against the port's CPU
+   round: the compact flagship round (bench.py build_flagship's mix: 5 000
    clusters x 10 000 bindings, seed 0); the same flagship as a dense round
    (every binding annotated dense-solve); that dense flagship with the
    Duplicated quarter placed over the whole fleet (packed mask rows); the
    static-weight split of bench.py build_static (100 x 1 000, reason
-   small_fleet); and the 3-cluster Duplicated slice of bench.py build_dup3;
+   small_fleet); the 3-cluster Duplicated slice of bench.py build_dup3;
+   BASELINE config 4 (bench.py build_spread: region spread over 5 000
+   clusters x 5 000 bindings) and config 4b (build_spread_skewed); config
+   4's mix with affinities of 64 clusters (the window cell: solved in the
+   candidate window); and the drain cell (a synthetic cell built to cross
+   combo_select's 4 096-distinct-row gate: config 4's fleet, 5 000
+   bindings under one region-spread policy, each evicting a cluster in
+   each of its own random half of the regions); every spread cell with
+   its exact launches per round;
 5. the `kernels` JSON line, then the card's name and power limit, then the
    last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import gc
 import json
 import subprocess
@@ -43,6 +61,7 @@ from karmada_tpu_torch.api import policy as pol
 from karmada_tpu_torch.api.meta import CPU, ObjectMeta, new_uid
 from karmada_tpu_torch.api.work import (
     BindingSpec,
+    GracefulEvictionTask,
     ObjectReference,
     ReplicaRequirements,
     ResourceBinding,
@@ -52,6 +71,7 @@ from karmada_tpu_torch.convert import batch_from_numpy
 from karmada_tpu_torch.kernels import build
 from karmada_tpu_torch.models.batch import pow2_bucket
 from karmada_tpu_torch.sched.candidates import DENSE_SOLVE_ANNOTATION, effective_k
+from karmada_tpu_torch.sched import spread_batch
 from karmada_tpu_torch.sched.core import (
     TOPK_TARGETS,
     ArrayScheduler,
@@ -74,7 +94,13 @@ N_CLUSTERS = 5000
 N_BINDINGS = 10000
 TIMED_ROUNDS = 110  # p90 then has 11 samples beyond it
 VARIANT_ROUNDS = 20  # timed rounds of the whole-fleet Duplicated variant
-WIDE_C = 16384  # the dense tail's width check
+SPREAD_ROUNDS = 20  # timed rounds of each spread cell
+SPREAD_BINDINGS = 5000  # BASELINE config 4: 5k clusters x 5k bindings
+WINDOW_BINDINGS = 1000
+WINDOW_NAMES = 64  # clusters named by each window-cell affinity
+SPREAD_REPS = 512  # representative rows of the random group_score check
+COMBO_ROWS = 4096  # rows of the combo_select check (its device gate)
+WIDE_C = 16384  # the dense tail's and group_score's width check
 DEVICE = "cuda"
 
 FLEET = ("alive", "capacity", "has_summary", "taint_key", "taint_value", "taint_effect", "api_ok")
@@ -84,10 +110,18 @@ SELECT_OUT = ("cand_idx", "c_feas", "c_score", "c_avail", "c_prev", "c_tie", "fe
               "packed")
 TAIL_OUT = ("result", "unschedulable", "avail_sum", "nnz", "top_idx", "top_val")
 FILTER_OUT = ("feasible", "score", "avail", "prev", "tie", "feas_count")
+GROUP_OUT = ("weight", "value", "avail_sum", "feas_count")
+SPREAD_TAIL_OUT = ("result", "unschedulable", "avail_sum", "feas_count", "nnz", "top_idx",
+                   "top_val")
+COMBO_OUT = ("first_idx", "n_ties", "none_feasible")
+LAYOUT = ("perm", "seg_start", "seg_end", "rank_p")
+
+
+T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    print(f"[{time.perf_counter() - T0:7.1f} s] {msg}", flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -188,6 +222,120 @@ def build_dup3(seed=0, n_bindings=100):
     clusters = synthetic_fleet(3, seed=seed)
     p = duplicated_placement([c.name for c in clusters])
     return clusters, [_binding(i, 2, p, 0.1) for i in range(n_bindings)]
+
+
+def _spread_placements(rng, n_placements: int):
+    """bench.py:273 _spread_placements, the same draws: n_placements
+    distinct (region MinGroups, MaxGroups, cluster MinGroups) tuples, 30 %
+    Aggregated, the rest Duplicated, over the whole fleet."""
+    out = []
+    for k in range(n_placements):
+        rmin = int(rng.integers(2, 5))
+        rmax = rmin + int(rng.integers(0, 3))
+        cmin = int(rng.integers(rmin, rmin + 3))
+        cons = [
+            pol.SpreadConstraint(spread_by_field=pol.SPREAD_BY_FIELD_REGION,
+                                 min_groups=rmin, max_groups=rmax),
+            pol.SpreadConstraint(spread_by_field=pol.SPREAD_BY_FIELD_CLUSTER, min_groups=cmin),
+        ]
+        if k % 10 >= 7:
+            p = _dyn_placement(aggregated=True)
+            p.spread_constraints = cons
+        else:
+            p = pol.Placement(cluster_affinity=pol.ClusterAffinity(cluster_names=[]),
+                              spread_constraints=cons)
+        out.append(p)
+    return out
+
+
+def build_spread(seed=0, n_clusters=N_CLUSTERS, n_bindings=SPREAD_BINDINGS, skewed=False):
+    """BASELINE config 4 (bench.py:305 build_spread, the same draws): 200
+    distinct region-spread placements over 5 000 clusters x 5 000 bindings.
+    `skewed` is config 4b (bench.py:323 build_spread_skewed): one mega
+    region holding 60 % of the fleet among 30 small ones."""
+    rng = np.random.default_rng(seed)
+    clusters = synthetic_fleet(n_clusters, seed=seed)
+    if skewed:
+        n_mega = int(n_clusters * 0.6)
+        for i, c in enumerate(clusters):
+            if i < n_mega:
+                c.spec.region, c.spec.provider = "mega-region", "mega"
+            else:
+                r = int(rng.integers(0, 30))
+                c.spec.region, c.spec.provider = f"small-{r}", f"p{r % 4}"
+    placements = _spread_placements(rng, 200)
+    bindings = [
+        _binding(i, int(rng.integers(1, 32)), placements[i % len(placements)],
+                 float(rng.choice([0.1, 0.25, 0.5])))
+        for i in range(n_bindings)
+    ]
+    return clusters, bindings
+
+
+def build_spread_window(seed=0, n_clusters=N_CLUSTERS, n_bindings=WINDOW_BINDINGS):
+    """Config 4's mix over the same fleet, each placement's affinity naming
+    64 clusters: every feasible set fits the candidate window, so the
+    compact round selects in the window (and re-runs the window tail for
+    the Aggregated rows)."""
+    rng = np.random.default_rng(seed + 1)
+    clusters = synthetic_fleet(n_clusters, seed=seed)
+    names = [c.name for c in clusters]
+    placements = _spread_placements(rng, 200)
+    for p in placements:
+        pick = rng.choice(n_clusters, WINDOW_NAMES, replace=False)
+        p.cluster_affinity = pol.ClusterAffinity(cluster_names=[names[int(j)] for j in pick])
+    bindings = [
+        _binding(i, int(rng.integers(1, 32)), placements[i % len(placements)],
+                 float(rng.choice([0.1, 0.25, 0.5])))
+        for i in range(n_bindings)
+    ]
+    return clusters, bindings
+
+
+def build_drain(seed=0, n_clusters=N_CLUSTERS, n_bindings=SPREAD_BINDINGS):
+    """A synthetic cell that exists to cross the 4 096-distinct-row gate
+    that puts the winner selection (combo_select) on the card; no
+    deployment or bench configuration has its shape. Config 4's fleet under
+    one policy (region MinGroups 2, MaxGroups 3, cluster MinGroups 3,
+    Duplicated); each binding carries graceful-eviction tasks from one
+    cluster in each region of its own random half of the 16 regions, so
+    almost every row has its own group values."""
+    rng = np.random.default_rng(seed + 2)
+    clusters = synthetic_fleet(n_clusters, seed=seed)
+    by_region: dict[str, list[str]] = {}
+    for c in clusters:
+        by_region.setdefault(c.spec.region, []).append(c.name)
+    regions = sorted(by_region)
+    p = pol.Placement(
+        cluster_affinity=pol.ClusterAffinity(cluster_names=[]),
+        spread_constraints=[
+            pol.SpreadConstraint(spread_by_field=pol.SPREAD_BY_FIELD_REGION,
+                                 min_groups=2, max_groups=3),
+            pol.SpreadConstraint(spread_by_field=pol.SPREAD_BY_FIELD_CLUSTER, min_groups=3),
+        ],
+    )
+    bindings = []
+    for i in range(n_bindings):
+        rb = _binding(i, int(rng.integers(1, 32)), p, float(rng.choice([0.1, 0.25, 0.5])))
+        drained = [r for r in regions if rng.random() < 0.5]
+        rb.spec.graceful_eviction_tasks = [
+            GracefulEvictionTask(from_cluster=by_region[r][int(rng.integers(len(by_region[r])))])
+            for r in drained
+        ]
+        bindings.append(rb)
+    return clusters, bindings
+
+
+# the spread cells of phase 4: (name, builder, launches per round; every
+# other kernel must launch 0 times)
+_SPREAD_DENSE = {"candidate_select": 1, "dense_filter": 1, "group_score": 1,
+                 "packed_selection": 1}
+SPREAD_CELLS = (
+    ("config 4", build_spread, {**_SPREAD_DENSE, "spread_tail": 1}),
+    ("config 4b", functools.partial(build_spread, skewed=True), {**_SPREAD_DENSE, "spread_tail": 1}),
+    ("window", build_spread_window, {"candidate_select": 1, "candidate_tail": 1}),
+    ("drain", build_drain, {**_SPREAD_DENSE, "combo_select": 1}),
+)
 
 
 # --------------------------------------------------------------------------
@@ -346,8 +494,9 @@ def compare(name, got, want, fields) -> int:
             bad = (a != b).nonzero()[:5].tolist()
             raise AssertionError(f"{name}.{f} differs from its plain version at {bad}")
     if "top_idx" in fields:  # the output window as the decode reads it
-        gi, gv = _sorted_pairs(got[4].cpu().numpy(), got[5].cpu().numpy())
-        wi, wv = _sorted_pairs(want[4].cpu().numpy(), want[5].cpu().numpy())
+        i, v = fields.index("top_idx"), fields.index("top_val")
+        gi, gv = _sorted_pairs(got[i].cpu().numpy(), got[v].cpu().numpy())
+        wi, wv = _sorted_pairs(want[i].cpu().numpy(), want[v].cpu().numpy())
         if not (np.array_equal(gi, wi) and np.array_equal(gv, wv)):
             raise AssertionError(f"{name}: sorted output windows differ")
     return worst
@@ -472,8 +621,8 @@ def decision_view(d):
 def drive(label, sched, bindings, rounds, expect, smi):
     """One main path: launch counts set to 0, a warm round and `rounds`
     timed rounds (host clock around a synchronised round), counts read.
-    `expect` maps kernel name -> launches per round (exact); the other
-    kernels must stay at 0. Returns (decisions, launch counts, times)."""
+    `expect` maps kernel name -> launches per round (exact; the other
+    kernels must stay at 0). Returns (decisions, launch counts, times)."""
     kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -491,10 +640,9 @@ def drive(label, sched, bindings, rounds, expect, smi):
     launches = kernels.launch_counts()
     n_rounds = rounds + 1
     for n, c in launches.items():
-        want = expect.get(n, 0) * n_rounds
-        if c != want:
+        if c != expect.get(n, 0) * n_rounds:
             raise AssertionError(f"{label}: {n} launched {c} times in {n_rounds} rounds, "
-                                 f"expected {want}")
+                                 f"expected {expect.get(n, 0) * n_rounds}")
     p50, p90, p99 = (float(np.percentile(times, q)) for q in (50, 90, 99))
     with_gc = [x for x, g in zip(times, gc_rounds) if g]
     log(f"{label} on {smi}: warm {warm:.4f} s; p50 {p50:.4f} s p90 {p90:.4f} s p99 {p99:.4f} s "
@@ -694,9 +842,307 @@ def check_dense_kernels(sched, bindings, dev, results):
     return f_ms + t_ms + i_ms
 
 
+def random_group_inputs(rng, dev, B, C, S, neg_share=0.125):
+    """Seeded tie-heavy group-score inputs: [B, C] filter outputs with few
+    distinct scores and availabilities (so the name rank decides most
+    orders), S row ids with repeats, need and target from 0 to past a
+    region's size, a third of the rows Duplicated, and a share of the rows
+    with negative availability (the exact quadratic branch)."""
+    feas = rng.random((B, C)) < 0.85
+    score = rng.choice([0, 0, 50, 100], (B, C)).astype(np.int32)
+    avail = rng.choice([0, 1, 1, 3, 9, 40], (B, C)).astype(np.int32)
+    prev = np.where(rng.random((B, C)) < 0.02, 2, 0).astype(np.int32)
+    odd = rng.random(B) < neg_share
+    avail = np.where(odd[:, None] & (rng.random((B, C)) < 0.05), -7, avail).astype(np.int32)
+    d = {
+        "feasible": feas, "score": score, "avail": avail, "prev": prev,
+        "rows": rng.integers(0, B, S).astype(np.int32),
+        "replicas": rng.integers(1, 64, S).astype(np.int64),
+        "need": rng.integers(1, 9, S).astype(np.int64),
+        "target": rng.integers(0, 400, S).astype(np.int64),
+        "duplicated": rng.random(S) < 0.33,
+    }
+    return list(batch_from_numpy(d, dev).values())
+
+
+def random_selection_inputs(rng, dev, B, C, R, n):
+    """Seeded spread-tail inputs over a layout of R regions: [B, C] filter
+    outputs with few distinct values, n row ids, each row choosing about
+    half the regions, dynamic / Aggregated / static rows with Steady and
+    Fresh modes."""
+    feas = rng.random((B, C)) < 0.8
+    prev = np.where(rng.random((B, C)) < 0.03, rng.integers(1, 4, (B, C)), 0)
+    assigned = np.where(feas, prev, 0).sum(-1)
+    replicas = rng.integers(1, 129, B)
+    mode = np.arange(B) % 4
+    replicas = np.where(mode == 2, assigned, replicas)
+    d = {
+        "feasible": feas,
+        "avail": rng.choice([0, 2, 2, 2, 7, 40], (B, C)).astype(np.int32),
+        "prev": prev.astype(np.int32),
+        "tie": rng.integers(0, 3, (B, C)).astype(np.int32),
+        "rows": rng.integers(0, B, n).astype(np.int32),
+        "chosen": rng.random((n, R)) < 0.5,
+        "strategy": rng.choice([2, 3, 4, 4], B).astype(np.int32),
+        "replicas": np.maximum(replicas, 1).astype(np.int32),
+        "fresh": mode == 3,
+    }
+    return batch_from_numpy(d, dev)
+
+
+def random_combo_inputs(rng, dev, S, R):
+    """Seeded tie-heavy group matrices: weights on a coarse grid, small
+    values, absent regions."""
+    d = {
+        "weight": (rng.integers(0, 6, (S, R)) * 1000 + rng.integers(0, 2, (S, R))).astype(np.int64),
+        "value": np.where(rng.random((S, R)) < 0.1, 0, rng.integers(1, 5, (S, R))).astype(np.int32),
+    }
+    return batch_from_numpy(d, dev)
+
+
+def group_work(args, outs):
+    """Bytes: the four filter outputs of each row's region members read
+    once (13 bytes a member), the layout and row parameters, every output
+    written once. Operations: ~20 integer operations per member (sums,
+    compares, the prefix)."""
+    S, Cp = args[4].numel(), args[9].numel()
+    return S * Cp * 13 + nbytes(args[4:]) + nbytes(outs), S * Cp * 20
+
+
+def selection_work(feas, rows, chosen, rid, outs, per_col_bytes, ops_per_col):
+    """Bytes: per_col_bytes of filter outputs per selected row and column,
+    the row's chosen regions and the region ids once, every output written
+    once. Operations: ops_per_col per row and column."""
+    n, C = rows.numel(), feas.shape[1]
+    return (n * C * per_col_bytes + nbytes([rows, chosen, rid]) + nbytes(outs),
+            n * C * ops_per_col)
+
+
+def packed_selection_work(args, outs):
+    return selection_work(*args, outs, 1, 1)
+
+
+def spread_tail_work(args, outs):
+    feas, _avail, _prev, _tie, rows, chosen, rid = args[:7]
+    return selection_work(feas, rows, chosen, rid, outs, 13, 40)
+
+
+def combo_work(args, outs):
+    """Operations: per (row, combination) about 4 per member slot and 10
+    more (the sums, presence, recorded-path test and compares); bytes: the
+    inputs, the table and the outputs once."""
+    S = args[0].shape[0]
+    K, L = args[4].shape
+    return nbytes(args) + nbytes(outs), S * K * (4 * L + 10)
+
+
+# kernel -> (source, replaced program, outputs, bytes-and-operations model,
+# position of the row-id / row argument); the launch and plain functions are
+# kernels._<name>_launch and kernels.<name>_plain
+SPREAD_KERNELS = {
+    "group_score": ("group_score.cu", "karmada_tpu/sched/spread_batch.py:190", GROUP_OUT,
+                    group_work, 4),
+    "packed_selection": ("dense_mask.cu", "karmada_tpu/sched/spread_batch.py:448",
+                         ("packed",), packed_selection_work, 1),
+    "spread_tail": ("dense_tail.cu", "karmada_tpu/sched/spread_batch.py:455", SPREAD_TAIL_OUT,
+                    spread_tail_work, 4),
+    "combo_select": ("combo_select.cu", "karmada_tpu/sched/spread_batch.py:859", COMBO_OUT,
+                     combo_work, 0),
+}
+
+
+@contextlib.contextmanager
+def captured_spread_launches():
+    """Inside the block every spread kernel launch also records a copy of
+    its arguments (tensors cloned at launch time): {kernel: [(args,
+    keywords), ...]}. The counting wrappers are untouched."""
+    calls = {n: [] for n in SPREAD_KERNELS}
+    saved = {n: getattr(kernels, f"_{n}_launch") for n in SPREAD_KERNELS}
+
+    def recorder(n, fn):
+        def record(*args, **kw):
+            calls[n].append(([a.clone() for a in args], kw))
+            return fn(*args, **kw)
+        return record
+
+    for n, fn in saved.items():
+        setattr(kernels, f"_{n}_launch", recorder(n, fn))
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(kernels, f"_{n}_launch", fn)
+
+
+def main_path_spread_calls(cell, build_cell, expect, dev):
+    """One round of a spread cell on the card with its spread launches
+    captured; their count per kernel must be the cell's per-round launch
+    count. Returns (calls, the cell's layout tensors and host layout)."""
+    clusters, bindings = build_cell()
+    sched = ArrayScheduler(clusters, device=dev)
+    with captured_spread_launches() as calls:
+        sched.schedule(bindings)
+    torch.cuda.synchronize()
+    got = {n: len(c) for n, c in calls.items()}
+    want = {n: expect.get(n, 0) for n in SPREAD_KERNELS}
+    if got != want:
+        raise AssertionError(f"{cell}: one round launched {got}, expected {want}")
+    return calls, sched._layout_dev, sched._spread_layout
+
+
+def run_calls(n, calls, plain=False):
+    fn = getattr(kernels, f"{n}_plain" if plain else f"_{n}_launch")
+    outs = [fn(*args, **kw) for args, kw in calls]
+    return [o if isinstance(o, tuple) else (o,) for o in outs]
+
+
+def check_spread_kernels(dev, results):
+    """Phase 3 for the spread kernels (B8, B9a, B9b, B10): first on the
+    arguments the main path itself passes them in one round of config 4,
+    config 4b and the drain cell (each kernel's time, plain time and bound
+    per round come from config 4's round, combo_select's from the drain's),
+    then on seeded tie-heavy inputs over those layouts."""
+    rng = np.random.default_rng(2)
+    errs = dict.fromkeys(SPREAD_KERNELS, 0)
+
+    # ---- the main path's own arguments ----
+    captured, lays, layouts = {}, {}, {}
+    for cell, build_cell, expect in SPREAD_CELLS:
+        if cell == "window":  # launches no spread kernel
+            continue
+        calls, lays[cell], layouts[cell] = main_path_spread_calls(cell, build_cell, expect, dev)
+        rows = {}
+        for n, cs in calls.items():
+            _, _, fields, _, row_arg = SPREAD_KERNELS[n]
+            for i, (got, want) in enumerate(zip(run_calls(n, cs), run_calls(n, cs, plain=True))):
+                errs[n] = max(errs[n], compare(f"{n}[{cell} round, call {i}]", got, want, fields))
+            if cs:
+                rows[n] = [int(args[row_arg].shape[0]) for args, _ in cs]
+        log(f"{cell}: one round's spread launches (rows per call {rows}) equal their plain "
+            "versions exactly on the main path's own arguments")
+        captured[cell] = calls
+
+    timing = {}
+    for cell in captured:
+        parts = []
+        for n, cs in captured[cell].items():
+            if not cs:
+                continue
+            outs = run_calls(n, cs)
+            work = SPREAD_KERNELS[n][3]
+            moved, ops = map(sum, zip(*(work(a, o) for (a, _), o in zip(cs, outs))))
+            b, by = bound(moved, ops)
+            ms = cuda_ms(lambda: run_calls(n, cs), 10)
+            plain = cuda_ms(lambda: run_calls(n, cs, plain=True), 3)
+            timing[(cell, n)] = (ms, plain, b, by)
+            parts.append(f"{n} {ms:.4f} ms (plain {plain:.4f}, bound {b:.4f} {by})")
+        log(f"timing ({cell} round, the main path's arguments, per round): " + "; ".join(parts))
+    del captured
+    torch.cuda.empty_cache()
+
+    # ---- seeded tie-heavy inputs: B8 ----
+    C = lays["config 4"]["rid"].numel()
+    wide = spread_batch.RegionLayout(np.zeros(WIDE_C, np.int32), ["single"],
+                                     rng.permutation(WIDE_C).astype(np.int32)).tensors(dev)
+    for label, lay, width, neg in [("config 4", lays["config 4"], C, 0.125),
+                                   ("config 4b", lays["config 4b"], C, 0.125),
+                                   ("config 4, non-negative", lays["config 4"], C, 0.0),
+                                   ("single region", wide, WIDE_C, 0.125)]:
+        a = random_group_inputs(rng, dev, 2 * SPREAD_REPS, width, SPREAD_REPS, neg_share=neg)
+        a += [lay[k] for k in LAYOUT]
+        errs["group_score"] = max(errs["group_score"], compare(
+            f"group_score[random, {label}]", kernels._group_score_launch(*a),
+            kernels.group_score_plain(*a), GROUP_OUT))
+        del a
+    log(f"group_score: {SPREAD_REPS} random rows over the config-4 and config-4b layouts and a "
+        f"single-region fleet of {WIDE_C} columns (1 row in 8 with negative availability) "
+        "equal the plain version exactly")
+
+    # ---- B9a packed_selection, B9b spread_tail ----
+    lay4 = lays["config 4"]
+    R = lay4["seg_start"].numel()
+    d = random_selection_inputs(rng, dev, 2 * SPREAD_REPS, C, R, SPREAD_REPS)
+    sel = (d["feasible"], d["rows"], d["chosen"], lay4["rid"])
+    errs["packed_selection"] = max(errs["packed_selection"], compare(
+        "packed_selection[random, config 4]", [kernels._packed_selection_launch(*sel)],
+        [kernels.packed_selection_plain(*sel)], ("packed",)))
+    t_args = [d[k] for k in ("feasible", "avail", "prev", "tie", "rows", "chosen")] + [
+        lay4["rid"]] + [d[k] for k in ("strategy", "replicas", "fresh")]
+    for topk, has_agg in ((32, True), (128, False)):
+        errs["spread_tail"] = max(errs["spread_tail"], compare(
+            f"spread_tail[random, config 4,{topk},{has_agg}]",
+            kernels._spread_tail_launch(*t_args, topk=topk, has_agg=has_agg),
+            kernels.spread_tail_plain(*t_args, topk=topk, has_agg=has_agg), SPREAD_TAIL_OUT))
+    log(f"packed_selection and spread_tail: {SPREAD_REPS} random rows x {C} columns over the "
+        "config-4 layout equal their plain versions exactly")
+    del d, sel, t_args
+
+    # ---- B10 combo_select, then select_regions_batch through it ----
+    table = spread_batch._combos(R, 3, 5)
+    members_pad, sizes = table.tensors(dev)
+    cd = random_combo_inputs(rng, dev, COMBO_ROWS, R)
+    kmax_row = torch.from_numpy(rng.integers(3, 6, COMBO_ROWS).astype(np.int32)).to(dev)
+    rname = torch.from_numpy(rng.permutation(R).astype(np.int32)).to(dev)
+    c_args = (cd["weight"], cd["value"], kmax_row, rname, members_pad, sizes)
+    for cmin in (3, 8):
+        errs["combo_select"] = max(errs["combo_select"], compare(
+            f"combo_select[random, config 4 table, cmin={cmin}]",
+            kernels._combo_select_launch(*c_args, cmin=cmin, kmin=3),
+            kernels.combo_select_plain(*c_args, cmin=cmin, kmin=3), COMBO_OUT))
+    small = spread_batch._combos(10, 1, 10).tensors(dev)  # 7 * L > 62: no packed key
+    cs = random_combo_inputs(rng, dev, 256, 10)
+    s_args = (cs["weight"], cs["value"], torch.full((256,), 10, dtype=torch.int32, device=dev),
+              rname[:10].argsort().to(torch.int32), *small)
+    errs["combo_select"] = max(errs["combo_select"], compare(
+        "combo_select[random, 10 regions, L=10]",
+        kernels._combo_select_launch(*s_args, cmin=5, kmin=1),
+        kernels.combo_select_plain(*s_args, cmin=5, kmin=1), COMBO_OUT))
+    W, V = cd["weight"].cpu().numpy(), cd["value"].cpu().numpy()
+    W[:, 0] += np.arange(COMBO_ROWS)  # 4 096 distinct rows
+    # rmax 4: the table C(16, 3..4) keeps 4 096 rows inside the device gate
+    cfg = spread_batch.SpreadConfig(rmin=3, rmax=4, cmin=4, cmax=0, duplicated=False)
+    before = kernels.combo_select.launches
+    on_card = spread_batch.select_regions_batch(W, V, cfg, layouts["config 4"], on=dev)
+    if kernels.combo_select.launches != before + 1:
+        raise AssertionError("select_regions_batch on 4096 rows did not launch combo_select")
+    host = spread_batch.select_regions_batch(W, V, cfg, layouts["config 4"], device=False)
+    if not (np.array_equal(on_card.chosen, host.chosen) and on_card.errors == host.errors
+            and sorted(on_card.fallback) == sorted(host.fallback)):
+        raise AssertionError("select_regions_batch: the card's selection differs from the host's")
+    log(f"combo_select: {COMBO_ROWS} random rows over the config-4 table C(16, 3..5) = "
+        f"{len(table.members)} combinations and 256 rows at L = 10 equal the plain version; "
+        f"select_regions_batch through it equals its host path on {COMBO_ROWS} distinct rows "
+        f"({int(on_card.chosen.any(1).sum())} chosen, {len(on_card.errors)} errors, "
+        f"{len(on_card.fallback)} fallback)")
+
+    csrc = "karmada_tpu_torch/kernels/csrc/"
+    for n, (src, repl, _, _, _) in SPREAD_KERNELS.items():
+        ms, plain, b, by = timing[("drain" if n == "combo_select" else "config 4", n)]
+        results[n] = dict(source=csrc + src, replaces=repl, max_abs_err=errs[n],
+                          ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None)
+
+
+def profiled_device_ms(sched, bindings):
+    """Device time of one round under torch.profiler: the sum over the
+    device's own events (kernels, copies, memsets), as the profiler's table
+    footer sums it — the host-side launch events carry their kernels' time
+    too and are left out. None when the profiler records none here."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sched.schedule(bindings)
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    return total_us / 1e3 if total_us > 0 else None
+
+
 def round_breakdown(label, sched, bindings, kernel_ms, p50):
     """One more round split at its seams (host clock), and the batch
-    encode alone (row cache warm, as in the timed rounds)."""
+    encode alone (row cache warm, as in the timed rounds). `kernel_ms`
+    None: the device time comes from a profiled round instead."""
     t0 = time.perf_counter()
     state = sched._launch_solve(bindings)
     t1 = time.perf_counter()
@@ -706,12 +1152,17 @@ def round_breakdown(label, sched, bindings, kernel_ms, p50):
     t3 = time.perf_counter()
     sched.batch_encoder.encode(bindings)
     t4 = time.perf_counter()
-    kernel_s = kernel_ms / 1e3
+    source = "from the phase-3 kernel timings"
+    if kernel_ms is None:
+        kernel_ms, source = profiled_device_ms(sched, bindings), "torch.profiler, one round"
+    share = "not measured"
+    if kernel_ms is not None:
+        share = (f"{kernel_ms / 1e3:.4f} s = {kernel_ms / 1e3 / p50:.3f} of the p50 round "
+                 f"(device busy share, {source})")
     log(f"{label} round breakdown: launch (classify + encode + upload + dispatch) "
         f"{t1 - t0:.4f} s [of which encode {t4 - t3:.4f} s], wait for the device "
         f"{t2 - t1:.4f} s, materialize (copy back + decode) {t3 - t2:.4f} s; kernel time per "
-        f"round {kernel_s:.4f} s = {kernel_s / p50:.3f} of the p50 round (device busy share, "
-        "from the phase-3 kernel timings)")
+        f"round {share}")
 
 
 def main(argv=None) -> int:
@@ -745,6 +1196,10 @@ def main(argv=None) -> int:
     results = {}
     compact_ms = check_compact_kernels(sched, bindings, dev, results)
     dense_ms = check_dense_kernels(d_sched, d_bindings, dev, results)
+    # one round each of configs 4, 4b and drain (their bindings are built
+    # again in phase 4, so no earlier cell's garbage collections walk them)
+    check_spread_kernels(dev, results)
+    gc.collect()
     torch.cuda.empty_cache()
     if kernels_only:
         log("kernels-only: phase 3 passed; no main path was run")
@@ -790,6 +1245,17 @@ def main(argv=None) -> int:
                             ArrayScheduler(c_clusters, device=dev), c_bindings, TIMED_ROUNDS,
                             {"dense_filter": 1, "feas_idx": 1}, smi)
     hold_against_cpu("config 1", c_clusters, c_bindings, decisions)
+
+    for cell, build_cell, expect in SPREAD_CELLS:
+        clusters_s, bindings_s = build_cell()
+        sched_s = ArrayScheduler(clusters_s, device=dev)
+        decisions, launches, times = drive(f"{cell} (spread)", sched_s, bindings_s,
+                                           SPREAD_ROUNDS, expect, smi)
+        for n in ("group_score", "packed_selection", "spread_tail", "combo_select"):
+            path_launches[n] = path_launches.get(n, 0) + launches[n]
+        round_breakdown(cell, sched_s, bindings_s, None, float(np.percentile(times, 50)))
+        hold_against_cpu(cell, clusters_s, bindings_s, decisions)
+        del sched_s, clusters_s, bindings_s, decisions
 
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": r["source"], "replaces": r["replaces"],

@@ -20,6 +20,22 @@ Dense round:
   and the first k feasible column ids per row; the plain versions are
   `pack_rows_plain` and `feas_idx_plain`.
 
+Spread constraints (the dense round's batched region path):
+- `group_score` (csrc/group_score.cu): every (row, region) group's weight,
+  member count and availability sum, read from the filter outputs through
+  row ids over the region layout's permuted slices; the plain version is
+  `group_score_plain`.
+- `packed_selection` (csrc/dense_mask.cu, `pack_rows` restricted to each
+  row's chosen regions): bit-packed selection masks; the plain version is
+  `packed_selection_plain`.
+- `spread_tail` (csrc/dense_tail.cu, the dense tail restricted to each
+  row's chosen regions, zero static weights): the division re-run over the
+  selection plus its feasible count; the plain version is
+  `spread_tail_plain`.
+- `combo_select` (csrc/combo_select.cu): the winning region combination
+  per row over the enumerated combination table; the plain version is
+  `combo_select_plain`.
+
 A wrapper runs the plain version only for tensors that lie on the CPU. For
 CUDA tensors it checks device, dtype, shape and contiguity, launches the
 kernel on PyTorch's current stream, raises when the launch reports an
@@ -32,6 +48,7 @@ import ctypes
 import torch
 
 from ..sched import core
+from ..sched.spread import WEIGHT_UNIT
 
 I64, I32, BOOL, U8 = torch.int64, torch.int32, torch.bool, torch.uint8
 
@@ -42,6 +59,10 @@ MAX_SELECT_SMEM = 232448  # bytes a block may use on sm_90
 # the dense tail sorts its output window in shared memory
 MAX_DENSE_TOPK = 128
 FEAS_IDX_PAD = 1 << 30  # feas_idx's value past a row's feasible count
+# combo_select's sentinels (the reference's `NEG` and its masked discovery key)
+COMBO_NEG = -(1 << 62)
+COMBO_DISC_MASKED = 1 << 62
+MAX_COMBO_REGIONS = 64  # combo_select keeps a row's regions in shared memory
 
 
 # --------------------------------------------------------------------------
@@ -165,6 +186,180 @@ def feas_idx_plain(feasible, k: int):
     iota = torch.arange(C, dtype=I32, device=feasible.device).expand(B, C)
     out.scatter_(1, pos, iota)
     return out[:, :k].contiguous()
+
+
+def _stable_by(key, *xs):
+    """The [S, w] tensors xs reordered, row by row, by a stable ascending
+    sort of key."""
+    o = torch.argsort(key, dim=1, stable=True)
+    return [x.gather(1, o) for x in xs]
+
+
+def group_score_plain(
+    feasible, score, avail, prev, rows, replicas, need, target, duplicated,
+    perm, seg_start, seg_end, rank_p,
+):
+    """Plain version of the group-scoring kernel (the reference's
+    `group_score_kernel`, and its skew-proof twin
+    `group_score_kernel_segmented`, which gives the same outputs) on the
+    [B, C] filter outputs' rows `rows` (i32[S]). Each region's members (the
+    permuted columns perm[seg_start[g]:seg_end[g]]) sort by (infeasible,
+    score desc, avail + prev desc, name rank asc), the sortClusters order
+    (util.go:43-57); then calcGroupScore (group_clusters.go:143-330): the
+    Duplicated score over the members whose availability covers replicas,
+    and the Divided score at the FIRST sorted position k with
+    k + 1 >= need and a prefix availability >= target. Divisions floor
+    (scores are non-negative in-tree; a negative one floors toward -inf,
+    as jnp's // does). Returns (weight i64[S,R], value i32[S,R], avail_sum
+    i64[S,R], feas_count i32[S] over the whole row)."""
+    r = rows.long()
+    S, R = r.numel(), seg_start.numel()
+    dev = feasible.device
+    f_all = feasible.index_select(0, r)
+    p = perm.long()
+    f = f_all[:, p]
+    av = torch.where(f, avail.index_select(0, r)[:, p].to(I64)
+                     + prev.index_select(0, r)[:, p].to(I64), 0)
+    sc = torch.where(f, score.index_select(0, r)[:, p].to(I64), 0)
+    weight = torch.zeros((S, R), dtype=I64, device=dev)
+    value = torch.zeros((S, R), dtype=I32, device=dev)
+    av_sum = torch.zeros((S, R), dtype=I64, device=dev)
+    rep, need, tgt = replicas.to(I64)[:, None], need.to(I64)[:, None], target.to(I64)[:, None]
+    for g, (lo, hi) in enumerate(zip(seg_start.tolist(), seg_end.tolist())):
+        if hi <= lo:
+            continue
+        # least significant key first, each sort stable: a lexicographic sort
+        o = torch.argsort(rank_p[lo:hi].long(), stable=True)
+        fg, ag, sg = f[:, lo:hi][:, o], av[:, lo:hi][:, o], sc[:, lo:hi][:, o]
+        fg, ag, sg = _stable_by(-ag, fg, ag, sg)
+        fg, ag, sg = _stable_by(-sg, fg, ag, sg)
+        fg, ag, sg = _stable_by((~fg).to(I64), fg, ag, sg)
+        w = hi - lo
+        cum_av, cum_sc = ag.cumsum(1), sg.cumsum(1)
+        val = fg.sum(1, keepdim=True).to(I64)
+        a_sum, s_sum = cum_av[:, -1:], cum_sc[:, -1:]
+        idx = torch.arange(w, device=dev)[None, :]
+        cond = (idx + 1 >= need) & (cum_av >= tgt) & (idx < val)
+        big = 1 << 40
+        k = torch.where(cond, idx, big).min(1, keepdim=True).values
+        met = k < big
+        k_eff = torch.where(met, k, val - 1).clamp(0, w - 1)
+        sc_at_k = cum_sc.gather(1, k_eff)
+        denom = torch.where(met, k_eff + 1, val).clamp(min=1)
+        w_div = torch.where(
+            a_sum < tgt,
+            a_sum * WEIGHT_UNIT + torch.div(s_sum, val.clamp(min=1), rounding_mode="floor"),
+            tgt * WEIGHT_UNIT + torch.div(sc_at_k, denom, rounding_mode="floor"),
+        )
+        dup_ok = fg & (ag >= rep)
+        cnt = dup_ok.sum(1, keepdim=True).to(I64)
+        sc_dup = torch.where(dup_ok, sg, 0).sum(1, keepdim=True)
+        w_dup = torch.where(
+            cnt > 0,
+            cnt * WEIGHT_UNIT + torch.div(sc_dup, cnt.clamp(min=1), rounding_mode="floor"), 0)
+        wg = torch.where(duplicated[:, None], w_dup, w_div)
+        weight[:, g] = torch.where(val > 0, wg, 0)[:, 0]
+        value[:, g] = val[:, 0].to(I32)
+        av_sum[:, g] = a_sum[:, 0]
+    return weight, value, av_sum, f_all.sum(-1).to(I32)
+
+
+def _selection(feasible, rows, chosen, rid):
+    """feasible[rows[j], c] & chosen[j, region(c)] (bool[n, C]); `chosen`
+    is bool[n, R], `rid` the layout's i32[C] region id + 1 (0 =
+    regionless, never selected)."""
+    n = rows.numel()
+    chosen_pad = torch.cat(
+        [torch.zeros((n, 1), dtype=BOOL, device=chosen.device), chosen], dim=1)
+    return feasible.index_select(0, rows.long()) & chosen_pad[:, rid.long()]
+
+
+def packed_selection_plain(feasible, rows, chosen, rid):
+    """Plain version of the packed-selection kernel (the reference's
+    `packed_selection_kernel` on the filter outputs' rows `rows`): the
+    selection masks bit-packed, u8[n, ceil(C/8)]."""
+    return core.pack_bits(_selection(feasible, rows, chosen, rid))
+
+
+def spread_tail_plain(
+    feasible, avail, prev, tie, rows, chosen, rid, strategy, replicas, fresh, *,
+    topk: int, has_agg: bool,
+):
+    """Plain version of the spread-tail kernel (the reference's
+    `spread_tail_kernel` on the filter outputs' rows `rows`): the division
+    tail over the selection (feasible and in a chosen region) with zero
+    static weights, then the compact window. `strategy`/`replicas`/`fresh`
+    are the batch's [B] columns read at `rows`. Returns (result i32[n,C],
+    unschedulable bool[n], avail_sum i32[n], feas_count i32[n] of the
+    selection, nnz i32[n], top_idx i32[n,w], top_val i32[n,w]),
+    w = min(C, topk)."""
+    r = rows.long()
+    sel = _selection(feasible, rows, chosen, rid)
+    result, unschedulable, avail_sum = core.assignment_tail(
+        sel, strategy.index_select(0, r), torch.zeros(sel.shape, dtype=I64, device=sel.device),
+        avail.index_select(0, r), prev.index_select(0, r), tie.index_select(0, r),
+        replicas.index_select(0, r), fresh.index_select(0, r), has_agg=has_agg,
+    )
+    feas_count, nnz, top_idx, top_val = core.compact_outputs(
+        sel, result, min(sel.shape[1], topk))
+    return result, unschedulable, avail_sum, feas_count, nnz, top_idx, top_val
+
+
+def _first_index(mask):
+    """Index of the first True per row, the row width where there is none."""
+    K = mask.shape[1]
+    iota = torch.arange(K, device=mask.device)
+    return torch.where(mask, iota, K).min(1).values
+
+
+def combo_select_plain(weight, value, kmax_row, rname, members_pad, sizes, *,
+                       cmin: int, kmin: int):
+    """Plain version of the combination-select kernel (the reference's
+    `_combo_select_kernel`): per (row, combination of members_pad [K, L],
+    -1 = pad) the weight and value sums, the presence of every member, the
+    DFS recorded-path pruning through each row's group order (value asc,
+    weight desc, name rank asc), the (Σweight, Σvalue) lexicographic winner
+    and the discovery-order tie key. Returns (first_idx i32[S], n_ties
+    i32[S], none_feasible bool[S]); equal keys take the lowest index."""
+    S, R = weight.shape
+    v64 = value.to(I64)
+    mp = members_pad.long()
+    valid = (mp >= 0)[None]
+    mpc = torch.where(mp >= 0, mp, 0)
+    sum_w = torch.where(valid, weight[:, mpc], 0).sum(-1)  # [S, K]
+    sum_v = torch.where(valid, v64[:, mpc], 0).sum(-1)
+    present = torch.where(valid, value[:, mpc] > 0, True).all(-1)
+    sz = sizes.to(I64)[None, :]
+    feasible = present & (sum_v >= cmin) & (sz <= kmax_row.to(I64)[:, None])
+    # each region's position in the group order (value asc, weight desc, name asc)
+    v_a, v_b = v64[:, :, None], v64[:, None, :]
+    w_a, w_b = weight[:, :, None], weight[:, None, :]
+    n_a, n_b = rname.long()[None, :, None], rname.long()[None, None, :]
+    before = (v_a < v_b) | ((v_a == v_b) & ((w_a > w_b) | ((w_a == w_b) & (n_a < n_b))))
+    pos = before.sum(1)  # [S, R]: the regions ordered before each one
+    pos_g = torch.where(valid, pos[:, mpc], -1)  # [S, K, L]
+    last = mpc[None].expand_as(pos_g).gather(2, pos_g.argmax(2, keepdim=True))[..., 0]
+    v_last = v64.gather(1, last)
+    recorded = (sz - 1 < kmin) | (sum_v - v_last < cmin)
+    feasible &= recorded
+    w_m = torch.where(feasible, sum_w, COMBO_NEG)
+    best_w = w_m.max(1, keepdim=True).values
+    none_feasible = best_w[:, 0] == COMBO_NEG
+    cand = feasible & (w_m == best_w)
+    v_m = torch.where(cand, sum_v, COMBO_NEG)
+    cand2 = cand & (sum_v == v_m.max(1, keepdim=True).values)
+    L = mp.shape[1]
+    if 7 * L <= 62:
+        seq = torch.sort(torch.where(pos_g < 0, 127, pos_g), dim=2).values
+        shifts = 7 * torch.arange(L - 1, -1, -1, dtype=I64, device=weight.device)
+        disc = torch.where(cand2, (seq << shifts).sum(2), COMBO_DISC_MASKED)
+        first_idx = _first_index(disc == disc.min(1, keepdim=True).values)
+        n_ties = cand2.sum(1).clamp(max=1)
+    else:
+        first_idx = _first_index(cand2)
+        first_idx = torch.where(first_idx == mp.shape[0], 0, first_idx)
+        n_ties = cand2.sum(1)
+    return first_idx.to(I32), n_ties.to(I32), none_feasible
 
 
 # --------------------------------------------------------------------------
@@ -609,7 +804,245 @@ def _feas_idx_launch(feasible, k: int):
 
 feas_idx.launches = 0
 
-KERNELS = (candidate_select, candidate_tail, dense_filter, dense_tail, pack_rows, feas_idx)
+
+def group_score(
+    feasible, score, avail, prev, rows, replicas, need, target, duplicated,
+    perm, seg_start, seg_end, rank_p,
+):
+    """Every (row, region) group score over the filter outputs' rows `rows`
+    (see group_score_plain for the contract)."""
+    args = (feasible, score, avail, prev, rows, replicas, need, target, duplicated,
+            perm, seg_start, seg_end, rank_p)
+    dev = feasible.device
+    if dev.type == "cpu":
+        return group_score_plain(*args)
+    if dev.type != "cuda":
+        raise ValueError(f"group_score: unsupported device {dev}")
+    out = _group_score_launch(*args)
+    group_score.launches += 1
+    return out
+
+
+def _group_score_launch(
+    feasible, score, avail, prev, rows, replicas, need, target, duplicated,
+    perm, seg_start, seg_end, rank_p,
+):
+    """Check, allocate and launch group_score_kernel. Row ids must lie in
+    [0, B) and the layout's columns in [0, C)."""
+    dev = feasible.device
+    B, C = feasible.shape
+    S, R, Cp = rows.shape[0], seg_start.shape[0], perm.shape[0]
+    for name, t, dt, shape in (
+        ("feasible", feasible, BOOL, (B, C)), ("score", score, I32, (B, C)),
+        ("avail", avail, I32, (B, C)), ("prev", prev, I32, (B, C)),
+        ("rows", rows, I32, (S,)), ("replicas", replicas, I64, (S,)),
+        ("need", need, I64, (S,)), ("target", target, I64, (S,)),
+        ("duplicated", duplicated, BOOL, (S,)), ("perm", perm, I32, (Cp,)),
+        ("seg_start", seg_start, I32, (R,)), ("seg_end", seg_end, I32, (R,)),
+        ("rank_p", rank_p, I32, (Cp,)),
+    ):
+        _check(name, t, dt, shape, dev)
+    weight = torch.zeros((S, R), dtype=I64, device=dev)
+    value = torch.zeros((S, R), dtype=I32, device=dev)
+    avail_sum = torch.zeros((S, R), dtype=I64, device=dev)
+    feas_count = torch.zeros((S,), dtype=I32, device=dev)
+    if S == 0 or C == 0:
+        return weight, value, avail_sum, feas_count
+    from .build import library
+
+    fn = library("group_score").group_score_launch
+    fn.restype = ctypes.c_int
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp] * 4 + [ci, vp, ci] + [vp] * 8 + [ci] + [vp] * 4 + [vp]
+    rc = fn(
+        _ptr(feasible), _ptr(score), _ptr(avail), _ptr(prev), C, _ptr(rows), S,
+        _ptr(replicas), _ptr(need), _ptr(target), _ptr(duplicated),
+        _ptr(perm), _ptr(seg_start), _ptr(seg_end), _ptr(rank_p), R,
+        _ptr(weight), _ptr(value), _ptr(avail_sum), _ptr(feas_count), _stream(dev),
+    )
+    _raise_on(rc, "group_score")
+    return weight, value, avail_sum, feas_count
+
+
+group_score.launches = 0
+
+
+def _chosen_table(chosen):
+    """bool[n, R] -> the kernels' u8[n, R + 1] table, column 0 (regionless)
+    False."""
+    n = chosen.shape[0]
+    return torch.cat([torch.zeros((n, 1), dtype=U8, device=chosen.device),
+                      chosen.to(U8)], dim=1).contiguous()
+
+
+def _check_selection(feasible, rows, chosen, rid):
+    dev = feasible.device
+    B, C = feasible.shape
+    n, R = rows.shape[0], chosen.shape[1]
+    for name, t, dt, shape in (
+        ("feasible", feasible, BOOL, (B, C)), ("rows", rows, I32, (n,)),
+        ("chosen", chosen, BOOL, (n, R)), ("rid", rid, I32, (C,)),
+    ):
+        _check(name, t, dt, shape, dev)
+    return B, C, n, R
+
+
+def packed_selection(feasible, rows, chosen, rid):
+    """Bit-packed selection masks of the filter outputs' rows `rows` (see
+    packed_selection_plain)."""
+    dev = feasible.device
+    if dev.type == "cpu":
+        return packed_selection_plain(feasible, rows, chosen, rid)
+    if dev.type != "cuda":
+        raise ValueError(f"packed_selection: unsupported device {dev}")
+    out = _packed_selection_launch(feasible, rows, chosen, rid)
+    packed_selection.launches += 1
+    return out
+
+
+def _packed_selection_launch(feasible, rows, chosen, rid):
+    """Check, allocate and launch pack_rows_kernel with the selection."""
+    dev = feasible.device
+    _B, C, n, R = _check_selection(feasible, rows, chosen, rid)
+    out = torch.empty((n, (C + 7) // 8), dtype=U8, device=dev)
+    if n == 0 or C == 0:
+        return out
+    table = _chosen_table(chosen)
+    from .build import library
+
+    fn = library("dense_mask").packed_selection_launch
+    fn.restype = ctypes.c_int
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, ci, vp, ci, vp, ci, vp, vp, vp]
+    rc = fn(_ptr(feasible), C, _ptr(rows), n, _ptr(table), R + 1, _ptr(rid), _ptr(out),
+            _stream(dev))
+    _raise_on(rc, "packed_selection")
+    return out
+
+
+packed_selection.launches = 0
+
+
+def spread_tail(
+    feasible, avail, prev, tie, rows, chosen, rid, strategy, replicas, fresh, *,
+    topk: int, has_agg: bool,
+):
+    """Division tail over each row's selection (see spread_tail_plain)."""
+    args = (feasible, avail, prev, tie, rows, chosen, rid, strategy, replicas, fresh)
+    dev = feasible.device
+    if dev.type == "cpu":
+        return spread_tail_plain(*args, topk=topk, has_agg=has_agg)
+    if dev.type != "cuda":
+        raise ValueError(f"spread_tail: unsupported device {dev}")
+    out = _spread_tail_launch(*args, topk=topk, has_agg=has_agg)
+    spread_tail.launches += 1
+    return out
+
+
+def _spread_tail_launch(
+    feasible, avail, prev, tie, rows, chosen, rid, strategy, replicas, fresh, *,
+    topk: int, has_agg: bool,
+):
+    """Check, allocate and launch the restricted dense_tail_kernel."""
+    dev = feasible.device
+    B, C, n, R = _check_selection(feasible, rows, chosen, rid)
+    for name, t, dt, shape in (
+        ("avail", avail, I32, (B, C)), ("prev", prev, I32, (B, C)),
+        ("tie", tie, I32, (B, C)), ("strategy", strategy, I32, (B,)),
+        ("replicas", replicas, I32, (B,)), ("fresh", fresh, BOOL, (B,)),
+    ):
+        _check(name, t, dt, shape, dev)
+    w = min(C, topk)
+    if not 0 < w <= MAX_DENSE_TOPK:
+        raise NotImplementedError(
+            f"spread_tail: output window {w} outside (0, {MAX_DENSE_TOPK}] (the "
+            "window is sorted in shared memory)"
+        )
+    result = torch.empty((n, C), dtype=I32, device=dev)
+    unsched = torch.empty((n,), dtype=BOOL, device=dev)
+    avail_sum = torch.empty((n,), dtype=I32, device=dev)
+    feas_count = torch.empty((n,), dtype=I32, device=dev)
+    nnz = torch.empty((n,), dtype=I32, device=dev)
+    top_idx = torch.empty((n, w), dtype=I32, device=dev)
+    top_val = torch.empty((n, w), dtype=I32, device=dev)
+    if n == 0:
+        return result, unsched, avail_sum, feas_count, nnz, top_idx, top_val
+    table = _chosen_table(chosen)
+    from .build import library
+
+    fn = library("dense_tail").spread_tail_launch
+    fn.restype = ctypes.c_int
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp] * 4 + [ci, vp, ci, vp, ci] + [vp] * 4 + [ci] * 2 + [vp] * 7 + [vp]
+    rc = fn(
+        _ptr(feasible), _ptr(avail), _ptr(prev), _ptr(tie), C, _ptr(rows), n,
+        _ptr(table), R + 1, _ptr(rid), _ptr(strategy), _ptr(replicas), _ptr(fresh),
+        w, 1 if has_agg else 0,
+        _ptr(result), _ptr(unsched), _ptr(avail_sum), _ptr(feas_count), _ptr(nnz),
+        _ptr(top_idx), _ptr(top_val), _stream(dev),
+    )
+    _raise_on(rc, "spread_tail")
+    return result, unsched, avail_sum, feas_count, nnz, top_idx, top_val
+
+
+spread_tail.launches = 0
+
+
+def combo_select(weight, value, kmax_row, rname, members_pad, sizes, *, cmin: int, kmin: int):
+    """The winning region combination per row (see combo_select_plain)."""
+    args = (weight, value, kmax_row, rname, members_pad, sizes)
+    dev = weight.device
+    if dev.type == "cpu":
+        return combo_select_plain(*args, cmin=cmin, kmin=kmin)
+    if dev.type != "cuda":
+        raise ValueError(f"combo_select: unsupported device {dev}")
+    out = _combo_select_launch(*args, cmin=cmin, kmin=kmin)
+    combo_select.launches += 1
+    return out
+
+
+def _combo_select_launch(weight, value, kmax_row, rname, members_pad, sizes, *,
+                         cmin: int, kmin: int):
+    """Check, allocate and launch combo_select_kernel. Members must lie in
+    [-1, R)."""
+    dev = weight.device
+    S, R = weight.shape
+    K, L = members_pad.shape
+    for name, t, dt, shape in (
+        ("weight", weight, I64, (S, R)), ("value", value, I32, (S, R)),
+        ("kmax_row", kmax_row, I32, (S,)), ("rname", rname, I32, (R,)),
+        ("members_pad", members_pad, I32, (K, L)), ("sizes", sizes, I32, (K,)),
+    ):
+        _check(name, t, dt, shape, dev)
+    if not 0 < R <= MAX_COMBO_REGIONS:
+        raise NotImplementedError(
+            f"combo_select: {R} regions outside (0, {MAX_COMBO_REGIONS}] (a row's "
+            "regions live in shared memory)"
+        )
+    first_idx = torch.zeros((S,), dtype=I32, device=dev)
+    n_ties = torch.zeros((S,), dtype=I32, device=dev)
+    none_feasible = torch.zeros((S,), dtype=BOOL, device=dev)
+    if S == 0 or K == 0:
+        return first_idx, n_ties, none_feasible
+    from .build import library
+
+    fn = library("combo_select").combo_select_launch
+    fn.restype = ctypes.c_int
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp] * 4 + [ci] * 2 + [vp] * 2 + [ci] * 4 + [vp] * 3 + [vp]
+    rc = fn(
+        _ptr(weight), _ptr(value), _ptr(kmax_row), _ptr(rname), S, R,
+        _ptr(members_pad), _ptr(sizes), K, L, cmin, kmin,
+        _ptr(first_idx), _ptr(n_ties), _ptr(none_feasible), _stream(dev),
+    )
+    _raise_on(rc, "combo_select")
+    return first_idx, n_ties, none_feasible
+
+
+combo_select.launches = 0
+
+KERNELS = (candidate_select, candidate_tail, dense_filter, dense_tail, pack_rows, feas_idx,
+           group_score, packed_selection, spread_tail, combo_select)
 
 
 def reset_launches() -> None:

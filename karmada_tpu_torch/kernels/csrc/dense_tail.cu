@@ -17,6 +17,12 @@
 //     `rem` columns in (weight desc, (last desc, tie asc), column asc);
 //   - the result row, nnz, and the top min(C, topk) of the result by
 //     (value desc, column asc).
+// The same kernel, with the selection compiled in (kSel), replaces
+// karmada_tpu/sched/spread_batch.py:455 `spread_tail_kernel`: the spread
+// round's division re-run over each row's selection — a column takes part
+// only when feasible and in a region the row chose — with zero static
+// weights (static-weight placements ignore spread constraints), plus the
+// selection's feasible count.
 //
 // Rows are thousands of columns wide, so nothing is sorted. Every order
 // statistic is a SELECTION: an MSB-first radix select with 8-bit digit
@@ -41,10 +47,13 @@
 // row once per selection pass (some 10-30 passes) and serialises its
 // histograms through shared-memory atomics, so it runs well above that
 // bound. Built by karmada_tpu_torch/kernels/build.py with nvcc for sm_90a
-// and called through the plain C entry point at the bottom (ctypes).
+// and called through the plain C entry points at the bottom (ctypes). The
+// radix selections live in radix_select.cuh, shared with group_score.cu.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "radix_select.cuh"
 
 namespace {
 
@@ -54,7 +63,6 @@ constexpr int kStaticWeight = 2;
 constexpr int kDynamicWeight = 3;
 constexpr int kAggregated = 4;
 constexpr int64_t kI32Max = 2147483647;
-constexpr uint64_t kSign = 1ull << 63;
 constexpr uint64_t kLow32 = 0xffffffffull;
 constexpr int kTopMax = 128;
 
@@ -77,195 +85,21 @@ struct TailParams {
   int32_t* nnz;        // [n]
   int32_t* top_idx;    // [n,topk]
   int32_t* top_val;    // [n,topk]
+  // the spread re-run (spread_tail_launch): output row j keeps only the
+  // columns whose region rid[c] it chose, chosen[j * R1 + rid[c]] != 0
+  // (column 0 of the table is the regionless column, never chosen); static
+  // weights are zero and the selection's feasible count is written
+  const uint8_t* chosen;  // [n,R1]
+  int R1;
+  const int32_t* rid;    // [C]
+  int32_t* feas_count;   // [n]
 };
 
-struct Shared {
-  unsigned long long acc[3];
+struct Shared : RadixShared {
   long long mins[3];
-  unsigned long long sel[4];
-  unsigned int hist[256];
-  unsigned long long wsum[256];
   unsigned long long topkey[kTopMax];
   unsigned int slots;
 };
-
-__device__ __forceinline__ int64_t wrap_mul(int64_t a, int64_t b) {
-  return (int64_t)((uint64_t)a * (uint64_t)b);
-}
-
-__device__ __forceinline__ int32_t wrap_i32(int64_t v) {
-  return (int32_t)(uint32_t)(uint64_t)v;
-}
-
-// floor division for b >= 1 (torch's floor division on int64)
-__device__ __forceinline__ int64_t floordiv(int64_t a, int64_t b) {
-  int64_t q = a / b;
-  if ((a % b != 0) && (a < 0)) q -= 1;
-  return q;
-}
-
-// true when r and prefix agree on every bit at position >= s
-__device__ __forceinline__ bool same_above(uint64_t r, uint64_t prefix, int s) {
-  return s >= 64 || ((r ^ prefix) >> s) == 0;
-}
-
-__device__ __forceinline__ int bit_length(uint64_t v) {
-  return v == 0 ? 0 : 64 - __clzll((long long)v);
-}
-
-__device__ __forceinline__ bool triple_le(uint64_t a, uint64_t b, int c, uint64_t a0,
-                                          uint64_t b0, int c0) {
-  if (a != a0) return a < a0;
-  if (b != b0) return b < b0;
-  return c <= c0;
-}
-
-// Block-wide wrapping sum; every thread gets the total.
-__device__ uint64_t block_sum(Shared& s, uint64_t v) {
-  __syncthreads();
-  if (threadIdx.x == 0) s.acc[0] = 0;
-  __syncthreads();
-  atomicAdd(&s.acc[0], (unsigned long long)v);
-  __syncthreads();
-  return s.acc[0];
-}
-
-// Range [lo, hi] and count of the member keys (lo > hi when none).
-template <class Key, class Member>
-__device__ void key_range(Shared& s, int C, Key key_of, Member member, uint64_t* lo_out,
-                          uint64_t* hi_out, uint64_t* count_out) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    s.acc[0] = ~0ull;
-    s.acc[1] = 0;
-    s.acc[2] = 0;
-  }
-  __syncthreads();
-  uint64_t lo = ~0ull, hi = 0, cnt = 0;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    if (!member(c)) continue;
-    const uint64_t v = key_of(c);
-    lo = v < lo ? v : lo;
-    hi = v > hi ? v : hi;
-    ++cnt;
-  }
-  atomicMin(&s.acc[0], (unsigned long long)lo);
-  atomicMax(&s.acc[1], (unsigned long long)hi);
-  atomicAdd(&s.acc[2], (unsigned long long)cnt);
-  __syncthreads();
-  *lo_out = s.acc[0];
-  *hi_out = s.acc[1];
-  *count_out = s.acc[2];
-}
-
-// The k-th smallest member key (1 <= k <= member count) by an MSB-first
-// radix select; *less gets the number of members strictly below it.
-template <class Key, class Member>
-__device__ uint64_t select_kth(Shared& s, int C, uint64_t k, Key key_of, Member member,
-                               uint64_t* less) {
-  uint64_t lo, hi, cnt;
-  key_range(s, C, key_of, member, &lo, &hi, &cnt);
-  const int bits = hi > lo ? bit_length(hi - lo) : 0;
-  uint64_t prefix = 0, kk = k, below = 0;
-  for (int shift = ((bits + 7) / 8 - 1) * 8; shift >= 0; shift -= 8) {
-    for (int d = threadIdx.x; d < 256; d += blockDim.x) s.hist[d] = 0;
-    __syncthreads();
-    for (int c = threadIdx.x; c < C; c += blockDim.x) {
-      if (!member(c)) continue;
-      const uint64_t r = key_of(c) - lo;
-      if (same_above(r, prefix, shift + 8)) atomicAdd(&s.hist[(r >> shift) & 255], 1u);
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      uint64_t cum = 0;
-      int d = 0;
-      for (; d < 255; ++d) {
-        if (cum + s.hist[d] >= kk) break;
-        cum += s.hist[d];
-      }
-      s.sel[0] = (unsigned long long)d;
-      s.sel[1] = cum;
-    }
-    __syncthreads();
-    prefix |= (uint64_t)s.sel[0] << shift;
-    kk -= s.sel[1];
-    below += s.sel[1];
-  }
-  *less = below;
-  return lo + prefix;
-}
-
-struct Walk {
-  bool found;
-  uint64_t v;       // the boundary key
-  int64_t rank;     // its weighted rank: the sum of member weights below it
-  uint64_t before;  // members strictly below it
-  uint64_t n;       // members equal to it
-};
-
-// The largest member key v whose weighted rank (the sum of the weights of
-// the members with a smaller key) is below tgt. Weights must be
-// non-negative with a sum that fits int64, so the rank is monotone in the
-// key and the walk keeps, at every digit, the last bucket that starts
-// below tgt.
-template <class Key, class Weight, class Member>
-__device__ Walk weighted_walk(Shared& s, int C, int64_t tgt, Key key_of, Weight w_of,
-                              Member member) {
-  uint64_t lo, hi, cnt;
-  key_range(s, C, key_of, member, &lo, &hi, &cnt);
-  Walk out;
-  out.found = cnt > 0 && 0 < tgt;
-  out.v = lo;
-  out.rank = 0;
-  out.before = 0;
-  out.n = cnt;
-  if (!out.found) return out;
-  const int bits = hi > lo ? bit_length(hi - lo) : 0;
-  uint64_t prefix = 0;
-  for (int shift = ((bits + 7) / 8 - 1) * 8; shift >= 0; shift -= 8) {
-    for (int d = threadIdx.x; d < 256; d += blockDim.x) {
-      s.hist[d] = 0;
-      s.wsum[d] = 0;
-    }
-    __syncthreads();
-    for (int c = threadIdx.x; c < C; c += blockDim.x) {
-      if (!member(c)) continue;
-      const uint64_t r = key_of(c) - lo;
-      if (!same_above(r, prefix, shift + 8)) continue;
-      const int d = (int)((r >> shift) & 255);
-      atomicAdd(&s.hist[d], 1u);
-      atomicAdd(&s.wsum[d], (unsigned long long)w_of(c));
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int64_t rank = out.rank;
-      uint64_t before = out.before;
-      int best = 0;
-      int64_t best_rank = rank;
-      uint64_t best_before = before;
-      for (int d = 0; d < 256; ++d) {
-        if (s.hist[d] > 0 && rank < tgt) {
-          best = d;
-          best_rank = rank;
-          best_before = before;
-        }
-        rank += (int64_t)s.wsum[d];
-        before += s.hist[d];
-      }
-      s.sel[0] = (unsigned long long)best;
-      s.sel[1] = (unsigned long long)best_rank;
-      s.sel[2] = best_before;
-      s.sel[3] = s.hist[best];
-    }
-    __syncthreads();
-    prefix |= (uint64_t)s.sel[0] << shift;
-    out.rank = (int64_t)s.sel[1];
-    out.before = s.sel[2];
-    out.n = s.sel[3];
-  }
-  out.v = lo + prefix;
-  return out;
-}
 
 struct Cutoff {
   bool any;  // false: no column qualifies
@@ -293,21 +127,41 @@ __device__ Cutoff select_triple(Shared& s, int C, uint64_t k, KeyA a_of, KeyB b_
 }
 
 struct RowCtx {
-  int64_t base;         // offset of the batch row in the [B,C] inputs
-  const int64_t* wrow;  // its static weight table row
+  int64_t base;            // offset of the batch row in the [B,C] inputs
+  const int64_t* wrow;     // its static weight table row
+  const uint8_t* chosen;   // its chosen regions (the spread re-run)
   bool is_static, fresh, up, down, all_zero;
   bool trunc;  // the Aggregated truncation applies
   Cutoff agg;  // keep a column iff its (prior, weight, column) is at or before
 };
 
-__device__ __forceinline__ uint64_t neg_key(int64_t v) {  // ascending -v
-  return (0ull - (uint64_t)v) ^ kSign;
+// Whether column c takes part: feasible and, in the spread re-run, in a
+// chosen region.
+template <bool kSel>
+__device__ __forceinline__ bool feas_at(const TailParams& p, const RowCtx& r, int c) {
+  const bool f = p.feas[r.base + c] != 0;
+  if constexpr (kSel) {
+    return f && r.chosen[p.rid[c]] != 0;
+  } else {
+    return f;
+  }
+}
+
+// The static weight of column c (zero in the spread re-run).
+template <bool kSel>
+__device__ __forceinline__ int64_t static_w(const RowCtx& r, int c) {
+  if constexpr (kSel) {
+    return 0;
+  } else {
+    return r.wrow[c];
+  }
 }
 
 // The dynamic weight of column c before the truncation, and its prev_m.
+template <bool kSel>
 __device__ __forceinline__ int64_t dyn_weight(const TailParams& p, const RowCtx& r, int c,
                                               int64_t* prev_m) {
-  const bool f = p.feas[r.base + c] != 0;
+  const bool f = feas_at<kSel>(p, r, c);
   const int64_t am = f ? (int64_t)p.avail[r.base + c] : 0;
   const int64_t pm = f ? (int64_t)p.prev[r.base + c] : 0;
   *prev_m = pm;
@@ -325,11 +179,12 @@ struct DivIn {
 };
 
 // The dispenser inputs of column c (combined_assign's row-select).
+template <bool kSel>
 __device__ DivIn div_in(const TailParams& p, const RowCtx& r, int c) {
   DivIn d;
   if (r.is_static) {
-    const bool f = p.feas[r.base + c] != 0;
-    int64_t w = f ? r.wrow[c] : 0;
+    const bool f = feas_at<kSel>(p, r, c);
+    int64_t w = f ? static_w<kSel>(r, c) : 0;
     if (r.all_zero && f) w = 1;
     d.weight = w;
     d.last = f ? p.prev[r.base + c] : 0;
@@ -337,7 +192,7 @@ __device__ DivIn div_in(const TailParams& p, const RowCtx& r, int c) {
     return d;
   }
   int64_t pm;
-  int64_t w = dyn_weight(p, r, c, &pm);
+  int64_t w = dyn_weight<kSel>(p, r, c, &pm);
   if (r.trunc &&
       !(r.agg.any && triple_le(prior_key(r, pm), neg_key(w), c, r.agg.a, r.agg.b, r.agg.col))) {
     w = 0;
@@ -351,17 +206,18 @@ __device__ DivIn div_in(const TailParams& p, const RowCtx& r, int c) {
 // The Aggregated truncation cutoff: the k-th (prior desc, weight desc,
 // column asc) triple, k the number of sorted positions whose exclusive
 // weighted prefix sum is below tgt.
+template <bool kSel>
 __device__ Cutoff aggregated_cutoff(const TailParams& p, const RowCtx& r, Shared& s,
                                     int64_t tgt, bool monotone) {
   const int C = p.C;
   auto a_of = [&](int c) {
     int64_t pm;
-    dyn_weight(p, r, c, &pm);
+    dyn_weight<kSel>(p, r, c, &pm);
     return prior_key(r, pm);
   };
   auto b_of = [&](int c) {
     int64_t pm;
-    return neg_key(dyn_weight(p, r, c, &pm));
+    return neg_key(dyn_weight<kSel>(p, r, c, &pm));
   };
   Cutoff cut;
   cut.any = false;
@@ -369,12 +225,12 @@ __device__ Cutoff aggregated_cutoff(const TailParams& p, const RowCtx& r, Shared
     // every weight lies in [0, 2^32): one 33-bit key (prior, weight)
     auto comp = [&](int c) {
       int64_t pm;
-      const int64_t w = dyn_weight(p, r, c, &pm);
+      const int64_t w = dyn_weight<kSel>(p, r, c, &pm);
       return (prior_key(r, pm) << 32) | (kLow32 - (uint64_t)w);
     };
     auto w_of = [&](int c) {
       int64_t pm;
-      return (uint64_t)dyn_weight(p, r, c, &pm);
+      return (uint64_t)dyn_weight<kSel>(p, r, c, &pm);
     };
     const Walk wk = weighted_walk(s, C, tgt, comp, w_of, [](int) { return true; });
     if (!wk.found) return cut;
@@ -402,7 +258,7 @@ __device__ Cutoff aggregated_cutoff(const TailParams& p, const RowCtx& r, Shared
     uint64_t before = 0;
     for (int i = 0; i < C; ++i) {
       int64_t pm;
-      const int64_t wi = dyn_weight(p, r, i, &pm);
+      const int64_t wi = dyn_weight<kSel>(p, r, i, &pm);
       if (i != j && triple_le(prior_key(r, pm), neg_key(wi), i, aj, bj, j)) {
         before += (uint64_t)wi;
       }
@@ -414,6 +270,7 @@ __device__ Cutoff aggregated_cutoff(const TailParams& p, const RowCtx& r, Shared
   return select_triple(s, C, count, a_of, b_of);
 }
 
+template <bool kSel>
 __global__ void __launch_bounds__(kThreads)
 dense_tail_kernel(TailParams p) {
   __shared__ Shared s;
@@ -424,7 +281,8 @@ dense_tail_kernel(TailParams p) {
 
   RowCtx r;
   r.base = (int64_t)b * C;
-  r.wrow = p.weight_tables + (int64_t)p.weight_idx[b] * C;
+  r.wrow = kSel ? nullptr : p.weight_tables + (int64_t)p.weight_idx[b] * C;
+  r.chosen = kSel ? p.chosen + (int64_t)j * p.R1 : nullptr;
   const int strat = p.strategy[b];
   r.is_static = strat == kStaticWeight;
   const bool is_dyn = strat == kDynamicWeight || strat == kAggregated;
@@ -435,13 +293,14 @@ dense_tail_kernel(TailParams p) {
   if (tid == 0) {
     s.mins[0] = s.mins[1] = s.mins[2] = 0;
   }
-  uint64_t sw = 0, sa = 0, sp = 0;
+  uint64_t sw = 0, sa = 0, sp = 0, nf = 0;
   long long ma = 0, mp = 0, mf = 0;
   for (int c = tid; c < C; c += blockDim.x) {
-    const bool f = p.feas[r.base + c] != 0;
+    const bool f = feas_at<kSel>(p, r, c);
     const int64_t am = f ? (int64_t)p.avail[r.base + c] : 0;
     const int64_t pm = f ? (int64_t)p.prev[r.base + c] : 0;
-    sw += f ? (uint64_t)r.wrow[c] : 0;
+    nf += f ? 1 : 0;
+    sw += f ? (uint64_t)static_w<kSel>(r, c) : 0;
     sa += (uint64_t)am;
     sp += (uint64_t)pm;
     ma = am < ma ? am : ma;
@@ -455,6 +314,10 @@ dense_tail_kernel(TailParams p) {
   sw = block_sum(s, sw);
   sa = block_sum(s, sa);
   sp = block_sum(s, sp);
+  if constexpr (kSel) {
+    nf = block_sum(s, nf);
+    if (tid == 0) p.feas_count[j] = (int32_t)nf;
+  }
   r.all_zero = sw == 0;
   const int64_t assigned = (int64_t)sp;
   const int64_t target = reps;
@@ -475,24 +338,24 @@ dense_tail_kernel(TailParams p) {
   bonus.any = false;
   bool bonus_all = false;
   if (dispense) {
-    if (r.trunc) r.agg = aggregated_cutoff(p, r, s, tgt_dyn, w_min >= 0);
+    if (r.trunc) r.agg = aggregated_cutoff<kSel>(p, r, s, tgt_dyn, w_min >= 0);
     uint64_t acc = 0;
-    for (int c = tid; c < C; c += blockDim.x) acc += (uint64_t)div_in(p, r, c).weight;
+    for (int c = tid; c < C; c += blockDim.x) acc += (uint64_t)div_in<kSel>(p, r, c).weight;
     sum_w = (int64_t)block_sum(s, acc);
     t64 = wrap_i32(r.is_static ? target : tgt_dyn);
     safe = sum_w > 1 ? sum_w : 1;
     acc = 0;
     for (int c = tid; c < C; c += blockDim.x) {
-      acc += (uint64_t)floordiv(wrap_mul(div_in(p, r, c).weight, t64), safe);
+      acc += (uint64_t)floordiv(wrap_mul(div_in<kSel>(p, r, c).weight, t64), safe);
     }
     const int64_t rem = (int64_t)((uint64_t)t64 - block_sum(s, acc));
     if (sum_w > 0 && rem > 0) {
       if (rem >= C) {
         bonus_all = true;
       } else {
-        auto a_of = [&](int c) { return neg_key(div_in(p, r, c).weight); };
+        auto a_of = [&](int c) { return neg_key(div_in<kSel>(p, r, c).weight); };
         auto b_of = [&](int c) {
-          const DivIn d = div_in(p, r, c);
+          const DivIn d = div_in<kSel>(p, r, c);
           const uint64_t k2 = ((uint64_t)(kI32Max - (int64_t)d.last) << 32) |
                               (uint64_t)(int64_t)p.tie[r.base + c];
           return k2 ^ kSign;
@@ -506,7 +369,7 @@ dense_tail_kernel(TailParams p) {
   int32_t* res_row = p.result + (int64_t)j * C;
   uint64_t pos = 0;
   for (int c = tid; c < C; c += blockDim.x) {
-    const bool f = p.feas[r.base + c] != 0;
+    const bool f = feas_at<kSel>(p, r, c);
     int32_t v = 0;
     if (strat == kDuplicated) {
       v = f ? reps : 0;
@@ -516,7 +379,7 @@ dense_tail_kernel(TailParams p) {
       } else if (is_dyn && eq) {
         v = f ? p.prev[r.base + c] : 0;
       } else {
-        const DivIn d = div_in(p, r, c);
+        const DivIn d = div_in<kSel>(p, r, c);
         bool plus = false;
         if (d.weight > 0) {
           if (bonus_all) {
@@ -583,26 +446,17 @@ dense_tail_kernel(TailParams p) {
   }
 }
 
-}  // namespace
-
-extern "C" int dense_tail_launch(
-    const void* feas, const void* avail, const void* prev, const void* tie, int C,
-    const void* rows, int n, const void* weight_tables, const void* weight_idx,
-    const void* strategy, const void* replicas, const void* fresh, int topk, int has_agg,
-    void* result, void* unsched, void* avail_sum, void* nnz, void* top_idx, void* top_val,
-    void* stream) {
-  if (n <= 0 || C <= 0 || topk <= 0 || topk > kTopMax || topk > C) {
-    return (int)cudaErrorInvalidValue;
-  }
-  TailParams p;
+TailParams tail_params(const void* feas, const void* avail, const void* prev, const void* tie,
+                       int C, const void* rows, const void* strategy, const void* replicas,
+                       const void* fresh, int topk, int has_agg, void* result, void* unsched,
+                       void* avail_sum, void* nnz, void* top_idx, void* top_val) {
+  TailParams p = {};
   p.feas = static_cast<const uint8_t*>(feas);
   p.avail = static_cast<const int32_t*>(avail);
   p.prev = static_cast<const int32_t*>(prev);
   p.tie = static_cast<const int32_t*>(tie);
   p.C = C;
   p.rows = static_cast<const int32_t*>(rows);
-  p.weight_tables = static_cast<const int64_t*>(weight_tables);
-  p.weight_idx = static_cast<const int32_t*>(weight_idx);
   p.strategy = static_cast<const int32_t*>(strategy);
   p.replicas = static_cast<const int32_t*>(replicas);
   p.fresh = static_cast<const uint8_t*>(fresh);
@@ -614,6 +468,46 @@ extern "C" int dense_tail_launch(
   p.nnz = static_cast<int32_t*>(nnz);
   p.top_idx = static_cast<int32_t*>(top_idx);
   p.top_val = static_cast<int32_t*>(top_val);
-  dense_tail_kernel<<<n, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return p;
+}
+
+}  // namespace
+
+extern "C" int dense_tail_launch(
+    const void* feas, const void* avail, const void* prev, const void* tie, int C,
+    const void* rows, int n, const void* weight_tables, const void* weight_idx,
+    const void* strategy, const void* replicas, const void* fresh, int topk, int has_agg,
+    void* result, void* unsched, void* avail_sum, void* nnz, void* top_idx, void* top_val,
+    void* stream) {
+  if (n <= 0 || C <= 0 || topk <= 0 || topk > kTopMax || topk > C) {
+    return (int)cudaErrorInvalidValue;
+  }
+  TailParams p = tail_params(feas, avail, prev, tie, C, rows, strategy, replicas, fresh, topk,
+                             has_agg, result, unsched, avail_sum, nnz, top_idx, top_val);
+  p.weight_tables = static_cast<const int64_t*>(weight_tables);
+  p.weight_idx = static_cast<const int32_t*>(weight_idx);
+  dense_tail_kernel<false><<<n, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// The spread re-run: the same tail over each output row's selection (see
+// TailParams.chosen), zero static weights, plus the selection's feasible
+// count. Replaces karmada_tpu/sched/spread_batch.py:455 `spread_tail_kernel`.
+extern "C" int spread_tail_launch(
+    const void* feas, const void* avail, const void* prev, const void* tie, int C,
+    const void* rows, int n, const void* chosen, int R1, const void* rid,
+    const void* strategy, const void* replicas, const void* fresh, int topk, int has_agg,
+    void* result, void* unsched, void* avail_sum, void* feas_count, void* nnz, void* top_idx,
+    void* top_val, void* stream) {
+  if (n <= 0 || C <= 0 || R1 <= 0 || topk <= 0 || topk > kTopMax || topk > C) {
+    return (int)cudaErrorInvalidValue;
+  }
+  TailParams p = tail_params(feas, avail, prev, tie, C, rows, strategy, replicas, fresh, topk,
+                             has_agg, result, unsched, avail_sum, nnz, top_idx, top_val);
+  p.chosen = static_cast<const uint8_t*>(chosen);
+  p.R1 = R1;
+  p.rid = static_cast<const int32_t*>(rid);
+  p.feas_count = static_cast<int32_t*>(feas_count);
+  dense_tail_kernel<true><<<n, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }

@@ -16,9 +16,12 @@ Aggregated rows) divides replicas over [rows, K] windows; duplicated and
 non-workload rows decode from the packed masks. One device→host sync and
 the host decode finish the round.
 
-Spread-constrained rows, a path of the reference outside this slice,
-raise NotImplementedError. Rounds with a `dense_reason` run the dense round
-of sched/core.py instead.
+Spread-constrained rows gather their [rows, K] windows too: a row whose
+feasible set fits its window selects on the host over the window
+(sched/spread.py) and, when it divides replicas, re-runs the division tail
+over the selection; a wider row needs the whole fleet and re-solves through
+the dense round. Rounds with a `dense_reason` run the dense round of
+sched/core.py instead.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..models.batch import pow2_bucket, shape_bucket
+from ..models.batch import AGGREGATED, DUPLICATED, NON_WORKLOAD, pow2_bucket, shape_bucket
 from . import plugins as plugin_mod
 from .core import (
     I32,
@@ -38,6 +41,7 @@ from .core import (
     ScheduleDecision,
     _pad_rows_idx,
     _sorted_pairs,
+    to_device,
 )
 
 # default candidate window: covers every row whose feasible set fits 128
@@ -150,11 +154,13 @@ def launch_candidates(array, bindings: Sequence, term_indices=None) -> dict:
     C = len(array.fleet.names)
     dev = array.device
 
-    bindings, cls, order, raw, t = array._encode_round(bindings, term_indices)
+    bindings, cls, order, raw, t, (s_batched, _cfg, s_fallback) = array._encode_round(
+        bindings, term_indices)
+    spread_rows = sorted(set(s_batched) | set(s_fallback))
     k = effective_k(array, raw, C)
     f = array._fleet_dev
 
-    (cand_idx, c_feas, _c_score, c_avail, c_prev, c_tie, dev_fc,
+    (cand_idx, c_feas, c_score, c_avail, c_prev, c_tie, dev_fc,
      dev_packed) = kernels.candidate_select(
         f["alive"], f["capacity"], f["has_summary"], f["taint_key"],
         f["taint_value"], f["taint_effect"], f["api_ok"],
@@ -187,15 +193,26 @@ def launch_candidates(array, bindings: Sequence, term_indices=None) -> dict:
         tails.append({"rows": rows, "t_out": t_out, "t_cand": t_cand})
 
     # ---- duplicated / non-workload rows: complete packed feasible masks ----
-    mask_rows = [b for b in range(n_real) if cls[b] == 0]
+    spread_set = set(spread_rows)
+    mask_rows = [b for b in range(n_real) if cls[b] == 0 and b not in spread_set]
     mask_pack = None
     if mask_rows:
         mask_pack = dev_packed.index_select(0, _rows_tensor(np.asarray(mask_rows), dev))
 
+    # ---- spread rows: their candidate windows (the selection runs on the
+    # host at materialize over these compact gathers) ----
+    spread_fetch = []
+    if spread_rows:
+        s_idx = _rows_tensor(np.asarray(spread_rows), dev)
+        spread_fetch = [a.index_select(0, s_idx)
+                        for a in (cand_idx, c_feas, c_score, c_avail, c_prev, c_tie)]
+
     return {
-        "candidates": True, "bindings": bindings, "raw": raw, "cls": cls,
-        "order": order, "n_real": n_real, "k": k, "dev_fc": dev_fc, "tails": tails,
-        "mask_rows": mask_rows, "mask_pack": mask_pack,
+        "candidates": True, "bindings": bindings, "raw": raw, "t": t, "cls": cls,
+        "order": order, "n_real": n_real, "k": k,
+        "term_indices": None if term_indices is None else [term_indices[i] for i in order],
+        "dev_fc": dev_fc, "tails": tails, "mask_rows": mask_rows, "mask_pack": mask_pack,
+        "spread_rows": spread_rows, "spread_fetch": spread_fetch,
     }
 
 
@@ -212,7 +229,9 @@ def materialize_candidates(array, p: dict) -> list[ScheduleDecision]:
     host = [p["dev_fc"]] + [x for tl in p["tails"] for x in tl["t_out"][1:]]
     if p["mask_pack"] is not None:
         host.append(p["mask_pack"])
-    host = [x.cpu().numpy() for x in host]
+    n_spread = len(p["spread_fetch"])
+    host = [x.cpu().numpy() for x in host + p["spread_fetch"]]
+    host, spread_host = host[:len(host) - n_spread], host[len(host) - n_spread:]
     feas_count = host[0][:n_real].astype(np.int64)
 
     div_rows = cls > 0
@@ -221,8 +240,11 @@ def materialize_candidates(array, p: dict) -> list[ScheduleDecision]:
 
     unsched = np.zeros(n_real, bool)
     avail_sum = np.zeros(n_real, np.int64)
+    feas_count_ovr: dict[int, int] = {}
+    row_err: dict[int, str] = {}
     row_target_src: dict[int, tuple] = {}
     row_feas_src: dict[int, tuple] = {}
+    wide_dec: dict[int, ScheduleDecision] = {}
 
     # ---- division tails ----
     for i, tl in enumerate(p["tails"]):
@@ -258,13 +280,25 @@ def materialize_candidates(array, p: dict) -> list[ScheduleDecision]:
             row_feas_src[b] = ("mask", names, packed_h[j], C)
             row_target_src[b] = ("mask", names, packed_h[j], C, reps)
 
+    # ---- spread rows: exact per-row selection over the candidate set ----
+    if p["spread_rows"]:
+        wide_dec = _spread_over_candidates(
+            array, p, spread_host, feas_count, unsched, avail_sum, feas_count_ovr,
+            row_err, row_target_src, row_feas_src,
+        )
+
     # ---- build decisions, then unpermute ----
     out: list[Optional[ScheduleDecision]] = [None] * n_real
     for b, key in enumerate(raw.keys):
+        if b in wide_dec:
+            out[int(order[b])] = wide_dec[b]
+            continue
         dec = ScheduleDecision(key=key)
         if b in row_feas_src:
             dec._feasible_src = row_feas_src[b]
-        if feas_count[b] == 0:
+        if b in row_err:
+            dec.error = row_err[b]
+        elif feas_count_ovr.get(b, feas_count[b]) == 0:
             dec.error = f"0/{array.n_real_clusters} clusters are available"
         elif unsched[b]:
             dec.error = (
@@ -280,4 +314,114 @@ def materialize_candidates(array, p: dict) -> list[ScheduleDecision]:
                 f"{int(raw.strategy[b])})"
             )
         out[int(order[b])] = dec
+    return out
+
+
+def _spread_over_candidates(
+    array, p, fetch, feas_count, unsched, avail_sum, feas_count_ovr, row_err,
+    row_target_src, row_feas_src,
+) -> dict[int, ScheduleDecision]:
+    """Spread constraints evaluated over CANDIDATE sets: whenever a row's
+    feasible set fits the window, the window holds every feasible cluster
+    and the per-row exact selection (sched/spread.py, the semantic spec)
+    runs on the compact arrays — the inputs the dense fallback would pass,
+    gathered instead of fetched dense. Rows whose feasible set outruns the
+    window need full-fleet visibility: they re-solve through the dense
+    round and their finished decisions merge in by position."""
+    from . import spread as spread_mod
+
+    bindings, raw, t = p["bindings"], p["raw"], p["t"]
+    names = array.fleet.names
+    k = p["k"]
+    s_cand, s_feas, s_score, s_avail, s_prev, s_tie = fetch
+    wide: list[int] = []
+    live_div: list[tuple[int, int, np.ndarray]] = []  # (fetch row, round row, sel)
+    for j, b in enumerate(p["spread_rows"]):
+        if feas_count[b] == 0:
+            continue  # FitError branch
+        if feas_count[b] > k:
+            wide.append(b)
+            continue
+        f = np.flatnonzero(s_feas[j])
+        gidx = s_cand[j, f].astype(np.int64)
+        rb = bindings[b]
+        try:
+            selected_idx = spread_mod.select_by_spread_arrays(
+                gidx,
+                s_score[j, f],
+                s_avail[j, f].astype(np.int64) + s_prev[j, f],
+                array._name_rank[gidx],
+                array._region_id[gidx],
+                array._region_names,
+                rb.spec.placement,
+                rb.spec.replicas,
+            )
+        except spread_mod.SpreadError as e:
+            row_err[b] = str(e)
+            continue
+        sel_sorted = np.sort(np.asarray(selected_idx, np.int64))
+        # the dense fallback re-runs the solve with the selection folded
+        # into the feasibility mask, so its feasible set IS the selection —
+        # mirror that exactly
+        row_feas_src[b] = ("idx", names, sel_sorted)
+        feas_count_ovr[b] = len(sel_sorted)
+        strat = int(raw.strategy[b])
+        if strat == NON_WORKLOAD:
+            row_target_src[b] = (
+                "pairs", names, sel_sorted, np.zeros(len(sel_sorted), np.int64),
+            )
+        elif strat == DUPLICATED:
+            row_target_src[b] = (
+                "pairs", names, sel_sorted,
+                np.full(len(sel_sorted), int(rb.spec.replicas), np.int64),
+            )
+        else:
+            live_div.append((j, b, np.isin(s_cand[j], sel_sorted)))
+
+    if live_div:
+        # the division tail re-runs over the windows restricted to the selection
+        dev = array.device
+        jks = np.asarray([j for j, _, _ in live_div])
+        d_rows = [b for _, b, _ in live_div]
+        d_feas = s_feas[jks] & np.stack([sel for _, _, sel in live_div])
+        rsel = _rows_tensor(np.asarray(d_rows), dev)
+        max_repl = int(raw.replicas[d_rows].max(initial=0))
+        topk = min(pow2_bucket(min(max_repl, TOPK_TARGETS), lo=8), TOPK_TARGETS)
+
+        t_out = kernels.candidate_tail(
+            *(to_device(a, dev) for a in (d_feas, s_avail[jks], s_prev[jks], s_tie[jks],
+                                          s_cand[jks])),
+            t["weight_tables"], t["weight_idx"].index_select(0, rsel),
+            t["strategy"].index_select(0, rsel), t["replicas"].index_select(0, rsel),
+            t["fresh"].index_select(0, rsel),
+            topk=topk, has_agg=bool((raw.strategy[d_rows] == AGGREGATED).any()),
+        )
+        d_res, d_unsched, d_asum, d_nnz, d_ti, d_tv = (x.cpu().numpy() for x in t_out)
+        tis, tvs = _sorted_pairs(d_ti, d_tv)
+        d_cand = s_cand[jks]
+        for m, b in enumerate(d_rows):
+            unsched[b] = bool(d_unsched[m])
+            avail_sum[b] = int(d_asum[m])
+            feas_count_ovr[b] = int(d_feas[m].sum())
+            n = int(d_nnz[m])
+            if n > d_ti.shape[1]:
+                pos = np.nonzero(d_res[m] > 0)[0]
+                row_target_src[b] = (
+                    "pairs", names, d_cand[m, pos].astype(np.int64),
+                    d_res[m, pos].astype(np.int64),
+                )
+            else:
+                row_target_src[b] = ("pairs", names, tis[m, :n], tvs[m, :n])
+
+    out: dict[int, ScheduleDecision] = {}
+    if wide:
+        # the reference counts these rows on its fallback counter
+        # (note_fallback("spread_constraint")); the port has no metrics
+        # module yet
+        terms = p["term_indices"]
+        sub_dec = array._schedule_once_partitioned(
+            [bindings[b] for b in wide],
+            None if terms is None else [terms[b] for b in wide],
+        )
+        out.update(zip(wide, sub_dec))
     return out

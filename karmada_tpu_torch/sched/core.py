@@ -13,9 +13,19 @@ launches over the whole round. Two rounds, as in the reference:
   and the feasible-index or packed-row launch for Duplicated and
   non-workload rows.
 
-Spread constraints, tiers, the mesh, registered estimators and the
-incremental replay are later slices; the paths that would reach them raise
-NotImplementedError instead of running anything else.
+Spread-constrained rows ride both rounds. The compact round solves a row
+whose feasible set fits its window on the host (sched/spread.py) and
+re-solves wider rows through the dense round. The dense round scores every
+(row, region) group in one launch, searches region combinations on the
+host (sched/spread_batch.py), then launches the packed selection masks and
+the division re-run over the selection; rows the batched path cannot take
+(cluster-only constraints, cluster caps, zone/provider fields, ties and
+wide divided rows) select per row and re-solve restricted to their
+selection.
+
+Tiers, the mesh, registered estimators and the incremental replay are later
+slices; the paths that would reach them raise NotImplementedError instead
+of running anything else.
 """
 from __future__ import annotations
 
@@ -318,6 +328,16 @@ def _pad_rows_idx(rows: Sequence[int], bucket_fn) -> tuple[np.ndarray, int]:
     return idx, n
 
 
+def to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A host array on `device` without a stream sync: a plain copy from
+    pageable memory waits for every launch queued before it, so on a card
+    the array travels through pinned memory, non-blocking."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 def fetch_rows(dev_tensor, rows: Sequence[int], bucket_fn) -> np.ndarray:
     """A row subset of a device tensor on the host: a gather on the device
     (rows padded to the bucket lattice) and one copy, never the full
@@ -379,21 +399,37 @@ def resolve_max_bc_elems() -> int:
     return val
 
 
-def should_ignore_spread_constraint(placement) -> bool:
-    """Static-weighted division ignores spread constraints
-    (select_clusters.go:63-77)."""
-    from ..api.policy import DIVISION_PREFERENCE_WEIGHTED, REPLICA_SCHEDULING_DIVIDED
+def _restrict_rows(batch: BindingBatch, rows: list[int], aff_rows: np.ndarray) -> BindingBatch:
+    """Row subset of a batch with each row's spread selection folded into
+    its affinity mask (`aff_rows`, bool[len(rows), C]: the rows' own
+    affinity masks AND their selections). The masks are per row, so the
+    sub-batch carries them as its own (un-deduped) table."""
+    idx = np.asarray(rows)
 
-    rs = placement.replica_scheduling
-    return bool(
-        rs is not None
-        and rs.replica_scheduling_type == REPLICA_SCHEDULING_DIVIDED
-        and rs.replica_division_preference == DIVISION_PREFERENCE_WEIGHTED
-        and (
-            rs.weight_preference is None
-            or (rs.weight_preference.static_weight_list
-                and not rs.weight_preference.dynamic_weight)
-        )
+    def take(a):
+        return a[idx]
+
+    return BindingBatch(
+        keys=[batch.keys[b] for b in rows],
+        uids=[batch.uids[b] for b in rows],
+        replicas=take(batch.replicas),
+        unknown_request=take(batch.unknown_request),
+        gvk=take(batch.gvk),
+        strategy=take(batch.strategy),
+        fresh=take(batch.fresh),
+        tol_tables=batch.tol_tables,
+        tol_idx=take(batch.tol_idx),
+        aff_masks=aff_rows,
+        aff_idx=np.arange(len(rows), dtype=np.int32),
+        weight_tables=batch.weight_tables,
+        weight_idx=take(batch.weight_idx),
+        prev_idx=take(batch.prev_idx),
+        prev_rep=take(batch.prev_rep),
+        evict_idx=take(batch.evict_idx),
+        seeds=take(batch.seeds),
+        n_clusters=batch.n_clusters,
+        req_unique=batch.req_unique,
+        req_idx=None if batch.req_idx is None else take(batch.req_idx),
     )
 
 
@@ -447,7 +483,25 @@ class ArrayScheduler:
         self.clusters = clusters
         self.fleet: FleetArrays = self.encoder.encode(self.clusters)
         self.batch_encoder = BatchEncoder(self.encoder, self.fleet, self.clusters)
+        # spread encodings (sched/spread.py array API): cluster-name
+        # ascending ranks (the sortClusters tie-break) and region ids
+        C = len(self.clusters)
+        self._name_rank = np.empty(C, np.int32)
+        self._name_rank[np.argsort(np.array(self.fleet.names))] = np.arange(C)
+        region_ids: dict[str, int] = {}
+        self._region_id = np.full(C, -1, np.int32)
+        for i, c in enumerate(self.clusters):
+            region = c.spec.region
+            if region:
+                self._region_id[i] = region_ids.setdefault(region, len(region_ids))
+        self._region_names = list(region_ids)
+        from . import spread_batch
         from ..convert import batch_from_numpy
+
+        self._spread_layout = spread_batch.RegionLayout(
+            self._region_id, self._region_names, self._name_rank
+        )
+        self._layout_dev = self._spread_layout.tensors(self.device)
 
         f = self.fleet
         self._fleet_dev = batch_from_numpy({
@@ -556,28 +610,38 @@ class ArrayScheduler:
 
     def _encode_round(self, bindings: Sequence, term_indices=None):
         """The shared prefix of the compact and dense rounds: classify the
-        rows (spread rows raise), permute them class-contiguous, encode,
-        pad and upload the batch. Returns (bindings, cls, order, raw, t)
-        in the permuted row order, `t` the batch tensors by field."""
-        spread = self._classify_spread(bindings)
-        if spread:
-            raise NotImplementedError(
-                f"{len(spread)} binding(s) carry spread constraints; the spread "
-                "paths are a later slice of the PyTorch port"
-            )
-        cls = np.asarray([self._row_class(rb, False) for rb in bindings], np.int8)
+        rows (spread rows are class 0), permute them class-contiguous,
+        encode, pad and upload the batch. Returns (bindings, cls, order,
+        raw, t, spread) in the permuted row order, `t` the batch tensors by
+        field and `spread` the (batched, cfg_of, fallback) spread rows."""
+        batched, cfg_of, fallback = self._classify_spread(bindings)
+        spread_set = set(batched) | set(fallback)
+        cls = np.asarray(
+            [self._row_class(rb, b in spread_set) for b, rb in enumerate(bindings)], np.int8
+        )
         order = np.argsort(cls, kind="stable")
         bindings = [bindings[i] for i in order]
         cls = cls[order]
         if term_indices is not None:
             term_indices = [term_indices[i] for i in order]
+        # the spread rows in permuted space, ascending
+        new_pos = np.empty(len(order), np.int64)
+        new_pos[order] = np.arange(len(order))
+        batched_p = sorted(int(new_pos[b]) for b in batched)
+        cfg_p = {int(new_pos[b]): cfg for b, cfg in cfg_of.items()}
+        fallback_p = sorted(int(new_pos[b]) for b in fallback)
 
         from ..convert import batch_from_numpy
 
         raw = self.batch_encoder.encode(bindings, term_indices=term_indices)
         batch = self._pad(raw)
         t = batch_from_numpy({name: getattr(batch, name) for name in _BATCH_FIELDS}, self.device)
-        return bindings, cls, order, raw, t
+        return bindings, cls, order, raw, t, (batched_p, cfg_p, fallback_p)
+
+    def _schedule_once_partitioned(self, bindings: Sequence, term_indices=None):
+        return self._materialize_once_partitioned(
+            self._launch_once_partitioned(bindings, term_indices)
+        )
 
     def _launch_once_partitioned(self, bindings: Sequence, term_indices=None) -> dict:
         """LAUNCH half of the dense round, partitioned by row class (rows
@@ -591,9 +655,12 @@ class ArrayScheduler:
           masks    duplicated / non-workload target sets: the first k
                    feasible indices when the affinity popcount bounds them,
                    else complete packed feasible rows
+          spread   group scoring of the batched spread rows' scoring
+                   representatives
 
         Every phase-2 launch reads only phase-1 device outputs, so the
-        round pays one device->host sync, in the materialize half."""
+        round pays one device->host sync, in the materialize half (the
+        batched spread rows add one more, after their host search)."""
         n_real = len(bindings)
         if n_real == 0:
             return {"n_real": 0}
@@ -602,10 +669,11 @@ class ArrayScheduler:
 
         from .. import kernels
 
-        bindings, cls, order, raw, t = self._encode_round(bindings, term_indices)
+        bindings, cls, order, raw, t, spread = self._encode_round(bindings, term_indices)
+        batched_rows, batched_cfg, fallback_rows = spread
         f = self._fleet_dev
 
-        dev_feasible, _dev_score, dev_avail, dev_prev, dev_tie, dev_fc = kernels.dense_filter(
+        dev_feasible, dev_score, dev_avail, dev_prev, dev_tie, dev_fc = kernels.dense_filter(
             f["alive"], f["capacity"], f["has_summary"], f["taint_key"],
             f["taint_value"], f["taint_effect"], f["api_ok"],
             t["replicas"], t["unknown_request"], t["gvk"],
@@ -633,7 +701,8 @@ class ArrayScheduler:
             tails.append({"rows": rows, "t_out": t_out})
 
         # ---- phase 2: duplicated / non-workload target sets ----
-        mask_rows = [b for b in range(n_real) if cls[b] == 0]
+        spread_set = set(batched_rows) | set(fallback_rows)
+        mask_rows = [b for b in range(n_real) if cls[b] == 0 and b not in spread_set]
         packed_dev = midx_dev = None
         if mask_rows:
             mask_idx, _nm = _pad_rows_idx(mask_rows, self._bucket)
@@ -650,35 +719,49 @@ class ArrayScheduler:
             else:
                 packed_dev = kernels.pack_rows(m_feas)
 
+        # ---- phase 2: spread group scoring ----
+        spread_pre = self._spread_prelaunch(
+            bindings, raw, batched_rows, batched_cfg, dev_feasible, dev_score, dev_avail,
+            dev_prev,
+        )
+
         return {
-            "bindings": bindings, "raw": raw, "cls": cls, "order": order,
-            "n_real": n_real, "dev_feasible": dev_feasible, "dev_fc": dev_fc,
-            "tails": tails, "packed_dev": packed_dev, "midx_dev": midx_dev,
-            "mask_rows": mask_rows,
+            "bindings": bindings, "raw": raw, "t": t, "cls": cls, "order": order,
+            "n_real": n_real, "dev": (dev_feasible, dev_score, dev_avail, dev_prev, dev_tie),
+            "dev_fc": dev_fc, "tails": tails, "packed_dev": packed_dev, "midx_dev": midx_dev,
+            "mask_rows": mask_rows, "batched_rows": batched_rows, "batched_cfg": batched_cfg,
+            "fallback_rows": fallback_rows, "spread_pre": spread_pre,
         }
 
     def _materialize_once_partitioned(self, p: dict) -> list[ScheduleDecision]:
         """MATERIALIZE half of the dense round: ONE device->host sync for
         everything the launch half dispatched, the decode (with row fetches
         for tail rows whose nonzero count outruns the output window and for
-        mask rows whose feasible count outruns the index window), then the
-        decisions, unpermuted."""
+        mask rows whose feasible count outruns the index window), the spread
+        rows, then the decisions, unpermuted."""
         n_real = p["n_real"]
         if n_real == 0:
             return []
         bindings, raw, cls, order = p["bindings"], p["raw"], p["cls"], p["order"]
         tails, mask_rows = p["tails"], p["mask_rows"]
+        spread_pre = p["spread_pre"]
         names = self.fleet.names
 
         unsched = np.zeros(n_real, bool)
         avail_sum = np.zeros(n_real, np.int64)
+        row_err: dict[int, str] = {}
         row_target_src: dict[int, tuple] = {}
         row_feas_src: dict[int, tuple] = {}
 
         # ---- THE sync ----
         host = [p["dev_fc"]] + [x for tl in tails for x in tl["t_out"][1:]]
         host += [x for x in (p["packed_dev"], p["midx_dev"]) if x is not None]
+        if spread_pre is not None:
+            host += list(spread_pre["wvf"])
         host = [x.cpu().numpy() for x in host]
+        if spread_pre is not None:
+            spread_pre["wvf_host"] = host[-3:]
+            host = host[:-3]
         feas_count = host[0][:n_real].astype(np.int64)
 
         # ---- decode: division tails ----
@@ -723,7 +806,7 @@ class ArrayScheduler:
                     row_feas_src[b] = ("mask", names, packed_h[k], len(names))
                     row_target_src[b] = ("mask", names, packed_h[k], len(names), reps)
             if mask_overflow:
-                o_feas = fetch_rows(p["dev_feasible"], mask_overflow, self._bucket)
+                o_feas = fetch_rows(p["dev"][0], mask_overflow, self._bucket)
                 for j, b in enumerate(mask_overflow):
                     fidx = np.nonzero(o_feas[j])[0]
                     reps = self._mask_replicas(raw, bindings, b)
@@ -732,13 +815,19 @@ class ArrayScheduler:
                         "pairs", names, fidx, np.full(len(fidx), reps, np.int64),
                     )
 
+        self._spread_overlay(
+            p, feas_count, unsched, avail_sum, row_err, row_target_src, row_feas_src,
+        )
+
         # ---- build decisions, then unpermute ----
         out: list[Optional[ScheduleDecision]] = [None] * n_real
         for b, key in enumerate(raw.keys):
             dec = ScheduleDecision(key=key)
             if b in row_feas_src:
                 dec._feasible_src = row_feas_src[b]
-            if feas_count[b] == 0:
+            if b in row_err:
+                dec.error = row_err[b]
+            elif feas_count[b] == 0:
                 # FitError diagnosis (generic_scheduler.go:83-88)
                 dec.error = f"0/{self.n_real_clusters} clusters are available"
             elif unsched[b]:
@@ -765,15 +854,316 @@ class ArrayScheduler:
         """Replicas per target of a duplicated / non-workload row."""
         return 0 if int(raw.strategy[b]) == NON_WORKLOAD else int(bindings[b].spec.replicas)
 
-    def _classify_spread(self, bindings) -> list[int]:
-        """Rows whose spread constraints take part in selection. The spread
-        paths are a later slice: both rounds raise on them."""
-        return [
-            b for b, rb in enumerate(bindings)
-            if rb.spec.placement is not None
-            and rb.spec.placement.spread_constraints
-            and not should_ignore_spread_constraint(rb.spec.placement)
-        ]
+    def _spread_prelaunch(self, bindings, raw, batched_rows, batched_cfg,
+                          dev_feasible, dev_score, dev_avail, dev_prev):
+        """LAUNCH the batched spread rows' group scoring (no sync): rows whose
+        scoring inputs are identical share one representative — policy-heavy
+        batches collapse many-fold, so only the representatives are scored,
+        each read from the filter outputs through its row id. The overlay
+        expands (weight, value, feas_count) back through `score_inv`."""
+        if not batched_rows:
+            return None
+        from .. import kernels
+
+        S = len(batched_rows)
+        need = np.ones(S, np.int64)
+        target = np.ones(S, np.int64)
+        reps = np.zeros(S, np.int64)
+        dupf = np.zeros(S, bool)
+        for j, b in enumerate(batched_rows):
+            cfg = batched_cfg[b]
+            need[j] = cfg.need
+            target[j] = -(-bindings[b].spec.replicas // max(cfg.rmin, 1))
+            reps[j] = bindings[b].spec.replicas
+            dupf[j] = cfg.duplicated
+
+        # the reference's key, with its three out-of-tree terms (estimator
+        # answers, plugin masks and scores) absent in the port
+        rep_of: dict[tuple, int] = {}
+        rep_js: list[int] = []
+        inv = np.empty(S, np.int64)
+        for j, b in enumerate(batched_rows):
+            key = (
+                int(raw.aff_idx[b]), int(raw.tol_idx[b]),
+                int(raw.gvk[b]), int(raw.req_idx[b]),
+                bool(raw.unknown_request[b]), int(raw.replicas[b]),
+                raw.evict_idx[b].tobytes(),
+                raw.prev_idx[b].tobytes(), raw.prev_rep[b].tobytes(),
+                int(need[j]), int(target[j]), bool(dupf[j]),
+                None, None, None,
+            )
+            r = rep_of.get(key)
+            if r is None:
+                r = len(rep_js)
+                rep_of[key] = r
+                rep_js.append(j)
+            inv[j] = r
+        js = np.asarray(rep_js, np.int64)
+        dev = self.device
+        lay = self._layout_dev
+        W, V, _A, fc = kernels.group_score(
+            dev_feasible, dev_score, dev_avail, dev_prev,
+            to_device(np.asarray(batched_rows, np.int32)[js], dev),
+            *(to_device(x[js], dev) for x in (reps, need, target, dupf)),
+            lay["perm"], lay["seg_start"], lay["seg_end"], lay["rank_p"],
+        )
+        return {"score_inv": inv, "wvf": (W, V, fc)}
+
+    def _spread_overlay(self, p, feas_count, unsched, avail_sum,
+                        row_err, row_target_src, row_feas_src) -> None:
+        """Spread-constrained rows of a dense round: the batched region path
+        (host combination search over the fetched group scores, then the
+        packed selection masks and the division re-run over the selection,
+        one more sync) and the per-row exact fallback (the selection of
+        sched/spread.py, then a restricted re-solve). Mutates the decode
+        overlays in place."""
+        from .. import kernels
+        from . import spread as spread_mod
+        from . import spread_batch
+
+        bindings, raw, t = p["bindings"], p["raw"], p["t"]
+        batched_rows, batched_cfg = p["batched_rows"], p["batched_cfg"]
+        fallback_rows = list(p["fallback_rows"])
+        dev_feasible, dev_score, dev_avail, dev_prev, dev_tie = p["dev"]
+        names = self.fleet.names
+        C = len(names)
+        dev = self.device
+
+        # ---- batched spread path ----
+        if batched_rows:
+            layout = self._spread_layout
+            pre = p["spread_pre"]
+            inv = pre["score_inv"]
+            W, V, fc = (x[inv] for x in pre["wvf_host"])
+            for j, b in enumerate(batched_rows):
+                feas_count[b] = fc[j]
+
+            j_by_cfg: dict = {}
+            for j, b in enumerate(batched_rows):
+                if fc[j] > 0:  # 0-feasible rows take the FitError branch
+                    j_by_cfg.setdefault(batched_cfg[b], []).append(j)
+            chosen = np.zeros((len(batched_rows), layout.n_regions), bool)
+            for cfg, js in j_by_cfg.items():
+                res = spread_batch.select_regions_batch(W[js], V[js], cfg, layout, on=dev)
+                chosen[js] = res.chosen
+                for local, msg in res.errors.items():
+                    row_err[batched_rows[js[local]]] = msg
+                for local in res.fallback:
+                    fallback_rows.append(batched_rows[js[local]])
+            fallback_set = set(fallback_rows)
+
+            ok_js = [
+                j for j, b in enumerate(batched_rows)
+                if fc[j] > 0 and b not in row_err and b not in fallback_set
+            ]
+            if ok_js:
+                # rows sharing (filters, eviction set, chosen regions) have
+                # IDENTICAL masks: only representative rows are packed
+                rep_of: dict[tuple, int] = {}
+                rep_js: list[int] = []
+                rep_idx_of_j: dict[int, int] = {}
+                div_js = []
+                for j in ok_js:
+                    b = batched_rows[j]
+                    k = (
+                        int(raw.aff_idx[b]), int(raw.tol_idx[b]),
+                        int(raw.gvk[b]), raw.evict_idx[b].tobytes(),
+                        chosen[j].tobytes(),
+                    )
+                    r = rep_of.get(k)
+                    if r is None:
+                        r = len(rep_js)
+                        rep_of[k] = r
+                        rep_js.append(j)
+                    rep_idx_of_j[j] = r
+                    if int(raw.strategy[b]) not in (NON_WORKLOAD, DUPLICATED):
+                        div_js.append(j)
+                rid = self._layout_dev["rid"]
+                rows_of = np.asarray(batched_rows, np.int32)
+                packed_dev = kernels.packed_selection(
+                    dev_feasible, to_device(rows_of[rep_js], dev), to_device(chosen[rep_js], dev), rid,
+                )
+                tail_dev = None
+                if div_js:
+                    d_rows = [batched_rows[j] for j in div_js]
+                    max_repl = int(raw.replicas[d_rows].max(initial=0))
+                    topk_d = min(pow2_bucket(min(max_repl, TOPK_TARGETS), lo=8), TOPK_TARGETS)
+                    has_agg_d = bool((raw.strategy[d_rows] == AGGREGATED).any())
+                    tail_dev = kernels.spread_tail(
+                        dev_feasible, dev_avail, dev_prev, dev_tie,
+                        to_device(rows_of[div_js], dev), to_device(chosen[div_js], dev), rid,
+                        t["strategy"], t["replicas"], t["fresh"],
+                        topk=topk_d, has_agg=has_agg_d,
+                    )
+
+                # one sync for the packed representatives AND the tail (its
+                # dense result stays on the device; only overflow rows fetch)
+                host = [packed_dev] + ([] if tail_dev is None else list(tail_dev[1:]))
+                host = [x.cpu().numpy() for x in host]
+                packed_reps = host[0]
+                for j in ok_js:
+                    b = batched_rows[j]
+                    prow = packed_reps[rep_idx_of_j[j]]
+                    row_feas_src[b] = ("mask", names, prow, C)
+                    strat = int(raw.strategy[b])
+                    if strat == NON_WORKLOAD:
+                        row_target_src[b] = ("mask", names, prow, C, 0)
+                    elif strat == DUPLICATED:
+                        row_target_src[b] = (
+                            "mask", names, prow, C, int(bindings[b].spec.replicas),
+                        )
+                if div_js:
+                    un2, as2, fc2, nnz2, ti2, tv2 = host[1:]
+                    ti2s, tv2s = _sorted_pairs(ti2, tv2)
+                    overflow2 = []
+                    for k, b in enumerate(d_rows):
+                        unsched[b] = bool(un2[k])
+                        avail_sum[b] = int(as2[k])
+                        feas_count[b] = int(fc2[k])
+                        n = int(nnz2[k])
+                        if n > ti2.shape[1]:
+                            overflow2.append((k, b))
+                            continue
+                        row_target_src[b] = ("pairs", names, ti2s[k, :n], tv2s[k, :n])
+                    if overflow2:
+                        o_res = fetch_rows(tail_dev[0], [k for k, _ in overflow2], self._bucket)
+                        for m, (_, b) in enumerate(overflow2):
+                            pos = np.nonzero(o_res[m] > 0)[0]
+                            row_target_src[b] = (
+                                "pairs", names, pos, o_res[m, pos].astype(np.int64),
+                            )
+
+        # ---- fallback spread path: the per-row exact selection + restricted
+        # re-solve (sched/spread.py stays the semantic spec) ----
+        if not fallback_rows:
+            return
+        fallback_rows = sorted(set(fallback_rows))
+        f_feas = fetch_rows(dev_feasible, fallback_rows, self._bucket)
+        f_score = fetch_rows(dev_score, fallback_rows, self._bucket)
+        f_avail = fetch_rows(dev_avail, fallback_rows, self._bucket)
+        live_rows, sel_masks = [], []
+        for k, b in enumerate(fallback_rows):
+            if not f_feas[k].any():
+                continue  # FitError branch
+            rb = bindings[b]
+            prev_row = np.zeros(C + 1, np.int32)
+            prev_row[raw.prev_idx[b]] = raw.prev_rep[b]
+            feas = np.nonzero(f_feas[k])[0]
+            try:
+                selected_idx = spread_mod.select_by_spread_arrays(
+                    feas,
+                    f_score[k, feas],
+                    f_avail[k, feas].astype(np.int64) + prev_row[feas],
+                    self._name_rank[feas],
+                    self._region_id[feas],
+                    self._region_names,
+                    rb.spec.placement,
+                    rb.spec.replicas,
+                )
+            except spread_mod.SpreadError as e:
+                row_err[b] = str(e)
+                continue
+            mask = np.zeros(C, bool)
+            mask[selected_idx] = True
+            live_rows.append(b)
+            sel_masks.append(mask)
+        if not live_rows:
+            return
+        if not self._plugin_bits & plugin_mod.BIT_AFFINITY:
+            # the selection rides the affinity table, which the filter
+            # ignores without ClusterAffinity; the reference's extra_mask
+            # channel for that case is not ported yet
+            raise NotImplementedError(
+                f"{len(live_rows)} spread row(s) need the per-row re-solve with the "
+                "ClusterAffinity plugin disabled; its extra_mask channel is not ported "
+                "yet (the spread slice of the PyTorch port)"
+            )
+        aff_rows = raw.aff_masks[raw.aff_idx[np.asarray(live_rows)]] & np.stack(sel_masks)
+        s_feas, s_result, s_unsched, s_avail_sum = (
+            x.cpu().numpy()[: len(live_rows)]
+            for x in self.run_kernel(_restrict_rows(raw, live_rows, aff_rows))
+        )
+        for j, b in enumerate(live_rows):
+            fidx = np.nonzero(s_feas[j])[0]
+            row_feas_src[b] = ("idx", names, fidx)
+            feas_count[b] = len(fidx)
+            if raw.strategy[b] == NON_WORKLOAD:
+                # targets = the selected set, no replica counts
+                row_target_src[b] = ("pairs", names, fidx, np.zeros(len(fidx), np.int64))
+            else:
+                pos = np.nonzero(s_result[j] > 0)[0]
+                row_target_src[b] = ("pairs", names, pos, s_result[j, pos].astype(np.int64))
+            unsched[b] = bool(s_unsched[j])
+            avail_sum[b] = int(s_avail_sum[j])
+
+    def run_kernel(self, batch: BindingBatch):
+        """The full solve of a (sub-)batch, as the reference's
+        `_schedule_kernel_compact`: the dense filter over its rows, then the
+        dense tail over all of them (it places Duplicated rows too). Returns
+        the device (feasible, result, unschedulable, avail_sum), rows padded
+        to the bucket."""
+        from .. import kernels
+        from ..convert import batch_from_numpy
+
+        padded = self._pad(batch)
+        t = batch_from_numpy({name: getattr(padded, name) for name in _BATCH_FIELDS}, self.device)
+        f = self._fleet_dev
+        feas, _score, avail, prev, tie, _fc = kernels.dense_filter(
+            f["alive"], f["capacity"], f["has_summary"], f["taint_key"],
+            f["taint_value"], f["taint_effect"], f["api_ok"],
+            t["replicas"], t["unknown_request"], t["gvk"],
+            t["tol_tables"], t["tol_idx"], t["aff_masks"], t["aff_idx"],
+            t["prev_idx"], t["prev_rep"], t["evict_idx"], t["seeds"],
+            t["req_unique"], t["req_idx"], None,
+            plugin_bits=self._plugin_bits,
+        )
+        rows = torch.arange(len(padded.replicas), dtype=I32, device=self.device)
+        result, unsched, avail_sum, *_ = kernels.dense_tail(
+            feas, avail, prev, tie, rows, t["weight_tables"], t["weight_idx"],
+            t["strategy"], t["replicas"], t["fresh"],
+            topk=min(feas.shape[1], 8), has_agg=bool((batch.strategy == AGGREGATED).any()),
+        )
+        return feas, result, unsched, avail_sum
+
+    def _classify_spread(self, bindings) -> tuple[list[int], dict, list[int]]:
+        """Split spread-constrained rows into the batched path and the
+        per-row exact fallback (cluster-only constraints, cluster MaxGroups
+        caps, zone/provider fields, huge region counts, or divided rows
+        wider than the compact window). Placement-only — runs before any
+        kernel."""
+        from . import spread as spread_mod
+        from . import spread_batch
+
+        batched, cfg_of, fallback = [], {}, []
+        layout = self._spread_layout
+        # placements are shared across many rows: classify each DISTINCT
+        # placement once (ids are stable for the duration of the call —
+        # bindings hold the references)
+        pl_seen: dict[int, object] = {}
+        _MISS = object()
+        for b, rb in enumerate(bindings):
+            placement = rb.spec.placement
+            if placement is None or not placement.spread_constraints:
+                continue
+            cfg = pl_seen.get(id(placement), _MISS)
+            if cfg is _MISS:
+                if spread_mod.should_ignore_spread_constraint(placement):
+                    cfg = "ignore"
+                else:
+                    cfg = spread_batch.config_of(placement)
+                pl_seen[id(placement)] = cfg
+            if cfg == "ignore":
+                continue
+            if (
+                cfg is not None
+                and 0 < layout.n_regions <= spread_batch.MAX_REGIONS
+                and (cfg.duplicated or rb.spec.replicas <= TOPK_TARGETS)
+            ):
+                batched.append(b)
+                cfg_of[b] = cfg
+            else:
+                fallback.append(b)
+        return batched, cfg_of, fallback
 
     def _row_class(self, rb, spread_row: bool) -> int:
         """0 = no division tail (dup / non-workload / spread rows),

@@ -272,13 +272,15 @@ def test_dense_round_chunks_match_one_round(monkeypatch):
 
 
 def test_dense_round_raises_on_unported_paths():
-    """Spread rows, registered-estimator answers and out-of-tree plugins
-    still raise on a dense round, naming their slice."""
+    """Spread rows that need the per-row re-solve without the
+    ClusterAffinity plugin, registered-estimator answers and out-of-tree
+    plugins still raise on a dense round, naming their slice."""
     clusters, bindings = flagship_mix(n_bindings=8)
-    port = TorchScheduler(from_reference_objects(clusters), candidate_k=0, device="cpu")
+    port = TorchScheduler(from_reference_objects(clusters), candidate_k=0, device="cpu",
+                          plugins=["*", "-ClusterAffinity"])
     rb = from_reference_objects(bindings[2])
     rb.spec.placement.spread_constraints = [
-        from_reference_objects(jpol.SpreadConstraint(spread_by_field="region", min_groups=2))
+        from_reference_objects(jpol.SpreadConstraint(spread_by_field="cluster", min_groups=2))
     ]
     assert dense_reason(port, [rb]) == "disabled"
     with pytest.raises(NotImplementedError, match="spread"):

@@ -175,12 +175,17 @@ def test_serial_row_chunks_match_one_round(monkeypatch):
 
 
 def test_spread_row_raises():
+    """The one spread path the port still lacks: a row whose feasible set
+    outruns the window re-solves dense, and its per-row re-solve needs the
+    ClusterAffinity plugin (the reference's extra_mask channel is not
+    ported)."""
     clusters, bindings = flagship_mix(n_bindings=8)
     rb = from_reference_objects(bindings[2])
     rb.spec.placement.spread_constraints = [
-        from_reference_objects(jpol.SpreadConstraint(spread_by_field="region", min_groups=2))
+        from_reference_objects(jpol.SpreadConstraint(spread_by_field="cluster", min_groups=2))
     ]
-    port = TorchScheduler(from_reference_objects(clusters), candidate_k=16, device="cpu")
+    port = TorchScheduler(from_reference_objects(clusters), candidate_k=16, device="cpu",
+                          plugins=["*", "-ClusterAffinity"])
     with pytest.raises(NotImplementedError, match="spread"):
         port.schedule([rb])
 
