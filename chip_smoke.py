@@ -19,10 +19,14 @@ result line otherwise. Phases, each of which raises on failure:
    (group_score also with negative availability and on a single-region
    fleet of 16 384 columns; combo_select at 4 096 rows over a config-4
    combination table, then select_regions_batch through it against its
-   host path); with each kernel's time, its plain version's time, its
-   bound and, for feas_idx, the time of the one torch call that computes
-   the same function — the spread kernels' per round of config 4 (of the
-   drain cell for combo_select) (`--kernels-only` stops here);
+   host path); dense_filter also with a random extra_mask; the tier
+   kernels (tier_estimate, tier_consume) on seeded inputs at the flagship
+   shapes in both modes and on the arguments one round of each tier cell
+   passes them; with each kernel's time, its plain version's time, its
+   bound and, for feas_idx and tier_consume, the time of the one torch
+   call that computes the same function — the spread kernels' per round
+   of config 4 (of the drain cell for combo_select), the tier kernels'
+   per round of tiers_dense (`--kernels-only` stops here);
 4. the main paths through ArrayScheduler.schedule() on the card, each with
    every launch count set to 0 just before it and read just after, timed
    rounds with p50/p90/p99, and decisions held against the port's CPU
@@ -39,7 +43,18 @@ result line otherwise. Phases, each of which raises on failure:
    combo_select's 4 096-distinct-row gate: config 4's fleet, 5 000
    bindings under one region-spread policy, each evicting a cluster in
    each of its own random half of the regions); every spread cell with
-   its exact launches per round;
+   its exact launches per round; then the tier cells, 20 rounds each:
+   tiers_dense (the flagship batch at four priorities, one row in 16
+   PreemptLowerPriority, over the flagship fleet tightened so the divided
+   rows ask 1.5x its free cpu: preemption.launch_tiered +
+   materialize_chunk, the dense tiered launch with its speculative pass),
+   tiers_compact (the same without the Duplicated quarter: the compact
+   tiered launch), each with its exact launches, decisions and
+   speculative decisions held against the CPU round and shown to differ
+   from a tier-blind schedule(); and preempt_plan (256 preemptors at two
+   priorities over that fleet tightened to 0.25 cpu free per cluster:
+   plan_preemption, two launches a round, plans and one
+   preview_preemption held against the CPU);
 5. the `kernels` JSON line, then the card's name and power limit, then the
    last line {"ok": true, "device": {...}}.
 """
@@ -69,9 +84,16 @@ from karmada_tpu_torch.api.work import (
 )
 from karmada_tpu_torch.convert import batch_from_numpy
 from karmada_tpu_torch.kernels import build
-from karmada_tpu_torch.models.batch import pow2_bucket
+from karmada_tpu_torch.models.batch import (
+    AGGREGATED,
+    DYNAMIC_WEIGHT,
+    STATIC_WEIGHT,
+    pow2_bucket,
+    shape_bucket,
+    strategy_code,
+)
 from karmada_tpu_torch.sched.candidates import DENSE_SOLVE_ANNOTATION, effective_k
-from karmada_tpu_torch.sched import spread_batch
+from karmada_tpu_torch.sched import preemption, spread_batch
 from karmada_tpu_torch.sched.core import (
     TOPK_TARGETS,
     ArrayScheduler,
@@ -101,6 +123,10 @@ WINDOW_NAMES = 64  # clusters named by each window-cell affinity
 SPREAD_REPS = 512  # representative rows of the random group_score check
 COMBO_ROWS = 4096  # rows of the combo_select check (its device gate)
 WIDE_C = 16384  # the dense tail's and group_score's width check
+TIER_ROUNDS = 20  # timed rounds of each tier cell
+TIER_PRIORITIES = (0, 1000, 100000, 1000000)
+PREEMPTORS = 256
+PREEMPT_FREE_CPU = 0.25  # bench.py run_preempt's preempt leg: 0.25 cpu free per cluster
 DEVICE = "cuda"
 
 FLEET = ("alive", "capacity", "has_summary", "taint_key", "taint_value", "taint_effect", "api_ok")
@@ -109,6 +135,8 @@ SELECT_BATCH = ("replicas", "unknown_request", "gvk", "tol_tables", "tol_idx", "
 SELECT_OUT = ("cand_idx", "c_feas", "c_score", "c_avail", "c_prev", "c_tie", "feas_count",
               "packed")
 TAIL_OUT = ("result", "unschedulable", "avail_sum", "nnz", "top_idx", "top_val")
+ESTIMATE_ARGS = ("capacity", "has_summary", "req_unique", "req_idx", "replicas",
+                 "unknown_request")
 FILTER_OUT = ("feasible", "score", "avail", "prev", "tie", "feas_count")
 GROUP_OUT = ("weight", "value", "avail_sum", "feas_count")
 SPREAD_TAIL_OUT = ("result", "unschedulable", "avail_sum", "feas_count", "nnz", "top_idx",
@@ -336,6 +364,92 @@ SPREAD_CELLS = (
     ("window", build_spread_window, {"candidate_select": 1, "candidate_tail": 1}),
     ("drain", build_drain, {**_SPREAD_DENSE, "combo_select": 1}),
 )
+
+
+def _set_free_cpu(clusters, free_of) -> None:
+    """Raise each cluster's allocated cpu so its free cpu is
+    free_of(cluster, free now)."""
+    for c in clusters:
+        rs = c.status.resource_summary
+        free = rs.allocatable[CPU] - rs.allocated.get(CPU, 0.0)
+        rs.allocated[CPU] = rs.allocatable[CPU] - free_of(c, free)
+
+
+def build_tiers(seed=0, duplicated=True, n_clusters=N_CLUSTERS, n_bindings=N_BINDINGS):
+    """The tier cells: the flagship batch (build_flagship, seed 0) with
+    schedule_priority drawn from the seed over TIER_PRIORITIES and one row
+    in 16 PreemptLowerPriority, over the flagship fleet with every
+    cluster's free cpu scaled by one factor so the divided rows ask for
+    1.5x the fleet's free cpu (lower tiers meet a residual). The
+    victim-candidate snapshot is the batch's rows that carry a previous
+    placement. `duplicated=False` drops the Duplicated quarter (7 500
+    rows: the compact tiered launch). Returns (clusters, bindings,
+    placed)."""
+    clusters, bindings = build_flagship(seed, n_clusters=n_clusters, n_bindings=n_bindings)
+    rng = np.random.default_rng(seed + 3)
+    for i, rb in enumerate(bindings):
+        rb.spec.schedule_priority = int(rng.choice(TIER_PRIORITIES))
+        if i % 16 == 2:  # dynamic-weight rows (placements[i % 4]), in both cells
+            rb.spec.preemption_policy = pol.PREEMPT_LOWER_PRIORITY
+    divided = (STATIC_WEIGHT, DYNAMIC_WEIGHT, AGGREGATED)
+    demand = sum(rb.spec.replicas * rb.spec.replica_requirements.resource_request[CPU]
+                 for rb in bindings
+                 if strategy_code(rb.spec.placement, rb.spec.replicas) in divided)
+    free_now = sum(c.status.resource_summary.allocatable[CPU]
+                   - c.status.resource_summary.allocated.get(CPU, 0.0) for c in clusters)
+    scale = demand / 1.5 / free_now
+    _set_free_cpu(clusters, lambda c, free: free * scale)
+    if not duplicated:
+        bindings = [rb for i, rb in enumerate(bindings) if i % 4]  # placements[0] is Duplicated
+    return clusters, bindings, [rb for rb in bindings if rb.spec.clusters]
+
+
+def build_preempt(seed=0, n_clusters=N_CLUSTERS, n_bindings=N_BINDINGS,
+                  n_preemptors=PREEMPTORS):
+    """The preemption-plan cell: the tier cells' fleet tightened to
+    PREEMPT_FREE_CPU free cpu per cluster (bench.py run_preempt's preempt
+    leg: every preemptor must reclaim), sorted by name as the preview
+    encodes it; the placed snapshot is the tier batch's rows with a
+    previous placement at priority 0; PREEMPTORS arrivals of 6 replicas x
+    1 cpu, dynamic-weight, PreemptLowerPriority, half at priority 20 and
+    half at 10 (run_preempt's arrival shape at two priorities). Returns
+    (clusters, placed, preemptors)."""
+    clusters, _, placed = build_tiers(seed, n_clusters=n_clusters, n_bindings=n_bindings)
+    _set_free_cpu(clusters, lambda c, free: min(free, PREEMPT_FREE_CPU))
+    for rb in placed:
+        rb.spec.schedule_priority = 0
+    preemptors = []
+    for i in range(n_preemptors):
+        rb = _binding(i, 6, _dyn_placement(aggregated=False), 1.0, ns="preempt")
+        rb.spec.schedule_priority = 20 if i % 2 else 10
+        rb.spec.preemption_policy = pol.PREEMPT_LOWER_PRIORITY
+        preemptors.append(rb)
+    return sorted(clusters, key=lambda c: c.name), placed, preemptors
+
+
+def tier_round(sched, bindings, placed):
+    """One tiered round as the daemon runs a serial chunk: launch_tiered,
+    then materialize_chunk."""
+    return sched.materialize_chunk(preemption.launch_tiered(sched, bindings, placed=placed))
+
+
+def tier_expect(sched, bindings, placed, compact: bool) -> dict:
+    """Exact launches of one tiered round: the filter (dense) or select
+    (compact) once; a tail per tier and per speculative pass (the tiers
+    whose reclaim is non-zero); an estimate per tier after the first and
+    per speculative pass; a consumption between tiers."""
+    reclaim, _armed = preemption._tier_reclaim(sched, bindings, placed)
+    tier_of, _ = preemption._tier_assignment(bindings)
+    n_tiers = int(tier_of.max()) + 1
+    spec = 0 if reclaim is None else int(reclaim.reshape(len(reclaim), -1).any(1).sum())
+    first, tail = ("candidate_select", "candidate_tail") if compact else (
+        "dense_filter", "dense_tail")
+    return {first: 1, tail: n_tiers + spec, "tier_estimate": n_tiers - 1 + spec,
+            "tier_consume": n_tiers - 1}
+
+
+# the tier cells of phase 4: (name, build_tiers' duplicated flag, compact)
+TIER_CELLS = (("tiers_dense", True, False), ("tiers_compact", False, True))
 
 
 # --------------------------------------------------------------------------
@@ -613,27 +727,33 @@ def dense_tail_args(filt, t, rows):
 
 
 def decision_view(d):
+    spec = d.speculative
     return (d.key, d.error, d.affinity_name,
             None if d.targets is None else [(t.name, t.replicas) for t in d.targets],
-            list(d.feasible))
+            list(d.feasible), None if spec is None else decision_view(spec))
 
 
-def drive(label, sched, bindings, rounds, expect, smi):
+def drive(label, sched, bindings, rounds, expect, smi, run=None):
     """One main path: launch counts set to 0, a warm round and `rounds`
     timed rounds (host clock around a synchronised round), counts read.
     `expect` maps kernel name -> launches per round (exact; the other
-    kernels must stay at 0). Returns (decisions, launch counts, times)."""
+    kernels must stay at 0). `run` is the round (default
+    `sched.schedule(bindings)`). Returns (decisions, launch counts,
+    times)."""
+    if run is None:
+        def run():
+            return sched.schedule(bindings)
     kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    decisions = sched.schedule(bindings)
+    decisions = run()
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
     times, gc_rounds = [], []
     for _ in range(rounds):
         full_gcs = gc.get_stats()[2]["collections"]
         t0 = time.perf_counter()
-        decisions = sched.schedule(bindings)
+        decisions = run()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         gc_rounds.append(gc.get_stats()[2]["collections"] > full_gcs)
@@ -652,11 +772,13 @@ def drive(label, sched, bindings, rounds, expect, smi):
     return decisions, launches, times
 
 
-def hold_against_cpu(label, clusters, bindings, decisions):
-    """Run the same bindings through the port's CPU round and require
-    identical decisions."""
+def hold_against_cpu(label, clusters, bindings, decisions, cpu_run=None):
+    """Run the same bindings through the port's CPU round (`cpu_run(cpu
+    scheduler)`, default `schedule(bindings)`) and require identical
+    decisions, speculative decisions included."""
     t0 = time.perf_counter()
-    want = ArrayScheduler(clusters, device="cpu").schedule(bindings)
+    cpu_sched = ArrayScheduler(clusters, device="cpu")
+    want = cpu_run(cpu_sched) if cpu_run else cpu_sched.schedule(bindings)
     cpu_s = time.perf_counter() - t0
     got = [decision_view(d) for d in decisions]
     want = [decision_view(d) for d in want]
@@ -745,7 +867,13 @@ def check_dense_kernels(sched, bindings, dev, results):
     r_args = random_select_inputs(rng, dev, B, C)
     err_f = compare("dense_filter[random]", kernels._dense_filter_launch(*r_args, plugin_bits=31),
                     kernels.dense_filter_plain(*r_args, plugin_bits=31), FILTER_OUT)
-    del r_args
+    # the extra_mask channel (a per-row re-solve's spread selection)
+    mask = torch.rand((B, C), device=dev) < 0.5
+    err_f = max(err_f, compare(
+        "dense_filter[random, extra_mask]",
+        kernels._dense_filter_launch(*r_args, plugin_bits=31, extra_mask=mask),
+        kernels.dense_filter_plain(*r_args, plugin_bits=31, extra_mask=mask), FILTER_OUT))
+    del r_args, mask
     err_t = 0
     shapes = [(B, C, int(r.numel()), topk, h) for r, topk, h in tails]
     shapes += [(B, C, int(tails[1][0].numel()), 8, True), (64, WIDE_C, 48, 128, True),
@@ -766,7 +894,8 @@ def check_dense_kernels(sched, bindings, dev, results):
     for k in (mk, 128):
         err_i = max(err_i, compare(f"feas_idx[random,{k}]", [kernels._feas_idx_launch(m, k)],
                                    [kernels.feas_idx_plain(m, k)], ("idx",)))
-    log(f"random inputs (filter {B}x{C}; tail {[s[:4] for s in shapes]}; masks "
+    log(f"random inputs (filter {B}x{C}, with and without extra_mask; tail "
+        f"{[s[:4] for s in shapes]}; masks "
         f"{tuple(m.shape)}): the dense kernels equal their plain versions exactly")
     del m
 
@@ -951,17 +1080,21 @@ SPREAD_KERNELS = {
 }
 
 
+def _clone(x):
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
 @contextlib.contextmanager
-def captured_spread_launches():
-    """Inside the block every spread kernel launch also records a copy of
-    its arguments (tensors cloned at launch time): {kernel: [(args,
-    keywords), ...]}. The counting wrappers are untouched."""
-    calls = {n: [] for n in SPREAD_KERNELS}
-    saved = {n: getattr(kernels, f"_{n}_launch") for n in SPREAD_KERNELS}
+def captured_launches(names):
+    """Inside the block every launch of the kernels `names` also records a
+    copy of its arguments (tensors cloned at launch time): {kernel:
+    [(args, keywords), ...]}. The counting wrappers are untouched."""
+    calls = {n: [] for n in names}
+    saved = {n: getattr(kernels, f"_{n}_launch") for n in names}
 
     def recorder(n, fn):
         def record(*args, **kw):
-            calls[n].append(([a.clone() for a in args], kw))
+            calls[n].append(([_clone(a) for a in args], {k: _clone(v) for k, v in kw.items()}))
             return fn(*args, **kw)
         return record
 
@@ -980,7 +1113,7 @@ def main_path_spread_calls(cell, build_cell, expect, dev):
     count. Returns (calls, the cell's layout tensors and host layout)."""
     clusters, bindings = build_cell()
     sched = ArrayScheduler(clusters, device=dev)
-    with captured_spread_launches() as calls:
+    with captured_launches(SPREAD_KERNELS) as calls:
         sched.schedule(bindings)
     torch.cuda.synchronize()
     got = {n: len(c) for n, c in calls.items()}
@@ -990,9 +1123,16 @@ def main_path_spread_calls(cell, build_cell, expect, dev):
     return calls, sched._layout_dev, sched._spread_layout
 
 
-def run_calls(n, calls, plain=False):
+def run_calls(n, calls, plain=False, fresh_out=True):
+    """Each recorded call of kernel `n` (or its plain version). An `out`
+    buffer the call writes in place is cloned first unless `fresh_out` is
+    off (timing), so the kernel and its plain version never share one."""
     fn = getattr(kernels, f"{n}_plain" if plain else f"_{n}_launch")
-    outs = [fn(*args, **kw) for args, kw in calls]
+    outs = []
+    for args, kw in calls:
+        if fresh_out and kw.get("out") is not None:
+            kw = {**kw, "out": kw["out"].clone()}
+        outs.append(fn(*args, **kw))
     return [o if isinstance(o, tuple) else (o,) for o in outs]
 
 
@@ -1122,16 +1262,310 @@ def check_spread_kernels(dev, results):
                           ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None)
 
 
-def profiled_device_ms(sched, bindings):
-    """Device time of one round under torch.profiler: the sum over the
-    device's own events (kernels, copies, memsets), as the profiler's table
-    footer sums it — the host-side launch events carry their kernels' time
-    too and are left out. None when the profiler records none here."""
+TIER_KERNELS = ("tier_estimate", "tier_consume")
+
+
+def tier_estimate_work(args, kw, outs):
+    """Bytes: the estimates written once (rows mode: the tier's rows of the
+    [B, C] buffer; window mode: [n, K]), the capacity, summary flags,
+    unique requests and row ids read once, 9 bytes of row columns per row
+    and, in window mode, the rows' candidate columns. Operations: per
+    element one int64 division, compare and select per resource plus 8
+    clamps."""
+    cap, has_summary, req_unique, _ridx, _reps, _unknown, rows = args
+    n = rows.numel()
+    C, R = cap.shape
+    cand = kw.get("cand_idx")
+    width = C if cand is None else cand.shape[1]
+    moved = n * width * 4 + nbytes([cap, has_summary, req_unique, rows]) + n * 9
+    if cand is not None:
+        moved += n * width * 4
+    return moved, n * width * (4 * R + 8)
+
+
+def tier_consume_work(args, kw, outs):
+    """Bytes: the tier's placed matrix, flags and row ids read once, its
+    rows' requests, the capacity read and written once (and the rows'
+    candidate columns in window mode). Operations: a multiply and an add
+    per placed entry and resource."""
+    cap, placed, unsched, _request, rows = args
+    n, width = placed.shape
+    C, R = cap.shape
+    moved = nbytes([cap, placed, unsched, rows]) + n * R * 8 + C * R * 8
+    if kw.get("cand_idx") is not None:
+        moved += n * width * 4
+    return moved, 2 * n * width * R
+
+
+TIER_WORK = {"tier_estimate": tier_estimate_work, "tier_consume": tier_consume_work}
+
+
+def random_tier_inputs(rng, dev, B, C, R, n, K):
+    """Seeded tie-heavy tier inputs at the flagship shapes: capacities
+    around zero and past INT32_MAX quotients, absent summaries, zero and
+    absent requests, unknown requests; n distinct rows; placed matrices
+    with few distinct values and most entries zero, unschedulable rows,
+    memory-sized requests whose products pass 2**53, capacities the clamp
+    zeroes."""
+    U = 8
+    cap = rng.integers(-10, 2_000_000, (C, R)).astype(np.int64)
+    cap[::5, 0] = 0
+    cap[::97] = 1 << 45
+    req_u = rng.integers(0, 2000, (U, R)).astype(np.int64)
+    req_u[0] = 0
+    request = rng.integers(0, 3000, (B, R)).astype(np.int64)
+    request[:, 1] = rng.integers(1 << 40, 1 << 41, B)
+    ccap = rng.integers(0, 1 << 58, (C, R)).astype(np.int64)
+    ccap[::3, 0] = rng.integers(0, 500, len(ccap[::3]))
+    d = {
+        "capacity": cap, "has_summary": rng.random(C) < 0.95, "req_unique": req_u,
+        "req_idx": rng.integers(0, U, B).astype(np.int32),
+        "replicas": rng.integers(0, 64, B).astype(np.int32),
+        "unknown_request": rng.random(B) < 0.05,
+        "rows": rng.permutation(B)[:n].astype(np.int32),
+        "cand_idx": np.sort(rng.choice(C, (B, K)), axis=1).astype(np.int32),
+        "placed": np.where(rng.random((n, C)) < 0.05, rng.integers(1, 4, (n, C)), 0).astype(
+            np.int32),
+        "placed_k": np.where(rng.random((n, K)) < 0.3, rng.integers(1, 9, (n, K)), 0).astype(
+            np.int32),
+        "unsched": rng.random(n) < 0.1, "request": request, "consume_cap": ccap,
+    }
+    return batch_from_numpy(d, dev)
+
+
+def check_tier_kernels(dev, results):
+    """Phase 3 for the tier kernels (B11, B12's per-tier pieces): on seeded
+    inputs at the flagship shapes in both modes, then on the arguments one
+    round of each tier cell passes them (captured at launch), with their
+    time, plain time and bound per round and, for tier_consume, the
+    library call's time (torch.mm in float64 for the dense cell, exact
+    only below 2**53; index_add_ for the compact one)."""
+    rng = np.random.default_rng(4)
+    errs = dict.fromkeys(TIER_KERNELS, 0)
+    B, C, K = shape_bucket(N_BINDINGS), shape_bucket(N_CLUSTERS), 128
+    d = random_tier_inputs(rng, dev, B, C, 4, B // 4, K)
+    est = [d[k] for k in ESTIMATE_ARGS] + [d["rows"]]
+    bufs = [torch.full((B, C), -1, dtype=torch.int32, device=dev) for _ in range(2)]
+    errs["tier_estimate"] = max(
+        compare("tier_estimate[random, rows]", [kernels._tier_estimate_launch(*est, out=bufs[0])],
+                [kernels.tier_estimate_plain(*est, out=bufs[1])], ("avail",)),
+        compare("tier_estimate[random, window]",
+                [kernels._tier_estimate_launch(*est, cand_idx=d["cand_idx"])],
+                [kernels.tier_estimate_plain(*est, cand_idx=d["cand_idx"])], ("c_avail",)))
+    del bufs
+    con = (d["consume_cap"], d["placed"], d["unsched"], d["request"], d["rows"])
+    errs["tier_consume"] = compare("tier_consume[random, dense]",
+                                   [kernels._tier_consume_launch(*con)],
+                                   [kernels.tier_consume_plain(*con)], ("cap",))
+    con_k = (d["consume_cap"], d["placed_k"], d["unsched"], d["request"], d["rows"])
+    errs["tier_consume"] = max(errs["tier_consume"], compare(
+        "tier_consume[random, window]",
+        [kernels._tier_consume_launch(*con_k, cand_idx=d["cand_idx"])],
+        [kernels.tier_consume_plain(*con_k, cand_idx=d["cand_idx"])], ("cap",)))
+    log(f"random inputs ({B}x{C}, {B // 4} tier rows, window {K}): tier_estimate and tier_consume "
+        "equal their plain versions exactly in both modes")
+    del d, est, con, con_k
+
+    captured = {}
+    for cell, duplicated, compact in TIER_CELLS:
+        clusters, bindings, placed = build_tiers(duplicated=duplicated)
+        sched = ArrayScheduler(clusters, device=dev)
+        expect = tier_expect(sched, bindings, placed, compact)
+        with captured_launches(TIER_KERNELS) as calls:
+            tier_round(sched, bindings, placed)
+        torch.cuda.synchronize()
+        got = {n: len(c) for n, c in calls.items()}
+        if got != {n: expect[n] for n in TIER_KERNELS}:
+            raise AssertionError(f"{cell}: one round launched {got}, expected {expect}")
+        rows = {}
+        for n, cs in calls.items():
+            for i, (g, w) in enumerate(zip(run_calls(n, cs), run_calls(n, cs, plain=True))):
+                errs[n] = max(errs[n], compare(f"{n}[{cell} round, call {i}]", g, w, (n,)))
+            rows[n] = [int(args[-1].shape[0]) for args, _ in cs]
+        log(f"{cell}: one round's tier launches (rows per call {rows}) equal their plain "
+            "versions exactly on the main path's own arguments")
+        captured[cell] = calls
+        del sched, clusters, bindings, placed
+
+    timing = {}
+    for cell, calls in captured.items():
+        parts = []
+        for n, cs in calls.items():
+            outs = run_calls(n, cs, fresh_out=False)
+            moved, ops = map(sum, zip(*(TIER_WORK[n](a, kw, o)
+                                        for (a, kw), o in zip(cs, outs))))
+            b, by = bound(moved, ops)
+            ms = cuda_ms(lambda: run_calls(n, cs, fresh_out=False), 10)
+            plain = cuda_ms(lambda: run_calls(n, cs, plain=True, fresh_out=False), 3)
+            timing[(cell, n)] = (ms, plain, b, by)
+            parts.append(f"{n} {ms:.4f} ms (plain {plain:.4f}, bound {b:.4f} {by})")
+        cs = calls["tier_consume"]
+        if cell == "tiers_dense":
+            pq = [(a[1].double(), a[3].index_select(0, a[4].long()).double()) for a, _ in cs]
+            lib = cuda_ms(lambda: [torch.mm(p.t(), q) for p, q in pq], 10)
+            what = "torch.mm in float64"
+        else:
+            cv = []
+            for a, kw in cs:
+                req = a[3].index_select(0, a[4].long())
+                cols = kw["cand_idx"].index_select(0, a[4].long()).reshape(-1).long()
+                cv.append((cols, (a[1].long()[:, :, None] * req[:, None, :]).reshape(-1,
+                                                                                 req.shape[1])))
+            C_, R_ = cs[0][0][0].shape
+            lib = cuda_ms(lambda: [torch.zeros((C_, R_), dtype=torch.int64, device=dev)
+                                   .index_add_(0, c, v) for c, v in cv], 10)
+            what = "index_add_"
+        timing[(cell, "library")] = lib
+        log(f"timing ({cell} round, the main path's arguments, per round): " + "; ".join(parts)
+            + f"; tier_consume's library call ({what}) {lib:.4f} ms")
+    del captured
+    torch.cuda.empty_cache()
+    csrc = "karmada_tpu_torch/kernels/csrc/tiers.cu"
+    for n in TIER_KERNELS:
+        ms, plain, b, by = timing[("tiers_dense", n)]
+        results[n] = dict(source=csrc, replaces="karmada_tpu/sched/preemption.py:125",
+                          max_abs_err=errs[n], ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                          library_ms=timing[("tiers_dense", "library")]
+                          if n == "tier_consume" else None)
+
+
+def plan_view(p):
+    return (p.key, p.priority, p.feasible, p.error, [(t.name, t.replicas) for t in p.targets],
+            [(v.key, v.cluster, v.replicas, v.priority) for v in p.victims])
+
+
+def tier_breakdown(label, run, p50):
+    """One more round of a tier cell split at its seams (host clock): the
+    launch half (encode, upload, dispatch) of every `_launch_kernel_rows`,
+    the wait for the device right after each, and the rest (copy back,
+    decode, and the victim selection of a plan); then the device time of
+    one profiled round."""
+    spans = {"launch": 0.0, "wait": 0.0}
+    orig = preemption._launch_kernel_rows
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        state = orig(*a, **kw)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        spans["launch"] += t1 - t0
+        spans["wait"] += time.perf_counter() - t1
+        return state
+
+    preemption._launch_kernel_rows = timed
+    try:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        preemption._launch_kernel_rows = orig
+    kernel_ms = profiled_device_ms(None, None, run)
+    share = "not measured" if kernel_ms is None else (
+        f"{kernel_ms / 1e3:.4f} s = {kernel_ms / 1e3 / p50:.3f} of the p50 round (device busy "
+        "share, torch.profiler, one round)")
+    log(f"{label} round breakdown: launch (encode + upload + dispatch) {spans['launch']:.4f} s, "
+        f"wait for the device {spans['wait']:.4f} s, materialize (copy back + decode + host "
+        f"rest) {total - spans['launch'] - spans['wait']:.4f} s; kernel time per round {share}")
+
+
+def run_tier_cells(dev, smi, path_launches):
+    """Phase 4's tier cells: tiers_dense and tiers_compact (launch_tiered +
+    materialize_chunk, exact launches per round, decisions and speculative
+    decisions held against the CPU round, the residual shown to bite
+    against a tier-blind schedule()), then preempt_plan (plan_preemption,
+    two launches per round, plans and one preview held against the
+    CPU)."""
+    for cell, duplicated, compact in TIER_CELLS:
+        clusters, bindings, placed = build_tiers(duplicated=duplicated)
+        sched = ArrayScheduler(clusters, device=dev)
+        expect = tier_expect(sched, bindings, placed, compact)
+        n0 = preemption.LAUNCHES.tiered
+
+        def run(sched=sched, bindings=bindings, placed=placed):
+            return tier_round(sched, bindings, placed)
+
+        decisions, launches, times = drive(f"{cell} (tiered, {len(bindings)} rows)", sched,
+                                           bindings, TIER_ROUNDS, expect, smi, run=run)
+        if preemption.LAUNCHES.tiered - n0 != TIER_ROUNDS + 1:
+            raise AssertionError(f"{cell}: LAUNCHES.tiered moved by "
+                                 f"{preemption.LAUNCHES.tiered - n0}, expected {TIER_ROUNDS + 1}")
+        for n in TIER_KERNELS:
+            path_launches[n] = path_launches.get(n, 0) + launches[n]
+        tier_breakdown(cell, run, float(np.percentile(times, 50)))
+        hold_against_cpu(cell, clusters, bindings, decisions,
+                         cpu_run=lambda s, b=bindings, p=placed: tier_round(s, b, p))
+        blind = sched.schedule(bindings)
+
+        def key(d):
+            return d.ok, sorted((t.name, t.replicas) for t in (d.targets or []))
+
+        differ = sum(key(a) != key(b) for a, b in zip(decisions, blind))
+        spec = [d.speculative for d in decisions if d.speculative is not None]
+        log(f"{cell}: {differ} of {len(decisions)} rows differ from a tier-blind schedule() of "
+            f"the same batch; {len(spec)} armed rows decoded a speculative decision "
+            f"({sum(d.ok for d in spec)} placed over the reclaimable capacity, "
+            f"{sum(not d.ok for d in decisions if d.speculative is not None)} of them short "
+            "without it)")
+        if differ == 0:
+            raise AssertionError(f"{cell}: the tier residual changed no decision")
+        del sched, clusters, bindings, placed, decisions, blind
+
+    clusters, placed, pre = build_preempt()
+    sched = ArrayScheduler(clusters, device=dev)
+    n0 = preemption.LAUNCHES.preempt
+
+    def run_plan():
+        return preemption.plan_preemption(sched, placed, pre)
+
+    plans, _, times = drive(f"preempt_plan ({len(pre)} preemptors)", sched, None, TIER_ROUNDS,
+                            {"candidate_select": 2, "candidate_tail": 2}, smi, run=run_plan)
+    if preemption.LAUNCHES.preempt - n0 != 2 * (TIER_ROUNDS + 1):
+        raise AssertionError(f"preempt_plan: LAUNCHES.preempt moved by "
+                             f"{preemption.LAUNCHES.preempt - n0}")
+    tier_breakdown("preempt_plan", run_plan, float(np.percentile(times, 50)))
+    cpu_sched = ArrayScheduler(clusters, device="cpu")
+    want = preemption.plan_preemption(cpu_sched, placed, pre)
+    if [plan_view(p) for p in plans] != [plan_view(p) for p in want]:
+        bad = next(i for i, (a, b) in enumerate(zip(plans, want)) if plan_view(a) != plan_view(b))
+        raise AssertionError(f"preempt_plan: card and cpu plans differ at {bad}: "
+                             f"{plan_view(plans[bad])} vs {plan_view(want[bad])}")
+    preview = preemption.preview_preemption(clusters, placed + [pre[0]], pre[0], device=dev)
+    alone = preemption.plan_preemption(sched, placed, [pre[0]])[0]
+    cpu_preview = preemption.preview_preemption(clusters, placed + [pre[0]], pre[0], device="cpu")
+    # the preview plans one preemptor against the snapshot: it equals that
+    # preemptor's plan made alone (in the batch its group's joint victim
+    # selection may cover less), and the cpu preview
+    if not plan_view(preview) == plan_view(alone) == plan_view(cpu_preview):
+        raise AssertionError(f"preempt_plan: the preview {plan_view(preview)} differs from the "
+                             f"plan {plan_view(alone)} or the cpu preview "
+                             f"{plan_view(cpu_preview)}")
+    cut = sum(v.replicas for p in {p.priority: p for p in plans if p.feasible}.values()
+              for v in p.victims)
+    errs = sorted({p.error for p in plans if p.error})
+    log(f"preempt_plan: plans identical to the cpu planner for all {len(plans)} preemptors "
+        f"({sum(p.feasible for p in plans)} feasible, {cut} victim replicas cut, errors "
+        f"{errs}); the preview of "
+        f"{pre[0].metadata.key()} equals its plan ({len(preview.victims)} victim cuts)")
+    if not (preview.feasible and preview.victims):
+        raise AssertionError("preempt_plan: the previewed preemptor needed no victim; the fleet "
+                             "is not tight")
+
+
+def profiled_device_ms(sched, bindings, run=None):
+    """Device time of one round (`run()`, default `sched.schedule(bindings)`)
+    under torch.profiler: the sum over the device's own events (kernels,
+    copies, memsets), as the profiler's table footer sums it — the
+    host-side launch events carry their kernels' time too and are left
+    out. None when the profiler records none here."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        sched.schedule(bindings)
+        if run is None:
+            sched.schedule(bindings)
+        else:
+            run()
         torch.cuda.synchronize()
     total_us = sum(e.self_device_time_total for e in prof.events()
                    if e.device_type == DeviceType.CUDA
@@ -1199,6 +1633,7 @@ def main(argv=None) -> int:
     # one round each of configs 4, 4b and drain (their bindings are built
     # again in phase 4, so no earlier cell's garbage collections walk them)
     check_spread_kernels(dev, results)
+    check_tier_kernels(dev, results)
     gc.collect()
     torch.cuda.empty_cache()
     if kernels_only:
@@ -1256,6 +1691,8 @@ def main(argv=None) -> int:
         round_breakdown(cell, sched_s, bindings_s, None, float(np.percentile(times, 50)))
         hold_against_cpu(cell, clusters_s, bindings_s, decisions)
         del sched_s, clusters_s, bindings_s, decisions
+
+    run_tier_cells(dev, smi, path_launches)
 
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": r["source"], "replaces": r["replaces"],

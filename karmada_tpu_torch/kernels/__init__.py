@@ -36,6 +36,17 @@ Spread constraints (the dense round's batched region path):
   per row over the enumerated combination table; the plain version is
   `combo_select_plain`.
 
+Priority tiers (the tiered rounds of sched/preemption.py, composed with
+the kernels above):
+- `tier_estimate` (csrc/tiers.cu): the estimator answer over a tier's rows
+  at a capacity matrix passed in, into the [B, C] avail buffer (rows
+  mode) or at the rows' candidate windows (window mode); the plain
+  version is `tier_estimate_plain`.
+- `tier_consume` (csrc/tiers.cu): the capacity left after a tier's
+  committed placements, `max(cap - placed.T @ request, 0)` in exact
+  int64, dense or scattered through the candidate windows; the plain
+  version is `tier_consume_plain`.
+
 A wrapper runs the plain version only for tensors that lie on the CPU. For
 CUDA tensors it checks device, dtype, shape and contiguity, launches the
 kernel on PyTorch's current stream, raises when the launch reports an
@@ -63,6 +74,7 @@ FEAS_IDX_PAD = 1 << 30  # feas_idx's value past a row's feasible count
 COMBO_NEG = -(1 << 62)
 COMBO_DISC_MASKED = 1 << 62
 MAX_COMBO_REGIONS = 64  # combo_select keeps a row's regions in shared memory
+MAX_TIER_RESOURCES = 16  # tier_consume keeps one int64 sum per resource in registers
 
 
 # --------------------------------------------------------------------------
@@ -128,13 +140,15 @@ def dense_filter_plain(
     alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
     replicas, unknown_request, gvk, tol_tables, tol_idx,
     aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
-    req_unique, req_idx, extra_avail, *, plugin_bits: int,
+    req_unique, req_idx, extra_avail, *, plugin_bits: int, extra_mask=None,
 ):
     """Plain version of the dense-filter kernel (the reference's
     `_filter_kernel_compact`): over the full [B, C] grid. Returns (feasible
     bool[B,C], score i32, avail i32, prev_replicas i32, tie i32,
     feas_count i32[B]). `extra_avail` is None or i32[B,C] (-1 = no
-    answer), min-merged into avail."""
+    answer), min-merged into avail. `extra_mask` is None or bool[B,C],
+    ANDed into feasible after the plugin filters (the reference's
+    filter_phase `extra_mask`)."""
     C = alive.shape[0]
     prev_member, prev_replicas, eviction_ok = core.sparse_rows(prev_idx, prev_rep, evict_idx, C)
     feasible, score, avail = core.filter_estimate_phase(
@@ -143,6 +157,8 @@ def dense_filter_plain(
         aff_masks[aff_idx.long()], eviction_ok, prev_member, req_unique, req_idx,
         plugin_bits=plugin_bits,
     )
+    if extra_mask is not None:
+        feasible = feasible & extra_mask
     if extra_avail is not None:
         avail = torch.where(extra_avail >= 0, torch.minimum(avail, extra_avail), avail)
     tie = core.tie_at(seeds, torch.arange(C, device=alive.device)[None, :])
@@ -360,6 +376,50 @@ def combo_select_plain(weight, value, kmax_row, rname, members_pad, sizes, *,
         first_idx = torch.where(first_idx == mp.shape[0], 0, first_idx)
         n_ties = cand2.sum(1)
     return first_idx.to(I32), n_ties.to(I32), none_feasible
+
+
+def tier_estimate_plain(capacity, has_summary, req_unique, req_idx, replicas,
+                        unknown_request, rows, *, out=None, cand_idx=None):
+    """Plain version of the tier-estimate kernel: the GeneralEstimator
+    answer at `capacity` (i64[C,R], the residual of a tier or the
+    residual plus the reclaimable capacity) for the batch rows `rows`
+    (i32[n]), with no registered-estimator answers. Rows mode (`out`, the
+    i32[B,C] avail buffer): the estimate half of filter_estimate_phase,
+    written into `out` at those rows (in place; returns `out`). Window
+    mode (`cand_idx`, i32[B,K]): `compact_estimate` at the rows' candidate
+    columns, a new i32[n,K]."""
+    from ..ops import assign as assign_ops
+    from ..sched.candidates import compact_estimate
+
+    r = rows.long()
+    ridx, reps, unknown = (x.index_select(0, r) for x in (req_idx, replicas, unknown_request))
+    if cand_idx is not None:
+        return compact_estimate(capacity, has_summary, req_unique, ridx, reps, unknown,
+                                cand_idx.index_select(0, r), None)
+    est_u, any_u = assign_ops.general_estimate_unique(capacity, has_summary, req_unique)
+    avail = assign_ops.general_estimate_apply(est_u, any_u, ridx, has_summary, reps)
+    return out.index_copy_(0, r, torch.where(unknown[:, None], 0, avail))
+
+
+def tier_consume_plain(cap, placed, unsched, request, rows, *, cand_idx=None):
+    """Plain version of the tier-consume kernel: max(cap - cons, 0) with
+    cons[c, r] the sum over the committed rows j (unsched[j] False) of
+    placed[j, c] * request[rows[j], r], in int64 (the reference's
+    `placed.T @ request_dense`, preemption.py:221-222). Dense mode: placed
+    is i32[n,C]. Window mode (`cand_idx`, i32[B,K]): placed is i32[n,K]
+    and each entry lands on column cand_idx[rows[j], k] through
+    `index_add_` (candidates.py:863-869). Written as a sum over rows per
+    resource, not a matrix product: the card has no int64 matmul."""
+    r = rows.long()
+    p = torch.where(unsched[:, None], 0, placed).to(I64)
+    req = request.index_select(0, r)
+    if cand_idx is None:
+        cons = torch.stack([(p * req[:, i:i + 1]).sum(0) for i in range(req.shape[1])], dim=1)
+    else:
+        cols = cand_idx.index_select(0, r).long().reshape(-1)
+        vals = (p[:, :, None] * req[:, None, :]).reshape(-1, req.shape[1])
+        cons = torch.zeros_like(cap).index_add_(0, cols, vals)
+    return torch.clamp(cap - cons, min=0)
 
 
 # --------------------------------------------------------------------------
@@ -601,7 +661,7 @@ def dense_filter(
     alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
     replicas, unknown_request, gvk, tol_tables, tol_idx,
     aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
-    req_unique, req_idx, extra_avail, *, plugin_bits: int,
+    req_unique, req_idx, extra_avail, *, plugin_bits: int, extra_mask=None,
 ):
     """Dense filter + estimate over the fleet and a padded batch (see
     dense_filter_plain for the contract)."""
@@ -611,10 +671,10 @@ def dense_filter(
             req_unique, req_idx, extra_avail)
     dev = alive.device
     if dev.type == "cpu":
-        return dense_filter_plain(*args, plugin_bits=plugin_bits)
+        return dense_filter_plain(*args, plugin_bits=plugin_bits, extra_mask=extra_mask)
     if dev.type != "cuda":
         raise ValueError(f"dense_filter: unsupported device {dev}")
-    out = _dense_filter_launch(*args, plugin_bits=plugin_bits)
+    out = _dense_filter_launch(*args, plugin_bits=plugin_bits, extra_mask=extra_mask)
     dense_filter.launches += 1
     return out
 
@@ -623,7 +683,7 @@ def _dense_filter_launch(
     alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
     replicas, unknown_request, gvk, tol_tables, tol_idx,
     aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
-    req_unique, req_idx, extra_avail, *, plugin_bits: int,
+    req_unique, req_idx, extra_avail, *, plugin_bits: int, extra_mask=None,
 ):
     """Check, allocate and launch dense_filter_kernel."""
     dev = alive.device
@@ -633,6 +693,8 @@ def _dense_filter_launch(
         aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
         req_unique, req_idx, extra_avail,
     )
+    if extra_mask is not None:
+        _check("extra_mask", extra_mask, BOOL, (B, C), dev)
     feasible = torch.empty((B, C), dtype=BOOL, device=dev)
     score = torch.empty((B, C), dtype=I32, device=dev)
     avail = torch.empty((B, C), dtype=I32, device=dev)
@@ -646,7 +708,7 @@ def _dense_filter_launch(
     fn = library("dense_filter").dense_filter_launch
     fn.restype = ctypes.c_int
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 13 + [ci] * 6 + [vp] * 7 + [vp]
+    fn.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 13 + [ci] * 6 + [vp] * 8 + [vp]
     rc = fn(
         _ptr(alive), _ptr(capacity), _ptr(has_summary), _ptr(taint_key),
         _ptr(taint_value), _ptr(taint_effect), _ptr(api_ok),
@@ -656,7 +718,7 @@ def _dense_filter_launch(
         _ptr(prev_rep), _ptr(evict_idx), _ptr(seeds), _ptr(req_unique),
         _ptr(req_idx),
         B, Kt, Kp, Ke, plugin_bits, 1 if extra_avail is not None else 0,
-        _ptr(extra_avail), _ptr(feasible), _ptr(score), _ptr(avail), _ptr(prev),
+        _ptr(extra_avail), _ptr(extra_mask), _ptr(feasible), _ptr(score), _ptr(avail), _ptr(prev),
         _ptr(tie), _ptr(feas_count), _stream(dev),
     )
     _raise_on(rc, "dense_filter")
@@ -1041,8 +1103,128 @@ def _combo_select_launch(weight, value, kmax_row, rname, members_pad, sizes, *,
 
 combo_select.launches = 0
 
+
+def tier_estimate(capacity, has_summary, req_unique, req_idx, replicas, unknown_request, rows,
+                  *, out=None, cand_idx=None):
+    """The estimate over a tier's rows at `capacity` (see
+    tier_estimate_plain): rows mode writes `out` in place, window mode
+    returns a new [n, K]."""
+    if (out is None) == (cand_idx is None):
+        raise ValueError("tier_estimate: pass exactly one of out (rows mode) and cand_idx")
+    args = (capacity, has_summary, req_unique, req_idx, replicas, unknown_request, rows)
+    dev = capacity.device
+    if dev.type == "cpu":
+        return tier_estimate_plain(*args, out=out, cand_idx=cand_idx)
+    if dev.type != "cuda":
+        raise ValueError(f"tier_estimate: unsupported device {dev}")
+    res = _tier_estimate_launch(*args, out=out, cand_idx=cand_idx)
+    tier_estimate.launches += 1
+    return res
+
+
+def _tier_estimate_launch(capacity, has_summary, req_unique, req_idx, replicas,
+                          unknown_request, rows, *, out=None, cand_idx=None):
+    """Check, allocate and launch the tier-estimate kernel of its mode. Row
+    ids must lie in [0, B) and candidate columns in [0, C)."""
+    dev = capacity.device
+    C, R = capacity.shape
+    U = req_unique.shape[0]
+    B, n = req_idx.shape[0], rows.shape[0]
+    for name, t, dt, shape in (
+        ("capacity", capacity, I64, (C, R)), ("has_summary", has_summary, BOOL, (C,)),
+        ("req_unique", req_unique, I64, (U, R)), ("req_idx", req_idx, I32, (B,)),
+        ("replicas", replicas, I32, (B,)), ("unknown_request", unknown_request, BOOL, (B,)),
+        ("rows", rows, I32, (n,)),
+    ):
+        _check(name, t, dt, shape, dev)
+    K = 0
+    if cand_idx is None:
+        _check("out", out, I32, (B, C), dev)
+        res = out
+    else:
+        K = cand_idx.shape[1]
+        _check("cand_idx", cand_idx, I32, (B, K), dev)
+        res = torch.empty((n, K), dtype=I32, device=dev)
+    if n == 0 or C == 0 or (cand_idx is not None and K == 0):
+        return res
+    from .build import library
+
+    fn = library("tiers").tier_estimate_launch
+    fn.restype = ctypes.c_int
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, ci, ci] + [vp] * 5 + [ci, vp, ci, vp, vp]
+    rc = fn(
+        _ptr(capacity), _ptr(has_summary), C, R, _ptr(replicas), _ptr(unknown_request),
+        _ptr(req_unique), _ptr(req_idx), _ptr(rows), n, _ptr(cand_idx), K, _ptr(res),
+        _stream(dev),
+    )
+    _raise_on(rc, "tier_estimate")
+    return res
+
+
+tier_estimate.launches = 0
+
+
+def tier_consume(cap, placed, unsched, request, rows, *, cand_idx=None):
+    """The capacity a tier leaves to the next (see tier_consume_plain)."""
+    args = (cap, placed, unsched, request, rows)
+    dev = cap.device
+    if dev.type == "cpu":
+        return tier_consume_plain(*args, cand_idx=cand_idx)
+    if dev.type != "cuda":
+        raise ValueError(f"tier_consume: unsupported device {dev}")
+    out = _tier_consume_launch(*args, cand_idx=cand_idx)
+    tier_consume.launches += 1
+    return out
+
+
+def _tier_consume_launch(cap, placed, unsched, request, rows, *, cand_idx=None):
+    """Check, allocate and launch the tier-consume kernels of its mode (the
+    sum, then the clamp). Row ids must lie in [0, B) and candidate columns
+    in [0, C)."""
+    dev = cap.device
+    C, R = cap.shape
+    n = placed.shape[0]
+    B = request.shape[0]
+    for name, t, dt, shape in (
+        ("cap", cap, I64, (C, R)), ("unsched", unsched, BOOL, (n,)),
+        ("request", request, I64, (B, R)), ("rows", rows, I32, (n,)),
+    ):
+        _check(name, t, dt, shape, dev)
+    K = 0
+    if cand_idx is None:
+        _check("placed", placed, I32, (n, C), dev)
+    else:
+        K = cand_idx.shape[1]
+        _check("cand_idx", cand_idx, I32, (B, K), dev)
+        _check("placed", placed, I32, (n, K), dev)
+    if not 0 < R <= MAX_TIER_RESOURCES:
+        raise NotImplementedError(
+            f"tier_consume: {R} resources outside (0, {MAX_TIER_RESOURCES}] (a thread keeps "
+            "one int64 sum per resource)"
+        )
+    out = torch.empty((C, R), dtype=I64, device=dev)
+    if C == 0:
+        return out
+    cons = torch.zeros((C, R), dtype=I64, device=dev)
+    from .build import library
+
+    fn = library("tiers").tier_consume_launch
+    fn.restype = ctypes.c_int
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, ci, ci] + [vp] * 4 + [ci, vp, ci, vp, vp, vp]
+    rc = fn(
+        _ptr(cap), C, R, _ptr(placed), _ptr(unsched), _ptr(request), _ptr(rows), n,
+        _ptr(cand_idx), K, _ptr(cons), _ptr(out), _stream(dev),
+    )
+    _raise_on(rc, "tier_consume")
+    return out
+
+
+tier_consume.launches = 0
+
 KERNELS = (candidate_select, candidate_tail, dense_filter, dense_tail, pack_rows, feas_idx,
-           group_score, packed_selection, spread_tail, combo_select)
+           group_score, packed_selection, spread_tail, combo_select, tier_estimate, tier_consume)
 
 
 def reset_launches() -> None:

@@ -9,8 +9,12 @@
 // its min-merge with a registered-estimator answer, the previous replicas
 // (the row's prev list scattered, last entry wins, ids outside [0, C)
 // dropped), and the splitmix64 tie over the global cluster id; plus the
-// row's feasible count. The per-column code is filter_common.cuh, shared
-// with candidate_select.cu.
+// row's feasible count. An optional per-row mask (bool [B, C], the
+// reference's `extra_mask` of filter_phase,
+// karmada_tpu/sched/core.py:178-179: the spread
+// selection of a per-row re-solve when the ClusterAffinity plugin is off)
+// is ANDed into the feasibility before the count. The per-column code is
+// filter_common.cuh, shared with candidate_select.cu.
 //
 // What bounds it on an H100: it is elementwise and writes four i32 and one
 // bool [B, C] tensors, 17 bytes per element (about 0.9 GB at 10240 x 5120),
@@ -48,7 +52,7 @@ struct DenseOut {
 };
 
 __global__ void __launch_bounds__(kThreads)
-dense_filter_kernel(FilterArgs p, DenseOut o) {
+dense_filter_kernel(FilterArgs p, DenseOut o, const uint8_t* extra_mask) {
   extern __shared__ int32_t lists[];
   int32_t* tol = lists;              // [4*Kt]
   int32_t* pidx = tol + 4 * p.Kt;    // [Kp]
@@ -66,12 +70,13 @@ dense_filter_kernel(FilterArgs p, DenseOut o) {
   unsigned int local = 0;
   for (int c = threadIdx.x; c < p.C; c += blockDim.x) {
     const ColEval e = filter_common::eval_col(p, b, c, tol, pidx, prep, ev);
-    o.feasible[row + c] = e.feasible ? 1 : 0;
+    const bool feasible = e.feasible && (extra_mask == nullptr || extra_mask[row + c] != 0);
+    o.feasible[row + c] = feasible ? 1 : 0;
     o.score[row + c] = e.score;
     o.avail[row + c] = filter_common::estimate(p, b, c);
     o.prev[row + c] = e.prev;
     o.tie[row + c] = filter_common::tie_value(seed, c);
-    local += e.feasible ? 1u : 0u;
+    local += feasible ? 1u : 0u;
   }
   atomicAdd(&count, local);
   __syncthreads();
@@ -89,7 +94,7 @@ extern "C" int dense_filter_launch(
     const void* aff_idx, const void* prev_idx, const void* prev_rep,
     const void* evict_idx, const void* seeds, const void* req_unique,
     const void* req_idx, int B, int Kt, int Kp, int Ke, int plugin_bits,
-    int has_extra, const void* extra_avail, void* feasible, void* score,
+    int has_extra, const void* extra_avail, const void* extra_mask, void* feasible, void* score,
     void* avail, void* prev, void* tie, void* feas_count, void* stream) {
   if (B <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
   const FilterArgs p = filter_common::make_filter_args(
@@ -110,6 +115,7 @@ extern "C" int dense_filter_launch(
         dense_filter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  dense_filter_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p, o);
+  dense_filter_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      p, o, static_cast<const uint8_t*>(extra_mask));
   return (int)cudaGetLastError();
 }

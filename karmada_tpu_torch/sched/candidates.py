@@ -22,6 +22,10 @@ feasible set fits its window selects on the host over the window
 over the selection; a wider row needs the whole fleet and re-solves through
 the dense round. Rounds with a `dense_reason` run the dense round of
 sched/core.py instead.
+
+The compact tiered launch of sched/preemption.py (`tiered_k`,
+`launch_tiered_compact`) selects candidates once and runs each priority
+tier's estimate, tail and capacity consumption over the same windows.
 """
 from __future__ import annotations
 
@@ -425,3 +429,68 @@ def _spread_over_candidates(
         )
         out.update(zip(wide, sub_dec))
     return out
+
+
+# --------------------------------------------------------------------------
+# the compact tiered launch (sched/preemption.py routes here)
+# --------------------------------------------------------------------------
+
+
+def tiered_k(array, raw, n_cols: int) -> int:
+    """Effective window for a tiered or speculative batch, or 0 for dense:
+    the width gate plus a Duplicated-row exclusion (a Duplicated row's
+    target set IS its feasible set, which a window would truncate; the
+    tiered launch has no packed-mask side channel)."""
+    if not compact_width_ok(array):
+        return 0
+    if bool((np.asarray(raw.strategy) == DUPLICATED).any()):
+        return 0
+    return effective_k(array, raw, n_cols)
+
+
+def launch_tiered_compact(array, t, tier_rows, capacity, request, reclaim, spec_tiers, *,
+                          k: int, topk: int, has_agg: bool):
+    """The compact tiered launch (the reference's `_tiered_candidate_kernel`,
+    B12): candidate_select once (feasibility and score do not depend on
+    capacity; its c_avail is tier 0's estimate), then per tier
+    tier_estimate over the tier's rows' windows, candidate_tail over those
+    rows, and tier_consume scattering the placements through cand_idx.
+    Output windows are min(k, topk) wide. Returns (feas_count, main
+    outputs, speculative outputs, cand_idx)."""
+    from .preemption import run_tiers
+
+    f = array._fleet_dev
+    (cand_idx, c_feas, _c_score, c_avail, c_prev, c_tie, feas_count,
+     _packed) = kernels.candidate_select(
+        f["alive"], capacity, f["has_summary"], f["taint_key"],
+        f["taint_value"], f["taint_effect"], f["api_ok"],
+        t["replicas"], t["unknown_request"], t["gvk"],
+        t["tol_tables"], t["tol_idx"], t["aff_masks"], t["aff_idx"],
+        t["prev_idx"], t["prev_rep"], t["evict_idx"], t["seeds"],
+        t["req_unique"], t["req_idx"], None,
+        k=k, plugin_bits=array._plugin_bits,
+    )
+
+    def estimate(cap, rows, rows64, first):
+        if first:
+            return c_avail.index_select(0, rows64)
+        return kernels.tier_estimate(cap, f["has_summary"], t["req_unique"], t["req_idx"],
+                                     t["replicas"], t["unknown_request"], rows,
+                                     cand_idx=cand_idx)
+
+    def tail(av, _rows, rows64):
+        def g(x):
+            return x.index_select(0, rows64)
+
+        return kernels.candidate_tail(
+            g(c_feas), av, g(c_prev), g(c_tie), g(cand_idx), t["weight_tables"],
+            g(t["weight_idx"]), g(t["strategy"]), g(t["replicas"]), g(t["fresh"]),
+            topk=topk, has_agg=has_agg,
+        )
+
+    def consume(cap, outs, rows):
+        return kernels.tier_consume(cap, outs[0], outs[1], request, rows, cand_idx=cand_idx)
+
+    main, aug = run_tiers(tier_rows, len(t["replicas"]), capacity, reclaim, spec_tiers,
+                          estimate, tail, consume)
+    return feas_count, main, aug, cand_idx

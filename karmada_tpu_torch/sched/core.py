@@ -23,9 +23,11 @@ the division re-run over the selection; rows the batched path cannot take
 wide divided rows) select per row and re-solve restricted to their
 selection.
 
-Tiers, the mesh, registered estimators and the incremental replay are later
-slices; the paths that would reach them raise NotImplementedError instead
-of running anything else.
+Priority tiers and preemption (sched/preemption.py) ride the same seam:
+`launch_tiered` then `materialize_chunk`. The mesh, registered estimators,
+the daemon's chunk launch and the incremental replay are later slices; the
+paths that would reach them raise NotImplementedError instead of running
+anything else.
 """
 from __future__ import annotations
 
@@ -85,7 +87,7 @@ class ScheduleDecision:
     before anything consumes them. Consumers see plain lists via the
     `targets`/`feasible` properties; assigning a list works too."""
 
-    __slots__ = ("key", "error", "affinity_name",
+    __slots__ = ("key", "error", "affinity_name", "speculative",
                  "_targets", "_targets_src", "_feasible", "_feasible_src")
 
     def __init__(self, key: str, targets=None, error: str = "",
@@ -93,6 +95,10 @@ class ScheduleDecision:
         self.key = key
         self.error = error  # non-empty ⇒ unschedulable / fit error
         self.affinity_name = affinity_name  # applied ordered-affinity term
+        # the victim-augmented decision of a tiered launch's speculative
+        # pass (sched/preemption.py): a short placement's preemption plan
+        # reads it instead of paying a second launch
+        self.speculative: Optional[ScheduleDecision] = None
         self._targets = targets
         self._targets_src = None
         self._feasible = feasible
@@ -460,6 +466,9 @@ class ArrayScheduler:
         self.max_bc_elems = resolve_max_bc_elems()
         self.candidate_k = resolve_candidate_k(candidate_k)
         self.last_candidate_stats: dict = {}
+        # out-of-tree plugins: the port has none (registering one raises),
+        # and the tier routing reads this as the reference does
+        self._oot_plugins: list = []
         self.set_clusters(clusters)
 
     def set_clusters(self, clusters: Sequence) -> None:
@@ -539,6 +548,20 @@ class ArrayScheduler:
         for s in range(0, len(bindings), max_rows):
             out += self._materialize_solve(self._launch_solve(bindings[s:s + max_rows]))
         return out
+
+    def materialize_chunk(self, pending: dict) -> list[ScheduleDecision]:
+        """Sync + decode a launched chunk. Only the tiered launch
+        (sched/preemption.py launch_tiered, the "tiered" marker) exists in
+        the port; the daemon's own chunk launch and replay cache are a
+        later slice."""
+        if pending.get("tiered"):
+            from .preemption import materialize_tiered
+
+            return materialize_tiered(self, pending)
+        raise NotImplementedError(
+            "materialize_chunk of a non-tiered chunk: launch_chunk and the replay "
+            "cache are not ported yet (the daemon slice of the PyTorch port)"
+        )
 
     @staticmethod
     def _affinity_terms_of(rb):
@@ -1069,19 +1092,20 @@ class ArrayScheduler:
             sel_masks.append(mask)
         if not live_rows:
             return
-        if not self._plugin_bits & plugin_mod.BIT_AFFINITY:
-            # the selection rides the affinity table, which the filter
-            # ignores without ClusterAffinity; the reference's extra_mask
-            # channel for that case is not ported yet
-            raise NotImplementedError(
-                f"{len(live_rows)} spread row(s) need the per-row re-solve with the "
-                "ClusterAffinity plugin disabled; its extra_mask channel is not ported "
-                "yet (the spread slice of the PyTorch port)"
-            )
-        aff_rows = raw.aff_masks[raw.aff_idx[np.asarray(live_rows)]] & np.stack(sel_masks)
+        aff_rows = raw.aff_masks[raw.aff_idx[np.asarray(live_rows)]]
+        sel = np.stack(sel_masks)
+        extra_mask = None
+        if self._plugin_bits & plugin_mod.BIT_AFFINITY:
+            aff_rows = aff_rows & sel
+        else:
+            # the filter ignores the affinity table without ClusterAffinity,
+            # so the selection (a SelectClusters restriction, not an
+            # affinity term) rides the extra_mask channel, as in the
+            # reference
+            extra_mask = sel
         s_feas, s_result, s_unsched, s_avail_sum = (
             x.cpu().numpy()[: len(live_rows)]
-            for x in self.run_kernel(_restrict_rows(raw, live_rows, aff_rows))
+            for x in self.run_kernel(_restrict_rows(raw, live_rows, aff_rows), extra_mask)
         )
         for j, b in enumerate(live_rows):
             fidx = np.nonzero(s_feas[j])[0]
@@ -1096,17 +1120,23 @@ class ArrayScheduler:
             unsched[b] = bool(s_unsched[j])
             avail_sum[b] = int(s_avail_sum[j])
 
-    def run_kernel(self, batch: BindingBatch):
+    def run_kernel(self, batch: BindingBatch, extra_mask: Optional[np.ndarray] = None):
         """The full solve of a (sub-)batch, as the reference's
         `_schedule_kernel_compact`: the dense filter over its rows, then the
-        dense tail over all of them (it places Duplicated rows too). Returns
-        the device (feasible, result, unschedulable, avail_sum), rows padded
-        to the bucket."""
+        dense tail over all of them (it places Duplicated rows too).
+        `extra_mask` (bool[rows, C], or None) is ANDed into each row's
+        feasibility; pad rows keep theirs. Returns the device (feasible,
+        result, unschedulable, avail_sum), rows padded to the bucket."""
         from .. import kernels
         from ..convert import batch_from_numpy
 
         padded = self._pad(batch)
         t = batch_from_numpy({name: getattr(padded, name) for name in _BATCH_FIELDS}, self.device)
+        mask_dev = None
+        if extra_mask is not None:
+            full = np.ones((len(padded.replicas), extra_mask.shape[1]), bool)
+            full[: len(extra_mask)] = extra_mask
+            mask_dev = to_device(full, self.device)
         f = self._fleet_dev
         feas, _score, avail, prev, tie, _fc = kernels.dense_filter(
             f["alive"], f["capacity"], f["has_summary"], f["taint_key"],
@@ -1115,7 +1145,7 @@ class ArrayScheduler:
             t["tol_tables"], t["tol_idx"], t["aff_masks"], t["aff_idx"],
             t["prev_idx"], t["prev_rep"], t["evict_idx"], t["seeds"],
             t["req_unique"], t["req_idx"], None,
-            plugin_bits=self._plugin_bits,
+            plugin_bits=self._plugin_bits, extra_mask=mask_dev,
         )
         rows = torch.arange(len(padded.replicas), dtype=I32, device=self.device)
         result, unsched, avail_sum, *_ = kernels.dense_tail(

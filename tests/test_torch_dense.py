@@ -43,7 +43,7 @@ def _encode_both(n_clusters=96, n_bindings=128):
     return ref, port, jb, tb
 
 
-def _port_filter(port, tb, extra=None):
+def _port_filter(port, tb, extra=None, mask=None):
     f = port._fleet_dev
     t = batch_from_numpy({n: getattr(tb, n) for n in BATCH_FIELDS}, "cpu")
     return kernels.dense_filter_plain(
@@ -53,6 +53,7 @@ def _port_filter(port, tb, extra=None):
         t["seeds"], t["req_unique"], t["req_idx"],
         None if extra is None else torch.from_numpy(extra),
         plugin_bits=port._plugin_bits,
+        extra_mask=None if mask is None else torch.from_numpy(mask),
     ), t
 
 
@@ -73,6 +74,27 @@ def test_dense_filter_plain_matches_filter_kernel_compact(with_extra):
     if with_extra:  # the min-merge changed some answers
         assert (_n(got[2]) != np.asarray(jcore._filter_kernel_compact(
             *ref.filter_kernel_args(jb), plugin_bits=ref._plugin_bits)[2])).any()
+
+
+@pytest.mark.parametrize("plugins", [None, ["*", "-ClusterAffinity"]])
+def test_dense_filter_plain_extra_mask_matches_filter_kernel_compact(plugins):
+    """The per-row extra_mask channel (the spread selection of a per-row
+    re-solve) ANDed into feasible after the plugin filters and before the
+    count, as the reference's filter_phase does, with and without the
+    ClusterAffinity plugin."""
+    ref, port, jb, tb = _encode_both()
+    if plugins:
+        ref = jcore.ArrayScheduler(ref.clusters, candidate_k=0, plugins=plugins)
+        port = TorchScheduler(port.clusters, candidate_k=0, plugins=plugins, device="cpu")
+    B, C = len(jb.replicas), len(ref.fleet.names)
+    mask = np.random.default_rng(1).random((B, C)) < 0.5
+    want = jcore._filter_kernel_compact(
+        *ref.filter_kernel_args(jb, None, mask), plugin_bits=ref._plugin_bits,
+    )
+    got, _ = _port_filter(port, tb, None, mask)
+    for name, a, b in zip(FILTER_OUT, got, want):
+        np.testing.assert_array_equal(_n(a), np.asarray(b), err_msg=name)
+    assert (_n(got[5]) < _n(_port_filter(port, tb)[0][5])).any()  # the mask bit
 
 
 def _tie_heavy_tail_inputs(rng, B, C):
@@ -272,19 +294,23 @@ def test_dense_round_chunks_match_one_round(monkeypatch):
 
 
 def test_dense_round_raises_on_unported_paths():
-    """Spread rows that need the per-row re-solve without the
-    ClusterAffinity plugin, registered-estimator answers and out-of-tree
-    plugins still raise on a dense round, naming their slice."""
+    """Registered-estimator answers and out-of-tree plugins still raise on
+    a dense round, naming their slice; a spread row that needs the per-row
+    re-solve without the ClusterAffinity plugin (which raised until the
+    extra_mask channel was ported) now decides as the JAX package."""
     clusters, bindings = flagship_mix(n_bindings=8)
+    plugins = ["*", "-ClusterAffinity"]
     port = TorchScheduler(from_reference_objects(clusters), candidate_k=0, device="cpu",
-                          plugins=["*", "-ClusterAffinity"])
-    rb = from_reference_objects(bindings[2])
-    rb.spec.placement.spread_constraints = [
-        from_reference_objects(jpol.SpreadConstraint(spread_by_field="cluster", min_groups=2))
+                          plugins=plugins)
+    ref_rb = bindings[2]
+    ref_rb.spec.placement.spread_constraints = [
+        jpol.SpreadConstraint(spread_by_field="cluster", min_groups=2)
     ]
+    rb = from_reference_objects(ref_rb)
     assert dense_reason(port, [rb]) == "disabled"
-    with pytest.raises(NotImplementedError, match="spread"):
-        port.schedule([rb])
+    want = jcore.ArrayScheduler(clusters, candidate_k=0, plugins=plugins).schedule([ref_rb])
+    assert [_decision_view(d) for d in port.schedule([rb])] == [
+        _decision_view(d) for d in want]
     with pytest.raises(NotImplementedError, match="estimator"):
         port.schedule(from_reference_objects(bindings), extra_avail=np.zeros((8, 96), np.int32))
     with pytest.raises(NotImplementedError, match="out-of-tree"):

@@ -175,19 +175,23 @@ def test_serial_row_chunks_match_one_round(monkeypatch):
 
 
 def test_spread_row_raises():
-    """The one spread path the port still lacks: a row whose feasible set
-    outruns the window re-solves dense, and its per-row re-solve needs the
-    ClusterAffinity plugin (the reference's extra_mask channel is not
-    ported)."""
+    """A cluster-only spread row whose feasible set outruns the window
+    re-solves dense, and with the ClusterAffinity plugin disabled its
+    per-row re-solve carries the selection on the extra_mask channel: the
+    port decides it as the JAX package does (it raised before that channel
+    was ported)."""
     clusters, bindings = flagship_mix(n_bindings=8)
-    rb = from_reference_objects(bindings[2])
+    rb = bindings[2]
     rb.spec.placement.spread_constraints = [
-        from_reference_objects(jpol.SpreadConstraint(spread_by_field="cluster", min_groups=2))
+        jpol.SpreadConstraint(spread_by_field="cluster", min_groups=2)
     ]
+    plugins = ["*", "-ClusterAffinity"]
+    want = jcore.ArrayScheduler(clusters, candidate_k=16, plugins=plugins).schedule([rb])
     port = TorchScheduler(from_reference_objects(clusters), candidate_k=16, device="cpu",
-                          plugins=["*", "-ClusterAffinity"])
-    with pytest.raises(NotImplementedError, match="spread"):
-        port.schedule([rb])
+                          plugins=plugins)
+    got = port.schedule(from_reference_objects([rb]))
+    assert [_decision_view(d) for d in got] == [_decision_view(d) for d in want]
+    assert got[0].ok
 
 
 def test_extra_avail_raises():

@@ -332,13 +332,56 @@ def test_spread_round_matches_jax(case, monkeypatch):
 
 
 def test_fallback_without_cluster_affinity_raises():
-    """A per-row re-solve needs the selection in the affinity table, which
-    the filter ignores without ClusterAffinity: the port names its gap."""
+    """A per-row re-solve with the ClusterAffinity plugin disabled carries
+    its selection on the extra_mask channel, since the filter ignores the
+    affinity table (the port raised here until that channel was ported):
+    the decision is the JAX package's."""
     clusters = synthetic_fleet(40, seed=6)
     p = jpol.Placement(cluster_affinity=jpol.ClusterAffinity(cluster_names=[]))
     p.spread_constraints = [jpol.SpreadConstraint(
         spread_by_field=jpol.SPREAD_BY_FIELD_CLUSTER, min_groups=2, max_groups=3)]
+    plugins = ["*", "-ClusterAffinity"]
+    rb = _binding(0, 4, p, 0.1)
+    want = jcore.ArrayScheduler(clusters, candidate_k=0, plugins=plugins).schedule([rb])
     port = TorchScheduler(from_reference_objects(clusters), candidate_k=0,
-                          plugins=["*", "-ClusterAffinity"], device="cpu")
-    with pytest.raises(NotImplementedError, match="ClusterAffinity"):
-        port.schedule(from_reference_objects([_binding(0, 4, p, 0.1)]))
+                          plugins=plugins, device="cpu")
+    got = port.schedule(from_reference_objects([rb]))
+    assert [_decision_view(d) for d in got] == [_decision_view(d) for d in want]
+    assert got[0].ok and 2 <= len(got[0].targets) <= 3
+
+
+@pytest.mark.parametrize("candidate_k", [0, 16])
+def test_per_row_resolve_without_cluster_affinity_matches_jax(candidate_k, monkeypatch):
+    """The extra_mask repair over a mixed batch: cluster-only spread rows
+    (Duplicated, divided, Aggregated, capped and uncapped), whose per-row
+    re-solve runs with the ClusterAffinity plugin disabled, among plain
+    rows, in the dense round and through the compact round's dense
+    re-solve of wide rows — decision for decision against the JAX
+    ArrayScheduler, and the re-solve's dense_filter took the mask."""
+    clusters = synthetic_fleet(80, seed=7, ready_fraction=0.9)
+    rng = np.random.default_rng(7)
+    bindings = []
+    for i in range(24):
+        p = _dyn(aggregated=i % 3 == 1) if i % 3 else jpol.Placement(
+            cluster_affinity=jpol.ClusterAffinity(cluster_names=[]))
+        if i % 2 == 0:
+            p.spread_constraints = [jpol.SpreadConstraint(
+                spread_by_field=jpol.SPREAD_BY_FIELD_CLUSTER, min_groups=int(rng.integers(1, 4)),
+                max_groups=int(rng.integers(4, 9)) if i % 4 == 0 else 0)]
+        bindings.append(_binding(i, int(rng.integers(1, 30)), p, float(rng.choice([0.1, 0.5]))))
+    plugins = ["*", "-ClusterAffinity"]
+    masks = []
+    filt = kernels.dense_filter
+
+    def spy(*a, **kw):
+        masks.append(kw.get("extra_mask") is not None)
+        return filt(*a, **kw)
+
+    want = jcore.ArrayScheduler(clusters, candidate_k=candidate_k, plugins=plugins).schedule(
+        bindings)
+    port = TorchScheduler(from_reference_objects(clusters), candidate_k=candidate_k,
+                          plugins=plugins, device="cpu")
+    monkeypatch.setattr(kernels, "dense_filter", spy)
+    got = port.schedule(from_reference_objects(bindings))
+    assert [_decision_view(d) for d in got] == [_decision_view(d) for d in want]
+    assert any(masks) and sum(d.ok for d in got) > 12
