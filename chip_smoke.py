@@ -26,7 +26,16 @@ result line otherwise. Phases, each of which raises on failure:
    bound and, for feas_idx and tier_consume, the time of the one torch
    call that computes the same function — the spread kernels' per round
    of config 4 (of the drain cell for combo_select), the tier kernels'
-   per round of tiers_dense (`--kernels-only` stops here);
+   per round of tiers_dense; candidate_select, dense_filter and
+   tier_estimate also with a random registered-estimator answer matrix
+   (extra_avail) on the flagship batches; fleet_estimate on seeded node
+   fleets (overcommitted nodes, zero requests, exhausted pod slots,
+   tainted nodes, node-less clusters; in cluster order and shuffled), on config 3's and the flagship's
+   node fleets (shard_nodes pools) with their rows and on the reference
+   estimator fixture (5 000 nodes, 100 000 pods) as one cluster, timed at
+   the flagship sweep; staleness_penalty on a random i32 [10 000, 5 000]
+   matrix at ages 0-10, with torch.where as its library call
+   (`--kernels-only` stops here);
 4. the main paths through ArrayScheduler.schedule() on the card, each with
    every launch count set to 0 just before it and read just after, timed
    rounds with p50/p90/p99, and decisions held against the port's CPU
@@ -54,7 +63,18 @@ result line otherwise. Phases, each of which raises on failure:
    from a tier-blind schedule(); and preempt_plan (256 preemptors at two
    priorities over that fleet tightened to 0.25 cpu free per cluster:
    plan_preemption, two launches a round, plans and one
-   preview_preemption held against the CPU);
+   preview_preemption held against the CPU); then the estimator cells,
+   the timed round being the registry's sweep plus the round given its
+   answers: config3 (BASELINE config 3, bench.py build_dynamic: 1 000
+   clusters x 1 000 dynamic bindings, in-process member estimators over
+   shard_nodes pools, 110 rounds), estimator_flagship (the compact
+   flagship with member estimators on all 5 000 clusters), degraded
+   (bench.py build_degraded: a breaker open every other round, the
+   staleness overlay feeding the round, launch parity between the legs)
+   and tiers_estimator (the tiers_compact batch with answers through
+   launch_tiered, a speculative pass in every tier), 20 rounds each;
+   answer matrices held against the per-cluster host path, decisions
+   against the CPU round given the same answers;
 5. the `kernels` JSON line, then the card's name and power limit, then the
    last line {"ok": true, "device": {...}}.
 """
@@ -71,9 +91,9 @@ import time
 import numpy as np
 import torch
 
-from karmada_tpu_torch import kernels
+from karmada_tpu_torch import faults, kernels
 from karmada_tpu_torch.api import policy as pol
-from karmada_tpu_torch.api.meta import CPU, ObjectMeta, new_uid
+from karmada_tpu_torch.api.meta import CPU, MEMORY, ObjectMeta, new_uid
 from karmada_tpu_torch.api.work import (
     BindingSpec,
     GracefulEvictionTask,
@@ -83,6 +103,9 @@ from karmada_tpu_torch.api.work import (
     TargetCluster,
 )
 from karmada_tpu_torch.convert import batch_from_numpy
+from karmada_tpu_torch.estimator.accurate import AccurateEstimator
+from karmada_tpu_torch.estimator.client import EstimatorRegistry, MemberEstimators
+from karmada_tpu_torch.faults import BreakerRegistry
 from karmada_tpu_torch.kernels import build
 from karmada_tpu_torch.models.batch import (
     AGGREGATED,
@@ -92,6 +115,7 @@ from karmada_tpu_torch.models.batch import (
     shape_bucket,
     strategy_code,
 )
+from karmada_tpu_torch.models.nodes import NodeEncoder
 from karmada_tpu_torch.sched.candidates import DENSE_SOLVE_ANNOTATION, effective_k
 from karmada_tpu_torch.sched import preemption, spread_batch
 from karmada_tpu_torch.sched.core import (
@@ -101,7 +125,9 @@ from karmada_tpu_torch.sched.core import (
     _sorted_pairs,
 )
 from karmada_tpu_torch.testing.fixtures import (
+    build_estimator,
     duplicated_placement,
+    shard_nodes,
     static_weight_placement,
     synthetic_fleet,
 )
@@ -124,6 +150,15 @@ SPREAD_REPS = 512  # representative rows of the random group_score check
 COMBO_ROWS = 4096  # rows of the combo_select check (its device gate)
 WIDE_C = 16384  # the dense tail's and group_score's width check
 TIER_ROUNDS = 20  # timed rounds of each tier cell
+CONFIG3_CLUSTERS = 1000  # BASELINE config 3: 1k clusters x 1k bindings
+CONFIG3_BINDINGS = 1000
+CONFIG3_ROUNDS = 110
+ESTIMATOR_ROUNDS = 20  # timed rounds of estimator_flagship, degraded and tiers_estimator
+DEGRADED_CLUSTERS = 500
+DEGRADED_BINDINGS = 1000
+ESTIMATOR_FIXTURE = (5000, 100_000)  # server_test.go's 5 000 nodes / 100 000 pods
+STALENESS_SHAPE = (10_000, 5_000)
+PLAIN_ESTIMATE_ROWS = 256  # row chunk of the plain fleet estimate on the card
 TIER_PRIORITIES = (0, 1000, 100000, 1000000)
 PREEMPTORS = 256
 PREEMPT_FREE_CPU = 0.25  # bench.py run_preempt's preempt leg: 0.25 cpu free per cluster
@@ -427,21 +462,25 @@ def build_preempt(seed=0, n_clusters=N_CLUSTERS, n_bindings=N_BINDINGS,
     return sorted(clusters, key=lambda c: c.name), placed, preemptors
 
 
-def tier_round(sched, bindings, placed):
-    """One tiered round as the daemon runs a serial chunk: launch_tiered,
-    then materialize_chunk."""
-    return sched.materialize_chunk(preemption.launch_tiered(sched, bindings, placed=placed))
+def tier_round(sched, bindings, placed, extra=None):
+    """One tiered round as the daemon runs a serial chunk: launch_tiered
+    (with the estimator answers `extra`, or none), then
+    materialize_chunk."""
+    return sched.materialize_chunk(
+        preemption.launch_tiered(sched, bindings, extra_avail=extra, placed=placed))
 
 
-def tier_expect(sched, bindings, placed, compact: bool) -> dict:
+def tier_expect(sched, bindings, placed, compact: bool, has_extra: bool = False) -> dict:
     """Exact launches of one tiered round: the filter (dense) or select
     (compact) once; a tail per tier and per speculative pass (the tiers
-    whose reclaim is non-zero); an estimate per tier after the first and
-    per speculative pass; a consumption between tiers."""
+    whose reclaim is non-zero, or every tier when estimator answers are
+    present: the pass leaves them out); an estimate per tier after the
+    first and per speculative pass; a consumption between tiers."""
     reclaim, _armed = preemption._tier_reclaim(sched, bindings, placed)
     tier_of, _ = preemption._tier_assignment(bindings)
     n_tiers = int(tier_of.max()) + 1
-    spec = 0 if reclaim is None else int(reclaim.reshape(len(reclaim), -1).any(1).sum())
+    spec = 0 if reclaim is None else (
+        n_tiers if has_extra else int(reclaim.reshape(len(reclaim), -1).any(1).sum()))
     first, tail = ("candidate_select", "candidate_tail") if compact else (
         "dense_filter", "dense_tail")
     return {first: 1, tail: n_tiers + spec, "tier_estimate": n_tiers - 1 + spec,
@@ -450,6 +489,94 @@ def tier_expect(sched, bindings, placed, compact: bool) -> dict:
 
 # the tier cells of phase 4: (name, build_tiers' duplicated flag, compact)
 TIER_CELLS = (("tiers_dense", True, False), ("tiers_compact", False, True))
+
+
+# --------------------------------------------------------------------------
+# the estimator path (BASELINE config 3 and the degraded mode)
+# --------------------------------------------------------------------------
+
+
+class Member:
+    """A member cluster as MemberEstimators reads it: its node estimator."""
+
+    def __init__(self, node_estimator):
+        self.node_estimator = node_estimator
+
+
+def estimator_members(names, seed=0):
+    """In-process member estimators over shard_nodes pools (bench.py
+    _shard_nodes' crc32-seeded draws), one per cluster name."""
+    return {n: Member(AccurateEstimator(shard_nodes(seed, n))) for n in names}
+
+
+def build_dynamic(seed=0, n_clusters=CONFIG3_CLUSTERS, n_bindings=CONFIG3_BINDINGS):
+    """BASELINE config 3 (bench.py:216 build_dynamic, the same draws):
+    Divided dynamic split, half Aggregated and half dynamic-weight, 1-63
+    replicas of 0.25/0.5/1 cpu, over 1 000 synthetic_fleet clusters whose
+    answers come from member estimators over shard_nodes pools (the
+    reference's MemberEstimators route in place of its gRPC daemon).
+    Returns (clusters, bindings)."""
+    rng = np.random.default_rng(seed)
+    clusters = synthetic_fleet(n_clusters, seed=seed)
+    cpus = [0.25, 0.5, 1.0]
+    bindings = [
+        _binding(i, int(rng.integers(1, 64)), _dyn_placement(aggregated=(i % 2 == 0)),
+                 float(rng.choice(cpus)))
+        for i in range(n_bindings)
+    ]
+    return clusters, bindings
+
+
+class RowsEstimator:
+    """bench.py build_degraded's stand-in for the member daemons: seeded
+    per-(row, cluster) answers in [1, 1000), one matrix per shape."""
+
+    def __init__(self, seed):
+        self._rng = np.random.default_rng(seed)
+        self._cache = {}
+
+    def max_available_replicas_rows(self, clusters, reqs):
+        key = (len(clusters), len(reqs))
+        if key not in self._cache:
+            self._cache[key] = self._rng.integers(
+                1, 1000, size=(len(reqs), len(clusters))).astype(np.int32)
+        return self._cache[key]
+
+
+def build_degraded(seed=0, n_clusters=DEGRADED_CLUSTERS, n_bindings=DEGRADED_BINDINGS):
+    """bench.py:634 build_degraded (the same draws): 500 clusters x 1 000
+    dynamic-weight bindings of 1-31 replicas, answers from RowsEstimator,
+    a breaker registry (threshold 1, open for an hour) shared with the
+    estimator registry. Returns (clusters, bindings, registry, breakers)."""
+    rng = np.random.default_rng(seed)
+    clusters = synthetic_fleet(n_clusters, seed=seed)
+    bindings = [
+        _binding(i, int(rng.integers(1, 32)), _dyn_placement(aggregated=False),
+                 float(rng.choice([0.1, 0.25, 0.5])))
+        for i in range(n_bindings)
+    ]
+    breakers = BreakerRegistry(failure_threshold=1, open_seconds=3600.0)
+    registry = EstimatorRegistry(breakers=breakers)
+    registry.register_replica_estimator("bench-estimator", RowsEstimator(seed + 1))
+    return clusters, bindings, registry, breakers
+
+
+def host_rows(members, names, reqs) -> np.ndarray:
+    """The per-cluster host path's answers [len(reqs), len(names)]: each
+    member's AccurateEstimator in numpy (its max_available_replicas_batch),
+    the discard sentinel where a cluster has no estimator; computed once
+    per distinct requirement, since an answer depends on nothing else."""
+    keys = [repr(r) for r in reqs]
+    uniq = list(dict.fromkeys(keys))
+    first = {k: reqs[keys.index(k)] for k in uniq}
+    cols = []
+    for n in names:
+        m = members.get(n)
+        est = m.node_estimator if m is not None else None
+        cols.append([-1] * len(uniq) if est is None else
+                    est.max_available_replicas_batch([first[k] for k in uniq]))
+    table = np.asarray(cols, np.int64).T  # [U, C]
+    return table[[uniq.index(k) for k in keys]]
 
 
 # --------------------------------------------------------------------------
@@ -629,7 +756,7 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def nbytes(ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+    return sum(t.numel() * t.element_size() for t in ts if isinstance(t, torch.Tensor))
 
 
 def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
@@ -827,7 +954,13 @@ def check_compact_kernels(sched, bindings, dev, results):
                                          kernels.tail_plain(*a, topk=topk, has_agg=has_agg),
                                          TAIL_OUT))
         t_outs.append(out)
-    log(f"compact flagship batch: select k={k}, tail rows "
+    x_args = sel_args[:-1] + [flagship_answers(np.random.default_rng(20), B, C, dev)]
+    sel_err = max(sel_err, compare("candidate_select[flagship, extra_avail]",
+                                   kernels._select_launch(*x_args, k=k, plugin_bits=bits),
+                                   kernels.select_plain(*x_args, k=k, plugin_bits=bits),
+                                   SELECT_OUT))
+    del x_args
+    log(f"compact flagship batch: select k={k} (also with a random extra_avail), tail rows "
         f"{[int(idx.numel()) for idx, _, _ in tails]}: both kernels equal their plain versions")
 
     sel_ms = cuda_ms(lambda: kernels._select_launch(*sel_args, k=k, plugin_bits=bits), 10)
@@ -913,6 +1046,11 @@ def check_dense_kernels(sched, bindings, dev, results):
                                    kernels.dense_tail_plain(*a, topk=topk, has_agg=has_agg),
                                    TAIL_OUT))
         t_outs.append(out)
+    x_args = filt_args[:-1] + [flagship_answers(np.random.default_rng(21), B, C, dev)]
+    err_f = max(err_f, compare("dense_filter[flagship, extra_avail]",
+                               kernels._dense_filter_launch(*x_args, plugin_bits=bits),
+                               kernels.dense_filter_plain(*x_args, plugin_bits=bits), FILTER_OUT))
+    del x_args
     m_feas = filt[0].index_select(0, mask_idx)
     idx = kernels._feas_idx_launch(m_feas, mk)
     err_i = max(err_i, compare("feas_idx[flagship]", [idx], [kernels.feas_idx_plain(m_feas, mk)],
@@ -920,7 +1058,7 @@ def check_dense_kernels(sched, bindings, dev, results):
     packed = kernels._pack_rows_launch(m_feas)
     err_m = max(err_m, compare("pack_rows[flagship]", [packed], [kernels.pack_rows_plain(m_feas)],
                                ("packed",)))
-    log(f"dense flagship batch: filter {B}x{C}, tail rows "
+    log(f"dense flagship batch: filter {B}x{C} (also with a random extra_avail), tail rows "
         f"{[int(r.numel()) for r, _, _ in tails]} windows {[w for _, w, _ in tails]}, mask rows "
         f"{int(mask_idx.numel())} (k={mk}): the dense kernels equal their plain versions")
 
@@ -1346,13 +1484,18 @@ def check_tier_kernels(dev, results):
     d = random_tier_inputs(rng, dev, B, C, 4, B // 4, K)
     est = [d[k] for k in ESTIMATE_ARGS] + [d["rows"]]
     bufs = [torch.full((B, C), -1, dtype=torch.int32, device=dev) for _ in range(2)]
-    errs["tier_estimate"] = max(
-        compare("tier_estimate[random, rows]", [kernels._tier_estimate_launch(*est, out=bufs[0])],
-                [kernels.tier_estimate_plain(*est, out=bufs[1])], ("avail",)),
-        compare("tier_estimate[random, window]",
-                [kernels._tier_estimate_launch(*est, cand_idx=d["cand_idx"])],
-                [kernels.tier_estimate_plain(*est, cand_idx=d["cand_idx"])], ("c_avail",)))
-    del bufs
+    extra = flagship_answers(rng, B, C, dev)
+    for e, tag in ((None, ""), (extra, ", extra_avail")):
+        errs["tier_estimate"] = max(
+            errs["tier_estimate"],
+            compare(f"tier_estimate[random, rows{tag}]",
+                    [kernels._tier_estimate_launch(*est, out=bufs[0], extra_avail=e)],
+                    [kernels.tier_estimate_plain(*est, out=bufs[1], extra_avail=e)], ("avail",)),
+            compare(f"tier_estimate[random, window{tag}]",
+                    [kernels._tier_estimate_launch(*est, cand_idx=d["cand_idx"], extra_avail=e)],
+                    [kernels.tier_estimate_plain(*est, cand_idx=d["cand_idx"], extra_avail=e)],
+                    ("c_avail",)))
+    del bufs, extra
     con = (d["consume_cap"], d["placed"], d["unsched"], d["request"], d["rows"])
     errs["tier_consume"] = compare("tier_consume[random, dense]",
                                    [kernels._tier_consume_launch(*con)],
@@ -1362,8 +1505,9 @@ def check_tier_kernels(dev, results):
         "tier_consume[random, window]",
         [kernels._tier_consume_launch(*con_k, cand_idx=d["cand_idx"])],
         [kernels.tier_consume_plain(*con_k, cand_idx=d["cand_idx"])], ("cap",)))
-    log(f"random inputs ({B}x{C}, {B // 4} tier rows, window {K}): tier_estimate and tier_consume "
-        "equal their plain versions exactly in both modes")
+    log(f"random inputs ({B}x{C}, {B // 4} tier rows, window {K}): tier_estimate (with and "
+        "without a random extra_avail) and tier_consume equal their plain versions exactly in "
+        "both modes")
     del d, est, con, con_k
 
     captured = {}
@@ -1427,6 +1571,414 @@ def check_tier_kernels(dev, results):
                           max_abs_err=errs[n], ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
                           library_ms=timing[("tiers_dense", "library")]
                           if n == "tier_consume" else None)
+
+
+# --------------------------------------------------------------------------
+# the estimator kernels (B14, B16) and the estimator cells
+# --------------------------------------------------------------------------
+
+
+def flagship_answers(rng, B, C, dev):
+    """A registered-estimator answer matrix i32[B, C] at a flagship batch's
+    shape: -1 (no answer) in 30 % of the cells, else 0 or values below and
+    far above the general estimate."""
+    a = rng.choice([0, 1, 7, 60, 400, 1 << 20], (B, C))
+    a = np.where(rng.random((B, C)) < 0.3, -1, a).astype(np.int32)
+    return torch.from_numpy(a).to(dev)
+
+
+def fleet_args(members, names, reqs, dev):
+    """The fleet kernel's arguments as MemberEstimators builds them: its
+    snapshot of the concatenated node arrays (alloc, requested, pod_count,
+    allowed, cluster_id, the cluster count, claimless_ok) and the [B, R] request
+    matrix."""
+    snap = MemberEstimators(members, device=dev)._fleet_snapshot(names)
+    enc = NodeEncoder()
+    request = np.stack([enc.request_vector(r.resource_request if r else {}) for r in reqs])
+    return list(snap) + [torch.from_numpy(request.astype(np.int64)).to(dev)]
+
+
+def random_fleet_args(rng, dev, C, B, R=4, shuffle=False):
+    """Seeded node arrays, in cluster order unless `shuffle`: 0-5 nodes a
+    cluster (every fifth without any), overcommitted nodes (requested >
+    alloc), exhausted pod slots, tainted nodes (claimless_ok False), zero
+    requests."""
+    counts = rng.integers(0, 6, C)
+    counts[::5] = 0
+    cid = np.repeat(np.arange(C), counts).astype(np.int32)
+    N = len(cid)
+    alloc = rng.integers(0, 64_000, (N, R)).astype(np.int64)
+    requested = (alloc * rng.uniform(0, 1.3, (N, R))).astype(np.int64)
+    allowed = rng.integers(0, 120, N).astype(np.int64)
+    pods = (allowed + rng.integers(-50, 5, N)).clip(0).astype(np.int64)
+    ok = rng.random(N) < 0.8
+    request = rng.choice([0, 1, 250, 1000, 7000], (B, R)).astype(np.int64)
+    request[::4] = 0
+    p = rng.permutation(N) if shuffle else np.arange(N)
+    nodes = [torch.from_numpy(x[p]).to(dev) for x in (alloc, requested, pods, allowed, cid)]
+    return nodes + [C, torch.from_numpy(ok[p]).to(dev), torch.from_numpy(request).to(dev)]
+
+
+def fleet_plain(args):
+    """The plain fleet estimate on the card in row chunks (one chunk at the
+    flagship materialises 256 x 17 500 x 4 int64 per intermediate)."""
+    *fleet, request = args
+    return torch.cat([kernels.fleet_estimate_plain(*fleet, request[i:i + PLAIN_ESTIMATE_ROWS])
+                      for i in range(0, request.shape[0], PLAIN_ESTIMATE_ROWS)])
+
+
+def fleet_work(args, out):
+    """Bytes: every input read once, the [B, C] answers written once.
+    Operations: one int64 division per (row, node, resource)."""
+    return nbytes(args) + nbytes([out]), args[-1].shape[0] * args[0].shape[0] * args[0].shape[1]
+
+
+def dynamic_rows(bindings):
+    return [b for b, rb in enumerate(bindings)
+            if strategy_code(rb.spec.placement, rb.spec.replicas) in (DYNAMIC_WEIGHT, AGGREGATED)]
+
+
+def fixture_requests():
+    """bench_estimator.py's batch: 12 distinct cpu x memory requests, 8
+    times over (96 rows)."""
+    GiB = 1024.0 ** 3
+    return [ReplicaRequirements(resource_request={CPU: c, MEMORY: m * GiB})
+            for c in (0.1, 0.25, 0.5, 1.0) for m in (0.5, 1.0, 2.0)] * 8
+
+
+def check_estimator_kernels(dev, results, flag):
+    """Phase 3 for B14 (fleet_estimate) and B16 (staleness_penalty):
+    fleet_estimate on seeded node fleets with overcommitted nodes, zero
+    requests, exhausted pod slots, tainted nodes and node-less clusters
+    (nodes in cluster order and shuffled), on config 3's node fleet with its rows, on the flagship's node fleet
+    with its 5 000 dynamic rows (timed: the estimator_flagship sweep) and
+    on the reference estimator fixture (5 000 nodes, 100 000 pods) as one
+    cluster; staleness_penalty through apply_staleness_penalty on a random
+    i32 [10 000, 5 000] matrix at ages 0-10."""
+    rng = np.random.default_rng(30)
+    err = 0
+    cases = [("random", random_fleet_args(rng, dev, N_CLUSTERS, 1024)),
+             ("random, nodes shuffled", random_fleet_args(rng, dev, N_CLUSTERS, 1024,
+                                                          shuffle=True))]
+    c3_clusters, c3_bindings = build_dynamic()
+    c3_names = [c.name for c in c3_clusters]
+    cases.append(("config 3", fleet_args(estimator_members(c3_names), c3_names,
+                                         [rb.spec.replica_requirements for rb in c3_bindings],
+                                         dev)))
+    flag_reqs = [flag["bindings"][b].spec.replica_requirements
+                 for b in dynamic_rows(flag["bindings"])]
+    flag_args = fleet_args(flag["members"], flag["names"], flag_reqs, dev)
+    cases.append(("flagship", flag_args))
+    t0 = time.perf_counter()
+    fixture = build_estimator(*ESTIMATOR_FIXTURE)
+    log(f"estimator fixture ({ESTIMATOR_FIXTURE[0]} nodes, {ESTIMATOR_FIXTURE[1]} pods) built "
+        f"in {time.perf_counter() - t0:.1f} s")
+    cases.append(("fixture", fleet_args({"fixture": Member(fixture)}, ["fixture"],
+                                        fixture_requests(), dev)))
+    for tag, args in cases:
+        got = kernels._fleet_estimate_launch(*args)
+        err = max(err, compare(f"fleet_estimate[{tag}]", [got], [fleet_plain(args)],
+                               ("answers",)))
+        if tag == "fixture" and got[:, 0].cpu().tolist() != fixture.max_available_replicas_batch(
+                fixture_requests()):
+            raise AssertionError("fleet_estimate[fixture] differs from the host estimator")
+        log(f"fleet_estimate[{tag}]: {args[-1].shape[0]} rows x {args[5]} "
+            f"clusters over {args[0].shape[0]} nodes equal the plain version (answers "
+            f"{int(got.min())}..{int(got.max())}, {int((got == 0).sum())} zeros)")
+    del cases, got
+    out = kernels._fleet_estimate_launch(*flag_args)
+    ms = cuda_ms(lambda: kernels._fleet_estimate_launch(*flag_args), 10)
+    plain = cuda_ms(lambda: fleet_plain(flag_args), 2)
+    b, by = bound(*fleet_work(flag_args, out))
+    results["fleet_estimate"] = dict(
+        source="karmada_tpu_torch/kernels/csrc/fleet_estimate.cu",
+        replaces="karmada_tpu/estimator/client.py:23", max_abs_err=err, ms=ms, plain_ms=plain,
+        bound_ms=b, bound_by=by, library_ms=None)
+    log(f"timing (the flagship sweep, {flag_args[-1].shape[0]} rows x "
+        f"{flag_args[5]} clusters, {flag_args[0].shape[0]} nodes): fleet_estimate "
+        f"{ms:.4f} ms (plain {plain:.4f}, bound {b:.4f} {by})")
+    del flag_args, out
+
+    v = np.where(rng.random(STALENESS_SHAPE) < 0.2, -1,
+                 rng.integers(0, 1 << 30, STALENESS_SHAPE)).astype(np.int32)
+    v = torch.from_numpy(v).to(dev)
+    s_err = 0
+    for age in range(11):
+        got = faults.apply_staleness_penalty(v, age)
+        shift = min(age, faults.MAX_STALENESS_AGE)
+        want = v if shift == 0 else kernels.staleness_penalty_plain(v, shift)
+        s_err = max(s_err, compare(f"staleness_penalty[age {age}]", [got], [want], ("values",)))
+        if age and not torch.equal(got[v < 0], v[v < 0]):
+            raise AssertionError("staleness_penalty changed a discard sentinel")
+    ms = cuda_ms(lambda: kernels._staleness_launch(v, 3), 20)
+    plain = cuda_ms(lambda: kernels.staleness_penalty_plain(v, 3), 20)
+    lib = cuda_ms(lambda: torch.where(v >= 0, v >> 3, v), 20)
+    b, by = bound(2 * nbytes([v]), v.numel())
+    results["staleness_penalty"] = dict(
+        source="karmada_tpu_torch/kernels/csrc/staleness.cu",
+        replaces="karmada_tpu/faults/staleness.py:46", max_abs_err=s_err, ms=ms, plain_ms=plain,
+        bound_ms=b, bound_by=by, library_ms=lib)
+    log(f"staleness_penalty on {tuple(v.shape)} at ages 0-10 equals its plain version; timing "
+        f"(shift 3) {ms:.4f} ms (plain {plain:.4f}, torch.where {lib:.4f}, bound {b:.4f} {by})")
+    del v, got, want
+    torch.cuda.empty_cache()
+
+
+def answers_hold(label, extra, members, names, bindings) -> None:
+    """The round's answer matrix against the per-cluster host path: the
+    member estimators' numpy answers on every dynamic row, -1 elsewhere."""
+    dyn = dynamic_rows(bindings)
+    want = np.full((len(bindings), len(names)), -1, np.int64)
+    want[dyn] = host_rows(members, names, [bindings[b].spec.replica_requirements for b in dyn])
+    if extra.shape != want.shape or not np.array_equal(extra, want):
+        bad = np.argwhere(extra != want)[:5].tolist() if extra.shape == want.shape else "shape"
+        raise AssertionError(f"{label}: the answer matrix differs from the per-cluster host "
+                             f"path at {bad}")
+    log(f"{label}: answer matrix {extra.shape} equals the per-cluster host path "
+        f"({len(dyn)} dynamic rows, answers {int(extra[dyn].min())}..{int(extra.max())})")
+
+
+def differ_count(a, b) -> int:
+    def key(d):
+        return d.ok, sorted((t.name, t.replicas) for t in (d.targets or []))
+
+    return sum(key(x) != key(y) for x, y in zip(a, b))
+
+
+def estimator_breakdown(label, registry, est, bindings, names, run_round, p50):
+    """One more round split at its seams (host clock): the sweep
+    (MemberEstimators: the request upload, the fleet kernel, the copy
+    back), the registry's host merge, and the round given the answers
+    (upload, launch, decode); then the device time of one profiled round."""
+    spans = {"sweep": 0.0}
+    orig = est.max_available_replicas_rows
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = orig(*a, **kw)
+        spans["sweep"] += time.perf_counter() - t0
+        return out
+
+    est.max_available_replicas_rows = timed
+    try:
+        t0 = time.perf_counter()
+        extra = registry.batch_estimates(bindings, names)
+        t1 = time.perf_counter()
+        run_round(extra)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    finally:
+        del est.max_available_replicas_rows
+    kernel_ms = profiled_device_ms(None, None, lambda: run_round(
+        registry.batch_estimates(bindings, names)))
+    share = "not measured" if kernel_ms is None else (
+        f"{kernel_ms / 1e3:.4f} s = {kernel_ms / 1e3 / p50:.3f} of the p50 round (device busy "
+        "share, torch.profiler, one round)")
+    log(f"{label} round breakdown: sweep (request upload + fleet_estimate + copy back) "
+        f"{spans['sweep']:.4f} s, host merge {t1 - t0 - spans['sweep']:.4f} s, round given the "
+        f"answers (upload + launch + decode) {t2 - t1:.4f} s; kernel time per round {share}")
+
+
+def estimator_cell(label, dev, smi, clusters, bindings, members, rounds, expect):
+    """A schedule() cell fed by the estimator sweep: the registry over
+    in-process member estimators (the fleet kernel), then
+    schedule(bindings, extra_avail=...) as the timed round; launches exact,
+    the answers held against the per-cluster host path, decisions against
+    the CPU round with the same answers. Returns (launches, decisions, the
+    count of rows an answer-free schedule() decides otherwise)."""
+    names = [c.name for c in clusters]
+    est = MemberEstimators(members, device=dev)
+    registry = EstimatorRegistry()
+    registry.register_replica_estimator("members", est)
+    sched = ArrayScheduler(clusters, device=dev)
+    last = {}
+
+    def run_round(extra):
+        last["extra"] = extra
+        return sched.schedule(bindings, extra_avail=extra)
+
+    def run():
+        return run_round(registry.batch_estimates(bindings, names))
+
+    decisions, launches, times = drive(label, sched, bindings, rounds, expect, smi, run=run)
+    extra = last["extra"]
+    answers_hold(label, extra, members, names, bindings)
+    estimator_breakdown(label, registry, est, bindings, names, run_round,
+                        float(np.percentile(times, 50)))
+    est.close()
+    hold_against_cpu(label, clusters, bindings, decisions,
+                     cpu_run=lambda s: s.schedule(bindings, extra_avail=extra))
+    differ = differ_count(decisions, sched.schedule(bindings))
+    log(f"{label}: {differ} of {len(decisions)} rows differ from schedule() without the "
+        "estimator answers")
+    return launches, differ
+
+
+def run_estimator_cells(dev, smi, path_launches, flag, results):
+    """Phase 4's estimator cells: config3 (BASELINE config 3),
+    estimator_flagship (the flagship mix with member estimators on every
+    cluster), degraded (bench.py build_degraded: a breaker open every other
+    round, the staleness overlay feeding the round, launch parity) and
+    tiers_estimator (the tiers_compact batch with answers through
+    launch_tiered)."""
+    path_launches.setdefault("fleet_estimate", 0)
+    est_expect = {"fleet_estimate": 1, "candidate_select": 1, "candidate_tail": 2}
+    clusters, bindings = build_dynamic()
+    names = [c.name for c in clusters]
+    launches, differ = estimator_cell(
+        f"config3 ({len(clusters)} clusters x {len(bindings)} bindings, estimator answers)",
+        dev, smi, clusters, bindings, estimator_members(names), CONFIG3_ROUNDS, est_expect)
+    if differ == 0:
+        raise AssertionError("config3: the estimator answers changed no decision")
+    path_launches["fleet_estimate"] += launches["fleet_estimate"]
+    del clusters, bindings
+
+    launches, _ = estimator_cell(
+        f"estimator_flagship ({N_CLUSTERS} clusters x {N_BINDINGS} bindings, estimator answers)",
+        dev, smi, flag["clusters"], flag["bindings"], flag["members"], ESTIMATOR_ROUNDS,
+        est_expect)
+    path_launches["fleet_estimate"] += launches["fleet_estimate"]
+
+    run_degraded_cell(dev, smi, path_launches)
+    run_tiers_estimator_cell(dev, smi, path_launches, flag, results)
+
+
+def run_degraded_cell(dev, smi, path_launches):
+    """bench.py's degraded cell: the first cluster's breaker OPEN every
+    other round, its answer column served from the staleness cache; a
+    degraded round must launch exactly what a healthy one does."""
+    from karmada_tpu_torch.metrics import degraded_rounds
+
+    clusters, bindings, registry, breakers = build_degraded()
+    sched = ArrayScheduler(clusters, device=dev)
+    names = sched.fleet.names  # the bench sweeps the bucket-padded fleet
+    dark = names[0]
+    state = {"round": 0}
+    per_leg = {"healthy": [], "degraded": []}
+    kept = {}
+    d0 = degraded_rounds.total()
+
+    def run():
+        state["round"] += 1
+        degraded = state["round"] % 2 == 0  # the warm round is healthy
+        br = breakers.for_member(dark)
+        if degraded:
+            for _ in range(breakers.failure_threshold):
+                br.record_failure()
+        else:
+            br.record_success()
+        extra = registry.batch_estimates(bindings, names)
+        before = kernels.launch_counts()
+        decisions = sched.schedule(bindings, extra_avail=extra)
+        after = kernels.launch_counts()
+        leg = "degraded" if degraded else "healthy"
+        per_leg[leg].append({n: after[n] - before[n] for n in after})
+        if degraded and registry.last_sweep_open:
+            degraded_rounds.inc()
+        kept[leg] = (extra, decisions, list(registry.last_sweep_open),
+                     list(registry.last_sweep_stale))
+        return decisions
+
+    _, launches, _ = drive(f"degraded ({len(clusters)} clusters x {len(bindings)} bindings, "
+                           "breaker open every other round)", sched, bindings, ESTIMATOR_ROUNDS,
+                           {"candidate_select": 1, "candidate_tail": 1}, smi, run=run)
+    path_launches["staleness_penalty"] = launches["staleness_penalty"]
+    rounds = per_leg["healthy"] + per_leg["degraded"]
+    if any(r != rounds[0] for r in rounds):
+        raise AssertionError(f"degraded: launches per round differ between legs: {per_leg}")
+    answers = registry.replica_estimators["bench-estimator"]._cache[(len(names), len(bindings))]
+    h_extra, _, h_open, _ = kept["healthy"]
+    g_extra, _, g_open, g_stale = kept["degraded"]
+    want = answers.copy()
+    want[:, 0] = faults.apply_staleness_penalty(answers[:, 0], 1)
+    if not (np.array_equal(h_extra, answers) and np.array_equal(g_extra, want)
+            and h_open == [] and g_open == g_stale == [dark]):
+        raise AssertionError("degraded: the staleness overlay did not serve the decayed column")
+    log(f"degraded: {len(per_leg['degraded'])} degraded and {len(per_leg['healthy'])} healthy "
+        f"rounds launched the same kernels ({rounds[0]}); the open member's column was served "
+        f"from the staleness cache, decayed once; karmada_degraded_rounds_total "
+        f"+{degraded_rounds.total() - d0:.0f}")
+    for leg in ("healthy", "degraded"):
+        extra, decisions, _, _ = kept[leg]
+        hold_against_cpu(f"degraded ({leg} round)", clusters, bindings, decisions,
+                         cpu_run=lambda s, e=extra: s.schedule(bindings, extra_avail=e))
+    # one more (healthy) round split at its seams: the registry's sweep,
+    # merge and overlay (all host), then the round given the answers
+    t0 = time.perf_counter()
+    extra = registry.batch_estimates(bindings, names)
+    t1 = time.perf_counter()
+    state = sched._launch_solve(bindings, extra)
+    t2 = time.perf_counter()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    sched._materialize_solve(state)
+    t4 = time.perf_counter()
+    kernel_ms = profiled_device_ms(None, None, lambda: sched.schedule(bindings, extra_avail=extra))
+    share = "not measured" if kernel_ms is None else f"{kernel_ms / 1e3:.4f} s (torch.profiler)"
+    log(f"degraded round breakdown: registry sweep + merge + overlay {t1 - t0:.4f} s, launch "
+        f"(classify + encode + upload + dispatch) {t2 - t1:.4f} s, wait for the device "
+        f"{t3 - t2:.4f} s, materialize (copy back + decode) {t4 - t3:.4f} s; kernel time per "
+        f"round {share}")
+
+
+def run_tiers_estimator_cell(dev, smi, path_launches, flag, results):
+    """The tiers_compact batch and fleet with member-estimator answers
+    through launch_tiered: every tier's main pass min-merges them, the
+    speculative pass runs in every tier without them (a zero-reclaim armed
+    tier included); decisions and speculative decisions held against the
+    CPU round, one round's tier_estimate launches against their plain
+    version."""
+    clusters, bindings, placed = build_tiers(duplicated=False)
+    names = [c.name for c in clusters]
+    est = MemberEstimators(flag["members"], device=dev)
+    registry = EstimatorRegistry()
+    registry.register_replica_estimator("members", est)
+    sched = ArrayScheduler(clusters, device=dev)
+    expect = tier_expect(sched, bindings, placed, True, has_extra=True)
+    expect["fleet_estimate"] = 1
+    reclaim, armed = preemption._tier_reclaim(sched, bindings, placed)
+    tier_of, _ = preemption._tier_assignment(bindings)
+    zero = sorted({int(tier_of[i]) for i in armed if not reclaim[int(tier_of[i])].any()})
+    if not zero:
+        raise AssertionError("tiers_estimator: no armed tier with zero reclaim")
+    last = {}
+
+    def run():
+        last["extra"] = registry.batch_estimates(bindings, names)
+        return tier_round(sched, bindings, placed, last["extra"])
+
+    label = f"tiers_estimator (tiered, {len(bindings)} rows, estimator answers)"
+    decisions, launches, times = drive(label, sched, bindings, TIER_ROUNDS, expect, smi, run=run)
+    for n in TIER_KERNELS + ("fleet_estimate",):
+        path_launches[n] = path_launches.get(n, 0) + launches[n]
+    extra = last["extra"]
+    answers_hold("tiers_estimator", extra, flag["members"], names, bindings)
+    estimator_breakdown("tiers_estimator", registry, est, bindings, names,
+                        lambda e: tier_round(sched, bindings, placed, e),
+                        float(np.percentile(times, 50)))
+    with captured_launches(("tier_estimate",)) as calls:
+        tier_round(sched, bindings, placed, extra)
+    torch.cuda.synchronize()
+    cs = calls["tier_estimate"]
+    err = 0
+    for i, (g, w) in enumerate(zip(run_calls("tier_estimate", cs),
+                                   run_calls("tier_estimate", cs, plain=True))):
+        err = max(err, compare(f"tier_estimate[tiers_estimator round, call {i}]", g, w,
+                               ("c_avail",)))
+    n_extra = sum(kw.get("extra_avail") is not None for _, kw in cs)
+    results["tier_estimate"]["max_abs_err"] = max(results["tier_estimate"]["max_abs_err"], err)
+    log(f"tiers_estimator: one round's {len(cs)} tier_estimate launches ({n_extra} with the "
+        "answers, the speculative ones without) equal their plain version")
+    del calls, cs
+    est.close()
+    hold_against_cpu("tiers_estimator", clusters, bindings, decisions,
+                     cpu_run=lambda s: tier_round(s, bindings, placed, extra))
+    plain = tier_round(sched, bindings, placed)
+    spec = [(d, d.speculative) for d in decisions if d.speculative is not None]
+    log(f"tiers_estimator: {differ_count(decisions, plain)} of {len(decisions)} rows differ from "
+        f"the tiered round without answers; armed tiers with zero reclaim {zero}; "
+        f"{len(spec)} speculative decisions, {sum(differ_count([a], [b]) for a, b in spec)} "
+        "differing from their main decision")
 
 
 def plan_view(p):
@@ -1622,8 +2174,13 @@ def main(argv=None) -> int:
     sched = ArrayScheduler(clusters, device=dev)
     d_clusters, d_bindings = build_flagship(dense=True)
     d_sched = ArrayScheduler(d_clusters, device=dev)
+    names = [c.name for c in clusters]
+    flag = {"clusters": clusters, "bindings": bindings, "names": names,
+            "members": estimator_members(names)}
     log(f"flagship: {len(clusters)} clusters x {len(bindings)} bindings, compact and dense "
-        f"(dense-solve), built in {time.perf_counter() - t0:.1f} s (fleet width "
+        f"(dense-solve), with member estimators over "
+        f"{sum(m.node_estimator.arrays.n_nodes for m in flag['members'].values())} shard_nodes "
+        f"nodes, built in {time.perf_counter() - t0:.1f} s (fleet width "
         f"{len(sched.fleet.names)})")
 
     # ---- phase 3: kernels against their plain versions on the card ----
@@ -1634,6 +2191,7 @@ def main(argv=None) -> int:
     # again in phase 4, so no earlier cell's garbage collections walk them)
     check_spread_kernels(dev, results)
     check_tier_kernels(dev, results)
+    check_estimator_kernels(dev, results, flag)
     gc.collect()
     torch.cuda.empty_cache()
     if kernels_only:
@@ -1693,7 +2251,14 @@ def main(argv=None) -> int:
         del sched_s, clusters_s, bindings_s, decisions
 
     run_tier_cells(dev, smi, path_launches)
+    run_estimator_cells(dev, smi, path_launches, flag, results)
 
+    # every kernel of a main path launched there; staleness_penalty serves
+    # callers that hold an answer matrix on the card, and no path does: the
+    # registry decays its stale columns in numpy, as the reference does
+    idle = [n for n in results if n != "staleness_penalty" and not path_launches.get(n)]
+    if idle:
+        raise AssertionError(f"kernels of the main paths never launched there: {idle}")
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
          "launches": path_launches[n], "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -2,8 +2,8 @@
 device.
 
 `from_reference_objects` copies an API object of the JAX package (a
-Cluster, ResourceBinding, Placement, ...) into the port's dataclass of the
-same name, field by field, keeping the uid. Tie-breaks are seeded by the
+Cluster, ResourceBinding, Placement, NodeSpec, ...) into the port's
+dataclass of the same name, field by field, keeping the uid. Tie-breaks are seeded by the
 binding UID (models/batch.py uid_seed), so converted objects make both
 packages solve the same problem. It matches classes by NAME and never
 imports the JAX package.
@@ -19,10 +19,11 @@ import numpy as np
 import torch
 
 from .api import cluster, meta, policy, work
+from .models import nodes
 
 _PORT_CLASSES = {
     name: obj
-    for mod in (meta, cluster, policy, work)
+    for mod in (meta, cluster, policy, work, nodes)
     for name, obj in vars(mod).items()
     if isinstance(obj, type) and dataclasses.is_dataclass(obj)
 }

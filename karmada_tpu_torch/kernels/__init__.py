@@ -39,13 +39,24 @@ Spread constraints (the dense round's batched region path):
 Priority tiers (the tiered rounds of sched/preemption.py, composed with
 the kernels above):
 - `tier_estimate` (csrc/tiers.cu): the estimator answer over a tier's rows
-  at a capacity matrix passed in, into the [B, C] avail buffer (rows
-  mode) or at the rows' candidate windows (window mode); the plain
-  version is `tier_estimate_plain`.
+  at a capacity matrix passed in, min-merged with the registered-estimator
+  answers when they are given, into the [B, C] avail buffer (rows mode)
+  or at the rows' candidate windows (window mode); the plain version is
+  `tier_estimate_plain`.
 - `tier_consume` (csrc/tiers.cu): the capacity left after a tier's
   committed placements, `max(cap - placed.T @ request, 0)` in exact
   int64, dense or scattered through the candidate windows; the plain
   version is `tier_consume_plain`.
+
+The estimator sweep and the degraded mode (estimator/client.py,
+faults/staleness.py):
+- `fleet_estimate` (csrc/fleet_estimate.cu): every member cluster's
+  accurate-estimator answer for every row, over the fleet's concatenated
+  node arrays with the claim-free node mask; the plain version is
+  `fleet_estimate_plain` (ops/estimate.py `fleet_estimate`).
+- `staleness_penalty` (csrc/staleness.cu): the decay of stale answers,
+  `values >> shift` where non-negative; the plain version is
+  `staleness_penalty_plain`.
 
 A wrapper runs the plain version only for tensors that lie on the CPU. For
 CUDA tensors it checks device, dtype, shape and contiguity, launches the
@@ -58,6 +69,7 @@ import ctypes
 
 import torch
 
+from ..faults.staleness import MAX_STALENESS_AGE
 from ..sched import core
 from ..sched.spread import WEIGHT_UNIT
 
@@ -75,6 +87,7 @@ COMBO_NEG = -(1 << 62)
 COMBO_DISC_MASKED = 1 << 62
 MAX_COMBO_REGIONS = 64  # combo_select keeps a row's regions in shared memory
 MAX_TIER_RESOURCES = 16  # tier_consume keeps one int64 sum per resource in registers
+MAX_ESTIMATE_RESOURCES = 16  # fleet_estimate stages a row's request in shared memory
 
 
 # --------------------------------------------------------------------------
@@ -379,26 +392,32 @@ def combo_select_plain(weight, value, kmax_row, rname, members_pad, sizes, *,
 
 
 def tier_estimate_plain(capacity, has_summary, req_unique, req_idx, replicas,
-                        unknown_request, rows, *, out=None, cand_idx=None):
+                        unknown_request, rows, *, out=None, cand_idx=None, extra_avail=None):
     """Plain version of the tier-estimate kernel: the GeneralEstimator
     answer at `capacity` (i64[C,R], the residual of a tier or the
     residual plus the reclaimable capacity) for the batch rows `rows`
-    (i32[n]), with no registered-estimator answers. Rows mode (`out`, the
-    i32[B,C] avail buffer): the estimate half of filter_estimate_phase,
-    written into `out` at those rows (in place; returns `out`). Window
-    mode (`cand_idx`, i32[B,K]): `compact_estimate` at the rows' candidate
-    columns, a new i32[n,K]."""
+    (i32[n]), min-merged with the registered-estimator answers
+    `extra_avail` (None or i32[B,C], -1 = no answer). Rows mode (`out`,
+    the i32[B,C] avail buffer): the estimate half of
+    filter_estimate_phase, written into `out` at those rows (in place;
+    returns `out`). Window mode (`cand_idx`, i32[B,K]): `compact_estimate`
+    at the rows' candidate columns, a new i32[n,K]."""
     from ..ops import assign as assign_ops
     from ..sched.candidates import compact_estimate
 
     r = rows.long()
     ridx, reps, unknown = (x.index_select(0, r) for x in (req_idx, replicas, unknown_request))
+    extra = None if extra_avail is None else extra_avail.index_select(0, r)
     if cand_idx is not None:
+        cand = cand_idx.index_select(0, r)
         return compact_estimate(capacity, has_summary, req_unique, ridx, reps, unknown,
-                                cand_idx.index_select(0, r), None)
+                                cand, None if extra is None else extra.gather(-1, cand.long()))
     est_u, any_u = assign_ops.general_estimate_unique(capacity, has_summary, req_unique)
     avail = assign_ops.general_estimate_apply(est_u, any_u, ridx, has_summary, reps)
-    return out.index_copy_(0, r, torch.where(unknown[:, None], 0, avail))
+    avail = torch.where(unknown[:, None], 0, avail)
+    if extra is not None:
+        avail = torch.where(extra >= 0, torch.minimum(avail, extra), avail)
+    return out.index_copy_(0, r, avail)
 
 
 def tier_consume_plain(cap, placed, unsched, request, rows, *, cand_idx=None):
@@ -420,6 +439,28 @@ def tier_consume_plain(cap, placed, unsched, request, rows, *, cand_idx=None):
         vals = (p[:, :, None] * req[:, None, :]).reshape(-1, req.shape[1])
         cons = torch.zeros_like(cap).index_add_(0, cols, vals)
     return torch.clamp(cap - cons, min=0)
+
+
+def fleet_estimate_plain(alloc, requested, pod_count, allowed_pods, cluster_id, n_clusters,
+                         claimless_ok, request):
+    """Plain version of the fleet-estimate kernel (the reference's
+    `_fleet_rows_kernel`): ops/estimate.py `fleet_estimate` over every
+    node of the fleet (alloc/requested i64[N,R], pod_count/allowed_pods
+    i64[N], cluster_id i32[N] in [0, n_clusters), in any order) with each
+    node's claim-free feasibility `claimless_ok` (bool[N]) for every row
+    of `request` (i64[B,R]). Returns i32[B,n_clusters]."""
+    from ..ops.estimate import fleet_estimate as fleet_estimate_ops
+
+    node_ok = claimless_ok[None, :].expand(request.shape[0], alloc.shape[0])
+    return fleet_estimate_ops(alloc, requested, pod_count, allowed_pods, cluster_id, request,
+                              node_ok, n_clusters)
+
+
+def staleness_penalty_plain(values, shift: int):
+    """Plain version of the staleness kernel (the reference's
+    `_apply_jnp`): `values >> shift` where non-negative, other values (the
+    -1 discard sentinel) unchanged."""
+    return torch.where(values >= 0, values >> shift, values)
 
 
 # --------------------------------------------------------------------------
@@ -1105,25 +1146,26 @@ combo_select.launches = 0
 
 
 def tier_estimate(capacity, has_summary, req_unique, req_idx, replicas, unknown_request, rows,
-                  *, out=None, cand_idx=None):
+                  *, out=None, cand_idx=None, extra_avail=None):
     """The estimate over a tier's rows at `capacity` (see
     tier_estimate_plain): rows mode writes `out` in place, window mode
     returns a new [n, K]."""
     if (out is None) == (cand_idx is None):
         raise ValueError("tier_estimate: pass exactly one of out (rows mode) and cand_idx")
     args = (capacity, has_summary, req_unique, req_idx, replicas, unknown_request, rows)
+    kw = {"out": out, "cand_idx": cand_idx, "extra_avail": extra_avail}
     dev = capacity.device
     if dev.type == "cpu":
-        return tier_estimate_plain(*args, out=out, cand_idx=cand_idx)
+        return tier_estimate_plain(*args, **kw)
     if dev.type != "cuda":
         raise ValueError(f"tier_estimate: unsupported device {dev}")
-    res = _tier_estimate_launch(*args, out=out, cand_idx=cand_idx)
+    res = _tier_estimate_launch(*args, **kw)
     tier_estimate.launches += 1
     return res
 
 
 def _tier_estimate_launch(capacity, has_summary, req_unique, req_idx, replicas,
-                          unknown_request, rows, *, out=None, cand_idx=None):
+                          unknown_request, rows, *, out=None, cand_idx=None, extra_avail=None):
     """Check, allocate and launch the tier-estimate kernel of its mode. Row
     ids must lie in [0, B) and candidate columns in [0, C)."""
     dev = capacity.device
@@ -1137,6 +1179,8 @@ def _tier_estimate_launch(capacity, has_summary, req_unique, req_idx, replicas,
         ("rows", rows, I32, (n,)),
     ):
         _check(name, t, dt, shape, dev)
+    if extra_avail is not None:
+        _check("extra_avail", extra_avail, I32, (B, C), dev)
     K = 0
     if cand_idx is None:
         _check("out", out, I32, (B, C), dev)
@@ -1152,11 +1196,11 @@ def _tier_estimate_launch(capacity, has_summary, req_unique, req_idx, replicas,
     fn = library("tiers").tier_estimate_launch
     fn.restype = ctypes.c_int
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, ci, ci] + [vp] * 5 + [ci, vp, ci, vp, vp]
+    fn.argtypes = [vp, vp, ci, ci] + [vp] * 6 + [ci, vp, ci, vp, vp]
     rc = fn(
         _ptr(capacity), _ptr(has_summary), C, R, _ptr(replicas), _ptr(unknown_request),
-        _ptr(req_unique), _ptr(req_idx), _ptr(rows), n, _ptr(cand_idx), K, _ptr(res),
-        _stream(dev),
+        _ptr(req_unique), _ptr(req_idx), _ptr(extra_avail), _ptr(rows), n, _ptr(cand_idx), K,
+        _ptr(res), _stream(dev),
     )
     _raise_on(rc, "tier_estimate")
     return res
@@ -1223,8 +1267,106 @@ def _tier_consume_launch(cap, placed, unsched, request, rows, *, cand_idx=None):
 
 tier_consume.launches = 0
 
+def fleet_estimate(alloc, requested, pod_count, allowed_pods, cluster_id, n_clusters,
+                   claimless_ok, request):
+    """The fleet-wide estimator sweep (see fleet_estimate_plain)."""
+    args = (alloc, requested, pod_count, allowed_pods, cluster_id, n_clusters, claimless_ok,
+            request)
+    dev = alloc.device
+    if dev.type == "cpu":
+        return fleet_estimate_plain(*args)
+    if dev.type != "cuda":
+        raise ValueError(f"fleet_estimate: unsupported device {dev}")
+    out = _fleet_estimate_launch(*args)
+    fleet_estimate.launches += 1
+    return out
+
+
+def _fleet_estimate_launch(alloc, requested, pod_count, allowed_pods, cluster_id, n_clusters,
+                           claimless_ok, request):
+    """Check, allocate and launch fleet_estimate_kernel. The kernel walks
+    each cluster's nodes through a stable sort of `cluster_id` and the
+    node ranges found in it, both built here from `cluster_id` alone, so
+    the nodes may lie in any order, as they may for the plain version."""
+    dev = alloc.device
+    N, R = alloc.shape
+    C = int(n_clusters)
+    B = request.shape[0]
+    for name, t, dt, shape in (
+        ("alloc", alloc, I64, (N, R)), ("requested", requested, I64, (N, R)),
+        ("pod_count", pod_count, I64, (N,)), ("allowed_pods", allowed_pods, I64, (N,)),
+        ("cluster_id", cluster_id, I32, (N,)),
+        ("claimless_ok", claimless_ok, BOOL, (N,)), ("request", request, I64, (B, R)),
+    ):
+        _check(name, t, dt, shape, dev)
+    if not 0 < R <= MAX_ESTIMATE_RESOURCES:
+        raise NotImplementedError(
+            f"fleet_estimate: {R} resources outside (0, {MAX_ESTIMATE_RESOURCES}] (a row's "
+            "request is staged in shared memory)"
+        )
+    out = torch.empty((B, C), dtype=I32, device=dev)
+    if B == 0 or C == 0:
+        return out
+    ids, order = torch.sort(cluster_id, stable=True)
+    order = order.to(I32)
+    off = torch.searchsorted(ids, torch.arange(C + 1, dtype=I32, device=dev), out_int32=True)
+    from .build import library
+
+    fn = library("fleet_estimate").fleet_estimate_launch
+    fn.restype = ctypes.c_int
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp] * 7 + [ci, ci, vp, ci, vp, vp]
+    rc = fn(
+        _ptr(alloc), _ptr(requested), _ptr(pod_count), _ptr(allowed_pods),
+        _ptr(claimless_ok), _ptr(order), _ptr(off), C, R, _ptr(request), B, _ptr(out),
+        _stream(dev),
+    )
+    _raise_on(rc, "fleet_estimate")
+    return out
+
+
+fleet_estimate.launches = 0
+
+
+def staleness_penalty(values, shift: int):
+    """The staleness decay of an int32 answer tensor, a new tensor (see
+    staleness_penalty_plain); `shift` in [1, MAX_STALENESS_AGE], the
+    penalty's age cap."""
+    if not 1 <= shift <= MAX_STALENESS_AGE:
+        raise ValueError(f"staleness_penalty: shift={shift} outside [1, {MAX_STALENESS_AGE}]")
+    dev = values.device
+    if dev.type == "cpu":
+        return staleness_penalty_plain(values, shift)
+    if dev.type != "cuda":
+        raise ValueError(f"staleness_penalty: unsupported device {dev}")
+    out = _staleness_launch(values, shift)
+    staleness_penalty.launches += 1
+    return out
+
+
+def _staleness_launch(values, shift: int):
+    """Check, allocate and launch staleness_kernel."""
+    _check("values", values, I32, tuple(values.shape), values.device)
+    out = torch.empty_like(values)
+    n = values.numel()
+    if n == 0:
+        return out
+    from .build import library
+
+    fn = library("staleness").staleness_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    rc = fn(_ptr(values), n, shift, _ptr(out), _stream(values.device))
+    _raise_on(rc, "staleness_penalty")
+    return out
+
+
+staleness_penalty.launches = 0
+
 KERNELS = (candidate_select, candidate_tail, dense_filter, dense_tail, pack_rows, feas_idx,
-           group_score, packed_selection, spread_tail, combo_select, tier_estimate, tier_consume)
+           group_score, packed_selection, spread_tail, combo_select, tier_estimate, tier_consume,
+           fleet_estimate, staleness_penalty)
 
 
 def reset_launches() -> None:

@@ -12,13 +12,17 @@
 // tier_estimate: the GeneralEstimator answer at a capacity matrix passed in
 // (the residual, or the residual plus the reclaimable capacity of the
 // speculative preemption pass), with the reference's clamps in its order
-// (filter_common.cuh estimate(), no registered-estimator answers).
+// (filter_common.cuh estimate()), min-merged with the registered-estimator
+// answers extra_avail[b, c] (i32[B, C], -1 = no answer) when they are
+// given: the reference merges them into every tier's main pass and leaves
+// them out of the speculative pass, which passes none.
 //   - rows mode: for row ids rows[j], avail[rows[j], c] for every column c,
 //     written into the [B, C] avail buffer the dense tail then reads
 //     through the same row ids;
 //   - window mode: c_avail[j, k] at the candidate column cand_idx[rows[j],
-//     k], the order of `_compact_estimate` (candidates.py:177), which is
-//     the same clamp order.
+//     k] (the answer read at extra_avail[rows[j], cand_idx[rows[j], k]]),
+//     the order of `_compact_estimate` (candidates.py:177), which is the
+//     same clamp order.
 // One block of 256 threads per row striding over the columns or window
 // slots; each element is one int64 division per requested resource. Bound
 // by memory bandwidth: 4 bytes written per element, the capacity matrix
@@ -123,7 +127,8 @@ tier_clamp_kernel(const int64_t* cap, const unsigned long long* cons, int64_t n,
 
 FilterArgs estimate_args(const void* capacity, const void* has_summary, int C, int R,
                          const void* replicas, const void* unknown_request,
-                         const void* req_unique, const void* req_idx) {
+                         const void* req_unique, const void* req_idx,
+                         const void* extra_avail) {
   FilterArgs p = {};
   p.capacity = static_cast<const int64_t*>(capacity);
   p.has_summary = static_cast<const uint8_t*>(has_summary);
@@ -133,7 +138,7 @@ FilterArgs estimate_args(const void* capacity, const void* has_summary, int C, i
   p.unknown_request = static_cast<const uint8_t*>(unknown_request);
   p.req_unique = static_cast<const int64_t*>(req_unique);
   p.req_idx = static_cast<const int32_t*>(req_idx);
-  p.extra_avail = nullptr;  // no registered-estimator answers on a tier pass
+  p.extra_avail = static_cast<const int32_t*>(extra_avail);  // null: no answers
   return p;
 }
 
@@ -149,14 +154,16 @@ int clamp_launch(const void* cap, const void* cons, int C, int R, void* out, cud
 }  // namespace
 
 // rows mode when cand_idx is null (avail is the [B, C] buffer), window
-// mode otherwise (out is c_avail [n, K]).
+// mode otherwise (out is c_avail [n, K]); extra_avail is the [B, C]
+// answer matrix or null.
 extern "C" int tier_estimate_launch(
     const void* capacity, const void* has_summary, int C, int R, const void* replicas,
     const void* unknown_request, const void* req_unique, const void* req_idx,
-    const void* rows, int n, const void* cand_idx, int K, void* out, void* stream) {
+    const void* extra_avail, const void* rows, int n, const void* cand_idx, int K, void* out,
+    void* stream) {
   if (n <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
   const FilterArgs p = estimate_args(capacity, has_summary, C, R, replicas, unknown_request,
-                                     req_unique, req_idx);
+                                     req_unique, req_idx, extra_avail);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cand_idx == nullptr) {
     tier_estimate_rows_kernel<<<n, kThreads, 0, s>>>(p, static_cast<const int32_t*>(rows),

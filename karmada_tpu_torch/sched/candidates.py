@@ -147,9 +147,10 @@ def _rows_tensor(rows: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(rows, np.int64)).to(device)
 
 
-def launch_candidates(array, bindings: Sequence, term_indices=None) -> dict:
+def launch_candidates(array, bindings: Sequence, extra_avail=None, term_indices=None) -> dict:
     """LAUNCH half of the compact round: classify + permute rows by class,
-    encode, run the candidate-select kernel (ONE [B, C] launch), then the
+    encode, run the candidate-select kernel (ONE [B, C] launch, the
+    estimator answers `extra_avail` min-merged at the window), then the
     division-tail kernel per row class over [rows, K] windows. No device
     sync here."""
     n_real = len(bindings)
@@ -158,8 +159,8 @@ def launch_candidates(array, bindings: Sequence, term_indices=None) -> dict:
     C = len(array.fleet.names)
     dev = array.device
 
-    bindings, cls, order, raw, t, (s_batched, _cfg, s_fallback) = array._encode_round(
-        bindings, term_indices)
+    bindings, cls, order, raw, t, (s_batched, _cfg, s_fallback), extra = array._encode_round(
+        bindings, extra_avail, term_indices)
     spread_rows = sorted(set(s_batched) | set(s_fallback))
     k = effective_k(array, raw, C)
     f = array._fleet_dev
@@ -171,7 +172,7 @@ def launch_candidates(array, bindings: Sequence, term_indices=None) -> dict:
         t["replicas"], t["unknown_request"], t["gvk"],
         t["tol_tables"], t["tol_idx"], t["aff_masks"], t["aff_idx"],
         t["prev_idx"], t["prev_rep"], t["evict_idx"], t["seeds"],
-        t["req_unique"], t["req_idx"], None,
+        t["req_unique"], t["req_idx"], t["extra_avail"],
         k=k, plugin_bits=array._plugin_bits,
     )
 
@@ -212,7 +213,8 @@ def launch_candidates(array, bindings: Sequence, term_indices=None) -> dict:
                         for a in (cand_idx, c_feas, c_score, c_avail, c_prev, c_tie)]
 
     return {
-        "candidates": True, "bindings": bindings, "raw": raw, "t": t, "cls": cls,
+        "candidates": True, "bindings": bindings, "raw": raw, "t": t, "extra": extra,
+        "cls": cls,
         "order": order, "n_real": n_real, "k": k,
         "term_indices": None if term_indices is None else [term_indices[i] for i in order],
         "dev_fc": dev_fc, "tails": tails, "mask_rows": mask_rows, "mask_pack": mask_pack,
@@ -420,11 +422,11 @@ def _spread_over_candidates(
     out: dict[int, ScheduleDecision] = {}
     if wide:
         # the reference counts these rows on its fallback counter
-        # (note_fallback("spread_constraint")); the port has no metrics
-        # module yet
-        terms = p["term_indices"]
+        # (note_fallback("spread_constraint")); the port does not keep it
+        terms, extra = p["term_indices"], p["extra"]
         sub_dec = array._schedule_once_partitioned(
             [bindings[b] for b in wide],
+            None if extra is None else extra[wide],
             None if terms is None else [terms[b] for b in wide],
         )
         out.update(zip(wide, sub_dec))
@@ -455,8 +457,10 @@ def launch_tiered_compact(array, t, tier_rows, capacity, request, reclaim, spec_
     capacity; its c_avail is tier 0's estimate), then per tier
     tier_estimate over the tier's rows' windows, candidate_tail over those
     rows, and tier_consume scattering the placements through cand_idx.
-    Output windows are min(k, topk) wide. Returns (feas_count, main
-    outputs, speculative outputs, cand_idx)."""
+    The estimator answers `t["extra_avail"]` (or None) min-merge into every
+    main pass and never into the speculative one. Output windows are
+    min(k, topk) wide. Returns (feas_count, main outputs, speculative
+    outputs, cand_idx)."""
     from .preemption import run_tiers
 
     f = array._fleet_dev
@@ -467,16 +471,17 @@ def launch_tiered_compact(array, t, tier_rows, capacity, request, reclaim, spec_
         t["replicas"], t["unknown_request"], t["gvk"],
         t["tol_tables"], t["tol_idx"], t["aff_masks"], t["aff_idx"],
         t["prev_idx"], t["prev_rep"], t["evict_idx"], t["seeds"],
-        t["req_unique"], t["req_idx"], None,
+        t["req_unique"], t["req_idx"], t["extra_avail"],
         k=k, plugin_bits=array._plugin_bits,
     )
 
-    def estimate(cap, rows, rows64, first):
-        if first:
+    def estimate(cap, rows, rows64, first, use_extra):
+        if first and use_extra:
             return c_avail.index_select(0, rows64)
         return kernels.tier_estimate(cap, f["has_summary"], t["req_unique"], t["req_idx"],
                                      t["replicas"], t["unknown_request"], rows,
-                                     cand_idx=cand_idx)
+                                     cand_idx=cand_idx,
+                                     extra_avail=t["extra_avail"] if use_extra else None)
 
     def tail(av, _rows, rows64):
         def g(x):
@@ -492,5 +497,5 @@ def launch_tiered_compact(array, t, tier_rows, capacity, request, reclaim, spec_
         return kernels.tier_consume(cap, outs[0], outs[1], request, rows, cand_idx=cand_idx)
 
     main, aug = run_tiers(tier_rows, len(t["replicas"]), capacity, reclaim, spec_tiers,
-                          estimate, tail, consume)
+                          t["extra_avail"] is not None, estimate, tail, consume)
     return feas_count, main, aug, cand_idx

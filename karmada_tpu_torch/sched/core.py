@@ -24,10 +24,13 @@ wide divided rows) select per row and re-solve restricted to their
 selection.
 
 Priority tiers and preemption (sched/preemption.py) ride the same seam:
-`launch_tiered` then `materialize_chunk`. The mesh, registered estimators,
-the daemon's chunk launch and the incremental replay are later slices; the
-paths that would reach them raise NotImplementedError instead of running
-anything else.
+`launch_tiered` then `materialize_chunk`. Registered-estimator answers
+(`extra_avail`, estimator/client.py) ride every round: permuted with the
+rows, padded with the -1 no-answer sentinel, uploaded through one reusable
+pinned buffer and min-merged into the estimate by the filter kernels. The
+mesh, the daemon's chunk launch and the incremental replay are later
+slices; the paths that would reach them raise NotImplementedError instead
+of running anything else.
 """
 from __future__ import annotations
 
@@ -390,6 +393,46 @@ def pad_batch(batch: BindingBatch, bucket_fn) -> BindingBatch:
     )
 
 
+class PinnedStaging:
+    """The padded answer-matrix upload: caller-provided estimator answers
+    padded to the kernel shape with the -1 no-answer sentinel, columns to
+    the (bucket-padded) fleet width and rows to the padded batch. For a
+    card the matrix is written into one reusable pinned host buffer (10 000
+    x 5 120 int32 is 200 MB at the flagship) and copied without blocking;
+    the buffer grows to the largest matrix seen, and before it is written
+    again the host waits for the copy out of it to finish. On the CPU the
+    padded matrix is a new tensor."""
+
+    def __init__(self) -> None:
+        self._buf: Optional[torch.Tensor] = None
+        self._copied: Optional[torch.cuda.Event] = None
+
+    @staticmethod
+    def _fill(host: torch.Tensor, extra: np.ndarray) -> torch.Tensor:
+        view = host.numpy()
+        n, c = extra.shape
+        view[:n, :c] = extra
+        view[:n, c:] = -1
+        view[n:] = -1
+        return host
+
+    def upload(self, extra: np.ndarray, n_rows: int, n_cols: int, device) -> torch.Tensor:
+        """`extra` (i32[n, c], n <= n_rows, c <= n_cols) padded with -1 to
+        [n_rows, n_cols], on `device`."""
+        if device.type != "cuda":
+            return self._fill(torch.empty((n_rows, n_cols), dtype=torch.int32), extra)
+        nbytes = 4 * n_rows * n_cols
+        if self._buf is None or self._buf.numel() < nbytes:
+            self._buf = torch.empty(nbytes, dtype=torch.uint8).pin_memory()
+        elif self._copied is not None:
+            self._copied.synchronize()
+        host = self._fill(self._buf[:nbytes].view(torch.int32).view(n_rows, n_cols), extra)
+        out = host.to(device, non_blocking=True)
+        self._copied = torch.cuda.Event()
+        self._copied.record(torch.cuda.current_stream(device))
+        return out
+
+
 def resolve_max_bc_elems() -> int:
     """THE [B,C]-elements-per-launch budget: KARMADA_TPU_MAX_BC_ELEMS, else
     2<<27. A malformed value fails loudly."""
@@ -466,6 +509,7 @@ class ArrayScheduler:
         self.max_bc_elems = resolve_max_bc_elems()
         self.candidate_k = resolve_candidate_k(candidate_k)
         self.last_candidate_stats: dict = {}
+        self._staging = PinnedStaging()
         # out-of-tree plugins: the port has none (registering one raises),
         # and the tier routing reads this as the reference does
         self._oot_plugins: list = []
@@ -534,19 +578,28 @@ class ArrayScheduler:
         (scheduleResourceBindingWithClusterAffinities, scheduler.go:562-625).
         Rounds over the per-launch row cap run as serial row chunks (rows
         are independent and the tie-break is UID-seeded, so decisions do
-        not depend on the chunking)."""
-        if extra_avail is not None:
-            raise NotImplementedError(
-                "extra_avail from registered estimators is not ported yet "
-                "(the estimator slice of the PyTorch port)"
-            )
+        not depend on the chunking). `extra_avail`: None, or the registered
+        estimators' answers int32 [len(bindings), c] over the first c <=
+        C fleet columns, -1 = no answer (EstimatorRegistry.batch_estimates)."""
         if not bindings:
             return []
         bindings = list(bindings)
+        if extra_avail is not None:
+            extra_avail = np.asarray(extra_avail)
+            C = len(self.fleet.names)
+            if (extra_avail.ndim != 2 or len(extra_avail) != len(bindings)
+                    or extra_avail.shape[1] > C):
+                raise ValueError(
+                    f"extra_avail: shape {extra_avail.shape}, expected "
+                    f"({len(bindings)}, <= {C})"
+                )
+            extra_avail = extra_avail.astype(np.int32, copy=False)
         max_rows = self._max_rows_per_round(len(self.fleet.names))
         out: list[ScheduleDecision] = []
         for s in range(0, len(bindings), max_rows):
-            out += self._materialize_solve(self._launch_solve(bindings[s:s + max_rows]))
+            sub_extra = None if extra_avail is None else extra_avail[s:s + max_rows]
+            out += self._materialize_solve(
+                self._launch_solve(bindings[s:s + max_rows], sub_extra))
         return out
 
     def materialize_chunk(self, pending: dict) -> list[ScheduleDecision]:
@@ -578,15 +631,15 @@ class ArrayScheduler:
                 return i
         return 0
 
-    def _launch_solve(self, bindings: list):
+    def _launch_solve(self, bindings: list, extra_avail=None):
         term_idx = [self._initial_term(rb) for rb in bindings]
-        pending = self._launch_once(bindings, term_idx)
-        return (bindings, term_idx, pending)
+        pending = self._launch_once(bindings, extra_avail, term_idx)
+        return (bindings, extra_avail, term_idx, pending)
 
     def _materialize_solve(self, state) -> list[ScheduleDecision]:
         """Sync + decode, then the ordered-affinity retry loop (retried
         sub-batches solve serially) and the applied term names."""
-        bindings, term_idx, pending = state
+        bindings, extra_avail, term_idx, pending = state
         decisions = self._materialize_once(pending)
         while True:
             retry = [
@@ -599,8 +652,9 @@ class ArrayScheduler:
                 break
             for b in retry:
                 term_idx[b] += 1
+            sub_extra = None if extra_avail is None else extra_avail[retry]
             sub_dec = self._schedule_once(
-                [bindings[b] for b in retry], [term_idx[b] for b in retry]
+                [bindings[b] for b in retry], sub_extra, [term_idx[b] for b in retry]
             )
             for j, b in enumerate(retry):
                 decisions[b] = sub_dec[j]
@@ -610,10 +664,11 @@ class ArrayScheduler:
                 d.affinity_name = terms[term_idx[b]].affinity_name
         return decisions
 
-    def _schedule_once(self, bindings: Sequence, term_indices=None) -> list[ScheduleDecision]:
-        return self._materialize_once(self._launch_once(bindings, term_indices))
+    def _schedule_once(self, bindings: Sequence, extra_avail=None,
+                       term_indices=None) -> list[ScheduleDecision]:
+        return self._materialize_once(self._launch_once(bindings, extra_avail, term_indices))
 
-    def _launch_once(self, bindings: Sequence, term_indices=None) -> dict:
+    def _launch_once(self, bindings: Sequence, extra_avail=None, term_indices=None) -> dict:
         """Encode + kernel dispatch for one round (no device sync): the
         compact candidate round, or the dense round when `dense_reason`
         names one."""
@@ -621,8 +676,8 @@ class ArrayScheduler:
 
         self.last_candidate_stats = {}
         if cand_mod.dense_reason(self, bindings) is None:
-            return cand_mod.launch_candidates(self, bindings, term_indices)
-        return self._launch_once_partitioned(bindings, term_indices)
+            return cand_mod.launch_candidates(self, bindings, extra_avail, term_indices)
+        return self._launch_once_partitioned(bindings, extra_avail, term_indices)
 
     def _materialize_once(self, pending: dict) -> list[ScheduleDecision]:
         if pending.get("candidates"):
@@ -631,12 +686,15 @@ class ArrayScheduler:
             return cand_mod.materialize_candidates(self, pending)
         return self._materialize_once_partitioned(pending)
 
-    def _encode_round(self, bindings: Sequence, term_indices=None):
+    def _encode_round(self, bindings: Sequence, extra_avail=None, term_indices=None):
         """The shared prefix of the compact and dense rounds: classify the
         rows (spread rows are class 0), permute them class-contiguous,
-        encode, pad and upload the batch. Returns (bindings, cls, order,
-        raw, t, spread) in the permuted row order, `t` the batch tensors by
-        field and `spread` the (batched, cfg_of, fallback) spread rows."""
+        encode, pad and upload the batch and the answer matrix. Returns
+        (bindings, cls, order, raw, t, spread, extra) in the permuted row
+        order, `t` the batch tensors by field (with "extra_avail", the
+        padded answers on the device, or None), `spread` the (batched,
+        cfg_of, fallback) spread rows and `extra` the permuted answers on
+        the host (unpadded, or None)."""
         batched, cfg_of, fallback = self._classify_spread(bindings)
         spread_set = set(batched) | set(fallback)
         cls = np.asarray(
@@ -647,6 +705,8 @@ class ArrayScheduler:
         cls = cls[order]
         if term_indices is not None:
             term_indices = [term_indices[i] for i in order]
+        if extra_avail is not None:
+            extra_avail = extra_avail[order]
         # the spread rows in permuted space, ascending
         new_pos = np.empty(len(order), np.int64)
         new_pos[order] = np.arange(len(order))
@@ -659,14 +719,24 @@ class ArrayScheduler:
         raw = self.batch_encoder.encode(bindings, term_indices=term_indices)
         batch = self._pad(raw)
         t = batch_from_numpy({name: getattr(batch, name) for name in _BATCH_FIELDS}, self.device)
-        return bindings, cls, order, raw, t, (batched_p, cfg_p, fallback_p)
+        t["extra_avail"] = self._upload_extra(extra_avail, len(batch.replicas))
+        return bindings, cls, order, raw, t, (batched_p, cfg_p, fallback_p), extra_avail
 
-    def _schedule_once_partitioned(self, bindings: Sequence, term_indices=None):
+    def _upload_extra(self, extra_avail, n_rows: int) -> Optional[torch.Tensor]:
+        """Answers i32[n, c] on the device, padded with -1 to [n_rows, C]
+        (through the pinned staging buffer on a card), or None."""
+        if extra_avail is None:
+            return None
+        return self._staging.upload(extra_avail, n_rows, len(self.fleet.names), self.device)
+
+    def _schedule_once_partitioned(self, bindings: Sequence, extra_avail=None,
+                                   term_indices=None):
         return self._materialize_once_partitioned(
-            self._launch_once_partitioned(bindings, term_indices)
+            self._launch_once_partitioned(bindings, extra_avail, term_indices)
         )
 
-    def _launch_once_partitioned(self, bindings: Sequence, term_indices=None) -> dict:
+    def _launch_once_partitioned(self, bindings: Sequence, extra_avail=None,
+                                 term_indices=None) -> dict:
         """LAUNCH half of the dense round, partitioned by row class (rows
         are permuted class-contiguous before encoding and unpermuted by the
         materialize half):
@@ -692,7 +762,8 @@ class ArrayScheduler:
 
         from .. import kernels
 
-        bindings, cls, order, raw, t, spread = self._encode_round(bindings, term_indices)
+        bindings, cls, order, raw, t, spread, extra = self._encode_round(
+            bindings, extra_avail, term_indices)
         batched_rows, batched_cfg, fallback_rows = spread
         f = self._fleet_dev
 
@@ -702,7 +773,7 @@ class ArrayScheduler:
             t["replicas"], t["unknown_request"], t["gvk"],
             t["tol_tables"], t["tol_idx"], t["aff_masks"], t["aff_idx"],
             t["prev_idx"], t["prev_rep"], t["evict_idx"], t["seeds"],
-            t["req_unique"], t["req_idx"], None,
+            t["req_unique"], t["req_idx"], t["extra_avail"],
             plugin_bits=self._plugin_bits,
         )
 
@@ -744,12 +815,12 @@ class ArrayScheduler:
 
         # ---- phase 2: spread group scoring ----
         spread_pre = self._spread_prelaunch(
-            bindings, raw, batched_rows, batched_cfg, dev_feasible, dev_score, dev_avail,
+            bindings, raw, extra, batched_rows, batched_cfg, dev_feasible, dev_score, dev_avail,
             dev_prev,
         )
 
         return {
-            "bindings": bindings, "raw": raw, "t": t, "cls": cls, "order": order,
+            "bindings": bindings, "raw": raw, "t": t, "extra": extra, "cls": cls, "order": order,
             "n_real": n_real, "dev": (dev_feasible, dev_score, dev_avail, dev_prev, dev_tie),
             "dev_fc": dev_fc, "tails": tails, "packed_dev": packed_dev, "midx_dev": midx_dev,
             "mask_rows": mask_rows, "batched_rows": batched_rows, "batched_cfg": batched_cfg,
@@ -877,7 +948,7 @@ class ArrayScheduler:
         """Replicas per target of a duplicated / non-workload row."""
         return 0 if int(raw.strategy[b]) == NON_WORKLOAD else int(bindings[b].spec.replicas)
 
-    def _spread_prelaunch(self, bindings, raw, batched_rows, batched_cfg,
+    def _spread_prelaunch(self, bindings, raw, extra, batched_rows, batched_cfg,
                           dev_feasible, dev_score, dev_avail, dev_prev):
         """LAUNCH the batched spread rows' group scoring (no sync): rows whose
         scoring inputs are identical share one representative — policy-heavy
@@ -900,8 +971,9 @@ class ArrayScheduler:
             reps[j] = bindings[b].spec.replicas
             dupf[j] = cfg.duplicated
 
-        # the reference's key, with its three out-of-tree terms (estimator
-        # answers, plugin masks and scores) absent in the port
+        # the reference's key: rows whose estimator answers differ never
+        # share a representative (its out-of-tree plugin masks and scores
+        # are absent in the port)
         rep_of: dict[tuple, int] = {}
         rep_js: list[int] = []
         inv = np.empty(S, np.int64)
@@ -913,7 +985,7 @@ class ArrayScheduler:
                 raw.evict_idx[b].tobytes(),
                 raw.prev_idx[b].tobytes(), raw.prev_rep[b].tobytes(),
                 int(need[j]), int(target[j]), bool(dupf[j]),
-                None, None, None,
+                None if extra is None else extra[b].tobytes(), None, None,
             )
             r = rep_of.get(key)
             if r is None:
@@ -1103,9 +1175,11 @@ class ArrayScheduler:
             # affinity term) rides the extra_mask channel, as in the
             # reference
             extra_mask = sel
+        sub_extra = None if p["extra"] is None else p["extra"][live_rows]
         s_feas, s_result, s_unsched, s_avail_sum = (
             x.cpu().numpy()[: len(live_rows)]
-            for x in self.run_kernel(_restrict_rows(raw, live_rows, aff_rows), extra_mask)
+            for x in self.run_kernel(_restrict_rows(raw, live_rows, aff_rows), extra_mask,
+                                     sub_extra)
         )
         for j, b in enumerate(live_rows):
             fidx = np.nonzero(s_feas[j])[0]
@@ -1120,13 +1194,16 @@ class ArrayScheduler:
             unsched[b] = bool(s_unsched[j])
             avail_sum[b] = int(s_avail_sum[j])
 
-    def run_kernel(self, batch: BindingBatch, extra_mask: Optional[np.ndarray] = None):
+    def run_kernel(self, batch: BindingBatch, extra_mask: Optional[np.ndarray] = None,
+                   extra_avail: Optional[np.ndarray] = None):
         """The full solve of a (sub-)batch, as the reference's
         `_schedule_kernel_compact`: the dense filter over its rows, then the
         dense tail over all of them (it places Duplicated rows too).
         `extra_mask` (bool[rows, C], or None) is ANDed into each row's
-        feasibility; pad rows keep theirs. Returns the device (feasible,
-        result, unschedulable, avail_sum), rows padded to the bucket."""
+        feasibility; pad rows keep theirs. `extra_avail` (i32[rows, c], or
+        None) are the rows' estimator answers. Returns the device
+        (feasible, result, unschedulable, avail_sum), rows padded to the
+        bucket."""
         from .. import kernels
         from ..convert import batch_from_numpy
 
@@ -1144,7 +1221,7 @@ class ArrayScheduler:
             t["replicas"], t["unknown_request"], t["gvk"],
             t["tol_tables"], t["tol_idx"], t["aff_masks"], t["aff_idx"],
             t["prev_idx"], t["prev_rep"], t["evict_idx"], t["seeds"],
-            t["req_unique"], t["req_idx"], None,
+            t["req_unique"], t["req_idx"], self._upload_extra(extra_avail, len(padded.replicas)),
             plugin_bits=self._plugin_bits, extra_mask=mask_dev,
         )
         rows = torch.arange(len(padded.replicas), dtype=I32, device=self.device)

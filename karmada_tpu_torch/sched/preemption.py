@@ -18,6 +18,10 @@ solves (PyTorch port of sched/preemption.py).
   augmented launch per distinct preemptor priority. Victim selection on
   the host takes the fewest, lowest-priority, youngest victims.
 
+Registered-estimator answers (`extra_avail`) are snapshot-constant across
+tiers: every tier's main pass min-merges them, and the speculative pass,
+which models victim-freed capacity the estimators cannot see, reads none.
+
 Rows carrying spread constraints or ordered multi-term affinities take the
 standard round inside a tiered batch. Each tier's estimate and tail run
 over that tier's rows only: rows are independent in both, so every row
@@ -26,8 +30,7 @@ from the reference's program is the result row (and its nnz and window) of
 an unschedulable row in the first tier, which the reference zeroes and the
 port keeps; it decodes to the same error either way.
 
-Registered-estimator answers (`extra_avail`), the gang queue and the
-daemon's commit are later slices.
+The gang queue and the daemon's commit are later slices.
 """
 from __future__ import annotations
 
@@ -142,25 +145,28 @@ def _merge_into(bufs: Optional[list], rows64, outs, n_rows: int) -> list:
     return bufs
 
 
-def run_tiers(tier_rows, n_rows: int, cap, reclaim, spec_tiers, estimate, tail, consume):
+def run_tiers(tier_rows, n_rows: int, cap, reclaim, spec_tiers, has_extra: bool,
+              estimate, tail, consume):
     """The tier loop shared by the dense and compact launches. For each
     tier (rows i32 and i64 on the device): `estimate(cap, rows, rows64,
-    first)` the availability of its rows, `tail(avail, rows, rows64)` the
-    six division-tail outputs (result, unschedulable, avail_sum, nnz,
-    top_idx, top_val), the speculative pass over `cap + reclaim[t]` where
-    `spec_tiers[t]`, then `consume(cap, outs, rows)` the capacity left for
-    the next tier. Returns the merged outputs of both passes (the second
-    None without `reclaim`)."""
+    first, use_extra)` the availability of its rows (with the estimator
+    answers when `use_extra`), `tail(avail, rows, rows64)` the six
+    division-tail outputs (result, unschedulable, avail_sum, nnz, top_idx,
+    top_val), the speculative pass over `cap + reclaim[t]` without answers,
+    then `consume(cap, outs, rows)` the capacity left for the next tier.
+    Returns the merged outputs of both passes (the second None without
+    `reclaim`)."""
     main = aug = None
     for t, (rows, rows64) in enumerate(tier_rows):
-        outs = tail(estimate(cap, rows, rows64, t == 0), rows, rows64)
+        outs = tail(estimate(cap, rows, rows64, t == 0, True), rows, rows64)
         main = _merge_into(main, rows64, outs, n_rows)
         if reclaim is not None:
-            if spec_tiers[t]:
-                a_outs = tail(estimate(cap + reclaim[t], rows, rows64, False), rows, rows64)
+            if spec_tiers[t] or has_extra:
+                a_outs = tail(estimate(cap + reclaim[t], rows, rows64, False, False),
+                              rows, rows64)
             else:
-                # reclaim[t] is zero and a tier pass reads no registered
-                # estimator answers: the speculative pass would repeat this one
+                # reclaim[t] is zero and there are no estimator answers to
+                # leave out: the speculative pass would repeat the main one
                 a_outs = outs
             aug = _merge_into(aug, rows64, a_outs, n_rows)
         if t + 1 < len(tier_rows):
@@ -173,8 +179,10 @@ def _launch_dense_tiers(array, t, tier_rows, capacity, request, reclaim, spec_ti
     """The dense tiered launch (the reference's `_tiered_kernel`, B11):
     dense_filter once (its avail is tier 0's estimate), then per tier
     tier_estimate into the avail buffer at the tier's rows, dense_tail
-    through the same row ids, tier_consume. Returns (feas_count, main
-    outputs, speculative outputs)."""
+    through the same row ids, tier_consume. The estimator answers
+    `t["extra_avail"]` (or None) min-merge into every main pass and never
+    into the speculative one. Returns (feas_count, main outputs,
+    speculative outputs)."""
     f = array._fleet_dev
     feas, _score, avail, prev, tie, feas_count = kernels.dense_filter(
         f["alive"], capacity, f["has_summary"], f["taint_key"],
@@ -182,15 +190,16 @@ def _launch_dense_tiers(array, t, tier_rows, capacity, request, reclaim, spec_ti
         t["replicas"], t["unknown_request"], t["gvk"],
         t["tol_tables"], t["tol_idx"], t["aff_masks"], t["aff_idx"],
         t["prev_idx"], t["prev_rep"], t["evict_idx"], t["seeds"],
-        t["req_unique"], t["req_idx"], None,
+        t["req_unique"], t["req_idx"], t["extra_avail"],
         plugin_bits=array._plugin_bits,
     )
 
-    def estimate(cap, rows, _rows64, first):
-        if first:
+    def estimate(cap, rows, _rows64, first, use_extra):
+        if first and use_extra:
             return avail
         return kernels.tier_estimate(cap, f["has_summary"], t["req_unique"], t["req_idx"],
-                                     t["replicas"], t["unknown_request"], rows, out=avail)
+                                     t["replicas"], t["unknown_request"], rows, out=avail,
+                                     extra_avail=t["extra_avail"] if use_extra else None)
 
     def tail(av, rows, _rows64):
         return kernels.dense_tail(feas, av, prev, tie, rows, t["weight_tables"], t["weight_idx"],
@@ -201,14 +210,16 @@ def _launch_dense_tiers(array, t, tier_rows, capacity, request, reclaim, spec_ti
         return kernels.tier_consume(cap, outs[0], outs[1], request, rows)
 
     main, aug = run_tiers(tier_rows, len(t["replicas"]), capacity, reclaim, spec_tiers,
-                          estimate, tail, consume)
+                          t["extra_avail"] is not None, estimate, tail, consume)
     return feas_count, main, aug
 
 
-def _launch_kernel_rows(array: ArrayScheduler, bindings: list, capacity_override=None,
-                        reclaim_tiers=None, count: str = "tiered") -> dict:
+def _launch_kernel_rows(array: ArrayScheduler, bindings: list, extra_avail=None,
+                        capacity_override=None, reclaim_tiers=None,
+                        count: str = "tiered") -> dict:
     """Encode, upload and launch the tiered solve of kernel-eligible rows;
     the returned state feeds `_materialize_kernel_rows`. No device sync.
+    `extra_avail` (i32[rows, c], or None) are the rows' estimator answers.
     `capacity_override` (i64[C,R]) replaces the fleet's capacity (the
     planner's victim-augmented fleet); with `reclaim_tiers`
     (i64[n_tiers,C,R]) the launch also solves the speculative pass."""
@@ -240,6 +251,7 @@ def _launch_kernel_rows(array: ArrayScheduler, bindings: list, capacity_override
         up["reclaim"] = reclaim_np
         spec_tiers = reclaim_np.reshape(len(reclaim_np), -1).any(1)
     t = _upload(up, dev)
+    t["extra_avail"] = array._upload_extra(extra_avail, B)
     capacity = t.get("capacity", array._fleet_dev["capacity"])
     tier_rows = [(t["tier_rows"][lo:hi], t["tier_rows64"][lo:hi])
                  for lo, hi in zip(bounds[:-1], bounds[1:])]
@@ -399,22 +411,23 @@ def launch_tiered(array: ArrayScheduler, bindings: Sequence, extra_avail=None,
     the segmented tiered pass; preemption-armed rows also solve their
     victim-augmented variant in the same launch (`placed` is the
     victim-candidate snapshot). Spread and multi-term rows take the
-    standard round inside the same pending."""
-    if extra_avail is not None:
-        raise NotImplementedError(
-            "extra_avail from registered estimators is not ported yet "
-            "(the estimator slice of the PyTorch port)"
-        )
+    standard round inside the same pending. `extra_avail`: None, or the
+    estimator answers i32[len(bindings), c] (EstimatorRegistry.
+    batch_estimates), split over the two row sets."""
     bindings = list(bindings)
+    if extra_avail is not None:
+        extra_avail = np.asarray(extra_avail, np.int32)
     kernel_rows, std_rows = _eligible_rows(bindings)
     state = std_state = None
     armed: list[int] = []
     if kernel_rows:
         krows = [bindings[i] for i in kernel_rows]
+        sub_extra = None if extra_avail is None else extra_avail[kernel_rows]
         reclaim, armed = _tier_reclaim(array, krows, placed)
-        state = _launch_kernel_rows(array, krows, reclaim_tiers=reclaim)
+        state = _launch_kernel_rows(array, krows, sub_extra, reclaim_tiers=reclaim)
     if std_rows:
-        std_state = array._launch_solve([bindings[i] for i in std_rows])
+        sub_extra = None if extra_avail is None else extra_avail[std_rows]
+        std_state = array._launch_solve([bindings[i] for i in std_rows], sub_extra)
     return {
         "tiered": True, "bindings": bindings,
         "kernel_rows": kernel_rows, "std_rows": std_rows,

@@ -143,3 +143,68 @@ def synthetic_fleet(
         )
         out.append(c)
     return out
+
+
+# -- estimator fixtures ------------------------------------------------------
+
+
+def shard_nodes(seed: int, cluster_name: str):
+    """Deterministic heterogeneous node pool of one member cluster (2-5
+    nodes of 8/16/32 cpu and 32/64 GiB), the reference bench's
+    `_shard_nodes`: the draws are seeded by (seed, crc32 of the name), so
+    every process and both packages rebuild the same pools."""
+    import zlib
+
+    import numpy as np
+
+    from ..models.nodes import NodeSpec
+
+    rng = np.random.default_rng((seed, zlib.crc32(cluster_name.encode())))
+    return [
+        NodeSpec(
+            name=f"{cluster_name}-n{k}",
+            allocatable={
+                CPU: float(rng.choice([8.0, 16.0, 32.0])),
+                MEMORY: float(rng.choice([32.0, 64.0])) * GiB,
+                PODS: 110.0,
+            },
+        )
+        for k in range(int(rng.integers(2, 6)))
+    ]
+
+
+def build_estimator(n_nodes: int, n_pods: int, seed: int = 0):
+    """The reference estimator-server benchmark fixture
+    (server_test.go:265-312, the JAX package's scripts/bench_estimator.py
+    `build`): one AccurateEstimator over `n_nodes` nodes of 16/32/64 cpu
+    and 64/128 GiB, with `n_pods` pods placed first-fit in workload groups
+    of 50-199."""
+    import numpy as np
+
+    from ..estimator.accurate import AccurateEstimator
+    from ..models.nodes import NodeSpec
+
+    rng = np.random.default_rng(seed)
+    nodes = [
+        NodeSpec(
+            name=f"n{k}",
+            allocatable={
+                CPU: float(rng.choice([16.0, 32.0, 64.0])),
+                MEMORY: float(rng.choice([64.0, 128.0])) * GiB,
+                PODS: 110.0,
+            },
+        )
+        for k in range(n_nodes)
+    ]
+    est = AccurateEstimator(nodes)
+    placed = 0
+    w = 0
+    while placed < n_pods:
+        count = min(int(rng.integers(50, 200)), n_pods - placed)
+        est.place(
+            f"w{w}", count,
+            {CPU: float(rng.choice([0.1, 0.25, 0.5])), MEMORY: 0.5 * GiB},
+        )
+        placed += count
+        w += 1
+    return est

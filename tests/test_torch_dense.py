@@ -294,10 +294,11 @@ def test_dense_round_chunks_match_one_round(monkeypatch):
 
 
 def test_dense_round_raises_on_unported_paths():
-    """Registered-estimator answers and out-of-tree plugins still raise on
-    a dense round, naming their slice; a spread row that needs the per-row
-    re-solve without the ClusterAffinity plugin (which raised until the
-    extra_mask channel was ported) now decides as the JAX package."""
+    """Out-of-tree plugins still raise on a dense round, naming their
+    slice; a spread row that needs the per-row re-solve without the
+    ClusterAffinity plugin (which raised until the extra_mask channel was
+    ported) and registered-estimator answers (which raised until the
+    estimator slice) now decide as the JAX package."""
     clusters, bindings = flagship_mix(n_bindings=8)
     plugins = ["*", "-ClusterAffinity"]
     port = TorchScheduler(from_reference_objects(clusters), candidate_k=0, device="cpu",
@@ -311,7 +312,11 @@ def test_dense_round_raises_on_unported_paths():
     want = jcore.ArrayScheduler(clusters, candidate_k=0, plugins=plugins).schedule([ref_rb])
     assert [_decision_view(d) for d in port.schedule([rb])] == [
         _decision_view(d) for d in want]
-    with pytest.raises(NotImplementedError, match="estimator"):
-        port.schedule(from_reference_objects(bindings), extra_avail=np.zeros((8, 96), np.int32))
+    rng = np.random.default_rng(8)
+    extra = np.where(rng.random((8, 96)) < 0.3, -1, rng.integers(0, 40, (8, 96))).astype(np.int32)
+    want = jcore.ArrayScheduler(clusters, candidate_k=0, plugins=plugins).schedule(
+        bindings, extra_avail=extra)
+    got = port.schedule(from_reference_objects(bindings), extra_avail=extra)
+    assert [_decision_view(d) for d in got] == [_decision_view(d) for d in want]
     with pytest.raises(NotImplementedError, match="out-of-tree"):
         port.plugin_registry.register(object())

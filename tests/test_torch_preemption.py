@@ -469,13 +469,18 @@ def test_routing_matches_jax():
 
 
 def test_unported_paths_raise(monkeypatch):
-    """Registered-estimator answers, a non-tiered chunk (the daemon slice)
-    and a default device without a card raise, naming what is missing."""
+    """A non-tiered chunk (the daemon slice) and a default device without a
+    card raise, naming what is missing; registered-estimator answers (which
+    raised until the estimator slice) decide as the JAX package."""
     clusters = tight_fleet()
     tarr = TorchScheduler(conv(clusters), device="cpu")
-    bindings = conv(mixed_priority_bindings(n=4))
-    with pytest.raises(NotImplementedError, match="estimator"):
-        tpre.launch_tiered(tarr, bindings, extra_avail=np.zeros((4, 8), np.int32))
+    ref = mixed_priority_bindings(n=4)
+    bindings = conv(ref)
+    extra = np.asarray([[-1, 0, 2], [1, -1, -1], [0, 3, 1], [-1, -1, -1]], np.int32)
+    want = jcore.ArrayScheduler(clusters).materialize_chunk(
+        jpre.launch_tiered(jcore.ArrayScheduler(clusters), ref, extra_avail=extra))
+    got = tarr.materialize_chunk(tpre.launch_tiered(tarr, bindings, extra_avail=extra))
+    assert [_view(d) for d in got] == [_view(d) for d in want]
     with pytest.raises(NotImplementedError, match="daemon"):
         tarr.materialize_chunk({"out": [None], "state": None})
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

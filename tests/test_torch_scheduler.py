@@ -194,11 +194,20 @@ def test_spread_row_raises():
     assert got[0].ok
 
 
-def test_extra_avail_raises():
+def test_extra_avail_matches_reference():
+    """Registered-estimator answers (-1, 0, and values below and above the
+    general estimate) ride the compact round as in the JAX package; an
+    answer matrix of the wrong shape is refused."""
     clusters, bindings = flagship_mix(n_bindings=8)
+    rng = np.random.default_rng(9)
+    extra = np.where(rng.random((8, 96)) < 0.3, -1,
+                     rng.choice([0, 3, 17, 1 << 20], (8, 96))).astype(np.int32)
     port = TorchScheduler(from_reference_objects(clusters), candidate_k=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="estimator"):
-        port.schedule(from_reference_objects(bindings), extra_avail=np.zeros((8, 96), np.int32))
+    want = jcore.ArrayScheduler(clusters, candidate_k=16).schedule(bindings, extra_avail=extra)
+    got = port.schedule(from_reference_objects(bindings), extra_avail=extra)
+    assert [_decision_view(d) for d in got] == [_decision_view(d) for d in want]
+    with pytest.raises(ValueError, match="extra_avail"):
+        port.schedule(from_reference_objects(bindings), extra_avail=extra[:4])
 
 
 def test_default_device_without_cuda_raises(monkeypatch):
