@@ -34,8 +34,14 @@ result line otherwise. Phases, each of which raises on failure:
    node fleets (shard_nodes pools) with their rows and on the reference
    estimator fixture (5 000 nodes, 100 000 pods) as one cluster, timed at
    the flagship sweep; staleness_penalty on a random i32 [10 000, 5 000]
-   matrix at ages 0-10, with torch.where as its library call
-   (`--kernels-only` stops here);
+   matrix at ages 0-10, with torch.where as its library call;
+   scatter_rows (the dirty-column refresh) on seeded fleets at 5 120
+   columns with repeated indices, every dtype, with index_copy_ as its
+   library call; candidate_tail's K > 128 route on seeded tie-heavy
+   windows at K = 192, 256 and 512 and on the flagship's K = 256 windows;
+   candidate_select's wide route on seeded rows at C = 20 480 and 32 768
+   (with and without answers; on one chunk of the wide_40k round in phase
+   4, where that fixture is built) (`--kernels-only` stops here);
 4. the main paths through ArrayScheduler.schedule() on the card, each with
    every launch count set to 0 just before it and read just after, timed
    rounds with p50/p90/p99, and decisions held against the port's CPU
@@ -74,18 +80,36 @@ result line otherwise. Phases, each of which raises on failure:
    and tiers_estimator (the tiers_compact batch with answers through
    launch_tiered, a speculative pass in every tier), 20 rounds each;
    answer matrices held against the per-cluster host path, decisions
-   against the CPU round given the same answers;
+   against the CPU round given the same answers; then the chunk surface:
+   churn (BASELINE config 5, bench.py build_churn: 5 000 x 10 000, every
+   binding with previous placements, schedule()), churn_incremental
+   (config 5b: 5 % of the bindings dirtied per round,
+   schedule_incremental replaying the rest), churn_dirty (50 clusters
+   change status per round: set_clusters with dirty_names through
+   scatter_rows, then every row re-solved), pipeline (the churn round at
+   a B*C/8 budget: the serial leg, the scheduler's default, and the
+   pipelined leg, 3 interleaved runs each, stage seconds and overlap
+   ratio; then one pipelined round under a side stream with estimator
+   answers and ordered affinity terms, whose retries upload on the writer
+   thread), wide_40k (the
+   flagship mix at 20 000 clusters x 40 000 bindings: pipelined chunks
+   through the wide select route, the serial leg, a 2 048-row sample
+   over every chunk and row class held against the CPU round) and
+   flagship_k256 (the compact flagship at candidate_k=256 through the
+   K > 128 tail, and one tiered compact round at K = 256);
 5. the `kernels` JSON line, then the card's name and power limit, then the
    last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
 import gc
 import json
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -93,6 +117,7 @@ import torch
 
 from karmada_tpu_torch import faults, kernels
 from karmada_tpu_torch.api import policy as pol
+from karmada_tpu_torch.api.cluster import CLUSTER_CONDITION_READY, EFFECT_NO_SCHEDULE, Taint
 from karmada_tpu_torch.api.meta import CPU, MEMORY, ObjectMeta, new_uid
 from karmada_tpu_torch.api.work import (
     BindingSpec,
@@ -118,6 +143,7 @@ from karmada_tpu_torch.models.batch import (
 from karmada_tpu_torch.models.nodes import NodeEncoder
 from karmada_tpu_torch.sched.candidates import DENSE_SOLVE_ANNOTATION, effective_k
 from karmada_tpu_torch.sched import preemption, spread_batch
+from karmada_tpu_torch.sched.pipeline import chunk_spans, plan_chunk_rows
 from karmada_tpu_torch.sched.core import (
     TOPK_TARGETS,
     ArrayScheduler,
@@ -162,6 +188,22 @@ PLAIN_ESTIMATE_ROWS = 256  # row chunk of the plain fleet estimate on the card
 TIER_PRIORITIES = (0, 1000, 100000, 1000000)
 PREEMPTORS = 256
 PREEMPT_FREE_CPU = 0.25  # bench.py run_preempt's preempt leg: 0.25 cpu free per cluster
+CHURN_ROUNDS = 20  # timed rounds of the churn cell
+CHUNK_ROUNDS = 10  # timed rounds of churn_incremental, churn_dirty and flagship_k256
+INCREMENTAL_DIRTY = 0.05  # config 5b: 5 % of the bindings dirtied per round
+DIRTY_CLUSTERS = 50  # churn_dirty: 1 % of the fleet changes status per round
+PIPELINE_RUNS = 3  # runs of each pipeline leg, interleaved
+RETRY_EVERY = 8  # one churn binding in 8 under ordered affinity terms (pipeline cell)
+PIPELINE_ROUNDS = 5  # timed rounds per run
+WIDE_CLUSTERS = 20_000  # the reference's 40k x 20k scale point
+WIDE_BINDINGS = 40_000
+WIDE_ROUNDS = 3
+WIDE_SAMPLE = 2048  # wide_40k rows held against the cpu round
+WIDE_TAIL_KS = (192, 256, 512)  # the K > 128 tail's random checks
+WIDE_TAIL_ROWS = 2048
+WIDE_SELECT_CS = (20_480, 32_768)  # the wide select route's random checks
+WIDE_SELECT_ROWS = 2048
+K256 = 256  # flagship_k256's candidate window
 DEVICE = "cuda"
 
 FLEET = ("alive", "capacity", "has_summary", "taint_key", "taint_value", "taint_effect", "api_ok")
@@ -899,12 +941,13 @@ def drive(label, sched, bindings, rounds, expect, smi, run=None):
     return decisions, launches, times
 
 
-def hold_against_cpu(label, clusters, bindings, decisions, cpu_run=None):
+def hold_against_cpu(label, clusters, bindings, decisions, cpu_run=None, **sched_kw):
     """Run the same bindings through the port's CPU round (`cpu_run(cpu
-    scheduler)`, default `schedule(bindings)`) and require identical
-    decisions, speculative decisions included."""
+    scheduler)`, default `schedule(bindings)`; the scheduler built with
+    `sched_kw`) and require identical decisions, speculative decisions
+    included."""
     t0 = time.perf_counter()
-    cpu_sched = ArrayScheduler(clusters, device="cpu")
+    cpu_sched = ArrayScheduler(clusters, device="cpu", **sched_kw)
     want = cpu_run(cpu_sched) if cpu_run else cpu_sched.schedule(bindings)
     cpu_s = time.perf_counter() - t0
     got = [decision_view(d) for d in decisions]
@@ -1379,9 +1422,9 @@ def check_spread_kernels(dev, results):
     W[:, 0] += np.arange(COMBO_ROWS)  # 4 096 distinct rows
     # rmax 4: the table C(16, 3..4) keeps 4 096 rows inside the device gate
     cfg = spread_batch.SpreadConfig(rmin=3, rmax=4, cmin=4, cmax=0, duplicated=False)
-    before = kernels.combo_select.launches
+    before = kernels.launch_counts()["combo_select"]
     on_card = spread_batch.select_regions_batch(W, V, cfg, layouts["config 4"], on=dev)
-    if kernels.combo_select.launches != before + 1:
+    if kernels.launch_counts()["combo_select"] != before + 1:
         raise AssertionError("select_regions_batch on 4096 rows did not launch combo_select")
     host = spread_batch.select_regions_batch(W, V, cfg, layouts["config 4"], device=False)
     if not (np.array_equal(on_card.chosen, host.chosen) and on_card.errors == host.errors
@@ -2151,6 +2194,563 @@ def round_breakdown(label, sched, bindings, kernel_ms, p50):
         f"round {share}")
 
 
+# --------------------------------------------------------------------------
+# the chunk surface (BASELINE config 5: churn, replay, the dirty refresh,
+# the pipeline) and the wide routes of candidate_select / candidate_tail
+# --------------------------------------------------------------------------
+
+
+def _churn_bindings(rng, names, n_bindings):
+    """bench.py's churn working set (`_churn_bindings`, the same draws):
+    every binding with 1-4 previous clusters, Steady scale-up / scale-down
+    / unchanged and Fresh reschedule in turn, one in three Aggregated."""
+    n_clusters = len(names)
+    bindings = []
+    for i in range(n_bindings):
+        prev_n = int(rng.integers(1, 5))
+        prev_idx = rng.choice(n_clusters, size=prev_n, replace=False)
+        prev = {}
+        prev_total = 0
+        for j in prev_idx:
+            r = int(rng.integers(1, 8))
+            prev[names[int(j)]] = r
+            prev_total += r
+        mode = i % 4
+        if mode == 0:  # steady scale-up
+            replicas = prev_total + int(rng.integers(1, 16))
+        elif mode == 1:  # steady scale-down
+            replicas = max(1, prev_total - int(rng.integers(1, prev_total + 1)))
+        elif mode == 2:  # unchanged
+            replicas = prev_total
+        else:  # fresh reschedule
+            replicas = prev_total + int(rng.integers(0, 8))
+        rb = _binding(i, replicas, _dyn_placement(aggregated=(i % 3 == 0)),
+                      float(rng.choice([0.25, 0.5])), prev=prev)
+        if mode == 3:
+            rb.spec.reschedule_triggered_at = 2.0
+            rb.status.last_scheduled_time = 1.0
+        bindings.append(rb)
+    return bindings
+
+
+def build_churn(seed=0, n_clusters=N_CLUSTERS, n_bindings=N_BINDINGS):
+    """BASELINE config 5 (bench.py:353 build_churn): the steady-state
+    replay round, 5 000 clusters x 10 000 bindings."""
+    rng = np.random.default_rng(seed)
+    clusters = synthetic_fleet(n_clusters, seed=seed)
+    return clusters, _churn_bindings(rng, [c.name for c in clusters], n_bindings)
+
+
+def churn_drift(bindings, dirty_frac=INCREMENTAL_DIRTY):
+    """bench.py:442 build_churn_incremental's pre-round step: the next
+    dirty_frac of the bindings (a cursor walks the list) get a generation
+    bump and a replica drift, the store-update contract."""
+    n_dirty = max(1, int(len(bindings) * dirty_frac))
+    state = {"cursor": 0}
+
+    def step():
+        start = state["cursor"]
+        for k in range(n_dirty):
+            rb = bindings[(start + k) % len(bindings)]
+            rb.metadata.generation += 1
+            rb.spec.replicas = max(1, rb.spec.replicas + (k % 3) - 1)
+        state["cursor"] = (start + n_dirty) % len(bindings)
+
+    return step, n_dirty
+
+
+def status_churn(clusters, rounds, seed=7, n_dirty=DIRTY_CLUSTERS):
+    """`rounds` successive fleets in which n_dirty clusters change status
+    each: allocated cpu redrawn, one in ten flips Ready, one in ten takes a
+    NoSchedule taint (replacing its taints, so the taint axis never
+    widens). Labels, provider, region and zone stay, so the dirty-column
+    path applies, as member heartbeats drive it. Returns [(fleet, dirty
+    names)]."""
+    rng = np.random.default_rng(seed)
+    live = list(clusters)
+    out = []
+    for r in range(rounds):
+        dirty = set()
+        for j, i in enumerate(rng.choice(len(live), n_dirty, replace=False)):
+            c = copy.deepcopy(live[int(i)])
+            alloc = c.status.resource_summary.allocatable[CPU]
+            c.status.resource_summary.allocated[CPU] = float(alloc * rng.uniform(0.0, 0.95))
+            if j % 10 == 0:
+                for cond in c.status.conditions:
+                    if cond.type == CLUSTER_CONDITION_READY:
+                        cond.status = "False" if cond.status == "True" else "True"
+            elif j % 10 == 1:
+                c.spec.taints = [Taint(key="churn", value=f"r{r}", effect=EFFECT_NO_SCHEDULE)]
+            live[int(i)] = c
+            dirty.add(c.name)
+        out.append((list(live), dirty))
+    return out
+
+
+def random_fleet(rng, dev, C, T=4, G=6, R=4):
+    """Seeded fleet tensors of every dtype the resident fleet holds (bool,
+    int32, int64), in FLEET order."""
+    d = {
+        "alive": rng.random(C) < 0.9,
+        "capacity": rng.integers(-10, 2_000_000, (C, R)).astype(np.int64),
+        "has_summary": rng.random(C) < 0.95,
+        "taint_key": rng.integers(0, 4, (C, T)).astype(np.int32),
+        "taint_value": rng.integers(0, 3, (C, T)).astype(np.int32),
+        "taint_effect": rng.integers(0, 4, (C, T)).astype(np.int32),
+        "api_ok": rng.random((C, G)) < 0.9,
+    }
+    t = batch_from_numpy(d, dev)
+    return [t[n] for n in FLEET]
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def check_scatter_rows(dev, results):
+    """B17 on seeded fleets at the churn fleet's width (5 120): 50 dirty
+    rows plus 8 repeated ones (a duplicate carries the same row), every
+    dtype, against its plain version (`dst[idx] = src`) and index_copy_."""
+    rng = np.random.default_rng(40)
+    C = shape_bucket(N_CLUSTERS)
+    base, new = random_fleet(rng, dev, C), random_fleet(rng, dev, C)
+    rows = rng.choice(C, DIRTY_CLUSTERS, replace=False)
+    rows = np.concatenate([rows, rows[:8]])
+    idx = torch.from_numpy(rows.astype(np.int64)).to(dev)
+    srcs = [x.index_select(0, idx) for x in new]
+    got = [x.clone() for x in base]
+    kernels._scatter_rows_launch(got, idx, srcs)
+    want = kernels.scatter_rows_plain([x.clone() for x in base], idx, srcs)
+    err = compare("scatter_rows[random]", got, want, FLEET)
+    lib = [x.clone() for x in base]
+    for d, x in zip(lib, srcs):
+        d.index_copy_(0, idx, x)
+    err = max(err, compare("scatter_rows[index_copy_]", got, lib, FLEET))
+    keep = torch.ones(C, dtype=torch.bool, device=dev)
+    keep[idx] = False
+    if not all(torch.equal(g[keep], b[keep]) for g, b in zip(got, base)):
+        raise AssertionError("scatter_rows wrote a row outside idx")
+    ms = cuda_ms(lambda: kernels._scatter_rows_launch(got, idx, srcs), 200)
+    plain = cuda_ms(lambda: kernels.scatter_rows_plain(want, idx, srcs), 50)
+    lib_ms = cuda_ms(lambda: [d.index_copy_(0, idx, x) for d, x in zip(lib, srcs)], 50)
+    # a launch this small is timed by its host side; the device's own time
+    # of one launch, and of the seven index_copy_ calls, from the profiler
+    dev_ms = profiled_device_ms(None, None, lambda: kernels._scatter_rows_launch(got, idx, srcs))
+    lib_dev_ms = profiled_device_ms(
+        None, None, lambda: [d.index_copy_(0, idx, x) for d, x in zip(lib, srcs)])
+    # bytes: the index and the source rows read once, as many written
+    b, by = bound(nbytes([idx]) + 2 * nbytes(srcs), 0)
+    results["scatter_rows"] = dict(
+        source="karmada_tpu_torch/kernels/csrc/scatter_rows.cu",
+        replaces="karmada_tpu/sched/core.py:561", max_abs_err=err, ms=ms, plain_ms=plain,
+        bound_ms=b, bound_by=by, library_ms=lib_ms)
+    log(f"scatter_rows: {len(rows)} rows ({DIRTY_CLUSTERS} distinct) into the seven fleet "
+        f"tensors at C = {C} (bool, int32, int64) equal the plain version and index_copy_; "
+        f"timing {ms:.4f} ms for all seven in one launch (plain {plain:.4f}, index_copy_ "
+        f"{lib_ms:.4f}, bound {b:.6f} {by}: launch-bound); device time (torch.profiler, one "
+        f"call) {fmt_ms(dev_ms)}, the seven index_copy_ {fmt_ms(lib_dev_ms)}")
+
+
+def check_wide_tail(dev, results, flag):
+    """candidate_tail past MAX_TAIL_K (dense_tail.cu's window mode): seeded
+    tie-heavy windows at K = 192, 256 and 512, then the flagship batch's
+    own K = 256 windows (flagship_k256's), timed there."""
+    rng = np.random.default_rng(41)
+    C = shape_bucket(N_CLUSTERS)
+    err = 0
+    for K in WIDE_TAIL_KS:
+        r_tail = random_tail_inputs(rng, dev, WIDE_TAIL_ROWS, K, C)
+        for has_agg, topk in ((True, 128), (False, 16), (True, 8)):
+            err = max(err, compare(f"candidate_tail[wide random K={K},{has_agg},{topk}]",
+                                   kernels._tail_launch(*r_tail, topk=topk, has_agg=has_agg),
+                                   kernels.tail_plain(*r_tail, topk=topk, has_agg=has_agg),
+                                   TAIL_OUT))
+    del r_tail
+    sched = ArrayScheduler(flag["clusters"], candidate_k=K256, device=dev)
+    sel_args, k, t, tails = flagship_kernel_inputs(sched, flag["bindings"])
+    if k != K256:
+        raise AssertionError(f"flagship at candidate_k={K256}: effective K {k}")
+    sel = kernels._select_launch(*sel_args, k=k, plugin_bits=sched._plugin_bits)
+    t_args = [tail_args(sel, t, idx) for idx, _, _ in tails]
+    outs = []
+    for a, (_, topk, has_agg) in zip(t_args, tails):
+        out = kernels._tail_launch(*a, topk=topk, has_agg=has_agg)
+        err = max(err, compare(f"candidate_tail[flagship K={k},{has_agg}]", out,
+                               kernels.tail_plain(*a, topk=topk, has_agg=has_agg), TAIL_OUT))
+        outs.append(out)
+
+    def both(fn):
+        return lambda: [fn(*a, topk=topk, has_agg=h) for a, (_, topk, h) in zip(t_args, tails)]
+
+    ms = cuda_ms(both(kernels._tail_launch), 10)
+    plain = cuda_ms(both(kernels.tail_plain), 3)
+    b, by = tail_bound(t_args, outs)
+    results["candidate_tail_wide"] = dict(
+        source="karmada_tpu_torch/kernels/csrc/dense_tail.cu",
+        replaces="karmada_tpu/sched/candidates.py:280", max_abs_err=err, ms=ms, plain_ms=plain,
+        bound_ms=b, bound_by=by, library_ms=None)
+    log(f"candidate_tail wide route: random windows K = {WIDE_TAIL_KS} ({WIDE_TAIL_ROWS} rows) "
+        f"and the flagship's K = {k} windows (rows {[int(i.numel()) for i, _, _ in tails]}) "
+        f"equal the plain version; timing, both launches of a round {ms:.3f} ms (plain "
+        f"{plain:.3f}, bound {b:.4f} {by})")
+
+
+def check_wide_select(dev):
+    """candidate_select past MAX_SELECT_SMEM (the radix-select route):
+    seeded tie-heavy rows at C = 20 480 and 32 768, with and without a
+    random extra_avail. It is timed on a wide_40k chunk in phase 4
+    (check_wide_chunk), where that fixture is built."""
+    rng = np.random.default_rng(42)
+    err = 0
+    for C in WIDE_SELECT_CS:
+        r_args = random_select_inputs(rng, dev, WIDE_SELECT_ROWS, C)
+        if kernels.select_route(C, 128, r_args[10].shape[2], r_args[14].shape[1],
+                                r_args[16].shape[1]) != "candidate_select_wide":
+            raise AssertionError(f"C={C} does not take the wide select route")
+        for tag, args in (("extra_avail", r_args), ("no answers", r_args[:-1] + [None])):
+            err = max(err, compare(f"candidate_select[wide random C={C}, {tag}]",
+                                   kernels._select_launch(*args, k=128, plugin_bits=31),
+                                   kernels.select_plain(*args, k=128, plugin_bits=31),
+                                   SELECT_OUT))
+        del r_args, args
+    log(f"candidate_select wide route: random rows at C = {WIDE_SELECT_CS} ({WIDE_SELECT_ROWS} "
+        f"rows, with and without extra_avail) equal the plain version")
+    torch.cuda.empty_cache()
+    return err
+
+
+def check_wide_chunk(dev, results, sched, bindings, err):
+    """The wide select route on one chunk of the wide_40k round (its own
+    batch, the pipelined chunk's rows) against its plain version, timed
+    there; `err` is the random checks' largest error."""
+    rows = sched.pipeline_chunk_rows(len(sched.fleet.names))
+    sel_args, k, _t, _tails = flagship_kernel_inputs(sched, bindings[:rows])
+    bits = sched._plugin_bits
+    sel = kernels._select_launch(*sel_args, k=k, plugin_bits=bits)
+    err = max(err, compare("candidate_select[wide_40k chunk]", sel,
+                           kernels.select_plain(*sel_args, k=k, plugin_bits=bits), SELECT_OUT))
+    ms = cuda_ms(lambda: kernels._select_launch(*sel_args, k=k, plugin_bits=bits), 5)
+    plain = cuda_ms(lambda: kernels.select_plain(*sel_args, k=k, plugin_bits=bits), 2)
+    b, by = select_bound(sel_args, sel, k)
+    results["candidate_select_wide"] = dict(
+        source="karmada_tpu_torch/kernels/csrc/candidate_select.cu",
+        replaces="karmada_tpu/sched/candidates.py:210", max_abs_err=err, ms=ms, plain_ms=plain,
+        bound_ms=b, bound_by=by, library_ms=None)
+    log(f"candidate_select wide route: one wide_40k chunk ({sel_args[7].shape[0]} x "
+        f"{sel_args[0].shape[0]}, k={k}) equals the plain version; timing on that chunk "
+        f"{ms:.3f} ms (plain {plain:.3f}, bound {b:.4f} {by})")
+    del sel_args, sel
+    torch.cuda.empty_cache()
+
+
+def chunk_expect(sched, n_rows, per_chunk):
+    """Launches of one chunked round: `per_chunk` per chunk, as many
+    chunks as _schedule_chunked cuts."""
+    max_rows = sched._max_rows_per_round(len(sched.fleet.names))
+    cap = max_rows
+    if sched.pipeline_enabled:
+        cap = min(max_rows, sched.pipeline_chunk_rows(len(sched.fleet.names)))
+    n = len(chunk_spans(n_rows, plan_chunk_rows(n_rows, cap))) if n_rows > max_rows else 1
+    return {name: c * n for name, c in per_chunk.items()}, n
+
+
+def same_decisions(label, got, want):
+    a = [decision_view(d) for d in got]
+    b = [decision_view(d) for d in want]
+    if a != b:
+        bad = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        raise AssertionError(f"{label}: decisions differ at row {bad}: {a[bad]} vs {b[bad]}")
+
+
+def pipeline_stats_line(stats):
+    st = stats["stage_seconds"]
+    return (f"{stats['chunks']} chunks of {stats['chunk_rows']} rows, stage seconds "
+            f"{ {k: round(v, 4) for k, v in st.items()} }, wall {stats['wall_seconds']:.4f} s, "
+            f"overlap ratio {stats['overlap_ratio']}")
+
+
+def retry_bindings(clusters, seed=1, n_bindings=N_BINDINGS, every=RETRY_EVERY):
+    """The churn working set with every `every`-th binding under ordered
+    affinity terms whose first names no cluster of the fleet, so its row
+    retries on the second (scheduler.go:562-625)."""
+    names = [c.name for c in clusters]
+    bindings = _churn_bindings(np.random.default_rng(seed), names, n_bindings)
+    for rb in bindings[::every]:
+        rb.spec.placement = pol.Placement(
+            cluster_affinities=[
+                pol.ClusterAffinityTerm(
+                    affinity_name="primary",
+                    affinity=pol.ClusterAffinity(cluster_names=["no-such-cluster"])),
+                pol.ClusterAffinityTerm(
+                    affinity_name="backup",
+                    affinity=pol.ClusterAffinity(cluster_names=names[10:40])),
+            ],
+            replica_scheduling=rb.spec.placement.replica_scheduling,
+        )
+    return bindings
+
+
+def run_churn_cells(dev, smi, path_launches, compact_ms):
+    """Phase 4's config-5 cells over one churn fleet: churn (schedule(),
+    one chunk), churn_incremental (schedule_incremental, 5 % of the
+    bindings dirtied per round after a warm round), churn_dirty
+    (set_clusters with dirty_names, then schedule_incremental: B17 every
+    round, the encoder kept, every row solved), and pipeline (the churn
+    round under a budget of B*C/8: serial and pipelined legs, 3 runs
+    each; then one pipelined round with answers and affinity retries on
+    the writer thread, under a side stream)."""
+    clusters, bindings = build_churn()
+    one = {"candidate_select": 1, "candidate_tail": 2}
+
+    sched = ArrayScheduler(clusters, device=dev)
+    decisions, launches, times = drive("churn (config 5, schedule())", sched, bindings,
+                                       CHURN_ROUNDS, one, smi)
+    # the compact flagship's phase-3 kernel time: the same shapes (10 240 x
+    # 5 120 select, K = 128 tails)
+    round_breakdown("churn", sched, bindings, compact_ms, float(np.percentile(times, 50)))
+    hold_against_cpu("churn", clusters, bindings, decisions)
+
+    # ---- churn_incremental (config 5b) ----
+    inc = ArrayScheduler(clusters, device=dev)
+    inc.schedule_incremental(bindings)  # the warm round fills the replay cache
+    if inc.last_round_stats != {"replayed": 0, "solved": len(bindings)}:
+        raise AssertionError(f"churn_incremental warm round: {inc.last_round_stats}")
+    step, n_dirty = churn_drift(bindings)
+    splits = []
+
+    def run_inc():
+        step()
+        out = inc.schedule_incremental(bindings)
+        splits.append(dict(inc.last_round_stats))
+        return out
+
+    decisions, _, _ = drive(f"churn_incremental (config 5b, {n_dirty} of {len(bindings)} "
+                            "bindings dirtied per round)", inc, bindings, CHUNK_ROUNDS, one, smi,
+                            run=run_inc)
+    want_split = {"replayed": len(bindings) - n_dirty, "solved": n_dirty}
+    if any(s != want_split for s in splits):
+        raise AssertionError(f"churn_incremental: round splits {splits}, expected {want_split}")
+    same_decisions("churn_incremental vs a cold schedule() on the card", decisions,
+                   ArrayScheduler(clusters, device=dev).schedule(bindings))
+    hold_against_cpu("churn_incremental", clusters, bindings, decisions)
+    log(f"churn_incremental: every round replayed {want_split['replayed']} and solved "
+        f"{n_dirty}; decisions equal a cold schedule() on the card and the cpu round")
+    del inc
+
+    # ---- churn_dirty: status heartbeats through the dirty-column path ----
+    fleets = status_churn(clusters, CHUNK_ROUNDS + 1)
+    dsched = ArrayScheduler(clusters, device=dev)
+    dsched.schedule_incremental(bindings)
+    encoder = dsched.batch_encoder
+    state = {"i": 0, "splits": []}
+
+    def run_dirty():
+        live, dirty = fleets[state["i"]]
+        state["i"] += 1
+        dsched.set_clusters(live, dirty_names=dirty)
+        out = dsched.schedule_incremental(bindings)
+        state["splits"].append(dict(dsched.last_round_stats))
+        return out
+
+    decisions, launches, _ = drive(
+        f"churn_dirty ({DIRTY_CLUSTERS} clusters change status per round)", dsched, bindings,
+        CHUNK_ROUNDS, {**one, "scatter_rows": 1}, smi, run=run_dirty)
+    path_launches["scatter_rows"] = launches["scatter_rows"]
+    if dsched.batch_encoder is not encoder:
+        raise AssertionError("churn_dirty: the batch encoder was rebuilt (full re-encode)")
+    if any(sp != {"replayed": 0, "solved": len(bindings)} for sp in state["splits"]):
+        raise AssertionError(f"churn_dirty: round splits {state['splits']}")
+    live = fleets[-1][0]
+    # the resident tensors against a full encode by the same encoder (same
+    # interned ids)
+    full = dsched.encoder.encode(dsched.clusters)
+    for n in FLEET:
+        if not np.array_equal(dsched._fleet_dev[n].cpu().numpy(), getattr(full, n)):
+            raise AssertionError(f"churn_dirty: resident {n} differs from a full re-encode")
+    fresh = ArrayScheduler(live, device=dev)
+    same_decisions("churn_dirty vs a fresh scheduler on the card", decisions,
+                   fresh.schedule(bindings))
+    hold_against_cpu("churn_dirty", live, bindings, decisions)
+    log(f"churn_dirty: {CHUNK_ROUNDS + 1} rounds, each scatter_rows once into the resident "
+        "fleet, the batch encoder kept, every binding solved (epoch bumped); resident tensors "
+        "equal a full re-encode; decisions equal a fresh scheduler on the card and the cpu")
+    del dsched, fresh, fleets
+
+    # ---- pipeline: serial vs pipelined legs under a B*C/8 budget ----
+    budget = max(1, (len(bindings) * len(clusters)) // 8)
+    legs = {}
+    for leg, pipelined in (("serial", None), ("pipelined", True)):
+        s = ArrayScheduler(clusters, device=dev, pipeline=pipelined)
+        s.max_bc_elems = budget
+        legs[leg] = s
+    if legs["serial"].pipeline_enabled:
+        raise AssertionError("pipeline: the scheduler's default is not the serial executor")
+    per = {}
+    first = None
+    order = tuple(legs) * PIPELINE_RUNS
+    for run_i, leg in enumerate(order):
+        s = legs[leg]
+        expect, n_chunks = chunk_expect(s, len(bindings), one)
+        stats = []
+
+        def run_leg(s=s, stats=stats):
+            out = s.schedule(bindings)
+            stats.append(s.last_pipeline_stats)
+            return out
+
+        decisions, launches, times = drive(f"pipeline, {leg} leg (run {run_i // 2 + 1})", s,
+                                           bindings, PIPELINE_ROUNDS, expect, smi, run=run_leg)
+        if first is None:
+            first = decisions
+            # the bindings drifted in churn_incremental: the first leg's
+            # decisions against the cpu round, every later one against it
+            hold_against_cpu("pipeline (serial leg)", clusters, bindings, decisions)
+        same_decisions(f"pipeline {leg} vs the serial leg", decisions, first)
+        rec = per.setdefault(leg, {"times": [], "stats": []})
+        rec["times"] += times
+        rec["stats"] += stats[1:]
+        log(f"pipeline {leg} (run {run_i // 2 + 1}): last round {pipeline_stats_line(stats[-1])}")
+    serial_sum = None
+    for leg, rec in per.items():
+        ratios = [st["overlap_ratio"] for st in rec["stats"]]
+        stages = {}
+        for st in rec["stats"]:
+            for k, v in st["stage_seconds"].items():
+                stages[k] = stages.get(k, 0.0) + v / len(rec["stats"])
+        total = sum(stages.values())
+        serial_sum = total if serial_sum is None else serial_sum
+        # stage seconds past the serial leg's: the overlapped stages took
+        # longer (waits on the interpreter lock or the stream are one
+        # hypothesis; nothing here measures them)
+        log(f"pipeline {leg}: p50 {np.percentile(rec['times'], 50):.4f} s p90 "
+            f"{np.percentile(rec['times'], 90):.4f} s over {len(rec['times'])} rounds "
+            f"({PIPELINE_RUNS} runs); mean stage seconds "
+            f"{ {k: round(v, 4) for k, v in stages.items()} } (sum {total:.4f} s, "
+            f"{total - serial_sum:+.4f} s against the serial leg's, "
+            f"{(total - serial_sum) / total:.3f} of this leg's stage time); overlap ratio "
+            f"median {np.median(ratios):.4f} (min {min(ratios):.4f}, max {max(ratios):.4f})")
+    log("pipeline: every leg's decisions equal the first serial leg's, held against the cpu")
+    # a pipelined round with estimator answers and ordered affinity terms
+    # whose first fails: the writer's retry sub-rounds upload through the
+    # one pinned staging buffer while the caller's thread uploads the next
+    # chunk's. It runs under a side stream, which the writer must enter.
+    rbind = retry_bindings(clusters)
+    rng = np.random.default_rng(21)
+    extra = np.where(rng.random((len(rbind), len(clusters))) < 0.3, -1,
+                     rng.choice([0, 1, 7, 60, 400, 1 << 20],
+                                (len(rbind), len(clusters)))).astype(np.int32)
+    piped = legs["pipelined"]
+    uploads = set()
+    upload = piped._staging.upload
+
+    def recording_upload(*args):
+        uploads.add(threading.current_thread().name)
+        return upload(*args)
+
+    piped._staging.upload = recording_upload
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = piped.schedule(rbind, extra_avail=extra)
+    torch.cuda.current_stream().wait_stream(side)
+    del piped._staging.upload
+    log(f"pipeline with answers and retries, side stream: "
+        f"{pipeline_stats_line(piped.last_pipeline_stats)}; uploads from {sorted(uploads)}")
+    n_backup = sum(d.affinity_name == "backup" for d in got)
+    if "sched-pipeline-writer" not in uploads or not n_backup:
+        raise AssertionError(f"pipeline with answers: no retry upload on the writer thread "
+                             f"({sorted(uploads)}, {n_backup} rows on the backup term)")
+    same_decisions("pipeline with answers and retries: pipelined (side stream) vs serial", got,
+                   legs["serial"].schedule(rbind, extra_avail=extra))
+    hold_against_cpu("pipeline with answers and retries", clusters, rbind, got,
+                     cpu_run=lambda c: c.schedule(rbind, extra_avail=extra))
+    log(f"pipeline with answers and retries: {n_backup} rows placed on their backup term; "
+        "decisions equal the serial leg's and the cpu round")
+    del legs, piped, rbind, extra
+
+
+def run_wide_cells(dev, smi, path_launches, flag, results, select_err):
+    """wide_40k (the reference's 40k x 20k point, docs/PERF.md:390: the
+    flagship's mix at 20 000 clusters x 40 000 bindings, compact, K = 128,
+    the default budget; schedule() chunked and pipelined over the wide
+    select route, pipelined 7 x 6 144; the serial leg's decisions equal; a
+    sample of rows from every chunk and class held against the cpu round
+    at the same K) and flagship_k256 (the compact flagship at
+    candidate_k=256: the K > 128 tail; a tiered compact round at K = 256
+    too). The wide fixture is built here, so no earlier cell's garbage
+    collections walk it."""
+    t0 = time.perf_counter()
+    clusters, bindings = build_flagship(n_clusters=WIDE_CLUSTERS, n_bindings=WIDE_BINDINGS)
+    sched = ArrayScheduler(clusters, device=dev, pipeline=True)
+    log(f"wide_40k: {len(clusters)} x {len(bindings)} (fleet width {len(sched.fleet.names)}) "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    check_wide_chunk(dev, results, sched, bindings, select_err)
+    per_chunk = {"candidate_select_wide": 1, "candidate_tail": 2}
+    expect, n_chunks = chunk_expect(sched, len(bindings), per_chunk)
+    decisions, launches, times = drive(
+        f"wide_40k ({len(clusters)} clusters x {len(bindings)} bindings, {n_chunks} pipelined "
+        "chunks)", sched, bindings, WIDE_ROUNDS, expect, smi)
+    path_launches["candidate_select_wide"] = launches["candidate_select_wide"]
+    stats = sched.last_pipeline_stats
+    log(f"wide_40k: {pipeline_stats_line(stats)}; candidate stats {sched.last_candidate_stats}")
+    if stats["chunks"] != n_chunks or sched.last_candidate_stats["candidate_k"] != 128:
+        raise AssertionError(f"wide_40k: {stats}, {sched.last_candidate_stats}")
+    serial = ArrayScheduler(clusters, device=dev)
+    serial.max_bc_elems = sched.max_bc_elems
+    s_expect, s_chunks = chunk_expect(serial, len(bindings), per_chunk)
+    serial_dec, _, _ = drive(f"wide_40k serial leg ({s_chunks} chunks)", serial, bindings,
+                             WIDE_ROUNDS, s_expect, smi)
+    log(f"wide_40k serial leg: {pipeline_stats_line(serial.last_pipeline_stats)}")
+    same_decisions("wide_40k pipelined vs serial", decisions, serial_dec)
+    del serial, serial_dec
+    # the cpu sample: rows spread over every pipelined chunk and, inside
+    # each, over every row class
+    rows = sched.pipeline_chunk_rows(len(sched.fleet.names))
+    spans = chunk_spans(len(bindings), plan_chunk_rows(len(bindings), rows))
+    per_span = -(-WIDE_SAMPLE // len(spans))
+    cls = np.asarray([sched._row_class(rb, False) for rb in bindings])
+    pick = []
+    for s, e in spans:
+        for c in np.unique(cls[s:e]):
+            members = s + np.flatnonzero(cls[s:e] == c)
+            n = -(-per_span // len(np.unique(cls[s:e])))
+            pick += members[np.linspace(0, len(members) - 1, min(n, len(members))).astype(int)].tolist()
+    pick = sorted(set(pick))
+    cpu = ArrayScheduler(clusters, device="cpu")
+    t0 = time.perf_counter()
+    want = cpu.schedule([bindings[i] for i in pick])
+    same_decisions("wide_40k sample vs the cpu round", [decisions[i] for i in pick], want)
+    if cpu.last_candidate_stats["candidate_k"] != sched.last_candidate_stats["candidate_k"]:
+        raise AssertionError(f"wide_40k: cpu K {cpu.last_candidate_stats} vs card "
+                             f"{sched.last_candidate_stats}")
+    log(f"wide_40k: {len(pick)} sampled rows ({len(spans)} chunks x classes "
+        f"{sorted(set(cls.tolist()))}) equal the cpu round at K = "
+        f"{cpu.last_candidate_stats['candidate_k']} ({time.perf_counter() - t0:.1f} s)")
+    del cpu, want, sched, clusters, bindings, decisions
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- flagship_k256 ----
+    clusters, bindings = flag["clusters"], flag["bindings"]
+    ksched = ArrayScheduler(clusters, candidate_k=K256, device=dev)
+    decisions, launches, times = drive(f"flagship_k256 (candidate_k={K256})", ksched, bindings,
+                                       CHUNK_ROUNDS, {"candidate_select": 1,
+                                                      "candidate_tail_wide": 2}, smi)
+    path_launches["candidate_tail_wide"] = launches["candidate_tail_wide"]
+    if ksched.last_candidate_stats["candidate_k"] != K256:
+        raise AssertionError(f"flagship_k256: {ksched.last_candidate_stats}")
+    hold_against_cpu("flagship_k256", clusters, bindings, decisions, candidate_k=K256)
+    tclusters, tbindings, placed = build_tiers(duplicated=False)
+    tsched = ArrayScheduler(tclusters, candidate_k=K256, device=dev)
+    expect = tier_expect(tsched, tbindings, placed, True)
+    expect["candidate_tail_wide"] = expect.pop("candidate_tail")
+    decisions, launches, _ = drive("tiers_compact at K = 256", tsched, tbindings, 1, expect, smi,
+                                   run=lambda: tier_round(tsched, tbindings, placed))
+    path_launches["candidate_tail_wide"] += launches["candidate_tail_wide"]
+    hold_against_cpu("tiers_compact at K = 256", tclusters, tbindings, decisions,
+                     cpu_run=lambda s: tier_round(s, tbindings, placed), candidate_k=K256)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     kernels_only = "--kernels-only" in argv
@@ -2192,6 +2792,9 @@ def main(argv=None) -> int:
     check_spread_kernels(dev, results)
     check_tier_kernels(dev, results)
     check_estimator_kernels(dev, results, flag)
+    check_scatter_rows(dev, results)
+    check_wide_tail(dev, results, flag)
+    select_err = check_wide_select(dev)
     gc.collect()
     torch.cuda.empty_cache()
     if kernels_only:
@@ -2252,6 +2855,8 @@ def main(argv=None) -> int:
 
     run_tier_cells(dev, smi, path_launches)
     run_estimator_cells(dev, smi, path_launches, flag, results)
+    run_churn_cells(dev, smi, path_launches, compact_ms)
+    run_wide_cells(dev, smi, path_launches, flag, results, select_err)
 
     # every kernel of a main path launched there; staleness_penalty serves
     # callers that hold an answer matrix on the card, and no path does: the

@@ -58,14 +58,27 @@ faults/staleness.py):
   `values >> shift` where non-negative; the plain version is
   `staleness_penalty_plain`.
 
+The fleet refresh (sched/core.py `set_clusters(..., dirty_names)`):
+- `scatter_rows` (csrc/scatter_rows.cu): the re-encoded clusters' rows
+  written in place into the resident fleet tensors, every tensor in one
+  launch; the plain version is `scatter_rows_plain`.
+
+The wide routes, kernels of their own with their own launch counts:
+`candidate_select` past MAX_SELECT_SMEM (`candidate_select_wide`, the
+radix select over a key scratch in csrc/candidate_select.cu) and
+`candidate_tail` past MAX_TAIL_K (`candidate_tail_wide`, csrc/dense_tail.cu
+in its window mode).
+
 A wrapper runs the plain version only for tensors that lie on the CPU. For
 CUDA tensors it checks device, dtype, shape and contiguity, launches the
 kernel on PyTorch's current stream, raises when the launch reports an
-error, and adds one to its `launches` count. There is no fallback.
+error, and adds one to its kernel's launch count (`launch_counts()`,
+`reset_launches()`). There is no fallback.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -75,8 +88,28 @@ from ..sched.spread import WEIGHT_UNIT
 
 I64, I32, BOOL, U8 = torch.int64, torch.int32, torch.bool, torch.uint8
 
-# the tail kernel runs one 128-thread block per row, one thread per window
-# column; the select kernel sorts the row's padded keys in shared memory
+# every kernel's launch count, by name (the wide routes of candidate_select
+# and candidate_tail are kernels of their own); bumped under a lock, since
+# the pipelined round's writer thread launches too
+KERNEL_NAMES = (
+    "candidate_select", "candidate_select_wide", "candidate_tail", "candidate_tail_wide",
+    "dense_filter", "dense_tail", "pack_rows", "feas_idx", "group_score", "packed_selection",
+    "spread_tail", "combo_select", "tier_estimate", "tier_consume", "fleet_estimate",
+    "staleness_penalty", "scatter_rows",
+)
+_launch_lock = threading.Lock()
+_launches = dict.fromkeys(KERNEL_NAMES, 0)
+
+
+def _launched(name: str) -> None:
+    with _launch_lock:
+        _launches[name] += 1
+
+
+# the window tail's 128-thread block (one thread per window column) serves
+# windows up to MAX_TAIL_K; wider ones take dense_tail.cu's window mode.
+# The select kernel sorts the row's padded keys in shared memory while they
+# fit MAX_SELECT_SMEM; wider fleets take the radix-select route.
 MAX_TAIL_K = 128
 MAX_SELECT_SMEM = 232448  # bytes a block may use on sm_90
 # the dense tail sorts its output window in shared memory
@@ -546,6 +579,15 @@ def select_smem_bytes(C: int, k: int, Kt: int, Kp: int, Ke: int) -> int:
     return 8 * cp + 4 * (_pow2(k) + 4 * Kt + 2 * Kp + Ke)
 
 
+def select_route(C: int, k: int, Kt: int, Kp: int, Ke: int) -> str:
+    """The candidate-select kernel a launch takes: the in-block sort while
+    the row's keys fit a block's shared memory, else the radix-select route
+    over a global key scratch."""
+    if select_smem_bytes(C, k, Kt, Kp, Ke) <= MAX_SELECT_SMEM:
+        return "candidate_select"
+    return "candidate_select_wide"
+
+
 def candidate_select(
     alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
     replicas, unknown_request, gvk, tol_tables, tol_idx,
@@ -564,7 +606,8 @@ def candidate_select(
     if dev.type != "cuda":
         raise ValueError(f"candidate_select: unsupported device {dev}")
     out = _select_launch(*args, k=k, plugin_bits=plugin_bits)
-    candidate_select.launches += 1
+    _launched(select_route(alive.shape[0], k, tol_tables.shape[2], prev_idx.shape[1],
+                           evict_idx.shape[1]))
     return out
 
 
@@ -574,7 +617,8 @@ def _select_launch(
     aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
     req_unique, req_idx, extra_avail, *, k: int, plugin_bits: int,
 ):
-    """Check, allocate and launch candidate_select_kernel."""
+    """Check, allocate and launch candidate_select_kernel, or the wide
+    route's candidate_select_wide_kernel (select_route)."""
     dev = alive.device
     C, R, T, G, B, Kt, Kp, Ke = _check_filter_args(
         alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
@@ -584,13 +628,7 @@ def _select_launch(
     )
     if not 0 < k <= C:
         raise ValueError(f"candidate_select: k={k} must be in (0, C={C}]")
-    smem = select_smem_bytes(C, k, Kt, Kp, Ke)
-    if smem > MAX_SELECT_SMEM:
-        raise NotImplementedError(
-            f"candidate_select: a fleet of C={C} needs {smem} bytes of shared "
-            "memory per row (the in-block bitonic sort); wider fleets need the "
-            "radix select of a later PR"
-        )
+    wide = select_route(C, k, Kt, Kp, Ke) == "candidate_select_wide"
     nbytes = (C + 7) // 8
     cand = torch.empty((B, k), dtype=I32, device=dev)
     c_feas = torch.empty((B, k), dtype=BOOL, device=dev)
@@ -604,10 +642,14 @@ def _select_launch(
         return cand, c_feas, c_score, c_avail, c_prev, c_tie, feas_count, packed
     from .build import library
 
-    fn = library("candidate_select").candidate_select_launch
+    lib = library("candidate_select")
+    fn = lib.candidate_select_wide_launch if wide else lib.candidate_select_launch
     fn.restype = ctypes.c_int
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 13 + [ci] * 7 + [vp] * 9 + [vp]
+    fn.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 13 + [ci] * 7 + [vp] * (10 if wide else 9) + [vp]
+    # the wide route's per-row keys (int64 [B, C]) live in this scratch
+    keys = torch.empty((B, C), dtype=I64, device=dev) if wide else None
+    scratch = (_ptr(keys),) if wide else ()
     rc = fn(
         _ptr(alive), _ptr(capacity), _ptr(has_summary), _ptr(taint_key),
         _ptr(taint_value), _ptr(taint_effect), _ptr(api_ok),
@@ -619,13 +661,10 @@ def _select_launch(
         B, Kt, Kp, Ke, k, plugin_bits, 1 if extra_avail is not None else 0,
         _ptr(extra_avail), _ptr(cand), _ptr(c_feas), _ptr(c_score),
         _ptr(c_avail), _ptr(c_prev), _ptr(c_tie), _ptr(feas_count),
-        _ptr(packed), _stream(dev),
+        _ptr(packed), *scratch, _stream(dev),
     )
     _raise_on(rc, "candidate_select")
     return cand, c_feas, c_score, c_avail, c_prev, c_tie, feas_count, packed
-
-
-candidate_select.launches = 0
 
 
 def candidate_tail(
@@ -642,7 +681,7 @@ def candidate_tail(
     if dev.type != "cuda":
         raise ValueError(f"candidate_tail: unsupported device {dev}")
     out = _tail_launch(*args, topk=topk, has_agg=has_agg)
-    candidate_tail.launches += 1
+    _launched("candidate_tail" if c_feas.shape[1] <= MAX_TAIL_K else "candidate_tail_wide")
     return out
 
 
@@ -650,7 +689,8 @@ def _tail_launch(
     c_feas, c_avail, c_prev, c_tie, cand_idx,
     weight_tables, weight_idx, strategy, replicas, fresh, *, topk: int, has_agg: bool,
 ):
-    """Check, allocate and launch candidate_tail_kernel."""
+    """Check, allocate and launch candidate_tail_kernel, or for windows
+    wider than MAX_TAIL_K dense_tail.cu's window mode."""
     dev = c_feas.device
     rows, K = c_feas.shape
     W, Cw = weight_tables.shape
@@ -663,12 +703,11 @@ def _tail_launch(
         ("replicas", replicas, I32, (rows,)), ("fresh", fresh, BOOL, (rows,)),
     ):
         _check(name, t, dt, shape, dev)
-    if not 0 < K <= MAX_TAIL_K:
-        raise NotImplementedError(
-            f"candidate_tail: window K={K} outside (0, {MAX_TAIL_K}] (one thread "
-            "per window column in a 128-thread block)"
-        )
+    if K <= 0:
+        raise ValueError(f"candidate_tail: empty window K={K}")
     tw = min(K, topk)
+    if tw > MAX_DENSE_TOPK:
+        raise ValueError(f"candidate_tail: output window {tw} over {MAX_DENSE_TOPK}")
     result = torch.empty((rows, K), dtype=I32, device=dev)
     unsched = torch.empty((rows,), dtype=BOOL, device=dev)
     avail_sum = torch.empty((rows,), dtype=I32, device=dev)
@@ -679,23 +718,30 @@ def _tail_launch(
         return result, unsched, avail_sum, nnz, top_idx, top_val
     from .build import library
 
-    fn = library("candidate_tail").candidate_tail_launch
-    fn.restype = ctypes.c_int
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 6 + [ci] + [vp] * 4 + [ci] * 4 + [vp] * 6 + [vp]
-    rc = fn(
-        _ptr(c_feas), _ptr(c_avail), _ptr(c_prev), _ptr(c_tie), _ptr(cand_idx),
-        _ptr(weight_tables), Cw, _ptr(weight_idx), _ptr(strategy),
-        _ptr(replicas), _ptr(fresh),
-        rows, K, tw, 1 if has_agg else 0,
-        _ptr(result), _ptr(unsched), _ptr(avail_sum), _ptr(nnz),
-        _ptr(top_idx), _ptr(top_val), _stream(dev),
-    )
+    outs = (_ptr(result), _ptr(unsched), _ptr(avail_sum), _ptr(nnz), _ptr(top_idx),
+            _ptr(top_val), _stream(dev))
+    if K > MAX_TAIL_K:
+        fn = library("dense_tail").window_tail_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [vp] * 5 + [ci] * 2 + [vp, ci] + [vp] * 4 + [ci] * 2 + [vp] * 6 + [vp]
+        rc = fn(
+            _ptr(c_feas), _ptr(c_avail), _ptr(c_prev), _ptr(c_tie), _ptr(cand_idx), rows, K,
+            _ptr(weight_tables), Cw, _ptr(weight_idx), _ptr(strategy), _ptr(replicas),
+            _ptr(fresh), tw, 1 if has_agg else 0, *outs,
+        )
+    else:
+        fn = library("candidate_tail").candidate_tail_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [vp] * 6 + [ci] + [vp] * 4 + [ci] * 4 + [vp] * 6 + [vp]
+        rc = fn(
+            _ptr(c_feas), _ptr(c_avail), _ptr(c_prev), _ptr(c_tie), _ptr(cand_idx),
+            _ptr(weight_tables), Cw, _ptr(weight_idx), _ptr(strategy),
+            _ptr(replicas), _ptr(fresh),
+            rows, K, tw, 1 if has_agg else 0, *outs,
+        )
     _raise_on(rc, "candidate_tail")
     return result, unsched, avail_sum, nnz, top_idx, top_val
-
-
-candidate_tail.launches = 0
 
 
 def dense_filter(
@@ -716,7 +762,7 @@ def dense_filter(
     if dev.type != "cuda":
         raise ValueError(f"dense_filter: unsupported device {dev}")
     out = _dense_filter_launch(*args, plugin_bits=plugin_bits, extra_mask=extra_mask)
-    dense_filter.launches += 1
+    _launched("dense_filter")
     return out
 
 
@@ -766,9 +812,6 @@ def _dense_filter_launch(
     return feasible, score, avail, prev, tie, feas_count
 
 
-dense_filter.launches = 0
-
-
 def dense_tail(
     feasible, avail, prev, tie, rows,
     weight_tables, weight_idx, strategy, replicas, fresh, *, topk: int, has_agg: bool,
@@ -783,7 +826,7 @@ def dense_tail(
     if dev.type != "cuda":
         raise ValueError(f"dense_tail: unsupported device {dev}")
     out = _dense_tail_launch(*args, topk=topk, has_agg=has_agg)
-    dense_tail.launches += 1
+    _launched("dense_tail")
     return out
 
 
@@ -836,9 +879,6 @@ def _dense_tail_launch(
     return result, unsched, avail_sum, nnz, top_idx, top_val
 
 
-dense_tail.launches = 0
-
-
 def pack_rows(feasible):
     """bool[B, C] -> u8[B, ceil(C/8)], bit j of byte i = column 8i+j (see
     pack_rows_plain)."""
@@ -848,7 +888,7 @@ def pack_rows(feasible):
     if dev.type != "cuda":
         raise ValueError(f"pack_rows: unsupported device {dev}")
     out = _pack_rows_launch(feasible)
-    pack_rows.launches += 1
+    _launched("pack_rows")
     return out
 
 
@@ -870,9 +910,6 @@ def _pack_rows_launch(feasible):
     return out
 
 
-pack_rows.launches = 0
-
-
 def feas_idx(feasible, k: int):
     """The first k feasible column ids per row (see feas_idx_plain)."""
     dev = feasible.device
@@ -881,7 +918,7 @@ def feas_idx(feasible, k: int):
     if dev.type != "cuda":
         raise ValueError(f"feas_idx: unsupported device {dev}")
     out = _feas_idx_launch(feasible, k)
-    feas_idx.launches += 1
+    _launched("feas_idx")
     return out
 
 
@@ -905,9 +942,6 @@ def _feas_idx_launch(feasible, k: int):
     return out
 
 
-feas_idx.launches = 0
-
-
 def group_score(
     feasible, score, avail, prev, rows, replicas, need, target, duplicated,
     perm, seg_start, seg_end, rank_p,
@@ -922,7 +956,7 @@ def group_score(
     if dev.type != "cuda":
         raise ValueError(f"group_score: unsupported device {dev}")
     out = _group_score_launch(*args)
-    group_score.launches += 1
+    _launched("group_score")
     return out
 
 
@@ -967,9 +1001,6 @@ def _group_score_launch(
     return weight, value, avail_sum, feas_count
 
 
-group_score.launches = 0
-
-
 def _chosen_table(chosen):
     """bool[n, R] -> the kernels' u8[n, R + 1] table, column 0 (regionless)
     False."""
@@ -999,7 +1030,7 @@ def packed_selection(feasible, rows, chosen, rid):
     if dev.type != "cuda":
         raise ValueError(f"packed_selection: unsupported device {dev}")
     out = _packed_selection_launch(feasible, rows, chosen, rid)
-    packed_selection.launches += 1
+    _launched("packed_selection")
     return out
 
 
@@ -1023,9 +1054,6 @@ def _packed_selection_launch(feasible, rows, chosen, rid):
     return out
 
 
-packed_selection.launches = 0
-
-
 def spread_tail(
     feasible, avail, prev, tie, rows, chosen, rid, strategy, replicas, fresh, *,
     topk: int, has_agg: bool,
@@ -1038,7 +1066,7 @@ def spread_tail(
     if dev.type != "cuda":
         raise ValueError(f"spread_tail: unsupported device {dev}")
     out = _spread_tail_launch(*args, topk=topk, has_agg=has_agg)
-    spread_tail.launches += 1
+    _launched("spread_tail")
     return out
 
 
@@ -1088,9 +1116,6 @@ def _spread_tail_launch(
     return result, unsched, avail_sum, feas_count, nnz, top_idx, top_val
 
 
-spread_tail.launches = 0
-
-
 def combo_select(weight, value, kmax_row, rname, members_pad, sizes, *, cmin: int, kmin: int):
     """The winning region combination per row (see combo_select_plain)."""
     args = (weight, value, kmax_row, rname, members_pad, sizes)
@@ -1100,7 +1125,7 @@ def combo_select(weight, value, kmax_row, rname, members_pad, sizes, *, cmin: in
     if dev.type != "cuda":
         raise ValueError(f"combo_select: unsupported device {dev}")
     out = _combo_select_launch(*args, cmin=cmin, kmin=kmin)
-    combo_select.launches += 1
+    _launched("combo_select")
     return out
 
 
@@ -1142,9 +1167,6 @@ def _combo_select_launch(weight, value, kmax_row, rname, members_pad, sizes, *,
     return first_idx, n_ties, none_feasible
 
 
-combo_select.launches = 0
-
-
 def tier_estimate(capacity, has_summary, req_unique, req_idx, replicas, unknown_request, rows,
                   *, out=None, cand_idx=None, extra_avail=None):
     """The estimate over a tier's rows at `capacity` (see
@@ -1160,7 +1182,7 @@ def tier_estimate(capacity, has_summary, req_unique, req_idx, replicas, unknown_
     if dev.type != "cuda":
         raise ValueError(f"tier_estimate: unsupported device {dev}")
     res = _tier_estimate_launch(*args, **kw)
-    tier_estimate.launches += 1
+    _launched("tier_estimate")
     return res
 
 
@@ -1206,9 +1228,6 @@ def _tier_estimate_launch(capacity, has_summary, req_unique, req_idx, replicas,
     return res
 
 
-tier_estimate.launches = 0
-
-
 def tier_consume(cap, placed, unsched, request, rows, *, cand_idx=None):
     """The capacity a tier leaves to the next (see tier_consume_plain)."""
     args = (cap, placed, unsched, request, rows)
@@ -1218,7 +1237,7 @@ def tier_consume(cap, placed, unsched, request, rows, *, cand_idx=None):
     if dev.type != "cuda":
         raise ValueError(f"tier_consume: unsupported device {dev}")
     out = _tier_consume_launch(*args, cand_idx=cand_idx)
-    tier_consume.launches += 1
+    _launched("tier_consume")
     return out
 
 
@@ -1265,8 +1284,6 @@ def _tier_consume_launch(cap, placed, unsched, request, rows, *, cand_idx=None):
     return out
 
 
-tier_consume.launches = 0
-
 def fleet_estimate(alloc, requested, pod_count, allowed_pods, cluster_id, n_clusters,
                    claimless_ok, request):
     """The fleet-wide estimator sweep (see fleet_estimate_plain)."""
@@ -1278,7 +1295,7 @@ def fleet_estimate(alloc, requested, pod_count, allowed_pods, cluster_id, n_clus
     if dev.type != "cuda":
         raise ValueError(f"fleet_estimate: unsupported device {dev}")
     out = _fleet_estimate_launch(*args)
-    fleet_estimate.launches += 1
+    _launched("fleet_estimate")
     return out
 
 
@@ -1325,9 +1342,6 @@ def _fleet_estimate_launch(alloc, requested, pod_count, allowed_pods, cluster_id
     return out
 
 
-fleet_estimate.launches = 0
-
-
 def staleness_penalty(values, shift: int):
     """The staleness decay of an int32 answer tensor, a new tensor (see
     staleness_penalty_plain); `shift` in [1, MAX_STALENESS_AGE], the
@@ -1340,7 +1354,7 @@ def staleness_penalty(values, shift: int):
     if dev.type != "cuda":
         raise ValueError(f"staleness_penalty: unsupported device {dev}")
     out = _staleness_launch(values, shift)
-    staleness_penalty.launches += 1
+    _launched("staleness_penalty")
     return out
 
 
@@ -1362,17 +1376,72 @@ def _staleness_launch(values, shift: int):
     return out
 
 
-staleness_penalty.launches = 0
+def scatter_rows_plain(dsts, idx, srcs):
+    """Plain version of the row-scatter kernel (the reference's
+    `_scatter_rows_kernel`, `dst.at[idx].set(src)`): `dst[idx] = src` in
+    place for each pair; returns `dsts`."""
+    for dst, src in zip(dsts, srcs):
+        dst[idx] = src
+    return dsts
 
-KERNELS = (candidate_select, candidate_tail, dense_filter, dense_tail, pack_rows, feas_idx,
-           group_score, packed_selection, spread_tail, combo_select, tier_estimate, tier_consume,
-           fleet_estimate, staleness_penalty)
+
+MAX_SCATTER_TENSORS = 8  # scatter_rows.cu's table
+
+
+def scatter_rows(dsts, idx, srcs):
+    """Write rows `src[i]` of each source into rows `idx[i]` of its
+    destination, in place (dsts, srcs: sequences of tensors of equal dtype,
+    src [n, ...] beside dst [rows, ...]; idx int64 [n]). A duplicate index
+    must carry identical rows. Returns `dsts`."""
+    dev = idx.device
+    if dev.type == "cpu":
+        return scatter_rows_plain(dsts, idx, srcs)
+    if dev.type != "cuda":
+        raise ValueError(f"scatter_rows: unsupported device {dev}")
+    _scatter_rows_launch(dsts, idx, srcs)
+    _launched("scatter_rows")
+    return dsts
+
+
+def _scatter_rows_launch(dsts, idx, srcs):
+    """Check and launch scatter_rows_kernel: one launch for every tensor."""
+    dev = idx.device
+    n = idx.shape[0]
+    _check("idx", idx, I64, (n,), dev)
+    if not 0 < len(dsts) == len(srcs) <= MAX_SCATTER_TENSORS:
+        raise ValueError(f"scatter_rows: {len(dsts)} destinations, {len(srcs)} sources "
+                         f"(1 to {MAX_SCATTER_TENSORS} pairs)")
+    for e, (dst, src) in enumerate(zip(dsts, srcs)):
+        _check(f"dst[{e}]", dst, dst.dtype, dst.shape, dev)
+        _check(f"src[{e}]", src, dst.dtype, (n,) + tuple(dst.shape[1:]), dev)
+    # a row's bytes: its elements times the item size (rows of no bytes,
+    # a fleet without taints, have nothing to write)
+    pairs = [(d, x, d.numel() // d.shape[0] * d.element_size())
+             for d, x in zip(dsts, srcs) if d.numel()]
+    pairs = [p for p in pairs if p[2]]
+    if n == 0 or not pairs:
+        return
+    from .build import library
+
+    k = len(pairs)
+    fn = library("scatter_rows").scatter_rows_launch
+    fn.restype = ctypes.c_int
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp] * 4 + [ci, vp, ci, vp]
+    dst_p = (vp * k)(*(d.data_ptr() for d, _, _ in pairs))
+    src_p = (vp * k)(*(x.data_ptr() for _, x, _ in pairs))
+    row_bytes = (ctypes.c_int64 * k)(*(w for _, _, w in pairs))
+    dst_rows = (ctypes.c_int64 * k)(*(d.shape[0] for d, _, _ in pairs))
+    rc = fn(dst_p, src_p, row_bytes, dst_rows, k, _ptr(idx), n, _stream(dev))
+    _raise_on(rc, "scatter_rows")
 
 
 def reset_launches() -> None:
-    for fn in KERNELS:
-        fn.launches = 0
+    with _launch_lock:
+        for name in _launches:
+            _launches[name] = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {fn.__name__: fn.launches for fn in KERNELS}
+    with _launch_lock:
+        return dict(_launches)

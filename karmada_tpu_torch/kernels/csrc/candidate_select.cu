@@ -21,18 +21,30 @@
 // bitonic-sorts the row's padded int64 keys (C padded to a power of two,
 // 64 KB at C = 5120 -> 8192) in dynamic shared memory, O(C log^2 C)
 // compare-swaps with a barrier per stage. One block of 512 threads per row
-// keeps the keys on chip and never writes a [B, C] tensor. A radix select
-// of the K-th key is the planned faster version.
+// keeps the keys on chip and never writes a [B, C] tensor.
+//
+// Past 16 384 columns the padded keys outgrow a block's shared memory
+// (8 bytes x pow2(C) > 227 KB from pow2(C) = 32 768), so the wide route
+// (candidate_select_wide_kernel) keeps them out of it: pass 1 writes the
+// row's keys to a [B, C] int64 scratch tensor, the K-th largest key is
+// found by the MSB-first radix select of radix_select.cuh (each pass
+// re-reads the row's keys, 8 bytes a column, from L2 or device memory),
+// and the K winners, which are exactly the columns at or above it (keys
+// are distinct), are compacted in column order by a ballot scan per
+// 512-column step, so nothing is sorted. It adds the scratch's write and
+// its re-reads (~8 B x C x (1 + passes) per row) to the bytes above, and
+// works for any width.
 //
 // The per-column filter, estimate and tie live in filter_common.cuh,
 // shared with dense_filter.cu. Built by karmada_tpu_torch/kernels/build.py
-// with nvcc for sm_90a and called through the plain C entry point at the
+// with nvcc for sm_90a and called through the plain C entry points at the
 // bottom (ctypes).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "filter_common.cuh"
+#include "radix_select.cuh"
 
 namespace {
 
@@ -81,6 +93,20 @@ __device__ void bitonic_sort(T* keys, int n, bool descending) {
       __syncthreads();
     }
   }
+}
+
+// The window outputs of winner column c at slot t of row b.
+__device__ __forceinline__ void write_window(const SelParams& p, int b, int t, int c,
+                                             const int32_t* tol, const int32_t* pidx,
+                                             const int32_t* prep, const int32_t* ev) {
+  const ColEval e = eval_col(p, b, c, tol, pidx, prep, ev);
+  const int64_t o = (int64_t)b * p.K + t;
+  p.cand_idx[o] = c;
+  p.c_feas[o] = e.feasible ? 1 : 0;
+  p.c_score[o] = e.score;
+  p.c_prev[o] = e.prev;
+  p.c_avail[o] = estimate(p, b, c);
+  p.c_tie[o] = tie_value(p.seeds[b], c);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -139,16 +165,88 @@ candidate_select_kernel(SelParams p) {
   __syncthreads();
   bitonic_sort(win, p.Kw, false);  // winners by column ascending
 
-  for (int t = tid; t < p.K; t += blockDim.x) {
-    const int c = win[t];
-    const ColEval e = eval_col(p, b, c, tol, pidx, prep, ev);
-    const int64_t o = (int64_t)b * p.K + t;
-    p.cand_idx[o] = c;
-    p.c_feas[o] = e.feasible ? 1 : 0;
-    p.c_score[o] = e.score;
-    p.c_prev[o] = e.prev;
-    p.c_avail[o] = estimate(p, b, c);
-    p.c_tie[o] = tie_value(p.seeds[b], c);
+  for (int t = tid; t < p.K; t += blockDim.x) write_window(p, b, t, win[t], tol, pidx, prep, ev);
+}
+
+struct WideShared : RadixShared {
+  int warp_total[kThreads / 32];
+  int count;
+};
+
+// The wide route: keys in the [B, C] scratch `keys_g`, the K-th largest
+// by radix select, the winners compacted in column order.
+__global__ void __launch_bounds__(kThreads)
+candidate_select_wide_kernel(SelParams p, int64_t* keys_g) {
+  extern __shared__ int64_t smem[];
+  int32_t* tol = reinterpret_cast<int32_t*>(smem);  // [4*Kt]
+  int32_t* pidx = tol + 4 * p.Kt;                    // [Kp]
+  int32_t* prep = pidx + p.Kp;                       // [Kp]
+  int32_t* ev = prep + p.Kp;                         // [Ke]
+  __shared__ WideShared s;
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n_warps = blockDim.x >> 5;
+  int64_t* keys = keys_g + (int64_t)b * p.C;
+  filter_common::load_row_lists(p, b, tol, pidx, prep, ev);
+  if (tid == 0) s.count = 0;
+  __syncthreads();
+
+  // pass 1: as the in-block kernel, the keys going to the scratch row
+  const int64_t colmask = (int64_t(1) << p.cb) - 1;
+  const int span = (p.C + blockDim.x - 1) / blockDim.x * blockDim.x;
+  int local = 0;
+  for (int base = 0; base < span; base += blockDim.x) {
+    const int c = base + tid;
+    bool f = false;
+    if (c < p.C) {
+      const ColEval e = eval_col(p, b, c, tol, pidx, prep, ev);
+      f = e.feasible;
+      const int64_t key = ((int64_t)f << 33) + (int64_t)e.score;
+      keys[c] = (key << p.cb) | (colmask - c);
+    }
+    local += f ? 1 : 0;
+    const unsigned bal = __ballot_sync(0xffffffffu, f);
+    if (lane < 4) {
+      const int byte = (base + (tid & ~31)) / 8 + lane;
+      if (byte < p.nbytes) {
+        p.packed[(int64_t)b * p.nbytes + byte] = (uint8_t)((bal >> (8 * lane)) & 0xffu);
+      }
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1) local += __shfl_down_sync(0xffffffffu, local, off);
+  if (lane == 0) atomicAdd(&s.count, local);
+  __syncthreads();
+  if (tid == 0) p.feas_count[b] = s.count;
+
+  // the K-th largest key, as the K-th smallest of its order-reversed bits
+  // (select_kth's first barrier publishes the scratch row to the block)
+  auto asc = [&](int c) { return ~((uint64_t)keys[c] ^ kSign); };
+  uint64_t less;
+  const uint64_t cut = select_kth(s, p.C, (uint64_t)p.K, asc, [](int) { return true; }, &less);
+
+  // the winners in column order: a ballot per warp, the warps' totals in
+  // shared memory, one 512-column step at a time
+  int written = 0;
+  for (int base = 0; base < span; base += blockDim.x) {
+    const int c = base + tid;
+    const bool win = c < p.C && asc(c) <= cut;
+    const unsigned bal = __ballot_sync(0xffffffffu, win);
+    if (lane == 0) s.warp_total[warp] = __popc(bal);
+    __syncthreads();
+    int before = written, step = 0;
+    for (int w = 0; w < n_warps; ++w) {
+      before += w < warp ? s.warp_total[w] : 0;
+      step += s.warp_total[w];
+    }
+    if (win) {
+      const int t = before + __popc(bal & ((1u << lane) - 1u));
+      write_window(p, b, t, c, tol, pidx, prep, ev);
+    }
+    written += step;
+    __syncthreads();
   }
 }
 
@@ -167,9 +265,7 @@ int bit_length(int n) {
   return bits;
 }
 
-}  // namespace
-
-extern "C" int candidate_select_launch(
+SelParams sel_params(
     const void* alive, const void* capacity, const void* has_summary,
     const void* taint_key, const void* taint_value, const void* taint_effect,
     const void* api_ok, int C, int R, int T, int G,
@@ -180,7 +276,7 @@ extern "C" int candidate_select_launch(
     const void* req_idx, int B, int Kt, int Kp, int Ke, int K, int plugin_bits,
     int has_extra, const void* extra_avail, void* cand_idx, void* c_feas,
     void* c_score, void* c_avail, void* c_prev, void* c_tie, void* feas_count,
-    void* packed, void* stream) {
+    void* packed) {
   SelParams p;
   static_cast<FilterArgs&>(p) = filter_common::make_filter_args(
       alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok, C, R, T, G,
@@ -200,6 +296,31 @@ extern "C" int candidate_select_launch(
   p.c_tie = static_cast<int32_t*>(c_tie);
   p.feas_count = static_cast<int32_t*>(feas_count);
   p.packed = static_cast<uint8_t*>(packed);
+  return p;
+}
+
+}  // namespace
+
+#define SEL_PARAMS_ARGS                                                                   \
+  alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok, C, R, T, G, \
+      replicas, unknown_request, gvk, tol_tables, tol_idx, aff_masks, aff_idx, prev_idx,  \
+      prev_rep, evict_idx, seeds, req_unique, req_idx, B, Kt, Kp, Ke, K, plugin_bits,     \
+      has_extra, extra_avail, cand_idx, c_feas, c_score, c_avail, c_prev, c_tie,          \
+      feas_count, packed
+
+extern "C" int candidate_select_launch(
+    const void* alive, const void* capacity, const void* has_summary,
+    const void* taint_key, const void* taint_value, const void* taint_effect,
+    const void* api_ok, int C, int R, int T, int G,
+    const void* replicas, const void* unknown_request, const void* gvk,
+    const void* tol_tables, const void* tol_idx, const void* aff_masks,
+    const void* aff_idx, const void* prev_idx, const void* prev_rep,
+    const void* evict_idx, const void* seeds, const void* req_unique,
+    const void* req_idx, int B, int Kt, int Kp, int Ke, int K, int plugin_bits,
+    int has_extra, const void* extra_avail, void* cand_idx, void* c_feas,
+    void* c_score, void* c_avail, void* c_prev, void* c_tie, void* feas_count,
+    void* packed, void* stream) {
+  SelParams p = sel_params(SEL_PARAMS_ARGS);
   if (B <= 0 || K <= 0 || K > C || p.cb > 27) return (int)cudaErrorInvalidValue;
 
   const size_t smem = 8 * (size_t)p.Cp + 4 * (size_t)(p.Kw + 4 * Kt + 2 * Kp + Ke);
@@ -207,5 +328,30 @@ extern "C" int candidate_select_launch(
       candidate_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   candidate_select_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// The wide route (see the header): `keys` is an int64 [B, C] scratch.
+extern "C" int candidate_select_wide_launch(
+    const void* alive, const void* capacity, const void* has_summary,
+    const void* taint_key, const void* taint_value, const void* taint_effect,
+    const void* api_ok, int C, int R, int T, int G,
+    const void* replicas, const void* unknown_request, const void* gvk,
+    const void* tol_tables, const void* tol_idx, const void* aff_masks,
+    const void* aff_idx, const void* prev_idx, const void* prev_rep,
+    const void* evict_idx, const void* seeds, const void* req_unique,
+    const void* req_idx, int B, int Kt, int Kp, int Ke, int K, int plugin_bits,
+    int has_extra, const void* extra_avail, void* cand_idx, void* c_feas,
+    void* c_score, void* c_avail, void* c_prev, void* c_tie, void* feas_count,
+    void* packed, void* keys, void* stream) {
+  SelParams p = sel_params(SEL_PARAMS_ARGS);
+  if (B <= 0 || K <= 0 || K > C || p.cb > 27) return (int)cudaErrorInvalidValue;
+
+  const size_t smem = 4 * (size_t)(4 * Kt + 2 * Kp + Ke);
+  cudaError_t err = cudaFuncSetAttribute(
+      candidate_select_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  candidate_select_wide_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      p, static_cast<int64_t*>(keys));
   return (int)cudaGetLastError();
 }

@@ -17,12 +17,19 @@
 //     `rem` columns in (weight desc, (last desc, tie asc), column asc);
 //   - the result row, nnz, and the top min(C, topk) of the result by
 //     (value desc, column asc).
-// The same kernel, with the selection compiled in (kSel), replaces
+// The same kernel, with the selection compiled in (kSpread), replaces
 // karmada_tpu/sched/spread_batch.py:455 `spread_tail_kernel`: the spread
 // round's division re-run over each row's selection — a column takes part
 // only when feasible and in a region the row chose — with zero static
 // weights (static-weight placements ignore spread constraints), plus the
-// selection's feasible count.
+// selection's feasible count. In window mode (kWindow) it replaces
+// karmada_tpu/sched/candidates.py:280 `_candidate_tail_kernel` for windows
+// wider than candidate_tail.cu's 128-thread block: the rows are the
+// [rows, K] candidate windows themselves (output row j is window row j),
+// a column's static weight is read at its global cluster id through
+// cand_idx, and the output window's ids are mapped through cand_idx too.
+// Window columns ascend by global id, so the local column order is the
+// global one and every tie-break matches the dense solve's.
 //
 // Rows are thousands of columns wide, so nothing is sorted. Every order
 // statistic is a SELECTION: an MSB-first radix select with 8-bit digit
@@ -66,6 +73,12 @@ constexpr int64_t kI32Max = 2147483647;
 constexpr uint64_t kLow32 = 0xffffffffull;
 constexpr int kTopMax = 128;
 
+// what a row is: a dense-filter row read through its row id, the spread
+// re-run over a row's selection, or a candidate window
+constexpr int kDense = 0;
+constexpr int kSpread = 1;
+constexpr int kWindow = 2;
+
 struct TailParams {
   const uint8_t* feas;  // [B,C] dense-filter outputs
   const int32_t* avail;
@@ -93,6 +106,11 @@ struct TailParams {
   int R1;
   const int32_t* rid;    // [C]
   int32_t* feas_count;   // [n]
+  // the window mode (window_tail_launch): the inputs are [n, C] windows,
+  // rows is unused, and column c of row j is cluster cand[j * C + c] of a
+  // fleet of Cw columns (the weight tables' width)
+  const int32_t* cand;  // [n,C]
+  int Cw;
 };
 
 struct Shared : RadixShared {
@@ -130,6 +148,7 @@ struct RowCtx {
   int64_t base;            // offset of the batch row in the [B,C] inputs
   const int64_t* wrow;     // its static weight table row
   const uint8_t* chosen;   // its chosen regions (the spread re-run)
+  const int32_t* cand;     // its window's cluster ids (the window mode)
   bool is_static, fresh, up, down, all_zero;
   bool trunc;  // the Aggregated truncation applies
   Cutoff agg;  // keep a column iff its (prior, weight, column) is at or before
@@ -137,31 +156,34 @@ struct RowCtx {
 
 // Whether column c takes part: feasible and, in the spread re-run, in a
 // chosen region.
-template <bool kSel>
+template <int kMode>
 __device__ __forceinline__ bool feas_at(const TailParams& p, const RowCtx& r, int c) {
   const bool f = p.feas[r.base + c] != 0;
-  if constexpr (kSel) {
+  if constexpr (kMode == kSpread) {
     return f && r.chosen[p.rid[c]] != 0;
   } else {
     return f;
   }
 }
 
-// The static weight of column c (zero in the spread re-run).
-template <bool kSel>
+// The static weight of column c (zero in the spread re-run, read at the
+// window column's cluster id in the window mode).
+template <int kMode>
 __device__ __forceinline__ int64_t static_w(const RowCtx& r, int c) {
-  if constexpr (kSel) {
+  if constexpr (kMode == kSpread) {
     return 0;
+  } else if constexpr (kMode == kWindow) {
+    return r.wrow[r.cand[c]];
   } else {
     return r.wrow[c];
   }
 }
 
 // The dynamic weight of column c before the truncation, and its prev_m.
-template <bool kSel>
+template <int kMode>
 __device__ __forceinline__ int64_t dyn_weight(const TailParams& p, const RowCtx& r, int c,
                                               int64_t* prev_m) {
-  const bool f = feas_at<kSel>(p, r, c);
+  const bool f = feas_at<kMode>(p, r, c);
   const int64_t am = f ? (int64_t)p.avail[r.base + c] : 0;
   const int64_t pm = f ? (int64_t)p.prev[r.base + c] : 0;
   *prev_m = pm;
@@ -179,12 +201,12 @@ struct DivIn {
 };
 
 // The dispenser inputs of column c (combined_assign's row-select).
-template <bool kSel>
+template <int kMode>
 __device__ DivIn div_in(const TailParams& p, const RowCtx& r, int c) {
   DivIn d;
   if (r.is_static) {
-    const bool f = feas_at<kSel>(p, r, c);
-    int64_t w = f ? static_w<kSel>(r, c) : 0;
+    const bool f = feas_at<kMode>(p, r, c);
+    int64_t w = f ? static_w<kMode>(r, c) : 0;
     if (r.all_zero && f) w = 1;
     d.weight = w;
     d.last = f ? p.prev[r.base + c] : 0;
@@ -192,7 +214,7 @@ __device__ DivIn div_in(const TailParams& p, const RowCtx& r, int c) {
     return d;
   }
   int64_t pm;
-  int64_t w = dyn_weight<kSel>(p, r, c, &pm);
+  int64_t w = dyn_weight<kMode>(p, r, c, &pm);
   if (r.trunc &&
       !(r.agg.any && triple_le(prior_key(r, pm), neg_key(w), c, r.agg.a, r.agg.b, r.agg.col))) {
     w = 0;
@@ -206,18 +228,18 @@ __device__ DivIn div_in(const TailParams& p, const RowCtx& r, int c) {
 // The Aggregated truncation cutoff: the k-th (prior desc, weight desc,
 // column asc) triple, k the number of sorted positions whose exclusive
 // weighted prefix sum is below tgt.
-template <bool kSel>
+template <int kMode>
 __device__ Cutoff aggregated_cutoff(const TailParams& p, const RowCtx& r, Shared& s,
                                     int64_t tgt, bool monotone) {
   const int C = p.C;
   auto a_of = [&](int c) {
     int64_t pm;
-    dyn_weight<kSel>(p, r, c, &pm);
+    dyn_weight<kMode>(p, r, c, &pm);
     return prior_key(r, pm);
   };
   auto b_of = [&](int c) {
     int64_t pm;
-    return neg_key(dyn_weight<kSel>(p, r, c, &pm));
+    return neg_key(dyn_weight<kMode>(p, r, c, &pm));
   };
   Cutoff cut;
   cut.any = false;
@@ -225,12 +247,12 @@ __device__ Cutoff aggregated_cutoff(const TailParams& p, const RowCtx& r, Shared
     // every weight lies in [0, 2^32): one 33-bit key (prior, weight)
     auto comp = [&](int c) {
       int64_t pm;
-      const int64_t w = dyn_weight<kSel>(p, r, c, &pm);
+      const int64_t w = dyn_weight<kMode>(p, r, c, &pm);
       return (prior_key(r, pm) << 32) | (kLow32 - (uint64_t)w);
     };
     auto w_of = [&](int c) {
       int64_t pm;
-      return (uint64_t)dyn_weight<kSel>(p, r, c, &pm);
+      return (uint64_t)dyn_weight<kMode>(p, r, c, &pm);
     };
     const Walk wk = weighted_walk(s, C, tgt, comp, w_of, [](int) { return true; });
     if (!wk.found) return cut;
@@ -258,7 +280,7 @@ __device__ Cutoff aggregated_cutoff(const TailParams& p, const RowCtx& r, Shared
     uint64_t before = 0;
     for (int i = 0; i < C; ++i) {
       int64_t pm;
-      const int64_t wi = dyn_weight<kSel>(p, r, i, &pm);
+      const int64_t wi = dyn_weight<kMode>(p, r, i, &pm);
       if (i != j && triple_le(prior_key(r, pm), neg_key(wi), i, aj, bj, j)) {
         before += (uint64_t)wi;
       }
@@ -270,19 +292,22 @@ __device__ Cutoff aggregated_cutoff(const TailParams& p, const RowCtx& r, Shared
   return select_triple(s, C, count, a_of, b_of);
 }
 
-template <bool kSel>
+template <int kMode>
 __global__ void __launch_bounds__(kThreads)
 dense_tail_kernel(TailParams p) {
   __shared__ Shared s;
   const int j = blockIdx.x;
-  const int b = p.rows[j];
+  const int b = kMode == kWindow ? j : p.rows[j];
   const int C = p.C;
   const int tid = threadIdx.x;
 
   RowCtx r;
   r.base = (int64_t)b * C;
-  r.wrow = kSel ? nullptr : p.weight_tables + (int64_t)p.weight_idx[b] * C;
-  r.chosen = kSel ? p.chosen + (int64_t)j * p.R1 : nullptr;
+  r.wrow = kMode == kSpread ? nullptr
+                            : p.weight_tables + (int64_t)p.weight_idx[b] *
+                                                    (kMode == kWindow ? p.Cw : C);
+  r.chosen = kMode == kSpread ? p.chosen + (int64_t)j * p.R1 : nullptr;
+  r.cand = kMode == kWindow ? p.cand + r.base : nullptr;
   const int strat = p.strategy[b];
   r.is_static = strat == kStaticWeight;
   const bool is_dyn = strat == kDynamicWeight || strat == kAggregated;
@@ -296,11 +321,11 @@ dense_tail_kernel(TailParams p) {
   uint64_t sw = 0, sa = 0, sp = 0, nf = 0;
   long long ma = 0, mp = 0, mf = 0;
   for (int c = tid; c < C; c += blockDim.x) {
-    const bool f = feas_at<kSel>(p, r, c);
+    const bool f = feas_at<kMode>(p, r, c);
     const int64_t am = f ? (int64_t)p.avail[r.base + c] : 0;
     const int64_t pm = f ? (int64_t)p.prev[r.base + c] : 0;
     nf += f ? 1 : 0;
-    sw += f ? (uint64_t)static_w<kSel>(r, c) : 0;
+    sw += f ? (uint64_t)static_w<kMode>(r, c) : 0;
     sa += (uint64_t)am;
     sp += (uint64_t)pm;
     ma = am < ma ? am : ma;
@@ -314,7 +339,7 @@ dense_tail_kernel(TailParams p) {
   sw = block_sum(s, sw);
   sa = block_sum(s, sa);
   sp = block_sum(s, sp);
-  if constexpr (kSel) {
+  if constexpr (kMode == kSpread) {
     nf = block_sum(s, nf);
     if (tid == 0) p.feas_count[j] = (int32_t)nf;
   }
@@ -338,24 +363,24 @@ dense_tail_kernel(TailParams p) {
   bonus.any = false;
   bool bonus_all = false;
   if (dispense) {
-    if (r.trunc) r.agg = aggregated_cutoff<kSel>(p, r, s, tgt_dyn, w_min >= 0);
+    if (r.trunc) r.agg = aggregated_cutoff<kMode>(p, r, s, tgt_dyn, w_min >= 0);
     uint64_t acc = 0;
-    for (int c = tid; c < C; c += blockDim.x) acc += (uint64_t)div_in<kSel>(p, r, c).weight;
+    for (int c = tid; c < C; c += blockDim.x) acc += (uint64_t)div_in<kMode>(p, r, c).weight;
     sum_w = (int64_t)block_sum(s, acc);
     t64 = wrap_i32(r.is_static ? target : tgt_dyn);
     safe = sum_w > 1 ? sum_w : 1;
     acc = 0;
     for (int c = tid; c < C; c += blockDim.x) {
-      acc += (uint64_t)floordiv(wrap_mul(div_in<kSel>(p, r, c).weight, t64), safe);
+      acc += (uint64_t)floordiv(wrap_mul(div_in<kMode>(p, r, c).weight, t64), safe);
     }
     const int64_t rem = (int64_t)((uint64_t)t64 - block_sum(s, acc));
     if (sum_w > 0 && rem > 0) {
       if (rem >= C) {
         bonus_all = true;
       } else {
-        auto a_of = [&](int c) { return neg_key(div_in<kSel>(p, r, c).weight); };
+        auto a_of = [&](int c) { return neg_key(div_in<kMode>(p, r, c).weight); };
         auto b_of = [&](int c) {
-          const DivIn d = div_in<kSel>(p, r, c);
+          const DivIn d = div_in<kMode>(p, r, c);
           const uint64_t k2 = ((uint64_t)(kI32Max - (int64_t)d.last) << 32) |
                               (uint64_t)(int64_t)p.tie[r.base + c];
           return k2 ^ kSign;
@@ -369,7 +394,7 @@ dense_tail_kernel(TailParams p) {
   int32_t* res_row = p.result + (int64_t)j * C;
   uint64_t pos = 0;
   for (int c = tid; c < C; c += blockDim.x) {
-    const bool f = feas_at<kSel>(p, r, c);
+    const bool f = feas_at<kMode>(p, r, c);
     int32_t v = 0;
     if (strat == kDuplicated) {
       v = f ? reps : 0;
@@ -379,7 +404,7 @@ dense_tail_kernel(TailParams p) {
       } else if (is_dyn && eq) {
         v = f ? p.prev[r.base + c] : 0;
       } else {
-        const DivIn d = div_in<kSel>(p, r, c);
+        const DivIn d = div_in<kMode>(p, r, c);
         bool plus = false;
         if (d.weight > 0) {
           if (bonus_all) {
@@ -441,7 +466,8 @@ dense_tail_kernel(TailParams p) {
   }
   for (int i = tid; i < p.topk; i += blockDim.x) {
     const uint64_t k = s.topkey[i];
-    p.top_idx[(int64_t)j * p.topk + i] = (int32_t)(k & kLow32);
+    const int col = (int)(k & kLow32);
+    p.top_idx[(int64_t)j * p.topk + i] = kMode == kWindow ? r.cand[col] : col;
     p.top_val[(int64_t)j * p.topk + i] = (int32_t)(kI32Max - (int64_t)(k >> 32));
   }
 }
@@ -486,7 +512,7 @@ extern "C" int dense_tail_launch(
                              has_agg, result, unsched, avail_sum, nnz, top_idx, top_val);
   p.weight_tables = static_cast<const int64_t*>(weight_tables);
   p.weight_idx = static_cast<const int32_t*>(weight_idx);
-  dense_tail_kernel<false><<<n, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  dense_tail_kernel<kDense><<<n, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -508,6 +534,28 @@ extern "C" int spread_tail_launch(
   p.R1 = R1;
   p.rid = static_cast<const int32_t*>(rid);
   p.feas_count = static_cast<int32_t*>(feas_count);
-  dense_tail_kernel<true><<<n, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  dense_tail_kernel<kSpread><<<n, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// The window mode: the tail over [n, K] candidate windows (see
+// TailParams.cand), for windows wider than candidate_tail.cu's block.
+// Replaces karmada_tpu/sched/candidates.py:280 `_candidate_tail_kernel`.
+extern "C" int window_tail_launch(
+    const void* feas, const void* avail, const void* prev, const void* tie, const void* cand,
+    int n, int K, const void* weight_tables, int Cw, const void* weight_idx,
+    const void* strategy, const void* replicas, const void* fresh, int topk, int has_agg,
+    void* result, void* unsched, void* avail_sum, void* nnz, void* top_idx, void* top_val,
+    void* stream) {
+  if (n <= 0 || K <= 0 || Cw <= 0 || topk <= 0 || topk > kTopMax || topk > K) {
+    return (int)cudaErrorInvalidValue;
+  }
+  TailParams p = tail_params(feas, avail, prev, tie, K, nullptr, strategy, replicas, fresh,
+                             topk, has_agg, result, unsched, avail_sum, nnz, top_idx, top_val);
+  p.weight_tables = static_cast<const int64_t*>(weight_tables);
+  p.weight_idx = static_cast<const int32_t*>(weight_idx);
+  p.cand = static_cast<const int32_t*>(cand);
+  p.Cw = Cw;
+  dense_tail_kernel<kWindow><<<n, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }

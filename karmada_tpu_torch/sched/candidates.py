@@ -38,6 +38,7 @@ import torch
 from .. import kernels
 from ..models.batch import AGGREGATED, DUPLICATED, NON_WORKLOAD, pow2_bucket, shape_bucket
 from . import plugins as plugin_mod
+from .pipeline import stage_span
 from .core import (
     I32,
     I64,
@@ -104,6 +105,16 @@ def dense_reason(array, bindings) -> Optional[str]:
     return None
 
 
+def note_fallback(reason: str, n: int = 1) -> None:
+    """Count a dense fallback (karmada_candidate_fallback_total{reason});
+    "disabled" is configuration, not a fallback."""
+    if reason == "disabled":
+        return
+    from ..metrics import candidate_fallback
+
+    candidate_fallback.inc(n, reason=reason)
+
+
 def effective_k(array, raw, n_cols: int) -> int:
     """Per-round effective window, on the shape_bucket lattice. With the
     ClusterAffinity plugin enabled, feasible ⊆ affinity mask, so the
@@ -153,16 +164,25 @@ def launch_candidates(array, bindings: Sequence, extra_avail=None, term_indices=
     estimator answers `extra_avail` min-merged at the window), then the
     division-tail kernel per row class over [rows, K] windows. No device
     sync here."""
-    n_real = len(bindings)
-    if n_real == 0:
+    if not bindings:
         return {"candidates": True, "n_real": 0}
-    C = len(array.fleet.names)
-    dev = array.device
+    with stage_span("encode", array.stage_timer):
+        bindings, cls, order, raw, t, (s_batched, _cfg, s_fallback), extra = (
+            array._encode_round(bindings, extra_avail, term_indices))
+        spread_rows = sorted(set(s_batched) | set(s_fallback))
+        k = effective_k(array, raw, len(array.fleet.names))
+    with stage_span("solve", array.stage_timer):
+        return _solve_candidates(array, bindings, cls, order, raw, t, spread_rows, extra, k,
+                                 term_indices)
 
-    bindings, cls, order, raw, t, (s_batched, _cfg, s_fallback), extra = array._encode_round(
-        bindings, extra_avail, term_indices)
-    spread_rows = sorted(set(s_batched) | set(s_fallback))
-    k = effective_k(array, raw, C)
+
+def _solve_candidates(array, bindings, cls, order, raw, t, spread_rows, extra, k,
+                      term_indices) -> dict:
+    """The compact round's kernel dispatch (the `solve` stage)."""
+    from ..metrics import candidate_k as candidate_k_gauge
+
+    n_real = len(bindings)
+    dev = array.device
     f = array._fleet_dev
 
     (cand_idx, c_feas, c_score, c_avail, c_prev, c_tie, dev_fc,
@@ -175,6 +195,7 @@ def launch_candidates(array, bindings: Sequence, extra_avail=None, term_indices=
         t["req_unique"], t["req_idx"], t["extra_avail"],
         k=k, plugin_bits=array._plugin_bits,
     )
+    candidate_k_gauge.set(float(k), bucket=str(k))
 
     # ---- division tails per sub-class over [rows, K] ----
     tails = []
@@ -224,9 +245,14 @@ def launch_candidates(array, bindings: Sequence, extra_avail=None, term_indices=
 
 def materialize_candidates(array, p: dict) -> list[ScheduleDecision]:
     """MATERIALIZE half: ONE device→host copy, decode, unpermute."""
-    n_real = p["n_real"]
-    if n_real == 0:
+    if p["n_real"] == 0:
         return []
+    with stage_span("materialize", array.stage_timer):
+        return _materialize_inner(array, p)
+
+
+def _materialize_inner(array, p: dict) -> list[ScheduleDecision]:
+    n_real = p["n_real"]
     bindings, raw, cls, order, k = p["bindings"], p["raw"], p["cls"], p["order"], p["k"]
     names = array.fleet.names
     C = len(names)
@@ -240,8 +266,15 @@ def materialize_candidates(array, p: dict) -> list[ScheduleDecision]:
     host, spread_host = host[:len(host) - n_spread], host[len(host) - n_spread:]
     feas_count = host[0][:n_real].astype(np.int64)
 
+    # truncation accounting: only rows solved THROUGH the window can drop
+    # feasible candidates (divided rows; spread rows wider than the window
+    # re-solve dense and count as fallbacks)
     div_rows = cls > 0
     trunc = int(np.maximum(feas_count[div_rows] - k, 0).sum()) if div_rows.any() else 0
+    if trunc:
+        from ..metrics import candidate_truncations
+
+        candidate_truncations.inc(trunc)
     array.last_candidate_stats = {"candidate_k": k, "candidate_truncations": trunc}
 
     unsched = np.zeros(n_real, bool)
@@ -421,8 +454,7 @@ def _spread_over_candidates(
 
     out: dict[int, ScheduleDecision] = {}
     if wide:
-        # the reference counts these rows on its fallback counter
-        # (note_fallback("spread_constraint")); the port does not keep it
+        note_fallback("spread_constraint", len(wide))
         terms, extra = p["term_indices"], p["extra"]
         sub_dec = array._schedule_once_partitioned(
             [bindings[b] for b in wide],

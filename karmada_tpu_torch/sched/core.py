@@ -27,14 +27,26 @@ Priority tiers and preemption (sched/preemption.py) ride the same seam:
 `launch_tiered` then `materialize_chunk`. Registered-estimator answers
 (`extra_avail`, estimator/client.py) ride every round: permuted with the
 rows, padded with the -1 no-answer sentinel, uploaded through one reusable
-pinned buffer and min-merged into the estimate by the filter kernels. The
-mesh, the daemon's chunk launch and the incremental replay are later
-slices; the paths that would reach them raise NotImplementedError instead
-of running anything else.
+pinned buffer and min-merged into the estimate by the filter kernels.
+
+Rounds over the per-launch row cap run as equal row chunks, serially by
+default, or with `pipeline=True` through the chunk pipeline
+(sched/pipeline.py): chunk k+1 encodes and launches on the caller's thread
+while chunk k materializes on a writer thread, both on the caller's CUDA
+stream (the pipelined executor measured slower than the serial one,
+PERF.md §6). The replay cache
+(sched/incremental.py) serves bindings whose inputs did not change since
+the round that solved them
+(`schedule_incremental`, `launch_chunk` / `materialize_chunk`), and a
+status-only fleet change re-encodes only the dirty clusters and writes
+their rows into the resident fleet tensors (`set_clusters(...,
+dirty_names)`, the scatter_rows kernel). The mesh is a later slice.
 """
 from __future__ import annotations
 
 import os
+import threading
+from contextlib import contextmanager
 from typing import Optional, Sequence
 
 import numpy as np
@@ -58,6 +70,14 @@ from ..models.fleet import FleetArrays, FleetEncoder
 from ..ops import assign as assign_ops
 from ..ops import filters as filter_ops
 from . import plugins as plugin_mod
+from .pipeline import (
+    ChunkPipeline,
+    StageTimer,
+    chunk_spans,
+    plan_chunk_rows,
+    resolve_pipeline,
+    stage_span,
+)
 
 I64 = torch.int64
 I32 = torch.int32
@@ -69,10 +89,21 @@ _BATCH_FIELDS = (
     "evict_idx", "seeds", "req_unique", "req_idx",
 )
 
+# the resident fleet tensors (`_fleet_dev`)
+_FLEET_FIELDS = ("alive", "capacity", "has_summary", "taint_key", "taint_value",
+                 "taint_effect", "api_ok")
+
 # compact-output width: covers every row whose target count is <= this
 # (divided rows are bounded by spec.replicas; wider rows fetch their full
 # window row as a fallback)
 TOPK_TARGETS = 128
+
+# pipelined-round chunking policy (sched/pipeline.py): a daemon round is cut
+# into ~PIPELINE_CHUNKS chunks so the estimate/encode/solve/materialize/patch
+# stages overlap across them, but never below PIPELINE_MIN_ROWS rows per
+# chunk — tiny launches pay more in dispatch than overlap buys back
+PIPELINE_MIN_ROWS = 256
+PIPELINE_CHUNKS = 8
 
 
 def unpack_row(packed_row: np.ndarray, n_cols: int) -> np.ndarray:
@@ -400,12 +431,16 @@ class PinnedStaging:
     card the matrix is written into one reusable pinned host buffer (10 000
     x 5 120 int32 is 200 MB at the flagship) and copied without blocking;
     the buffer grows to the largest matrix seen, and before it is written
-    again the host waits for the copy out of it to finish. On the CPU the
-    padded matrix is a new tensor."""
+    again the host waits for the copy out of it to finish. A pipelined
+    round uploads from two threads (the caller's, and the writer's
+    affinity-retry sub-rounds), so the wait, the fill, the copy and its
+    event are one step under a lock. On the CPU the padded matrix is a new
+    tensor."""
 
     def __init__(self) -> None:
         self._buf: Optional[torch.Tensor] = None
-        self._copied: Optional[torch.cuda.Event] = None
+        self._copied = None
+        self._lock = threading.Lock()
 
     @staticmethod
     def _fill(host: torch.Tensor, extra: np.ndarray) -> torch.Tensor:
@@ -416,21 +451,39 @@ class PinnedStaging:
         view[n:] = -1
         return host
 
+    @staticmethod
+    def _pinned(nbytes: int) -> torch.Tensor:
+        return torch.empty(nbytes, dtype=torch.uint8).pin_memory()
+
+    @staticmethod
+    def _copy(host: torch.Tensor, device):
+        """`host` on `device` without blocking, and the event that marks
+        the copy done on the current stream."""
+        out = host.to(device, non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record(torch.cuda.current_stream(device))
+        return out, copied
+
     def upload(self, extra: np.ndarray, n_rows: int, n_cols: int, device) -> torch.Tensor:
         """`extra` (i32[n, c], n <= n_rows, c <= n_cols) padded with -1 to
         [n_rows, n_cols], on `device`."""
         if device.type != "cuda":
             return self._fill(torch.empty((n_rows, n_cols), dtype=torch.int32), extra)
         nbytes = 4 * n_rows * n_cols
-        if self._buf is None or self._buf.numel() < nbytes:
-            self._buf = torch.empty(nbytes, dtype=torch.uint8).pin_memory()
-        elif self._copied is not None:
-            self._copied.synchronize()
-        host = self._fill(self._buf[:nbytes].view(torch.int32).view(n_rows, n_cols), extra)
-        out = host.to(device, non_blocking=True)
-        self._copied = torch.cuda.Event()
-        self._copied.record(torch.cuda.current_stream(device))
-        return out
+        with self._lock:
+            if self._buf is None or self._buf.numel() < nbytes:
+                self._buf = self._pinned(nbytes)
+            elif self._copied is not None:
+                self._copied.synchronize()
+            host = self._fill(self._buf[:nbytes].view(torch.int32).view(n_rows, n_cols), extra)
+            out, self._copied = self._copy(host, device)
+            return out
+
+
+def caller_stream(device) -> Optional[torch.cuda.Stream]:
+    """The calling thread's current CUDA stream on `device` (None on the
+    CPU, where `torch.cuda.stream(None)` enters nothing)."""
+    return torch.cuda.current_stream(device) if device.type == "cuda" else None
 
 
 def resolve_max_bc_elems() -> int:
@@ -494,11 +547,17 @@ class ArrayScheduler:
         plugins: Optional[Sequence[str]] = None,
         candidate_k: Optional[int] = None,
         device=None,
+        pipeline: Optional[bool] = None,
     ):
         """`device`: None means the CUDA card (RuntimeError without one);
         "cpu" runs the plain PyTorch path. `plugins`: the `--plugins`
         enable/disable list (default ["*"]). `candidate_k`: the candidate
-        window (None reads KARMADA_TPU_CANDIDATE_K, default 128)."""
+        window (None reads KARMADA_TPU_CANDIDATE_K, default 128).
+        `pipeline`: chunked rounds run as the software pipeline
+        (sched/pipeline.py — encode/solve/materialize overlapped across
+        chunks, bit-identical decisions); None reads KARMADA_TPU_PIPELINE
+        (1/on/true enables it; by default the serial row-chunk executor
+        runs them, which measured faster on the card)."""
         from .candidates import resolve_candidate_k
 
         self.device = resolve_device(device)
@@ -511,13 +570,53 @@ class ArrayScheduler:
         self.last_candidate_stats: dict = {}
         self._staging = PinnedStaging()
         # out-of-tree plugins: the port has none (registering one raises),
-        # and the tier routing reads this as the reference does
+        # and the tier routing, the replay cache and the pipeline read this
+        # as the reference does
         self._oot_plugins: list = []
+        # the chunk pipeline: the driving pipeline installs its stage timer
+        # for one round (pipeline_context); last_pipeline_stats carries the
+        # stage/overlap numbers of the last chunked round (None when the
+        # round ran un-chunked)
+        self.pipeline_enabled = resolve_pipeline(pipeline, default=False)
+        self.stage_timer: Optional[StageTimer] = None
+        self.last_pipeline_stats: Optional[dict] = None
+        # the writer thread's affinity-retry sub-rounds encode while the
+        # caller's thread encodes the next chunk: the batch encoder's
+        # interned tables and row cache are shared, so encodes take a lock
+        self._encode_lock = threading.Lock()
+        # cross-round replay: any fleet change bumps the epoch (cached
+        # decisions replay only at the epoch they were solved in); the
+        # cache maps binding uid -> DecisionEntry
+        self.fleet_epoch = 0
+        self._decision_cache: dict[str, object] = {}
+        self.last_round_stats = {"replayed": 0, "solved": 0}
         self.set_clusters(clusters)
 
-    def set_clusters(self, clusters: Sequence) -> None:
-        """Re-encode the fleet and upload it to the device."""
+    @contextmanager
+    def pipeline_context(self, timer: StageTimer):
+        """Install the driving pipeline's stage timer for the duration of
+        one round; restores the previous one on exit."""
+        prev = self.stage_timer
+        self.stage_timer = timer
+        try:
+            yield
+        finally:
+            self.stage_timer = prev
+
+    def set_clusters(self, clusters: Sequence, dirty_names: Optional[set] = None) -> None:
+        """Re-encode the fleet. With `dirty_names` (the clusters the caller
+        knows changed since the last call), the dirty-column path re-encodes
+        ONLY those clusters and writes their rows into the resident device
+        tensors in place (the scatter_rows kernel) — keeping the batch
+        encoder's affinity masks and per-binding row cache alive — whenever
+        the change is expressible that way; otherwise this falls back to
+        the full rebuild. Either way the fleet epoch advances, so
+        incremental rounds re-solve every binding against the new
+        snapshot."""
         clusters = list(clusters)
+        self.fleet_epoch += 1
+        if dirty_names and self._update_dirty_columns(clusters, dirty_names):
+            return
         self.n_real_clusters = len(clusters)
         pad = (shape_bucket(len(clusters)) if clusters else 0) - len(clusters)
         if pad > 0:
@@ -556,34 +655,221 @@ class ArrayScheduler:
         )
         self._layout_dev = self._spread_layout.tensors(self.device)
 
-        f = self.fleet
-        self._fleet_dev = batch_from_numpy({
-            "alive": f.alive, "capacity": f.capacity, "has_summary": f.has_summary,
-            "taint_key": f.taint_key, "taint_value": f.taint_value,
-            "taint_effect": f.taint_effect, "api_ok": f.api_ok,
-        }, self.device)
+        # the fleet tensors live on the device across rounds, re-uploaded
+        # whole only here
+        self._fleet_dev = batch_from_numpy(
+            {n: getattr(self.fleet, n) for n in _FLEET_FIELDS}, self.device)
+
+    def _update_dirty_columns(self, clusters: list, dirty_names) -> bool:
+        """Dirty-column fleet refresh. Applies only when the membership is
+        unchanged and no dirty cluster changed a mask-relevant field
+        (labels / provider / region / zone): affinity masks, the spread
+        layout and the weight tables are then still valid, so the batch
+        encoder — and its per-binding row cache — survives the fleet
+        update. Status-driven changes (capacity, readiness, taints, api
+        enablements over known GVKs) take this path. Returns False when the
+        delta cannot be expressed in the resident layout."""
+        # self.clusters carries dead shape-pad clusters at the tail; the
+        # caller's list never does, so compare against the real prefix
+        old = self.clusters[: self.n_real_clusters]
+        if len(clusters) != len(old):
+            return False
+        idx: list[int] = []
+        for i, (cn, co) in enumerate(zip(clusters, old)):
+            if cn.name != co.name:
+                return False  # membership / order changed
+            if cn.name in dirty_names:
+                if (
+                    cn.metadata.labels != co.metadata.labels
+                    or cn.spec.provider != co.spec.provider
+                    or cn.spec.region != co.spec.region
+                    or cn.spec.zone != co.spec.zone
+                ):
+                    return False  # affinity/spread inputs changed
+                idx.append(i)
+        if not idx:
+            return True  # spurious dirt: nothing to re-encode
+        # keep the shape-pad clusters (never dirty: they are synthetic)
+        clusters = clusters + self.clusters[len(clusters):]
+        fleet = self.encoder.encode_cols(self.fleet, clusters, idx)
+        if fleet is None:
+            return False  # taint axis would widen / unknown GVK appeared
+        self.clusters = clusters
+        self.fleet = fleet
+        self.batch_encoder.fleet = fleet
+        self.batch_encoder.clusters = clusters
+        self.batch_encoder.affinity_cache.clusters = clusters
+        # the dirty rows into the resident tensors, in place, one launch
+        from .. import kernels
+        from ..convert import batch_from_numpy
+
+        rows = np.asarray(idx, np.int64)
+        src = batch_from_numpy({n: getattr(fleet, n)[rows] for n in _FLEET_FIELDS}, self.device)
+        kernels.scatter_rows([self._fleet_dev[n] for n in _FLEET_FIELDS],
+                             to_device(rows, self.device), [src[n] for n in _FLEET_FIELDS])
+        return True
 
     def _max_rows_per_round(self, n_cols: int) -> int:
         """Row cap per launched round under the [B,C] budget, floored to a
         shape_bucket lattice point."""
-        return shape_floor(max(8, self.max_bc_elems // max(n_cols, 1)))
+        return self._floor_rows(max(8, self.max_bc_elems // max(n_cols, 1)))
+
+    @staticmethod
+    def _floor_rows(cap: int) -> int:
+        """Floor a row cap to a shape_bucket lattice point, so every full
+        chunk has one shape."""
+        return shape_floor(max(cap, 8))
+
+    def pipeline_chunk_rows(self, n_cols: int) -> int:
+        """Per-chunk row cap when the pipeline drives a chunked round: HALF
+        the serial per-launch cap, so two chunks in flight keep the device
+        working set inside the serial executor's envelope."""
+        return self._floor_rows(max(8, self._max_rows_per_round(n_cols) // 2))
+
+    def round_chunk_rows(self, n_rows: int) -> int:
+        """Chunking policy for a daemon-driven pipelined round (the whole
+        dirty set, replay included): aim for ~PIPELINE_CHUNKS chunks so the
+        stages have work to overlap, floor at PIPELINE_MIN_ROWS, and never
+        exceed the double-buffered chunk cap. Returns one chunk (the
+        pipeline then runs serially) for rounds too small to fill the pipe
+        and for out-of-tree-plugin rounds (stateful host hooks must not run
+        on two threads). Always bounded by the serial per-launch row cap."""
+        max_rows = self._max_rows_per_round(len(self.fleet.names))
+        if not self.pipeline_enabled or self._oot_plugins:
+            return min(max(1, n_rows), max_rows)
+        if n_rows <= 2 * PIPELINE_MIN_ROWS and n_rows <= max_rows:
+            return max(1, n_rows)
+        cap = self.pipeline_chunk_rows(len(self.fleet.names))
+        target = self._floor_rows(max(PIPELINE_MIN_ROWS, n_rows // PIPELINE_CHUNKS))
+        return max(8, min(cap, target))
 
     _bucket = staticmethod(shape_bucket)
 
     def _pad(self, batch: BindingBatch) -> BindingBatch:
         return pad_batch(batch, self._bucket)
 
+    # -- incremental rounds -----------------------------------------------
+
+    def _split_replay(self, bindings: Sequence, extra_avail):
+        """Replay-cache consult for one binding list: returns
+        (out, dirty_pos, digest_of) where out[i] is the replayed decision or
+        None, dirty_pos lists the rows that must solve, and digest_of
+        memoizes the per-row estimator-answer digests for the cache writes.
+        Digests are computed lazily — only after the cheap epoch check says
+        a cached entry could match — so an epoch-invalidated round never
+        hashes its answer rows just to find every entry stale. Out-of-tree
+        plugins disable replay."""
+        from .incremental import extra_digest
+
+        n = len(bindings)
+        out: list[Optional[ScheduleDecision]] = [None] * n
+        digests: list[Optional[bytes]] = [None] * n
+        digest_done = [extra_avail is None] * n
+
+        def digest_of(i: int) -> Optional[bytes]:
+            if not digest_done[i]:
+                digests[i] = extra_digest(extra_avail[i])
+                digest_done[i] = True
+            return digests[i]
+
+        if self._oot_plugins:
+            return out, list(range(n)), digest_of
+        cache = self._decision_cache
+        epoch = self.fleet_epoch
+        dirty_pos: list[int] = []
+        for i, rb in enumerate(bindings):
+            uid = rb.metadata.uid
+            ent = cache.get(uid) if uid else None
+            if ent is not None and ent.epoch == epoch and ent.matches(rb, epoch, digest_of(i)):
+                out[i] = ent.decision
+            else:
+                dirty_pos.append(i)
+        return out, dirty_pos, digest_of
+
+    def _cache_decisions(self, bindings: Sequence, out, dirty_pos, digest_of, solve_epoch: int,
+                         round_rows: Optional[int] = None) -> None:
+        """Write the round's dirty decisions back to the replay cache and
+        enforce the size bound (entries of deleted bindings must not
+        accumulate). `round_rows`: the WHOLE round's binding count when the
+        caller is one chunk of a larger round, so the bound scales with the
+        round."""
+        if self._oot_plugins:
+            return  # replay disabled: never cache under opaque plugin terms
+        from .incremental import DecisionEntry
+
+        cache = self._decision_cache
+        for i in dirty_pos:
+            rb = bindings[i]
+            if rb.metadata.uid:
+                cache[rb.metadata.uid] = DecisionEntry(rb, solve_epoch, digest_of(i), out[i])
+        if len(cache) > max(4 * (round_rows or len(bindings)), 16384):
+            cache.clear()
+            for i, rb in enumerate(bindings):
+                if rb.metadata.uid and out[i] is not None:
+                    cache[rb.metadata.uid] = DecisionEntry(rb, solve_epoch, digest_of(i), out[i])
+
+    def schedule_incremental(self, bindings: Sequence, extra_avail=None) -> list[ScheduleDecision]:
+        """Incremental schedule round: bindings whose solve inputs are
+        unchanged since the round that last solved them — same fleet epoch,
+        same spec/status inputs, same estimator answers (sched/incremental.py
+        DecisionEntry) — replay their cached decision without touching the
+        device; only the dirty rows enter `schedule()`. Decisions equal a
+        cold full solve's (the tie-break is UID-seeded)."""
+        if not bindings:
+            self.last_round_stats = {"replayed": 0, "solved": 0}
+            return []
+        bindings = list(bindings)
+        out, dirty_pos, digest_of = self._split_replay(bindings, extra_avail)
+        if dirty_pos:
+            dirty = [bindings[i] for i in dirty_pos]
+            sub_extra = None if extra_avail is None else extra_avail[dirty_pos]
+            decisions = self.schedule(dirty, extra_avail=sub_extra)
+            for i, dec in zip(dirty_pos, decisions):
+                out[i] = dec
+            self._cache_decisions(bindings, out, dirty_pos, digest_of, self.fleet_epoch)
+        self.last_round_stats = {
+            "replayed": len(bindings) - len(dirty_pos), "solved": len(dirty_pos),
+        }
+        if dirty_pos and self.last_pipeline_stats:
+            # the dirty-row solve ran chunked: its stage/overlap numbers
+            self.last_round_stats.update(self.last_pipeline_stats)
+        return out
+
+    # -- the chunk API (sched/pipeline.py drives these) --------------------
+
+    def launch_chunk(self, bindings: Sequence, extra_avail=None,
+                     round_rows: Optional[int] = None) -> dict:
+        """Launch one pipeline chunk, replay-aware: cached decisions resolve
+        at once; dirty rows encode on the host and launch on the device —
+        no device sync here. Keep chunks within `round_chunk_rows`.
+        `round_rows`: the whole round's binding count (scales the replay
+        cache's bound)."""
+        bindings = list(bindings)
+        out, dirty_pos, digest_of = self._split_replay(bindings, extra_avail)
+        state = None
+        if dirty_pos:
+            dirty = [bindings[i] for i in dirty_pos]
+            sub_extra = None if extra_avail is None else extra_avail[dirty_pos]
+            state = self._launch_solve(dirty, sub_extra)
+        return {
+            "bindings": bindings, "out": out, "dirty_pos": dirty_pos, "digest_of": digest_of,
+            "state": state, "epoch": self.fleet_epoch, "round_rows": round_rows,
+            "replayed": len(bindings) - len(dirty_pos), "solved": len(dirty_pos),
+        }
+
     def schedule(self, bindings: Sequence, extra_avail=None) -> list[ScheduleDecision]:
         """Schedule with the ordered-affinity-terms retry loop
         (scheduleResourceBindingWithClusterAffinities, scheduler.go:562-625).
-        Rounds over the per-launch row cap run as serial row chunks (rows
-        are independent and the tie-break is UID-seeded, so decisions do
-        not depend on the chunking). `extra_avail`: None, or the registered
+        Rounds over the per-launch row cap run as equal row chunks through
+        the chunk pipeline, or serially when it is off (rows are
+        independent and the tie-break is UID-seeded, so decisions do not
+        depend on the chunking). `extra_avail`: None, or the registered
         estimators' answers int32 [len(bindings), c] over the first c <=
         C fleet columns, -1 = no answer (EstimatorRegistry.batch_estimates)."""
         if not bindings:
             return []
         bindings = list(bindings)
+        self.last_pipeline_stats = None
         if extra_avail is not None:
             extra_avail = np.asarray(extra_avail)
             C = len(self.fleet.names)
@@ -595,26 +881,75 @@ class ArrayScheduler:
                 )
             extra_avail = extra_avail.astype(np.int32, copy=False)
         max_rows = self._max_rows_per_round(len(self.fleet.names))
-        out: list[ScheduleDecision] = []
-        for s in range(0, len(bindings), max_rows):
-            sub_extra = None if extra_avail is None else extra_avail[s:s + max_rows]
-            out += self._materialize_solve(
-                self._launch_solve(bindings[s:s + max_rows], sub_extra))
-        return out
+        if len(bindings) > max_rows:
+            return self._schedule_chunked(bindings, extra_avail, max_rows)
+        return self._materialize_solve(self._launch_solve(bindings, extra_avail))
+
+    def _schedule_chunked(self, bindings: list, extra_avail, max_rows: int
+                          ) -> list[ScheduleDecision]:
+        """The oversized-round executor: equal lattice row chunks under the
+        [B,C] budget, run as the software pipeline when enabled (chunk k+1
+        encodes and launches while chunk k materializes on the writer;
+        two chunks in flight, so chunks are HALF the serial row cap), or
+        strictly serially when not. Decisions are identical either way.
+        Out-of-tree plugins run the chunks serially (their host hooks may
+        be stateful), as they disable replay. A CUDA stream is current per
+        thread, so the writer enters the caller's: its copies back wait
+        for the chunk's kernels, and its retry sub-rounds launch there."""
+        pipelined = self.pipeline_enabled and not self._oot_plugins
+        cap = (min(max_rows, self.pipeline_chunk_rows(len(self.fleet.names)))
+               if pipelined else max_rows)
+        rows = plan_chunk_rows(len(bindings), cap)
+        spans = chunk_spans(len(bindings), rows)
+        chunks = [(bindings[s:e], None if extra_avail is None else extra_avail[s:e])
+                  for s, e in spans]
+        stream = caller_stream(self.device)
+
+        def materialize(state):
+            with torch.cuda.stream(stream):
+                return self._materialize_solve(state)
+
+        timer = StageTimer()
+        with self.pipeline_context(timer):
+            pipe = ChunkPipeline(
+                launch=lambda i, c, est: self._launch_solve(c[0], c[1]),
+                materialize=materialize,
+                pipelined=pipelined,
+                timer=timer,
+                # the materialize halves time their own spans (the retry
+                # loop's sub-rounds record their stages, not a second
+                # blanket materialize span)
+                time_materialize=False,
+            )
+            results = pipe.run(chunks)
+        stats = pipe.stats()
+        stats["chunks"] = len(spans)
+        stats["chunk_rows"] = rows
+        self.last_pipeline_stats = stats
+        return [d for chunk_dec in results for d in chunk_dec]
 
     def materialize_chunk(self, pending: dict) -> list[ScheduleDecision]:
-        """Sync + decode a launched chunk. Only the tiered launch
-        (sched/preemption.py launch_tiered, the "tiered" marker) exists in
-        the port; the daemon's own chunk launch and replay cache are a
-        later slice."""
+        """Second half of `launch_chunk`: sync + decode the chunk's dirty
+        rows, run the ordered-affinity retry loop, write the replay cache,
+        and merge with the replayed decisions, in the chunk's binding
+        order. Tiered chunks (sched/preemption.py launch_tiered, the
+        "tiered" marker) materialize here too and never enter the replay
+        cache: their decisions depend on the batch's composition."""
         if pending.get("tiered"):
             from .preemption import materialize_tiered
 
-            return materialize_tiered(self, pending)
-        raise NotImplementedError(
-            "materialize_chunk of a non-tiered chunk: launch_chunk and the replay "
-            "cache are not ported yet (the daemon slice of the PyTorch port)"
-        )
+            with stage_span("materialize", self.stage_timer):
+                return materialize_tiered(self, pending)
+        out = pending["out"]
+        if pending["state"] is not None:
+            decisions = self._materialize_solve(pending["state"])
+            for i, dec in zip(pending["dirty_pos"], decisions):
+                out[i] = dec
+            self._cache_decisions(
+                pending["bindings"], out, pending["dirty_pos"], pending["digest_of"],
+                pending["epoch"], round_rows=pending["round_rows"],
+            )
+        return out
 
     @staticmethod
     def _affinity_terms_of(rb):
@@ -675,8 +1010,10 @@ class ArrayScheduler:
         from . import candidates as cand_mod
 
         self.last_candidate_stats = {}
-        if cand_mod.dense_reason(self, bindings) is None:
+        reason = cand_mod.dense_reason(self, bindings)
+        if reason is None:
             return cand_mod.launch_candidates(self, bindings, extra_avail, term_indices)
+        cand_mod.note_fallback(reason)
         return self._launch_once_partitioned(bindings, extra_avail, term_indices)
 
     def _materialize_once(self, pending: dict) -> list[ScheduleDecision]:
@@ -716,7 +1053,8 @@ class ArrayScheduler:
 
         from ..convert import batch_from_numpy
 
-        raw = self.batch_encoder.encode(bindings, term_indices=term_indices)
+        with self._encode_lock:
+            raw = self.batch_encoder.encode(bindings, term_indices=term_indices)
         batch = self._pad(raw)
         t = batch_from_numpy({name: getattr(batch, name) for name in _BATCH_FIELDS}, self.device)
         t["extra_avail"] = self._upload_extra(extra_avail, len(batch.replicas))
@@ -754,16 +1092,21 @@ class ArrayScheduler:
         Every phase-2 launch reads only phase-1 device outputs, so the
         round pays one device->host sync, in the materialize half (the
         batched spread rows add one more, after their host search)."""
-        n_real = len(bindings)
-        if n_real == 0:
+        if not bindings:
             return {"n_real": 0}
-        C = len(self.fleet.names)
-        dev = self.device
+        with stage_span("encode", self.stage_timer):
+            bindings, cls, order, raw, t, spread, extra = self._encode_round(
+                bindings, extra_avail, term_indices)
+        with stage_span("solve", self.stage_timer):
+            return self._solve_partitioned(bindings, cls, order, raw, t, spread, extra)
 
+    def _solve_partitioned(self, bindings, cls, order, raw, t, spread, extra) -> dict:
+        """The dense round's kernel dispatch (the `solve` stage)."""
         from .. import kernels
 
-        bindings, cls, order, raw, t, spread, extra = self._encode_round(
-            bindings, extra_avail, term_indices)
+        n_real = len(bindings)
+        C = len(self.fleet.names)
+        dev = self.device
         batched_rows, batched_cfg, fallback_rows = spread
         f = self._fleet_dev
 
@@ -833,9 +1176,13 @@ class ArrayScheduler:
         for tail rows whose nonzero count outruns the output window and for
         mask rows whose feasible count outruns the index window), the spread
         rows, then the decisions, unpermuted."""
-        n_real = p["n_real"]
-        if n_real == 0:
+        if p["n_real"] == 0:
             return []
+        with stage_span("materialize", self.stage_timer):
+            return self._materialize_partitioned_inner(p)
+
+    def _materialize_partitioned_inner(self, p: dict) -> list[ScheduleDecision]:
+        n_real = p["n_real"]
         bindings, raw, cls, order = p["bindings"], p["raw"], p["cls"], p["order"]
         tails, mask_rows = p["tails"], p["mask_rows"]
         spread_pre = p["spread_pre"]

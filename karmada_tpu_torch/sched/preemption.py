@@ -35,6 +35,7 @@ The gang queue and the daemon's commit are later slices.
 from __future__ import annotations
 
 import copy
+import threading
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
@@ -60,11 +61,18 @@ from .core import (
 class _LaunchCounter:
     """Process-global tiered / preemption launch counter: a tiered
     micro-batch is ONE launch sequence whatever its tier count; a
-    preemption pass is one per distinct preemptor priority."""
+    preemption pass is one per distinct preemptor priority. Bumped under a
+    lock: a pipelined round's writer thread launches too."""
 
     def __init__(self) -> None:
+        self._lock = threading.Lock()
         self.tiered = 0
         self.preempt = 0
+
+    def bump(self, kind: str) -> None:
+        """One launch of `kind` ("tiered" or "preempt")."""
+        with self._lock:
+            setattr(self, kind, getattr(self, kind) + 1)
 
 
 LAUNCHES = _LaunchCounter()
@@ -225,7 +233,8 @@ def _launch_kernel_rows(array: ArrayScheduler, bindings: list, extra_avail=None,
     (i64[n_tiers,C,R]) the launch also solves the speculative pass."""
     from . import candidates as cand_mod
 
-    raw = array.batch_encoder.encode(bindings)
+    with array._encode_lock:
+        raw = array.batch_encoder.encode(bindings)
     batch = pad_batch(raw, array._bucket)
     C = len(array.fleet.names)
     B = len(batch.replicas)
@@ -264,6 +273,10 @@ def _launch_kernel_rows(array: ArrayScheduler, bindings: list, extra_avail=None,
             array, t, tier_rows, capacity, t["request"], reclaim, spec_tiers,
             k=cand_k, topk=topk, has_agg=has_agg)
     else:
+        if cand_mod.compact_width_ok(array):
+            cand_mod.note_fallback("duplicated")
+        elif array.candidate_k:
+            cand_mod.note_fallback("small_fleet")
         feas_count, main, aug = _launch_dense_tiers(
             array, t, tier_rows, capacity, t["request"], reclaim, spec_tiers,
             topk=topk, has_agg=has_agg)
@@ -272,10 +285,7 @@ def _launch_kernel_rows(array: ArrayScheduler, bindings: list, extra_avail=None,
     if speculate:
         a_result, a_unsched, a_asum, a_nnz, a_idx, a_val = aug
         out += (a_unsched, a_asum, a_nnz, a_idx, a_val, a_result)
-    if count == "tiered":
-        LAUNCHES.tiered += 1
-    else:
-        LAUNCHES.preempt += 1
+    LAUNCHES.bump(count)
     return {"raw": raw, "out": out, "n": len(bindings), "names": array.fleet.names,
             "n_tiers": n_tiers, "speculate": speculate, "cand_dev": cand_dev}
 

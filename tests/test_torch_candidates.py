@@ -97,3 +97,243 @@ def test_tail_plain_matches_candidate_tail_kernel(has_agg, topk):
     np.testing.assert_array_equal(np.where(gv > 0, gi, -1), np.where(wv > 0, wi, -1))
     # the window itself follows jax.lax.top_k's (value desc, column asc) order
     np.testing.assert_array_equal(_n(got[4]), np.asarray(want[4]))
+
+
+# --------------------------------------------------------------------------
+# the wide routes: windows past 128 columns, fleets past 16 384 columns
+# --------------------------------------------------------------------------
+
+
+def _views(decisions):
+    from test_torch_scheduler import _decision_view
+
+    return [_decision_view(d) for d in decisions]
+
+
+def test_candidate_k_256_compact_round_matches_jax(monkeypatch):
+    """candidate_k=256 on a fleet wider than the window (C = 384): the
+    compact round over 256-column windows decides as the JAX round, with
+    the same effective K and truncations."""
+    clusters, bindings = flagship_mix(seed=3, n_clusters=300, n_bindings=96)
+    ref = jcore.ArrayScheduler(clusters, candidate_k=256)
+    port = TorchScheduler(from_reference_objects(clusters), candidate_k=256, device="cpu")
+    windows = []
+    tail = kernels.candidate_tail
+    monkeypatch.setattr(kernels, "candidate_tail",
+                        lambda *a, **kw: (windows.append(a[0].shape[1]), tail(*a, **kw))[1])
+    want = ref.schedule(bindings)
+    got = port.schedule(from_reference_objects(bindings))
+    # the last round is the ordered-affinity retry's (a 30-cluster term)
+    assert port.last_candidate_stats == ref.last_candidate_stats
+    assert windows[:2] == [256, 256]
+    assert _views(got) == _views(want)
+
+
+def test_candidate_k_256_tiered_compact_round_matches_jax():
+    """The compact tiered launch (B12) over 256-column windows: its tails
+    take the K > 128 route on a card; on the CPU it decides as the JAX
+    package."""
+    import test_torch_preemption as tp
+    from karmada_tpu.sched import preemption as jpre
+    from karmada_tpu_torch.sched import preemption as tpre
+
+    clusters, bindings = tp._tiered_fixture("compact", 3, seed=4)
+    jarr = jcore.ArrayScheduler(clusters, candidate_k=256)
+    tarr = TorchScheduler(from_reference_objects(clusters), candidate_k=256, device="cpu")
+    pend = tpre.launch_tiered(tarr, from_reference_objects(bindings))
+    assert pend["state"]["cand_dev"].shape[1] == 256
+    got = tarr.materialize_chunk(pend)
+    want = jarr.materialize_chunk(jpre.launch_tiered(jarr, bindings))
+    assert [tp._view(d) for d in got] == [tp._view(d) for d in want]
+
+
+def test_wide_fleet_round_matches_jax():
+    """A 20 000-cluster fleet (padded to 20 480, past the in-block select's
+    16 384 columns) with a few dozen bindings decides as the JAX round."""
+    from karmada_tpu.testing.fixtures import synthetic_fleet
+
+    import test_torch_scheduler as ts
+
+    clusters = synthetic_fleet(20_000, seed=1)
+    names = [c.name for c in clusters]
+    bindings = [
+        ts._binding(i, 3 + i % 40, (ts._dyn(i % 2 == 0) if i % 3 else ts.duplicated_placement(
+            names[i * 7: i * 7 + 12])), 0.5, prev={names[(i * 977) % 20_000]: 2})
+        for i in range(36)
+    ]
+    ref = jcore.ArrayScheduler(clusters)
+    port = TorchScheduler(from_reference_objects(clusters), device="cpu")
+    assert len(port.fleet.names) == 20_480
+    C = len(port.fleet.names)
+    assert kernels.select_route(C, 128, 1, 1, 1) == "candidate_select_wide"
+    want = ref.schedule(bindings)
+    got = port.schedule(from_reference_objects(bindings))
+    assert port.last_candidate_stats == ref.last_candidate_stats
+    assert _views(got) == _views(want)
+
+
+class _FakeLib:
+    """A kernel library whose entry points record their call and return
+    cudaSuccess: the wrappers' checks and argument marshalling run on CPU
+    tensors up to the launch."""
+
+    def __init__(self, calls):
+        self._calls = calls
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self._calls.append((name, args))
+            return 0
+
+        return entry
+
+
+@pytest.fixture()
+def fake_card(monkeypatch):
+    import ctypes
+
+    from karmada_tpu_torch.kernels import build
+
+    calls = []
+    monkeypatch.setattr(build, "library", lambda name: _FakeLib(calls))
+    monkeypatch.setattr(kernels, "_stream", lambda dev: ctypes.c_void_p(0))
+    return calls
+
+
+@pytest.mark.parametrize("K,entry", [(128, "candidate_tail_launch"),
+                                     (256, "window_tail_launch"), (512, "window_tail_launch")])
+def test_tail_launch_takes_any_window(K, entry, fake_card):
+    """candidate_tail's launch no longer refuses windows past 128 columns:
+    K <= 128 calls the 128-thread kernel, wider windows dense_tail.cu's
+    window mode."""
+    rng = np.random.default_rng(K)
+    rows, C = 6, 1024
+    T = torch.from_numpy
+    args = (T(rng.random((rows, K)) < 0.8), T(rng.integers(0, 9, (rows, K)).astype(np.int32)),
+            T(np.zeros((rows, K), np.int32)), T(rng.integers(0, 3, (rows, K)).astype(np.int32)),
+            T(np.sort([rng.choice(C, K, replace=False) for _ in range(rows)], 1).astype(np.int32)),
+            T(np.ones((2, C), np.int64)), T(np.zeros(rows, np.int32)),
+            T(np.full(rows, 3, np.int32)), T(np.full(rows, 9, np.int32)),
+            T(np.zeros(rows, bool)))
+    out = kernels._tail_launch(*args, topk=128, has_agg=True)
+    assert [name for name, _ in fake_card] == [entry]
+    assert out[4].shape == (rows, min(K, 128))
+
+
+@pytest.mark.parametrize("C,entry", [(5120, "candidate_select_launch"),
+                                     (20_480, "candidate_select_wide_launch")])
+def test_select_launch_takes_any_width(C, entry, fake_card):
+    """candidate_select's launch no longer refuses fleets past 16 384
+    columns: they take the radix-select route with an int64 [B, C] key
+    scratch."""
+    import chip_smoke
+
+    args = chip_smoke.random_select_inputs(np.random.default_rng(C), "cpu", 4, C)
+    kernels._select_launch(*args, k=128, plugin_bits=31)
+    (name, cargs), = fake_card
+    assert name == entry
+    assert len(cargs) == (42 if entry.endswith("wide_launch") else 41)
+
+
+def test_scatter_rows_launch_marshals_every_tensor(fake_card):
+    """B17's launch passes one (dst, src, row bytes, rows) entry per
+    tensor with bytes, skips rows of no bytes, and checks its inputs."""
+    import ctypes
+
+    C, n = 64, 5
+    dsts = [torch.zeros(C, dtype=torch.bool), torch.zeros((C, 4), dtype=torch.int64),
+            torch.zeros((C, 3), dtype=torch.int32), torch.zeros((C, 0), dtype=torch.int32)]
+    srcs = [torch.ones((n,) + tuple(d.shape[1:]), dtype=d.dtype) for d in dsts]
+    idx = torch.tensor([1, 5, 5, 9, 63])
+    kernels._scatter_rows_launch(dsts, idx, srcs)
+    (name, cargs), = fake_card
+    assert name == "scatter_rows_launch"
+    row_bytes = ctypes.cast(cargs[2], ctypes.POINTER(ctypes.c_int64))
+    assert [row_bytes[i] for i in range(cargs[4])] == [1, 32, 12]
+    assert cargs[6] == n
+    with pytest.raises(TypeError, match="dtype"):
+        kernels._scatter_rows_launch(dsts[:1], idx, [srcs[1]])
+
+
+# --------------------------------------------------------------------------
+# the candidate-window counters, at the reference's call sites
+# --------------------------------------------------------------------------
+
+_REASONS = ("disabled", "small_fleet", "policy", "spread_constraint", "duplicated")
+
+
+def _fallback_case(name):
+    """(JAX clusters, a round runner taking (module pair, scheduler,
+    converted-or-not bindings), bindings, candidate_k) of one fallback
+    reason."""
+    import test_torch_preemption as tp
+    from karmada_tpu.api import policy as jpol
+
+    if name in ("disabled", "small_fleet", "policy", "spread_constraint"):
+        clusters, bindings = flagship_mix(n_bindings=24)
+        k = {"disabled": 0, "small_fleet": 128}.get(name, 16)
+        if name == "policy":
+            bindings[3].metadata.annotations = {"karmada-tpu.io/dense-solve": "true"}
+        if name == "spread_constraint":
+            bindings[2].spec.placement.spread_constraints = [
+                jpol.SpreadConstraint(spread_by_field="cluster", min_groups=2)]
+        return clusters, bindings, k, False
+    if name == "tiered_duplicated":
+        clusters, bindings = tp._tiered_fixture("compact", 2, seed=1)
+        dup = tp.make_binding("dup", 2, jpol.Placement(), cpu=0.5)
+        dup.spec.schedule_priority = 7
+        return clusters, bindings + [dup], 128, True
+    clusters, bindings = tp._tiered_fixture("dense", 2)  # tiered_small_fleet
+    return clusters, bindings, 128, True
+
+
+@pytest.mark.parametrize("name", ["disabled", "small_fleet", "policy", "spread_constraint",
+                                  "tiered_duplicated", "tiered_small_fleet"])
+def test_fallback_counter_matches_reference(name):
+    """karmada_candidate_fallback_total{reason} moves as the reference's at
+    each call site: the dense reasons of `_launch_once` (a disabled window
+    counts nothing), the wide spread rows of the compact round, and the
+    tiered launch's dense fallbacks."""
+    from karmada_tpu import metrics as jmetrics
+    from karmada_tpu.sched import preemption as jpre
+    from karmada_tpu_torch import metrics as tmetrics
+    from karmada_tpu_torch.sched import preemption as tpre
+
+    clusters, bindings, k, tiered = _fallback_case(name)
+
+    def counts(m):
+        return {r: m.candidate_fallback.value(reason=r) for r in _REASONS}
+
+    j0, t0 = counts(jmetrics), counts(tmetrics)
+    jarr = jcore.ArrayScheduler(clusters, candidate_k=k)
+    tarr = TorchScheduler(from_reference_objects(clusters), candidate_k=k, device="cpu")
+    if tiered:
+        jarr.materialize_chunk(jpre.launch_tiered(jarr, bindings))
+        tarr.materialize_chunk(tpre.launch_tiered(tarr, from_reference_objects(bindings)))
+    else:
+        jarr.schedule(bindings)
+        tarr.schedule(from_reference_objects(bindings))
+    jd = {r: counts(jmetrics)[r] - j0[r] for r in _REASONS}
+    td = {r: counts(tmetrics)[r] - t0[r] for r in _REASONS}
+    assert td == jd
+    if name == "disabled":  # configuration, not a fallback: nothing counted
+        assert not any(td.values())
+    else:
+        assert td[name.replace("tiered_", "")] > 0
+
+
+def test_truncations_and_window_gauge_match_reference():
+    """karmada_candidate_truncations_total grows by the round's truncations
+    as the reference's does, and karmada_candidate_k carries the window."""
+    from karmada_tpu import metrics as jmetrics
+    from karmada_tpu_torch import metrics as tmetrics
+
+    clusters, bindings = flagship_mix(n_bindings=64)
+    j0, t0 = jmetrics.candidate_truncations.total(), tmetrics.candidate_truncations.total()
+    jarr = jcore.ArrayScheduler(clusters, candidate_k=16)
+    tarr = TorchScheduler(from_reference_objects(clusters), candidate_k=16, device="cpu")
+    jarr.schedule(bindings)
+    tarr.schedule(from_reference_objects(bindings))
+    t_delta = tmetrics.candidate_truncations.total() - t0
+    assert t_delta == jmetrics.candidate_truncations.total() - j0 > 0
+    assert tmetrics.candidate_k.value(bucket="16") == 16.0 == jmetrics.candidate_k.value(bucket="16")

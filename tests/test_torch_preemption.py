@@ -469,9 +469,10 @@ def test_routing_matches_jax():
 
 
 def test_unported_paths_raise(monkeypatch):
-    """A non-tiered chunk (the daemon slice) and a default device without a
-    card raise, naming what is missing; registered-estimator answers (which
-    raised until the estimator slice) decide as the JAX package."""
+    """A default device without a card raises, naming what is missing;
+    registered-estimator answers (which raised until the estimator slice)
+    and a non-tiered chunk through launch_chunk / materialize_chunk (which
+    raised until the chunk-surface slice) decide as the JAX package."""
     clusters = tight_fleet()
     tarr = TorchScheduler(conv(clusters), device="cpu")
     ref = mixed_priority_bindings(n=4)
@@ -481,8 +482,10 @@ def test_unported_paths_raise(monkeypatch):
         jpre.launch_tiered(jcore.ArrayScheduler(clusters), ref, extra_avail=extra))
     got = tarr.materialize_chunk(tpre.launch_tiered(tarr, bindings, extra_avail=extra))
     assert [_view(d) for d in got] == [_view(d) for d in want]
-    with pytest.raises(NotImplementedError, match="daemon"):
-        tarr.materialize_chunk({"out": [None], "state": None})
+    want = jcore.ArrayScheduler(clusters).materialize_chunk(
+        jcore.ArrayScheduler(clusters).launch_chunk(ref, extra_avail=extra))
+    got = tarr.materialize_chunk(tarr.launch_chunk(bindings, extra_avail=extra))
+    assert [_view(d) for d in got] == [_view(d) for d in want]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tpre.preview_preemption(conv(clusters), bindings, bindings[0])
