@@ -1,6 +1,6 @@
 """On-card smoke test of the PyTorch/CUDA port (karmada_tpu_torch).
 
-    python3 chip_smoke.py [--kernels-only]
+    python3 chip_smoke.py [--kernels-only | --sim-only]
 
 Needs one CUDA card (an H100 is the target) and nvcc; exits non-zero with no
 result line otherwise. Phases, each of which raises on failure:
@@ -41,7 +41,14 @@ result line otherwise. Phases, each of which raises on failure:
    windows at K = 192, 256 and 512 and on the flagship's K = 256 windows;
    candidate_select's wide route on seeded rows at C = 20 480 and 32 768
    (with and without answers; on one chunk of the wide_40k round in phase
-   4, where that fixture is built) (`--kernels-only` stops here);
+   4, where that fixture is built); sim_filter (the simulation plane's
+   scenario-stacked filter, csrc/dense_filter.cu) and sim_load (its
+   per-scenario load, csrc/sim_load.cu) on seeded inputs at the whatif
+   solve's shape (with and without answers) and at one whatif_churn5k
+   chunk, drained columns and padded taint slots in each, and on the
+   arguments one round each of whatif and whatif_churn5k passes them,
+   with torch.bmm in float64 as sim_load's library call
+   (`--kernels-only` stops here);
 4. the main paths through ArrayScheduler.schedule() on the card, each with
    every launch count set to 0 just before it and read just after, timed
    rounds with p50/p90/p99, and decisions held against the port's CPU
@@ -73,7 +80,7 @@ result line otherwise. Phases, each of which raises on failure:
    the timed round being the registry's sweep plus the round given its
    answers: config3 (BASELINE config 3, bench.py build_dynamic: 1 000
    clusters x 1 000 dynamic bindings, in-process member estimators over
-   shard_nodes pools, 110 rounds), estimator_flagship (the compact
+   shard_nodes pools, 60 rounds), estimator_flagship (the compact
    flagship with member estimators on all 5 000 clusters), degraded
    (bench.py build_degraded: a breaker open every other round, the
    staleness overlay feeding the round, launch parity between the legs)
@@ -96,9 +103,24 @@ result line otherwise. Phases, each of which raises on failure:
    through the wide select route, the serial leg, a 2 048-row sample
    over every chunk and row class held against the CPU round) and
    flagship_k256 (the compact flagship at candidate_k=256 through the
-   K > 128 tail, and one tiered compact round at K = 256);
+   K > 128 tail, and one tiered compact round at K = 256); then the
+   simulation plane through Simulator.simulate(): whatif (bench.py:521
+   build_whatif: 500 clusters x 1 000 churn bindings, 16 drain, loss and
+   capacity scenarios, one solve a round, every outcome held against the
+   CPU Simulator, and bench.py's 16 sequential cold rounds for the
+   amortization), whatif_mixed (its fleet with a taint, a surge and a
+   composite scenario added and 32 region-spread rows on the
+   per-scenario ArrayScheduler fallback), whatif_churn5k (the same recipe
+   at 5 000 x 10 000: four scenario chunks a round, the baseline and the
+   first drain, loss and capacity scenario held against a cold dense
+   ArrayScheduler round on the card, a 256-row sample of every outcome
+   against the CPU Simulator, the round's breakdown) and preflight
+   (QuotaPreflight's deny and allow on the card, as on the CPU);
 5. the `kernels` JSON line, then the card's name and power limit, then the
    last line {"ok": true, "device": {...}}.
+
+`--sim-only` builds every kernel, then runs only the simulation plane's
+checks of phases 3 and 4, and prints no result line.
 """
 from __future__ import annotations
 
@@ -117,8 +139,28 @@ import torch
 
 from karmada_tpu_torch import faults, kernels
 from karmada_tpu_torch.api import policy as pol
-from karmada_tpu_torch.api.cluster import CLUSTER_CONDITION_READY, EFFECT_NO_SCHEDULE, Taint
+from karmada_tpu_torch.api.cluster import (
+    CLUSTER_CONDITION_READY,
+    EFFECT_NO_EXECUTE,
+    EFFECT_NO_SCHEDULE,
+    Taint,
+)
 from karmada_tpu_torch.api.meta import CPU, MEMORY, ObjectMeta, new_uid
+from karmada_tpu_torch.api.search import (
+    FederatedResourceQuota,
+    FederatedResourceQuotaSpec,
+    StaticClusterAssignment,
+)
+from karmada_tpu_torch.api.simulation import (
+    SCENARIO_BASELINE,
+    SCENARIO_CAPACITY,
+    SCENARIO_COMPOSITE,
+    SCENARIO_DRAIN,
+    SCENARIO_LOSS,
+    SCENARIO_SURGE,
+    SCENARIO_TAINT,
+    Scenario,
+)
 from karmada_tpu_torch.api.work import (
     BindingSpec,
     GracefulEvictionTask,
@@ -142,6 +184,7 @@ from karmada_tpu_torch.models.batch import (
 )
 from karmada_tpu_torch.models.nodes import NodeEncoder
 from karmada_tpu_torch.sched.candidates import DENSE_SOLVE_ANNOTATION, effective_k
+from karmada_tpu_torch.sched.plugins import ALL_PLUGIN_BITS
 from karmada_tpu_torch.sched import preemption, spread_batch
 from karmada_tpu_torch.sched.pipeline import chunk_spans, plan_chunk_rows
 from karmada_tpu_torch.sched.core import (
@@ -150,6 +193,8 @@ from karmada_tpu_torch.sched.core import (
     _pad_rows_idx,
     _sorted_pairs,
 )
+from karmada_tpu_torch.simulation import Simulator, apply_scenario_objects
+from karmada_tpu_torch.simulation.preflight import QuotaPreflight
 from karmada_tpu_torch.testing.fixtures import (
     build_estimator,
     duplicated_placement,
@@ -157,6 +202,7 @@ from karmada_tpu_torch.testing.fixtures import (
     static_weight_placement,
     synthetic_fleet,
 )
+from karmada_tpu_torch.webhook.admission import AdmissionDenied, AdmissionRequest
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the
 # float32 rate outside the tensor cores, used here for the kernels' 32/64-bit
@@ -166,7 +212,7 @@ ALU_OPS_PER_S = 67e12
 
 N_CLUSTERS = 5000
 N_BINDINGS = 10000
-TIMED_ROUNDS = 110  # p90 then has 11 samples beyond it
+TIMED_ROUNDS = 60  # p90 then has 6 samples beyond it (110 until the simulation cells)
 VARIANT_ROUNDS = 20  # timed rounds of the whole-fleet Duplicated variant
 SPREAD_ROUNDS = 20  # timed rounds of each spread cell
 SPREAD_BINDINGS = 5000  # BASELINE config 4: 5k clusters x 5k bindings
@@ -178,7 +224,7 @@ WIDE_C = 16384  # the dense tail's and group_score's width check
 TIER_ROUNDS = 20  # timed rounds of each tier cell
 CONFIG3_CLUSTERS = 1000  # BASELINE config 3: 1k clusters x 1k bindings
 CONFIG3_BINDINGS = 1000
-CONFIG3_ROUNDS = 110
+CONFIG3_ROUNDS = 60
 ESTIMATOR_ROUNDS = 20  # timed rounds of estimator_flagship, degraded and tiers_estimator
 DEGRADED_CLUSTERS = 500
 DEGRADED_BINDINGS = 1000
@@ -203,6 +249,18 @@ WIDE_TAIL_KS = (192, 256, 512)  # the K > 128 tail's random checks
 WIDE_TAIL_ROWS = 2048
 WIDE_SELECT_CS = (20_480, 32_768)  # the wide select route's random checks
 WIDE_SELECT_ROWS = 2048
+WHATIF_CLUSTERS = 500  # bench.py:521 build_whatif's defaults
+WHATIF_BINDINGS = 1000
+WHATIF_SCENARIOS = 16
+WHATIF_ROUNDS = 20
+SIM_SPREAD_ROWS = 32  # whatif_mixed's region-spread rows (the fallback)
+CHURN5K_CLUSTERS = N_CLUSTERS  # build_whatif at BASELINE config 5's size
+CHURN5K_BINDINGS = N_BINDINGS
+CHURN5K_ROUNDS = 3
+CHURN5K_SAMPLE = 256  # whatif_churn5k rows held against the cpu Simulator
+# sim_filter / sim_load's seeded checks (S, B, C, with answers): the whatif
+# solve's shape and one whatif_churn5k chunk's
+SIM_CHECK_SHAPES = ((17, 1024, 512, False), (17, 1024, 512, True), (5, 10240, 5120, True))
 K256 = 256  # flagship_k256's candidate window
 DEVICE = "cuda"
 
@@ -2751,9 +2809,491 @@ def run_wide_cells(dev, smi, path_launches, flag, results, select_err):
                      cpu_run=lambda s: tier_round(s, tbindings, placed), candidate_k=K256)
 
 
+# --------------------------------------------------------------------------
+# the what-if simulation plane (Simulator's [S,B,C] scenario solve, the
+# reports' inputs, the quota preflight)
+# --------------------------------------------------------------------------
+
+
+def build_whatif(seed=0, n_clusters=WHATIF_CLUSTERS, n_bindings=WHATIF_BINDINGS,
+                 n_scenarios=WHATIF_SCENARIOS):
+    """bench.py:521 build_whatif, the same draws: the churn working set on
+    its fleet, and n_scenarios drains, readiness losses and capacity cuts
+    (every fourth a cut of 32-255 cpu) on distinct clusters."""
+    clusters, bindings = build_churn(seed=seed, n_clusters=n_clusters, n_bindings=n_bindings)
+    names = [c.name for c in clusters]
+    rng = np.random.default_rng(seed + 1)
+    picks = rng.choice(n_clusters, size=n_scenarios, replace=False)
+    scenarios = []
+    for k in range(n_scenarios):
+        name = names[int(picks[k])]
+        if k % 4 == 3:
+            scenarios.append(Scenario(kind=SCENARIO_CAPACITY, cluster=name,
+                                      resources={"cpu": -float(rng.integers(32, 256))}))
+        elif k % 4 == 2:
+            scenarios.append(Scenario(kind=SCENARIO_LOSS, cluster=name))
+        else:
+            scenarios.append(Scenario(kind=SCENARIO_DRAIN, cluster=name))
+    return clusters, bindings, scenarios
+
+
+def whatif_mixed(clusters, bindings, scenarios, seed=5):
+    """The whatif cell plus a Taint, a BindingSurge and a Composite (drain +
+    taint + capacity cut + surge) scenario, and SIM_SPREAD_ROWS
+    region-spread rows (config 4's placements), which take the
+    per-scenario ArrayScheduler fallback."""
+    names = [c.name for c in clusters]
+    rng = np.random.default_rng(seed)
+    extra = [
+        Scenario(kind=SCENARIO_TAINT, cluster=names[7], taint_key="sim", taint_value="x"),
+        Scenario(kind=SCENARIO_SURGE, surge_count=64, surge_replicas=6,
+                 surge_request={CPU: 1.0}),
+        Scenario(kind=SCENARIO_COMPOSITE, name="zone-outage", steps=[
+            Scenario(kind=SCENARIO_DRAIN, cluster=names[11]),
+            Scenario(kind=SCENARIO_TAINT, cluster=names[12], taint_key="sim",
+                     taint_effect=EFFECT_NO_EXECUTE),
+            Scenario(kind=SCENARIO_CAPACITY, cluster=names[13], resources={CPU: -200.0}),
+            Scenario(kind=SCENARIO_SURGE, surge_count=16, surge_replicas=40,
+                     surge_request={CPU: 4.0}),
+        ]),
+    ]
+    placements = _spread_placements(rng, 4)
+    spread = [_binding(100_000 + i, int(rng.integers(2, 12)), placements[i % 4], 0.5,
+                       ns="spread") for i in range(SIM_SPREAD_ROWS)]
+    return list(bindings) + spread, list(scenarios) + extra
+
+
+def outcome_view(o, keys=None):
+    """An outcome as comparable values: placements (sorted targets) and
+    errors, over `keys` when given (a row sample), else with the per-cluster
+    assigned / usage, the overcommitted clusters and the injected count."""
+    pl = {k: sorted((t.name, t.replicas) for t in v) for k, v in o.placements.items()
+          if keys is None or k in keys}
+    er = {k: v for k, v in o.errors.items() if keys is None or k in keys}
+    if keys is not None:
+        return pl, er
+    return pl, er, o.assigned.tolist(), o.usage.tolist(), list(o.overcommitted), o.injected
+
+
+def same_outcomes(label, got, want, keys=None):
+    for si, (g, w) in enumerate(zip(got, want)):
+        a, b = outcome_view(g, keys), outcome_view(w, keys)
+        if a != b:
+            part = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            raise AssertionError(f"{label}: scenario {si} ({g.scenario.label()}) differs from "
+                                 f"the reference in field {part}")
+
+
+def hold_against_cpu_sim(label, clusters, bindings, scenarios, outcomes, keys=None):
+    """The same simulation through the port's CPU Simulator; every outcome
+    identical (over the rows `keys` when given)."""
+    t0 = time.perf_counter()
+    base, outs = Simulator(clusters, device="cpu").simulate(bindings, scenarios)
+    same_outcomes(label, outcomes, [base] + outs, keys)
+    n_err = sum(len(o.errors) for o in outcomes)
+    over = sum(len(o.overcommitted) for o in outcomes)
+    log(f"{label}: every outcome identical to the cpu Simulator "
+        f"({'all rows' if keys is None else f'{len(keys)} sampled rows'}; {len(outcomes)} "
+        f"outcomes, {n_err} unplaceable rows, {over} overcommitted clusters in all); cpu "
+        f"simulate {time.perf_counter() - t0:.1f} s")
+
+
+def hold_against_schedulers(label, clusters, bindings, scenarios, outcomes, dev):
+    """Each outcome against a cold ArrayScheduler round on the card over
+    the scenario's cluster list (drained clusters removed): the dense
+    round, which is the solve the batched path reproduces."""
+    for sc, out in zip(scenarios, outcomes):
+        sched = ArrayScheduler(apply_scenario_objects(clusters, sc), candidate_k=0, device=dev)
+        for rb, d in zip(bindings, sched.schedule(bindings)):
+            key = rb.metadata.key()
+            got = ((sorted((t.name, t.replicas) for t in out.placements[key]), None)
+                   if key in out.placements else (None, out.errors.get(key)))
+            want = (sorted((t.name, t.replicas) for t in d.targets), None) if d.ok else (
+                None, d.error)
+            if got != want:
+                raise AssertionError(f"{label}: {sc.label()} row {key}: {got} vs the card's "
+                                     f"ArrayScheduler {want}")
+        del sched
+    log(f"{label}: {', '.join(sc.label() for sc in scenarios)} identical to a cold dense "
+        f"ArrayScheduler round on the card over each scenario's clusters, all "
+        f"{len(bindings)} rows")
+
+
+def sim_breakdown(label, sim, run, p50):
+    """One more round split at its seams (host clock): the S scenario-fleet
+    encodes, the batch encode, the solves (launch and device, synchronised
+    before the host copies), and the rest (decode, the fallback, the
+    overcommit check); then the device time of one round by
+    torch.profiler and its share of the p50."""
+    from karmada_tpu_torch.simulation import engine
+
+    secs = {"fleet encode": 0.0, "batch encode": 0.0, "solve": 0.0}
+
+    def timed(key, fn):
+        def wrap(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            if key == "solve":
+                torch.cuda.synchronize()
+            secs[key] += time.perf_counter() - t0
+            return out
+        return wrap
+
+    saved = (sim._encode_scenario_fleets, sim.batch_encoder.encode, engine._sim_solve)
+    sim._encode_scenario_fleets = timed("fleet encode", saved[0])
+    sim.batch_encoder.encode = timed("batch encode", saved[1])
+    engine._sim_solve = timed("solve", saved[2])
+    try:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        del sim._encode_scenario_fleets, sim.batch_encoder.encode
+        engine._sim_solve = saved[2]
+    rest = total - sum(secs.values())
+    dev_ms = profiled_device_ms(None, None, run)
+    share = "not measured" if dev_ms is None else (
+        f"{dev_ms / 1e3:.4f} s = {dev_ms / 1e3 / p50:.3f} of the p50 round (device busy "
+        "share, torch.profiler, one round)")
+    log(f"{label} round breakdown: {total:.4f} s = fleet encode {secs['fleet encode']:.4f} s "
+        f"+ batch encode {secs['batch encode']:.4f} s + solve (launch + device) "
+        f"{secs['solve']:.4f} s + decode and the rest {rest:.4f} s; device time per round "
+        f"{share}")
+    return secs, rest, dev_ms
+
+
+def random_sim_inputs(rng, dev, S, B, C, with_extra, drained=0.02):
+    """Seeded sim_filter inputs: the tie-heavy random batch of the select
+    checks, a stacked fleet of S random scenario fleets in which a share
+    `drained` of each scenario's columns is a drained husk (not alive, no
+    summary, no taints) whose present rank repeats its neighbour's, and
+    every odd scenario's last two taint slots are padding (effect 0)."""
+    args = random_select_inputs(rng, dev, B, C)
+    fleets = [random_fleet(rng, dev, C) for _ in range(S)]
+    stacked = [torch.stack([f[i] for f in fleets]).contiguous() for i in range(len(FLEET))]
+    alive, _cap, has_summary, tk, tv, te, _api = stacked
+    present = rng.random((S, C)) >= drained
+    present[0] = True
+    gone = torch.from_numpy(~present).to(dev)
+    alive[gone] = False
+    has_summary[gone] = False
+    for t in (tk, tv, te):
+        t[gone] = 0
+        t[1::2, :, -2:] = 0
+    tie_idx = torch.from_numpy(np.cumsum(present, axis=1).astype(np.int64)).to(dev)
+    batch = args[len(FLEET):len(FLEET) + len(SELECT_BATCH)]
+    return stacked + [tie_idx] + batch + [args[-1] if with_extra else None]
+
+
+def sim_filter_bound(args, outs):
+    """Bytes: every input read once, every output written once.
+    Operations: per (scenario, row, column) the filter chain (one compare
+    per taint slot, prev entry and evict entry plus 8), the estimate (4 per
+    requested resource plus 4) and the tie (12)."""
+    S, C = args[0].shape
+    B, T, R = args[8].shape[0], args[3].shape[2], args[1].shape[2]
+    Kp, Ke = args[15].shape[1], args[17].shape[1]
+    return bound(nbytes(args) + nbytes(outs), S * B * C * (T + Kp + Ke + 4 * R + 24))
+
+
+def sim_load_bound(args, outs):
+    """Bytes: the result, active and request read once, the sums written
+    once. Operations: per (scenario, row, column) one add and R
+    multiply-adds of int64."""
+    result, _active, request = args
+    return bound(nbytes(args) + nbytes(outs), result.numel() * (2 * request.shape[1] + 1))
+
+
+def sim_load_library(args):
+    """The one torch call that computes sim_load's sums, torch.bmm in
+    float64: result^T [S, C, B] @ (active x [request, 1]) [S, B, R + 1];
+    the float64 operands are prepared outside the timed call. Exact only
+    while every sum stays below 2^53."""
+    result, active, request = args
+    S, B, _ = result.shape
+    q = torch.cat([request, torch.ones((B, 1), dtype=torch.int64, device=request.device)], 1)
+    q = (active[:, :, None].to(torch.float64) * q.to(torch.float64)[None]).contiguous()
+    r = result.transpose(1, 2).to(torch.float64)
+    return lambda: torch.bmm(r, q)
+
+
+SIM_FILTER_OUT = ("feasible", "avail", "prev", "tie", "feas_count")
+SIM_LOAD_OUT = ("assigned", "usage")
+
+
+def check_sim_kernels(dev, results):
+    """sim_filter and sim_load against their plain versions, exactly: on
+    seeded inputs at the whatif shape (S = 17, B = 1 024, C = 512) with and
+    without answers and at one whatif_churn5k chunk (S = 5, B = 10 240,
+    C = 5 120), drained columns and padded taint slots in each; sim_load on
+    seeded results with random active masks; then both on the arguments
+    one round each of whatif and whatif_churn5k passes them (captured at
+    launch), timed at the whatif_churn5k chunk, with torch.bmm in float64
+    as sim_load's library call."""
+    rng = np.random.default_rng(70)
+    err_f = err_l = 0
+    bits = ALL_PLUGIN_BITS
+    for S, B, C, with_extra in SIM_CHECK_SHAPES:
+        args = random_sim_inputs(rng, dev, S, B, C, with_extra)
+        got = kernels._sim_filter_launch(*args, plugin_bits=bits)
+        want = kernels.sim_filter_plain(*args, plugin_bits=bits)
+        err_f = max(err_f, compare(f"sim_filter[random {S}x{B}x{C}, answers {with_extra}]",
+                                   got, want, SIM_FILTER_OUT))
+        del got, want
+        gen = torch.Generator(device=dev).manual_seed(S * B + C)
+        result = torch.randint(0, 9, (S, B, C), generator=gen, device=dev, dtype=torch.int32)
+        result *= torch.rand((S, B, C), generator=gen, device=dev) < 0.3
+        active = torch.rand((S, B), generator=gen, device=dev) < 0.8
+        request = torch.randint(0, 1 << 34, (B, 4), generator=gen, device=dev)
+        err_l = max(err_l, compare(f"sim_load[random {S}x{B}x{C}]",
+                                   kernels._sim_load_launch(result, active, request),
+                                   kernels.sim_load_plain(result, active, request),
+                                   SIM_LOAD_OUT))
+        del args, result
+    torch.cuda.empty_cache()
+    log(f"sim_filter and sim_load: seeded inputs at (S, B, C, answers) {SIM_CHECK_SHAPES} "
+        "(drained columns, padded taint slots, random active masks, byte-sized requests) "
+        "equal their plain versions")
+
+    captured = {}
+    for cell, build_cell in (("whatif", build_whatif),
+                             ("whatif_churn5k", functools.partial(
+                                 build_whatif, n_clusters=CHURN5K_CLUSTERS,
+                                 n_bindings=CHURN5K_BINDINGS))):
+        clusters, bindings, scenarios = build_cell()
+        sim = Simulator(clusters, device=dev)
+        names = ("sim_filter", "sim_load", "dense_tail")
+        with captured_launches(names) as calls:
+            sim.simulate(bindings, scenarios)
+        torch.cuda.synchronize()
+        n = sim.last_stats["batched_solves"]
+        if {k: len(v) for k, v in calls.items()} != dict.fromkeys(names, n):
+            raise AssertionError(f"{cell}: one round launched "
+                                 f"{ {k: len(v) for k, v in calls.items()} } for {n} solves")
+        # dense_tail over the whatif solve's S x B scenario rows, its output
+        # windows compared through the decode's sort too (the churn5k
+        # chunks' are timed only: their plain version needs tens of GB)
+        calls["dense_tail"] = calls["dense_tail"][:1]
+        if cell == "whatif":
+            args, kw = calls["dense_tail"][0]
+            compare(f"dense_tail[{cell} scenario rows]", kernels._dense_tail_launch(*args, **kw),
+                    kernels.dense_tail_plain(*args, **kw), TAIL_OUT)
+        for i, (args, kw) in enumerate(calls["sim_filter"]):
+            err_f = max(err_f, compare(f"sim_filter[{cell} solve {i}]",
+                                       kernels._sim_filter_launch(*args, **kw),
+                                       kernels.sim_filter_plain(*args, **kw), SIM_FILTER_OUT))
+        for i, (args, kw) in enumerate(calls["sim_load"]):
+            err_l = max(err_l, compare(f"sim_load[{cell} solve {i}]",
+                                       kernels._sim_load_launch(*args, **kw),
+                                       kernels.sim_load_plain(*args, **kw), SIM_LOAD_OUT))
+        captured[cell] = calls
+        log(f"{cell}: the {n} solve(s) of one round: {', '.join(names)} on the arguments the "
+            "round passed them equal their plain versions")
+        del sim, clusters, bindings
+    # timed at the first whatif_churn5k chunk (S = 5), and per whatif round
+    f_args, f_kw = captured["whatif_churn5k"]["sim_filter"][0]
+    l_args, l_kw = captured["whatif_churn5k"]["sim_load"][0]
+    f_out = kernels._sim_filter_launch(*f_args, **f_kw)
+    l_out = kernels._sim_load_launch(*l_args, **l_kw)
+    ms_f = cuda_ms(lambda: kernels._sim_filter_launch(*f_args, **f_kw), 5)
+    plain_f = cuda_ms(lambda: kernels.sim_filter_plain(*f_args, **f_kw), 2)
+    ms_l = cuda_ms(lambda: kernels._sim_load_launch(*l_args, **l_kw), 5)
+    plain_l = cuda_ms(lambda: kernels.sim_load_plain(*l_args, **l_kw), 2)
+    lib = sim_load_library(l_args)
+    lib_ms = cuda_ms(lib, 5)
+    exact = bool(torch.equal(lib().round().to(torch.int64),
+                             torch.cat([l_out[1], l_out[0][:, :, None]], 2)))
+    top = int(max(l_out[1].max().item(), l_out[0].max().item()))
+    w_args, w_kw = captured["whatif"]["sim_filter"][0]
+    ms_fw = cuda_ms(lambda: kernels._sim_filter_launch(*w_args, **w_kw), 20)
+    wl_args, wl_kw = captured["whatif"]["sim_load"][0]
+    ms_lw = cuda_ms(lambda: kernels._sim_load_launch(*wl_args, **wl_kw), 20)
+    b_f, by_f = sim_filter_bound(f_args, f_out)
+    b_l, by_l = sim_load_bound(l_args, l_out)
+    # the solve's middle launch, dense_tail over the scenario rows
+    tails = {}
+    for cell, reps in (("whatif", 20), ("whatif_churn5k", 3)):
+        args, kw = captured[cell]["dense_tail"][0]
+        out = kernels._dense_tail_launch(*args, **kw)
+        b, by = dense_tail_bound([args[0]], [args[4]], args[5], [out])
+        plain = (cuda_ms(lambda: kernels.dense_tail_plain(*args, **kw), 2)
+                 if cell == "whatif" else None)
+        tails[cell] = (args[0].shape, cuda_ms(lambda: kernels._dense_tail_launch(*args, **kw),
+                                              reps), plain, b, by)
+        del out
+    S, B, C = l_args[0].shape
+    results["sim_filter"] = dict(
+        source="karmada_tpu_torch/kernels/csrc/dense_filter.cu",
+        replaces="karmada_tpu/simulation/engine.py:261", max_abs_err=err_f, ms=ms_f,
+        plain_ms=plain_f, bound_ms=b_f, bound_by=by_f, library_ms=None)
+    results["sim_load"] = dict(
+        source="karmada_tpu_torch/kernels/csrc/sim_load.cu",
+        replaces="karmada_tpu/simulation/engine.py:261", max_abs_err=err_l, ms=ms_l,
+        plain_ms=plain_l, bound_ms=b_l, bound_by=by_l, library_ms=lib_ms)
+    log(f"sim_filter at one whatif_churn5k chunk ({S} x {B} x {C}): {ms_f:.4f} ms (plain "
+        f"{plain_f:.4f}, bound {b_f:.4f} {by_f}); at the whatif solve "
+        f"({w_args[0].shape[0]} x {w_args[8].shape[0]} x {w_args[0].shape[1]}) {ms_fw:.4f} ms")
+    for cell, (shape, ms, plain, b, by) in tails.items():
+        log(f"dense_tail over the {cell} solve's {shape[0]} scenario rows x {shape[1]}: "
+            f"{ms:.4f} ms (plain {fmt_ms(plain)}, bound {b:.4f} {by})")
+    log(f"sim_load at that chunk: {ms_l:.4f} ms (plain {plain_l:.4f}, bound {b_l:.4f} {by_l}, "
+        f"torch.bmm float64 {lib_ms:.4f} ms: largest sum {top} "
+        f"{'<' if top < 2**53 else '>='} 2^53, bmm result exact {exact}); at the whatif "
+        f"solve {ms_lw:.4f} ms")
+    del captured, f_out, l_out, lib, tails
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_sim_cells(dev, smi, path_launches):
+    """Phase 4's simulation cells: whatif (bench.py:521 build_whatif, 500 x
+    1 000, S = 16), whatif_mixed (its fleet with a taint, a surge, a
+    composite and spread rows on the fallback), whatif_churn5k (the recipe
+    at BASELINE config 5's size, four scenario chunks a round) and
+    preflight (QuotaPreflight's deny and allow on the card)."""
+    sim_names = ("sim_filter", "sim_load")
+    counted = dict.fromkeys(sim_names, 0)
+    one_solve = {"sim_filter": 1, "dense_tail": 1, "sim_load": 1}
+
+    # ---- whatif ----
+    clusters, bindings, scenarios = build_whatif()
+    sim = Simulator(clusters, device=dev)
+    outcomes, launches, times = drive(
+        f"whatif (bench.py build_whatif: {len(clusters)} x {len(bindings)}, S = "
+        f"{len(scenarios)})", None, None, WHATIF_ROUNDS, one_solve, smi,
+        run=lambda: (lambda b, o: [b] + o)(*sim.simulate(bindings, scenarios)))
+    for n in sim_names:
+        counted[n] += launches[n]
+    p50 = float(np.percentile(times, 50))
+    if sim.last_stats["batched_solves"] != 1 or sim.last_stats["fallback_solves"]:
+        raise AssertionError(f"whatif: {sim.last_stats}")
+    hold_against_cpu_sim("whatif", clusters, bindings, scenarios, outcomes)
+    sim_breakdown("whatif", sim, lambda: sim.simulate(bindings, scenarios), p50)
+    # bench.py's sequential_once: S independent cold rounds on the card
+    ArrayScheduler(apply_scenario_objects(clusters, scenarios[0]), device=dev).schedule(bindings)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for sc in scenarios:
+        ArrayScheduler(apply_scenario_objects(clusters, sc), device=dev).schedule(bindings)
+    torch.cuda.synchronize()
+    seq = time.perf_counter() - t0
+    log(f"whatif: {len(scenarios)} sequential cold ArrayScheduler rounds on the card (bench.py "
+        f"sequential_once) {seq:.4f} s against the batched p50 {p50:.4f} s: amortization "
+        f"{seq / p50:.2f}x; per scenario {p50 / len(scenarios):.4f} s batched, "
+        f"{seq / len(scenarios):.4f} s sequential")
+
+    # ---- whatif_mixed ----
+    m_bindings, m_scenarios = whatif_mixed(clusters, bindings, scenarios)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    base, outs = sim.simulate(m_bindings, m_scenarios)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = kernels.launch_counts()
+    stats = sim.last_stats
+    if (got["sim_filter"], got["sim_load"]) != (1, 1) or stats["batched_solves"] != 1 \
+            or stats["fallback_solves"] != len(m_scenarios) + 1 \
+            or stats["fallback_rows"] != SIM_SPREAD_ROWS:
+        raise AssertionError(f"whatif_mixed: launches {got}, stats {stats}")
+    for n in sim_names:
+        counted[n] += got[n]
+    hold_against_cpu_sim("whatif_mixed", clusters, m_bindings, m_scenarios, [base] + outs)
+    log(f"whatif_mixed on {smi}: one round {wall:.4f} s (S = {len(m_scenarios)}: taint, surge "
+        f"and composite added; {stats['batched_rows']} batched rows, {stats['fallback_rows']} "
+        f"spread rows in {stats['fallback_solves']} fallback rounds); launches "
+        f"{ {k: v for k, v in got.items() if v} }; injected {[o.injected for o in outs]}; "
+        f"overcommitted clusters {[len(o.overcommitted) for o in outs]}")
+    del sim, clusters, bindings, m_bindings, base, outs, outcomes
+    gc.collect()
+
+    # ---- whatif_churn5k ----
+    clusters, bindings, scenarios = build_whatif(n_clusters=CHURN5K_CLUSTERS,
+                                                 n_bindings=CHURN5K_BINDINGS)
+    sim = Simulator(clusters, device=dev)
+    Bp, C = shape_bucket(len(bindings)), len(clusters)
+    per = max(1, sim.max_bc_elems // (Bp * C))
+    chunks = -(-(len(scenarios) + 1) // per)
+    outcomes, launches, times = drive(
+        f"whatif_churn5k ({C} x {len(bindings)}, S = {len(scenarios)}: {chunks} scenario "
+        f"chunks of {per})", None, None, CHURN5K_ROUNDS,
+        {n: chunks for n in one_solve}, smi,
+        run=lambda: (lambda b, o: [b] + o)(*sim.simulate(bindings, scenarios)))
+    for n in sim_names:
+        counted[n] += launches[n]
+    if sim.last_stats["batched_solves"] != chunks:
+        raise AssertionError(f"whatif_churn5k: {sim.last_stats}")
+    p50 = float(np.percentile(times, 50))
+    first = [next(i for i, sc in enumerate(scenarios) if sc.kind == kind)
+             for kind in (SCENARIO_DRAIN, SCENARIO_LOSS, SCENARIO_CAPACITY)]
+    hold_against_schedulers(
+        "whatif_churn5k", clusters, bindings,
+        [Scenario(kind=SCENARIO_BASELINE, name="baseline")] + [scenarios[i] for i in first],
+        [outcomes[0]] + [outcomes[i + 1] for i in first], dev)
+    pick = np.random.default_rng(71).choice(len(bindings), CHURN5K_SAMPLE, replace=False)
+    sample = [bindings[i] for i in sorted(pick)]
+    hold_against_cpu_sim("whatif_churn5k", clusters, sample, scenarios, outcomes,
+                         keys={rb.metadata.key() for rb in sample})
+    sim_breakdown("whatif_churn5k", sim, lambda: sim.simulate(bindings, scenarios), p50)
+    del sim, clusters, bindings, outcomes
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- preflight: QuotaPreflight on the card over a duck-typed store ----
+    objs = synthetic_fleet(12, seed=7) + [
+        _binding(0, 8, _dyn_placement(aggregated=False), 1.0, ns="default")]
+    names = [c.name for c in objs[:12]]
+
+    class ListStore:
+        def list(self, kind, namespace=None):
+            return [copy.deepcopy(o) for o in objs if o.kind == kind
+                    and (namespace is None or o.metadata.namespace == namespace)]
+
+    def quota(caps):
+        return FederatedResourceQuota(
+            metadata=ObjectMeta(name="quota", namespace="default"),
+            spec=FederatedResourceQuotaSpec(overall={CPU: 1000.0}, static_assignments=[
+                StaticClusterAssignment(cluster_name=c, hard={CPU: h}) for c, h in caps.items()]))
+
+    card, cpu = QuotaPreflight(ListStore(), device=dev), QuotaPreflight(ListStore(), device="cpu")
+    deny = AdmissionRequest(operation="CREATE", kind="FederatedResourceQuota",
+                            obj=quota({n: 0.25 for n in names}))
+    # every cluster cut to 20 cpu available: the 8 one-cpu replicas still fit
+    allow = AdmissionRequest(operation="CREATE", kind="FederatedResourceQuota",
+                             obj=quota({n: 20.0 for n in names}))
+    messages, got = [], None
+    for pf in (card, cpu):
+        kernels.reset_launches()
+        try:
+            pf.validate(deny)
+        except AdmissionDenied as e:
+            messages.append(str(e))
+        else:
+            raise AssertionError("preflight: the stranding caps were admitted")
+        pf.validate(allow)
+        got = got or kernels.launch_counts()
+    if messages[0] != messages[1] or "strands replicas" not in messages[0]:
+        raise AssertionError(f"preflight: card and cpu denials differ: {messages}")
+    if {k: v for k, v in got.items() if v} != {n: 2 for n in one_solve}:
+        raise AssertionError(f"preflight: launches {got}")
+    old = copy.deepcopy(allow.obj)
+    kernels.reset_launches()
+    card.validate(AdmissionRequest(operation="UPDATE", kind="FederatedResourceQuota",
+                                   obj=allow.obj, old_thunk=lambda: old))
+    if any(kernels.launch_counts().values()):
+        raise AssertionError("preflight: a spec-unchanged update ran a solve")
+    for n in sim_names:
+        counted[n] += got[n]
+    log(f"preflight on {smi}: the stranding caps denied on the card as on the cpu "
+        f"({messages[0]!r}), the allowing caps admitted, one solve each; a spec-unchanged "
+        "update ran none")
+    path_launches.update(counted)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     kernels_only = "--kernels-only" in argv
+    sim_only = "--sim-only" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the card only",
               file=sys.stderr)
@@ -2767,6 +3307,13 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     libs = build.build_all(verbose=True)
     log(f"build: {len(libs)} kernel sources in {time.perf_counter() - t0:.1f} s")
+    if sim_only:
+        results, path_launches = {}, {}
+        check_sim_kernels(dev, results)
+        run_sim_cells(dev, smi, path_launches)
+        log(f"sim-only: the simulation kernels and cells passed (launches {path_launches}); "
+            "no earlier kernel or cell was run")
+        return 0
 
     # ---- the flagship schedulers (their batches feed phase 3 too) ----
     t0 = time.perf_counter()
@@ -2795,6 +3342,7 @@ def main(argv=None) -> int:
     check_scatter_rows(dev, results)
     check_wide_tail(dev, results, flag)
     select_err = check_wide_select(dev)
+    check_sim_kernels(dev, results)
     gc.collect()
     torch.cuda.empty_cache()
     if kernels_only:
@@ -2857,6 +3405,7 @@ def main(argv=None) -> int:
     run_estimator_cells(dev, smi, path_launches, flag, results)
     run_churn_cells(dev, smi, path_launches, compact_ms)
     run_wide_cells(dev, smi, path_launches, flag, results, select_err)
+    run_sim_cells(dev, smi, path_launches)
 
     # every kernel of a main path launched there; staleness_penalty serves
     # callers that hold an answer matrix on the card, and no path does: the

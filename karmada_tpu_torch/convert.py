@@ -2,7 +2,8 @@
 device.
 
 `from_reference_objects` copies an API object of the JAX package (a
-Cluster, ResourceBinding, Placement, NodeSpec, ...) into the port's
+Cluster, ResourceBinding, Placement, NodeSpec, Scenario,
+FederatedResourceQuota, AdmissionRequest, ...) into the port's
 dataclass of the same name, field by field, keeping the uid. Tie-breaks are seeded by the
 binding UID (models/batch.py uid_seed), so converted objects make both
 packages solve the same problem. It matches classes by NAME and never
@@ -18,12 +19,13 @@ import dataclasses
 import numpy as np
 import torch
 
-from .api import cluster, meta, policy, work
+from .api import cluster, meta, policy, search, simulation, work
 from .models import nodes
+from .webhook import admission
 
 _PORT_CLASSES = {
     name: obj
-    for mod in (meta, cluster, policy, work, nodes)
+    for mod in (meta, cluster, policy, work, nodes, simulation, search, admission)
     for name, obj in vars(mod).items()
     if isinstance(obj, type) and dataclasses.is_dataclass(obj)
 }

@@ -63,6 +63,16 @@ The fleet refresh (sched/core.py `set_clusters(..., dirty_names)`):
   written in place into the resident fleet tensors, every tensor in one
   launch; the plain version is `scatter_rows_plain`.
 
+The simulation plane's solve (simulation/engine.py `_sim_solve`: the
+filter below, `dense_tail` over the S x B scenario rows, then the load):
+- `sim_filter` (csrc/dense_filter.cu, its second entry): the dense filter
+  and estimate over a scenario-stacked fleet, each scenario's tie from its
+  remapped column index, as [S, B, C] plus the [S, B] feasible count; the
+  plain version is `sim_filter_plain`.
+- `sim_load` (csrc/sim_load.cu): the per-scenario load of the division
+  result, replicas and resources per cluster over the scenario's active
+  rows, exact int64; the plain version is `sim_load_plain`.
+
 The wide routes, kernels of their own with their own launch counts:
 `candidate_select` past MAX_SELECT_SMEM (`candidate_select_wide`, the
 radix select over a key scratch in csrc/candidate_select.cu) and
@@ -95,7 +105,7 @@ KERNEL_NAMES = (
     "candidate_select", "candidate_select_wide", "candidate_tail", "candidate_tail_wide",
     "dense_filter", "dense_tail", "pack_rows", "feas_idx", "group_score", "packed_selection",
     "spread_tail", "combo_select", "tier_estimate", "tier_consume", "fleet_estimate",
-    "staleness_penalty", "scatter_rows",
+    "staleness_penalty", "scatter_rows", "sim_filter", "sim_load",
 )
 _launch_lock = threading.Lock()
 _launches = dict.fromkeys(KERNEL_NAMES, 0)
@@ -121,6 +131,7 @@ COMBO_DISC_MASKED = 1 << 62
 MAX_COMBO_REGIONS = 64  # combo_select keeps a row's regions in shared memory
 MAX_TIER_RESOURCES = 16  # tier_consume keeps one int64 sum per resource in registers
 MAX_ESTIMATE_RESOURCES = 16  # fleet_estimate stages a row's request in shared memory
+MAX_LOAD_RESOURCES = 8  # sim_load keeps one int64 sum per resource in registers
 
 
 # --------------------------------------------------------------------------
@@ -494,6 +505,55 @@ def staleness_penalty_plain(values, shift: int):
     `_apply_jnp`): `values >> shift` where non-negative, other values (the
     -1 discard sentinel) unchanged."""
     return torch.where(values >= 0, values >> shift, values)
+
+
+def sim_filter_plain(
+    alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok, tie_idx,
+    replicas, unknown_request, gvk, tol_tables, tol_idx,
+    aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
+    req_unique, req_idx, extra_avail, *, plugin_bits: int,
+):
+    """Plain version of the scenario-stacked filter kernel (the filter half
+    of the reference's `_sim_kernel`): the fleet tensors carry a leading
+    scenario axis (alive bool[S,C], capacity i64[S,C,R], has_summary
+    bool[S,C], taints i32[S,C,T], api_ok bool[S,C,G]) and `tie_idx`
+    (i64[S,C], the u64 1-based present rank as int64 bits) gives each
+    scenario's tie stream; the batch and `extra_avail` (None or i32[B,C],
+    -1 = no answer) are shared. The dense filter per scenario, with the
+    scenario's tie in place of the column's. Returns (feasible
+    bool[S,B,C], avail i32, prev_replicas i32, tie i32, feas_count
+    i32[S,B])."""
+    per = [
+        dense_filter_plain(
+            alive[s], capacity[s], has_summary[s], taint_key[s], taint_value[s],
+            taint_effect[s], api_ok[s], replicas, unknown_request, gvk, tol_tables, tol_idx,
+            aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds, req_unique, req_idx,
+            extra_avail, plugin_bits=plugin_bits,
+        )
+        for s in range(alive.shape[0])
+    ]
+    feasible, _score, avail, prev, _tie, feas_count = (torch.stack(x) for x in zip(*per))
+    tie = torch.stack([core.tie_from_index(seeds, idx) for idx in tie_idx])
+    return feasible, avail, prev, tie, feas_count
+
+
+def sim_load_plain(result, active, request):
+    """Plain version of the per-scenario load kernel (the load half of the
+    reference's `_sim_kernel`): over each scenario's active rows,
+    `assigned[s, c] = sum_b result[s, b, c]` (i64[S,C]) and `usage[s, c, r]
+    = sum_b result[s, b, c] * request[b, r]` (i64[S,C,R]), exact int64, a
+    scenario and a resource at a time. `result` is i32[S,B,C], `active`
+    bool[S,B], `request` i64[B,R]."""
+    S, _, C = result.shape
+    R = request.shape[1]
+    assigned = torch.zeros((S, C), dtype=I64, device=result.device)
+    usage = torch.zeros((S, C, R), dtype=I64, device=result.device)
+    for s in range(S):
+        r64 = torch.where(active[s][:, None], result[s], 0).to(I64)
+        assigned[s] = r64.sum(0)
+        for r in range(R):
+            usage[s, :, r] = (r64 * request[:, r:r + 1]).sum(0)
+    return assigned, usage
 
 
 # --------------------------------------------------------------------------
@@ -1434,6 +1494,128 @@ def _scatter_rows_launch(dsts, idx, srcs):
     dst_rows = (ctypes.c_int64 * k)(*(d.shape[0] for d, _, _ in pairs))
     rc = fn(dst_p, src_p, row_bytes, dst_rows, k, _ptr(idx), n, _stream(dev))
     _raise_on(rc, "scatter_rows")
+
+
+def sim_filter(
+    alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok, tie_idx,
+    replicas, unknown_request, gvk, tol_tables, tol_idx,
+    aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
+    req_unique, req_idx, extra_avail, *, plugin_bits: int,
+):
+    """Filter + estimate over a scenario-stacked fleet (see sim_filter_plain
+    for the contract)."""
+    args = (alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
+            tie_idx, replicas, unknown_request, gvk, tol_tables, tol_idx,
+            aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
+            req_unique, req_idx, extra_avail)
+    dev = alive.device
+    if dev.type == "cpu":
+        return sim_filter_plain(*args, plugin_bits=plugin_bits)
+    if dev.type != "cuda":
+        raise ValueError(f"sim_filter: unsupported device {dev}")
+    out = _sim_filter_launch(*args, plugin_bits=plugin_bits)
+    _launched("sim_filter")
+    return out
+
+
+def _sim_filter_launch(
+    alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok, tie_idx,
+    replicas, unknown_request, gvk, tol_tables, tol_idx,
+    aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
+    req_unique, req_idx, extra_avail, *, plugin_bits: int,
+):
+    """Check, allocate and launch sim_filter_kernel."""
+    dev = alive.device
+    S, C = alive.shape
+    R = capacity.shape[2]
+    T = taint_key.shape[2]
+    G = api_ok.shape[2]
+    for name, t, dt, shape in (
+        ("capacity", capacity, I64, (S, C, R)), ("has_summary", has_summary, BOOL, (S, C)),
+        ("taint_key", taint_key, I32, (S, C, T)), ("taint_value", taint_value, I32, (S, C, T)),
+        ("taint_effect", taint_effect, I32, (S, C, T)), ("api_ok", api_ok, BOOL, (S, C, G)),
+        ("tie_idx", tie_idx, I64, (S, C)),
+    ):
+        _check(name, t, dt, shape, dev)
+    # the batch against one scenario's fleet slice
+    _, _, _, _, B, Kt, Kp, Ke = _check_filter_args(
+        alive[0], capacity[0], has_summary[0], taint_key[0], taint_value[0], taint_effect[0],
+        api_ok[0], replicas, unknown_request, gvk, tol_tables, tol_idx,
+        aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
+        req_unique, req_idx, extra_avail,
+    )
+    feasible = torch.empty((S, B, C), dtype=BOOL, device=dev)
+    avail = torch.empty((S, B, C), dtype=I32, device=dev)
+    prev = torch.empty((S, B, C), dtype=I32, device=dev)
+    tie = torch.empty((S, B, C), dtype=I32, device=dev)
+    feas_count = torch.empty((S, B), dtype=I32, device=dev)
+    if B == 0 or C == 0:
+        return feasible, avail, prev, tie, feas_count.zero_()
+    from .build import library
+
+    fn = library("dense_filter").sim_filter_launch
+    fn.restype = ctypes.c_int
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp] * 7 + [ci] * 5 + [vp] * 14 + [ci] * 6 + [vp] * 6 + [vp]
+    rc = fn(
+        _ptr(alive), _ptr(capacity), _ptr(has_summary), _ptr(taint_key),
+        _ptr(taint_value), _ptr(taint_effect), _ptr(api_ok),
+        S, C, R, T, G, _ptr(tie_idx),
+        _ptr(replicas), _ptr(unknown_request), _ptr(gvk), _ptr(tol_tables),
+        _ptr(tol_idx), _ptr(aff_masks), _ptr(aff_idx), _ptr(prev_idx),
+        _ptr(prev_rep), _ptr(evict_idx), _ptr(seeds), _ptr(req_unique),
+        _ptr(req_idx),
+        B, Kt, Kp, Ke, plugin_bits, 1 if extra_avail is not None else 0,
+        _ptr(extra_avail), _ptr(feasible), _ptr(avail), _ptr(prev), _ptr(tie),
+        _ptr(feas_count), _stream(dev),
+    )
+    _raise_on(rc, "sim_filter")
+    return feasible, avail, prev, tie, feas_count
+
+
+def sim_load(result, active, request):
+    """Per-scenario replicas and resource load per cluster over the active
+    rows (see sim_load_plain)."""
+    dev = result.device
+    if dev.type == "cpu":
+        return sim_load_plain(result, active, request)
+    if dev.type != "cuda":
+        raise ValueError(f"sim_load: unsupported device {dev}")
+    out = _sim_load_launch(result, active, request)
+    _launched("sim_load")
+    return out
+
+
+def _sim_load_launch(result, active, request):
+    """Check, allocate (zeroed: the kernel adds into them) and launch
+    sim_load_kernel."""
+    dev = result.device
+    S, B, C = result.shape
+    R = request.shape[1]
+    for name, t, dt, shape in (
+        ("result", result, I32, (S, B, C)), ("active", active, BOOL, (S, B)),
+        ("request", request, I64, (B, R)),
+    ):
+        _check(name, t, dt, shape, dev)
+    if R > MAX_LOAD_RESOURCES:
+        raise NotImplementedError(
+            f"sim_load: {R} resources past {MAX_LOAD_RESOURCES} (a thread keeps one int64 "
+            "sum per resource)"
+        )
+    assigned = torch.zeros((S, C), dtype=I64, device=dev)
+    usage = torch.zeros((S, C, R), dtype=I64, device=dev)
+    if S == 0 or B == 0 or C == 0:
+        return assigned, usage
+    from .build import library
+
+    fn = library("sim_load").sim_load_launch
+    fn.restype = ctypes.c_int
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp] * 3 + [ci] * 4 + [vp] * 3
+    rc = fn(_ptr(result), _ptr(active), _ptr(request), S, B, C, R,
+            _ptr(assigned), _ptr(usage), _stream(dev))
+    _raise_on(rc, "sim_load")
+    return assigned, usage
 
 
 def reset_launches() -> None:

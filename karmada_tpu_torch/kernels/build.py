@@ -21,7 +21,8 @@ from pathlib import Path
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("candidate_select", "candidate_tail", "dense_filter", "dense_tail", "dense_mask",
-           "group_score", "combo_select", "tiers", "fleet_estimate", "staleness", "scatter_rows")
+           "group_score", "combo_select", "tiers", "fleet_estimate", "staleness", "scatter_rows",
+           "sim_load")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

@@ -27,8 +27,26 @@
 // over the columns with coalesced stores, and the feasible count is a
 // shared-memory sum, so no [B, C] tensor is read back.
 //
+// sim_filter, the second entry: the same per-column filter and estimate
+// over a scenario-stacked fleet, the first launch of the simulation
+// plane's solve. Replaces the filter half of
+// karmada_tpu/simulation/engine.py:261 `_sim_kernel` (its decompress of
+// the factored batch, then `_schedule_body`'s filter_estimate_phase under
+// `jax.vmap` over the scenario axis, with the tie from
+// `tie_from_index(seeds, tie_idx[s])`). Grid (B, S): block (b, s) stages
+// row b's toleration row and prev/evict lists once, as dense_filter_kernel
+// does, and evaluates every column against scenario s's slice of the
+// stacked fleet (alive, capacity, has_summary, taints, api_ok, each
+// [S, C, ...]); the tie comes from the scenario's 1-based present rank
+// tie_idx[s, c] (a drained column repeats its neighbour's rank, but is
+// never feasible), and extra_avail, shared by every scenario, is read at
+// (b, c). It writes feasible, avail, prev and tie as [S, B, C] and the
+// feasible count as [S, B]; the simulation drops the score, so none is
+// written. Bound by memory bandwidth: 13 bytes written per [S, B, C]
+// element; the fleet slices (S x C x (R + 3T + G) words) stay in L2.
+//
 // Built by karmada_tpu_torch/kernels/build.py with nvcc for sm_90a and
-// called through the plain C entry point at the bottom (ctypes).
+// called through the plain C entry points at the bottom (ctypes).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,6 +101,58 @@ dense_filter_kernel(FilterArgs p, DenseOut o, const uint8_t* extra_mask) {
   if (threadIdx.x == 0) o.feas_count[b] = (int32_t)count;
 }
 
+struct SimOut {
+  uint8_t* feasible;    // [S,B,C]
+  int32_t* avail;       // [S,B,C]
+  int32_t* prev;        // [S,B,C]
+  int32_t* tie;         // [S,B,C]
+  int32_t* feas_count;  // [S,B]
+};
+
+__global__ void __launch_bounds__(kThreads)
+sim_filter_kernel(FilterArgs p, const int64_t* tie_idx, SimOut o) {
+  extern __shared__ int32_t lists[];
+  int32_t* tol = lists;              // [4*Kt]
+  int32_t* pidx = tol + 4 * p.Kt;    // [Kp]
+  int32_t* prep = pidx + p.Kp;       // [Kp]
+  int32_t* ev = prep + p.Kp;         // [Ke]
+  __shared__ unsigned int count;
+
+  const int b = blockIdx.x;
+  const int s = blockIdx.y;
+  // scenario s's slice of the stacked fleet; the batch is shared
+  FilterArgs q = p;
+  q.alive = p.alive + (int64_t)s * p.C;
+  q.capacity = p.capacity + (int64_t)s * p.C * p.R;
+  q.has_summary = p.has_summary + (int64_t)s * p.C;
+  q.taint_key = p.taint_key + (int64_t)s * p.C * p.T;
+  q.taint_value = p.taint_value + (int64_t)s * p.C * p.T;
+  q.taint_effect = p.taint_effect + (int64_t)s * p.C * p.T;
+  q.api_ok = p.api_ok + (int64_t)s * p.C * p.G;
+  const int64_t* tidx = tie_idx + (int64_t)s * p.C;
+
+  filter_common::load_row_lists(q, b, tol, pidx, prep, ev);
+  if (threadIdx.x == 0) count = 0;
+  __syncthreads();
+
+  const uint64_t seed = q.seeds[b];
+  const int64_t row = ((int64_t)s * q.B + b) * q.C;
+  unsigned int local = 0;
+  for (int c = threadIdx.x; c < q.C; c += blockDim.x) {
+    const ColEval e = filter_common::eval_col(q, b, c, tol, pidx, prep, ev);
+    o.feasible[row + c] = e.feasible ? 1 : 0;
+    o.avail[row + c] = filter_common::estimate(q, b, c);
+    o.prev[row + c] = e.prev;
+    o.tie[row + c] = filter_common::tie_from_index(seed, (uint64_t)tidx[c]);
+    local += e.feasible ? 1u : 0u;
+  }
+  atomicAdd(&count, local);
+  __syncthreads();
+  if (threadIdx.x == 0) o.feas_count[(int64_t)s * q.B + b] = (int32_t)count;
+}
+
+size_t list_smem(int Kt, int Kp, int Ke) { return 4 * (size_t)(4 * Kt + 2 * Kp + Ke); }
+
 }  // namespace
 
 extern "C" int dense_filter_launch(
@@ -109,7 +179,7 @@ extern "C" int dense_filter_launch(
   o.prev = static_cast<int32_t*>(prev);
   o.tie = static_cast<int32_t*>(tie);
   o.feas_count = static_cast<int32_t*>(feas_count);
-  const size_t smem = 4 * (size_t)(4 * Kt + 2 * Kp + Ke);
+  const size_t smem = list_smem(Kt, Kp, Ke);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         dense_filter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -117,5 +187,42 @@ extern "C" int dense_filter_launch(
   }
   dense_filter_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       p, o, static_cast<const uint8_t*>(extra_mask));
+  return (int)cudaGetLastError();
+}
+
+// The scenario-stacked fleet (alive [S,C], capacity [S,C,R], has_summary
+// [S,C], taints [S,C,T], api_ok [S,C,G]) and tie_idx (int64 bits of the
+// u64 1-based present rank, [S,C]) beside the factored batch of B rows.
+extern "C" int sim_filter_launch(
+    const void* alive, const void* capacity, const void* has_summary,
+    const void* taint_key, const void* taint_value, const void* taint_effect,
+    const void* api_ok, int S, int C, int R, int T, int G, const void* tie_idx,
+    const void* replicas, const void* unknown_request, const void* gvk,
+    const void* tol_tables, const void* tol_idx, const void* aff_masks,
+    const void* aff_idx, const void* prev_idx, const void* prev_rep,
+    const void* evict_idx, const void* seeds, const void* req_unique,
+    const void* req_idx, int B, int Kt, int Kp, int Ke, int plugin_bits,
+    int has_extra, const void* extra_avail, void* feasible, void* avail, void* prev, void* tie,
+    void* feas_count, void* stream) {
+  if (S <= 0 || S > 65535 || B <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+  const FilterArgs p = filter_common::make_filter_args(
+      alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok, C, R, T, G,
+      replicas, unknown_request, gvk, tol_tables, tol_idx, aff_masks, aff_idx, prev_idx,
+      prev_rep, evict_idx, seeds, req_unique, req_idx, B, Kt, Kp, Ke, plugin_bits, has_extra,
+      extra_avail);
+  SimOut o;
+  o.feasible = static_cast<uint8_t*>(feasible);
+  o.avail = static_cast<int32_t*>(avail);
+  o.prev = static_cast<int32_t*>(prev);
+  o.tie = static_cast<int32_t*>(tie);
+  o.feas_count = static_cast<int32_t*>(feas_count);
+  const size_t smem = list_smem(Kt, Kp, Ke);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        sim_filter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  sim_filter_kernel<<<dim3(B, S), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      p, static_cast<const int64_t*>(tie_idx), o);
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,14 @@
 // filter_common.cuh: the per-(row, column) filter, estimate and tie of the
 // schedule rounds, shared by candidate_select.cu and dense_filter.cu so the
-// two kernels cannot drift apart.
+// kernels cannot drift apart (dense_filter.cu's sim_filter and tiers.cu
+// use it too).
 //
 // - eval_col: the in-tree filters (alive, taints against the row's
 //   toleration table row, API enablement, affinity mask, eviction list),
 //   the locality score and the previous replicas (the prev list scattered
 //   with the last entry winning; ids outside [0, C) never match);
-// - tie_value: splitmix64 over the global cluster id (uint64);
+// - tie_value / tie_from_index: splitmix64 over the global cluster id, or
+//   over an explicit 1-based index (uint64);
 // - estimate: the GeneralEstimator answer with the reference's clamps in
 //   its order, then the registered-estimator min-merge.
 //
@@ -144,14 +146,21 @@ __device__ inline ColEval eval_col(const FilterArgs& p, int b, int c, const int3
   return out;
 }
 
-// splitmix64 at the 0-based global cluster id `col` (the stream of
-// models/batch.py tie_matrix, which counts ids from 1).
-__device__ __forceinline__ int32_t tie_value(uint64_t seed, int col) {
-  uint64_t x = seed ^ ((uint64_t)col + 1ull);
+// splitmix64 at the 1-based global cluster index `idx` (the reference's
+// tie_from_index; the simulation plane passes each scenario's remapped
+// index, in which a drained cluster vanishes from the range).
+__device__ __forceinline__ int32_t tie_from_index(uint64_t seed, uint64_t idx) {
+  uint64_t x = seed ^ idx;
   x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9ull;
   x = (x ^ (x >> 27)) * 0x94D049BB133111EBull;
   x = x ^ (x >> 31);
   return (int32_t)(x >> 33);
+}
+
+// splitmix64 at the 0-based global cluster id `col` (the stream of
+// models/batch.py tie_matrix, which counts ids from 1).
+__device__ __forceinline__ int32_t tie_value(uint64_t seed, int col) {
+  return tie_from_index(seed, (uint64_t)col + 1ull);
 }
 
 // GeneralEstimator answer for row b at column c, in the order of the

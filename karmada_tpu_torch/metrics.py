@@ -1,8 +1,9 @@
 """Prometheus-style counters, gauges and histograms (the port's copy of the
 registry classes of metrics.py, with only the series the ported paths
 touch: the estimator fan-out errors, the circuit breakers, the degraded
-rounds, the injected faults, the schedule round's stage seconds and the
-candidate window's size, fallbacks and truncations).
+rounds, the injected faults, the schedule round's stage seconds, the
+candidate window's size, fallbacks and truncations, and the simulation
+plane's solves, scenarios and durations).
 
 Dependency-free: a process-local registry with a text exposition
 (`render()`) in the Prometheus format.
@@ -215,4 +216,21 @@ candidate_truncations = registry.counter(
     "karmada_candidate_truncations_total",
     "Feasible clusters dropped by the top-K candidate window on divided "
     "rows (nonzero means compact decisions may diverge from exact dense)",
+)
+
+# what-if simulation plane (simulation/engine.py): `mode=batched` counts
+# the scenario-stacked [S,B,C] solves (one per scenario chunk: S scenarios
+# cost ONE solve when they fit the memory budget); `mode=fallback` counts
+# per-scenario exact re-solves for rows outside the batched path
+simulation_solves = registry.counter(
+    "karmada_simulation_solves_total",
+    "What-if solve launches by mode (batched = one scenario-stacked solve)",
+)
+simulation_scenarios = registry.counter(
+    "karmada_simulation_scenarios_total",
+    "Scenarios evaluated by the simulation plane",
+)
+simulation_duration = registry.histogram(
+    "karmada_simulation_duration_seconds",
+    "End-to-end what-if simulation latency in seconds",
 )

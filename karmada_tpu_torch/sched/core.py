@@ -276,16 +276,26 @@ def _lshr(x, s: int):
     return (x >> s) & ((1 << (64 - s)) - 1)
 
 
-def tie_at(seeds, cols):
-    """splitmix64 tie values AT global cluster columns — the per-(binding,
-    cluster) stream of models/batch.py tie_matrix. `seeds` are the u64 UID
-    seeds held as int64 bits ([B]); `cols` are 0-based global indices
-    ([B, K]). Multiplies wrap in int64 exactly as in uint64."""
-    x = seeds[:, None] ^ (cols.to(I64) + 1)
+def tie_from_index(seeds, idx):
+    """splitmix64 tie values from explicit 1-based GLOBAL cluster indices
+    (the reference's `tie_from_index`): `seeds` are the u64 UID seeds held
+    as int64 bits ([B]); `idx` (int64 bits of the u64 index) broadcasts
+    against [B, 1]: [C] for one column space, [B, K] per row, [S, 1, C]
+    per scenario (the simulation plane's remapped column spaces, where a
+    drained cluster vanishes from the index range). Multiplies wrap in
+    int64 exactly as in uint64."""
+    x = seeds[:, None] ^ idx.to(I64)
     x = (x ^ _lshr(x, 30)) * _MIX1
     x = (x ^ _lshr(x, 27)) * _MIX2
     x = x ^ _lshr(x, 31)
     return _lshr(x, 33).to(I32)
+
+
+def tie_at(seeds, cols):
+    """splitmix64 tie values AT global cluster columns — the per-(binding,
+    cluster) stream of models/batch.py tie_matrix. `cols` are 0-based
+    global indices ([B, K] or [C])."""
+    return tie_from_index(seeds, cols.to(I64) + 1)
 
 
 def pack_bits(sel):
@@ -486,19 +496,34 @@ def caller_stream(device) -> Optional[torch.cuda.Stream]:
     return torch.cuda.current_stream(device) if device.type == "cuda" else None
 
 
-def resolve_max_bc_elems() -> int:
-    """THE [B,C]-elements-per-launch budget: KARMADA_TPU_MAX_BC_ELEMS, else
-    2<<27. A malformed value fails loudly."""
-    env = os.environ.get("KARMADA_TPU_MAX_BC_ELEMS", "")
-    if not env:
-        return 2 << 27
-    try:
-        val = int(env)
-    except ValueError:
-        raise ValueError(f"KARMADA_TPU_MAX_BC_ELEMS={env!r}: must be an integer") from None
+def resolve_max_bc_elems(override: Optional[int] = None) -> int:
+    """THE [B,C]-elements-per-launch budget: an explicit override, else
+    KARMADA_TPU_MAX_BC_ELEMS, else 2<<27. Shared by ArrayScheduler and the
+    simulation plane, so a malformed value fails loudly and identically
+    everywhere."""
+    if override is not None:
+        val, src = int(override), "max_bc_elems override"
+    else:
+        env = os.environ.get("KARMADA_TPU_MAX_BC_ELEMS", "")
+        if not env:
+            return 2 << 27
+        try:
+            val = int(env)
+        except ValueError:
+            raise ValueError(f"KARMADA_TPU_MAX_BC_ELEMS={env!r}: must be an integer") from None
+        src = f"KARMADA_TPU_MAX_BC_ELEMS={env!r}"
     if val <= 0:
-        raise ValueError(f"KARMADA_TPU_MAX_BC_ELEMS={env!r}: must be positive")
+        raise ValueError(f"{src}: must be positive")
     return val
+
+
+def resolve_autoshard(override: Optional[bool] = None) -> bool:
+    """Whether an oversized solve may spread over several devices: an
+    explicit override, else KARMADA_TPU_AUTOSHARD (0/off/false disables
+    it), else on."""
+    if override is not None:
+        return bool(override)
+    return os.environ.get("KARMADA_TPU_AUTOSHARD", "") not in ("0", "off", "false")
 
 
 def _restrict_rows(batch: BindingBatch, rows: list[int], aff_rows: np.ndarray) -> BindingBatch:
