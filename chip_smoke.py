@@ -1,6 +1,6 @@
 """On-card smoke test of the PyTorch/CUDA port (karmada_tpu_torch).
 
-    python3 chip_smoke.py [--kernels-only | --sim-only]
+    python3 chip_smoke.py [--only kernels|sim|graft]
 
 Needs one CUDA card (an H100 is the target) and nvcc; exits non-zero with no
 result line otherwise. Phases, each of which raises on failure:
@@ -47,14 +47,33 @@ result line otherwise. Phases, each of which raises on failure:
    solve's shape (with and without answers) and at one whatif_churn5k
    chunk, drained columns and padded taint slots in each, and on the
    arguments one round each of whatif and whatif_churn5k passes them,
-   with torch.bmm in float64 as sim_load's library call
-   (`--kernels-only` stops here);
+   with torch.bmm in float64 as sim_load's library call; dense_input_filter
+   (the dense-input program's filter, csrc/dense_filter.cu) on seeded
+   inputs at the dense flagship's 10 240 x 5 120 and at 300 x 100, with
+   prev_member drawn apart from any prev count, random evictions,
+   tolerations against tainted columns, unknown-request rows and answers
+   with -1s, and on the same inputs with the tail's drawn beside them
+   (every strategy code, all-zero static weight rows, prev_replicas apart
+   from prev_member, tie-heavy ties) the whole program, _schedule_kernel,
+   against _schedule_body on the card (`--only kernels` stops here);
 4. the main paths through ArrayScheduler.schedule() on the card, each with
    every launch count set to 0 just before it and read just after, timed
    rounds with p50/p90/p99, and decisions held against the port's CPU
    round: the compact flagship round (bench.py build_flagship's mix: 5 000
    clusters x 10 000 bindings, seed 0); the same flagship as a dense round
-   (every binding annotated dense-solve); that dense flagship with the
+   (every binding annotated dense-solve), and right after it the graft
+   and shim cells: graft_example (graft_entry.entry() at 16 x 12, the six
+   outputs against _schedule_body on the card and the cpu run),
+   graft_flagship (the dense flagship's batch as the program's 24 dense
+   arguments: 20 timed calls split filter / tail, against _schedule_body
+   on the card, B3's filter outputs and B4's tail rows, and the kernel on
+   the arguments the program passed it), shim_flagship (the compact
+   flagship's 5 000 clusters and 10 000 specs over HTTP to
+   SchedulerShimServer, 5 timed rounds split wire + parse / round /
+   encode + send, every result against the in-process card round and a
+   2 048-row sample against the cpu round; any non-200 fails) and
+   shim_contract (the shim contract's cases on the card); that dense
+   flagship with the
    Duplicated quarter placed over the whole fleet (packed mask rows); the
    static-weight split of bench.py build_static (100 x 1 000, reason
    small_fleet); the 3-cluster Duplicated slice of bench.py build_dup3;
@@ -119,11 +138,14 @@ result line otherwise. Phases, each of which raises on failure:
 5. the `kernels` JSON line, then the card's name and power limit, then the
    last line {"ok": true, "device": {...}}.
 
-`--sim-only` builds every kernel, then runs only the simulation plane's
-checks of phases 3 and 4, and prints no result line.
+`--only GROUP` builds every kernel, runs one group of phases and prints no
+result line: `kernels` phase 3, `sim` the simulation plane's checks of
+phases 3 and 4, `graft` those of the dense-input program and the scheduler
+shim.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import copy
 import functools
@@ -133,11 +155,14 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
 
-from karmada_tpu_torch import faults, kernels
+from karmada_tpu_torch import faults, graft_entry, kernels
+from karmada_tpu_torch.api import k8sjson
 from karmada_tpu_torch.api import policy as pol
 from karmada_tpu_torch.api.cluster import (
     CLUSTER_CONDITION_READY,
@@ -169,13 +194,14 @@ from karmada_tpu_torch.api.work import (
     ResourceBinding,
     TargetCluster,
 )
-from karmada_tpu_torch.convert import batch_from_numpy
+from karmada_tpu_torch.convert import FILTER_ARGS, SCHEDULE_ARGS, batch_from_numpy
 from karmada_tpu_torch.estimator.accurate import AccurateEstimator
 from karmada_tpu_torch.estimator.client import EstimatorRegistry, MemberEstimators
 from karmada_tpu_torch.faults import BreakerRegistry
 from karmada_tpu_torch.kernels import build
 from karmada_tpu_torch.models.batch import (
     AGGREGATED,
+    DUPLICATED,
     DYNAMIC_WEIGHT,
     STATIC_WEIGHT,
     pow2_bucket,
@@ -191,10 +217,14 @@ from karmada_tpu_torch.sched.core import (
     TOPK_TARGETS,
     ArrayScheduler,
     _pad_rows_idx,
+    _schedule_body,
+    _schedule_kernel,
     _sorted_pairs,
 )
+from karmada_tpu_torch.server.scheduler_shim import SchedulerShimServer, decision_json
 from karmada_tpu_torch.simulation import Simulator, apply_scenario_objects
 from karmada_tpu_torch.simulation.preflight import QuotaPreflight
+from karmada_tpu_torch.testing.shim_contract import CONTRACT_CASES
 from karmada_tpu_torch.testing.fixtures import (
     build_estimator,
     duplicated_placement,
@@ -262,6 +292,10 @@ CHURN5K_SAMPLE = 256  # whatif_churn5k rows held against the cpu Simulator
 # solve's shape and one whatif_churn5k chunk's
 SIM_CHECK_SHAPES = ((17, 1024, 512, False), (17, 1024, 512, True), (5, 10240, 5120, True))
 K256 = 256  # flagship_k256's candidate window
+GRAFT_ROUNDS = 20  # timed calls of the dense-input program at the flagship
+SHIM_ROUNDS = 5  # timed /v1/scheduleBatch rounds of shim_flagship
+SHIM_SAMPLE = 2048  # shim_flagship rows held against the cpu round
+NARROW_INPUT_SHAPE = (300, 100)  # the dense-input filter's narrow check (C < 128)
 DEVICE = "cuda"
 
 FLEET = ("alive", "capacity", "has_summary", "taint_key", "taint_value", "taint_effect", "api_ok")
@@ -273,6 +307,8 @@ TAIL_OUT = ("result", "unschedulable", "avail_sum", "nnz", "top_idx", "top_val")
 ESTIMATE_ARGS = ("capacity", "has_summary", "req_unique", "req_idx", "replicas",
                  "unknown_request")
 FILTER_OUT = ("feasible", "score", "avail", "prev", "tie", "feas_count")
+GRAFT_OUT = ("feasible", "score", "result", "unschedulable", "avail_sum", "avail")
+DENSE_INPUT_OUT = ("feasible", "score", "avail")
 GROUP_OUT = ("weight", "value", "avail_sum", "feas_count")
 SPREAD_TAIL_OUT = ("result", "unschedulable", "avail_sum", "feas_count", "nnz", "top_idx",
                    "top_val")
@@ -922,7 +958,8 @@ def mask_bound(feas, out):
 def dense_kernel_inputs(sched: ArrayScheduler, bindings):
     """The dense round's own kernel inputs, as _launch_once_partitioned
     builds them: rows permuted by class and encoded, the filter arguments,
-    the class-1 / class-2 row ids with their windows, and the mask rows."""
+    the class-1 / class-2 row ids with their windows, the mask rows and
+    the padded batch."""
     cls = np.asarray([sched._row_class(rb, False) for rb in bindings], np.int8)
     order = np.argsort(cls, kind="stable")
     bindings = [bindings[i] for i in order]
@@ -944,7 +981,7 @@ def dense_kernel_inputs(sched: ArrayScheduler, bindings):
     pc = raw.aff_masks.sum(axis=1)
     mk = int(pc[raw.aff_idx[mask_rows]].max(initial=0))
     k = min(pow2_bucket(mk, lo=8), len(sched.fleet.names))
-    return filt_args, t, tails, torch.from_numpy(mask_idx.astype(np.int64)).to(dev), k
+    return filt_args, t, tails, torch.from_numpy(mask_idx.astype(np.int64)).to(dev), k, batch
 
 
 def dense_tail_args(filt, t, rows):
@@ -1093,7 +1130,7 @@ def check_compact_kernels(sched, bindings, dev, results):
 def check_dense_kernels(sched, bindings, dev, results):
     """Phase 3 for the dense round's kernels (B3, B4, B5', B6); returns
     their ms per dense flagship round."""
-    filt_args, t, tails, mask_idx, mk = dense_kernel_inputs(sched, bindings)
+    filt_args, t, tails, mask_idx, mk, _ = dense_kernel_inputs(sched, bindings)
     B, C = filt_args[7].shape[0], filt_args[0].shape[0]
     rng = np.random.default_rng(1)
 
@@ -3073,7 +3110,8 @@ def check_sim_kernels(dev, results):
                                  f"{ {k: len(v) for k, v in calls.items()} } for {n} solves")
         # dense_tail over the whatif solve's S x B scenario rows, its output
         # windows compared through the decode's sort too (the churn5k
-        # chunks' are timed only: their plain version needs tens of GB)
+        # chunks' are timed only: their plain version, all rows at once,
+        # needs tens of GB)
         calls["dense_tail"] = calls["dense_tail"][:1]
         if cell == "whatif":
             args, kw = calls["dense_tail"][0]
@@ -3117,8 +3155,15 @@ def check_sim_kernels(dev, results):
         args, kw = captured[cell]["dense_tail"][0]
         out = kernels._dense_tail_launch(*args, **kw)
         b, by = dense_tail_bound([args[0]], [args[4]], args[5], [out])
-        plain = (cuda_ms(lambda: kernels.dense_tail_plain(*args, **kw), 2)
-                 if cell == "whatif" else None)
+        # the plain version over a churn5k chunk's rows, 8 192 rows at a
+        # time (all at once it needs tens of GB), summed
+        rows = args[4]
+        plain = sum(
+            cuda_ms(lambda r=rows[i:i + 8192]: kernels.dense_tail_plain(
+                *args[:4], r, *args[5:], **kw), 1)
+            for i in range(0, rows.numel(), 8192)
+        ) if cell == "whatif_churn5k" else cuda_ms(
+            lambda: kernels.dense_tail_plain(*args, **kw), 2)
         tails[cell] = (args[0].shape, cuda_ms(lambda: kernels._dense_tail_launch(*args, **kw),
                                               reps), plain, b, by)
         del out
@@ -3290,10 +3335,381 @@ def run_sim_cells(dev, smi, path_launches):
     path_launches.update(counted)
 
 
+# --------------------------------------------------------------------------
+# the dense-input program (graft entry) and the scheduler shim
+# --------------------------------------------------------------------------
+
+
+def random_dense_input_args(seed, dev, B, C):
+    """Seeded inputs of the dense-input filter, in FILTER_ARGS's order:
+    taints of every effect and tolerations over one small key / value
+    alphabet (some columns tolerated, some not, padded slots), unknown
+    GVKs, unknown-request rows, zero and absent requests, non-positive
+    capacity, and eviction, affinity and previous-membership masks drawn
+    independently of each other (prev_member is no function of any prev
+    count), with answers that are -1 in about half the cells. The [B, C]
+    tensors come from a seeded generator on the card."""
+    rng = np.random.default_rng(seed)
+    R, T, G, K = 4, 4, 6, 6
+    capacity = rng.integers(-10, 2_000_000, (C, R)).astype(np.int64)
+    capacity[::5, 0] = 0
+    request = rng.integers(0, 2000, (B, R)).astype(np.int64)
+    request[rng.random((B, R)) < 0.3] = 0
+    tol_op = rng.integers(0, 3, (B, K)).astype(np.int32)
+    tol_op[::3, 2:] = 0  # padded toleration slots
+    host = batch_from_numpy({
+        "alive": rng.random(C) < 0.9,
+        "capacity": capacity,
+        "has_summary": rng.random(C) < 0.95,
+        "taint_key": rng.integers(0, 4, (C, T)).astype(np.int32),
+        "taint_value": rng.integers(0, 3, (C, T)).astype(np.int32),
+        "taint_effect": rng.integers(0, 4, (C, T)).astype(np.int32),
+        "api_ok": rng.random((C, G)) < 0.9,
+        "replicas": rng.integers(0, 64, B).astype(np.int32),
+        "request": request,
+        "unknown_request": rng.random(B) < 0.05,
+        "gvk": rng.integers(-1, G + 1, B).astype(np.int32),
+        "tol_key": rng.integers(0, 4, (B, K)).astype(np.int32),
+        "tol_value": rng.integers(0, 3, (B, K)).astype(np.int32),
+        "tol_effect": rng.integers(0, 4, (B, K)).astype(np.int32),
+        "tol_op": tol_op,
+    }, dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def mask(p):
+        return torch.rand((B, C), device=dev, generator=g) < p
+
+    answers = torch.randint(0, 50, (B, C), device=dev, generator=g, dtype=torch.int32)
+    host.update(affinity_ok=mask(0.7), eviction_ok=mask(0.9), prev_member=mask(0.2),
+                extra_avail=torch.where(mask(0.5), answers, -1))
+    return [host[n] for n in FILTER_ARGS]
+
+
+def dense_input_filter_bound(args, outs):
+    """Bytes: every input read once, every output written once. Operations:
+    per (row, column) the filter chain (one compare per taint slot plus
+    8) and the estimate (4 per requested resource plus 4)."""
+    C, R = args[1].shape
+    B, T = args[7].shape[0], args[3].shape[1]
+    return bound(nbytes(args) + nbytes(outs), B * C * (T + 4 * R + 12))
+
+
+def random_schedule_args(seed, dev, B, C):
+    """The dense-input program's 24 arguments, in SCHEDULE_ARGS's order:
+    random_dense_input_args's, then the tail's, drawn as
+    tests/test_torch_graft_entry.py draws them: every strategy code (and
+    one past them), fresh rows, static weights with all-zero rows,
+    previous replicas in about a fifth of the cells, drawn apart from
+    prev_member, and tie-heavy ties (four values)."""
+    a = dict(zip(FILTER_ARGS, random_dense_input_args(seed, dev, B, C)))
+    rng = np.random.default_rng(seed + 1)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
+
+    def ints(lo, hi, dtype):
+        return torch.randint(lo, hi, (B, C), device=dev, generator=g, dtype=dtype)
+
+    static_weight = ints(0, 6, torch.int64)
+    static_weight[torch.from_numpy(rng.random(B) < 0.25).to(dev)] = 0
+    has_prev = torch.rand((B, C), device=dev, generator=g) < 0.2
+    a.update(
+        strategy=torch.from_numpy(rng.integers(0, 5, B).astype(np.int32)).to(dev),
+        fresh=torch.from_numpy(rng.random(B) < 0.5).to(dev),
+        static_weight=static_weight,
+        prev_replicas=torch.where(has_prev, ints(1, 6, torch.int32), 0),
+        tie=ints(0, 4, torch.int32))
+    return [a[n] for n in SCHEDULE_ARGS]
+
+
+def check_dense_input_filter(dev, results, B, C):
+    """Phase 3 for the dense-input filter kernel: against its plain version
+    on seeded inputs at the dense flagship shape (B x C) and at a narrow
+    shape (C < 128), then the whole program on those inputs with the
+    tail's beside them, _schedule_kernel (the kernel, then dense_tail over
+    every row) against _schedule_body on the card. Its time on the main
+    path's arguments comes with the graft_flagship cell."""
+    err = 0
+    for rb, rc in ((B, C), NARROW_INPUT_SHAPE):
+        p = random_schedule_args(40 + rc, dev, rb, rc)
+        a = [p[SCHEDULE_ARGS.index(n)] for n in FILTER_ARGS]
+        err = max(err, compare(f"dense_input_filter[random,{rb}x{rc}]",
+                               kernels._dense_input_filter_launch(*a),
+                               kernels.dense_input_filter_plain(*a), DENSE_INPUT_OUT))
+        compare(f"_schedule_kernel[random,{rb}x{rc}, _schedule_body on the card]",
+                _schedule_kernel(*p), _schedule_body(*p), GRAFT_OUT)
+        del a, p
+    results["dense_input_filter"] = dict(
+        source="karmada_tpu_torch/kernels/csrc/dense_filter.cu",
+        replaces="karmada_tpu/sched/core.py:320", max_abs_err=err, ms=None, plain_ms=None,
+        bound_ms=None, bound_by=None, library_ms=None)
+    log(f"random inputs ({B}x{C} and {NARROW_INPUT_SHAPE[0]}x{NARROW_INPUT_SHAPE[1]}): "
+        "dense_input_filter equals its plain version exactly, and _schedule_kernel equals "
+        "_schedule_body in all six outputs")
+
+
+def expect_launches(label, launches, expect):
+    """Every kernel launched exactly `expect` times (others 0)."""
+    for n, c in launches.items():
+        if c != expect.get(n, 0):
+            raise AssertionError(f"{label}: {n} launched {c} times, expected {expect.get(n, 0)}")
+
+
+def add_launches(path_launches, launches, names):
+    for n in names:
+        path_launches[n] = path_launches.get(n, 0) + launches[n]
+
+
+def run_graft_example(dev, path_launches):
+    """graft_entry.entry() at 16 x 12 on the card: one program call, all
+    six outputs against _schedule_body on the card and the port's CPU
+    run."""
+    kernels.reset_launches()
+    fn, args = graft_entry.entry(device=dev)
+    out = fn(*args)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    expect_launches("graft_example", launches, {"dense_input_filter": 1, "dense_tail": 1})
+    add_launches(path_launches, launches, ("dense_input_filter", "dense_tail"))
+    compare("graft_example[card, _schedule_body on the card]", out, _schedule_body(*args),
+            GRAFT_OUT)
+    compare("graft_example[card, cpu]", [o.cpu() for o in out], fn(*(a.cpu() for a in args)),
+            GRAFT_OUT)
+    log(f"graft_example ({tuple(args[-1].shape)}): the program on the card equals "
+        f"_schedule_body on the card and the cpu run; {int(out[2].sum())} replicas placed")
+
+
+def run_graft_flagship(dev, smi, path_launches, results, sched, bindings):
+    """The dense flagship batch (the dense flagship check's permuted,
+    padded batch) as the dense-input program's 24 arguments on the card:
+    one captured call and GRAFT_ROUNDS timed calls (CUDA events, split at
+    the filter's return), all six outputs against _schedule_body on the
+    card, feasible / score / avail against B3 and each tail row's result
+    against B4 on the factored form of the same batch, then the kernel's
+    time, its plain version's and both bounds."""
+    filt_args, t, tails, _, _, batch = dense_kernel_inputs(sched, bindings)
+    t0 = time.perf_counter()
+    args = graft_entry.schedule_args(sched, batch, dev)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    B, C = args[SCHEDULE_ARGS.index("affinity_ok")].shape
+    fa = [args[SCHEDULE_ARGS.index(n)] for n in FILTER_ARGS]
+
+    kernels.reset_launches()
+    with captured_launches(["dense_input_filter"]) as cap:
+        out = _schedule_kernel(*args)
+    torch.cuda.synchronize()
+    marks = []
+    counted = kernels.dense_input_filter
+
+    def marked(*a):
+        r = counted(*a)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+        return r
+
+    spans = []
+    kernels.dense_input_filter = marked
+    try:
+        for _ in range(GRAFT_ROUNDS):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = _schedule_kernel(*args)
+            e.record()
+            spans.append((s, e))
+        torch.cuda.synchronize()
+    finally:
+        kernels.dense_input_filter = counted
+    launches = kernels.launch_counts()
+    n_calls = GRAFT_ROUNDS + 1
+    expect_launches("graft_flagship", launches,
+                    {"dense_input_filter": n_calls, "dense_tail": n_calls})
+    add_launches(path_launches, launches, ("dense_input_filter", "dense_tail"))
+    total = [s.elapsed_time(e) for s, e in spans]
+    filt_ms = [s.elapsed_time(m) for (s, _), m in zip(spans, marks)]
+    tail_ms = [m.elapsed_time(e) for (_, e), m in zip(spans, marks)]
+
+    def pct(xs):
+        return f"p50 {np.percentile(xs, 50):.3f} ms p90 {np.percentile(xs, 90):.3f} ms"
+
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    want = _schedule_body(*args)
+    e.record()
+    torch.cuda.synchronize()
+    body_ms = s.elapsed_time(e)
+    compare("graft_flagship[card, _schedule_body on the card]", out, want, GRAFT_OUT)
+    del want
+
+    filt = kernels._dense_filter_launch(*filt_args, plugin_bits=sched._plugin_bits)
+    compare("graft_flagship[feasible/score/avail, B3]", [out[0], out[1], out[5]],
+            [filt[0], filt[1], filt[2]], DENSE_INPUT_OUT)
+    n_tail = 0
+    for rows, topk, has_agg in tails:
+        o = kernels._dense_tail_launch(*dense_tail_args(filt, t, rows), topk=topk,
+                                       has_agg=has_agg)
+        r = rows.long()
+        compare(f"graft_flagship[result rows, B4 {has_agg}]",
+                [out[2].index_select(0, r), out[3][r], out[4][r]], o[:3],
+                ("result", "unschedulable", "avail_sum"))
+        n_tail += int(rows.numel())
+    del filt
+
+    (ca, _), = cap["dense_input_filter"]
+    err = compare("dense_input_filter[captured flagship call]",
+                  kernels._dense_input_filter_launch(*ca),
+                  kernels.dense_input_filter_plain(*ca), DENSE_INPUT_OUT)
+    del ca, cap
+    k_ms = cuda_ms(lambda: kernels._dense_input_filter_launch(*fa), 10)
+    k_plain = cuda_ms(lambda: kernels.dense_input_filter_plain(*fa), 1)
+    fb, fb_by = dense_input_filter_bound(fa, [out[0], out[1], out[5]])
+    tb, tb_by = dense_tail_bound([out[0]], [torch.arange(B, device=dev)],
+                                 args[SCHEDULE_ARGS.index("static_weight")],
+                                 [[out[2], out[3], out[4]]])
+    r = results["dense_input_filter"]
+    r.update(max_abs_err=max(r["max_abs_err"], err), ms=k_ms, plain_ms=k_plain, bound_ms=fb,
+             bound_by=fb_by)
+    log(f"graft_flagship ({B}x{C}) on {smi}: dense views built and uploaded in {prep_s:.2f} s "
+        f"(args {nbytes(args) / 1e9:.2f} GB); program {pct(total)} over {GRAFT_ROUNDS} calls "
+        f"(filter {pct(filt_ms)}, tail {pct(tail_ms)}); _schedule_body on the card "
+        f"{body_ms:.3f} ms; launches {launches}; equal to _schedule_body, to B3's feasible/"
+        f"score/avail and to B4's result on its {n_tail} tail rows; dense_input_filter "
+        f"{k_ms:.3f} ms (plain {k_plain:.3f}, bound {fb:.4f} {fb_by}); the tail over every row "
+        f"bound {tb:.4f} {tb_by}; {int(out[2].sum())} replicas placed")
+
+
+def post_body(url, data: bytes) -> bytes:
+    """POST JSON bytes; any status but 200 fails the run."""
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            if r.status != 200:
+                raise AssertionError(f"{url}: HTTP {r.status}")
+            return r.read()
+    except urllib.error.HTTPError as e:
+        raise AssertionError(f"{url}: HTTP {e.code}: {e.read()[:2000]!r}") from None
+
+
+def run_shim_flagship(dev, smi, path_launches, flag):
+    """The compact flagship through SchedulerShimServer on 127.0.0.1 in
+    plain HTTP: its 5 000 clusters as cluster JSON, then its 10 000 specs
+    (each template uid pinned to the binding's uid, as the reference's
+    wire-parity test pins it) in one /v1/scheduleBatch, a warm round and
+    SHIM_ROUNDS timed ones split at the shim's round; the results against
+    the in-process card round on the same objects, item for item, and a
+    SHIM_SAMPLE-row sample covering every strategy against the cpu
+    round."""
+    clusters, bindings = flag["clusters"], flag["bindings"]
+    t0 = time.perf_counter()
+    cluster_body = json.dumps({"items": [k8sjson.cluster_to_json(c) for c in clusters]}).encode()
+    items = []
+    for b in bindings:
+        doc = k8sjson.binding_spec_to_json(b.spec)
+        doc["resource"]["uid"] = b.metadata.uid
+        items.append({"spec": doc})
+    body = json.dumps({"items": items}).encode()
+    encode_s = time.perf_counter() - t0
+    srv = SchedulerShimServer(device=dev)
+    srv.start()
+    spans = []
+    try:
+        t0 = time.perf_counter()
+        reply = json.loads(post_body(f"{srv.url}/v1/clusters", cluster_body))
+        sync_s = time.perf_counter() - t0
+        if reply != {"count": len(clusters)}:
+            raise AssertionError(f"shim_flagship: /v1/clusters replied {reply}")
+        kernels.reset_launches()
+        for r in range(SHIM_ROUNDS + 1):
+            t0 = time.perf_counter()
+            raw = post_body(f"{srv.url}/v1/scheduleBatch", body)
+            t1 = time.perf_counter()
+            if r:
+                spans.append((t0, *srv.shim.last_round, t1))
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+    finally:
+        srv.stop()
+    got = json.loads(raw)["results"]
+    expect_launches("shim_flagship", launches, {"candidate_select": SHIM_ROUNDS + 1,
+                                                "candidate_tail": 2 * (SHIM_ROUNDS + 1)})
+    add_launches(path_launches, launches, ("candidate_select", "candidate_tail"))
+
+    in_proc = ArrayScheduler(clusters, device=dev)
+    want = [decision_json(d) for d in in_proc.schedule(bindings)]
+    # the round on objects it has encoded before (the batch encoder's row
+    # cache hits), then the shim's round on freshly parsed objects
+    t0 = time.perf_counter()
+    in_proc.schedule(bindings)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    srv.shim.schedule_batch(items)
+    torch.cuda.synchronize()
+    fresh_s = srv.shim.last_round[1] - srv.shim.last_round[0]
+    if len(got) != len(want):
+        raise AssertionError(f"shim_flagship: {len(got)} results for {len(want)} bindings")
+    bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    if bad:
+        raise AssertionError(f"shim_flagship: {len(bad)} results differ from the in-process "
+                             f"card round, first row {bad[0]}: {got[bad[0]]} vs {want[bad[0]]}")
+    rng = np.random.default_rng(3)
+    sample = np.sort(rng.choice(len(bindings), SHIM_SAMPLE, replace=False))
+    sub = [bindings[i] for i in sample]
+    kinds = {strategy_code(b.spec.placement, b.spec.replicas) for b in sub}
+    if not {DUPLICATED, STATIC_WEIGHT, DYNAMIC_WEIGHT, AGGREGATED} <= kinds:
+        raise AssertionError(f"shim_flagship: the sample covers strategies {sorted(kinds)} only")
+    t0 = time.perf_counter()
+    cpu = [decision_json(d) for d in ArrayScheduler(clusters, device="cpu").schedule(sub)]
+    cpu_s = time.perf_counter() - t0
+    bad = [int(i) for i, c in zip(sample, cpu) if got[i] != c]
+    if bad:
+        raise AssertionError(f"shim_flagship: sample rows {bad[:5]} differ from the cpu round")
+    wire = [a - t for t, a, _, _ in spans]
+    rnd = [b - a for _, a, b, _ in spans]
+    send = [t1 - b for _, _, b, t1 in spans]
+    tot = [t1 - t for t, _, _, t1 in spans]
+    placed = sum(1 for g in got if "suggestedClusters" in g)
+
+    def p50(xs):
+        return float(np.percentile(xs, 50))
+
+    log(f"shim_flagship ({len(clusters)} clusters x {len(bindings)} specs over HTTP, body "
+        f"{len(body) / 1e6:.1f} MB, reply {len(raw) / 1e6:.1f} MB) on {smi}: JSON built in "
+        f"{encode_s:.2f} s, /v1/clusters {sync_s:.2f} s; /v1/scheduleBatch p50 {p50(tot):.4f} s "
+        f"(max {max(tot):.4f} s) over {SHIM_ROUNDS} rounds = wire + parse {p50(wire):.4f} s, "
+        f"round {p50(rnd):.4f} s, encode + send {p50(send):.4f} s; launches {launches}; "
+        f"{placed} placed; every result equals the in-process card round, and the "
+        f"{SHIM_SAMPLE}-row sample (strategies {sorted(kinds)}) the cpu round ({cpu_s:.1f} s); "
+        f"in process, the round on objects encoded before {warm_s:.4f} s, on freshly "
+        f"parsed objects {fresh_s:.4f} s")
+
+
+def run_graft_cells(dev, smi, path_launches, results, d_sched, d_bindings, flag):
+    """graft_example, graft_flagship (on the dense flagship's scheduler),
+    shim_flagship (on the compact flagship's objects) and shim_contract."""
+    run_graft_example(dev, path_launches)
+    run_graft_flagship(dev, smi, path_launches, results, d_sched, d_bindings)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_shim_flagship(dev, smi, path_launches, flag)
+    run_shim_contract(dev)
+
+
+def run_shim_contract(dev):
+    """The reference shim contract's cases through the port's shim on the
+    card (karmada_tpu_torch/testing/shim_contract.py)."""
+    for case in CONTRACT_CASES:
+        case(dev)
+    torch.cuda.synchronize()
+    log(f"shim_contract: {len(CONTRACT_CASES)} contract cases pass on the card "
+        f"({', '.join(c.__name__[5:] for c in CONTRACT_CASES)})")
+
+
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
-    kernels_only = "--kernels-only" in argv
-    sim_only = "--sim-only" in argv
+    ap = argparse.ArgumentParser(description="On-card smoke test of the PyTorch/CUDA port.")
+    ap.add_argument("--only", choices=("kernels", "sim", "graft"),
+                    help="build every kernel, run one group of phases, print no result line")
+    only = ap.parse_args(sys.argv[1:] if argv is None else argv).only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the card only",
               file=sys.stderr)
@@ -3307,11 +3723,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     libs = build.build_all(verbose=True)
     log(f"build: {len(libs)} kernel sources in {time.perf_counter() - t0:.1f} s")
-    if sim_only:
+    if only == "sim":
         results, path_launches = {}, {}
         check_sim_kernels(dev, results)
         run_sim_cells(dev, smi, path_launches)
-        log(f"sim-only: the simulation kernels and cells passed (launches {path_launches}); "
+        log(f"--only sim: the simulation kernels and cells passed (launches {path_launches}); "
             "no earlier kernel or cell was run")
         return 0
 
@@ -3329,11 +3745,21 @@ def main(argv=None) -> int:
         f"{sum(m.node_estimator.arrays.n_nodes for m in flag['members'].values())} shard_nodes "
         f"nodes, built in {time.perf_counter() - t0:.1f} s (fleet width "
         f"{len(sched.fleet.names)})")
+    results = {}
+    if only == "graft":
+        path_launches = {}
+        check_dense_input_filter(dev, results, shape_bucket(len(d_bindings)),
+                                 len(d_sched.fleet.names))
+        run_graft_cells(dev, smi, path_launches, results, d_sched, d_bindings, flag)
+        log(f"--only graft: the dense-input filter and the graft and shim cells passed "
+            f"(launches {path_launches}); no earlier kernel or cell was run")
+        return 0
 
     # ---- phase 3: kernels against their plain versions on the card ----
-    results = {}
     compact_ms = check_compact_kernels(sched, bindings, dev, results)
     dense_ms = check_dense_kernels(d_sched, d_bindings, dev, results)
+    check_dense_input_filter(dev, results, shape_bucket(len(d_bindings)),
+                             len(d_sched.fleet.names))
     # one round each of configs 4, 4b and drain (their bindings are built
     # again in phase 4, so no earlier cell's garbage collections walk them)
     check_spread_kernels(dev, results)
@@ -3345,8 +3771,8 @@ def main(argv=None) -> int:
     check_sim_kernels(dev, results)
     gc.collect()
     torch.cuda.empty_cache()
-    if kernels_only:
-        log("kernels-only: phase 3 passed; no main path was run")
+    if only == "kernels":
+        log("--only kernels: phase 3 passed; no main path was run")
         return 0
 
     # ---- phase 4: the main paths ----
@@ -3367,6 +3793,7 @@ def main(argv=None) -> int:
     round_breakdown("dense flagship", d_sched, d_bindings, dense_ms,
                     float(np.percentile(times, 50)))
     hold_against_cpu("dense flagship", d_clusters, d_bindings, decisions)
+    run_graft_cells(dev, smi, path_launches, results, d_sched, d_bindings, flag)
     del d_sched
 
     w_clusters, w_bindings = build_flagship(dense=True, whole_fleet_dup=True)

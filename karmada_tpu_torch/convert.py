@@ -10,7 +10,9 @@ packages solve the same problem. It matches classes by NAME and never
 imports the JAX package.
 
 `batch_from_numpy` turns a BindingBatch's or FleetArrays' numpy tables into
-torch tensors on one device.
+torch tensors on one device; `schedule_args_from_numpy` does the same for
+the dense-input program's 24 positional arrays (the reference graft
+entry's `args`).
 """
 from __future__ import annotations
 
@@ -64,3 +66,28 @@ def batch_from_numpy(d, device) -> dict:
             a = a.view(np.int64)
         out[k] = torch.from_numpy(a).to(device)
     return out
+
+
+# the dense-input program's positional arguments, in the reference's order
+# (karmada_tpu/sched/core.py:320-326 `_schedule_kernel`)
+SCHEDULE_ARGS = (
+    "alive", "capacity", "has_summary", "taint_key", "taint_value", "taint_effect", "api_ok",
+    "replicas", "request", "unknown_request", "gvk", "strategy", "fresh",
+    "tol_key", "tol_value", "tol_effect", "tol_op",
+    "affinity_ok", "eviction_ok", "static_weight", "prev_member", "prev_replicas", "tie",
+    "extra_avail",
+)
+# the dense-input filter's arguments (kernels.dense_input_filter), a subset
+# of SCHEDULE_ARGS in the same order: the tail's inputs left out
+FILTER_ARGS = tuple(n for n in SCHEDULE_ARGS
+                    if n not in ("strategy", "fresh", "static_weight", "prev_replicas", "tie"))
+
+
+def schedule_args_from_numpy(args, device) -> tuple:
+    """The 24 arrays of the dense-input program (any array-likes, in the
+    order of SCHEDULE_ARGS) as contiguous tensors on `device`, dtypes
+    kept."""
+    if len(args) != len(SCHEDULE_ARGS):
+        raise ValueError(f"expected {len(SCHEDULE_ARGS)} arrays, got {len(args)}")
+    t = batch_from_numpy(dict(zip(SCHEDULE_ARGS, (np.asarray(a) for a in args))), device)
+    return tuple(t[n] for n in SCHEDULE_ARGS)

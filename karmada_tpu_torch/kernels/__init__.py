@@ -73,6 +73,14 @@ filter below, `dense_tail` over the S x B scenario rows, then the load):
   result, replicas and resources per cluster over the scenario's active
   rows, exact int64; the plain version is `sim_load_plain`.
 
+The dense-input schedule program (sched/core.py `_schedule_kernel`: the
+filter below, then `dense_tail` over every row):
+- `dense_input_filter` (csrc/dense_filter.cu, its third entry): the dense
+  filter and estimate over fully dense row inputs (tolerations [B, K],
+  affinity / eviction / previous-membership masks [B, C], request
+  [B, R]) with the answer matrix min-merged, every in-tree plugin on;
+  the plain version is `dense_input_filter_plain`.
+
 The wide routes, kernels of their own with their own launch counts:
 `candidate_select` past MAX_SELECT_SMEM (`candidate_select_wide`, the
 radix select over a key scratch in csrc/candidate_select.cu) and
@@ -94,6 +102,7 @@ import torch
 
 from ..faults.staleness import MAX_STALENESS_AGE
 from ..sched import core
+from ..sched.plugins import ALL_PLUGIN_BITS
 from ..sched.spread import WEIGHT_UNIT
 
 I64, I32, BOOL, U8 = torch.int64, torch.int32, torch.bool, torch.uint8
@@ -105,7 +114,7 @@ KERNEL_NAMES = (
     "candidate_select", "candidate_select_wide", "candidate_tail", "candidate_tail_wide",
     "dense_filter", "dense_tail", "pack_rows", "feas_idx", "group_score", "packed_selection",
     "spread_tail", "combo_select", "tier_estimate", "tier_consume", "fleet_estimate",
-    "staleness_penalty", "scatter_rows", "sim_filter", "sim_load",
+    "staleness_penalty", "scatter_rows", "sim_filter", "sim_load", "dense_input_filter",
 )
 _launch_lock = threading.Lock()
 _launches = dict.fromkeys(KERNEL_NAMES, 0)
@@ -535,6 +544,29 @@ def sim_filter_plain(
     feasible, _score, avail, prev, _tie, feas_count = (torch.stack(x) for x in zip(*per))
     tie = torch.stack([core.tie_from_index(seeds, idx) for idx in tie_idx])
     return feasible, avail, prev, tie, feas_count
+
+
+def dense_input_filter_plain(
+    alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
+    replicas, request, unknown_request, gvk, tol_key, tol_value, tol_effect, tol_op,
+    affinity_ok, eviction_ok, prev_member, extra_avail,
+):
+    """Plain version of the dense-input filter kernel (the reference's
+    filter_estimate_phase over dense inputs, then the extra_avail
+    min-merge, core.py:190-226 and :311): the [B, K] tolerations as a
+    [B, 4, K] table with `tol_idx = arange(B)`, the request [B, R] as the
+    unique-request table with `req_idx = arange(B)`, every in-tree plugin
+    on; `extra_avail` is i32[B, C] (-1 = no answer). Returns (feasible
+    bool[B,C], score i32, avail i32)."""
+    idx = torch.arange(replicas.shape[0], dtype=I32, device=alive.device)
+    tol_tables = torch.stack([tol_key, tol_value, tol_effect, tol_op], dim=1)
+    feasible, score, avail = core.filter_estimate_phase(
+        alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
+        replicas, unknown_request, gvk, tol_tables, idx,
+        affinity_ok, eviction_ok, prev_member, request, idx,
+    )
+    avail = torch.where(extra_avail >= 0, torch.minimum(avail, extra_avail), avail)
+    return feasible, score, avail
 
 
 def sim_load_plain(result, active, request):
@@ -1616,6 +1648,75 @@ def _sim_load_launch(result, active, request):
             _ptr(assigned), _ptr(usage), _stream(dev))
     _raise_on(rc, "sim_load")
     return assigned, usage
+
+
+def dense_input_filter(
+    alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
+    replicas, request, unknown_request, gvk, tol_key, tol_value, tol_effect, tol_op,
+    affinity_ok, eviction_ok, prev_member, extra_avail,
+):
+    """Dense filter + estimate + answer merge over fully dense row inputs
+    (see dense_input_filter_plain for the contract)."""
+    args = (alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
+            replicas, request, unknown_request, gvk, tol_key, tol_value, tol_effect, tol_op,
+            affinity_ok, eviction_ok, prev_member, extra_avail)
+    dev = alive.device
+    if dev.type == "cpu":
+        return dense_input_filter_plain(*args)
+    if dev.type != "cuda":
+        raise ValueError(f"dense_input_filter: unsupported device {dev}")
+    out = _dense_input_filter_launch(*args)
+    _launched("dense_input_filter")
+    return out
+
+
+def _dense_input_filter_launch(
+    alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
+    replicas, request, unknown_request, gvk, tol_key, tol_value, tol_effect, tol_op,
+    affinity_ok, eviction_ok, prev_member, extra_avail,
+):
+    """Check, allocate and launch dense_input_filter_kernel. Every input
+    is read where it lies: nothing is copied or restacked."""
+    dev = alive.device
+    C, R = capacity.shape
+    T = taint_key.shape[1]
+    G = api_ok.shape[1]
+    B, Kt = tol_key.shape
+    for name, t, dt, shape in (
+        ("alive", alive, BOOL, (C,)), ("capacity", capacity, I64, (C, R)),
+        ("has_summary", has_summary, BOOL, (C,)),
+        ("taint_key", taint_key, I32, (C, T)), ("taint_value", taint_value, I32, (C, T)),
+        ("taint_effect", taint_effect, I32, (C, T)), ("api_ok", api_ok, BOOL, (C, G)),
+        ("replicas", replicas, I32, (B,)), ("request", request, I64, (B, R)),
+        ("unknown_request", unknown_request, BOOL, (B,)), ("gvk", gvk, I32, (B,)),
+        ("tol_key", tol_key, I32, (B, Kt)), ("tol_value", tol_value, I32, (B, Kt)),
+        ("tol_effect", tol_effect, I32, (B, Kt)), ("tol_op", tol_op, I32, (B, Kt)),
+        ("affinity_ok", affinity_ok, BOOL, (B, C)), ("eviction_ok", eviction_ok, BOOL, (B, C)),
+        ("prev_member", prev_member, BOOL, (B, C)), ("extra_avail", extra_avail, I32, (B, C)),
+    ):
+        _check(name, t, dt, shape, dev)
+    feasible = torch.empty((B, C), dtype=BOOL, device=dev)
+    score = torch.empty((B, C), dtype=I32, device=dev)
+    avail = torch.empty((B, C), dtype=I32, device=dev)
+    if B == 0 or C == 0:
+        return feasible, score, avail
+    from .build import library
+
+    fn = library("dense_filter").dense_input_filter_launch
+    fn.restype = ctypes.c_int
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 8 + [ci] + [vp] * 4 + [ci] * 2 + [vp] * 4
+    rc = fn(
+        _ptr(alive), _ptr(capacity), _ptr(has_summary), _ptr(taint_key),
+        _ptr(taint_value), _ptr(taint_effect), _ptr(api_ok),
+        C, R, T, G,
+        _ptr(replicas), _ptr(request), _ptr(unknown_request), _ptr(gvk),
+        _ptr(tol_key), _ptr(tol_value), _ptr(tol_effect), _ptr(tol_op), Kt,
+        _ptr(affinity_ok), _ptr(eviction_ok), _ptr(prev_member), _ptr(extra_avail),
+        B, ALL_PLUGIN_BITS, _ptr(feasible), _ptr(score), _ptr(avail), _stream(dev),
+    )
+    _raise_on(rc, "dense_input_filter")
+    return feasible, score, avail
 
 
 def reset_launches() -> None:

@@ -45,6 +45,24 @@
 // written. Bound by memory bandwidth: 13 bytes written per [S, B, C]
 // element; the fleet slices (S x C x (R + 3T + G) words) stay in L2.
 //
+// dense_input_filter, the third entry: the filter half of the dense-input
+// schedule program. Replaces karmada_tpu/sched/core.py:190-226
+// filter_estimate_phase and the extra_avail min-merge of core.py:311, as
+// core.py:320 `_schedule_kernel` runs them (every in-tree plugin on) over
+// fully dense inputs: the tolerations as four [B, K] tables, the
+// affinity, eviction and previous-membership masks as bool [B, C], the
+// request as i64 [B, R] and the answers as i32 [B, C] (-1 = none). Unlike
+// dense_filter_kernel it reads no factored table, no prev/evict list and
+// no seed: every input is read where it lies (nothing is restacked to
+// [B, C] on the way in), through filter_common's eval_col / estimate with
+// the kDenseRows switch, so the per-column rules stay those of the other
+// entries. It writes feasible, score and avail only; the program's
+// prev_replicas and tie are inputs that go to the tail as they are. One
+// block of 256 threads per row stages the row's four toleration rows in
+// shared memory. Bound by memory bandwidth: per element it reads three
+// bool masks and the i32 answer and writes 9 bytes (about 0.84 GB at
+// 10240 x 5120).
+//
 // Built by karmada_tpu_torch/kernels/build.py with nvcc for sm_90a and
 // called through the plain C entry points at the bottom (ctypes).
 
@@ -151,6 +169,23 @@ sim_filter_kernel(FilterArgs p, const int64_t* tie_idx, SimOut o) {
   if (threadIdx.x == 0) o.feas_count[(int64_t)s * q.B + b] = (int32_t)count;
 }
 
+__global__ void __launch_bounds__(kThreads)
+dense_input_filter_kernel(FilterArgs p, uint8_t* feasible, int32_t* score, int32_t* avail) {
+  extern __shared__ int32_t lists[];
+  int32_t* tol = lists;  // [4*Kt]
+  const int b = blockIdx.x;
+  filter_common::load_row_tols(p, b, tol);
+  __syncthreads();
+
+  const int64_t row = (int64_t)b * p.C;
+  for (int c = threadIdx.x; c < p.C; c += blockDim.x) {
+    const ColEval e = filter_common::eval_col<true>(p, b, c, tol, nullptr, nullptr, nullptr);
+    feasible[row + c] = e.feasible ? 1 : 0;
+    score[row + c] = e.score;
+    avail[row + c] = filter_common::estimate<true>(p, b, c);
+  }
+}
+
 size_t list_smem(int Kt, int Kp, int Ke) { return 4 * (size_t)(4 * Kt + 2 * Kp + Ke); }
 
 }  // namespace
@@ -224,5 +259,41 @@ extern "C" int sim_filter_launch(
   }
   sim_filter_kernel<<<dim3(B, S), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       p, static_cast<const int64_t*>(tie_idx), o);
+  return (int)cudaGetLastError();
+}
+
+// The fleet tables beside the dense batch of B rows: replicas, request
+// [B,R] (i64), unknown_request, gvk, the four toleration tables [B,Kt],
+// affinity_ok / eviction_ok / prev_member [B,C] (bool) and extra_avail
+// [B,C] (i32, -1 = no answer). Every in-tree plugin is on.
+extern "C" int dense_input_filter_launch(
+    const void* alive, const void* capacity, const void* has_summary,
+    const void* taint_key, const void* taint_value, const void* taint_effect,
+    const void* api_ok, int C, int R, int T, int G,
+    const void* replicas, const void* request, const void* unknown_request, const void* gvk,
+    const void* tol_key, const void* tol_value, const void* tol_effect, const void* tol_op,
+    int Kt, const void* affinity_ok, const void* eviction_ok, const void* prev_member,
+    const void* extra_avail, int B, int plugin_bits, void* feasible, void* score, void* avail,
+    void* stream) {
+  if (B <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+  FilterArgs p = filter_common::make_filter_args(
+      alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok, C, R, T, G,
+      replicas, unknown_request, gvk, nullptr, nullptr, affinity_ok, nullptr, nullptr, nullptr,
+      nullptr, nullptr, request, nullptr, B, Kt, 0, 0, plugin_bits, 1, extra_avail);
+  p.tol_rows[0] = static_cast<const int32_t*>(tol_key);
+  p.tol_rows[1] = static_cast<const int32_t*>(tol_value);
+  p.tol_rows[2] = static_cast<const int32_t*>(tol_effect);
+  p.tol_rows[3] = static_cast<const int32_t*>(tol_op);
+  p.eviction_ok = static_cast<const uint8_t*>(eviction_ok);
+  p.prev_member = static_cast<const uint8_t*>(prev_member);
+  const size_t smem = 4 * (size_t)(4 * Kt);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        dense_input_filter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dense_input_filter_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      p, static_cast<uint8_t*>(feasible), static_cast<int32_t*>(score),
+      static_cast<int32_t*>(avail));
   return (int)cudaGetLastError();
 }

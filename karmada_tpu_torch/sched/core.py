@@ -354,6 +354,77 @@ def compact_outputs(feasible, result, topk: int):
     return feas_count, nnz, top_idx.to(I32), top_val
 
 
+def _schedule_body(
+    alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
+    replicas, request, unknown_request, gvk, strategy, fresh,
+    tol_key, tol_value, tol_effect, tol_op,
+    affinity_ok, eviction_ok, static_weight, prev_member, prev_replicas, tie,
+    extra_avail,
+):
+    """The dense-input program in plain tensor ops (the reference's
+    `_schedule_body` with every in-tree plugin on): the filter and estimate
+    over the dense row inputs, the min-merge of the answers (-1 = none,
+    core/util.go:72-92), then the division tail over every row. Returns
+    (feasible bool[B,C], score i32, result i32, unschedulable bool[B],
+    avail_sum i32[B], avail i32[B,C])."""
+    from ..kernels import dense_input_filter_plain
+
+    feasible, score, avail = dense_input_filter_plain(
+        alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
+        replicas, request, unknown_request, gvk, tol_key, tol_value, tol_effect, tol_op,
+        affinity_ok, eviction_ok, prev_member, extra_avail,
+    )
+    result, unschedulable, avail_sum = assignment_tail(
+        feasible, strategy, static_weight, avail, prev_replicas, tie, replicas, fresh,
+    )
+    return feasible, score, result, unschedulable, avail_sum, avail
+
+
+def _schedule_kernel(
+    alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
+    replicas, request, unknown_request, gvk, strategy, fresh,
+    tol_key, tol_value, tol_effect, tol_op,
+    affinity_ok, eviction_ok, static_weight, prev_member, prev_replicas, tie,
+    extra_avail,
+):
+    """The dense-input schedule program (the reference's `_schedule_kernel`,
+    the graft entry's flagship program): the 24 dense tensors in the
+    reference's order, all on one device (fleet: alive bool[C], capacity
+    i64[C,R], has_summary bool[C], taints i32[C,T], api_ok bool[C,G];
+    rows: replicas i32[B], request i64[B,R], unknown_request bool[B], gvk
+    / strategy i32[B], fresh bool[B], tolerations i32[B,K] x4,
+    affinity_ok / eviction_ok / prev_member bool[B,C], static_weight
+    i64[B,C], prev_replicas / tie i32[B,C], extra_avail i32[B,C], -1 = no
+    answer). `prev_member` feeds the locality score and `prev_replicas`
+    the tail; they need not agree. On the CPU it runs `_schedule_body`; on
+    the card the dense-input filter kernel, then the dense tail over every
+    row (static weights as a [B, C] table read at row b; its output window
+    is dropped). Returns `_schedule_body`'s six outputs."""
+    dev = alive.device
+    if dev.type == "cpu":
+        return _schedule_body(
+            alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
+            replicas, request, unknown_request, gvk, strategy, fresh,
+            tol_key, tol_value, tol_effect, tol_op,
+            affinity_ok, eviction_ok, static_weight, prev_member, prev_replicas, tie,
+            extra_avail,
+        )
+    from .. import kernels
+
+    feasible, score, avail = kernels.dense_input_filter(
+        alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
+        replicas, request, unknown_request, gvk, tol_key, tol_value, tol_effect, tol_op,
+        affinity_ok, eviction_ok, prev_member, extra_avail,
+    )
+    B, C = feasible.shape
+    rows = torch.arange(B, dtype=I32, device=dev)
+    result, unschedulable, avail_sum, _nnz, _top_idx, _top_val = kernels.dense_tail(
+        feasible, avail, prev_replicas, tie, rows, static_weight, rows, strategy, replicas,
+        fresh, topk=min(C, kernels.MAX_DENSE_TOPK), has_agg=True,
+    )
+    return feasible, score, result, unschedulable, avail_sum, avail
+
+
 def _sorted_pairs(top_idx, top_val):
     """Order each row's compact (cluster idx, replicas) window by cluster
     index, parking the zero-replica padding at the end — shared by every
