@@ -1,6 +1,6 @@
 """On-card smoke test of the PyTorch/CUDA port (karmada_tpu_torch).
 
-    python3 chip_smoke.py [--only kernels|sim|graft]
+    python3 chip_smoke.py [--only kernels|sim|graft|mesh]
 
 Needs one CUDA card (an H100 is the target) and nvcc; exits non-zero with no
 result line otherwise. Phases, each of which raises on failure:
@@ -55,7 +55,13 @@ result line otherwise. Phases, each of which raises on failure:
    with -1s, and on the same inputs with the tail's drawn beside them
    (every strategy code, all-zero static weight rows, prev_replicas apart
    from prev_member, tie-heavy ties) the whole program, _schedule_kernel,
-   against _schedule_body on the card (`--only kernels` stops here);
+   against _schedule_body on the card; mesh_tile_filter (the mesh
+   solve's tile filter, csrc/dense_filter.cu) on seeded inputs at the
+   dense flagship's 10 240 x 5 120 cut into 2 x 2 and 2 x 3 tiles (the
+   latter padded with a dead column to 5 121, tiles 1 707 wide), prev and
+   evict ids in other tiles and at the sentinel, answers with -1s, a
+   random mask and score, with the terms and without (`--only kernels`
+   stops here);
 4. the main paths through ArrayScheduler.schedule() on the card, each with
    every launch count set to 0 just before it and read just after, timed
    rounds with p50/p90/p99, and decisions held against the port's CPU
@@ -72,7 +78,19 @@ result line otherwise. Phases, each of which raises on failure:
    SchedulerShimServer, 5 timed rounds split wire + parse / round /
    encode + send, every result against the in-process card round and a
    2 048-row sample against the cpu round; any non-200 fails) and
-   shim_contract (the shim contract's cases on the card); that dense
+   shim_contract (the shim contract's cases on the card); then the mesh
+   cells: mesh_flagship (the dense flagship's bindings through
+   ArrayScheduler(mesh=virtual_mesh(4, card), candidate_k=0) in the
+   monolithic mode, a 2 x 2 virtual mesh: 10 timed rounds with four tile
+   filters and two tails each, split by CUDA events into tile filters /
+   gathers / tails and by a stage timer into the host's encode /
+   dispatch / materialize; targets and errors against the single-device
+   card round on every row, everything against the cpu mesh round on a
+   2 000-row sample, the mesh kernel's ten outputs against the
+   single-device B3 + B4 on the whole batch, and the tile filter on the
+   arguments one round passed it, with its time and bound), one 2 x 3
+   round at the same width (C padded to 5 121) held the same way, and the
+   cell over every card when there are several; that dense
    flagship with the
    Duplicated quarter placed over the whole fleet (packed mask rows); the
    static-weight split of bench.py build_static (100 x 1 000, reason
@@ -141,7 +159,8 @@ result line otherwise. Phases, each of which raises on failure:
 `--only GROUP` builds every kernel, runs one group of phases and prints no
 result line: `kernels` phase 3, `sim` the simulation plane's checks of
 phases 3 and 4, `graft` those of the dense-input program and the scheduler
-shim.
+shim, `mesh` those of the mesh solve (with the single-device dense
+flagship round they are held against).
 """
 from __future__ import annotations
 
@@ -224,6 +243,9 @@ from karmada_tpu_torch.sched.core import (
 from karmada_tpu_torch.server.scheduler_shim import SchedulerShimServer, decision_json
 from karmada_tpu_torch.simulation import Simulator, apply_scenario_objects
 from karmada_tpu_torch.simulation.preflight import QuotaPreflight
+from karmada_tpu_torch.parallel.mesh import Mesh, MeshScheduleKernel, make_mesh
+from karmada_tpu_torch.sched.pipeline import StageTimer
+from karmada_tpu_torch.testing.cpumesh import virtual_mesh
 from karmada_tpu_torch.testing.shim_contract import CONTRACT_CASES
 from karmada_tpu_torch.testing.fixtures import (
     build_estimator,
@@ -296,6 +318,9 @@ GRAFT_ROUNDS = 20  # timed calls of the dense-input program at the flagship
 SHIM_ROUNDS = 5  # timed /v1/scheduleBatch rounds of shim_flagship
 SHIM_SAMPLE = 2048  # shim_flagship rows held against the cpu round
 NARROW_INPUT_SHAPE = (300, 100)  # the dense-input filter's narrow check (C < 128)
+MESH_GRIDS = ((2, 2), (2, 3))  # the tile filter's random cuts; 2 x 3 pads C to a multiple of 3
+MESH_ROUNDS = 10  # timed rounds of mesh_flagship
+MESH_SAMPLE = 2000  # mesh_flagship rows held against the cpu mesh round
 DEVICE = "cuda"
 
 FLEET = ("alive", "capacity", "has_summary", "taint_key", "taint_value", "taint_effect", "api_ok")
@@ -309,6 +334,8 @@ ESTIMATE_ARGS = ("capacity", "has_summary", "req_unique", "req_idx", "replicas",
 FILTER_OUT = ("feasible", "score", "avail", "prev", "tie", "feas_count")
 GRAFT_OUT = ("feasible", "score", "result", "unschedulable", "avail_sum", "avail")
 DENSE_INPUT_OUT = ("feasible", "score", "avail")
+MESH_OUT = ("feasible", "score", "result", "unschedulable", "avail_sum", "avail", "feas_count",
+            "nnz", "top_idx", "top_val")
 GROUP_OUT = ("weight", "value", "avail_sum", "feas_count")
 SPREAD_TAIL_OUT = ("result", "unschedulable", "avail_sum", "feas_count", "nnz", "top_idx",
                    "top_val")
@@ -3695,6 +3722,299 @@ def run_graft_cells(dev, smi, path_launches, results, d_sched, d_bindings, flag)
     run_shim_contract(dev)
 
 
+# --------------------------------------------------------------------------
+# the mesh-sharded solve (B15): the tile filter, and the monolithic mesh
+# round over a virtual mesh of the card (every card when there are several)
+# --------------------------------------------------------------------------
+
+
+def mesh_of(dev, shape) -> Mesh:
+    """A (bindings, clusters) mesh of the given shape, every position `dev`."""
+    grid = np.empty(shape[0] * shape[1], dtype=object)
+    grid[:] = [dev] * grid.size
+    return Mesh(grid.reshape(shape))
+
+
+def random_tile_inputs(seed, dev, B, C, grid):
+    """Seeded full-width filter inputs (random_select_inputs's: tie-heavy,
+    prev / evict ids anywhere in [-2, C + 3) with the sentinel C and a
+    column listed twice, answers with -1s) at B x C, the fleet padded with
+    dead columns to a multiple of the clusters axis Cp (the 2 x 3 cut's
+    tiles are then no multiple of 32 wide), plus a random mask and score;
+    then every (row group, column shard) tile's mesh_tile_filter
+    arguments, the terms as column views of their row-group blocks."""
+    rng = np.random.default_rng(seed)
+    a = dict(zip(FLEET + SELECT_BATCH + ("extra_avail",), random_select_inputs(rng, dev, B, C)))
+    mb, mc = grid
+    Cp = -(-C // mc) * mc
+    if Cp > C:  # dead pad clusters: every fleet field 0 (alive False)
+        pad = Cp - C
+        for n in FLEET:
+            a[n] = torch.cat([a[n], a[n].new_zeros((pad,) + tuple(a[n].shape[1:]))])
+        for n, fill in (("aff_masks", False), ("extra_avail", -1)):
+            a[n] = torch.cat([a[n], a[n].new_full((a[n].shape[0], pad), fill)], 1)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    a["extra_mask"] = torch.rand((B, Cp), device=dev, generator=g) < 0.85
+    a["extra_score"] = torch.randint(-5, 60, (B, Cp), device=dev, generator=g, dtype=torch.int32)
+    Bl, Cl = B // mb, Cp // mc
+    tiles = []
+    for r in range(mb):
+        rows = slice(r * Bl, (r + 1) * Bl)
+        for j in range(mc):
+            cols = slice(j * Cl, (j + 1) * Cl)
+            args = [a[n][cols] for n in FLEET] + [
+                a[n] if n in ("tol_tables", "req_unique") else
+                a[n][:, cols].contiguous() if n == "aff_masks" else a[n][rows]
+                for n in SELECT_BATCH
+            ] + [a[n][rows, cols] for n in ("extra_avail", "extra_mask", "extra_score")]
+            tiles.append((args, {"col0": j * Cl, "plugin_bits": ALL_PLUGIN_BITS}))
+    return tiles
+
+
+def tile_filter_bound(calls, outs):
+    """dense_filter_bound over the tiles of one pass: every input read once
+    (the terms' tile views at their own size), every output written once,
+    and per element the filter chain, the estimate and the tie."""
+    moved, ops = 0, 0
+    for (args, _), o in zip(calls, outs):
+        B, C = args[7].shape[0], args[0].shape[0]
+        T, Kp, Ke, R = args[3].shape[1], args[14].shape[1], args[16].shape[1], args[1].shape[1]
+        moved += nbytes(args) + nbytes(o)
+        ops += B * C * (T + Kp + Ke + 4 * R + 24)
+    return bound(moved, ops)
+
+
+def check_mesh_tile_filter(dev, results, B, C):
+    """Phase 3 for the mesh tile filter: seeded inputs at the dense
+    flagship's B x C cut into each of MESH_GRIDS, every tile against its
+    plain version exactly, with all three terms and with none. Its time on
+    the main path's own arguments comes with the mesh_flagship cell."""
+    err, seen = 0, []
+    for grid in MESH_GRIDS:
+        tiles = random_tile_inputs(70 + sum(grid), dev, B, C, grid)
+        for k, (args, kw) in enumerate(tiles):
+            for terms in (True, False):
+                a = args if terms else args[:-3] + [None, None, None]
+                err = max(err, compare(f"mesh_tile_filter[random {grid}, tile {k}, terms {terms}]",
+                                       kernels._mesh_tile_filter_launch(*a, **kw),
+                                       kernels.mesh_tile_filter_plain(*a, **kw), FILTER_OUT))
+        k_ms = cuda_ms(lambda: [kernels._mesh_tile_filter_launch(*a, **kw) for a, kw in tiles], 5)
+        seen.append(f"{grid} tiles {tiles[0][0][0].shape[0]} wide: one pass {k_ms:.3f} ms")
+        del tiles
+    results["mesh_tile_filter"] = dict(
+        source="karmada_tpu_torch/kernels/csrc/dense_filter.cu",
+        replaces="karmada_tpu/parallel/mesh.py:156", max_abs_err=err, ms=None, plain_ms=None,
+        bound_ms=None, bound_by=None, library_ms=None)
+    log(f"random inputs ({B}x{C} cut into {MESH_GRIDS}, prev / evict ids in other tiles and at "
+        f"the sentinel, answers with -1s, a random mask and score): every mesh_tile_filter "
+        f"tile equals its plain version exactly, with the terms and without; timing with the "
+        f"terms: {'; '.join(seen)}")
+
+
+@contextlib.contextmanager
+def mesh_marks(marks):
+    """CUDA events around the mesh round's kernels: marks[-1] gets
+    ("tile_start", event) and ("tile_end", ...) around each tile filter,
+    ("tail_start", ...) and ("tail_end", ...) around each tail, and
+    ("run_end", ...) when the mesh kernel returns (the row groups
+    concatenated)."""
+    tile, tail, run = kernels.mesh_tile_filter, kernels.dense_tail, MeshScheduleKernel.run
+
+    def record(kind):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks[-1].append((kind, ev))
+
+    def marked_tile(*a, **kw):
+        record("tile_start")
+        out = tile(*a, **kw)
+        record("tile_end")
+        return out
+
+    def marked_tail(*a, **kw):
+        record("tail_start")
+        out = tail(*a, **kw)
+        record("tail_end")
+        return out
+
+    def marked_run(self, *a, **kw):
+        out = run(self, *a, **kw)
+        record("run_end")
+        return out
+
+    kernels.mesh_tile_filter, kernels.dense_tail = marked_tile, marked_tail
+    MeshScheduleKernel.run = marked_run
+    try:
+        yield
+    finally:
+        kernels.mesh_tile_filter, kernels.dense_tail = tile, tail
+        MeshScheduleKernel.run = run
+
+
+def single_device_outputs(sched, batch):
+    """The ten outputs of the single-device solve of a padded batch on the
+    scheduler's device: B3 over every row, then B4 over every row with the
+    mesh's window (the comparison's launches, not counted)."""
+    dev = sched.device
+    t = batch_from_numpy({n: getattr(batch, n) for n in SELECT_BATCH + (
+        "strategy", "fresh", "weight_tables", "weight_idx")}, dev)
+    filt = kernels._dense_filter_launch(
+        *[sched._fleet_dev[n] for n in FLEET], *[t[n] for n in SELECT_BATCH], None,
+        plugin_bits=sched._plugin_bits)
+    feas, score, avail, prev, tie, fc = filt
+    B, C = feas.shape
+    tail = kernels._dense_tail_launch(
+        feas, avail, prev, tie, torch.arange(B, dtype=torch.int32, device=dev),
+        t["weight_tables"], t["weight_idx"], t["strategy"], t["replicas"], t["fresh"],
+        topk=min(C, TOPK_TARGETS), has_agg=bool((batch.strategy == AGGREGATED).any()))
+    result, unsched, avail_sum, nnz, top_idx, top_val = tail
+    return feas, score, result, unsched, avail_sum, avail, fc, nnz, top_idx, top_val
+
+
+def mesh_cell(label, dev, smi, mesh, clusters, bindings, card_decisions, rounds):
+    """One mesh cell: ArrayScheduler(clusters, mesh=mesh, candidate_k=0) in
+    the monolithic mode, a warm round and `rounds` timed ones (launches
+    checked per round; CUDA events split tile filters / gathers / tails on
+    a virtual mesh, a stage timer the host's encode / dispatch /
+    materialize), decisions against the single-device card round on every
+    row (targets and errors: the monolithic round, as the reference's,
+    lists feasible clusters only for non-workload and spread rows) and
+    against the cpu mesh round on a MESH_SAMPLE-row sample (everything),
+    and the mesh kernel's ten outputs against the single-device B3 + B4 on
+    the whole batch. Returns (launches, the scheduler, its padded batch)."""
+    sched = ArrayScheduler(clusters, mesh=mesh, candidate_k=0, device=dev)
+    sched.mesh_partitioned = False
+    virtual = len({str(d) for d in mesh.devices.flat}) == 1
+    n_tiles = mesh.devices.size
+    expect = {"mesh_tile_filter": n_tiles, "dense_tail": mesh.shape["bindings"]}
+    marks, stages = [], []
+
+    def run():
+        marks.append([])
+        timer = StageTimer()
+        with sched.pipeline_context(timer):
+            out = sched.schedule(bindings)
+        stages.append(timer.totals)
+        return out
+
+    ctx = mesh_marks(marks) if virtual else contextlib.nullcontext()
+    with ctx:
+        decisions, launches, times = drive(label, sched, bindings, rounds, expect, smi, run=run)
+    p50 = float(np.percentile(times, 50))
+    split = "not measured (cards of a real mesh run side by side)"
+    if virtual:
+        spans = {k: [] for k in ("total", "tiles", "tails", "between", "concat")}
+        for m in marks[1:]:
+            ev = {k: [e for kk, e in m if kk == k]
+                  for k in ("tile_start", "tile_end", "tail_start", "tail_end", "run_end")}
+            total = ev["tile_start"][0].elapsed_time(ev["run_end"][-1])
+            tiles = sum(a.elapsed_time(b) for a, b in zip(ev["tile_start"], ev["tile_end"]))
+            tails = sum(a.elapsed_time(b) for a, b in zip(ev["tail_start"], ev["tail_end"]))
+            concat = ev["tail_end"][-1].elapsed_time(ev["run_end"][-1])
+            for k, v in (("total", total), ("tiles", tiles), ("tails", tails), ("concat", concat),
+                         ("between", total - tiles - tails - concat)):
+                spans[k].append(v)
+        p = {k: float(np.percentile(v, 50)) for k, v in spans.items()}
+        split = (f"device p50 by CUDA events: {p['total']:.3f} ms from the first tile filter to "
+                 f"the mesh kernel's return = tile filters {p['tiles']:.3f} + shard uploads, "
+                 f"gathers and count sums {p['between']:.3f} + tails {p['tails']:.3f} + the row "
+                 f"groups' concatenation {p['concat']:.3f} ms (virtual: every tile in turn on "
+                 f"one card)")
+    host = {k: float(np.percentile([s.get(k, 0.0) for s in stages[1:]], 50))
+            for k in ("encode", "solve", "materialize")}
+    log(f"{label} breakdown: host p50 encode {host['encode']:.4f} s, dispatch (solve) "
+        f"{host['solve']:.4f} s, materialize (wait + copy back + decode) "
+        f"{host['materialize']:.4f} s of the p50 round {p50:.4f} s; {split}")
+
+    got = [decision_view(d) for d in decisions]
+    want = [decision_view(d) for d in card_decisions]
+    bad = [i for i, (g, w) in enumerate(zip(got, want)) if g[:4] != w[:4]]
+    if len(got) != len(want) or bad:
+        raise AssertionError(f"{label}: {len(bad)} rows differ from the single-device card "
+                             f"round, first {bad[:1]}")
+    rng = np.random.default_rng(9)
+    idx = np.sort(rng.choice(len(bindings), MESH_SAMPLE, replace=False))
+    cpu = ArrayScheduler(clusters, mesh=mesh_of("cpu", tuple(mesh.devices.shape)),
+                         candidate_k=0, device="cpu")
+    cpu.mesh_partitioned = False
+    t0 = time.perf_counter()
+    want = [decision_view(d) for d in cpu.schedule([bindings[i] for i in idx])]
+    cpu_s = time.perf_counter() - t0
+    bad = [int(i) for i, w in zip(idx, want) if got[i] != w]
+    if bad:
+        raise AssertionError(f"{label}: sample rows {bad[:5]} differ from the cpu mesh round")
+    raw = sched.batch_encoder.encode(bindings)
+    batch = sched._pad(raw)
+    mesh_out = sched._mesh_solver()(batch)
+    one = single_device_outputs(sched, batch)
+    B, C = one[0].shape
+    compare(f"{label}[mesh kernel, single-device B3 + B4]",
+            [x[:B, :C] if x.dim() == 2 and k not in (8, 9) else x[:B]
+             for k, x in enumerate(mesh_out)], one, MESH_OUT)
+    placed = sum(1 for d in decisions if d.ok)
+    log(f"{label} ({len(clusters)} clusters x {len(bindings)} bindings, fleet width "
+        f"{len(sched.fleet.names)}, mesh {mesh.shape}{' virtual' if virtual else ''}): "
+        f"{placed} placed; targets and errors equal the single-device card round on every "
+        f"row, every field the cpu mesh round on a {MESH_SAMPLE}-row sample ({cpu_s:.1f} s); "
+        "the mesh kernel's ten outputs equal the single-device B3 + B4 on the whole batch")
+    del mesh_out, one
+    return launches, sched, batch
+
+
+def run_mesh_cells(dev, smi, path_launches, results, clusters, bindings, card_decisions):
+    """mesh_flagship (the dense flagship's bindings over a 2 x 2 virtual
+    mesh of the card), the tile filter on the arguments one of its rounds
+    passes it (captured) with its times and bound, one 2 x 3 round at the
+    same width (C padded to a multiple of 3), and the cell over every card
+    when there are several."""
+    launches, sched, batch = mesh_cell("mesh_flagship", dev, smi, virtual_mesh(4, dev),
+                                       clusters, bindings, card_decisions, MESH_ROUNDS)
+    add_launches(path_launches, launches, ("mesh_tile_filter", "dense_tail"))
+    with captured_launches(["mesh_tile_filter"]) as cap:
+        sched._mesh_solver()(batch)
+    torch.cuda.synchronize()
+    calls = cap["mesh_tile_filter"]
+    err = 0
+    for k, (a, kw) in enumerate(calls):
+        err = max(err, compare(f"mesh_tile_filter[captured mesh_flagship tile {k}]",
+                               kernels._mesh_tile_filter_launch(*a, **kw),
+                               kernels.mesh_tile_filter_plain(*a, **kw), FILTER_OUT))
+    k_ms = cuda_ms(lambda: [kernels._mesh_tile_filter_launch(*a, **kw) for a, kw in calls], 10)
+    k_plain = cuda_ms(lambda: [kernels.mesh_tile_filter_plain(*a, **kw) for a, kw in calls], 1)
+    outs = [kernels._mesh_tile_filter_launch(*a, **kw) for a, kw in calls]
+    tb, tb_by = tile_filter_bound(calls, outs)
+    B, Cp = batch.replicas.shape[0], sched._mesh_kernel.padded_clusters
+    gather_b, _ = bound(2 * 17 * B * Cp, 0)  # the five tile outputs read and written once
+    one = single_device_outputs(sched, batch)
+    tail_b, _ = dense_tail_bound([one[0]], [torch.arange(B, device=dev)],
+                                 batch_from_numpy({"w": batch.weight_tables}, dev)["w"],
+                                 [[one[2], one[3], one[4], one[7], one[8], one[9]]])
+    r = results["mesh_tile_filter"]
+    r.update(max_abs_err=max(r["max_abs_err"], err), ms=k_ms, plain_ms=k_plain, bound_ms=tb,
+             bound_by=tb_by)
+    log(f"mesh_tile_filter on one mesh_flagship round's {len(calls)} tiles (captured, "
+        f"{calls[0][0][7].shape[0]} x {calls[0][0][0].shape[0]} each): equal to the plain version; "
+        f"{k_ms:.3f} ms for the round's tiles (plain {k_plain:.3f}, bound {tb:.4f} {tb_by}); "
+        f"B15's bound per round: tiles {tb:.4f} + gathers {gather_b:.4f} (bytes) + tails "
+        f"{tail_b:.4f} = {tb + gather_b + tail_b:.4f} ms")
+    del calls, cap, outs, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches, _, _ = mesh_cell("mesh_flagship 2x3 (ragged)", dev, smi, mesh_of(dev, (2, 3)),
+                               clusters, bindings, card_decisions, 1)
+    add_launches(path_launches, launches, ("mesh_tile_filter", "dense_tail"))
+    n = torch.cuda.device_count()
+    if n >= 2:
+        launches, _, _ = mesh_cell(f"mesh_flagship over {n} cards", dev, smi, make_mesh(),
+                                   clusters, bindings, card_decisions, MESH_ROUNDS)
+        add_launches(path_launches, launches, ("mesh_tile_filter", "dense_tail"))
+    else:
+        log("mesh_flagship: one card visible; only the virtual meshes ran")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def run_shim_contract(dev):
     """The reference shim contract's cases through the port's shim on the
     card (karmada_tpu_torch/testing/shim_contract.py)."""
@@ -3707,7 +4027,7 @@ def run_shim_contract(dev):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="On-card smoke test of the PyTorch/CUDA port.")
-    ap.add_argument("--only", choices=("kernels", "sim", "graft"),
+    ap.add_argument("--only", choices=("kernels", "sim", "graft", "mesh"),
                     help="build every kernel, run one group of phases, print no result line")
     only = ap.parse_args(sys.argv[1:] if argv is None else argv).only
     if not torch.cuda.is_available():
@@ -3754,12 +4074,23 @@ def main(argv=None) -> int:
         log(f"--only graft: the dense-input filter and the graft and shim cells passed "
             f"(launches {path_launches}); no earlier kernel or cell was run")
         return 0
+    if only == "mesh":
+        path_launches = {}
+        check_mesh_tile_filter(dev, results, shape_bucket(len(d_bindings)),
+                               len(d_sched.fleet.names))
+        d_decisions = d_sched.schedule(d_bindings)
+        del d_sched
+        run_mesh_cells(dev, smi, path_launches, results, d_clusters, d_bindings, d_decisions)
+        log(f"--only mesh: the tile filter and the mesh cells passed (launches "
+            f"{path_launches}); no other kernel or cell was run")
+        return 0
 
     # ---- phase 3: kernels against their plain versions on the card ----
     compact_ms = check_compact_kernels(sched, bindings, dev, results)
     dense_ms = check_dense_kernels(d_sched, d_bindings, dev, results)
     check_dense_input_filter(dev, results, shape_bucket(len(d_bindings)),
                              len(d_sched.fleet.names))
+    check_mesh_tile_filter(dev, results, shape_bucket(len(d_bindings)), len(d_sched.fleet.names))
     # one round each of configs 4, 4b and drain (their bindings are built
     # again in phase 4, so no earlier cell's garbage collections walk them)
     check_spread_kernels(dev, results)
@@ -3795,6 +4126,7 @@ def main(argv=None) -> int:
     hold_against_cpu("dense flagship", d_clusters, d_bindings, decisions)
     run_graft_cells(dev, smi, path_launches, results, d_sched, d_bindings, flag)
     del d_sched
+    run_mesh_cells(dev, smi, path_launches, results, d_clusters, d_bindings, decisions)
 
     w_clusters, w_bindings = build_flagship(dense=True, whole_fleet_dup=True)
     w_sched = ArrayScheduler(w_clusters, device=dev)

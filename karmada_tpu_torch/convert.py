@@ -9,6 +9,9 @@ binding UID (models/batch.py uid_seed), so converted objects make both
 packages solve the same problem. It matches classes by NAME and never
 imports the JAX package.
 
+`mesh_like` builds the port's Mesh with a reference mesh's shape and axis
+names over torch devices.
+
 `batch_from_numpy` turns a BindingBatch's or FleetArrays' numpy tables into
 torch tensors on one device; `schedule_args_from_numpy` does the same for
 the dense-input program's 24 positional arrays (the reference graft
@@ -53,6 +56,24 @@ def from_reference_objects(obj):
     if isinstance(obj, dict):
         return {k: from_reference_objects(v) for k, v in obj.items()}
     return obj
+
+
+def mesh_like(ref_mesh, devices):
+    """The port's `parallel.mesh.Mesh` with `ref_mesh`'s grid shape and
+    axis names (any object with `.devices` and `.axis_names`, such as a
+    `jax.sharding.Mesh`), laid over `devices`: one torch device for every
+    position, or a single device for all of them (a virtual mesh)."""
+    from .parallel.mesh import Mesh
+
+    shape = np.shape(ref_mesh.devices)
+    if isinstance(devices, (str, torch.device)):
+        devices = [devices] * int(np.prod(shape))
+    devices = list(devices)
+    if len(devices) != int(np.prod(shape)):
+        raise ValueError(f"mesh_like: {len(devices)} devices for a {shape} mesh")
+    grid = np.empty(len(devices), dtype=object)
+    grid[:] = devices
+    return Mesh(grid.reshape(shape), tuple(ref_mesh.axis_names))
 
 
 def batch_from_numpy(d, device) -> dict:

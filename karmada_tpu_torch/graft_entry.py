@@ -8,8 +8,9 @@ real workload for it.
 on the device, built from the dense views of a mixed-strategy batch
 (models/batch.py) over a synthetic fleet, as the reference's
 `__graft_entry__.entry()` builds them. The reference's
-`dryrun_multichip` runs the mesh program, which the port has not yet
-(the multi-GPU slice).
+`dryrun_multichip` (the mesh program on virtual devices) is not ported
+yet: it comes with the multi-GPU slice's remaining part; the mesh round
+itself is `ArrayScheduler(mesh=...)` (parallel/mesh.py).
 """
 from __future__ import annotations
 

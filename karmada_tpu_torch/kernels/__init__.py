@@ -81,6 +81,15 @@ filter below, then `dense_tail` over every row):
   [B, R]) with the answer matrix min-merged, every in-tree plugin on;
   the plain version is `dense_input_filter_plain`.
 
+The mesh solve (parallel/mesh.py `MeshScheduleKernel`: the tile filter
+below on every (row group, column shard) tile, the tiles gathered along
+the cluster axis, then `dense_tail` over each row group's full rows):
+- `mesh_tile_filter` (csrc/dense_filter.cu, its fourth entry): the dense
+  filter and estimate over one [B_l, C_l] tile whose first global column
+  is col0 (prev / evict ids global, the tie at the global column), with
+  the answers, mask and score read in place through their row strides;
+  the plain version is `mesh_tile_filter_plain`.
+
 The wide routes, kernels of their own with their own launch counts:
 `candidate_select` past MAX_SELECT_SMEM (`candidate_select_wide`, the
 radix select over a key scratch in csrc/candidate_select.cu) and
@@ -115,6 +124,7 @@ KERNEL_NAMES = (
     "dense_filter", "dense_tail", "pack_rows", "feas_idx", "group_score", "packed_selection",
     "spread_tail", "combo_select", "tier_estimate", "tier_consume", "fleet_estimate",
     "staleness_penalty", "scatter_rows", "sim_filter", "sim_load", "dense_input_filter",
+    "mesh_tile_filter",
 )
 _launch_lock = threading.Lock()
 _launches = dict.fromkeys(KERNEL_NAMES, 0)
@@ -567,6 +577,41 @@ def dense_input_filter_plain(
     )
     avail = torch.where(extra_avail >= 0, torch.minimum(avail, extra_avail), avail)
     return feasible, score, avail
+
+
+def mesh_tile_filter_plain(
+    alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
+    replicas, unknown_request, gvk, tol_tables, tol_idx,
+    aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
+    req_unique, req_idx, extra_avail, extra_mask, extra_score, *, col0: int, plugin_bits: int,
+):
+    """Plain version of the mesh tile-filter kernel (the per-device half of
+    the reference's `_sharded_body`: `decompress_batch(col_offset=col0)`
+    and filter_estimate_phase on the tile, then the terms it applies after
+    its gather). The fleet tensors and `aff_masks` ([P, C_l]) are the
+    tile's column slices; `prev_idx` / `evict_idx` hold GLOBAL column ids
+    (an id outside [col0, col0 + C_l) drops, the Cp sentinel included);
+    `extra_avail` (i32, -1 = no answer), `extra_mask` (bool) and
+    `extra_score` (i32) are None or [B, C_l], views allowed. Returns
+    (feasible bool[B,C_l], score i32, avail i32, prev_replicas i32, tie
+    i32 at the global columns, feas_count i32[B])."""
+    C = alive.shape[0]
+    prev_member, prev_replicas, eviction_ok = core.sparse_rows(
+        prev_idx.long() - col0, prev_rep, evict_idx.long() - col0, C)
+    feasible, score, avail = core.filter_estimate_phase(
+        alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
+        replicas, unknown_request, gvk, tol_tables, tol_idx,
+        aff_masks[aff_idx.long()], eviction_ok, prev_member, req_unique, req_idx,
+        plugin_bits=plugin_bits,
+    )
+    if extra_mask is not None:
+        feasible = feasible & extra_mask
+    if extra_score is not None:
+        score = score + extra_score
+    if extra_avail is not None:
+        avail = torch.where(extra_avail >= 0, torch.minimum(avail, extra_avail), avail)
+    tie = core.tie_at(seeds, col0 + torch.arange(C, device=alive.device)[None, :])
+    return feasible, score, avail, prev_replicas, tie, feasible.sum(-1).to(I32)
 
 
 def sim_load_plain(result, active, request):
@@ -1717,6 +1762,102 @@ def _dense_input_filter_launch(
     )
     _raise_on(rc, "dense_input_filter")
     return feasible, score, avail
+
+
+def _check_rows_view(name: str, t, dtype, shape, device) -> int:
+    """Check a [B, C] operand that may be a column slice of a wider
+    row-major tensor; returns its row stride in elements."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if shape[1] > 1 and t.stride(1) != 1:
+        raise ValueError(f"{name}: columns must be contiguous (stride {t.stride()})")
+    if shape[0] > 1 and t.stride(0) < shape[1]:
+        raise ValueError(f"{name}: row stride {t.stride(0)} below the width {shape[1]}")
+    return t.stride(0)
+
+
+def mesh_tile_filter(
+    alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
+    replicas, unknown_request, gvk, tol_tables, tol_idx,
+    aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
+    req_unique, req_idx, extra_avail, extra_mask, extra_score, *, col0: int, plugin_bits: int,
+):
+    """Filter + estimate + terms over one mesh tile (see
+    mesh_tile_filter_plain for the contract)."""
+    args = (alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
+            replicas, unknown_request, gvk, tol_tables, tol_idx,
+            aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
+            req_unique, req_idx, extra_avail, extra_mask, extra_score)
+    dev = alive.device
+    if dev.type == "cpu":
+        return mesh_tile_filter_plain(*args, col0=col0, plugin_bits=plugin_bits)
+    if dev.type != "cuda":
+        raise ValueError(f"mesh_tile_filter: unsupported device {dev}")
+    out = _mesh_tile_filter_launch(*args, col0=col0, plugin_bits=plugin_bits)
+    _launched("mesh_tile_filter")
+    return out
+
+
+def _mesh_tile_filter_launch(
+    alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
+    replicas, unknown_request, gvk, tol_tables, tol_idx,
+    aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
+    req_unique, req_idx, extra_avail, extra_mask, extra_score, *, col0: int, plugin_bits: int,
+):
+    """Check, allocate and launch mesh_tile_filter_kernel on the tile's
+    device. The terms are read where they lie, through their row
+    strides."""
+    dev = alive.device
+    C, R, T, G, B, Kt, Kp, Ke = _check_filter_args(
+        alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
+        replicas, unknown_request, gvk, tol_tables, tol_idx,
+        aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
+        req_unique, req_idx, None,
+    )
+    if col0 < 0:
+        raise ValueError(f"mesh_tile_filter: col0 {col0} < 0")
+    lds = [
+        0 if t is None else _check_rows_view(name, t, dt, (B, C), dev)
+        for name, t, dt in (("extra_avail", extra_avail, I32), ("extra_mask", extra_mask, BOOL),
+                            ("extra_score", extra_score, I32))
+    ]
+    feasible = torch.empty((B, C), dtype=BOOL, device=dev)
+    score = torch.empty((B, C), dtype=I32, device=dev)
+    avail = torch.empty((B, C), dtype=I32, device=dev)
+    prev = torch.empty((B, C), dtype=I32, device=dev)
+    tie = torch.empty((B, C), dtype=I32, device=dev)
+    feas_count = torch.empty((B,), dtype=I32, device=dev)
+    if B == 0 or C == 0:
+        return feasible, score, avail, prev, tie, feas_count.zero_()
+    from .build import library
+
+    fn = library("dense_filter").mesh_tile_filter_launch
+    fn.restype = ctypes.c_int
+    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = ([vp] * 7 + [ci] * 4 + [vp] * 13 + [ci] * 6 + [vp, ll] * 3 + [vp] * 6
+                   + [vp])
+    with torch.cuda.device(dev):
+        rc = fn(
+            _ptr(alive), _ptr(capacity), _ptr(has_summary), _ptr(taint_key),
+            _ptr(taint_value), _ptr(taint_effect), _ptr(api_ok),
+            C, R, T, G,
+            _ptr(replicas), _ptr(unknown_request), _ptr(gvk), _ptr(tol_tables),
+            _ptr(tol_idx), _ptr(aff_masks), _ptr(aff_idx), _ptr(prev_idx),
+            _ptr(prev_rep), _ptr(evict_idx), _ptr(seeds), _ptr(req_unique),
+            _ptr(req_idx),
+            B, Kt, Kp, Ke, plugin_bits, col0,
+            _ptr(extra_avail), lds[0], _ptr(extra_mask), lds[1], _ptr(extra_score), lds[2],
+            _ptr(feasible), _ptr(score), _ptr(avail), _ptr(prev), _ptr(tie), _ptr(feas_count),
+            _stream(dev),
+        )
+    _raise_on(rc, "mesh_tile_filter")
+    return feasible, score, avail, prev, tie, feas_count
 
 
 def reset_launches() -> None:

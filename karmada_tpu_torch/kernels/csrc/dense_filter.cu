@@ -63,6 +63,27 @@
 // bool masks and the i32 answer and writes 9 bytes (about 0.84 GB at
 // 10240 x 5120).
 //
+// mesh_tile_filter, the fourth entry: the tile filter of the mesh solve.
+// Replaces the per-device half of karmada_tpu/parallel/mesh.py:156
+// `_sharded_body` (decompress_batch with `col_offset`, core.py:363-393,
+// then filter_estimate_phase on the local tile) together with the
+// elementwise terms the reference applies after its all_gather (:208-219:
+// the out-of-tree mask ANDed into feasibility, the score added, the
+// registered-estimator answers min-merged where >= 0). Block b evaluates
+// row b of one [B_l, C_l] tile of the global [Bp, Cp] problem whose first
+// column is col0: the fleet slice and the affinity table's column slice
+// are the tile's own (C = C_l), the prev / evict lists hold GLOBAL column
+// ids and are made tile-local as they are staged in shared memory (an id
+// outside [col0, col0 + C_l), the Cp sentinel included, becomes -1, which
+// no column matches), the tie is splitmix64 at the global column col0 + c,
+// and the three [B_l, C_l] terms are read in place through their row
+// strides (column slices of the row group's [B_l, Cp] blocks; null when
+// absent). Since the terms are elementwise, applying them per tile equals
+// applying them after the gather. It writes feasible, score, avail, prev
+// and tie as [B_l, C_l] and the tile's feasible count per row. Bound by
+// memory bandwidth as dense_filter is: 17 bytes written per element, plus
+// 9 read when all three terms are present.
+//
 // Built by karmada_tpu_torch/kernels/build.py with nvcc for sm_90a and
 // called through the plain C entry points at the bottom (ctypes).
 
@@ -186,6 +207,72 @@ dense_input_filter_kernel(FilterArgs p, uint8_t* feasible, int32_t* score, int32
   }
 }
 
+// The three elementwise terms of a mesh tile, each null or read at
+// (b, c) through its row stride.
+struct TileTerms {
+  const int32_t* extra_avail;  // [B,ld_avail], -1 = no answer
+  const uint8_t* extra_mask;   // [B,ld_mask]
+  const int32_t* extra_score;  // [B,ld_score]
+  int64_t ld_avail, ld_mask, ld_score;
+};
+
+// A global column id made local to the tile [col0, col0 + C): -1 outside.
+__device__ __forceinline__ int32_t tile_local(int32_t id, int col0, int C) {
+  const int64_t v = (int64_t)id - col0;
+  return (v >= 0 && v < C) ? (int32_t)v : -1;
+}
+
+__global__ void __launch_bounds__(kThreads)
+mesh_tile_filter_kernel(FilterArgs p, int col0, TileTerms x, DenseOut o) {
+  extern __shared__ int32_t lists[];
+  int32_t* tol = lists;              // [4*Kt]
+  int32_t* pidx = tol + 4 * p.Kt;    // [Kp]
+  int32_t* prep = pidx + p.Kp;       // [Kp]
+  int32_t* ev = prep + p.Kp;         // [Ke]
+  __shared__ unsigned int count;
+
+  const int b = blockIdx.x;
+  const int32_t* tol_row = p.tol_tables + (int64_t)p.tol_idx[b] * 4 * p.Kt;
+  for (int i = threadIdx.x; i < 4 * p.Kt; i += blockDim.x) tol[i] = tol_row[i];
+  for (int i = threadIdx.x; i < p.Kp; i += blockDim.x) {
+    pidx[i] = tile_local(p.prev_idx[(int64_t)b * p.Kp + i], col0, p.C);
+    prep[i] = p.prev_rep[(int64_t)b * p.Kp + i];
+  }
+  for (int i = threadIdx.x; i < p.Ke; i += blockDim.x) {
+    ev[i] = tile_local(p.evict_idx[(int64_t)b * p.Ke + i], col0, p.C);
+  }
+  if (threadIdx.x == 0) count = 0;
+  __syncthreads();
+
+  const uint64_t seed = p.seeds[b];
+  const int64_t row = (int64_t)b * p.C;
+  unsigned int local = 0;
+  for (int c = threadIdx.x; c < p.C; c += blockDim.x) {
+    const ColEval e = filter_common::eval_col(p, b, c, tol, pidx, prep, ev);
+    const bool feasible =
+        e.feasible && (x.extra_mask == nullptr || x.extra_mask[b * x.ld_mask + c] != 0);
+    int32_t score = e.score;
+    if (x.extra_score != nullptr) {
+      // the reference's int32 add, which wraps
+      score = (int32_t)((uint32_t)score + (uint32_t)x.extra_score[b * x.ld_score + c]);
+    }
+    int32_t avail = filter_common::estimate(p, b, c);
+    if (x.extra_avail != nullptr) {
+      const int32_t a = x.extra_avail[b * x.ld_avail + c];
+      if (a >= 0 && a < avail) avail = a;
+    }
+    o.feasible[row + c] = feasible ? 1 : 0;
+    o.score[row + c] = score;
+    o.avail[row + c] = avail;
+    o.prev[row + c] = e.prev;
+    o.tie[row + c] = filter_common::tie_value(seed, col0 + c);
+    local += feasible ? 1u : 0u;
+  }
+  atomicAdd(&count, local);
+  __syncthreads();
+  if (threadIdx.x == 0) o.feas_count[b] = (int32_t)count;
+}
+
 size_t list_smem(int Kt, int Kp, int Ke) { return 4 * (size_t)(4 * Kt + 2 * Kp + Ke); }
 
 }  // namespace
@@ -295,5 +382,52 @@ extern "C" int dense_input_filter_launch(
   dense_input_filter_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       p, static_cast<uint8_t*>(feasible), static_cast<int32_t*>(score),
       static_cast<int32_t*>(avail));
+  return (int)cudaGetLastError();
+}
+
+// One [B, C] tile of the mesh solve: the tile's fleet slice (C columns),
+// the row group's factored batch of B rows with the affinity table's
+// column slice [P, C], prev / evict ids over the global columns, the
+// tile's first global column col0, and the three terms (each null, with
+// has_* 0, or read through its row stride ld_*).
+extern "C" int mesh_tile_filter_launch(
+    const void* alive, const void* capacity, const void* has_summary,
+    const void* taint_key, const void* taint_value, const void* taint_effect,
+    const void* api_ok, int C, int R, int T, int G,
+    const void* replicas, const void* unknown_request, const void* gvk,
+    const void* tol_tables, const void* tol_idx, const void* aff_masks,
+    const void* aff_idx, const void* prev_idx, const void* prev_rep,
+    const void* evict_idx, const void* seeds, const void* req_unique,
+    const void* req_idx, int B, int Kt, int Kp, int Ke, int plugin_bits, int col0,
+    const void* extra_avail, long long ld_avail, const void* extra_mask, long long ld_mask,
+    const void* extra_score, long long ld_score, void* feasible, void* score, void* avail,
+    void* prev, void* tie, void* feas_count, void* stream) {
+  if (B <= 0 || C <= 0 || col0 < 0) return (int)cudaErrorInvalidValue;
+  const FilterArgs p = filter_common::make_filter_args(
+      alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok, C, R, T, G,
+      replicas, unknown_request, gvk, tol_tables, tol_idx, aff_masks, aff_idx, prev_idx,
+      prev_rep, evict_idx, seeds, req_unique, req_idx, B, Kt, Kp, Ke, plugin_bits, 0, nullptr);
+  TileTerms x;
+  x.extra_avail = static_cast<const int32_t*>(extra_avail);
+  x.extra_mask = static_cast<const uint8_t*>(extra_mask);
+  x.extra_score = static_cast<const int32_t*>(extra_score);
+  x.ld_avail = ld_avail;
+  x.ld_mask = ld_mask;
+  x.ld_score = ld_score;
+  DenseOut o;
+  o.feasible = static_cast<uint8_t*>(feasible);
+  o.score = static_cast<int32_t*>(score);
+  o.avail = static_cast<int32_t*>(avail);
+  o.prev = static_cast<int32_t*>(prev);
+  o.tie = static_cast<int32_t*>(tie);
+  o.feas_count = static_cast<int32_t*>(feas_count);
+  const size_t smem = list_smem(Kt, Kp, Ke);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        mesh_tile_filter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  mesh_tile_filter_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p, col0, x,
+                                                                                    o);
   return (int)cudaGetLastError();
 }

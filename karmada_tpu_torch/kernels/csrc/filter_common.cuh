@@ -1,7 +1,7 @@
 // filter_common.cuh: the per-(row, column) filter, estimate and tie of the
 // schedule rounds, shared by candidate_select.cu and dense_filter.cu so the
-// kernels cannot drift apart (dense_filter.cu's sim_filter and
-// dense_input_filter, and tiers.cu, use it too).
+// kernels cannot drift apart (dense_filter.cu's sim_filter,
+// dense_input_filter and mesh_tile_filter, and tiers.cu, use it too).
 //
 // - eval_col: the in-tree filters (alive, taints against the row's
 //   toleration table row, API enablement, affinity mask, eviction list),

@@ -40,7 +40,15 @@ the round that solved them
 (`schedule_incremental`, `launch_chunk` / `materialize_chunk`), and a
 status-only fleet change re-encodes only the dirty clusters and writes
 their rows into the resident fleet tensors (`set_clusters(...,
-dirty_names)`, the scatter_rows kernel). The mesh is a later slice.
+dirty_names)`, the scatter_rows kernel).
+
+Over a device mesh (`mesh=`, parallel/mesh.py) the monolithic mesh round
+runs (`mesh_partitioned = False`, as the reference's explicit shard_map
+mode): the mesh kernel solves every row (the tile filter on each
+(row group, column shard) tile, the gather along the cluster axis, the
+dense tail over the full rows) and the round decodes its compact outputs,
+the spread overlay reading the gathered rows. The reference's default,
+the partitioned mesh rounds, raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -597,6 +605,17 @@ def resolve_autoshard(override: Optional[bool] = None) -> bool:
     return os.environ.get("KARMADA_TPU_AUTOSHARD", "") not in ("0", "off", "false")
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one (a CUDA device without an index is the
+    current one)."""
+    def norm(d):
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return d
+
+    return norm(a) == norm(b)
+
+
 def _restrict_rows(batch: BindingBatch, rows: list[int], aff_rows: np.ndarray) -> BindingBatch:
     """Row subset of a batch with each row's spread selection folded into
     its affinity mask (`aff_rows`, bool[len(rows), C]: the rows' own
@@ -644,9 +663,14 @@ class ArrayScheduler:
         candidate_k: Optional[int] = None,
         device=None,
         pipeline: Optional[bool] = None,
+        mesh=None,
     ):
         """`device`: None means the CUDA card (RuntimeError without one);
-        "cpu" runs the plain PyTorch path. `plugins`: the `--plugins`
+        "cpu" runs the plain PyTorch path. `mesh`: a parallel.mesh.Mesh;
+        the round then runs on `mesh.devices[0, 0]` (a `device` that
+        differs raises) and the solve over the mesh, in the monolithic
+        mode (set `mesh_partitioned = False`; the partitioned mode, the
+        reference's default, is not ported and raises). `plugins`: the `--plugins`
         enable/disable list (default ["*"]). `candidate_k`: the candidate
         window (None reads KARMADA_TPU_CANDIDATE_K, default 128).
         `pipeline`: chunked rounds run as the software pipeline
@@ -656,7 +680,20 @@ class ArrayScheduler:
         runs them, which measured faster on the card)."""
         from .candidates import resolve_candidate_k
 
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self._mesh_kernel = None
+        # as the reference: mesh rounds default to the partitioned mode
+        # (not ported: the round raises); False selects the monolithic one
+        self.mesh_partitioned = True
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            self.device = mesh.devices[0, 0]
+            if device is not None and not _same_device(resolve_device(device), self.device):
+                raise ValueError(
+                    f"ArrayScheduler: device {device!r} differs from the mesh's first device "
+                    f"{self.device}, on which the round runs"
+                )
         self.encoder = FleetEncoder()
         self.plugin_registry = plugin_mod.PluginRegistry()
         self.enabled_plugins = self.plugin_registry.filter(plugins)
@@ -714,12 +751,14 @@ class ArrayScheduler:
         if dirty_names and self._update_dirty_columns(clusters, dirty_names):
             return
         self.n_real_clusters = len(clusters)
-        pad = (shape_bucket(len(clusters)) if clusters else 0) - len(clusters)
+        pad = self._fleet_width(len(clusters)) - len(clusters)
         if pad > 0:
-            # the fleet axis pads to the shape_bucket lattice with dead
-            # clusters (never Ready ⇒ never feasible ⇒ never decoded), as
-            # the reference does, so every derived table sizes to the
-            # bucketed width and tie values and names line up with it
+            # the fleet axis pads to the shape_bucket lattice (under a
+            # mesh, rounded up to a multiple of the clusters axis) with
+            # dead clusters (never Ready ⇒ never feasible ⇒ never
+            # decoded), as the reference does, so every derived table
+            # sizes to the padded width and tie values and names line up
+            # with it
             from ..api.cluster import Cluster, ClusterSpec
             from ..api.meta import ObjectMeta
 
@@ -744,17 +783,44 @@ class ArrayScheduler:
                 self._region_id[i] = region_ids.setdefault(region, len(region_ids))
         self._region_names = list(region_ids)
         from . import spread_batch
-        from ..convert import batch_from_numpy
 
         self._spread_layout = spread_batch.RegionLayout(
             self._region_id, self._region_names, self._name_rank
         )
         self._layout_dev = self._spread_layout.tensors(self.device)
+        self._place_fleet()
 
-        # the fleet tensors live on the device across rounds, re-uploaded
-        # whole only here
+    def _fleet_width(self, n_real: int) -> int:
+        """Padded fleet width for n_real clusters: the shape_bucket
+        lattice point, rounded up to a multiple of the clusters axis under
+        a mesh. An empty fleet stays empty."""
+        if n_real == 0:
+            return 0
+        width = shape_bucket(n_real)
+        if self.mesh is not None:
+            from ..parallel.mesh import AXIS_CLUSTERS
+
+            width += (-width) % self.mesh.shape[AXIS_CLUSTERS]
+        return width
+
+    def _place_fleet(self) -> None:
+        """Upload the fleet tensors whole to the round's device (they live
+        there across rounds), and refresh the mesh kernel's column shards
+        when it exists."""
+        from ..convert import batch_from_numpy
+
         self._fleet_dev = batch_from_numpy(
             {n: getattr(self.fleet, n) for n in _FLEET_FIELDS}, self.device)
+        if self._mesh_kernel is not None:
+            self._mesh_kernel.set_fleet(self.fleet)
+
+    def _mesh_solver(self):
+        """The mesh kernel, built at first use with the fleet placed."""
+        if self._mesh_kernel is None:
+            from ..parallel.mesh import MeshScheduleKernel
+
+            self._mesh_kernel = MeshScheduleKernel(self.mesh, self.fleet)
+        return self._mesh_kernel
 
     def _update_dirty_columns(self, clusters: list, dirty_names) -> bool:
         """Dirty-column fleet refresh. Applies only when the membership is
@@ -795,6 +861,12 @@ class ArrayScheduler:
         self.batch_encoder.fleet = fleet
         self.batch_encoder.clusters = clusters
         self.batch_encoder.affinity_cache.clusters = clusters
+        if self.mesh is not None:
+            # under a mesh the refreshed tensors are placed whole again (as
+            # the reference re-places its sharded fleet); the host side —
+            # encode_cols, the kept batch encoder — is the same
+            self._place_fleet()
+            return True
         # the dirty rows into the resident tensors, in place, one launch
         from .. import kernels
         from ..convert import batch_from_numpy
@@ -807,8 +879,15 @@ class ArrayScheduler:
 
     def _max_rows_per_round(self, n_cols: int) -> int:
         """Row cap per launched round under the [B,C] budget, floored to a
-        shape_bucket lattice point."""
-        return self._floor_rows(max(8, self.max_bc_elems // max(n_cols, 1)))
+        shape_bucket lattice point. Under a mesh the budget scales by the
+        bindings axis only: the tail's rows are gathered whole, so a
+        clusters-axis split does not shrink their footprint."""
+        scale = 1
+        if self.mesh is not None:
+            from ..parallel.mesh import AXIS_BINDINGS
+
+            scale = self.mesh.shape[AXIS_BINDINGS]
+        return self._floor_rows(max(8, self.max_bc_elems * scale // max(n_cols, 1)))
 
     @staticmethod
     def _floor_rows(cap: int) -> int:
@@ -1102,9 +1181,20 @@ class ArrayScheduler:
     def _launch_once(self, bindings: Sequence, extra_avail=None, term_indices=None) -> dict:
         """Encode + kernel dispatch for one round (no device sync): the
         compact candidate round, or the dense round when `dense_reason`
-        names one."""
+        names one. The monolithic mesh round computes eagerly: its pending
+        carries the finished decisions."""
         from . import candidates as cand_mod
 
+        if self.mesh is not None:
+            if self.mesh_partitioned:
+                raise NotImplementedError(
+                    "ArrayScheduler: the partitioned mesh rounds (the reference's default "
+                    "mesh mode) are not ported yet (ROADMAP queue A item 11, the mesh's "
+                    "remaining part); set mesh_partitioned = False for the monolithic mesh "
+                    "round"
+                )
+            return {"decisions": self._schedule_once_monolithic(
+                bindings, extra_avail, term_indices)}
         self.last_candidate_stats = {}
         reason = cand_mod.dense_reason(self, bindings)
         if reason is None:
@@ -1113,6 +1203,8 @@ class ArrayScheduler:
         return self._launch_once_partitioned(bindings, extra_avail, term_indices)
 
     def _materialize_once(self, pending: dict) -> list[ScheduleDecision]:
+        if "decisions" in pending:
+            return pending["decisions"]
         if pending.get("candidates"):
             from . import candidates as cand_mod
 
@@ -1259,7 +1351,7 @@ class ArrayScheduler:
         )
 
         return {
-            "bindings": bindings, "raw": raw, "t": t, "extra": extra, "cls": cls, "order": order,
+            "bindings": bindings, "raw": raw, "t": t, "extra": extra, "order": order,
             "n_real": n_real, "dev": (dev_feasible, dev_score, dev_avail, dev_prev, dev_tie),
             "dev_fc": dev_fc, "tails": tails, "packed_dev": packed_dev, "midx_dev": midx_dev,
             "mask_rows": mask_rows, "batched_rows": batched_rows, "batched_cfg": batched_cfg,
@@ -1279,7 +1371,7 @@ class ArrayScheduler:
 
     def _materialize_partitioned_inner(self, p: dict) -> list[ScheduleDecision]:
         n_real = p["n_real"]
-        bindings, raw, cls, order = p["bindings"], p["raw"], p["cls"], p["order"]
+        bindings, raw, order = p["bindings"], p["raw"], p["order"]
         tails, mask_rows = p["tails"], p["mask_rows"]
         spread_pre = p["spread_pre"]
         names = self.fleet.names
@@ -1358,6 +1450,17 @@ class ArrayScheduler:
 
         # ---- build decisions, then unpermute ----
         out: list[Optional[ScheduleDecision]] = [None] * n_real
+        for b, dec in enumerate(self._decisions(raw, feas_count, unsched, avail_sum, row_err,
+                                                row_target_src, row_feas_src)):
+            out[int(order[b])] = dec
+        return out
+
+    def _decisions(self, raw: BindingBatch, feas_count, unsched, avail_sum, row_err,
+                   row_target_src, row_feas_src) -> list[ScheduleDecision]:
+        """A round's decisions in its batch's row order, from the decode
+        overlays: an error (the row's own, the FitError diagnosis, or too
+        few available replicas) before any targets."""
+        out = []
         for b, key in enumerate(raw.keys):
             dec = ScheduleDecision(key=key)
             if b in row_feas_src:
@@ -1380,10 +1483,9 @@ class ArrayScheduler:
                 # would look like a successful no-op placement
                 raise AssertionError(
                     "schedule round produced no decode source for live row "
-                    f"{key!r} (class {int(cls[b])}, strategy "
-                    f"{int(raw.strategy[b])})"
+                    f"{key!r} (strategy {int(raw.strategy[b])})"
                 )
-            out[int(order[b])] = dec
+            out.append(dec)
         return out
 
     @staticmethod
@@ -1646,11 +1748,16 @@ class ArrayScheduler:
         feasibility; pad rows keep theirs. `extra_avail` (i32[rows, c], or
         None) are the rows' estimator answers. Returns the device
         (feasible, result, unschedulable, avail_sum), rows padded to the
-        bucket."""
+        bucket (under a monolithic mesh, the mesh kernel's outputs, rows
+        and columns padded to the mesh)."""
         from .. import kernels
         from ..convert import batch_from_numpy
 
         padded = self._pad(batch)
+        if self.mesh is not None and not self.mesh_partitioned:
+            out = self._mesh_solver()(padded, extra_avail, extra_mask=extra_mask,
+                                      plugin_bits=self._plugin_bits)
+            return out[0], out[2], out[3], out[4]
         t = batch_from_numpy({name: getattr(padded, name) for name in _BATCH_FIELDS}, self.device)
         mask_dev = None
         if extra_mask is not None:
@@ -1674,6 +1781,83 @@ class ArrayScheduler:
             topk=min(feas.shape[1], 8), has_agg=bool((batch.strategy == AGGREGATED).any()),
         )
         return feas, result, unsched, avail_sum
+
+    def _schedule_once_monolithic(self, bindings: Sequence, extra_avail=None,
+                                  term_indices=None) -> list[ScheduleDecision]:
+        """One round through the mesh kernel (the reference's
+        `_schedule_once_monolithic`): encode and pad the batch, solve every
+        row over the mesh, fetch the compact outputs in one sync, run the
+        spread overlay on the gathered rows, fetch the rows whose targets
+        outran the window and the feasible lists of non-workload rows, and
+        decode in the bindings' order."""
+        from ..convert import batch_from_numpy
+
+        n_real = len(bindings)
+        if n_real == 0:
+            return []
+        names = self.fleet.names
+        batched_rows, batched_cfg, fallback_rows = self._classify_spread(bindings)
+        with stage_span("encode", self.stage_timer):
+            with self._encode_lock:
+                raw = self.batch_encoder.encode(bindings, term_indices=term_indices)
+            batch = self._pad(raw)
+        n_rows = len(batch.replicas)
+        with stage_span("solve", self.stage_timer):
+            outs, dev_prev, dev_tie = self._mesh_solver().run(
+                batch, extra_avail, plugin_bits=self._plugin_bits)
+            # the batch's rows of the mesh outputs (the fleet is already
+            # mesh-wide: _fleet_width), contiguous row slices
+            dev_feasible, dev_score, dev_result, dev_avail, dev_prev, dev_tie = (
+                x[:n_rows] for x in (outs[0], outs[1], outs[2], outs[5], dev_prev, dev_tie))
+            t = batch_from_numpy({n: getattr(batch, n) for n in ("strategy", "replicas", "fresh")},
+                                 self.device)
+            spread_pre = self._spread_prelaunch(
+                bindings, raw, extra_avail, batched_rows, batched_cfg,
+                dev_feasible, dev_score, dev_avail, dev_prev)
+        with stage_span("materialize", self.stage_timer):
+            host = [x.cpu().numpy() for x in outs[3:5] + outs[6:]]
+            if spread_pre is not None:
+                spread_pre["wvf_host"] = [x.cpu().numpy() for x in spread_pre["wvf"]]
+            unsched, avail_sum, feas_count, nnz, top_idx, top_val = host
+            unsched = unsched[:n_real].copy()
+            avail_sum = avail_sum[:n_real].astype(np.int64)
+            feas_count = feas_count[:n_real].astype(np.int64)
+            row_err: dict[int, str] = {}
+            row_target_src: dict[int, tuple] = {}
+            row_feas_src: dict[int, tuple] = {}
+            self._spread_overlay(
+                {"bindings": bindings, "raw": raw, "t": t, "extra": extra_avail,
+                 "batched_rows": batched_rows, "batched_cfg": batched_cfg,
+                 "fallback_rows": fallback_rows, "spread_pre": spread_pre,
+                 "dev": (dev_feasible, dev_score, dev_avail, dev_prev, dev_tie)},
+                feas_count, unsched, avail_sum, row_err, row_target_src, row_feas_src,
+            )
+            Kw = top_idx.shape[1]
+            ti_sorted, tv_sorted = _sorted_pairs(top_idx, top_val)
+            overflow = [b for b in range(n_real)
+                        if b not in row_target_src and nnz[b] > Kw
+                        and raw.strategy[b] != NON_WORKLOAD]
+            if overflow:
+                o_res = fetch_rows(dev_result, overflow, self._bucket)
+                for k, b in enumerate(overflow):
+                    pos = np.nonzero(o_res[k] > 0)[0]
+                    row_target_src[b] = ("pairs", names, pos, o_res[k, pos].astype(np.int64))
+            nonwork = [b for b in range(n_real)
+                       if raw.strategy[b] == NON_WORKLOAD and b not in row_feas_src
+                       and feas_count[b] > 0]
+            if nonwork:
+                nw_feas = fetch_rows(dev_feasible, nonwork, self._bucket)
+                for k, b in enumerate(nonwork):
+                    fidx = np.nonzero(nw_feas[k])[0]
+                    row_feas_src[b] = ("idx", names, fidx)
+                    row_target_src[b] = ("pairs", names, fidx, np.zeros(len(fidx), np.int64))
+            # every other row's targets are its compact window
+            for b in range(n_real):
+                if b not in row_target_src:
+                    n = int(nnz[b])
+                    row_target_src[b] = ("pairs", names, ti_sorted[b, :n], tv_sorted[b, :n])
+            return self._decisions(raw, feas_count, unsched, avail_sum, row_err, row_target_src,
+                                   row_feas_src)
 
     def _classify_spread(self, bindings) -> tuple[list[int], dict, list[int]]:
         """Split spread-constrained rows into the batched path and the

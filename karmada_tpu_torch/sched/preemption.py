@@ -424,6 +424,12 @@ def launch_tiered(array: ArrayScheduler, bindings: Sequence, extra_avail=None,
     standard round inside the same pending. `extra_avail`: None, or the
     estimator answers i32[len(bindings), c] (EstimatorRegistry.
     batch_estimates), split over the two row sets."""
+    if array.mesh is not None:
+        raise NotImplementedError(
+            "launch_tiered: tiered rounds over a mesh run partitioned in the reference; the "
+            "partitioned mesh rounds are not ported yet (ROADMAP queue A item 11, the mesh's "
+            "remaining part)"
+        )
     bindings = list(bindings)
     if extra_avail is not None:
         extra_avail = np.asarray(extra_avail, np.int32)
