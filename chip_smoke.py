@@ -1,6 +1,6 @@
 """On-card smoke test of the PyTorch/CUDA port (karmada_tpu_torch).
 
-    python3 chip_smoke.py [--only kernels|sim|graft|mesh]
+    python3 chip_smoke.py [--only kernels|sim|graft|mesh|tiers]
 
 Needs one CUDA card (an H100 is the target) and nvcc; exits non-zero with no
 result line otherwise. Phases, each of which raises on failure:
@@ -21,12 +21,17 @@ result line otherwise. Phases, each of which raises on failure:
    combination table, then select_regions_batch through it against its
    host path); dense_filter also with a random extra_mask; the tier
    kernels (tier_estimate, tier_consume) on seeded inputs at the flagship
-   shapes in both modes and on the arguments one round of each tier cell
-   passes them; with each kernel's time, its plain version's time, its
-   bound and, for feas_idx and tier_consume, the time of the one torch
-   call that computes the same function — the spread kernels' per round
-   of config 4 (of the drain cell for combo_select), the tier kernels'
-   per round of tiers_dense; candidate_select, dense_filter and
+   shapes in both modes, tier_consume also at its edge shapes (5 121
+   columns, one and sixteen resources, one row, every row unschedulable,
+   a hot column, K = 256, a placed matrix off a 16-byte boundary), and on
+   the arguments one round of each tier cell passes them; with each
+   kernel's time, its plain version's time, its bound and, for feas_idx
+   and tier_consume, the time of the one torch call that computes the
+   same function — the spread kernels' per round of config 4 (of the
+   drain cell for combo_select), the tier kernels' per round of
+   tiers_dense, tier_consume's window mode (a kernel of its own in the
+   result line) per round of tiers_compact, each tier_consume mode also
+   with its device time under torch.profiler; candidate_select, dense_filter and
    tier_estimate also with a random registered-estimator answer matrix
    (extra_avail) on the flagship batches; fleet_estimate on seeded node
    fleets (overcommitted nodes, zero requests, exhausted pod slots,
@@ -122,9 +127,12 @@ result line otherwise. Phases, each of which raises on failure:
    (bench.py build_degraded: a breaker open every other round, the
    staleness overlay feeding the round, launch parity between the legs)
    and tiers_estimator (the tiers_compact batch with answers through
-   launch_tiered, a speculative pass in every tier), 20 rounds each;
-   answer matrices held against the per-cluster host path, decisions
-   against the CPU round given the same answers; then the chunk surface:
+   launch_tiered, a speculative pass in every tier; one round's
+   tier_estimate and tier_consume launches held against their plain
+   versions, tier_consume's timed as in phase 3), 20 rounds each, the
+   profiled round's device time also by event; answer matrices held
+   against the per-cluster host path, decisions against the CPU round
+   given the same answers; then the chunk surface:
    churn (BASELINE config 5, bench.py build_churn: 5 000 x 10 000, every
    binding with previous placements, schedule()), churn_incremental
    (config 5b: 5 % of the bindings dirtied per round,
@@ -160,7 +168,8 @@ result line otherwise. Phases, each of which raises on failure:
 result line: `kernels` phase 3, `sim` the simulation plane's checks of
 phases 3 and 4, `graft` those of the dense-input program and the scheduler
 shim, `mesh` those of the mesh solve (with the single-device dense
-flagship round they are held against).
+flagship round they are held against), `tiers` the tier kernels' checks of
+phase 3.
 """
 from __future__ import annotations
 
@@ -170,6 +179,7 @@ import copy
 import functools
 import gc
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -638,7 +648,8 @@ def tier_expect(sched, bindings, placed, compact: bool, has_extra: bool = False)
     (compact) once; a tail per tier and per speculative pass (the tiers
     whose reclaim is non-zero, or every tier when estimator answers are
     present: the pass leaves them out); an estimate per tier after the
-    first and per speculative pass; a consumption between tiers."""
+    first and per speculative pass; a consumption between tiers (the
+    window mode's count in the compact round)."""
     reclaim, _armed = preemption._tier_reclaim(sched, bindings, placed)
     tier_of, _ = preemption._tier_assignment(bindings)
     n_tiers = int(tier_of.max()) + 1
@@ -647,7 +658,7 @@ def tier_expect(sched, bindings, placed, compact: bool, has_extra: bool = False)
     first, tail = ("candidate_select", "candidate_tail") if compact else (
         "dense_filter", "dense_tail")
     return {first: 1, tail: n_tiers + spec, "tier_estimate": n_tiers - 1 + spec,
-            "tier_consume": n_tiers - 1}
+            "tier_consume_window" if compact else "tier_consume": n_tiers - 1}
 
 
 # the tier cells of phase 4: (name, build_tiers' duplicated flag, compact)
@@ -1565,7 +1576,25 @@ def check_spread_kernels(dev, results):
                           ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None)
 
 
+# the launch wrappers the tier checks capture, and the launch counts of the
+# tier cells (tier_consume counts its window mode apart)
 TIER_KERNELS = ("tier_estimate", "tier_consume")
+TIER_COUNTS = ("tier_estimate", "tier_consume", "tier_consume_window")
+# tier_consume's mode in each tier cell: its kernel name and the reference
+# line it replaces
+CONSUME_MODES = {"tiers_dense": ("tier_consume", "karmada_tpu/sched/preemption.py:125"),
+                 "tiers_compact": ("tier_consume_window", "karmada_tpu/sched/candidates.py:770")}
+TIER_TIMING_REPS = 20  # rounds per CUDA-event window of the tier timings
+# tier_consume's edge inputs on the card: (label, C, R, n, K)
+TIER_CONSUME_EDGES = (
+    ("C = 5 121", 5121, 4, 2560, 128),
+    ("R = 1", 5120, 1, 2560, 128),
+    ("R = 16, C = 5 121", 5121, 16, 700, 256),
+    ("one row", 5120, 4, 1, 128),
+    ("all unscheduled", 5120, 4, 2560, 128),
+    ("hot column", 5121, 4, 2560, 256),
+    ("unaligned placed", 5120, 4, 2560, 128),
+)
 
 
 def tier_estimate_work(args, kw, outs):
@@ -1636,15 +1665,161 @@ def random_tier_inputs(rng, dev, B, C, R, n, K):
     return batch_from_numpy(d, dev)
 
 
+def tier_consume_edge_inputs(rng, dev, label, C, R, n, K):
+    """Seeded tier_consume inputs at one edge shape, for both modes:
+    memory-sized requests in the last resource (sums past 2**53),
+    capacities the clamp zeroes and negative ones; "all unscheduled"
+    flags every row, "hot column" places every row on the last column
+    (in every window too), "unaligned placed" hands the dense placed
+    matrix over as a view 4 bytes past an aligned address."""
+    B = n + 64
+    cap = rng.integers(0, 1 << 58, (C, R)).astype(np.int64)
+    cap[::3, 0] = rng.integers(0, 500, len(cap[::3]))
+    cap[::11, -1] = -rng.integers(1, 1000, len(cap[::11]))
+    request = rng.integers(0, 3000, (B, R)).astype(np.int64)
+    request[:, -1] = rng.integers(1 << 40, 1 << 41, B)
+    cand = np.sort(rng.choice(C, (B, K)), axis=1).astype(np.int32)
+    placed = np.where(rng.random((n, C)) < 0.05, rng.integers(1, 4, (n, C)), 0).astype(np.int32)
+    placed_k = np.where(rng.random((n, K)) < 0.3, rng.integers(1, 9, (n, K)), 0).astype(np.int32)
+    unsched = rng.random(n) < 0.1
+    if label == "all unscheduled":
+        unsched[:] = True
+    if label == "hot column":
+        placed[:] = 0
+        placed[:, -1] = rng.integers(1, 9, n)
+        cand[:, -1] = C - 1
+        placed_k[:] = 0
+        placed_k[:, -1] = rng.integers(1, 9, n)
+    d = batch_from_numpy({"cap": cap, "placed": placed, "placed_k": placed_k, "unsched": unsched,
+                          "request": request, "rows": rng.permutation(B)[:n].astype(np.int32),
+                          "cand_idx": cand}, dev)
+    if label == "unaligned placed":
+        buf = torch.empty(n * C + 1, dtype=torch.int32, device=dev)
+        d["placed"] = buf[1:].view(n, C).copy_(d["placed"])
+    return d
+
+
+def _short_event(name: str) -> str:
+    """A device event's name without `void`, namespaces and arguments."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    depth, cut = 0, len(name)
+    for i, ch in enumerate(name):
+        depth += ch == "<"
+        depth -= ch == ">"
+        if ch == "(" and depth == 0:
+            cut = i
+            break
+    return re.sub(r"\b\w+::", "", name[:cut])[:60]
+
+
+def profiled_calls_ms(fn, reps):
+    """Device time per call of fn() over `reps` calls under torch.profiler
+    (after one call outside it): (total ms, {event name: ms})."""
+    fn()
+    torch.cuda.synchronize()
+    by = {k: us / 1e3 / reps
+          for k, us in device_events_us(lambda: [fn() for _ in range(reps)]).items()}
+    return sum(by.values()), by
+
+
+def host_enqueue_ms(fn, reps):
+    """Host time per call of fn() with no synchronisation in the window:
+    how fast the host enqueues the calls."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def _events_text(by, top=None) -> str:
+    """Events and their ms, the longest first (the `top` longest)."""
+    return ", ".join(f"{k} {v:.4f}"
+                     for k, v in sorted(by.items(), key=lambda kv: -kv[1])[:top])
+
+
+def consume_spread(args, kw):
+    """(nonzero placed entries, distinct columns they land on, the most
+    entries on one column) of one captured tier_consume call: the window
+    mode's atomics contend on the hottest columns."""
+    nz = args[1] != 0
+    if kw.get("cand_idx") is None:
+        per_col = nz.sum(0)
+    else:
+        cols = kw["cand_idx"].index_select(0, args[4].long())[nz]
+        per_col = torch.bincount(cols.long(), minlength=args[0].shape[0])
+    return int(nz.sum()), int((per_col > 0).sum()), int(per_col.max())
+
+
+def tier_timing(n, cs):
+    """(ms, plain ms, bound ms, bound_by) per round of kernel n's captured
+    calls cs (CUDA events)."""
+    outs = run_calls(n, cs, fresh_out=False)
+    moved, ops = map(sum, zip(*(TIER_WORK[n](a, kw, o) for (a, kw), o in zip(cs, outs))))
+    b, by = bound(moved, ops)
+    ms = cuda_ms(lambda: run_calls(n, cs, fresh_out=False), TIER_TIMING_REPS)
+    plain = cuda_ms(lambda: run_calls(n, cs, plain=True, fresh_out=False), 3)
+    return ms, plain, b, by
+
+
+def consume_timing(cs, dev):
+    """tier_consume per round of one cell's captured calls cs (one mode):
+    tier_timing's numbers, the library call's time (torch.mm in float64
+    for the dense mode, exact only below 2**53; index_add_ for the window
+    mode), the device time under the profiler (also by event) and the
+    library call's, and the host's enqueue time of each. Returns
+    (the numbers as the result line keys them, a log fragment)."""
+    ms, plain, b, by = tier_timing("tier_consume", cs)
+    if cs[0][1].get("cand_idx") is None:
+        pq = [(a[1].double(), a[3].index_select(0, a[4].long()).double()) for a, _ in cs]
+
+        def lib_call():
+            return [torch.mm(p.t(), q) for p, q in pq]
+        what = "torch.mm in float64"
+    else:
+        cv = []
+        for a, kw in cs:
+            req = a[3].index_select(0, a[4].long())
+            cols = kw["cand_idx"].index_select(0, a[4].long()).reshape(-1).long()
+            cv.append((cols, (a[1].long()[:, :, None] * req[:, None, :]).reshape(-1,
+                                                                             req.shape[1])))
+        C, R = cs[0][0][0].shape
+
+        def lib_call():
+            return [torch.zeros((C, R), dtype=torch.int64, device=dev).index_add_(0, c, v)
+                    for c, v in cv]
+        what = "index_add_"
+    lib = cuda_ms(lib_call, TIER_TIMING_REPS)
+    total, by_event = profiled_calls_ms(lambda: run_calls("tier_consume", cs, fresh_out=False),
+                                        TIER_TIMING_REPS)
+    lib_device, _ = profiled_calls_ms(lib_call, TIER_TIMING_REPS)
+    host = host_enqueue_ms(lambda: run_calls("tier_consume", cs, fresh_out=False),
+                           TIER_TIMING_REPS)
+    lib_host = host_enqueue_ms(lib_call, TIER_TIMING_REPS)
+    numbers = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
+                   device_ms=total)
+    return numbers, (
+        f"tier_consume {ms:.4f} ms (plain {plain:.4f}, bound {b:.4f} {by}); its library call "
+        f"({what}) {lib:.4f} ms; tier_consume device {total:.4f} ms under the profiler "
+        f"({_events_text(by_event)}), the library call's {lib_device:.4f} ms; host enqueue "
+        f"{host:.4f} ms, the library call's {lib_host:.4f} ms")
+
+
 def check_tier_kernels(dev, results):
     """Phase 3 for the tier kernels (B11, B12's per-tier pieces): on seeded
-    inputs at the flagship shapes in both modes, then on the arguments one
-    round of each tier cell passes them (captured at launch), with their
-    time, plain time and bound per round and, for tier_consume, the
-    library call's time (torch.mm in float64 for the dense cell, exact
-    only below 2**53; index_add_ for the compact one)."""
+    inputs at the flagship shapes in both modes, tier_consume also at its
+    edge shapes (TIER_CONSUME_EDGES), then on the arguments one round of
+    each tier cell passes them (captured at launch), with their time, plain
+    time and bound per round; tier_consume per mode (dense in tiers_dense,
+    window in tiers_compact) also with its device time under the profiler
+    by event, the host's enqueue time, and the library call's time
+    (consume_timing). tiers_estimator's round is held and timed in its
+    cell (run_tiers_estimator_cell), where its answers are built."""
     rng = np.random.default_rng(4)
-    errs = dict.fromkeys(TIER_KERNELS, 0)
+    errs = dict.fromkeys(TIER_COUNTS, 0)
     B, C, K = shape_bucket(N_BINDINGS), shape_bucket(N_CLUSTERS), 128
     d = random_tier_inputs(rng, dev, B, C, 4, B // 4, K)
     est = [d[k] for k in ESTIMATE_ARGS] + [d["rows"]]
@@ -1666,14 +1841,29 @@ def check_tier_kernels(dev, results):
                                    [kernels._tier_consume_launch(*con)],
                                    [kernels.tier_consume_plain(*con)], ("cap",))
     con_k = (d["consume_cap"], d["placed_k"], d["unsched"], d["request"], d["rows"])
-    errs["tier_consume"] = max(errs["tier_consume"], compare(
+    errs["tier_consume_window"] = compare(
         "tier_consume[random, window]",
         [kernels._tier_consume_launch(*con_k, cand_idx=d["cand_idx"])],
-        [kernels.tier_consume_plain(*con_k, cand_idx=d["cand_idx"])], ("cap",)))
+        [kernels.tier_consume_plain(*con_k, cand_idx=d["cand_idx"])], ("cap",))
     log(f"random inputs ({B}x{C}, {B // 4} tier rows, window {K}): tier_estimate (with and "
         "without a random extra_avail) and tier_consume equal their plain versions exactly in "
         "both modes")
     del d, est, con, con_k
+    for label, C, R, n, K in TIER_CONSUME_EDGES:
+        e = tier_consume_edge_inputs(rng, dev, label, C, R, n, K)
+        con = (e["cap"], e["placed"], e["unsched"], e["request"], e["rows"])
+        errs["tier_consume"] = max(errs["tier_consume"], compare(
+            f"tier_consume[{label}, dense]", [kernels._tier_consume_launch(*con)],
+            [kernels.tier_consume_plain(*con)], ("cap",)))
+        con = (e["cap"], e["placed_k"], e["unsched"], e["request"], e["rows"])
+        errs["tier_consume_window"] = max(errs["tier_consume_window"], compare(
+            f"tier_consume[{label}, window K = {K}]",
+            [kernels._tier_consume_launch(*con, cand_idx=e["cand_idx"])],
+            [kernels.tier_consume_plain(*con, cand_idx=e["cand_idx"])], ("cap",)))
+    log("edge inputs (" + "; ".join(f"{label}: C {C}, R {R}, n {n}, K {K}"
+                                   for label, C, R, n, K in TIER_CONSUME_EDGES)
+        + "): tier_consume equals its plain version exactly in both modes")
+    del e, con
 
     captured = {}
     for cell, duplicated, compact in TIER_CELLS:
@@ -1684,58 +1874,44 @@ def check_tier_kernels(dev, results):
             tier_round(sched, bindings, placed)
         torch.cuda.synchronize()
         got = {n: len(c) for n, c in calls.items()}
-        if got != {n: expect[n] for n in TIER_KERNELS}:
-            raise AssertionError(f"{cell}: one round launched {got}, expected {expect}")
+        want = {"tier_estimate": expect["tier_estimate"],
+                "tier_consume": expect.get("tier_consume", 0)
+                + expect.get("tier_consume_window", 0)}
+        if got != want:
+            raise AssertionError(f"{cell}: one round launched {got}, expected {want}")
+        spread = [consume_spread(a, kw) for a, kw in calls["tier_consume"]]
         rows = {}
         for n, cs in calls.items():
+            name = CONSUME_MODES[cell][0] if n == "tier_consume" else n
             for i, (g, w) in enumerate(zip(run_calls(n, cs), run_calls(n, cs, plain=True))):
-                errs[n] = max(errs[n], compare(f"{n}[{cell} round, call {i}]", g, w, (n,)))
+                errs[name] = max(errs[name], compare(f"{name}[{cell} round, call {i}]", g, w,
+                                                     (n,)))
             rows[n] = [int(args[-1].shape[0]) for args, _ in cs]
-        log(f"{cell}: one round's tier launches (rows per call {rows}) equal their plain "
-            "versions exactly on the main path's own arguments")
+        log(f"{cell}: one round's tier launches (rows per call {rows}, C x R "
+            f"{tuple(calls['tier_consume'][0][0][0].shape)}, tier_consume's nonzero placed "
+            "entries, the distinct columns they land on and the most on one column per call "
+            f"{spread}) equal their plain versions exactly on the main path's own arguments")
         captured[cell] = calls
         del sched, clusters, bindings, placed
 
     timing = {}
     for cell, calls in captured.items():
-        parts = []
-        for n, cs in calls.items():
-            outs = run_calls(n, cs, fresh_out=False)
-            moved, ops = map(sum, zip(*(TIER_WORK[n](a, kw, o)
-                                        for (a, kw), o in zip(cs, outs))))
-            b, by = bound(moved, ops)
-            ms = cuda_ms(lambda: run_calls(n, cs, fresh_out=False), 10)
-            plain = cuda_ms(lambda: run_calls(n, cs, plain=True, fresh_out=False), 3)
-            timing[(cell, n)] = (ms, plain, b, by)
-            parts.append(f"{n} {ms:.4f} ms (plain {plain:.4f}, bound {b:.4f} {by})")
-        cs = calls["tier_consume"]
-        if cell == "tiers_dense":
-            pq = [(a[1].double(), a[3].index_select(0, a[4].long()).double()) for a, _ in cs]
-            lib = cuda_ms(lambda: [torch.mm(p.t(), q) for p, q in pq], 10)
-            what = "torch.mm in float64"
-        else:
-            cv = []
-            for a, kw in cs:
-                req = a[3].index_select(0, a[4].long())
-                cols = kw["cand_idx"].index_select(0, a[4].long()).reshape(-1).long()
-                cv.append((cols, (a[1].long()[:, :, None] * req[:, None, :]).reshape(-1,
-                                                                                 req.shape[1])))
-            C_, R_ = cs[0][0][0].shape
-            lib = cuda_ms(lambda: [torch.zeros((C_, R_), dtype=torch.int64, device=dev)
-                                   .index_add_(0, c, v) for c, v in cv], 10)
-            what = "index_add_"
-        timing[(cell, "library")] = lib
-        log(f"timing ({cell} round, the main path's arguments, per round): " + "; ".join(parts)
-            + f"; tier_consume's library call ({what}) {lib:.4f} ms")
+        ms, plain, b, by = timing[(cell, "tier_estimate")] = tier_timing(
+            "tier_estimate", calls["tier_estimate"])
+        timing[cell], text = consume_timing(calls["tier_consume"], dev)
+        log(f"timing ({cell} round, the main path's arguments, per round): tier_estimate "
+            f"{ms:.4f} ms (plain {plain:.4f}, bound {b:.4f} {by}); {text}")
     del captured
     torch.cuda.empty_cache()
     csrc = "karmada_tpu_torch/kernels/csrc/tiers.cu"
-    for n in TIER_KERNELS:
-        ms, plain, b, by = timing[("tiers_dense", n)]
-        results[n] = dict(source=csrc, replaces="karmada_tpu/sched/preemption.py:125",
-                          max_abs_err=errs[n], ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-                          library_ms=timing[("tiers_dense", "library")]
-                          if n == "tier_consume" else None)
+    ms, plain, b, by = timing[("tiers_dense", "tier_estimate")]
+    results["tier_estimate"] = dict(
+        source=csrc, replaces="karmada_tpu/sched/preemption.py:125",
+        max_abs_err=errs["tier_estimate"], ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+        library_ms=None)
+    for cell, (name, replaces) in CONSUME_MODES.items():
+        results[name] = dict(source=csrc, replaces=replaces, max_abs_err=errs[name],
+                             **timing[cell])
 
 
 # --------------------------------------------------------------------------
@@ -1934,11 +2110,12 @@ def estimator_breakdown(label, registry, est, bindings, names, run_round, p50):
         t2 = time.perf_counter()
     finally:
         del est.max_available_replicas_rows
-    kernel_ms = profiled_device_ms(None, None, lambda: run_round(
-        registry.batch_estimates(bindings, names)))
-    share = "not measured" if kernel_ms is None else (
+    by = device_events_us(lambda: run_round(registry.batch_estimates(bindings, names)))
+    kernel_ms = sum(by.values()) / 1e3
+    share = "not measured" if kernel_ms <= 0 else (
         f"{kernel_ms / 1e3:.4f} s = {kernel_ms / 1e3 / p50:.3f} of the p50 round (device busy "
-        "share, torch.profiler, one round)")
+        "share, torch.profiler, one round; ms by event: "
+        f"{_events_text({k: us / 1e3 for k, us in by.items()}, top=8)})")
     log(f"{label} round breakdown: sweep (request upload + fleet_estimate + copy back) "
         f"{spans['sweep']:.4f} s, host merge {t1 - t0 - spans['sweep']:.4f} s, round given the "
         f"answers (upload + launch + decode) {t2 - t1:.4f} s; kernel time per round {share}")
@@ -2091,8 +2268,8 @@ def run_tiers_estimator_cell(dev, smi, path_launches, flag, results):
     through launch_tiered: every tier's main pass min-merges them, the
     speculative pass runs in every tier without them (a zero-reclaim armed
     tier included); decisions and speculative decisions held against the
-    CPU round, one round's tier_estimate launches against their plain
-    version."""
+    CPU round, one round's tier_estimate and tier_consume launches against
+    their plain versions, the latter also timed (consume_timing)."""
     clusters, bindings, placed = build_tiers(duplicated=False)
     names = [c.name for c in clusters]
     est = MemberEstimators(flag["members"], device=dev)
@@ -2114,14 +2291,13 @@ def run_tiers_estimator_cell(dev, smi, path_launches, flag, results):
 
     label = f"tiers_estimator (tiered, {len(bindings)} rows, estimator answers)"
     decisions, launches, times = drive(label, sched, bindings, TIER_ROUNDS, expect, smi, run=run)
-    for n in TIER_KERNELS + ("fleet_estimate",):
-        path_launches[n] = path_launches.get(n, 0) + launches[n]
+    add_launches(path_launches, launches, TIER_COUNTS + ("fleet_estimate",))
     extra = last["extra"]
     answers_hold("tiers_estimator", extra, flag["members"], names, bindings)
     estimator_breakdown("tiers_estimator", registry, est, bindings, names,
                         lambda e: tier_round(sched, bindings, placed, e),
                         float(np.percentile(times, 50)))
-    with captured_launches(("tier_estimate",)) as calls:
+    with captured_launches(TIER_KERNELS) as calls:
         tier_round(sched, bindings, placed, extra)
     torch.cuda.synchronize()
     cs = calls["tier_estimate"]
@@ -2134,6 +2310,16 @@ def run_tiers_estimator_cell(dev, smi, path_launches, flag, results):
     results["tier_estimate"]["max_abs_err"] = max(results["tier_estimate"]["max_abs_err"], err)
     log(f"tiers_estimator: one round's {len(cs)} tier_estimate launches ({n_extra} with the "
         "answers, the speculative ones without) equal their plain version")
+    cs = calls["tier_consume"]
+    err = 0
+    for i, (g, w) in enumerate(zip(run_calls("tier_consume", cs),
+                                   run_calls("tier_consume", cs, plain=True))):
+        err = max(err, compare(f"tier_consume_window[tiers_estimator round, call {i}]", g, w,
+                               ("cap",)))
+    r = results["tier_consume_window"]
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    log(f"tiers_estimator: one round's {len(cs)} tier_consume_window launches equal their plain "
+        f"version; timing (per round): {consume_timing(cs, dev)[1]}")
     del calls, cs
     est.close()
     hold_against_cpu("tiers_estimator", clusters, bindings, decisions,
@@ -2207,8 +2393,7 @@ def run_tier_cells(dev, smi, path_launches):
         if preemption.LAUNCHES.tiered - n0 != TIER_ROUNDS + 1:
             raise AssertionError(f"{cell}: LAUNCHES.tiered moved by "
                                  f"{preemption.LAUNCHES.tiered - n0}, expected {TIER_ROUNDS + 1}")
-        for n in TIER_KERNELS:
-            path_launches[n] = path_launches.get(n, 0) + launches[n]
+        add_launches(path_launches, launches, TIER_COUNTS)
         tier_breakdown(cell, run, float(np.percentile(times, 50)))
         hold_against_cpu(cell, clusters, bindings, decisions,
                          cpu_run=lambda s, b=bindings, p=placed: tier_round(s, b, p))
@@ -2269,24 +2454,30 @@ def run_tier_cells(dev, smi, path_launches):
                              "is not tight")
 
 
-def profiled_device_ms(sched, bindings, run=None):
-    """Device time of one round (`run()`, default `sched.schedule(bindings)`)
-    under torch.profiler: the sum over the device's own events (kernels,
-    copies, memsets), as the profiler's table footer sums it — the
-    host-side launch events carry their kernels' time too and are left
-    out. None when the profiler records none here."""
+def device_events_us(run):
+    """Device time of run() under torch.profiler, by event name: the
+    device's own events (kernels, copies, memsets), as the profiler's table
+    footer sums them — the host-side launch events carry their kernels'
+    time too and are left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        if run is None:
-            sched.schedule(bindings)
-        else:
-            run()
+        run()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False))
+    by = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            k = _short_event(e.name)
+            by[k] = by.get(k, 0.0) + e.self_device_time_total
+    return by
+
+
+def profiled_device_ms(sched, bindings, run=None):
+    """Device time of one round (`run()`, default `sched.schedule(bindings)`)
+    under torch.profiler (device_events_us). None when the profiler records
+    none here."""
+    total_us = sum(device_events_us(run or (lambda: sched.schedule(bindings))).values())
     return total_us / 1e3 if total_us > 0 else None
 
 
@@ -2868,7 +3059,7 @@ def run_wide_cells(dev, smi, path_launches, flag, results, select_err):
     expect["candidate_tail_wide"] = expect.pop("candidate_tail")
     decisions, launches, _ = drive("tiers_compact at K = 256", tsched, tbindings, 1, expect, smi,
                                    run=lambda: tier_round(tsched, tbindings, placed))
-    path_launches["candidate_tail_wide"] += launches["candidate_tail_wide"]
+    add_launches(path_launches, launches, ("candidate_tail_wide", "tier_consume_window"))
     hold_against_cpu("tiers_compact at K = 256", tclusters, tbindings, decisions,
                      cpu_run=lambda s: tier_round(s, tbindings, placed), candidate_k=K256)
 
@@ -4027,7 +4218,7 @@ def run_shim_contract(dev):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="On-card smoke test of the PyTorch/CUDA port.")
-    ap.add_argument("--only", choices=("kernels", "sim", "graft", "mesh"),
+    ap.add_argument("--only", choices=("kernels", "sim", "graft", "mesh", "tiers"),
                     help="build every kernel, run one group of phases, print no result line")
     only = ap.parse_args(sys.argv[1:] if argv is None else argv).only
     if not torch.cuda.is_available():
@@ -4043,6 +4234,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     libs = build.build_all(verbose=True)
     log(f"build: {len(libs)} kernel sources in {time.perf_counter() - t0:.1f} s")
+    if only == "tiers":
+        results = {}
+        check_tier_kernels(dev, results)
+        log(f"--only tiers: the tier kernels passed ({json.dumps(results)}); no other kernel "
+            "or cell was run")
+        return 0
     if only == "sim":
         results, path_launches = {}, {}
         check_sim_kernels(dev, results)
@@ -4176,7 +4373,7 @@ def main(argv=None) -> int:
         {"name": n, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
          "launches": path_launches[n], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r["library_ms"], "matches_plain": True}
+         "library_ms": r["library_ms"], "device_ms": r.get("device_ms"), "matches_plain": True}
         for n, r in results.items()
     ]}
     print(json.dumps(line), flush=True)

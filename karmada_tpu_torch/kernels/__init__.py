@@ -45,8 +45,9 @@ the kernels above):
   `tier_estimate_plain`.
 - `tier_consume` (csrc/tiers.cu): the capacity left after a tier's
   committed placements, `max(cap - placed.T @ request, 0)` in exact
-  int64, dense or scattered through the candidate windows; the plain
-  version is `tier_consume_plain`.
+  int64, dense or scattered through the candidate windows (the window
+  mode counts as its own kernel, `tier_consume_window`), one launch a
+  call; the plain version is `tier_consume_plain`.
 
 The estimator sweep and the degraded mode (estimator/client.py,
 faults/staleness.py):
@@ -122,7 +123,8 @@ I64, I32, BOOL, U8 = torch.int64, torch.int32, torch.bool, torch.uint8
 KERNEL_NAMES = (
     "candidate_select", "candidate_select_wide", "candidate_tail", "candidate_tail_wide",
     "dense_filter", "dense_tail", "pack_rows", "feas_idx", "group_score", "packed_selection",
-    "spread_tail", "combo_select", "tier_estimate", "tier_consume", "fleet_estimate",
+    "spread_tail", "combo_select", "tier_estimate", "tier_consume", "tier_consume_window",
+    "fleet_estimate",
     "staleness_penalty", "scatter_rows", "sim_filter", "sim_load", "dense_input_filter",
     "mesh_tile_filter",
 )
@@ -639,6 +641,9 @@ def sim_load_plain(result, active, request):
 
 
 def _check(name: str, t, dtype, shape, device):
+    if (isinstance(t, torch.Tensor) and t.dtype == dtype and t.shape == shape
+            and t.device == device and t.is_contiguous()):
+        return  # the common case in one test; a failure below names its cause
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.device != device:
@@ -656,7 +661,9 @@ def _ptr(t) -> ctypes.c_void_p:
 
 
 def _stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    """PyTorch's current stream on `device` (its raw handle: no Stream
+    object is built per launch)."""
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(device.index))
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -1374,30 +1381,53 @@ def tier_consume(cap, placed, unsched, request, rows, *, cand_idx=None):
     if dev.type != "cuda":
         raise ValueError(f"tier_consume: unsupported device {dev}")
     out = _tier_consume_launch(*args, cand_idx=cand_idx)
-    _launched("tier_consume")
+    _launched("tier_consume" if cand_idx is None else "tier_consume_window")
     return out
 
 
+_bound = {}
+
+
+def _bind(lib: str, entry: str, argtypes):
+    """The C entry point `entry` of kernel library `lib`, its ctypes
+    prototype set once, at its first call."""
+    fn = _bound.get(entry)
+    if fn is None:
+        from .build import library
+
+        fn = getattr(library(lib), entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _bound[entry] = fn
+    return fn
+
+
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_CONSUME_ARGTYPES = ([_VP, _CI, _CI] + [_VP] * 4 + [_CI, _CI, _VP, _CI] + [_VP] * 2
+                     + [ctypes.c_longlong, _VP])
+
+
 def _tier_consume_launch(cap, placed, unsched, request, rows, *, cand_idx=None):
-    """Check, allocate and launch the tier-consume kernels of its mode (the
-    sum, then the clamp). Row ids must lie in [0, B) and candidate columns
-    in [0, C)."""
+    """Check, allocate and launch the tier-consume kernel of its mode: the C
+    entry zeroes its scratch (the sums and the arrival counters, laid out
+    by tiers.cu) on the stream and launches once. Row ids must lie in
+    [0, B) and candidate columns in [0, C)."""
     dev = cap.device
     C, R = cap.shape
     n = placed.shape[0]
     B = request.shape[0]
-    for name, t, dt, shape in (
-        ("cap", cap, I64, (C, R)), ("unsched", unsched, BOOL, (n,)),
-        ("request", request, I64, (B, R)), ("rows", rows, I32, (n,)),
-    ):
-        _check(name, t, dt, shape, dev)
+    _check("cap", cap, I64, (C, R), dev)
+    _check("unsched", unsched, BOOL, (n,), dev)
+    _check("request", request, I64, (B, R), dev)
+    _check("rows", rows, I32, (n,), dev)
+    window = cand_idx is not None
     K = 0
-    if cand_idx is None:
-        _check("placed", placed, I32, (n, C), dev)
-    else:
+    if window:
         K = cand_idx.shape[1]
         _check("cand_idx", cand_idx, I32, (B, K), dev)
         _check("placed", placed, I32, (n, K), dev)
+    else:
+        _check("placed", placed, I32, (n, C), dev)
     if not 0 < R <= MAX_TIER_RESOURCES:
         raise NotImplementedError(
             f"tier_consume: {R} resources outside (0, {MAX_TIER_RESOURCES}] (a thread keeps "
@@ -1406,16 +1436,11 @@ def _tier_consume_launch(cap, placed, unsched, request, rows, *, cand_idx=None):
     out = torch.empty((C, R), dtype=I64, device=dev)
     if C == 0:
         return out
-    cons = torch.zeros((C, R), dtype=I64, device=dev)
-    from .build import library
-
-    fn = library("tiers").tier_consume_launch
-    fn.restype = ctypes.c_int
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, ci, ci] + [vp] * 4 + [ci, vp, ci, vp, vp, vp]
-    rc = fn(
-        _ptr(cap), C, R, _ptr(placed), _ptr(unsched), _ptr(request), _ptr(rows), n,
-        _ptr(cand_idx), K, _ptr(cons), _ptr(out), _stream(dev),
+    scratch = torch.empty((C, R + 1), dtype=I64, device=dev)
+    rc = _bind("tiers", "tier_consume_launch", _CONSUME_ARGTYPES)(
+        cap.data_ptr(), C, R, placed.data_ptr(), unsched.data_ptr(), request.data_ptr(),
+        rows.data_ptr(), n, window, cand_idx.data_ptr() if window else None, K, out.data_ptr(),
+        scratch.data_ptr(), scratch.numel() * 8, _stream(dev),
     )
     _raise_on(rc, "tier_consume")
     return out

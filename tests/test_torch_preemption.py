@@ -110,26 +110,49 @@ def test_tier_estimate_plain_matches_jax(mode):
     assert len(np.unique(want)) > 5
 
 
-@pytest.mark.parametrize("mode", ["dense", "window"])
-def test_tier_consume_plain_matches_jax(mode):
+# (mode, case) of the consumption checks: each mode's first draw (ids
+# "dense" and "window"), then the edge shapes of each mode
+_CONSUME_CASES = [pytest.param("dense", "base", id="dense"),
+                  pytest.param("window", "base", id="window")] + [
+    pytest.param(mode, case, id=f"{mode}-{case}")
+    for case in ("c_odd", "r1", "r16", "one_row", "all_unsched", "hot_column")
+    for mode in ("dense", "window")
+]
+
+
+@pytest.mark.parametrize("mode,case", _CONSUME_CASES)
+def test_tier_consume_plain_matches_jax(mode, case):
     """Against the reference's consumption expressions
     (preemption.py:221-222, `placed.T @ request_dense` then the clamp;
     candidates.py:863-869, the scatter-add through cand_idx), with memory
-    requests in bytes whose products pass 2**53."""
+    requests in bytes whose products pass 2**53; then at the edge shapes
+    the kernel's launch geometry turns on: a width no multiple of 4 (41
+    columns), one and sixteen resources, a single row, every row
+    unschedulable, and every row placing on one column."""
     rng = np.random.default_rng(8)
-    B, C, R, K = 48, 40, 4, 8
-    n = 30
+    C = 41 if case == "c_odd" else 40
+    R = {"r1": 1, "r16": 16}.get(case, 4)
+    B, K = 48, 8
+    n = 1 if case == "one_row" else 30
+    mem = 1 if R > 1 else 0  # the memory column: requests in bytes
     rows = rng.permutation(B)[:n].astype(np.int32)
     unsched = rng.random(n) < 0.2
     request = rng.integers(0, 500, (B, R)).astype(np.int64)
-    request[:, 1] = rng.integers(1 << 48, 1 << 49, B)  # bytes: sums pass 2**53
+    request[:, mem] = rng.integers(1 << 48, 1 << 49, B)  # bytes: sums pass 2**53
     cap = rng.integers(0, 1 << 50, (C, R)).astype(np.int64)
-    cap[:, 1] = rng.integers(1 << 55, 1 << 56, C)
+    cap[:, mem] = rng.integers(1 << 55, 1 << 56, C)
     cap[::3, 0] = rng.integers(0, 50, len(cap[::3]))  # rows the clamp zeroes
     width = C if mode == "dense" else K
     placed = np.where(rng.random((n, width)) < 0.4, rng.integers(0, 9, (n, width)), 0)
     placed = placed.astype(np.int32)
     cand = np.sort(rng.choice(C, (B, K)), axis=1).astype(np.int32) if mode == "window" else None
+    if case == "all_unsched":
+        unsched[:] = True
+    if case == "hot_column":  # the last column, also the last slot of every window
+        placed[:] = 0
+        placed[:, -1] = rng.integers(1, 9, n)
+        if cand is not None:
+            cand[:, -1] = C - 1
     p = jnp.where(jnp.asarray(unsched)[:, None], 0, jnp.asarray(placed)).astype(jnp.int64)
     req = jnp.asarray(request[rows])
     if mode == "dense":
@@ -142,8 +165,74 @@ def test_tier_consume_plain_matches_jax(mode):
         _t(cap), _t(placed), _t(unsched), _t(request), _t(rows),
         cand_idx=None if cand is None else _t(cand)))
     np.testing.assert_array_equal(got, want)
-    assert (want == 0).any() and (want > 0).any()
-    assert (np.asarray(cons) > (1 << 53)).any()  # not exact in float64
+    cons = np.asarray(cons)
+    if case == "base":
+        assert (want == 0).any() and (want > 0).any()
+        assert (cons > (1 << 53)).any()  # not exact in float64
+    elif case == "all_unsched":
+        np.testing.assert_array_equal(want, np.maximum(cap, 0))
+    elif case == "hot_column":
+        assert cons[C - 1].any() and not cons[:C - 1].any()
+        assert (cons > (1 << 53)).any()
+    else:
+        assert cons.any()
+
+
+@pytest.mark.parametrize("mode", ["dense", "window"])
+def test_tier_consume_launch_marshals_one_call(monkeypatch, mode):
+    """On a faked card each tier_consume call is one call of the C entry
+    (which zeroes its scratch and launches once): the mode flag, the
+    window's cand_idx and K, the [C, R] output and a C x (R + 1) int64
+    scratch for the sums and counters; the entry's prototype is bound at
+    the first call only; every check still raises."""
+    from karmada_tpu_torch.kernels import build
+
+    calls, loads = [], []
+
+    class Lib:
+        def __getattr__(self, name):
+            def entry(*args):
+                calls.append((name, args))
+                return 0
+
+            return entry
+
+    monkeypatch.setattr(build, "library", lambda name: (loads.append(name), Lib())[1])
+    monkeypatch.setattr(kernels, "_stream", lambda dev: 7)
+    monkeypatch.setattr(kernels, "_bound", {})
+    rng = np.random.default_rng(2)
+    C, R, n, B, K = 300, 4, 12, 20, 16
+    cap = _t(rng.integers(0, 100, (C, R)).astype(np.int64))
+    request = _t(rng.integers(0, 9, (B, R)).astype(np.int64))
+    rows, unsched = _t(np.arange(n, dtype=np.int32)), torch.zeros(n, dtype=torch.bool)
+    placed = torch.zeros((n, C), dtype=torch.int32)
+    cand = _t(np.sort(rng.choice(C, (B, K)), axis=1).astype(np.int32))
+    window = mode == "window"
+    p = placed[:, :K].contiguous() if window else placed
+    kw = {"cand_idx": cand} if window else {}
+    outs = [kernels._tier_consume_launch(cap, p, unsched, request, rows, **kw) for _ in range(2)]
+    assert loads == ["tiers"]
+    assert [name for name, _ in calls] == ["tier_consume_launch"] * 2
+    for out, (_, args) in zip(outs, calls):
+        assert args[:11] == (cap.data_ptr(), C, R, p.data_ptr(), unsched.data_ptr(),
+                             request.data_ptr(), rows.data_ptr(), n, window,
+                             cand.data_ptr() if window else None, K if window else 0)
+        assert args[11] == out.data_ptr() and args[13:] == (C * (R + 1) * 8, 7)
+        assert args[12] not in (None, out.data_ptr())  # the scratch, apart from the output
+        assert out.shape == (C, R) and out.dtype == torch.int64 and out.is_contiguous()
+        assert out.untyped_storage().nbytes() == C * R * 8
+    with pytest.raises(TypeError, match="dtype"):
+        kernels._tier_consume_launch(cap, placed.long(), unsched, request, rows)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels._tier_consume_launch(cap, torch.zeros((C, n), dtype=torch.int32).t(), unsched,
+                                     request, rows)
+    with pytest.raises(ValueError, match="shape"):  # a dense placed matrix with a window
+        kernels._tier_consume_launch(cap, placed, unsched, request, rows, cand_idx=cand)
+    wide = torch.zeros((C, 17), dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match="17 resources"):
+        kernels._tier_consume_launch(wide, placed, unsched, torch.zeros((B, 17), dtype=torch.int64),
+                                     rows)
+    assert len(calls) == 2
 
 
 # --------------------------------------------------------------------------
