@@ -65,8 +65,13 @@ result line otherwise. Phases, each of which raises on failure:
    dense flagship's 10 240 x 5 120 cut into 2 x 2 and 2 x 3 tiles (the
    latter padded with a dead column to 5 121, tiles 1 707 wide), prev and
    evict ids in other tiles and at the sentinel, answers with -1s, a
-   random mask and score, with the terms and without (`--only kernels`
-   stops here);
+   random mask and score, with the terms and without; dense_tail on
+   both of its routes (the shared-memory one up to 12 288 columns, the
+   re-reading one at any width) and without its output window, sim_load
+   at R = 4, 9 and 17, and tier_consume and fleet_estimate at R = 17;
+   and the A/B timings: the redesigned dense_tail (every mode) and
+   sim_load in turns with the re-reading route and torch.bmm, printed as
+   `A/B ...` lines and one {"ab": ...} line (`--only kernels` stops here);
 4. the main paths through ArrayScheduler.schedule() on the card, each with
    every launch count set to 0 just before it and read just after, timed
    rounds with p50/p90/p99, and decisions held against the port's CPU
@@ -323,6 +328,7 @@ CHURN5K_SAMPLE = 256  # whatif_churn5k rows held against the cpu Simulator
 # sim_filter / sim_load's seeded checks (S, B, C, with answers): the whatif
 # solve's shape and one whatif_churn5k chunk's
 SIM_CHECK_SHAPES = ((17, 1024, 512, False), (17, 1024, 512, True), (5, 10240, 5120, True))
+SIM_LOAD_RESOURCES = (4, 9, 17)  # sim_load's resource counts in phase 3
 K256 = 256  # flagship_k256's candidate window
 GRAFT_ROUNDS = 20  # timed calls of the dense-input program at the flagship
 SHIM_ROUNDS = 5  # timed /v1/scheduleBatch rounds of shim_flagship
@@ -933,6 +939,52 @@ def nbytes(ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if isinstance(t, torch.Tensor))
 
 
+# --------------------------------------------------------------------------
+# A/B: the redesigned kernels against the earlier designs, in turns
+# --------------------------------------------------------------------------
+
+AB_TURNS = 2  # each variant timed this often, in mirrored order (a b c c b a)
+AB = {}  # label -> {variant: [ms, ...]}: one JSON line at the end of the run
+
+
+def ab_time(label, variants, reps, check=None):
+    """Times each variant (name -> callable) by CUDA events over `reps`
+    calls, AB_TURNS times in mirrored order within this process, and keeps
+    the times under AB[label]. `check`, if given, is (fields, name of the
+    variant the others must equal): every variant's outputs are held
+    against it first."""
+    if check is not None:
+        fields, ref = check
+        want = variants[ref]()
+        for name, fn in variants.items():
+            if name != ref:
+                compare(f"A/B {label}: {name} against {ref}", fn(), want, fields)
+    names = list(variants)
+    got = {n: [] for n in names}
+    for turn in range(AB_TURNS):
+        for n in (names if turn % 2 == 0 else names[::-1]):
+            got[n].append(cuda_ms(variants[n], reps))
+    AB[label] = got
+    log(f"A/B {label}: " + "; ".join(
+        f"{n} {' / '.join(f'{x:.4f}' for x in xs)} ms" for n, xs in got.items()))
+    return got
+
+
+def tail_variants(args_list, fn_new):
+    """The A/B variants of a tail over several calls (args, keywords): the
+    new kernel on its automatic route and the re-reading route (the earlier
+    body, unchanged)."""
+    def run(fn, **kw):
+        return lambda: [o for a, k in args_list for o in fn(*a, **{**k, **kw})]
+    return {"new": run(fn_new), "reread route": run(fn_new, route="reread")}
+
+
+def tail_routes(C):
+    """The dense tail's routes a width can take: both up to the staged
+    width, the re-reading one past it."""
+    return ("auto", "reread") if C <= kernels.MAX_TAIL_SMEM_COLS else ("reread",)
+
+
 def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ALU_OPS_PER_S * 1e3
@@ -1185,15 +1237,19 @@ def check_dense_kernels(sched, bindings, dev, results):
     del r_args, mask
     err_t = 0
     shapes = [(B, C, int(r.numel()), topk, h) for r, topk, h in tails]
-    shapes += [(B, C, int(tails[1][0].numel()), 8, True), (64, WIDE_C, 48, 128, True),
-               (64, WIDE_C, 48, 16, False)]
+    shapes += [(B, C, int(tails[1][0].numel()), 8, True), (B, C, int(tails[0][0].numel()), 0,
+                                                            True),
+               (64, WIDE_C, 48, 128, True), (64, WIDE_C, 48, 16, False), (64, WIDE_C, 48, 0,
+                                                                          True)]
     for rb, rc, n, topk, has_agg in shapes:
         a = random_dense_tail_inputs(rng, dev, rb, rc, n)
-        err_t = max(err_t, compare(f"dense_tail[random,{rc},{n},{topk},{has_agg}]",
-                                   kernels._dense_tail_launch(*a, topk=topk, has_agg=has_agg),
-                                   kernels.dense_tail_plain(*a, topk=topk, has_agg=has_agg),
-                                   TAIL_OUT))
-        del a
+        want = kernels.dense_tail_plain(*a, topk=topk, has_agg=has_agg)
+        for route in tail_routes(rc):
+            err_t = max(err_t, compare(
+                f"dense_tail[random,{rc},{n},{topk},{has_agg},{route}]",
+                kernels._dense_tail_launch(*a, topk=topk, has_agg=has_agg, route=route), want,
+                TAIL_OUT))
+        del a, want
     m = torch.from_numpy(rng.random((int(mask_idx.numel()), C)) <
                          rng.random((int(mask_idx.numel()), 1))).to(dev)
     m[::7] = torch.rand(m[::7].shape, device=dev) < 0.003
@@ -1204,7 +1260,8 @@ def check_dense_kernels(sched, bindings, dev, results):
         err_i = max(err_i, compare(f"feas_idx[random,{k}]", [kernels._feas_idx_launch(m, k)],
                                    [kernels.feas_idx_plain(m, k)], ("idx",)))
     log(f"random inputs (filter {B}x{C}, with and without extra_mask; tail "
-        f"{[s[:4] for s in shapes]}; masks "
+        f"{[s[:4] for s in shapes]} (C, n, topk; topk 0: no window) on the shared-memory "
+        f"route up to {kernels.MAX_TAIL_SMEM_COLS} columns and the re-reading route; masks "
         f"{tuple(m.shape)}): the dense kernels equal their plain versions exactly")
     del m
 
@@ -1218,9 +1275,12 @@ def check_dense_kernels(sched, bindings, dev, results):
     t_outs = []
     for a, (_, topk, has_agg) in zip(t_args, tails):
         out = kernels._dense_tail_launch(*a, topk=topk, has_agg=has_agg)
-        err_t = max(err_t, compare(f"dense_tail[flagship,{has_agg}]", out,
-                                   kernels.dense_tail_plain(*a, topk=topk, has_agg=has_agg),
-                                   TAIL_OUT))
+        want = kernels.dense_tail_plain(*a, topk=topk, has_agg=has_agg)
+        err_t = max(err_t, compare(f"dense_tail[flagship,{has_agg}]", out, want, TAIL_OUT))
+        err_t = max(err_t, compare(
+            f"dense_tail[flagship,{has_agg},reread]",
+            kernels._dense_tail_launch(*a, topk=topk, has_agg=has_agg, route="reread"), want,
+            TAIL_OUT))
         t_outs.append(out)
     x_args = filt_args[:-1] + [flagship_answers(np.random.default_rng(21), B, C, dev)]
     err_f = max(err_f, compare("dense_filter[flagship, extra_avail]",
@@ -1247,6 +1307,10 @@ def check_dense_kernels(sched, bindings, dev, results):
 
     t_ms = cuda_ms(both_tails(kernels._dense_tail_launch), 5)
     t_plain = cuda_ms(both_tails(kernels.dense_tail_plain), 3)
+    tail_calls = [(a, {"topk": w, "has_agg": h}) for a, (_, w, h) in zip(t_args, tails)]
+    ab_time("dense_tail, dense flagship round (both tails)",
+            tail_variants(tail_calls, kernels._dense_tail_launch), 5,
+            check=(TAIL_OUT * len(tail_calls), "new"))
     i_ms = cuda_ms(lambda: kernels._feas_idx_launch(m_feas, mk), 20)
     i_plain = cuda_ms(lambda: kernels.feas_idx_plain(m_feas, mk), 20)
     key = torch.where(m_feas, torch.arange(C, dtype=torch.int32, device=dev),
@@ -1490,6 +1554,16 @@ def check_spread_kernels(dev, results):
             plain = cuda_ms(lambda: run_calls(n, cs, plain=True), 3)
             timing[(cell, n)] = (ms, plain, b, by)
             parts.append(f"{n} {ms:.4f} ms (plain {plain:.4f}, bound {b:.4f} {by})")
+            if n == "spread_tail":
+                for i, (args, kw) in enumerate(cs):
+                    errs[n] = max(errs[n], compare(
+                        f"spread_tail[{cell} round, call {i}, reread]",
+                        kernels._spread_tail_launch(*args, **kw, route="reread"),
+                        kernels.spread_tail_plain(*args, **kw), SPREAD_TAIL_OUT))
+                if cell == "config 4":
+                    ab_time("spread_tail, config 4 round",
+                            tail_variants(cs, kernels._spread_tail_launch), 10,
+                            check=(SPREAD_TAIL_OUT * len(cs), "new"))
         log(f"timing ({cell} round, the main path's arguments, per round): " + "; ".join(parts))
     del captured
     torch.cuda.empty_cache()
@@ -1590,6 +1664,7 @@ TIER_CONSUME_EDGES = (
     ("C = 5 121", 5121, 4, 2560, 128),
     ("R = 1", 5120, 1, 2560, 128),
     ("R = 16, C = 5 121", 5121, 16, 700, 256),
+    ("R = 17 (resource blocks of 16 and 1)", 5121, 17, 700, 256),
     ("one row", 5120, 4, 1, 128),
     ("all unscheduled", 5120, 4, 2560, 128),
     ("hot column", 5121, 4, 2560, 256),
@@ -2000,7 +2075,9 @@ def check_estimator_kernels(dev, results, flag):
     err = 0
     cases = [("random", random_fleet_args(rng, dev, N_CLUSTERS, 1024)),
              ("random, nodes shuffled", random_fleet_args(rng, dev, N_CLUSTERS, 1024,
-                                                          shuffle=True))]
+                                                          shuffle=True)),
+             ("random, R = 17 (a request read in place)",
+              random_fleet_args(rng, dev, N_CLUSTERS, 1024, R=17))]
     c3_clusters, c3_bindings = build_dynamic()
     c3_names = [c.name for c in c3_clusters]
     cases.append(("config 3", fleet_args(estimator_members(c3_names), c3_names,
@@ -2697,6 +2774,14 @@ def check_wide_tail(dev, results, flag):
 
     ms = cuda_ms(both(kernels._tail_launch), 10)
     plain = cuda_ms(both(kernels.tail_plain), 3)
+    calls = [(a, {"topk": w, "has_agg": h}) for a, (_, w, h) in zip(t_args, tails)]
+    for a, kw in calls:
+        err = max(err, compare(f"candidate_tail[flagship K={k},{kw['has_agg']},reread]",
+                               kernels._tail_launch(*a, **kw, route="reread"),
+                               kernels.tail_plain(*a, **kw), TAIL_OUT))
+    ab_time(f"dense_tail window mode, flagship K = {k} windows (both tails)",
+            tail_variants(calls, kernels._tail_launch), 10,
+            check=(TAIL_OUT * len(calls), "new"))
     b, by = tail_bound(t_args, outs)
     results["candidate_tail_wide"] = dict(
         source="karmada_tpu_torch/kernels/csrc/dense_tail.cu",
@@ -3253,11 +3338,14 @@ def sim_filter_bound(args, outs):
 
 
 def sim_load_bound(args, outs):
-    """Bytes: the result, active and request read once, the sums written
-    once. Operations: per (scenario, row, column) one add and R
-    multiply-adds of int64."""
-    result, _active, request = args
-    return bound(nbytes(args) + nbytes(outs), result.numel() * (2 * request.shape[1] + 1))
+    """What this run's data needs: bytes, the active rows of the result,
+    the active mask and the request read once, the sums written once;
+    operations, per (scenario, active row, column) one add and R
+    multiply-adds of int64. Inactive rows need no work."""
+    result, active, request = args
+    cells = int(active.sum().item()) * result.shape[2]
+    return bound(cells * result.element_size() + nbytes([active, request]) + nbytes(outs),
+                 cells * (2 * request.shape[1] + 1))
 
 
 def sim_load_library(args):
@@ -3300,16 +3388,23 @@ def check_sim_kernels(dev, results):
         result = torch.randint(0, 9, (S, B, C), generator=gen, device=dev, dtype=torch.int32)
         result *= torch.rand((S, B, C), generator=gen, device=dev) < 0.3
         active = torch.rand((S, B), generator=gen, device=dev) < 0.8
-        request = torch.randint(0, 1 << 34, (B, 4), generator=gen, device=dev)
-        err_l = max(err_l, compare(f"sim_load[random {S}x{B}x{C}]",
-                                   kernels._sim_load_launch(result, active, request),
-                                   kernels.sim_load_plain(result, active, request),
-                                   SIM_LOAD_OUT))
-        del args, result
+        for R in SIM_LOAD_RESOURCES:  # one launch, then blocks of eight resources
+            request = torch.randint(0, 1 << 34, (B, R), generator=gen, device=dev)
+            err_l = max(err_l, compare(f"sim_load[random {S}x{B}x{C}, R {R}]",
+                                       kernels._sim_load_launch(result, active, request),
+                                       kernels.sim_load_plain(result, active, request),
+                                       SIM_LOAD_OUT))
+        # a width that is no multiple of four (the 4-byte loads)
+        odd = result[:, :, :-1].contiguous()
+        err_l = max(err_l, compare(f"sim_load[random {S}x{B}x{C - 1}]",
+                                   kernels._sim_load_launch(odd, active, request),
+                                   kernels.sim_load_plain(odd, active, request), SIM_LOAD_OUT))
+        del args, result, odd
     torch.cuda.empty_cache()
     log(f"sim_filter and sim_load: seeded inputs at (S, B, C, answers) {SIM_CHECK_SHAPES} "
-        "(drained columns, padded taint slots, random active masks, byte-sized requests) "
-        "equal their plain versions")
+        "(drained columns, padded taint slots, random active masks, byte-sized requests; "
+        f"sim_load at R = {SIM_LOAD_RESOURCES} and at C - 1 columns) equal their plain "
+        "versions")
 
     captured = {}
     for cell, build_cell in (("whatif", build_whatif),
@@ -3367,10 +3462,18 @@ def check_sim_kernels(dev, results):
     ms_lw = cuda_ms(lambda: kernels._sim_load_launch(*wl_args, **wl_kw), 20)
     b_f, by_f = sim_filter_bound(f_args, f_out)
     b_l, by_l = sim_load_bound(l_args, l_out)
+    sim_load_ab = {"new": lambda: kernels._sim_load_launch(*l_args, **l_kw),
+                   "torch.bmm float64": lib}
+    ab_time(f"sim_load, whatif_churn5k chunk ({' x '.join(map(str, l_args[0].shape))}, "
+            f"{int(l_args[1].sum())} active rows)", sim_load_ab, 5)
     # the solve's middle launch, dense_tail over the scenario rows
     tails = {}
     for cell, reps in (("whatif", 20), ("whatif_churn5k", 3)):
         args, kw = captured[cell]["dense_tail"][0]
+        ab_time(f"dense_tail, {cell} solve's scenario rows ({args[4].numel()} x "
+                f"{args[0].shape[1]})",
+                tail_variants([(args, kw)], kernels._dense_tail_launch), reps,
+                check=(TAIL_OUT, "new"))
         out = kernels._dense_tail_launch(*args, **kw)
         b, by = dense_tail_bound([args[0]], [args[4]], args[5], [out])
         # the plain version over a churn5k chunk's rows, 8 192 rows at a
@@ -3779,6 +3882,28 @@ def run_graft_flagship(dev, smi, path_launches, results, sched, bindings):
                   kernels._dense_input_filter_launch(*ca),
                   kernels.dense_input_filter_plain(*ca), DENSE_INPUT_OUT)
     del ca, cap
+    # the program's tail over every row: no output window now; the earlier
+    # design sorted a 128-column window the program then dropped
+    ta = [out[0], out[5]] + [args[SCHEDULE_ARGS.index(n)] for n in (
+        "prev_replicas", "tie")] + [torch.arange(B, dtype=torch.int32, device=dev)]
+    ta += [args[SCHEDULE_ARGS.index("static_weight")], ta[4]] + [
+        args[SCHEDULE_ARGS.index(n)] for n in ("strategy", "replicas", "fresh")]
+    w = min(C, kernels.MAX_DENSE_TOPK)
+    graft_ab = {
+        "new (no window)": lambda: kernels._dense_tail_launch(*ta, topk=0, has_agg=True),
+        "reread route (no window)": lambda: kernels._dense_tail_launch(
+            *ta, topk=0, has_agg=True, route="reread"),
+        "reread route (window 128)": lambda: kernels._dense_tail_launch(
+            *ta, topk=w, has_agg=True, route="reread"),
+    }
+    kept = ("result", "unschedulable", "avail_sum", "nnz")
+    new_out = graft_ab["new (no window)"]()
+    compare("graft_flagship[tail, no window, against the program]", new_out[:3],
+            [out[2], out[3], out[4]], kept[:3])
+    for name, fn in graft_ab.items():
+        compare(f"A/B graft_flagship tail: {name} against new", fn()[:4], new_out[:4], kept)
+    ab_time(f"dense_tail, graft_flagship program's tail ({B} x {C})", graft_ab, 10)
+    del ta, new_out
     k_ms = cuda_ms(lambda: kernels._dense_input_filter_launch(*fa), 10)
     k_plain = cuda_ms(lambda: kernels.dense_input_filter_plain(*fa), 1)
     fb, fb_by = dense_input_filter_bound(fa, [out[0], out[1], out[5]])
@@ -4220,7 +4345,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="On-card smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--only", choices=("kernels", "sim", "graft", "mesh", "tiers"),
                     help="build every kernel, run one group of phases, print no result line")
-    only = ap.parse_args(sys.argv[1:] if argv is None else argv).only
+    opts = ap.parse_args(sys.argv[1:] if argv is None else argv)
+    only = opts.only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the card only",
               file=sys.stderr)
@@ -4246,6 +4372,7 @@ def main(argv=None) -> int:
         run_sim_cells(dev, smi, path_launches)
         log(f"--only sim: the simulation kernels and cells passed (launches {path_launches}); "
             "no earlier kernel or cell was run")
+        print(json.dumps({"ab": AB}), flush=True)
         return 0
 
     # ---- the flagship schedulers (their batches feed phase 3 too) ----
@@ -4270,6 +4397,7 @@ def main(argv=None) -> int:
         run_graft_cells(dev, smi, path_launches, results, d_sched, d_bindings, flag)
         log(f"--only graft: the dense-input filter and the graft and shim cells passed "
             f"(launches {path_launches}); no earlier kernel or cell was run")
+        print(json.dumps({"ab": AB}), flush=True)
         return 0
     if only == "mesh":
         path_launches = {}
@@ -4301,6 +4429,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     if only == "kernels":
         log("--only kernels: phase 3 passed; no main path was run")
+        print(json.dumps({"ab": AB}), flush=True)
         return 0
 
     # ---- phase 4: the main paths ----
@@ -4369,6 +4498,7 @@ def main(argv=None) -> int:
     idle = [n for n in results if n != "staleness_penalty" and not path_launches.get(n)]
     if idle:
         raise AssertionError(f"kernels of the main paths never launched there: {idle}")
+    print(json.dumps({"ab": AB}), flush=True)
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
          "launches": path_launches[n], "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -15,7 +15,10 @@ Dense round:
   the plain version is `dense_filter_plain`.
 - `dense_tail` (csrc/dense_tail.cu): the replica-division tail over full
   rows of width C, read from the filter outputs through row ids, plus the
-  compact output window; the plain version is `dense_tail_plain`.
+  compact output window (none with topk = 0); rows up to
+  MAX_TAIL_SMEM_COLS wide are read once and staged in shared memory,
+  wider ones take the re-reading route; the plain version is
+  `dense_tail_plain`.
 - `pack_rows` and `feas_idx` (csrc/dense_mask.cu): bit-packed feasible rows
   and the first k feasible column ids per row; the plain versions are
   `pack_rows_plain` and `feas_idx_plain`.
@@ -47,7 +50,8 @@ the kernels above):
   committed placements, `max(cap - placed.T @ request, 0)` in exact
   int64, dense or scattered through the candidate windows (the window
   mode counts as its own kernel, `tier_consume_window`), one launch a
-  call; the plain version is `tier_consume_plain`.
+  call per block of up to 16 resources; the plain version is
+  `tier_consume_plain`.
 
 The estimator sweep and the degraded mode (estimator/client.py,
 faults/staleness.py):
@@ -72,7 +76,8 @@ filter below, `dense_tail` over the S x B scenario rows, then the load):
   plain version is `sim_filter_plain`.
 - `sim_load` (csrc/sim_load.cu): the per-scenario load of the division
   result, replicas and resources per cluster over the scenario's active
-  rows, exact int64; the plain version is `sim_load_plain`.
+  rows, exact int64, any number of resources (one launch per block of
+  eight); the plain version is `sim_load_plain`.
 
 The dense-input schedule program (sched/core.py `_schedule_kernel`: the
 filter below, then `dense_tail` over every row):
@@ -101,7 +106,9 @@ A wrapper runs the plain version only for tensors that lie on the CPU. For
 CUDA tensors it checks device, dtype, shape and contiguity, launches the
 kernel on PyTorch's current stream, raises when the launch reports an
 error, and adds one to its kernel's launch count (`launch_counts()`,
-`reset_launches()`). There is no fallback.
+`reset_launches()`). There is no fallback. The launches of dense_tail
+(all three entries), sim_load, fleet_estimate and tier_consume bind their
+C prototypes once (`_bind`).
 """
 from __future__ import annotations
 
@@ -132,9 +139,15 @@ _launch_lock = threading.Lock()
 _launches = dict.fromkeys(KERNEL_NAMES, 0)
 
 
-def _launched(name: str) -> None:
+def _launched(name: str, n: int = 1) -> None:
     with _launch_lock:
-        _launches[name] += 1
+        _launches[name] += n
+
+
+def _resource_blocks(R: int, block: int) -> int:
+    """Launches a request of R resources takes in blocks of `block` (one
+    at R = 0)."""
+    return max(1, -(-R // block))
 
 
 # the window tail's 128-thread block (one thread per window column) serves
@@ -150,9 +163,15 @@ FEAS_IDX_PAD = 1 << 30  # feas_idx's value past a row's feasible count
 COMBO_NEG = -(1 << 62)
 COMBO_DISC_MASKED = 1 << 62
 MAX_COMBO_REGIONS = 64  # combo_select keeps a row's regions in shared memory
-MAX_TIER_RESOURCES = 16  # tier_consume keeps one int64 sum per resource in registers
-MAX_ESTIMATE_RESOURCES = 16  # fleet_estimate stages a row's request in shared memory
-MAX_LOAD_RESOURCES = 8  # sim_load keeps one int64 sum per resource in registers
+# tier_consume keeps one int64 sum per resource in registers for up to 16
+# resources; a wider request runs in blocks of 16, one launch each
+TIER_RESOURCE_BLOCK = 16
+# sim_load sums up to 8 resources a launch (sim_load.cu kBlockR)
+SIM_LOAD_RESOURCE_BLOCK = 8
+# the dense tail stages a row in shared memory up to this width (dense_tail.cu
+# kSmemMaxCols); wider rows take the re-reading route
+MAX_TAIL_SMEM_COLS = 12288
+TAIL_ROUTES = {"auto": 0, "reread": 1}  # "reread" forces the re-reading route
 
 
 # --------------------------------------------------------------------------
@@ -253,7 +272,7 @@ def dense_tail_plain(
     the batch's [B] columns, all read at `rows` (i32[n]). Returns (result
     i32[n,C], unschedulable bool[n], avail_sum i32[n], nnz i32[n], top_idx
     i32[n,w], top_val i32[n,w]) with w = min(C, topk), the window in
-    (value desc, column asc) order."""
+    (value desc, column asc) order; topk = 0 writes no window (w = 0)."""
     r = rows.long()
     f = feasible.index_select(0, r)
     static_weight = weight_tables[weight_idx.index_select(0, r).long()]
@@ -262,6 +281,9 @@ def dense_tail_plain(
         prev.index_select(0, r), tie.index_select(0, r), replicas.index_select(0, r),
         fresh.index_select(0, r), has_agg=has_agg,
     )
+    if topk == 0:
+        empty = torch.empty((r.numel(), 0), dtype=I32, device=result.device)
+        return result, unschedulable, avail_sum, (result > 0).sum(-1).to(I32), empty, empty
     _, nnz, top_idx, top_val = core.compact_outputs(f, result, min(f.shape[1], topk))
     return result, unschedulable, avail_sum, nnz, top_idx, top_val
 
@@ -832,11 +854,16 @@ def candidate_tail(
 def _tail_launch(
     c_feas, c_avail, c_prev, c_tie, cand_idx,
     weight_tables, weight_idx, strategy, replicas, fresh, *, topk: int, has_agg: bool,
+    route: str = "auto",
 ):
     """Check, allocate and launch candidate_tail_kernel, or for windows
-    wider than MAX_TAIL_K dense_tail.cu's window mode."""
+    wider than MAX_TAIL_K dense_tail.cu's window mode (whose route `route`
+    picks, as for `_dense_tail_launch`; candidate_tail has one route)."""
     dev = c_feas.device
     rows, K = c_feas.shape
+    if route != "auto" and K <= MAX_TAIL_K:
+        raise ValueError(f"candidate_tail: route {route!r} at K={K}: only windows wider "
+                         f"than {MAX_TAIL_K} take dense_tail's routes")
     W, Cw = weight_tables.shape
     for name, t, dt, shape in (
         ("c_feas", c_feas, BOOL, (rows, K)), ("c_avail", c_avail, I32, (rows, K)),
@@ -866,13 +893,12 @@ def _tail_launch(
     outs = (_ptr(result), _ptr(unsched), _ptr(avail_sum), _ptr(nnz), _ptr(top_idx),
             _ptr(top_val), _stream(dev))
     if K > MAX_TAIL_K:
-        fn = library("dense_tail").window_tail_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = [vp] * 5 + [ci] * 2 + [vp, ci] + [vp] * 4 + [ci] * 2 + [vp] * 6 + [vp]
-        rc = fn(
-            _ptr(c_feas), _ptr(c_avail), _ptr(c_prev), _ptr(c_tie), _ptr(cand_idx), rows, K,
-            _ptr(weight_tables), Cw, _ptr(weight_idx), _ptr(strategy), _ptr(replicas),
-            _ptr(fresh), tw, 1 if has_agg else 0, *outs,
+        rc = _bind("dense_tail", "window_tail_launch", _WINDOW_TAIL_ARGTYPES)(
+            c_feas.data_ptr(), c_avail.data_ptr(), c_prev.data_ptr(), c_tie.data_ptr(),
+            cand_idx.data_ptr(), rows, K, weight_tables.data_ptr(), Cw, weight_idx.data_ptr(),
+            strategy.data_ptr(), replicas.data_ptr(), fresh.data_ptr(), tw, has_agg,
+            TAIL_ROUTES[route], result.data_ptr(), unsched.data_ptr(), avail_sum.data_ptr(),
+            nnz.data_ptr(), top_idx.data_ptr(), top_val.data_ptr(), _stream(dev),
         )
     else:
         fn = library("candidate_tail").candidate_tail_launch
@@ -977,9 +1003,13 @@ def dense_tail(
 def _dense_tail_launch(
     feasible, avail, prev, tie, rows,
     weight_tables, weight_idx, strategy, replicas, fresh, *, topk: int, has_agg: bool,
+    route: str = "auto",
 ):
-    """Check, allocate and launch dense_tail_kernel. Row ids must lie in
-    [0, B): the kernel reads them as they are."""
+    """Check, allocate and launch the dense tail. Row ids must lie in
+    [0, B): the kernel reads them as they are. `route`: "auto" stages rows
+    of up to MAX_TAIL_SMEM_COLS columns in shared memory and re-reads wider
+    ones; "reread" re-reads at any width (both exact). topk = 0 writes no
+    output window."""
     dev = feasible.device
     B, C = feasible.shape
     n = rows.shape[0]
@@ -993,9 +1023,9 @@ def _dense_tail_launch(
     ):
         _check(name, t, dt, shape, dev)
     w = min(C, topk)
-    if not 0 < w <= MAX_DENSE_TOPK:
+    if not 0 <= w <= MAX_DENSE_TOPK or (w == 0 and topk != 0):
         raise NotImplementedError(
-            f"dense_tail: output window {w} outside (0, {MAX_DENSE_TOPK}] (the "
+            f"dense_tail: output window {w} outside [0, {MAX_DENSE_TOPK}] (the "
             "window is sorted in shared memory)"
         )
     result = torch.empty((n, C), dtype=I32, device=dev)
@@ -1006,18 +1036,12 @@ def _dense_tail_launch(
     top_val = torch.empty((n, w), dtype=I32, device=dev)
     if n == 0:
         return result, unsched, avail_sum, nnz, top_idx, top_val
-    from .build import library
-
-    fn = library("dense_tail").dense_tail_launch
-    fn.restype = ctypes.c_int
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 4 + [ci, vp, ci] + [vp] * 5 + [ci] * 2 + [vp] * 6 + [vp]
-    rc = fn(
-        _ptr(feasible), _ptr(avail), _ptr(prev), _ptr(tie), C, _ptr(rows), n,
-        _ptr(weight_tables), _ptr(weight_idx), _ptr(strategy), _ptr(replicas),
-        _ptr(fresh), w, 1 if has_agg else 0,
-        _ptr(result), _ptr(unsched), _ptr(avail_sum), _ptr(nnz),
-        _ptr(top_idx), _ptr(top_val), _stream(dev),
+    rc = _bind("dense_tail", "dense_tail_launch", _DENSE_TAIL_ARGTYPES)(
+        feasible.data_ptr(), avail.data_ptr(), prev.data_ptr(), tie.data_ptr(), C,
+        rows.data_ptr(), n, weight_tables.data_ptr(), weight_idx.data_ptr(),
+        strategy.data_ptr(), replicas.data_ptr(), fresh.data_ptr(), w, has_agg,
+        TAIL_ROUTES[route], result.data_ptr(), unsched.data_ptr(), avail_sum.data_ptr(),
+        nnz.data_ptr(), top_idx.data_ptr(), top_val.data_ptr(), _stream(dev),
     )
     _raise_on(rc, "dense_tail")
     return result, unsched, avail_sum, nnz, top_idx, top_val
@@ -1216,9 +1240,10 @@ def spread_tail(
 
 def _spread_tail_launch(
     feasible, avail, prev, tie, rows, chosen, rid, strategy, replicas, fresh, *,
-    topk: int, has_agg: bool,
+    topk: int, has_agg: bool, route: str = "auto",
 ):
-    """Check, allocate and launch the restricted dense_tail_kernel."""
+    """Check, allocate and launch the restricted dense tail (`route` as for
+    `_dense_tail_launch`)."""
     dev = feasible.device
     B, C, n, R = _check_selection(feasible, rows, chosen, rid)
     for name, t, dt, shape in (
@@ -1243,18 +1268,12 @@ def _spread_tail_launch(
     if n == 0:
         return result, unsched, avail_sum, feas_count, nnz, top_idx, top_val
     table = _chosen_table(chosen)
-    from .build import library
-
-    fn = library("dense_tail").spread_tail_launch
-    fn.restype = ctypes.c_int
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 4 + [ci, vp, ci, vp, ci] + [vp] * 4 + [ci] * 2 + [vp] * 7 + [vp]
-    rc = fn(
-        _ptr(feasible), _ptr(avail), _ptr(prev), _ptr(tie), C, _ptr(rows), n,
-        _ptr(table), R + 1, _ptr(rid), _ptr(strategy), _ptr(replicas), _ptr(fresh),
-        w, 1 if has_agg else 0,
-        _ptr(result), _ptr(unsched), _ptr(avail_sum), _ptr(feas_count), _ptr(nnz),
-        _ptr(top_idx), _ptr(top_val), _stream(dev),
+    rc = _bind("dense_tail", "spread_tail_launch", _SPREAD_TAIL_ARGTYPES)(
+        feasible.data_ptr(), avail.data_ptr(), prev.data_ptr(), tie.data_ptr(), C,
+        rows.data_ptr(), n, table.data_ptr(), R + 1, rid.data_ptr(), strategy.data_ptr(),
+        replicas.data_ptr(), fresh.data_ptr(), w, has_agg, TAIL_ROUTES[route],
+        result.data_ptr(), unsched.data_ptr(), avail_sum.data_ptr(), feas_count.data_ptr(),
+        nnz.data_ptr(), top_idx.data_ptr(), top_val.data_ptr(), _stream(dev),
     )
     _raise_on(rc, "spread_tail")
     return result, unsched, avail_sum, feas_count, nnz, top_idx, top_val
@@ -1381,7 +1400,8 @@ def tier_consume(cap, placed, unsched, request, rows, *, cand_idx=None):
     if dev.type != "cuda":
         raise ValueError(f"tier_consume: unsupported device {dev}")
     out = _tier_consume_launch(*args, cand_idx=cand_idx)
-    _launched("tier_consume" if cand_idx is None else "tier_consume_window")
+    _launched("tier_consume" if cand_idx is None else "tier_consume_window",
+              _resource_blocks(request.shape[1], TIER_RESOURCE_BLOCK))
     return out
 
 
@@ -1405,6 +1425,13 @@ def _bind(lib: str, entry: str, argtypes):
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _CONSUME_ARGTYPES = ([_VP, _CI, _CI] + [_VP] * 4 + [_CI, _CI, _VP, _CI] + [_VP] * 2
                      + [ctypes.c_longlong, _VP])
+_DENSE_TAIL_ARGTYPES = [_VP] * 4 + [_CI, _VP, _CI] + [_VP] * 5 + [_CI] * 3 + [_VP] * 7
+_SPREAD_TAIL_ARGTYPES = ([_VP] * 4 + [_CI, _VP, _CI, _VP, _CI] + [_VP] * 4 + [_CI] * 3
+                         + [_VP] * 8)
+_WINDOW_TAIL_ARGTYPES = ([_VP] * 5 + [_CI] * 2 + [_VP, _CI] + [_VP] * 4 + [_CI] * 3
+                         + [_VP] * 7)
+_FLEET_ESTIMATE_ARGTYPES = [_VP] * 7 + [_CI, _CI, _VP, _CI, _VP, _VP]
+_SIM_LOAD_ARGTYPES = [_VP] * 3 + [_CI] * 4 + [_VP] * 3
 
 
 def _tier_consume_launch(cap, placed, unsched, request, rows, *, cand_idx=None):
@@ -1428,22 +1455,31 @@ def _tier_consume_launch(cap, placed, unsched, request, rows, *, cand_idx=None):
         _check("placed", placed, I32, (n, K), dev)
     else:
         _check("placed", placed, I32, (n, C), dev)
-    if not 0 < R <= MAX_TIER_RESOURCES:
-        raise NotImplementedError(
-            f"tier_consume: {R} resources outside (0, {MAX_TIER_RESOURCES}] (a thread keeps "
-            "one int64 sum per resource)"
-        )
-    out = torch.empty((C, R), dtype=I64, device=dev)
+    if R == 0:
+        raise ValueError("tier_consume: a request with no resource")
     if C == 0:
-        return out
-    scratch = torch.empty((C, R + 1), dtype=I64, device=dev)
-    rc = _bind("tiers", "tier_consume_launch", _CONSUME_ARGTYPES)(
-        cap.data_ptr(), C, R, placed.data_ptr(), unsched.data_ptr(), request.data_ptr(),
-        rows.data_ptr(), n, window, cand_idx.data_ptr() if window else None, K, out.data_ptr(),
-        scratch.data_ptr(), scratch.numel() * 8, _stream(dev),
-    )
-    _raise_on(rc, "tier_consume")
-    return out
+        return torch.empty((C, R), dtype=I64, device=dev)
+    fn = _bind("tiers", "tier_consume_launch", _CONSUME_ARGTYPES)
+    stream = _stream(dev)
+    Rb = min(R, TIER_RESOURCE_BLOCK)
+    scratch = torch.empty((C, Rb + 1), dtype=I64, device=dev)
+    outs = []
+    # each resource's sum and clamp is independent of the others: a request
+    # past the kernel's register budget runs as contiguous blocks of it
+    for r0 in range(0, R, TIER_RESOURCE_BLOCK):
+        r1 = min(R, r0 + TIER_RESOURCE_BLOCK)
+        cap_b, req_b = ((cap, request) if r1 - r0 == R else
+                        (cap[:, r0:r1].contiguous(), request[:, r0:r1].contiguous()))
+        out = torch.empty((C, r1 - r0), dtype=I64, device=dev)
+        rc = fn(
+            cap_b.data_ptr(), C, r1 - r0, placed.data_ptr(), unsched.data_ptr(),
+            req_b.data_ptr(), rows.data_ptr(), n, window,
+            cand_idx.data_ptr() if window else None, K, out.data_ptr(), scratch.data_ptr(),
+            scratch.numel() * 8, stream,
+        )
+        _raise_on(rc, "tier_consume")
+        outs.append(out)
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
 def fleet_estimate(alloc, requested, pod_count, allowed_pods, cluster_id, n_clusters,
@@ -1478,27 +1514,18 @@ def _fleet_estimate_launch(alloc, requested, pod_count, allowed_pods, cluster_id
         ("claimless_ok", claimless_ok, BOOL, (N,)), ("request", request, I64, (B, R)),
     ):
         _check(name, t, dt, shape, dev)
-    if not 0 < R <= MAX_ESTIMATE_RESOURCES:
-        raise NotImplementedError(
-            f"fleet_estimate: {R} resources outside (0, {MAX_ESTIMATE_RESOURCES}] (a row's "
-            "request is staged in shared memory)"
-        )
+    if R == 0:
+        raise ValueError("fleet_estimate: a request with no resource")
     out = torch.empty((B, C), dtype=I32, device=dev)
     if B == 0 or C == 0:
         return out
     ids, order = torch.sort(cluster_id, stable=True)
     order = order.to(I32)
     off = torch.searchsorted(ids, torch.arange(C + 1, dtype=I32, device=dev), out_int32=True)
-    from .build import library
-
-    fn = library("fleet_estimate").fleet_estimate_launch
-    fn.restype = ctypes.c_int
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 7 + [ci, ci, vp, ci, vp, vp]
-    rc = fn(
-        _ptr(alloc), _ptr(requested), _ptr(pod_count), _ptr(allowed_pods),
-        _ptr(claimless_ok), _ptr(order), _ptr(off), C, R, _ptr(request), B, _ptr(out),
-        _stream(dev),
+    rc = _bind("fleet_estimate", "fleet_estimate_launch", _FLEET_ESTIMATE_ARGTYPES)(
+        alloc.data_ptr(), requested.data_ptr(), pod_count.data_ptr(), allowed_pods.data_ptr(),
+        claimless_ok.data_ptr(), order.data_ptr(), off.data_ptr(), C, R, request.data_ptr(), B,
+        out.data_ptr(), _stream(dev),
     )
     _raise_on(rc, "fleet_estimate")
     return out
@@ -1684,13 +1711,14 @@ def sim_load(result, active, request):
     if dev.type != "cuda":
         raise ValueError(f"sim_load: unsupported device {dev}")
     out = _sim_load_launch(result, active, request)
-    _launched("sim_load")
+    _launched("sim_load", _resource_blocks(request.shape[1], SIM_LOAD_RESOURCE_BLOCK))
     return out
 
 
 def _sim_load_launch(result, active, request):
-    """Check, allocate (zeroed: the kernel adds into them) and launch
-    sim_load_kernel."""
+    """Check, allocate and launch sim_load (the C entry zeroes the outputs
+    on the stream, then launches once per block of up to eight resources:
+    any R)."""
     dev = result.device
     S, B, C = result.shape
     R = request.shape[1]
@@ -1699,23 +1727,14 @@ def _sim_load_launch(result, active, request):
         ("request", request, I64, (B, R)),
     ):
         _check(name, t, dt, shape, dev)
-    if R > MAX_LOAD_RESOURCES:
-        raise NotImplementedError(
-            f"sim_load: {R} resources past {MAX_LOAD_RESOURCES} (a thread keeps one int64 "
-            "sum per resource)"
-        )
-    assigned = torch.zeros((S, C), dtype=I64, device=dev)
-    usage = torch.zeros((S, C, R), dtype=I64, device=dev)
     if S == 0 or B == 0 or C == 0:
-        return assigned, usage
-    from .build import library
-
-    fn = library("sim_load").sim_load_launch
-    fn.restype = ctypes.c_int
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 3 + [ci] * 4 + [vp] * 3
-    rc = fn(_ptr(result), _ptr(active), _ptr(request), S, B, C, R,
-            _ptr(assigned), _ptr(usage), _stream(dev))
+        return (torch.zeros((S, C), dtype=I64, device=dev),
+                torch.zeros((S, C, R), dtype=I64, device=dev))
+    assigned = torch.empty((S, C), dtype=I64, device=dev)
+    usage = torch.empty((S, C, R), dtype=I64, device=dev)
+    rc = _bind("sim_load", "sim_load_launch", _SIM_LOAD_ARGTYPES)(
+        result.data_ptr(), active.data_ptr(), request.data_ptr(), S, B, C, R,
+        assigned.data_ptr(), usage.data_ptr(), _stream(dev))
     _raise_on(rc, "sim_load")
     return assigned, usage
 

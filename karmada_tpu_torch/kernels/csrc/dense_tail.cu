@@ -33,28 +33,38 @@
 //
 // Rows are thousands of columns wide, so nothing is sorted. Every order
 // statistic is a SELECTION: an MSB-first radix select with 8-bit digit
-// histograms in shared memory, over keys rebased to the row's key range so
-// that small ranges take few passes, each pass re-reading the row from
-// global memory (L1/L2 resident). The bonus cutoff selects the rem-th
-// (weight, packed last/tie, column) triple one key at a time; a column is
-// in the bonus set iff its triple is at or before the cutoff, which is the
-// reference's `_cutoff_le` compare. The Aggregated prefix walks the same
-// digits with per-digit weight sums beside the counts: the boundary key is
-// the largest one whose weighted rank is below the target, and inside its
-// group of equal keys (all of one weight) the count follows by division.
-// That walk needs non-negative weights (a monotone prefix sum); a row with
-// a negative weight, which no encoded batch produces, counts its prefix
-// exactly by a quadratic pass instead. The output window holds at most 128
-// entries: its cutoff is selected the same way and its members are sorted
-// in shared memory. Any width works; shared memory is fixed (about 4.2 KB).
+// histograms, over keys rebased to the row's key range so that small ranges
+// take few passes. The bonus cutoff selects the rem-th (weight, packed
+// last/tie, column) triple one key at a time; a column is in the bonus set
+// iff its triple is at or before the cutoff, which is the reference's
+// `_cutoff_le` compare. The Aggregated prefix walks the same digits with
+// per-digit weight sums beside the counts: the boundary key is the largest
+// one whose weighted rank is below the target, and inside its group of
+// equal keys (all of one weight) the count follows by division. That walk
+// needs non-negative weights (a monotone prefix sum); a row with a negative
+// weight, which no encoded batch produces, counts its prefix exactly by a
+// quadratic pass instead. The output window holds at most 128 entries: its
+// cutoff is selected the same way and its members are sorted in shared
+// memory. With topk = 0 (dense_tail_launch only) there is no window: the
+// callers that drop it (the graft program, the per-row re-solve) skip its
+// selection and sort.
 //
-// What bounds it on an H100: bytes are 13 per input element read once plus
-// the i32 result row (about 0.6 GB for the 8k rows x 5120 columns of the
-// dense flagship), so the bound is memory; this first version re-reads each
-// row once per selection pass (some 10-30 passes) and serialises its
-// histograms through shared-memory atomics, so it runs well above that
-// bound. Built by karmada_tpu_torch/kernels/build.py with nvcc for sm_90a
-// and called through the plain C entry points at the bottom (ctypes). The
+// What bounds it on an H100: bytes, 13 per input element read once plus
+// the i32 result row (about 0.4 GB for the 10 240 rows x 5 120 columns of
+// the graft program). Two routes, both exact:
+//   - the shared-memory route (a block of 384 threads per row, two blocks
+//     an SM at 5 120 columns): the row is read from device memory once and
+//     staged in dynamic shared memory (17 bytes a column, up to 12 288
+//     columns, about 215 KB of the 227 KB a block may take); every selection pass then
+//     sweeps shared memory, its histogram takes one shared-memory atomic per
+//     distinct digit of a warp, warp 0 picks the digit with a shuffle scan,
+//     and a pass that leaves one member ends the selection
+//     (radix_select.cuh, "Rows staged in shared memory");
+//   - the re-reading route, for wider rows: each pass re-reads the row from
+//     global memory (L1/L2 resident) and its histograms take one
+//     shared-memory atomic per column; shared memory is fixed (about 4.2 KB).
+// Built by karmada_tpu_torch/kernels/build.py with nvcc for sm_90a and
+// called through the plain C entry points at the bottom (ctypes). The
 // radix selections live in radix_select.cuh, shared with group_score.cu.
 
 #include <cuda_runtime.h>
@@ -292,7 +302,29 @@ __device__ Cutoff aggregated_cutoff(const TailParams& p, const RowCtx& r, Shared
   return select_triple(s, C, count, a_of, b_of);
 }
 
-template <int kMode>
+// Bitonic sort of the kTopMax window keys in shared memory, ascending
+// (every thread of the block calls it).
+__device__ void sort_window(unsigned long long* key, int tid) {
+  for (int k = 2; k <= kTopMax; k <<= 1) {
+    for (int m = k >> 1; m > 0; m >>= 1) {
+      if (tid < kTopMax / 2) {
+        const int i = 2 * tid - (tid & (m - 1));
+        const int ixm = i + m;
+        const bool up = (i & k) == 0;
+        const unsigned long long x = key[i], y = key[ixm];
+        if (up == (x > y)) {
+          key[i] = y;
+          key[ixm] = x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// The re-reading route, for rows wider than shared memory holds: every
+// pass reads the row from device memory (L1/L2) again.
+template <int kMode, bool kWin>
 __global__ void __launch_bounds__(kThreads)
 dense_tail_kernel(TailParams p) {
   __shared__ Shared s;
@@ -430,6 +462,7 @@ dense_tail_kernel(TailParams p) {
     p.nnz[j] = (int32_t)pos;
     s.slots = 0;
   }
+  if constexpr (!kWin) return;
 
   // ---- the output window: top `topk` by (value desc, column asc) ----
   auto top_key = [&](int c) {
@@ -448,28 +481,365 @@ dense_tail_kernel(TailParams p) {
   __syncthreads();
   for (int i = p.topk + tid; i < kTopMax; i += blockDim.x) s.topkey[i] = ~0ull;
   __syncthreads();
-  // bitonic sort of the kTopMax window keys, ascending
-  for (int k = 2; k <= kTopMax; k <<= 1) {
-    for (int m = k >> 1; m > 0; m >>= 1) {
-      if (tid < kTopMax / 2) {
-        const int i = 2 * tid - (tid & (m - 1));
-        const int ixm = i + m;
-        const bool up = (i & k) == 0;
-        const unsigned long long x = s.topkey[i], y = s.topkey[ixm];
-        if (up == (x > y)) {
-          s.topkey[i] = y;
-          s.topkey[ixm] = x;
-        }
-      }
-      __syncthreads();
-    }
-  }
+  sort_window(s.topkey, tid);
   for (int i = tid; i < p.topk; i += blockDim.x) {
     const uint64_t k = s.topkey[i];
     const int col = (int)(k & kLow32);
     p.top_idx[(int64_t)j * p.topk + i] = kMode == kWindow ? r.cand[col] : col;
     p.top_val[(int64_t)j * p.topk + i] = (int32_t)(kI32Max - (int64_t)(k >> 32));
   }
+}
+
+// ---------------------------------------------------------------------------
+// The shared-memory route: the row read from device memory once.
+//
+// The block stages its row as the per-column values every later step needs:
+// the dispenser weight (int64; the masked availability until the row sums
+// are known), the masked previous replicas, the tie and the feasibility
+// (17 bytes a column, plus a ballot word per 32 columns of scratch), all in
+// dynamic shared memory. Every sweep after that visits the columns the
+// thread staged itself (column c = tid, tid + blockDim.x, ...), so only the
+// selections, the non-monotone Aggregated count and the output window read
+// columns other threads wrote, each after a barrier. The selections are
+// radix_select.cuh's shared-memory ones. The division tie cutoff and the
+// output window select a key, then take the k-th column among the members
+// with that key in column order (one ballot sweep) unless the key's member
+// was unique already.
+
+// 384 threads, two blocks an SM: at most 80 registers a thread (512
+// threads at 64 spilled), and two rows of 5 120 columns (2 x 92 KB) fit
+constexpr int kSmemThreads = 384;
+constexpr int kSmemLimit = 232448;  // shared memory a block may take on sm_90 (227 KB)
+constexpr int kSmemMaxCols = 12288;  // the widest row the route stages (about 215 KB)
+
+struct SmemShared : SmemSelect {
+  unsigned long long topkey[kTopMax];
+  unsigned int slots;
+};
+
+// Built with -DDENSE_TAIL_PHASES (scripts/torch_tail_phases.py, never by
+// build.py), thread 0 of each block adds the cycles of each phase of the
+// shared-memory route into g_phase; dense_tail_phase_cycles reads and
+// zeroes them. Phases: 0 staging and row sums, 1 weights, 2 Aggregated
+// cutoff, 3 quota sums, 4 bonus cutoff, 5 result row, 6 window cutoff,
+// 7 window gather and sort.
+#ifdef DENSE_TAIL_PHASES
+constexpr int kPhases = 8;
+__device__ unsigned long long g_phase[kPhases];
+#define PHASE_START long long phase_t = clock64()
+#define PHASE(i)                                                    \
+  do {                                                              \
+    if (threadIdx.x == 0) {                                         \
+      const long long t = clock64();                                \
+      atomicAdd(&g_phase[i], (unsigned long long)(t - phase_t));    \
+      phase_t = t;                                                  \
+    }                                                               \
+  } while (0)
+#else
+#define PHASE_START
+#define PHASE(i)
+#endif
+
+// Dynamic shared memory of one row C columns wide: weight (i64), masked
+// prev (i32), tie (i32) / later the result, the ballot words, feasibility.
+__host__ __device__ constexpr size_t smem_words(int C) { return ((size_t)C + 31) / 32; }
+__host__ __device__ constexpr size_t smem_bytes(int C) {
+  return (size_t)C * 16 + smem_words(C) * 4 + (size_t)C;
+}
+
+// Block-wide minima of three int64 values (each at most 0: the minima
+// start at 0, as the row-reading kernel's do); every thread gets them.
+__device__ void smem_mins(SmemSelect& s, int64_t (&m)[3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) m[i] = warp_min_i64(m[i]);
+  if (lane_id() == 0) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) s.red[warp_id()][i] = (unsigned long long)m[i];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    int64_t v = 0;
+    for (int w = 0; w < n_warps(); ++w) {
+      const int64_t t = (int64_t)s.red[w][i];
+      v = t < v ? t : v;
+    }
+    m[i] = v;
+  }
+  __syncthreads();
+}
+
+// select_triple over a staged row: the k-th smallest (a, b, column) triple
+// (1 <= k <= C); a level whose selected key has a single member ends it.
+template <class KeyA, class KeyB>
+__device__ Cutoff smem_triple(SmemSelect& s, unsigned* words, int C, uint64_t k, KeyA a_of,
+                              KeyB b_of) {
+  Cutoff t;
+  t.any = true;
+  const Sel sa = smem_select(s, C, k, a_of, [](int) { return true; });
+  t.a = sa.key;
+  k -= sa.less;
+  if (sa.item >= 0) {
+    t.b = b_of(sa.item);
+    t.col = sa.item;
+    return t;
+  }
+  const uint64_t a0 = t.a;
+  const Sel sb = smem_select(s, C, k, b_of, [&](int c) { return a_of(c) == a0; });
+  t.b = sb.key;
+  k -= sb.less;
+  if (sb.item >= 0) {
+    t.col = sb.item;
+    return t;
+  }
+  const uint64_t b0 = t.b;
+  t.col = smem_nth(s, words, C, k, [&](int c) { return a_of(c) == a0 && b_of(c) == b0; });
+  return t;
+}
+
+template <int kMode, bool kWin>
+__global__ void __launch_bounds__(kSmemThreads, 2)
+dense_tail_smem_kernel(TailParams p) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  __shared__ SmemShared s;
+  const int j = blockIdx.x;
+  const int b = kMode == kWindow ? j : p.rows[j];
+  const int C = p.C;
+  const int tid = threadIdx.x;
+  const int bd = blockDim.x;
+  int64_t* w = reinterpret_cast<int64_t*>(dyn);
+  int32_t* pmv = reinterpret_cast<int32_t*>(w + C);
+  int32_t* tv = pmv + C;  // the tie; the result once it is written
+  unsigned* words = reinterpret_cast<unsigned*>(tv + C);
+  uint8_t* fv = reinterpret_cast<uint8_t*>(words + smem_words(C));
+
+  const int64_t base = (int64_t)b * C;
+  const int strat = p.strategy[b];
+  const bool is_static = strat == kStaticWeight;
+  const bool is_dyn = strat == kDynamicWeight || strat == kAggregated;
+  const bool fresh = p.fresh[b] != 0;
+  const int32_t reps = p.replicas[b];
+  const int64_t* wrow = kMode == kSpread ? nullptr
+                                         : p.weight_tables + (int64_t)p.weight_idx[b] *
+                                                                 (kMode == kWindow ? p.Cw : C);
+  const uint8_t* chosen = kMode == kSpread ? p.chosen + (int64_t)j * p.R1 : nullptr;
+  const int32_t* cand = kMode == kWindow ? p.cand + base : nullptr;
+  PHASE_START;
+  for (int i = tid; i < 256; i += bd) {
+    s.hist[i] = 0;
+    s.wsum[i] = 0;
+  }
+
+  // ---- the one read of the row: stage it, with its sums and minima ----
+  uint64_t sums[4] = {0, 0, 0, 0};  // static weight, avail, prev, feasible
+  int64_t ma = 0, mp = 0, mf = 0;
+  for (int c = tid; c < C; c += bd) {
+    bool f = p.feas[base + c] != 0;
+    if constexpr (kMode == kSpread) f = f && chosen[p.rid[c]] != 0;
+    const int64_t am = f ? (int64_t)p.avail[base + c] : 0;
+    const int32_t pm = f ? p.prev[base + c] : 0;
+    int64_t sw = 0;
+    if constexpr (kMode != kSpread) {
+      if (is_static && f) sw = kMode == kWindow ? wrow[cand[c]] : wrow[c];
+    }
+    w[c] = is_static ? sw : am;
+    pmv[c] = pm;
+    tv[c] = p.tie[base + c];
+    fv[c] = f ? 1 : 0;
+    sums[0] += (uint64_t)sw;
+    sums[1] += (uint64_t)am;
+    sums[2] += (uint64_t)(int64_t)pm;
+    sums[3] += f ? 1 : 0;
+    ma = am < ma ? am : ma;
+    mp = pm < mp ? pm : mp;
+    mf = am + pm < mf ? am + pm : mf;
+  }
+  int64_t mins[3] = {ma, mp, mf};
+  smem_mins(s, mins);
+  smem_sums<4>(s, sums);
+  if constexpr (kMode == kSpread) {
+    if (tid == 0) p.feas_count[j] = (int32_t)sums[3];
+  }
+  const int64_t min_a = mins[0], min_p = mins[1], min_f = mins[2];
+  const bool all_zero = sums[0] == 0;
+  const int64_t assigned = (int64_t)sums[2];
+  const int64_t target = reps;
+  const bool down = !fresh && assigned > target;
+  const bool up = !fresh && assigned < target;
+  const bool eq = !fresh && assigned == target;
+  const int64_t tgt_dyn = up ? target - assigned : target;
+  const int64_t asum = (int64_t)(fresh ? sums[1] + sums[2] : (down ? sums[2] : sums[1]));
+  const bool unsched = is_dyn && !eq && asum < tgt_dyn;
+  const int64_t w_min = fresh ? min_f : (down ? min_p : min_a);
+  PHASE(0);
+
+  // ---- the dispenser, for the rows whose result it decides ----
+  const bool dispense = is_static || (is_dyn && !eq && !unsched);
+  const bool trunc = p.has_agg && strat == kAggregated && !eq;
+  auto prior = [&](int c) -> uint64_t { return (up && pmv[c] > 0) ? 0 : 1; };
+  auto last_of = [&](int c) -> int32_t { return (is_static || up) ? pmv[c] : 0; };
+  auto bonus_b = [&](int c) -> uint64_t {
+    return (((uint64_t)(kI32Max - (int64_t)last_of(c)) << 32) | (uint64_t)(int64_t)tv[c]) ^
+           kSign;
+  };
+  int64_t sum_w = 0, t64 = 0, safe = 1;
+  Cutoff bonus;
+  bonus.any = false;
+  bool bonus_all = false;
+  if (dispense) {
+    if (is_static) {
+      if (all_zero) {
+        for (int c = tid; c < C; c += bd) w[c] = fv[c];
+      }
+    } else {
+      for (int c = tid; c < C; c += bd) {
+        const int64_t am = w[c], pm = pmv[c];
+        w[c] = fresh ? am + pm : (down ? pm : am);
+      }
+    }
+    __syncthreads();  // the weights, for the selections' reads of any column
+    PHASE(1);
+    if (trunc) {
+      // the Aggregated truncation: keep the shortest (prior desc, weight
+      // desc, column asc) prefix whose exclusive weighted sum stays below
+      // the target
+      Cutoff cut;
+      cut.any = false;
+      if (w_min >= 0) {  // every weight in [0, 2^32): one key (prior, weight)
+        auto comp = [&](int c) { return (prior(c) << 32) | (kLow32 - (uint64_t)w[c]); };
+        const Walk wk = smem_walk(
+            s, C, tgt_dyn, comp, [&](int c) { return (uint64_t)w[c]; },
+            [](int) { return true; });
+        if (wk.found) {
+          const int64_t w_g = (int64_t)(kLow32 - (wk.v & kLow32));
+          uint64_t in = wk.n;
+          if (w_g > 0) {
+            const uint64_t need = (uint64_t)((tgt_dyn - wk.rank + w_g - 1) / w_g);
+            in = need < in ? need : in;
+          }
+          const uint64_t v = wk.v;
+          cut.col = smem_nth(s, words, C, in, [&](int c) { return comp(c) == v; });
+          cut.any = true;
+          cut.a = v >> 32;
+          cut.b = neg_key(w_g);
+        }
+      } else {  // a negative weight: count the positions by exact prefix sums
+        uint64_t count = 0;
+        for (int c = tid; c < C; c += bd) {
+          const uint64_t aj = prior(c), bj = neg_key(w[c]);
+          uint64_t before = 0;
+          for (int i = 0; i < C; ++i) {
+            if (i != c && triple_le(prior(i), neg_key(w[i]), i, aj, bj, c)) {
+              before += (uint64_t)w[i];
+            }
+          }
+          count += (int64_t)before < tgt_dyn ? 1 : 0;
+        }
+        count = smem_sum(s, count);
+        if (count > 0) {
+          cut = smem_triple(s, words, C, count, prior, [&](int c) { return neg_key(w[c]); });
+        }
+      }
+      // the selections' last barrier follows every read of another
+      // thread's weight, and each thread truncates its own columns
+      for (int c = tid; c < C; c += bd) {
+        if (!(cut.any && triple_le(prior(c), neg_key(w[c]), c, cut.a, cut.b, cut.col))) {
+          w[c] = 0;
+        }
+      }
+    }
+    PHASE(2);
+    uint64_t acc = 0;
+    for (int c = tid; c < C; c += bd) acc += (uint64_t)w[c];
+    sum_w = (int64_t)smem_sum(s, acc);
+    t64 = wrap_i32(is_static ? target : tgt_dyn);
+    safe = sum_w > 1 ? sum_w : 1;
+    acc = 0;
+    for (int c = tid; c < C; c += bd) acc += (uint64_t)floordiv(wrap_mul(w[c], t64), safe);
+    const int64_t rem = (int64_t)((uint64_t)t64 - smem_sum(s, acc));
+    PHASE(3);
+    if (sum_w > 0 && rem > 0) {
+      if (rem >= C) {
+        bonus_all = true;
+      } else {
+        bonus = smem_triple(s, words, C, (uint64_t)rem, [&](int c) { return neg_key(w[c]); },
+                            bonus_b);
+      }
+    }
+    PHASE(4);
+  }
+
+  // ---- the result row (written once) and nnz ----
+  int32_t* res_row = p.result + (int64_t)j * C;
+  uint64_t pos = 0;
+  for (int c = tid; c < C; c += bd) {
+    const bool f = fv[c] != 0;
+    int32_t v = 0;
+    if (strat == kDuplicated) {
+      v = f ? reps : 0;
+    } else if (is_static || is_dyn) {
+      if (unsched) {
+        v = 0;
+      } else if (is_dyn && eq) {
+        v = pmv[c];
+      } else {
+        const int64_t wc = w[c];
+        bool plus = false;
+        if (wc > 0) {
+          plus = bonus_all ||
+                 (bonus.any && triple_le(neg_key(wc), bonus_b(c), c, bonus.a, bonus.b, bonus.col));
+        }
+        int32_t q = wrap_i32(floordiv(wrap_mul(wc, t64), safe) + (plus ? 1 : 0));
+        if (!(sum_w > 0)) q = 0;
+        const int32_t init = is_static ? 0 : last_of(c);
+        v = (int32_t)((uint32_t)init + (uint32_t)q);
+      }
+    }
+    res_row[c] = v;
+    tv[c] = v;
+    pos += v > 0 ? 1 : 0;
+  }
+  pos = smem_sum(s, pos);  // its barriers also publish the staged result
+  if (tid == 0) {
+    p.unsched[j] = unsched ? 1 : 0;
+    p.avail_sum[j] = wrap_i32(asum);
+    p.nnz[j] = (int32_t)pos;
+    s.slots = 0;
+  }
+  PHASE(5);
+  if constexpr (!kWin) return;
+
+  // ---- the output window: top `topk` by (value desc, column asc) ----
+  auto vkey = [&](int c) -> uint64_t { return (uint64_t)(kI32Max - (int64_t)tv[c]); };
+  uint64_t cut = ~0ull;
+  if (p.topk < C) {
+    const Sel vs = smem_select(s, C, (uint64_t)p.topk, vkey, [](int) { return true; });
+    int col = vs.item;
+    if (col < 0) {
+      const uint64_t v0 = vs.key;
+      col = smem_nth(s, words, C, (uint64_t)p.topk - vs.less,
+                     [&](int c) { return vkey(c) == v0; });
+    }
+    cut = (vs.key << 32) | (uint64_t)col;
+  }
+  PHASE(6);
+  __syncthreads();
+  for (int c = tid; c < C; c += bd) {
+    const uint64_t k = (vkey(c) << 32) | (uint64_t)c;
+    if (k <= cut) s.topkey[atomicAdd(&s.slots, 1u)] = k;
+  }
+  __syncthreads();
+  // the topk keys are distinct (the column is in them): each lands at its
+  // rank, with no sort and no barrier
+  if (tid < p.topk) {
+    const uint64_t k = s.topkey[tid];
+    int i = 0;
+    for (int q = 0; q < p.topk; ++q) i += s.topkey[q] < k ? 1 : 0;
+    const int col = (int)(k & kLow32);
+    p.top_idx[(int64_t)j * p.topk + i] = kMode == kWindow ? cand[col] : col;
+    p.top_val[(int64_t)j * p.topk + i] = (int32_t)(kI32Max - (int64_t)(k >> 32));
+  }
+  PHASE(7);
 }
 
 TailParams tail_params(const void* feas, const void* avail, const void* prev, const void* tie,
@@ -497,23 +867,63 @@ TailParams tail_params(const void* feas, const void* avail, const void* prev, co
   return p;
 }
 
+// The route of a call: 0 the shared-memory route up to kSmemMaxCols
+// columns, else the re-reading one; 1 forces the re-reading one, so both
+// can be held against the plain version and timed at any width.
+constexpr int kRouteAuto = 0;
+constexpr int kRouteReread = 1;
+
+template <int kMode, bool kWin>
+int launch_tail(const TailParams& p, int n, int route, cudaStream_t st) {
+  const size_t dyn = smem_bytes(p.C);
+  const bool fits = p.C <= kSmemMaxCols;
+  // the static shared memory (ptxas may round it up) with room to spare
+  static_assert(smem_bytes(kSmemMaxCols) + sizeof(SmemShared) + 1024 <= (size_t)kSmemLimit,
+                "the widest staged row must fit a block's shared memory");
+  if (route != kRouteAuto && route != kRouteReread) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (route == kRouteReread || !fits) {
+    dense_tail_kernel<kMode, kWin><<<n, kThreads, 0, st>>>(p);
+    return (int)cudaGetLastError();
+  }
+  if (dyn > 48 * 1024) {  // past the default: opt in to the widest row once per device
+    static unsigned long long opted = 0;
+    int dev = 0;
+    cudaError_t rc = cudaGetDevice(&dev);
+    if (rc != cudaSuccess) return (int)rc;
+    if (dev >= 64 || !(opted >> dev & 1ull)) {
+      rc = cudaFuncSetAttribute(dense_tail_smem_kernel<kMode, kWin>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem_bytes(kSmemMaxCols));
+      if (rc != cudaSuccess) return (int)rc;
+      if (dev < 64) opted |= 1ull << dev;
+    }
+  }
+  dense_tail_smem_kernel<kMode, kWin><<<n, kSmemThreads, dyn, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// topk = 0: no output window (top_idx / top_val unused); the result,
+// unsched, avail_sum and nnz are written as with one.
 extern "C" int dense_tail_launch(
     const void* feas, const void* avail, const void* prev, const void* tie, int C,
     const void* rows, int n, const void* weight_tables, const void* weight_idx,
     const void* strategy, const void* replicas, const void* fresh, int topk, int has_agg,
-    void* result, void* unsched, void* avail_sum, void* nnz, void* top_idx, void* top_val,
-    void* stream) {
-  if (n <= 0 || C <= 0 || topk <= 0 || topk > kTopMax || topk > C) {
+    int route, void* result, void* unsched, void* avail_sum, void* nnz, void* top_idx,
+    void* top_val, void* stream) {
+  if (n <= 0 || C <= 0 || topk < 0 || topk > kTopMax || topk > C) {
     return (int)cudaErrorInvalidValue;
   }
   TailParams p = tail_params(feas, avail, prev, tie, C, rows, strategy, replicas, fresh, topk,
                              has_agg, result, unsched, avail_sum, nnz, top_idx, top_val);
   p.weight_tables = static_cast<const int64_t*>(weight_tables);
   p.weight_idx = static_cast<const int32_t*>(weight_idx);
-  dense_tail_kernel<kDense><<<n, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return topk > 0 ? launch_tail<kDense, true>(p, n, route, st)
+                  : launch_tail<kDense, false>(p, n, route, st);
 }
 
 // The spread re-run: the same tail over each output row's selection (see
@@ -523,8 +933,8 @@ extern "C" int spread_tail_launch(
     const void* feas, const void* avail, const void* prev, const void* tie, int C,
     const void* rows, int n, const void* chosen, int R1, const void* rid,
     const void* strategy, const void* replicas, const void* fresh, int topk, int has_agg,
-    void* result, void* unsched, void* avail_sum, void* feas_count, void* nnz, void* top_idx,
-    void* top_val, void* stream) {
+    int route, void* result, void* unsched, void* avail_sum, void* feas_count, void* nnz,
+    void* top_idx, void* top_val, void* stream) {
   if (n <= 0 || C <= 0 || R1 <= 0 || topk <= 0 || topk > kTopMax || topk > C) {
     return (int)cudaErrorInvalidValue;
   }
@@ -534,8 +944,7 @@ extern "C" int spread_tail_launch(
   p.R1 = R1;
   p.rid = static_cast<const int32_t*>(rid);
   p.feas_count = static_cast<int32_t*>(feas_count);
-  dense_tail_kernel<kSpread><<<n, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  return launch_tail<kSpread, true>(p, n, route, static_cast<cudaStream_t>(stream));
 }
 
 // The window mode: the tail over [n, K] candidate windows (see
@@ -545,8 +954,8 @@ extern "C" int window_tail_launch(
     const void* feas, const void* avail, const void* prev, const void* tie, const void* cand,
     int n, int K, const void* weight_tables, int Cw, const void* weight_idx,
     const void* strategy, const void* replicas, const void* fresh, int topk, int has_agg,
-    void* result, void* unsched, void* avail_sum, void* nnz, void* top_idx, void* top_val,
-    void* stream) {
+    int route, void* result, void* unsched, void* avail_sum, void* nnz, void* top_idx,
+    void* top_val, void* stream) {
   if (n <= 0 || K <= 0 || Cw <= 0 || topk <= 0 || topk > kTopMax || topk > K) {
     return (int)cudaErrorInvalidValue;
   }
@@ -556,6 +965,17 @@ extern "C" int window_tail_launch(
   p.weight_idx = static_cast<const int32_t*>(weight_idx);
   p.cand = static_cast<const int32_t*>(cand);
   p.Cw = Cw;
-  dense_tail_kernel<kWindow><<<n, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  return launch_tail<kWindow, true>(p, n, route, static_cast<cudaStream_t>(stream));
 }
+
+#ifdef DENSE_TAIL_PHASES
+// The phase cycles summed since the last call (kPhases values), then zeroed.
+extern "C" int dense_tail_phase_cycles(unsigned long long* out) {
+  cudaError_t rc = cudaMemcpyFromSymbol(out, g_phase, sizeof(g_phase));
+  if (rc == cudaSuccess) {
+    const unsigned long long zero[kPhases] = {};
+    rc = cudaMemcpyToSymbol(g_phase, zero, sizeof(g_phase));
+  }
+  return (int)rc;
+}
+#endif

@@ -27,7 +27,12 @@
 //
 // One thread per (b, c), 128 consecutive clusters per block, so the
 // [B, C] output is written coalesced; blockIdx.y strides over the rows.
-// The row's request is staged in shared memory. The node arrays (about
+// The row's request is staged in shared memory for up to kMaxR resources;
+// a wider request (kWide) is read in place, every thread of a block at the
+// same address (one broadcast load), so any R runs in the one launch: the
+// minimum over resources is taken per node before the sum over the
+// cluster's nodes, so resource blocks could not be merged after it. The
+// node arrays (about
 // 17 500 nodes x 4 resources x 16 bytes at the flagship) stay in L2.
 // Against the card's peak rates it is bound by the 4-byte outputs (100 MB
 // at 5 000 x 5 000) over the B * N * R divisions (3.5e8); int64 division
@@ -43,7 +48,7 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kMaxR = 16;
+constexpr int kMaxR = 16;  // resources staged in shared memory
 constexpr int kMaxGridY = 65535;
 constexpr int64_t kI32Max = 2147483647LL;
 
@@ -53,15 +58,17 @@ __device__ inline int64_t floor_div(int64_t a, int64_t q) {  // q > 0
   return v;
 }
 
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads)
 fleet_estimate_kernel(const int64_t* alloc, const int64_t* requested, const int64_t* pod_count,
                       const int64_t* allowed, const uint8_t* claimless_ok,
                       const int32_t* order, const int32_t* off, const int64_t* request, int B,
                       int C, int R, int32_t* out) {
-  __shared__ int64_t req[kMaxR];
+  __shared__ int64_t req_s[kMaxR];
   const int c = blockIdx.x * kThreads + threadIdx.x;
   for (int b = blockIdx.y; b < B; b += gridDim.y) {
-    if (threadIdx.x < R) req[threadIdx.x] = request[(int64_t)b * R + threadIdx.x];
+    const long long* req_g = reinterpret_cast<const long long*>(request + (int64_t)b * R);
+    if (!kWide && threadIdx.x < R) req_s[threadIdx.x] = req_g[threadIdx.x];
     __syncthreads();
     if (c < C) {
       int64_t sum = 0;
@@ -70,7 +77,7 @@ fleet_estimate_kernel(const int64_t* alloc, const int64_t* requested, const int6
         if (!claimless_ok[n]) continue;
         int64_t per = kI32Max;
         for (int r = 0; r < R; ++r) {
-          const int64_t q = req[r];
+          const int64_t q = kWide ? (int64_t)req_g[r] : req_s[r];
           if (q <= 0) continue;
           const int64_t v =
               floor_div(alloc[(int64_t)n * R + r] - requested[(int64_t)n * R + r], q);
@@ -96,9 +103,10 @@ extern "C" int fleet_estimate_launch(const void* alloc, const void* requested,
                                      const void* claimless_ok, const void* order,
                                      const void* off, int C, int R, const void* request, int B,
                                      void* out, void* stream) {
-  if (B <= 0 || C <= 0 || R <= 0 || R > kMaxR) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || C <= 0 || R <= 0) return (int)cudaErrorInvalidValue;
   const dim3 grid((C + kThreads - 1) / kThreads, B < kMaxGridY ? B : kMaxGridY);
-  fleet_estimate_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto* kernel = R <= kMaxR ? fleet_estimate_kernel<false> : fleet_estimate_kernel<true>;
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(alloc), static_cast<const int64_t*>(requested),
       static_cast<const int64_t*>(pod_count), static_cast<const int64_t*>(allowed),
       static_cast<const uint8_t*>(claimless_ok), static_cast<const int32_t*>(order),

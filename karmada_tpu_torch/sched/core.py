@@ -406,8 +406,9 @@ def _schedule_kernel(
     answer). `prev_member` feeds the locality score and `prev_replicas`
     the tail; they need not agree. On the CPU it runs `_schedule_body`; on
     the card the dense-input filter kernel, then the dense tail over every
-    row (static weights as a [B, C] table read at row b; its output window
-    is dropped). Returns `_schedule_body`'s six outputs."""
+    row (static weights as a [B, C] table read at row b, with no output
+    window: the program returns none). Returns `_schedule_body`'s six
+    outputs."""
     dev = alive.device
     if dev.type == "cpu":
         return _schedule_body(
@@ -424,11 +425,11 @@ def _schedule_kernel(
         replicas, request, unknown_request, gvk, tol_key, tol_value, tol_effect, tol_op,
         affinity_ok, eviction_ok, prev_member, extra_avail,
     )
-    B, C = feasible.shape
+    B = feasible.shape[0]
     rows = torch.arange(B, dtype=I32, device=dev)
-    result, unschedulable, avail_sum, _nnz, _top_idx, _top_val = kernels.dense_tail(
+    result, unschedulable, avail_sum, *_ = kernels.dense_tail(
         feasible, avail, prev_replicas, tie, rows, static_weight, rows, strategy, replicas,
-        fresh, topk=min(C, kernels.MAX_DENSE_TOPK), has_agg=True,
+        fresh, topk=0, has_agg=True,
     )
     return feasible, score, result, unschedulable, avail_sum, avail
 
@@ -664,6 +665,9 @@ class ArrayScheduler:
         device=None,
         pipeline: Optional[bool] = None,
         mesh=None,
+        *,
+        encoder: Optional[FleetEncoder] = None,
+        bucket_cols: bool = True,
     ):
         """`device`: None means the CUDA card (RuntimeError without one);
         "cpu" runs the plain PyTorch path. `mesh`: a parallel.mesh.Mesh;
@@ -677,7 +681,12 @@ class ArrayScheduler:
         (sched/pipeline.py — encode/solve/materialize overlapped across
         chunks, bit-identical decisions); None reads KARMADA_TPU_PIPELINE
         (1/on/true enables it; by default the serial row-chunk executor
-        runs them, which measured faster on the card)."""
+        runs them, which measured faster on the card). `encoder`: the
+        fleet encoder (its resource vocabulary; default `FleetEncoder()`).
+        `bucket_cols`: pad the fleet axis to the shape_bucket lattice with
+        dead clusters (the default); False solves at the exact fleet width.
+        Both are keyword-only: the reference takes `encoder` as its second
+        positional argument, where this constructor has `plugins`."""
         from .candidates import resolve_candidate_k
 
         self.mesh = mesh
@@ -694,7 +703,8 @@ class ArrayScheduler:
                     f"ArrayScheduler: device {device!r} differs from the mesh's first device "
                     f"{self.device}, on which the round runs"
                 )
-        self.encoder = FleetEncoder()
+        self.encoder = encoder or FleetEncoder()
+        self.bucket_cols = bucket_cols
         self.plugin_registry = plugin_mod.PluginRegistry()
         self.enabled_plugins = self.plugin_registry.filter(plugins)
         self._plugin_bits = plugin_mod.plugin_bits(self.enabled_plugins)
@@ -792,11 +802,12 @@ class ArrayScheduler:
 
     def _fleet_width(self, n_real: int) -> int:
         """Padded fleet width for n_real clusters: the shape_bucket
-        lattice point, rounded up to a multiple of the clusters axis under
-        a mesh. An empty fleet stays empty."""
+        lattice point (n_real itself without `bucket_cols`), rounded up to
+        a multiple of the clusters axis under a mesh. An empty fleet stays
+        empty."""
         if n_real == 0:
             return 0
-        width = shape_bucket(n_real)
+        width = shape_bucket(n_real) if self.bucket_cols else n_real
         if self.mesh is not None:
             from ..parallel.mesh import AXIS_CLUSTERS
 
@@ -1778,7 +1789,7 @@ class ArrayScheduler:
         result, unsched, avail_sum, *_ = kernels.dense_tail(
             feas, avail, prev, tie, rows, t["weight_tables"], t["weight_idx"],
             t["strategy"], t["replicas"], t["fresh"],
-            topk=min(feas.shape[1], 8), has_agg=bool((batch.strategy == AGGREGATED).any()),
+            topk=0, has_agg=bool((batch.strategy == AGGREGATED).any()),
         )
         return feas, result, unsched, avail_sum
 

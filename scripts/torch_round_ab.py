@@ -1,0 +1,161 @@
+"""Round latency of the cells the dense tail and sim_load run in, for an
+A/B of two trees on one card.
+
+    python3 /path/to/scripts/torch_round_ab.py
+
+Imports chip_smoke and karmada_tpu_torch from the current directory, so
+the same script times this tree and an earlier commit unpacked under a
+gitignored directory (`git archive <commit> | tar -x -C build/parent`):
+run it from each tree's root in turns (parent, this, this, parent) in one
+call. It builds the tree's kernels, then times the compact flagship round
+(a control: neither kernel runs there), the dense flagship round, whatif
+and whatif_churn5k (chip_smoke's builders, seed 0), each round on the
+host clock around a synchronised call, with its split (ArrayScheduler:
+launch / wait / materialize; Simulator: fleet encodes / batch encode /
+solve / the rest), and dense_tail's and sim_load's time in those rounds
+by CUDA events around each wrapper call (its host enqueue included).
+Prints one JSON line: the tree, the card's nvidia-smi line, and per cell
+the round times in seconds, their p50, the splits' medians and each
+kernel's ms and calls a round. Needs one CUDA card and nvcc.
+"""
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+
+sys.path.insert(0, os.getcwd())
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import chip_smoke  # noqa: E402
+from karmada_tpu_torch import kernels  # noqa: E402
+from karmada_tpu_torch.kernels import build  # noqa: E402
+from karmada_tpu_torch.sched.core import ArrayScheduler  # noqa: E402
+from karmada_tpu_torch.simulation import engine  # noqa: E402
+from karmada_tpu_torch.simulation.engine import Simulator  # noqa: E402
+
+ROUNDS = {"compact flagship": 30, "dense flagship": 30, "whatif": 20, "whatif_churn5k": 4}
+TIMED = ("dense_tail", "sim_load")  # the kernels' wrappers, as the rounds call them
+
+
+class KernelEvents:
+    """While active, each call of kernels.<name> (name in TIMED) is
+    bracketed by CUDA events on the current stream."""
+
+    def __enter__(self):
+        self.saved = {n: getattr(kernels, n) for n in TIMED}
+        self.events = {n: [] for n in TIMED}
+        for n, fn in self.saved.items():
+            def wrap(*a, _fn=fn, _ev=self.events[n], **k):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                out = _fn(*a, **k)
+                end.record()
+                _ev.append((start, end))
+                return out
+            setattr(kernels, n, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(kernels, n, fn)
+
+    def per_round(self, rounds):
+        torch.cuda.synchronize()
+        return {n: {"ms": sum(s.elapsed_time(e) for s, e in ev) / rounds,
+                    "calls": len(ev) / rounds} for n, ev in self.events.items() if ev}
+
+
+def sched_rounds(sched, bindings, rounds):
+    """A warm round, then `rounds` rounds split launch / wait / materialize."""
+    sched.schedule(bindings)
+    torch.cuda.synchronize()
+    times, split = [], []
+    with KernelEvents() as ev:
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            state = sched._launch_solve(bindings)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            sched._materialize_solve(state)
+            t3 = time.perf_counter()
+            times.append(t3 - t0)
+            split.append((t1 - t0, t2 - t1, t3 - t2))
+    return (times, dict(zip(("launch", "wait", "materialize"), np.median(split, 0).tolist())),
+            ev.per_round(rounds))
+
+
+def sim_rounds(sim, bindings, scenarios, rounds):
+    """A warm round, then `rounds` rounds split at the Simulator's seams."""
+    secs = {}
+
+    def timed(key, fn):
+        def wrap(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            if key == "solve":
+                torch.cuda.synchronize()
+            secs[key] = secs.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return wrap
+
+    sim.simulate(bindings, scenarios)
+    torch.cuda.synchronize()
+    saved = engine._sim_solve
+    sim._encode_scenario_fleets = timed("fleet encode", sim._encode_scenario_fleets)
+    sim.batch_encoder.encode = timed("batch encode", sim.batch_encoder.encode)
+    engine._sim_solve = timed("solve", saved)
+    times, split = [], []
+    try:
+        with KernelEvents() as ev:
+            for _ in range(rounds):
+                secs.clear()
+                t0 = time.perf_counter()
+                sim.simulate(bindings, scenarios)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                parts = [secs.get(k, 0.0) for k in ("fleet encode", "batch encode", "solve")]
+                split.append(parts + [times[-1] - sum(parts)])
+    finally:
+        del sim._encode_scenario_fleets, sim.batch_encoder.encode
+        engine._sim_solve = saved
+    keys = ("fleet encode", "batch encode", "solve", "rest")
+    return times, dict(zip(keys, np.median(split, 0).tolist())), ev.per_round(rounds)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("torch_round_ab: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", torch.cuda.current_device())
+    build.build_all()
+    cells = {}
+
+    def keep(name, times, split, kernel_ms):
+        cells[name] = {"p50": float(np.percentile(times, 50)), "times": times, "split": split,
+                       "kernels": kernel_ms}
+        print(f"{name}: p50 {cells[name]['p50']:.4f} s, split {split}, kernels {kernel_ms}",
+              file=sys.stderr, flush=True)
+
+    for name, dense in (("compact flagship", False), ("dense flagship", True)):
+        clusters, bindings = chip_smoke.build_flagship(dense=dense)
+        keep(name, *sched_rounds(ArrayScheduler(clusters, device=dev), bindings, ROUNDS[name]))
+        del clusters, bindings
+    for name, kw in (("whatif", {}), ("whatif_churn5k", {
+            "n_clusters": chip_smoke.CHURN5K_CLUSTERS,
+            "n_bindings": chip_smoke.CHURN5K_BINDINGS})):
+        clusters, bindings, scenarios = chip_smoke.build_whatif(**kw)
+        keep(name, *sim_rounds(Simulator(clusters, device=dev), bindings, scenarios,
+                               ROUNDS[name]))
+        del clusters, bindings, scenarios
+    print(json.dumps({"tree": os.getcwd(), "smi": chip_smoke.nvidia_smi_line(),
+                      "cells": cells}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -197,6 +197,7 @@ def fake_card(monkeypatch):
     calls = []
     monkeypatch.setattr(build, "library", lambda name: _FakeLib(calls))
     monkeypatch.setattr(kernels, "_stream", lambda dev: ctypes.c_void_p(0))
+    monkeypatch.setattr(kernels, "_bound", {})  # entries bound once, to this fake
     return calls
 
 

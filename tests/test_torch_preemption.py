@@ -184,7 +184,8 @@ def test_tier_consume_launch_marshals_one_call(monkeypatch, mode):
     (which zeroes its scratch and launches once): the mode flag, the
     window's cand_idx and K, the [C, R] output and a C x (R + 1) int64
     scratch for the sums and counters; the entry's prototype is bound at
-    the first call only; every check still raises."""
+    the first call only; every check still raises; a 17-resource request
+    takes two calls, over resource blocks of 16 and 1."""
     from karmada_tpu_torch.kernels import build
 
     calls, loads = [], []
@@ -228,11 +229,15 @@ def test_tier_consume_launch_marshals_one_call(monkeypatch, mode):
                                      request, rows)
     with pytest.raises(ValueError, match="shape"):  # a dense placed matrix with a window
         kernels._tier_consume_launch(cap, placed, unsched, request, rows, cand_idx=cand)
-    wide = torch.zeros((C, 17), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="17 resources"):
-        kernels._tier_consume_launch(wide, placed, unsched, torch.zeros((B, 17), dtype=torch.int64),
-                                     rows)
-    assert len(calls) == 2
+    # past 16 resources: one launch per block of 16, over contiguous
+    # resource slices, the outputs side by side
+    wide = _t(rng.integers(0, 100, (C, 17)).astype(np.int64))
+    wide_req = _t(rng.integers(0, 9, (B, 17)).astype(np.int64))
+    out = kernels._tier_consume_launch(wide, p, unsched, wide_req, rows, **kw)
+    assert [name for name, _ in calls] == ["tier_consume_launch"] * 4
+    assert [args[2] for _, args in calls[2:]] == [16, 1]
+    assert all(args[13] == C * 17 * 8 for _, args in calls[2:])  # one scratch, 16 + 1 wide
+    assert out.shape == (C, 17) and out.is_contiguous()
 
 
 # --------------------------------------------------------------------------

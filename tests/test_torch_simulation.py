@@ -237,8 +237,8 @@ def test_sim_wrappers_raise_off_cpu_and_cuda():
 def test_sim_launches_marshal_and_check(fleet, fake_card):
     """The launches' argument marshalling and checks, run on CPU tensors up
     to the (faked) library call: one sim_filter_launch of 39 arguments
-    with the stacked widths, one sim_load_launch of 10; a resource count
-    past the register budget and a mis-shaped tensor raise."""
+    with the stacked widths, one sim_load_launch of 10 for 4, 9 and 17
+    resources (no resource cap); a mis-shaped tensor raises."""
     clusters, names = fleet
     stacks, _, tie_idx, active, batch, extra = _sim_inputs(
         clusters, mixed_bindings(names, n=6), scenario_set(names), seed=2, with_extra=True)
@@ -260,9 +260,14 @@ def test_sim_launches_marshal_and_check(fleet, fake_card):
     assigned, usage = kernels._sim_load_launch(result, T(active), request)
     name, cargs = fake_card[-1]
     assert name == "sim_load_launch" and len(cargs) == 10 and cargs[3:7] == (S, Bp, C, 4)
-    assert tuple(usage.shape) == (S, C, 4) and not usage.any() and not assigned.any()
-    with pytest.raises(NotImplementedError, match="resources past 8"):
-        kernels._sim_load_launch(result, T(active), torch.zeros((Bp, 9), dtype=torch.int64))
+    assert tuple(usage.shape) == (S, C, 4) and tuple(assigned.shape) == (S, C)
+    # any resource count launches (the C entry runs blocks of eight)
+    for R in (9, 17):
+        _, usage = kernels._sim_load_launch(result, T(active),
+                                            torch.zeros((Bp, R), dtype=torch.int64))
+        name, cargs = fake_card[-1]
+        assert name == "sim_load_launch" and cargs[3:7] == (S, Bp, C, R)
+        assert tuple(usage.shape) == (S, C, R)
     with pytest.raises(ValueError, match="tie_idx: shape"):
         kernels._sim_filter_launch(*filt[:7], T(tie_idx.view(np.int64))[:, :-1], *filt[8:],
                                    plugin_bits=31)
