@@ -287,6 +287,7 @@ WINDOW_BINDINGS = 1000
 WINDOW_NAMES = 64  # clusters named by each window-cell affinity
 SPREAD_REPS = 512  # representative rows of the random group_score check
 COMBO_ROWS = 4096  # rows of the combo_select check (its device gate)
+COMBO_SCRATCH_ROWS = 512  # rows of the combo_select check past its shared-memory regions
 WIDE_C = 16384  # the dense tail's and group_score's width check
 TIER_ROUNDS = 20  # timed rounds of each tier cell
 CONFIG3_CLUSTERS = 1000  # BASELINE config 3: 1k clusters x 1k bindings
@@ -314,8 +315,8 @@ WIDE_ROUNDS = 3
 WIDE_SAMPLE = 2048  # wide_40k rows held against the cpu round
 WIDE_TAIL_KS = (192, 256, 512)  # the K > 128 tail's random checks
 WIDE_TAIL_ROWS = 2048
-WIDE_SELECT_CS = (20_480, 32_768)  # the wide select route's random checks
-WIDE_SELECT_ROWS = 2048
+WIDE_SELECT_ROWS = 1024  # rows of the random checks on both sides of the select routes' threshold
+SELECT_EDGE_ROWS = 2048  # rows of the select's seeded edge cases
 WHATIF_CLUSTERS = 500  # bench.py:521 build_whatif's defaults
 WHATIF_BINDINGS = 1000
 WHATIF_SCENARIOS = 16
@@ -1182,6 +1183,11 @@ def check_compact_kernels(sched, bindings, dev, results):
                                          kernels.tail_plain(*a, topk=topk, has_agg=has_agg),
                                          TAIL_OUT))
         t_outs.append(out)
+    sel_err = max(sel_err, compare("candidate_select[flagship, device-memory route]",
+                                   kernels._select_launch(*sel_args, k=k, plugin_bits=bits,
+                                                          route="wide"),
+                                   kernels.select_plain(*sel_args, k=k, plugin_bits=bits),
+                                   SELECT_OUT))
     x_args = sel_args[:-1] + [flagship_answers(np.random.default_rng(20), B, C, dev)]
     sel_err = max(sel_err, compare("candidate_select[flagship, extra_avail]",
                                    kernels._select_launch(*x_args, k=k, plugin_bits=bits),
@@ -1191,7 +1197,12 @@ def check_compact_kernels(sched, bindings, dev, results):
     log(f"compact flagship batch: select k={k} (also with a random extra_avail), tail rows "
         f"{[int(idx.numel()) for idx, _, _ in tails]}: both kernels equal their plain versions")
 
-    sel_ms = cuda_ms(lambda: kernels._select_launch(*sel_args, k=k, plugin_bits=bits), 10)
+    err = max(err, check_select_edges(dev, C, k))
+    sel_ms = min(ab_time("candidate_select, compact flagship", {
+        "new": lambda: kernels._select_launch(*sel_args, k=k, plugin_bits=bits),
+        "device-memory route": lambda: kernels._select_launch(*sel_args, k=k, plugin_bits=bits,
+                                                              route="wide"),
+    }, 10)["new"])
     sel_plain_ms = cuda_ms(lambda: kernels.select_plain(*sel_args, k=k, plugin_bits=bits), 3)
 
     def both_tails(fn):
@@ -1215,6 +1226,74 @@ def check_compact_kernels(sched, bindings, dev, results):
         f"tail, both launches of a round {tail_ms:.3f} ms (plain {tail_plain_ms:.3f}, "
         f"bound {tb:.4f} {tb_by})")
     return sel_ms + tail_ms
+
+
+def select_edge_inputs(rng, dev, case, B, C):
+    """random_select_inputs with one edge of the window: "fewer feasible"
+    (the affinity masks keep about 1 % of the columns, so most rows have
+    fewer feasible columns than K), "none feasible" (every cluster dead);
+    other cases as drawn (tie-heavy: the K-th value is shared with columns
+    left out)."""
+    args = random_select_inputs(rng, dev, B, C)
+    names = FLEET + SELECT_BATCH
+    if case == "fewer feasible":
+        at = names.index("aff_masks")
+        args[at] = torch.from_numpy(rng.random(tuple(args[at].shape)) < 0.012).to(dev)
+    elif case == "none feasible":
+        args[names.index("alive")].zero_()
+    return args
+
+
+def check_select_edges(dev, C, k):
+    """candidate_select on seeded edge cases, both routes, against the
+    plain version: heavy ties at the K-th value, fewer feasible columns
+    than K, none feasible, K = C and a width that is no multiple of 32;
+    then the selection alone (`_select_window_launch`) over int32 scores
+    the filters never give (distinct over the whole int32 range, three
+    tied values), all or no columns feasible, K = 1, 128 and C. Returns
+    the largest error (0)."""
+    rng = np.random.default_rng(31)
+    err = 0
+    for case, width, kk in (("ties at the K-th value", C, k), ("fewer feasible", C, k),
+                            ("none feasible", C, k), ("K = C", 1007, 1007),
+                            ("C % 32 != 0", C - 117, k)):
+        args = select_edge_inputs(rng, dev, case, SELECT_EDGE_ROWS, width)
+        want = kernels.select_plain(*args, k=kk, plugin_bits=31)
+        for route in ("auto", "wide"):
+            err = max(err, compare(f"candidate_select[{case}, C={width}, k={kk}, {route}]",
+                                   kernels._select_launch(*args, k=kk, plugin_bits=31,
+                                                          route=route), want, SELECT_OUT))
+        counts = want[6]
+        log(f"candidate_select edge '{case}' ({SELECT_EDGE_ROWS} x {width}, k={kk}): both routes "
+            f"equal the plain version (feasible count per row {int(counts.min())}.."
+            f"{int(counts.max())})")
+        del args, want
+    g = torch.Generator(device=dev)
+    g.manual_seed(32)
+    B = SELECT_EDGE_ROWS
+    for label, width in (("flagship width", C), ("C % 32 != 0", C - 117)):
+        for kind in ("distinct", "three values", "all feasible", "none feasible"):
+            if kind == "distinct":
+                score = torch.randint(-2**31, 2**31 - 1, (B, width), device=dev, generator=g,
+                                      dtype=torch.int32)
+                score[:, :2] = torch.tensor([-2**31, 2**31 - 1], dtype=torch.int32, device=dev)
+            else:
+                score = (torch.randint(0, 3, (B, width), device=dev, generator=g,
+                                       dtype=torch.int32) * 6 - 5)
+            p = {"all feasible": 1.0, "none feasible": 0.0}.get(kind, 0.6)
+            feasible = torch.rand((B, width), device=dev, generator=g) < p
+            for kk in (1, k, width):
+                want = kernels.select_window_plain(feasible, score, kk)
+                for route in ("auto", "wide"):
+                    err = max(err, compare(
+                        f"select_window[{label} {width}, {kind}, k={kk}, {route}]",
+                        kernels._select_window_launch(feasible, score, kk, route=route), want,
+                        ("cand_idx", "feas_count")))
+    log(f"the selection alone ({B} rows at C = {C} and {C - 117}): distinct int32 scores over "
+        "the whole range, three tied values, all and no columns feasible, K = 1, "
+        f"{k} and C, both routes, equal the plain version")
+    torch.cuda.empty_cache()
+    return err
 
 
 def check_dense_kernels(sched, bindings, dev, results):
@@ -1532,8 +1611,14 @@ def check_spread_kernels(dev, results):
         rows = {}
         for n, cs in calls.items():
             _, _, fields, _, row_arg = SPREAD_KERNELS[n]
-            for i, (got, want) in enumerate(zip(run_calls(n, cs), run_calls(n, cs, plain=True))):
+            wants = run_calls(n, cs, plain=True)
+            for i, (got, want) in enumerate(zip(run_calls(n, cs), wants)):
                 errs[n] = max(errs[n], compare(f"{n}[{cell} round, call {i}]", got, want, fields))
+            if n == "group_score":  # its re-reading route too
+                for i, ((args, kw), want) in enumerate(zip(cs, wants)):
+                    errs[n] = max(errs[n], compare(
+                        f"group_score[{cell} round, call {i}, reread]",
+                        kernels._group_score_launch(*args, **kw, route="reread"), want, fields))
             if cs:
                 rows[n] = [int(args[row_arg].shape[0]) for args, _ in cs]
         log(f"{cell}: one round's spread launches (rows per call {rows}) equal their plain "
@@ -1550,7 +1635,14 @@ def check_spread_kernels(dev, results):
             work = SPREAD_KERNELS[n][3]
             moved, ops = map(sum, zip(*(work(a, o) for (a, _), o in zip(cs, outs))))
             b, by = bound(moved, ops)
-            ms = cuda_ms(lambda: run_calls(n, cs), 10)
+            if n == "group_score":  # the staged route against the re-reading one
+                ms = min(ab_time(f"group_score, {cell} round", {
+                    "new": lambda: run_calls(n, cs),
+                    "reread route": lambda: [kernels._group_score_launch(*a, **kw, route="reread")
+                                             for a, kw in cs],
+                }, 10)["new"])
+            else:
+                ms = cuda_ms(lambda: run_calls(n, cs), 10)
             plain = cuda_ms(lambda: run_calls(n, cs, plain=True), 3)
             timing[(cell, n)] = (ms, plain, b, by)
             parts.append(f"{n} {ms:.4f} ms (plain {plain:.4f}, bound {b:.4f} {by})")
@@ -1568,23 +1660,42 @@ def check_spread_kernels(dev, results):
     del captured
     torch.cuda.empty_cache()
 
-    # ---- seeded tie-heavy inputs: B8 ----
+    # ---- seeded tie-heavy inputs: B8, both routes ----
     C = lays["config 4"]["rid"].numel()
-    wide = spread_batch.RegionLayout(np.zeros(WIDE_C, np.int32), ["single"],
-                                     rng.permutation(WIDE_C).astype(np.int32)).tensors(dev)
-    for label, lay, width, neg in [("config 4", lays["config 4"], C, 0.125),
-                                   ("config 4b", lays["config 4b"], C, 0.125),
-                                   ("config 4, non-negative", lays["config 4"], C, 0.0),
-                                   ("single region", wide, WIDE_C, 0.125)]:
+
+    def region_layout(region_id):
+        n = int(region_id.max()) + 1
+        return spread_batch.RegionLayout(
+            region_id.astype(np.int32), [f"region-{i:02d}" for i in range(n)],
+            rng.permutation(len(region_id)).astype(np.int32)).tensors(dev)
+
+    stage = kernels.MAX_GROUP_STAGE
+    one_col = rng.integers(-1, 16, C)
+    one_col[one_col == 16] = -1
+    one_col[rng.integers(C)] = 16  # region 16 holds one column
+    past = np.where(np.arange(C) < stage + 1, 0, rng.integers(1, 16, C))  # one region past it
+    for label, lay, width, neg in [
+            ("config 4", lays["config 4"], C, 0.125),
+            ("config 4b", lays["config 4b"], C, 0.125),
+            ("config 4, non-negative", lays["config 4"], C, 0.0),
+            ("a one-column region", region_layout(one_col), C, 0.125),
+            (f"a region of {stage + 1} columns", region_layout(past), C, 0.125),
+            (f"whole fleet, {stage} columns", region_layout(np.zeros(stage, np.int64)), stage,
+             0.125),
+            (f"whole fleet, {WIDE_C} columns", region_layout(np.zeros(WIDE_C, np.int64)), WIDE_C,
+             0.125)]:
         a = random_group_inputs(rng, dev, 2 * SPREAD_REPS, width, SPREAD_REPS, neg_share=neg)
         a += [lay[k] for k in LAYOUT]
-        errs["group_score"] = max(errs["group_score"], compare(
-            f"group_score[random, {label}]", kernels._group_score_launch(*a),
-            kernels.group_score_plain(*a), GROUP_OUT))
-        del a
-    log(f"group_score: {SPREAD_REPS} random rows over the config-4 and config-4b layouts and a "
-        f"single-region fleet of {WIDE_C} columns (1 row in 8 with negative availability) "
-        "equal the plain version exactly")
+        want = kernels.group_score_plain(*a)
+        for route in ("auto", "reread"):
+            errs["group_score"] = max(errs["group_score"], compare(
+                f"group_score[random, {label}, {route}]",
+                kernels._group_score_launch(*a, route=route), want, GROUP_OUT))
+        del a, want
+    log(f"group_score: {SPREAD_REPS} random rows over the config-4 and config-4b layouts, a "
+        f"one-column region, a region of {stage + 1} columns (past the staged route's "
+        f"{stage}) and whole-fleet regions of {stage} and {WIDE_C} columns (1 row in 8 with "
+        "negative availability) equal the plain version exactly on both routes")
 
     # ---- B9a packed_selection, B9b spread_tail ----
     lay4 = lays["config 4"]
@@ -1625,6 +1736,7 @@ def check_spread_kernels(dev, results):
         "combo_select[random, 10 regions, L=10]",
         kernels._combo_select_launch(*s_args, cmin=5, kmin=1),
         kernels.combo_select_plain(*s_args, cmin=5, kmin=1), COMBO_OUT))
+    errs["combo_select"] = max(errs["combo_select"], check_combo_regions(rng, dev))
     W, V = cd["weight"].cpu().numpy(), cd["value"].cpu().numpy()
     W[:, 0] += np.arange(COMBO_ROWS)  # 4 096 distinct rows
     # rmax 4: the table C(16, 3..4) keeps 4 096 rows inside the device gate
@@ -1648,6 +1760,44 @@ def check_spread_kernels(dev, results):
         ms, plain, b, by = timing[("drain" if n == "combo_select" else "config 4", n)]
         results[n] = dict(source=csrc + src, replaces=repl, max_abs_err=errs[n],
                           ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None)
+
+
+def check_combo_regions(rng, dev):
+    """combo_select past its former 64-region cap: every combination of
+    one and of two regions of 65 and 200, and past the shared-memory
+    regions (MAX_COMBO_SMEM_REGIONS) a random table of pairs and singles,
+    against the plain version. Returns the largest error (0)."""
+    err = 0
+    for R in (65, 200):
+        rname = torch.from_numpy(rng.permutation(R).astype(np.int32)).to(dev)
+        for size in (1, 2):
+            members_pad, sizes = spread_batch._combos(R, size, size).tensors(dev)
+            S = COMBO_ROWS if R == 65 else COMBO_ROWS // 4
+            cd = random_combo_inputs(rng, dev, S, R)
+            kmax = torch.full((S,), size, dtype=torch.int32, device=dev)
+            args = (cd["weight"], cd["value"], kmax, rname, members_pad, sizes)
+            for cmin in (1, 4):
+                err = max(err, compare(f"combo_select[R={R}, kmin=kmax={size}, cmin={cmin}]",
+                                       kernels._combo_select_launch(*args, cmin=cmin, kmin=size),
+                                       kernels.combo_select_plain(*args, cmin=cmin, kmin=size),
+                                       COMBO_OUT))
+    R = kernels.MAX_COMBO_SMEM_REGIONS + 52
+    pairs = np.sort(np.stack([rng.choice(R, 2, replace=False) for _ in range(4000)]), 1)
+    singles = np.stack([rng.choice(R, 96, replace=False), np.full(96, -1)], 1)
+    members_pad = torch.from_numpy(np.concatenate([pairs, singles]).astype(np.int32)).to(dev)
+    sizes = torch.from_numpy(np.array([2] * len(pairs) + [1] * 96, np.int32)).to(dev)
+    cd = random_combo_inputs(rng, dev, COMBO_SCRATCH_ROWS, R)
+    args = (cd["weight"], cd["value"],
+            torch.full((COMBO_SCRATCH_ROWS,), 2, dtype=torch.int32, device=dev),
+            torch.from_numpy(rng.permutation(R).astype(np.int32)).to(dev), members_pad, sizes)
+    for cmin in (1, 4):
+        err = max(err, compare(f"combo_select[R={R}, scratch route, cmin={cmin}]",
+                               kernels._combo_select_launch(*args, cmin=cmin, kmin=1),
+                               kernels.combo_select_plain(*args, cmin=cmin, kmin=1), COMBO_OUT))
+    log(f"combo_select: {COMBO_ROWS} rows at R = 65 and {COMBO_ROWS // 4} at R = 200 over every "
+        f"combination of one and of two regions, and {COMBO_SCRATCH_ROWS} rows at R = {R} "
+        "(positions in the device scratch) equal the plain version")
+    return err
 
 
 # the launch wrappers the tier checks capture, and the launch counts of the
@@ -2793,50 +2943,83 @@ def check_wide_tail(dev, results, flag):
         f"{plain:.3f}, bound {b:.4f} {by})")
 
 
+def select_threshold(Kt, Kp, Ke) -> int:
+    """The widest row the in-block select route takes (select_route)."""
+    lo, hi = 1, 1 << 20
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if kernels.select_route(mid, Kt, Kp, Ke) == "candidate_select":
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
 def check_wide_select(dev):
-    """candidate_select past MAX_SELECT_SMEM (the radix-select route):
-    seeded tie-heavy rows at C = 20 480 and 32 768, with and without a
-    random extra_avail. It is timed on a wide_40k chunk in phase 4
-    (check_wide_chunk), where that fixture is built."""
+    """candidate_select on both sides of the in-block route's threshold
+    (MAX_SELECT_SMEM): seeded tie-heavy rows at wide_40k's 20 480 columns,
+    at the widest in-block width and one column past it, with and without
+    a random extra_avail, each width on both routes. The main path's wide
+    chunk is checked in phase 4 (check_wide_chunk), where that fixture is
+    built."""
     rng = np.random.default_rng(42)
     err = 0
-    for C in WIDE_SELECT_CS:
+    probe = random_select_inputs(rng, dev, 1, 64)
+    edge = select_threshold(probe[10].shape[2], probe[14].shape[1], probe[16].shape[1])
+    for C in (20_480, edge, edge + 1):
         r_args = random_select_inputs(rng, dev, WIDE_SELECT_ROWS, C)
-        if kernels.select_route(C, 128, r_args[10].shape[2], r_args[14].shape[1],
-                                r_args[16].shape[1]) != "candidate_select_wide":
-            raise AssertionError(f"C={C} does not take the wide select route")
+        route = kernels.select_route(C, r_args[10].shape[2], r_args[14].shape[1],
+                                     r_args[16].shape[1])
+        if route != ("candidate_select_wide" if C > edge else "candidate_select"):
+            raise AssertionError(f"C={C} takes {route}, threshold {edge}")
         for tag, args in (("extra_avail", r_args), ("no answers", r_args[:-1] + [None])):
-            err = max(err, compare(f"candidate_select[wide random C={C}, {tag}]",
-                                   kernels._select_launch(*args, k=128, plugin_bits=31),
-                                   kernels.select_plain(*args, k=128, plugin_bits=31),
-                                   SELECT_OUT))
+            want = kernels.select_plain(*args, k=128, plugin_bits=31)
+            for forced in ("auto", "wide"):
+                err = max(err, compare(f"candidate_select[random C={C} ({route}), {tag}, {forced}]",
+                                       kernels._select_launch(*args, k=128, plugin_bits=31,
+                                                              route=forced), want, SELECT_OUT))
+            del want
         del r_args, args
-    log(f"candidate_select wide route: random rows at C = {WIDE_SELECT_CS} ({WIDE_SELECT_ROWS} "
-        f"rows, with and without extra_avail) equal the plain version")
+    log(f"candidate_select: random rows at C = 20 480, {edge} (the widest in-block row) and "
+        f"{edge + 1} ({WIDE_SELECT_ROWS} rows, with and without extra_avail, both routes) equal "
+        "the plain version")
     torch.cuda.empty_cache()
     return err
 
 
 def check_wide_chunk(dev, results, sched, bindings, err):
-    """The wide select route on one chunk of the wide_40k round (its own
-    batch, the pipelined chunk's rows) against its plain version, timed
-    there; `err` is the random checks' largest error."""
+    """candidate_select on one chunk of the wide_40k round (its own batch,
+    the pipelined chunk's rows): the in-block route the chunk takes and the
+    device-memory route forced, both against the plain version and timed in
+    turns; the device-memory route's row of the kernels line (no main path
+    is wider than the in-block route's threshold) is its time here. `err`
+    is the random checks' largest error."""
     rows = sched.pipeline_chunk_rows(len(sched.fleet.names))
     sel_args, k, _t, _tails = flagship_kernel_inputs(sched, bindings[:rows])
     bits = sched._plugin_bits
     sel = kernels._select_launch(*sel_args, k=k, plugin_bits=bits)
-    err = max(err, compare("candidate_select[wide_40k chunk]", sel,
-                           kernels.select_plain(*sel_args, k=k, plugin_bits=bits), SELECT_OUT))
-    ms = cuda_ms(lambda: kernels._select_launch(*sel_args, k=k, plugin_bits=bits), 5)
+    want = kernels.select_plain(*sel_args, k=k, plugin_bits=bits)
+    err = max(err, compare("candidate_select[wide_40k chunk]", sel, want, SELECT_OUT))
+    err = max(err, compare("candidate_select[wide_40k chunk, device-memory route]",
+                           kernels._select_launch(*sel_args, k=k, plugin_bits=bits, route="wide"),
+                           want, SELECT_OUT))
+    del want
+    got = ab_time("candidate_select, wide_40k chunk", {
+        "new": lambda: kernels._select_launch(*sel_args, k=k, plugin_bits=bits),
+        "device-memory route": lambda: kernels._select_launch(*sel_args, k=k, plugin_bits=bits,
+                                                              route="wide"),
+    }, 5)
+    ms, wide_ms = min(got["new"]), min(got["device-memory route"])
     plain = cuda_ms(lambda: kernels.select_plain(*sel_args, k=k, plugin_bits=bits), 2)
     b, by = select_bound(sel_args, sel, k)
     results["candidate_select_wide"] = dict(
         source="karmada_tpu_torch/kernels/csrc/candidate_select.cu",
-        replaces="karmada_tpu/sched/candidates.py:210", max_abs_err=err, ms=ms, plain_ms=plain,
-        bound_ms=b, bound_by=by, library_ms=None)
-    log(f"candidate_select wide route: one wide_40k chunk ({sel_args[7].shape[0]} x "
-        f"{sel_args[0].shape[0]}, k={k}) equals the plain version; timing on that chunk "
-        f"{ms:.3f} ms (plain {plain:.3f}, bound {b:.4f} {by})")
+        replaces="karmada_tpu/sched/candidates.py:210", max_abs_err=err, ms=wide_ms,
+        plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None)
+    log(f"candidate_select: one wide_40k chunk ({sel_args[7].shape[0]} x "
+        f"{sel_args[0].shape[0]}, k={k}) equals the plain version on both routes; timing on "
+        f"that chunk {ms:.3f} ms in-block, {wide_ms:.3f} ms device-memory route (plain "
+        f"{plain:.3f}, bound {b:.4f} {by})")
     del sel_args, sel
     torch.cuda.empty_cache()
 
@@ -3070,7 +3253,7 @@ def run_churn_cells(dev, smi, path_launches, compact_ms):
 def run_wide_cells(dev, smi, path_launches, flag, results, select_err):
     """wide_40k (the reference's 40k x 20k point, docs/PERF.md:390: the
     flagship's mix at 20 000 clusters x 40 000 bindings, compact, K = 128,
-    the default budget; schedule() chunked and pipelined over the wide
+    the default budget; schedule() chunked and pipelined over the in-block
     select route, pipelined 7 x 6 144; the serial leg's decisions equal; a
     sample of rows from every chunk and class held against the cpu round
     at the same K) and flagship_k256 (the compact flagship at
@@ -3083,12 +3266,12 @@ def run_wide_cells(dev, smi, path_launches, flag, results, select_err):
     log(f"wide_40k: {len(clusters)} x {len(bindings)} (fleet width {len(sched.fleet.names)}) "
         f"built in {time.perf_counter() - t0:.1f} s")
     check_wide_chunk(dev, results, sched, bindings, select_err)
-    per_chunk = {"candidate_select_wide": 1, "candidate_tail": 2}
+    per_chunk = {"candidate_select": 1, "candidate_tail": 2}
     expect, n_chunks = chunk_expect(sched, len(bindings), per_chunk)
     decisions, launches, times = drive(
         f"wide_40k ({len(clusters)} clusters x {len(bindings)} bindings, {n_chunks} pipelined "
         "chunks)", sched, bindings, WIDE_ROUNDS, expect, smi)
-    path_launches["candidate_select_wide"] = launches["candidate_select_wide"]
+    path_launches["candidate_select"] += launches["candidate_select"]
     stats = sched.last_pipeline_stats
     log(f"wide_40k: {pipeline_stats_line(stats)}; candidate stats {sched.last_candidate_stats}")
     if stats["chunks"] != n_chunks or sched.last_candidate_stats["candidate_k"] != 128:
@@ -3460,6 +3643,8 @@ def check_sim_kernels(dev, results):
     ms_fw = cuda_ms(lambda: kernels._sim_filter_launch(*w_args, **w_kw), 20)
     wl_args, wl_kw = captured["whatif"]["sim_load"][0]
     ms_lw = cuda_ms(lambda: kernels._sim_load_launch(*wl_args, **wl_kw), 20)
+    b_fw, by_fw = sim_filter_bound(w_args, kernels._sim_filter_launch(*w_args, **w_kw))
+    b_lw, by_lw = sim_load_bound(wl_args, kernels._sim_load_launch(*wl_args, **wl_kw))
     b_f, by_f = sim_filter_bound(f_args, f_out)
     b_l, by_l = sim_load_bound(l_args, l_out)
     sim_load_ab = {"new": lambda: kernels._sim_load_launch(*l_args, **l_kw),
@@ -3499,14 +3684,15 @@ def check_sim_kernels(dev, results):
         plain_ms=plain_l, bound_ms=b_l, bound_by=by_l, library_ms=lib_ms)
     log(f"sim_filter at one whatif_churn5k chunk ({S} x {B} x {C}): {ms_f:.4f} ms (plain "
         f"{plain_f:.4f}, bound {b_f:.4f} {by_f}); at the whatif solve "
-        f"({w_args[0].shape[0]} x {w_args[8].shape[0]} x {w_args[0].shape[1]}) {ms_fw:.4f} ms")
+        f"({w_args[0].shape[0]} x {w_args[8].shape[0]} x {w_args[0].shape[1]}) {ms_fw:.4f} ms "
+        f"(bound {b_fw:.4f} {by_fw})")
     for cell, (shape, ms, plain, b, by) in tails.items():
         log(f"dense_tail over the {cell} solve's {shape[0]} scenario rows x {shape[1]}: "
             f"{ms:.4f} ms (plain {fmt_ms(plain)}, bound {b:.4f} {by})")
     log(f"sim_load at that chunk: {ms_l:.4f} ms (plain {plain_l:.4f}, bound {b_l:.4f} {by_l}, "
         f"torch.bmm float64 {lib_ms:.4f} ms: largest sum {top} "
         f"{'<' if top < 2**53 else '>='} 2^53, bmm result exact {exact}); at the whatif "
-        f"solve {ms_lw:.4f} ms")
+        f"solve {ms_lw:.4f} ms (bound {b_lw:.4f} {by_lw})")
     del captured, f_out, l_out, lib, tails
     gc.collect()
     torch.cuda.empty_cache()
@@ -4494,14 +4680,17 @@ def main(argv=None) -> int:
 
     # every kernel of a main path launched there; staleness_penalty serves
     # callers that hold an answer matrix on the card, and no path does: the
-    # registry decays its stale columns in numpy, as the reference does
-    idle = [n for n in results if n != "staleness_penalty" and not path_launches.get(n)]
+    # registry decays its stale columns in numpy, as the reference does;
+    # candidate_select_wide serves fleets past the in-block route's ~54 500
+    # columns, wider than any cell here (wide_40k's 20 480 stay in the block)
+    off_path = ("staleness_penalty", "candidate_select_wide")
+    idle = [n for n in results if n not in off_path and not path_launches.get(n)]
     if idle:
         raise AssertionError(f"kernels of the main paths never launched there: {idle}")
     print(json.dumps({"ab": AB}), flush=True)
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
-         "launches": path_launches[n], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+         "launches": path_launches.get(n, 0), "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"], "device_ms": r.get("device_ms"), "matches_plain": True}
         for n, r in results.items()

@@ -36,8 +36,9 @@ Spread constraints (the dense round's batched region path):
   selection plus its feasible count; the plain version is
   `spread_tail_plain`.
 - `combo_select` (csrc/combo_select.cu): the winning region combination
-  per row over the enumerated combination table; the plain version is
-  `combo_select_plain`.
+  per row over the enumerated combination table, any number of regions
+  (a row's regions in shared memory up to MAX_COMBO_SMEM_REGIONS, read in
+  place past it); the plain version is `combo_select_plain`.
 
 Priority tiers (the tiered rounds of sched/preemption.py, composed with
 the kernels above):
@@ -97,18 +98,17 @@ the cluster axis, then `dense_tail` over each row group's full rows):
   the plain version is `mesh_tile_filter_plain`.
 
 The wide routes, kernels of their own with their own launch counts:
-`candidate_select` past MAX_SELECT_SMEM (`candidate_select_wide`, the
-radix select over a key scratch in csrc/candidate_select.cu) and
-`candidate_tail` past MAX_TAIL_K (`candidate_tail_wide`, csrc/dense_tail.cu
-in its window mode).
+`candidate_select` past MAX_SELECT_SMEM (`candidate_select_wide`, the same
+selection with the row's keys in a device-memory scratch, csrc/
+candidate_select.cu) and `candidate_tail` past MAX_TAIL_K
+(`candidate_tail_wide`, csrc/dense_tail.cu in its window mode).
 
 A wrapper runs the plain version only for tensors that lie on the CPU. For
 CUDA tensors it checks device, dtype, shape and contiguity, launches the
 kernel on PyTorch's current stream, raises when the launch reports an
 error, and adds one to its kernel's launch count (`launch_counts()`,
-`reset_launches()`). There is no fallback. The launches of dense_tail
-(all three entries), sim_load, fleet_estimate and tier_consume bind their
-C prototypes once (`_bind`).
+`reset_launches()`). There is no fallback. Every launch binds its C
+prototype once, at its first call (`_bind`).
 """
 from __future__ import annotations
 
@@ -152,17 +152,24 @@ def _resource_blocks(R: int, block: int) -> int:
 
 # the window tail's 128-thread block (one thread per window column) serves
 # windows up to MAX_TAIL_K; wider ones take dense_tail.cu's window mode.
-# The select kernel sorts the row's padded keys in shared memory while they
-# fit MAX_SELECT_SMEM; wider fleets take the radix-select route.
+# The select kernel keeps a row's keys (4 bytes and a bit a column) in
+# dynamic shared memory while they fit MAX_SELECT_SMEM, the 227 KB a block
+# may use on sm_90 less the kernel's static shared memory (about 4.4 KB);
+# wider fleets (about 54 500 columns on) keep them in a device scratch.
 MAX_TAIL_K = 128
-MAX_SELECT_SMEM = 232448  # bytes a block may use on sm_90
+MAX_SELECT_SMEM = 225_280
 # the dense tail sorts its output window in shared memory
 MAX_DENSE_TOPK = 128
 FEAS_IDX_PAD = 1 << 30  # feas_idx's value past a row's feasible count
 # combo_select's sentinels (the reference's `NEG` and its masked discovery key)
 COMBO_NEG = -(1 << 62)
 COMBO_DISC_MASKED = 1 << 62
-MAX_COMBO_REGIONS = 64  # combo_select keeps a row's regions in shared memory
+# combo_select keeps a row's regions in shared memory up to this many
+# (combo_select.cu kSmemRegions) and reads them in place past it
+MAX_COMBO_SMEM_REGIONS = 2048
+# group_score stages a region of up to this many columns in shared memory
+# (group_score.cu kStageMax); wider regions take the re-reading route
+MAX_GROUP_STAGE = 1024
 # tier_consume keeps one int64 sum per resource in registers for up to 16
 # resources; a wider request runs in blocks of 16, one launch each
 TIER_RESOURCE_BLOCK = 16
@@ -171,7 +178,8 @@ SIM_LOAD_RESOURCE_BLOCK = 8
 # the dense tail stages a row in shared memory up to this width (dense_tail.cu
 # kSmemMaxCols); wider rows take the re-reading route
 MAX_TAIL_SMEM_COLS = 12288
-TAIL_ROUTES = {"auto": 0, "reread": 1}  # "reread" forces the re-reading route
+# the tails' and group_score's routes: "reread" forces the re-reading route
+TAIL_ROUTES = {"auto": 0, "reread": 1}
 
 
 # --------------------------------------------------------------------------
@@ -211,6 +219,16 @@ def select_plain(
         prev_replicas.gather(-1, cand), core.tie_at(seeds, cand),
         feasible.sum(-1).to(I32), core.pack_bits(feasible),
     )
+
+
+def select_window_plain(feasible, score, k: int):
+    """Plain version of candidate_select's selection alone over given rows
+    (csrc/candidate_select.cu `select_window_launch`): the top k columns of
+    each row by (feasible desc, score desc, column asc), in column order
+    (i32[B,k]), and the feasible count (i32[B]); `score` is any i32[B,C]."""
+    key = (feasible.to(I64) << 33) + score.to(I64)
+    cand = torch.sort(core.top_k_ordered(key, k), dim=-1).values
+    return cand.to(I32), feasible.sum(-1).to(I32)
 
 
 def tail_plain(
@@ -678,8 +696,13 @@ def _check(name: str, t, dtype, shape, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+def _ptr(t):
+    """A tensor's device address (None, a null pointer, for an absent one)."""
+    return None if t is None else t.data_ptr()
+
+
+def _ptrs(*ts):
+    return [_ptr(t) for t in ts]
 
 
 def _stream(device) -> ctypes.c_void_p:
@@ -691,13 +714,6 @@ def _stream(device) -> ctypes.c_void_p:
 def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {rc}")
-
-
-def _pow2(n: int) -> int:
-    p = 1
-    while p < n:
-        p *= 2
-    return p
 
 
 def _check_filter_args(
@@ -737,19 +753,18 @@ def _check_filter_args(
     return C, R, T, G, B, Kt, Kp, Ke
 
 
-def select_smem_bytes(C: int, k: int, Kt: int, Kp: int, Ke: int) -> int:
-    """Dynamic shared memory of one candidate-select block: the row's
-    padded int64 keys, the sorted window, the toleration row and the
-    prev/evict lists."""
-    cp = _pow2(max(C, 1024))
-    return 8 * cp + 4 * (_pow2(k) + 4 * Kt + 2 * Kp + Ke)
+def select_smem_bytes(C: int, Kt: int, Kp: int, Ke: int) -> int:
+    """Dynamic shared memory of one in-block candidate-select block: the
+    toleration row and the prev/evict lists, the row's ballot words and
+    its uint32 keys."""
+    return 4 * (4 * Kt + 2 * Kp + Ke) + 4 * (-(-C // 32)) + 4 * C
 
 
-def select_route(C: int, k: int, Kt: int, Kp: int, Ke: int) -> str:
-    """The candidate-select kernel a launch takes: the in-block sort while
-    the row's keys fit a block's shared memory, else the radix-select route
-    over a global key scratch."""
-    if select_smem_bytes(C, k, Kt, Kp, Ke) <= MAX_SELECT_SMEM:
+def select_route(C: int, Kt: int, Kp: int, Ke: int) -> str:
+    """The candidate-select kernel a launch takes: the in-block route while
+    the row's keys fit MAX_SELECT_SMEM, else the same selection over a
+    device-memory key scratch."""
+    if select_smem_bytes(C, Kt, Kp, Ke) <= MAX_SELECT_SMEM:
         return "candidate_select"
     return "candidate_select_wide"
 
@@ -772,7 +787,7 @@ def candidate_select(
     if dev.type != "cuda":
         raise ValueError(f"candidate_select: unsupported device {dev}")
     out = _select_launch(*args, k=k, plugin_bits=plugin_bits)
-    _launched(select_route(alive.shape[0], k, tol_tables.shape[2], prev_idx.shape[1],
+    _launched(select_route(alive.shape[0], tol_tables.shape[2], prev_idx.shape[1],
                            evict_idx.shape[1]))
     return out
 
@@ -781,10 +796,12 @@ def _select_launch(
     alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
     replicas, unknown_request, gvk, tol_tables, tol_idx,
     aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
-    req_unique, req_idx, extra_avail, *, k: int, plugin_bits: int,
+    req_unique, req_idx, extra_avail, *, k: int, plugin_bits: int, route: str = "auto",
 ):
-    """Check, allocate and launch candidate_select_kernel, or the wide
-    route's candidate_select_wide_kernel (select_route)."""
+    """Check, allocate and launch candidate_select_kernel on its route:
+    select_route's with route "auto", the device-memory one at any width
+    with "wide" (both exact). The wide route's keys go to a uint32 [B, C]
+    scratch (allocated as int32)."""
     dev = alive.device
     C, R, T, G, B, Kt, Kp, Ke = _check_filter_args(
         alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
@@ -794,7 +811,9 @@ def _select_launch(
     )
     if not 0 < k <= C:
         raise ValueError(f"candidate_select: k={k} must be in (0, C={C}]")
-    wide = select_route(C, k, Kt, Kp, Ke) == "candidate_select_wide"
+    if route not in ("auto", "wide"):
+        raise ValueError(f"candidate_select: unknown route {route!r}")
+    wide = route == "wide" or select_route(C, Kt, Kp, Ke) == "candidate_select_wide"
     nbytes = (C + 7) // 8
     cand = torch.empty((B, k), dtype=I32, device=dev)
     c_feas = torch.empty((B, k), dtype=BOOL, device=dev)
@@ -806,31 +825,45 @@ def _select_launch(
     packed = torch.empty((B, nbytes), dtype=U8, device=dev)
     if B == 0:
         return cand, c_feas, c_score, c_avail, c_prev, c_tie, feas_count, packed
-    from .build import library
-
-    lib = library("candidate_select")
-    fn = lib.candidate_select_wide_launch if wide else lib.candidate_select_launch
-    fn.restype = ctypes.c_int
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 13 + [ci] * 7 + [vp] * (10 if wide else 9) + [vp]
-    # the wide route's per-row keys (int64 [B, C]) live in this scratch
-    keys = torch.empty((B, C), dtype=I64, device=dev) if wide else None
-    scratch = (_ptr(keys),) if wide else ()
-    rc = fn(
-        _ptr(alive), _ptr(capacity), _ptr(has_summary), _ptr(taint_key),
-        _ptr(taint_value), _ptr(taint_effect), _ptr(api_ok),
+    keys = torch.empty((B, C), dtype=I32, device=dev) if wide else None
+    rc = _bind("candidate_select", "candidate_select_launch", _SELECT_ARGTYPES)(
+        *_ptrs(alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok),
         C, R, T, G,
-        _ptr(replicas), _ptr(unknown_request), _ptr(gvk), _ptr(tol_tables),
-        _ptr(tol_idx), _ptr(aff_masks), _ptr(aff_idx), _ptr(prev_idx),
-        _ptr(prev_rep), _ptr(evict_idx), _ptr(seeds), _ptr(req_unique),
-        _ptr(req_idx),
-        B, Kt, Kp, Ke, k, plugin_bits, 1 if extra_avail is not None else 0,
-        _ptr(extra_avail), _ptr(cand), _ptr(c_feas), _ptr(c_score),
-        _ptr(c_avail), _ptr(c_prev), _ptr(c_tie), _ptr(feas_count),
-        _ptr(packed), *scratch, _stream(dev),
+        *_ptrs(replicas, unknown_request, gvk, tol_tables, tol_idx, aff_masks, aff_idx,
+               prev_idx, prev_rep, evict_idx, seeds, req_unique, req_idx),
+        B, Kt, Kp, Ke, k, plugin_bits, extra_avail is not None,
+        *_ptrs(extra_avail, cand, c_feas, c_score, c_avail, c_prev, c_tie, feas_count,
+               packed, keys),
+        _stream(dev),
     )
     _raise_on(rc, "candidate_select")
     return cand, c_feas, c_score, c_avail, c_prev, c_tie, feas_count, packed
+
+
+def _select_window_launch(feasible, score, k: int, *, route: str = "auto"):
+    """Check, allocate and launch candidate_select.cu's selection alone
+    (see select_window_plain), `route` as for `_select_launch`. No schedule
+    round calls it: it holds the selection against its plain version over
+    any int32 scores."""
+    dev = feasible.device
+    B, C = feasible.shape
+    _check("feasible", feasible, BOOL, (B, C), dev)
+    _check("score", score, I32, (B, C), dev)
+    if not 0 < k <= C:
+        raise ValueError(f"select_window: k={k} must be in (0, C={C}]")
+    if route not in ("auto", "wide"):
+        raise ValueError(f"select_window: unknown route {route!r}")
+    wide = route == "wide" or select_route(C, 0, 0, 0) == "candidate_select_wide"
+    cand = torch.empty((B, k), dtype=I32, device=dev)
+    feas_count = torch.empty((B,), dtype=I32, device=dev)
+    if B == 0:
+        return cand, feas_count
+    keys = torch.empty((B, C), dtype=I32, device=dev) if wide else None
+    rc = _bind("candidate_select", "select_window_launch", _SELECT_WINDOW_ARGTYPES)(
+        feasible.data_ptr(), score.data_ptr(), B, C, k, cand.data_ptr(), feas_count.data_ptr(),
+        _ptr(keys), _stream(dev))
+    _raise_on(rc, "select_window")
+    return cand, feas_count
 
 
 def candidate_tail(
@@ -887,11 +920,6 @@ def _tail_launch(
     top_val = torch.empty((rows, tw), dtype=I32, device=dev)
     if rows == 0:
         return result, unsched, avail_sum, nnz, top_idx, top_val
-    from .build import library
-
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    outs = (_ptr(result), _ptr(unsched), _ptr(avail_sum), _ptr(nnz), _ptr(top_idx),
-            _ptr(top_val), _stream(dev))
     if K > MAX_TAIL_K:
         rc = _bind("dense_tail", "window_tail_launch", _WINDOW_TAIL_ARGTYPES)(
             c_feas.data_ptr(), c_avail.data_ptr(), c_prev.data_ptr(), c_tie.data_ptr(),
@@ -901,14 +929,10 @@ def _tail_launch(
             nnz.data_ptr(), top_idx.data_ptr(), top_val.data_ptr(), _stream(dev),
         )
     else:
-        fn = library("candidate_tail").candidate_tail_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = [vp] * 6 + [ci] + [vp] * 4 + [ci] * 4 + [vp] * 6 + [vp]
-        rc = fn(
-            _ptr(c_feas), _ptr(c_avail), _ptr(c_prev), _ptr(c_tie), _ptr(cand_idx),
-            _ptr(weight_tables), Cw, _ptr(weight_idx), _ptr(strategy),
-            _ptr(replicas), _ptr(fresh),
-            rows, K, tw, 1 if has_agg else 0, *outs,
+        rc = _bind("candidate_tail", "candidate_tail_launch", _TAIL_ARGTYPES)(
+            *_ptrs(c_feas, c_avail, c_prev, c_tie, cand_idx, weight_tables), Cw,
+            *_ptrs(weight_idx, strategy, replicas, fresh), rows, K, tw, has_agg,
+            *_ptrs(result, unsched, avail_sum, nnz, top_idx, top_val), _stream(dev),
         )
     _raise_on(rc, "candidate_tail")
     return result, unsched, avail_sum, nnz, top_idx, top_val
@@ -960,23 +984,14 @@ def _dense_filter_launch(
     feas_count = torch.empty((B,), dtype=I32, device=dev)
     if B == 0 or C == 0:
         return feasible, score, avail, prev, tie, feas_count.zero_()
-    from .build import library
-
-    fn = library("dense_filter").dense_filter_launch
-    fn.restype = ctypes.c_int
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 13 + [ci] * 6 + [vp] * 8 + [vp]
-    rc = fn(
-        _ptr(alive), _ptr(capacity), _ptr(has_summary), _ptr(taint_key),
-        _ptr(taint_value), _ptr(taint_effect), _ptr(api_ok),
+    rc = _bind("dense_filter", "dense_filter_launch", _DENSE_FILTER_ARGTYPES)(
+        *_ptrs(alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok),
         C, R, T, G,
-        _ptr(replicas), _ptr(unknown_request), _ptr(gvk), _ptr(tol_tables),
-        _ptr(tol_idx), _ptr(aff_masks), _ptr(aff_idx), _ptr(prev_idx),
-        _ptr(prev_rep), _ptr(evict_idx), _ptr(seeds), _ptr(req_unique),
-        _ptr(req_idx),
-        B, Kt, Kp, Ke, plugin_bits, 1 if extra_avail is not None else 0,
-        _ptr(extra_avail), _ptr(extra_mask), _ptr(feasible), _ptr(score), _ptr(avail), _ptr(prev),
-        _ptr(tie), _ptr(feas_count), _stream(dev),
+        *_ptrs(replicas, unknown_request, gvk, tol_tables, tol_idx, aff_masks, aff_idx,
+               prev_idx, prev_rep, evict_idx, seeds, req_unique, req_idx),
+        B, Kt, Kp, Ke, plugin_bits, extra_avail is not None,
+        *_ptrs(extra_avail, extra_mask, feasible, score, avail, prev, tie, feas_count),
+        _stream(dev),
     )
     _raise_on(rc, "dense_filter")
     return feasible, score, avail, prev, tie, feas_count
@@ -1068,13 +1083,9 @@ def _pack_rows_launch(feasible):
     out = torch.empty((B, (C + 7) // 8), dtype=U8, device=dev)
     if B == 0 or C == 0:
         return out
-    from .build import library
-
-    fn = library("dense_mask").pack_rows_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    _raise_on(fn(_ptr(feasible), B, C, _ptr(out), _stream(dev)), "pack_rows")
+    rc = _bind("dense_mask", "pack_rows_launch", _PACK_ROWS_ARGTYPES)(
+        feasible.data_ptr(), B, C, out.data_ptr(), _stream(dev))
+    _raise_on(rc, "pack_rows")
     return out
 
 
@@ -1100,13 +1111,9 @@ def _feas_idx_launch(feasible, k: int):
     out = torch.empty((B, k), dtype=I32, device=dev)
     if B == 0:
         return out
-    from .build import library
-
-    fn = library("dense_mask").feas_idx_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    _raise_on(fn(_ptr(feasible), B, C, k, _ptr(out), _stream(dev)), "feas_idx")
+    rc = _bind("dense_mask", "feas_idx_launch", _FEAS_IDX_ARGTYPES)(
+        feasible.data_ptr(), B, C, k, out.data_ptr(), _stream(dev))
+    _raise_on(rc, "feas_idx")
     return out
 
 
@@ -1130,10 +1137,12 @@ def group_score(
 
 def _group_score_launch(
     feasible, score, avail, prev, rows, replicas, need, target, duplicated,
-    perm, seg_start, seg_end, rank_p,
+    perm, seg_start, seg_end, rank_p, *, route: str = "auto",
 ):
     """Check, allocate and launch group_score_kernel. Row ids must lie in
-    [0, B) and the layout's columns in [0, C)."""
+    [0, B) and the layout's columns in [0, C). `route`: "auto" stages
+    regions of up to MAX_GROUP_STAGE columns in shared memory and re-reads
+    wider ones; "reread" re-reads every region (both exact)."""
     dev = feasible.device
     B, C = feasible.shape
     S, R, Cp = rows.shape[0], seg_start.shape[0], perm.shape[0]
@@ -1147,23 +1156,19 @@ def _group_score_launch(
         ("rank_p", rank_p, I32, (Cp,)),
     ):
         _check(name, t, dt, shape, dev)
-    weight = torch.zeros((S, R), dtype=I64, device=dev)
-    value = torch.zeros((S, R), dtype=I32, device=dev)
-    avail_sum = torch.zeros((S, R), dtype=I64, device=dev)
-    feas_count = torch.zeros((S,), dtype=I32, device=dev)
     if S == 0 or C == 0:
-        return weight, value, avail_sum, feas_count
-    from .build import library
-
-    fn = library("group_score").group_score_launch
-    fn.restype = ctypes.c_int
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 4 + [ci, vp, ci] + [vp] * 8 + [ci] + [vp] * 4 + [vp]
-    rc = fn(
-        _ptr(feasible), _ptr(score), _ptr(avail), _ptr(prev), C, _ptr(rows), S,
-        _ptr(replicas), _ptr(need), _ptr(target), _ptr(duplicated),
-        _ptr(perm), _ptr(seg_start), _ptr(seg_end), _ptr(rank_p), R,
-        _ptr(weight), _ptr(value), _ptr(avail_sum), _ptr(feas_count), _stream(dev),
+        return (torch.zeros((S, R), dtype=I64, device=dev),
+                torch.zeros((S, R), dtype=I32, device=dev),
+                torch.zeros((S, R), dtype=I64, device=dev), torch.zeros((S,), dtype=I32, device=dev))
+    # every output element is written by the kernel
+    weight = torch.empty((S, R), dtype=I64, device=dev)
+    value = torch.empty((S, R), dtype=I32, device=dev)
+    avail_sum = torch.empty((S, R), dtype=I64, device=dev)
+    feas_count = torch.empty((S,), dtype=I32, device=dev)
+    rc = _bind("group_score", "group_score_launch", _GROUP_SCORE_ARGTYPES)(
+        *_ptrs(feasible, score, avail, prev), C, rows.data_ptr(), S,
+        *_ptrs(replicas, need, target, duplicated, perm, seg_start, seg_end, rank_p), R, Cp,
+        TAIL_ROUTES[route], *_ptrs(weight, value, avail_sum, feas_count), _stream(dev),
     )
     _raise_on(rc, "group_score")
     return weight, value, avail_sum, feas_count
@@ -1210,14 +1215,9 @@ def _packed_selection_launch(feasible, rows, chosen, rid):
     if n == 0 or C == 0:
         return out
     table = _chosen_table(chosen)
-    from .build import library
-
-    fn = library("dense_mask").packed_selection_launch
-    fn.restype = ctypes.c_int
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, ci, vp, ci, vp, ci, vp, vp, vp]
-    rc = fn(_ptr(feasible), C, _ptr(rows), n, _ptr(table), R + 1, _ptr(rid), _ptr(out),
-            _stream(dev))
+    rc = _bind("dense_mask", "packed_selection_launch", _PACKED_SELECTION_ARGTYPES)(
+        feasible.data_ptr(), C, rows.data_ptr(), n, table.data_ptr(), R + 1, rid.data_ptr(),
+        out.data_ptr(), _stream(dev))
     _raise_on(rc, "packed_selection")
     return out
 
@@ -1295,7 +1295,9 @@ def combo_select(weight, value, kmax_row, rname, members_pad, sizes, *, cmin: in
 def _combo_select_launch(weight, value, kmax_row, rname, members_pad, sizes, *,
                          cmin: int, kmin: int):
     """Check, allocate and launch combo_select_kernel. Members must lie in
-    [-1, R)."""
+    [-1, R). Past MAX_COMBO_SMEM_REGIONS regions the kernel reads them in
+    place and writes their group-order positions to an int32 [S, R]
+    scratch."""
     dev = weight.device
     S, R = weight.shape
     K, L = members_pad.shape
@@ -1305,26 +1307,18 @@ def _combo_select_launch(weight, value, kmax_row, rname, members_pad, sizes, *,
         ("members_pad", members_pad, I32, (K, L)), ("sizes", sizes, I32, (K,)),
     ):
         _check(name, t, dt, shape, dev)
-    if not 0 < R <= MAX_COMBO_REGIONS:
-        raise NotImplementedError(
-            f"combo_select: {R} regions outside (0, {MAX_COMBO_REGIONS}] (a row's "
-            "regions live in shared memory)"
-        )
+    if R == 0:
+        raise ValueError("combo_select: no region")
     first_idx = torch.zeros((S,), dtype=I32, device=dev)
     n_ties = torch.zeros((S,), dtype=I32, device=dev)
     none_feasible = torch.zeros((S,), dtype=BOOL, device=dev)
     if S == 0 or K == 0:
         return first_idx, n_ties, none_feasible
-    from .build import library
-
-    fn = library("combo_select").combo_select_launch
-    fn.restype = ctypes.c_int
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 4 + [ci] * 2 + [vp] * 2 + [ci] * 4 + [vp] * 3 + [vp]
-    rc = fn(
-        _ptr(weight), _ptr(value), _ptr(kmax_row), _ptr(rname), S, R,
-        _ptr(members_pad), _ptr(sizes), K, L, cmin, kmin,
-        _ptr(first_idx), _ptr(n_ties), _ptr(none_feasible), _stream(dev),
+    pos = (torch.empty((S, R), dtype=I32, device=dev) if R > MAX_COMBO_SMEM_REGIONS
+           else None)
+    rc = _bind("combo_select", "combo_select_launch", _COMBO_SELECT_ARGTYPES)(
+        *_ptrs(weight, value, kmax_row, rname), S, R, members_pad.data_ptr(), sizes.data_ptr(),
+        K, L, cmin, kmin, *_ptrs(first_idx, n_ties, none_feasible, pos), _stream(dev),
     )
     _raise_on(rc, "combo_select")
     return first_idx, n_ties, none_feasible
@@ -1376,16 +1370,10 @@ def _tier_estimate_launch(capacity, has_summary, req_unique, req_idx, replicas,
         res = torch.empty((n, K), dtype=I32, device=dev)
     if n == 0 or C == 0 or (cand_idx is not None and K == 0):
         return res
-    from .build import library
-
-    fn = library("tiers").tier_estimate_launch
-    fn.restype = ctypes.c_int
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, ci, ci] + [vp] * 6 + [ci, vp, ci, vp, vp]
-    rc = fn(
-        _ptr(capacity), _ptr(has_summary), C, R, _ptr(replicas), _ptr(unknown_request),
-        _ptr(req_unique), _ptr(req_idx), _ptr(extra_avail), _ptr(rows), n, _ptr(cand_idx), K,
-        _ptr(res), _stream(dev),
+    rc = _bind("tiers", "tier_estimate_launch", _TIER_ESTIMATE_ARGTYPES)(
+        capacity.data_ptr(), has_summary.data_ptr(), C, R,
+        *_ptrs(replicas, unknown_request, req_unique, req_idx, extra_avail, rows), n,
+        _ptr(cand_idx), K, res.data_ptr(), _stream(dev),
     )
     _raise_on(rc, "tier_estimate")
     return res
@@ -1422,7 +1410,26 @@ def _bind(lib: str, entry: str, argtypes):
     return fn
 
 
-_VP, _CI = ctypes.c_void_p, ctypes.c_int
+# the C prototypes, one list per entry point (pointers, int and 64-bit
+# arguments in the entry's order)
+_VP, _CI, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_FILTER_HEAD = [_VP] * 7 + [_CI] * 4 + [_VP] * 13
+_SELECT_ARGTYPES = _FILTER_HEAD + [_CI] * 7 + [_VP] * 11
+_SELECT_WINDOW_ARGTYPES = [_VP, _VP, _CI, _CI, _CI, _VP, _VP, _VP, _VP]
+_TAIL_ARGTYPES = [_VP] * 6 + [_CI] + [_VP] * 4 + [_CI] * 4 + [_VP] * 7
+_DENSE_FILTER_ARGTYPES = _FILTER_HEAD + [_CI] * 6 + [_VP] * 9
+_PACK_ROWS_ARGTYPES = [_VP, _CI, _CI, _VP, _VP]
+_FEAS_IDX_ARGTYPES = [_VP, _CI, _CI, _CI, _VP, _VP]
+_GROUP_SCORE_ARGTYPES = [_VP] * 4 + [_CI, _VP, _CI] + [_VP] * 8 + [_CI] * 3 + [_VP] * 5
+_PACKED_SELECTION_ARGTYPES = [_VP, _CI, _VP, _CI, _VP, _CI, _VP, _VP, _VP]
+_COMBO_SELECT_ARGTYPES = [_VP] * 4 + [_CI] * 2 + [_VP] * 2 + [_CI] * 4 + [_VP] * 5
+_TIER_ESTIMATE_ARGTYPES = [_VP, _VP, _CI, _CI] + [_VP] * 6 + [_CI, _VP, _CI, _VP, _VP]
+_STALENESS_ARGTYPES = [_VP, ctypes.c_int64, _CI, _VP, _VP]
+_SCATTER_ROWS_ARGTYPES = [_VP] * 4 + [_CI, _VP, _CI, _VP]
+_SIM_FILTER_ARGTYPES = [_VP] * 7 + [_CI] * 5 + [_VP] * 14 + [_CI] * 6 + [_VP] * 7
+_DENSE_INPUT_FILTER_ARGTYPES = ([_VP] * 7 + [_CI] * 4 + [_VP] * 8 + [_CI] + [_VP] * 4
+                                + [_CI] * 2 + [_VP] * 4)
+_MESH_TILE_FILTER_ARGTYPES = _FILTER_HEAD + [_CI] * 6 + [_VP, _CL] * 3 + [_VP] * 7
 _CONSUME_ARGTYPES = ([_VP, _CI, _CI] + [_VP] * 4 + [_CI, _CI, _VP, _CI] + [_VP] * 2
                      + [ctypes.c_longlong, _VP])
 _DENSE_TAIL_ARGTYPES = [_VP] * 4 + [_CI, _VP, _CI] + [_VP] * 5 + [_CI] * 3 + [_VP] * 7
@@ -1554,13 +1561,8 @@ def _staleness_launch(values, shift: int):
     n = values.numel()
     if n == 0:
         return out
-    from .build import library
-
-    fn = library("staleness").staleness_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    rc = fn(_ptr(values), n, shift, _ptr(out), _stream(values.device))
+    rc = _bind("staleness", "staleness_launch", _STALENESS_ARGTYPES)(
+        values.data_ptr(), n, shift, out.data_ptr(), _stream(values.device))
     _raise_on(rc, "staleness_penalty")
     return out
 
@@ -1610,18 +1612,13 @@ def _scatter_rows_launch(dsts, idx, srcs):
     pairs = [p for p in pairs if p[2]]
     if n == 0 or not pairs:
         return
-    from .build import library
-
     k = len(pairs)
-    fn = library("scatter_rows").scatter_rows_launch
-    fn.restype = ctypes.c_int
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 4 + [ci, vp, ci, vp]
-    dst_p = (vp * k)(*(d.data_ptr() for d, _, _ in pairs))
-    src_p = (vp * k)(*(x.data_ptr() for _, x, _ in pairs))
+    dst_p = (_VP * k)(*(d.data_ptr() for d, _, _ in pairs))
+    src_p = (_VP * k)(*(x.data_ptr() for _, x, _ in pairs))
     row_bytes = (ctypes.c_int64 * k)(*(w for _, _, w in pairs))
     dst_rows = (ctypes.c_int64 * k)(*(d.shape[0] for d, _, _ in pairs))
-    rc = fn(dst_p, src_p, row_bytes, dst_rows, k, _ptr(idx), n, _stream(dev))
+    rc = _bind("scatter_rows", "scatter_rows_launch", _SCATTER_ROWS_ARGTYPES)(
+        dst_p, src_p, row_bytes, dst_rows, k, idx.data_ptr(), n, _stream(dev))
     _raise_on(rc, "scatter_rows")
 
 
@@ -1680,23 +1677,13 @@ def _sim_filter_launch(
     feas_count = torch.empty((S, B), dtype=I32, device=dev)
     if B == 0 or C == 0:
         return feasible, avail, prev, tie, feas_count.zero_()
-    from .build import library
-
-    fn = library("dense_filter").sim_filter_launch
-    fn.restype = ctypes.c_int
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 7 + [ci] * 5 + [vp] * 14 + [ci] * 6 + [vp] * 6 + [vp]
-    rc = fn(
-        _ptr(alive), _ptr(capacity), _ptr(has_summary), _ptr(taint_key),
-        _ptr(taint_value), _ptr(taint_effect), _ptr(api_ok),
-        S, C, R, T, G, _ptr(tie_idx),
-        _ptr(replicas), _ptr(unknown_request), _ptr(gvk), _ptr(tol_tables),
-        _ptr(tol_idx), _ptr(aff_masks), _ptr(aff_idx), _ptr(prev_idx),
-        _ptr(prev_rep), _ptr(evict_idx), _ptr(seeds), _ptr(req_unique),
-        _ptr(req_idx),
-        B, Kt, Kp, Ke, plugin_bits, 1 if extra_avail is not None else 0,
-        _ptr(extra_avail), _ptr(feasible), _ptr(avail), _ptr(prev), _ptr(tie),
-        _ptr(feas_count), _stream(dev),
+    rc = _bind("dense_filter", "sim_filter_launch", _SIM_FILTER_ARGTYPES)(
+        *_ptrs(alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok),
+        S, C, R, T, G,
+        *_ptrs(tie_idx, replicas, unknown_request, gvk, tol_tables, tol_idx, aff_masks,
+               aff_idx, prev_idx, prev_rep, evict_idx, seeds, req_unique, req_idx),
+        B, Kt, Kp, Ke, plugin_bits, extra_avail is not None,
+        *_ptrs(extra_avail, feasible, avail, prev, tie, feas_count), _stream(dev),
     )
     _raise_on(rc, "sim_filter")
     return feasible, avail, prev, tie, feas_count
@@ -1789,20 +1776,13 @@ def _dense_input_filter_launch(
     avail = torch.empty((B, C), dtype=I32, device=dev)
     if B == 0 or C == 0:
         return feasible, score, avail
-    from .build import library
-
-    fn = library("dense_filter").dense_input_filter_launch
-    fn.restype = ctypes.c_int
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 8 + [ci] + [vp] * 4 + [ci] * 2 + [vp] * 4
-    rc = fn(
-        _ptr(alive), _ptr(capacity), _ptr(has_summary), _ptr(taint_key),
-        _ptr(taint_value), _ptr(taint_effect), _ptr(api_ok),
+    rc = _bind("dense_filter", "dense_input_filter_launch", _DENSE_INPUT_FILTER_ARGTYPES)(
+        *_ptrs(alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok),
         C, R, T, G,
-        _ptr(replicas), _ptr(request), _ptr(unknown_request), _ptr(gvk),
-        _ptr(tol_key), _ptr(tol_value), _ptr(tol_effect), _ptr(tol_op), Kt,
-        _ptr(affinity_ok), _ptr(eviction_ok), _ptr(prev_member), _ptr(extra_avail),
-        B, ALL_PLUGIN_BITS, _ptr(feasible), _ptr(score), _ptr(avail), _stream(dev),
+        *_ptrs(replicas, request, unknown_request, gvk, tol_key, tol_value, tol_effect,
+               tol_op), Kt,
+        *_ptrs(affinity_ok, eviction_ok, prev_member, extra_avail), B, ALL_PLUGIN_BITS,
+        *_ptrs(feasible, score, avail), _stream(dev),
     )
     _raise_on(rc, "dense_input_filter")
     return feasible, score, avail
@@ -1879,26 +1859,16 @@ def _mesh_tile_filter_launch(
     feas_count = torch.empty((B,), dtype=I32, device=dev)
     if B == 0 or C == 0:
         return feasible, score, avail, prev, tie, feas_count.zero_()
-    from .build import library
-
-    fn = library("dense_filter").mesh_tile_filter_launch
-    fn.restype = ctypes.c_int
-    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = ([vp] * 7 + [ci] * 4 + [vp] * 13 + [ci] * 6 + [vp, ll] * 3 + [vp] * 6
-                   + [vp])
+    fn = _bind("dense_filter", "mesh_tile_filter_launch", _MESH_TILE_FILTER_ARGTYPES)
     with torch.cuda.device(dev):
         rc = fn(
-            _ptr(alive), _ptr(capacity), _ptr(has_summary), _ptr(taint_key),
-            _ptr(taint_value), _ptr(taint_effect), _ptr(api_ok),
+            *_ptrs(alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok),
             C, R, T, G,
-            _ptr(replicas), _ptr(unknown_request), _ptr(gvk), _ptr(tol_tables),
-            _ptr(tol_idx), _ptr(aff_masks), _ptr(aff_idx), _ptr(prev_idx),
-            _ptr(prev_rep), _ptr(evict_idx), _ptr(seeds), _ptr(req_unique),
-            _ptr(req_idx),
+            *_ptrs(replicas, unknown_request, gvk, tol_tables, tol_idx, aff_masks, aff_idx,
+                   prev_idx, prev_rep, evict_idx, seeds, req_unique, req_idx),
             B, Kt, Kp, Ke, plugin_bits, col0,
             _ptr(extra_avail), lds[0], _ptr(extra_mask), lds[1], _ptr(extra_score), lds[2],
-            _ptr(feasible), _ptr(score), _ptr(avail), _ptr(prev), _ptr(tie), _ptr(feas_count),
-            _stream(dev),
+            *_ptrs(feasible, score, avail, prev, tie, feas_count), _stream(dev),
         )
     _raise_on(rc, "mesh_tile_filter")
     return feasible, score, avail, prev, tie, feas_count

@@ -68,6 +68,39 @@ def test_select_plain_matches_candidate_select_kernel(k, with_extra):
     assert (_n(got[6]) > k).any()  # rows whose feasible set outruns the window
 
 
+@pytest.mark.parametrize("case", ["ties_at_kth", "k_equals_c", "fewer_feasible"])
+def test_select_plain_matches_candidate_select_kernel_edges(case):
+    """The window's edge cases against the reference: K-th values tied with
+    columns left out of the window (the window takes the lowest columns of
+    the tie), K = C, and rows with fewer feasible columns than K (every
+    feasible column wins, then the infeasible ones by score and column)."""
+    ref, port, jb, tb = _encode_both()
+    B, C = len(jb.replicas), len(ref.fleet.names)
+    k = {"ties_at_kth": C // 2, "k_equals_c": C, "fewer_feasible": 24}[case]
+    want = jcand._candidate_select_kernel(*ref.filter_kernel_args(jb), k=k,
+                                          plugin_bits=ref._plugin_bits)
+    f, t = port._fleet_dev, batch_from_numpy({n: getattr(tb, n) for n in BATCH_FIELDS}, "cpu")
+    args = [f[n] for n in FLEET_FIELDS] + [t[n] for n in (
+        "replicas", "unknown_request", "gvk", "tol_tables", "tol_idx", "aff_masks", "aff_idx",
+        "prev_idx", "prev_rep", "evict_idx", "seeds", "req_unique", "req_idx")] + [None]
+    got = kernels.select_plain(*args, k=k, plugin_bits=port._plugin_bits)
+    names = ("cand_idx", "c_feas", "c_score", "c_avail", "c_prev", "c_tie", "feas_count", "packed")
+    for name, a, b in zip(names, got, want):
+        np.testing.assert_array_equal(_n(a), np.asarray(b), err_msg=name)
+    feasible, score = (_n(x) for x in kernels.dense_filter_plain(
+        *args, plugin_bits=port._plugin_bits)[:2])
+    key = (feasible.astype(np.int64) << 33) + score
+    kth = np.take_along_axis(key, _n(got[0]).astype(np.int64), 1).min(1)
+    left_out = ((key == kth[:, None]).sum(1)
+                - (np.take_along_axis(key, _n(got[0]).astype(np.int64), 1) == kth[:, None]).sum(1))
+    if case == "ties_at_kth":
+        assert (left_out > 0).sum() > B // 4
+    elif case == "fewer_feasible":
+        assert (_n(got[6]) < k).any() and (_n(got[6]) > k).any()
+    else:
+        assert (_n(got[0]) == np.arange(C)).all()
+
+
 @pytest.mark.parametrize("has_agg,topk", [(False, 16), (True, 8)])
 def test_tail_plain_matches_candidate_tail_kernel(has_agg, topk):
     ref, port, jb, tb = _encode_both()
@@ -148,8 +181,9 @@ def test_candidate_k_256_tiered_compact_round_matches_jax():
 
 
 def test_wide_fleet_round_matches_jax():
-    """A 20 000-cluster fleet (padded to 20 480, past the in-block select's
-    16 384 columns) with a few dozen bindings decides as the JAX round."""
+    """A 20 000-cluster fleet (padded to 20 480: the in-block select's keys
+    in 84 KB of shared memory on the card) with a few dozen bindings
+    decides as the JAX round."""
     from karmada_tpu.testing.fixtures import synthetic_fleet
 
     import test_torch_scheduler as ts
@@ -165,7 +199,7 @@ def test_wide_fleet_round_matches_jax():
     port = TorchScheduler(from_reference_objects(clusters), device="cpu")
     assert len(port.fleet.names) == 20_480
     C = len(port.fleet.names)
-    assert kernels.select_route(C, 128, 1, 1, 1) == "candidate_select_wide"
+    assert kernels.select_route(C, 1, 1, 1) == "candidate_select"
     want = ref.schedule(bindings)
     got = port.schedule(from_reference_objects(bindings))
     assert port.last_candidate_stats == ref.last_candidate_stats
@@ -221,19 +255,20 @@ def test_tail_launch_takes_any_window(K, entry, fake_card):
     assert out[4].shape == (rows, min(K, 128))
 
 
-@pytest.mark.parametrize("C,entry", [(5120, "candidate_select_launch"),
-                                     (20_480, "candidate_select_wide_launch")])
-def test_select_launch_takes_any_width(C, entry, fake_card):
-    """candidate_select's launch no longer refuses fleets past 16 384
-    columns: they take the radix-select route with an int64 [B, C] key
-    scratch."""
+@pytest.mark.parametrize("C,wide", [(5120, False), (20_480, False), (60_000, True)])
+def test_select_launch_takes_any_width(C, wide, fake_card):
+    """candidate_select's launch refuses no width: one C entry of 42
+    arguments, its key scratch null on the in-block route and an int32
+    [B, C] tensor past MAX_SELECT_SMEM (wide_40k's 20 480 columns stay in
+    the block)."""
     import chip_smoke
 
     args = chip_smoke.random_select_inputs(np.random.default_rng(C), "cpu", 4, C)
     kernels._select_launch(*args, k=128, plugin_bits=31)
     (name, cargs), = fake_card
-    assert name == entry
-    assert len(cargs) == (42 if entry.endswith("wide_launch") else 41)
+    assert name == "candidate_select_launch"
+    assert len(cargs) == 42
+    assert (cargs[-2] is not None) == wide
 
 
 def test_scatter_rows_launch_marshals_every_tensor(fake_card):

@@ -1,0 +1,262 @@
+"""Every launch wrapper of `karmada_tpu_torch.kernels` on a faked card: the
+wrapper binds its C entry point once (`kernels._bind`: the library is
+loaded and the prototype set at the first call only) and passes exactly
+as many arguments as the entry's C prototype in `csrc/` declares, the
+prototype's ctypes list being that long too. The library is a fake whose
+entries record their calls and return cudaSuccess; the inputs are CPU
+tensors, so the wrappers' checks and marshalling run up to the launch."""
+import ctypes
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import chip_smoke  # noqa: E402
+from karmada_tpu_torch import kernels  # noqa: E402
+from karmada_tpu_torch.kernels import build  # noqa: E402
+from karmada_tpu_torch.sched import spread_batch  # noqa: E402
+
+CPU = torch.device("cpu")
+
+
+def c_prototypes() -> dict:
+    """{entry: number of parameters} of every `extern "C"` entry in csrc."""
+    out = {}
+    for src in Path(build.CSRC).glob("*.cu"):
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+            out[name] = len([p for p in params.split(",") if p.strip()])
+    return out
+
+
+def _select_args(C=300):
+    return chip_smoke.random_select_inputs(np.random.default_rng(1), CPU, 6, C)
+
+
+def _group_args():
+    rng = np.random.default_rng(2)
+    C = 96
+    region = rng.integers(-1, 5, C).astype(np.int32)
+    lay = spread_batch.RegionLayout(region, [f"r{i}" for i in range(5)],
+                                    rng.permutation(C).astype(np.int32)).tensors(CPU)
+    args = chip_smoke.random_group_inputs(rng, CPU, 8, C, 5)
+    return args + [lay[k] for k in chip_smoke.LAYOUT], lay
+
+
+def _combo_args(R):
+    rng = np.random.default_rng(R)
+    members, sizes = spread_batch._combos(R, 1, 2).tensors(CPU)
+    d = chip_smoke.random_combo_inputs(rng, CPU, 5, R)
+    return (d["weight"], d["value"], torch.full((5,), 2, dtype=torch.int32),
+            torch.from_numpy(rng.permutation(R).astype(np.int32)), members, sizes)
+
+
+def _tier():
+    return chip_smoke.random_tier_inputs(np.random.default_rng(3), CPU, 20, 64, 4, 8, 16)
+
+
+def _sel():
+    d = chip_smoke.random_selection_inputs(np.random.default_rng(4), CPU, 8, 96, 5, 4)
+    _, lay = _group_args()
+    return d, lay
+
+
+def launch_select(C=300):
+    kernels._select_launch(*_select_args(C), k=16, plugin_bits=31)
+
+
+def launch_select_window():
+    rng = np.random.default_rng(9)
+    kernels._select_window_launch(torch.from_numpy(rng.random((4, 300)) < 0.5),
+                                  torch.from_numpy(rng.integers(-9, 9, (4, 300), dtype=np.int32)),
+                                  16)
+
+
+def launch_tail():
+    a = chip_smoke.random_tail_inputs(np.random.default_rng(5), CPU, 6, 32, 300)
+    kernels._tail_launch(*a, topk=16, has_agg=True)
+
+
+def launch_dense_filter():
+    kernels._dense_filter_launch(*_select_args(), plugin_bits=31)
+
+
+def launch_pack_rows():
+    kernels._pack_rows_launch(torch.rand((5, 77)) < 0.5)
+
+
+def launch_feas_idx():
+    kernels._feas_idx_launch(torch.rand((5, 77)) < 0.5, 8)
+
+
+def launch_group_score():
+    args, _ = _group_args()
+    kernels._group_score_launch(*args)
+
+
+def launch_packed_selection():
+    d, lay = _sel()
+    kernels._packed_selection_launch(d["feasible"], d["rows"], d["chosen"], lay["rid"])
+
+
+def launch_combo_select():
+    kernels._combo_select_launch(*_combo_args(6), cmin=2, kmin=1)
+
+
+def launch_tier_estimate():
+    d = _tier()
+    args = [d[n] for n in chip_smoke.ESTIMATE_ARGS] + [d["rows"]]
+    kernels._tier_estimate_launch(*args, cand_idx=d["cand_idx"])
+
+
+def launch_staleness():
+    kernels._staleness_launch(torch.arange(-3, 40, dtype=torch.int32).reshape(1, -1), 2)
+
+
+def launch_scatter_rows():
+    dst = [torch.zeros((10, 3), dtype=torch.int64)]
+    kernels._scatter_rows_launch(dst, torch.tensor([1, 4]), [torch.ones((2, 3), dtype=torch.int64)])
+
+
+def launch_sim_filter():
+    a = chip_smoke.random_sim_inputs(np.random.default_rng(6), CPU, 2, 6, 100, True)
+    kernels._sim_filter_launch(*a, plugin_bits=31)
+
+
+def launch_dense_input_filter():
+    kernels._dense_input_filter_launch(*chip_smoke.random_dense_input_args(7, CPU, 6, 100))
+
+
+def launch_mesh_tile_filter():
+    (args, kw), *_ = chip_smoke.random_tile_inputs(8, CPU, 8, 100, (2, 2))
+    kernels._mesh_tile_filter_launch(*args, **kw)
+
+
+# wrapper -> (library, entry)
+WRAPPERS = {
+    launch_select: ("candidate_select", "candidate_select_launch"),
+    launch_select_window: ("candidate_select", "select_window_launch"),
+    launch_tail: ("candidate_tail", "candidate_tail_launch"),
+    launch_dense_filter: ("dense_filter", "dense_filter_launch"),
+    launch_pack_rows: ("dense_mask", "pack_rows_launch"),
+    launch_feas_idx: ("dense_mask", "feas_idx_launch"),
+    launch_group_score: ("group_score", "group_score_launch"),
+    launch_packed_selection: ("dense_mask", "packed_selection_launch"),
+    launch_combo_select: ("combo_select", "combo_select_launch"),
+    launch_tier_estimate: ("tiers", "tier_estimate_launch"),
+    launch_staleness: ("staleness", "staleness_launch"),
+    launch_scatter_rows: ("scatter_rows", "scatter_rows_launch"),
+    launch_sim_filter: ("dense_filter", "sim_filter_launch"),
+    launch_dense_input_filter: ("dense_filter", "dense_input_filter_launch"),
+    launch_mesh_tile_filter: ("dense_filter", "mesh_tile_filter_launch"),
+}
+
+
+@pytest.fixture()
+def fake_lib(monkeypatch):
+    """(calls, loads): each entry call as (name, args), each library load."""
+    calls, loads = [], []
+
+    class Lib:
+        def __getattr__(self, name):
+            def entry(*args):
+                calls.append((name, args))
+                return 0
+
+            return entry
+
+    monkeypatch.setattr(build, "library", lambda name: (loads.append(name), Lib())[1])
+    monkeypatch.setattr(kernels, "_stream", lambda dev: ctypes.c_void_p(0))
+    monkeypatch.setattr(kernels, "_bound", {})
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: __import__("contextlib").nullcontext())
+    return calls, loads
+
+
+@pytest.mark.parametrize("launch", list(WRAPPERS), ids=lambda f: f.__name__[7:])
+def test_wrapper_binds_once_with_its_prototype(launch, fake_lib):
+    calls, loads = fake_lib
+    lib, entry = WRAPPERS[launch]
+    launch()
+    launch()
+    assert loads == [lib]
+    assert [name for name, _ in calls] == [entry, entry]
+    n = c_prototypes()[entry]
+    assert all(len(args) == n for _, args in calls)
+    assert len(kernels._bound[entry].argtypes) == n
+
+
+def test_every_c_entry_has_a_bound_prototype():
+    """Each C entry's ctypes list in kernels has the prototype's length
+    (dense_tail.cu's phase profile is bound by scripts/torch_tail_phases.py)."""
+    protos = c_prototypes()
+    protos.pop("dense_tail_phase_cycles")
+    lists = {
+        "candidate_select_launch": kernels._SELECT_ARGTYPES,
+        "select_window_launch": kernels._SELECT_WINDOW_ARGTYPES,
+        "candidate_tail_launch": kernels._TAIL_ARGTYPES,
+        "dense_filter_launch": kernels._DENSE_FILTER_ARGTYPES,
+        "pack_rows_launch": kernels._PACK_ROWS_ARGTYPES,
+        "feas_idx_launch": kernels._FEAS_IDX_ARGTYPES,
+        "group_score_launch": kernels._GROUP_SCORE_ARGTYPES,
+        "packed_selection_launch": kernels._PACKED_SELECTION_ARGTYPES,
+        "combo_select_launch": kernels._COMBO_SELECT_ARGTYPES,
+        "tier_estimate_launch": kernels._TIER_ESTIMATE_ARGTYPES,
+        "staleness_launch": kernels._STALENESS_ARGTYPES,
+        "scatter_rows_launch": kernels._SCATTER_ROWS_ARGTYPES,
+        "sim_filter_launch": kernels._SIM_FILTER_ARGTYPES,
+        "dense_input_filter_launch": kernels._DENSE_INPUT_FILTER_ARGTYPES,
+        "mesh_tile_filter_launch": kernels._MESH_TILE_FILTER_ARGTYPES,
+        "tier_consume_launch": kernels._CONSUME_ARGTYPES,
+        "dense_tail_launch": kernels._DENSE_TAIL_ARGTYPES,
+        "spread_tail_launch": kernels._SPREAD_TAIL_ARGTYPES,
+        "window_tail_launch": kernels._WINDOW_TAIL_ARGTYPES,
+        "fleet_estimate_launch": kernels._FLEET_ESTIMATE_ARGTYPES,
+        "sim_load_launch": kernels._SIM_LOAD_ARGTYPES,
+    }
+    assert set(lists) == set(protos)
+    assert {e: len(t) for e, t in lists.items()} == protos
+
+
+@pytest.mark.parametrize("C,wide", [(5120, False), (54_400, False), (54_700, True)])
+def test_select_launch_routes_by_width(C, wide, fake_lib):
+    """Both select routes go through the one entry: the in-block route
+    passes a null key scratch, the device-memory route an int32 [B, C]
+    one; MAX_SELECT_SMEM puts the threshold near 54 500 columns."""
+    calls, _ = fake_lib
+    args = chip_smoke.random_select_inputs(np.random.default_rng(C), CPU, 2, C)
+    route = kernels.select_route(C, args[10].shape[2], args[14].shape[1], args[16].shape[1])
+    assert route == ("candidate_select_wide" if wide else "candidate_select")
+    kernels._select_launch(*args, k=128, plugin_bits=31)
+    (_, cargs), = calls
+    assert (cargs[-2] is not None) == wide
+
+
+@pytest.mark.parametrize("R,scratch", [(6, False), (2048, False), (2049, True)])
+def test_combo_select_launch_scratch_past_the_staged_regions(R, scratch, fake_lib):
+    """combo_select takes any region count: past MAX_COMBO_SMEM_REGIONS
+    the launch passes an int32 [S, R] position scratch; R = 0 raises."""
+    calls, _ = fake_lib
+    rng = np.random.default_rng(R)
+    members = torch.from_numpy(np.array([[0, 1], [R - 1, -1]], np.int32))
+    sizes = torch.tensor([2, 1], dtype=torch.int32)
+    args = (torch.from_numpy(rng.integers(0, 9, (3, R)).astype(np.int64)),
+            torch.from_numpy(rng.integers(0, 3, (3, R)).astype(np.int32)),
+            torch.full((3,), 2, dtype=torch.int32),
+            torch.from_numpy(rng.permutation(R).astype(np.int32)), members, sizes)
+    kernels._combo_select_launch(*args, cmin=1, kmin=1)
+    (_, cargs), = calls
+    assert (cargs[-2] is not None) == scratch
+    with pytest.raises(ValueError, match="no region"):
+        kernels._combo_select_launch(args[0][:, :0], args[1][:, :0], args[2],
+                                     args[3][:0], members[:0], sizes[:0], cmin=1, kmin=1)
+
+
+@pytest.mark.parametrize("route,code", [("auto", 0), ("reread", 1)])
+def test_group_score_launch_passes_its_route(route, code, fake_lib):
+    calls, _ = fake_lib
+    args, _ = _group_args()
+    kernels._group_score_launch(*args, route=route)
+    (_, cargs), = calls
+    assert cargs[16:18] == (args[9].numel(), code)  # Cp, then the route

@@ -46,16 +46,29 @@ def _layouts(rng, C, R, skewed):
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("case", ["balanced", "skewed", "negative"])
+@pytest.mark.parametrize("case", ["balanced", "skewed", "negative", "one_column",
+                                  "whole_fleet"])
 def test_group_score_plain_matches_jax(case):
     """Tie-heavy scores and availability (few distinct values, so the name
     rank decides many orders), need and target spanning 0 to past the
     region sizes. "negative" holds negative scores and availability, where
     the prefix is not monotone: the first satisfying position is the grid
-    program's, which the segmented twin does not claim."""
-    rng = np.random.default_rng({"balanced": 0, "skewed": 1, "negative": 2}[case])
+    program's, which the segmented twin does not claim. "one_column" adds
+    a region of a single column, "whole_fleet" puts every column in one
+    region."""
+    seed = {"balanced": 0, "skewed": 1, "negative": 2, "one_column": 3, "whole_fleet": 4}[case]
+    rng = np.random.default_rng(seed)
     C, R, B, S = 150, 7, 24, 18
     jl, tl = _layouts(rng, C, R, skewed=case == "skewed")
+    if case in ("one_column", "whole_fleet"):
+        rid = np.zeros(C, np.int32)
+        if case == "one_column":
+            rid = rng.integers(-1, R - 1, C).astype(np.int32)
+            rid[rid == R - 1] = 0
+            rid[rng.integers(C)] = R - 1  # region R - 1: one column
+        names = [f"region-{i:02d}" for i in rng.permutation(R if case == "one_column" else 1)]
+        rank = rng.permutation(C).astype(np.int32)
+        jl, tl = jsb.RegionLayout(rid, names, rank), tsb.RegionLayout(rid, names, rank)
     feas = rng.random((B, C)) < 0.85
     score = rng.integers(0, 3, (B, C)).astype(np.int32)
     avail = rng.choice([0, 1, 1, 3, 9], (B, C)).astype(np.int32)
@@ -84,7 +97,10 @@ def test_group_score_plain_matches_jax(case):
         for name, a, b in zip(("weight", "value", "avail_sum", "feas_count"), got, want):
             np.testing.assert_array_equal(_n(a), np.asarray(b), err_msg=f"{program.__name__} {name}")
     weight = _n(got[0])
-    assert (weight > 0).sum() > S and len(np.unique(weight)) > 10
+    if case == "whole_fleet":  # one region: one weight a row
+        assert (weight > 0).sum() > S // 2 and len(np.unique(weight)) > 5
+    else:
+        assert (weight > 0).sum() > S and len(np.unique(weight)) > 10
 
 
 def _selection_inputs(rng, B, C, R, n):
@@ -140,10 +156,14 @@ def test_spread_tail_plain_matches_jax(has_agg):
     assert (_n(got[0]) > 0).sum(-1).max() > 3
 
 
-@pytest.mark.parametrize("R,kmin,kmax", [(12, 2, 5), (10, 1, 10)])
+@pytest.mark.parametrize("R,kmin,kmax", [(12, 2, 5), (10, 1, 10), (65, 1, 1), (65, 2, 2),
+                                         (100, 1, 1), (100, 2, 2), (200, 1, 2)])
 def test_combo_select_plain_matches_jax(R, kmin, kmax):
     """7 * L <= 62 (the packed discovery key) and L = 10 (the first
-    candidate and the real tie count); heavy (Σw, Σv) ties."""
+    candidate and the real tie count); heavy (Σw, Σv) ties; fleets of 65,
+    100 and 200 regions (past the kernel's former 64-region cap; past 128
+    a group-order position outgrows its 7-bit slot of the discovery key,
+    whose slots are then added, as the reference adds them)."""
     rng = np.random.default_rng(R)
     S = 40
     W = rng.integers(0, 5, (S, R)).astype(np.int64) * 1000
