@@ -35,10 +35,15 @@ result line otherwise. Phases, each of which raises on failure:
    tier_estimate also with a random registered-estimator answer matrix
    (extra_avail) on the flagship batches; fleet_estimate on seeded node
    fleets (overcommitted nodes, zero requests, exhausted pod slots,
-   tainted nodes, node-less clusters; in cluster order and shuffled), on config 3's and the flagship's
-   node fleets (shard_nodes pools) with their rows and on the reference
-   estimator fixture (5 000 nodes, 100 000 pods) as one cluster, timed at
-   the flagship sweep; staleness_penalty on a random i32 [10 000, 5 000]
+   tainted nodes, node-less clusters; in cluster order and shuffled; rows
+   as a [B, R] request and as a table of distinct requests, one or many,
+   with and without the caller's node ranges; 4 999 and 13 clusters;
+   R = 17; int64 edge values), on config 3's and the flagship's
+   node fleets (shard_nodes pools) with their rows, also in the form the
+   estimator's sweep passes them (distinct requests, node ranges), and on
+   the reference estimator fixture (5 000 nodes, 100 000 pods) as one
+   cluster, timed at the flagship sweep (with the node ranges, with the
+   sort, every row distinct) and at config 3's; staleness_penalty on a random i32 [10 000, 5 000]
    matrix at ages 0-10, with torch.where as its library call;
    scatter_rows (the dirty-column refresh) on seeded fleets at 5 120
    columns with repeated indices, every dtype, with index_copy_ as its
@@ -50,7 +55,10 @@ result line otherwise. Phases, each of which raises on failure:
    scenario-stacked filter, csrc/dense_filter.cu) and sim_load (its
    per-scenario load, csrc/sim_load.cu) on seeded inputs at the whatif
    solve's shape (with and without answers) and at one whatif_churn5k
-   chunk, drained columns and padded taint slots in each, and on the
+   chunk, drained columns and padded taint slots in each, sim_filter also
+   on its edge cases (one distinct request and every row its own, 4 999
+   and 13 columns, one scenario, a scenario drained whole, R = 17, the
+   estimate's int64 edges), and on the
    arguments one round each of whatif and whatif_churn5k passes them,
    with torch.bmm in float64 as sim_load's library call; dense_input_filter
    (the dense-input program's filter, csrc/dense_filter.cu) on seeded
@@ -230,7 +238,11 @@ from karmada_tpu_torch.api.work import (
 )
 from karmada_tpu_torch.convert import FILTER_ARGS, SCHEDULE_ARGS, batch_from_numpy
 from karmada_tpu_torch.estimator.accurate import AccurateEstimator
-from karmada_tpu_torch.estimator.client import EstimatorRegistry, MemberEstimators
+from karmada_tpu_torch.estimator.client import (
+    EstimatorRegistry,
+    MemberEstimators,
+    distinct_requests,
+)
 from karmada_tpu_torch.faults import BreakerRegistry
 from karmada_tpu_torch.kernels import build
 from karmada_tpu_torch.models.batch import (
@@ -2154,14 +2166,27 @@ def flagship_answers(rng, B, C, dev):
 
 
 def fleet_args(members, names, reqs, dev):
-    """The fleet kernel's arguments as MemberEstimators builds them: its
-    snapshot of the concatenated node arrays (alloc, requested, pod_count,
-    allowed, cluster_id, the cluster count, claimless_ok) and the [B, R] request
+    """The fleet kernel's arguments over MemberEstimators' snapshot of the
+    concatenated node arrays (alloc, requested, pod_count, allowed,
+    cluster_id, the cluster count, claimless_ok) with the [B, R] request
     matrix."""
     snap = MemberEstimators(members, device=dev)._fleet_snapshot(names)
     enc = NodeEncoder()
     request = np.stack([enc.request_vector(r.resource_request if r else {}) for r in reqs])
     return list(snap) + [torch.from_numpy(request.astype(np.int64)).to(dev)]
+
+
+def fleet_main_args(members, names, reqs, dev):
+    """The fleet kernel's arguments as max_available_replicas_rows passes
+    them on the main path: the snapshot, the table of distinct requests,
+    and as keywords each row's index into it (None when every row is
+    distinct) and the snapshot's node ranges. Returns (args, keywords)."""
+    est = MemberEstimators(members, device=dev)
+    snap = est._fleet_snapshot(names)
+    request_u, req_idx = distinct_requests(NodeEncoder(), reqs)
+    idx = None if len(request_u) == len(req_idx) else torch.from_numpy(req_idx).to(dev)
+    return (list(snap) + [torch.from_numpy(request_u).to(dev)],
+            {"req_idx": idx, "node_off": est._fleet_off})
 
 
 def random_fleet_args(rng, dev, C, B, R=4, shuffle=False):
@@ -2185,10 +2210,56 @@ def random_fleet_args(rng, dev, C, B, R=4, shuffle=False):
     return nodes + [C, torch.from_numpy(ok[p]).to(dev), torch.from_numpy(request).to(dev)]
 
 
-def fleet_plain(args):
+# int64 edge values of the fleet sweep's division: free capacities near
+# +-2^62 and at 0 / 1, requests of 1, past the free capacity and near
+# 2^63 - 1, pod slots past INT32_MAX (a node's cap then INT32_MAX, the
+# cluster's sum past it)
+EDGE_ALLOC = (-(2**62) - 5, -(2**62), -1, 0, 1, 7, 2**31 - 1, 2**31, 3 * (2**31 - 1),
+              2**62 - 1, 2**62, 2**62 + 7)
+EDGE_REQUESTED = (0, 1, 5, -3)
+EDGE_REQUEST = (0, -1, 1, 3, 7, 1_000_000, 2**31 - 1, 2**62, 2**63 - 1)
+EDGE_PODS = (0, 3, 110, 2**31 - 1, 2**31, 2**62)
+
+
+def edge_fleet_args(rng, dev, C, B, R=4):
+    """random_fleet_args' layout (in cluster order) over the int64 edge
+    values above."""
+    args = random_fleet_args(rng, dev, C, B, R)
+    N = args[0].shape[0]
+    pick = lambda pool, shape: torch.from_numpy(  # noqa: E731
+        rng.choice(np.array(pool, np.int64), shape)).to(dev)
+    args[0], args[1] = pick(EDGE_ALLOC, (N, R)), pick(EDGE_REQUESTED, (N, R))
+    args[3] = pick(EDGE_PODS, N)
+    args[2] = torch.minimum(pick(EDGE_PODS, N), args[3])
+    args[-1] = pick(EDGE_REQUEST, (B, R))
+    return args
+
+
+def distinct_kw(args, dev, node_off=True):
+    """The [B, R] request of `args` as a table of distinct rows and each
+    row's index (the client's form); with `node_off`, the ranges of the
+    nodes, which must lie in cluster order. Returns (args, keywords)."""
+    request_u, inv = torch.unique(args[-1], dim=0, return_inverse=True)
+    kw = {"req_idx": inv.to(torch.int32)}
+    if node_off:
+        cid = args[4].cpu().numpy()
+        kw["node_off"] = torch.from_numpy(
+            np.searchsorted(cid, np.arange(args[5] + 1)).astype(np.int32)).to(dev)
+    return list(args[:-1]) + [request_u.contiguous()], kw
+
+
+def dense_request(args, kw):
+    """The [B, R] request matrix behind a call (the table gathered through
+    the rows' index)."""
+    idx = kw.get("req_idx")
+    return args[-1] if idx is None else args[-1].index_select(0, idx.long())
+
+
+def fleet_plain(args, kw=None):
     """The plain fleet estimate on the card in row chunks (one chunk at the
     flagship materialises 256 x 17 500 x 4 int64 per intermediate)."""
-    *fleet, request = args
+    *fleet, _ = args
+    request = dense_request(args, kw or {})
     return torch.cat([kernels.fleet_estimate_plain(*fleet, request[i:i + PLAIN_ESTIMATE_ROWS])
                       for i in range(0, request.shape[0], PLAIN_ESTIMATE_ROWS)])
 
@@ -2216,56 +2287,108 @@ def check_estimator_kernels(dev, results, flag):
     """Phase 3 for B14 (fleet_estimate) and B16 (staleness_penalty):
     fleet_estimate on seeded node fleets with overcommitted nodes, zero
     requests, exhausted pod slots, tainted nodes and node-less clusters
-    (nodes in cluster order and shuffled), on config 3's node fleet with its rows, on the flagship's node fleet
-    with its 5 000 dynamic rows (timed: the estimator_flagship sweep) and
-    on the reference estimator fixture (5 000 nodes, 100 000 pods) as one
-    cluster; staleness_penalty through apply_staleness_penalty on a random
-    i32 [10 000, 5 000] matrix at ages 0-10."""
+    (nodes in cluster order and shuffled; rows as a [B, R] request, as a
+    table of distinct requests with one (U = 1) or many, with and without
+    the caller's node ranges; 5 000, 4 999 and 13 clusters; R = 17; int64
+    edge values), on config 3's node fleet with its rows, on the flagship's
+    node fleet with its 5 000 dynamic rows (both also in the form the
+    estimator's sweep passes them: its distinct requests and node ranges)
+    and on the reference estimator fixture (5 000 nodes, 100 000 pods) as
+    one cluster; timed at the flagship sweep (with the caller's ranges and
+    with the sort, and with every row distinct) and at config 3's;
+    staleness_penalty through apply_staleness_penalty on a random i32
+    [10 000, 5 000] matrix at ages 0-10."""
     rng = np.random.default_rng(30)
     err = 0
-    cases = [("random", random_fleet_args(rng, dev, N_CLUSTERS, 1024)),
+    base = random_fleet_args(rng, dev, N_CLUSTERS, 1024)
+    one = list(base[:-1]) + [base[-1][3:4].expand(1024, -1).contiguous()]
+    cases = [("random", base, {}),
+             ("random, distinct requests", *distinct_kw(base, dev, node_off=False)),
+             ("random, distinct requests and node ranges", *distinct_kw(base, dev)),
+             ("random, one request (U = 1)", *distinct_kw(one, dev)),
              ("random, nodes shuffled", random_fleet_args(rng, dev, N_CLUSTERS, 1024,
-                                                          shuffle=True)),
-             ("random, R = 17 (a request read in place)",
-              random_fleet_args(rng, dev, N_CLUSTERS, 1024, R=17))]
+                                                          shuffle=True), {}),
+             ("random, 4 999 clusters", *distinct_kw(random_fleet_args(rng, dev, 4999, 512),
+                                                     dev)),
+             ("random, 13 clusters", random_fleet_args(rng, dev, 13, 77), {}),
+             ("random, R = 17", random_fleet_args(rng, dev, N_CLUSTERS, 1024, R=17), {}),
+             ("random, R = 17, distinct requests", *distinct_kw(
+                 random_fleet_args(rng, dev, 999, 300, R=17), dev)),
+             ("int64 edge values", edge_fleet_args(rng, dev, N_CLUSTERS, 512), {}),
+             ("int64 edge values, distinct requests", *distinct_kw(
+                 edge_fleet_args(rng, dev, 1001, 512), dev))]
     c3_clusters, c3_bindings = build_dynamic()
     c3_names = [c.name for c in c3_clusters]
-    cases.append(("config 3", fleet_args(estimator_members(c3_names), c3_names,
-                                         [rb.spec.replica_requirements for rb in c3_bindings],
-                                         dev)))
+    c3_members = estimator_members(c3_names)
+    c3_reqs = [rb.spec.replica_requirements for rb in c3_bindings]
+    c3_main = fleet_main_args(c3_members, c3_names, c3_reqs, dev)
+    cases += [("config 3", fleet_args(c3_members, c3_names, c3_reqs, dev), {}),
+              ("config 3, the sweep's form", *c3_main)]
     flag_reqs = [flag["bindings"][b].spec.replica_requirements
                  for b in dynamic_rows(flag["bindings"])]
     flag_args = fleet_args(flag["members"], flag["names"], flag_reqs, dev)
-    cases.append(("flagship", flag_args))
+    flag_main = fleet_main_args(flag["members"], flag["names"], flag_reqs, dev)
+    # every row distinct: the flagship's requests, each row's memory one
+    # byte apart (its requests are 0 or whole MiB, so no two rows meet)
+    spread = flag_args[-1].clone()
+    spread[:, 1] += torch.arange(spread.shape[0], device=dev)
+    flag_distinct = list(flag_args[:-1]) + [spread]
+    cases += [("flagship", flag_args, {}), ("flagship, the sweep's form", *flag_main),
+              ("flagship, every row distinct", flag_distinct,
+               {"node_off": flag_main[1]["node_off"]})]
     t0 = time.perf_counter()
     fixture = build_estimator(*ESTIMATOR_FIXTURE)
     log(f"estimator fixture ({ESTIMATOR_FIXTURE[0]} nodes, {ESTIMATOR_FIXTURE[1]} pods) built "
         f"in {time.perf_counter() - t0:.1f} s")
     cases.append(("fixture", fleet_args({"fixture": Member(fixture)}, ["fixture"],
-                                        fixture_requests(), dev)))
-    for tag, args in cases:
-        got = kernels._fleet_estimate_launch(*args)
-        err = max(err, compare(f"fleet_estimate[{tag}]", [got], [fleet_plain(args)],
+                                        fixture_requests(), dev), {}))
+    for tag, args, kw in cases:
+        got = kernels._fleet_estimate_launch(*args, **kw)
+        err = max(err, compare(f"fleet_estimate[{tag}]", [got], [fleet_plain(args, kw)],
                                ("answers",)))
         if tag == "fixture" and got[:, 0].cpu().tolist() != fixture.max_available_replicas_batch(
                 fixture_requests()):
             raise AssertionError("fleet_estimate[fixture] differs from the host estimator")
-        log(f"fleet_estimate[{tag}]: {args[-1].shape[0]} rows x {args[5]} "
-            f"clusters over {args[0].shape[0]} nodes equal the plain version (answers "
-            f"{int(got.min())}..{int(got.max())}, {int((got == 0).sum())} zeros)")
+        log(f"fleet_estimate[{tag}]: {got.shape[0]} rows ({args[-1].shape[0]} distinct "
+            f"requests) x {args[5]} clusters over {args[0].shape[0]} nodes equal the plain "
+            f"version (answers {int(got.min())}..{int(got.max())}, {int((got == 0).sum())} "
+            "zeros)")
     del cases, got
-    out = kernels._fleet_estimate_launch(*flag_args)
-    ms = cuda_ms(lambda: kernels._fleet_estimate_launch(*flag_args), 10)
+    # timed: the flagship sweep as the estimator passes it, with the sort
+    # in place of its node ranges, with every row distinct; config 3's
+    main_args, main_kw = flag_main
+    out = kernels._fleet_estimate_launch(*main_args, **main_kw)
+    ms = cuda_ms(lambda: kernels._fleet_estimate_launch(*main_args, **main_kw), 10)
+    sort_kw = {"req_idx": main_kw["req_idx"]}
+    ms_sort = cuda_ms(lambda: kernels._fleet_estimate_launch(*main_args, **sort_kw), 10)
+    d_kw = {"node_off": main_kw["node_off"]}
+    ms_distinct = cuda_ms(lambda: kernels._fleet_estimate_launch(*flag_distinct, **d_kw), 10)
+    c3_out = kernels._fleet_estimate_launch(*c3_main[0], **c3_main[1])
+    ms_c3 = cuda_ms(lambda: kernels._fleet_estimate_launch(*c3_main[0], **c3_main[1]), 10)
     plain = cuda_ms(lambda: fleet_plain(flag_args), 2)
+    dev_main = sum(device_events_us(
+        lambda: kernels._fleet_estimate_launch(*main_args, **main_kw)).values())
+    dev_distinct = sum(device_events_us(
+        lambda: kernels._fleet_estimate_launch(*flag_distinct, **d_kw)).values())
     b, by = bound(*fleet_work(flag_args, out))
+    b_d, by_d = bound(*fleet_work(flag_distinct, out))
+    c3_dense = list(c3_main[0][:-1]) + [dense_request(*c3_main)]
+    b_c3, by_c3 = bound(*fleet_work(c3_dense, c3_out))
     results["fleet_estimate"] = dict(
         source="karmada_tpu_torch/kernels/csrc/fleet_estimate.cu",
         replaces="karmada_tpu/estimator/client.py:23", max_abs_err=err, ms=ms, plain_ms=plain,
-        bound_ms=b, bound_by=by, library_ms=None)
-    log(f"timing (the flagship sweep, {flag_args[-1].shape[0]} rows x "
-        f"{flag_args[5]} clusters, {flag_args[0].shape[0]} nodes): fleet_estimate "
-        f"{ms:.4f} ms (plain {plain:.4f}, bound {b:.4f} {by})")
-    del flag_args, out
+        bound_ms=b, bound_by=by, library_ms=None,
+        device_ms=dev_main / 1e3 if dev_main > 0 else None)
+    log(f"timing (the flagship sweep, {flag_args[-1].shape[0]} rows, "
+        f"{main_args[-1].shape[0]} distinct requests x {flag_args[5]} clusters, "
+        f"{flag_args[0].shape[0]} nodes): fleet_estimate {ms:.4f} ms with the snapshot's node "
+        f"ranges (device {dev_main / 1e3:.4f}), {ms_sort:.4f} ms with the sort (plain "
+        f"{plain:.4f}, bound {b:.4f} {by}); every row distinct {ms_distinct:.4f} ms (device "
+        f"{dev_distinct / 1e3:.4f}; bound {b_d:.4f} {by_d}); config 3's sweep "
+        f"({c3_dense[-1].shape[0]} rows, {c3_main[0][-1].shape[0]} distinct requests x "
+        f"{c3_dense[5]} clusters, {c3_dense[0].shape[0]} nodes) {ms_c3:.4f} ms (bound "
+        f"{b_c3:.4f} {by_c3})")
+    del flag_args, flag_main, main_args, flag_distinct, c3_main, c3_dense, out, c3_out
 
     v = np.where(rng.random(STALENESS_SHAPE) < 0.2, -1,
                  rng.integers(0, 1 << 30, STALENESS_SHAPE)).astype(np.int32)
@@ -3509,6 +3632,62 @@ def random_sim_inputs(rng, dev, S, B, C, with_extra, drained=0.02):
     return stacked + [tie_idx] + batch + [args[-1] if with_extra else None]
 
 
+# sim_filter's seeded edge cases (tag, S, B, C, answers, variant): one
+# distinct request and every row its own, widths that are no multiple of
+# four, one scenario, a scenario drained whole, 17 resources, and the
+# estimate's int64 edges (answers at, below and above INT32_MAX, caps of
+# 2^63 - 1, requests of 1 and near 2^63 - 1, no requested resource)
+SIM_EDGE_CASES = (
+    ("U = 1", 3, 512, 1000, True, "one request"),
+    ("U = B", 3, 512, 1000, False, "all distinct"),
+    ("C = 4 999", 3, 256, 4999, True, None),
+    ("C = 13", 2, 64, 13, False, None),
+    ("S = 1", 1, 1024, 5000, True, None),
+    ("a scenario drained whole", 4, 256, 1000, True, "drained"),
+    ("R = 17", 3, 256, 1000, False, "R = 17"),
+    ("int64 edge values", 3, 512, 1000, True, "edges"),
+    ("int64 edge values, C = 1 001", 2, 300, 1001, False, "edges"),
+)
+EDGE_CAPACITY = (-5, 0, 1, 7, 2**31 - 2, 2**31 - 1, 2**31, 3 * (2**31 - 1) - 1,
+                 3 * (2**31 - 1), 2**62 - 1, 2**62, 2**63 - 1)
+
+
+def sim_edge_inputs(rng, dev, S, B, C, with_extra, variant):
+    """random_sim_inputs with one edge of SIM_EDGE_CASES applied."""
+    args = random_sim_inputs(rng, dev, S, B, C, with_extra)
+    cap, req_u, req_idx = args[1], args[19], args[20]
+    if variant == "one request":
+        req_u, req_idx = req_u[1:2].clone(), torch.zeros_like(req_idx)
+    elif variant == "all distinct":
+        req_u = req_u.index_select(0, req_idx.long())
+        req_u[:, 0] += torch.arange(B, device=dev)
+        req_idx = torch.arange(B, dtype=torch.int32, device=dev)
+    elif variant == "drained":
+        for i in (0, 2, 3, 4, 5):  # alive, has_summary, the taints
+            args[i][1] = 0
+        args[7][1] = 0
+    elif variant == "R = 17":
+        cap = torch.from_numpy(rng.integers(-10, 2_000_000, (S, C, 17))).to(dev)
+        u = rng.integers(0, 2000, (9, 17))
+        u[0] = 0
+        u[:, 5:12] *= rng.random((9, 7)) < 0.5
+        req_u = torch.from_numpy(u.astype(np.int64)).to(dev)
+        req_idx = torch.from_numpy(rng.integers(0, 9, B).astype(np.int32)).to(dev)
+    elif variant == "edges":
+        R = cap.shape[2]
+        cap = torch.from_numpy(rng.choice(np.array(EDGE_CAPACITY, np.int64), (S, C, R))).to(dev)
+        u = rng.choice(np.array(EDGE_REQUEST, np.int64), (24, R))
+        u[0] = 0
+        u[1] = [3, 0, 0, 0]  # 3 (2^31 - 1) // 3 is INT32_MAX: the row's replicas
+        req_u = torch.from_numpy(u).to(dev)
+        req_idx = torch.from_numpy(rng.integers(0, 24, B).astype(np.int32)).to(dev)
+        reps = args[8].clone()
+        reps[::7] = 2**31 - 1
+        args[8] = reps
+    args[1], args[19], args[20] = cap.contiguous(), req_u.contiguous(), req_idx
+    return args
+
+
 def sim_filter_bound(args, outs):
     """Bytes: every input read once, every output written once.
     Operations: per (scenario, row, column) the filter chain (one compare
@@ -3583,6 +3762,17 @@ def check_sim_kernels(dev, results):
                                    kernels._sim_load_launch(odd, active, request),
                                    kernels.sim_load_plain(odd, active, request), SIM_LOAD_OUT))
         del args, result, odd
+    for tag, S, B, C, with_extra, variant in SIM_EDGE_CASES:
+        args = sim_edge_inputs(rng, dev, S, B, C, with_extra, variant)
+        got = kernels._sim_filter_launch(*args, plugin_bits=bits)
+        want = kernels.sim_filter_plain(*args, plugin_bits=bits)
+        err_f = max(err_f, compare(f"sim_filter[{tag}: {S}x{B}x{C}, answers {with_extra}]",
+                                   got, want, SIM_FILTER_OUT))
+        log(f"sim_filter[{tag}: {S} x {B} x {C}, {args[19].shape[0]} distinct requests x "
+            f"{args[1].shape[2]} resources, answers {with_extra}] equals its plain version "
+            f"(avail {int(want[1].min())}..{int(want[1].max())}, "
+            f"{int(want[0].sum())} feasible)")
+        del args, got, want
     torch.cuda.empty_cache()
     log(f"sim_filter and sim_load: seeded inputs at (S, B, C, answers) {SIM_CHECK_SHAPES} "
         "(drained columns, padded taint slots, random active masks, byte-sized requests; "
@@ -3643,6 +3833,10 @@ def check_sim_kernels(dev, results):
     ms_fw = cuda_ms(lambda: kernels._sim_filter_launch(*w_args, **w_kw), 20)
     wl_args, wl_kw = captured["whatif"]["sim_load"][0]
     ms_lw = cuda_ms(lambda: kernels._sim_load_launch(*wl_args, **wl_kw), 20)
+    # device time (torch.profiler: the memset and both launches) beside
+    # the events' time, which also holds the wrapper's host enqueue
+    dev_f = sum(device_events_us(lambda: kernels._sim_filter_launch(*f_args, **f_kw)).values())
+    dev_fw = sum(device_events_us(lambda: kernels._sim_filter_launch(*w_args, **w_kw)).values())
     b_fw, by_fw = sim_filter_bound(w_args, kernels._sim_filter_launch(*w_args, **w_kw))
     b_lw, by_lw = sim_load_bound(wl_args, kernels._sim_load_launch(*wl_args, **wl_kw))
     b_f, by_f = sim_filter_bound(f_args, f_out)
@@ -3677,15 +3871,18 @@ def check_sim_kernels(dev, results):
     results["sim_filter"] = dict(
         source="karmada_tpu_torch/kernels/csrc/dense_filter.cu",
         replaces="karmada_tpu/simulation/engine.py:261", max_abs_err=err_f, ms=ms_f,
-        plain_ms=plain_f, bound_ms=b_f, bound_by=by_f, library_ms=None)
+        plain_ms=plain_f, bound_ms=b_f, bound_by=by_f, library_ms=None,
+        device_ms=dev_f / 1e3 if dev_f > 0 else None)
     results["sim_load"] = dict(
         source="karmada_tpu_torch/kernels/csrc/sim_load.cu",
         replaces="karmada_tpu/simulation/engine.py:261", max_abs_err=err_l, ms=ms_l,
         plain_ms=plain_l, bound_ms=b_l, bound_by=by_l, library_ms=lib_ms)
-    log(f"sim_filter at one whatif_churn5k chunk ({S} x {B} x {C}): {ms_f:.4f} ms (plain "
-        f"{plain_f:.4f}, bound {b_f:.4f} {by_f}); at the whatif solve "
-        f"({w_args[0].shape[0]} x {w_args[8].shape[0]} x {w_args[0].shape[1]}) {ms_fw:.4f} ms "
-        f"(bound {b_fw:.4f} {by_fw})")
+    log(f"sim_filter at one whatif_churn5k chunk ({S} x {B} x {C}, {f_args[19].shape[0]} "
+        f"distinct requests, {f_args[11].shape[0]} toleration tables): {ms_f:.4f} ms (device "
+        f"{dev_f / 1e3:.4f}; plain {plain_f:.4f}, bound {b_f:.4f} {by_f}); at the whatif solve "
+        f"({w_args[0].shape[0]} x {w_args[8].shape[0]} x {w_args[0].shape[1]}, "
+        f"{w_args[19].shape[0]} distinct requests) {ms_fw:.4f} ms (device {dev_fw / 1e3:.4f}; "
+        f"bound {b_fw:.4f} {by_fw})")
     for cell, (shape, ms, plain, b, by) in tails.items():
         log(f"dense_tail over the {cell} solve's {shape[0]} scenario rows x {shape[1]}: "
             f"{ms:.4f} ms (plain {fmt_ms(plain)}, bound {b:.4f} {by})")

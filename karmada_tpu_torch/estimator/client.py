@@ -8,7 +8,8 @@ UnauthenticReplica = -1 meaning "discard my answer" (interface.go:27-55,
 core/util.go:72-100). The in-process `MemberEstimators` adapter plays the
 role of the per-cluster gRPC connection cache (accurate.go:34-68); its
 per-round sweep over the whole fleet is one device kernel
-(`kernels.fleet_estimate`). The gRPC client and server are not ported.
+(`kernels.fleet_estimate`), fed the round's distinct requests
+(`distinct_requests`). The gRPC client and server are not ported.
 
 The answer matrix makes the reference's round trip: the device sweep, the
 host min-merge and degraded-mode overlay, then the upload inside
@@ -218,6 +219,23 @@ class EstimatorRegistry:
         return [m if a else 0 for m, a in zip(merged, authentic)]
 
 
+def distinct_requests(enc, requirements_list):
+    """The rows' request vectors as a table of distinct ones, in order of
+    first appearance, and each row's index into it: (request_u i64[U, R],
+    req_idx i32[B]), `request_u[req_idx]` the [B, R] request matrix. A
+    round's rows carry few distinct requests (they come from policies)."""
+    table: dict[bytes, int] = {}
+    rows, idx = [], np.empty(len(requirements_list), np.int32)
+    for i, r in enumerate(requirements_list):
+        vec = np.asarray(enc.request_vector(r.resource_request if r else {}), np.int64)
+        j = table.setdefault(vec.tobytes(), len(rows))
+        if j == len(rows):
+            rows.append(vec)
+        idx[i] = j
+    request_u = np.stack(rows) if rows else np.zeros((0, len(enc.resources)), np.int64)
+    return request_u, idx
+
+
 class MemberEstimators:
     """In-process adapter: routes estimator calls to each member's
     AccurateEstimator (`members` maps a cluster name to any object with a
@@ -230,8 +248,10 @@ class MemberEstimators:
     kernel over the whole fleet's concatenated node arrays
     (`kernels.fleet_estimate`) whenever no row carries a node claim and no
     fault guard is engaged. The node arrays are uploaded once per
-    membership and estimator version, so steady rounds ship only the
-    [B, R] request matrix.
+    membership and estimator version, in cluster order with each cluster's
+    node range beside them, so steady rounds ship only the table of the
+    round's distinct requests [U, R] and each row's index into it, and the
+    card evaluates each distinct request once.
 
     The per-cluster fan-out pool scales with each sweep's fan-out width
     (floor DEFAULT_MIN_WORKERS, cap DEFAULT_MAX_WORKERS).
@@ -251,6 +271,7 @@ class MemberEstimators:
         # (alloc, requested, pod_count, allowed, cluster_id on the device,
         # the cluster count, claimless_ok on the device)
         self._fleet_dev = None
+        self._fleet_off = None  # i32[C + 1] on the device: each cluster's node range
         self._no_node_cols = None  # bool[C] clusters without node state
 
     def _pool_for(self, width: int) -> ThreadPoolExecutor:
@@ -356,6 +377,7 @@ class MemberEstimators:
             return self._fleet_dev
         allocs, reqs, pods, allowed, cids, oks = [], [], [], [], [], []
         no_node = np.zeros(len(clusters), bool)
+        counts = np.zeros(len(clusters), np.int64)
         for ci, e in enumerate(ests):
             if e is None:
                 no_node[ci] = True
@@ -363,6 +385,7 @@ class MemberEstimators:
             a = e.arrays
             if a.n_nodes == 0:
                 continue
+            counts[ci] = a.n_nodes
             allocs.append(a.alloc)
             reqs.append(a.requested)
             pods.append(a.pod_count)
@@ -378,6 +401,10 @@ class MemberEstimators:
         dev += [to_device(np.concatenate(cids), self.device), len(clusters),
                 to_device(np.concatenate(oks), self.device)]
         self._fleet_dev = tuple(dev)
+        # the nodes are concatenated in cluster order: each cluster's range
+        # comes from the counts, so the card needs no sort per sweep
+        off = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+        self._fleet_off = to_device(off, self.device)
         self._no_node_cols = no_node
         self._fleet_key = key
         return self._fleet_dev
@@ -398,11 +425,11 @@ class MemberEstimators:
             from ..models.nodes import NodeEncoder
             from ..sched.core import to_device
 
-            enc = NodeEncoder()
-            request = np.zeros((len(requirements_list), len(enc.resources)), np.int64)
-            for i, r in enumerate(requirements_list):
-                request[i] = enc.request_vector(r.resource_request if r else {})
-            out = kernels.fleet_estimate(*fleet, to_device(request, self.device))
+            request_u, req_idx = distinct_requests(NodeEncoder(), requirements_list)
+            # rows that are all distinct are the table itself (no index)
+            idx = None if len(request_u) == len(req_idx) else to_device(req_idx, self.device)
+            out = kernels.fleet_estimate(*fleet, to_device(request_u, self.device),
+                                         req_idx=idx, node_off=self._fleet_off)
             rows = out.cpu().numpy()
             if self._no_node_cols.any():
                 rows = np.where(self._no_node_cols[None, :], UNAUTHENTIC_REPLICA, rows)

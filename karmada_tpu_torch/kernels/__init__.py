@@ -58,8 +58,11 @@ The estimator sweep and the degraded mode (estimator/client.py,
 faults/staleness.py):
 - `fleet_estimate` (csrc/fleet_estimate.cu): every member cluster's
   accurate-estimator answer for every row, over the fleet's concatenated
-  node arrays with the claim-free node mask; the plain version is
-  `fleet_estimate_plain` (ops/estimate.py `fleet_estimate`).
+  node arrays with the claim-free node mask; each distinct request (a
+  table and the rows' index, as the estimator passes them) is evaluated
+  once over nodes staged in shared memory, then gathered to the rows; the
+  caller's node ranges replace the sort of the cluster ids; the plain
+  version is `fleet_estimate_plain` (ops/estimate.py `fleet_estimate`).
 - `staleness_penalty` (csrc/staleness.cu): the decay of stale answers,
   `values >> shift` where non-negative; the plain version is
   `staleness_penalty_plain`.
@@ -74,7 +77,10 @@ filter below, `dense_tail` over the S x B scenario rows, then the load):
 - `sim_filter` (csrc/dense_filter.cu, its second entry): the dense filter
   and estimate over a scenario-stacked fleet, each scenario's tie from its
   remapped column index, as [S, B, C] plus the [S, B] feasible count; the
-  plain version is `sim_filter_plain`.
+  estimate per distinct request and the taints per toleration table are
+  built once per scenario as tables (their plain mirrors
+  `sim_estimate_table_plain` / `sim_estimate_apply_plain`), then a tiled
+  pass writes the rows from them; the plain version is `sim_filter_plain`.
 - `sim_load` (csrc/sim_load.cu): the per-scenario load of the division
   result, replicas and resources per cluster over the scenario's active
   rows, exact int64, any number of resources (one launch per block of
@@ -180,6 +186,9 @@ SIM_LOAD_RESOURCE_BLOCK = 8
 MAX_TAIL_SMEM_COLS = 12288
 # the tails' and group_score's routes: "reread" forces the re-reading route
 TAIL_ROUTES = {"auto": 0, "reread": 1}
+# sim_filter's estimate table marks "the row's replicas" with this value
+# (dense_filter.cu kEstReplicas); its other entries are answers >= 0
+SIM_EST_REPLICAS = -1
 
 
 # --------------------------------------------------------------------------
@@ -547,15 +556,19 @@ def tier_consume_plain(cap, placed, unsched, request, rows, *, cand_idx=None):
 
 
 def fleet_estimate_plain(alloc, requested, pod_count, allowed_pods, cluster_id, n_clusters,
-                         claimless_ok, request):
+                         claimless_ok, request, *, req_idx=None):
     """Plain version of the fleet-estimate kernel (the reference's
     `_fleet_rows_kernel`): ops/estimate.py `fleet_estimate` over every
     node of the fleet (alloc/requested i64[N,R], pod_count/allowed_pods
     i64[N], cluster_id i32[N] in [0, n_clusters), in any order) with each
     node's claim-free feasibility `claimless_ok` (bool[N]) for every row
-    of `request` (i64[B,R]). Returns i32[B,n_clusters]."""
+    of `request` (i64[B,R]), or, with `req_idx` (i32[B]), for every row of
+    `request[req_idx]` (`request` then a table of distinct requests).
+    Returns i32[B,n_clusters]."""
     from ..ops.estimate import fleet_estimate as fleet_estimate_ops
 
+    if req_idx is not None:
+        request = request.index_select(0, req_idx.long())
     node_ok = claimless_ok[None, :].expand(request.shape[0], alloc.shape[0])
     return fleet_estimate_ops(alloc, requested, pod_count, allowed_pods, cluster_id, request,
                               node_ok, n_clusters)
@@ -596,6 +609,37 @@ def sim_filter_plain(
     feasible, _score, avail, prev, _tie, feas_count = (torch.stack(x) for x in zip(*per))
     tie = torch.stack([core.tie_from_index(seeds, idx) for idx in tie_idx])
     return feasible, avail, prev, tie, feas_count
+
+
+def sim_estimate_table_plain(capacity, has_summary, req_unique):
+    """Plain mirror of the sim_filter kernel's estimate table: for every
+    scenario s, distinct request u and column c, general_estimate_unique's
+    minimum with the clamps of general_estimate_apply that do not depend on
+    the row — 0 where the column has no summary, SIM_EST_REPLICAS (-1, "the
+    row's replicas") where u requests no resource or the minimum reaches
+    INT32_MAX — as i32[S,U,C]; `capacity` i64[S,C,R], `has_summary`
+    bool[S,C], `req_unique` i64[U,R]."""
+    from ..ops import assign as assign_ops
+
+    out = []
+    for cap, summ in zip(capacity, has_summary):
+        est, any_req = assign_ops.general_estimate_unique(cap, summ, req_unique)
+        est = torch.where(any_req[:, None] & (est < assign_ops.I32_MAX), est, SIM_EST_REPLICAS)
+        out.append(torch.where(summ[None, :], est, 0).to(I32))
+    return torch.stack(out)
+
+
+def sim_estimate_apply_plain(est_u, req_idx, replicas, unknown_request, extra_avail):
+    """Plain mirror of the sim_filter kernel's per-row estimate: the table
+    row of each row's request (i32[S,B,C]), the sentinel replaced by the
+    row's replicas, 0 for an unknown request, then the min-merge with a
+    non-negative answer of `extra_avail` (None or i32[B,C])."""
+    est = est_u.index_select(1, req_idx.long())
+    avail = torch.where(est == SIM_EST_REPLICAS, replicas[None, :, None], est)
+    avail = torch.where(unknown_request[None, :, None], 0, avail)
+    if extra_avail is not None:
+        avail = torch.where(extra_avail >= 0, torch.minimum(avail, extra_avail), avail)
+    return avail.to(I32)
 
 
 def dense_input_filter_plain(
@@ -1426,7 +1470,7 @@ _COMBO_SELECT_ARGTYPES = [_VP] * 4 + [_CI] * 2 + [_VP] * 2 + [_CI] * 4 + [_VP] *
 _TIER_ESTIMATE_ARGTYPES = [_VP, _VP, _CI, _CI] + [_VP] * 6 + [_CI, _VP, _CI, _VP, _VP]
 _STALENESS_ARGTYPES = [_VP, ctypes.c_int64, _CI, _VP, _VP]
 _SCATTER_ROWS_ARGTYPES = [_VP] * 4 + [_CI, _VP, _CI, _VP]
-_SIM_FILTER_ARGTYPES = [_VP] * 7 + [_CI] * 5 + [_VP] * 14 + [_CI] * 6 + [_VP] * 7
+_SIM_FILTER_ARGTYPES = [_VP] * 7 + [_CI] * 5 + [_VP] * 14 + [_CI] * 8 + [_VP] * 10
 _DENSE_INPUT_FILTER_ARGTYPES = ([_VP] * 7 + [_CI] * 4 + [_VP] * 8 + [_CI] + [_VP] * 4
                                 + [_CI] * 2 + [_VP] * 4)
 _MESH_TILE_FILTER_ARGTYPES = _FILTER_HEAD + [_CI] * 6 + [_VP, _CL] * 3 + [_VP] * 7
@@ -1437,7 +1481,7 @@ _SPREAD_TAIL_ARGTYPES = ([_VP] * 4 + [_CI, _VP, _CI, _VP, _CI] + [_VP] * 4 + [_C
                          + [_VP] * 8)
 _WINDOW_TAIL_ARGTYPES = ([_VP] * 5 + [_CI] * 2 + [_VP, _CI] + [_VP] * 4 + [_CI] * 3
                          + [_VP] * 7)
-_FLEET_ESTIMATE_ARGTYPES = [_VP] * 7 + [_CI, _CI, _VP, _CI, _VP, _VP]
+_FLEET_ESTIMATE_ARGTYPES = [_VP] * 7 + [_CI, _CI, _VP, _CI, _VP, _CI] + [_VP] * 3
 _SIM_LOAD_ARGTYPES = [_VP] * 3 + [_CI] * 4 + [_VP] * 3
 
 
@@ -1490,49 +1534,64 @@ def _tier_consume_launch(cap, placed, unsched, request, rows, *, cand_idx=None):
 
 
 def fleet_estimate(alloc, requested, pod_count, allowed_pods, cluster_id, n_clusters,
-                   claimless_ok, request):
-    """The fleet-wide estimator sweep (see fleet_estimate_plain)."""
+                   claimless_ok, request, *, req_idx=None, node_off=None):
+    """The fleet-wide estimator sweep (see fleet_estimate_plain). `req_idx`
+    (i32[B]) makes `request` a table of distinct requests, each evaluated
+    once on the card. `node_off` (i32[n_clusters + 1]), each cluster's node
+    range, may be given when the nodes lie in cluster order (cluster_id
+    non-decreasing); the card then reads them in place instead of sorting
+    cluster_id. The CPU path ignores it."""
     args = (alloc, requested, pod_count, allowed_pods, cluster_id, n_clusters, claimless_ok,
             request)
     dev = alloc.device
     if dev.type == "cpu":
-        return fleet_estimate_plain(*args)
+        return fleet_estimate_plain(*args, req_idx=req_idx)
     if dev.type != "cuda":
         raise ValueError(f"fleet_estimate: unsupported device {dev}")
-    out = _fleet_estimate_launch(*args)
+    out = _fleet_estimate_launch(*args, req_idx=req_idx, node_off=node_off)
     _launched("fleet_estimate")
     return out
 
 
 def _fleet_estimate_launch(alloc, requested, pod_count, allowed_pods, cluster_id, n_clusters,
-                           claimless_ok, request):
-    """Check, allocate and launch fleet_estimate_kernel. The kernel walks
-    each cluster's nodes through a stable sort of `cluster_id` and the
-    node ranges found in it, both built here from `cluster_id` alone, so
-    the nodes may lie in any order, as they may for the plain version."""
+                           claimless_ok, request, *, req_idx=None, node_off=None):
+    """Check, allocate and launch the fleet sweep (csrc/fleet_estimate.cu:
+    the sweep over distinct requests, then, with `req_idx`, the gather of
+    the rows). Without `node_off` the kernel walks each cluster's nodes
+    through a stable sort of `cluster_id` and the ranges found in it, built
+    here, so the nodes may lie in any order, as they may for the plain
+    version; with it they are read in place."""
     dev = alloc.device
     N, R = alloc.shape
     C = int(n_clusters)
-    B = request.shape[0]
+    U = request.shape[0]
+    B = U if req_idx is None else req_idx.shape[0]
     for name, t, dt, shape in (
         ("alloc", alloc, I64, (N, R)), ("requested", requested, I64, (N, R)),
         ("pod_count", pod_count, I64, (N,)), ("allowed_pods", allowed_pods, I64, (N,)),
         ("cluster_id", cluster_id, I32, (N,)),
-        ("claimless_ok", claimless_ok, BOOL, (N,)), ("request", request, I64, (B, R)),
+        ("claimless_ok", claimless_ok, BOOL, (N,)), ("request", request, I64, (U, R)),
     ):
         _check(name, t, dt, shape, dev)
+    if req_idx is not None:
+        _check("req_idx", req_idx, I32, (B,), dev)
     if R == 0:
         raise ValueError("fleet_estimate: a request with no resource")
     out = torch.empty((B, C), dtype=I32, device=dev)
     if B == 0 or C == 0:
         return out
-    ids, order = torch.sort(cluster_id, stable=True)
-    order = order.to(I32)
-    off = torch.searchsorted(ids, torch.arange(C + 1, dtype=I32, device=dev), out_int32=True)
+    order = None
+    if node_off is None:
+        ids, order = torch.sort(cluster_id, stable=True)
+        order = order.to(I32)
+        node_off = torch.searchsorted(ids, torch.arange(C + 1, dtype=I32, device=dev),
+                                      out_int32=True)
+    else:
+        _check("node_off", node_off, I32, (C + 1,), dev)
+    ans = None if req_idx is None else torch.empty((U, C), dtype=I32, device=dev)
     rc = _bind("fleet_estimate", "fleet_estimate_launch", _FLEET_ESTIMATE_ARGTYPES)(
-        alloc.data_ptr(), requested.data_ptr(), pod_count.data_ptr(), allowed_pods.data_ptr(),
-        claimless_ok.data_ptr(), order.data_ptr(), off.data_ptr(), C, R, request.data_ptr(), B,
-        out.data_ptr(), _stream(dev),
+        *_ptrs(alloc, requested, pod_count, allowed_pods, claimless_ok, order, node_off), C, R,
+        request.data_ptr(), U, _ptr(req_idx), B, _ptr(ans), out.data_ptr(), _stream(dev),
     )
     _raise_on(rc, "fleet_estimate")
     return out
@@ -1650,7 +1709,10 @@ def _sim_filter_launch(
     aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
     req_unique, req_idx, extra_avail, *, plugin_bits: int,
 ):
-    """Check, allocate and launch sim_filter_kernel."""
+    """Check, allocate (outputs, and the scratch of the factored tables:
+    the estimate per distinct request i32[S,U,C], the column-ok table per
+    toleration table u8[S,Tt,C], api_ok transposed u8[S,G,C]) and launch
+    sim_filter (dense_filter.cu: the tables, then the main pass)."""
     dev = alive.device
     S, C = alive.shape
     R = capacity.shape[2]
@@ -1670,6 +1732,7 @@ def _sim_filter_launch(
         aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
         req_unique, req_idx, extra_avail,
     )
+    U, Tt = req_unique.shape[0], tol_tables.shape[0]
     feasible = torch.empty((S, B, C), dtype=BOOL, device=dev)
     avail = torch.empty((S, B, C), dtype=I32, device=dev)
     prev = torch.empty((S, B, C), dtype=I32, device=dev)
@@ -1677,13 +1740,17 @@ def _sim_filter_launch(
     feas_count = torch.empty((S, B), dtype=I32, device=dev)
     if B == 0 or C == 0:
         return feasible, avail, prev, tie, feas_count.zero_()
+    est_u = torch.empty((S, U, C), dtype=I32, device=dev)
+    col_ok = torch.empty((S, Tt, C), dtype=U8, device=dev)
+    api_t = torch.empty((S, G, C), dtype=U8, device=dev)
     rc = _bind("dense_filter", "sim_filter_launch", _SIM_FILTER_ARGTYPES)(
         *_ptrs(alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok),
         S, C, R, T, G,
         *_ptrs(tie_idx, replicas, unknown_request, gvk, tol_tables, tol_idx, aff_masks,
                aff_idx, prev_idx, prev_rep, evict_idx, seeds, req_unique, req_idx),
-        B, Kt, Kp, Ke, plugin_bits, extra_avail is not None,
-        *_ptrs(extra_avail, feasible, avail, prev, tie, feas_count), _stream(dev),
+        B, Kt, Kp, Ke, U, Tt, plugin_bits, extra_avail is not None,
+        *_ptrs(extra_avail, est_u, col_ok, api_t, feasible, avail, prev, tie, feas_count),
+        _stream(dev),
     )
     _raise_on(rc, "sim_filter")
     return feasible, avail, prev, tie, feas_count

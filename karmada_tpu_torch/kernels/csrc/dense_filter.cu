@@ -33,17 +33,37 @@
 // karmada_tpu/simulation/engine.py:261 `_sim_kernel` (its decompress of
 // the factored batch, then `_schedule_body`'s filter_estimate_phase under
 // `jax.vmap` over the scenario axis, with the tie from
-// `tie_from_index(seeds, tie_idx[s])`). Grid (B, S): block (b, s) stages
-// row b's toleration row and prev/evict lists once, as dense_filter_kernel
-// does, and evaluates every column against scenario s's slice of the
-// stacked fleet (alive, capacity, has_summary, taints, api_ok, each
-// [S, C, ...]); the tie comes from the scenario's 1-based present rank
-// tie_idx[s, c] (a drained column repeats its neighbour's rank, but is
-// never feasible), and extra_avail, shared by every scenario, is read at
-// (b, c). It writes feasible, avail, prev and tie as [S, B, C] and the
-// feasible count as [S, B]; the simulation drops the score, so none is
-// written. Bound by memory bandwidth: 13 bytes written per [S, B, C]
-// element; the fleet slices (S x C x (R + 3T + G) words) stay in L2.
+// `tie_from_index(seeds, tie_idx[s])`). It writes feasible, avail, prev and
+// tie as [S, B, C] and the feasible count as [S, B] (no score: the
+// simulation drops it). Bound by memory bandwidth: 13 bytes written per
+// [S, B, C] element. Most of an element's work depends on fewer indices
+// than (s, b, c), and the batch is already factored (models/batch.py: U
+// distinct requests, Tt toleration tables), so the work is split as the
+// reference's own estimate is (ops/assign.py general_estimate_unique, then
+// general_estimate_apply):
+// - sim_factor_kernel builds, per scenario, est_u [S, U, C] (i32: the
+//   minimum over requested resources of cap // req through capped_div.cuh,
+//   0 without a summary, -1 for "the row's replicas" where no resource is
+//   requested or the minimum reaches INT32_MAX), col_ok [S, Tt, C] (alive,
+//   and every NoSchedule / NoExecute taint tolerated by table t) and api_t
+//   [S, G, C] (api_ok transposed). That is S U C R divisions and S Tt C T
+//   Kt compares, never more than the per-element form.
+// - sim_filter_kernel<kVec>, grid (column tiles, groups of 32 rows, S),
+//   256 threads, each owning 4 adjacent columns of one row (32-256
+//   threads a row, so narrow fleets run several rows side by side): the
+//   block stages its tile's tie indices once, scatters each step's prev /
+//   evict lists into shared slots (last prev entry wins through a 64-bit
+//   atomicMax on (k + 1) << 32 | replicas), then every thread reads its
+//   columns from the tables (4-byte loads of col_ok, api_t and the
+//   affinity row, a 16-byte load of est_u and of the answers), applies the
+//   row's own clamps (replicas, unknown_request, the answers' min-merge)
+//   and writes feasible as one 32-bit word and avail, prev and tie as
+//   16-byte stores; the feasible count is a warp sum and one atomic a warp.
+//   kVec = false (C % 4 != 0, or the caller's answers or affinity table
+//   off alignment) takes 4-byte accesses throughout.
+// The tie comes from the scenario's 1-based present rank tie_idx[s, c] (a
+// drained column repeats its neighbour's rank, but is never feasible), and
+// extra_avail, shared by every scenario, is read at (b, c).
 //
 // dense_input_filter, the third entry: the filter half of the dense-input
 // schedule program. Replaces karmada_tpu/sched/core.py:190-226
@@ -90,6 +110,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "capped_div.cuh"
 #include "filter_common.cuh"
 
 namespace {
@@ -140,54 +161,252 @@ dense_filter_kernel(FilterArgs p, DenseOut o, const uint8_t* extra_mask) {
   if (threadIdx.x == 0) o.feas_count[b] = (int32_t)count;
 }
 
+// ---- sim_filter: the factored tables, then the tiled main pass ----
+
+// est_u's sentinel: "this row's replicas" (no resource requested, or the
+// minimum reaches INT32_MAX); every other entry is the answer in
+// [0, INT32_MAX).
+constexpr int32_t kEstReplicas = -1;
+// main pass: each thread owns 4 adjacent columns of one row; a block runs
+// kThreads / qt rows side by side over a tile of 4 qt columns (qt = 32-256
+// threads a row, so a warp never spans two rows) and walks kSimRows rows
+// of one scenario
+constexpr int kSimTileCols = 4 * kThreads;
+constexpr int kSimRows = 32;
+
+// The tables the main pass reads instead of redoing per row what depends
+// on fewer indices than (s, b, c).
+struct SimTables {
+  int32_t* est_u;   // [S,U,C] the estimate per distinct request
+  uint8_t* col_ok;  // [S,Tt,C] alive and every taint tolerated by table t
+  uint8_t* api_t;   // [S,G,C] api_ok transposed, so a row reads it along c
+  int U, Tt;
+};
+
 struct SimOut {
   uint8_t* feasible;    // [S,B,C]
   int32_t* avail;       // [S,B,C]
   int32_t* prev;        // [S,B,C]
   int32_t* tie;         // [S,B,C]
-  int32_t* feas_count;  // [S,B]
+  int32_t* feas_count;  // [S,B], zeroed before the main pass
 };
 
-__global__ void __launch_bounds__(kThreads)
-sim_filter_kernel(FilterArgs p, const int64_t* tie_idx, SimOut o) {
-  extern __shared__ int32_t lists[];
-  int32_t* tol = lists;              // [4*Kt]
-  int32_t* pidx = tol + 4 * p.Kt;    // [Kp]
-  int32_t* prep = pidx + p.Kp;       // [Kp]
-  int32_t* ev = prep + p.Kp;         // [Ke]
-  __shared__ unsigned int count;
-
-  const int b = blockIdx.x;
-  const int s = blockIdx.y;
-  // scenario s's slice of the stacked fleet; the batch is shared
-  FilterArgs q = p;
-  q.alive = p.alive + (int64_t)s * p.C;
-  q.capacity = p.capacity + (int64_t)s * p.C * p.R;
-  q.has_summary = p.has_summary + (int64_t)s * p.C;
-  q.taint_key = p.taint_key + (int64_t)s * p.C * p.T;
-  q.taint_value = p.taint_value + (int64_t)s * p.C * p.T;
-  q.taint_effect = p.taint_effect + (int64_t)s * p.C * p.T;
-  q.api_ok = p.api_ok + (int64_t)s * p.C * p.G;
-  const int64_t* tidx = tie_idx + (int64_t)s * p.C;
-
-  filter_common::load_row_lists(q, b, tol, pidx, prep, ev);
-  if (threadIdx.x == 0) count = 0;
-  __syncthreads();
-
-  const uint64_t seed = q.seeds[b];
-  const int64_t row = ((int64_t)s * q.B + b) * q.C;
-  unsigned int local = 0;
-  for (int c = threadIdx.x; c < q.C; c += blockDim.x) {
-    const ColEval e = filter_common::eval_col(q, b, c, tol, pidx, prep, ev);
-    o.feasible[row + c] = e.feasible ? 1 : 0;
-    o.avail[row + c] = filter_common::estimate(q, b, c);
-    o.prev[row + c] = e.prev;
-    o.tie[row + c] = filter_common::tie_from_index(seed, (uint64_t)tidx[c]);
-    local += e.feasible ? 1u : 0u;
+// general_estimate_unique's minimum for request row u at (s, c), with the
+// clamps of general_estimate_apply that do not depend on the row: 0
+// without a summary, kEstReplicas when no resource is requested or the
+// minimum reaches INT32_MAX. A resource with cap <= 0 answers 0.
+__device__ inline int32_t factor_estimate(const FilterArgs& p, int s, int u, int c) {
+  const int64_t sc = (int64_t)s * p.C + c;
+  if (!p.has_summary[sc]) return 0;
+  const int64_t* cap = p.capacity + sc * p.R;
+  const int64_t* req = p.req_unique + (int64_t)u * p.R;
+  bool any_req = false;
+  int64_t est = filter_common::kI32Max;  // the cap: at or above it the answer is replicas
+  for (int i = 0; i < p.R; ++i) {
+    const int64_t q = req[i];
+    if (q <= 0) continue;
+    any_req = true;
+    const int64_t v = cap[i];
+    if (v <= 0) {
+      est = 0;
+      break;
+    }
+    est = capped_div::capped_div(v, q, est);
+    if (est == 0) break;
   }
-  atomicAdd(&count, local);
+  if (!any_req || est >= filter_common::kI32Max) return kEstReplicas;
+  return (int32_t)est;
+}
+
+// Grid (column blocks, table rows, S): block row j builds est_u for
+// request j < U, col_ok for toleration table j - U < Tt, then api_t for
+// gvk j - U - Tt; blockIdx.y strides over the U + Tt + G table rows.
+__global__ void __launch_bounds__(kThreads)
+sim_factor_kernel(FilterArgs p, SimTables f) {
+  extern __shared__ int32_t tol[];  // [4*Kt]
+  const int s = blockIdx.z;
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  const int64_t sc = (int64_t)s * p.C + c;
+  const int rows = f.U + f.Tt + p.G;
+  for (int j = blockIdx.y; j < rows; j += gridDim.y) {  // j is uniform over the block
+    if (j < f.U) {
+      if (c < p.C) f.est_u[((int64_t)s * f.U + j) * p.C + c] = factor_estimate(p, s, j, c);
+    } else if (j < f.U + f.Tt) {
+      const int t = j - f.U;
+      __syncthreads();  // the previous table's readers are done
+      for (int i = threadIdx.x; i < 4 * p.Kt; i += kThreads) {
+        tol[i] = p.tol_tables[(int64_t)t * 4 * p.Kt + i];
+      }
+      __syncthreads();
+      if (c < p.C) {
+        bool ok = p.alive[sc] != 0;
+        if (p.plugin_bits & filter_common::kBitTaint) {
+          const int64_t at = sc * p.T;
+          ok = ok && filter_common::taints_tolerated(p.taint_key + at, p.taint_value + at,
+                                                     p.taint_effect + at, p.T, tol, p.Kt);
+        }
+        f.col_ok[((int64_t)s * f.Tt + t) * p.C + c] = ok ? 1 : 0;
+      }
+    } else if (c < p.C) {
+      const int g = j - f.U - f.Tt;
+      f.api_t[((int64_t)s * p.G + g) * p.C + c] = p.api_ok[sc * p.G + g];
+    }
+  }
+}
+
+// Four adjacent elements: one 16-byte (or 4-byte for bytes) access where
+// kVec, else four scalar ones of which those at or past `n` are skipped.
+template <bool kVec>
+__device__ __forceinline__ int4 load4(const int32_t* at, int n) {
+  if (kVec) return *reinterpret_cast<const int4*>(at);
+  int4 v = make_int4(0, 0, 0, 0);
+  if (n > 0) v.x = at[0];
+  if (n > 1) v.y = at[1];
+  if (n > 2) v.z = at[2];
+  if (n > 3) v.w = at[3];
+  return v;
+}
+
+template <bool kVec>
+__device__ __forceinline__ uint32_t load4(const uint8_t* at, int n) {
+  if (kVec) return *reinterpret_cast<const uint32_t*>(at);
+  uint32_t v = 0;
+  for (int j = 0; j < 4 && j < n; ++j) v |= (uint32_t)at[j] << (8 * j);
+  return v;
+}
+
+template <bool kVec>
+__device__ __forceinline__ void store4(int32_t* at, const int32_t (&v)[4], int n) {
+  if (kVec) {
+    *reinterpret_cast<int4*>(at) = make_int4(v[0], v[1], v[2], v[3]);
+  } else {
+    for (int j = 0; j < 4 && j < n; ++j) at[j] = v[j];
+  }
+}
+
+__device__ __forceinline__ int lane4(const int4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// Grid (column tiles, groups of kSimRows rows, S). The block stages its
+// tile's tie indices, then walks its rows kThreads / qt at a time: the
+// rows' prev and evict lists are scattered into the step's slots (a prev
+// slot keeps (k + 1) << 32 | replicas of the highest entry k, so the last
+// entry wins; an evict slot a flag), one barrier, and each thread writes
+// its 4 columns from the factored tables, resetting its slots as it reads
+// them. The slots are double-buffered, so one barrier a step suffices.
+// Shared arrays are column-interleaved (column 4i + j of a row at
+// j * kThreads + the row's first thread + i), so a warp's accesses are
+// consecutive.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+sim_filter_kernel(FilterArgs p, const int64_t* tie_idx, SimTables f, SimOut o, int qt) {
+  __shared__ uint64_t tie_s[kSimTileCols];
+  __shared__ unsigned long long slot[2][kSimTileCols];
+  __shared__ uint8_t evicted[2][kSimTileCols];
+
+  const int s = blockIdx.z;
+  const int width = 4 * qt;  // the tile's columns
+  const int par = kThreads / qt;  // rows side by side
+  const int c0 = blockIdx.x * width;
+  const int c1 = min(c0 + width, p.C);
+  const int r0 = blockIdx.y * kSimRows;
+  for (int i = threadIdx.x; i < kSimTileCols; i += kThreads) {
+    slot[0][i] = slot[1][i] = 0;
+    evicted[0][i] = evicted[1][i] = 0;
+  }
+  for (int l = threadIdx.x; l < c1 - c0; l += kThreads) {
+    tie_s[(l & 3) * qt + (l >> 2)] = (uint64_t)tie_idx[(int64_t)s * p.C + c0 + l];
+  }
   __syncthreads();
-  if (threadIdx.x == 0) o.feas_count[(int64_t)s * q.B + b] = (int32_t)count;
+
+  const int sub = threadIdx.x / qt;  // this thread's row of the step
+  const int qi = threadIdx.x - sub * qt;
+  const int c = c0 + 4 * qi;  // its first column
+  const int n = c1 - c;  // its columns inside the fleet (4 or more when kVec)
+  const int per_row = p.Kp + p.Ke;
+  for (int step = 0; step < kSimRows / par; ++step) {
+    const int buf = step & 1;
+    const int rbase = r0 + step * par;
+    for (int i = threadIdx.x; i < par * per_row; i += kThreads) {
+      const int rs = i / per_row;
+      const int k = i - rs * per_row;
+      const int b = rbase + rs;
+      if (b >= p.B) continue;
+      const bool is_prev = k < p.Kp;
+      const int id = is_prev ? p.prev_idx[(int64_t)b * p.Kp + k]
+                             : p.evict_idx[(int64_t)b * p.Ke + k - p.Kp];
+      if (id < c0 || id >= c1) continue;
+      const int l = id - c0;
+      const int at = (l & 3) * kThreads + rs * qt + (l >> 2);
+      if (is_prev) {
+        atomicMax(&slot[buf][at], ((unsigned long long)(k + 1) << 32) |
+                                      (uint32_t)p.prev_rep[(int64_t)b * p.Kp + k]);
+      } else {
+        evicted[buf][at] = 1;
+      }
+    }
+    __syncthreads();
+
+    const int b = rbase + sub;
+    unsigned int local = 0;
+    if (b < p.B && n > 0) {
+      const int bits = p.plugin_bits;
+      uint32_t ok = load4<kVec>(f.col_ok + ((int64_t)s * f.Tt + p.tol_idx[b]) * p.C + c, n);
+      if (bits & filter_common::kBitApi) {
+        const int g = p.gvk[b];
+        ok = (p.G > 0 && g < p.G)
+                 ? ok & load4<kVec>(f.api_t + ((int64_t)s * p.G + max(g, 0)) * p.C + c, n)
+                 : 0u;
+      }
+      if (bits & filter_common::kBitAffinity) {
+        ok &= load4<kVec>(p.aff_masks + (int64_t)p.aff_idx[b] * p.C + c, n);
+      }
+      const int4 est = load4<kVec>(f.est_u + ((int64_t)s * f.U + p.req_idx[b]) * p.C + c, n);
+      int4 extra = make_int4(-1, -1, -1, -1);
+      if (p.extra_avail != nullptr) extra = load4<kVec>(p.extra_avail + (int64_t)b * p.C + c, n);
+      const int32_t reps = p.replicas[b];
+      const bool unknown = p.unknown_request[b] != 0;
+      const uint64_t seed = p.seeds[b];
+      const bool evict_on = (bits & filter_common::kBitEviction) != 0;
+      uint32_t feas = 0;
+      int32_t avail[4], prev[4], tie[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int at = j * kThreads + threadIdx.x;
+        const bool fj = ((ok >> (8 * j)) & 0xff) != 0 && !(evict_on && evicted[buf][at]);
+        const unsigned long long sv = slot[buf][at];
+        slot[buf][at] = 0;
+        evicted[buf][at] = 0;
+        const int32_t e = lane4(est, j);
+        int32_t a = e == kEstReplicas ? reps : e;
+        if (unknown) a = 0;
+        const int32_t x = lane4(extra, j);
+        if (x >= 0 && x < a) a = x;
+        avail[j] = a;
+        prev[j] = (int32_t)(uint32_t)sv;
+        tie[j] = filter_common::tie_from_index(seed, tie_s[j * qt + qi]);
+        if (j < n && fj) {
+          feas |= 1u << (8 * j);
+          ++local;
+        }
+      }
+      const int64_t row = ((int64_t)s * p.B + b) * p.C;
+      if (kVec) {
+        *reinterpret_cast<uint32_t*>(o.feasible + row + c) = feas;
+      } else {
+        for (int j = 0; j < 4 && j < n; ++j) o.feasible[row + c + j] = (feas >> (8 * j)) & 1;
+      }
+      store4<kVec>(o.avail + row + c, avail, n);
+      store4<kVec>(o.prev + row + c, prev, n);
+      store4<kVec>(o.tie + row + c, tie, n);
+    }
+    // a warp lies inside one row: one atomic per warp and row
+    local = __reduce_add_sync(0xffffffffu, local);
+    if ((threadIdx.x & 31) == 0 && local != 0) {
+      atomicAdd(reinterpret_cast<unsigned int*>(o.feas_count + (int64_t)s * p.B + b), local);
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -314,7 +533,11 @@ extern "C" int dense_filter_launch(
 
 // The scenario-stacked fleet (alive [S,C], capacity [S,C,R], has_summary
 // [S,C], taints [S,C,T], api_ok [S,C,G]) and tie_idx (int64 bits of the
-// u64 1-based present rank, [S,C]) beside the factored batch of B rows.
+// u64 1-based present rank, [S,C]) beside the factored batch of B rows
+// (U distinct requests, Tt toleration tables), the factored tables'
+// scratch (est_u i32 [S,U,C], col_ok and api_t u8 [S,Tt,C] and [S,G,C])
+// and the outputs. Zeroes the feasible counts, builds the tables, then
+// runs the main pass: two launches and a memset on the stream.
 extern "C" int sim_filter_launch(
     const void* alive, const void* capacity, const void* has_summary,
     const void* taint_key, const void* taint_value, const void* taint_effect,
@@ -323,29 +546,59 @@ extern "C" int sim_filter_launch(
     const void* tol_tables, const void* tol_idx, const void* aff_masks,
     const void* aff_idx, const void* prev_idx, const void* prev_rep,
     const void* evict_idx, const void* seeds, const void* req_unique,
-    const void* req_idx, int B, int Kt, int Kp, int Ke, int plugin_bits,
-    int has_extra, const void* extra_avail, void* feasible, void* avail, void* prev, void* tie,
-    void* feas_count, void* stream) {
-  if (S <= 0 || S > 65535 || B <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+    const void* req_idx, int B, int Kt, int Kp, int Ke, int U, int Tt, int plugin_bits,
+    int has_extra, const void* extra_avail, void* est_u, void* col_ok, void* api_t,
+    void* feasible, void* avail, void* prev, void* tie, void* feas_count, void* stream) {
+  if (S <= 0 || S > 65535 || B <= 0 || C <= 0 || U <= 0 || Tt <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const FilterArgs p = filter_common::make_filter_args(
       alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok, C, R, T, G,
       replicas, unknown_request, gvk, tol_tables, tol_idx, aff_masks, aff_idx, prev_idx,
       prev_rep, evict_idx, seeds, req_unique, req_idx, B, Kt, Kp, Ke, plugin_bits, has_extra,
       extra_avail);
+  SimTables f;
+  f.est_u = static_cast<int32_t*>(est_u);
+  f.col_ok = static_cast<uint8_t*>(col_ok);
+  f.api_t = static_cast<uint8_t*>(api_t);
+  f.U = U;
+  f.Tt = Tt;
   SimOut o;
   o.feasible = static_cast<uint8_t*>(feasible);
   o.avail = static_cast<int32_t*>(avail);
   o.prev = static_cast<int32_t*>(prev);
   o.tie = static_cast<int32_t*>(tie);
   o.feas_count = static_cast<int32_t*>(feas_count);
-  const size_t smem = list_smem(Kt, Kp, Ke);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        sim_filter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaMemsetAsync(feas_count, 0, (size_t)S * B * sizeof(int32_t), st);
+  if (err != cudaSuccess) return (int)err;
+
+  const size_t tol_smem = 4 * (size_t)(4 * Kt);
+  if (tol_smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(sim_factor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)tol_smem);
     if (err != cudaSuccess) return (int)err;
   }
-  sim_filter_kernel<<<dim3(B, S), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      p, static_cast<const int64_t*>(tie_idx), o);
+  const int table_rows = U + Tt + G;
+  const dim3 fgrid((C + kThreads - 1) / kThreads, table_rows < 65535 ? table_rows : 65535, S);
+  sim_factor_kernel<<<fgrid, kThreads, tol_smem, st>>>(p, f);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  // threads a row: the fewest of 32-256 whose 4 columns each cover C
+  int qt = 32;
+  while (qt < kThreads && 4 * qt < C) qt *= 2;
+  // 16-byte accesses need C % 4 == 0 (every row start then aligned) and
+  // aligned bases; the caller's extra_avail and aff_masks may be views
+  const bool vec = C % 4 == 0 && (reinterpret_cast<uintptr_t>(aff_masks) & 3) == 0 &&
+                   (!has_extra || (reinterpret_cast<uintptr_t>(extra_avail) & 15) == 0);
+  const dim3 grid((C + 4 * qt - 1) / (4 * qt), (B + kSimRows - 1) / kSimRows, S);
+  const int64_t* tidx = static_cast<const int64_t*>(tie_idx);
+  if (vec) {
+    sim_filter_kernel<true><<<grid, kThreads, 0, st>>>(p, tidx, f, o, qt);
+  } else {
+    sim_filter_kernel<false><<<grid, kThreads, 0, st>>>(p, tidx, f, o, qt);
+  }
   return (int)cudaGetLastError();
 }
 

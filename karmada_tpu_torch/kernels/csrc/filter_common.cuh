@@ -103,6 +103,38 @@ struct ColEval {
   int32_t prev;
 };
 
+// Whether the [4,Kt] toleration table row `tol` (shared memory) tolerates
+// every NoSchedule / NoExecute taint of a column, whose T taint slots
+// start at `key_c`, `value_c` and `effect_c`.
+__device__ inline bool taints_tolerated(const int32_t* key_c, const int32_t* value_c,
+                                        const int32_t* effect_c, int T, const int32_t* tol,
+                                        int Kt) {
+  bool ok = true;
+  for (int t = 0; t < T; ++t) {
+    const int te = effect_c[t];
+    if (te != kEffNoSchedule && te != kEffNoExecute) continue;
+    const int tk = key_c[t];
+    const int tv = value_c[t];
+    bool tolerated = false;
+    for (int k = 0; k < Kt; ++k) {
+      const int op = tol[3 * Kt + k];
+      if (op == kTolOpNone) continue;
+      const int key = tol[k];
+      const int val = tol[Kt + k];
+      const int eff = tol[2 * Kt + k];
+      const bool key_match = key == tk || (key == 0 && op == kTolOpExists);
+      const bool effect_match = eff == 0 || eff == te;
+      const bool value_match = op == kTolOpExists || val == tv;
+      if (key_match && effect_match && value_match) {
+        tolerated = true;
+        break;
+      }
+    }
+    if (!tolerated) ok = false;
+  }
+  return ok;
+}
+
 // Filters + locality score for column c of row b. `tol` is the row's
 // [4,Kt] toleration table row, `pidx`/`prep`/`ev` its prev/evict lists,
 // all in shared memory. A prev column listed twice takes its LAST entry.
@@ -115,28 +147,9 @@ __device__ inline ColEval eval_col(const FilterArgs& p, int b, int c, const int3
                                    const int32_t* ev) {
   bool ok = p.alive[c] != 0;
   if (p.plugin_bits & kBitTaint) {
-    for (int t = 0; t < p.T; ++t) {
-      const int te = p.taint_effect[(int64_t)c * p.T + t];
-      if (te != kEffNoSchedule && te != kEffNoExecute) continue;
-      const int tk = p.taint_key[(int64_t)c * p.T + t];
-      const int tv = p.taint_value[(int64_t)c * p.T + t];
-      bool tolerated = false;
-      for (int k = 0; k < p.Kt; ++k) {
-        const int op = tol[3 * p.Kt + k];
-        if (op == kTolOpNone) continue;
-        const int key = tol[k];
-        const int val = tol[p.Kt + k];
-        const int eff = tol[2 * p.Kt + k];
-        const bool key_match = key == tk || (key == 0 && op == kTolOpExists);
-        const bool effect_match = eff == 0 || eff == te;
-        const bool value_match = op == kTolOpExists || val == tv;
-        if (key_match && effect_match && value_match) {
-          tolerated = true;
-          break;
-        }
-      }
-      if (!tolerated) ok = false;
-    }
+    const int64_t at = (int64_t)c * p.T;
+    ok = ok && taints_tolerated(p.taint_key + at, p.taint_value + at, p.taint_effect + at, p.T,
+                                tol, p.Kt);
   }
   if (p.plugin_bits & kBitApi) {
     const int g = p.gvk[b];

@@ -1,24 +1,40 @@
-"""candidate_select's, group_score's and combo_select's time on the main
-path's own arguments, for an A/B of two trees on one card.
+"""The redesigned kernels' time on the main path's own arguments, for an
+A/B of two trees on one card: candidate_select, group_score,
+combo_select, sim_filter and fleet_estimate.
 
-    python3 /path/to/scripts/torch_kernel_ab.py
+    python3 /path/to/scripts/torch_kernel_ab.py [--kernels NAME,...]
 
 Imports chip_smoke and karmada_tpu_torch from the current directory, so
 the same script times this tree and an earlier commit unpacked under a
 gitignored directory (`git archive <commit> | tar -x -C build/parent`):
 run it from each tree's root in turns (parent, this, this, parent) in one
 call. It builds the tree's kernels, then times by CUDA events, two turns
-each, the tree's `kernels._select_launch` on the compact flagship's batch
-(10 240 x 5 120, K = 128) and on a wide_40k chunk (the flagship mix at
-20 000 clusters, 20 480 padded, the pipelined chunk's 6 144 rows), and
-its `kernels._group_score_launch` (and the drain's `_combo_select_launch`)
-on the calls one round of config 4, config 4b and the drain cell makes
-(chip_smoke's builders, seed 0). Prints one JSON line: the tree, the
-card's nvidia-smi line, and per label the times in ms and a digest of the
-outputs (equal digests: equal outputs). Needs one CUDA card and nvcc.
+each:
+- `kernels._select_launch` on the compact flagship's batch (10 240 x
+  5 120, K = 128) and on a wide_40k chunk (the flagship mix at 20 000
+  clusters, 20 480 padded, the pipelined chunk's 6 144 rows);
+- `kernels._group_score_launch` (and the drain's `_combo_select_launch`)
+  on the calls one round of config 4, config 4b and the drain cell makes;
+- `kernels._sim_filter_launch` on the first call one round of whatif_churn5k
+  (a chunk of 5 scenarios x 10 240 rows x 5 000 columns) and of whatif (17 x
+  1 024 x 500) makes, captured at launch;
+- `kernels._fleet_estimate_launch` on the estimator sweep of the flagship
+  (its 5 000 dynamic rows over 5 000 clusters' shard_nodes pools), of the
+  same rows made all distinct (each row's memory one byte apart), and of
+  config 3 (1 000 x 1 000), each in the form the tree's own
+  max_available_replicas_rows passes it: a table of distinct requests, each
+  row's index and the snapshot's node ranges where the tree has them
+  (`estimator.client.distinct_requests`), else the [B, R] request.
+chip_smoke's builders, seed 0. `--kernels` picks among candidate_select,
+group_score (with combo_select), sim_filter and fleet_estimate (default:
+all). Prints one JSON line: the tree, the card's nvidia-smi line, and per
+label the times in ms and a digest of the outputs (equal digests: equal
+outputs). Needs one CUDA card and nvcc.
 """
 from __future__ import annotations
 
+import argparse
+import functools
 import hashlib
 import json
 import os
@@ -26,16 +42,23 @@ import sys
 
 sys.path.insert(0, os.getcwd())
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from karmada_tpu_torch import kernels  # noqa: E402
+from karmada_tpu_torch.api.meta import MEMORY  # noqa: E402
+from karmada_tpu_torch.api.work import ReplicaRequirements  # noqa: E402
+from karmada_tpu_torch.estimator import client  # noqa: E402
+from karmada_tpu_torch.estimator.client import MemberEstimators  # noqa: E402
 from karmada_tpu_torch.kernels import build  # noqa: E402
+from karmada_tpu_torch.models.nodes import NodeEncoder  # noqa: E402
 from karmada_tpu_torch.sched.core import ArrayScheduler  # noqa: E402
 
 REPS = 10  # launches per CUDA-event window
 TURNS = 2
 WIDE_CHUNK_BINDINGS = 6144  # the pipelined wide_40k chunk's rows
+KERNELS = ("candidate_select", "group_score", "sim_filter", "fleet_estimate")
 
 
 def digest(outs) -> str:
@@ -51,13 +74,7 @@ def timed(fn) -> dict:
             "digest": digest(outs)}
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("torch_kernel_ab: no CUDA device", file=sys.stderr)
-        return 2
-    dev = torch.device(chip_smoke.DEVICE)
-    build.build_all()
-    result = {}
+def time_select(dev, result):
     for label, n_clusters, n_bindings in (
             ("candidate_select, compact flagship", chip_smoke.N_CLUSTERS, chip_smoke.N_BINDINGS),
             ("candidate_select, wide_40k chunk", chip_smoke.WIDE_CLUSTERS, WIDE_CHUNK_BINDINGS)):
@@ -70,6 +87,9 @@ def main() -> int:
         chip_smoke.log(f"{label} ({args[7].shape[0]} x {args[0].shape[0]}, k={k}): "
                        f"{result[label]}")
         del sched, clusters, bindings, args
+
+
+def time_group_score(dev, result):
     for cell, build_cell, expect in chip_smoke.SPREAD_CELLS:
         if cell == "window":  # launches no group_score
             continue
@@ -82,6 +102,84 @@ def main() -> int:
             result[label] = timed(
                 lambda cs=calls[n], f=launch: [o for a, kw in cs for o in f(*a, **kw)])
             chip_smoke.log(f"{label}: {result[label]}")
+
+
+def time_sim_filter(dev, result):
+    for label, build_cell in (
+            ("sim_filter, whatif_churn5k chunk", functools.partial(
+                chip_smoke.build_whatif, n_clusters=chip_smoke.CHURN5K_CLUSTERS,
+                n_bindings=chip_smoke.CHURN5K_BINDINGS)),
+            ("sim_filter, whatif solve", chip_smoke.build_whatif)):
+        clusters, bindings, scenarios = build_cell()
+        sim = chip_smoke.Simulator(clusters, device=dev)
+        with chip_smoke.captured_launches(("sim_filter",)) as calls:
+            sim.simulate(bindings, scenarios)
+        args, kw = calls["sim_filter"][0]
+        del calls, sim
+        result[label] = timed(lambda: kernels._sim_filter_launch(*args, **kw))
+        shape = (args[0].shape[0], args[8].shape[0], args[0].shape[1])
+        chip_smoke.log(f"{label} ({' x '.join(map(str, shape))}): {result[label]}")
+        del args, kw
+
+
+def sweep_call(members, names, reqs, dev, all_distinct=False):
+    """The fleet sweep's arguments as this tree's max_available_replicas_rows
+    passes them; `all_distinct` moves each row's memory one byte apart."""
+    if all_distinct:
+        reqs = [ReplicaRequirements(resource_request={
+            **(r.resource_request if r else {}),
+            MEMORY: (r.resource_request.get(MEMORY, 0.0) if r else 0.0) + i}) for i, r in
+            enumerate(reqs)]
+    est = MemberEstimators(members, device=dev)
+    snap = list(est._fleet_snapshot(names))
+    enc = NodeEncoder()
+    if not hasattr(client, "distinct_requests"):  # the [B, R] request, sorted per launch
+        dense = np.stack([enc.request_vector(r.resource_request if r else {}) for r in reqs])
+        return snap + [torch.from_numpy(dense.astype(np.int64)).to(dev)], {}
+    request_u, idx = client.distinct_requests(enc, reqs)
+    req_idx = None if len(request_u) == len(idx) else torch.from_numpy(idx).to(dev)
+    return (snap + [torch.from_numpy(request_u).to(dev)],
+            {"req_idx": req_idx, "node_off": est._fleet_off})
+
+
+def time_fleet_estimate(dev, result):
+    clusters, bindings = chip_smoke.build_flagship()
+    names = [c.name for c in clusters]
+    members = chip_smoke.estimator_members(names)
+    flag_reqs = [bindings[b].spec.replica_requirements
+                 for b in chip_smoke.dynamic_rows(bindings)]
+    c3_clusters, c3_bindings = chip_smoke.build_dynamic()
+    c3_names = [c.name for c in c3_clusters]
+    c3_reqs = [rb.spec.replica_requirements for rb in c3_bindings]
+    for label, args, kw in (
+            ("fleet_estimate, flagship sweep", *sweep_call(members, names, flag_reqs, dev)),
+            ("fleet_estimate, flagship sweep, every row distinct",
+             *sweep_call(members, names, flag_reqs, dev, all_distinct=True)),
+            ("fleet_estimate, config 3 sweep", *sweep_call(
+                chip_smoke.estimator_members(c3_names), c3_names, c3_reqs, dev))):
+        result[label] = timed(lambda: [kernels._fleet_estimate_launch(*args, **kw)])
+        chip_smoke.log(f"{label} ({args[-1].shape[0]} requests x {args[5]} clusters, "
+                       f"{args[0].shape[0]} nodes, keywords {sorted(kw)}): {result[label]}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help=f"comma-separated, among {', '.join(KERNELS)}")
+    which = ap.parse_args().kernels.split(",")
+    unknown = set(which) - set(KERNELS)
+    if unknown:
+        ap.error(f"unknown kernels {sorted(unknown)}")
+    if not torch.cuda.is_available():
+        print("torch_kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device(chip_smoke.DEVICE)
+    build.build_all()
+    result = {}
+    for name, fn in (("candidate_select", time_select), ("group_score", time_group_score),
+                     ("sim_filter", time_sim_filter), ("fleet_estimate", time_fleet_estimate)):
+        if name in which:
+            fn(dev, result)
     print(json.dumps({"tree": os.getcwd(), "card": chip_smoke.nvidia_smi_line(),
                       "kernel_ab": result}), flush=True)
     return 0

@@ -1,25 +1,30 @@
-"""Round latency of the cells the dense tail and sim_load run in, for an
-A/B of two trees on one card.
+"""Round latency of the cells the redesigned kernels run in, for an A/B of
+two trees on one card.
 
-    python3 /path/to/scripts/torch_round_ab.py
+    python3 /path/to/scripts/torch_round_ab.py [--cells NAME,...]
 
 Imports chip_smoke and karmada_tpu_torch from the current directory, so
 the same script times this tree and an earlier commit unpacked under a
 gitignored directory (`git archive <commit> | tar -x -C build/parent`):
 run it from each tree's root in turns (parent, this, this, parent) in one
 call. It builds the tree's kernels, then times the compact flagship round
-(a control: neither kernel runs there), the dense flagship round, whatif
-and whatif_churn5k (chip_smoke's builders, seed 0), each round on the
-host clock around a synchronised call, with its split (ArrayScheduler:
-launch / wait / materialize; Simulator: fleet encodes / batch encode /
-solve / the rest), and dense_tail's and sim_load's time in those rounds
-by CUDA events around each wrapper call (its host enqueue included).
-Prints one JSON line: the tree, the card's nvidia-smi line, and per cell
-the round times in seconds, their p50, the splits' medians and each
-kernel's ms and calls a round. Needs one CUDA card and nvcc.
+(a control: none of the timed kernels runs there), the dense flagship
+round, whatif and whatif_churn5k, estimator_flagship (the compact
+flagship with member estimators on every cluster) and config3 (chip_smoke's
+builders, seed 0), each round on the host clock around a synchronised
+call, with its split (ArrayScheduler: launch / wait / materialize;
+Simulator: fleet encodes / batch encode / solve / the rest; the estimator
+cells: sweep / merge / the round given the answers), and dense_tail's,
+sim_load's, sim_filter's and fleet_estimate's time in those rounds by CUDA
+events around each wrapper call (its host enqueue included). `--cells`
+picks among the cells (default: all). Prints one JSON line: the tree, the
+card's nvidia-smi line, and per cell the round times in seconds, their
+p50, the splits' medians and each kernel's ms and calls a round. Needs
+one CUDA card and nvcc.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
@@ -32,13 +37,16 @@ import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from karmada_tpu_torch import kernels  # noqa: E402
+from karmada_tpu_torch.estimator.client import EstimatorRegistry, MemberEstimators  # noqa: E402
 from karmada_tpu_torch.kernels import build  # noqa: E402
 from karmada_tpu_torch.sched.core import ArrayScheduler  # noqa: E402
 from karmada_tpu_torch.simulation import engine  # noqa: E402
 from karmada_tpu_torch.simulation.engine import Simulator  # noqa: E402
 
-ROUNDS = {"compact flagship": 30, "dense flagship": 30, "whatif": 20, "whatif_churn5k": 4}
-TIMED = ("dense_tail", "sim_load")  # the kernels' wrappers, as the rounds call them
+ROUNDS = {"compact flagship": 30, "dense flagship": 30, "whatif": 20, "whatif_churn5k": 4,
+          "estimator_flagship": 20, "config3": 30}
+# the kernels' wrappers, as the rounds call them
+TIMED = ("dense_tail", "sim_load", "sim_filter", "fleet_estimate")
 
 
 class KernelEvents:
@@ -127,7 +135,50 @@ def sim_rounds(sim, bindings, scenarios, rounds):
     return times, dict(zip(keys, np.median(split, 0).tolist())), ev.per_round(rounds)
 
 
+def estimator_rounds(sched, est, bindings, names, rounds):
+    """A warm round, then `rounds` rounds of the registry's answers (the
+    member sweep, then the host merge) and schedule(extra_avail=...)."""
+    registry = EstimatorRegistry()
+    registry.register_replica_estimator("members", est)
+    sweep = {"s": 0.0}
+    orig = est.max_available_replicas_rows
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        out = orig(*a, **k)
+        sweep["s"] += time.perf_counter() - t0
+        return out
+
+    sched.schedule(bindings, extra_avail=registry.batch_estimates(bindings, names))
+    torch.cuda.synchronize()
+    est.max_available_replicas_rows = timed
+    times, split = [], []
+    try:
+        with KernelEvents() as ev:
+            for _ in range(rounds):
+                sweep["s"] = 0.0
+                t0 = time.perf_counter()
+                extra = registry.batch_estimates(bindings, names)
+                t1 = time.perf_counter()
+                sched.schedule(bindings, extra_avail=extra)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                times.append(t2 - t0)
+                split.append((sweep["s"], t1 - t0 - sweep["s"], t2 - t1))
+    finally:
+        del est.max_available_replicas_rows
+    return (times, dict(zip(("sweep", "merge", "round"), np.median(split, 0).tolist())),
+            ev.per_round(rounds))
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--cells", default=",".join(ROUNDS),
+                    help=f"comma-separated, among {', '.join(ROUNDS)}")
+    which = ap.parse_args().cells.split(",")
+    unknown = set(which) - set(ROUNDS)
+    if unknown:
+        ap.error(f"unknown cells {sorted(unknown)}")
     if not torch.cuda.is_available():
         print("torch_round_ab: no CUDA device", file=sys.stderr)
         return 2
@@ -142,16 +193,31 @@ def main() -> int:
               file=sys.stderr, flush=True)
 
     for name, dense in (("compact flagship", False), ("dense flagship", True)):
+        if name not in which:
+            continue
         clusters, bindings = chip_smoke.build_flagship(dense=dense)
         keep(name, *sched_rounds(ArrayScheduler(clusters, device=dev), bindings, ROUNDS[name]))
         del clusters, bindings
     for name, kw in (("whatif", {}), ("whatif_churn5k", {
             "n_clusters": chip_smoke.CHURN5K_CLUSTERS,
             "n_bindings": chip_smoke.CHURN5K_BINDINGS})):
+        if name not in which:
+            continue
         clusters, bindings, scenarios = chip_smoke.build_whatif(**kw)
         keep(name, *sim_rounds(Simulator(clusters, device=dev), bindings, scenarios,
                                ROUNDS[name]))
         del clusters, bindings, scenarios
+    for name, build_cell in (("estimator_flagship", chip_smoke.build_flagship),
+                             ("config3", chip_smoke.build_dynamic)):
+        if name not in which:
+            continue
+        clusters, bindings = build_cell()
+        names = [c.name for c in clusters]
+        est = MemberEstimators(chip_smoke.estimator_members(names), device=dev)
+        keep(name, *estimator_rounds(ArrayScheduler(clusters, device=dev), est, bindings, names,
+                                     ROUNDS[name]))
+        est.close()
+        del clusters, bindings, est
     print(json.dumps({"tree": os.getcwd(), "smi": chip_smoke.nvidia_smi_line(),
                       "cells": cells}), flush=True)
     return 0

@@ -279,7 +279,8 @@ def test_member_estimators_rows_match_reference(route, monkeypatch):
         reqs = _requirements()
     calls = []
     fn = kernels.fleet_estimate
-    monkeypatch.setattr(kernels, "fleet_estimate", lambda *a: (calls.append(1), fn(*a))[1])
+    monkeypatch.setattr(kernels, "fleet_estimate",
+                        lambda *a, **kw: (calls.append(kw), fn(*a, **kw))[1])
     plan = jfaults.FaultPlan(seed=1, rules=[jfaults.FaultRule(
         boundary=jfaults.BOUNDARY_GRPC, target=names[4], kind="partition")])
     try:
@@ -297,6 +298,8 @@ def test_member_estimators_rows_match_reference(route, monkeypatch):
         tfaults.reset()
         t.close()
     assert bool(calls) == (route == "fleet")
+    # the sweep reads the snapshot's node ranges (no per-sweep sort)
+    assert all(kw["node_off"] is not None for kw in calls)
     assert (got == tclient.UNAUTHENTIC_REPLICA).any() and (got > 0).any()
     if route in ("fault_plan", "open_breaker"):
         dark = names[4] if route == "fault_plan" else names[2]

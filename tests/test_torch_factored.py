@@ -1,0 +1,286 @@
+"""The factored forms of the port's sim_filter and fleet_estimate held
+against the JAX package.
+
+- sim_filter's estimate table (one row per scenario and distinct request,
+  with the "row's replicas" sentinel) and its per-row apply, the plain
+  mirrors of what csrc/dense_filter.cu builds and reads
+  (`kernels.sim_estimate_table_plain` / `sim_estimate_apply_plain`),
+  against the reference's general_estimate_unique + general_estimate_apply
+  with the unknown-request clamp and the answers' min-merge: no requested
+  resource, no summary, unknown requests, answers at and above INT32_MAX,
+  answers present and absent; and against sim_filter_plain's avail.
+- csrc/capped_div.cuh's division (a float64 estimate corrected by one
+  exact step), modelled in Python with numpy's float64, against exact
+  integer floors over the int64 edges.
+- The estimator's distinct-request table (`client.distinct_requests`), the
+  sweep in that form against the reference's MemberEstimators, the fleet
+  sweep at int64 edge values against the reference's fleet kernel, the
+  snapshot's node ranges, and the launch's marshalling of the distinct
+  form on a faked card.
+Every comparison is exact (integers; tolerance 0)."""
+import ctypes
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from karmada_tpu.api.meta import CPU, MEMORY  # noqa: E402
+from karmada_tpu.api.work import ReplicaRequirements  # noqa: E402
+from karmada_tpu.estimator import client as jclient  # noqa: E402
+from karmada_tpu.ops import assign as jassign  # noqa: E402
+
+import chip_smoke  # noqa: E402
+from karmada_tpu_torch import kernels  # noqa: E402
+from karmada_tpu_torch.convert import from_reference_objects as conv  # noqa: E402
+from karmada_tpu_torch.estimator import client as tclient  # noqa: E402
+from karmada_tpu_torch.models.nodes import NodeEncoder  # noqa: E402
+from karmada_tpu_torch.sched.plugins import ALL_PLUGIN_BITS  # noqa: E402
+
+from test_torch_candidates import fake_card  # noqa: E402,F401 (fixture)
+from test_torch_estimator import GiB, _members, _node_fleet  # noqa: E402
+
+I32_MAX = 2**31 - 1
+CPU_DEV = torch.device("cpu")
+T = torch.from_numpy
+
+
+# --------------------------------------------------------------------------
+# sim_filter's estimate table
+# --------------------------------------------------------------------------
+
+
+def _estimate_case(seed, variant):
+    """(capacity i64[S,C,R], has_summary bool[S,C], req_unique i64[U,R],
+    req_idx i32[B], replicas i32[B], unknown bool[B], extra i32[B,C] or
+    None) with the sentinel cases of `variant` in them."""
+    rng = np.random.default_rng(seed)
+    S, C, R, U, B = 3, 29, 4, 7, 23
+    cap = rng.integers(-10, 5000, (S, C, R)).astype(np.int64)
+    req = rng.integers(0, 300, (U, R)).astype(np.int64)
+    req[0] = 0  # no requested resource: the row's replicas
+    req[1, 1:] = 0
+    if variant == "int32 edges":
+        # cap // req at INT32_MAX - 1, INT32_MAX and above, and 2^63 - 1 caps
+        cap = rng.choice(np.array([0, 1, 3 * I32_MAX - 1, 3 * I32_MAX, 3 * I32_MAX + 3,
+                                   2**62, 2**63 - 1], np.int64), (S, C, R))
+        req = rng.choice(np.array([0, 1, 3, 2**31, 2**63 - 1], np.int64), (U, R))
+        req[0] = 0
+        req[1] = [3, 0, 0, 0]
+    summary = rng.random((S, C)) < 0.85
+    summary[:, 0] = False
+    req_idx = rng.integers(0, U, B).astype(np.int32)
+    req_idx[:U] = np.arange(U)
+    replicas = rng.integers(0, 40, B).astype(np.int32)
+    replicas[::5] = I32_MAX
+    unknown = rng.random(B) < 0.2
+    extra = None
+    if variant != "no answers":
+        extra = rng.integers(-1, 60, (B, C)).astype(np.int32)
+    return cap, summary, req, req_idx, replicas, unknown, extra
+
+
+@pytest.mark.parametrize("variant", ["answers", "no answers", "int32 edges"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_sim_estimate_tables_match_reference(seed, variant):
+    """The table (0 without a summary, the sentinel where no resource is
+    requested or the minimum reaches INT32_MAX) and its apply equal the
+    reference's general_estimate_unique + general_estimate_apply, then
+    its unknown-request clamp and the answers' min-merge, per scenario."""
+    cap, summary, req, req_idx, replicas, unknown, extra = _estimate_case(seed, variant)
+    table = kernels.sim_estimate_table_plain(T(cap), T(summary), T(req))
+    got = kernels.sim_estimate_apply_plain(table, T(req_idx), T(replicas), T(unknown),
+                                           None if extra is None else T(extra))
+    assert table.dtype == torch.int32 and table.shape == (cap.shape[0], len(req), cap.shape[1])
+    for s in range(cap.shape[0]):
+        est_u, any_u = jassign.general_estimate_unique(cap[s], summary[s], req)
+        want = np.asarray(jassign.general_estimate_apply(est_u, any_u, req_idx, summary[s],
+                                                         replicas))
+        want = np.where(unknown[:, None], 0, want)
+        if extra is not None:
+            want = np.where(extra >= 0, np.minimum(want, extra), want)
+        np.testing.assert_array_equal(got[s].numpy(), want)
+    t = table.numpy()
+    assert (t[:, :, 0] == 0).all()  # no summary
+    assert (t[:, 0, 1:][summary[:, 1:]] == kernels.SIM_EST_REPLICAS).all()  # no request
+    if variant == "int32 edges":
+        assert (t == kernels.SIM_EST_REPLICAS).sum() > (t[:, 0] == -1).sum()  # >= INT32_MAX
+        assert (t == I32_MAX - 1).any()
+
+
+@pytest.mark.parametrize("with_extra", [True, False])
+def test_sim_filter_plain_avail_is_the_factored_form(with_extra):
+    """sim_filter_plain's avail (the dense filter per scenario) equals the
+    table's apply on seeded stacked inputs with drained columns."""
+    args = chip_smoke.random_sim_inputs(np.random.default_rng(9), CPU_DEV, 3, 40, 70,
+                                        with_extra)
+    _, avail, *_ = kernels.sim_filter_plain(*args, plugin_bits=ALL_PLUGIN_BITS)
+    table = kernels.sim_estimate_table_plain(args[1], args[2], args[19])
+    got = kernels.sim_estimate_apply_plain(table, args[20], args[8], args[9], args[21])
+    assert torch.equal(got, avail)
+
+
+# --------------------------------------------------------------------------
+# capped_div.cuh's division
+# --------------------------------------------------------------------------
+
+
+def _capped_div_model(x: int, d: int, lim: int) -> int:
+    """csrc/capped_div.cuh step by step: min(lim, x // d) through a float64
+    estimate and one exact correction (uint64 products checked at 128
+    bits, as __umul64hi does)."""
+    if lim <= 0 or d > x:
+        return 0
+    if lim * d <= x:
+        return lim
+    t = int(np.float64(x) / np.float64(d))
+    if t * d > x:
+        t -= 1
+    elif x - t * d >= d:
+        t += 1
+    return t
+
+
+EDGE_X = [0, 1, 2, 7, 2**31 - 1, 2**31, 2**52 + 1, 2**53 + 1, 2**62 - 1, 2**62, 2**62 + 3,
+          2**63 - 2, 2**63 - 1]
+EDGE_D = [1, 2, 3, 7, 2**31 - 1, 2**31, 2**32 + 1, 2**53 + 1, 2**62, 2**63 - 2, 2**63 - 1]
+
+
+@pytest.mark.parametrize("lim", [0, 1, 110, 2**31 - 2, 2**31 - 1])
+def test_capped_div_is_exact_at_int64_edges(lim):
+    """Numerators near 2^62 and 2^63 - 1, q = 1, q past the numerator, q
+    near 2^63 - 1, quotients on both sides of the cap, and seeded values
+    around them: the model equals min(lim, x // d)."""
+    rng = np.random.default_rng(lim % 1000)
+    xs = EDGE_X + [int(v) for v in rng.integers(0, 2**63 - 1, 300, dtype=np.int64)]
+    ds = EDGE_D + [int(v) for v in rng.integers(1, 2**40, 60, dtype=np.int64)]
+    for x in xs:
+        for d in ds:
+            assert _capped_div_model(x, d, lim) == min(lim, x // d), (x, d, lim)
+    # quotients just below an integer, where the float64 estimate rounds up
+    for q in (1, 3, 2**20 + 1, 2**31 - 2):
+        for d in (3, 2**31 + 11, 2**40 + 7):
+            for x in (q * d - 1, q * d, q * d + d - 1):
+                if x < 2**63:
+                    assert _capped_div_model(x, d, lim) == min(lim, x // d), (x, d, lim)
+
+
+# --------------------------------------------------------------------------
+# the estimator's distinct requests and the fleet sweep
+# --------------------------------------------------------------------------
+
+
+def _reqs(kind):
+    """Requirement lists: repeated requests, all distinct, zero requests."""
+    if kind == "repeated":
+        base = [ReplicaRequirements(resource_request={CPU: c, MEMORY: m * GiB})
+                for c in (0.1, 0.5, 1.0) for m in (0.5, 2.0)]
+        return base * 5 + [None, ReplicaRequirements()] * 3
+    if kind == "distinct":
+        return [ReplicaRequirements(resource_request={CPU: 0.1 + 0.01 * i}) for i in range(37)]
+    return [None, ReplicaRequirements(), ReplicaRequirements(resource_request={CPU: 0.0})] * 4
+
+
+@pytest.mark.parametrize("kind", ["repeated", "distinct", "zero"])
+def test_distinct_requests_table(kind):
+    """The client's table: request_u[req_idx] is every row's request
+    vector, the table holds each vector once, in order of first
+    appearance."""
+    reqs = conv(_reqs(kind))
+    enc = NodeEncoder()
+    request_u, req_idx = tclient.distinct_requests(enc, reqs)
+    rows = np.stack([enc.request_vector(r.resource_request if r else {}) for r in reqs])
+    np.testing.assert_array_equal(request_u[req_idx], rows)
+    assert len(np.unique(request_u, axis=0)) == len(request_u)
+    assert req_idx.dtype == np.int32 and list(np.unique(req_idx, return_index=True)[1]) == \
+        sorted(np.unique(req_idx, return_index=True)[1])
+    want_u = {"repeated": 7, "distinct": 37, "zero": 1}[kind]
+    assert len(request_u) == want_u
+    empty_u, empty_idx = tclient.distinct_requests(enc, [])
+    assert empty_u.shape == (0, len(enc.resources)) and empty_idx.shape == (0,)
+
+
+@pytest.mark.parametrize("kind", ["repeated", "distinct", "zero"])
+def test_distinct_sweep_matches_reference(kind):
+    """max_available_replicas_rows through the fleet route in its distinct
+    form (the plain version on request_u[req_idx]) against the reference's
+    MemberEstimators, on shard_nodes fleets with overcommitted nodes
+    (pods placed), tainted and node-less members."""
+    jm, tm, names = _members()
+    reqs = _reqs(kind)
+    j = jclient.MemberEstimators(jm)
+    t = tclient.MemberEstimators(tm, device="cpu")
+    try:
+        want = np.asarray(j.max_available_replicas_rows(names, reqs))
+        got = t.max_available_replicas_rows(names, conv(reqs))
+    finally:
+        t.close()
+    np.testing.assert_array_equal(got, want)
+    assert (got > 0).any()
+
+
+def test_snapshot_node_ranges():
+    """The snapshot keeps each cluster's node range, from the node counts:
+    the ranges searchsorted would find in its cluster ids."""
+    _, tm, names = _members()
+    t = tclient.MemberEstimators(tm, device="cpu")
+    snap = t._fleet_snapshot(names)
+    cid = snap[4].numpy()
+    assert (np.diff(cid) >= 0).all()  # nodes in cluster order
+    np.testing.assert_array_equal(t._fleet_off.numpy(),
+                                  np.searchsorted(cid, np.arange(len(names) + 1)))
+    t.close()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fleet_sweep_edge_values_match_jax(seed):
+    """The fleet sweep (its plain version, as a [B, R] request and as a
+    distinct table with an index) at int64 edges against the reference's
+    fleet kernel: free capacities near +-2^62, requests of 1, past the
+    free capacity and near 2^63 - 1, pod slots past INT32_MAX."""
+    rng = np.random.default_rng(seed)
+    C, B = 17, 40
+    _, _, _, _, cid, _, ok, _ = _node_fleet(rng, C, B)
+    N = len(cid)
+    alloc = rng.choice(np.array(chip_smoke.EDGE_ALLOC, np.int64), (N, 4))
+    requested = rng.choice(np.array(chip_smoke.EDGE_REQUESTED, np.int64), (N, 4))
+    allowed = rng.choice(np.array(chip_smoke.EDGE_PODS, np.int64), N)
+    pods = np.minimum(rng.choice(np.array(chip_smoke.EDGE_PODS, np.int64), N), allowed)
+    request = rng.choice(np.array(chip_smoke.EDGE_REQUEST, np.int64), (B, 4))
+    request[B // 2:] = request[:B // 2]  # repeated rows
+    want = np.asarray(jclient._fleet_rows_kernel(alloc, requested, pods, allowed, cid, ok,
+                                                 request, num_clusters=C))
+    fleet = (T(alloc), T(requested), T(pods), T(allowed), T(cid), C, T(ok))
+    got = kernels.fleet_estimate(*fleet, T(request))
+    np.testing.assert_array_equal(got.numpy(), want)
+    u, inv = np.unique(request, axis=0, return_inverse=True)
+    got = kernels.fleet_estimate(*fleet, T(u), req_idx=T(inv.reshape(-1).astype(np.int32)),
+                                 node_off=T(np.searchsorted(cid, np.arange(C + 1)).astype(
+                                     np.int32)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want == I32_MAX).any() and (want == 0).any() and ((want > 0) & (want < I32_MAX)).any()
+
+
+def test_fleet_launch_marshals_the_distinct_form(fake_card):
+    """With an index and node ranges the launch passes the table's U rows,
+    the index, the B rows, a [U, C] table scratch and the ranges in place
+    of the sort (a null order); without ranges it sorts."""
+    rng = np.random.default_rng(11)
+    alloc, requested, pod_count, allowed, cid, off, ok, request = _node_fleet(rng, 13, 9)
+    fleet = (T(alloc), T(requested), T(pod_count), T(allowed), T(cid), 13, T(ok))
+    idx = T(np.array([0, 1, 1, 2, 0, 2, 2, 1, 0], np.int32))
+    node_off = T(off)
+    out = kernels._fleet_estimate_launch(*fleet, T(request[:3]), req_idx=idx,
+                                         node_off=node_off)
+    (name, cargs), = fake_card
+    assert name == "fleet_estimate_launch" and len(cargs) == 16
+    assert cargs[5] is None and cargs[6] == node_off.data_ptr()  # no order: the ranges
+    assert cargs[7:9] == (13, 4) and cargs[10] == 3 and cargs[11] == idx.data_ptr()
+    assert cargs[12] == 9 and cargs[13] is not None and isinstance(cargs[15], ctypes.c_void_p)
+    assert out.shape == (9, 13)
+    kernels._fleet_estimate_launch(*fleet, T(request[:3]), req_idx=idx)
+    _, cargs = fake_card[-1]
+    assert cargs[5] is not None  # the sort's order
+    with pytest.raises(ValueError, match="node_off: shape"):
+        kernels._fleet_estimate_launch(*fleet, T(request[:3]), req_idx=idx,
+                                       node_off=node_off[:-1])

@@ -318,8 +318,10 @@ def test_tier_consume_launch_takes_17_resources(fake_card):
 
 
 def test_fleet_estimate_launch_takes_17_resources(fake_card):
-    """fleet_estimate passes R = 17 to its one launch (the kernel reads a
-    wide request in place, so the minimum over resources stays per node)."""
+    """fleet_estimate passes R = 17 to its one C call (the sweep reads a
+    wide request in place, so the minimum over resources stays per node);
+    rows given as a plain [B, R] request are the table itself (U = B, no
+    index, no table scratch)."""
     rng = np.random.default_rng(7)
     alloc, requested, pod_count, allowed, cid, _, ok, request = _node_fleet(rng, 11, 5, R=17)
     T = torch.from_numpy
@@ -327,5 +329,6 @@ def test_fleet_estimate_launch_takes_17_resources(fake_card):
                                          T(cid), 11, T(ok), T(request))
     (name, cargs), = fake_card
     assert name == "fleet_estimate_launch" and cargs[7:9] == (11, 17) and cargs[10] == 5
+    assert cargs[11] is None and cargs[12] == 5 and cargs[13] is None
     assert out.shape == (5, 11)
-    assert isinstance(cargs[12], ctypes.c_void_p)  # the stream
+    assert isinstance(cargs[15], ctypes.c_void_p)  # the stream

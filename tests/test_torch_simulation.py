@@ -236,9 +236,11 @@ def test_sim_wrappers_raise_off_cpu_and_cuda():
 
 def test_sim_launches_marshal_and_check(fleet, fake_card):
     """The launches' argument marshalling and checks, run on CPU tensors up
-    to the (faked) library call: one sim_filter_launch of 39 arguments
-    with the stacked widths, one sim_load_launch of 10 for 4, 9 and 17
-    resources (no resource cap); a mis-shaped tensor raises."""
+    to the (faked) library call: one sim_filter_launch of 44 arguments
+    with the stacked widths, the batch's distinct requests and toleration
+    tables, and the factored tables' scratch, one sim_load_launch of 10
+    for 4, 9 and 17 resources (no resource cap); a mis-shaped tensor
+    raises."""
     clusters, names = fleet
     stacks, _, tie_idx, active, batch, extra = _sim_inputs(
         clusters, mixed_bindings(names, n=6), scenario_set(names), seed=2, with_extra=True)
@@ -252,8 +254,12 @@ def test_sim_launches_marshal_and_check(fleet, fake_card):
     (name, cargs), = fake_card
     S, C = tie_idx.shape
     Bp = len(batch.replicas)
-    assert name == "sim_filter_launch" and len(cargs) == 39
+    assert name == "sim_filter_launch" and len(cargs) == 44
     assert cargs[7:12] == (S, C, stacks[1].shape[2], stacks[3].shape[2], stacks[6].shape[2])
+    U, Tt = t["req_unique"].shape[0], t["tol_tables"].shape[0]
+    assert cargs[26:32] == (Bp, t["tol_tables"].shape[2], t["prev_idx"].shape[1],
+                            t["evict_idx"].shape[1], U, Tt)
+    assert all(p is not None for p in cargs[35:38])  # est_u, col_ok, api_t scratch
     assert [tuple(o.shape) for o in out] == [(S, Bp, C)] * 4 + [(S, Bp)]
     result = torch.zeros((S, Bp, C), dtype=torch.int32)
     request = T(np.asarray(batch.request, np.int64))
