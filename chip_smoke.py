@@ -19,7 +19,15 @@ result line otherwise. Phases, each of which raises on failure:
    (group_score also with negative availability and on a single-region
    fleet of 16 384 columns; combo_select at 4 096 rows over a config-4
    combination table, then select_regions_batch through it against its
-   host path); dense_filter also with a random extra_mask; the tier
+   host path); dense_filter also with a random extra_mask, on config 1's
+   and config 2's batches (alone, with a mask, with answers), at 4 999
+   and 13 columns, with answers and mask off alignment, at a tightened
+   capacity and on the call one tiers_dense round makes; candidate_tail
+   also on seeded windows with one edge of the division in every row
+   (zero static weights, rem = 0, Steady eq, unschedulable rows, ties on
+   the window, topk = K; K = 8, 100 and 128) and on the calls one
+   tiers_compact round makes, both with their device time under
+   torch.profiler; the tier
    kernels (tier_estimate, tier_consume) on seeded inputs at the flagship
    shapes in both modes, tier_consume also at its edge shapes (5 121
    columns, one and sixteen resources, one row, every row unschedulable,
@@ -174,8 +182,9 @@ result line otherwise. Phases, each of which raises on failure:
    ArrayScheduler round on the card, a 256-row sample of every outcome
    against the CPU Simulator, the round's breakdown) and preflight
    (QuotaPreflight's deny and allow on the card, as on the CPU);
-5. the `kernels` JSON line, then the card's name and power limit, then the
-   last line {"ok": true, "device": {...}}.
+5. every kernel's launches over every main path's rounds, the `kernels`
+   JSON line, then the card's name and power limit, then the last line
+   {"ok": true, "device": {...}}.
 
 `--only GROUP` builds every kernel, runs one group of phases and prints no
 result line: `kernels` phase 3, `sim` the simulation plane's checks of
@@ -329,6 +338,9 @@ WIDE_TAIL_KS = (192, 256, 512)  # the K > 128 tail's random checks
 WIDE_TAIL_ROWS = 2048
 WIDE_SELECT_ROWS = 1024  # rows of the random checks on both sides of the select routes' threshold
 SELECT_EDGE_ROWS = 2048  # rows of the select's seeded edge cases
+TAIL_CASE_ROWS = 2048  # rows of each of the tail's seeded edge cases
+TAIL_CASE_KS = (8, 100, 128)  # their window widths
+DENSE_FILTER_SCALAR_SHAPES = ((2048, 4999), (2048, 13))  # dense_filter's scalar route
 WHATIF_CLUSTERS = 500  # bench.py:521 build_whatif's defaults
 WHATIF_BINDINGS = 1000
 WHATIF_SCENARIOS = 16
@@ -878,6 +890,70 @@ def random_tail_inputs(rng, dev, rows, K, C):
     return list(batch_from_numpy(d, dev).values())
 
 
+TAIL_CASES = ("zero static weights", "rem = 0", "steady eq", "unschedulable", "window ties",
+              "topk = K")
+
+
+def tail_case_inputs(rng, dev, rows, K, C, case):
+    """Seeded tail inputs [rows, K] with one edge of the division in every
+    row: "zero static weights" (static rows on the all-zero weight table,
+    so the feasible set weighs 1 each), "rem = 0" (static rows, every
+    column feasible at weight 2, replicas a multiple of K: no remainder to
+    give), "steady eq" (non-fresh dynamic and Aggregated rows whose
+    feasible previous replicas sum to their replicas), "unschedulable"
+    (dynamic and Aggregated rows asking more than their windows hold),
+    "window ties" (Duplicated rows and static rows of equal weights: the
+    output window breaks ties on the result by column); "topk = K" is
+    random_tail_inputs' mix (the caller passes topk = K)."""
+    if case == "topk = K":
+        return random_tail_inputs(rng, dev, rows, K, C)
+    cand = np.sort(np.stack([rng.choice(C, K, replace=False) for _ in range(rows)]),
+                   axis=1).astype(np.int32)
+    feas = rng.random((rows, K)) < 0.75
+    prev = np.where(rng.random((rows, K)) < 0.1, rng.integers(1, 6, (rows, K)), 0)
+    avail = rng.choice([0, 1, 2, 2, 9, 40], (rows, K))
+    weight_tables = rng.choice([1, 3, 3, 5], (4, C)).astype(np.int64)
+    weight_tables[0] = 0  # the encoder's all-zero row
+    weight_tables[1] = 2
+    weight_idx = rng.integers(1, 4, rows)
+    fresh = np.zeros(rows, bool)
+    replicas = rng.integers(1, 200, rows)
+    if case == "zero static weights":
+        strategy = np.full(rows, 2)
+        weight_idx[:] = 0
+    elif case == "rem = 0":
+        strategy = np.full(rows, 2)
+        weight_idx[:] = 1
+        feas[:] = True
+        replicas = K * rng.integers(0, 4, rows)
+    elif case == "steady eq":
+        strategy = rng.choice([3, 4], rows)
+        replicas = np.where(feas, prev, 0).sum(-1)
+    elif case == "unschedulable":
+        strategy = rng.choice([3, 4], rows)
+        fresh = rng.random(rows) < 0.5
+        replicas = np.where(feas, avail + prev, 0).sum(-1) + rng.integers(1, 50, rows)
+    elif case == "window ties":
+        strategy = rng.choice([1, 2], rows)
+        weight_idx[:] = 1
+        replicas = rng.integers(1, 8, rows)
+    else:
+        raise ValueError(f"unknown tail case {case!r}")
+    d = {
+        "c_feas": feas,
+        "c_avail": avail.astype(np.int32),
+        "c_prev": prev.astype(np.int32),
+        "c_tie": rng.integers(0, 4, (rows, K)).astype(np.int32),
+        "cand_idx": cand,
+        "weight_tables": weight_tables,
+        "weight_idx": weight_idx.astype(np.int32),
+        "strategy": strategy.astype(np.int32),
+        "replicas": replicas.astype(np.int32),
+        "fresh": fresh,
+    }
+    return list(batch_from_numpy(d, dev).values())
+
+
 def random_dense_tail_inputs(rng, dev, B, C, n):
     """Seeded tie-heavy dense-tail inputs: [B, C] filter outputs with few
     distinct weights, last values and ties (so `rem` splits the cutoff tie
@@ -1100,6 +1176,9 @@ def decision_view(d):
             list(d.feasible), None if spec is None else decision_view(spec))
 
 
+ALL_PATH_LAUNCHES = {}  # launches over every drive() of the run, by kernel
+
+
 def drive(label, sched, bindings, rounds, expect, smi, run=None):
     """One main path: launch counts set to 0, a warm round and `rounds`
     timed rounds (host clock around a synchronised round), counts read.
@@ -1125,6 +1204,8 @@ def drive(label, sched, bindings, rounds, expect, smi, run=None):
         times.append(time.perf_counter() - t0)
         gc_rounds.append(gc.get_stats()[2]["collections"] > full_gcs)
     launches = kernels.launch_counts()
+    for n, c in launches.items():
+        ALL_PATH_LAUNCHES[n] = ALL_PATH_LAUNCHES.get(n, 0) + c
     n_rounds = rounds + 1
     for n, c in launches.items():
         if c != expect.get(n, 0) * n_rounds:
@@ -1181,6 +1262,18 @@ def check_compact_kernels(sched, bindings, dev, results):
     log(f"random inputs (select {B}x{C} k={k}, tail {n_tail}x{k}): both compact kernels equal "
         "their plain versions (tolerance 0: integer outputs, compared exactly)")
     del r_args, r_tail
+    for K in TAIL_CASE_KS:
+        for case in TAIL_CASES:
+            a = tail_case_inputs(rng, dev, TAIL_CASE_ROWS, K, C, case)
+            for has_agg, topk in ((True, K if case == "topk = K" else 8), (False, 64)):
+                err = max(err, compare(f"candidate_tail[{case}, K={K}, {has_agg}, {topk}]",
+                                       kernels._tail_launch(*a, topk=topk, has_agg=has_agg),
+                                       kernels.tail_plain(*a, topk=topk, has_agg=has_agg),
+                                       TAIL_OUT))
+            del a
+    log(f"candidate_tail edge cases ({TAIL_CASE_ROWS} rows at K = {TAIL_CASE_KS}: "
+        f"{', '.join(TAIL_CASES)}; with and without the Aggregated truncation) equal the plain "
+        "version exactly")
 
     bits = sched._plugin_bits
     sel = kernels._select_launch(*sel_args, k=k, plugin_bits=bits)
@@ -1222,6 +1315,8 @@ def check_compact_kernels(sched, bindings, dev, results):
 
     tail_ms = cuda_ms(both_tails(kernels._tail_launch), 20)
     tail_plain_ms = cuda_ms(both_tails(kernels.tail_plain), 3)
+    tail_dev, _ = profiled_calls_ms(both_tails(kernels._tail_launch), 20)
+    tail_host = host_enqueue_ms(both_tails(kernels._tail_launch), 20)
     sb, sb_by = select_bound(sel_args, sel, k)
     tb, tb_by = tail_bound(t_args, t_outs)
     results["candidate_select"] = dict(
@@ -1233,10 +1328,11 @@ def check_compact_kernels(sched, bindings, dev, results):
         source="karmada_tpu_torch/kernels/csrc/candidate_tail.cu",
         replaces="karmada_tpu/sched/candidates.py:280",
         max_abs_err=max(err, tail_err), ms=tail_ms, plain_ms=tail_plain_ms,
-        bound_ms=tb, bound_by=tb_by, library_ms=None)
+        bound_ms=tb, bound_by=tb_by, library_ms=None, device_ms=tail_dev)
     log(f"timing: select {sel_ms:.3f} ms (plain {sel_plain_ms:.3f}, bound {sb:.4f} {sb_by}); "
-        f"tail, both launches of a round {tail_ms:.3f} ms (plain {tail_plain_ms:.3f}, "
-        f"bound {tb:.4f} {tb_by})")
+        f"tail, both launches of a round {tail_ms:.4f} ms (device {tail_dev:.4f} by the "
+        f"profiler, host enqueue {tail_host:.4f}; plain {tail_plain_ms:.3f}, bound {tb:.4f} "
+        f"{tb_by})")
     return sel_ms + tail_ms
 
 
@@ -1378,6 +1474,7 @@ def check_dense_kernels(sched, bindings, dev, results):
                                kernels._dense_filter_launch(*x_args, plugin_bits=bits),
                                kernels.dense_filter_plain(*x_args, plugin_bits=bits), FILTER_OUT))
     del x_args
+    err_f = max(err_f, check_dense_filter_configs(dev, filt_args, bits))
     m_feas = filt[0].index_select(0, mask_idx)
     idx = kernels._feas_idx_launch(m_feas, mk)
     err_i = max(err_i, compare("feas_idx[flagship]", [idx], [kernels.feas_idx_plain(m_feas, mk)],
@@ -1392,6 +1489,8 @@ def check_dense_kernels(sched, bindings, dev, results):
     # ---- timing on the dense flagship's own inputs ----
     f_ms = cuda_ms(lambda: kernels._dense_filter_launch(*filt_args, plugin_bits=bits), 10)
     f_plain = cuda_ms(lambda: kernels.dense_filter_plain(*filt_args, plugin_bits=bits), 3)
+    f_dev, f_events = profiled_calls_ms(
+        lambda: kernels._dense_filter_launch(*filt_args, plugin_bits=bits), 10)
 
     def both_tails(fn):
         return lambda: [fn(*a, topk=w, has_agg=h) for a, (_, w, h) in zip(t_args, tails)]
@@ -1419,7 +1518,7 @@ def check_dense_kernels(sched, bindings, dev, results):
     results["dense_filter"] = dict(
         source=csrc + "dense_filter.cu", replaces="karmada_tpu/sched/core.py:452",
         max_abs_err=err_f, ms=f_ms, plain_ms=f_plain, bound_ms=fb, bound_by=fb_by,
-        library_ms=None)
+        library_ms=None, device_ms=f_dev)
     results["dense_tail"] = dict(
         source=csrc + "dense_tail.cu", replaces="karmada_tpu/sched/core.py:502",
         max_abs_err=err_t, ms=t_ms, plain_ms=t_plain, bound_ms=tb, bound_by=tb_by,
@@ -1432,12 +1531,70 @@ def check_dense_kernels(sched, bindings, dev, results):
         source=csrc + "dense_mask.cu", replaces="karmada_tpu/sched/core.py:539",
         max_abs_err=err_i, ms=i_ms, plain_ms=i_plain, bound_ms=ib, bound_by=ib_by,
         library_ms=i_lib)
-    log(f"timing (dense flagship inputs): dense_filter {f_ms:.3f} ms (plain {f_plain:.3f}, bound "
-        f"{fb:.4f} {fb_by}); dense_tail, both launches of a round {t_ms:.3f} ms (plain "
+    log(f"timing (dense flagship inputs): dense_filter {f_ms:.4f} ms (device {f_dev:.4f} by the "
+        f"profiler: {_events_text(f_events)}; plain {f_plain:.3f}, bound {fb:.4f} {fb_by}); "
+        f"dense_tail, both launches of a round {t_ms:.3f} ms (plain "
         f"{t_plain:.3f}, bound {tb:.4f} {tb_by}); feas_idx {i_ms:.4f} ms (plain {i_plain:.4f}, "
         f"torch.topk {i_lib:.4f}, bound {ib:.4f} {ib_by}); pack_rows {p_ms:.4f} ms (plain "
         f"{p_plain:.4f}, bound {pb:.4f} {pb_by})")
     return f_ms + t_ms + i_ms
+
+
+def check_dense_filter_configs(dev, flag_args, bits):
+    """dense_filter against its plain version on config 1's (3 clusters,
+    padded to 8 columns) and config 2's (100, padded to 128) own batches,
+    each also with a random extra_mask and a random answer matrix; on the
+    scalar route (random inputs at C % 4 != 0, and with answers and mask
+    one element off alignment); and on the dense flagship's batch at a
+    tightened capacity (the tiered launch passes its own). Returns the
+    largest error (0)."""
+    rng = np.random.default_rng(22)
+    err = 0
+    for label, (clusters, bindings) in (("config 1", build_dup3()), ("config 2", build_static())):
+        sched = ArrayScheduler(clusters, device=dev)
+        batch = sched._pad(sched.batch_encoder.encode(bindings))
+        t = batch_from_numpy({n: getattr(batch, n) for n in SELECT_BATCH}, dev)
+        args = [sched._fleet_dev[n] for n in FLEET] + [t[n] for n in SELECT_BATCH] + [None]
+        B, C = args[7].shape[0], args[0].shape[0]
+        mask = torch.from_numpy(rng.random((B, C)) < 0.6).to(dev)
+        answers = torch.from_numpy(rng.integers(-1, 40, (B, C)).astype(np.int32)).to(dev)
+        for tag, a, m in (("", args, None), (", extra_mask", args, mask),
+                          (", extra_avail", args[:-1] + [answers], None)):
+            err = max(err, compare(f"dense_filter[{label}{tag}]",
+                                   kernels._dense_filter_launch(*a, plugin_bits=bits,
+                                                                extra_mask=m),
+                                   kernels.dense_filter_plain(*a, plugin_bits=bits,
+                                                              extra_mask=m), FILTER_OUT))
+        log(f"dense_filter on {label}'s batch ({B} x {C}; alone, with a random extra_mask, "
+            "with a random extra_avail) equals its plain version")
+    for B, C in DENSE_FILTER_SCALAR_SHAPES:
+        args = random_select_inputs(rng, dev, B, C)
+        mask = torch.rand((B, C), device=dev) < 0.6
+        err = max(err, compare(f"dense_filter[random {B} x {C}, extra_mask]",
+                               kernels._dense_filter_launch(*args, plugin_bits=bits,
+                                                            extra_mask=mask),
+                               kernels.dense_filter_plain(*args, plugin_bits=bits,
+                                                          extra_mask=mask), FILTER_OUT))
+    B, C = DENSE_FILTER_SCALAR_SHAPES[0][0], 4096
+    args = random_select_inputs(rng, dev, B, C)
+    flat = torch.full((B * C + 1,), -1, dtype=torch.int32, device=dev)
+    flat[1:] = torch.randint(-1, 40, (B * C,), device=dev, dtype=torch.int32)
+    args[-1] = flat[1:].view(B, C)
+    mflat = torch.rand((B * C + 1,), device=dev) < 0.6
+    mask = mflat[1:].view(B, C)
+    err = max(err, compare(f"dense_filter[random {B} x {C}, answers and mask off alignment]",
+                           kernels._dense_filter_launch(*args, plugin_bits=bits, extra_mask=mask),
+                           kernels.dense_filter_plain(*args, plugin_bits=bits, extra_mask=mask),
+                           FILTER_OUT))
+    log(f"dense_filter on random inputs at {DENSE_FILTER_SCALAR_SHAPES} (C % 4 != 0) and with "
+        f"answers and mask one element off alignment ({B} x {C}): the scalar route equals the "
+        "plain version")
+    tight = list(flag_args)
+    tight[1] = flag_args[1] * 2 // 3 - 1
+    err = max(err, compare("dense_filter[flagship, tightened capacity]",
+                           kernels._dense_filter_launch(*tight, plugin_bits=bits),
+                           kernels.dense_filter_plain(*tight, plugin_bits=bits), FILTER_OUT))
+    return err
 
 
 def random_group_inputs(rng, dev, B, C, S, neg_share=0.125):
@@ -2107,9 +2264,22 @@ def check_tier_kernels(dev, results):
         clusters, bindings, placed = build_tiers(duplicated=duplicated)
         sched = ArrayScheduler(clusters, device=dev)
         expect = tier_expect(sched, bindings, placed, compact)
-        with captured_launches(TIER_KERNELS) as calls:
+        row_kernel = "tail" if compact else "dense_filter"  # B2's per-tier rows, B3
+        with captured_launches(TIER_KERNELS + (row_kernel,)) as calls:
             tier_round(sched, bindings, placed)
         torch.cuda.synchronize()
+        row_calls = calls.pop(row_kernel)
+        fields = TAIL_OUT if compact else FILTER_OUT
+        name = "candidate_tail" if compact else "dense_filter"
+        for i, (g, w) in enumerate(zip(run_calls(row_kernel, row_calls),
+                                       run_calls(row_kernel, row_calls, plain=True))):
+            e = compare(f"{name}[{cell} round, call {i}]", g, w, fields)
+            if name in results:
+                results[name]["max_abs_err"] = max(results[name]["max_abs_err"], e)
+        log(f"{cell}: one round's {len(row_calls)} {name} launches (rows per call "
+            f"{[int(a[0].shape[0]) if compact else int(a[7].shape[0]) for a, _ in row_calls]}) "
+            "equal the plain version exactly on the main path's own arguments")
+        del row_calls
         got = {n: len(c) for n, c in calls.items()}
         want = {"tier_estimate": expect["tier_estimate"],
                 "tier_consume": expect.get("tier_consume", 0)
@@ -4884,6 +5054,8 @@ def main(argv=None) -> int:
     idle = [n for n in results if n not in off_path and not path_launches.get(n)]
     if idle:
         raise AssertionError(f"kernels of the main paths never launched there: {idle}")
+    log("launches over every drive() of the run (every cell's warm and timed rounds): "
+        + json.dumps({n: c for n, c in ALL_PATH_LAUNCHES.items() if c}))
     print(json.dumps({"ab": AB}), flush=True)
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": r["source"], "replaces": r["replaces"],

@@ -6,13 +6,18 @@ Compact candidate round:
   over [B, C], the top-K window, and everything gathered to [B, K]; the
   plain version is `select_plain`.
 - `candidate_tail` (csrc/candidate_tail.cu): the replica-division tail over
-  [rows, K] windows plus the compact output window; the plain version is
+  [rows, K] windows plus the compact output window, one warp a row whose
+  three orders are register sorts over the warp; the plain version is
   `tail_plain`.
 
 Dense round:
 - `dense_filter` (csrc/dense_filter.cu): filters, score, the [B, C]
   estimator answer, previous replicas, tie values and the feasible count;
-  the plain version is `dense_filter_plain`.
+  the estimate per distinct request, the taints per toleration table and
+  api_ok are built once as tables (their plain mirror
+  `dense_filter_tables_plain`, read back by `dense_filter_apply_plain`),
+  then a tiled pass writes the rows from them; the plain version is
+  `dense_filter_plain`.
 - `dense_tail` (csrc/dense_tail.cu): the replica-division tail over full
   rows of width C, read from the filter outputs through row ids, plus the
   compact output window (none with topk = 0); rows up to
@@ -125,7 +130,15 @@ import torch
 
 from ..faults.staleness import MAX_STALENESS_AGE
 from ..sched import core
-from ..sched.plugins import ALL_PLUGIN_BITS
+from ..ops import filters as filter_ops
+from ..sched.plugins import (
+    ALL_PLUGIN_BITS,
+    BIT_AFFINITY,
+    BIT_API,
+    BIT_EVICTION,
+    BIT_LOCALITY,
+    BIT_TAINT,
+)
 from ..sched.spread import WEIGHT_UNIT
 
 I64, I32, BOOL, U8 = torch.int64, torch.int32, torch.bool, torch.uint8
@@ -286,6 +299,56 @@ def dense_filter_plain(
     if extra_avail is not None:
         avail = torch.where(extra_avail >= 0, torch.minimum(avail, extra_avail), avail)
     tie = core.tie_at(seeds, torch.arange(C, device=alive.device)[None, :])
+    return feasible, score, avail, prev_replicas, tie, feasible.sum(-1).to(I32)
+
+
+def dense_filter_tables_plain(
+    alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
+    tol_tables, req_unique, *, plugin_bits: int,
+):
+    """Plain mirror of the dense-filter kernel's table pass: est_u i32[U,C]
+    (sim_estimate_table_plain's entries for one fleet: 0 without a summary,
+    SIM_EST_REPLICAS where the request names no resource or the minimum
+    reaches INT32_MAX), col_ok bool[Tt,C] (alive, and with the taint plugin
+    on every NoSchedule / NoExecute taint tolerated by table t) and api_t
+    bool[G,C] (api_ok transposed)."""
+    est_u = sim_estimate_table_plain(capacity[None], has_summary[None], req_unique)[0]
+    col_ok = alive[None, :].expand(tol_tables.shape[0], -1)
+    if plugin_bits & BIT_TAINT:
+        col_ok = col_ok & filter_ops.taint_toleration_mask(
+            taint_key, taint_value, taint_effect, *tol_tables.unbind(1))
+    return est_u, col_ok, api_ok.T
+
+
+def dense_filter_apply_plain(
+    est_u, col_ok, api_t, replicas, unknown_request, gvk, tol_idx, aff_masks, aff_idx,
+    prev_idx, prev_rep, evict_idx, seeds, req_idx, extra_avail, *, plugin_bits: int,
+    extra_mask=None,
+):
+    """Plain mirror of the dense-filter kernel's main pass over the tables
+    of `dense_filter_tables_plain`: each row's col_ok row, AND its api_t row
+    (none past G), affinity row, eviction list and `extra_mask` as the
+    plugins say; the score 100 on a prev column with the locality plugin
+    on; the estimate row with the row's clamps (sim_estimate_apply_plain);
+    the tie at the column id; the feasible count. Returns dense_filter's
+    six outputs."""
+    G, C = api_t.shape
+    prev_member, prev_replicas, eviction_ok = core.sparse_rows(prev_idx, prev_rep, evict_idx, C)
+    feasible = col_ok[tol_idx.long()]
+    if plugin_bits & BIT_API:
+        api = (api_t[gvk.clamp(0, G - 1).long()] & (gvk < G)[:, None] if G
+               else torch.zeros_like(feasible))
+        feasible = feasible & api
+    if plugin_bits & BIT_AFFINITY:
+        feasible = feasible & aff_masks[aff_idx.long()]
+    if plugin_bits & BIT_EVICTION:
+        feasible = feasible & eviction_ok
+    if extra_mask is not None:
+        feasible = feasible & extra_mask
+    score = torch.where(prev_member & bool(plugin_bits & BIT_LOCALITY), 100, 0).to(I32)
+    avail = sim_estimate_apply_plain(est_u[None], req_idx, replicas, unknown_request,
+                                     extra_avail)[0]
+    tie = core.tie_at(seeds, torch.arange(C, device=est_u.device)[None, :])
     return feasible, score, avail, prev_replicas, tie, feasible.sum(-1).to(I32)
 
 
@@ -956,12 +1019,13 @@ def _tail_launch(
     tw = min(K, topk)
     if tw > MAX_DENSE_TOPK:
         raise ValueError(f"candidate_tail: output window {tw} over {MAX_DENSE_TOPK}")
-    result = torch.empty((rows, K), dtype=I32, device=dev)
+    # the int32 outputs in one allocation (the host's time per call is the
+    # compact round's tail time: the kernel takes less)
+    result, top_idx, top_val, avail_sum, nnz = torch.empty(
+        rows * (K + 2 * tw + 2), dtype=I32, device=dev).split(
+        [rows * K, rows * tw, rows * tw, rows, rows])
+    result, top_idx, top_val = result.view(rows, K), top_idx.view(rows, tw), top_val.view(rows, tw)
     unsched = torch.empty((rows,), dtype=BOOL, device=dev)
-    avail_sum = torch.empty((rows,), dtype=I32, device=dev)
-    nnz = torch.empty((rows,), dtype=I32, device=dev)
-    top_idx = torch.empty((rows, tw), dtype=I32, device=dev)
-    top_val = torch.empty((rows, tw), dtype=I32, device=dev)
     if rows == 0:
         return result, unsched, avail_sum, nnz, top_idx, top_val
     if K > MAX_TAIL_K:
@@ -1010,7 +1074,13 @@ def _dense_filter_launch(
     aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
     req_unique, req_idx, extra_avail, *, plugin_bits: int, extra_mask=None,
 ):
-    """Check, allocate and launch dense_filter_kernel."""
+    """Check, allocate (the outputs, score / avail / prev / tie as the four
+    planes of one i32[4,B,C] allocation, and in one allocation the factored
+    tables' scratch: the estimate per distinct request i32[U,C], the
+    column-ok table per toleration table u8[Tt,C], api_ok transposed
+    u8[G,C]) and launch dense_filter (dense_filter.cu: the tables, then the
+    main pass). Each plane starts 16-byte aligned whenever C % 4 == 0, as
+    the kernel's 16-byte stores need."""
     dev = alive.device
     C, R, T, G, B, Kt, Kp, Ke = _check_filter_args(
         alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
@@ -1020,21 +1090,23 @@ def _dense_filter_launch(
     )
     if extra_mask is not None:
         _check("extra_mask", extra_mask, BOOL, (B, C), dev)
+    U, Tt = req_unique.shape[0], tol_tables.shape[0]
     feasible = torch.empty((B, C), dtype=BOOL, device=dev)
-    score = torch.empty((B, C), dtype=I32, device=dev)
-    avail = torch.empty((B, C), dtype=I32, device=dev)
-    prev = torch.empty((B, C), dtype=I32, device=dev)
-    tie = torch.empty((B, C), dtype=I32, device=dev)
+    score, avail, prev, tie = torch.empty((4, B, C), dtype=I32, device=dev).unbind(0)
     feas_count = torch.empty((B,), dtype=I32, device=dev)
     if B == 0 or C == 0:
         return feasible, score, avail, prev, tie, feas_count.zero_()
+    scratch = torch.empty((4 * U + Tt + G) * C, dtype=U8, device=dev)
+    est_u = scratch.data_ptr()
+    col_ok = est_u + 4 * U * C
     rc = _bind("dense_filter", "dense_filter_launch", _DENSE_FILTER_ARGTYPES)(
         *_ptrs(alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok),
         C, R, T, G,
         *_ptrs(replicas, unknown_request, gvk, tol_tables, tol_idx, aff_masks, aff_idx,
                prev_idx, prev_rep, evict_idx, seeds, req_unique, req_idx),
-        B, Kt, Kp, Ke, plugin_bits, extra_avail is not None,
-        *_ptrs(extra_avail, extra_mask, feasible, score, avail, prev, tie, feas_count),
+        B, Kt, Kp, Ke, U, Tt, plugin_bits, extra_avail is not None,
+        _ptr(extra_avail), _ptr(extra_mask), est_u, col_ok, col_ok + Tt * C,
+        *_ptrs(feasible, score, avail, prev, tie, feas_count),
         _stream(dev),
     )
     _raise_on(rc, "dense_filter")
@@ -1461,7 +1533,7 @@ _FILTER_HEAD = [_VP] * 7 + [_CI] * 4 + [_VP] * 13
 _SELECT_ARGTYPES = _FILTER_HEAD + [_CI] * 7 + [_VP] * 11
 _SELECT_WINDOW_ARGTYPES = [_VP, _VP, _CI, _CI, _CI, _VP, _VP, _VP, _VP]
 _TAIL_ARGTYPES = [_VP] * 6 + [_CI] + [_VP] * 4 + [_CI] * 4 + [_VP] * 7
-_DENSE_FILTER_ARGTYPES = _FILTER_HEAD + [_CI] * 6 + [_VP] * 9
+_DENSE_FILTER_ARGTYPES = _FILTER_HEAD + [_CI] * 8 + [_VP] * 12
 _PACK_ROWS_ARGTYPES = [_VP, _CI, _CI, _VP, _VP]
 _FEAS_IDX_ARGTYPES = [_VP, _CI, _CI, _CI, _VP, _VP]
 _GROUP_SCORE_ARGTYPES = [_VP] * 4 + [_CI, _VP, _CI] + [_VP] * 8 + [_CI] * 3 + [_VP] * 5

@@ -13,57 +13,56 @@
 // reference's `extra_mask` of filter_phase,
 // karmada_tpu/sched/core.py:178-179: the spread
 // selection of a per-row re-solve when the ClusterAffinity plugin is off)
-// is ANDed into the feasibility before the count. The per-column code is
-// filter_common.cuh, shared with candidate_select.cu.
+// is ANDed into the feasibility before the count.
 //
-// What bounds it on an H100: it is elementwise and writes four i32 and one
-// bool [B, C] tensors, 17 bytes per element (about 0.9 GB at 10240 x 5120),
-// so it is bound by memory bandwidth; the reads are the fleet tables (L2
-// resident) and one affinity-mask row per binding. The per-element work is
-// the taint x toleration loop, the prev/evict list scans from shared
-// memory, one int64 division per requested resource and the splitmix64
-// hash. One block of 256 threads per row: the row's toleration row and
-// prev/evict lists are staged in shared memory once, the threads stride
-// over the columns with coalesced stores, and the feasible count is a
-// shared-memory sum, so no [B, C] tensor is read back.
-//
-// sim_filter, the second entry: the same per-column filter and estimate
-// over a scenario-stacked fleet, the first launch of the simulation
-// plane's solve. Replaces the filter half of
-// karmada_tpu/simulation/engine.py:261 `_sim_kernel` (its decompress of
-// the factored batch, then `_schedule_body`'s filter_estimate_phase under
-// `jax.vmap` over the scenario axis, with the tie from
-// `tie_from_index(seeds, tie_idx[s])`). It writes feasible, avail, prev and
-// tie as [S, B, C] and the feasible count as [S, B] (no score: the
-// simulation drops it). Bound by memory bandwidth: 13 bytes written per
-// [S, B, C] element. Most of an element's work depends on fewer indices
-// than (s, b, c), and the batch is already factored (models/batch.py: U
-// distinct requests, Tt toleration tables), so the work is split as the
+// What bounds it on an H100: it writes four i32 and one bool [B, C]
+// tensors, 17 bytes per element (about 0.9 GB at 10240 x 5120), so it is
+// bound by memory bandwidth. Most of an element's work depends on fewer
+// indices than (b, c), and the batch is already factored (models/batch.py:
+// U distinct requests, Tt toleration tables), so the work is split as the
 // reference's own estimate is (ops/assign.py general_estimate_unique, then
-// general_estimate_apply):
-// - sim_factor_kernel builds, per scenario, est_u [S, U, C] (i32: the
-//   minimum over requested resources of cap // req through capped_div.cuh,
-//   0 without a summary, -1 for "the row's replicas" where no resource is
-//   requested or the minimum reaches INT32_MAX), col_ok [S, Tt, C] (alive,
-//   and every NoSchedule / NoExecute taint tolerated by table t) and api_t
-//   [S, G, C] (api_ok transposed). That is S U C R divisions and S Tt C T
-//   Kt compares, never more than the per-element form.
-// - sim_filter_kernel<kVec>, grid (column tiles, groups of 32 rows, S),
-//   256 threads, each owning 4 adjacent columns of one row (32-256
-//   threads a row, so narrow fleets run several rows side by side): the
-//   block stages its tile's tie indices once, scatters each step's prev /
-//   evict lists into shared slots (last prev entry wins through a 64-bit
-//   atomicMax on (k + 1) << 32 | replicas), then every thread reads its
-//   columns from the tables (4-byte loads of col_ok, api_t and the
-//   affinity row, a 16-byte load of est_u and of the answers), applies the
-//   row's own clamps (replicas, unknown_request, the answers' min-merge)
-//   and writes feasible as one 32-bit word and avail, prev and tie as
-//   16-byte stores; the feasible count is a warp sum and one atomic a warp.
-//   kVec = false (C % 4 != 0, or the caller's answers or affinity table
-//   off alignment) takes 4-byte accesses throughout.
-// The tie comes from the scenario's 1-based present rank tie_idx[s, c] (a
-// drained column repeats its neighbour's rank, but is never feasible), and
-// extra_avail, shared by every scenario, is read at (b, c).
+// general_estimate_apply), in two launches on the stream:
+// - factor_kernel builds est_u [U, C] (i32: the minimum over requested
+//   resources of cap // req through capped_div.cuh, 0 without a summary,
+//   kEstReplicas for "the row's replicas" where no resource is requested
+//   or the minimum reaches INT32_MAX), col_ok [Tt, C] (alive, and every
+//   NoSchedule / NoExecute taint tolerated by table t) and api_t [G, C]
+//   (api_ok transposed), from the capacity it is passed (the tiered
+//   launch passes its own); it also zeroes the feasible counts. That is
+//   U C R divisions and Tt C T Kt compares, never more than the
+//   per-element form's B C R and B C T Kt.
+// - filter_main_kernel<kVec, kDense = true>, grid (column tiles, groups of
+//   32 rows), 256 threads, each owning 4 adjacent columns of one row
+//   (32-256 threads a row, so narrow fleets run several rows side by
+//   side): the block scatters each step's prev / evict lists into shared
+//   slots (last prev entry wins through a 64-bit atomicMax on
+//   (k + 1) << 32 | replicas), then every thread reads its columns from
+//   the tables (4-byte loads of col_ok, api_t, the affinity row and the
+//   mask, 16-byte loads of est_u and of the answers), applies the row's
+//   own clamps (replicas, unknown_request, the answers' min-merge), sets
+//   the score (100 on a prev column with the locality plugin on) and the
+//   tie (splitmix64 at the column id), and writes feasible as one 32-bit
+//   word and score, avail, prev and tie as 16-byte stores; the feasible
+//   count is a warp sum and one atomic a warp. kVec = false (C % 4 != 0,
+//   or the caller's answers, mask or affinity table off alignment) takes
+//   4-byte accesses throughout.
+//
+// sim_filter, the second entry: the same filter and estimate over a
+// scenario-stacked fleet, the first launch of the simulation plane's
+// solve. Replaces the filter half of karmada_tpu/simulation/engine.py:261
+// `_sim_kernel` (its decompress of the factored batch, then
+// `_schedule_body`'s filter_estimate_phase under `jax.vmap` over the
+// scenario axis, with the tie from `tie_from_index(seeds, tie_idx[s])`).
+// It writes feasible, avail, prev and tie as [S, B, C] and the feasible
+// count as [S, B] (no score: the simulation drops it). Bound by memory
+// bandwidth: 13 bytes written per [S, B, C] element. The same two
+// launches, per scenario (grid z): factor_kernel builds est_u [S, U, C],
+// col_ok [S, Tt, C] and api_t [S, G, C], and filter_main_kernel<kVec,
+// kDense = false> stages its tile's tie indices once and writes the rows
+// without the score and the mask. The tie comes from the scenario's
+// 1-based present rank tie_idx[s, c] (a drained column repeats its
+// neighbour's rank, but is never feasible), and extra_avail, shared by
+// every scenario, is read at (b, c).
 //
 // dense_input_filter, the third entry: the filter half of the dense-input
 // schedule program. Replaces karmada_tpu/sched/core.py:190-226
@@ -129,39 +128,7 @@ struct DenseOut {
   int32_t* feas_count;  // [B]
 };
 
-__global__ void __launch_bounds__(kThreads)
-dense_filter_kernel(FilterArgs p, DenseOut o, const uint8_t* extra_mask) {
-  extern __shared__ int32_t lists[];
-  int32_t* tol = lists;              // [4*Kt]
-  int32_t* pidx = tol + 4 * p.Kt;    // [Kp]
-  int32_t* prep = pidx + p.Kp;       // [Kp]
-  int32_t* ev = prep + p.Kp;         // [Ke]
-  __shared__ unsigned int count;
-
-  const int b = blockIdx.x;
-  filter_common::load_row_lists(p, b, tol, pidx, prep, ev);
-  if (threadIdx.x == 0) count = 0;
-  __syncthreads();
-
-  const uint64_t seed = p.seeds[b];
-  const int64_t row = (int64_t)b * p.C;
-  unsigned int local = 0;
-  for (int c = threadIdx.x; c < p.C; c += blockDim.x) {
-    const ColEval e = filter_common::eval_col(p, b, c, tol, pidx, prep, ev);
-    const bool feasible = e.feasible && (extra_mask == nullptr || extra_mask[row + c] != 0);
-    o.feasible[row + c] = feasible ? 1 : 0;
-    o.score[row + c] = e.score;
-    o.avail[row + c] = filter_common::estimate(p, b, c);
-    o.prev[row + c] = e.prev;
-    o.tie[row + c] = filter_common::tie_value(seed, c);
-    local += feasible ? 1u : 0u;
-  }
-  atomicAdd(&count, local);
-  __syncthreads();
-  if (threadIdx.x == 0) o.feas_count[b] = (int32_t)count;
-}
-
-// ---- sim_filter: the factored tables, then the tiled main pass ----
+// ---- dense_filter and sim_filter: the factored tables, then the tiled main pass ----
 
 // est_u's sentinel: "this row's replicas" (no resource requested, or the
 // minimum reaches INT32_MAX); every other entry is the answer in
@@ -169,26 +136,28 @@ dense_filter_kernel(FilterArgs p, DenseOut o, const uint8_t* extra_mask) {
 constexpr int32_t kEstReplicas = -1;
 // main pass: each thread owns 4 adjacent columns of one row; a block runs
 // kThreads / qt rows side by side over a tile of 4 qt columns (qt = 32-256
-// threads a row, so a warp never spans two rows) and walks kSimRows rows
-// of one scenario
-constexpr int kSimTileCols = 4 * kThreads;
-constexpr int kSimRows = 32;
+// threads a row, so a warp never spans two rows) and walks groups of
+// kGroupRows rows of one scenario
+constexpr int kTileCols = 4 * kThreads;
+constexpr int kGroupRows = 32;
 
 // The tables the main pass reads instead of redoing per row what depends
-// on fewer indices than (s, b, c).
-struct SimTables {
+// on fewer indices than (s, b, c) (S = 1 for dense_filter).
+struct Tables {
   int32_t* est_u;   // [S,U,C] the estimate per distinct request
   uint8_t* col_ok;  // [S,Tt,C] alive and every taint tolerated by table t
   uint8_t* api_t;   // [S,G,C] api_ok transposed, so a row reads it along c
   int U, Tt;
 };
 
-struct SimOut {
-  uint8_t* feasible;    // [S,B,C]
-  int32_t* avail;       // [S,B,C]
-  int32_t* prev;        // [S,B,C]
-  int32_t* tie;         // [S,B,C]
-  int32_t* feas_count;  // [S,B], zeroed before the main pass
+// The main pass's outputs ([S,B,C] and [S,B]; score only in the dense mode).
+struct MainOut {
+  uint8_t* feasible;
+  int32_t* score;
+  int32_t* avail;
+  int32_t* prev;
+  int32_t* tie;
+  int32_t* feas_count;  // zeroed by factor_kernel
 };
 
 // general_estimate_unique's minimum for request row u at (s, c), with the
@@ -220,13 +189,18 @@ __device__ inline int32_t factor_estimate(const FilterArgs& p, int s, int u, int
 
 // Grid (column blocks, table rows, S): block row j builds est_u for
 // request j < U, col_ok for toleration table j - U < Tt, then api_t for
-// gvk j - U - Tt; blockIdx.y strides over the U + Tt + G table rows.
+// gvk j - U - Tt; blockIdx.y strides over the U + Tt + G table rows. The
+// blocks of table row 0 of scenario 0 also zero the n_count feasible
+// counts, which the main pass adds to.
 __global__ void __launch_bounds__(kThreads)
-sim_factor_kernel(FilterArgs p, SimTables f) {
+factor_kernel(FilterArgs p, Tables f, int32_t* feas_count, int64_t n_count) {
   extern __shared__ int32_t tol[];  // [4*Kt]
   const int s = blockIdx.z;
   const int c = blockIdx.x * kThreads + threadIdx.x;
   const int64_t sc = (int64_t)s * p.C + c;
+  if (blockIdx.y == 0 && s == 0) {
+    for (int64_t i = c; i < n_count; i += (int64_t)gridDim.x * kThreads) feas_count[i] = 0;
+  }
   const int rows = f.U + f.Tt + p.G;
   for (int j = blockIdx.y; j < rows; j += gridDim.y) {  // j is uniform over the block
     if (j < f.U) {
@@ -288,35 +262,39 @@ __device__ __forceinline__ int lane4(const int4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
-// Grid (column tiles, groups of kSimRows rows, S). The block stages its
-// tile's tie indices, then walks its rows kThreads / qt at a time: the
-// rows' prev and evict lists are scattered into the step's slots (a prev
-// slot keeps (k + 1) << 32 | replicas of the highest entry k, so the last
-// entry wins; an evict slot a flag), one barrier, and each thread writes
-// its 4 columns from the factored tables, resetting its slots as it reads
-// them. The slots are double-buffered, so one barrier a step suffices.
-// Shared arrays are column-interleaved (column 4i + j of a row at
-// j * kThreads + the row's first thread + i), so a warp's accesses are
-// consecutive.
-template <bool kVec>
+// Grid (column tiles, groups of kGroupRows rows, S; the groups beyond
+// gridDim.y strided). The block walks its rows kThreads / qt at a time:
+// the rows' prev and evict lists are scattered into the step's slots (a
+// prev slot keeps (k + 1) << 32 | replicas of the highest entry k, so the
+// last entry wins; an evict slot a flag), one barrier, and each thread
+// writes its 4 columns from the factored tables, resetting its slots as
+// it reads them. The slots are double-buffered, so one barrier a step
+// suffices. Shared arrays are column-interleaved (column 4i + j of a row
+// at j * kThreads + the row's first thread + i), so a warp's accesses are
+// consecutive. kDense: dense_filter (S = 1; the score, extra_mask, the
+// tie at the column id); else sim_filter (the tie at tie_idx[s, c],
+// staged once a block).
+template <bool kVec, bool kDense>
 __global__ void __launch_bounds__(kThreads)
-sim_filter_kernel(FilterArgs p, const int64_t* tie_idx, SimTables f, SimOut o, int qt) {
-  __shared__ uint64_t tie_s[kSimTileCols];
-  __shared__ unsigned long long slot[2][kSimTileCols];
-  __shared__ uint8_t evicted[2][kSimTileCols];
+filter_main_kernel(FilterArgs p, const int64_t* tie_idx, const uint8_t* extra_mask, Tables f,
+                   MainOut o, int qt) {
+  __shared__ uint64_t tie_s[kDense ? 1 : kTileCols];
+  __shared__ unsigned long long slot[2][kTileCols];
+  __shared__ uint8_t evicted[2][kTileCols];
 
   const int s = blockIdx.z;
   const int width = 4 * qt;  // the tile's columns
   const int par = kThreads / qt;  // rows side by side
   const int c0 = blockIdx.x * width;
   const int c1 = min(c0 + width, p.C);
-  const int r0 = blockIdx.y * kSimRows;
-  for (int i = threadIdx.x; i < kSimTileCols; i += kThreads) {
+  for (int i = threadIdx.x; i < kTileCols; i += kThreads) {
     slot[0][i] = slot[1][i] = 0;
     evicted[0][i] = evicted[1][i] = 0;
   }
-  for (int l = threadIdx.x; l < c1 - c0; l += kThreads) {
-    tie_s[(l & 3) * qt + (l >> 2)] = (uint64_t)tie_idx[(int64_t)s * p.C + c0 + l];
+  if constexpr (!kDense) {
+    for (int l = threadIdx.x; l < c1 - c0; l += kThreads) {
+      tie_s[(l & 3) * qt + (l >> 2)] = (uint64_t)tie_idx[(int64_t)s * p.C + c0 + l];
+    }
   }
   __syncthreads();
 
@@ -325,88 +303,138 @@ sim_filter_kernel(FilterArgs p, const int64_t* tie_idx, SimTables f, SimOut o, i
   const int c = c0 + 4 * qi;  // its first column
   const int n = c1 - c;  // its columns inside the fleet (4 or more when kVec)
   const int per_row = p.Kp + p.Ke;
-  for (int step = 0; step < kSimRows / par; ++step) {
-    const int buf = step & 1;
-    const int rbase = r0 + step * par;
-    for (int i = threadIdx.x; i < par * per_row; i += kThreads) {
-      const int rs = i / per_row;
-      const int k = i - rs * per_row;
-      const int b = rbase + rs;
-      if (b >= p.B) continue;
-      const bool is_prev = k < p.Kp;
-      const int id = is_prev ? p.prev_idx[(int64_t)b * p.Kp + k]
-                             : p.evict_idx[(int64_t)b * p.Ke + k - p.Kp];
-      if (id < c0 || id >= c1) continue;
-      const int l = id - c0;
-      const int at = (l & 3) * kThreads + rs * qt + (l >> 2);
-      if (is_prev) {
-        atomicMax(&slot[buf][at], ((unsigned long long)(k + 1) << 32) |
-                                      (uint32_t)p.prev_rep[(int64_t)b * p.Kp + k]);
-      } else {
-        evicted[buf][at] = 1;
-      }
-    }
-    __syncthreads();
-
-    const int b = rbase + sub;
-    unsigned int local = 0;
-    if (b < p.B && n > 0) {
-      const int bits = p.plugin_bits;
-      uint32_t ok = load4<kVec>(f.col_ok + ((int64_t)s * f.Tt + p.tol_idx[b]) * p.C + c, n);
-      if (bits & filter_common::kBitApi) {
-        const int g = p.gvk[b];
-        ok = (p.G > 0 && g < p.G)
-                 ? ok & load4<kVec>(f.api_t + ((int64_t)s * p.G + max(g, 0)) * p.C + c, n)
-                 : 0u;
-      }
-      if (bits & filter_common::kBitAffinity) {
-        ok &= load4<kVec>(p.aff_masks + (int64_t)p.aff_idx[b] * p.C + c, n);
-      }
-      const int4 est = load4<kVec>(f.est_u + ((int64_t)s * f.U + p.req_idx[b]) * p.C + c, n);
-      int4 extra = make_int4(-1, -1, -1, -1);
-      if (p.extra_avail != nullptr) extra = load4<kVec>(p.extra_avail + (int64_t)b * p.C + c, n);
-      const int32_t reps = p.replicas[b];
-      const bool unknown = p.unknown_request[b] != 0;
-      const uint64_t seed = p.seeds[b];
-      const bool evict_on = (bits & filter_common::kBitEviction) != 0;
-      uint32_t feas = 0;
-      int32_t avail[4], prev[4], tie[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int at = j * kThreads + threadIdx.x;
-        const bool fj = ((ok >> (8 * j)) & 0xff) != 0 && !(evict_on && evicted[buf][at]);
-        const unsigned long long sv = slot[buf][at];
-        slot[buf][at] = 0;
-        evicted[buf][at] = 0;
-        const int32_t e = lane4(est, j);
-        int32_t a = e == kEstReplicas ? reps : e;
-        if (unknown) a = 0;
-        const int32_t x = lane4(extra, j);
-        if (x >= 0 && x < a) a = x;
-        avail[j] = a;
-        prev[j] = (int32_t)(uint32_t)sv;
-        tie[j] = filter_common::tie_from_index(seed, tie_s[j * qt + qi]);
-        if (j < n && fj) {
-          feas |= 1u << (8 * j);
-          ++local;
+  const int groups = (p.B + kGroupRows - 1) / kGroupRows;
+  int buf = 0;
+  for (int g = blockIdx.y; g < groups; g += gridDim.y) {
+    for (int rbase = g * kGroupRows; rbase < (g + 1) * kGroupRows; rbase += par, buf ^= 1) {
+      for (int i = threadIdx.x; i < par * per_row; i += kThreads) {
+        const int rs = i / per_row;
+        const int k = i - rs * per_row;
+        const int b = rbase + rs;
+        if (b >= p.B) continue;
+        const bool is_prev = k < p.Kp;
+        const int id = is_prev ? p.prev_idx[(int64_t)b * p.Kp + k]
+                               : p.evict_idx[(int64_t)b * p.Ke + k - p.Kp];
+        if (id < c0 || id >= c1) continue;
+        const int l = id - c0;
+        const int at = (l & 3) * kThreads + rs * qt + (l >> 2);
+        if (is_prev) {
+          atomicMax(&slot[buf][at], ((unsigned long long)(k + 1) << 32) |
+                                        (uint32_t)p.prev_rep[(int64_t)b * p.Kp + k]);
+        } else {
+          evicted[buf][at] = 1;
         }
       }
-      const int64_t row = ((int64_t)s * p.B + b) * p.C;
-      if (kVec) {
-        *reinterpret_cast<uint32_t*>(o.feasible + row + c) = feas;
-      } else {
-        for (int j = 0; j < 4 && j < n; ++j) o.feasible[row + c + j] = (feas >> (8 * j)) & 1;
+      __syncthreads();
+
+      const int b = rbase + sub;
+      unsigned int local = 0;
+      if (b < p.B && n > 0) {
+        const int bits = p.plugin_bits;
+        uint32_t ok =
+            load4<kVec>(f.col_ok + ((int64_t)s * f.Tt + p.tol_idx[b]) * p.C + c, n);
+        if (bits & filter_common::kBitApi) {
+          const int gv = p.gvk[b];
+          ok = (p.G > 0 && gv < p.G)
+                   ? ok & load4<kVec>(f.api_t + ((int64_t)s * p.G + max(gv, 0)) * p.C + c, n)
+                   : 0u;
+        }
+        if (bits & filter_common::kBitAffinity) {
+          ok &= load4<kVec>(p.aff_masks + (int64_t)p.aff_idx[b] * p.C + c, n);
+        }
+        if (kDense && extra_mask != nullptr) {
+          ok &= load4<kVec>(extra_mask + (int64_t)b * p.C + c, n);
+        }
+        const int4 est =
+            load4<kVec>(f.est_u + ((int64_t)s * f.U + p.req_idx[b]) * p.C + c, n);
+        int4 extra = make_int4(-1, -1, -1, -1);
+        if (p.extra_avail != nullptr) {
+          extra = load4<kVec>(p.extra_avail + (int64_t)b * p.C + c, n);
+        }
+        const int32_t reps = p.replicas[b];
+        const bool unknown = p.unknown_request[b] != 0;
+        const uint64_t seed = p.seeds[b];
+        const bool evict_on = (bits & filter_common::kBitEviction) != 0;
+        const bool locality = (bits & filter_common::kBitLocality) != 0;
+        uint32_t feas = 0;
+        int32_t score[4], avail[4], prev[4], tie[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int at = j * kThreads + threadIdx.x;
+          const bool fj = ((ok >> (8 * j)) & 0xff) != 0 && !(evict_on && evicted[buf][at]);
+          const unsigned long long sv = slot[buf][at];
+          slot[buf][at] = 0;
+          evicted[buf][at] = 0;
+          const int32_t e = lane4(est, j);
+          int32_t a = e == kEstReplicas ? reps : e;
+          if (unknown) a = 0;
+          const int32_t x = lane4(extra, j);
+          if (x >= 0 && x < a) a = x;
+          avail[j] = a;
+          prev[j] = (int32_t)(uint32_t)sv;
+          score[j] = locality && sv != 0 ? 100 : 0;
+          tie[j] = kDense ? filter_common::tie_value(seed, c + j)
+                          : filter_common::tie_from_index(seed, tie_s[j * qt + qi]);
+          if (j < n && fj) {
+            feas |= 1u << (8 * j);
+            ++local;
+          }
+        }
+        const int64_t row = ((int64_t)s * p.B + b) * p.C;
+        if (kVec) {
+          *reinterpret_cast<uint32_t*>(o.feasible + row + c) = feas;
+        } else {
+          for (int j = 0; j < 4 && j < n; ++j) o.feasible[row + c + j] = (feas >> (8 * j)) & 1;
+        }
+        if constexpr (kDense) store4<kVec>(o.score + row + c, score, n);
+        store4<kVec>(o.avail + row + c, avail, n);
+        store4<kVec>(o.prev + row + c, prev, n);
+        store4<kVec>(o.tie + row + c, tie, n);
       }
-      store4<kVec>(o.avail + row + c, avail, n);
-      store4<kVec>(o.prev + row + c, prev, n);
-      store4<kVec>(o.tie + row + c, tie, n);
-    }
-    // a warp lies inside one row: one atomic per warp and row
-    local = __reduce_add_sync(0xffffffffu, local);
-    if ((threadIdx.x & 31) == 0 && local != 0) {
-      atomicAdd(reinterpret_cast<unsigned int*>(o.feas_count + (int64_t)s * p.B + b), local);
+      // a warp lies inside one row: one atomic per warp and row
+      local = __reduce_add_sync(0xffffffffu, local);
+      if ((threadIdx.x & 31) == 0 && local != 0) {
+        atomicAdd(reinterpret_cast<unsigned int*>(o.feas_count + (int64_t)s * p.B + b), local);
+      }
     }
   }
+}
+
+// The two launches of dense_filter and sim_filter on `st`: the tables
+// (and the counts zeroed), then the main pass over S scenarios of B rows.
+// 16-byte accesses need C % 4 == 0 (every row start then aligned) and
+// aligned bases; the caller's extra_avail, extra_mask and aff_masks may be
+// views.
+template <bool kDense>
+int launch_factored(const FilterArgs& p, const Tables& f, const MainOut& o,
+                    const int64_t* tie_idx, const uint8_t* extra_mask, int S, cudaStream_t st) {
+  const size_t tol_smem = 4 * (size_t)(4 * p.Kt);
+  if (tol_smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        factor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tol_smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int table_rows = f.U + f.Tt + p.G;
+  const dim3 fgrid((p.C + kThreads - 1) / kThreads, table_rows < 65535 ? table_rows : 65535, S);
+  factor_kernel<<<fgrid, kThreads, tol_smem, st>>>(p, f, o.feas_count, (int64_t)S * p.B);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  // threads a row: the fewest of 32-256 whose 4 columns each cover C
+  int qt = 32;
+  while (qt < kThreads && 4 * qt < p.C) qt *= 2;
+  const bool vec = p.C % 4 == 0 && (reinterpret_cast<uintptr_t>(p.aff_masks) & 3) == 0 &&
+                   (reinterpret_cast<uintptr_t>(extra_mask) & 3) == 0 &&
+                   (reinterpret_cast<uintptr_t>(p.extra_avail) & 15) == 0;
+  const int groups = (p.B + kGroupRows - 1) / kGroupRows;
+  const dim3 grid((p.C + 4 * qt - 1) / (4 * qt), groups < 65535 ? groups : 65535, S);
+  if (vec) {
+    filter_main_kernel<true, kDense><<<grid, kThreads, 0, st>>>(p, tie_idx, extra_mask, f, o, qt);
+  } else {
+    filter_main_kernel<false, kDense><<<grid, kThreads, 0, st>>>(p, tie_idx, extra_mask, f, o,
+                                                                 qt);
+  }
+  return (int)cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -496,6 +524,12 @@ size_t list_smem(int Kt, int Kp, int Ke) { return 4 * (size_t)(4 * Kt + 2 * Kp +
 
 }  // namespace
 
+// The fleet tables and the factored batch of B rows (U distinct requests,
+// Tt toleration tables), extra_avail (i32 [B,C], -1 = no answer) and
+// extra_mask (bool [B,C]), each null when absent, the factored tables'
+// scratch (est_u i32 [U,C], col_ok and api_t u8 [Tt,C] and [G,C]) and the
+// outputs. Builds the tables (zeroing the feasible counts), then runs the
+// main pass: two launches on the stream.
 extern "C" int dense_filter_launch(
     const void* alive, const void* capacity, const void* has_summary,
     const void* taint_key, const void* taint_value, const void* taint_effect,
@@ -504,31 +538,23 @@ extern "C" int dense_filter_launch(
     const void* tol_tables, const void* tol_idx, const void* aff_masks,
     const void* aff_idx, const void* prev_idx, const void* prev_rep,
     const void* evict_idx, const void* seeds, const void* req_unique,
-    const void* req_idx, int B, int Kt, int Kp, int Ke, int plugin_bits,
-    int has_extra, const void* extra_avail, const void* extra_mask, void* feasible, void* score,
-    void* avail, void* prev, void* tie, void* feas_count, void* stream) {
-  if (B <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+    const void* req_idx, int B, int Kt, int Kp, int Ke, int U, int Tt, int plugin_bits,
+    int has_extra, const void* extra_avail, const void* extra_mask, void* est_u, void* col_ok,
+    void* api_t, void* feasible, void* score, void* avail, void* prev, void* tie,
+    void* feas_count, void* stream) {
+  if (B <= 0 || C <= 0 || U <= 0 || Tt <= 0) return (int)cudaErrorInvalidValue;
   const FilterArgs p = filter_common::make_filter_args(
       alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok, C, R, T, G,
       replicas, unknown_request, gvk, tol_tables, tol_idx, aff_masks, aff_idx, prev_idx,
       prev_rep, evict_idx, seeds, req_unique, req_idx, B, Kt, Kp, Ke, plugin_bits, has_extra,
       extra_avail);
-  DenseOut o;
-  o.feasible = static_cast<uint8_t*>(feasible);
-  o.score = static_cast<int32_t*>(score);
-  o.avail = static_cast<int32_t*>(avail);
-  o.prev = static_cast<int32_t*>(prev);
-  o.tie = static_cast<int32_t*>(tie);
-  o.feas_count = static_cast<int32_t*>(feas_count);
-  const size_t smem = list_smem(Kt, Kp, Ke);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        dense_filter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  dense_filter_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      p, o, static_cast<const uint8_t*>(extra_mask));
-  return (int)cudaGetLastError();
+  const Tables f{static_cast<int32_t*>(est_u), static_cast<uint8_t*>(col_ok),
+                 static_cast<uint8_t*>(api_t), U, Tt};
+  const MainOut o{static_cast<uint8_t*>(feasible), static_cast<int32_t*>(score),
+                  static_cast<int32_t*>(avail),    static_cast<int32_t*>(prev),
+                  static_cast<int32_t*>(tie),      static_cast<int32_t*>(feas_count)};
+  return launch_factored<true>(p, f, o, nullptr, static_cast<const uint8_t*>(extra_mask), 1,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // The scenario-stacked fleet (alive [S,C], capacity [S,C,R], has_summary
@@ -536,8 +562,8 @@ extern "C" int dense_filter_launch(
 // u64 1-based present rank, [S,C]) beside the factored batch of B rows
 // (U distinct requests, Tt toleration tables), the factored tables'
 // scratch (est_u i32 [S,U,C], col_ok and api_t u8 [S,Tt,C] and [S,G,C])
-// and the outputs. Zeroes the feasible counts, builds the tables, then
-// runs the main pass: two launches and a memset on the stream.
+// and the outputs. Builds the tables (zeroing the feasible counts), then
+// runs the main pass: two launches on the stream.
 extern "C" int sim_filter_launch(
     const void* alive, const void* capacity, const void* has_summary,
     const void* taint_key, const void* taint_value, const void* taint_effect,
@@ -552,54 +578,18 @@ extern "C" int sim_filter_launch(
   if (S <= 0 || S > 65535 || B <= 0 || C <= 0 || U <= 0 || Tt <= 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const FilterArgs p = filter_common::make_filter_args(
       alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok, C, R, T, G,
       replicas, unknown_request, gvk, tol_tables, tol_idx, aff_masks, aff_idx, prev_idx,
       prev_rep, evict_idx, seeds, req_unique, req_idx, B, Kt, Kp, Ke, plugin_bits, has_extra,
       extra_avail);
-  SimTables f;
-  f.est_u = static_cast<int32_t*>(est_u);
-  f.col_ok = static_cast<uint8_t*>(col_ok);
-  f.api_t = static_cast<uint8_t*>(api_t);
-  f.U = U;
-  f.Tt = Tt;
-  SimOut o;
-  o.feasible = static_cast<uint8_t*>(feasible);
-  o.avail = static_cast<int32_t*>(avail);
-  o.prev = static_cast<int32_t*>(prev);
-  o.tie = static_cast<int32_t*>(tie);
-  o.feas_count = static_cast<int32_t*>(feas_count);
-  cudaError_t err = cudaMemsetAsync(feas_count, 0, (size_t)S * B * sizeof(int32_t), st);
-  if (err != cudaSuccess) return (int)err;
-
-  const size_t tol_smem = 4 * (size_t)(4 * Kt);
-  if (tol_smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(sim_factor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)tol_smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int table_rows = U + Tt + G;
-  const dim3 fgrid((C + kThreads - 1) / kThreads, table_rows < 65535 ? table_rows : 65535, S);
-  sim_factor_kernel<<<fgrid, kThreads, tol_smem, st>>>(p, f);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  // threads a row: the fewest of 32-256 whose 4 columns each cover C
-  int qt = 32;
-  while (qt < kThreads && 4 * qt < C) qt *= 2;
-  // 16-byte accesses need C % 4 == 0 (every row start then aligned) and
-  // aligned bases; the caller's extra_avail and aff_masks may be views
-  const bool vec = C % 4 == 0 && (reinterpret_cast<uintptr_t>(aff_masks) & 3) == 0 &&
-                   (!has_extra || (reinterpret_cast<uintptr_t>(extra_avail) & 15) == 0);
-  const dim3 grid((C + 4 * qt - 1) / (4 * qt), (B + kSimRows - 1) / kSimRows, S);
-  const int64_t* tidx = static_cast<const int64_t*>(tie_idx);
-  if (vec) {
-    sim_filter_kernel<true><<<grid, kThreads, 0, st>>>(p, tidx, f, o, qt);
-  } else {
-    sim_filter_kernel<false><<<grid, kThreads, 0, st>>>(p, tidx, f, o, qt);
-  }
-  return (int)cudaGetLastError();
+  const Tables f{static_cast<int32_t*>(est_u), static_cast<uint8_t*>(col_ok),
+                 static_cast<uint8_t*>(api_t), U, Tt};
+  const MainOut o{static_cast<uint8_t*>(feasible), nullptr,
+                  static_cast<int32_t*>(avail),    static_cast<int32_t*>(prev),
+                  static_cast<int32_t*>(tie),      static_cast<int32_t*>(feas_count)};
+  return launch_factored<false>(p, f, o, static_cast<const int64_t*>(tie_idx), nullptr, S,
+                                static_cast<cudaStream_t>(stream));
 }
 
 // The fleet tables beside the dense batch of B rows: replicas, request

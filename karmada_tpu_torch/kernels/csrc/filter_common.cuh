@@ -1,7 +1,10 @@
 // filter_common.cuh: the per-(row, column) filter, estimate and tie of the
-// schedule rounds, shared by candidate_select.cu and dense_filter.cu so the
-// kernels cannot drift apart (dense_filter.cu's sim_filter,
-// dense_input_filter and mesh_tile_filter, and tiers.cu, use it too).
+// schedule rounds, shared so the kernels cannot drift apart:
+// candidate_select.cu and dense_filter.cu's dense_input_filter and
+// mesh_tile_filter evaluate every element through eval_col / estimate;
+// dense_filter.cu's dense_filter and sim_filter build their factored
+// tables with taints_tolerated and take the tie from tie_value /
+// tie_from_index; tiers.cu uses the FilterArgs too.
 //
 // - eval_col: the in-tree filters (alive, taints against the row's
 //   toleration table row, API enablement, affinity mask, eviction list),

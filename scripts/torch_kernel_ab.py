@@ -1,6 +1,7 @@
 """The redesigned kernels' time on the main path's own arguments, for an
 A/B of two trees on one card: candidate_select, group_score,
-combo_select, sim_filter and fleet_estimate.
+combo_select, sim_filter, fleet_estimate, dense_filter and
+candidate_tail.
 
     python3 /path/to/scripts/torch_kernel_ab.py [--kernels NAME,...]
 
@@ -24,12 +25,24 @@ each:
   config 3 (1 000 x 1 000), each in the form the tree's own
   max_available_replicas_rows passes it: a table of distinct requests, each
   row's index and the snapshot's node ranges where the tree has them
-  (`estimator.client.distinct_requests`), else the [B, R] request.
-chip_smoke's builders, seed 0. `--kernels` picks among candidate_select,
-group_score (with combo_select), sim_filter and fleet_estimate (default:
-all). Prints one JSON line: the tree, the card's nvidia-smi line, and per
-label the times in ms and a digest of the outputs (equal digests: equal
-outputs). Needs one CUDA card and nvcc.
+  (`estimator.client.distinct_requests`), else the [B, R] request;
+- `kernels._dense_filter_launch` on the dense flagship's batch (10 240 x
+  5 120; also with a random extra_mask, and with a random answer
+  matrix), on config 2's (1 024 x 100) and config 1's (128 x 3) batches,
+  and on the call one tiers_dense round makes (its tightened capacity),
+  captured at launch;
+- `kernels._tail_launch` on the compact flagship round's two calls (5 120
+  and 3 072 rows, K = 128), on the calls one tiers_compact round makes,
+  on seeded windows of 5 120 rows at K = 8, 32, 100 and 128, and on 6
+  rows at K = 128.
+Beside each label's CUDA-event times it prints the device time per call
+under torch.profiler and the host's time to enqueue a call. chip_smoke's
+builders, seed 0. `--kernels` picks among candidate_select, group_score
+(with combo_select), sim_filter, fleet_estimate, dense_filter and
+candidate_tail (default: all). Prints one JSON line: the tree, the
+card's nvidia-smi line, and per label the times in ms, the device and
+enqueue ms and a digest of the outputs (equal digests: equal outputs).
+Needs one CUDA card and nvcc.
 """
 from __future__ import annotations
 
@@ -58,7 +71,10 @@ from karmada_tpu_torch.sched.core import ArrayScheduler  # noqa: E402
 REPS = 10  # launches per CUDA-event window
 TURNS = 2
 WIDE_CHUNK_BINDINGS = 6144  # the pipelined wide_40k chunk's rows
-KERNELS = ("candidate_select", "group_score", "sim_filter", "fleet_estimate")
+KERNELS = ("candidate_select", "group_score", "sim_filter", "fleet_estimate", "dense_filter",
+           "candidate_tail")
+TAIL_KS = (8, 32, 100, 128)  # seeded windows' widths
+TAIL_ROWS = 5120  # the compact flagship's first tail
 
 
 def digest(outs) -> str:
@@ -71,7 +87,8 @@ def digest(outs) -> str:
 def timed(fn) -> dict:
     outs = fn()
     return {"ms": [chip_smoke.cuda_ms(fn, REPS) for _ in range(TURNS)],
-            "digest": digest(outs)}
+            "device_ms": chip_smoke.profiled_calls_ms(fn, REPS)[0],
+            "enqueue_ms": chip_smoke.host_enqueue_ms(fn, REPS), "digest": digest(outs)}
 
 
 def time_select(dev, result):
@@ -162,6 +179,74 @@ def time_fleet_estimate(dev, result):
                        f"{args[0].shape[0]} nodes, keywords {sorted(kw)}): {result[label]}")
 
 
+def filter_args(sched, bindings):
+    """The dense filter's arguments over a scheduler's padded batch."""
+    batch = sched._pad(sched.batch_encoder.encode(bindings))
+    t = chip_smoke.batch_from_numpy({n: getattr(batch, n) for n in chip_smoke.SELECT_BATCH},
+                                    sched.device)
+    return ([sched._fleet_dev[n] for n in chip_smoke.FLEET]
+            + [t[n] for n in chip_smoke.SELECT_BATCH] + [None])
+
+
+def time_dense_filter(dev, result):
+    clusters, bindings = chip_smoke.build_flagship(dense=True)
+    sched = ArrayScheduler(clusters, device=dev)
+    args = chip_smoke.dense_kernel_inputs(sched, bindings)[0]
+    bits = sched._plugin_bits
+    B, C = args[7].shape[0], args[0].shape[0]
+    rng = np.random.default_rng(14)
+    mask = torch.from_numpy(rng.random((B, C)) < 0.5).to(dev)
+    answers = torch.from_numpy(rng.integers(-1, 50, (B, C)).astype(np.int32)).to(dev)
+    calls = [("dense flagship", args, None), ("dense flagship, extra_mask", args, mask),
+             ("dense flagship, extra_avail", args[:-1] + [answers], None)]
+    for cell, (c_clusters, c_bindings) in (("config 2", chip_smoke.build_static()),
+                                           ("config 1", chip_smoke.build_dup3())):
+        calls.append((cell, filter_args(ArrayScheduler(c_clusters, device=dev), c_bindings),
+                      None))
+    t_clusters, t_bindings, placed = chip_smoke.build_tiers()
+    t_sched = ArrayScheduler(t_clusters, device=dev)
+    with chip_smoke.captured_launches(("dense_filter",)) as cap:
+        chip_smoke.tier_round(t_sched, t_bindings, placed)
+    (t_args, t_kw), = cap["dense_filter"]
+    calls.append(("tiers_dense round", t_args, t_kw.get("extra_mask")))
+    for cell, a, m in calls:
+        label = f"dense_filter, {cell}"
+        result[label] = timed(lambda a=a, m=m: kernels._dense_filter_launch(
+            *a, plugin_bits=bits, extra_mask=m))
+        chip_smoke.log(f"{label} ({a[7].shape[0]} x {a[0].shape[0]}): {result[label]}")
+    del sched, t_sched, args, calls, mask, answers
+
+
+def time_candidate_tail(dev, result):
+    clusters, bindings = chip_smoke.build_flagship()
+    sched = ArrayScheduler(clusters, device=dev)
+    sel_args, k, t, tails = chip_smoke.flagship_kernel_inputs(sched, bindings)
+    sel = kernels._select_launch(*sel_args, k=k, plugin_bits=sched._plugin_bits)
+    flag = [(chip_smoke.tail_args(sel, t, idx), {"topk": w, "has_agg": h})
+            for idx, w, h in tails]
+    del sel, sched, sel_args
+    t_clusters, t_bindings, placed = chip_smoke.build_tiers(duplicated=False)
+    t_sched = ArrayScheduler(t_clusters, device=dev)
+    with chip_smoke.captured_launches(("tail",)) as cap:
+        chip_smoke.tier_round(t_sched, t_bindings, placed)
+    rng = np.random.default_rng(15)
+    groups = [("compact flagship round (both calls)", flag),
+              ("tiers_compact round", cap["tail"])]
+    for K in TAIL_KS:
+        a = chip_smoke.random_tail_inputs(rng, dev, TAIL_ROWS, K, chip_smoke.N_CLUSTERS)
+        groups.append((f"seeded, {TAIL_ROWS} rows at K = {K}", [(a, {"topk": min(K, 64),
+                                                                      "has_agg": True})]))
+    a = chip_smoke.random_tail_inputs(rng, dev, 6, 128, 1024)
+    groups.append(("seeded, 6 rows at K = 128", [(a, {"topk": 128, "has_agg": True})]))
+    for name, cs in groups:
+        label = f"candidate_tail, {name}"
+        result[label] = timed(lambda cs=cs: [o for a, kw in cs
+                                             for o in kernels._tail_launch(*a, **kw)])
+        chip_smoke.log(f"{label} (rows x K per call "
+                       f"{[tuple(a[0].shape) for a, _ in cs]}): {result[label]}")
+    del t_sched, groups, flag
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", default=",".join(KERNELS),
@@ -177,7 +262,9 @@ def main() -> int:
     build.build_all()
     result = {}
     for name, fn in (("candidate_select", time_select), ("group_score", time_group_score),
-                     ("sim_filter", time_sim_filter), ("fleet_estimate", time_fleet_estimate)):
+                     ("sim_filter", time_sim_filter), ("fleet_estimate", time_fleet_estimate),
+                     ("dense_filter", time_dense_filter),
+                     ("candidate_tail", time_candidate_tail)):
         if name in which:
             fn(dev, result)
     print(json.dumps({"tree": os.getcwd(), "card": chip_smoke.nvidia_smi_line(),

@@ -7,16 +7,18 @@ Imports chip_smoke and karmada_tpu_torch from the current directory, so
 the same script times this tree and an earlier commit unpacked under a
 gitignored directory (`git archive <commit> | tar -x -C build/parent`):
 run it from each tree's root in turns (parent, this, this, parent) in one
-call. It builds the tree's kernels, then times the compact flagship round
-(a control: none of the timed kernels runs there), the dense flagship
-round, whatif and whatif_churn5k, estimator_flagship (the compact
-flagship with member estimators on every cluster) and config3 (chip_smoke's
-builders, seed 0), each round on the host clock around a synchronised
-call, with its split (ArrayScheduler: launch / wait / materialize;
-Simulator: fleet encodes / batch encode / solve / the rest; the estimator
-cells: sweep / merge / the round given the answers), and dense_tail's,
-sim_load's, sim_filter's and fleet_estimate's time in those rounds by CUDA
-events around each wrapper call (its host enqueue included). `--cells`
+call. It builds the tree's kernels, then times the compact flagship round,
+the dense flagship round, whatif and whatif_churn5k, estimator_flagship
+(the compact flagship with member estimators on every cluster), config3,
+tiers_dense and tiers_compact (chip_smoke's builders, seed 0; the tier
+cells' round is launch_tiered + materialize_chunk), each round on the
+host clock around a synchronised call, with its split (ArrayScheduler and
+the tier cells: launch / wait / materialize; Simulator: fleet encodes /
+batch encode / solve / the rest; the estimator cells: sweep / merge / the
+round given the answers), and dense_tail's, sim_load's, sim_filter's,
+fleet_estimate's, dense_filter's and candidate_tail's time in those
+rounds by CUDA events around each wrapper call (its host enqueue
+included). `--cells`
 picks among the cells (default: all). Prints one JSON line: the tree, the
 card's nvidia-smi line, and per cell the round times in seconds, their
 p50, the splits' medians and each kernel's ms and calls a round. Needs
@@ -39,14 +41,16 @@ import chip_smoke  # noqa: E402
 from karmada_tpu_torch import kernels  # noqa: E402
 from karmada_tpu_torch.estimator.client import EstimatorRegistry, MemberEstimators  # noqa: E402
 from karmada_tpu_torch.kernels import build  # noqa: E402
+from karmada_tpu_torch.sched import preemption  # noqa: E402
 from karmada_tpu_torch.sched.core import ArrayScheduler  # noqa: E402
 from karmada_tpu_torch.simulation import engine  # noqa: E402
 from karmada_tpu_torch.simulation.engine import Simulator  # noqa: E402
 
 ROUNDS = {"compact flagship": 30, "dense flagship": 30, "whatif": 20, "whatif_churn5k": 4,
-          "estimator_flagship": 20, "config3": 30}
+          "estimator_flagship": 20, "config3": 30, "tiers_dense": 15, "tiers_compact": 15}
 # the kernels' wrappers, as the rounds call them
-TIMED = ("dense_tail", "sim_load", "sim_filter", "fleet_estimate")
+TIMED = ("dense_tail", "sim_load", "sim_filter", "fleet_estimate", "dense_filter",
+         "candidate_tail")
 
 
 class KernelEvents:
@@ -90,6 +94,27 @@ def sched_rounds(sched, bindings, rounds):
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             sched._materialize_solve(state)
+            t3 = time.perf_counter()
+            times.append(t3 - t0)
+            split.append((t1 - t0, t2 - t1, t3 - t2))
+    return (times, dict(zip(("launch", "wait", "materialize"), np.median(split, 0).tolist())),
+            ev.per_round(rounds))
+
+
+def tier_rounds(sched, bindings, placed, rounds):
+    """A warm round, then `rounds` tiered rounds (launch_tiered, then
+    materialize_chunk) split launch / wait / materialize."""
+    chip_smoke.tier_round(sched, bindings, placed)
+    torch.cuda.synchronize()
+    times, split = [], []
+    with KernelEvents() as ev:
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            state = preemption.launch_tiered(sched, bindings, placed=placed)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            sched.materialize_chunk(state)
             t3 = time.perf_counter()
             times.append(t3 - t0)
             split.append((t1 - t0, t2 - t1, t3 - t2))
@@ -218,6 +243,13 @@ def main() -> int:
                                      ROUNDS[name]))
         est.close()
         del clusters, bindings, est
+    for name, duplicated in (("tiers_dense", True), ("tiers_compact", False)):
+        if name not in which:
+            continue
+        clusters, bindings, placed = chip_smoke.build_tiers(duplicated=duplicated)
+        keep(name, *tier_rounds(ArrayScheduler(clusters, device=dev), bindings, placed,
+                                ROUNDS[name]))
+        del clusters, bindings, placed
     print(json.dumps({"tree": os.getcwd(), "smi": chip_smoke.nvidia_smi_line(),
                       "cells": cells}), flush=True)
     return 0

@@ -1,9 +1,12 @@
 """The plain versions of the two CUDA kernels (`select_plain`,
 `tail_plain`) held against the JAX programs they replace
 (`_candidate_select_kernel`, `_candidate_tail_kernel`, run on the CPU), on
-batches encoded by both packages from the same converted objects. Exact
-equality; the output window is compared after `_sorted_pairs`
-normalisation."""
+batches encoded by both packages from the same converted objects and on
+seeded windows with one edge of the division in every row (K = 8, 100 and
+128). Exact equality; the output window is compared after `_sorted_pairs`
+normalisation, and in its (value desc, column asc) order. Then a model of
+candidate_tail.cu's warp sort (its stages, partner lanes and registers)
+and of its packed keys, which must give a stable sort's order."""
 import numpy as np
 import pytest
 
@@ -17,6 +20,7 @@ from karmada_tpu_torch.convert import batch_from_numpy, from_reference_objects  
 from karmada_tpu_torch.sched import core as tcore  # noqa: E402
 from karmada_tpu_torch.sched.core import ArrayScheduler as TorchScheduler  # noqa: E402
 
+import chip_smoke  # noqa: E402
 from test_torch_scheduler import flagship_mix  # noqa: E402
 
 BATCH_FIELDS = (
@@ -130,6 +134,150 @@ def test_tail_plain_matches_candidate_tail_kernel(has_agg, topk):
     np.testing.assert_array_equal(np.where(gv > 0, gi, -1), np.where(wv > 0, wi, -1))
     # the window itself follows jax.lax.top_k's (value desc, column asc) order
     np.testing.assert_array_equal(_n(got[4]), np.asarray(want[4]))
+
+
+TAIL_OUT = ("result", "unschedulable", "avail_sum", "nnz", "top_idx", "top_val")
+
+
+@pytest.mark.parametrize("case", chip_smoke.TAIL_CASES)
+@pytest.mark.parametrize("K", [8, 100, 128])
+def test_tail_plain_matches_candidate_tail_kernel_cases(K, case):
+    """tail_plain against the reference's _candidate_tail_kernel on seeded
+    windows whose every row holds one edge (chip_smoke.tail_case_inputs,
+    the windows phase 3 holds the kernel to on the card), with Aggregated
+    rows in the dynamic cases; the output window of min(K, topk) columns
+    in the reference's order, topk = K in the "topk = K" case."""
+    rng = np.random.default_rng(K * 31 + chip_smoke.TAIL_CASES.index(case))
+    args = chip_smoke.tail_case_inputs(rng, "cpu", 48, K, 300, case)
+    topk = K if case == "topk = K" else 8
+    want = jcand._candidate_tail_kernel(*(a.numpy() for a in args), topk=topk, narrow=False,
+                                        has_agg=True)
+    got = kernels.tail_plain(*args, topk=topk, has_agg=True)
+    for name, a, b in zip(TAIL_OUT, got, want):
+        np.testing.assert_array_equal(_n(a), np.asarray(b), err_msg=name)
+    result, unsched = _n(got[0]), _n(got[1])
+    feas, prev, replicas = _n(args[0]), _n(args[2]), _n(args[8])
+    if case == "zero static weights":  # the feasible set takes the replicas at weight 1
+        np.testing.assert_array_equal(result.sum(-1)[feas.any(-1)], replicas[feas.any(-1)])
+    elif case == "rem = 0":
+        np.testing.assert_array_equal(result, np.broadcast_to((replicas // K)[:, None],
+                                                              result.shape))
+    elif case == "steady eq":
+        np.testing.assert_array_equal(result, np.where(feas, prev, 0))
+    elif case == "unschedulable":
+        assert unsched.all() and (result == 0).all()
+    elif case == "window ties":  # equal results, taken by column
+        top_val = _n(got[5])
+        assert (top_val[:, 1:] == top_val[:, :-1]).any()
+    assert got[4].shape == (48, min(K, topk))
+
+
+# --------------------------------------------------------------------------
+# a model of candidate_tail.cu's warp sort and packed keys
+# --------------------------------------------------------------------------
+
+LANES, COLS = 32, 4  # candidate_tail.cu: a warp, 4 window columns a lane
+INT64_MAX = 2**63 - 1
+I32_MAX = 2**31 - 1
+
+
+def _warp_sort_model(keys):
+    """candidate_tail.cu's warp_sort step by step: keys[4 * lane + j] in
+    lane `lane`'s register j; each stage of the bitonic network exchanges
+    with lane ^ (d / 4) through a shuffle when the partner distance d is 4
+    or more (the lower position of an ascending pair keeps the smaller
+    key), else swaps registers j and j + d of one lane. Returns the keys by
+    position."""
+    regs = [[keys[COLS * lane + j] for j in range(COLS)] for lane in range(LANES)]
+    k = 2
+    while k <= LANES * COLS:
+        d = k // 2
+        while d > 0:
+            if d >= COLS:
+                new = [row[:] for row in regs]
+                for lane in range(LANES):
+                    for j in range(COLS):
+                        i = COLS * lane + j
+                        o = regs[lane ^ (d // COLS)][j]
+                        take_min = ((i & d) == 0) == ((i & k) == 0)
+                        if take_min == (o < regs[lane][j]):
+                            new[lane][j] = o
+                regs = new
+            else:
+                for lane in range(LANES):
+                    for j in range(COLS):
+                        if j & d:
+                            continue
+                        a, b = regs[lane][j], regs[lane][j + d]
+                        up = ((COLS * lane + j) & k) == 0
+                        if (b < a) if up else (a < b):
+                            regs[lane][j], regs[lane][j + d] = b, a
+            d //= 2
+        k *= 2
+    return [regs[lane][j] for lane in range(LANES) for j in range(COLS)]
+
+
+@pytest.mark.parametrize("K", [1, 8, 100, 127, 128])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_warp_sort_model_gives_stable_ranks(K, seed):
+    """The bonus order's keys (a, b, column), padding (INT64_MAX,
+    INT64_MAX, column) past K, with many duplicates: the network's output
+    is every real column in a stable sort's order (ties by column), the
+    padding last; and the cutoff compare (own key <= the key at position
+    k - 1) marks exactly the columns ranked below k."""
+    rng = np.random.default_rng(seed * 1000 + K)
+    a = rng.choice([-3, 0, 0, 5, INT64_MAX], K)
+    b = rng.choice([-(2**40), -1, 0, 0, 7, INT64_MAX], K)
+    keys = [(int(a[c]), int(b[c]), c) for c in range(K)]
+    keys += [(INT64_MAX, INT64_MAX, c) for c in range(K, LANES * COLS)]
+    got = _warp_sort_model(keys)
+    order = np.lexsort((b, a))  # stable: ties keep column order
+    assert [c for _, _, c in got[:K]] == order.tolist()
+    assert [c for _, _, c in got[K:]] == list(range(K, LANES * COLS))
+    rank = np.empty(K, int)
+    rank[order] = np.arange(K)
+    for k in (1, 2, K // 2, K):
+        if k < 1:
+            continue
+        cut = got[min(k, K) - 1]
+        np.testing.assert_array_equal([keys[c] <= cut for c in range(K)], rank < k)
+
+
+def _agg_key(prior, w, col):
+    """candidate_tail.cu agg_key: prior desc, weight desc, column asc."""
+    return ((0 if prior else 1) << 41) | (((1 << 32) - w) << 7) | col
+
+
+def _window_key(result, col):
+    """candidate_tail.cu's output-window key: result desc, column asc."""
+    return ((I32_MAX - result) << 7) | col
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_warp_sort_model_packed_keys(seed):
+    """The one-word keys of the truncation and the output window over their
+    whole ranges (a weight is a sum of two int32 values, a result an
+    int32), padded with the all-ones word: the network sorts them into
+    the triple order, and each decodes back (agg_key_weight, the window's
+    value and column)."""
+    rng = np.random.default_rng(seed)
+    K = 100
+    w = rng.choice([-(2**32), -(2**31), -1, 0, 0, 3, 3, 2**31 - 1, 2**32 - 2], K)
+    prior = rng.random(K) < 0.3
+    pad = 2**64 - 1
+    keys = [_agg_key(bool(prior[c]), int(w[c]), c) for c in range(K)] + [pad] * (128 - K)
+    assert max(keys[:K]) < 2**42
+    got = _warp_sort_model(keys)
+    order = np.lexsort((-w, ~prior))
+    assert [k & 127 for k in got[:K]] == order.tolist() and got[K:] == [pad] * (128 - K)
+    weight = [(1 << 32) - ((k >> 7) & ((1 << 34) - 1)) for k in got[:K]]
+    assert weight == w[order].tolist()
+    res = rng.choice([-(2**31), -5, 0, 0, 1, 1, 9, I32_MAX], K)
+    keys = [_window_key(int(res[c]), c) for c in range(K)] + [pad] * (128 - K)
+    got = _warp_sort_model(keys)
+    order = np.lexsort((-res.astype(np.int64),))
+    assert [k & 127 for k in got[:K]] == order.tolist()
+    assert [I32_MAX - (k >> 7) for k in got[:K]] == res[order].tolist()
 
 
 # --------------------------------------------------------------------------

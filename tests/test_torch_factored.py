@@ -1,5 +1,18 @@
-"""The factored forms of the port's sim_filter and fleet_estimate held
-against the JAX package.
+"""The factored forms of the port's dense_filter, sim_filter and
+fleet_estimate held against the JAX package.
+
+- dense_filter's tables (the estimate per distinct request with the "row's
+  replicas" sentinel, alive and the taints per toleration table, api_ok
+  transposed) and the per-row apply that reads them (the score, the
+  extra_mask AND, the tie at the column id, the count), the plain mirrors
+  of what csrc/dense_filter.cu builds and reads
+  (`kernels.dense_filter_tables_plain` / `dense_filter_apply_plain`),
+  against the reference's `_filter_kernel_compact` and against
+  dense_filter_plain on seeded inputs: no requested resource, no summary,
+  unknown requests, estimates at and above INT32_MAX, answers present and
+  absent, a prev column listed twice, 3, 5 and 128 columns, every plugin
+  and none; and the launch's marshalling of the tables' scratch on a
+  faked card.
 
 - sim_filter's estimate table (one row per scenario and distinct request,
   with the "row's replicas" sentinel) and its per-row apply, the plain
@@ -29,6 +42,7 @@ from karmada_tpu.api.meta import CPU, MEMORY  # noqa: E402
 from karmada_tpu.api.work import ReplicaRequirements  # noqa: E402
 from karmada_tpu.estimator import client as jclient  # noqa: E402
 from karmada_tpu.ops import assign as jassign  # noqa: E402
+from karmada_tpu.sched import core as jcore  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from karmada_tpu_torch import kernels  # noqa: E402
@@ -43,6 +57,100 @@ from test_torch_estimator import GiB, _members, _node_fleet  # noqa: E402
 I32_MAX = 2**31 - 1
 CPU_DEV = torch.device("cpu")
 T = torch.from_numpy
+
+
+# --------------------------------------------------------------------------
+# dense_filter's tables and their apply
+# --------------------------------------------------------------------------
+
+
+def _dense_case(seed, C, variant):
+    """chip_smoke.random_select_inputs at B = 40 and C columns (no requested
+    resource in request 0, columns without a summary, unknown requests, a
+    prev column listed twice, evictions, tolerations against tainted
+    columns), with a random extra_mask; "int32 edges" makes every estimate
+    reach or pass INT32_MAX or sit just below it (caps near 3 x INT32_MAX
+    over requests of 1 and 3) and drops the answers; "answers" keeps them."""
+    rng = np.random.default_rng(seed)
+    B = 40
+    args = chip_smoke.random_select_inputs(rng, CPU_DEV, B, C)
+    args[8][0] = True  # an unknown request
+    args[2][0] = False  # a column without a summary
+    if variant == "int32 edges":
+        args[1][:] = T(rng.choice(np.array([3 * I32_MAX - 3, 3 * I32_MAX, 3 * I32_MAX + 3,
+                                            I32_MAX, 2**62], np.int64), (C, 4)))
+        args[18][1:] = T(rng.choice(np.array([0, 1, 3], np.int64), (7, 4)))
+        args[18][2] = T(np.array([3, 0, 0, 0], np.int64))
+        args[1][-1, 0] = 3 * I32_MAX - 3  # request 2's answer: INT32_MAX - 1
+        args[2][-1] = True
+        args[-1] = None
+    mask = T(rng.random((B, C)) < 0.7)
+    return args, mask
+
+
+def _ref_dense_filter(args, mask, bits):
+    """The reference's _filter_kernel_compact on the same inputs (seeds as
+    uint64, the [1, 1] sentinels for absent terms)."""
+    a = [x.numpy() for x in args[:-1]]
+    a[17] = a[17].view(np.uint64)
+    extra = np.full((1, 1), -1, np.int32) if args[-1] is None else args[-1].numpy()
+    return jcore._filter_kernel_compact(*a, extra, mask.numpy(), np.zeros((1, 1), np.int32),
+                                        plugin_bits=bits)
+
+
+@pytest.mark.parametrize("variant", ["answers", "int32 edges"])
+@pytest.mark.parametrize("bits", [ALL_PLUGIN_BITS, 0])
+@pytest.mark.parametrize("C", [3, 5, 128])
+def test_dense_filter_tables_match_reference(C, bits, variant):
+    """The tables, then their apply, equal the reference's
+    _filter_kernel_compact and dense_filter_plain, all six outputs."""
+    args, mask = _dense_case(C * 10 + bits % 7, C, variant)
+    tables = kernels.dense_filter_tables_plain(*args[:7], args[10], args[18], plugin_bits=bits)
+    est_u, col_ok, api_t = tables
+    assert est_u.shape == (8, C) and col_ok.shape == (8, C) and api_t.shape == (6, C)
+    got = kernels.dense_filter_apply_plain(
+        *tables, args[7], args[8], args[9], args[11], args[12], args[13], args[14], args[15],
+        args[16], args[17], args[19], args[20], plugin_bits=bits, extra_mask=mask)
+    plain = kernels.dense_filter_plain(*args, plugin_bits=bits, extra_mask=mask)
+    want = _ref_dense_filter(args, mask, bits)
+    for name, g, p, w in zip(chip_smoke.FILTER_OUT, got, plain, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+        assert torch.equal(g, p), name
+    t = est_u.numpy()
+    assert (t[0][args[2].numpy()] == kernels.SIM_EST_REPLICAS).all()  # no requested resource
+    assert (t[:, 0] == 0).all()  # no summary
+    assert (got[2][0] == 0).all()  # an unknown request
+    if variant == "int32 edges":  # the sentinel past INT32_MAX, answers just below it
+        assert (t[1:] == kernels.SIM_EST_REPLICAS).sum() > 0 and (t == I32_MAX - 1).any()
+    prev_idx = args[14].numpy()
+    twice = (prev_idx[:, 0] >= 0) & (prev_idx[:, 0] < C) & (args[15][:, 0] != args[15][:, 1]).numpy()
+    assert twice.any()  # a prev column listed twice: its last entry
+    prev_rep = args[15].numpy()
+    for r in np.flatnonzero(twice):
+        assert got[3][r, prev_idx[r, 0]] == prev_rep[r][prev_idx[r] == prev_idx[r, 0]][-1]
+
+
+def test_dense_filter_launch_marshals_the_tables(fake_card):
+    """The launch passes U and Tt, one scratch for the three tables (est_u
+    [U, C] i32, then col_ok [Tt, C] and api_t [G, C] bytes, back to back),
+    the answers and the mask, then the six outputs: one C entry of 44
+    arguments."""
+    C, B = 64, 5
+    args = chip_smoke.random_select_inputs(np.random.default_rng(3), CPU_DEV, B, C)
+    mask = torch.ones((B, C), dtype=torch.bool)
+    out = kernels._dense_filter_launch(*args, plugin_bits=ALL_PLUGIN_BITS, extra_mask=mask)
+    (name, cargs), = fake_card
+    assert name == "dense_filter_launch" and len(cargs) == 44
+    U, Tt, G = args[18].shape[0], args[10].shape[0], args[6].shape[1]
+    assert cargs[7:11] == (C, 4, 4, G) and cargs[24:32] == (B, 6, 8, 2, U, Tt, ALL_PLUGIN_BITS,
+                                                             True)
+    assert cargs[32] == args[-1].data_ptr() and cargs[33] == mask.data_ptr()
+    est_u, col_ok, api_t = cargs[34:37]
+    assert col_ok - est_u == 4 * U * C and api_t - col_ok == Tt * C
+    assert cargs[37:43] == tuple(t.data_ptr() for t in out)
+    kernels._dense_filter_launch(*args[:-1], None, plugin_bits=0)
+    _, cargs = fake_card[-1]
+    assert cargs[31] is False and cargs[32] is None and cargs[33] is None
 
 
 # --------------------------------------------------------------------------
