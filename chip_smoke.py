@@ -70,7 +70,10 @@ result line otherwise. Phases, each of which raises on failure:
    arguments one round each of whatif and whatif_churn5k passes them,
    with torch.bmm in float64 as sim_load's library call; dense_input_filter
    (the dense-input program's filter, csrc/dense_filter.cu) on seeded
-   inputs at the dense flagship's 10 240 x 5 120 and at 300 x 100, with
+   inputs at the dense flagship's 10 240 x 5 120 (every row distinct, and
+   rows drawn from four requests and toleration rows, not adjacent), at
+   300 x 100 and at 333 x 257 (no multiple of the 32-row group, an odd
+   width), and with its answers and affinity mask off alignment, with
    prev_member drawn apart from any prev count, random evictions,
    tolerations against tainted columns, unknown-request rows and answers
    with -1s, and on the same inputs with the tail's drawn beside them
@@ -79,9 +82,11 @@ result line otherwise. Phases, each of which raises on failure:
    against _schedule_body on the card; mesh_tile_filter (the mesh
    solve's tile filter, csrc/dense_filter.cu) on seeded inputs at the
    dense flagship's 10 240 x 5 120 cut into 2 x 2 and 2 x 3 tiles (the
-   latter padded with a dead column to 5 121, tiles 1 707 wide), prev and
-   evict ids in other tiles and at the sentinel, answers with -1s, a
-   random mask and score, with the terms and without; dense_tail on
+   latter padded with a dead column to 5 121, tiles 1 707 wide) and into
+   2 x 2 tiles shifted by two columns (first columns and term views off
+   a multiple of 4), prev and evict ids in other tiles and at the
+   sentinel, answers with -1s, a random mask and score, with the terms
+   and without; dense_tail on
    both of its routes (the shared-memory one up to 12 288 columns, the
    re-reading one at any width) and without its output window, sim_load
    at R = 4, 9 and 17, and tier_consume and fleet_estimate at R = 17;
@@ -124,7 +129,7 @@ result line otherwise. Phases, each of which raises on failure:
    BASELINE config 4 (bench.py build_spread: region spread over 5 000
    clusters x 5 000 bindings) and config 4b (build_spread_skewed); config
    4's mix with affinities of 64 clusters (the window cell: solved in the
-   candidate window); and the drain cell (a synthetic cell built to cross
+   candidate window; 8 timed rounds, the others 20); and the drain cell (a synthetic cell built to cross
    combo_select's 4 096-distinct-row gate: config 4's fleet, 5 000
    bindings under one region-spread policy, each evicting a cluster in
    each of its own random half of the regions); every spread cell with
@@ -302,7 +307,8 @@ N_CLUSTERS = 5000
 N_BINDINGS = 10000
 TIMED_ROUNDS = 60  # p90 then has 6 samples beyond it (110 until the simulation cells)
 VARIANT_ROUNDS = 20  # timed rounds of the whole-fleet Duplicated variant
-SPREAD_ROUNDS = 20  # timed rounds of each spread cell
+SPREAD_ROUNDS = 20  # timed rounds of each spread cell but the window cell
+WINDOW_ROUNDS = 8  # the window cell's (about 4.7 s a round, host-bound: the run's time limit)
 SPREAD_BINDINGS = 5000  # BASELINE config 4: 5k clusters x 5k bindings
 WINDOW_BINDINGS = 1000
 WINDOW_NAMES = 64  # clusters named by each window-cell affinity
@@ -359,7 +365,10 @@ GRAFT_ROUNDS = 20  # timed calls of the dense-input program at the flagship
 SHIM_ROUNDS = 5  # timed /v1/scheduleBatch rounds of shim_flagship
 SHIM_SAMPLE = 2048  # shim_flagship rows held against the cpu round
 NARROW_INPUT_SHAPE = (300, 100)  # the dense-input filter's narrow check (C < 128)
+ODD_INPUT_SHAPE = (333, 257)  # rows no multiple of its 32-row group, an odd width
+INPUT_REPEATS = 4  # distinct rows of its repeated-row check (the flagship's requests)
 MESH_GRIDS = ((2, 2), (2, 3))  # the tile filter's random cuts; 2 x 3 pads C to a multiple of 3
+MESH_SHIFT = 2  # columns the shifted 2 x 2 cut moves its tiles (first columns off a multiple of 4)
 MESH_ROUNDS = 10  # timed rounds of mesh_flagship
 MESH_SAMPLE = 2000  # mesh_flagship rows held against the cpu mesh round
 DEVICE = "cuda"
@@ -2305,9 +2314,18 @@ def check_tier_kernels(dev, results):
     for cell, calls in captured.items():
         ms, plain, b, by = timing[(cell, "tier_estimate")] = tier_timing(
             "tier_estimate", calls["tier_estimate"])
+
+        def estimates(cs=calls["tier_estimate"]):
+            return run_calls("tier_estimate", cs, fresh_out=False)
+        est_dev, _ = profiled_calls_ms(estimates, TIER_TIMING_REPS)
+        est_host = host_enqueue_ms(estimates, TIER_TIMING_REPS)
+        timing[(cell, "tier_estimate device")] = est_dev
         timing[cell], text = consume_timing(calls["tier_consume"], dev)
+        mode = "window" if CONSUME_MODES[cell][0] == "tier_consume_window" else "rows"
         log(f"timing ({cell} round, the main path's arguments, per round): tier_estimate "
-            f"{ms:.4f} ms (plain {plain:.4f}, bound {b:.4f} {by}); {text}")
+            f"({mode} mode, {len(calls['tier_estimate'])} launches) {ms:.4f} ms, device "
+            f"{est_dev:.4f} under the profiler, host enqueue {est_host:.4f} (plain {plain:.4f}, "
+            f"bound {b:.4f} {by}); {text}")
     del captured
     torch.cuda.empty_cache()
     csrc = "karmada_tpu_torch/kernels/csrc/tiers.cu"
@@ -2315,7 +2333,7 @@ def check_tier_kernels(dev, results):
     results["tier_estimate"] = dict(
         source=csrc, replaces="karmada_tpu/sched/preemption.py:125",
         max_abs_err=errs["tier_estimate"], ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-        library_ms=None)
+        library_ms=None, device_ms=timing[("tiers_dense", "tier_estimate device")])
     for cell, (name, replaces) in CONSUME_MODES.items():
         results[name] = dict(source=csrc, replaces=replaces, max_abs_err=errs[name],
                              **timing[cell])
@@ -4214,7 +4232,7 @@ def run_sim_cells(dev, smi, path_launches):
 # --------------------------------------------------------------------------
 
 
-def random_dense_input_args(seed, dev, B, C):
+def random_dense_input_args(seed, dev, B, C, distinct=None):
     """Seeded inputs of the dense-input filter, in FILTER_ARGS's order:
     taints of every effect and tolerations over one small key / value
     alphabet (some columns tolerated, some not, padded slots), unknown
@@ -4222,7 +4240,10 @@ def random_dense_input_args(seed, dev, B, C):
     capacity, and eviction, affinity and previous-membership masks drawn
     independently of each other (prev_member is no function of any prev
     count), with answers that are -1 in about half the cells. The [B, C]
-    tensors come from a seeded generator on the card."""
+    tensors come from a seeded generator on the card. With `distinct` =
+    n, each row's request, toleration row and gvk are those of one of n
+    rows picked at random (so equal rows are seldom adjacent), as the
+    flagship's four requests repeat; else nearly every row is distinct."""
     rng = np.random.default_rng(seed)
     R, T, G, K = 4, 4, 6, 6
     capacity = rng.integers(-10, 2_000_000, (C, R)).astype(np.int64)
@@ -4248,6 +4269,10 @@ def random_dense_input_args(seed, dev, B, C):
         "tol_effect": rng.integers(0, 4, (B, K)).astype(np.int32),
         "tol_op": tol_op,
     }, dev)
+    if distinct is not None:
+        pick = torch.from_numpy(rng.integers(0, distinct, B)).to(dev)
+        for n in ("request", "gvk", "tol_key", "tol_value", "tol_effect", "tol_op"):
+            host[n] = host[n][pick].contiguous()
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
 
@@ -4296,30 +4321,64 @@ def random_schedule_args(seed, dev, B, C):
     return [a[n] for n in SCHEDULE_ARGS]
 
 
+def off_alignment(t):
+    """The same values in a contiguous tensor whose first element is one
+    element past an allocation's start (so off any 8-byte boundary)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def check_dense_input_filter(dev, results, B, C):
     """Phase 3 for the dense-input filter kernel: against its plain version
-    on seeded inputs at the dense flagship shape (B x C) and at a narrow
-    shape (C < 128), then the whole program on those inputs with the
-    tail's beside them, _schedule_kernel (the kernel, then dense_tail over
-    every row) against _schedule_body on the card. Its time on the main
-    path's arguments comes with the graft_flagship cell."""
-    err = 0
-    for rb, rc in ((B, C), NARROW_INPUT_SHAPE):
-        p = random_schedule_args(40 + rc, dev, rb, rc)
-        a = [p[SCHEDULE_ARGS.index(n)] for n in FILTER_ARGS]
-        err = max(err, compare(f"dense_input_filter[random,{rb}x{rc}]",
+    on seeded inputs at the dense flagship shape (B x C; every row
+    distinct, then rows drawn from INPUT_REPEATS requests and toleration
+    rows), at a narrow shape (C < 128), at ODD_INPUT_SHAPE and with the
+    answers and affinity mask off alignment (the scalar path), then the
+    whole program on the first three with the tail's inputs beside them,
+    _schedule_kernel (the kernel, then dense_tail over every row) against
+    _schedule_body on the card. The flagship-shape kernel is timed (CUDA
+    events, device time); its time on the main path's arguments comes with
+    the graft_flagship cell."""
+    err, timed = 0, []
+    for rb, rc, distinct in ((B, C, None), (B, C, INPUT_REPEATS), NARROW_INPUT_SHAPE + (None,),
+                             ODD_INPUT_SHAPE + (None,)):
+        what = "every row distinct" if distinct is None else f"{distinct} distinct rows"
+        if distinct is None:
+            p = random_schedule_args(40 + rc, dev, rb, rc)
+            a = [p[SCHEDULE_ARGS.index(n)] for n in FILTER_ARGS]
+        else:
+            p, a = None, random_dense_input_args(40 + rc, dev, rb, rc, distinct=distinct)
+        err = max(err, compare(f"dense_input_filter[random,{rb}x{rc}, {what}]",
                                kernels._dense_input_filter_launch(*a),
                                kernels.dense_input_filter_plain(*a), DENSE_INPUT_OUT))
-        compare(f"_schedule_kernel[random,{rb}x{rc}, _schedule_body on the card]",
-                _schedule_kernel(*p), _schedule_body(*p), GRAFT_OUT)
+        if (rb, rc) == (B, C):
+            ms = cuda_ms(lambda: kernels._dense_input_filter_launch(*a), 10)
+            dev_ms, _ = profiled_calls_ms(lambda: kernels._dense_input_filter_launch(*a), 10)
+            b, by = dense_input_filter_bound(a, kernels._dense_input_filter_launch(*a))
+            timed.append(f"{what}: {ms:.4f} ms, device {dev_ms:.4f} (bound {b:.4f} {by})")
+        if distinct is None:
+            compare(f"_schedule_kernel[random,{rb}x{rc}, _schedule_body on the card]",
+                    _schedule_kernel(*p), _schedule_body(*p), GRAFT_OUT)
+        if (rb, rc) == ODD_INPUT_SHAPE:
+            rc4 = rc + 3  # a multiple of 4: only the bases' alignment takes the scalar path
+            a = random_dense_input_args(43 + rc, dev, rb, rc4)
+            for k in (FILTER_ARGS.index("affinity_ok"), FILTER_ARGS.index("extra_avail")):
+                a[k] = off_alignment(a[k])
+            err = max(err, compare(f"dense_input_filter[random,{rb}x{rc4}, off alignment]",
+                                   kernels._dense_input_filter_launch(*a),
+                                   kernels.dense_input_filter_plain(*a), DENSE_INPUT_OUT))
         del a, p
     results["dense_input_filter"] = dict(
         source="karmada_tpu_torch/kernels/csrc/dense_filter.cu",
         replaces="karmada_tpu/sched/core.py:320", max_abs_err=err, ms=None, plain_ms=None,
         bound_ms=None, bound_by=None, library_ms=None)
-    log(f"random inputs ({B}x{C} and {NARROW_INPUT_SHAPE[0]}x{NARROW_INPUT_SHAPE[1]}): "
-        "dense_input_filter equals its plain version exactly, and _schedule_kernel equals "
-        "_schedule_body in all six outputs")
+    log(f"random inputs ({B}x{C} every row distinct and with {INPUT_REPEATS} distinct rows, "
+        f"{NARROW_INPUT_SHAPE[0]}x{NARROW_INPUT_SHAPE[1]}, {ODD_INPUT_SHAPE[0]}x"
+        f"{ODD_INPUT_SHAPE[1]}, off alignment): dense_input_filter equals its plain version "
+        f"exactly, and _schedule_kernel equals _schedule_body in all six outputs; at "
+        f"{B}x{C}: {'; '.join(timed)}")
 
 
 def expect_launches(label, launches, expect):
@@ -4458,6 +4517,7 @@ def run_graft_flagship(dev, smi, path_launches, results, sched, bindings):
     ab_time(f"dense_tail, graft_flagship program's tail ({B} x {C})", graft_ab, 10)
     del ta, new_out
     k_ms = cuda_ms(lambda: kernels._dense_input_filter_launch(*fa), 10)
+    k_dev, _ = profiled_calls_ms(lambda: kernels._dense_input_filter_launch(*fa), 10)
     k_plain = cuda_ms(lambda: kernels.dense_input_filter_plain(*fa), 1)
     fb, fb_by = dense_input_filter_bound(fa, [out[0], out[1], out[5]])
     tb, tb_by = dense_tail_bound([out[0]], [torch.arange(B, device=dev)],
@@ -4465,13 +4525,14 @@ def run_graft_flagship(dev, smi, path_launches, results, sched, bindings):
                                  [[out[2], out[3], out[4]]])
     r = results["dense_input_filter"]
     r.update(max_abs_err=max(r["max_abs_err"], err), ms=k_ms, plain_ms=k_plain, bound_ms=fb,
-             bound_by=fb_by)
+             bound_by=fb_by, device_ms=k_dev)
     log(f"graft_flagship ({B}x{C}) on {smi}: dense views built and uploaded in {prep_s:.2f} s "
         f"(args {nbytes(args) / 1e9:.2f} GB); program {pct(total)} over {GRAFT_ROUNDS} calls "
         f"(filter {pct(filt_ms)}, tail {pct(tail_ms)}); _schedule_body on the card "
         f"{body_ms:.3f} ms; launches {launches}; equal to _schedule_body, to B3's feasible/"
         f"score/avail and to B4's result on its {n_tail} tail rows; dense_input_filter "
-        f"{k_ms:.3f} ms (plain {k_plain:.3f}, bound {fb:.4f} {fb_by}); the tail over every row "
+        f"{k_ms:.4f} ms, device {k_dev:.4f} (plain {k_plain:.3f}, bound {fb:.4f} {fb_by}); the "
+        f"tail over every row "
         f"bound {tb:.4f} {tb_by}; {int(out[2].sum())} replicas placed")
 
 
@@ -4604,18 +4665,22 @@ def mesh_of(dev, shape) -> Mesh:
     return Mesh(grid.reshape(shape))
 
 
-def random_tile_inputs(seed, dev, B, C, grid):
+def random_tile_inputs(seed, dev, B, C, grid, shift=0):
     """Seeded full-width filter inputs (random_select_inputs's: tie-heavy,
     prev / evict ids anywhere in [-2, C + 3) with the sentinel C and a
     column listed twice, answers with -1s) at B x C, the fleet padded with
     dead columns to a multiple of the clusters axis Cp (the 2 x 3 cut's
     tiles are then no multiple of 32 wide), plus a random mask and score;
     then every (row group, column shard) tile's mesh_tile_filter
-    arguments, the terms as column views of their row-group blocks."""
+    arguments, the terms as column views of their row-group blocks. A
+    `shift` moves every tile `shift` columns right (the fleet padded by as
+    many more dead columns; the first `shift` columns in no tile), so the
+    tiles' first columns and term views lie off a multiple of 4 where the
+    tile widths do not."""
     rng = np.random.default_rng(seed)
     a = dict(zip(FLEET + SELECT_BATCH + ("extra_avail",), random_select_inputs(rng, dev, B, C)))
     mb, mc = grid
-    Cp = -(-C // mc) * mc
+    Cp = -(-C // mc) * mc + shift
     if Cp > C:  # dead pad clusters: every fleet field 0 (alive False)
         pad = Cp - C
         for n in FLEET:
@@ -4626,18 +4691,18 @@ def random_tile_inputs(seed, dev, B, C, grid):
     g.manual_seed(seed)
     a["extra_mask"] = torch.rand((B, Cp), device=dev, generator=g) < 0.85
     a["extra_score"] = torch.randint(-5, 60, (B, Cp), device=dev, generator=g, dtype=torch.int32)
-    Bl, Cl = B // mb, Cp // mc
+    Bl, Cl = B // mb, (Cp - shift) // mc
     tiles = []
     for r in range(mb):
         rows = slice(r * Bl, (r + 1) * Bl)
         for j in range(mc):
-            cols = slice(j * Cl, (j + 1) * Cl)
+            cols = slice(shift + j * Cl, shift + (j + 1) * Cl)
             args = [a[n][cols] for n in FLEET] + [
                 a[n] if n in ("tol_tables", "req_unique") else
                 a[n][:, cols].contiguous() if n == "aff_masks" else a[n][rows]
                 for n in SELECT_BATCH
             ] + [a[n][rows, cols] for n in ("extra_avail", "extra_mask", "extra_score")]
-            tiles.append((args, {"col0": j * Cl, "plugin_bits": ALL_PLUGIN_BITS}))
+            tiles.append((args, {"col0": shift + j * Cl, "plugin_bits": ALL_PLUGIN_BITS}))
     return tiles
 
 
@@ -4656,29 +4721,68 @@ def tile_filter_bound(calls, outs):
 
 def check_mesh_tile_filter(dev, results, B, C):
     """Phase 3 for the mesh tile filter: seeded inputs at the dense
-    flagship's B x C cut into each of MESH_GRIDS, every tile against its
-    plain version exactly, with all three terms and with none. Its time on
-    the main path's own arguments comes with the mesh_flagship cell."""
+    flagship's B x C cut into each of MESH_GRIDS and into 2 x 2 tiles
+    shifted by MESH_SHIFT columns (the scalar path at widths that are
+    multiples of 4), every tile against its plain version exactly, with all
+    three terms and with none. Its time on the main path's own arguments
+    comes with the mesh_flagship cell."""
     err, seen = 0, []
-    for grid in MESH_GRIDS:
-        tiles = random_tile_inputs(70 + sum(grid), dev, B, C, grid)
+    for grid, shift in [(g, 0) for g in MESH_GRIDS] + [((2, 2), MESH_SHIFT)]:
+        tiles = random_tile_inputs(70 + sum(grid) + shift, dev, B, C, grid, shift=shift)
         for k, (args, kw) in enumerate(tiles):
             for terms in (True, False):
                 a = args if terms else args[:-3] + [None, None, None]
-                err = max(err, compare(f"mesh_tile_filter[random {grid}, tile {k}, terms {terms}]",
+                err = max(err, compare(f"mesh_tile_filter[random {grid}, shift {shift}, tile {k}, "
+                                       f"terms {terms}]",
                                        kernels._mesh_tile_filter_launch(*a, **kw),
                                        kernels.mesh_tile_filter_plain(*a, **kw), FILTER_OUT))
         k_ms = cuda_ms(lambda: [kernels._mesh_tile_filter_launch(*a, **kw) for a, kw in tiles], 5)
-        seen.append(f"{grid} tiles {tiles[0][0][0].shape[0]} wide: one pass {k_ms:.3f} ms")
+        seen.append(f"{grid} tiles {tiles[0][0][0].shape[0]} wide, first columns "
+                    f"{[kw['col0'] for _, kw in tiles[:grid[1]]]}: one pass {k_ms:.4f} ms")
         del tiles
     results["mesh_tile_filter"] = dict(
         source="karmada_tpu_torch/kernels/csrc/dense_filter.cu",
         replaces="karmada_tpu/parallel/mesh.py:156", max_abs_err=err, ms=None, plain_ms=None,
         bound_ms=None, bound_by=None, library_ms=None)
-    log(f"random inputs ({B}x{C} cut into {MESH_GRIDS}, prev / evict ids in other tiles and at "
+    log(f"random inputs ({B}x{C} cut into {MESH_GRIDS}, and 2 x 2 shifted by {MESH_SHIFT}, "
+        f"prev / evict ids in other tiles and at "
         f"the sentinel, answers with -1s, a random mask and score): every mesh_tile_filter "
         f"tile equals its plain version exactly, with the terms and without; timing with the "
         f"terms: {'; '.join(seen)}")
+
+
+def with_tile_terms(calls, seed):
+    """Captured tile filter calls, each with seeded answers (-1s among
+    them), mask and score as column views of [B_l, Cp] row blocks at the
+    tile's first column, as the mesh kernel passes its terms (Cp the
+    padded width the tiles cut: the last tile's end)."""
+    Cp = max(kw["col0"] + a[0].shape[0] for a, kw in calls)
+    g = torch.Generator(device=calls[0][0][0].device)
+    g.manual_seed(seed)
+    out = []
+    for a, kw in calls:
+        B, C, c0 = a[7].shape[0], a[0].shape[0], kw["col0"]
+        dev = a[0].device
+
+        def block(lo, hi, dtype):
+            return torch.randint(lo, hi, (B, Cp), device=dev, generator=g,
+                                 dtype=dtype)[:, c0:c0 + C]
+        mask = torch.rand((B, Cp), device=dev, generator=g)[:, c0:c0 + C] < 0.85
+        out.append((a[:-3] + [block(-1, 40, torch.int32), mask, block(-5, 60, torch.int32)],
+                    kw))
+    return out
+
+
+def check_captured_tiles(label, calls, seed):
+    """Every captured tile call, as captured and with seeded terms, against
+    the plain version; returns the largest difference."""
+    err = 0
+    for terms, cs in (("", calls), (", seeded terms", with_tile_terms(calls, seed))):
+        for k, (a, kw) in enumerate(cs):
+            err = max(err, compare(f"mesh_tile_filter[captured {label} tile {k}{terms}]",
+                                   kernels._mesh_tile_filter_launch(*a, **kw),
+                                   kernels.mesh_tile_filter_plain(*a, **kw), FILTER_OUT))
+    return err
 
 
 @contextlib.contextmanager
@@ -4844,12 +4948,10 @@ def run_mesh_cells(dev, smi, path_launches, results, clusters, bindings, card_de
         sched._mesh_solver()(batch)
     torch.cuda.synchronize()
     calls = cap["mesh_tile_filter"]
-    err = 0
-    for k, (a, kw) in enumerate(calls):
-        err = max(err, compare(f"mesh_tile_filter[captured mesh_flagship tile {k}]",
-                               kernels._mesh_tile_filter_launch(*a, **kw),
-                               kernels.mesh_tile_filter_plain(*a, **kw), FILTER_OUT))
+    err = check_captured_tiles("mesh_flagship", calls, 91)
     k_ms = cuda_ms(lambda: [kernels._mesh_tile_filter_launch(*a, **kw) for a, kw in calls], 10)
+    k_dev, k_by = profiled_calls_ms(
+        lambda: [kernels._mesh_tile_filter_launch(*a, **kw) for a, kw in calls], 10)
     k_plain = cuda_ms(lambda: [kernels.mesh_tile_filter_plain(*a, **kw) for a, kw in calls], 1)
     outs = [kernels._mesh_tile_filter_launch(*a, **kw) for a, kw in calls]
     tb, tb_by = tile_filter_bound(calls, outs)
@@ -4861,18 +4963,33 @@ def run_mesh_cells(dev, smi, path_launches, results, clusters, bindings, card_de
                                  [[one[2], one[3], one[4], one[7], one[8], one[9]]])
     r = results["mesh_tile_filter"]
     r.update(max_abs_err=max(r["max_abs_err"], err), ms=k_ms, plain_ms=k_plain, bound_ms=tb,
-             bound_by=tb_by)
+             bound_by=tb_by, device_ms=k_dev)
     log(f"mesh_tile_filter on one mesh_flagship round's {len(calls)} tiles (captured, "
-        f"{calls[0][0][7].shape[0]} x {calls[0][0][0].shape[0]} each): equal to the plain version; "
-        f"{k_ms:.3f} ms for the round's tiles (plain {k_plain:.3f}, bound {tb:.4f} {tb_by}); "
+        f"{calls[0][0][7].shape[0]} x {calls[0][0][0].shape[0]} each): equal to the plain version, "
+        f"as captured and with seeded terms; {k_ms:.4f} ms for the round's tiles, device "
+        f"{k_dev:.4f} ({_events_text(k_by)}) (plain {k_plain:.3f}, bound {tb:.4f} {tb_by}); "
         f"B15's bound per round: tiles {tb:.4f} + gathers {gather_b:.4f} (bytes) + tails "
         f"{tail_b:.4f} = {tb + gather_b + tail_b:.4f} ms")
     del calls, cap, outs, one
     gc.collect()
     torch.cuda.empty_cache()
-    launches, _, _ = mesh_cell("mesh_flagship 2x3 (ragged)", dev, smi, mesh_of(dev, (2, 3)),
-                               clusters, bindings, card_decisions, 1)
+    launches, sched, batch = mesh_cell("mesh_flagship 2x3 (ragged)", dev, smi,
+                                       mesh_of(dev, (2, 3)), clusters, bindings, card_decisions, 1)
     add_launches(path_launches, launches, ("mesh_tile_filter", "dense_tail"))
+    with captured_launches(["mesh_tile_filter"]) as cap:
+        sched._mesh_solver()(batch)
+    torch.cuda.synchronize()
+    calls = cap["mesh_tile_filter"]
+    err = check_captured_tiles("2x3", calls, 92)
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    k_ms = cuda_ms(lambda: [kernels._mesh_tile_filter_launch(*a, **kw) for a, kw in calls], 10)
+    k_dev, _ = profiled_calls_ms(
+        lambda: [kernels._mesh_tile_filter_launch(*a, **kw) for a, kw in calls], 10)
+    log(f"mesh_tile_filter on the 2 x 3 round's {len(calls)} tiles (captured, "
+        f"{calls[0][0][7].shape[0]} x {calls[0][0][0].shape[0]} each, first columns "
+        f"{[kw['col0'] for _, kw in calls[:3]]}): equal to the plain version, as captured and "
+        f"with seeded terms; {k_ms:.4f} ms for the round's tiles, device {k_dev:.4f}")
+    del calls, cap, sched, batch
     n = torch.cuda.device_count()
     if n >= 2:
         launches, _, _ = mesh_cell(f"mesh_flagship over {n} cards", dev, smi, make_mesh(),
@@ -5031,8 +5148,9 @@ def main(argv=None) -> int:
     for cell, build_cell, expect in SPREAD_CELLS:
         clusters_s, bindings_s = build_cell()
         sched_s = ArrayScheduler(clusters_s, device=dev)
-        decisions, launches, times = drive(f"{cell} (spread)", sched_s, bindings_s,
-                                           SPREAD_ROUNDS, expect, smi)
+        decisions, launches, times = drive(
+            f"{cell} (spread)", sched_s, bindings_s,
+            WINDOW_ROUNDS if cell == "window" else SPREAD_ROUNDS, expect, smi)
         for n in ("group_score", "packed_selection", "spread_tail", "combo_select"):
             path_launches[n] = path_launches.get(n, 0) + launches[n]
         round_breakdown(cell, sched_s, bindings_s, None, float(np.percentile(times, 50)))

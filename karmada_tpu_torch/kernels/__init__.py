@@ -97,7 +97,11 @@ filter below, then `dense_tail` over every row):
   filter and estimate over fully dense row inputs (tolerations [B, K],
   affinity / eviction / previous-membership masks [B, C], request
   [B, R]) with the answer matrix min-merged, every in-tree plugin on;
-  the plain version is `dense_input_filter_plain`.
+  the kernel factors each group of DENSE_INPUT_GROUP rows itself (the
+  estimate per distinct request, the column-ok per distinct toleration
+  row and gvk, in shared memory, kept over the groups a block walks;
+  their plain mirror per group `dense_input_filter_groups_plain`); the
+  plain version is `dense_input_filter_plain`.
 
 The mesh solve (parallel/mesh.py `MeshScheduleKernel`: the tile filter
 below on every (row group, column shard) tile, the tiles gathered along
@@ -106,7 +110,9 @@ the cluster axis, then `dense_tail` over each row group's full rows):
   filter and estimate over one [B_l, C_l] tile whose first global column
   is col0 (prev / evict ids global, the tie at the global column), with
   the answers, mask and score read in place through their row strides;
-  the plain version is `mesh_tile_filter_plain`.
+  dense_filter's tables over the tile's fleet slice, then its tiled pass
+  (`dense_filter_apply_plain` with `col0` and `extra_score`); the plain
+  version is `mesh_tile_filter_plain`.
 
 The wide routes, kernels of their own with their own launch counts:
 `candidate_select` past MAX_SELECT_SMEM (`candidate_select_wide`, the same
@@ -202,6 +208,9 @@ TAIL_ROUTES = {"auto": 0, "reread": 1}
 # sim_filter's estimate table marks "the row's replicas" with this value
 # (dense_filter.cu kEstReplicas); its other entries are answers >= 0
 SIM_EST_REPLICAS = -1
+# rows the dense-input filter kernel factors together (dense_filter.cu
+# kInputRows: the bits of one 32-bit mask)
+DENSE_INPUT_GROUP = 32
 
 
 # --------------------------------------------------------------------------
@@ -323,17 +332,21 @@ def dense_filter_tables_plain(
 def dense_filter_apply_plain(
     est_u, col_ok, api_t, replicas, unknown_request, gvk, tol_idx, aff_masks, aff_idx,
     prev_idx, prev_rep, evict_idx, seeds, req_idx, extra_avail, *, plugin_bits: int,
-    extra_mask=None,
+    extra_mask=None, col0: int = 0, extra_score=None,
 ):
     """Plain mirror of the dense-filter kernel's main pass over the tables
     of `dense_filter_tables_plain`: each row's col_ok row, AND its api_t row
     (none past G), affinity row, eviction list and `extra_mask` as the
     plugins say; the score 100 on a prev column with the locality plugin
-    on; the estimate row with the row's clamps (sim_estimate_apply_plain);
-    the tie at the column id; the feasible count. Returns dense_filter's
-    six outputs."""
+    on, plus `extra_score` (wrapping int32); the estimate row with the
+    row's clamps (sim_estimate_apply_plain); the tie at the column id; the
+    feasible count. Returns dense_filter's six outputs. A mesh tile (the
+    tile filter's mode) passes its first global column `col0`: the prev /
+    evict ids are global (those outside [col0, col0 + C) drop) and the tie
+    is at col0 + c; the terms may be column views."""
     G, C = api_t.shape
-    prev_member, prev_replicas, eviction_ok = core.sparse_rows(prev_idx, prev_rep, evict_idx, C)
+    prev_member, prev_replicas, eviction_ok = core.sparse_rows(
+        prev_idx.long() - col0, prev_rep, evict_idx.long() - col0, C)
     feasible = col_ok[tol_idx.long()]
     if plugin_bits & BIT_API:
         api = (api_t[gvk.clamp(0, G - 1).long()] & (gvk < G)[:, None] if G
@@ -346,9 +359,11 @@ def dense_filter_apply_plain(
     if extra_mask is not None:
         feasible = feasible & extra_mask
     score = torch.where(prev_member & bool(plugin_bits & BIT_LOCALITY), 100, 0).to(I32)
+    if extra_score is not None:
+        score = score + extra_score
     avail = sim_estimate_apply_plain(est_u[None], req_idx, replicas, unknown_request,
                                      extra_avail)[0]
-    tie = core.tie_at(seeds, torch.arange(C, device=est_u.device)[None, :])
+    tie = core.tie_at(seeds, col0 + torch.arange(C, device=est_u.device)[None, :])
     return feasible, score, avail, prev_replicas, tie, feasible.sum(-1).to(I32)
 
 
@@ -726,6 +741,61 @@ def dense_input_filter_plain(
     )
     avail = torch.where(extra_avail >= 0, torch.minimum(avail, extra_avail), avail)
     return feasible, score, avail
+
+
+def _first_rows(rows):
+    """(each distinct row's first index, each row's index among the
+    distinct rows), the distinct rows in order of first appearance: the
+    representatives and table slots of a dense-input group."""
+    first, slot, seen = [], [], {}
+    for i, row in enumerate(map(tuple, rows.tolist())):
+        if row not in seen:
+            seen[row] = len(first)
+            first.append(i)
+        slot.append(seen[row])
+    dev = rows.device
+    return (torch.tensor(first, dtype=torch.long, device=dev),
+            torch.tensor(slot, dtype=I32, device=dev))
+
+
+def dense_input_filter_groups_plain(
+    alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
+    replicas, request, unknown_request, gvk, tol_key, tol_value, tol_effect, tol_op,
+    affinity_ok, eviction_ok, prev_member, extra_avail,
+):
+    """Plain mirror of what the dense-input filter kernel builds and reads
+    (every in-tree plugin on): per group of DENSE_INPUT_GROUP rows, the
+    representatives (each row's first equal
+    request row, and its first equal toleration row with the same gvk),
+    the estimate table of the distinct requests (est_u with the
+    SIM_EST_REPLICAS sentinel, `dense_filter_tables_plain`'s) and the
+    column-ok table of the distinct (toleration row, gvk) pairs (alive,
+    api_ok at the gvk, every NoSchedule / NoExecute taint tolerated), then
+    per row its two table rows, its affinity and eviction masks, the score
+    100 on a previous member, and the row's clamps with the answers'
+    min-merge (sim_estimate_apply_plain). Returns dense_input_filter's
+    three outputs."""
+    B, K = tol_key.shape
+    G = api_ok.shape[1]
+    tol = torch.stack([tol_key, tol_value, tol_effect, tol_op], dim=1)  # [B, 4, K]
+    tol_rows = torch.cat([tol.reshape(B, 4 * K), gvk[:, None]], dim=1)  # the gvk last
+    outs = []
+    for r0 in range(0, B, DENSE_INPUT_GROUP):
+        rows = slice(r0, min(r0 + DENSE_INPUT_GROUP, B))
+        req_first, req_slot = _first_rows(request[rows])
+        tol_first, tol_slot = _first_rows(tol_rows[rows])
+        est_u, col_ok, api_t = dense_filter_tables_plain(
+            alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
+            tol[rows][tol_first], request[rows][req_first], plugin_bits=ALL_PLUGIN_BITS)
+        g = gvk[rows][tol_first]
+        api = (api_t[g.clamp(0, G - 1).long()] & (g < G)[:, None] if G
+               else torch.zeros_like(col_ok))
+        feasible = (col_ok & api)[tol_slot.long()] & affinity_ok[rows] & eviction_ok[rows]
+        score = torch.where(prev_member[rows], 100, 0).to(I32)
+        avail = sim_estimate_apply_plain(est_u[None], req_slot, replicas[rows],
+                                         unknown_request[rows], extra_avail[rows])[0]
+        outs.append((feasible, score, avail))
+    return tuple(torch.cat(x) for x in zip(*outs))
 
 
 def mesh_tile_filter_plain(
@@ -1545,7 +1615,7 @@ _SCATTER_ROWS_ARGTYPES = [_VP] * 4 + [_CI, _VP, _CI, _VP]
 _SIM_FILTER_ARGTYPES = [_VP] * 7 + [_CI] * 5 + [_VP] * 14 + [_CI] * 8 + [_VP] * 10
 _DENSE_INPUT_FILTER_ARGTYPES = ([_VP] * 7 + [_CI] * 4 + [_VP] * 8 + [_CI] + [_VP] * 4
                                 + [_CI] * 2 + [_VP] * 4)
-_MESH_TILE_FILTER_ARGTYPES = _FILTER_HEAD + [_CI] * 6 + [_VP, _CL] * 3 + [_VP] * 7
+_MESH_TILE_FILTER_ARGTYPES = _FILTER_HEAD + [_CI] * 8 + [_VP, _CL] * 3 + [_VP] * 10
 _CONSUME_ARGTYPES = ([_VP, _CI, _CI] + [_VP] * 4 + [_CI, _CI, _VP, _CI] + [_VP] * 2
                      + [ctypes.c_longlong, _VP])
 _DENSE_TAIL_ARGTYPES = [_VP] * 4 + [_CI, _VP, _CI] + [_VP] * 5 + [_CI] * 3 + [_VP] * 7
@@ -1890,8 +1960,9 @@ def _dense_input_filter_launch(
     replicas, request, unknown_request, gvk, tol_key, tol_value, tol_effect, tol_op,
     affinity_ok, eviction_ok, prev_member, extra_avail,
 ):
-    """Check, allocate and launch dense_input_filter_kernel. Every input
-    is read where it lies: nothing is copied or restacked."""
+    """Check, allocate and launch dense_input_filter (dense_filter.cu:
+    one launch that factors each group of rows in shared memory). Every
+    input is read where it lies: nothing is copied or restacked."""
     dev = alive.device
     C, R = capacity.shape
     T = taint_key.shape[1]
@@ -1973,9 +2044,12 @@ def _mesh_tile_filter_launch(
     aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
     req_unique, req_idx, extra_avail, extra_mask, extra_score, *, col0: int, plugin_bits: int,
 ):
-    """Check, allocate and launch mesh_tile_filter_kernel on the tile's
-    device. The terms are read where they lie, through their row
-    strides."""
+    """Check, allocate (the outputs, score / avail / prev / tie as the
+    four planes of one i32[4,B,C] allocation, and the factored tables'
+    scratch in one allocation, as `_dense_filter_launch` does) and launch
+    mesh_tile_filter on the tile's device (dense_filter.cu: the tables over
+    the tile's fleet slice, then the main pass). The terms are read where
+    they lie, through their row strides."""
     dev = alive.device
     C, R, T, G, B, Kt, Kp, Ke = _check_filter_args(
         alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
@@ -1990,14 +2064,15 @@ def _mesh_tile_filter_launch(
         for name, t, dt in (("extra_avail", extra_avail, I32), ("extra_mask", extra_mask, BOOL),
                             ("extra_score", extra_score, I32))
     ]
+    U, Tt = req_unique.shape[0], tol_tables.shape[0]
     feasible = torch.empty((B, C), dtype=BOOL, device=dev)
-    score = torch.empty((B, C), dtype=I32, device=dev)
-    avail = torch.empty((B, C), dtype=I32, device=dev)
-    prev = torch.empty((B, C), dtype=I32, device=dev)
-    tie = torch.empty((B, C), dtype=I32, device=dev)
+    score, avail, prev, tie = torch.empty((4, B, C), dtype=I32, device=dev).unbind(0)
     feas_count = torch.empty((B,), dtype=I32, device=dev)
     if B == 0 or C == 0:
         return feasible, score, avail, prev, tie, feas_count.zero_()
+    scratch = torch.empty((4 * U + Tt + G) * C, dtype=U8, device=dev)
+    est_u = scratch.data_ptr()
+    col_ok = est_u + 4 * U * C
     fn = _bind("dense_filter", "mesh_tile_filter_launch", _MESH_TILE_FILTER_ARGTYPES)
     with torch.cuda.device(dev):
         rc = fn(
@@ -2005,8 +2080,9 @@ def _mesh_tile_filter_launch(
             C, R, T, G,
             *_ptrs(replicas, unknown_request, gvk, tol_tables, tol_idx, aff_masks, aff_idx,
                    prev_idx, prev_rep, evict_idx, seeds, req_unique, req_idx),
-            B, Kt, Kp, Ke, plugin_bits, col0,
+            B, Kt, Kp, Ke, U, Tt, plugin_bits, col0,
             _ptr(extra_avail), lds[0], _ptr(extra_mask), lds[1], _ptr(extra_score), lds[2],
+            est_u, col_ok, col_ok + Tt * C,
             *_ptrs(feasible, score, avail, prev, tie, feas_count), _stream(dev),
         )
     _raise_on(rc, "mesh_tile_filter")

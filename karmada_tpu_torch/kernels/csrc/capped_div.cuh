@@ -1,9 +1,10 @@
-// capped_div.cuh: min(lim, floor(x / d)) in exact integer arithmetic,
-// without the int64 division's software sequence. Shared by
-// dense_filter.cu's sim_filter prologue (the GeneralEstimator's cap // req,
-// answers at or above INT32_MAX become the row's replicas) and
-// fleet_estimate.cu (a node's free capacity // request, capped by its
-// pods left).
+// capped_div.cuh: floor(x / d) in exact integer arithmetic, without the
+// int64 division's software sequence, in two forms.
+//
+// capped_div: min(lim, floor(x / d)). Shared by dense_filter.cu's factor
+// pass (the GeneralEstimator's cap // req, answers at or above INT32_MAX
+// become the row's replicas) and fleet_estimate.cu (a node's free capacity
+// // request, capped by its pods left).
 //
 // Both callers only need the quotient below a cap lim <= INT32_MAX. So:
 // when d > x the quotient is 0; when lim * d <= x (the 128-bit product
@@ -14,6 +15,14 @@
 // exact correction step, t * d against x with the product's high word
 // checked, then gives the floor. Exact over the whole non-negative int64
 // range of x and every d >= 1.
+//
+// floor_div_rcp: floor(x / d) from the divisor's reciprocal m =
+// reciprocal(d) = ceil(2^64 / d), computed once per divisor, for a divisor
+// shared by many dividends (dense_filter.cu's dense-input tables: one
+// request over a tile's columns). x m / 2^64 lies in [x / d, x / d +
+// x / 2^64), and x < 2^63, so the high word t of x m is floor(x / d) or one
+// more; t d <= x + d < 2^64 tells which. Exact for 0 <= x < 2^63 and
+// 1 <= d < 2^63 (d = 1, whose m would need 65 bits, has m = 0).
 
 #pragma once
 
@@ -37,6 +46,16 @@ __device__ __forceinline__ int64_t capped_div(int64_t x, int64_t d, int64_t lim)
     t += 1;
   }
   return (int64_t)t;
+}
+
+// ceil(2^64 / d) for d >= 2 (it fits 64 bits); 0 for d = 1.
+__device__ __forceinline__ uint64_t reciprocal(uint64_t d) { return d <= 1 ? 0 : ~0ull / d + 1; }
+
+// floor(x / d) for 0 <= x < 2^63, 1 <= d < 2^63, m = reciprocal(d).
+__device__ __forceinline__ uint64_t floor_div_rcp(uint64_t x, uint64_t d, uint64_t m) {
+  if (m == 0) return x;
+  const uint64_t t = __umul64hi(x, m);
+  return t * d > x ? t - 1 : t;
 }
 
 }  // namespace capped_div

@@ -1,23 +1,23 @@
 // filter_common.cuh: the per-(row, column) filter, estimate and tie of the
 // schedule rounds, shared so the kernels cannot drift apart:
-// candidate_select.cu and dense_filter.cu's dense_input_filter and
-// mesh_tile_filter evaluate every element through eval_col / estimate;
-// dense_filter.cu's dense_filter and sim_filter build their factored
-// tables with taints_tolerated and take the tie from tie_value /
-// tie_from_index; tiers.cu uses the FilterArgs too.
+// candidate_select.cu evaluates the filter chain per element through
+// eval_col and, at its K winners, estimate; tiers.cu evaluates estimate
+// per element over a capacity it is passed; dense_filter.cu's entries
+// build factored tables (per distinct request and toleration row) and take
+// the tie from tie_value / tie_from_index, the factored ones with
+// taints_tolerated, the dense-input one with the same rule over four
+// taints at a time (its tolerates_all).
 //
 // - eval_col: the in-tree filters (alive, taints against the row's
 //   toleration table row, API enablement, affinity mask, eviction list),
 //   the locality score and the previous replicas (the prev list scattered
-//   with the last entry winning; ids outside [0, C) never match). With
-//   kDenseRows (the dense-input program) the row's affinity, eviction and
-//   previous-membership masks are dense [B, C] inputs read at (b, c), and
-//   no previous replicas are produced;
+//   with the last entry winning; ids outside [0, C) never match);
+// - taints_tolerated: whether a [4, Kt] toleration row tolerates every
+//   NoSchedule / NoExecute taint of a column;
 // - tie_value / tie_from_index: splitmix64 over the global cluster id, or
 //   over an explicit 1-based index (uint64);
 // - estimate: the GeneralEstimator answer with the reference's clamps in
-//   its order, then the registered-estimator min-merge (with kDenseRows
-//   the row's request is row b of a dense [B, R] table).
+//   its order, then the registered-estimator min-merge.
 //
 // Mirrors karmada_tpu/sched/core.py filter_phase / filter_estimate_phase,
 // decompress_batch and tie_from_index, and ops/assign.py
@@ -69,14 +69,6 @@ struct FilterArgs {
   const int32_t* req_idx;          // [B]
   const int32_t* extra_avail;      // [B,C] or null
   int B, Kt, Kp, Ke, plugin_bits;
-  // the dense-input program only (null elsewhere): the tolerations as four
-  // [B,Kt] tables (key, value, effect, op) in place of tol_tables/tol_idx,
-  // and the [B,C] eviction and previous-membership masks in place of the
-  // evict/prev lists; aff_masks is then [B,C] and req_unique [B,R], both
-  // read at row b
-  const int32_t* tol_rows[4];   // [B,Kt] each
-  const uint8_t* eviction_ok;   // [B,C]
-  const uint8_t* prev_member;   // [B,C]
 };
 
 // Row b's toleration table row and prev/evict lists, copied into shared
@@ -90,14 +82,6 @@ __device__ inline void load_row_lists(const FilterArgs& p, int b, int32_t* tol,
     prep[i] = p.prev_rep[(int64_t)b * p.Kp + i];
   }
   for (int i = threadIdx.x; i < p.Ke; i += blockDim.x) ev[i] = p.evict_idx[(int64_t)b * p.Ke + i];
-}
-
-// Row b's four [B,Kt] toleration rows, copied into shared memory in the
-// [4,Kt] layout of a toleration table row (the caller synchronises after).
-__device__ inline void load_row_tols(const FilterArgs& p, int b, int32_t* tol) {
-  for (int i = threadIdx.x; i < 4 * p.Kt; i += blockDim.x) {
-    tol[i] = p.tol_rows[i / p.Kt][(int64_t)b * p.Kt + i % p.Kt];
-  }
 }
 
 struct ColEval {
@@ -141,10 +125,6 @@ __device__ inline bool taints_tolerated(const int32_t* key_c, const int32_t* val
 // Filters + locality score for column c of row b. `tol` is the row's
 // [4,Kt] toleration table row, `pidx`/`prep`/`ev` its prev/evict lists,
 // all in shared memory. A prev column listed twice takes its LAST entry.
-// kDenseRows (a compile-time switch, so the other kernels' code is
-// unchanged) reads affinity, eviction and membership from the dense [B,C]
-// masks instead; the lists are then unused and prev is 0.
-template <bool kDenseRows = false>
 __device__ inline ColEval eval_col(const FilterArgs& p, int b, int c, const int32_t* tol,
                                    const int32_t* pidx, const int32_t* prep,
                                    const int32_t* ev) {
@@ -164,26 +144,19 @@ __device__ inline ColEval eval_col(const FilterArgs& p, int b, int c, const int3
     ok = ok && api;
   }
   if (p.plugin_bits & kBitAffinity) {
-    const int64_t aff_row = kDenseRows ? b : p.aff_idx[b];
-    ok = ok && p.aff_masks[aff_row * p.C + c] != 0;
+    ok = ok && p.aff_masks[(int64_t)p.aff_idx[b] * p.C + c] != 0;
+  }
+  if (p.plugin_bits & kBitEviction) {
+    for (int k = 0; k < p.Ke; ++k) {
+      if (ev[k] == c) ok = false;
+    }
   }
   bool member = false;
   int32_t prev = 0;
-  if constexpr (kDenseRows) {
-    const int64_t at = (int64_t)b * p.C + c;
-    if (p.plugin_bits & kBitEviction) ok = ok && p.eviction_ok[at] != 0;
-    member = p.prev_member[at] != 0;
-  } else {
-    if (p.plugin_bits & kBitEviction) {
-      for (int k = 0; k < p.Ke; ++k) {
-        if (ev[k] == c) ok = false;
-      }
-    }
-    for (int k = 0; k < p.Kp; ++k) {
-      if (pidx[k] == c) {
-        member = true;
-        prev = prep[k];
-      }
+  for (int k = 0; k < p.Kp; ++k) {
+    if (pidx[k] == c) {
+      member = true;
+      prev = prep[k];
     }
   }
   ColEval out;
@@ -216,10 +189,9 @@ __device__ __forceinline__ int32_t tie_value(uint64_t seed, int col) {
 // division equals the floor), 0 where cap <= 0; no requested resource ->
 // replicas; no summary -> 0; >= INT32_MAX -> replicas; i32 cast; unknown
 // request -> 0; then the min-merge with a non-negative registered-estimator
-// answer. kDenseRows reads the request at row b of req_unique ([B,R]).
-template <bool kDenseRows = false>
+// answer.
 __device__ inline int32_t estimate(const FilterArgs& p, int b, int c) {
-  const int r = kDenseRows ? b : p.req_idx[b];
+  const int r = p.req_idx[b];
   bool any_req = false;
   int64_t est = kBig;
   for (int i = 0; i < p.R; ++i) {
@@ -284,9 +256,6 @@ inline FilterArgs make_filter_args(
   p.Kp = Kp;
   p.Ke = Ke;
   p.plugin_bits = plugin_bits;
-  for (int i = 0; i < 4; ++i) p.tol_rows[i] = nullptr;
-  p.eviction_ok = nullptr;
-  p.prev_member = nullptr;
   return p;
 }
 

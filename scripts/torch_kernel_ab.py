@@ -1,7 +1,7 @@
 """The redesigned kernels' time on the main path's own arguments, for an
 A/B of two trees on one card: candidate_select, group_score,
-combo_select, sim_filter, fleet_estimate, dense_filter and
-candidate_tail.
+combo_select, sim_filter, fleet_estimate, dense_filter, candidate_tail,
+dense_input_filter and mesh_tile_filter.
 
     python3 /path/to/scripts/torch_kernel_ab.py [--kernels NAME,...]
 
@@ -34,12 +34,21 @@ each:
 - `kernels._tail_launch` on the compact flagship round's two calls (5 120
   and 3 072 rows, K = 128), on the calls one tiers_compact round makes,
   on seeded windows of 5 120 rows at K = 8, 32, 100 and 128, and on 6
-  rows at K = 128.
+  rows at K = 128;
+- `kernels._dense_input_filter_launch` on the graft_flagship program's
+  call (the dense flagship's batch as the program's dense arguments,
+  10 240 x 5 120), on seeded inputs of that shape with every row distinct
+  (chip_smoke's phase-3 draw) and on the same inputs with each row's
+  request, tolerations and gvk drawn from four rows;
+- `kernels._mesh_tile_filter_launch` on the four tiles one mesh_flagship
+  round passes it (the dense flagship over a 2 x 2 virtual mesh of the
+  card) and on the six of a 2 x 3 round (tiles 1 707 wide), captured at
+  launch.
 Beside each label's CUDA-event times it prints the device time per call
 under torch.profiler and the host's time to enqueue a call. chip_smoke's
 builders, seed 0. `--kernels` picks among candidate_select, group_score
-(with combo_select), sim_filter, fleet_estimate, dense_filter and
-candidate_tail (default: all). Prints one JSON line: the tree, the
+(with combo_select), sim_filter, fleet_estimate, dense_filter,
+candidate_tail, dense_input_filter and mesh_tile_filter (default: all). Prints one JSON line: the tree, the
 card's nvidia-smi line, and per label the times in ms, the device and
 enqueue ms and a digest of the outputs (equal digests: equal outputs).
 Needs one CUDA card and nvcc.
@@ -59,20 +68,23 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from karmada_tpu_torch import kernels  # noqa: E402
+from karmada_tpu_torch import graft_entry, kernels  # noqa: E402
 from karmada_tpu_torch.api.meta import MEMORY  # noqa: E402
 from karmada_tpu_torch.api.work import ReplicaRequirements  # noqa: E402
+from karmada_tpu_torch.convert import FILTER_ARGS, SCHEDULE_ARGS  # noqa: E402
 from karmada_tpu_torch.estimator import client  # noqa: E402
 from karmada_tpu_torch.estimator.client import MemberEstimators  # noqa: E402
 from karmada_tpu_torch.kernels import build  # noqa: E402
 from karmada_tpu_torch.models.nodes import NodeEncoder  # noqa: E402
 from karmada_tpu_torch.sched.core import ArrayScheduler  # noqa: E402
+from karmada_tpu_torch.testing.cpumesh import virtual_mesh  # noqa: E402
 
 REPS = 10  # launches per CUDA-event window
 TURNS = 2
 WIDE_CHUNK_BINDINGS = 6144  # the pipelined wide_40k chunk's rows
 KERNELS = ("candidate_select", "group_score", "sim_filter", "fleet_estimate", "dense_filter",
-           "candidate_tail")
+           "candidate_tail", "dense_input_filter", "mesh_tile_filter")
+INPUT_REPEATS = 4  # distinct rows of the repeated-row dense-input draw
 TAIL_KS = (8, 32, 100, 128)  # seeded windows' widths
 TAIL_ROWS = 5120  # the compact flagship's first tail
 
@@ -247,6 +259,47 @@ def time_candidate_tail(dev, result):
     del t_sched, groups, flag
 
 
+def time_dense_input_filter(dev, result):
+    clusters, bindings = chip_smoke.build_flagship(dense=True)
+    sched = ArrayScheduler(clusters, device=dev)
+    batch = chip_smoke.dense_kernel_inputs(sched, bindings)[-1]
+    args = graft_entry.schedule_args(sched, batch, dev)
+    flag = [args[SCHEDULE_ARGS.index(n)] for n in FILTER_ARGS]
+    del args, sched, batch
+    B, C = flag[FILTER_ARGS.index("affinity_ok")].shape
+    distinct = chip_smoke.random_dense_input_args(40 + C, dev, B, C)
+    repeats = chip_smoke.random_dense_input_args(44 + C, dev, B, C)
+    pick = torch.from_numpy(np.random.default_rng(15).integers(0, INPUT_REPEATS, B)).to(dev)
+    for n in ("request", "gvk", "tol_key", "tol_value", "tol_effect", "tol_op"):
+        k = FILTER_ARGS.index(n)
+        repeats[k] = repeats[k][pick].contiguous()
+    for name, a in (("graft_flagship call", flag), ("random, every row distinct", distinct),
+                    (f"random, {INPUT_REPEATS} distinct rows", repeats)):
+        label = f"dense_input_filter, {name}"
+        result[label] = timed(lambda a=a: kernels._dense_input_filter_launch(*a))
+        chip_smoke.log(f"{label} ({B} x {C}): {result[label]}")
+    del flag, distinct, repeats
+
+
+def time_mesh_tile_filter(dev, result):
+    clusters, bindings = chip_smoke.build_flagship(dense=True)
+    for name, mesh in (("mesh_flagship round, 2 x 2 tiles", virtual_mesh(4, dev)),
+                       ("2 x 3 round's tiles", chip_smoke.mesh_of(dev, (2, 3)))):
+        sched = ArrayScheduler(clusters, mesh=mesh, candidate_k=0, device=dev)
+        sched.mesh_partitioned = False
+        sched.schedule(bindings)
+        batch = sched._pad(sched.batch_encoder.encode(bindings))
+        with chip_smoke.captured_launches(("mesh_tile_filter",)) as cap:
+            sched._mesh_solver()(batch)
+        calls = cap["mesh_tile_filter"]
+        label = f"mesh_tile_filter, {name}"
+        result[label] = timed(lambda cs=calls: [
+            o for a, kw in cs for o in kernels._mesh_tile_filter_launch(*a, **kw)])
+        chip_smoke.log(f"{label} ({len(calls)} tiles of {calls[0][0][7].shape[0]} x "
+                       f"{calls[0][0][0].shape[0]}): {result[label]}")
+        del sched, batch, cap, calls
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", default=",".join(KERNELS),
@@ -264,7 +317,9 @@ def main() -> int:
     for name, fn in (("candidate_select", time_select), ("group_score", time_group_score),
                      ("sim_filter", time_sim_filter), ("fleet_estimate", time_fleet_estimate),
                      ("dense_filter", time_dense_filter),
-                     ("candidate_tail", time_candidate_tail)):
+                     ("candidate_tail", time_candidate_tail),
+                     ("dense_input_filter", time_dense_input_filter),
+                     ("mesh_tile_filter", time_mesh_tile_filter)):
         if name in which:
             fn(dev, result)
     print(json.dumps({"tree": os.getcwd(), "card": chip_smoke.nvidia_smi_line(),

@@ -10,14 +10,19 @@ run it from each tree's root in turns (parent, this, this, parent) in one
 call. It builds the tree's kernels, then times the compact flagship round,
 the dense flagship round, whatif and whatif_churn5k, estimator_flagship
 (the compact flagship with member estimators on every cluster), config3,
-tiers_dense and tiers_compact (chip_smoke's builders, seed 0; the tier
-cells' round is launch_tiered + materialize_chunk), each round on the
-host clock around a synchronised call, with its split (ArrayScheduler and
-the tier cells: launch / wait / materialize; Simulator: fleet encodes /
-batch encode / solve / the rest; the estimator cells: sweep / merge / the
-round given the answers), and dense_tail's, sim_load's, sim_filter's,
-fleet_estimate's, dense_filter's and candidate_tail's time in those
-rounds by CUDA events around each wrapper call (its host enqueue
+tiers_dense, tiers_compact, mesh_flagship (the dense flagship through
+ArrayScheduler(mesh=virtual_mesh(4, card), candidate_k=0), monolithic)
+and graft_flagship (the dense-input program, `_schedule_kernel`, on the
+dense flagship's batch as its 24 dense arguments; each call timed by CUDA
+events, in seconds like the rounds) (chip_smoke's build_* functions, seed 0; the
+tier cells' round is launch_tiered + materialize_chunk), each round on
+the host clock around a synchronised call, with its split (ArrayScheduler
+and the tier cells: launch / wait / materialize; Simulator: fleet encodes
+/ batch encode / solve / the rest; the estimator cells: sweep / merge /
+the round given the answers; none for the mesh and the program), and
+dense_tail's, sim_load's, sim_filter's, fleet_estimate's, dense_filter's,
+candidate_tail's, dense_input_filter's and mesh_tile_filter's time in
+those rounds by CUDA events around each wrapper call (its host enqueue
 included). `--cells`
 picks among the cells (default: all). Prints one JSON line: the tree, the
 card's nvidia-smi line, and per cell the round times in seconds, their
@@ -42,15 +47,18 @@ from karmada_tpu_torch import kernels  # noqa: E402
 from karmada_tpu_torch.estimator.client import EstimatorRegistry, MemberEstimators  # noqa: E402
 from karmada_tpu_torch.kernels import build  # noqa: E402
 from karmada_tpu_torch.sched import preemption  # noqa: E402
-from karmada_tpu_torch.sched.core import ArrayScheduler  # noqa: E402
+from karmada_tpu_torch import graft_entry  # noqa: E402
+from karmada_tpu_torch.sched.core import ArrayScheduler, _schedule_kernel  # noqa: E402
+from karmada_tpu_torch.testing.cpumesh import virtual_mesh  # noqa: E402
 from karmada_tpu_torch.simulation import engine  # noqa: E402
 from karmada_tpu_torch.simulation.engine import Simulator  # noqa: E402
 
 ROUNDS = {"compact flagship": 30, "dense flagship": 30, "whatif": 20, "whatif_churn5k": 4,
-          "estimator_flagship": 20, "config3": 30, "tiers_dense": 15, "tiers_compact": 15}
+          "estimator_flagship": 20, "config3": 30, "tiers_dense": 15, "tiers_compact": 15,
+          "mesh_flagship": 20, "graft_flagship": 30}
 # the kernels' wrappers, as the rounds call them
 TIMED = ("dense_tail", "sim_load", "sim_filter", "fleet_estimate", "dense_filter",
-         "candidate_tail")
+         "candidate_tail", "dense_input_filter", "mesh_tile_filter")
 
 
 class KernelEvents:
@@ -196,6 +204,38 @@ def estimator_rounds(sched, est, bindings, names, rounds):
             ev.per_round(rounds))
 
 
+def mesh_rounds(sched, bindings, rounds):
+    """A warm round, then `rounds` monolithic mesh rounds (no split)."""
+    sched.schedule(bindings)
+    torch.cuda.synchronize()
+    times = []
+    with KernelEvents() as ev:
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            sched.schedule(bindings)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    return times, {}, ev.per_round(rounds)
+
+
+def program_calls(args, rounds):
+    """A warm call, then `rounds` calls of the dense-input program, each
+    timed by CUDA events (seconds)."""
+    _schedule_kernel(*args)
+    torch.cuda.synchronize()
+    spans = []
+    with KernelEvents() as ev:
+        for _ in range(rounds):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            _schedule_kernel(*args)
+            end.record()
+            spans.append((start, end))
+        torch.cuda.synchronize()
+        per = ev.per_round(rounds)
+    return [s.elapsed_time(e) / 1e3 for s, e in spans], {}, per
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cells", default=",".join(ROUNDS),
@@ -250,6 +290,21 @@ def main() -> int:
         keep(name, *tier_rounds(ArrayScheduler(clusters, device=dev), bindings, placed,
                                 ROUNDS[name]))
         del clusters, bindings, placed
+    if "mesh_flagship" in which or "graft_flagship" in which:
+        clusters, bindings = chip_smoke.build_flagship(dense=True)
+        if "mesh_flagship" in which:
+            sched = ArrayScheduler(clusters, mesh=virtual_mesh(4, dev), candidate_k=0,
+                                   device=dev)
+            sched.mesh_partitioned = False
+            keep("mesh_flagship", *mesh_rounds(sched, bindings, ROUNDS["mesh_flagship"]))
+            del sched
+        if "graft_flagship" in which:
+            sched = ArrayScheduler(clusters, device=dev)
+            batch = chip_smoke.dense_kernel_inputs(sched, bindings)[-1]
+            args = graft_entry.schedule_args(sched, batch, dev)
+            keep("graft_flagship", *program_calls(args, ROUNDS["graft_flagship"]))
+            del sched, batch, args
+        del clusters, bindings
     print(json.dumps({"tree": os.getcwd(), "smi": chip_smoke.nvidia_smi_line(),
                       "cells": cells}), flush=True)
     return 0

@@ -22,9 +22,21 @@ fleet_estimate held against the JAX package.
   with the unknown-request clamp and the answers' min-merge: no requested
   resource, no summary, unknown requests, answers at and above INT32_MAX,
   answers present and absent; and against sim_filter_plain's avail.
-- csrc/capped_div.cuh's division (a float64 estimate corrected by one
-  exact step), modelled in Python with numpy's float64, against exact
-  integer floors over the int64 edges.
+- csrc/capped_div.cuh's divisions (a float64 estimate corrected by one
+  exact step; a divisor's reciprocal, the high word of the product and
+  one correction), modelled in Python, against exact integer floors over
+  the int64 edges.
+- dense_input_filter's group-factored form (per group of 32 rows the
+  representatives, the estimate table with its sentinel and the
+  column-ok table, then each row's masks and clamps;
+  `kernels.dense_input_filter_groups_plain`) against the reference's
+  filter_estimate_phase over dense inputs with the answers' min-merge and
+  dense_input_filter_plain: rows all equal and all distinct, equal
+  requests apart, toleration rows one field apart, rows past the last
+  group, zero and absent requests, no summary, unknown requests,
+  estimates at and above INT32_MAX with no answers, 3, 5 and 128
+  columns; a model of the kernel's kept entries across groups; and the
+  launch's marshalling on a faked card.
 - The estimator's distinct-request table (`client.distinct_requests`), the
   sweep in that form against the reference's MemberEstimators, the fleet
   sweep at int64 edge values against the reference's fleet kernel, the
@@ -271,6 +283,197 @@ def test_capped_div_is_exact_at_int64_edges(lim):
             for x in (q * d - 1, q * d, q * d + d - 1):
                 if x < 2**63:
                     assert _capped_div_model(x, d, lim) == min(lim, x // d), (x, d, lim)
+
+
+def _floor_div_rcp_model(x: int, d: int) -> int:
+    """csrc/capped_div.cuh floor_div_rcp with its reciprocal: m =
+    ceil(2^64 / d) (0 for d = 1), the high word of x m, one correction."""
+    m = 0 if d <= 1 else (2**64 - 1) // d + 1
+    if m == 0:
+        return x
+    t = (x * m) >> 64
+    assert t * d < 2**64  # the correction's product fits 64 bits
+    return t - 1 if t * d > x else t
+
+
+def test_floor_div_rcp_is_exact_at_int64_edges():
+    """The reciprocal division of the dense-input tables equals x // d over
+    the int64 edges, seeded values, and quotients just below, at and just
+    above an integer."""
+    rng = np.random.default_rng(5)
+    xs = EDGE_X + [int(v) for v in rng.integers(0, 2**63 - 1, 300, dtype=np.int64)]
+    ds = EDGE_D + [int(v) for v in rng.integers(1, 2**40, 60, dtype=np.int64)]
+    for x in xs:
+        for d in ds:
+            assert _floor_div_rcp_model(x, d) == x // d, (x, d)
+    for q in (1, 3, 2**20 + 1, 2**31 - 2, 2**40 + 3):
+        for d in (2, 3, 2**31 + 11, 2**40 + 7, 2**62 - 1):
+            for x in (q * d - 1, q * d, q * d + d - 1):
+                if x < 2**63:
+                    assert _floor_div_rcp_model(x, d) == x // d, (x, d)
+
+
+# --------------------------------------------------------------------------
+# dense_input_filter's group-factored form
+# --------------------------------------------------------------------------
+
+INPUT_CASES = ("all rows equal", "all rows distinct", "equal requests apart",
+               "tolerations one field apart", "rows past the last group",
+               "no requests, no summary, unknown", "int32 edges, no answers", "C = 3", "C = 5",
+               "C = 128")
+
+
+def _input_case(case):
+    """The dense-input filter's 19 inputs (FILTER_ARGS) as numpy, seeded,
+    with the case's structure: rows equal or distinct, equal requests never
+    adjacent, toleration rows equal but for one of their four fields, B
+    not a multiple of the 32-row group, zero and absent requests with
+    summary-less columns and unknown-request rows, estimates at and above
+    INT32_MAX with every answer absent, and narrow and 128-column fleets."""
+    rng = np.random.default_rng(INPUT_CASES.index(case) + 31)
+    C = {"C = 3": 3, "C = 5": 5, "C = 128": 128}.get(case, 40)
+    B = 77 if case == "rows past the last group" else 64
+    R, T_, K, G = 4, 4, 5, 6
+    i32 = np.int32
+    capacity = rng.integers(-10, 200_000, (C, R)).astype(np.int64)
+    request = rng.integers(0, 2000, (B, R)).astype(np.int64)
+    tol = [rng.integers(0, 4, (B, K)), rng.integers(0, 3, (B, K)), rng.integers(0, 4, (B, K)),
+           rng.integers(0, 3, (B, K))]
+    gvk = rng.integers(-1, G + 1, B)
+    if case == "all rows equal":
+        request[:] = request[0]
+        for t in tol:
+            t[:] = t[0]
+        gvk[:] = gvk[0]
+    elif case == "equal requests apart":  # rows 0, 2, 4, ... share two requests
+        request[0::2] = request[0]
+        request[1::4] = request[1]
+    elif case == "tolerations one field apart":
+        for t in tol:
+            t[:] = t[0]
+        gvk[:] = gvk[0]
+        field = rng.integers(0, 4, B)
+        for b in range(1, B, 2):  # every other row differs in one field of one slot
+            tol[field[b]][b, b % K] = (tol[field[b]][b, b % K] + 1) % 3
+    elif case == "no requests, no summary, unknown":
+        request[rng.random((B, R)) < 0.5] = 0
+        request[::7] = 0
+    elif case == "int32 edges, no answers":
+        capacity = rng.choice(np.array([3 * I32_MAX - 3, 3 * I32_MAX, 3 * I32_MAX + 3, I32_MAX,
+                                        2**62, 0, -1], np.int64), (C, R))
+        request = rng.choice(np.array([0, 1, 3, 2**31, 2**62], np.int64), (B, R))
+    has_summary = rng.random(C) < 0.85
+    has_summary[0] = False
+    unknown = rng.random(B) < 0.1
+    extra = np.where(rng.random((B, C)) < 0.5, rng.integers(0, 50, (B, C)), -1).astype(i32)
+    if case == "int32 edges, no answers":
+        extra[:] = -1
+    return (rng.random(C) < 0.9, capacity, has_summary,
+            rng.integers(0, 4, (C, T_)).astype(i32), rng.integers(0, 3, (C, T_)).astype(i32),
+            rng.integers(0, 4, (C, T_)).astype(i32), rng.random((C, G)) < 0.9,
+            rng.integers(0, 40, B).astype(i32), request, unknown, gvk.astype(i32),
+            *(t.astype(i32) for t in tol), rng.random((B, C)) < 0.8, rng.random((B, C)) < 0.9,
+            rng.random((B, C)) < 0.2, extra)
+
+
+@pytest.mark.parametrize("case", INPUT_CASES)
+def test_dense_input_groups_match_reference(case):
+    """The group-factored form (what csrc/dense_filter.cu's dense-input
+    kernel builds and reads per group of 32 rows: the representatives, the
+    estimate table with its sentinel, the column-ok table, then each row's
+    masks and clamps) equals the reference's filter_estimate_phase over the
+    dense inputs with the answers' min-merge (core.py:190-226, :311) and
+    dense_input_filter_plain, all three outputs exactly."""
+    a = _input_case(case)
+    got = kernels.dense_input_filter_groups_plain(*(T(np.ascontiguousarray(x)) for x in a))
+    plain = kernels.dense_input_filter_plain(*(T(np.ascontiguousarray(x)) for x in a))
+    jf, js, ja = jcore.filter_estimate_phase(*a[:-1])
+    ja = np.where(a[-1] >= 0, np.minimum(np.asarray(ja), a[-1]), np.asarray(ja))
+    for name, g, pl, w in zip(chip_smoke.DENSE_INPUT_OUT, got, plain, (jf, js, ja)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+        assert torch.equal(g, pl), name
+    request = T(a[8])
+    reqs = [len(kernels._first_rows(request[r:r + 32])[0]) for r in range(0, len(a[7]), 32)]
+    if case == "all rows equal":
+        assert reqs == [1, 1]
+    if case == "all rows distinct":
+        assert reqs == [32, 32]
+    if case == "equal requests apart":
+        first, slot = kernels._first_rows(request[:32])
+        assert slot[0] == slot[2] == slot[30] and slot[1] == slot[5] and first[slot[30]] == 0
+    if case == "tolerations one field apart":
+        tol = torch.cat([T(x) for x in a[11:15]] + [T(a[10])[:, None]], 1)
+        assert len(kernels._first_rows(tol[:32])[0]) > 2
+    if case == "int32 edges, no answers":
+        assert (got[2].numpy() == a[7][:, None]).any()  # the sentinel's replicas
+
+
+def _kept_entries_model(groups, cap=32):
+    """csrc/dense_filter.cu's kept entries, group by group: a row takes the
+    kept entry equal to it, else a new entry shared with its first equal
+    row; when the new entries do not fit, every entry is dropped and the
+    group's distinct rows take entries from 0. Returns each group's slots
+    and whether it refilled."""
+    kept, out = [], []
+    for rows in groups:
+        hit = [kept.index(r) if r in kept else -1 for r in rows]
+        first = [rows.index(r) for r in rows]
+        reps = [i for i, f in enumerate(first) if f == i]
+        fresh = [i for i in reps if hit[i] < 0]
+        refill = len(kept) + len(fresh) > cap
+        if refill:
+            slots = [reps.index(f) for f in first]
+            kept = [rows[i] for i in reps]
+        else:
+            slots = [h if h >= 0 else len(kept) + fresh.index(f) for h, f in zip(hit, first)]
+            kept = kept + [rows[i] for i in fresh]
+        assert len(kept) <= cap and all(kept[s] == r for s, r in zip(slots, rows))
+        out.append((slots, refill))
+    return out
+
+
+@pytest.mark.parametrize("pattern", ["four requests", "every row distinct", "40 across groups",
+                                     "one row"])
+def test_kept_entries_model(pattern):
+    """The bookkeeping of the dense-input kernel's kept entries (steps 2-4
+    of dense_input_group_kernel): every row's entry holds that row, at most
+    32 are kept, the flagship's four requests are built once, and a block
+    refills only when a group brings more new rows than fit."""
+    rng = np.random.default_rng(len(pattern))
+    if pattern == "four requests":
+        rows = list(rng.integers(0, 4, 320))
+    elif pattern == "every row distinct":
+        rows = list(range(320))
+    elif pattern == "40 across groups":
+        rows = list(rng.integers(0, 40, 320))
+    else:
+        rows = [7]
+    groups = [rows[g:g + 32] for g in range(0, len(rows), 32)]
+    out = _kept_entries_model(groups)
+    refills = [r for _, r in out]
+    if pattern == "four requests":
+        assert not any(refills) and max(max(s) for s, _ in out) == 3
+    if pattern == "every row distinct":
+        assert refills == [False] + [True] * 9
+    if pattern == "40 across groups":
+        assert any(refills) and not refills[0]
+
+
+def test_dense_input_filter_launch_marshals_the_rows(fake_card):
+    """The launch passes the fleet, the widths, the row inputs where they
+    lie (the request, the four toleration tables, the three masks and the
+    answers, nothing copied), Kt, B and every plugin bit, and the three
+    outputs: one C entry of 30 arguments and no scratch."""
+    a = [T(np.ascontiguousarray(x)) for x in _input_case("rows past the last group")]
+    out = kernels._dense_input_filter_launch(*a)
+    (name, cargs), = fake_card
+    assert name == "dense_input_filter_launch" and len(cargs) == 30
+    B, C = a[15].shape
+    assert cargs[:7] == tuple(t.data_ptr() for t in a[:7])
+    assert cargs[7:11] == (C, 4, 4, 6) and cargs[19] == 5 and cargs[24:26] == (B, ALL_PLUGIN_BITS)
+    assert cargs[11:19] == tuple(t.data_ptr() for t in a[7:15])
+    assert cargs[20:24] == tuple(t.data_ptr() for t in a[15:19])
+    assert cargs[26:29] == tuple(t.data_ptr() for t in out)
 
 
 # --------------------------------------------------------------------------

@@ -42,6 +42,7 @@ from karmada_tpu_torch.testing.cpumesh import virtual_mesh  # noqa: E402
 
 import test_parallel as ref_tests  # noqa: E402
 from test_torch_candidates import BATCH_FIELDS, FLEET_FIELDS  # noqa: E402
+from test_torch_candidates import fake_card  # noqa: E402,F401 (fixture)
 from test_torch_scheduler import _binding, _decision_view, _dyn, flagship_mix  # noqa: E402
 from test_torch_spread import _case  # noqa: E402
 
@@ -282,6 +283,150 @@ def test_mesh_tile_filter_plain_tiles_the_dense_filter():
         np.testing.assert_array_equal(_n(torch.cat([p[k] for p in parts], 1)), _n(whole[k]),
                                       err_msg=name)
     np.testing.assert_array_equal(_n(sum(p[5] for p in parts)), _n(whole[5]))
+
+
+# the tile filter's factored form: dense_filter's tables over the tile's
+# fleet slice, then its main pass with col0, global ids and strided terms
+TILE_TABLE_CASES = ("sentinel", "prev listed twice", "neighbouring tiles", "score wraps",
+                    "offsets and strides")
+
+
+def _ref_tile(ref, tb, rows, cols, c0, prev_idx, prev_rep, evict_idx, bits, terms):
+    """The reference's tile: decompress_batch(col_offset=c0) and
+    filter_estimate_phase on the tile's slices, then the mask, the score
+    (int32, wrapping) and the answers as its mesh body applies them after
+    the gather. `terms` are numpy (extra, mask, score) over the tile or
+    None."""
+    f = ref.fleet
+    Cl = cols.stop - cols.start
+    aff_ok, _sw, prev_member, prev_reps, evict_ok, tie = jcore.decompress_batch(
+        tb.aff_masks[:, cols], tb.aff_idx[rows], tb.weight_tables[:, cols],
+        tb.weight_idx[rows], prev_idx, prev_rep, evict_idx, tb.seeds[rows], Cl, col_offset=c0)
+    tol = tb.tol_tables[tb.tol_idx[rows]]
+    feasible, sc, avail = jcore.filter_estimate_phase(
+        *(getattr(f, n)[cols] for n in FLEET_FIELDS),
+        tb.replicas[rows], None, tb.unknown_request[rows], tb.gvk[rows],
+        tol[:, 0], tol[:, 1], tol[:, 2], tol[:, 3], aff_ok, evict_ok, prev_member,
+        req_unique=tb.req_unique, req_idx=tb.req_idx[rows], plugin_bits=bits)
+    feasible, sc, avail = np.asarray(feasible), np.asarray(sc), np.asarray(avail)
+    if terms is not None:
+        extra, mask, score = terms
+        feasible = feasible & mask
+        sc = (sc.astype(np.int64) + score).astype(np.int64)
+        sc = ((sc + 2**31) % 2**32 - 2**31).astype(np.int32)  # the int32 add's wrap
+        avail = np.where(extra >= 0, np.minimum(avail, extra), avail)
+    return (feasible, sc, avail, np.asarray(prev_reps), np.asarray(tie),
+            feasible.sum(-1).astype(np.int32))
+
+
+@pytest.mark.parametrize("case", TILE_TABLE_CASES)
+def test_mesh_tile_tables_match_reference(case):
+    """The tile filter's factored form (what csrc/dense_filter.cu's tile
+    mode builds and reads): dense_filter_tables_plain over the tile's fleet
+    slice, then dense_filter_apply_plain with the tile's first column, the
+    global prev / evict ids and the three terms as strided column views,
+    against mesh_tile_filter_plain and the reference's tile, all six
+    outputs exactly: padded rows' Cp sentinel, a prev column listed twice
+    (its last entry), ids just across the tile's edges, a score term that
+    wraps past INT32_MAX, and a first column and term row strides that are
+    no multiples of 4."""
+    ref, port, tb = _encoded_mix(seed=2)
+    rng = np.random.default_rng(TILE_TABLE_CASES.index(case) + 11)
+    B, C = len(tb.replicas), len(port.fleet.names)
+    c0, Cl, Cw = (34, 30, 98) if case == "offsets and strides" else (32, 32, C)
+    rows, cols = slice(16, 80), slice(c0, c0 + Cl)
+    nb = rows.stop - rows.start
+    prev_idx = tb.prev_idx[rows].copy()
+    evict_idx = tb.evict_idx[rows].copy()
+    prev_rep = rng.integers(1, 5, prev_idx.shape).astype(np.int32)
+    if case == "sentinel":  # padded rows: every id the global width
+        prev_idx[-5:] = C
+        evict_idx[-5:] = C
+    elif case == "prev listed twice":
+        prev_idx[:, 1] = prev_idx[:, 0] = rng.integers(c0, c0 + Cl, nb)
+        prev_rep[:, 1] = prev_rep[:, 0] + 1
+    elif case == "neighbouring tiles":  # the columns just outside and just inside
+        edge = np.array([c0 - 1, c0, c0 + Cl - 1, c0 + Cl], np.int32)
+        prev_idx[:] = rng.choice(edge, prev_idx.shape)
+        evict_idx[:] = rng.choice(edge, evict_idx.shape)
+    else:
+        hit = rng.random(prev_idx.shape) < 0.5
+        prev_idx[hit] = rng.integers(0, C + 1, hit.sum())
+    blocks = (rng.integers(-1, 7, (nb, Cw)).astype(np.int32), rng.random((nb, Cw)) < 0.8,
+              rng.integers(-5, 60, (nb, Cw)).astype(np.int32))
+    if case == "score wraps":
+        blocks[2][:] = np.int32(2**31 - 1) - rng.integers(0, 150, (nb, Cw)).astype(np.int32)
+    terms = [a[:, c0:c0 + Cl] for a in blocks]
+    bits = port._plugin_bits
+    want = _ref_tile(ref, tb, rows, cols, c0, prev_idx, prev_rep, evict_idx, bits, terms)
+
+    fl = port._fleet_dev
+    t = batch_from_numpy({n: getattr(tb, n)[rows] for n in (
+        "replicas", "unknown_request", "gvk", "tol_idx", "aff_idx", "seeds", "req_idx")}, "cpu")
+    views = [torch.from_numpy(a)[:, c0:c0 + Cl] for a in blocks]
+    assert views[0].stride(0) == Cw and c0 % 4 == (2 if case == "offsets and strides" else 0)
+    fleet = [fl[n][cols] for n in FLEET_FIELDS]
+    aff = torch.from_numpy(np.ascontiguousarray(tb.aff_masks[:, cols]))
+    tables = kernels.dense_filter_tables_plain(
+        *fleet, torch.from_numpy(tb.tol_tables), torch.from_numpy(tb.req_unique),
+        plugin_bits=bits)
+    got = kernels.dense_filter_apply_plain(
+        *tables, t["replicas"], t["unknown_request"], t["gvk"], t["tol_idx"], aff, t["aff_idx"],
+        torch.from_numpy(prev_idx), torch.from_numpy(prev_rep), torch.from_numpy(evict_idx),
+        t["seeds"], t["req_idx"], views[0], plugin_bits=bits, extra_mask=views[1], col0=c0,
+        extra_score=views[2])
+    plain = kernels.mesh_tile_filter_plain(
+        *fleet, t["replicas"], t["unknown_request"], t["gvk"], torch.from_numpy(tb.tol_tables),
+        t["tol_idx"], aff, t["aff_idx"], torch.from_numpy(prev_idx), torch.from_numpy(prev_rep),
+        torch.from_numpy(evict_idx), t["seeds"], torch.from_numpy(tb.req_unique), t["req_idx"],
+        *views, col0=c0, plugin_bits=bits)
+    for name, g, pl, w in zip(TILE_OUT, got, plain, want):
+        np.testing.assert_array_equal(_n(g), w, err_msg=name)
+        assert torch.equal(g, pl), name
+    if case == "prev listed twice":  # the last entry's replicas
+        last = [prev_rep[r][prev_idx[r] == prev_idx[r, 0]][-1] for r in range(nb)]
+        np.testing.assert_array_equal(_n(got[3])[np.arange(nb), prev_idx[:, 0] - c0], last)
+    if case == "score wraps":
+        assert (_n(got[1]) < 0).any()
+    if case == "neighbouring tiles":
+        assert (_n(got[3]) > 0).any() and not _n(got[3])[:, 1:-1].any()
+
+
+def test_mesh_tile_filter_launch_marshals_the_tables(fake_card, monkeypatch):
+    """The launch passes U and Tt beside the tile's col0, the terms' row
+    strides, one scratch for the three tables (est_u [U, C] i32, then
+    col_ok [Tt, C] and api_t [G, C] bytes, back to back) and the six
+    outputs (score, avail, prev and tie the planes of one allocation): one
+    C entry of 48 arguments."""
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: __import__("contextlib").nullcontext())
+    _, port, tb = _encoded_mix()
+    fl = port._fleet_dev
+    t = batch_from_numpy({n: getattr(tb, n) for n in BATCH_FIELDS}, "cpu")
+    B, C = len(tb.replicas), len(port.fleet.names)
+    c0, Cl = 34, 30
+    blocks = [torch.zeros((B, 98), dtype=dt) for dt in (torch.int32, torch.bool, torch.int32)]
+    views = [a[:, c0:c0 + Cl] for a in blocks]
+    args = [fl[n][c0:c0 + Cl] for n in FLEET_FIELDS] + [
+        t["replicas"], t["unknown_request"], t["gvk"], t["tol_tables"], t["tol_idx"],
+        t["aff_masks"][:, c0:c0 + Cl].contiguous(), t["aff_idx"], t["prev_idx"], t["prev_rep"],
+        t["evict_idx"], t["seeds"], t["req_unique"], t["req_idx"]]
+    out = kernels._mesh_tile_filter_launch(*args, *views, col0=c0, plugin_bits=port._plugin_bits)
+    (name, cargs), = fake_card
+    assert name == "mesh_tile_filter_launch" and len(cargs) == 48
+    U, Tt, G = tb.req_unique.shape[0], tb.tol_tables.shape[0], tb.aff_masks.shape[0] and \
+        fl["api_ok"].shape[1]
+    Kt, Kp, Ke = tb.tol_tables.shape[2], tb.prev_idx.shape[1], tb.evict_idx.shape[1]
+    assert cargs[7] == Cl and cargs[10] == G
+    assert cargs[24:32] == (B, Kt, Kp, Ke, U, Tt, port._plugin_bits, c0)
+    assert cargs[32:38] == (views[0].data_ptr(), 98, views[1].data_ptr(), 98,
+                            views[2].data_ptr(), 98)
+    est_u, col_ok, api_t = cargs[38:41]
+    assert col_ok - est_u == 4 * U * Cl and api_t - col_ok == Tt * Cl
+    assert cargs[41:47] == tuple(o.data_ptr() for o in out)
+    assert out[2].data_ptr() - out[1].data_ptr() == 4 * B * Cl  # the planes of one tensor
+    kernels._mesh_tile_filter_launch(*args, None, None, None, col0=0, plugin_bits=0)
+    _, cargs = fake_card[-1]
+    assert cargs[31] == 0 and cargs[32:38] == (None, 0, None, 0, None, 0)
 
 
 # ---------------------------------------------------------- the mesh kernel
