@@ -688,16 +688,20 @@ def tier_expect(sched, bindings, placed, compact: bool, has_extra: bool = False)
     (compact) once; a tail per tier and per speculative pass (the tiers
     whose reclaim is non-zero, or every tier when estimator answers are
     present: the pass leaves them out); an estimate per tier after the
-    first and per speculative pass; a consumption between tiers (the
+    first and per speculative pass (the compact round's later tiers
+    estimate both passes in one launch); a consumption between tiers (the
     window mode's count in the compact round)."""
     reclaim, _armed = preemption._tier_reclaim(sched, bindings, placed)
     tier_of, _ = preemption._tier_assignment(bindings)
     n_tiers = int(tier_of.max()) + 1
-    spec = 0 if reclaim is None else (
-        n_tiers if has_extra else int(reclaim.reshape(len(reclaim), -1).any(1).sum()))
+    armed = np.zeros(n_tiers, bool) if reclaim is None else (
+        np.ones(n_tiers, bool) if has_extra else reclaim[:n_tiers].reshape(n_tiers, -1).any(1))
+    spec = int(armed.sum())
     first, tail = ("candidate_select", "candidate_tail") if compact else (
         "dense_filter", "dense_tail")
-    return {first: 1, tail: n_tiers + spec, "tier_estimate": n_tiers - 1 + spec,
+    # the compact launch estimates a later tier's two passes in one launch
+    estimates = n_tiers - 1 + (int(armed[0]) if compact else spec)
+    return {first: 1, tail: n_tiers + spec, "tier_estimate": estimates,
             "tier_consume_window" if compact else "tier_consume": n_tiers - 1}
 
 
@@ -2000,34 +2004,161 @@ TIER_CONSUME_EDGES = (
 )
 
 
-def tier_estimate_work(args, kw, outs):
+# tier_estimate's edge inputs on the card: (label, B, C, R, U, n, K), each
+# in both modes (rows mode on both routes), with and without answers
+TIER_ESTIMATE_EDGES = (
+    ("C = 5 121, R = 17 (the scalar rows path)", 2048, 5121, 17, 8, 600, 128),
+    ("R = 8", 2048, 5120, 8, 8, 600, 128),
+    ("R = 16", 2048, 5120, 16, 8, 600, 128),
+    ("every row distinct (U = B)", 2048, 5120, 4, 2048, 600, 128),
+    ("a tier of one row", 2048, 5120, 4, 4, 1, 128),
+    ("zero requests, capacities at and past INT32_MAX x req", 2048, 5120, 4, 6, 600, 128),
+    ("columns without a summary", 2048, 5120, 4, 4, 600, 128),
+    ("unknown requests", 2048, 5120, 4, 4, 600, 128),
+    ("K = 13 (the scalar window path)", 2048, 5120, 4, 4, 600, 13),
+)
+
+
+class TierCall:
+    """One captured call of a round's tier launcher (kernels.TierLauncher):
+    the kernel, the launcher, the call's tensors cloned at launch and its
+    keywords (a window-mode pair of main and speculative passes carries
+    `reclaim`). `run` launches it again (uncounted), its plain version on
+    the launcher's tensors, or with `split` a pair as the two launches it
+    replaces; a rows-mode estimate writes a copy of the avail buffer
+    unless `fresh_out` is off (timing: the launcher's own buffer).
+    `torch_empty` hands a window estimate or a consumption outputs that
+    torch.empty allocates at the call, in place of the launcher's."""
+
+    def __init__(self, kernel, launcher, args, kw):
+        self.kernel, self.launcher, self.args, self.kw = kernel, launcher, args, kw
+
+    def run(self, plain=False, fresh_out=True, route="auto", split=False, torch_empty=False):
+        L = self.launcher
+        if self.kernel == "tier_consume":
+            if plain:
+                cap, placed, unsched, rows = self.args
+                return kernels.tier_consume_plain(cap, placed, unsched, L.request, rows,
+                                                  cand_idx=L.cand_idx)
+            out = torch.empty((L.C, L.R), dtype=torch.int64, device=L.device) if torch_empty \
+                else None
+            return L.launch_consume(*self.args, out=out)
+        window = None
+        if torch_empty and L.cand_idx is not None:
+            def window():
+                return torch.empty((self.args[1].shape[0], L.K), dtype=torch.int32,
+                                   device=L.device)
+        if "reclaim" in self.kw:
+            (cap, rows), rec, use = self.args, self.kw["reclaim"], self.kw["use_extra"]
+            if plain:
+                return (self.plain_estimate(cap, rows, use),
+                        self.plain_estimate(cap + rec, rows, False))
+            if split:
+                return (L.launch_estimate(cap, rows, use_extra=use),
+                        L.launch_estimate(cap + rec, rows, use_extra=False))
+            return L.launch_estimate_pair(cap, rec, rows, use_extra=use,
+                                          out=window and (window(), window()))
+        out = None
+        if L.cand_idx is None:
+            out = L.avail.clone() if fresh_out else L.avail
+        elif window:
+            out = window()
+        if plain:
+            return self.plain_estimate(*self.args, self.kw["use_extra"], out)
+        return L.launch_estimate(*self.args, out=out, route=route, **self.kw)
+
+    def plain_estimate(self, cap, rows, use_extra, out=None):
+        """tier_estimate_plain at `cap` over `rows` on the launcher's
+        tensors (rows mode into `out`)."""
+        L = self.launcher
+        return kernels.tier_estimate_plain(
+            cap, L.has_summary, L.req_unique, L.req_idx, L.replicas, L.unknown_request, rows,
+            cand_idx=L.cand_idx, out=out, extra_avail=L.extra_avail if use_extra else None)
+
+    def written(self, out):
+        """The estimate's written part of its output, as a tuple (rows
+        mode: the tier's rows of the buffer; a pair: both windows)."""
+        if isinstance(out, tuple):
+            return out
+        if self.launcher.cand_idx is None:
+            return (out.index_select(0, self.args[1].long()),)
+        return (out,)
+
+    def fields(self):
+        return ("c_avail", "c_avail_speculative") if "reclaim" in self.kw else ("avail",)
+
+    def uses_answers(self):
+        return self.kw.get("use_extra", True) and self.launcher.extra_avail is not None
+
+
+@contextlib.contextmanager
+def captured_tier_calls():
+    """Inside the block every tier launch of a round's launcher also
+    records a TierCall: {"tier_estimate": [...], "tier_consume": [...]}.
+    The launcher's counting methods are untouched."""
+    calls = {n: [] for n in TIER_KERNELS}
+    cls = kernels.TierLauncher
+    est, pair, con = cls.launch_estimate, cls.launch_estimate_pair, cls.launch_consume
+
+    def rec_est(self, cap, rows, **kw):
+        calls["tier_estimate"].append(TierCall("tier_estimate", self, [cap.clone(), rows.clone()],
+                                               {"use_extra": kw.get("use_extra", True)}))
+        return est(self, cap, rows, **kw)
+
+    def rec_pair(self, cap, reclaim, rows, **kw):
+        calls["tier_estimate"].append(TierCall(
+            "tier_estimate", self, [cap.clone(), rows.clone()],
+            {"use_extra": kw.get("use_extra", True), "reclaim": reclaim.clone()}))
+        return pair(self, cap, reclaim, rows, **kw)
+
+    def rec_con(self, *args):
+        calls["tier_consume"].append(TierCall("tier_consume", self, [_clone(a) for a in args], {}))
+        return con(self, *args)
+
+    cls.launch_estimate, cls.launch_estimate_pair, cls.launch_consume = rec_est, rec_pair, rec_con
+    try:
+        yield calls
+    finally:
+        cls.launch_estimate, cls.launch_estimate_pair, cls.launch_consume = est, pair, con
+
+
+def tier_estimate_work(call):
     """Bytes: the estimates written once (rows mode: the tier's rows of the
     [B, C] buffer; window mode: [n, K]), the capacity, summary flags,
-    unique requests and row ids read once, 9 bytes of row columns per row
-    and, in window mode, the rows' candidate columns. Operations: per
-    element one int64 division, compare and select per resource plus 8
-    clamps."""
-    cap, has_summary, req_unique, _ridx, _reps, _unknown, rows = args
+    unique requests and row ids read once, 9 bytes of row columns per row,
+    the answers read at every element when the call min-merges them, in
+    window mode the rows' candidate columns (a pair: both windows written
+    and the reclaim read), and on the table route the [U, C] table written
+    and read once. Operations: per evaluated entry (every element, twice
+    for a pair, or the table's U x C) one division, compare and select per
+    resource plus 8 clamps; per element on the table route 8."""
+    L = call.launcher
+    cap, rows = call.args
     n = rows.numel()
     C, R = cap.shape
-    cand = kw.get("cand_idx")
-    width = C if cand is None else cand.shape[1]
-    moved = n * width * 4 + nbytes([cap, has_summary, req_unique, rows]) + n * 9
-    if cand is not None:
-        moved += n * width * 4
-    return moved, n * width * (4 * R + 8)
+    width = C if L.cand_idx is None else L.K
+    moved = (n * width * 4 + nbytes([cap, L.has_summary, L.req_unique, rows]) + n * 9
+             + (n * width * 4 if call.uses_answers() else 0))
+    if "reclaim" in call.kw:  # a pair: the speculative window and the reclaim too
+        return (moved + 2 * n * width * 4 + nbytes([call.kw["reclaim"]]),
+                2 * n * width * (4 * R + 8))
+    if L.cand_idx is not None:
+        return moved + n * width * 4, n * width * (4 * R + 8)
+    if kernels.estimate_route(L.U, n) == "table":
+        return moved + 2 * L.U * C * 4, L.U * C * (4 * R + 8) + n * C * 8
+    return moved, n * C * (4 * R + 8)
 
 
-def tier_consume_work(args, kw, outs):
+def tier_consume_work(call):
     """Bytes: the tier's placed matrix, flags and row ids read once, its
     rows' requests, the capacity read and written once (and the rows'
     candidate columns in window mode). Operations: a multiply and an add
     per placed entry and resource."""
-    cap, placed, unsched, _request, rows = args
+    cap, placed, unsched, rows = call.args
     n, width = placed.shape
     C, R = cap.shape
     moved = nbytes([cap, placed, unsched, rows]) + n * R * 8 + C * R * 8
-    if kw.get("cand_idx") is not None:
+    if call.launcher.cand_idx is not None:
         moved += n * width * 4
     return moved, 2 * n * width * R
 
@@ -2102,6 +2233,93 @@ def tier_consume_edge_inputs(rng, dev, label, C, R, n, K):
     return d
 
 
+def edge_consume_launcher(e):
+    """A round's TierLauncher over one tier_consume edge input set: its
+    request table as the round's distinct requests (row b request b), every
+    summary present."""
+    B, R = e["request"].shape
+    C, dev = e["cap"].shape[0], e["cap"].device
+    e["avail"] = torch.zeros((B, C), dtype=torch.int32, device=dev)
+    return kernels.TierLauncher(
+        torch.ones(C, dtype=torch.bool, device=dev), e["request"],
+        torch.arange(B, dtype=torch.int32, device=dev),
+        torch.zeros(B, dtype=torch.int32, device=dev),
+        torch.zeros(B, dtype=torch.bool, device=dev), request=e["request"])
+
+
+def tier_estimate_edge_inputs(rng, dev, label, B, C, R, U, n, K):
+    """Seeded tier_estimate inputs at one edge shape (TIER_ESTIMATE_EDGES):
+    capacities around zero, negative ones and quotients past INT32_MAX;
+    request 0 all zero (the "row's replicas" sentinel); the tier's n rows
+    in random order; answers of -1, 0, below and far above the estimate.
+    "every row distinct" gives row b request b; "zero requests" adds
+    requests with zero resources and columns at INT32_MAX x req and one
+    under; "columns without a summary" drops a third of the summaries,
+    "unknown requests" flags a third of the rows."""
+    cap = rng.integers(-10, 2_000_000, (C, R)).astype(np.int64)
+    cap[::5, 0] = 0
+    cap[3::11, -1] = -rng.integers(1, 1000, len(cap[3::11]))
+    cap[::97] = 1 << 45
+    req_u = rng.integers(1, 2000, (U, R)).astype(np.int64)
+    req_u[0] = 0
+    req_idx = rng.integers(0, U, B).astype(np.int32)
+    if U == B:
+        req_idx = rng.permutation(B).astype(np.int32)
+    has_summary = rng.random(C) < 0.95
+    unknown = rng.random(B) < 0.02
+    if label.startswith("zero requests"):
+        req_u[1, ::2] = 0  # some resources unrequested
+        req_u[2] = [1] + [0] * (R - 1)
+        i32 = 2**31 - 1
+        for c0, u, dq in ((1, 3, 0), (2, 3, -1), (4, 2, 0), (6, 4, -1), (8, 5, 5)):
+            cap[c0::13] = req_u[u] * i32 + dq
+    if label == "columns without a summary":
+        has_summary = rng.random(C) < 2 / 3
+    if label == "unknown requests":
+        unknown = rng.random(B) < 1 / 3
+    answers = rng.choice([-1, 0, 1, 7, 60, 400, 1 << 20, 2**31 - 1], (B, C)).astype(np.int32)
+    return batch_from_numpy({
+        "capacity": cap, "has_summary": has_summary, "req_unique": req_u, "req_idx": req_idx,
+        "replicas": rng.integers(0, 64, B).astype(np.int32), "unknown_request": unknown,
+        "rows": rng.permutation(B)[:n].astype(np.int32),
+        "cand_idx": rng.integers(0, C, (B, K)).astype(np.int32), "extra": answers}, dev)
+
+
+def hold_tier_estimate(label, d):
+    """tier_estimate on one input set (the ESTIMATE_ARGS, rows, cand_idx,
+    extra) against its plain version, with and without the answers: the
+    public wrapper in rows mode on both routes and in window mode, and a
+    TierLauncher in both modes (the main path's calls). Returns the max
+    abs error (0; a difference raises)."""
+    est = [d[k] for k in ESTIMATE_ARGS] + [d["rows"]]
+    B, C = d["req_idx"].shape[0], d["capacity"].shape[0]
+    err = 0
+    for extra, tag in ((None, ""), (d["extra"], ", answers")):
+        def fresh():
+            return torch.full((B, C), -5, dtype=torch.int32, device=d["capacity"].device)
+        want_rows = kernels.tier_estimate_plain(*est, out=fresh(), extra_avail=extra)
+        want_win = kernels.tier_estimate_plain(*est, cand_idx=d["cand_idx"], extra_avail=extra)
+        for route in ("table", "element"):
+            err = max(err, compare(f"tier_estimate[{label}, rows, {route}{tag}]",
+                                   [kernels._tier_estimate_launch(*est, out=fresh(),
+                                                                  extra_avail=extra,
+                                                                  route=route)],
+                                   [want_rows], ("avail",)))
+        err = max(err, compare(f"tier_estimate[{label}, window{tag}]",
+                               [kernels._tier_estimate_launch(*est, cand_idx=d["cand_idx"],
+                                                              extra_avail=extra)],
+                               [want_win], ("c_avail",)))
+        launcher = kernels.TierLauncher(*[d[k] for k in ESTIMATE_ARGS[1:]], extra_avail=extra)
+        err = max(err, compare(f"tier_estimate[{label}, launcher rows{tag}]",
+                               [launcher.rows_mode(fresh()).launch_estimate(d["capacity"],
+                                                                            d["rows"])],
+                               [want_rows], ("avail",)))
+        err = max(err, compare(f"tier_estimate[{label}, launcher window{tag}]",
+                               [launcher.window_mode(d["cand_idx"]).launch_estimate(
+                                   d["capacity"], d["rows"])], [want_win], ("c_avail",)))
+    return err
+
+
 def _short_event(name: str) -> str:
     """A device event's name without `void`, namespaces and arguments."""
     name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
@@ -2144,28 +2362,78 @@ def _events_text(by, top=None) -> str:
                      for k, v in sorted(by.items(), key=lambda kv: -kv[1])[:top])
 
 
-def consume_spread(args, kw):
+def consume_spread(call):
     """(nonzero placed entries, distinct columns they land on, the most
     entries on one column) of one captured tier_consume call: the window
     mode's atomics contend on the hottest columns."""
-    nz = args[1] != 0
-    if kw.get("cand_idx") is None:
+    cap, placed, _unsched, rows = call.args
+    nz = placed != 0
+    cand = call.launcher.cand_idx
+    if cand is None:
         per_col = nz.sum(0)
     else:
-        cols = kw["cand_idx"].index_select(0, args[4].long())[nz]
-        per_col = torch.bincount(cols.long(), minlength=args[0].shape[0])
+        cols = cand.index_select(0, rows.long())[nz]
+        per_col = torch.bincount(cols.long(), minlength=cap.shape[0])
     return int(nz.sum()), int((per_col > 0).sum()), int(per_col.max())
+
+
+def tier_runs(cs, **kw):
+    return [c.run(**kw) for c in cs]
 
 
 def tier_timing(n, cs):
     """(ms, plain ms, bound ms, bound_by) per round of kernel n's captured
     calls cs (CUDA events)."""
-    outs = run_calls(n, cs, fresh_out=False)
-    moved, ops = map(sum, zip(*(TIER_WORK[n](a, kw, o) for (a, kw), o in zip(cs, outs))))
+    moved, ops = map(sum, zip(*(TIER_WORK[n](c) for c in cs)))
     b, by = bound(moved, ops)
-    ms = cuda_ms(lambda: run_calls(n, cs, fresh_out=False), TIER_TIMING_REPS)
-    plain = cuda_ms(lambda: run_calls(n, cs, plain=True, fresh_out=False), 3)
+    ms = cuda_ms(lambda: tier_runs(cs, fresh_out=False), TIER_TIMING_REPS)
+    plain = cuda_ms(lambda: tier_runs(cs, plain=True, fresh_out=False), 3)
     return ms, plain, b, by
+
+
+def estimate_timing(cs):
+    """tier_estimate per round of one cell's captured calls cs (one mode):
+    tier_timing's numbers, the device time under the profiler and the
+    host's enqueue time. Returns (the numbers as the result line keys
+    them, a log fragment)."""
+    ms, plain, b, by = tier_timing("tier_estimate", cs)
+    dev_ms, by_event = profiled_calls_ms(lambda: tier_runs(cs, fresh_out=False),
+                                         TIER_TIMING_REPS)
+    host = host_enqueue_ms(lambda: tier_runs(cs, fresh_out=False), TIER_TIMING_REPS)
+    numbers = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, device_ms=dev_ms,
+                   host_ms=host)
+    pairs = sum("reclaim" in c.kw for c in cs)
+    text = ""
+    if cs[0].launcher.cand_idx is not None:
+        text = "; " + outputs_ab(f"tier_estimate, {len(cs)} window-mode calls", cs)
+    if pairs:  # the pairs against the two launches each replaces
+        split_host = host_enqueue_ms(lambda: tier_runs(cs, fresh_out=False, split=True),
+                                     TIER_TIMING_REPS)
+        got = ab_time(f"tier_estimate, {len(cs)} calls of which {pairs} main + speculative "
+                      "pairs, against each pair as two launches",
+                      {"pairs": lambda: tier_runs(cs, fresh_out=False),
+                       "two launches": lambda: tier_runs(cs, fresh_out=False, split=True)},
+                      TIER_TIMING_REPS)
+        text += (f"; {pairs} pairs: as two launches each {np.median(got['two launches']):.4f} "
+                 f"ms, host enqueue {split_host:.4f}")
+    return numbers, (f"tier_estimate {ms:.4f} ms, device {dev_ms:.4f} under the profiler "
+                     f"({_events_text(by_event)}), host enqueue {host:.4f} (plain {plain:.4f}, "
+                     f"bound {b:.4f} {by}){text}")
+
+
+def outputs_ab(label, cs):
+    """The captured calls cs with outputs cut from the launcher's blocks
+    against outputs torch.empty allocates at each call, in turns (CUDA
+    events), then each one's host enqueue. Returns a log fragment."""
+    got = ab_time(f"{label}: outputs from the launcher's blocks against torch.empty each call",
+                  {"blocks": lambda: tier_runs(cs, fresh_out=False),
+                   "torch.empty": lambda: tier_runs(cs, fresh_out=False, torch_empty=True)},
+                  TIER_TIMING_REPS)
+    host = {n: host_enqueue_ms(lambda n=n: tier_runs(cs, fresh_out=False,
+                                                      torch_empty=n == "torch.empty"),
+                               TIER_TIMING_REPS) for n in got}
+    return ("outputs " + ", ".join(f"{n} {np.median(xs):.4f} ms (host enqueue {host[n]:.4f})"
+                                   for n, xs in got.items()))
 
 
 def consume_timing(cs, dev):
@@ -2176,69 +2444,76 @@ def consume_timing(cs, dev):
     library call's, and the host's enqueue time of each. Returns
     (the numbers as the result line keys them, a log fragment)."""
     ms, plain, b, by = tier_timing("tier_consume", cs)
-    if cs[0][1].get("cand_idx") is None:
-        pq = [(a[1].double(), a[3].index_select(0, a[4].long()).double()) for a, _ in cs]
+    L = cs[0].launcher
+    if L.cand_idx is None:
+        pq = [(c.args[1].double(), L.request.index_select(0, c.args[3].long()).double())
+              for c in cs]
 
         def lib_call():
             return [torch.mm(p.t(), q) for p, q in pq]
         what = "torch.mm in float64"
     else:
         cv = []
-        for a, kw in cs:
-            req = a[3].index_select(0, a[4].long())
-            cols = kw["cand_idx"].index_select(0, a[4].long()).reshape(-1).long()
-            cv.append((cols, (a[1].long()[:, :, None] * req[:, None, :]).reshape(-1,
-                                                                             req.shape[1])))
-        C, R = cs[0][0][0].shape
+        for c in cs:
+            rows = c.args[3].long()
+            req = L.request.index_select(0, rows)
+            cols = L.cand_idx.index_select(0, rows).reshape(-1).long()
+            cv.append((cols, (c.args[1].long()[:, :, None] * req[:, None, :]).reshape(
+                -1, req.shape[1])))
+        C, R = cs[0].args[0].shape
 
         def lib_call():
             return [torch.zeros((C, R), dtype=torch.int64, device=dev).index_add_(0, c, v)
                     for c, v in cv]
         what = "index_add_"
     lib = cuda_ms(lib_call, TIER_TIMING_REPS)
-    total, by_event = profiled_calls_ms(lambda: run_calls("tier_consume", cs, fresh_out=False),
-                                        TIER_TIMING_REPS)
+    total, by_event = profiled_calls_ms(lambda: tier_runs(cs, fresh_out=False), TIER_TIMING_REPS)
     lib_device, _ = profiled_calls_ms(lib_call, TIER_TIMING_REPS)
-    host = host_enqueue_ms(lambda: run_calls("tier_consume", cs, fresh_out=False),
-                           TIER_TIMING_REPS)
+    host = host_enqueue_ms(lambda: tier_runs(cs, fresh_out=False), TIER_TIMING_REPS)
     lib_host = host_enqueue_ms(lib_call, TIER_TIMING_REPS)
     numbers = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
-                   device_ms=total)
+                   device_ms=total, host_ms=host)
     return numbers, (
         f"tier_consume {ms:.4f} ms (plain {plain:.4f}, bound {b:.4f} {by}); its library call "
         f"({what}) {lib:.4f} ms; tier_consume device {total:.4f} ms under the profiler "
         f"({_events_text(by_event)}), the library call's {lib_device:.4f} ms; host enqueue "
-        f"{host:.4f} ms, the library call's {lib_host:.4f} ms")
+        f"{host:.4f} ms, the library call's {lib_host:.4f} ms; "
+        + outputs_ab(f"tier_consume, {len(cs)} calls", cs))
+
+
+def hold_tier_calls(label, calls, errs, consume_name):
+    """One round's captured tier calls against their plain versions (the
+    rows-mode estimates on both routes too); errs[kernel] keeps the max."""
+    for i, c in enumerate(calls["tier_estimate"]):
+        want = c.written(c.run(plain=True))
+        routes = ("table", "element") if c.launcher.cand_idx is None else ("auto",)
+        for route in routes:
+            errs["tier_estimate"] = max(errs["tier_estimate"], compare(
+                f"tier_estimate[{label} round, call {i}, {route}]",
+                c.written(c.run(route=route)), want, c.fields()))
+    for i, c in enumerate(calls["tier_consume"]):
+        errs[consume_name] = max(errs[consume_name], compare(
+            f"{consume_name}[{label} round, call {i}]", [c.run()], [c.run(plain=True)],
+            ("cap",)))
 
 
 def check_tier_kernels(dev, results):
     """Phase 3 for the tier kernels (B11, B12's per-tier pieces): on seeded
-    inputs at the flagship shapes in both modes, tier_consume also at its
-    edge shapes (TIER_CONSUME_EDGES), then on the arguments one round of
-    each tier cell passes them (captured at launch), with their time, plain
-    time and bound per round; tier_consume per mode (dense in tiers_dense,
-    window in tiers_compact) also with its device time under the profiler
-    by event, the host's enqueue time, and the library call's time
-    (consume_timing). tiers_estimator's round is held and timed in its
-    cell (run_tiers_estimator_cell), where its answers are built."""
+    inputs at the flagship shapes in both modes, tier_estimate also at its
+    edge shapes (TIER_ESTIMATE_EDGES) and tier_consume at its
+    (TIER_CONSUME_EDGES); then on the calls one round of each tier cell
+    makes through its launcher (captured at launch; the rows-mode
+    estimates on both routes), with their time, device time, host enqueue,
+    plain time and bound per round, the two routes of tiers_dense's
+    estimate in turns, and tier_consume's library call (consume_timing).
+    tiers_estimator's round is held and timed in its cell
+    (run_tiers_estimator_cell), where its answers are built."""
     rng = np.random.default_rng(4)
     errs = dict.fromkeys(TIER_COUNTS, 0)
     B, C, K = shape_bucket(N_BINDINGS), shape_bucket(N_CLUSTERS), 128
     d = random_tier_inputs(rng, dev, B, C, 4, B // 4, K)
-    est = [d[k] for k in ESTIMATE_ARGS] + [d["rows"]]
-    bufs = [torch.full((B, C), -1, dtype=torch.int32, device=dev) for _ in range(2)]
-    extra = flagship_answers(rng, B, C, dev)
-    for e, tag in ((None, ""), (extra, ", extra_avail")):
-        errs["tier_estimate"] = max(
-            errs["tier_estimate"],
-            compare(f"tier_estimate[random, rows{tag}]",
-                    [kernels._tier_estimate_launch(*est, out=bufs[0], extra_avail=e)],
-                    [kernels.tier_estimate_plain(*est, out=bufs[1], extra_avail=e)], ("avail",)),
-            compare(f"tier_estimate[random, window{tag}]",
-                    [kernels._tier_estimate_launch(*est, cand_idx=d["cand_idx"], extra_avail=e)],
-                    [kernels.tier_estimate_plain(*est, cand_idx=d["cand_idx"], extra_avail=e)],
-                    ("c_avail",)))
-    del bufs, extra
+    d["extra"] = flagship_answers(rng, B, C, dev)
+    errs["tier_estimate"] = hold_tier_estimate("random", d)
     con = (d["consume_cap"], d["placed"], d["unsched"], d["request"], d["rows"])
     errs["tier_consume"] = compare("tier_consume[random, dense]",
                                    [kernels._tier_consume_launch(*con)],
@@ -2249,24 +2524,38 @@ def check_tier_kernels(dev, results):
         [kernels._tier_consume_launch(*con_k, cand_idx=d["cand_idx"])],
         [kernels.tier_consume_plain(*con_k, cand_idx=d["cand_idx"])], ("cap",))
     log(f"random inputs ({B}x{C}, {B // 4} tier rows, window {K}): tier_estimate (with and "
-        "without a random extra_avail) and tier_consume equal their plain versions exactly in "
-        "both modes")
-    del d, est, con, con_k
+        "without a random extra_avail, rows mode on both routes, the public wrapper and a "
+        "launcher) and tier_consume equal their plain versions exactly in both modes")
+    del d, con, con_k
+    for label, eB, eC, eR, eU, en, eK in TIER_ESTIMATE_EDGES:
+        e = tier_estimate_edge_inputs(rng, dev, label, eB, eC, eR, eU, en, eK)
+        errs["tier_estimate"] = max(errs["tier_estimate"], hold_tier_estimate(label, e))
+    log("edge inputs (" + "; ".join(f"{label}: B {eB}, C {eC}, R {eR}, U {eU}, n {en}, K {eK}"
+                                   for label, eB, eC, eR, eU, en, eK in TIER_ESTIMATE_EDGES)
+        + "): tier_estimate equals its plain version exactly in both modes, with and without "
+        "answers of -1, 0 and past the estimate, rows mode on both routes")
     for label, C, R, n, K in TIER_CONSUME_EDGES:
         e = tier_consume_edge_inputs(rng, dev, label, C, R, n, K)
-        con = (e["cap"], e["placed"], e["unsched"], e["request"], e["rows"])
-        errs["tier_consume"] = max(errs["tier_consume"], compare(
-            f"tier_consume[{label}, dense]", [kernels._tier_consume_launch(*con)],
-            [kernels.tier_consume_plain(*con)], ("cap",)))
-        con = (e["cap"], e["placed_k"], e["unsched"], e["request"], e["rows"])
-        errs["tier_consume_window"] = max(errs["tier_consume_window"], compare(
-            f"tier_consume[{label}, window K = {K}]",
-            [kernels._tier_consume_launch(*con, cand_idx=e["cand_idx"])],
-            [kernels.tier_consume_plain(*con, cand_idx=e["cand_idx"])], ("cap",)))
+        launcher = edge_consume_launcher(e)
+        for mode, name, placed, cand in (("dense", "tier_consume", e["placed"], None),
+                                         (f"window K = {K}", "tier_consume_window",
+                                          e["placed_k"], e["cand_idx"])):
+            con = (e["cap"], placed, e["unsched"], e["request"], e["rows"])
+            want = [kernels.tier_consume_plain(*con, cand_idx=cand)]
+            if cand is None:
+                launcher.rows_mode(e["avail"])
+            else:
+                launcher.window_mode(cand)
+            for via, got in (("wrapper", kernels._tier_consume_launch(*con, cand_idx=cand)),
+                             ("launcher", launcher.launch_consume(e["cap"], placed, e["unsched"],
+                                                                  e["rows"]))):
+                errs[name] = max(errs[name], compare(f"tier_consume[{label}, {mode}, {via}]",
+                                                     [got], want, ("cap",)))
     log("edge inputs (" + "; ".join(f"{label}: C {C}, R {R}, n {n}, K {K}"
                                    for label, C, R, n, K in TIER_CONSUME_EDGES)
-        + "): tier_consume equals its plain version exactly in both modes")
-    del e, con
+        + "): tier_consume equals its plain version exactly in both modes, through the public "
+        "wrapper and a round's launcher")
+    del e, con, launcher
 
     captured = {}
     for cell, duplicated, compact in TIER_CELLS:
@@ -2274,10 +2563,10 @@ def check_tier_kernels(dev, results):
         sched = ArrayScheduler(clusters, device=dev)
         expect = tier_expect(sched, bindings, placed, compact)
         row_kernel = "tail" if compact else "dense_filter"  # B2's per-tier rows, B3
-        with captured_launches(TIER_KERNELS + (row_kernel,)) as calls:
+        with captured_launches((row_kernel,)) as row_calls, captured_tier_calls() as calls:
             tier_round(sched, bindings, placed)
         torch.cuda.synchronize()
-        row_calls = calls.pop(row_kernel)
+        row_calls = row_calls[row_kernel]
         fields = TAIL_OUT if compact else FILTER_OUT
         name = "candidate_tail" if compact else "dense_filter"
         for i, (g, w) in enumerate(zip(run_calls(row_kernel, row_calls),
@@ -2295,45 +2584,40 @@ def check_tier_kernels(dev, results):
                 + expect.get("tier_consume_window", 0)}
         if got != want:
             raise AssertionError(f"{cell}: one round launched {got}, expected {want}")
-        spread = [consume_spread(a, kw) for a, kw in calls["tier_consume"]]
-        rows = {}
-        for n, cs in calls.items():
-            name = CONSUME_MODES[cell][0] if n == "tier_consume" else n
-            for i, (g, w) in enumerate(zip(run_calls(n, cs), run_calls(n, cs, plain=True))):
-                errs[name] = max(errs[name], compare(f"{name}[{cell} round, call {i}]", g, w,
-                                                     (n,)))
-            rows[n] = [int(args[-1].shape[0]) for args, _ in cs]
+        hold_tier_calls(cell, calls, errs, CONSUME_MODES[cell][0])
+        spread = [consume_spread(c) for c in calls["tier_consume"]]
+        rows = {n: [int(c.args[1].shape[0] if n == "tier_estimate" else c.args[3].shape[0])
+                    for c in cs] for n, cs in calls.items()}
         log(f"{cell}: one round's tier launches (rows per call {rows}, C x R "
-            f"{tuple(calls['tier_consume'][0][0][0].shape)}, tier_consume's nonzero placed "
+            f"{tuple(calls['tier_consume'][0].args[0].shape)}, tier_consume's nonzero placed "
             "entries, the distinct columns they land on and the most on one column per call "
-            f"{spread}) equal their plain versions exactly on the main path's own arguments")
+            f"{spread}) equal their plain versions exactly on the main path's own arguments "
+            "(the rows-mode estimates on both routes)")
         captured[cell] = calls
         del sched, clusters, bindings, placed
 
     timing = {}
     for cell, calls in captured.items():
-        ms, plain, b, by = timing[(cell, "tier_estimate")] = tier_timing(
-            "tier_estimate", calls["tier_estimate"])
-
-        def estimates(cs=calls["tier_estimate"]):
-            return run_calls("tier_estimate", cs, fresh_out=False)
-        est_dev, _ = profiled_calls_ms(estimates, TIER_TIMING_REPS)
-        est_host = host_enqueue_ms(estimates, TIER_TIMING_REPS)
-        timing[(cell, "tier_estimate device")] = est_dev
+        cs = calls["tier_estimate"]
+        timing[(cell, "tier_estimate")], est_text = estimate_timing(cs)
+        if cs[0].launcher.cand_idx is None:
+            ab_time(f"tier_estimate, {cell} round (rows mode, {len(cs)} launches), by route",
+                    {r: (lambda r=r: tier_runs(cs, fresh_out=False, route=r))
+                     for r in ("auto", "table", "element")}, TIER_TIMING_REPS)
         timing[cell], text = consume_timing(calls["tier_consume"], dev)
-        mode = "window" if CONSUME_MODES[cell][0] == "tier_consume_window" else "rows"
-        log(f"timing ({cell} round, the main path's arguments, per round): tier_estimate "
-            f"({mode} mode, {len(calls['tier_estimate'])} launches) {ms:.4f} ms, device "
-            f"{est_dev:.4f} under the profiler, host enqueue {est_host:.4f} (plain {plain:.4f}, "
-            f"bound {b:.4f} {by}); {text}")
+        mode = "rows" if cs[0].launcher.cand_idx is None else "window"
+        log(f"timing ({cell} round, the main path's arguments, per round): {mode} mode, "
+            f"{len(cs)} launches: {est_text}; {text}")
     del captured
     torch.cuda.empty_cache()
     csrc = "karmada_tpu_torch/kernels/csrc/tiers.cu"
-    ms, plain, b, by = timing[("tiers_dense", "tier_estimate")]
+    win = timing[("tiers_compact", "tier_estimate")]
     results["tier_estimate"] = dict(
         source=csrc, replaces="karmada_tpu/sched/preemption.py:125",
-        max_abs_err=errs["tier_estimate"], ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-        library_ms=None, device_ms=timing[("tiers_dense", "tier_estimate device")])
+        max_abs_err=errs["tier_estimate"], library_ms=None,
+        **timing[("tiers_dense", "tier_estimate")],
+        **{f"window_{k}": v for k, v in win.items()},
+        window_replaces="karmada_tpu/sched/candidates.py:770")
     for cell, (name, replaces) in CONSUME_MODES.items():
         results[name] = dict(source=csrc, replaces=replaces, max_abs_err=errs[name],
                              **timing[cell])
@@ -2835,27 +3119,23 @@ def run_tiers_estimator_cell(dev, smi, path_launches, flag, results):
     estimator_breakdown("tiers_estimator", registry, est, bindings, names,
                         lambda e: tier_round(sched, bindings, placed, e),
                         float(np.percentile(times, 50)))
-    with captured_launches(TIER_KERNELS) as calls:
+    with captured_tier_calls() as calls:
         tier_round(sched, bindings, placed, extra)
     torch.cuda.synchronize()
+    errs = {"tier_estimate": 0, "tier_consume_window": 0}
+    hold_tier_calls("tiers_estimator", calls, errs, "tier_consume_window")
     cs = calls["tier_estimate"]
-    err = 0
-    for i, (g, w) in enumerate(zip(run_calls("tier_estimate", cs),
-                                   run_calls("tier_estimate", cs, plain=True))):
-        err = max(err, compare(f"tier_estimate[tiers_estimator round, call {i}]", g, w,
-                               ("c_avail",)))
-    n_extra = sum(kw.get("extra_avail") is not None for _, kw in cs)
-    results["tier_estimate"]["max_abs_err"] = max(results["tier_estimate"]["max_abs_err"], err)
+    n_extra = sum(c.uses_answers() for c in cs)
+    results["tier_estimate"]["max_abs_err"] = max(results["tier_estimate"]["max_abs_err"],
+                                                  errs["tier_estimate"])
+    numbers, est_text = estimate_timing(cs)
     log(f"tiers_estimator: one round's {len(cs)} tier_estimate launches ({n_extra} with the "
-        "answers, the speculative ones without) equal their plain version")
+        f"answers, the speculative ones without) equal their plain version; timing (per round, "
+        f"bound counting the answers' reads): {est_text}")
+    results["tier_estimate"].update({f"estimator_{k}": v for k, v in numbers.items()})
     cs = calls["tier_consume"]
-    err = 0
-    for i, (g, w) in enumerate(zip(run_calls("tier_consume", cs),
-                                   run_calls("tier_consume", cs, plain=True))):
-        err = max(err, compare(f"tier_consume_window[tiers_estimator round, call {i}]", g, w,
-                               ("cap",)))
     r = results["tier_consume_window"]
-    r["max_abs_err"] = max(r["max_abs_err"], err)
+    r["max_abs_err"] = max(r["max_abs_err"], errs["tier_consume_window"])
     log(f"tiers_estimator: one round's {len(cs)} tier_consume_window launches equal their plain "
         f"version; timing (per round): {consume_timing(cs, dev)[1]}")
     del calls, cs
@@ -5179,7 +5459,9 @@ def main(argv=None) -> int:
         {"name": n, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
          "launches": path_launches.get(n, 0), "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r["library_ms"], "device_ms": r.get("device_ms"), "matches_plain": True}
+         "library_ms": r["library_ms"], "device_ms": r.get("device_ms"), "matches_plain": True,
+         **{k: v for k, v in r.items()
+            if k == "host_ms" or k.startswith(("window_", "estimator_"))}}
         for n, r in results.items()
     ]}
     print(json.dumps(line), flush=True)

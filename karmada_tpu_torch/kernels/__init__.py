@@ -49,9 +49,11 @@ Priority tiers (the tiered rounds of sched/preemption.py, composed with
 the kernels above):
 - `tier_estimate` (csrc/tiers.cu): the estimator answer over a tier's rows
   at a capacity matrix passed in, min-merged with the registered-estimator
-  answers when they are given, into the [B, C] avail buffer (rows mode)
-  or at the rows' candidate windows (window mode); the plain version is
-  `tier_estimate_plain`.
+  answers when they are given, into the [B, C] avail buffer (rows mode:
+  from a table per distinct request at that capacity, or per element,
+  `estimate_route`) or at the rows' candidate windows (window mode, a
+  tier's main and speculative passes in one launch when paired); the
+  plain version is `tier_estimate_plain`.
 - `tier_consume` (csrc/tiers.cu): the capacity left after a tier's
   committed placements, `max(cap - placed.T @ request, 0)` in exact
   int64, dense or scattered through the candidate windows (the window
@@ -119,6 +121,11 @@ The wide routes, kernels of their own with their own launch counts:
 selection with the row's keys in a device-memory scratch, csrc/
 candidate_select.cu) and `candidate_tail` past MAX_TAIL_K
 (`candidate_tail_wide`, csrc/dense_tail.cu in its window mode).
+
+A tiered round drives both tier kernels through one `TierLauncher`
+(`tier_launcher`): the round's constant tensors checked and their
+pointers bound once, then one C call a tier per estimate and per
+consumption.
 
 A wrapper runs the plain version only for tensors that lie on the CPU. For
 CUDA tensors it checks device, dtype, shape and contiguity, launches the
@@ -198,6 +205,9 @@ MAX_GROUP_STAGE = 1024
 # tier_consume keeps one int64 sum per resource in registers for up to 16
 # resources; a wider request runs in blocks of 16, one launch each
 TIER_RESOURCE_BLOCK = 16
+# a tiered round's launcher cuts its consumed capacities from blocks of
+# this many (a round consumes once a tier after the first)
+TIER_CAP_BLOCK = 8
 # sim_load sums up to 8 resources a launch (sim_load.cu kBlockR)
 SIM_LOAD_RESOURCE_BLOCK = 8
 # the dense tail stages a row in shared memory up to this width (dense_tail.cu
@@ -1530,39 +1540,36 @@ def tier_estimate(capacity, has_summary, req_unique, req_idx, replicas, unknown_
 
 
 def _tier_estimate_launch(capacity, has_summary, req_unique, req_idx, replicas,
-                          unknown_request, rows, *, out=None, cand_idx=None, extra_avail=None):
-    """Check, allocate and launch the tier-estimate kernel of its mode. Row
-    ids must lie in [0, B) and candidate columns in [0, C)."""
-    dev = capacity.device
-    C, R = capacity.shape
-    U = req_unique.shape[0]
-    B, n = req_idx.shape[0], rows.shape[0]
-    for name, t, dt, shape in (
-        ("capacity", capacity, I64, (C, R)), ("has_summary", has_summary, BOOL, (C,)),
-        ("req_unique", req_unique, I64, (U, R)), ("req_idx", req_idx, I32, (B,)),
-        ("replicas", replicas, I32, (B,)), ("unknown_request", unknown_request, BOOL, (B,)),
-        ("rows", rows, I32, (n,)),
-    ):
-        _check(name, t, dt, shape, dev)
-    if extra_avail is not None:
-        _check("extra_avail", extra_avail, I32, (B, C), dev)
-    K = 0
+                          unknown_request, rows, *, out=None, cand_idx=None, extra_avail=None,
+                          route: str = "auto"):
+    """Check, allocate and launch the tier-estimate kernel of its mode
+    through a one-call TierLauncher. Row ids must lie in [0, B) and
+    candidate columns in [0, C). `route` (rows mode): "table" builds the
+    estimate per distinct request first, "element" evaluates every
+    element, "auto" picks (`estimate_route`)."""
+    launcher = TierLauncher(has_summary, req_unique, req_idx, replicas, unknown_request,
+                            extra_avail=extra_avail)
+    dev, n = launcher.device, rows.shape[0]
+    _check("capacity", capacity, I64, (launcher.C, launcher.R), dev)
+    _check("rows", rows, I32, (n,), dev)
     if cand_idx is None:
-        _check("out", out, I32, (B, C), dev)
-        res = out
+        launcher.rows_mode(out)
     else:
-        K = cand_idx.shape[1]
-        _check("cand_idx", cand_idx, I32, (B, K), dev)
-        res = torch.empty((n, K), dtype=I32, device=dev)
-    if n == 0 or C == 0 or (cand_idx is not None and K == 0):
-        return res
-    rc = _bind("tiers", "tier_estimate_launch", _TIER_ESTIMATE_ARGTYPES)(
-        capacity.data_ptr(), has_summary.data_ptr(), C, R,
-        *_ptrs(replicas, unknown_request, req_unique, req_idx, extra_avail, rows), n,
-        _ptr(cand_idx), K, res.data_ptr(), _stream(dev),
-    )
-    _raise_on(rc, "tier_estimate")
-    return res
+        launcher.window_mode(cand_idx)
+        out = torch.empty((n, launcher.K), dtype=I32, device=dev)
+    return launcher.launch_estimate(capacity, rows, out=out, route=route)
+
+
+def estimate_route(U: int, n: int, route: str = "auto") -> str:
+    """The rows-mode estimate's route for n tier rows over U distinct
+    requests: the table of U x C entries while it is at most half the
+    tier's n x C elements, else every element ("table" / "element" force
+    one)."""
+    if route not in ("auto", "table", "element"):
+        raise ValueError(f"tier_estimate: unknown route {route!r}")
+    if route == "auto":
+        return "table" if 2 * U <= n else "element"
+    return route
 
 
 def tier_consume(cap, placed, unsched, request, rows, *, cand_idx=None):
@@ -1609,15 +1616,14 @@ _FEAS_IDX_ARGTYPES = [_VP, _CI, _CI, _CI, _VP, _VP]
 _GROUP_SCORE_ARGTYPES = [_VP] * 4 + [_CI, _VP, _CI] + [_VP] * 8 + [_CI] * 3 + [_VP] * 5
 _PACKED_SELECTION_ARGTYPES = [_VP, _CI, _VP, _CI, _VP, _CI, _VP, _VP, _VP]
 _COMBO_SELECT_ARGTYPES = [_VP] * 4 + [_CI] * 2 + [_VP] * 2 + [_CI] * 4 + [_VP] * 5
-_TIER_ESTIMATE_ARGTYPES = [_VP, _VP, _CI, _CI] + [_VP] * 6 + [_CI, _VP, _CI, _VP, _VP]
+_TIER_ROUND_ARGTYPES = [_VP] * 4 + [_CI] * 3 + [_VP] * 2
+_CONSUME_ROUND_ARGTYPES = [_VP] * 5 + [_CI, _VP]
 _STALENESS_ARGTYPES = [_VP, ctypes.c_int64, _CI, _VP, _VP]
 _SCATTER_ROWS_ARGTYPES = [_VP] * 4 + [_CI, _VP, _CI, _VP]
 _SIM_FILTER_ARGTYPES = [_VP] * 7 + [_CI] * 5 + [_VP] * 14 + [_CI] * 8 + [_VP] * 10
 _DENSE_INPUT_FILTER_ARGTYPES = ([_VP] * 7 + [_CI] * 4 + [_VP] * 8 + [_CI] + [_VP] * 4
                                 + [_CI] * 2 + [_VP] * 4)
 _MESH_TILE_FILTER_ARGTYPES = _FILTER_HEAD + [_CI] * 8 + [_VP, _CL] * 3 + [_VP] * 10
-_CONSUME_ARGTYPES = ([_VP, _CI, _CI] + [_VP] * 4 + [_CI, _CI, _VP, _CI] + [_VP] * 2
-                     + [ctypes.c_longlong, _VP])
 _DENSE_TAIL_ARGTYPES = [_VP] * 4 + [_CI, _VP, _CI] + [_VP] * 5 + [_CI] * 3 + [_VP] * 7
 _SPREAD_TAIL_ARGTYPES = ([_VP] * 4 + [_CI, _VP, _CI, _VP, _CI] + [_VP] * 4 + [_CI] * 3
                          + [_VP] * 8)
@@ -1628,10 +1634,9 @@ _SIM_LOAD_ARGTYPES = [_VP] * 3 + [_CI] * 4 + [_VP] * 3
 
 
 def _tier_consume_launch(cap, placed, unsched, request, rows, *, cand_idx=None):
-    """Check, allocate and launch the tier-consume kernel of its mode: the C
-    entry zeroes its scratch (the sums and the arrival counters, laid out
-    by tiers.cu) on the stream and launches once. Row ids must lie in
-    [0, B) and candidate columns in [0, C)."""
+    """Check the call's tensors and launch the tier-consume kernel of its
+    mode through a one-call _TierConsume (the path a round's launcher
+    takes). Row ids must lie in [0, B) and candidate columns in [0, C)."""
     dev = cap.device
     C, R = cap.shape
     n = placed.shape[0]
@@ -1640,39 +1645,292 @@ def _tier_consume_launch(cap, placed, unsched, request, rows, *, cand_idx=None):
     _check("unsched", unsched, BOOL, (n,), dev)
     _check("request", request, I64, (B, R), dev)
     _check("rows", rows, I32, (n,), dev)
-    window = cand_idx is not None
-    K = 0
-    if window:
-        K = cand_idx.shape[1]
-        _check("cand_idx", cand_idx, I32, (B, K), dev)
-        _check("placed", placed, I32, (n, K), dev)
+    if cand_idx is not None:
+        _check("cand_idx", cand_idx, I32, (B, cand_idx.shape[1]), dev)
+        _check("placed", placed, I32, (n, cand_idx.shape[1]), dev)
     else:
         _check("placed", placed, I32, (n, C), dev)
-    if R == 0:
-        raise ValueError("tier_consume: a request with no resource")
-    if C == 0:
-        return torch.empty((C, R), dtype=I64, device=dev)
-    fn = _bind("tiers", "tier_consume_launch", _CONSUME_ARGTYPES)
-    stream = _stream(dev)
-    Rb = min(R, TIER_RESOURCE_BLOCK)
-    scratch = torch.empty((C, Rb + 1), dtype=I64, device=dev)
-    outs = []
-    # each resource's sum and clamp is independent of the others: a request
-    # past the kernel's register budget runs as contiguous blocks of it
-    for r0 in range(0, R, TIER_RESOURCE_BLOCK):
-        r1 = min(R, r0 + TIER_RESOURCE_BLOCK)
-        cap_b, req_b = ((cap, request) if r1 - r0 == R else
-                        (cap[:, r0:r1].contiguous(), request[:, r0:r1].contiguous()))
-        out = torch.empty((C, r1 - r0), dtype=I64, device=dev)
-        rc = fn(
-            cap_b.data_ptr(), C, r1 - r0, placed.data_ptr(), unsched.data_ptr(),
-            req_b.data_ptr(), rows.data_ptr(), n, window,
-            cand_idx.data_ptr() if window else None, K, out.data_ptr(), scratch.data_ptr(),
-            scratch.numel() * 8, stream,
-        )
-        _raise_on(rc, "tier_consume")
-        outs.append(out)
-    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    return _TierConsume(request, C, cand_idx)(cap, placed, unsched, rows)
+
+
+class _TierRound(ctypes.Structure):
+    """tiers.cu's TierRound: one round's constant pointers and sizes."""
+    _fields_ = [(name, _VP) for name in (
+        "has_summary", "req_unique", "req_idx", "replicas", "unknown_request", "extra_avail",
+        "cand_idx", "est_u", "request", "scratch")] + [
+        ("scratch_bytes", _CL), ("stream", _VP)] + [(name, _CI) for name in "BCRUK"]
+
+
+class _BumpOutputs:
+    """Outputs of one shape cut in turn from a block of `depth` of them,
+    none handed out twice: a used-up block is followed by a new one (the
+    tensors cut from the old one keep it alive). One block serves a
+    round's tiers, whose rows partition the batch, for one allocation."""
+
+    def __init__(self, depth: int, shape: tuple, dtype, device):
+        self._depth, self._shape, self._dtype, self._device = depth, shape, dtype, device
+        self._block, self._off = None, depth
+
+    def take(self, n: int | None = None):
+        """The next n outputs as one [n, *shape] tensor, or with None the
+        next output alone."""
+        k = 1 if n is None else n
+        if self._off + k > self._depth:
+            self._block = torch.empty((max(self._depth, k),) + self._shape, dtype=self._dtype,
+                                      device=self._device)
+            self._off = 0
+        i = self._off
+        self._off += k
+        return self._block[i] if n is None else self._block[i:i + k]
+
+
+class _TierConsume:
+    """tier_consume on the card over one request table (i64 [B, R]): the
+    request in blocks of TIER_RESOURCE_BLOCK resources (each resource's
+    sum and clamp is independent of the others, so a request past the
+    kernel's register budget runs as contiguous slices of it), one
+    TierRound a block, one scratch for all; `window(cand_idx)` scatters
+    through the rows' candidate windows (i32 [B, K], checked by the
+    caller) or, with None, reads dense placements. A call takes the tier's
+    capacity, placements, flags and rows and writes a [C, R] capacity,
+    `out` or a new one: one C call (tier_consume_round) a block."""
+
+    def __init__(self, request, C: int, cand_idx=None):
+        dev = request.device
+        B, R = request.shape
+        _check("request", request, I64, (B, R), dev)
+        if R == 0:
+            raise ValueError("tier_consume: a request with no resource")
+        self.device, self.C, self.R = dev, C, R
+        self._fn = _bind("tiers", "tier_consume_round", _CONSUME_ROUND_ARGTYPES)
+        self._scratch = torch.empty((C, min(R, TIER_RESOURCE_BLOCK) + 1), dtype=I64, device=dev)
+        stream = _stream(dev)
+        self._blocks = []
+        for r0 in range(0, R, TIER_RESOURCE_BLOCK):
+            r1 = min(R, r0 + TIER_RESOURCE_BLOCK)
+            req_b = request if r1 - r0 == R else request[:, r0:r1].contiguous()
+            rnd = _TierRound(request=req_b.data_ptr(), scratch=self._scratch.data_ptr(),
+                             scratch_bytes=self._scratch.numel() * 8, stream=stream, B=B, C=C,
+                             R=r1 - r0)
+            self._blocks.append((r0, r1, req_b, rnd, ctypes.byref(rnd)))
+        self.window(cand_idx)
+
+    def window(self, cand_idx) -> None:
+        ptr, K = (None, 0) if cand_idx is None else (cand_idx.data_ptr(), cand_idx.shape[1])
+        for *_, rnd, _ref in self._blocks:
+            rnd.cand_idx, rnd.K = ptr, K
+
+    def __call__(self, cap, placed, unsched, rows, out=None):
+        n = placed.shape[0]
+        if out is None:
+            out = torch.empty((self.C, self.R), dtype=I64, device=self.device)
+        if self.C == 0:
+            return out
+        for r0, r1, _req, _rnd, ref in self._blocks:
+            whole = r1 - r0 == self.R
+            cap_b = cap if whole else cap[:, r0:r1].contiguous()
+            out_b = out if whole else torch.empty((self.C, r1 - r0), dtype=I64, device=self.device)
+            rc = self._fn(ref, cap_b.data_ptr(), placed.data_ptr(), unsched.data_ptr(),
+                          rows.data_ptr(), n, out_b.data_ptr())
+            _raise_on(rc, "tier_consume")
+            if not whole:
+                out[:, r0:r1] = out_b
+        return out
+
+
+class TierLauncher:
+    """One tiered round's `tier_estimate` and `tier_consume` launches on the
+    card, with the host work done once a round. The constructor checks the
+    round's constant tensors (the batch's request table and row columns,
+    its answers, the requests the consumption reads) and keeps them, their
+    device pointers in a `TierRound` the C entries read, the bound entries
+    and the stream; `rows_mode(avail)` or `window_mode(cand_idx)` sets the
+    mode and its tensor, checked once. Per tier a call passes only the
+    capacity, the tier's rows and, in rows mode, the output: `estimate`
+    (one C call: tier_estimate_round), in window mode `estimate_pair` (a
+    tier's main and speculative passes in one C call) and `consume` (one
+    C call a block of TIER_RESOURCE_BLOCK resources: _TierConsume), each
+    adding to its kernel's launch count; the `launch_*` methods launch
+    without counting (comparisons with the plain versions). Window
+    estimates and consumed capacities are cut in turn from blocks the
+    launcher allocates (`_BumpOutputs`), each handed out once, so a
+    round allocates them once and no output is ever overwritten. The
+    per-call tensors are the caller's: i64 [C, R] capacities, i32 row ids
+    in [0, B), and the tail's placements and flags, on the round's
+    device, contiguous (the public wrappers check each call; this path
+    does not). For CPU tensors use `tier_launcher`, which runs the plain
+    versions."""
+
+    def __init__(self, has_summary, req_unique, req_idx, replicas, unknown_request, *,
+                 request=None, extra_avail=None):
+        dev = has_summary.device
+        C = has_summary.shape[0]
+        U, R = req_unique.shape
+        B = req_idx.shape[0]
+        for name, t, dt, shape in (
+            ("has_summary", has_summary, BOOL, (C,)), ("req_unique", req_unique, I64, (U, R)),
+            ("req_idx", req_idx, I32, (B,)), ("replicas", replicas, I32, (B,)),
+            ("unknown_request", unknown_request, BOOL, (B,)),
+        ):
+            _check(name, t, dt, shape, dev)
+        if extra_avail is not None:
+            _check("extra_avail", extra_avail, I32, (B, C), dev)
+        if request is not None:
+            _check("request", request, I64, (B, R), dev)
+        self.device, self.B, self.C, self.R, self.U, self.K = dev, B, C, R, U, 0
+        self.has_summary, self.req_unique, self.req_idx = has_summary, req_unique, req_idx
+        self.replicas, self.unknown_request = replicas, unknown_request
+        self.extra_avail, self.request = extra_avail, request
+        self.avail = self.cand_idx = self._est_u = None
+        self._round = _TierRound(*_ptrs(has_summary, req_unique, req_idx, replicas,
+                                        unknown_request, extra_avail), None, None, None, None,
+                                 0, _stream(dev), B, C, R, U, 0)
+        self._ref = ctypes.byref(self._round)
+        self._estimate = _bind("tiers", "tier_estimate_round", _TIER_ROUND_ARGTYPES)
+        self._consume = self._caps = self._windows = None
+        if request is not None:
+            self._consume = _TierConsume(request, C)
+            self._caps = _BumpOutputs(TIER_CAP_BLOCK, (C, R), I64, dev)
+
+    def rows_mode(self, avail) -> "TierLauncher":
+        """Estimates into the i32 [B, C] avail buffer, in place; dense
+        consumption."""
+        _check("avail", avail, I32, (self.B, self.C), self.device)
+        self.avail = avail
+        self._window(None)
+        return self
+
+    def window_mode(self, cand_idx) -> "TierLauncher":
+        """Estimates at the rows' candidate windows (i32 [B, K]);
+        consumption scattered through them."""
+        _check("cand_idx", cand_idx, I32, (self.B, cand_idx.shape[1]), self.device)
+        self.avail = None
+        self._window(cand_idx)
+        return self
+
+    def _window(self, cand_idx) -> None:
+        self.cand_idx, self.K = cand_idx, 0 if cand_idx is None else cand_idx.shape[1]
+        self._round.cand_idx = None if cand_idx is None else cand_idx.data_ptr()
+        self._round.K = self.K
+        # a round's main and speculative windows: at most 2B rows
+        self._windows = None if cand_idx is None else _BumpOutputs(2 * self.B, (self.K,), I32,
+                                                                  self.device)
+        if self._consume is not None:
+            self._consume.window(cand_idx)
+
+    def launch_estimate(self, cap, rows, *, use_extra: bool = True, out=None,
+                        route: str = "auto"):
+        """The estimate at `cap` over the tier's `rows`, the answers
+        min-merged when `use_extra`: rows mode writes `out` (the avail
+        buffer by default) in place and returns it; window mode writes
+        `out` or else the next [n, K] of the launcher's block. Not
+        counted."""
+        n = rows.shape[0]
+        table = 0
+        if self.cand_idx is None:
+            res = self.avail if out is None else out
+            if estimate_route(self.U, n, route) == "table":
+                table = 1
+                if self._est_u is None:  # scratch the call's two kernels share
+                    self._est_u = torch.empty((self.U, self.C), dtype=I32, device=self.device)
+                    self._round.est_u = self._est_u.data_ptr()
+        else:
+            res = self._windows.take(n) if out is None else out
+        if n == 0 or self.C == 0 or (self.cand_idx is not None and self.K == 0):
+            return res
+        rc = self._estimate(self._ref, cap.data_ptr(), None, rows.data_ptr(), n, use_extra,
+                            table, res.data_ptr(), None)
+        _raise_on(rc, "tier_estimate")
+        return res
+
+    def launch_estimate_pair(self, cap, reclaim, rows, *, use_extra: bool = True, out=None):
+        """Window mode: a tier's main pass at `cap` (the answers
+        min-merged when `use_extra`) and its speculative pass at `cap +
+        reclaim` (i64 [C, R], no answers) in one launch; returns both, the
+        pair `out` or the next two [n, K] of the launcher's block. Not
+        counted."""
+        n = rows.shape[0]
+        main, spec = (self._windows.take(n), self._windows.take(n)) if out is None else out
+        if n == 0 or self.C == 0 or self.K == 0:
+            return main, spec
+        rc = self._estimate(self._ref, cap.data_ptr(), reclaim.data_ptr(), rows.data_ptr(), n,
+                            use_extra, 0, main.data_ptr(), spec.data_ptr())
+        _raise_on(rc, "tier_estimate")
+        return main, spec
+
+    def estimate(self, cap, rows, *, use_extra: bool = True, out=None):
+        res = self.launch_estimate(cap, rows, use_extra=use_extra, out=out)
+        _launched("tier_estimate")
+        return res
+
+    def estimate_pair(self, cap, reclaim, rows, *, use_extra: bool = True):
+        res = self.launch_estimate_pair(cap, reclaim, rows, use_extra=use_extra)
+        _launched("tier_estimate")
+        return res
+
+    def launch_consume(self, cap, placed, unsched, rows, *, out=None):
+        """The capacity the tier leaves: max(cap - placed.T @ request, 0)
+        over its committed rows, an i64 [C, R], `out` or the next of the
+        launcher's block. Not counted."""
+        if self._consume is None:
+            raise ValueError("tier_consume: the launcher was built without a request")
+        return self._consume(cap, placed, unsched, rows,
+                             out=self._caps.take() if out is None else out)
+
+    def consume(self, cap, placed, unsched, rows):
+        out = self.launch_consume(cap, placed, unsched, rows)
+        _launched("tier_consume" if self.cand_idx is None else "tier_consume_window",
+                  _resource_blocks(self.R, TIER_RESOURCE_BLOCK))
+        return out
+
+
+class _PlainTiers:
+    """The CPU round's launcher: TierLauncher's per-round methods over the
+    public wrappers `tier_estimate` / `tier_consume`, which run the plain
+    versions for CPU tensors."""
+
+    def __init__(self, has_summary, req_unique, req_idx, replicas, unknown_request, *,
+                 request=None, extra_avail=None):
+        self.has_summary, self.req_unique, self.req_idx = has_summary, req_unique, req_idx
+        self.replicas, self.unknown_request = replicas, unknown_request
+        self.extra_avail, self.request = extra_avail, request
+        self.avail = self.cand_idx = None
+
+    def rows_mode(self, avail) -> "_PlainTiers":
+        self.avail, self.cand_idx = avail, None
+        return self
+
+    def window_mode(self, cand_idx) -> "_PlainTiers":
+        self.avail, self.cand_idx = None, cand_idx
+        return self
+
+    def estimate(self, cap, rows, *, use_extra: bool = True, out=None):
+        return tier_estimate(
+            cap, self.has_summary, self.req_unique, self.req_idx, self.replicas,
+            self.unknown_request, rows, cand_idx=self.cand_idx,
+            out=None if self.cand_idx is not None else (self.avail if out is None else out),
+            extra_avail=self.extra_avail if use_extra else None)
+
+    def estimate_pair(self, cap, reclaim, rows, *, use_extra: bool = True):
+        return (self.estimate(cap, rows, use_extra=use_extra),
+                self.estimate(cap + reclaim, rows, use_extra=False))
+
+    def consume(self, cap, placed, unsched, rows):
+        return tier_consume(cap, placed, unsched, self.request, rows, cand_idx=self.cand_idx)
+
+
+def tier_launcher(has_summary, req_unique, req_idx, replicas, unknown_request, *, request=None,
+                  extra_avail=None):
+    """A tiered round's launcher (see TierLauncher): the card's for CUDA
+    tensors, the plain versions' (same methods) for CPU tensors."""
+    args = (has_summary, req_unique, req_idx, replicas, unknown_request)
+    kw = {"request": request, "extra_avail": extra_avail}
+    dev = has_summary.device
+    if dev.type == "cpu":
+        return _PlainTiers(*args, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"tier_launcher: unsupported device {dev}")
+    return TierLauncher(*args, **kw)
 
 
 def fleet_estimate(alloc, requested, pod_count, allowed_pods, cluster_id, n_clusters,

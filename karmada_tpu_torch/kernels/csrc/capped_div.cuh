@@ -1,10 +1,11 @@
 // capped_div.cuh: floor(x / d) in exact integer arithmetic, without the
 // int64 division's software sequence, in two forms.
 //
-// capped_div: min(lim, floor(x / d)). Shared by dense_filter.cu's factor
-// pass (the GeneralEstimator's cap // req, answers at or above INT32_MAX
-// become the row's replicas) and fleet_estimate.cu (a node's free capacity
-// // request, capped by its pods left).
+// capped_div: min(lim, floor(x / d)). Shared by filter_common.cuh's
+// factor_estimate (the GeneralEstimator's cap // req, answers at or above
+// INT32_MAX become the row's replicas: dense_filter.cu's factor pass,
+// tiers.cu's estimate) and fleet_estimate.cu (a node's free capacity //
+// request, capped by its pods left).
 //
 // Both callers only need the quotient below a cap lim <= INT32_MAX. So:
 // when d > x the quotient is 0; when lim * d <= x (the 128-bit product
@@ -18,8 +19,10 @@
 //
 // floor_div_rcp: floor(x / d) from the divisor's reciprocal m =
 // reciprocal(d) = ceil(2^64 / d), computed once per divisor, for a divisor
-// shared by many dividends (dense_filter.cu's dense-input tables: one
-// request over a tile's columns). x m / 2^64 lies in [x / d, x / d +
+// shared by many dividends (filter_common.cuh's factor_estimate_rcp:
+// dense_filter.cu's dense-input tables, one request over a tile's
+// columns; tiers.cu's per-element routes, one row's request over its
+// columns). x m / 2^64 lies in [x / d, x / d +
 // x / 2^64), and x < 2^63, so the high word t of x m is floor(x / d) or one
 // more; t d <= x + d < 2^64 tells which. Exact for 0 <= x < 2^63 and
 // 1 <= d < 2^63 (d = 1, whose m would need 65 bits, has m = 0).

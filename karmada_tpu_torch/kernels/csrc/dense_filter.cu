@@ -135,6 +135,7 @@
 
 #include "capped_div.cuh"
 #include "filter_common.cuh"
+#include "vec4.cuh"
 
 namespace {
 
@@ -142,94 +143,15 @@ using filter_common::FilterArgs;
 
 constexpr int kThreads = 256;
 
-// est_u's sentinel: "this row's replicas" (no resource requested, or the
-// minimum reaches INT32_MAX); every other entry is the answer in
-// [0, INT32_MAX).
-constexpr int32_t kEstReplicas = -1;
+// est_u's entries (filter_common.cuh, shared with tiers.cu's estimate so
+// the two cannot drift apart)
+using filter_common::factor_estimate;
 
-// general_estimate_unique's minimum for the request `req` (R resources)
-// against the capacity row `cap` of a column with a summary, with the
-// clamps of general_estimate_apply that do not depend on the row:
-// kEstReplicas when no resource is requested or the minimum reaches
-// INT32_MAX. A resource with cap <= 0 answers 0. (A column without a
-// summary answers 0; factor_kernel tests it. The dense-input kernel
-// applies the same rule through reciprocals: its step 5.)
-__device__ inline int32_t factor_estimate(const int64_t* cap, const int64_t* req, int R) {
-  bool any_req = false;
-  int64_t est = filter_common::kI32Max;  // the cap: at or above it the answer is replicas
-  for (int i = 0; i < R; ++i) {
-    const int64_t q = req[i];
-    if (q <= 0) continue;
-    any_req = true;
-    const int64_t v = cap[i];
-    if (v <= 0) {
-      est = 0;
-      break;
-    }
-    est = capped_div::capped_div(v, q, est);
-    if (est == 0) break;
-  }
-  if (!any_req || est >= filter_common::kI32Max) return kEstReplicas;
-  return (int32_t)est;
-}
-
-// Four adjacent elements: one 16-byte (or 4-byte for bytes) access where
-// kVec, else four scalar ones of which those at or past `n` are skipped.
-template <bool kVec>
-__device__ __forceinline__ int4 load4(const int32_t* at, int n) {
-  if (kVec) return *reinterpret_cast<const int4*>(at);
-  int4 v = make_int4(0, 0, 0, 0);
-  if (n > 0) v.x = at[0];
-  if (n > 1) v.y = at[1];
-  if (n > 2) v.z = at[2];
-  if (n > 3) v.w = at[3];
-  return v;
-}
-
-template <bool kVec>
-__device__ __forceinline__ uint32_t load4(const uint8_t* at, int n) {
-  if (kVec) return *reinterpret_cast<const uint32_t*>(at);
-  uint32_t v = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if (j < n) v |= (uint32_t)at[j] << (8 * j);
-  }
-  return v;
-}
-
-template <bool kVec>
-__device__ __forceinline__ void store4(int32_t* at, const int32_t (&v)[4], int n) {
-  if (kVec) {
-    *reinterpret_cast<int4*>(at) = make_int4(v[0], v[1], v[2], v[3]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (j < n) at[j] = v[j];
-    }
-  }
-}
-
-// The four bytes of a feasibility word (0 or 1 each) as one 32-bit store
-// where kVec, else byte by byte.
-template <bool kVec>
-__device__ __forceinline__ void store4(uint8_t* at, uint32_t v, int n) {
-  if (kVec) {
-    *reinterpret_cast<uint32_t*>(at) = v;
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (j < n) at[j] = (v >> (8 * j)) & 1;
-    }
-  }
-}
-
-__device__ __forceinline__ int lane4(const int4& v, int j) {
-  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
-}
-
-inline bool aligned(const void* at, uintptr_t bytes) {
-  return (reinterpret_cast<uintptr_t>(at) & (bytes - 1)) == 0;
-}
+// four adjacent elements a thread (vec4.cuh, shared with tiers.cu)
+using vec4::aligned;
+using vec4::lane4;
+using vec4::load4;
+using vec4::store4;
 
 // ---- the factored entries: the tables, then the tiled main pass ----
 
@@ -427,12 +349,7 @@ filter_main_kernel(FilterArgs p, const int64_t* tie_idx, Terms x, Tables f, Main
           const unsigned long long sv = slot[buf][at];
           slot[buf][at] = 0;
           evicted[buf][at] = 0;
-          const int32_t e = lane4(est, j);
-          int32_t a = e == kEstReplicas ? reps : e;
-          if (unknown) a = 0;
-          const int32_t xa = lane4(extra, j);
-          if (xa >= 0 && xa < a) a = xa;
-          avail[j] = a;
+          avail[j] = filter_common::apply_row(lane4(est, j), reps, unknown, lane4(extra, j));
           prev[j] = (int32_t)(uint32_t)sv;
           // the reference's int32 add of extra_score, which wraps
           score[j] = (int32_t)((uint32_t)(locality && sv != 0 ? 100 : 0) +
@@ -753,24 +670,10 @@ dense_input_group_kernel(FilterArgs p, DenseRows d, int qt) {
       const bool summ = cc < p.C && p.has_summary[cc];
       const int64_t* cap = p.capacity + (int64_t)(summ ? cc : 0) * R;
       for (int e = lo_s[0] + lane; e < n_req; e += lanes) {
-        int32_t out = 0;
-        if (summ) {
-          const int64_t* req = ent_req + (int64_t)e * R;
-          const uint64_t* rcp = ent_rcp + (int64_t)e * R;
-          bool any = false;
-          uint64_t est = filter_common::kI32Max;
-          for (int r = 0; r < R; ++r) {
-            const int64_t q = req[r];
-            if (q <= 0) continue;
-            any = true;
-            const int64_t v = cap[r];
-            const uint64_t t =
-                v <= 0 ? 0 : capped_div::floor_div_rcp((uint64_t)v, (uint64_t)q, rcp[r]);
-            est = t < est ? t : est;
-          }
-          out = (!any || est >= (uint64_t)filter_common::kI32Max) ? kEstReplicas : (int32_t)est;
-        }
-        est_s[e * width + lc] = out;
+        est_s[e * width + lc] =
+            summ ? filter_common::factor_estimate_rcp(cap, ent_req + (int64_t)e * R,
+                                                      ent_rcp + (int64_t)e * R, R)
+                 : 0;
       }
     }
     if (lo_s[1] < n_tol) {
@@ -817,12 +720,7 @@ dense_input_group_kernel(FilterArgs p, DenseRows d, int qt) {
         for (int j = 0; j < 4; ++j) {
           if (((ok >> (8 * j)) & 0xff) != 0) feas |= 1u << (8 * j);
           score[j] = ((member >> (8 * j)) & 0xff) != 0 ? 100 : 0;
-          const int32_t e = lane4(est, j);
-          int32_t a = e == kEstReplicas ? reps : e;
-          if (unknown) a = 0;
-          const int32_t xa = lane4(extra, j);
-          if (xa >= 0 && xa < a) a = xa;
-          avail[j] = a;
+          avail[j] = filter_common::apply_row(lane4(est, j), reps, unknown, lane4(extra, j));
         }
         store4<kVec>(d.feasible + at, feas, n);
         store4<kVec>(d.score + at, score, n);

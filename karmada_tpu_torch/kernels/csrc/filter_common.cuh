@@ -17,7 +17,14 @@
 // - tie_value / tie_from_index: splitmix64 over the global cluster id, or
 //   over an explicit 1-based index (uint64);
 // - estimate: the GeneralEstimator answer with the reference's clamps in
-//   its order, then the registered-estimator min-merge.
+//   its order, then the registered-estimator min-merge;
+// - factor_estimate / kEstReplicas: the same answer's part that depends
+//   only on the request and the column, the entry of the factored tables
+//   (dense_filter.cu's est_u) and of tiers.cu's estimate, which resolve
+//   the sentinel to the row's replicas and apply the row's own clamps
+//   (apply_row); factor_estimate_rcp the same through the request's
+//   reciprocals (dense_filter.cu's dense-input tables, tiers.cu's
+//   per-element routes).
 //
 // Mirrors karmada_tpu/sched/core.py filter_phase / filter_estimate_phase,
 // decompress_batch and tie_from_index, and ops/assign.py
@@ -27,6 +34,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "capped_div.cuh"
 
 namespace filter_common {
 
@@ -213,6 +222,84 @@ __device__ inline int32_t estimate(const FilterArgs& p, int b, int c) {
     if (e >= 0 && e < avail) avail = e;
   }
   return avail;
+}
+
+// The factored estimate's sentinel: "this row's replicas" (no resource
+// requested, or the minimum reaches INT32_MAX); every other entry is the
+// answer in [0, INT32_MAX).
+constexpr int32_t kEstReplicas = -1;
+
+// general_estimate_unique's minimum for the request `req` (R resources)
+// against the capacity row of a column with a summary (resource i's
+// capacity cap_at(i)), with the clamps of general_estimate_apply that do
+// not depend on the row: kEstReplicas when no resource is requested or
+// the minimum reaches INT32_MAX. A resource with cap <= 0 answers 0; each
+// cap // req goes through capped_div (no int64 division). A column
+// without a summary answers 0: the callers test it. With the row's clamps
+// (the sentinel to replicas, unknown_request to 0, the answers'
+// min-merge) it equals estimate() above.
+template <class CapAt>
+__device__ __forceinline__ int32_t factor_estimate_at(CapAt cap_at, const int64_t* req, int R) {
+  bool any_req = false;
+  int64_t est = kI32Max;  // the cap: at or above it the answer is replicas
+  for (int i = 0; i < R; ++i) {
+    const int64_t q = req[i];
+    if (q <= 0) continue;
+    any_req = true;
+    const int64_t v = cap_at(i);
+    if (v <= 0) {
+      est = 0;
+      break;
+    }
+    est = capped_div::capped_div(v, q, est);
+    if (est == 0) break;
+  }
+  if (!any_req || est >= kI32Max) return kEstReplicas;
+  return (int32_t)est;
+}
+
+__device__ inline int32_t factor_estimate(const int64_t* cap, const int64_t* req, int R) {
+  return factor_estimate_at([cap](int i) { return cap[i]; }, req, R);
+}
+
+// factor_estimate through the request's reciprocals rcp[i] =
+// capped_div::reciprocal(req[i]) (a request shared by many columns): one
+// high multiply and one correction per requested resource. Equal to
+// factor_estimate (the same sentinel, 0 for a resource with cap <= 0).
+// kUnroll > 0 (R <= kUnroll) unrolls the resources, so a caller's
+// capacities in a register array stay there.
+template <int kUnroll = 0, class CapAt>
+__device__ __forceinline__ int32_t factor_estimate_rcp_at(CapAt cap_at, const int64_t* req,
+                                                          const uint64_t* rcp, int R) {
+  bool any_req = false;
+  uint64_t est = kI32Max;
+#pragma unroll
+  for (int i = 0; i < (kUnroll > 0 ? kUnroll : R); ++i) {
+    if (kUnroll > 0 && i >= R) break;
+    const int64_t q = req[i];
+    if (q <= 0) continue;
+    any_req = true;
+    const int64_t v = cap_at(i);
+    const uint64_t t = v <= 0 ? 0 : capped_div::floor_div_rcp((uint64_t)v, (uint64_t)q, rcp[i]);
+    est = t < est ? t : est;
+  }
+  return (!any_req || est >= (uint64_t)kI32Max) ? kEstReplicas : (int32_t)est;
+}
+
+__device__ inline int32_t factor_estimate_rcp(const int64_t* cap, const int64_t* req,
+                                              const uint64_t* rcp, int R) {
+  return factor_estimate_rcp_at([cap](int i) { return cap[i]; }, req, rcp, R);
+}
+
+// A factored estimate with the row's clamps: the sentinel to the row's
+// replicas, an unknown request to 0, then the min-merge with a
+// non-negative registered-estimator answer `extra` (-1 = none).
+__device__ __forceinline__ int32_t apply_row(int32_t e, int32_t reps, bool unknown,
+                                             int32_t extra) {
+  int32_t a = e == kEstReplicas ? reps : e;
+  if (unknown) a = 0;
+  if (extra >= 0 && extra < a) a = extra;
+  return a;
 }
 
 // Fill the FilterArgs of a launch from its plain C arguments.

@@ -11,22 +11,51 @@
 //
 // tier_estimate: the GeneralEstimator answer at a capacity matrix passed in
 // (the residual, or the residual plus the reclaimable capacity of the
-// speculative preemption pass), with the reference's clamps in its order
-// (filter_common.cuh estimate()), min-merged with the registered-estimator
-// answers extra_avail[b, c] (i32[B, C], -1 = no answer) when they are
-// given: the reference merges them into every tier's main pass and leaves
-// them out of the speculative pass, which passes none.
+// speculative preemption pass), with the reference's clamps in its order,
+// min-merged with the registered-estimator answers extra_avail[b, c]
+// (i32[B, C], -1 = no answer) when they are given: the reference merges
+// them into every tier's main pass and leaves them out of the speculative
+// pass, which passes none. Each answer is filter_common.cuh's
+// factor_estimate (each cap // req through capped_div.cuh, the
+// kEstReplicas sentinel; or its reciprocal form), dense_filter.cu's table
+// entry, then the row's clamps (apply_row), so the tier estimate and the
+// dense filter evaluate one function.
 //   - rows mode: for row ids rows[j], avail[rows[j], c] for every column c,
-//     written into the [B, C] avail buffer the dense tail then reads
-//     through the same row ids;
+//     written in place into the [B, C] avail buffer the dense tail then
+//     reads through the same row ids (the other rows untouched). The write
+//     is the cost (n x C x 4 bytes; the capacity, C x R int64, stays in
+//     L2). Two routes, chosen by the caller (kernels.estimate_route):
+//     - table (the tier's rows share few requests: the flagship's ~2 560
+//       tier rows share 4): tier_table_kernel builds est_u [U, C] at the
+//       capacity (U x C entries), then tier_rows_kernel<kVec>, grid (column
+//       tiles, groups of 16 of the tier's rows), 256 threads, each owning
+//       4 adjacent columns of one row (32-256 threads a row, as
+//       dense_filter.cu's main pass), reads est_u[req_idx[b]] and the
+//       answers with 16-byte loads and writes with 16-byte streaming
+//       stores (the avail rows are read again only by the tail);
+//     - element (distinct requests about as many as the tier's rows):
+//       tier_element_kernel, a thread a column, its capacities read once
+//       into registers for every row, each row's requests and their
+//       reciprocals staged in shared memory (capped_div::floor_div_rcp:
+//       one high multiply and a correction a resource; past 16 resources
+//       capped_div itself), 4-byte streaming stores coalesced over the
+//       warp.
+//     The group's row ids and row columns are staged once in shared
+//     memory. Scalar accesses where C % 4 != 0 or a base is off a 16-byte
+//     boundary.
 //   - window mode: c_avail[j, k] at the candidate column cand_idx[rows[j],
 //     k] (the answer read at extra_avail[rows[j], cand_idx[rows[j], k]]),
 //     the order of `_compact_estimate` (candidates.py:177), which is the
-//     same clamp order.
-// One block of 256 threads per row striding over the columns or window
-// slots; each element is one int64 division per requested resource. Bound
-// by memory bandwidth: 4 bytes written per element, the capacity matrix
-// (C x R int64) stays in L2.
+//     same clamp order. A thread a window slot, 128 threads a row (the
+//     width rounded up to a warp when narrower), each slot's estimate
+//     through the row's staged reciprocals over the capacity row in L2.
+//     A later tier's main pass (at the residual, with the answers) and
+//     speculative pass (at the residual plus the tier's reclaim, summed in
+//     the kernel, without them) can run as one launch with two outputs.
+//   One launch a call (two on the table route). The per-round launcher
+//   (kernels.TierLauncher) builds a TierRound of the round's constant
+//   pointers once and passes only the capacity, the rows, the use of the
+//   answers and the outputs per call (tier_estimate_round).
 //
 // tier_consume: cap' = max(cap - cons, 0) with cons[c, r] = sum over the
 // tier's committed rows j (not unschedulable) of placed[j, c] *
@@ -63,6 +92,11 @@
 //     once) meets at a barrier on the first counter, then writes the
 //     output over the whole grid.
 //
+//   The one entry (tier_consume_round) takes the request, the window, the
+//   scratch and the stream from a TierRound that the host builds once per
+//   request table (kernels._TierConsume: a round's launcher, or one call
+//   of the public wrapper).
+//
 // Built by karmada_tpu_torch/kernels/build.py with nvcc for sm_90a and
 // called through the plain C entry points at the bottom (ctypes).
 
@@ -72,10 +106,10 @@
 #include <algorithm>
 
 #include "filter_common.cuh"
+#include "vec4.cuh"
 
 namespace {
 
-using filter_common::FilterArgs;
 using u64 = unsigned long long;
 
 constexpr int kThreads = 256;
@@ -91,22 +125,290 @@ constexpr int kWinThreads = 512;       // window consumption: a warp per row
 constexpr int kWinSmem = 227 * 1024;  // shared memory a block may take (sm_90)
 constexpr int kClampBatch = 8;  // elements a clamping thread loads before it stores
 
-__global__ void __launch_bounds__(kThreads)
-tier_estimate_rows_kernel(FilterArgs p, const int32_t* rows, int32_t* avail) {
-  const int b = rows[blockIdx.x];
-  int32_t* out = avail + (int64_t)b * p.C;
-  for (int c = threadIdx.x; c < p.C; c += blockDim.x) out[c] = filter_common::estimate(p, b, c);
+// The estimate's inputs beside the capacity a call passes.
+struct EstArgs {
+  const int64_t* cap;              // [C,R]
+  const uint8_t* has_summary;      // [C]
+  const int64_t* req_unique;       // [U,R]
+  const int32_t* req_idx;          // [B]
+  const int32_t* replicas;         // [B]
+  const uint8_t* unknown_request;  // [B]
+  const int32_t* extra;            // [B,C] answers or null
+  const int32_t* rows;             // [n]
+  const int32_t* est_u;            // [U,C] (the table route) or null
+  const int64_t* reclaim;          // [C,R] (window mode's paired speculative pass) or null
+  int C, R, U, n;
+};
+
+// The estimate of column c for request row u (filter_common.cuh), 0
+// without a summary.
+__device__ __forceinline__ int32_t column_estimate(const EstArgs& a, int c, int u) {
+  return a.has_summary[c] ? filter_common::factor_estimate(a.cap + (int64_t)c * a.R,
+                                                           a.req_unique + (int64_t)u * a.R, a.R)
+                          : 0;
 }
 
-__global__ void __launch_bounds__(kThreads)
-tier_estimate_window_kernel(FilterArgs p, const int32_t* rows, const int32_t* cand_idx, int K,
-                            int32_t* c_avail) {
-  const int j = blockIdx.x;
-  const int b = rows[j];
-  const int32_t* cand = cand_idx + (int64_t)b * K;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    c_avail[(int64_t)j * K + k] = filter_common::estimate(p, b, cand[k]);
+// The table route's first launch: est_u[u, c], grid (column blocks,
+// request rows; blockIdx.y strides over U).
+__global__ void __launch_bounds__(kThreads) tier_table_kernel(EstArgs a, int32_t* est_u) {
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= a.C) return;
+  for (int u = blockIdx.y; u < a.U; u += gridDim.y) {
+    est_u[(int64_t)u * a.C + c] = column_estimate(a, c, u);
   }
+}
+
+// The estimate's routes: est_u's entry read (kTable, rows mode), or per
+// element through the row's request reciprocals staged in shared memory
+// (kRcp, up to kRcpMaxR resources) or through capped_div (kDirect, wider
+// requests).
+enum Route : int { kTable = 0, kRcp = 1, kDirect = 2 };
+constexpr int kRcpMaxR = 16;
+constexpr int kEstGroupRows = 16;  // rows a rows-mode block stages at a time
+
+// Rows j0 .. j0 + m - 1's ids and row columns into shared memory (threads
+// 0 .. m - 1), and with kRcp, after a barrier, their requests and the
+// requests' reciprocals (a thread a resource). Ends with a barrier.
+template <int kRoute>
+__device__ __forceinline__ void stage_rows(const EstArgs& a, int j0, int m, int32_t* row_s,
+                                           int32_t* req_s, int32_t* reps_s, bool* unknown_s,
+                                           int64_t* q_s, uint64_t* rcp_s) {
+  if ((int)threadIdx.x < m) {
+    const int b = a.rows[j0 + threadIdx.x];
+    row_s[threadIdx.x] = b;
+    req_s[threadIdx.x] = a.req_idx[b];
+    reps_s[threadIdx.x] = a.replicas[b];
+    unknown_s[threadIdx.x] = a.unknown_request[b] != 0;
+  }
+  __syncthreads();
+  if constexpr (kRoute == kRcp) {
+    if ((int)threadIdx.x < m * a.R) {
+      const int rs = threadIdx.x / a.R;
+      const int i = threadIdx.x - rs * a.R;
+      const int64_t q = a.req_unique[(int64_t)req_s[rs] * a.R + i];
+      q_s[rs * kRcpMaxR + i] = q;
+      rcp_s[rs * kRcpMaxR + i] = capped_div::reciprocal(q > 0 ? (uint64_t)q : 1);
+    }
+    __syncthreads();
+  }
+}
+
+// A column's estimate for staged row rs (request u) on a per-element
+// route, its capacities cap_at(i).
+template <int kRoute, class CapAt>
+__device__ __forceinline__ int32_t element_estimate_at(const EstArgs& a, CapAt cap_at, int u,
+                                                       int rs, const int64_t* q_s,
+                                                       const uint64_t* rcp_s) {
+  if constexpr (kRoute == kRcp) {
+    return filter_common::factor_estimate_rcp_at(cap_at, q_s + rs * kRcpMaxR,
+                                                 rcp_s + rs * kRcpMaxR, a.R);
+  } else {
+    return filter_common::factor_estimate_at(cap_at, a.req_unique + (int64_t)u * a.R, a.R);
+  }
+}
+
+// Rows mode's table route, grid (column tiles of 4 qt columns, groups of
+// kEstGroupRows of the tier's rows; blockIdx.y strides over the groups).
+// The block stages its group's row ids and row columns, then walks the
+// rows kThreads / qt at a time, each thread writing 4 adjacent columns of
+// one row from est_u's row.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads) tier_rows_kernel(EstArgs a, int32_t* avail, int qt) {
+  __shared__ int32_t row_s[kEstGroupRows], req_s[kEstGroupRows], reps_s[kEstGroupRows];
+  __shared__ bool unknown_s[kEstGroupRows];
+  const int par = kThreads / qt;
+  const int sub = threadIdx.x / qt;
+  const int c0 = blockIdx.x * 4 * qt;
+  const int c = c0 + 4 * (threadIdx.x - sub * qt);
+  const int nc = min(c0 + 4 * qt, a.C) - c;  // this thread's columns (4 or more when kVec)
+  const int groups = (a.n + kEstGroupRows - 1) / kEstGroupRows;
+  for (int g = blockIdx.y; g < groups; g += gridDim.y) {
+    const int j0 = g * kEstGroupRows;
+    const int m = min(kEstGroupRows, a.n - j0);
+    __syncthreads();  // the previous group's rows are read
+    stage_rows<kTable>(a, j0, m, row_s, req_s, reps_s, unknown_s, nullptr, nullptr);
+    if (nc <= 0) continue;
+#pragma unroll 4
+    for (int rs = sub; rs < m; rs += par) {
+      const int64_t at = (int64_t)row_s[rs] * a.C + c;
+      const int4 est = vec4::load4<kVec>(a.est_u + (int64_t)req_s[rs] * a.C + c, nc);
+      int4 extra = make_int4(-1, -1, -1, -1);
+      if (a.extra != nullptr) extra = vec4::load4<kVec>(a.extra + at, nc);
+      int32_t v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[j] = filter_common::apply_row(vec4::lane4(est, j), reps_s[rs], unknown_s[rs],
+                                        vec4::lane4(extra, j));
+      }
+      if (kVec) {  // streaming: written once, read by the tail after the whole tier
+        __stcs(reinterpret_cast<int4*>(avail + at), make_int4(v[0], v[1], v[2], v[3]));
+      } else {
+        vec4::store4<kVec>(avail + at, v, nc);
+      }
+    }
+  }
+}
+
+// Rows mode's per-element routes, grid (column blocks of kThreads, groups
+// of kEstGroupRows of the tier's rows; blockIdx.y strides over the
+// groups), a thread a column: its summary flag and, on the kRcp route,
+// its capacities (kCapR >= R of them) read once into registers for every
+// row; each row's estimate through the staged requests and reciprocals
+// (kRcp) or through capped_div (kDirect); 4-byte stores, coalesced over
+// the warp.
+template <int kRoute, int kCapR>
+__global__ void __launch_bounds__(kThreads) tier_element_kernel(EstArgs a, int32_t* avail) {
+  __shared__ int32_t row_s[kEstGroupRows], req_s[kEstGroupRows], reps_s[kEstGroupRows];
+  __shared__ bool unknown_s[kEstGroupRows];
+  __shared__ int64_t q_s[kRoute == kRcp ? kEstGroupRows * kRcpMaxR : 1];
+  __shared__ uint64_t rcp_s[kRoute == kRcp ? kEstGroupRows * kRcpMaxR : 1];
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  const bool live = c < a.C;
+  const bool summ = live && a.has_summary[c] != 0;
+  const int64_t* cap = a.cap + (int64_t)(summ ? c : 0) * a.R;
+  int64_t capv[kCapR];
+#pragma unroll
+  for (int i = 0; i < kCapR; ++i) capv[i] = kRoute == kRcp && summ && i < a.R ? cap[i] : 0;
+  const int groups = (a.n + kEstGroupRows - 1) / kEstGroupRows;
+  for (int g = blockIdx.y; g < groups; g += gridDim.y) {
+    const int j0 = g * kEstGroupRows;
+    const int m = min(kEstGroupRows, a.n - j0);
+    __syncthreads();  // the previous group's rows are read
+    stage_rows<kRoute>(a, j0, m, row_s, req_s, reps_s, unknown_s, q_s, rcp_s);
+    if (!live) continue;
+    for (int rs = 0; rs < m; ++rs) {
+      int32_t e = 0;
+      if (summ) {
+        if constexpr (kRoute == kRcp) {
+          e = filter_common::factor_estimate_rcp_at<kCapR>(
+              [&capv](int i) { return capv[i]; }, q_s + rs * kRcpMaxR, rcp_s + rs * kRcpMaxR,
+              a.R);
+        } else {
+          e = filter_common::factor_estimate(cap, a.req_unique + (int64_t)req_s[rs] * a.R, a.R);
+        }
+      }
+      const int64_t at = (int64_t)row_s[rs] * a.C + c;
+      __stcs(avail + at, filter_common::apply_row(e, reps_s[rs], unknown_s[rs],
+                                                  a.extra == nullptr ? -1 : a.extra[at]));
+    }
+  }
+}
+
+// Window mode: tpr threads a row (the window's width rounded up to a
+// warp, at most 128), kThreads / tpr rows a block, a thread a window slot
+// (the candidate columns read and the answers written coalesced, 4 bytes
+// a thread). kPair also writes the speculative pass into out2: the same
+// slots at the capacity plus a.reclaim (the int64 sum, wrapping as
+// torch's add does), without the answers.
+constexpr int kWindowRowThreads = 128;
+
+template <int kRoute, bool kPair>
+__global__ void __launch_bounds__(kThreads)
+tier_window_kernel(EstArgs a, const int32_t* cand_idx, int K, int32_t* out, int32_t* out2,
+                   int tpr) {
+  constexpr int kRows = kThreads / 32;  // rows a block holds at most
+  __shared__ int32_t row_s[kRows], req_s[kRows], reps_s[kRows];
+  __shared__ bool unknown_s[kRows];
+  __shared__ int64_t q_s[kRoute == kRcp ? kRows * kRcpMaxR : 1];
+  __shared__ uint64_t rcp_s[kRoute == kRcp ? kRows * kRcpMaxR : 1];
+  const int per = kThreads / tpr;
+  const int j0 = blockIdx.x * per;
+  const int m = min(per, a.n - j0);
+  stage_rows<kRoute>(a, j0, m, row_s, req_s, reps_s, unknown_s, q_s, rcp_s);
+  const int rs = threadIdx.x / tpr;
+  if (rs >= m) return;
+  const int b = row_s[rs];
+  const int u = req_s[rs];
+  const int32_t reps = reps_s[rs];
+  const bool unknown = unknown_s[rs];
+  const int32_t* cand = cand_idx + (int64_t)b * K;
+  const int32_t* extra = a.extra == nullptr ? nullptr : a.extra + (int64_t)b * a.C;
+  const int64_t row = (int64_t)(j0 + rs) * K;
+  for (int k = threadIdx.x - rs * tpr; k < K; k += tpr) {
+    const int col = cand[k];
+    const bool summ = a.has_summary[col] != 0;
+    const int64_t* cap = a.cap + (int64_t)col * a.R;
+    const int32_t e =
+        summ ? element_estimate_at<kRoute>(a, [cap](int i) { return cap[i]; }, u, rs, q_s, rcp_s)
+             : 0;
+    out[row + k] = filter_common::apply_row(e, reps, unknown, extra == nullptr ? -1 : extra[col]);
+    if constexpr (kPair) {
+      const int64_t* rec = a.reclaim + (int64_t)col * a.R;
+      const auto both = [cap, rec](int i) {
+        return (int64_t)((uint64_t)cap[i] + (uint64_t)rec[i]);
+      };
+      const int32_t e2 = summ ? element_estimate_at<kRoute>(a, both, u, rs, q_s, rcp_s) : 0;
+      out2[row + k] = filter_common::apply_row(e2, reps, unknown, -1);
+    }
+  }
+}
+
+template <int kRoute>
+void launch_window(const EstArgs& a, const int32_t* cand_idx, int K, int32_t* out,
+                   int32_t* out2, cudaStream_t s) {
+  const int tpr = std::min(kWindowRowThreads, (K + 31) / 32 * 32);
+  const int per = kThreads / tpr;
+  const dim3 grid((a.n + per - 1) / per);
+  if (a.reclaim != nullptr) {
+    tier_window_kernel<kRoute, true><<<grid, kThreads, 0, s>>>(a, cand_idx, K, out, out2, tpr);
+  } else {
+    tier_window_kernel<kRoute, false><<<grid, kThreads, 0, s>>>(a, cand_idx, K, out, out2, tpr);
+  }
+}
+
+// One estimate call: rows mode when cand_idx is null (out is the [B, C]
+// avail buffer), window mode otherwise (out is c_avail [n, K]; with
+// a.reclaim set, out2 the speculative pass's); the table route when
+// a.est_u is set (rows mode only).
+int launch_estimate(const EstArgs& a, const int32_t* cand_idx, int K, int32_t* out,
+                    int32_t* out2, cudaStream_t s) {
+  if (a.n <= 0 || a.C <= 0) return (int)cudaErrorInvalidValue;
+  const bool rcp = a.R <= kRcpMaxR;
+  if (cand_idx != nullptr) {
+    if (K <= 0 || (a.reclaim != nullptr && out2 == nullptr)) return (int)cudaErrorInvalidValue;
+    if (rcp) {
+      launch_window<kRcp>(a, cand_idx, K, out, out2, s);
+    } else {
+      launch_window<kDirect>(a, cand_idx, K, out, out2, s);
+    }
+    return (int)cudaGetLastError();
+  }
+  if (a.reclaim != nullptr) return (int)cudaErrorInvalidValue;
+  const int groups = (a.n + kEstGroupRows - 1) / kEstGroupRows;
+  if (a.est_u == nullptr) {  // a per-element route
+    const dim3 egrid((a.C + kThreads - 1) / kThreads, std::min(groups, 65535));
+    if (a.R <= 4) {
+      tier_element_kernel<kRcp, 4><<<egrid, kThreads, 0, s>>>(a, out);
+    } else if (a.R <= 8) {
+      tier_element_kernel<kRcp, 8><<<egrid, kThreads, 0, s>>>(a, out);
+    } else if (rcp) {
+      tier_element_kernel<kRcp, kRcpMaxR><<<egrid, kThreads, 0, s>>>(a, out);
+    } else {
+      tier_element_kernel<kDirect, 1><<<egrid, kThreads, 0, s>>>(a, out);
+    }
+    return (int)cudaGetLastError();
+  }
+  const dim3 tgrid((a.C + kThreads - 1) / kThreads, std::min(a.U, 65535));
+  tier_table_kernel<<<tgrid, kThreads, 0, s>>>(a, const_cast<int32_t*>(a.est_u));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // threads a row: the fewest of 32-256 whose 4 columns each cover C, or
+  // fewer where the tiles then pad C less (dense_filter.cu's rule)
+  int qt = 32;
+  while (qt < kThreads && 4 * qt < a.C) qt *= 2;
+  const auto pad = [&](int q) { return (a.C + 4 * q - 1) / (4 * q) * (4 * q) - a.C; };
+  for (int q = qt / 2; q >= 32; q /= 2) {
+    if (pad(q) < pad(qt)) qt = q;
+  }
+  const dim3 grid((a.C + 4 * qt - 1) / (4 * qt), std::min(groups, 65535));
+  const bool vec = a.C % 4 == 0 && vec4::aligned(out, 16) && vec4::aligned(a.extra, 16) &&
+                   vec4::aligned(a.est_u, 16);
+  if (vec) {
+    tier_rows_kernel<true><<<grid, kThreads, 0, s>>>(a, out, qt);
+  } else {
+    tier_rows_kernel<false><<<grid, kThreads, 0, s>>>(a, out, qt);
+  }
+  return (int)cudaGetLastError();
 }
 
 // out[i] = max(cap[i] - sums[i], 0) for i in [lo, hi), the thread starting
@@ -277,7 +579,7 @@ struct ConsumeArgs {
   const int64_t* request;
   const int32_t* rows;
   const int32_t* cand_idx;
-  int n, C, K;
+  int n, C, R, K;
   bool window;
   u64* sums;
   int64_t* out;
@@ -339,80 +641,87 @@ int dispatch_consume(int r, const ConsumeArgs& a, cudaStream_t s) {
   }
 }
 
-FilterArgs estimate_args(const void* capacity, const void* has_summary, int C, int R,
-                         const void* replicas, const void* unknown_request,
-                         const void* req_unique, const void* req_idx,
-                         const void* extra_avail) {
-  FilterArgs p = {};
-  p.capacity = static_cast<const int64_t*>(capacity);
-  p.has_summary = static_cast<const uint8_t*>(has_summary);
-  p.C = C;
-  p.R = R;
-  p.replicas = static_cast<const int32_t*>(replicas);
-  p.unknown_request = static_cast<const uint8_t*>(unknown_request);
-  p.req_unique = static_cast<const int64_t*>(req_unique);
-  p.req_idx = static_cast<const int32_t*>(req_idx);
-  p.extra_avail = static_cast<const int32_t*>(extra_avail);  // null: no answers
-  return p;
+// Zero the scratch (the [C, R] sums, then the counters) on the stream and
+// launch the consumption of its mode once.
+int run_consume(ConsumeArgs a, void* scratch, long long scratch_bytes, cudaStream_t s) {
+  if (a.C <= 0 || a.R <= 0 || a.R > kMaxR || a.n < 0 || a.K < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long sum_bytes = (long long)a.C * a.R * 8;
+  const long long used = sum_bytes + 4LL * consume_strips(a.C);
+  if (scratch_bytes < (long long)a.C * (a.R + 1) * 8) return (int)cudaErrorInvalidValue;
+  const cudaError_t rc = cudaMemsetAsync(scratch, 0, (size_t)used, s);
+  if (rc != cudaSuccess) return (int)rc;
+  a.sums = static_cast<u64*>(scratch);
+  a.done = reinterpret_cast<unsigned*>(static_cast<char*>(scratch) + sum_bytes);
+  return dispatch_consume(a.R, a, s);
 }
 
 }  // namespace
 
-// rows mode when cand_idx is null (avail is the [B, C] buffer), window
-// mode otherwise (out is c_avail [n, K]); extra_avail is the [B, C]
-// answer matrix or null.
-extern "C" int tier_estimate_launch(
-    const void* capacity, const void* has_summary, int C, int R, const void* replicas,
-    const void* unknown_request, const void* req_unique, const void* req_idx,
-    const void* extra_avail, const void* rows, int n, const void* cand_idx, int K, void* out,
-    void* stream) {
-  if (n <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
-  const FilterArgs p = estimate_args(capacity, has_summary, C, R, replicas, unknown_request,
-                                     req_unique, req_idx, extra_avail);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cand_idx == nullptr) {
-    tier_estimate_rows_kernel<<<n, kThreads, 0, s>>>(p, static_cast<const int32_t*>(rows),
-                                                      static_cast<int32_t*>(out));
-  } else {
-    if (K <= 0) return (int)cudaErrorInvalidValue;
-    tier_estimate_window_kernel<<<n, kThreads, 0, s>>>(
-        p, static_cast<const int32_t*>(rows), static_cast<const int32_t*>(cand_idx), K,
-        static_cast<int32_t*>(out));
-  }
-  return (int)cudaGetLastError();
+// One round's constant pointers and sizes, in host memory (built once a
+// round by kernels.TierLauncher and kernels._TierConsume, a ctypes
+// Structure of the same layout):
+// the estimate's row columns and request table, the answers (or null),
+// the window (cand_idx, or null in rows mode), the table route's est_u
+// scratch (or null), and the consumption's request [B, R] (R of this
+// resource block), its scratch and the stream.
+struct TierRound {
+  const uint8_t* has_summary;      // [C]
+  const int64_t* req_unique;       // [U,R]
+  const int32_t* req_idx;          // [B]
+  const int32_t* replicas;         // [B]
+  const uint8_t* unknown_request;  // [B]
+  const int32_t* extra_avail;      // [B,C] or null
+  const int32_t* cand_idx;         // [B,K] or null
+  int32_t* est_u;                  // [U,C] or null
+  const int64_t* request;          // [B,R] or null
+  void* scratch;                   // C x (R + 1) int64 words
+  long long scratch_bytes;
+  void* stream;
+  int B, C, R, U, K;
+};
+
+// The launcher's estimate: `capacity` [C, R] and the tier's `rows` [n];
+// the answers min-merged when use_extra and the round has them, the table
+// route when use_table (rows mode; the round's est_u is then set). With
+// `reclaim` [C, R] (window mode) the same launch also writes the
+// speculative pass at capacity + reclaim, without the answers, to out2.
+extern "C" int tier_estimate_round(const TierRound* t, const void* capacity,
+                                   const void* reclaim, const void* rows, int n, int use_extra,
+                                   int use_table, void* out, void* out2) {
+  if (use_table && t->est_u == nullptr) return (int)cudaErrorInvalidValue;
+  const EstArgs a{static_cast<const int64_t*>(capacity), t->has_summary, t->req_unique,
+                  t->req_idx, t->replicas, t->unknown_request,
+                  use_extra ? t->extra_avail : nullptr, static_cast<const int32_t*>(rows),
+                  use_table && t->cand_idx == nullptr ? t->est_u : nullptr,
+                  static_cast<const int64_t*>(reclaim), t->C, t->R, t->U, n};
+  return launch_estimate(a, t->cand_idx, t->K, static_cast<int32_t*>(out),
+                         static_cast<int32_t*>(out2), static_cast<cudaStream_t>(t->stream));
 }
 
-// Dense mode (window == 0: placed is [n, C]) or window mode (placed is
-// [n, K], cand_idx [B, K]). `out` is the [C, R] int64 output; `scratch`,
-// of `scratch_bytes`, at least C x (R + 1) int64 words: the [C, R] sums
-// (uint64), then the counters (uint32: one per 256-column strip in dense
-// mode, the grid barrier's first in window mode). This entry zeroes the
-// sums and counters on the stream, then launches the one kernel, which
+// The consumption: the tier's capacity `cap` [C, R], its placements
+// (dense [n, C], or [n, K] in window mode: the round's cand_idx set) and
+// unschedulable flags, its rows; writes `out` [C, R]. The round's scratch,
+// of scratch_bytes, holds at least C x (R + 1) int64 words: the [C, R]
+// sums (uint64), then the counters (uint32: one per 256-column strip in
+// dense mode, the grid barrier's first in window mode). The entry zeroes
+// the sums and counters on the stream, then launches the one kernel, which
 // writes every element of out.
-extern "C" int tier_consume_launch(
-    const void* cap, int C, int R, const void* placed, const void* unsched,
-    const void* request, const void* rows, int n, int window, const void* cand_idx, int K,
-    void* out, void* scratch, long long scratch_bytes, void* stream) {
-  if (C <= 0 || R <= 0 || R > kMaxR || n < 0 || K < 0) return (int)cudaErrorInvalidValue;
-  const long long sum_bytes = (long long)C * R * 8;
-  const long long used = sum_bytes + 4LL * consume_strips(C);
-  if (scratch_bytes < (long long)C * (R + 1) * 8) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t rc = cudaMemsetAsync(scratch, 0, (size_t)used, s);
-  if (rc != cudaSuccess) return (int)rc;
-  ConsumeArgs a;
+extern "C" int tier_consume_round(const TierRound* t, const void* cap, const void* placed,
+                                  const void* unsched, const void* rows, int n, void* out) {
+  ConsumeArgs a = {};
   a.cap = static_cast<const int64_t*>(cap);
   a.placed = static_cast<const int32_t*>(placed);
   a.unsched = static_cast<const uint8_t*>(unsched);
-  a.request = static_cast<const int64_t*>(request);
+  a.request = t->request;
   a.rows = static_cast<const int32_t*>(rows);
-  a.cand_idx = static_cast<const int32_t*>(cand_idx);
+  a.cand_idx = t->cand_idx;
   a.n = n;
-  a.C = C;
-  a.K = K;
-  a.window = window != 0;
-  a.sums = static_cast<u64*>(scratch);
+  a.C = t->C;
+  a.R = t->R;
+  a.K = t->K;
+  a.window = t->cand_idx != nullptr;
   a.out = static_cast<int64_t*>(out);
-  a.done = reinterpret_cast<unsigned*>(static_cast<char*>(scratch) + sum_bytes);
-  return dispatch_consume(R, a, s);
+  return run_consume(a, t->scratch, t->scratch_bytes, static_cast<cudaStream_t>(t->stream));
 }

@@ -482,17 +482,19 @@ def tiered_k(array, raw, n_cols: int) -> int:
     return effective_k(array, raw, n_cols)
 
 
-def launch_tiered_compact(array, t, tier_rows, capacity, request, reclaim, spec_tiers, *,
+def launch_tiered_compact(array, t, tier_rows, capacity, tiers, reclaim, spec_tiers, *,
                           k: int, topk: int, has_agg: bool):
     """The compact tiered launch (the reference's `_tiered_candidate_kernel`,
     B12): candidate_select once (feasibility and score do not depend on
     capacity; its c_avail is tier 0's estimate), then per tier
-    tier_estimate over the tier's rows' windows, candidate_tail over those
-    rows, and tier_consume scattering the placements through cand_idx.
-    The estimator answers `t["extra_avail"]` (or None) min-merge into every
-    main pass and never into the speculative one. Output windows are
-    min(k, topk) wide. Returns (feas_count, main outputs, speculative
-    outputs, cand_idx)."""
+    tier_estimate over the tier's rows' windows (a later tier's main and
+    speculative passes in one launch), candidate_tail over those rows,
+    and tier_consume scattering the placements through cand_idx, the tier
+    launches through the round's launcher `tiers`
+    (`kernels.tier_launcher`) in window mode. The estimator answers
+    `t["extra_avail"]` (or None) min-merge into every main pass and never
+    into the speculative one. Output windows are min(k, topk) wide.
+    Returns (feas_count, main outputs, speculative outputs, cand_idx)."""
     from .preemption import run_tiers
 
     f = array._fleet_dev
@@ -506,14 +508,12 @@ def launch_tiered_compact(array, t, tier_rows, capacity, request, reclaim, spec_
         t["req_unique"], t["req_idx"], t["extra_avail"],
         k=k, plugin_bits=array._plugin_bits,
     )
+    tiers.window_mode(cand_idx)
 
     def estimate(cap, rows, rows64, first, use_extra):
         if first and use_extra:
             return c_avail.index_select(0, rows64)
-        return kernels.tier_estimate(cap, f["has_summary"], t["req_unique"], t["req_idx"],
-                                     t["replicas"], t["unknown_request"], rows,
-                                     cand_idx=cand_idx,
-                                     extra_avail=t["extra_avail"] if use_extra else None)
+        return tiers.estimate(cap, rows, use_extra=use_extra)
 
     def tail(av, _rows, rows64):
         def g(x):
@@ -526,8 +526,9 @@ def launch_tiered_compact(array, t, tier_rows, capacity, request, reclaim, spec_
         )
 
     def consume(cap, outs, rows):
-        return kernels.tier_consume(cap, outs[0], outs[1], request, rows, cand_idx=cand_idx)
+        return tiers.consume(cap, outs[0], outs[1], rows)
 
     main, aug = run_tiers(tier_rows, len(t["replicas"]), capacity, reclaim, spec_tiers,
-                          t["extra_avail"] is not None, estimate, tail, consume)
+                          t["extra_avail"] is not None, estimate, tail, consume,
+                          estimate_pair=tiers.estimate_pair)
     return feas_count, main, aug, cand_idx

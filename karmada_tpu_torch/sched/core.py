@@ -617,6 +617,19 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
     return norm(a) == norm(b)
 
 
+def _batch_topk(batch: BindingBatch) -> int:
+    """The output window of `run_kernel` (the reference's `_batch_flags`
+    topk): the batch's provable per-row target bound, bucketed. A divided
+    row places at most spec.replicas targets, a Duplicated row at most its
+    affinity mask's popcount."""
+    cand = int(batch.replicas.max(initial=0))
+    dup = batch.strategy == DUPLICATED
+    if dup.any():
+        pc = batch.aff_masks.sum(axis=1)
+        cand = max(cand, int(pc[batch.aff_idx[dup]].max(initial=0)))
+    return min(pow2_bucket(min(cand, TOPK_TARGETS), lo=8), TOPK_TARGETS)
+
+
 def _restrict_rows(batch: BindingBatch, rows: list[int], aff_rows: np.ndarray) -> BindingBatch:
     """Row subset of a batch with each row's spread selection folded into
     its affinity mask (`aff_rows`, bool[len(rows), C]: the rows' own
@@ -736,9 +749,12 @@ class ArrayScheduler:
         self.set_clusters(clusters)
 
     @contextmanager
-    def pipeline_context(self, timer: StageTimer):
+    def pipeline_context(self, timer: StageTimer, overlap: bool = False):
         """Install the driving pipeline's stage timer for the duration of
-        one round; restores the previous one on exit."""
+        one round; restores the previous one on exit. `overlap` is the
+        reference's flag, accepted for its callers: there it steers only
+        the CPU-backend host tails, which the port leaves out, so here it
+        steers nothing."""
         prev = self.stage_timer
         self.stage_timer = timer
         try:
@@ -1732,11 +1748,10 @@ class ArrayScheduler:
             # reference
             extra_mask = sel
         sub_extra = None if p["extra"] is None else p["extra"][live_rows]
+        s_out = self.run_kernel(self._pad(_restrict_rows(raw, live_rows, aff_rows)),
+                                extra_avail=sub_extra, extra_mask=extra_mask)
         s_feas, s_result, s_unsched, s_avail_sum = (
-            x.cpu().numpy()[: len(live_rows)]
-            for x in self.run_kernel(_restrict_rows(raw, live_rows, aff_rows), extra_mask,
-                                     sub_extra)
-        )
+            s_out[k].cpu().numpy()[: len(live_rows)] for k in (0, 2, 3, 4))
         for j, b in enumerate(live_rows):
             fidx = np.nonzero(s_feas[j])[0]
             row_feas_src[b] = ("idx", names, fidx)
@@ -1750,48 +1765,57 @@ class ArrayScheduler:
             unsched[b] = bool(s_unsched[j])
             avail_sum[b] = int(s_avail_sum[j])
 
-    def run_kernel(self, batch: BindingBatch, extra_mask: Optional[np.ndarray] = None,
-                   extra_avail: Optional[np.ndarray] = None):
-        """The full solve of a (sub-)batch, as the reference's
-        `_schedule_kernel_compact`: the dense filter over its rows, then the
-        dense tail over all of them (it places Duplicated rows too).
-        `extra_mask` (bool[rows, C], or None) is ANDed into each row's
-        feasibility; pad rows keep theirs. `extra_avail` (i32[rows, c], or
-        None) are the rows' estimator answers. Returns the device
-        (feasible, result, unschedulable, avail_sum), rows padded to the
-        bucket (under a monolithic mesh, the mesh kernel's outputs, rows
-        and columns padded to the mesh)."""
+    def run_kernel(self, batch: BindingBatch, extra_avail: Optional[np.ndarray] = None,
+                   extra_mask: Optional[np.ndarray] = None,
+                   extra_score: Optional[np.ndarray] = None):
+        """The full solve of a (sub-)batch, the reference's `run_kernel`
+        (`_schedule_kernel_compact`): the dense filter over its rows, then
+        the dense tail over all of them (it places Duplicated rows too)
+        with the output window of `_batch_topk`. `extra_avail` (i32[rows,
+        c], or None) are the rows' estimator answers; `extra_mask`
+        (bool[rows, C], or None) is ANDed into each row's feasibility, rows
+        past it keeping theirs. `extra_score` comes only from out-of-tree
+        plugins, which the port does not run yet. The batch comes padded
+        (`_pad`), as the reference's callers pass it. Returns the
+        reference's ten device outputs (feasible, score, result,
+        unschedulable, avail_sum, avail, feas_count, nnz, top_idx, top_val)
+        over the batch's rows (under a monolithic mesh, the mesh kernel's,
+        rows and columns padded to the mesh)."""
         from .. import kernels
         from ..convert import batch_from_numpy
 
-        padded = self._pad(batch)
+        if extra_score is not None:
+            raise NotImplementedError(
+                "run_kernel: extra_score (out-of-tree plugin scores) is ROADMAP queue A item 8")
         if self.mesh is not None and not self.mesh_partitioned:
-            out = self._mesh_solver()(padded, extra_avail, extra_mask=extra_mask,
-                                      plugin_bits=self._plugin_bits)
-            return out[0], out[2], out[3], out[4]
-        t = batch_from_numpy({name: getattr(padded, name) for name in _BATCH_FIELDS}, self.device)
+            return self._mesh_solver()(batch, extra_avail, extra_mask=extra_mask,
+                                       plugin_bits=self._plugin_bits)
+        t = batch_from_numpy({name: getattr(batch, name) for name in _BATCH_FIELDS}, self.device)
         mask_dev = None
         if extra_mask is not None:
-            full = np.ones((len(padded.replicas), extra_mask.shape[1]), bool)
+            full = np.ones((len(batch.replicas), extra_mask.shape[1]), bool)
             full[: len(extra_mask)] = extra_mask
             mask_dev = to_device(full, self.device)
         f = self._fleet_dev
-        feas, _score, avail, prev, tie, _fc = kernels.dense_filter(
+        feas, score, avail, prev, tie, feas_count = kernels.dense_filter(
             f["alive"], f["capacity"], f["has_summary"], f["taint_key"],
             f["taint_value"], f["taint_effect"], f["api_ok"],
             t["replicas"], t["unknown_request"], t["gvk"],
             t["tol_tables"], t["tol_idx"], t["aff_masks"], t["aff_idx"],
             t["prev_idx"], t["prev_rep"], t["evict_idx"], t["seeds"],
-            t["req_unique"], t["req_idx"], self._upload_extra(extra_avail, len(padded.replicas)),
+            t["req_unique"], t["req_idx"], self._upload_extra(extra_avail, len(batch.replicas)),
             plugin_bits=self._plugin_bits, extra_mask=mask_dev,
         )
-        rows = torch.arange(len(padded.replicas), dtype=I32, device=self.device)
-        result, unsched, avail_sum, *_ = kernels.dense_tail(
+        rows = torch.arange(len(batch.replicas), dtype=I32, device=self.device)
+        C = feas.shape[1]
+        result, unsched, avail_sum, nnz, top_idx, top_val = kernels.dense_tail(
             feas, avail, prev, tie, rows, t["weight_tables"], t["weight_idx"],
             t["strategy"], t["replicas"], t["fresh"],
-            topk=0, has_agg=bool((batch.strategy == AGGREGATED).any()),
+            topk=min(C, _batch_topk(batch)),
+            has_agg=bool((batch.strategy == AGGREGATED).any()),
         )
-        return feas, result, unsched, avail_sum
+        return (feas, score, result, unsched, avail_sum, avail, feas_count, nnz, top_idx,
+                top_val)
 
     def _schedule_once_monolithic(self, bindings: Sequence, extra_avail=None,
                                   term_indices=None) -> list[ScheduleDecision]:

@@ -154,7 +154,7 @@ def _merge_into(bufs: Optional[list], rows64, outs, n_rows: int) -> list:
 
 
 def run_tiers(tier_rows, n_rows: int, cap, reclaim, spec_tiers, has_extra: bool,
-              estimate, tail, consume):
+              estimate, tail, consume, estimate_pair=None):
     """The tier loop shared by the dense and compact launches. For each
     tier (rows i32 and i64 on the device): `estimate(cap, rows, rows64,
     first, use_extra)` the availability of its rows (with the estimator
@@ -162,35 +162,43 @@ def run_tiers(tier_rows, n_rows: int, cap, reclaim, spec_tiers, has_extra: bool,
     division-tail outputs (result, unschedulable, avail_sum, nnz, top_idx,
     top_val), the speculative pass over `cap + reclaim[t]` without answers,
     then `consume(cap, outs, rows)` the capacity left for the next tier.
-    Returns the merged outputs of both passes (the second None without
-    `reclaim`)."""
+    `estimate_pair(cap, reclaim_t, rows)`, when given, estimates a tier's
+    main and speculative passes in one call (tiers after the first, whose
+    main pass is the filter's). Returns the merged outputs of both passes
+    (the second None without `reclaim`)."""
     main = aug = None
     for t, (rows, rows64) in enumerate(tier_rows):
-        outs = tail(estimate(cap, rows, rows64, t == 0, True), rows, rows64)
-        main = _merge_into(main, rows64, outs, n_rows)
-        if reclaim is not None:
-            if spec_tiers[t] or has_extra:
+        # reclaim[t] is zero and there are no estimator answers to leave
+        # out: the speculative pass would repeat the main one
+        spec = reclaim is not None and bool(spec_tiers[t] or has_extra)
+        if spec and t > 0 and estimate_pair is not None:
+            av, a_av = estimate_pair(cap, reclaim[t], rows)
+            outs = tail(av, rows, rows64)
+            a_outs = tail(a_av, rows, rows64)
+        else:
+            outs = tail(estimate(cap, rows, rows64, t == 0, True), rows, rows64)
+            a_outs = outs
+            if spec:
                 a_outs = tail(estimate(cap + reclaim[t], rows, rows64, False, False),
                               rows, rows64)
-            else:
-                # reclaim[t] is zero and there are no estimator answers to
-                # leave out: the speculative pass would repeat the main one
-                a_outs = outs
+        main = _merge_into(main, rows64, outs, n_rows)
+        if reclaim is not None:
             aug = _merge_into(aug, rows64, a_outs, n_rows)
         if t + 1 < len(tier_rows):
             cap = consume(cap, outs, rows)
     return main, aug
 
 
-def _launch_dense_tiers(array, t, tier_rows, capacity, request, reclaim, spec_tiers,
+def _launch_dense_tiers(array, t, tier_rows, capacity, tiers, reclaim, spec_tiers,
                         topk: int, has_agg: bool):
     """The dense tiered launch (the reference's `_tiered_kernel`, B11):
     dense_filter once (its avail is tier 0's estimate), then per tier
     tier_estimate into the avail buffer at the tier's rows, dense_tail
-    through the same row ids, tier_consume. The estimator answers
-    `t["extra_avail"]` (or None) min-merge into every main pass and never
-    into the speculative one. Returns (feas_count, main outputs,
-    speculative outputs)."""
+    through the same row ids, tier_consume, the tier launches through the
+    round's launcher `tiers` (`kernels.tier_launcher`) in rows mode. The
+    estimator answers `t["extra_avail"]` (or None) min-merge into every
+    main pass and never into the speculative one. Returns (feas_count,
+    main outputs, speculative outputs)."""
     f = array._fleet_dev
     feas, _score, avail, prev, tie, feas_count = kernels.dense_filter(
         f["alive"], capacity, f["has_summary"], f["taint_key"],
@@ -201,13 +209,12 @@ def _launch_dense_tiers(array, t, tier_rows, capacity, request, reclaim, spec_ti
         t["req_unique"], t["req_idx"], t["extra_avail"],
         plugin_bits=array._plugin_bits,
     )
+    tiers.rows_mode(avail)
 
     def estimate(cap, rows, _rows64, first, use_extra):
         if first and use_extra:
             return avail
-        return kernels.tier_estimate(cap, f["has_summary"], t["req_unique"], t["req_idx"],
-                                     t["replicas"], t["unknown_request"], rows, out=avail,
-                                     extra_avail=t["extra_avail"] if use_extra else None)
+        return tiers.estimate(cap, rows, use_extra=use_extra)
 
     def tail(av, rows, _rows64):
         return kernels.dense_tail(feas, av, prev, tie, rows, t["weight_tables"], t["weight_idx"],
@@ -215,7 +222,7 @@ def _launch_dense_tiers(array, t, tier_rows, capacity, request, reclaim, spec_ti
                                   topk=topk, has_agg=has_agg)
 
     def consume(cap, outs, rows):
-        return kernels.tier_consume(cap, outs[0], outs[1], request, rows)
+        return tiers.consume(cap, outs[0], outs[1], rows)
 
     main, aug = run_tiers(tier_rows, len(t["replicas"]), capacity, reclaim, spec_tiers,
                           t["extra_avail"] is not None, estimate, tail, consume)
@@ -265,12 +272,16 @@ def _launch_kernel_rows(array: ArrayScheduler, bindings: list, extra_avail=None,
     tier_rows = [(t["tier_rows"][lo:hi], t["tier_rows64"][lo:hi])
                  for lo, hi in zip(bounds[:-1], bounds[1:])]
     reclaim = t.get("reclaim")
+    # the round's tier launches: its constant tensors checked and bound once
+    tiers = kernels.tier_launcher(array._fleet_dev["has_summary"], t["req_unique"],
+                                  t["req_idx"], t["replicas"], t["unknown_request"],
+                                  request=t["request"], extra_avail=t["extra_avail"])
 
     cand_k = cand_mod.tiered_k(array, raw, C)
     cand_dev = None
     if cand_k:
         feas_count, main, aug, cand_dev = cand_mod.launch_tiered_compact(
-            array, t, tier_rows, capacity, t["request"], reclaim, spec_tiers,
+            array, t, tier_rows, capacity, tiers, reclaim, spec_tiers,
             k=cand_k, topk=topk, has_agg=has_agg)
     else:
         if cand_mod.compact_width_ok(array):
@@ -278,7 +289,7 @@ def _launch_kernel_rows(array: ArrayScheduler, bindings: list, extra_avail=None,
         elif array.candidate_k:
             cand_mod.note_fallback("small_fleet")
         feas_count, main, aug = _launch_dense_tiers(
-            array, t, tier_rows, capacity, t["request"], reclaim, spec_tiers,
+            array, t, tier_rows, capacity, tiers, reclaim, spec_tiers,
             topk=topk, has_agg=has_agg)
     result, unsched, asum, nnz, top_idx, top_val = main
     out = (unsched, asum, feas_count, nnz, top_idx, top_val, result)

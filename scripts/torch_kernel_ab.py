@@ -1,7 +1,8 @@
 """The redesigned kernels' time on the main path's own arguments, for an
 A/B of two trees on one card: candidate_select, group_score,
 combo_select, sim_filter, fleet_estimate, dense_filter, candidate_tail,
-dense_input_filter and mesh_tile_filter.
+dense_input_filter, mesh_tile_filter and the tier launches
+(tier_estimate, tier_consume).
 
     python3 /path/to/scripts/torch_kernel_ab.py [--kernels NAME,...]
 
@@ -43,12 +44,22 @@ each:
 - `kernels._mesh_tile_filter_launch` on the four tiles one mesh_flagship
   round passes it (the dense flagship over a 2 x 2 virtual mesh of the
   card) and on the six of a 2 x 3 round (tiles 1 707 wide), captured at
-  launch.
+  launch;
+- the tier launches of one tiers_dense round (`tier_estimate` in rows
+  mode, `tier_consume` dense) and one tiers_compact round (window mode),
+  each as the tree's main path makes them (a round's `TierLauncher`
+  where the tree has one, whose window mode estimates a later tier's two
+  passes in one launch, else `kernels._tier_estimate_launch` /
+  `_tier_consume_launch`), captured at launch; and
+  `kernels._tier_estimate_launch` in rows mode on seeded inputs at the
+  flagship's shape (10 240 x 5 120, R = 4, a tier of 2 560 rows) with every
+  row's request distinct and with four requests.
 Beside each label's CUDA-event times it prints the device time per call
 under torch.profiler and the host's time to enqueue a call. chip_smoke's
 builders, seed 0. `--kernels` picks among candidate_select, group_score
 (with combo_select), sim_filter, fleet_estimate, dense_filter,
-candidate_tail, dense_input_filter and mesh_tile_filter (default: all). Prints one JSON line: the tree, the
+candidate_tail, dense_input_filter, mesh_tile_filter and tier_estimate
+(with tier_consume; default: all). Prints one JSON line: the tree, the
 card's nvidia-smi line, and per label the times in ms, the device and
 enqueue ms and a digest of the outputs (equal digests: equal outputs).
 Needs one CUDA card and nvcc.
@@ -83,7 +94,8 @@ REPS = 10  # launches per CUDA-event window
 TURNS = 2
 WIDE_CHUNK_BINDINGS = 6144  # the pipelined wide_40k chunk's rows
 KERNELS = ("candidate_select", "group_score", "sim_filter", "fleet_estimate", "dense_filter",
-           "candidate_tail", "dense_input_filter", "mesh_tile_filter")
+           "candidate_tail", "dense_input_filter", "mesh_tile_filter", "tier_estimate")
+TIER_DRAW = (10240, 5120, 4, 2560)  # B, C, R and the tier's rows of the seeded estimate draws
 INPUT_REPEATS = 4  # distinct rows of the repeated-row dense-input draw
 TAIL_KS = (8, 32, 100, 128)  # seeded windows' widths
 TAIL_ROWS = 5120  # the compact flagship's first tail
@@ -96,8 +108,9 @@ def digest(outs) -> str:
     return h.hexdigest()[:16]
 
 
-def timed(fn) -> dict:
-    outs = fn()
+def timed(fn, outputs=None) -> dict:
+    """fn's times; the digest of its outputs (of `outputs()` if given)."""
+    outs = fn() if outputs is None else outputs()
     return {"ms": [chip_smoke.cuda_ms(fn, REPS) for _ in range(TURNS)],
             "device_ms": chip_smoke.profiled_calls_ms(fn, REPS)[0],
             "enqueue_ms": chip_smoke.host_enqueue_ms(fn, REPS), "digest": digest(outs)}
@@ -300,6 +313,76 @@ def time_mesh_tile_filter(dev, result):
         del sched, batch, cap, calls
 
 
+def tier_round_calls(duplicated, dev):
+    """One round of a tier cell's tier launches as this tree's main path
+    makes them: the estimates, the consumptions and their outputs for the
+    digest (each output cloned as its call returns: a rows-mode estimate
+    writes the round's avail buffer in place), each a callable that
+    launches them again, and the counts."""
+    clusters, bindings, placed = chip_smoke.build_tiers(duplicated=duplicated)
+    sched = ArrayScheduler(clusters, device=dev)
+    if hasattr(chip_smoke, "captured_tier_calls"):  # the round's launcher
+        with chip_smoke.captured_tier_calls() as calls:
+            chip_smoke.tier_round(sched, bindings, placed)
+        est, con = calls["tier_estimate"], calls["tier_consume"]
+        return (lambda: [c.run(fresh_out=False) for c in est],
+                lambda: [c.run() for c in con],
+                lambda: [x.clone() for c in est for x in c.written(c.run(fresh_out=False))],
+                lambda: [c.run().clone() for c in con], len(est), len(con))
+    with chip_smoke.captured_launches(("tier_estimate", "tier_consume")) as calls:
+        chip_smoke.tier_round(sched, bindings, placed)
+    est, con = calls["tier_estimate"], calls["tier_consume"]
+
+    def written():
+        outs = [kernels._tier_estimate_launch(*a, **kw) for a, kw in est]
+        return [o.index_select(0, a[6].long()) if kw.get("out") is not None else o
+                for (a, kw), o in zip(est, outs)]
+
+    def consumed():
+        return [kernels._tier_consume_launch(*a, **kw) for a, kw in con]
+    return (lambda: [kernels._tier_estimate_launch(*a, **kw) for a, kw in est], consumed,
+            written, consumed, len(est), len(con))
+
+
+def tier_draw(dev, distinct):
+    """Seeded rows-mode estimate inputs at the flagship's shape (TIER_DRAW):
+    capacities around zero and past INT32_MAX quotients, absent summaries
+    and unknown requests; `distinct` requests (one a row when it is B)."""
+    B, C, R, n = TIER_DRAW
+    rng = np.random.default_rng(16 + distinct)
+    cap = rng.integers(-10, 2_000_000, (C, R)).astype(np.int64)
+    cap[::97] = 1 << 45
+    req_u = rng.integers(0, 2000, (distinct, R)).astype(np.int64)
+    req_idx = (rng.permutation(B) if distinct == B else rng.integers(0, distinct, B))
+    t = chip_smoke.batch_from_numpy({
+        "capacity": cap, "has_summary": rng.random(C) < 0.95, "req_unique": req_u,
+        "req_idx": req_idx.astype(np.int32), "replicas": rng.integers(0, 64, B).astype(np.int32),
+        "unknown_request": rng.random(B) < 0.05,
+        "rows": rng.permutation(B)[:n].astype(np.int32)}, dev)
+    return [t[k] for k in chip_smoke.ESTIMATE_ARGS] + [t["rows"]], torch.full(
+        (B, C), -1, dtype=torch.int32, device=dev)
+
+
+def time_tier_estimate(dev, result):
+    for cell, duplicated in (("tiers_dense", True), ("tiers_compact", False)):
+        est, con, est_outs, con_outs, n_est, n_con = tier_round_calls(duplicated, dev)
+        for name, fn, outs, n in (("tier_estimate", est, est_outs, n_est),
+                                  ("tier_consume", con, con_outs, n_con)):
+            label = f"{name}, {cell} round"
+            result[label] = timed(fn, outs)
+            chip_smoke.log(f"{label} ({n} launches): {result[label]}")
+        torch.cuda.empty_cache()
+    B, C, R, n = TIER_DRAW
+    for distinct in (B, 4):
+        args, out = tier_draw(dev, distinct)
+        label = f"tier_estimate, seeded rows mode, {distinct} distinct requests"
+        result[label] = timed(
+            lambda a=args, o=out: [kernels._tier_estimate_launch(*a, out=o)],
+            lambda a=args, o=out: [kernels._tier_estimate_launch(*a, out=o).index_select(
+                0, a[-1].long())])
+        chip_smoke.log(f"{label} ({B} x {C}, R = {R}, {n} tier rows): {result[label]}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", default=",".join(KERNELS),
@@ -319,7 +402,8 @@ def main() -> int:
                      ("dense_filter", time_dense_filter),
                      ("candidate_tail", time_candidate_tail),
                      ("dense_input_filter", time_dense_input_filter),
-                     ("mesh_tile_filter", time_mesh_tile_filter)):
+                     ("mesh_tile_filter", time_mesh_tile_filter),
+                     ("tier_estimate", time_tier_estimate)):
         if name in which:
             fn(dev, result)
     print(json.dumps({"tree": os.getcwd(), "card": chip_smoke.nvidia_smi_line(),

@@ -145,7 +145,7 @@ WRAPPERS = {
     launch_group_score: ("group_score", "group_score_launch"),
     launch_packed_selection: ("dense_mask", "packed_selection_launch"),
     launch_combo_select: ("combo_select", "combo_select_launch"),
-    launch_tier_estimate: ("tiers", "tier_estimate_launch"),
+    launch_tier_estimate: ("tiers", "tier_estimate_round"),
     launch_staleness: ("staleness", "staleness_launch"),
     launch_scatter_rows: ("scatter_rows", "scatter_rows_launch"),
     launch_sim_filter: ("dense_filter", "sim_filter_launch"),
@@ -202,13 +202,13 @@ def test_every_c_entry_has_a_bound_prototype():
         "group_score_launch": kernels._GROUP_SCORE_ARGTYPES,
         "packed_selection_launch": kernels._PACKED_SELECTION_ARGTYPES,
         "combo_select_launch": kernels._COMBO_SELECT_ARGTYPES,
-        "tier_estimate_launch": kernels._TIER_ESTIMATE_ARGTYPES,
+        "tier_estimate_round": kernels._TIER_ROUND_ARGTYPES,
+        "tier_consume_round": kernels._CONSUME_ROUND_ARGTYPES,
         "staleness_launch": kernels._STALENESS_ARGTYPES,
         "scatter_rows_launch": kernels._SCATTER_ROWS_ARGTYPES,
         "sim_filter_launch": kernels._SIM_FILTER_ARGTYPES,
         "dense_input_filter_launch": kernels._DENSE_INPUT_FILTER_ARGTYPES,
         "mesh_tile_filter_launch": kernels._MESH_TILE_FILTER_ARGTYPES,
-        "tier_consume_launch": kernels._CONSUME_ARGTYPES,
         "dense_tail_launch": kernels._DENSE_TAIL_ARGTYPES,
         "spread_tail_launch": kernels._SPREAD_TAIL_ARGTYPES,
         "window_tail_launch": kernels._WINDOW_TAIL_ARGTYPES,
@@ -260,3 +260,137 @@ def test_group_score_launch_passes_its_route(route, code, fake_lib):
     kernels._group_score_launch(*args, route=route)
     (_, cargs), = calls
     assert cargs[16:18] == (args[9].numel(), code)  # Cp, then the route
+
+
+def _launcher(R=4, extra=False):
+    rng = np.random.default_rng(R)
+    d = chip_smoke.random_tier_inputs(rng, CPU, 20, 64, R, 8, 16)
+    ans = torch.from_numpy(rng.integers(-1, 9, (20, 64)).astype(np.int32)) if extra else None
+    L = kernels.TierLauncher(d["has_summary"], d["req_unique"], d["req_idx"], d["replicas"],
+                             d["unknown_request"], request=d["request"], extra_avail=ans)
+    return d, L
+
+
+@pytest.mark.parametrize("R,blocks", [(4, 1), (17, 2)])
+@pytest.mark.parametrize("mode", ["rows", "window"])
+def test_tier_launcher_binds_once_and_calls_once_per_tier(mode, R, blocks, fake_lib):
+    """The per-round tier launcher binds its two C entries at build time,
+    once each, and a tier then costs one C call per estimate and one per
+    consumption (per block of 16 resources), with the prototype's argument
+    count: the round's TierRound by reference, the call's capacity, rows
+    and output."""
+    calls, loads = fake_lib
+    d, L = _launcher(R, extra=True)
+    assert loads == ["tiers", "tiers"] and set(kernels._bound) == {
+        "tier_estimate_round", "tier_consume_round"}
+    avail = torch.zeros((20, 64), dtype=torch.int32)
+    L.rows_mode(avail) if mode == "rows" else L.window_mode(d["cand_idx"])
+    placed = d["placed"] if mode == "rows" else d["placed_k"]
+    cap, rows = d["capacity"], d["rows"]
+    outs = []
+    for tier in range(3):
+        outs.append(L.estimate(cap, rows, use_extra=tier != 1))
+        cap = L.consume(cap, placed, d["unsched"], rows)
+    protos = c_prototypes()
+    assert [name for name, _ in calls] == (["tier_estimate_round"] + ["tier_consume_round"]
+                                           * blocks) * 3
+    assert all(len(args) == protos[name] for name, args in calls)
+    assert loads == ["tiers", "tiers"]
+    est = [args for name, args in calls if name == "tier_estimate_round"]
+    for tier, (args, out) in enumerate(zip(est, outs)):
+        assert args[0]._obj is L._round and args[2] is None and args[8] is None
+        assert args[3:6] == (rows.data_ptr(), 8, tier != 1) and args[7] == out.data_ptr()
+        table = mode == "rows" and kernels.estimate_route(L.U, 8) == "table"
+        assert (out is avail) == (mode == "rows") and args[6] == table
+    rnd = L._round
+    assert (rnd.req_idx, rnd.extra_avail, rnd.B, rnd.C, rnd.R) == (
+        d["req_idx"].data_ptr(), L.extra_avail.data_ptr(), 20, 64, R)
+    assert (rnd.cand_idx is not None, rnd.K) == ((True, 16) if mode == "window" else (False, 0))
+    con = [args for name, args in calls if name == "tier_consume_round"]
+    assert all(args[0]._obj.scratch == L._consume._scratch.data_ptr() for args in con)
+    assert [args[0]._obj.R for args in con[:blocks]] == ([4] if R == 4 else [16, 1])
+
+
+def test_tier_launcher_pairs_a_tiers_passes_in_one_call(fake_lib):
+    """Window mode estimates a tier's main and speculative passes in one C
+    call: the capacity and the reclaim, the main pass with the answers,
+    into two new [n, K] outputs each call; setting rows mode afterwards
+    clears the window from the estimate's round and the consumption's."""
+    calls, _ = fake_lib
+    d, L = _launcher(extra=True)
+    L.window_mode(d["cand_idx"])
+    reclaim = torch.ones_like(d["capacity"])
+    main, spec = L.estimate_pair(d["capacity"], reclaim, d["rows"])
+    again, _ = L.estimate_pair(d["capacity"], reclaim, d["rows"])
+    (name, args), (_, args2) = calls
+    assert name == "tier_estimate_round" and len(args) == c_prototypes()[name]
+    assert args[1:6] == (d["capacity"].data_ptr(), reclaim.data_ptr(), d["rows"].data_ptr(), 8,
+                         True)
+    assert args[6:] == (0, main.data_ptr(), spec.data_ptr()) and main.data_ptr() != spec.data_ptr()
+    assert main.shape == spec.shape == (8, 16)
+    assert again.data_ptr() not in (main.data_ptr(), spec.data_ptr())
+    assert kernels.launch_counts()["tier_estimate"] >= 2
+    L.rows_mode(torch.zeros((20, 64), dtype=torch.int32))
+    assert L.cand_idx is None and (L._round.cand_idx, L._round.K) == (None, 0)
+    assert all((rnd.cand_idx, rnd.K) == (None, 0) for *_, rnd, _ref in L._consume._blocks)
+
+
+def test_tier_launcher_refuses_a_wrong_tensor_at_build(fake_lib):
+    """A round-constant tensor of the wrong dtype is refused when the
+    launcher is built (and the avail buffer or window when its mode is
+    set), before any C call."""
+    calls, _ = fake_lib
+    d, _L = _launcher()
+    args = [d[n] for n in chip_smoke.ESTIMATE_ARGS[1:]]
+    for k, bad in ((1, d["req_unique"].int()), (2, d["req_idx"].long()),
+                   (4, d["unknown_request"].int())):
+        with pytest.raises(TypeError, match="dtype"):
+            kernels.TierLauncher(*args[:k], bad, *args[k + 1:], request=d["request"])
+    with pytest.raises(TypeError, match="dtype"):
+        kernels.TierLauncher(*args, request=d["request"].int())
+    _d, L = _launcher()
+    with pytest.raises(TypeError, match="dtype"):
+        L.rows_mode(torch.zeros((20, 64), dtype=torch.int64))
+    with pytest.raises(ValueError, match="shape"):
+        L.window_mode(d["cand_idx"][:5])
+    assert calls == []
+
+
+def test_tier_estimate_launch_passes_the_table_route(fake_lib):
+    """The public wrapper is one launcher call: in rows mode the table
+    route sets a [U, C] table scratch in the round and the call's table
+    flag, the element route neither; window mode a fresh [n, K] output."""
+    calls, _ = fake_lib
+    d = _tier()
+    args = [d[n] for n in chip_smoke.ESTIMATE_ARGS] + [d["rows"]]
+    out = torch.zeros((20, 64), dtype=torch.int32)
+    for route in ("table", "element"):
+        kernels._tier_estimate_launch(*args, out=out, route=route)
+    win = kernels._tier_estimate_launch(*args, cand_idx=d["cand_idx"], route="table")
+    (_, a), (_, b), (_, c) = calls
+    assert a[6] == 1 and a[0]._obj.est_u is not None and a[7] == out.data_ptr()
+    assert b[6] == 0 and b[0]._obj.est_u is None
+    assert c[6] == 0 and c[7] == win.data_ptr() and win.shape == (8, 16)
+    assert a[0]._obj.U == d["req_unique"].shape[0]
+
+
+def test_tier_launcher_cuts_each_output_once(fake_lib):
+    """Window estimates and consumed capacities are cut in turn from one
+    block the launcher allocates (2B window rows: a round's main and
+    speculative passes), none handed out twice; a used-up block is
+    followed by a new one; an explicit `out` is written instead."""
+    d, L = _launcher()
+    L.window_mode(d["cand_idx"])
+    B, n, K = 20, 8, 16
+    outs = [L.launch_estimate(d["capacity"], d["rows"]) for _ in range(2 * B // n)]
+    base = outs[0].untyped_storage().data_ptr()
+    assert all(o.untyped_storage().data_ptr() == base and o.shape == (n, K) for o in outs)
+    assert [o.data_ptr() - base for o in outs] == [i * n * K * 4 for i in range(len(outs))]
+    assert L.launch_estimate(d["capacity"], d["rows"]).untyped_storage().data_ptr() != base
+    mine = torch.empty((n, K), dtype=torch.int32)
+    assert L.launch_estimate(d["capacity"], d["rows"], out=mine) is mine
+    caps = [L.launch_consume(d["capacity"], d["placed_k"], d["unsched"], d["rows"])
+            for _ in range(kernels.TIER_CAP_BLOCK + 1)]
+    assert len({c.data_ptr() for c in caps}) == len(caps)
+    assert len({c.untyped_storage().data_ptr() for c in caps}) == 2
+    assert all(c.shape == (64, 4) and c.is_contiguous() for c in caps)

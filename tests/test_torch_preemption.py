@@ -178,14 +178,107 @@ def test_tier_consume_plain_matches_jax(mode, case):
         assert cons.any()
 
 
+@pytest.mark.parametrize("answers", [False, True])
+def test_tier_estimate_factored_form_matches_jax(answers):
+    """A tier's estimates as the CPU round's launcher (kernels.tier_launcher)
+    makes them, and tier_estimate_plain, at the tier's rows equal the JAX
+    estimate with the answers min-merged: rows mode into the avail buffer
+    (general_estimate_unique + general_estimate_apply + the
+    unknown-request zero), and window mode's pair of a main pass at the
+    capacity with the answers and a speculative pass at capacity + reclaim
+    without them (candidates._compact_estimate). The route rule takes the
+    rows mode's table only while U is at most half the tier's rows."""
+    from karmada_tpu.ops import assign as jassign
+
+    rng = np.random.default_rng(8)
+    B, C, K = 40, 64, 16
+    d = _estimate_inputs(rng, B, C)
+    rows = rng.permutation(B)[:25].astype(np.int32)
+    cand = np.sort(rng.choice(C, (B, K)), axis=1).astype(np.int32)
+    reclaim = rng.integers(0, 400, d["capacity"].shape).astype(np.int64)
+    extra = rng.choice([-1, 0, 3, 1 << 20], (B, C)).astype(np.int32) if answers else None
+    J = {k: jnp.asarray(v) for k, v in d.items()}
+
+    def jax_rows(cap):
+        est_u, any_u = jassign.general_estimate_unique(jnp.asarray(cap), J["has_summary"],
+                                                       J["req_unique"])
+        want = np.asarray(jassign.general_estimate_apply(est_u, any_u, J["req_idx"],
+                                                         J["has_summary"], J["replicas"]))
+        want = np.where(d["unknown_request"][:, None], 0, want)
+        if answers:
+            want = np.where(extra >= 0, np.minimum(want, extra), want)
+        return want[rows]
+
+    def jax_window(cap, use_extra):
+        c_extra = jnp.asarray(extra[rows[:, None], cand[rows]]) if use_extra else None
+        return np.asarray(jcand._compact_estimate(
+            jnp.asarray(cap), J["has_summary"], J["req_unique"], J["req_idx"][rows],
+            J["replicas"][rows], J["unknown_request"][rows], jnp.asarray(cand[rows]), c_extra))
+
+    t = {k: _t(v) for k, v in d.items()}
+    ans = None if extra is None else _t(extra)
+    est = (t["has_summary"], t["req_unique"], t["req_idx"], t["replicas"], t["unknown_request"])
+    launcher = kernels.tier_launcher(*est, extra_avail=ans)
+    assert not isinstance(launcher, kernels.TierLauncher)  # CPU tensors: the plain versions
+    buf = torch.full((B, C), -7, dtype=torch.int32)
+    got = launcher.rows_mode(buf).estimate(t["capacity"], _t(rows))
+    assert got is buf
+    want = jax_rows(d["capacity"])
+    np.testing.assert_array_equal(_n(got)[rows], want)
+    plain = kernels.tier_estimate_plain(t["capacity"], *est, _t(rows),
+                                        out=torch.full((B, C), -7, dtype=torch.int32),
+                                        extra_avail=ans)
+    np.testing.assert_array_equal(_n(plain)[rows], want)
+    main, spec = launcher.window_mode(_t(cand)).estimate_pair(t["capacity"], _t(reclaim),
+                                                              _t(rows))
+    np.testing.assert_array_equal(_n(main), jax_window(d["capacity"], answers))
+    np.testing.assert_array_equal(_n(spec), jax_window(d["capacity"] + reclaim, False))
+    assert (_n(spec) != _n(main)).any()
+    assert kernels.estimate_route(6, 12) == "table" and kernels.estimate_route(7, 12) == "element"
+    assert kernels.estimate_route(6, 12, "element") == "element"
+    with pytest.raises(ValueError, match="route"):
+        kernels.estimate_route(6, 12, "dense")
+
+
+@pytest.mark.parametrize("mode", ["dense", "compact"])
+def test_tiered_round_builds_one_launcher(mode, monkeypatch):
+    """A tiered round builds one tier launcher (kernels.tier_launcher) with
+    the round's constant tensors, puts it in rows mode (the dense launch,
+    over dense_filter's avail buffer) or window mode (the compact launch,
+    over candidate_select's windows), and runs every tier's estimate and
+    consumption through it."""
+    clusters, bindings = _tiered_fixture(mode, 3)
+    tarr = TorchScheduler(conv(clusters), device="cpu")
+    built, used = [], []
+    make = kernels.tier_launcher
+
+    def counting(*a, **kw):
+        launcher = make(*a, **kw)
+        built.append(launcher)
+        for name in ("estimate", "consume"):
+            fn = getattr(launcher, name)
+            setattr(launcher, name, lambda *x, _f=fn, _n=name, **y: (used.append(_n),
+                                                                     _f(*x, **y))[1])
+        return launcher
+
+    monkeypatch.setattr(kernels, "tier_launcher", counting)
+    tpre._launch_kernel_rows(tarr, conv(bindings))
+    (launcher,), = [built]
+    assert (launcher.avail is not None) == (mode == "dense")
+    assert (launcher.cand_idx is not None) == (mode == "compact")
+    assert used.count("estimate") == used.count("consume") == 2  # tiers after the first
+
+
 @pytest.mark.parametrize("mode", ["dense", "window"])
 def test_tier_consume_launch_marshals_one_call(monkeypatch, mode):
     """On a faked card each tier_consume call is one call of the C entry
-    (which zeroes its scratch and launches once): the mode flag, the
-    window's cand_idx and K, the [C, R] output and a C x (R + 1) int64
-    scratch for the sums and counters; the entry's prototype is bound at
-    the first call only; every check still raises; a 17-resource request
-    takes two calls, over resource blocks of 16 and 1."""
+    tier_consume_round (which zeroes its scratch and launches once): the
+    call's capacity, placements, flags, rows and [C, R] output, and a
+    TierRound with the request, the window's cand_idx and K (none in dense
+    mode), a C x (R + 1) int64 scratch for the sums and counters and the
+    stream; the entry's prototype is bound at the first call only; every
+    check still raises; a 17-resource request takes two calls, over
+    resource blocks of 16 and 1 sharing one scratch."""
     from karmada_tpu_torch.kernels import build
 
     calls, loads = [], []
@@ -213,13 +306,15 @@ def test_tier_consume_launch_marshals_one_call(monkeypatch, mode):
     kw = {"cand_idx": cand} if window else {}
     outs = [kernels._tier_consume_launch(cap, p, unsched, request, rows, **kw) for _ in range(2)]
     assert loads == ["tiers"]
-    assert [name for name, _ in calls] == ["tier_consume_launch"] * 2
+    assert [name for name, _ in calls] == ["tier_consume_round"] * 2
     for out, (_, args) in zip(outs, calls):
-        assert args[:11] == (cap.data_ptr(), C, R, p.data_ptr(), unsched.data_ptr(),
-                             request.data_ptr(), rows.data_ptr(), n, window,
-                             cand.data_ptr() if window else None, K if window else 0)
-        assert args[11] == out.data_ptr() and args[13:] == (C * (R + 1) * 8, 7)
-        assert args[12] not in (None, out.data_ptr())  # the scratch, apart from the output
+        rnd = args[0]._obj
+        assert args[1:] == (cap.data_ptr(), p.data_ptr(), unsched.data_ptr(), rows.data_ptr(), n,
+                            out.data_ptr())
+        assert (rnd.request, rnd.B, rnd.C, rnd.R) == (request.data_ptr(), B, C, R)
+        assert (rnd.cand_idx, rnd.K) == ((cand.data_ptr(), K) if window else (None, 0))
+        assert (rnd.scratch_bytes, rnd.stream) == (C * (R + 1) * 8, 7)
+        assert rnd.scratch not in (None, out.data_ptr())  # the scratch, apart from the output
         assert out.shape == (C, R) and out.dtype == torch.int64 and out.is_contiguous()
         assert out.untyped_storage().nbytes() == C * R * 8
     with pytest.raises(TypeError, match="dtype"):
@@ -234,9 +329,11 @@ def test_tier_consume_launch_marshals_one_call(monkeypatch, mode):
     wide = _t(rng.integers(0, 100, (C, 17)).astype(np.int64))
     wide_req = _t(rng.integers(0, 9, (B, 17)).astype(np.int64))
     out = kernels._tier_consume_launch(wide, p, unsched, wide_req, rows, **kw)
-    assert [name for name, _ in calls] == ["tier_consume_launch"] * 4
-    assert [args[2] for _, args in calls[2:]] == [16, 1]
-    assert all(args[13] == C * 17 * 8 for _, args in calls[2:])  # one scratch, 16 + 1 wide
+    assert [name for name, _ in calls] == ["tier_consume_round"] * 4
+    blocks = [args[0]._obj for _, args in calls[2:]]
+    assert [rnd.R for rnd in blocks] == [16, 1]
+    assert blocks[0].scratch == blocks[1].scratch  # one scratch, 16 + 1 wide
+    assert all(rnd.scratch_bytes == C * 17 * 8 for rnd in blocks)
     assert out.shape == (C, 17) and out.is_contiguous()
 
 

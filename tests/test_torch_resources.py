@@ -312,8 +312,8 @@ def test_tier_consume_launch_takes_17_resources(fake_card):
     rows = T(np.arange(n, dtype=np.int32))
     out = kernels._tier_consume_launch(cap, torch.zeros((n, C), dtype=torch.int32),
                                        torch.zeros(n, dtype=torch.bool), request, rows)
-    assert [name for name, _ in fake_card] == ["tier_consume_launch"] * 2
-    assert [cargs[1:3] for _, cargs in fake_card] == [(C, 16), (C, 1)]
+    assert [name for name, _ in fake_card] == ["tier_consume_round"] * 2
+    assert [(cargs[0]._obj.C, cargs[0]._obj.R) for _, cargs in fake_card] == [(C, 16), (C, 1)]
     assert out.shape == (C, R) and out.dtype == torch.int64
 
 
