@@ -17,9 +17,12 @@ result line otherwise. Phases, each of which raises on failure:
    config 4, config 4b and the drain cell (captured at launch), then on
    seeded tie-heavy inputs over the config-4 and config-4b region layouts
    (group_score also with negative availability and on a single-region
-   fleet of 16 384 columns; combo_select at 4 096 rows over a config-4
-   combination table, then select_regions_batch through it against its
-   host path); dense_filter also with a random extra_mask, on config 1's
+   fleet of 16 384 columns; packed_selection also at widths that are no
+   multiple of 32 or 16, off a 16-byte boundary, with nothing chosen and
+   over 60 000 regions; combo_select at 4 096 rows over a config-4
+   combination table, on groups of equal weight and value there and at
+   L = 10, then select_regions_batch through it against its host path);
+   dense_filter also with a random extra_mask, on config 1's
    and config 2's batches (alone, with a mask, with answers), at 4 999
    and 13 columns, with answers and mask off alignment, at a tightened
    capacity and on the call one tiers_dense round makes; candidate_tail
@@ -36,7 +39,9 @@ result line otherwise. Phases, each of which raises on failure:
    kernel's time, its plain version's time, its bound and, for feas_idx
    and tier_consume, the time of the one torch call that computes the
    same function — the spread kernels' per round of config 4 (of the
-   drain cell for combo_select), the tier kernels' per round of
+   drain cell for combo_select; packed_selection also per drain round,
+   as its `drain_*` keys; both with device time under torch.profiler and
+   the host's enqueue), the tier kernels' per round of
    tiers_dense, tier_consume's window mode (a kernel of its own in the
    result line) per round of tiers_compact, each tier_consume mode also
    with its device time under torch.profiler; candidate_select, dense_filter and
@@ -315,6 +320,8 @@ WINDOW_NAMES = 64  # clusters named by each window-cell affinity
 SPREAD_REPS = 512  # representative rows of the random group_score check
 COMBO_ROWS = 4096  # rows of the combo_select check (its device gate)
 COMBO_SCRATCH_ROWS = 512  # rows of the combo_select check past its shared-memory regions
+SELECTION_EDGE_WIDTHS = (4999, 5008, 13, 1)  # packed_selection: no multiple of 32 (5 008 of 16)
+SELECTION_WIDE_REGIONS = 60_000  # its choice read in place (past 48 KB a row)
 WIDE_C = 16384  # the dense tail's and group_score's width check
 TIER_ROUNDS = 20  # timed rounds of each tier cell
 CONFIG3_CLUSTERS = 1000  # BASELINE config 3: 1k clusters x 1k bindings
@@ -1839,6 +1846,17 @@ def check_spread_kernels(dev, results):
                             tail_variants(cs, kernels._spread_tail_launch), 10,
                             check=(SPREAD_TAIL_OUT * len(cs), "new"))
         log(f"timing ({cell} round, the main path's arguments, per round): " + "; ".join(parts))
+    # B9a on config 4's call and the drain's, B10 on the drain's: device
+    # time under torch.profiler and the host's enqueue, per round
+    device_host = {}
+    for cell, n in (("config 4", "packed_selection"), ("drain", "packed_selection"),
+                    ("drain", "combo_select")):
+        cs = captured[cell][n]
+        device_host[(cell, n)] = (profiled_calls_ms(lambda: run_calls(n, cs), 10)[0],
+                                  host_enqueue_ms(lambda: run_calls(n, cs), 10))
+        log(f"{n}, {cell} round: device {device_host[(cell, n)][0]:.4f} ms, host enqueue "
+            f"{device_host[(cell, n)][1]:.4f} ms")
+    drain_rows = sum(int(a[1].shape[0]) for a, _ in captured["drain"]["packed_selection"])
     del captured
     torch.cuda.empty_cache()
 
@@ -1897,6 +1915,7 @@ def check_spread_kernels(dev, results):
     log(f"packed_selection and spread_tail: {SPREAD_REPS} random rows x {C} columns over the "
         "config-4 layout equal their plain versions exactly")
     del d, sel, t_args
+    errs["packed_selection"] = max(errs["packed_selection"], check_selection_edges(rng, dev))
 
     # ---- B10 combo_select, then select_regions_batch through it ----
     table = spread_batch._combos(R, 3, 5)
@@ -1918,6 +1937,17 @@ def check_spread_kernels(dev, results):
         "combo_select[random, 10 regions, L=10]",
         kernels._combo_select_launch(*s_args, cmin=5, kmin=1),
         kernels.combo_select_plain(*s_args, cmin=5, kmin=1), COMBO_OUT))
+    for label, table_t, R_t, kmin, kmax_hi in (("config 4 table", (members_pad, sizes), R, 3, 6),
+                                               ("10 regions, L=10", small, 10, 1, 11)):
+        td = tied_combo_inputs(rng, dev, COMBO_ROWS // 4, R_t)
+        t_args = (td["weight"], td["value"], torch.from_numpy(rng.integers(
+            kmin, kmax_hi, COMBO_ROWS // 4).astype(np.int32)).to(dev), rname[:R_t].argsort().to(
+            torch.int32), *table_t)
+        for cmin in (2, 4):
+            errs["combo_select"] = max(errs["combo_select"], compare(
+                f"combo_select[tied, {label}, cmin={cmin}]",
+                kernels._combo_select_launch(*t_args, cmin=cmin, kmin=kmin),
+                kernels.combo_select_plain(*t_args, cmin=cmin, kmin=kmin), COMBO_OUT))
     errs["combo_select"] = max(errs["combo_select"], check_combo_regions(rng, dev))
     W, V = cd["weight"].cpu().numpy(), cd["value"].cpu().numpy()
     W[:, 0] += np.arange(COMBO_ROWS)  # 4 096 distinct rows
@@ -1932,16 +1962,67 @@ def check_spread_kernels(dev, results):
             and sorted(on_card.fallback) == sorted(host.fallback)):
         raise AssertionError("select_regions_batch: the card's selection differs from the host's")
     log(f"combo_select: {COMBO_ROWS} random rows over the config-4 table C(16, 3..5) = "
-        f"{len(table.members)} combinations and 256 rows at L = 10 equal the plain version; "
+        f"{len(table.members)} combinations (members read in place) and 256 rows at L = 10, "
+        f"and {COMBO_ROWS // 4} rows of equal groups on each, equal the plain version; "
         f"select_regions_batch through it equals its host path on {COMBO_ROWS} distinct rows "
         f"({int(on_card.chosen.any(1).sum())} chosen, {len(on_card.errors)} errors, "
         f"{len(on_card.fallback)} fallback)")
 
     csrc = "karmada_tpu_torch/kernels/csrc/"
     for n, (src, repl, _, _, _) in SPREAD_KERNELS.items():
-        ms, plain, b, by = timing[("drain" if n == "combo_select" else "config 4", n)]
+        cell = "drain" if n == "combo_select" else "config 4"
+        ms, plain, b, by = timing[(cell, n)]
         results[n] = dict(source=csrc + src, replaces=repl, max_abs_err=errs[n],
                           ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None)
+        if (cell, n) in device_host:
+            results[n].update(zip(("device_ms", "host_ms"), device_host[(cell, n)]))
+    ms, plain, b, by = timing[("drain", "packed_selection")]
+    results["packed_selection"].update(
+        drain_ms=ms, drain_plain_ms=plain, drain_bound_ms=b, drain_bound_by=by,
+        drain_device_ms=device_host[("drain", "packed_selection")][0],
+        drain_host_ms=device_host[("drain", "packed_selection")][1], drain_rows=drain_rows)
+
+
+def tied_combo_inputs(rng, dev, S, R):
+    """Group matrices of equal groups: weights 4 000 or 5 000 and values
+    1 (a few absent), so most combinations tie on (Σw, Σv) and the
+    discovery key or the first index decides."""
+    d = {
+        "weight": np.where(rng.random((S, R)) < 0.8, 5000, 4000).astype(np.int64),
+        "value": np.where(rng.random((S, R)) < 0.05, 0, 1).astype(np.int32),
+    }
+    return batch_from_numpy(d, dev)
+
+
+def check_selection_edges(rng, dev):
+    """packed_selection on seeded inputs at the edges of its routes:
+    widths that are no multiple of 32 (SELECTION_EDGE_WIDTHS; 4 999, 13 and
+    1 no multiple of 16 or 8 either: the scalar path), filter outputs off
+    a 16-byte boundary (the scalar path), rows that chose no region, and a
+    layout of SELECTION_WIDE_REGIONS regions (the choice read in place).
+    Returns the largest error (0)."""
+    err = 0
+    cases = [(f"C={C}", C, 16, False, False) for C in SELECTION_EDGE_WIDTHS]
+    cases += [("C=5120, off a 16-byte boundary", 5120, 16, True, False),
+              ("C=5120, nothing chosen", 5120, 16, False, True),
+              (f"C=5120, {SELECTION_WIDE_REGIONS} regions", 5120, SELECTION_WIDE_REGIONS, False,
+               False)]
+    for label, C, R, shifted, none in cases:
+        n = 256 if R > 16 else SPREAD_REPS
+        d = random_selection_inputs(rng, dev, 2 * n, C, R, n)
+        feas, chosen = d["feasible"], d["chosen"]
+        if shifted:
+            feas = off_alignment(feas)
+        if none:
+            chosen = torch.zeros_like(chosen)
+        rid = torch.from_numpy(rng.integers(0, R + 1, C).astype(np.int32)).to(dev)
+        sel = (feas, d["rows"], chosen, rid)
+        err = max(err, compare(f"packed_selection[{label}]", [kernels._packed_selection_launch(
+            *sel)], [kernels.packed_selection_plain(*sel)], ("packed",)))
+    log(f"packed_selection: seeded rows at widths {SELECTION_EDGE_WIDTHS}, off a 16-byte "
+        f"boundary, with nothing chosen and over {SELECTION_WIDE_REGIONS} regions equal the "
+        "plain version exactly")
+    return err
 
 
 def check_combo_regions(rng, dev):
@@ -5461,7 +5542,7 @@ def main(argv=None) -> int:
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"], "device_ms": r.get("device_ms"), "matches_plain": True,
          **{k: v for k, v in r.items()
-            if k == "host_ms" or k.startswith(("window_", "estimator_"))}}
+            if k == "host_ms" or k.startswith(("window_", "estimator_", "drain_"))}}
         for n, r in results.items()
     ]}
     print(json.dumps(line), flush=True)

@@ -33,17 +33,19 @@ Spread constraints (the dense round's batched region path):
   member count and availability sum, read from the filter outputs through
   row ids over the region layout's permuted slices; the plain version is
   `group_score_plain`.
-- `packed_selection` (csrc/dense_mask.cu, `pack_rows` restricted to each
-  row's chosen regions): bit-packed selection masks; the plain version is
-  `packed_selection_plain`.
+- `packed_selection` (csrc/dense_mask.cu): bit-packed selection masks,
+  each row's filter outputs restricted to its chosen regions, 16 columns
+  a thread, one launch over the caller's bool [n, R] choice; the plain
+  version is `packed_selection_plain`.
 - `spread_tail` (csrc/dense_tail.cu, the dense tail restricted to each
   row's chosen regions, zero static weights): the division re-run over the
   selection plus its feasible count; the plain version is
   `spread_tail_plain`.
 - `combo_select` (csrc/combo_select.cu): the winning region combination
-  per row over the enumerated combination table, any number of regions
-  (a row's regions in shared memory up to MAX_COMBO_SMEM_REGIONS, read in
-  place past it); the plain version is `combo_select_plain`.
+  per row over the enumerated combination table, any number of regions,
+  one warp a row and one pass (a row's regions in shared memory up to
+  MAX_COMBO_SMEM_REGIONS, read in place past it), the outputs views of
+  one block; the plain version is `combo_select_plain`.
 
 Priority tiers (the tiered rounds of sched/preemption.py, composed with
 the kernels above):
@@ -1371,8 +1373,8 @@ def _group_score_launch(
 
 
 def _chosen_table(chosen):
-    """bool[n, R] -> the kernels' u8[n, R + 1] table, column 0 (regionless)
-    False."""
+    """bool[n, R] -> the spread tail's u8[n, R + 1] table, column 0
+    (regionless) False."""
     n = chosen.shape[0]
     return torch.cat([torch.zeros((n, 1), dtype=U8, device=chosen.device),
                       chosen.to(U8)], dim=1).contiguous()
@@ -1404,15 +1406,15 @@ def packed_selection(feasible, rows, chosen, rid):
 
 
 def _packed_selection_launch(feasible, rows, chosen, rid):
-    """Check, allocate and launch pack_rows_kernel with the selection."""
+    """Check, allocate and launch packed_selection_kernel: one launch, the
+    caller's bool `chosen` read as it is."""
     dev = feasible.device
     _B, C, n, R = _check_selection(feasible, rows, chosen, rid)
     out = torch.empty((n, (C + 7) // 8), dtype=U8, device=dev)
     if n == 0 or C == 0:
         return out
-    table = _chosen_table(chosen)
     rc = _bind("dense_mask", "packed_selection_launch", _PACKED_SELECTION_ARGTYPES)(
-        feasible.data_ptr(), C, rows.data_ptr(), n, table.data_ptr(), R + 1, rid.data_ptr(),
+        feasible.data_ptr(), C, rows.data_ptr(), n, chosen.data_ptr(), R, rid.data_ptr(),
         out.data_ptr(), _stream(dev))
     _raise_on(rc, "packed_selection")
     return out
@@ -1488,12 +1490,20 @@ def combo_select(weight, value, kmax_row, rname, members_pad, sizes, *, cmin: in
     return out
 
 
+def _combo_outputs(block):
+    """(first_idx i32[S], n_ties i32[S], none_feasible bool[S]): views of
+    one int32 [3, S] block; none_feasible reads the low byte of each 0 / 1
+    in the block's last row."""
+    return block[0], block[1], block[2].view(BOOL)[::4]
+
+
 def _combo_select_launch(weight, value, kmax_row, rname, members_pad, sizes, *,
                          cmin: int, kmin: int):
-    """Check, allocate and launch combo_select_kernel. Members must lie in
-    [-1, R). Past MAX_COMBO_SMEM_REGIONS regions the kernel reads them in
-    place and writes their group-order positions to an int32 [S, R]
-    scratch."""
+    """Check, allocate and launch combo_select_kernel: one launch writes the
+    three outputs, views of one fresh int32 [3, S] block (`fetch_views`
+    brings them to the host in one copy). Members must lie in [-1, R).
+    Past MAX_COMBO_SMEM_REGIONS regions the kernel reads them in place and
+    writes their group-order positions to an int32 [S, R] scratch."""
     dev = weight.device
     S, R = weight.shape
     K, L = members_pad.shape
@@ -1505,19 +1515,17 @@ def _combo_select_launch(weight, value, kmax_row, rname, members_pad, sizes, *,
         _check(name, t, dt, shape, dev)
     if R == 0:
         raise ValueError("combo_select: no region")
-    first_idx = torch.zeros((S,), dtype=I32, device=dev)
-    n_ties = torch.zeros((S,), dtype=I32, device=dev)
-    none_feasible = torch.zeros((S,), dtype=BOOL, device=dev)
     if S == 0 or K == 0:
-        return first_idx, n_ties, none_feasible
+        return _combo_outputs(torch.zeros((3, S), dtype=I32, device=dev))
+    block = torch.empty((3, S), dtype=I32, device=dev)
     pos = (torch.empty((S, R), dtype=I32, device=dev) if R > MAX_COMBO_SMEM_REGIONS
            else None)
     rc = _bind("combo_select", "combo_select_launch", _COMBO_SELECT_ARGTYPES)(
         *_ptrs(weight, value, kmax_row, rname), S, R, members_pad.data_ptr(), sizes.data_ptr(),
-        K, L, cmin, kmin, *_ptrs(first_idx, n_ties, none_feasible, pos), _stream(dev),
+        K, L, cmin, kmin, *_ptrs(block, pos), _stream(dev),
     )
     _raise_on(rc, "combo_select")
-    return first_idx, n_ties, none_feasible
+    return _combo_outputs(block)
 
 
 def tier_estimate(capacity, has_summary, req_unique, req_idx, replicas, unknown_request, rows,
@@ -1615,7 +1623,7 @@ _PACK_ROWS_ARGTYPES = [_VP, _CI, _CI, _VP, _VP]
 _FEAS_IDX_ARGTYPES = [_VP, _CI, _CI, _CI, _VP, _VP]
 _GROUP_SCORE_ARGTYPES = [_VP] * 4 + [_CI, _VP, _CI] + [_VP] * 8 + [_CI] * 3 + [_VP] * 5
 _PACKED_SELECTION_ARGTYPES = [_VP, _CI, _VP, _CI, _VP, _CI, _VP, _VP, _VP]
-_COMBO_SELECT_ARGTYPES = [_VP] * 4 + [_CI] * 2 + [_VP] * 2 + [_CI] * 4 + [_VP] * 5
+_COMBO_SELECT_ARGTYPES = [_VP] * 4 + [_CI] * 2 + [_VP] * 2 + [_CI] * 4 + [_VP] * 3
 _TIER_ROUND_ARGTYPES = [_VP] * 4 + [_CI] * 3 + [_VP] * 2
 _CONSUME_ROUND_ARGTYPES = [_VP] * 5 + [_CI, _VP]
 _STALENESS_ARGTYPES = [_VP, ctypes.c_int64, _CI, _VP, _VP]

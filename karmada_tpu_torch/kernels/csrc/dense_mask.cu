@@ -1,5 +1,6 @@
 // dense_mask: the target sets of Duplicated and non-workload rows in the
-// dense schedule round, two entry points.
+// dense schedule round and the spread round's selection masks, three
+// entry points.
 //
 // pack_rows replaces karmada_tpu/sched/core.py:530 `_pack_rows_kernel`
 // (spread_batch._pack_bits): bool[rows, C] -> u8[rows, ceil(C/8)], bit j
@@ -7,12 +8,23 @@
 // columns; bound by memory bandwidth (C + C/8 bytes per row).
 //
 // packed_selection replaces karmada_tpu/sched/spread_batch.py:448
-// `packed_selection_kernel` (with :425 `_apply_chosen`): the same packing
-// of feasible[rows[j], c] && chosen[j, rid[c]] — the filter row read
-// through its row id, a column kept only in a region the row chose
-// (chosen is u8[n, R + 1], column 0 the regionless id, never chosen). The
-// same kernel with the selection compiled in; the extra reads (the row's
-// small chosen table and rid, both cached) leave it bound by memory.
+// `packed_selection_kernel` (with :425 `_apply_chosen` and :434
+// `_pack_bits`): the same packing of feasible[rows[j], c] && column c in a
+// region row j chose — `chosen` is the caller's bool[n, R], `rid[c]` the
+// layout's region id + 1 (0 = regionless, never selected). One block per
+// output row: the row's chosen regions are staged in shared memory behind
+// a 0 for the regionless id (R + 1 bytes, read in place past
+// kChosenSmem), then each thread packs 16 columns into 2 output bytes —
+// one 16-byte load of the filter row (read through rows[j]; a warp's
+// loads cover 512 contiguous bytes), four int4 loads of rid (the layout's
+// constant, kept by L1 / L2), 16 shared-memory lookups, one 2-byte store.
+// The row's last partial 16 columns, a C that is not a multiple of 16 and
+// an input off a 16-byte boundary take a scalar path. One launch a call,
+// no table built on the host. Bound by memory bandwidth (C bytes read
+// and C/8 written per row). On an H100 the drain cell's call (5 000 rows
+// x 5 120 columns) takes 0.022 ms of device time, a torch gather of the
+// same rows 0.020 and pack_rows over the gathered rows 0.014; 32 columns
+// a thread (two 16-byte loads 16 bytes apart in each thread) took 0.033.
 //
 // feas_idx replaces karmada_tpu/sched/core.py:539 `_feas_idx_kernel`: the
 // ascending ids of the first k feasible columns of each row, padded with
@@ -33,31 +45,95 @@ namespace {
 
 constexpr int kPackThreads = 256;
 constexpr int kIdxThreads = 256;
+constexpr int kSelThreads = 256;  // most threads of a packed_selection block
+constexpr int kChosenSmem = 48 * 1024;  // a row's staged chosen regions, bytes
 constexpr int32_t kPad = 1 << 30;
 
-struct Selection {
-  const int32_t* rows;    // [n] filter row of each output row
-  const uint8_t* chosen;  // [n, R1]
-  int R1;
-  const int32_t* rid;     // [C]
-};
-
-template <bool kSel>
 __global__ void __launch_bounds__(kPackThreads)
-pack_rows_kernel(const uint8_t* feas, int rows, int C, int nbytes, uint8_t* out, Selection sel) {
+pack_rows_kernel(const uint8_t* feas, int rows, int C, int nbytes, uint8_t* out) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (int64_t)rows * nbytes) return;
   const int64_t r = i / nbytes;
   const int byte = (int)(i - r * nbytes);
-  const uint8_t* row = feas + (kSel ? (int64_t)sel.rows[r] : r) * C;
+  const uint8_t* row = feas + r * C;
   unsigned v = 0;
   for (int j = 0; j < 8; ++j) {
     const int c = 8 * byte + j;
-    bool on = c < C && row[c] != 0;
-    if constexpr (kSel) on = on && sel.chosen[r * sel.R1 + sel.rid[c]] != 0;
-    if (on) v |= 1u << j;
+    if (c < C && row[c] != 0) v |= 1u << j;
   }
   out[i] = (uint8_t)v;
+}
+
+struct SelParams {
+  const uint8_t* feas;    // [B, C] filter outputs
+  const int32_t* rows;    // [n] filter row of each output row
+  const uint8_t* chosen;  // [n, R] bool
+  const int32_t* rid;     // [C] region id + 1, 0 = regionless
+  int C, R, nbytes;
+  bool vec;               // C % 16 == 0, feas and rid on 16-byte boundaries
+  bool half_store;        // nbytes % 2 == 0 (out on a 2-byte boundary)
+  uint8_t* out;           // [n, nbytes]
+};
+
+// bit k of the result: column c0 + k, feasible and in a chosen region
+// (sel(id), id = rid); the vector route's 16 columns
+template <typename Sel>
+__device__ __forceinline__ unsigned pack16(const uint8_t* row, const int32_t* rid, int c0,
+                                           Sel sel) {
+  const uint4 f = __ldg(reinterpret_cast<const uint4*>(row + c0));
+  const unsigned fb[4] = {f.x, f.y, f.z, f.w};
+  const int4* g4 = reinterpret_cast<const int4*>(rid + c0);
+  unsigned bits = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {  // 4 columns a step: one int4 of rid, one 32-bit lane of f
+    const int4 g = __ldg(g4 + q);
+    const unsigned b = fb[q];
+    bits |= ((b & 0xffu) != 0 && sel(g.x) ? 1u : 0u) << (4 * q);
+    bits |= ((b & 0xff00u) != 0 && sel(g.y) ? 1u : 0u) << (4 * q + 1);
+    bits |= ((b & 0xff0000u) != 0 && sel(g.z) ? 1u : 0u) << (4 * q + 2);
+    bits |= ((b & 0xff000000u) != 0 && sel(g.w) ? 1u : 0u) << (4 * q + 3);
+  }
+  return bits;
+}
+
+// kStaged: the row's chosen regions in shared memory (R + 1 <= kChosenSmem)
+template <bool kStaged>
+__global__ void __launch_bounds__(kSelThreads)
+packed_selection_kernel(SelParams p) {
+  extern __shared__ uint8_t sel_s[];
+  const int64_t r = blockIdx.x;
+  const uint8_t* chosen = p.chosen + r * p.R;
+  if constexpr (kStaged) {
+    for (int g = threadIdx.x; g <= p.R; g += blockDim.x) sel_s[g] = g == 0 ? 0 : chosen[g - 1];
+    __syncthreads();
+  }
+  auto sel = [&](int g) -> bool {
+    if constexpr (kStaged) {
+      return sel_s[g] != 0;
+    } else {
+      return g != 0 && chosen[g - 1] != 0;
+    }
+  };
+  const uint8_t* row = p.feas + (int64_t)p.rows[r] * p.C;
+  uint8_t* dst = p.out + r * p.nbytes;
+  const int halves = (p.C + 15) / 16;
+  for (int h = threadIdx.x; h < halves; h += blockDim.x) {
+    const int c0 = 16 * h;
+    unsigned bits = 0;
+    if (p.vec && c0 + 16 <= p.C) {
+      bits = pack16(row, p.rid, c0, sel);
+    } else {  // the scalar path
+      const int hi = c0 + 16 < p.C ? c0 + 16 : p.C;
+      for (int c = c0; c < hi; ++c) {
+        if (row[c] != 0 && sel(p.rid[c])) bits |= 1u << (c - c0);
+      }
+    }
+    if (p.half_store && 2 * h + 2 <= p.nbytes) {
+      *reinterpret_cast<uint16_t*>(dst + 2 * h) = (uint16_t)bits;
+    } else {
+      for (int b = 0; b < 2 && 2 * h + b < p.nbytes; ++b) dst[2 * h + b] = (uint8_t)(bits >> 8 * b);
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kIdxThreads)
@@ -96,24 +172,36 @@ extern "C" int pack_rows_launch(const void* feas, int rows, int C, void* out, vo
   const int nbytes = (C + 7) / 8;
   const int64_t n = (int64_t)rows * nbytes;
   const int64_t blocks = (n + kPackThreads - 1) / kPackThreads;
-  pack_rows_kernel<false>
-      <<<(unsigned)blocks, kPackThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const uint8_t*>(feas), rows, C, nbytes, static_cast<uint8_t*>(out),
-          Selection{});
+  pack_rows_kernel<<<(unsigned)blocks, kPackThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(feas), rows, C, nbytes, static_cast<uint8_t*>(out));
   return (int)cudaGetLastError();
 }
 
+// chosen: the caller's bool[n, R] (R >= 0); rows index the filter outputs
 extern "C" int packed_selection_launch(const void* feas, int C, const void* rows, int n,
-                                       const void* chosen, int R1, const void* rid, void* out,
+                                       const void* chosen, int R, const void* rid, void* out,
                                        void* stream) {
-  if (n <= 0 || C <= 0 || R1 <= 0) return (int)cudaErrorInvalidValue;
-  const int nbytes = (C + 7) / 8;
-  const int64_t blocks = ((int64_t)n * nbytes + kPackThreads - 1) / kPackThreads;
-  const Selection sel{static_cast<const int32_t*>(rows), static_cast<const uint8_t*>(chosen), R1,
-                      static_cast<const int32_t*>(rid)};
-  pack_rows_kernel<true>
-      <<<(unsigned)blocks, kPackThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const uint8_t*>(feas), n, C, nbytes, static_cast<uint8_t*>(out), sel);
+  if (n <= 0 || C <= 0 || R < 0) return (int)cudaErrorInvalidValue;
+  SelParams p;
+  p.feas = static_cast<const uint8_t*>(feas);
+  p.rows = static_cast<const int32_t*>(rows);
+  p.chosen = static_cast<const uint8_t*>(chosen);
+  p.rid = static_cast<const int32_t*>(rid);
+  p.C = C;
+  p.R = R;
+  p.nbytes = (C + 7) / 8;
+  p.vec = C % 16 == 0 && reinterpret_cast<uintptr_t>(feas) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(rid) % 16 == 0;
+  p.half_store = p.nbytes % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 2 == 0;
+  p.out = static_cast<uint8_t*>(out);
+  const int halves = (C + 15) / 16;
+  const int threads = halves >= kSelThreads ? kSelThreads : (halves + 31) / 32 * 32;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (R + 1 <= kChosenSmem) {
+    packed_selection_kernel<true><<<n, threads, R + 1, st>>>(p);
+  } else {
+    packed_selection_kernel<false><<<n, threads, 0, st>>>(p);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -468,6 +468,40 @@ def to_device(a: np.ndarray, device) -> torch.Tensor:
     return t
 
 
+def to_device_packed(arrays: Sequence[np.ndarray], device) -> list[torch.Tensor]:
+    """Host arrays on `device` in one copy: on a card their bytes go into
+    one pinned buffer (each at a 16-byte boundary), which travels without a
+    stream sync and is cut into views of the arrays' dtypes and shapes; on
+    the CPU each array comes back as a tensor over its own memory."""
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    if torch.device(device).type != "cuda":
+        return [torch.from_numpy(a) for a in arrays]
+    offs, n = [], 0
+    for a in arrays:
+        offs.append(n)
+        n += -(-a.nbytes // 16) * 16
+    host = torch.empty(max(n, 16), dtype=torch.uint8, pin_memory=True)
+    view = host.numpy()
+    for a, o in zip(arrays, offs):
+        view[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
+    dev = host.to(device, non_blocking=True)
+    return [dev[o:o + a.nbytes].view(torch.from_numpy(a[:0].reshape(-1)).dtype).view(a.shape)
+            for a, o in zip(arrays, offs)]
+
+
+def fetch_views(*views: torch.Tensor) -> list[torch.Tensor]:
+    """Views of one device block (a kernel's outputs cut from one
+    allocation) on the host with one copy: the block's bytes fetched with
+    one `.cpu()`, each view rebuilt over them with its dtype, offset and
+    strides. Tensors that share no block come back one `.cpu()` each."""
+    storage = views[0].untyped_storage()
+    if any(v.untyped_storage().data_ptr() != storage.data_ptr() for v in views[1:]):
+        return [v.cpu() for v in views]
+    raw = torch.empty(0, dtype=torch.uint8, device=views[0].device).set_(storage).cpu()
+    return [torch.empty(0, dtype=v.dtype).set_(raw.untyped_storage(), v.storage_offset(),
+                                               v.shape, v.stride()) for v in views]
+
+
 def fetch_rows(dev_tensor, rows: Sequence[int], bucket_fn) -> np.ndarray:
     """A row subset of a device tensor on the host: a gather on the device
     (rows padded to the bucket lattice) and one copy, never the full
@@ -1648,8 +1682,7 @@ class ArrayScheduler:
                 rid = self._layout_dev["rid"]
                 rows_of = np.asarray(batched_rows, np.int32)
                 packed_dev = kernels.packed_selection(
-                    dev_feasible, to_device(rows_of[rep_js], dev), to_device(chosen[rep_js], dev), rid,
-                )
+                    dev_feasible, *to_device_packed([rows_of[rep_js], chosen[rep_js]], dev), rid)
                 tail_dev = None
                 if div_js:
                     d_rows = [batched_rows[j] for j in div_js]

@@ -137,6 +137,15 @@ class RegionLayout:
         names_idx = sorted(range(self.n_regions), key=lambda r: self.region_names[r])
         self.rname_rank = np.empty(self.n_regions, np.int64)
         self.rname_rank[names_idx] = np.arange(self.n_regions)
+        self._rname_dev: dict = {}
+
+    def rname_tensor(self, device) -> torch.Tensor:
+        """`rname_rank` as i32[R] on `device`, uploaded once."""
+        key = str(device)
+        t = self._rname_dev.get(key)
+        if t is None:
+            t = self._rname_dev[key] = torch.from_numpy(self.rname_rank.astype(np.int32)).to(device)
+        return t
 
     def tensors(self, device) -> dict:
         """The layout as the spread kernels take it, on `device`: `perm`
@@ -510,20 +519,20 @@ def select_regions_batch(
         )
     if device:
         from .. import kernels
+        from .core import fetch_views, to_device_packed
 
         dev = torch.device("cpu" if on is None else on)
         members_pad, sizes = table.tensors(dev)
-        fi, nt, nf = kernels.combo_select(
-            torch.from_numpy(np.ascontiguousarray(weight, np.int64)).to(dev),
-            torch.from_numpy(np.ascontiguousarray(value, np.int32)).to(dev),
-            torch.from_numpy(kmax_row.astype(np.int32)).to(dev),
-            torch.from_numpy(layout.rname_rank.astype(np.int32)).to(dev),
-            members_pad, sizes, cmin=int(cfg.cmin), kmin=int(kmin),
-        )
+        # the row inputs in one upload, the layout's and table's constants
+        # cached on the device, the three outputs fetched in one copy
+        row_inputs = to_device_packed([np.asarray(weight, np.int64), np.asarray(value, np.int32),
+                                       kmax_row.astype(np.int32)], dev)
+        outs = kernels.combo_select(*row_inputs, layout.rname_tensor(dev), members_pad, sizes,
+                                    cmin=int(cfg.cmin), kmin=int(kmin))
+        fi, nt, nf = (x.numpy() for x in fetch_views(*outs))
         return _finish_selection(
             weight, v64, cfg, layout, table, kmin, chosen, errors,
-            fallback, overflow, fi.cpu().numpy(), nt.cpu().numpy(),
-            nf.cpu().numpy(),
+            fallback, overflow, fi, nt, nf,
         )
 
     # host path (also the spec the device kernel is tested against)

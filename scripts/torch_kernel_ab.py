@@ -1,8 +1,8 @@
 """The redesigned kernels' time on the main path's own arguments, for an
 A/B of two trees on one card: candidate_select, group_score,
-combo_select, sim_filter, fleet_estimate, dense_filter, candidate_tail,
-dense_input_filter, mesh_tile_filter and the tier launches
-(tier_estimate, tier_consume).
+packed_selection, combo_select, sim_filter, fleet_estimate, dense_filter,
+candidate_tail, dense_input_filter, mesh_tile_filter and the tier
+launches (tier_estimate, tier_consume).
 
     python3 /path/to/scripts/torch_kernel_ab.py [--kernels NAME,...]
 
@@ -15,8 +15,11 @@ each:
 - `kernels._select_launch` on the compact flagship's batch (10 240 x
   5 120, K = 128) and on a wide_40k chunk (the flagship mix at 20 000
   clusters, 20 480 padded, the pipelined chunk's 6 144 rows);
-- `kernels._group_score_launch` (and the drain's `_combo_select_launch`)
-  on the calls one round of config 4, config 4b and the drain cell makes;
+- `kernels._group_score_launch`, `_packed_selection_launch` and
+  `_combo_select_launch` on the calls one round of config 4, config 4b and
+  the drain cell makes (combo_select: the drain's), and `_pack_rows_launch`
+  on the call one round of the whole-fleet Duplicated dense flagship makes
+  (with packed_selection: the control, code no PR has changed since);
 - `kernels._sim_filter_launch` on the first call one round of whatif_churn5k
   (a chunk of 5 scenarios x 10 240 rows x 5 000 columns) and of whatif (17 x
   1 024 x 500) makes, captured at launch;
@@ -56,13 +59,13 @@ each:
   row's request distinct and with four requests.
 Beside each label's CUDA-event times it prints the device time per call
 under torch.profiler and the host's time to enqueue a call. chip_smoke's
-builders, seed 0. `--kernels` picks among candidate_select, group_score
-(with combo_select), sim_filter, fleet_estimate, dense_filter,
-candidate_tail, dense_input_filter, mesh_tile_filter and tier_estimate
-(with tier_consume; default: all). Prints one JSON line: the tree, the
-card's nvidia-smi line, and per label the times in ms, the device and
-enqueue ms and a digest of the outputs (equal digests: equal outputs).
-Needs one CUDA card and nvcc.
+builders, seed 0. `--kernels` picks among candidate_select, group_score,
+packed_selection (with pack_rows), combo_select, sim_filter,
+fleet_estimate, dense_filter, candidate_tail, dense_input_filter,
+mesh_tile_filter and tier_estimate (with tier_consume; default: all).
+Prints one JSON line: the tree, the card's nvidia-smi line, and per
+label the times in ms, the device and enqueue ms and a digest of the
+outputs (equal digests: equal outputs). Needs one CUDA card and nvcc.
 """
 from __future__ import annotations
 
@@ -93,8 +96,9 @@ from karmada_tpu_torch.testing.cpumesh import virtual_mesh  # noqa: E402
 REPS = 10  # launches per CUDA-event window
 TURNS = 2
 WIDE_CHUNK_BINDINGS = 6144  # the pipelined wide_40k chunk's rows
-KERNELS = ("candidate_select", "group_score", "sim_filter", "fleet_estimate", "dense_filter",
-           "candidate_tail", "dense_input_filter", "mesh_tile_filter", "tier_estimate")
+KERNELS = ("candidate_select", "group_score", "packed_selection", "combo_select", "sim_filter",
+           "fleet_estimate", "dense_filter", "candidate_tail", "dense_input_filter",
+           "mesh_tile_filter", "tier_estimate")
 TIER_DRAW = (10240, 5120, 4, 2560)  # B, C, R and the tier's rows of the seeded estimate draws
 INPUT_REPEATS = 4  # distinct rows of the repeated-row dense-input draw
 TAIL_KS = (8, 32, 100, 128)  # seeded windows' widths
@@ -131,19 +135,42 @@ def time_select(dev, result):
         del sched, clusters, bindings, args
 
 
-def time_group_score(dev, result):
+def _outputs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def time_spread(dev, result, which):
+    """The spread kernels among `which` (group_score, packed_selection,
+    combo_select) on the calls one round of config 4, config 4b and the
+    drain cell makes; with packed_selection, pack_rows on the call one
+    round of the whole-fleet Duplicated dense flagship makes (the control:
+    its code is the parent's)."""
+    names = [n for n in ("group_score", "packed_selection", "combo_select") if n in which]
     for cell, build_cell, expect in chip_smoke.SPREAD_CELLS:
-        if cell == "window":  # launches no group_score
+        if cell == "window":  # launches no spread kernel
             continue
         calls, _, _ = chip_smoke.main_path_spread_calls(cell, build_cell, expect, dev)
-        for n, launch in (("group_score", kernels._group_score_launch),
-                          ("combo_select", kernels._combo_select_launch)):
+        for n in names:
             if not calls[n]:
                 continue
             label = f"{n}, {cell} round"
-            result[label] = timed(
-                lambda cs=calls[n], f=launch: [o for a, kw in cs for o in f(*a, **kw)])
-            chip_smoke.log(f"{label}: {result[label]}")
+            launch = getattr(kernels, f"_{n}_launch")
+            result[label] = timed(lambda cs=calls[n], f=launch: [
+                o for a, kw in cs for o in _outputs(f(*a, **kw))])
+            rows = [int(a[chip_smoke.SPREAD_KERNELS[n][4]].shape[0]) for a, _ in calls[n]]
+            chip_smoke.log(f"{label} (rows per call {rows}): {result[label]}")
+        del calls
+    if "packed_selection" in which:
+        clusters, bindings = chip_smoke.build_flagship(dense=True, whole_fleet_dup=True)
+        sched = ArrayScheduler(clusters, device=dev)
+        with chip_smoke.captured_launches(("pack_rows",)) as cap:
+            sched.schedule(bindings)
+        label = "pack_rows, whole-fleet Duplicated round (control)"
+        result[label] = timed(lambda cs=cap["pack_rows"]: [
+            kernels._pack_rows_launch(*a, **kw) for a, kw in cs])
+        chip_smoke.log(f"{label} (rows x C per call "
+                       f"{[tuple(a[0].shape) for a, _ in cap['pack_rows']]}): {result[label]}")
+        del sched, cap
 
 
 def time_sim_filter(dev, result):
@@ -397,7 +424,9 @@ def main() -> int:
     dev = torch.device(chip_smoke.DEVICE)
     build.build_all()
     result = {}
-    for name, fn in (("candidate_select", time_select), ("group_score", time_group_score),
+    if {"group_score", "packed_selection", "combo_select"} & set(which):
+        time_spread(dev, result, which)
+    for name, fn in (("candidate_select", time_select),
                      ("sim_filter", time_sim_filter), ("fleet_estimate", time_fleet_estimate),
                      ("dense_filter", time_dense_filter),
                      ("candidate_tail", time_candidate_tail),

@@ -11,17 +11,20 @@ call. It builds the tree's kernels, then times the compact flagship round,
 the dense flagship round, whatif and whatif_churn5k, estimator_flagship
 (the compact flagship with member estimators on every cluster), config3,
 tiers_dense, tiers_compact, mesh_flagship (the dense flagship through
-ArrayScheduler(mesh=virtual_mesh(4, card), candidate_k=0), monolithic)
-and graft_flagship (the dense-input program, `_schedule_kernel`, on the
+ArrayScheduler(mesh=virtual_mesh(4, card), candidate_k=0), monolithic),
+graft_flagship (the dense-input program, `_schedule_kernel`, on the
 dense flagship's batch as its 24 dense arguments; each call timed by CUDA
-events, in seconds like the rounds) (chip_smoke's build_* functions, seed 0; the
+events, in seconds like the rounds), config 4 (bench.py build_spread) and
+the drain cell (chip_smoke.build_drain: combo_select's cell)
+(chip_smoke's build_* functions, seed 0; the
 tier cells' round is launch_tiered + materialize_chunk), each round on
 the host clock around a synchronised call, with its split (ArrayScheduler
 and the tier cells: launch / wait / materialize; Simulator: fleet encodes
 / batch encode / solve / the rest; the estimator cells: sweep / merge /
 the round given the answers; none for the mesh and the program), and
 dense_tail's, sim_load's, sim_filter's, fleet_estimate's, dense_filter's,
-candidate_tail's, dense_input_filter's and mesh_tile_filter's time in
+candidate_tail's, dense_input_filter's, mesh_tile_filter's and the spread
+kernels' (group_score, packed_selection, spread_tail, combo_select) time in
 those rounds by CUDA events around each wrapper call (its host enqueue
 included). `--cells`
 picks among the cells (default: all). Prints one JSON line: the tree, the
@@ -55,10 +58,11 @@ from karmada_tpu_torch.simulation.engine import Simulator  # noqa: E402
 
 ROUNDS = {"compact flagship": 30, "dense flagship": 30, "whatif": 20, "whatif_churn5k": 4,
           "estimator_flagship": 20, "config3": 30, "tiers_dense": 15, "tiers_compact": 15,
-          "mesh_flagship": 20, "graft_flagship": 30}
+          "mesh_flagship": 20, "graft_flagship": 30, "config 4": 20, "drain": 20}
 # the kernels' wrappers, as the rounds call them
 TIMED = ("dense_tail", "sim_load", "sim_filter", "fleet_estimate", "dense_filter",
-         "candidate_tail", "dense_input_filter", "mesh_tile_filter")
+         "candidate_tail", "dense_input_filter", "mesh_tile_filter", "group_score",
+         "packed_selection", "spread_tail", "combo_select")
 
 
 class KernelEvents:
@@ -257,10 +261,13 @@ def main() -> int:
         print(f"{name}: p50 {cells[name]['p50']:.4f} s, split {split}, kernels {kernel_ms}",
               file=sys.stderr, flush=True)
 
-    for name, dense in (("compact flagship", False), ("dense flagship", True)):
+    for name, build_cell in (("compact flagship", chip_smoke.build_flagship),
+                             ("dense flagship", lambda: chip_smoke.build_flagship(dense=True)),
+                             ("config 4", chip_smoke.build_spread),
+                             ("drain", chip_smoke.build_drain)):
         if name not in which:
             continue
-        clusters, bindings = chip_smoke.build_flagship(dense=dense)
+        clusters, bindings = build_cell()
         keep(name, *sched_rounds(ArrayScheduler(clusters, device=dev), bindings, ROUNDS[name]))
         del clusters, bindings
     for name, kw in (("whatif", {}), ("whatif_churn5k", {

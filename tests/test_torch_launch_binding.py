@@ -253,6 +253,96 @@ def test_combo_select_launch_scratch_past_the_staged_regions(R, scratch, fake_li
                                      args[3][:0], members[:0], sizes[:0], cmin=1, kmin=1)
 
 
+def test_packed_selection_launch_takes_the_bool_choice(fake_lib, monkeypatch):
+    """B9a's launch is one C call over the caller's bool [n, R] `chosen`,
+    passed as it is with R itself: no u8 [n, R + 1] table is built on the
+    host."""
+    calls, _ = fake_lib
+    d, lay = _sel()
+    feasible, rows, chosen = d["feasible"], d["rows"], d["chosen"]
+    monkeypatch.setattr(kernels, "_chosen_table", lambda *_: pytest.fail("a table was built"))
+    monkeypatch.setattr(torch, "cat", lambda *a, **kw: pytest.fail("a table was built"))
+    out = kernels._packed_selection_launch(feasible, rows, chosen, lay["rid"])
+    (name, args), = calls
+    n, R = chosen.shape
+    assert name == "packed_selection_launch" and chosen.dtype == torch.bool
+    assert args[:7] == (feasible.data_ptr(), 96, rows.data_ptr(), n, chosen.data_ptr(), R,
+                        lay["rid"].data_ptr())
+    assert args[7] == out.data_ptr() and out.shape == (n, 12)
+
+
+def test_combo_select_outputs_are_fresh_views_of_one_block(fake_lib):
+    """combo_select's three outputs are views of one int32 [3, S] block,
+    the one the single C call writes (first_idx, n_ties, then
+    none_feasible as bool); two successive calls get two blocks, so no
+    output of the first is overwritten by the second."""
+    calls, _ = fake_lib
+    a = _combo_args(6)
+    first = kernels._combo_select_launch(*a, cmin=2, kmin=1)
+    second = kernels._combo_select_launch(*a, cmin=2, kmin=1)
+    for outs, (_, cargs) in zip((first, second), calls):
+        base = outs[0].untyped_storage().data_ptr()
+        assert cargs[-3] == base
+        assert all(o.untyped_storage().data_ptr() == base for o in outs)
+        assert [o.data_ptr() - base for o in outs] == [0, 4 * 5, 8 * 5]
+        assert [o.dtype for o in outs] == [torch.int32, torch.int32, torch.bool]
+        assert all(o.shape == (5,) for o in outs)
+    assert first[0].untyped_storage().data_ptr() != second[0].untyped_storage().data_ptr()
+
+
+def _device_route(monkeypatch):
+    """select_regions_batch's device route on the CPU with combo_select's
+    outputs as the launch returns them (views of one block), recording
+    each call's arguments; the spread inputs and the host path's answer."""
+    rng = np.random.default_rng(21)
+    R, S, C = 12, 40, 200
+    layout = spread_batch.RegionLayout(rng.integers(-1, R, C).astype(np.int32),
+                                       [f"r{i:02d}" for i in range(R)],
+                                       rng.permutation(C).astype(np.int32))
+    W = rng.integers(0, 6, (S, R)).astype(np.int64) * 1000 + rng.integers(0, 3, (S, R))
+    V = rng.integers(0, 5, (S, R)).astype(np.int32)
+    cfg = spread_batch.SpreadConfig(rmin=2, rmax=3, cmin=3, cmax=0, duplicated=False)
+    want = spread_batch.select_regions_batch(W, V, cfg, layout, device=False)
+    seen = []
+
+    def block_outputs(*args, **kw):
+        seen.append(args)
+        outs = kernels.combo_select_plain(*args, **kw)
+        return kernels._combo_outputs(torch.stack([o.to(torch.int32) for o in outs]))
+
+    monkeypatch.setattr(kernels, "combo_select", block_outputs)
+    return (W, V, cfg, layout), want, seen
+
+
+def test_select_regions_batch_fetches_combo_outputs_with_one_copy(monkeypatch):
+    """The device route fetches combo_select's three outputs with one
+    `.cpu()` of their block per call (counted on the tensor method), and
+    decides as the host path."""
+    args, want, _ = _device_route(monkeypatch)
+    fetched = []
+    cpu = torch.Tensor.cpu
+    monkeypatch.setattr(torch.Tensor, "cpu",
+                        lambda self, *a, **kw: (fetched.append(tuple(self.shape)),
+                                                cpu(self, *a, **kw))[1])
+    for _ in range(2):
+        got = spread_batch.select_regions_batch(*args, device=True)
+        np.testing.assert_array_equal(got.chosen, want.chosen)
+        assert got.errors == want.errors and sorted(got.fallback) == sorted(want.fallback)
+    assert fetched == [(3 * 40 * 4,)] * 2  # the block's bytes, once a call
+
+
+def test_region_name_ranks_go_to_the_device_once_per_layout(monkeypatch):
+    """Two device-route calls over one layout pass combo_select the same
+    `rname` tensor, the layout's cached i32[R] copy of its name ranks."""
+    args, _, seen = _device_route(monkeypatch)
+    for _ in range(2):
+        spread_batch.select_regions_batch(*args, device=True)
+    layout = args[3]
+    assert len(seen) == 2 and seen[0][3] is seen[1][3] is layout.rname_tensor(CPU)
+    assert seen[0][3].dtype == torch.int32
+    np.testing.assert_array_equal(seen[0][3].numpy(), layout.rname_rank)
+
+
 @pytest.mark.parametrize("route,code", [("auto", 0), ("reread", 1)])
 def test_group_score_launch_passes_its_route(route, code, fake_lib):
     calls, _ = fake_lib

@@ -123,6 +123,32 @@ def test_packed_selection_plain_matches_jax():
         np.testing.assert_array_equal(_n(got), np.asarray(want))
 
 
+@pytest.mark.parametrize("case", ["one_column", "odd_width", "nothing_chosen"])
+def test_packed_selection_plain_edges_match_jax(case):
+    """Rows of one column (in a region), a width that is no multiple of 8
+    (the last byte's high bits stay 0) and rows that chose no region at
+    all (every byte 0)."""
+    rng = np.random.default_rng({"one_column": 30, "odd_width": 31, "nothing_chosen": 32}[case])
+    C, R, B, n = {"one_column": 1, "odd_width": 77, "nothing_chosen": 96}[case], 4, 13, 9
+    rid = rng.integers(0 if case == "one_column" else -1, R, C).astype(np.int32)
+    names = [f"region-{i:02d}" for i in rng.permutation(R)]
+    rank = rng.permutation(C).astype(np.int32)
+    jl, tl = jsb.RegionLayout(rid, names, rank), tsb.RegionLayout(rid, names, rank)
+    feas = rng.random((B, C)) < (1.0 if case == "one_column" else 0.7)
+    rows = rng.integers(0, B, n).astype(np.int32)
+    chosen = (rng.random((n, R)) < 0.5) & (case != "nothing_chosen")
+    want = np.asarray(jsb.packed_selection_kernel(feas[rows], chosen, layout=jl))
+    got = _n(kernels.packed_selection_plain(
+        torch.from_numpy(feas), torch.from_numpy(rows), torch.from_numpy(chosen),
+        tl.tensors("cpu")["rid"]))
+    np.testing.assert_array_equal(got, want)
+    assert got.shape == (n, (C + 7) // 8)
+    if case == "nothing_chosen":
+        assert not got.any()
+    else:
+        assert got.any() and not (got[:, -1] >> ((C - 1) % 8 + 1)).any()
+
+
 @pytest.mark.parametrize("has_agg", [False, True])
 def test_spread_tail_plain_matches_jax(has_agg):
     """Dynamic-weight, Aggregated (with has_agg) and static rows with the
