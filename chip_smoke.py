@@ -22,6 +22,11 @@ result line otherwise. Phases, each of which raises on failure:
    over 60 000 regions; combo_select at 4 096 rows over a config-4
    combination table, on groups of equal weight and value there and at
    L = 10, then select_regions_batch through it against its host path);
+   pack_rows and feas_idx on seeded filter rows read through row ids
+   out of order and repeated (at 5 120, 5 000 and 77 columns, and off a
+   16-byte boundary; k = the flagship's and 128) and on the dense
+   flagship's own mask rows; pack_rows also on the call one whole-fleet
+   Duplicated round makes (its timing);
    dense_filter also with a random extra_mask, on config 1's
    and config 2's batches (alone, with a mask, with answers), at 4 999
    and 13 columns, with answers and mask off alignment, at a tightened
@@ -129,6 +134,10 @@ result line otherwise. Phases, each of which raises on failure:
    cell over every card when there are several; that dense
    flagship with the
    Duplicated quarter placed over the whole fleet (packed mask rows); the
+   compact flagship, the dense flagship and that variant each run one
+   more round with their solve stages under
+   torch.cuda.set_sync_debug_mode("error") (no stream sync there), its
+   decisions the cell's (one row in 64 compared whole); the
    static-weight split of bench.py build_static (100 x 1 000, reason
    small_fleet); the 3-cluster Duplicated slice of bench.py build_dup3;
    BASELINE config 4 (bench.py build_spread: region spread over 5 000
@@ -276,6 +285,7 @@ from karmada_tpu_torch.models.batch import (
 from karmada_tpu_torch.models.nodes import NodeEncoder
 from karmada_tpu_torch.sched.candidates import DENSE_SOLVE_ANNOTATION, effective_k
 from karmada_tpu_torch.sched.plugins import ALL_PLUGIN_BITS
+from karmada_tpu_torch.sched import candidates as cand_mod
 from karmada_tpu_torch.sched import preemption, spread_batch
 from karmada_tpu_torch.sched.pipeline import chunk_spans, plan_chunk_rows
 from karmada_tpu_torch.sched.core import (
@@ -354,6 +364,8 @@ SELECT_EDGE_ROWS = 2048  # rows of the select's seeded edge cases
 TAIL_CASE_ROWS = 2048  # rows of each of the tail's seeded edge cases
 TAIL_CASE_KS = (8, 100, 128)  # their window widths
 DENSE_FILTER_SCALAR_SHAPES = ((2048, 4999), (2048, 13))  # dense_filter's scalar route
+MASK_SCALAR_WIDTHS = (5000, 77)  # the mask kernels' scalar routes (bucket_cols=False fleets)
+SYNC_CHECK_SAMPLE = 64  # the sync check compares one row in 64 whole
 WHATIF_CLUSTERS = 500  # bench.py:521 build_whatif's defaults
 WHATIF_BINDINGS = 1000
 WHATIF_SCENARIOS = 16
@@ -1148,17 +1160,26 @@ def dense_tail_bound(filt_outs, rows_list, weight_tables, outs_list):
     return bound(moved, ops)
 
 
-def mask_bound(feas, out):
-    """One read of the bool rows, one write of the output, one operation per
-    column."""
-    return bound(nbytes([feas, out]), feas.numel())
+def mask_bound(feasible, rows, out, k=None):
+    """Bytes: each id's filter row read once — for feas_idx (k given) only
+    up to its k-th feasible column, where the warp stops, the whole row
+    where it has fewer — the ids read and the output written once.
+    Operations: one a column read."""
+    C = feasible.shape[1]
+    if k is None:
+        cols = rows.numel() * C
+    else:
+        count = feasible.index_select(0, rows.long()).to(torch.int32).cumsum(-1)
+        reach = (count >= k).to(torch.int32).argmax(-1) + 1
+        cols = int(torch.where(count[:, -1] >= k, reach, C).sum())
+    return bound(cols + nbytes([rows, out]), cols)
 
 
 def dense_kernel_inputs(sched: ArrayScheduler, bindings):
     """The dense round's own kernel inputs, as _launch_once_partitioned
     builds them: rows permuted by class and encoded, the filter arguments,
-    the class-1 / class-2 row ids with their windows, the mask rows and
-    the padded batch."""
+    the class-1 / class-2 row ids with their windows, the real mask rows'
+    ids (int32), their feas_idx window and the padded batch."""
     cls = np.asarray([sched._row_class(rb, False) for rb in bindings], np.int8)
     order = np.argsort(cls, kind="stable")
     bindings = [bindings[i] for i in order]
@@ -1176,11 +1197,10 @@ def dense_kernel_inputs(sched: ArrayScheduler, bindings):
                    TOPK_TARGETS)
         tails.append((torch.from_numpy(idx_pad).to(dev), topk, has_agg))
     mask_rows = np.flatnonzero(cls == 0)
-    mask_idx, _ = _pad_rows_idx(mask_rows, sched._bucket)
     pc = raw.aff_masks.sum(axis=1)
     mk = int(pc[raw.aff_idx[mask_rows]].max(initial=0))
     k = min(pow2_bucket(mk, lo=8), len(sched.fleet.names))
-    return filt_args, t, tails, torch.from_numpy(mask_idx.astype(np.int64)).to(dev), k, batch
+    return filt_args, t, tails, torch.from_numpy(mask_rows.astype(np.int32)).to(dev), k, batch
 
 
 def dense_tail_args(filt, t, rows):
@@ -1427,7 +1447,7 @@ def check_select_edges(dev, C, k):
 def check_dense_kernels(sched, bindings, dev, results):
     """Phase 3 for the dense round's kernels (B3, B4, B5', B6); returns
     their ms per dense flagship round."""
-    filt_args, t, tails, mask_idx, mk, _ = dense_kernel_inputs(sched, bindings)
+    filt_args, t, tails, mask_rows, mk, _ = dense_kernel_inputs(sched, bindings)
     B, C = filt_args[7].shape[0], filt_args[0].shape[0]
     rng = np.random.default_rng(1)
 
@@ -1457,20 +1477,11 @@ def check_dense_kernels(sched, bindings, dev, results):
                 kernels._dense_tail_launch(*a, topk=topk, has_agg=has_agg, route=route), want,
                 TAIL_OUT))
         del a, want
-    m = torch.from_numpy(rng.random((int(mask_idx.numel()), C)) <
-                         rng.random((int(mask_idx.numel()), 1))).to(dev)
-    m[::7] = torch.rand(m[::7].shape, device=dev) < 0.003
-    err_m = compare("pack_rows[random]", [kernels._pack_rows_launch(m)],
-                    [kernels.pack_rows_plain(m)], ("packed",))
-    err_i = 0
-    for k in (mk, 128):
-        err_i = max(err_i, compare(f"feas_idx[random,{k}]", [kernels._feas_idx_launch(m, k)],
-                                   [kernels.feas_idx_plain(m, k)], ("idx",)))
+    err_m, err_i = check_mask_kernels(dev, B, C, int(mask_rows.numel()), mk)
     log(f"random inputs (filter {B}x{C}, with and without extra_mask; tail "
         f"{[s[:4] for s in shapes]} (C, n, topk; topk 0: no window) on the shared-memory "
-        f"route up to {kernels.MAX_TAIL_SMEM_COLS} columns and the re-reading route; masks "
-        f"{tuple(m.shape)}): the dense kernels equal their plain versions exactly")
-    del m
+        f"route up to {kernels.MAX_TAIL_SMEM_COLS} columns and the re-reading route): the "
+        "dense kernels equal their plain versions exactly")
 
     # ---- the dense flagship's own batch ----
     bits = sched._plugin_bits
@@ -1495,16 +1506,17 @@ def check_dense_kernels(sched, bindings, dev, results):
                                kernels.dense_filter_plain(*x_args, plugin_bits=bits), FILTER_OUT))
     del x_args
     err_f = max(err_f, check_dense_filter_configs(dev, filt_args, bits))
-    m_feas = filt[0].index_select(0, mask_idx)
-    idx = kernels._feas_idx_launch(m_feas, mk)
-    err_i = max(err_i, compare("feas_idx[flagship]", [idx], [kernels.feas_idx_plain(m_feas, mk)],
-                               ("idx",)))
-    packed = kernels._pack_rows_launch(m_feas)
-    err_m = max(err_m, compare("pack_rows[flagship]", [packed], [kernels.pack_rows_plain(m_feas)],
-                               ("packed",)))
+    feas = filt[0]
+    for k in (128, mk):  # idx: the main path's window
+        idx = kernels._feas_idx_launch(feas, mask_rows, k)
+        err_i = max(err_i, compare(f"feas_idx[flagship,{k}]", [idx],
+                                   [kernels.feas_idx_plain(feas, mask_rows, k)], ("idx",)))
+    err_m = max(err_m, compare("pack_rows[flagship]", [kernels._pack_rows_launch(feas, mask_rows)],
+                               [kernels.pack_rows_plain(feas, mask_rows)], ("packed",)))
     log(f"dense flagship batch: filter {B}x{C} (also with a random extra_avail), tail rows "
         f"{[int(r.numel()) for r, _, _ in tails]} windows {[w for _, w, _ in tails]}, mask rows "
-        f"{int(mask_idx.numel())} (k={mk}): the dense kernels equal their plain versions")
+        f"{int(mask_rows.numel())} read in place (k={mk} and 128): the dense kernels equal their "
+        "plain versions")
 
     # ---- timing on the dense flagship's own inputs ----
     f_ms = cuda_ms(lambda: kernels._dense_filter_launch(*filt_args, plugin_bits=bits), 10)
@@ -1521,19 +1533,24 @@ def check_dense_kernels(sched, bindings, dev, results):
     ab_time("dense_tail, dense flagship round (both tails)",
             tail_variants(tail_calls, kernels._dense_tail_launch), 5,
             check=(TAIL_OUT * len(tail_calls), "new"))
-    i_ms = cuda_ms(lambda: kernels._feas_idx_launch(m_feas, mk), 20)
-    i_plain = cuda_ms(lambda: kernels.feas_idx_plain(m_feas, mk), 20)
-    key = torch.where(m_feas, torch.arange(C, dtype=torch.int32, device=dev),
+
+    def feas_idx_call():
+        return kernels._feas_idx_launch(feas, mask_rows, mk)
+
+    i_ms = cuda_ms(feas_idx_call, 20)
+    i_dev, i_events = profiled_calls_ms(feas_idx_call, 20)
+    i_plain = cuda_ms(lambda: kernels.feas_idx_plain(feas, mask_rows, mk), 20)
+    key = torch.where(feas.index_select(0, mask_rows.long()),
+                      torch.arange(C, dtype=torch.int32, device=dev),
                       torch.tensor(kernels.FEAS_IDX_PAD, dtype=torch.int32, device=dev))
     if not torch.equal(torch.topk(key, mk, largest=False, sorted=True).values, idx):
         raise AssertionError("torch.topk disagrees with feas_idx on the flagship mask rows")
     i_lib = cuda_ms(lambda: torch.topk(key, mk, largest=False, sorted=True).values, 20)
-    p_ms = cuda_ms(lambda: kernels._pack_rows_launch(m_feas), 20)
-    p_plain = cuda_ms(lambda: kernels.pack_rows_plain(m_feas), 20)
+    del key
+    ib, ib_by = mask_bound(feas, mask_rows, idx, k=mk)
+    pack = check_pack_rows_main_call(dev)
     fb, fb_by = dense_filter_bound(filt_args, filt)
     tb, tb_by = dense_tail_bound(filt, [r for r, _, _ in tails], t["weight_tables"], t_outs)
-    ib, ib_by = mask_bound(m_feas, idx)
-    pb, pb_by = mask_bound(m_feas, packed)
     csrc = "karmada_tpu_torch/kernels/csrc/"
     results["dense_filter"] = dict(
         source=csrc + "dense_filter.cu", replaces="karmada_tpu/sched/core.py:452",
@@ -1545,19 +1562,142 @@ def check_dense_kernels(sched, bindings, dev, results):
         library_ms=None)
     results["pack_rows"] = dict(
         source=csrc + "dense_mask.cu", replaces="karmada_tpu/sched/core.py:530",
-        max_abs_err=err_m, ms=p_ms, plain_ms=p_plain, bound_ms=pb, bound_by=pb_by,
-        library_ms=None)
+        max_abs_err=max(err_m, pack["max_abs_err"]), library_ms=None,
+        **{k: pack[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms")})
     results["feas_idx"] = dict(
         source=csrc + "dense_mask.cu", replaces="karmada_tpu/sched/core.py:539",
         max_abs_err=err_i, ms=i_ms, plain_ms=i_plain, bound_ms=ib, bound_by=ib_by,
-        library_ms=i_lib)
+        library_ms=i_lib, device_ms=i_dev)
     log(f"timing (dense flagship inputs): dense_filter {f_ms:.4f} ms (device {f_dev:.4f} by the "
         f"profiler: {_events_text(f_events)}; plain {f_plain:.3f}, bound {fb:.4f} {fb_by}); "
         f"dense_tail, both launches of a round {t_ms:.3f} ms (plain "
-        f"{t_plain:.3f}, bound {tb:.4f} {tb_by}); feas_idx {i_ms:.4f} ms (plain {i_plain:.4f}, "
-        f"torch.topk {i_lib:.4f}, bound {ib:.4f} {ib_by}); pack_rows {p_ms:.4f} ms (plain "
-        f"{p_plain:.4f}, bound {pb:.4f} {pb_by})")
+        f"{t_plain:.3f}, bound {tb:.4f} {tb_by}); feas_idx over the {int(mask_rows.numel())} "
+        f"mask rows at k={mk} {i_ms:.4f} ms (device {i_dev:.4f} by the profiler: "
+        f"{_events_text(i_events)}; plain {i_plain:.4f}, torch.topk {i_lib:.4f}, bound "
+        f"{ib:.4f} {ib_by})")
     return f_ms + t_ms + i_ms
+
+
+def random_mask_inputs(rng, dev, B, C, n):
+    """Seeded filter rows bool [B, C] from empty to full (every 7th row
+    sparse, row 0 all false, row 1 all true) and n int32 ids of them out
+    of order and repeated (an eighth of the ids twice; rows 0 and 1
+    among them)."""
+    m = rng.random((B, C), dtype=np.float32) < rng.random((B, 1), dtype=np.float32)
+    m[::7] = rng.random(m[::7].shape, dtype=np.float32) < 0.003
+    m[0], m[1] = False, True
+    rows = rng.permutation(B)[:n].astype(np.int32)
+    rows[-(n // 8):] = rows[:n // 8]
+    rows[:2] = (1, 0)
+    return torch.from_numpy(m).to(dev), torch.from_numpy(rows).to(dev)
+
+
+def check_mask_kernels(dev, B, C, n, mk):
+    """pack_rows and feas_idx (k = mk and 128, or C where narrower) against
+    their plain versions on seeded filter rows read through n row ids, at
+    the dense flagship's width C, at MASK_SCALAR_WIDTHS (the scalar routes)
+    and with the filter rows one byte off a 16-byte boundary. Returns their
+    largest errors (0, 0)."""
+    rng = np.random.default_rng(18)
+    err_m = err_i = 0
+    for width in (C,) + MASK_SCALAR_WIDTHS:
+        feas, rows = random_mask_inputs(rng, dev, B, width, n)
+        cases = [("", feas)]
+        if width == C:
+            cases.append((", off alignment", off_alignment(feas)))
+        for tag, f in cases:
+            label = f"random {B}x{width}{tag}"
+            err_m = max(err_m, compare(f"pack_rows[{label}]", [kernels._pack_rows_launch(f, rows)],
+                                       [kernels.pack_rows_plain(f, rows)], ("packed",)))
+            for k in (min(mk, width), min(128, width)):
+                err_i = max(err_i, compare(
+                    f"feas_idx[{label}, k={k}]", [kernels._feas_idx_launch(f, rows, k)],
+                    [kernels.feas_idx_plain(f, rows, k)], ("idx",)))
+        del feas, rows, cases
+    log(f"mask kernels on seeded filter rows ({B} x {(C,) + MASK_SCALAR_WIDTHS}, also off a "
+        f"16-byte boundary) through {n} row ids out of order and repeated, k = {mk} and 128: "
+        "pack_rows and feas_idx equal their plain versions exactly")
+    torch.cuda.empty_cache()
+    return err_m, err_i
+
+
+def check_pack_rows_main_call(dev):
+    """pack_rows on the call one whole-fleet Duplicated round makes
+    (captured at launch): held against its plain version, then timed by
+    CUDA events and torch.profiler beside its plain version and bound."""
+    clusters, bindings = build_flagship(dense=True, whole_fleet_dup=True)
+    sched = ArrayScheduler(clusters, device=dev)
+    with captured_launches(("pack_rows",)) as cap:
+        sched.schedule(bindings)
+    del sched, clusters, bindings
+    (args, _), = cap["pack_rows"]
+    feas, rows = args
+    packed = kernels._pack_rows_launch(feas, rows)
+    err = compare("pack_rows[whole-fleet Duplicated]", [packed],
+                  [kernels.pack_rows_plain(feas, rows)], ("packed",))
+
+    def call():
+        return kernels._pack_rows_launch(feas, rows)
+
+    ms = cuda_ms(call, 20)
+    dev_ms, events = profiled_calls_ms(call, 20)
+    plain = cuda_ms(lambda: kernels.pack_rows_plain(feas, rows), 20)
+    pb, pb_by = mask_bound(feas, rows, packed)
+    log(f"pack_rows on the whole-fleet Duplicated round's call ({int(rows.numel())} of "
+        f"{feas.shape[0]} filter rows x {feas.shape[1]}) equals its plain version; "
+        f"{ms:.4f} ms (device {dev_ms:.4f} by the profiler: {_events_text(events)}; plain "
+        f"{plain:.4f}, bound {pb:.4f} {pb_by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": pb, "bound_by": pb_by,
+            "device_ms": dev_ms}
+
+
+@contextlib.contextmanager
+def strict_solve_stage():
+    """Inside the block the solve stage of every dense and compact round
+    (`ArrayScheduler._solve_partitioned`, `candidates._solve_candidates`)
+    runs under torch.cuda.set_sync_debug_mode("error"): any call there that
+    synchronises the stream with the host raises. Yields the number of
+    solve stages run."""
+    ran = [0]
+
+    def strict(fn):
+        def run(*args, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                ran[0] += 1
+        return run
+
+    dense, compact = ArrayScheduler._solve_partitioned, cand_mod._solve_candidates
+    ArrayScheduler._solve_partitioned = strict(dense)
+    cand_mod._solve_candidates = strict(compact)
+    try:
+        yield ran
+    finally:
+        ArrayScheduler._solve_partitioned = dense
+        cand_mod._solve_candidates = compact
+
+
+def check_solve_syncs(label, sched, bindings, decisions, sample=SYNC_CHECK_SAMPLE):
+    """One round of a cell with its solve stages under strict_solve_stage;
+    its decisions must be the cell's: every row's key, error and affinity,
+    and every `sample`-th row whole (a whole-fleet Duplicated row's 5 000
+    targets are built only when read, which is most of the check's time)."""
+    torch.cuda.synchronize()
+    with strict_solve_stage() as ran:
+        got = sched.schedule(bindings)
+
+    def brief(d):
+        return d.key, d.error, d.affinity_name
+
+    if ([brief(d) for d in got] != [brief(d) for d in decisions]
+            or [decision_view(d) for d in got[::sample]]
+            != [decision_view(d) for d in decisions[::sample]]):
+        raise AssertionError(f"{label}: the round under the sync check decided otherwise")
+    log(f"{label}: {ran[0]} solve stage(s) of one round ran under "
+        "torch.cuda.set_sync_debug_mode('error') without a stream sync")
 
 
 def check_dense_filter_configs(dev, flag_args, bits):
@@ -5473,6 +5613,7 @@ def main(argv=None) -> int:
     round_breakdown("compact flagship", sched, bindings, compact_ms,
                     float(np.percentile(times, 50)))
     hold_against_cpu("compact flagship", clusters, bindings, decisions)
+    check_solve_syncs("compact flagship", sched, bindings, decisions)
 
     decisions, launches, times = drive(
         "dense flagship round (reason policy)", d_sched, d_bindings, TIMED_ROUNDS,
@@ -5481,6 +5622,7 @@ def main(argv=None) -> int:
     round_breakdown("dense flagship", d_sched, d_bindings, dense_ms,
                     float(np.percentile(times, 50)))
     hold_against_cpu("dense flagship", d_clusters, d_bindings, decisions)
+    check_solve_syncs("dense flagship", d_sched, d_bindings, decisions)
     run_graft_cells(dev, smi, path_launches, results, d_sched, d_bindings, flag)
     del d_sched
     run_mesh_cells(dev, smi, path_launches, results, d_clusters, d_bindings, decisions)
@@ -5492,6 +5634,7 @@ def main(argv=None) -> int:
         {"dense_filter": 1, "dense_tail": 2, "pack_rows": 1}, smi)
     path_launches["pack_rows"] = launches["pack_rows"]
     hold_against_cpu("whole-fleet Duplicated", w_clusters, w_bindings, decisions)
+    check_solve_syncs("whole-fleet Duplicated", w_sched, w_bindings, decisions)
     del w_sched
 
     s_clusters, s_bindings = build_static()

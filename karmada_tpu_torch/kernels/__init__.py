@@ -25,8 +25,10 @@ Dense round:
   wider ones take the re-reading route; the plain version is
   `dense_tail_plain`.
 - `pack_rows` and `feas_idx` (csrc/dense_mask.cu): bit-packed feasible rows
-  and the first k feasible column ids per row; the plain versions are
-  `pack_rows_plain` and `feas_idx_plain`.
+  and the first k feasible column ids per row, each one launch that reads
+  the filter outputs in place through int32 row ids (pack_rows on
+  packed_selection's body without the region test, feas_idx one warp a
+  row); the plain versions are `pack_rows_plain` and `feas_idx_plain`.
 
 Spread constraints (the dense round's batched region path):
 - `group_score` (csrc/group_score.cu): every (row, region) group's weight,
@@ -405,13 +407,19 @@ def dense_tail_plain(
     return result, unschedulable, avail_sum, nnz, top_idx, top_val
 
 
-pack_rows_plain = core.pack_bits
+def pack_rows_plain(feasible, rows):
+    """Plain version of the pack-rows kernel (the reference's
+    `_pack_rows_kernel` on the filter outputs' rows `rows`, any order,
+    repeats allowed): u8[n, ceil(C/8)], bit j of byte i = column 8i+j."""
+    return core.pack_bits(feasible.index_select(0, rows.long()))
 
 
-def feas_idx_plain(feasible, k: int):
+def feas_idx_plain(feasible, rows, k: int):
     """Plain version of the feasible-index kernel (the reference's
-    `_feas_idx_kernel`): the ascending ids of the first k feasible columns
-    of each row, padded with 2**30 past the row's feasible count (i32[B,k])."""
+    `_feas_idx_kernel` on the filter outputs' rows `rows`, any order,
+    repeats allowed): the ascending ids of the first k feasible columns of
+    each row, padded with 2**30 past the row's feasible count (i32[n,k])."""
+    feasible = feasible.index_select(0, rows.long())
     B, C = feasible.shape
     out = torch.full((B, k + 1), FEAS_IDX_PAD, dtype=I32, device=feasible.device)
     pos = feasible.to(I64).cumsum(-1) - 1
@@ -1260,57 +1268,69 @@ def _dense_tail_launch(
     return result, unsched, avail_sum, nnz, top_idx, top_val
 
 
-def pack_rows(feasible):
-    """bool[B, C] -> u8[B, ceil(C/8)], bit j of byte i = column 8i+j (see
-    pack_rows_plain)."""
+def pack_rows(feasible, rows):
+    """The filter outputs' rows `rows` bit-packed (see pack_rows_plain)."""
     dev = feasible.device
     if dev.type == "cpu":
-        return pack_rows_plain(feasible)
+        return pack_rows_plain(feasible, rows)
     if dev.type != "cuda":
         raise ValueError(f"pack_rows: unsupported device {dev}")
-    out = _pack_rows_launch(feasible)
+    out = _pack_rows_launch(feasible, rows)
     _launched("pack_rows")
     return out
 
 
-def _pack_rows_launch(feasible):
-    """Check, allocate and launch pack_rows_kernel."""
+def _check_mask_rows(feasible, rows):
+    """Check the mask kernels' inputs: the filter outputs bool[B, C] and
+    int32 row ids [n] on their device; returns (B, C, n)."""
     dev = feasible.device
     B, C = feasible.shape
+    n = rows.numel()
     _check("feasible", feasible, BOOL, (B, C), dev)
-    out = torch.empty((B, (C + 7) // 8), dtype=U8, device=dev)
-    if B == 0 or C == 0:
+    _check("rows", rows, I32, (n,), dev)
+    return B, C, n
+
+
+def _pack_rows_launch(feasible, rows):
+    """Check, allocate and launch pack_kernel without the region test: one
+    launch over the filter outputs, read in place. Row ids must lie in
+    [0, B): the kernel reads them as they are."""
+    dev = feasible.device
+    _B, C, n = _check_mask_rows(feasible, rows)
+    out = torch.empty((n, (C + 7) // 8), dtype=U8, device=dev)
+    if n == 0 or C == 0:
         return out
     rc = _bind("dense_mask", "pack_rows_launch", _PACK_ROWS_ARGTYPES)(
-        feasible.data_ptr(), B, C, out.data_ptr(), _stream(dev))
+        feasible.data_ptr(), C, rows.data_ptr(), n, out.data_ptr(), _stream(dev))
     _raise_on(rc, "pack_rows")
     return out
 
 
-def feas_idx(feasible, k: int):
-    """The first k feasible column ids per row (see feas_idx_plain)."""
+def feas_idx(feasible, rows, k: int):
+    """The first k feasible column ids of the filter outputs' rows `rows`
+    (see feas_idx_plain)."""
     dev = feasible.device
     if dev.type == "cpu":
-        return feas_idx_plain(feasible, k)
+        return feas_idx_plain(feasible, rows, k)
     if dev.type != "cuda":
         raise ValueError(f"feas_idx: unsupported device {dev}")
-    out = _feas_idx_launch(feasible, k)
+    out = _feas_idx_launch(feasible, rows, k)
     _launched("feas_idx")
     return out
 
 
-def _feas_idx_launch(feasible, k: int):
-    """Check, allocate and launch feas_idx_kernel."""
+def _feas_idx_launch(feasible, rows, k: int):
+    """Check, allocate and launch feas_idx_kernel: one launch over the
+    filter outputs, read in place. Row ids must lie in [0, B)."""
     dev = feasible.device
-    B, C = feasible.shape
-    _check("feasible", feasible, BOOL, (B, C), dev)
+    _B, C, n = _check_mask_rows(feasible, rows)
     if not 0 < k <= C:
         raise ValueError(f"feas_idx: k={k} must be in (0, C={C}]")
-    out = torch.empty((B, k), dtype=I32, device=dev)
-    if B == 0:
+    out = torch.empty((n, k), dtype=I32, device=dev)
+    if n == 0:
         return out
     rc = _bind("dense_mask", "feas_idx_launch", _FEAS_IDX_ARGTYPES)(
-        feasible.data_ptr(), B, C, k, out.data_ptr(), _stream(dev))
+        feasible.data_ptr(), C, rows.data_ptr(), n, k, out.data_ptr(), _stream(dev))
     _raise_on(rc, "feas_idx")
     return out
 
@@ -1619,8 +1639,8 @@ _SELECT_ARGTYPES = _FILTER_HEAD + [_CI] * 7 + [_VP] * 11
 _SELECT_WINDOW_ARGTYPES = [_VP, _VP, _CI, _CI, _CI, _VP, _VP, _VP, _VP]
 _TAIL_ARGTYPES = [_VP] * 6 + [_CI] + [_VP] * 4 + [_CI] * 4 + [_VP] * 7
 _DENSE_FILTER_ARGTYPES = _FILTER_HEAD + [_CI] * 8 + [_VP] * 12
-_PACK_ROWS_ARGTYPES = [_VP, _CI, _CI, _VP, _VP]
-_FEAS_IDX_ARGTYPES = [_VP, _CI, _CI, _CI, _VP, _VP]
+_PACK_ROWS_ARGTYPES = [_VP, _CI, _VP, _CI, _VP, _VP]
+_FEAS_IDX_ARGTYPES = [_VP, _CI, _VP, _CI, _CI, _VP, _VP]
 _GROUP_SCORE_ARGTYPES = [_VP] * 4 + [_CI, _VP, _CI] + [_VP] * 8 + [_CI] * 3 + [_VP] * 5
 _PACKED_SELECTION_ARGTYPES = [_VP, _CI, _VP, _CI, _VP, _CI, _VP, _VP, _VP]
 _COMBO_SELECT_ARGTYPES = [_VP] * 4 + [_CI] * 2 + [_VP] * 2 + [_CI] * 4 + [_VP] * 3

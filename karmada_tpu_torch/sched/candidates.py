@@ -47,6 +47,7 @@ from .core import (
     _pad_rows_idx,
     _sorted_pairs,
     to_device,
+    to_device_packed,
 )
 
 # default candidate window: covers every row whose feasible set fits 128
@@ -154,10 +155,6 @@ def compact_estimate(
     return c_avail.to(I32)
 
 
-def _rows_tensor(rows: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(rows, np.int64)).to(device)
-
-
 def launch_candidates(array, bindings: Sequence, extra_avail=None, term_indices=None) -> dict:
     """LAUNCH half of the compact round: classify + permute rows by class,
     encode, run the candidate-select kernel (ONE [B, C] launch, the
@@ -185,6 +182,23 @@ def _solve_candidates(array, bindings, cls, order, raw, t, spread_rows, extra, k
     dev = array.device
     f = array._fleet_dev
 
+    # the round's row ids (the tails' padded lists, the mask and spread
+    # rows) go up in one pinned copy before the select, so the host never
+    # waits on it
+    tail_rows = []
+    for want_cls, has_agg in ((1, False), (2, True)):
+        rows = [b for b in range(n_real) if cls[b] == want_cls]
+        if rows:
+            tail_rows.append((rows, has_agg))
+    spread_set = set(spread_rows)
+    mask_rows = [b for b in range(n_real) if cls[b] == 0 and b not in spread_set]
+    ids = [_pad_rows_idx(rows, array._bucket)[0] for rows, _ in tail_rows]
+    ids += [rows for rows in (mask_rows, spread_rows) if rows]
+    ids = to_device_packed([np.asarray(r, np.int64) for r in ids], dev) if ids else []
+    tail_ids, rest = ids[:len(tail_rows)], ids[len(tail_rows):]
+    mask_ids = rest.pop(0) if mask_rows else None
+    spread_ids = rest.pop(0) if spread_rows else None
+
     (cand_idx, c_feas, c_score, c_avail, c_prev, c_tie, dev_fc,
      dev_packed) = kernels.candidate_select(
         f["alive"], f["capacity"], f["has_summary"], f["taint_key"],
@@ -199,12 +213,7 @@ def _solve_candidates(array, bindings, cls, order, raw, t, spread_rows, extra, k
 
     # ---- division tails per sub-class over [rows, K] ----
     tails = []
-    for want_cls, has_agg in ((1, False), (2, True)):
-        rows = [b for b in range(n_real) if cls[b] == want_cls]
-        if not rows:
-            continue
-        idx_pad, _nr = _pad_rows_idx(rows, array._bucket)
-        rsel = _rows_tensor(idx_pad, dev)
+    for (rows, has_agg), rsel in zip(tail_rows, tail_ids):
         max_repl = int(raw.replicas[rows].max(initial=0))
         topk = min(pow2_bucket(min(max_repl, TOPK_TARGETS), lo=8), TOPK_TARGETS)
         t_cand = cand_idx.index_select(0, rsel)
@@ -219,18 +228,13 @@ def _solve_candidates(array, bindings, cls, order, raw, t, spread_rows, extra, k
         tails.append({"rows": rows, "t_out": t_out, "t_cand": t_cand})
 
     # ---- duplicated / non-workload rows: complete packed feasible masks ----
-    spread_set = set(spread_rows)
-    mask_rows = [b for b in range(n_real) if cls[b] == 0 and b not in spread_set]
-    mask_pack = None
-    if mask_rows:
-        mask_pack = dev_packed.index_select(0, _rows_tensor(np.asarray(mask_rows), dev))
+    mask_pack = None if mask_ids is None else dev_packed.index_select(0, mask_ids)
 
     # ---- spread rows: their candidate windows (the selection runs on the
     # host at materialize over these compact gathers) ----
     spread_fetch = []
-    if spread_rows:
-        s_idx = _rows_tensor(np.asarray(spread_rows), dev)
-        spread_fetch = [a.index_select(0, s_idx)
+    if spread_ids is not None:
+        spread_fetch = [a.index_select(0, spread_ids)
                         for a in (cand_idx, c_feas, c_score, c_avail, c_prev, c_tie)]
 
     return {
@@ -423,7 +427,7 @@ def _spread_over_candidates(
         jks = np.asarray([j for j, _, _ in live_div])
         d_rows = [b for _, b, _ in live_div]
         d_feas = s_feas[jks] & np.stack([sel for _, _, sel in live_div])
-        rsel = _rows_tensor(np.asarray(d_rows), dev)
+        rsel = to_device(np.asarray(d_rows, np.int64), dev)
         max_repl = int(raw.replicas[d_rows].max(initial=0))
         topk = min(pow2_bucket(min(max_repl, TOPK_TARGETS), lo=8), TOPK_TARGETS)
 

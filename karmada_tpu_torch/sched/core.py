@@ -1359,6 +1359,20 @@ class ArrayScheduler:
         batched_rows, batched_cfg, fallback_rows = spread
         f = self._fleet_dev
 
+        # the round's row ids (the tails' padded lists, the mask rows) go up
+        # in one pinned copy before the filter, so the host never waits on it
+        tail_rows = []
+        for want_cls, has_agg in ((1, False), (2, True)):
+            rows = [b for b in range(n_real) if cls[b] == want_cls]
+            if rows:
+                tail_rows.append((rows, has_agg))
+        spread_set = set(batched_rows) | set(fallback_rows)
+        mask_rows = [b for b in range(n_real) if cls[b] == 0 and b not in spread_set]
+        row_ids = [_pad_rows_idx(rows, self._bucket)[0] for rows, _ in tail_rows]
+        if mask_rows:
+            row_ids.append(np.asarray(mask_rows, np.int32))
+        row_ids = to_device_packed(row_ids, dev) if row_ids else []
+
         dev_feasible, dev_score, dev_avail, dev_prev, dev_tie, dev_fc = kernels.dense_filter(
             f["alive"], f["capacity"], f["has_summary"], f["taint_key"],
             f["taint_value"], f["taint_effect"], f["api_ok"],
@@ -1371,39 +1385,30 @@ class ArrayScheduler:
 
         # ---- phase 2: division tails per sub-class, read through row ids ----
         tails = []
-        for want_cls, has_agg in ((1, False), (2, True)):
-            rows = [b for b in range(n_real) if cls[b] == want_cls]
-            if not rows:
-                continue
-            idx_pad, _nr = _pad_rows_idx(rows, self._bucket)
+        for (rows, has_agg), idx_dev in zip(tail_rows, row_ids):
             max_repl = int(raw.replicas[rows].max(initial=0))
             topk = min(pow2_bucket(min(max_repl, TOPK_TARGETS), lo=8), TOPK_TARGETS)
             t_out = kernels.dense_tail(
-                dev_feasible, dev_avail, dev_prev, dev_tie,
-                torch.from_numpy(idx_pad).to(dev),
+                dev_feasible, dev_avail, dev_prev, dev_tie, idx_dev,
                 t["weight_tables"], t["weight_idx"], t["strategy"], t["replicas"],
                 t["fresh"], topk=topk, has_agg=has_agg,
             )
             tails.append({"rows": rows, "t_out": t_out})
 
-        # ---- phase 2: duplicated / non-workload target sets ----
-        spread_set = set(batched_rows) | set(fallback_rows)
-        mask_rows = [b for b in range(n_real) if cls[b] == 0 and b not in spread_set]
+        # ---- phase 2: duplicated / non-workload target sets, read from the
+        # filter outputs through the real mask rows' ids ----
         packed_dev = midx_dev = None
         if mask_rows:
-            mask_idx, _nm = _pad_rows_idx(mask_rows, self._bucket)
-            m_feas = dev_feasible.index_select(
-                0, torch.from_numpy(mask_idx.astype(np.int64)).to(dev)
-            )
             pc = raw.aff_masks.sum(axis=1)
             mk = int(pc[raw.aff_idx[np.asarray(mask_rows)]].max(initial=0))
             # the popcount bounds the feasible set only while feasible is
             # inside the affinity mask; with ClusterAffinity disabled the
             # filter substitutes all-ones, so those rows ship packed masks
             if self._plugin_bits & plugin_mod.BIT_AFFINITY and 0 < mk <= TOPK_TARGETS:
-                midx_dev = kernels.feas_idx(m_feas, min(pow2_bucket(mk, lo=8), C))
+                midx_dev = kernels.feas_idx(dev_feasible, row_ids[-1],
+                                            min(pow2_bucket(mk, lo=8), C))
             else:
-                packed_dev = kernels.pack_rows(m_feas)
+                packed_dev = kernels.pack_rows(dev_feasible, row_ids[-1])
 
         # ---- phase 2: spread group scoring ----
         spread_pre = self._spread_prelaunch(

@@ -1,6 +1,7 @@
 """The redesigned kernels' time on the main path's own arguments, for an
 A/B of two trees on one card: candidate_select, group_score,
-packed_selection, combo_select, sim_filter, fleet_estimate, dense_filter,
+packed_selection, combo_select, the dense round's mask step (feas_idx,
+pack_rows), sim_filter, fleet_estimate, dense_filter,
 candidate_tail, dense_input_filter, mesh_tile_filter and the tier
 launches (tier_estimate, tier_consume).
 
@@ -17,9 +18,16 @@ each:
   clusters, 20 480 padded, the pipelined chunk's 6 144 rows);
 - `kernels._group_score_launch`, `_packed_selection_launch` and
   `_combo_select_launch` on the calls one round of config 4, config 4b and
-  the drain cell makes (combo_select: the drain's), and `_pack_rows_launch`
-  on the call one round of the whole-fleet Duplicated dense flagship makes
-  (with packed_selection: the control, code no PR has changed since);
+  the drain cell makes (combo_select: the drain's);
+- the dense round's mask step (`mask_step`) as each tree's round makes
+  it, captured at launch: feas_idx at the dense flagship (2 500 mask rows
+  x 5 120, k = 16) and pack_rows at the whole-fleet Duplicated round
+  (its 2 500 Duplicated rows). Where the tree's mask kernels read the
+  filter output through row ids (passed second, at launch) that
+  is the kernel alone, the ids uploaded earlier with the tails'; in an
+  earlier tree it is the upload of the padded mask row ids from pageable
+  memory (which waits for the stream), the gather of their filter rows
+  and the kernel over them. The digest covers the real rows' outputs;
 - `kernels._sim_filter_launch` on the first call one round of whatif_churn5k
   (a chunk of 5 scenarios x 10 240 rows x 5 000 columns) and of whatif (17 x
   1 024 x 500) makes, captured at launch;
@@ -60,9 +68,9 @@ each:
 Beside each label's CUDA-event times it prints the device time per call
 under torch.profiler and the host's time to enqueue a call. chip_smoke's
 builders, seed 0. `--kernels` picks among candidate_select, group_score,
-packed_selection (with pack_rows), combo_select, sim_filter,
-fleet_estimate, dense_filter, candidate_tail, dense_input_filter,
-mesh_tile_filter and tier_estimate (with tier_consume; default: all).
+packed_selection, combo_select, mask_step, sim_filter, fleet_estimate,
+dense_filter, candidate_tail, dense_input_filter, mesh_tile_filter and
+tier_estimate (with tier_consume; default: all).
 Prints one JSON line: the tree, the card's nvidia-smi line, and per
 label the times in ms, the device and enqueue ms and a digest of the
 outputs (equal digests: equal outputs). Needs one CUDA card and nvcc.
@@ -90,14 +98,14 @@ from karmada_tpu_torch.estimator import client  # noqa: E402
 from karmada_tpu_torch.estimator.client import MemberEstimators  # noqa: E402
 from karmada_tpu_torch.kernels import build  # noqa: E402
 from karmada_tpu_torch.models.nodes import NodeEncoder  # noqa: E402
-from karmada_tpu_torch.sched.core import ArrayScheduler  # noqa: E402
+from karmada_tpu_torch.sched.core import ArrayScheduler, _pad_rows_idx  # noqa: E402
 from karmada_tpu_torch.testing.cpumesh import virtual_mesh  # noqa: E402
 
 REPS = 10  # launches per CUDA-event window
 TURNS = 2
 WIDE_CHUNK_BINDINGS = 6144  # the pipelined wide_40k chunk's rows
-KERNELS = ("candidate_select", "group_score", "packed_selection", "combo_select", "sim_filter",
-           "fleet_estimate", "dense_filter", "candidate_tail", "dense_input_filter",
+KERNELS = ("candidate_select", "group_score", "packed_selection", "combo_select", "mask_step",
+           "sim_filter", "fleet_estimate", "dense_filter", "candidate_tail", "dense_input_filter",
            "mesh_tile_filter", "tier_estimate")
 TIER_DRAW = (10240, 5120, 4, 2560)  # B, C, R and the tier's rows of the seeded estimate draws
 INPUT_REPEATS = 4  # distinct rows of the repeated-row dense-input draw
@@ -142,9 +150,7 @@ def _outputs(out):
 def time_spread(dev, result, which):
     """The spread kernels among `which` (group_score, packed_selection,
     combo_select) on the calls one round of config 4, config 4b and the
-    drain cell makes; with packed_selection, pack_rows on the call one
-    round of the whole-fleet Duplicated dense flagship makes (the control:
-    its code is the parent's)."""
+    drain cell makes."""
     names = [n for n in ("group_score", "packed_selection", "combo_select") if n in which]
     for cell, build_cell, expect in chip_smoke.SPREAD_CELLS:
         if cell == "window":  # launches no spread kernel
@@ -160,17 +166,50 @@ def time_spread(dev, result, which):
             rows = [int(a[chip_smoke.SPREAD_KERNELS[n][4]].shape[0]) for a, _ in calls[n]]
             chip_smoke.log(f"{label} (rows per call {rows}): {result[label]}")
         del calls
-    if "packed_selection" in which:
-        clusters, bindings = chip_smoke.build_flagship(dense=True, whole_fleet_dup=True)
+
+
+def time_mask_step(dev, result):
+    """The dense round's mask step as this tree's round makes it (see the
+    module docstring): feas_idx at the dense flagship, pack_rows at the
+    whole-fleet Duplicated round, the filter and mask launches of one round
+    captured, the filter output made again from its captured arguments."""
+    for cell, whole_fleet_dup, name in (("dense flagship", False, "feas_idx"),
+                                        ("whole-fleet Duplicated", True, "pack_rows")):
+        clusters, bindings = chip_smoke.build_flagship(dense=True, whole_fleet_dup=whole_fleet_dup)
         sched = ArrayScheduler(clusters, device=dev)
-        with chip_smoke.captured_launches(("pack_rows",)) as cap:
+        with chip_smoke.captured_launches(("dense_filter", name)) as cap:
             sched.schedule(bindings)
-        label = "pack_rows, whole-fleet Duplicated round (control)"
-        result[label] = timed(lambda cs=cap["pack_rows"]: [
-            kernels._pack_rows_launch(*a, **kw) for a, kw in cs])
-        chip_smoke.log(f"{label} (rows x C per call "
-                       f"{[tuple(a[0].shape) for a, _ in cap['pack_rows']]}): {result[label]}")
-        del sched, cap
+        (f_args, f_kw), = cap["dense_filter"]
+        (m_args, _), = cap[name]
+        feasible = kernels._dense_filter_launch(*f_args, **f_kw)[0]
+        # the round's mask rows: its class-0 rows in class order (no spread rows here)
+        cls = np.asarray([sched._row_class(rb, False) for rb in bindings])
+        mask_rows = np.flatnonzero(np.sort(cls, kind="stable") == 0)
+        launch = getattr(kernels, f"_{name}_launch")
+        # a tree whose mask kernels take row ids passes them second
+        in_place = len(m_args) > 1 and isinstance(m_args[1], torch.Tensor)
+        if in_place:
+            rows, rest = m_args[1], m_args[2:]
+            if not np.array_equal(rows.cpu().numpy(), mask_rows):
+                raise AssertionError(f"{cell}: the round's mask rows are not its class-0 rows")
+
+            def step(rows=rows, rest=rest, launch=launch, feasible=feasible):
+                return launch(feasible, rows, *rest)
+        else:
+            idx = _pad_rows_idx(mask_rows, sched._bucket)[0].astype(np.int64)
+            rest = m_args[1:]
+            if not torch.equal(feasible.index_select(0, torch.from_numpy(idx).to(dev)), m_args[0]):
+                raise AssertionError(f"{cell}: the round's gathered mask rows differ")
+
+            def step(idx=idx, rest=rest, launch=launch, feasible=feasible):
+                return launch(feasible.index_select(0, torch.from_numpy(idx).to(dev)), *rest)
+        n = len(mask_rows)
+        label = f"mask step ({name}), {cell} round"
+        result[label] = timed(step, lambda step=step, n=n: [step()[:n]])
+        chip_smoke.log(f"{label} ({n} mask rows x {feasible.shape[1]}, "
+                       f"{'read in place' if in_place else 'upload + gather + kernel'}): "
+                       f"{result[label]}")
+        del sched, clusters, bindings, cap, feasible
 
 
 def time_sim_filter(dev, result):
@@ -426,7 +465,7 @@ def main() -> int:
     result = {}
     if {"group_score", "packed_selection", "combo_select"} & set(which):
         time_spread(dev, result, which)
-    for name, fn in (("candidate_select", time_select),
+    for name, fn in (("mask_step", time_mask_step), ("candidate_select", time_select),
                      ("sim_filter", time_sim_filter), ("fleet_estimate", time_fleet_estimate),
                      ("dense_filter", time_dense_filter),
                      ("candidate_tail", time_candidate_tail),

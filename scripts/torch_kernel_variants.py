@@ -15,7 +15,9 @@ then each (the tree's kernels as "built") is timed by CUDA events and
 under torch.profiler in three turns, the order reversed every other
 turn. Beside them, what the drain call's bytes cost alone: torch's
 index_select of its filter rows, a clone of the gathered rows and
-pack_rows over them. chip_smoke's builders, seed 0. Prints one JSON
+pack_rows over the same filter rows (read in place through the row
+ids: packed_selection's body without the region test). chip_smoke's
+builders, seed 0. Prints one JSON
 line: the card's nvidia-smi line, each variant's ptxas lines and, per
 label, the ms by events and the device ms of each turn. Needs one CUDA
 card and nvcc.
@@ -115,13 +117,13 @@ def main() -> int:
                 r["device_ms"].append(chip_smoke.profiled_calls_ms(run, REPS)[0])
         kernels._bound.clear()
     (args, _), = calls["drain"]["packed_selection"]
-    feas, rows64 = args[0], args[1].long()
-    gathered = feas.index_select(0, rows64)
+    feas, rows = args[0], args[1]
+    gathered = feas.index_select(0, rows.long())
     for label, fn in (("index_select of the drain call's filter rows",
-                       lambda: feas.index_select(0, rows64)),
+                       lambda: feas.index_select(0, rows.long())),
                       ("clone of the gathered rows", gathered.clone),
-                      ("pack_rows over the gathered rows",
-                       lambda: kernels._pack_rows_launch(gathered))):
+                      ("pack_rows over the same filter rows",
+                       lambda: kernels._pack_rows_launch(feas, rows))):
         res[f"bytes alone: {label}"] = {
             "ms": [chip_smoke.cuda_ms(fn, REPS) for _ in range(TURNS)],
             "device_ms": [chip_smoke.profiled_calls_ms(fn, REPS)[0] for _ in range(TURNS)],

@@ -14,17 +14,21 @@ tiers_dense, tiers_compact, mesh_flagship (the dense flagship through
 ArrayScheduler(mesh=virtual_mesh(4, card), candidate_k=0), monolithic),
 graft_flagship (the dense-input program, `_schedule_kernel`, on the
 dense flagship's batch as its 24 dense arguments; each call timed by CUDA
-events, in seconds like the rounds), config 4 (bench.py build_spread) and
-the drain cell (chip_smoke.build_drain: combo_select's cell)
+events, in seconds like the rounds), config 4 (bench.py build_spread),
+the drain cell (chip_smoke.build_drain: combo_select's cell), and
+config 2 and config 1 (bench.py build_static and build_dup3: small
+fleets, dense rounds of 100 x 1 000 and 3 x 100)
 (chip_smoke's build_* functions, seed 0; the
 tier cells' round is launch_tiered + materialize_chunk), each round on
 the host clock around a synchronised call, with its split (ArrayScheduler
 and the tier cells: launch / wait / materialize; Simulator: fleet encodes
 / batch encode / solve / the rest; the estimator cells: sweep / merge /
-the round given the answers; none for the mesh and the program), and
+the round given the answers; none for the mesh and the program; the
+ArrayScheduler cells also their launch half's `solve` stage), and
 dense_tail's, sim_load's, sim_filter's, fleet_estimate's, dense_filter's,
-candidate_tail's, dense_input_filter's, mesh_tile_filter's and the spread
-kernels' (group_score, packed_selection, spread_tail, combo_select) time in
+candidate_tail's, dense_input_filter's, mesh_tile_filter's, the spread
+kernels' (group_score, packed_selection, spread_tail, combo_select) and
+the mask kernels' (feas_idx, pack_rows) time in
 those rounds by CUDA events around each wrapper call (its host enqueue
 included). `--cells`
 picks among the cells (default: all). Prints one JSON line: the tree, the
@@ -52,17 +56,19 @@ from karmada_tpu_torch.kernels import build  # noqa: E402
 from karmada_tpu_torch.sched import preemption  # noqa: E402
 from karmada_tpu_torch import graft_entry  # noqa: E402
 from karmada_tpu_torch.sched.core import ArrayScheduler, _schedule_kernel  # noqa: E402
+from karmada_tpu_torch.sched.pipeline import StageTimer  # noqa: E402
 from karmada_tpu_torch.testing.cpumesh import virtual_mesh  # noqa: E402
 from karmada_tpu_torch.simulation import engine  # noqa: E402
 from karmada_tpu_torch.simulation.engine import Simulator  # noqa: E402
 
 ROUNDS = {"compact flagship": 30, "dense flagship": 30, "whatif": 20, "whatif_churn5k": 4,
           "estimator_flagship": 20, "config3": 30, "tiers_dense": 15, "tiers_compact": 15,
-          "mesh_flagship": 20, "graft_flagship": 30, "config 4": 20, "drain": 20}
+          "mesh_flagship": 20, "graft_flagship": 30, "config 4": 20, "drain": 20,
+          "config 2": 60, "config 1": 60}
 # the kernels' wrappers, as the rounds call them
 TIMED = ("dense_tail", "sim_load", "sim_filter", "fleet_estimate", "dense_filter",
          "candidate_tail", "dense_input_filter", "mesh_tile_filter", "group_score",
-         "packed_selection", "spread_tail", "combo_select")
+         "packed_selection", "spread_tail", "combo_select", "feas_idx", "pack_rows")
 
 
 class KernelEvents:
@@ -94,12 +100,16 @@ class KernelEvents:
 
 
 def sched_rounds(sched, bindings, rounds):
-    """A warm round, then `rounds` rounds split launch / wait / materialize."""
+    """A warm round, then `rounds` rounds split launch / wait / materialize,
+    and the launch half's `solve` stage (the kernel dispatch, host clock)
+    read from a StageTimer."""
     sched.schedule(bindings)
     torch.cuda.synchronize()
     times, split = [], []
+    sched.stage_timer = timer = StageTimer()
     with KernelEvents() as ev:
         for _ in range(rounds):
+            solve0 = timer.totals.get("solve", 0.0)
             t0 = time.perf_counter()
             state = sched._launch_solve(bindings)
             t1 = time.perf_counter()
@@ -108,9 +118,10 @@ def sched_rounds(sched, bindings, rounds):
             sched._materialize_solve(state)
             t3 = time.perf_counter()
             times.append(t3 - t0)
-            split.append((t1 - t0, t2 - t1, t3 - t2))
-    return (times, dict(zip(("launch", "wait", "materialize"), np.median(split, 0).tolist())),
-            ev.per_round(rounds))
+            split.append((t1 - t0, t2 - t1, t3 - t2, timer.totals.get("solve", 0.0) - solve0))
+    sched.stage_timer = None
+    return (times, dict(zip(("launch", "wait", "materialize", "solve"),
+                            np.median(split, 0).tolist())), ev.per_round(rounds))
 
 
 def tier_rounds(sched, bindings, placed, rounds):
@@ -264,7 +275,9 @@ def main() -> int:
     for name, build_cell in (("compact flagship", chip_smoke.build_flagship),
                              ("dense flagship", lambda: chip_smoke.build_flagship(dense=True)),
                              ("config 4", chip_smoke.build_spread),
-                             ("drain", chip_smoke.build_drain)):
+                             ("drain", chip_smoke.build_drain),
+                             ("config 2", chip_smoke.build_static),
+                             ("config 1", chip_smoke.build_dup3)):
         if name not in which:
             continue
         clusters, bindings = build_cell()

@@ -310,6 +310,31 @@ def test_candidate_k_256_compact_round_matches_jax(monkeypatch):
     assert _views(got) == _views(want)
 
 
+def test_compact_round_uploads_its_row_ids_once_before_the_select(monkeypatch):
+    """Each compact round's solve stage uploads the row ids it gathers by
+    (the tails' padded lists, then the mask rows) in one to_device_packed
+    copy, before candidate_select is launched (on a card: one pinned,
+    non-blocking copy, so the host never waits on B1 there); the rounds
+    decide as the JAX package."""
+    from karmada_tpu_torch.sched import candidates as tcand
+
+    clusters, bindings = flagship_mix(seed=3, n_clusters=300, n_bindings=96)
+    ref = jcore.ArrayScheduler(clusters)
+    port = TorchScheduler(from_reference_objects(clusters), device="cpu")
+    events = []
+    packed, select = tcand.to_device_packed, kernels.candidate_select
+    monkeypatch.setattr(tcand, "to_device_packed", lambda arrays, dev: (
+        events.append(("upload", [np.array(a) for a in arrays])), packed(arrays, dev))[1])
+    monkeypatch.setattr(kernels, "candidate_select", lambda *a, **kw: (
+        events.append(("select", None)), select(*a, **kw))[1])
+    got = port.schedule(from_reference_objects(bindings))
+    assert _views(got) == _views(ref.schedule(bindings))
+    assert [e for e, _ in events] == ["upload", "select"] * (len(events) // 2)
+    first = events[0][1]
+    # the two tails' padded lists and the mask rows, none empty
+    assert len(first) == 3 and all(a.dtype == np.int64 and len(a) for a in first)
+
+
 def test_candidate_k_256_tiered_compact_round_matches_jax():
     """The compact tiered launch (B12) over 256-column windows: its tails
     take the K > 128 route on a card; on the CPU it decides as the JAX

@@ -183,9 +183,10 @@ def test_pack_rows_plain_matches_pack_rows_kernel():
     rng = np.random.default_rng(3)
     for C in (5, 96, 301):
         m = rng.random((13, C)) < 0.4
+        rows = rng.permutation(13).astype(np.int32)
         np.testing.assert_array_equal(
-            _n(kernels.pack_rows_plain(torch.from_numpy(m))),
-            np.asarray(jcore._pack_rows_kernel(m)),
+            _n(kernels.pack_rows_plain(torch.from_numpy(m), torch.from_numpy(rows))),
+            np.asarray(jcore._pack_rows_kernel(m[rows])),
         )
 
 
@@ -195,10 +196,56 @@ def test_feas_idx_plain_matches_feas_idx_kernel(k):
     m = rng.random((17, 96)) < rng.random((17, 1))  # from empty to full rows
     m[0] = False
     m[1] = True
+    rows = rng.permutation(17).astype(np.int32)
     np.testing.assert_array_equal(
-        _n(kernels.feas_idx_plain(torch.from_numpy(m), k)),
-        np.asarray(jcore._feas_idx_kernel(m, k)),
+        _n(kernels.feas_idx_plain(torch.from_numpy(m), torch.from_numpy(rows), k)),
+        np.asarray(jcore._feas_idx_kernel(m[rows], k)),
     )
+
+
+# the mask kernels' widths: config 1's bucket, a bucket_cols=False fleet
+# (no multiple of 16), one vector step, an unpadded 5 000
+MASK_WIDTHS = (8, 77, 128, 5000)
+MASK_ROWS = np.array([5, 1, 0, 11, 3, 5, 1, 9, 2, 2, 7, 0], np.int32)  # out of order, repeated
+
+
+def _mask_inputs(C):
+    """bool [12, C] filter rows from empty to full (row 0 all false, row 1
+    all true: more feasible columns than any k < C) and MASK_ROWS."""
+    rng = np.random.default_rng(C)
+    m = rng.random((12, C)) < rng.random((12, 1))
+    m[0] = False
+    m[1] = True
+    m[2] = rng.random(C) < 4 / C  # a sparse row
+    return m, MASK_ROWS
+
+
+@pytest.mark.parametrize("C", MASK_WIDTHS)
+def test_pack_rows_reads_filter_rows_through_ids(C):
+    """pack_rows(feasible, rows), plain and the CPU wrapper, is the
+    reference's `_pack_rows_kernel(feasible[rows])`."""
+    m, rows = _mask_inputs(C)
+    want = np.asarray(jcore._pack_rows_kernel(m[rows]))
+    args = (torch.from_numpy(m), torch.from_numpy(rows))
+    np.testing.assert_array_equal(_n(kernels.pack_rows_plain(*args)), want)
+    np.testing.assert_array_equal(_n(kernels.pack_rows(*args)), want)
+
+
+@pytest.mark.parametrize("k_of", ["1", "8", "C"])
+@pytest.mark.parametrize("C", MASK_WIDTHS)
+def test_feas_idx_reads_filter_rows_through_ids(C, k_of):
+    """feas_idx(feasible, rows, k), plain and the CPU wrapper, is the
+    reference's `_feas_idx_kernel(feasible[rows], k)`, k = C included, on
+    rows with more feasible columns than k and an all-false row."""
+    m, rows = _mask_inputs(C)
+    k = C if k_of == "C" else min(int(k_of), C)
+    want = np.asarray(jcore._feas_idx_kernel(m[rows], k))
+    args = (torch.from_numpy(m), torch.from_numpy(rows), k)
+    np.testing.assert_array_equal(_n(kernels.feas_idx_plain(*args)), want)
+    np.testing.assert_array_equal(_n(kernels.feas_idx(*args)), want)
+    assert (want == kernels.FEAS_IDX_PAD).all(-1).any()  # the all-false row
+    if k < C:
+        assert (m[rows].sum(-1) > k).any()
 
 
 # --------------------------------------------------------------------------
@@ -281,6 +328,53 @@ def test_dense_round_matches_jax(case, host_tail, monkeypatch):
         assert row.ok and len(row.targets) > 128
     if case in ("disabled", "small_fleet"):
         assert any(d.affinity_name == "backup" for d in got)  # ordered-affinity retry
+
+
+@pytest.mark.parametrize("case", ["feas_idx", "policy"])
+def test_dense_round_masks_read_the_filter_rows_in_place(case, monkeypatch):
+    """Each dense round (the first, then its ordered-affinity retries)
+    hands feas_idx / pack_rows its dense filter's own feasible output
+    ([B, C], no gather of the mask rows) and the int32 ids of the real
+    mask rows only (no pad rows), uploaded in the round's one row-id copy
+    with the tails' padded ids, before the filter."""
+    clusters, bindings, k, plugins, _reason, mask_path = _case(case)
+    port = TorchScheduler(from_reference_objects(clusters), candidate_k=k, plugins=plugins,
+                          device="cpu")
+    port_bindings = from_reference_objects(bindings)
+    events = []
+
+    def record(name, fn):
+        def run(*a, **kw):
+            out = fn(*a, **kw)
+            events.append((name, a, out))
+            return out
+        return run
+
+    for name in ("dense_filter", "pack_rows", "feas_idx"):
+        monkeypatch.setattr(kernels, name, record(name, getattr(kernels, name)))
+    monkeypatch.setattr(tcore, "to_device_packed",
+                        record("upload", tcore.to_device_packed))
+    port.schedule(port_bindings)
+
+    names = [e[0] for e in events]
+    assert mask_path in names
+    rounds = [i for i, n in enumerate(names) if n == "upload"]
+    assert rounds[0] == 0 and names.count("dense_filter") == len(rounds)
+    for r, i in enumerate(rounds):
+        (_, (arrays, _dev), _), (name, _, filt) = events[i], events[i + 1]
+        assert name == "dense_filter"
+        masks = [e for e in events[i + 2:(rounds + [len(events)])[r + 1]]
+                 if e[0] in ("pack_rows", "feas_idx")]
+        assert len(masks) <= 1
+        assert all(a.dtype == np.int32 for a in arrays)
+        for _, (feasible, rows, *_), _ in masks:
+            assert feasible is filt[0]  # the filter output itself
+            assert rows.dtype == torch.int32 and rows.dim() == 1
+            np.testing.assert_array_equal(rows.numpy(), arrays[-1])
+            ids = rows.tolist()
+            assert ids == sorted(set(ids)) and ids[-1] < feasible.shape[0]
+            if r == 0:  # every Duplicated / non-workload row, no pad row
+                assert len(ids) == sum(port._row_class(rb, False) == 0 for rb in port_bindings)
 
 
 def test_dense_round_chunks_match_one_round(monkeypatch):

@@ -83,12 +83,16 @@ def launch_dense_filter():
     kernels._dense_filter_launch(*_select_args(), plugin_bits=31)
 
 
+def _mask_rows():
+    return torch.tensor([3, 0, 4, 3], dtype=torch.int32)
+
+
 def launch_pack_rows():
-    kernels._pack_rows_launch(torch.rand((5, 77)) < 0.5)
+    kernels._pack_rows_launch(torch.rand((5, 77)) < 0.5, _mask_rows())
 
 
 def launch_feas_idx():
-    kernels._feas_idx_launch(torch.rand((5, 77)) < 0.5, 8)
+    kernels._feas_idx_launch(torch.rand((5, 77)) < 0.5, _mask_rows(), 8)
 
 
 def launch_group_score():
@@ -269,6 +273,27 @@ def test_packed_selection_launch_takes_the_bool_choice(fake_lib, monkeypatch):
     assert args[:7] == (feasible.data_ptr(), 96, rows.data_ptr(), n, chosen.data_ptr(), R,
                         lay["rid"].data_ptr())
     assert args[7] == out.data_ptr() and out.shape == (n, 12)
+
+
+@pytest.mark.parametrize("name", ["pack_rows", "feas_idx"])
+def test_mask_launches_read_the_filter_rows_in_place(name, fake_lib):
+    """pack_rows and feas_idx are one C call each over the filter outputs'
+    own pointer and the int32 row ids, one output row per id; row ids of
+    another dtype, rank or layout raise before any call."""
+    calls, _ = fake_lib
+    feasible = torch.rand((5, 77)) < 0.5
+    rows = _mask_rows()
+    k = (8,) if name == "feas_idx" else ()
+    launch = getattr(kernels, f"_{name}_launch")
+    out = launch(feasible, rows, *k)
+    (cname, args), = calls
+    assert cname == f"{name}_launch"
+    assert args[:4] == (feasible.data_ptr(), 77, rows.data_ptr(), 4) and args[4:-2] == k
+    assert args[-2] == out.data_ptr() and out.shape == ((4, 8) if k else (4, 10))
+    for bad in (rows.long(), rows.reshape(2, 2), rows[::2]):
+        with pytest.raises((TypeError, ValueError)):
+            launch(feasible, bad, *k)
+    assert len(calls) == 1
 
 
 def test_combo_select_outputs_are_fresh_views_of_one_block(fake_lib):
