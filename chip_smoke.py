@@ -1,6 +1,6 @@
 """On-card smoke test of the PyTorch/CUDA port (karmada_tpu_torch).
 
-    python3 chip_smoke.py [--only kernels|sim|graft|mesh|tiers]
+    python3 chip_smoke.py [--only kernels|sim|graft|mesh|tiers|refresh]
 
 Needs one CUDA card (an H100 is the target) and nvcc; exits non-zero with no
 result line otherwise. Phases, each of which raises on failure:
@@ -64,7 +64,9 @@ result line otherwise. Phases, each of which raises on failure:
    sort, every row distinct) and at config 3's; staleness_penalty on a random i32 [10 000, 5 000]
    matrix at ages 0-10, with torch.where as its library call;
    scatter_rows (the dirty-column refresh) on seeded fleets at 5 120
-   columns with repeated indices, every dtype, with index_copy_ as its
+   columns, every dtype, both routes (separate sources; a launcher's
+   staged block: one pinned upload, one launch) on repeated ids, one row,
+   the last row, every row, T = 0 and odd G, with index_copy_ as its
    library call; candidate_tail's K > 128 route on seeded tie-heavy
    windows at K = 192, 256 and 512 and on the flagship's K = 256 windows;
    candidate_select's wide route on seeded rows at C = 20 480 and 32 768
@@ -177,8 +179,11 @@ result line otherwise. Phases, each of which raises on failure:
    binding with previous placements, schedule()), churn_incremental
    (config 5b: 5 % of the bindings dirtied per round,
    schedule_incremental replaying the rest), churn_dirty (50 clusters
-   change status per round: set_clusters with dirty_names through
-   scatter_rows, then every row re-solved), pipeline (the churn round at
+   change status per round: set_clusters with dirty_names through the
+   placement's scatter_rows launcher, then every row re-solved; the
+   refresh split dirty scan / encode_cols / pack + upload + launch, one
+   refresh under set_sync_debug_mode("error"), and its host time with
+   20 ms of device work queued ahead beside an idle stream's), pipeline (the churn round at
    a B*C/8 budget: the serial leg, the scheduler's default, and the
    pipelined leg, 3 interleaved runs each, stage seconds and overlap
    ratio; then one pipelined round under a side stream with estimator
@@ -210,7 +215,8 @@ result line: `kernels` phase 3, `sim` the simulation plane's checks of
 phases 3 and 4, `graft` those of the dense-input program and the scheduler
 shim, `mesh` those of the mesh solve (with the single-device dense
 flagship round they are held against), `tiers` the tier kernels' checks of
-phase 3.
+phase 3, `refresh` scatter_rows' check of phase 3 and the churn_dirty cell
+with the refresh's checks.
 """
 from __future__ import annotations
 
@@ -227,6 +233,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -350,6 +357,8 @@ CHURN_ROUNDS = 20  # timed rounds of the churn cell
 CHUNK_ROUNDS = 10  # timed rounds of churn_incremental, churn_dirty and flagship_k256
 INCREMENTAL_DIRTY = 0.05  # config 5b: 5 % of the bindings dirtied per round
 DIRTY_CLUSTERS = 50  # churn_dirty: 1 % of the fleet changes status per round
+QUEUED_REFRESH_TURNS = 3  # churn_dirty: refreshes on an idle stream and behind queued work
+QUEUED_WORK_MS = 20.0  # the device work queued ahead of those refreshes
 PIPELINE_RUNS = 3  # runs of each pipeline leg, interleaved
 RETRY_EVERY = 8  # one churn binding in 8 under ordered affinity terms (pipeline cell)
 PIPELINE_ROUNDS = 5  # timed rounds per run
@@ -3639,10 +3648,10 @@ def status_churn(clusters, rounds, seed=7, n_dirty=DIRTY_CLUSTERS):
     return out
 
 
-def random_fleet(rng, dev, C, T=4, G=6, R=4):
-    """Seeded fleet tensors of every dtype the resident fleet holds (bool,
-    int32, int64), in FLEET order."""
-    d = {
+def random_fleet_arrays(rng, C, T=4, G=6, R=4):
+    """Seeded host arrays of every dtype the resident fleet holds (bool,
+    int32, int64), by FLEET name."""
+    return {
         "alive": rng.random(C) < 0.9,
         "capacity": rng.integers(-10, 2_000_000, (C, R)).astype(np.int64),
         "has_summary": rng.random(C) < 0.95,
@@ -3651,7 +3660,11 @@ def random_fleet(rng, dev, C, T=4, G=6, R=4):
         "taint_effect": rng.integers(0, 4, (C, T)).astype(np.int32),
         "api_ok": rng.random((C, G)) < 0.9,
     }
-    t = batch_from_numpy(d, dev)
+
+
+def random_fleet(rng, dev, C, T=4, G=6, R=4):
+    """random_fleet_arrays on `dev`, in FLEET order."""
+    t = batch_from_numpy(random_fleet_arrays(rng, C, T, G, R), dev)
     return [t[n] for n in FLEET]
 
 
@@ -3659,48 +3672,100 @@ def fmt_ms(ms):
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
-def check_scatter_rows(dev, results):
-    """B17 on seeded fleets at the churn fleet's width (5 120): 50 dirty
-    rows plus 8 repeated ones (a duplicate carries the same row), every
-    dtype, against its plain version (`dst[idx] = src`) and index_copy_."""
-    rng = np.random.default_rng(40)
-    C = shape_bucket(N_CLUSTERS)
-    base, new = random_fleet(rng, dev, C), random_fleet(rng, dev, C)
-    rows = rng.choice(C, DIRTY_CLUSTERS, replace=False)
-    rows = np.concatenate([rows, rows[:8]])
-    idx = torch.from_numpy(rows.astype(np.int64)).to(dev)
-    srcs = [x.index_select(0, idx) for x in new]
-    got = [x.clone() for x in base]
-    kernels._scatter_rows_launch(got, idx, srcs)
-    want = kernels.scatter_rows_plain([x.clone() for x in base], idx, srcs)
-    err = compare("scatter_rows[random]", got, want, FLEET)
-    lib = [x.clone() for x in base]
+# the refresh's cases at the churn width, both routes: (R, T, G, rows) with
+# rows "churn" (DIRTY_CLUSTERS distinct and 8 repeated), "one", "last" (the
+# last row and the first) or "every"; T = 0 leaves the taint fields without
+# bytes, odd G gives rows of odd bytes. The first is timed.
+SCATTER_EDGES = ((4, 4, 6, "churn"), (4, 0, 6, "churn"), (1, 4, 5, "last"), (5, 3, 7, "one"),
+                 (4, 4, 6, "every"), (1, 0, 1, "last"))
+
+
+def scatter_rows_ids(rng, C, kind):
+    """The dirty row ids of one edge case (int64, host)."""
+    if kind == "churn":
+        rows = rng.choice(C, DIRTY_CLUSTERS, replace=False)
+        return np.concatenate([rows, rows[:8]]).astype(np.int64)
+    return {"one": np.array([C // 3]), "last": np.array([C - 1, 0]),
+            "every": np.arange(C)}[kind].astype(np.int64)
+
+
+def hold_scatter_routes(dev, label, base, new, rows):
+    """Both routes of scatter_rows on one case against the plain version
+    and index_copy_: separate sources (`_scatter_rows_launch`) and the
+    staged block of a launcher bound to the destinations
+    (`FleetScatter.refresh`, gathering from the host arrays `new`).
+    Returns (max abs error, the launcher, its destinations, the host
+    fleet, the ids and sources on the card, the plain result)."""
+    idx = torch.from_numpy(rows).to(dev)
+    srcs = [torch.from_numpy(np.ascontiguousarray(new[n][rows])).to(dev) for n in FLEET]
+    start = [torch.from_numpy(base[n]).to(dev) for n in FLEET]
+    want = kernels.scatter_rows_plain([x.clone() for x in start], idx, srcs)
+    lib = [x.clone() for x in start]
     for d, x in zip(lib, srcs):
         d.index_copy_(0, idx, x)
-    err = max(err, compare("scatter_rows[index_copy_]", got, lib, FLEET))
-    keep = torch.ones(C, dtype=torch.bool, device=dev)
+    err = compare(f"scatter_rows[{label}, index_copy_]", want, lib, FLEET)
+    got = [x.clone() for x in start]
+    kernels._scatter_rows_launch(got, idx, srcs)
+    err = max(err, compare(f"scatter_rows[{label}, separate sources]", got, want, FLEET))
+    staged = [x.clone() for x in start]
+    launcher = kernels.FleetScatter(dict(zip(FLEET, staged)))
+    fleet = SimpleNamespace(**new)
+    launcher.refresh(rows, fleet)
+    err = max(err, compare(f"scatter_rows[{label}, staged]", staged, want, FLEET))
+    keep = torch.ones(start[0].shape[0], dtype=torch.bool, device=dev)
     keep[idx] = False
-    if not all(torch.equal(g[keep], b[keep]) for g, b in zip(got, base)):
-        raise AssertionError("scatter_rows wrote a row outside idx")
-    ms = cuda_ms(lambda: kernels._scatter_rows_launch(got, idx, srcs), 200)
+    if not all(torch.equal(g[keep], b[keep]) for g, b in zip(staged, start)):
+        raise AssertionError(f"scatter_rows[{label}] wrote a row outside idx")
+    return err, launcher, staged, fleet, idx, srcs, want
+
+
+def check_scatter_rows(dev, results):
+    """B17 at the churn fleet's width (5 120) on SCATTER_EDGES, both
+    routes against the plain version (`dst[idx] = src`) and index_copy_,
+    then timed on the churn case: the bound route (a launcher's refresh:
+    the host gather into one pinned block, one upload, one launch) by
+    events, its device time split kernel / copy (torch.profiler) and its
+    host enqueue; the separate-source route, the plain version and seven
+    index_copy_ beside it."""
+    rng = np.random.default_rng(40)
+    C = shape_bucket(N_CLUSTERS)
+    cases = []
+    for R, T, G, kind in SCATTER_EDGES:
+        rows = scatter_rows_ids(rng, C, kind)
+        base, new = random_fleet_arrays(rng, C, T, G, R), random_fleet_arrays(rng, C, T, G, R)
+        cases.append((rows, hold_scatter_routes(dev, f"R={R} T={T} G={G} {kind}", base, new,
+                                                rows)))
+    err = max(case[0] for _, case in cases)
+    rows, (_, launcher, staged, fleet, idx, srcs, want) = cases[0]
+    refresh = functools.partial(launcher.refresh, rows, fleet)
+    ms = cuda_ms(refresh, 200)
+    enqueue = host_enqueue_ms(refresh, 200)
+    dev_ms, per_event = profiled_calls_ms(refresh, 50)
+    kernel_dev = sum(v for k, v in per_event.items() if "scatter_rows" in k)
+    sep = [x.clone() for x in staged]
+    sep_ms = cuda_ms(lambda: kernels._scatter_rows_launch(sep, idx, srcs), 200)
+    sep_dev = profiled_device_ms(None, None, lambda: kernels._scatter_rows_launch(sep, idx, srcs))
     plain = cuda_ms(lambda: kernels.scatter_rows_plain(want, idx, srcs), 50)
+    lib = [x.clone() for x in staged]
     lib_ms = cuda_ms(lambda: [d.index_copy_(0, idx, x) for d, x in zip(lib, srcs)], 50)
-    # a launch this small is timed by its host side; the device's own time
-    # of one launch, and of the seven index_copy_ calls, from the profiler
-    dev_ms = profiled_device_ms(None, None, lambda: kernels._scatter_rows_launch(got, idx, srcs))
     lib_dev_ms = profiled_device_ms(
         None, None, lambda: [d.index_copy_(0, idx, x) for d, x in zip(lib, srcs)])
-    # bytes: the index and the source rows read once, as many written
+    # bytes: the ids and the source rows read once, as many written
     b, by = bound(nbytes([idx]) + 2 * nbytes(srcs), 0)
     results["scatter_rows"] = dict(
         source="karmada_tpu_torch/kernels/csrc/scatter_rows.cu",
         replaces="karmada_tpu/sched/core.py:561", max_abs_err=err, ms=ms, plain_ms=plain,
-        bound_ms=b, bound_by=by, library_ms=lib_ms)
-    log(f"scatter_rows: {len(rows)} rows ({DIRTY_CLUSTERS} distinct) into the seven fleet "
-        f"tensors at C = {C} (bool, int32, int64) equal the plain version and index_copy_; "
-        f"timing {ms:.4f} ms for all seven in one launch (plain {plain:.4f}, index_copy_ "
-        f"{lib_ms:.4f}, bound {b:.6f} {by}: launch-bound); device time (torch.profiler, one "
-        f"call) {fmt_ms(dev_ms)}, the seven index_copy_ {fmt_ms(lib_dev_ms)}")
+        bound_ms=b, bound_by=by, library_ms=lib_ms, device_ms=kernel_dev,
+        copy_device_ms=dev_ms - kernel_dev, enqueue_ms=enqueue, separate_ms=sep_ms,
+        separate_device_ms=sep_dev, library_device_ms=lib_dev_ms)
+    log(f"scatter_rows: both routes equal the plain version and index_copy_ on "
+        f"{len(SCATTER_EDGES)} cases at C = {C} (T = 0, odd G, R = 1 and 5, one row, the "
+        f"last row, every row, {len(rows)} rows with 8 repeated); the bound route (pinned "
+        f"block, one upload, one launch) {ms:.4f} ms by events, device {kernel_dev:.4f} ms "
+        f"kernel + {dev_ms - kernel_dev:.4f} ms copy (torch.profiler, per call: {per_event}), host "
+        f"enqueue {enqueue:.4f} ms; separate sources {sep_ms:.4f} ms (device "
+        f"{fmt_ms(sep_dev)}); plain {plain:.4f}, index_copy_ x7 {lib_ms:.4f} (device "
+        f"{fmt_ms(lib_dev_ms)}), bound {b:.6f} {by}: launch-bound")
 
 
 def check_wide_tail(dev, results, flag):
@@ -3883,6 +3948,184 @@ def retry_bindings(clusters, seed=1, n_bindings=N_BINDINGS, every=RETRY_EVERY):
     return bindings
 
 
+def timed_refresh(sched, clusters, dirty, spans):
+    """sched.set_clusters(clusters, dirty_names=dirty), split on the host
+    clock at its encode_cols call and its launcher's two steps: appends
+    (dirty scan, encode_cols, the rest, whole, pack, upload + launch) in
+    seconds to `spans`, the rest being pack + upload + launch and the
+    bookkeeping around them; pack is the launcher's `stage` (the pinned
+    block, the ids and the gathered rows), upload + launch its `_apply`."""
+    enc, launcher = sched.encoder, sched._fleet_scatter
+    marks = {}
+
+    def marked(name, fn):
+        def run(*a, **kw):
+            marks[name + "0"] = time.perf_counter()
+            out = fn(*a, **kw)
+            marks[name + "1"] = time.perf_counter()
+            return out
+        return run
+
+    enc.encode_cols = marked("enc", enc.encode_cols)
+    launcher.stage = marked("stage", launcher.stage)
+    launcher._apply = marked("apply", launcher._apply)
+    try:
+        t0 = time.perf_counter()
+        sched.set_clusters(clusters, dirty_names=dirty)
+        t3 = time.perf_counter()
+    finally:
+        del enc.encode_cols, launcher.stage, launcher._apply
+    if len(marks) != 6:
+        raise AssertionError(f"refresh: not one encode_cols and one launcher refresh ({marks})")
+    t1, t2 = marks["enc0"], marks["enc1"]
+    spans.append((t1 - t0, t2 - t1, t3 - t2, t3 - t0, marks["stage1"] - marks["stage0"],
+                  marks["apply1"] - marks["apply0"]))
+
+
+def check_resident_fleet(label, sched):
+    """The resident fleet tensors against a full encode of the scheduler's
+    clusters by the same encoder (same interned ids)."""
+    full = sched.encoder.encode(sched.clusters)
+    for n in FLEET:
+        if not np.array_equal(sched._fleet_dev[n].cpu().numpy(), getattr(full, n)):
+            raise AssertionError(f"{label}: resident {n} differs from a full re-encode")
+
+
+def check_refresh_syncs(sched, clusters, dirty):
+    """One dirty-column refresh (the whole set_clusters call) under
+    torch.cuda.set_sync_debug_mode("error"): no stream sync, one launch."""
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sched.set_clusters(clusters, dirty_names=dirty)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if kernels.launch_counts()["scatter_rows"] != 1:
+        raise AssertionError(f"refresh: {kernels.launch_counts()['scatter_rows']} scatter_rows "
+                             "launches, expected 1")
+    torch.cuda.synchronize()
+    log(f"churn_dirty: one refresh ({len(dirty)} dirty clusters) ran under "
+        "torch.cuda.set_sync_debug_mode('error') without a stream sync, one scatter_rows launch")
+
+
+def sleep_cycles_per_ms():
+    """torch.cuda._sleep's cycles a millisecond of device time on this card
+    (calibrated once by events)."""
+    probe = 1_000_000
+    torch.cuda._sleep(probe)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(probe)
+    end.record()
+    torch.cuda.synchronize()
+    return probe / start.elapsed_time(end)
+
+
+def queued_refresh(sched, fleets):
+    """The refresh's host time (set_clusters entry to return) on an idle
+    stream and behind device work queued ahead (torch.cuda._sleep), in
+    turns over `fleets` (pairs of successive status changes). The work
+    lasts QUEUED_WORK_MS, or three times the turn's idle refresh if that
+    is longer, so a refresh that does not wait returns while it runs;
+    fails if the work had ended when a queued refresh returned (the
+    refresh waited for the stream)."""
+    per_ms = sleep_cycles_per_ms()
+    idle, queued, running = [], [], []
+    for k in range(0, len(fleets), 2):
+        torch.cuda.synchronize()
+        timed_refresh(sched, *fleets[k], idle)
+        torch.cuda.synchronize()
+        work_ms = max(QUEUED_WORK_MS, 3e3 * idle[-1][3])
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(int(per_ms * work_ms))
+        end.record()
+        timed_refresh(sched, *fleets[k + 1], queued)
+        running.append(not end.query())
+        torch.cuda.synchronize()
+        queued[-1] += (start.elapsed_time(end),)
+    i_ms = [x[3] * 1e3 for x in idle]
+    q_ms = [x[3] * 1e3 for x in queued]
+    work = [x[6] for x in queued]
+
+    def parts(v):  # the rest, then pack and upload + launch
+        return "; ".join(f"{x[2] * 1e3:.4f} ({x[4] * 1e3:.4f} + {x[5] * 1e3:.4f})" for x in v)
+
+    log(f"churn_dirty: refresh host ms (set_clusters entry to return), idle stream "
+        f"{', '.join(f'{x:.4f}' for x in i_ms)} (the rest (pack + upload and launch): "
+        f"{parts(idle)}); with {', '.join(f'{x:.2f}' for x in work)} ms of device work queued "
+        f"ahead {', '.join(f'{x:.4f}' for x in q_ms)} ({parts(queued)}); the work still running "
+        f"when each queued refresh returned: {running}")
+    if not all(running):
+        raise AssertionError(f"refresh: the device work queued ahead ({work} ms) had ended when "
+                             f"a refresh returned ({q_ms} ms): it waited for the stream")
+
+
+def run_churn_dirty(dev, smi, path_launches, clusters, bindings, one):
+    """churn_dirty: status heartbeats through the dirty-column path over
+    the churn fleet (`one`: the compact round's launches a round), then
+    the refresh's checks: its split, one refresh under the sync check,
+    refreshes behind queued device work."""
+    # the timed rounds' fleets, then one for the sync check and
+    # QUEUED_REFRESH_TURNS pairs for the refresh with device work queued
+    fleets = status_churn(clusters, CHUNK_ROUNDS + 2 + 2 * QUEUED_REFRESH_TURNS)
+    dsched = ArrayScheduler(clusters, device=dev)
+    dsched.schedule_incremental(bindings)
+    encoder, launcher = dsched.batch_encoder, dsched._fleet_scatter
+    state = {"i": 0, "splits": []}
+    spans = []  # per round: dirty scan, encode_cols, pack + upload + launch, refresh, round
+    dsched.stage_timer = timer = StageTimer()
+
+    stages = []  # per round: the round's stage seconds (encode, solve, materialize)
+
+    def run_dirty():
+        live, dirty = fleets[state["i"]]
+        state["i"] += 1
+        timed_refresh(dsched, live, dirty, spans)
+        before = dict(timer.totals)
+        t0 = time.perf_counter()
+        out = dsched.schedule_incremental(bindings)
+        spans[-1] += (time.perf_counter() - t0,)
+        stages.append({k: v - before.get(k, 0.0) for k, v in timer.totals.items()})
+        state["splits"].append(dict(dsched.last_round_stats))
+        return out
+
+    decisions, launches, times = drive(
+        f"churn_dirty ({DIRTY_CLUSTERS} clusters change status per round)", dsched, bindings,
+        CHUNK_ROUNDS, {**one, "scatter_rows": 1}, smi, run=run_dirty)
+    dsched.stage_timer = None
+    path_launches["scatter_rows"] = launches["scatter_rows"]
+    if dsched.batch_encoder is not encoder or dsched._fleet_scatter is not launcher:
+        raise AssertionError("churn_dirty: the fleet was rebuilt (full re-encode)")
+    if any(sp != {"replayed": 0, "solved": len(bindings)} for sp in state["splits"]):
+        raise AssertionError(f"churn_dirty: round splits {state['splits']}")
+    med = np.median(np.asarray(spans[1:]), axis=0)  # the timed rounds
+    log(f"churn_dirty breakdown (host clock, median of {CHUNK_ROUNDS} timed rounds, p50 "
+        f"{np.percentile(times, 50):.4f} s): refresh {med[3] * 1e3:.4f} ms = dirty scan "
+        f"{med[0] * 1e3:.4f} + encode_cols {med[1] * 1e3:.4f} + the rest {med[2] * 1e3:.4f} "
+        f"ms (pack {med[4] * 1e3:.4f}, upload + launch {med[5] * 1e3:.4f}); "
+        f"schedule_incremental {med[6]:.4f} s (its stages: "
+        + ", ".join(f"{k} {np.median([r.get(k, 0.0) for r in stages[1:]]):.4f} s"
+                    for k in timer.totals) + ")")
+    live = fleets[CHUNK_ROUNDS][0]
+    check_resident_fleet("churn_dirty", dsched)
+    fresh = ArrayScheduler(live, device=dev)
+    same_decisions("churn_dirty vs a fresh scheduler on the card", decisions,
+                   fresh.schedule(bindings))
+    hold_against_cpu("churn_dirty", live, bindings, decisions)
+    log(f"churn_dirty: {CHUNK_ROUNDS + 1} rounds, each one refresh (one pinned upload, one "
+        "scatter_rows launch) into the resident fleet through the launcher bound at placement, "
+        "the batch encoder kept, every binding solved (epoch bumped); resident tensors equal a "
+        "full re-encode; decisions equal a fresh scheduler on the card and the cpu")
+    del fresh
+    check_refresh_syncs(dsched, *fleets[CHUNK_ROUNDS + 1])
+    queued_refresh(dsched, fleets[CHUNK_ROUNDS + 2:])
+    check_resident_fleet("churn_dirty after the refresh checks", dsched)
+    del dsched, fleets
+
+
 def run_churn_cells(dev, smi, path_launches, compact_ms):
     """Phase 4's config-5 cells over one churn fleet: churn (schedule(),
     one chunk), churn_incremental (schedule_incremental, 5 % of the
@@ -3930,44 +4173,7 @@ def run_churn_cells(dev, smi, path_launches, compact_ms):
         f"{n_dirty}; decisions equal a cold schedule() on the card and the cpu round")
     del inc
 
-    # ---- churn_dirty: status heartbeats through the dirty-column path ----
-    fleets = status_churn(clusters, CHUNK_ROUNDS + 1)
-    dsched = ArrayScheduler(clusters, device=dev)
-    dsched.schedule_incremental(bindings)
-    encoder = dsched.batch_encoder
-    state = {"i": 0, "splits": []}
-
-    def run_dirty():
-        live, dirty = fleets[state["i"]]
-        state["i"] += 1
-        dsched.set_clusters(live, dirty_names=dirty)
-        out = dsched.schedule_incremental(bindings)
-        state["splits"].append(dict(dsched.last_round_stats))
-        return out
-
-    decisions, launches, _ = drive(
-        f"churn_dirty ({DIRTY_CLUSTERS} clusters change status per round)", dsched, bindings,
-        CHUNK_ROUNDS, {**one, "scatter_rows": 1}, smi, run=run_dirty)
-    path_launches["scatter_rows"] = launches["scatter_rows"]
-    if dsched.batch_encoder is not encoder:
-        raise AssertionError("churn_dirty: the batch encoder was rebuilt (full re-encode)")
-    if any(sp != {"replayed": 0, "solved": len(bindings)} for sp in state["splits"]):
-        raise AssertionError(f"churn_dirty: round splits {state['splits']}")
-    live = fleets[-1][0]
-    # the resident tensors against a full encode by the same encoder (same
-    # interned ids)
-    full = dsched.encoder.encode(dsched.clusters)
-    for n in FLEET:
-        if not np.array_equal(dsched._fleet_dev[n].cpu().numpy(), getattr(full, n)):
-            raise AssertionError(f"churn_dirty: resident {n} differs from a full re-encode")
-    fresh = ArrayScheduler(live, device=dev)
-    same_decisions("churn_dirty vs a fresh scheduler on the card", decisions,
-                   fresh.schedule(bindings))
-    hold_against_cpu("churn_dirty", live, bindings, decisions)
-    log(f"churn_dirty: {CHUNK_ROUNDS + 1} rounds, each scatter_rows once into the resident "
-        "fleet, the batch encoder kept, every binding solved (epoch bumped); resident tensors "
-        "equal a full re-encode; decisions equal a fresh scheduler on the card and the cpu")
-    del dsched, fresh, fleets
+    run_churn_dirty(dev, smi, path_launches, clusters, bindings, one)
 
     # ---- pipeline: serial vs pipelined legs under a B*C/8 budget ----
     budget = max(1, (len(bindings) * len(clusters)) // 8)
@@ -5514,7 +5720,7 @@ def run_shim_contract(dev):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="On-card smoke test of the PyTorch/CUDA port.")
-    ap.add_argument("--only", choices=("kernels", "sim", "graft", "mesh", "tiers"),
+    ap.add_argument("--only", choices=("kernels", "sim", "graft", "mesh", "tiers", "refresh"),
                     help="build every kernel, run one group of phases, print no result line")
     opts = ap.parse_args(sys.argv[1:] if argv is None else argv)
     only = opts.only
@@ -5536,6 +5742,15 @@ def main(argv=None) -> int:
         check_tier_kernels(dev, results)
         log(f"--only tiers: the tier kernels passed ({json.dumps(results)}); no other kernel "
             "or cell was run")
+        return 0
+    if only == "refresh":
+        results, path_launches = {}, {}
+        check_scatter_rows(dev, results)
+        clusters, bindings = build_churn()
+        run_churn_dirty(dev, smi, path_launches, clusters, bindings,
+                        {"candidate_select": 1, "candidate_tail": 2})
+        log(f"--only refresh: scatter_rows and churn_dirty passed ({json.dumps(results)}; "
+            f"launches {path_launches}); no other kernel or cell was run")
         return 0
     if only == "sim":
         results, path_launches = {}, {}

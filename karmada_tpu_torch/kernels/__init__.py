@@ -81,7 +81,12 @@ faults/staleness.py):
 The fleet refresh (sched/core.py `set_clusters(..., dirty_names)`):
 - `scatter_rows` (csrc/scatter_rows.cu): the re-encoded clusters' rows
   written in place into the resident fleet tensors, every tensor in one
-  launch; the plain version is `scatter_rows_plain`.
+  launch, a block a dirty row; the plain version is `scatter_rows_plain`.
+  The refresh goes through a `FleetScatter` (`fleet_scatter(dsts)`)
+  bound once per placed fleet: per call one pinned host block (the ids,
+  then the rows) gathered on the host, one non-blocking upload and one
+  C call, no stream sync. `scatter_rows(dsts, idx, srcs)` takes
+  separate device sources (the same kernel).
 
 The simulation plane's solve (simulation/engine.py `_sim_solve`: the
 filter below, `dense_tail` over the S x B scenario rows, then the load):
@@ -143,6 +148,7 @@ from __future__ import annotations
 import ctypes
 import threading
 
+import numpy as np
 import torch
 
 from ..faults.staleness import MAX_STALENESS_AGE
@@ -1647,7 +1653,7 @@ _COMBO_SELECT_ARGTYPES = [_VP] * 4 + [_CI] * 2 + [_VP] * 2 + [_CI] * 4 + [_VP] *
 _TIER_ROUND_ARGTYPES = [_VP] * 4 + [_CI] * 3 + [_VP] * 2
 _CONSUME_ROUND_ARGTYPES = [_VP] * 5 + [_CI, _VP]
 _STALENESS_ARGTYPES = [_VP, ctypes.c_int64, _CI, _VP, _VP]
-_SCATTER_ROWS_ARGTYPES = [_VP] * 4 + [_CI, _VP, _CI, _VP]
+_SCATTER_ROWS_ARGTYPES = [_VP, _VP, _CI, _VP]
 _SIM_FILTER_ARGTYPES = [_VP] * 7 + [_CI] * 5 + [_VP] * 14 + [_CI] * 8 + [_VP] * 10
 _DENSE_INPUT_FILTER_ARGTYPES = ([_VP] * 7 + [_CI] * 4 + [_VP] * 8 + [_CI] + [_VP] * 4
                                 + [_CI] * 2 + [_VP] * 4)
@@ -2064,6 +2070,43 @@ def scatter_rows_plain(dsts, idx, srcs):
 
 
 MAX_SCATTER_TENSORS = 8  # scatter_rows.cu's table
+_SCATTER_ELEM_BYTES = (1, 4, 8)  # the element sizes its stores take
+
+
+class _ScatterTable(ctypes.Structure):
+    """scatter_rows.cu's ScatterTable: up to MAX_SCATTER_TENSORS
+    destinations (pointer, rows, elements a row, element size) and a
+    source for each (pointer, row stride in bytes; the staged entry fills
+    those itself)."""
+    _fields_ = [("dst", _VP * MAX_SCATTER_TENSORS), ("src", _VP * MAX_SCATTER_TENSORS),
+                ("src_stride", _CL * MAX_SCATTER_TENSORS), ("rows", _CL * MAX_SCATTER_TENSORS),
+                ("row_elems", _CL * MAX_SCATTER_TENSORS),
+                ("elem_bytes", _CI * MAX_SCATTER_TENSORS), ("n_dst", _CI)]
+
+
+def _scatter_table(dsts) -> _ScatterTable:
+    """The table over destinations that each have bytes (checked by the
+    caller: contiguous, on one device)."""
+    table = _ScatterTable(n_dst=len(dsts))
+    for e, d in enumerate(dsts):
+        if d.element_size() not in _SCATTER_ELEM_BYTES:
+            raise TypeError(f"scatter_rows: dtype {d.dtype} (elements of "
+                            f"{_SCATTER_ELEM_BYTES} bytes)")
+        table.dst[e], table.rows[e] = d.data_ptr(), d.shape[0]
+        table.row_elems[e], table.elem_bytes[e] = d.numel() // d.shape[0], d.element_size()
+    return table
+
+
+def _staged_layout(n: int, row_bytes) -> tuple[list[int], int]:
+    """The staged route's block (scatter_rows.cu `scatter_rows_staged`):
+    the ids, int64 [n], at offset 0, then each destination's n rows of
+    `row_bytes`, every segment at a 16-byte boundary; returns the
+    segments' offsets and the block's bytes."""
+    off, offs = -(-n * 8 // 16) * 16, []
+    for w in row_bytes:
+        offs.append(off)
+        off += -(-n * w // 16) * 16
+    return offs, off
 
 
 def scatter_rows(dsts, idx, srcs):
@@ -2082,7 +2125,8 @@ def scatter_rows(dsts, idx, srcs):
 
 
 def _scatter_rows_launch(dsts, idx, srcs):
-    """Check and launch scatter_rows_kernel: one launch for every tensor."""
+    """Check and launch scatter_rows_kernel over separate sources: one
+    launch for every tensor."""
     dev = idx.device
     n = idx.shape[0]
     _check("idx", idx, I64, (n,), dev)
@@ -2092,21 +2136,119 @@ def _scatter_rows_launch(dsts, idx, srcs):
     for e, (dst, src) in enumerate(zip(dsts, srcs)):
         _check(f"dst[{e}]", dst, dst.dtype, dst.shape, dev)
         _check(f"src[{e}]", src, dst.dtype, (n,) + tuple(dst.shape[1:]), dev)
-    # a row's bytes: its elements times the item size (rows of no bytes,
-    # a fleet without taints, have nothing to write)
-    pairs = [(d, x, d.numel() // d.shape[0] * d.element_size())
-             for d, x in zip(dsts, srcs) if d.numel()]
-    pairs = [p for p in pairs if p[2]]
+    # rows of no bytes (a fleet without taints) have nothing to write
+    pairs = [(d, x) for d, x in zip(dsts, srcs) if d.numel()]
     if n == 0 or not pairs:
         return
-    k = len(pairs)
-    dst_p = (_VP * k)(*(d.data_ptr() for d, _, _ in pairs))
-    src_p = (_VP * k)(*(x.data_ptr() for _, x, _ in pairs))
-    row_bytes = (ctypes.c_int64 * k)(*(w for _, _, w in pairs))
-    dst_rows = (ctypes.c_int64 * k)(*(d.shape[0] for d, _, _ in pairs))
+    table = _scatter_table([d for d, _ in pairs])
+    for e, (_, x) in enumerate(pairs):
+        table.src[e] = x.data_ptr()
+        table.src_stride[e] = table.row_elems[e] * table.elem_bytes[e]
     rc = _bind("scatter_rows", "scatter_rows_launch", _SCATTER_ROWS_ARGTYPES)(
-        dst_p, src_p, row_bytes, dst_rows, k, idx.data_ptr(), n, _stream(dev))
+        ctypes.byref(table), idx.data_ptr(), n, _stream(dev))
     _raise_on(rc, "scatter_rows")
+
+
+class FleetScatter:
+    """The dirty-column refresh of one placed fleet on the card, its host
+    work done once a placement. Built over the resident tensors (a mapping
+    of field name to tensor, each [rows, ...], contiguous, on one device),
+    which it checks once, with the ctypes table of those that have bytes
+    and the staged C entry bound once. `refresh(rows, fleet)` writes rows
+    `rows` (int64 ids, host) of the host arrays `getattr(fleet, name)`
+    into the tensors of the same names, in place, on the current stream:
+    the ids and the rows gathered straight into one freshly allocated host
+    block (pinned on a card; `_staged_layout`), one non-blocking copy to
+    the device, one C call (`scatter_rows_staged`), one scatter_rows
+    launch counted. No stream sync; a block is never reused by hand (the
+    caching host allocator keeps it until its copy is done). Readers that
+    hold the tensors see the new rows. `close()` retires the launcher when
+    its tensors are replaced: a closed launcher raises instead of writing.
+    For CPU tensors use `fleet_scatter`, which writes the same block
+    through the plain version."""
+
+    def __init__(self, dsts):
+        dsts = dict(dsts)
+        if not 0 < len(dsts) <= MAX_SCATTER_TENSORS:
+            raise ValueError(f"scatter_rows: {len(dsts)} destinations "
+                             f"(1 to {MAX_SCATTER_TENSORS})")
+        dev = next(iter(dsts.values())).device
+        for name, t in dsts.items():
+            _check(name, t, t.dtype, t.shape, dev)
+        self.device, self.closed = dev, False
+        # the fields with bytes (rows of no bytes, T = 0, have nothing to
+        # write): name, tensor, numpy dtype, a row's shape and bytes
+        self._fields = [
+            (name, t, torch.empty(0, dtype=t.dtype).numpy().dtype, tuple(t.shape[1:]),
+             t.numel() // t.shape[0] * t.element_size())
+            for name, t in dsts.items() if t.numel()]
+        self._row_bytes = [f[4] for f in self._fields]
+        self._table = _scatter_table([f[1] for f in self._fields]) if self._fields else None
+        self._ref = None if self._table is None else ctypes.byref(self._table)
+        self._pin = dev.type == "cuda"
+        self._bind()
+
+    def _bind(self) -> None:
+        self._fn = _bind("scatter_rows", "scatter_rows_staged", _SCATTER_ROWS_ARGTYPES)
+
+    def close(self) -> None:
+        self.closed = True
+
+    def stage(self, rows, fleet):
+        """The host block of one refresh (see `_staged_layout`) and its row
+        count; checks the arrays' dtypes and row shapes."""
+        rows = np.asarray(rows, np.int64)
+        n = rows.shape[0]
+        offs, nbytes = _staged_layout(n, self._row_bytes)
+        host = torch.empty(max(nbytes, 16), dtype=U8, pin_memory=self._pin)
+        view = host.numpy()
+        view[:n * 8].view(np.int64)[:] = rows
+        for (name, _, dt, tail, w), o in zip(self._fields, offs):
+            a = getattr(fleet, name)
+            if a.dtype != dt or a.shape[1:] != tail:
+                raise TypeError(f"scatter_rows: {name} is {a.dtype} {a.shape}, expected "
+                                f"{dt} [*, {', '.join(map(str, tail))}]")
+            np.take(a, rows, axis=0, out=view[o:o + n * w].view(dt).reshape((n,) + tail))
+        return host, n
+
+    def refresh(self, rows, fleet) -> None:
+        if self.closed:
+            raise RuntimeError("scatter_rows: the launcher's fleet tensors were replaced")
+        if len(rows) == 0 or not self._fields:
+            return
+        self._apply(*self.stage(rows, fleet))
+
+    def _apply(self, host, n: int) -> None:
+        staged = host.to(self.device, non_blocking=True)
+        rc = self._fn(self._ref, staged.data_ptr(), n, _stream(self.device))
+        _raise_on(rc, "scatter_rows")
+        _launched("scatter_rows")
+
+
+class _PlainFleetScatter(FleetScatter):
+    """The CPU refresh: FleetScatter's block, cut into views of the ids and
+    the rows, written by scatter_rows_plain."""
+
+    def _bind(self) -> None:
+        self._fn = None
+
+    def _apply(self, host, n: int) -> None:
+        offs, _ = _staged_layout(n, self._row_bytes)
+        srcs = [host[o:o + n * w].view(t.dtype).view((n,) + tail)
+                for (_, t, _, tail, w), o in zip(self._fields, offs)]
+        scatter_rows_plain([f[1] for f in self._fields], host[:n * 8].view(I64), srcs)
+
+
+def fleet_scatter(dsts) -> FleetScatter:
+    """A placed fleet's refresh launcher (see FleetScatter): the card's for
+    CUDA tensors, the plain version's (same methods, same block) for CPU
+    tensors."""
+    dev = next(iter(dict(dsts).values())).device
+    if dev.type == "cpu":
+        return _PlainFleetScatter(dsts)
+    if dev.type != "cuda":
+        raise ValueError(f"fleet_scatter: unsupported device {dev}")
+    return FleetScatter(dsts)
 
 
 def sim_filter(

@@ -738,6 +738,7 @@ class ArrayScheduler:
 
         self.mesh = mesh
         self._mesh_kernel = None
+        self._fleet_scatter = None  # the placed fleet's refresh launcher
         # as the reference: mesh rounds default to the partitioned mode
         # (not ported: the round raises); False selects the monolithic one
         self.mesh_partitioned = True
@@ -800,7 +801,9 @@ class ArrayScheduler:
         """Re-encode the fleet. With `dirty_names` (the clusters the caller
         knows changed since the last call), the dirty-column path re-encodes
         ONLY those clusters and writes their rows into the resident device
-        tensors in place (the scatter_rows kernel) — keeping the batch
+        tensors in place (one pinned upload and one scatter_rows launch
+        through the placement's `kernels.FleetScatter`, no stream sync, on
+        the current stream) — keeping the batch
         encoder's affinity masks and per-binding row cache alive — whenever
         the change is expressible that way; otherwise this falls back to
         the full rebuild. Either way the fleet epoch advances, so
@@ -866,12 +869,18 @@ class ArrayScheduler:
 
     def _place_fleet(self) -> None:
         """Upload the fleet tensors whole to the round's device (they live
-        there across rounds), and refresh the mesh kernel's column shards
-        when it exists."""
+        there across rounds) and bind the dirty-column refresh's launcher
+        to them (the previous one retired: its tensors are gone), and
+        refresh the mesh kernel's column shards when it exists."""
+        from .. import kernels
         from ..convert import batch_from_numpy
 
         self._fleet_dev = batch_from_numpy(
             {n: getattr(self.fleet, n) for n in _FLEET_FIELDS}, self.device)
+        if self._fleet_scatter is not None:
+            self._fleet_scatter.close()
+        self._fleet_scatter = kernels.fleet_scatter(
+            {n: self._fleet_dev[n] for n in _FLEET_FIELDS})
         if self._mesh_kernel is not None:
             self._mesh_kernel.set_fleet(self.fleet)
 
@@ -928,14 +937,9 @@ class ArrayScheduler:
             # encode_cols, the kept batch encoder — is the same
             self._place_fleet()
             return True
-        # the dirty rows into the resident tensors, in place, one launch
-        from .. import kernels
-        from ..convert import batch_from_numpy
-
-        rows = np.asarray(idx, np.int64)
-        src = batch_from_numpy({n: getattr(fleet, n)[rows] for n in _FLEET_FIELDS}, self.device)
-        kernels.scatter_rows([self._fleet_dev[n] for n in _FLEET_FIELDS],
-                             to_device(rows, self.device), [src[n] for n in _FLEET_FIELDS])
+        # the dirty rows into the resident tensors, in place: one pinned
+        # upload and one launch through the placement's launcher
+        self._fleet_scatter.refresh(np.asarray(idx, np.int64), fleet)
         return True
 
     def _max_rows_per_round(self, n_cols: int) -> int:

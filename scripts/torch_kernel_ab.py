@@ -64,13 +64,20 @@ each:
   `_tier_consume_launch`), captured at launch; and
   `kernels._tier_estimate_launch` in rows mode on seeded inputs at the
   flagship's shape (10 240 x 5 120, R = 4, a tier of 2 560 rows) with every
-  row's request distinct and with four requests.
+  row's request distinct and with four requests;
+- the dirty-column refresh's device step (`scatter_rows`) as the tree's
+  `_update_dirty_columns` makes it after encode_cols, at the churn width
+  (58 rows, 8 of them repeated, into seeded fleets at 5 120 columns): a
+  launcher's `refresh` (the rows gathered into one pinned block, one
+  upload, one launch) where the tree has `kernels.fleet_scatter`, else the
+  rows gathered per field, seven pageable uploads, the ids' upload and
+  `kernels.scatter_rows`.
 Beside each label's CUDA-event times it prints the device time per call
 under torch.profiler and the host's time to enqueue a call. chip_smoke's
 builders, seed 0. `--kernels` picks among candidate_select, group_score,
 packed_selection, combo_select, mask_step, sim_filter, fleet_estimate,
-dense_filter, candidate_tail, dense_input_filter, mesh_tile_filter and
-tier_estimate (with tier_consume; default: all).
+dense_filter, candidate_tail, dense_input_filter, mesh_tile_filter,
+tier_estimate (with tier_consume) and scatter_rows (default: all).
 Prints one JSON line: the tree, the card's nvidia-smi line, and per
 label the times in ms, the device and enqueue ms and a digest of the
 outputs (equal digests: equal outputs). Needs one CUDA card and nvcc.
@@ -106,7 +113,7 @@ TURNS = 2
 WIDE_CHUNK_BINDINGS = 6144  # the pipelined wide_40k chunk's rows
 KERNELS = ("candidate_select", "group_score", "packed_selection", "combo_select", "mask_step",
            "sim_filter", "fleet_estimate", "dense_filter", "candidate_tail", "dense_input_filter",
-           "mesh_tile_filter", "tier_estimate")
+           "mesh_tile_filter", "tier_estimate", "scatter_rows")
 TIER_DRAW = (10240, 5120, 4, 2560)  # B, C, R and the tier's rows of the seeded estimate draws
 INPUT_REPEATS = 4  # distinct rows of the repeated-row dense-input draw
 TAIL_KS = (8, 32, 100, 128)  # seeded windows' widths
@@ -449,6 +456,36 @@ def time_tier_estimate(dev, result):
         chip_smoke.log(f"{label} ({B} x {C}, R = {R}, {n} tier rows): {result[label]}")
 
 
+def time_scatter_rows(dev, result):
+    """The refresh's device step at the churn width (module docstring)."""
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(40)
+    C = chip_smoke.shape_bucket(chip_smoke.N_CLUSTERS)
+    dsts = chip_smoke.random_fleet(rng, dev, C)
+    fleet = SimpleNamespace(**{n: t.cpu().numpy() for n, t in zip(
+        chip_smoke.FLEET, chip_smoke.random_fleet(rng, dev, C))})
+    rows = rng.choice(C, chip_smoke.DIRTY_CLUSTERS, replace=False)
+    rows = np.concatenate([rows, rows[:8]]).astype(np.int64)
+    if hasattr(kernels, "fleet_scatter"):
+        launcher = kernels.fleet_scatter(dict(zip(chip_smoke.FLEET, dsts)))
+
+        def step():
+            launcher.refresh(rows, fleet)
+        route = "one pinned block, one upload, one launch"
+    else:
+        from karmada_tpu_torch.convert import batch_from_numpy
+        from karmada_tpu_torch.sched.core import to_device
+
+        def step():
+            src = batch_from_numpy({n: getattr(fleet, n)[rows] for n in chip_smoke.FLEET}, dev)
+            kernels.scatter_rows(dsts, to_device(rows, dev), [src[n] for n in chip_smoke.FLEET])
+        route = "seven pageable uploads, the ids' pinned upload, one launch"
+    label = "scatter_rows, churn_dirty refresh"
+    result[label] = timed(step, lambda: (step(), dsts)[1])
+    chip_smoke.log(f"{label} ({len(rows)} rows x C = {C}; {route}): {result[label]}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", default=",".join(KERNELS),
@@ -471,7 +508,8 @@ def main() -> int:
                      ("candidate_tail", time_candidate_tail),
                      ("dense_input_filter", time_dense_input_filter),
                      ("mesh_tile_filter", time_mesh_tile_filter),
-                     ("tier_estimate", time_tier_estimate)):
+                     ("tier_estimate", time_tier_estimate),
+                     ("scatter_rows", time_scatter_rows)):
         if name in which:
             fn(dev, result)
     print(json.dumps({"tree": os.getcwd(), "card": chip_smoke.nvidia_smi_line(),

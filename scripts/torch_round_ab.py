@@ -17,7 +17,12 @@ dense flagship's batch as its 24 dense arguments; each call timed by CUDA
 events, in seconds like the rounds), config 4 (bench.py build_spread),
 the drain cell (chip_smoke.build_drain: combo_select's cell), and
 config 2 and config 1 (bench.py build_static and build_dup3: small
-fleets, dense rounds of 100 x 1 000 and 3 x 100)
+fleets, dense rounds of 100 x 1 000 and 3 x 100), and churn_dirty (the
+churn fleet, 50 clusters changing status a round: set_clusters with
+dirty_names, then schedule_incremental; the refresh split at its
+encode_cols call into the dirty scan, encode_cols and the rest, the pack,
+upload and launch; then the refresh alone on an idle stream and behind
+QUEUED_WORK_MS of device work, torch.cuda._sleep, in turns)
 (chip_smoke's build_* functions, seed 0; the
 tier cells' round is launch_tiered + materialize_chunk), each round on
 the host clock around a synchronised call, with its split (ArrayScheduler
@@ -64,7 +69,9 @@ from karmada_tpu_torch.simulation.engine import Simulator  # noqa: E402
 ROUNDS = {"compact flagship": 30, "dense flagship": 30, "whatif": 20, "whatif_churn5k": 4,
           "estimator_flagship": 20, "config3": 30, "tiers_dense": 15, "tiers_compact": 15,
           "mesh_flagship": 20, "graft_flagship": 30, "config 4": 20, "drain": 20,
-          "config 2": 60, "config 1": 60}
+          "config 2": 60, "config 1": 60, "churn_dirty": 10}
+QUEUED_TURNS = 3  # churn_dirty: refreshes on an idle stream and behind queued work, each
+QUEUED_WORK_MS = 20.0
 # the kernels' wrappers, as the rounds call them
 TIMED = ("dense_tail", "sim_load", "sim_filter", "fleet_estimate", "dense_filter",
          "candidate_tail", "dense_input_filter", "mesh_tile_filter", "group_score",
@@ -251,6 +258,76 @@ def program_calls(args, rounds):
     return [s.elapsed_time(e) / 1e3 for s, e in spans], {}, per
 
 
+def split_refresh(sched, clusters, dirty):
+    """sched.set_clusters(clusters, dirty_names=dirty) on the host clock,
+    split at its encode_cols call: (dirty scan, encode_cols, the rest,
+    whole) in seconds."""
+    enc = sched.encoder
+    inner, marks = enc.encode_cols, []
+
+    def encode_cols(*a, **kw):
+        marks.append(time.perf_counter())
+        out = inner(*a, **kw)
+        marks.append(time.perf_counter())
+        return out
+
+    enc.encode_cols = encode_cols
+    try:
+        t0 = time.perf_counter()
+        sched.set_clusters(clusters, dirty_names=dirty)
+        t3 = time.perf_counter()
+    finally:
+        del enc.encode_cols
+    t1, t2 = marks
+    return t1 - t0, t2 - t1, t3 - t2, t3 - t0
+
+
+def dirty_rounds(clusters, bindings, rounds, dev):
+    """churn_dirty: a warm round, then `rounds` rounds (refresh, then
+    schedule_incremental) split dirty scan / encode_cols / the rest of the
+    refresh / the incremental round; then the refresh alone, QUEUED_TURNS
+    times in turns on an idle stream and behind QUEUED_WORK_MS of device
+    work (its host ms and that work's ms by events under "queued")."""
+    fleets = chip_smoke.status_churn(clusters, rounds + 1 + 2 * QUEUED_TURNS)
+    sched = ArrayScheduler(clusters, device=dev)
+    sched.schedule_incremental(bindings)
+    torch.cuda.synchronize()
+    times, split = [], []
+    with KernelEvents() as ev:
+        for live, dirty in fleets[:rounds + 1]:
+            parts = split_refresh(sched, live, dirty)
+            t0 = time.perf_counter()
+            sched.schedule_incremental(bindings)
+            torch.cuda.synchronize()
+            times.append(parts[3] + time.perf_counter() - t0)
+            split.append(parts[:3] + (time.perf_counter() - t0,))
+        per = ev.per_round(rounds + 1)
+    probe = 1_000_000
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(probe)
+    start.record()
+    torch.cuda._sleep(probe)
+    end.record()
+    torch.cuda.synchronize()
+    cycles = int(probe * QUEUED_WORK_MS / start.elapsed_time(end))
+    idle, queued, work = [], [], []
+    rest = fleets[rounds + 1:]
+    for k in range(0, len(rest), 2):
+        torch.cuda.synchronize()
+        idle.append(split_refresh(sched, *rest[k])[3] * 1e3)
+        torch.cuda.synchronize()
+        start.record()
+        torch.cuda._sleep(cycles)
+        queued.append(split_refresh(sched, *rest[k + 1])[3] * 1e3)
+        end.record()
+        torch.cuda.synchronize()
+        work.append(start.elapsed_time(end))
+    keys = ("dirty scan", "encode_cols", "the rest (pack, upload, launch)", "round")
+    out = dict(zip(keys, np.median(split[1:], 0).tolist()))
+    out["refresh ms, idle"], out["refresh ms, queued"], out["queued work ms"] = idle, queued, work
+    return times[1:], out, per
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cells", default=",".join(ROUNDS),
@@ -324,6 +401,10 @@ def main() -> int:
             args = graft_entry.schedule_args(sched, batch, dev)
             keep("graft_flagship", *program_calls(args, ROUNDS["graft_flagship"]))
             del sched, batch, args
+        del clusters, bindings
+    if "churn_dirty" in which:
+        clusters, bindings = chip_smoke.build_churn()
+        keep("churn_dirty", *dirty_rounds(clusters, bindings, ROUNDS["churn_dirty"], dev))
         del clusters, bindings
     print(json.dumps({"tree": os.getcwd(), "smi": chip_smoke.nvidia_smi_line(),
                       "cells": cells}), flush=True)

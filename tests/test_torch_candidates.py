@@ -445,10 +445,10 @@ def test_select_launch_takes_any_width(C, wide, fake_card):
 
 
 def test_scatter_rows_launch_marshals_every_tensor(fake_card):
-    """B17's launch passes one (dst, src, row bytes, rows) entry per
-    tensor with bytes, skips rows of no bytes, and checks its inputs."""
-    import ctypes
-
+    """B17's launch over separate sources passes one ScatterTable (each
+    tensor with bytes: pointer, rows, elements a row, element size, its
+    source and row stride), the ids and n; skips rows of no bytes, and
+    checks its inputs."""
     C, n = 64, 5
     dsts = [torch.zeros(C, dtype=torch.bool), torch.zeros((C, 4), dtype=torch.int64),
             torch.zeros((C, 3), dtype=torch.int32), torch.zeros((C, 0), dtype=torch.int32)]
@@ -457,11 +457,148 @@ def test_scatter_rows_launch_marshals_every_tensor(fake_card):
     kernels._scatter_rows_launch(dsts, idx, srcs)
     (name, cargs), = fake_card
     assert name == "scatter_rows_launch"
-    row_bytes = ctypes.cast(cargs[2], ctypes.POINTER(ctypes.c_int64))
-    assert [row_bytes[i] for i in range(cargs[4])] == [1, 32, 12]
-    assert cargs[6] == n
+    table = cargs[0]._obj
+    k = table.n_dst
+    assert k == 3 and cargs[1:3] == (idx.data_ptr(), n)
+    assert list(table.dst[:k]) == [d.data_ptr() for d in dsts[:3]]
+    assert list(table.src[:k]) == [x.data_ptr() for x in srcs[:3]]
+    assert list(table.rows[:k]) == [C] * 3
+    assert list(table.row_elems[:k]) == [1, 4, 3]
+    assert list(table.elem_bytes[:k]) == [1, 8, 4]
+    assert list(table.src_stride[:k]) == [1, 32, 12]
     with pytest.raises(TypeError, match="dtype"):
         kernels._scatter_rows_launch(dsts[:1], idx, [srcs[1]])
+    with pytest.raises(TypeError, match="dtype"):  # no 2-byte stores
+        kernels._scatter_rows_launch([torch.zeros(C, dtype=torch.int16)], idx,
+                                     [torch.ones(n, dtype=torch.int16)])
+
+
+class _StagedLib:
+    """A kernel library whose `scatter_rows_staged` records its call and
+    does on the host what the C entry does: reads the table, finds the ids
+    and each destination's rows in the staged block (the ids at 0, each
+    segment at a 16-byte boundary, in table order) and writes the rows
+    whose id is in range."""
+
+    def __init__(self, calls):
+        self._calls = calls
+
+    def __getattr__(self, name):
+        import ctypes
+
+        def staged(ref, staging, n, stream):
+            self._calls.append((name, (ref, staging, n, stream)))
+            t = ref._obj
+
+            def at(addr, nbytes):
+                return np.ctypeslib.as_array((ctypes.c_uint8 * nbytes).from_address(addr))
+
+            ids = at(staging, 8 * n).view(np.int64)
+            off = -(-8 * n // 16) * 16
+            for e in range(t.n_dst):
+                w = t.row_elems[e] * t.elem_bytes[e]
+                seg = at(staging + off, n * w).reshape(n, w)
+                dst = at(t.dst[e], t.rows[e] * w).reshape(t.rows[e], w)
+                for i, r in enumerate(ids):
+                    if 0 <= r < t.rows[e]:
+                        dst[r] = seg[i]
+                off += -(-n * w // 16) * 16
+            return 0
+
+        assert name == "scatter_rows_staged"
+        return staged
+
+
+@pytest.fixture()
+def staged_card(fake_card, monkeypatch):
+    """fake_card with the staged entry done on the host; every placement
+    builds the card's launcher (`kernels.FleetScatter`) over the CPU
+    tensors, and each build is recorded."""
+    from karmada_tpu_torch.kernels import build
+
+    monkeypatch.setattr(build, "library", lambda name: _StagedLib(fake_card))
+    built = []
+
+    def card_launcher(dsts):
+        built.append(kernels.FleetScatter(dsts))
+        return built[-1]
+
+    monkeypatch.setattr(kernels, "fleet_scatter", card_launcher)
+    return fake_card, built
+
+
+def test_fleet_scatter_one_call_per_refresh(staged_card):
+    """The card's refresh launcher: one refresh is one C call
+    (`scatter_rows_staged`: the bound table, the staged block, n, the
+    stream) and one scatter_rows launch counted; its table holds the
+    resident tensors with bytes (T = 0 left out); the block it stages
+    lands where the C entry reads it; refreshes of nothing call nothing; a
+    closed launcher raises."""
+    from types import SimpleNamespace
+
+    from test_torch_incremental import random_fleet_arrays
+
+    calls, _ = staged_card
+    rng = np.random.default_rng(3)
+    C = 29
+    base, new = random_fleet_arrays(rng, C, 5, 0, 3), random_fleet_arrays(rng, C, 5, 0, 3)
+    dsts = {n: torch.from_numpy(a.copy()) for n, a in base.items()}
+    launcher = kernels.FleetScatter(dsts)
+    assert launcher._table.n_dst == 4  # the three taint fields have no bytes
+    assert list(launcher._table.dst[:4]) == [dsts[n].data_ptr() for n in (
+        "alive", "capacity", "has_summary", "api_ok")]
+    kernels.reset_launches()
+    rows = np.array([C - 1, 4, 0, 4], np.int64)
+    launcher.refresh(rows, SimpleNamespace(**new))
+    (name, (ref, staging, n, _)), = calls
+    assert name == "scatter_rows_staged" and ref._obj is launcher._table and n == 4
+    assert kernels.launch_counts()["scatter_rows"] == 1
+    for f, a in base.items():
+        want = a.copy()
+        want[rows] = new[f][rows]
+        np.testing.assert_array_equal(dsts[f].numpy(), want, f)
+    launcher.refresh(np.zeros(0, np.int64), SimpleNamespace(**new))
+    assert len(calls) == 1 and kernels.launch_counts()["scatter_rows"] == 1
+    launcher.close()
+    with pytest.raises(RuntimeError, match="replaced"):
+        launcher.refresh(rows, SimpleNamespace(**new))
+    assert len(calls) == 1
+
+
+def test_fleet_scatter_bound_once_per_placement(staged_card):
+    """On a scheduler, the refresh launcher is built (its tensors checked,
+    its table made) once per placement: dirty refreshes reuse it, one C
+    call each, writing the resident tensors to a full re-encode; a full
+    rebuild places new tensors and binds a new launcher to them, and the
+    old one, retired, raises instead of writing."""
+    import copy
+
+    from karmada_tpu.testing.fixtures import synthetic_fleet
+
+    calls, built = staged_card
+    clusters = synthetic_fleet(12, seed=4)
+    port = TorchScheduler(from_reference_objects(clusters), device="cpu")
+    assert built == [port._fleet_scatter]
+    first = built[0]
+    live = clusters
+    for step in range(3):
+        live = list(live)
+        c = copy.deepcopy(live[step + 2])
+        c.status.resource_summary.allocated["cpu"] = 1.5 + step
+        live[step + 2] = c
+        port.set_clusters(from_reference_objects(live), dirty_names={c.name})
+        assert len(built) == 1 and len(calls) == step + 1
+        full = port.encoder.encode(port.clusters)
+        for n in tcore._FLEET_FIELDS:
+            np.testing.assert_array_equal(port._fleet_dev[n].numpy(), getattr(full, n), n)
+    fleet_before = port.fleet
+    port.set_clusters(from_reference_objects(live))  # full rebuild: no dirty names
+    assert len(built) == 2 and port._fleet_scatter is built[1] and first.closed
+    assert list(built[1]._table.dst[:built[1]._table.n_dst]) == [
+        port._fleet_dev[n].data_ptr() for n in tcore._FLEET_FIELDS if port._fleet_dev[n].numel()]
+    with pytest.raises(RuntimeError, match="replaced"):
+        first.refresh(np.array([0], np.int64), fleet_before)
+    assert len(calls) == 3
 
 
 # --------------------------------------------------------------------------

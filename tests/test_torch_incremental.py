@@ -162,17 +162,18 @@ def _status_change(clusters, i, cpu=77.0, ready_flip=False, taint=False):
 def test_cluster_status_change_takes_dirty_column_path(fleet, monkeypatch):
     """Status-only deltas (allocated cpu, Ready flipping, a taint gained)
     take the dirty path: the batch encoder survives, the epoch advances,
-    the rows go into the resident tensors through one scatter_rows call,
-    those tensors equal a full encode, and every row re-solves to the
-    decisions of a fresh scheduler and of the JAX round."""
+    the rows go into the resident tensors through one refresh of the
+    placement's launcher (one plain scatter of the staged block on the
+    CPU), those tensors equal a full encode, and every row re-solves to
+    the decisions of a fresh scheduler and of the JAX round."""
     clusters, names = fleet
     bindings = jinc.mixed_bindings(names)
     jref, port = jcore.ArrayScheduler(clusters), TorchScheduler(conv(clusters), device="cpu")
     pb = conv(bindings)
     _round(jref, port, bindings, pb)
     scatters = []
-    scatter = kernels.scatter_rows
-    monkeypatch.setattr(kernels, "scatter_rows",
+    scatter = kernels.scatter_rows_plain
+    monkeypatch.setattr(kernels, "scatter_rows_plain",
                         lambda *a: (scatters.append(len(a[1])), scatter(*a))[1])
     live = clusters
     for step, kw in enumerate(({}, {"ready_flip": True}, {"taint": True, "cpu": 5.0})):
@@ -242,3 +243,144 @@ def test_scatter_rows_plain_matches_reference(dtype):
         got = kernels.scatter_rows([torch.from_numpy(dst.copy())], torch.from_numpy(idx),
                                    [torch.from_numpy(src)])
         np.testing.assert_array_equal(got[0].numpy(), want)
+
+
+_FIELDS = ("alive", "capacity", "has_summary", "taint_key", "taint_value", "taint_effect",
+           "api_ok")
+
+
+def random_fleet_arrays(rng, C, R, T, G):
+    """Seeded host arrays of the seven resident fields (bool, int64, int32
+    rows), as FleetArrays lays them out."""
+    return {
+        "alive": rng.random(C) < 0.8,
+        "capacity": rng.integers(-(1 << 40), 1 << 40, (C, R)).astype(np.int64),
+        "has_summary": rng.random(C) < 0.9,
+        "taint_key": rng.integers(0, 9, (C, T)).astype(np.int32),
+        "taint_value": rng.integers(0, 9, (C, T)).astype(np.int32),
+        "taint_effect": rng.integers(0, 4, (C, T)).astype(np.int32),
+        "api_ok": rng.random((C, G)) < 0.7,
+    }
+
+
+def _dirty_rows(kind, C, rng):
+    return {
+        "one": np.array([C // 2]),
+        "last": np.array([C - 1, 0]),
+        "some": np.sort(rng.choice(C, 9, replace=False)),
+        "repeated": np.array([7, 3, 7, C - 1, 3, 7]),  # a repeat carries the same row
+        "every": np.arange(C),
+    }[kind].astype(np.int64)
+
+
+@pytest.mark.parametrize("kind", ["one", "last", "some", "repeated", "every"])
+@pytest.mark.parametrize("R,T,G", [(1, 0, 5), (5, 3, 7), (5, 0, 1), (1, 3, 3)])
+def test_fleet_scatter_refresh_matches_reference(R, T, G, kind):
+    """The refresh launcher's CPU route: the staged block round-trips (the
+    ids, then each field's rows, every segment at a 16-byte boundary,
+    fields of no bytes left out), and a refresh equals scatter_rows_plain
+    and the reference's `_scatter_rows_kernel` on every field, for bool,
+    int32 and int64 rows, R = 1 and 5, T = 0 and 3, odd G, one row, the
+    last row, repeated ids and every row."""
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(R * 100 + T * 10 + G)
+    C = 37
+    base, new = random_fleet_arrays(rng, C, R, T, G), random_fleet_arrays(rng, C, R, T, G)
+    rows = _dirty_rows(kind, C, rng)
+    dsts = {n: torch.from_numpy(base[n].copy()) for n in _FIELDS}
+    launcher = kernels.fleet_scatter(dsts)
+    fleet = SimpleNamespace(**new)
+
+    host, n = launcher.stage(rows, fleet)
+    kept = [f for f in _FIELDS if new[f].size]
+    widths = [new[f][0].nbytes for f in kept]
+    offs, nbytes = kernels._staged_layout(n, widths)
+    assert n == len(rows) and host.numel() >= nbytes
+    assert all(o % 16 == 0 for o in offs) and offs[0] >= 8 * n
+    raw = host.numpy()
+    np.testing.assert_array_equal(raw[:8 * n].view(np.int64), rows)
+    for f, o, w in zip(kept, offs, widths):
+        seg = raw[o:o + n * w].view(new[f].dtype).reshape((n,) + new[f].shape[1:])
+        np.testing.assert_array_equal(seg, new[f][rows], f)
+
+    launcher.refresh(rows, fleet)
+    plain = kernels.scatter_rows_plain([torch.from_numpy(base[f].copy()) for f in _FIELDS],
+                                       torch.from_numpy(rows),
+                                       [torch.from_numpy(new[f][rows]) for f in _FIELDS])
+    for f, p in zip(_FIELDS, plain):
+        want = np.asarray(jcore._scatter_rows_kernel(base[f].copy(), rows, new[f][rows]))
+        np.testing.assert_array_equal(dsts[f].numpy(), want, f)
+        np.testing.assert_array_equal(p.numpy(), want, f)
+    with pytest.raises(TypeError, match="capacity"):
+        launcher.refresh(rows, SimpleNamespace(**{**new, "capacity": new["capacity"][:, :0]
+                                                  if R > 1 else new["capacity"] != 0}))
+    launcher.close()
+    with pytest.raises(RuntimeError, match="replaced"):
+        launcher.refresh(rows, fleet)
+
+
+def _status_edit(clusters, name, *, cpu=None, ready=None, taints=None, alloc=None):
+    out = list(clusters)
+    i = next(j for j, c in enumerate(out) if c.name == name)
+    c = copy.deepcopy(out[i])
+    if cpu is not None:
+        c.status.resource_summary.allocated["cpu"] = cpu
+    if alloc is not None:
+        c.status.resource_summary.allocatable["cpu"] = alloc
+    if ready is not None:
+        c.status.conditions[0].status = ready
+    if taints is not None:
+        c.spec.taints = taints
+    out[i] = c
+    return out
+
+
+def test_dirty_round_sequence_matches_reference(fleet, monkeypatch):
+    """A sequence of heartbeat rounds through the dirty-column path on the
+    port's CPU scheduler and the reference: Ready flips both ways, a taint
+    gained then replaced, capacity drift (allocated and allocatable),
+    spurious dirt (an unchanged cluster named dirty; a name outside the
+    fleet), and a dirty set covering the whole fleet. Every round keeps
+    the batch encoder, refreshes through one plain scatter of the staged
+    block (none when nothing re-encodes), leaves the resident tensors
+    equal to a full re-encode and decides as the reference and a fresh
+    scheduler."""
+    clusters, names = fleet
+    bindings = jinc.mixed_bindings(names)
+    jref, port = jcore.ArrayScheduler(clusters), TorchScheduler(conv(clusters), device="cpu")
+    pb = conv(bindings)
+    _round(jref, port, bindings, pb)
+    encoder, launcher = port.batch_encoder, port._fleet_scatter
+    scatters = []
+    scatter = kernels.scatter_rows_plain
+    monkeypatch.setattr(kernels, "scatter_rows_plain",
+                        lambda *a: (scatters.append(len(a[1])), scatter(*a))[1])
+    churn = Taint(key="churn", value="x", effect="NoSchedule")
+    steps = [
+        ({names[2]: {"ready": "False"}, names[5]: {"cpu": 3.0}}, 2),
+        ({names[2]: {"ready": "True"}, names[9]: {"taints": [churn]}}, 2),
+        ({names[9]: {"taints": [Taint(key="churn", value="y", effect="NoExecute")]},
+          names[11]: {"alloc": 5.0, "cpu": 4.5}}, 2),
+        ({names[0]: {}}, 1),  # named dirty, unchanged
+        ({"no-such-cluster": {}}, 0),  # nothing re-encodes
+        ({n: ({"cpu": float(i % 7)} if i % 3 == 0 else {}) for i, n in enumerate(names)},
+         len(names)),
+    ]
+    live = clusters
+    for edits, n_rows in steps:
+        for name, kw in edits.items():
+            if name in names and kw:
+                live = _status_edit(live, name, **kw)
+        epoch, calls = port.fleet_epoch, len(scatters)
+        jref.set_clusters(live, dirty_names=set(edits))
+        port.set_clusters(conv(live), dirty_names=set(edits))
+        assert port.batch_encoder is encoder and port._fleet_scatter is launcher
+        assert port.fleet_epoch == epoch + 1
+        assert scatters[calls:] == ([n_rows] if n_rows else [])
+        full = port.encoder.encode(port.clusters)
+        for n in _FIELDS:
+            np.testing.assert_array_equal(port._fleet_dev[n].numpy(), getattr(full, n), n)
+        assert _round(jref, port, bindings, pb)["solved"] == len(bindings)
+        fresh = TorchScheduler(conv(live), device="cpu").schedule(pb)
+        assert _views(port.schedule_incremental(pb)) == _views(fresh)

@@ -124,6 +124,15 @@ def launch_scatter_rows():
     kernels._scatter_rows_launch(dst, torch.tensor([1, 4]), [torch.ones((2, 3), dtype=torch.int64)])
 
 
+def launch_fleet_scatter():
+    from types import SimpleNamespace
+
+    dsts = {"alive": torch.zeros(10, dtype=torch.bool),
+            "capacity": torch.zeros((10, 3), dtype=torch.int64)}
+    fleet = SimpleNamespace(alive=np.ones(10, bool), capacity=np.ones((10, 3), np.int64))
+    kernels.FleetScatter(dsts).refresh(np.array([1, 4]), fleet)
+
+
 def launch_sim_filter():
     a = chip_smoke.random_sim_inputs(np.random.default_rng(6), CPU, 2, 6, 100, True)
     kernels._sim_filter_launch(*a, plugin_bits=31)
@@ -152,6 +161,7 @@ WRAPPERS = {
     launch_tier_estimate: ("tiers", "tier_estimate_round"),
     launch_staleness: ("staleness", "staleness_launch"),
     launch_scatter_rows: ("scatter_rows", "scatter_rows_launch"),
+    launch_fleet_scatter: ("scatter_rows", "scatter_rows_staged"),
     launch_sim_filter: ("dense_filter", "sim_filter_launch"),
     launch_dense_input_filter: ("dense_filter", "dense_input_filter_launch"),
     launch_mesh_tile_filter: ("dense_filter", "mesh_tile_filter_launch"),
@@ -210,6 +220,7 @@ def test_every_c_entry_has_a_bound_prototype():
         "tier_consume_round": kernels._CONSUME_ROUND_ARGTYPES,
         "staleness_launch": kernels._STALENESS_ARGTYPES,
         "scatter_rows_launch": kernels._SCATTER_ROWS_ARGTYPES,
+        "scatter_rows_staged": kernels._SCATTER_ROWS_ARGTYPES,
         "sim_filter_launch": kernels._SIM_FILTER_ARGTYPES,
         "dense_input_filter_launch": kernels._DENSE_INPUT_FILTER_ARGTYPES,
         "mesh_tile_filter_launch": kernels._MESH_TILE_FILTER_ARGTYPES,
