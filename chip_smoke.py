@@ -1,6 +1,6 @@
 """On-card smoke test of the PyTorch/CUDA port (karmada_tpu_torch).
 
-    python3 chip_smoke.py [--only kernels|sim|graft|mesh|tiers|refresh]
+    python3 chip_smoke.py [--only kernels|sim|graft|mesh|tiers|refresh|daemon]
 
 Needs one CUDA card (an H100 is the target) and nvcc; exits non-zero with no
 result line otherwise. Phases, each of which raises on failure:
@@ -145,11 +145,11 @@ result line otherwise. Phases, each of which raises on failure:
    BASELINE config 4 (bench.py build_spread: region spread over 5 000
    clusters x 5 000 bindings) and config 4b (build_spread_skewed); config
    4's mix with affinities of 64 clusters (the window cell: solved in the
-   candidate window; 8 timed rounds, the others 20); and the drain cell (a synthetic cell built to cross
+   candidate window; 3 timed rounds, the others 6); and the drain cell (a synthetic cell built to cross
    combo_select's 4 096-distinct-row gate: config 4's fleet, 5 000
    bindings under one region-spread policy, each evicting a cluster in
    each of its own random half of the regions); every spread cell with
-   its exact launches per round; then the tier cells, 20 rounds each:
+   its exact launches per round; then the tier cells, 6 rounds each:
    tiers_dense (the flagship batch at four priorities, one row in 16
    PreemptLowerPriority, over the flagship fleet tightened so the divided
    rows ask 1.5x its free cpu: preemption.launch_tiered +
@@ -171,7 +171,7 @@ result line otherwise. Phases, each of which raises on failure:
    and tiers_estimator (the tiers_compact batch with answers through
    launch_tiered, a speculative pass in every tier; one round's
    tier_estimate and tier_consume launches held against their plain
-   versions, tier_consume's timed as in phase 3), 20 rounds each, the
+   versions, tier_consume's timed as in phase 3), 6 rounds each, the
    profiled round's device time also by event; answer matrices held
    against the per-cluster host path, decisions against the CPU round
    given the same answers; then the chunk surface:
@@ -185,7 +185,7 @@ result line otherwise. Phases, each of which raises on failure:
    refresh under set_sync_debug_mode("error"), and its host time with
    20 ms of device work queued ahead beside an idle stream's), pipeline (the churn round at
    a B*C/8 budget: the serial leg, the scheduler's default, and the
-   pipelined leg, 3 interleaved runs each, stage seconds and overlap
+   pipelined leg, 2 interleaved runs each, stage seconds and overlap
    ratio; then one pipelined round under a side stream with estimator
    answers and ordered affinity terms, whose retries upload on the writer
    thread), wide_40k (the
@@ -205,7 +205,30 @@ result line otherwise. Phases, each of which raises on failure:
    first drain, loss and capacity scenario held against a cold dense
    ArrayScheduler round on the card, a 256-row sample of every outcome
    against the CPU Simulator, the round's breakdown) and preflight
-   (QuotaPreflight's deny and allow on the card, as on the CPU);
+   (QuotaPreflight's deny and allow on the card, as on the CPU); then the
+   scheduler daemon on the port's own Store and Runtime: daemon_flagship
+   (the compact flagship's 5 000 clusters and 10 000 bindings in a Store
+   under SchedulerDaemon on the card: the prewarm, the cold
+   Runtime.settle(), five churn settles with 5 % of the bindings drifting
+   their replicas, one heartbeat settle after 2 clusters' status writes —
+   _on_cluster, set_clusters(dirty_names=) and one scatter_rows — and one
+   churn settle under a side stream; each round's e2e, stage seconds,
+   replayed / solved and jit_compiles (0 in every round), every binding
+   against a direct schedule() on the card, a 2 000-row sample against the
+   cpu round), daemon_stream (the same bindings created by a feeder thread
+   in 20 bursts of 500, 50 ms apart, admitted by
+   daemon.streaming().serve(quiescent=True): micro-batch sizes, placement
+   latency p50 / p99, stale discards, jit_compiles; every placement equal
+   to daemon_flagship's cold round) and daemon_tiers (the tiers_compact
+   batch under the PriorityBasedScheduling gate with preemption on: one
+   round through launch_tiered, its decisions against a direct
+   launch_tiered + materialize_chunk of the same batch, its preemption
+   plans against plan_preemption on the same snapshot and the committed
+   victim cuts against the graceful-eviction tasks in the store; then
+   preempt_plan's recipe through a daemon, daemon_preempt: its placed
+   bindings already scheduled in the store, the 256 preemptors arriving
+   at 0.25 cpu free a cluster, one round whose preemption pass must
+   commit, held the same way, each preemptor at its plan's targets);
 5. every kernel's launches over every main path's rounds, the `kernels`
    JSON line, then the card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
@@ -216,7 +239,7 @@ phases 3 and 4, `graft` those of the dense-input program and the scheduler
 shim, `mesh` those of the mesh solve (with the single-device dense
 flagship round they are held against), `tiers` the tier kernels' checks of
 phase 3, `refresh` scatter_rows' check of phase 3 and the churn_dirty cell
-with the refresh's checks.
+with the refresh's checks, `daemon` the three daemon cells of phase 4.
 """
 from __future__ import annotations
 
@@ -264,6 +287,9 @@ from karmada_tpu_torch.api.simulation import (
     Scenario,
 )
 from karmada_tpu_torch.api.work import (
+    CONDITION_SCHEDULED,
+    EVICTION_REASON_PREEMPTED,
+    POLICY_PLACEMENT_ANNOTATION,
     BindingSpec,
     GracefulEvictionTask,
     ObjectReference,
@@ -279,6 +305,7 @@ from karmada_tpu_torch.estimator.client import (
     distinct_requests,
 )
 from karmada_tpu_torch.faults import BreakerRegistry
+from karmada_tpu_torch.features import PRIORITY_BASED_SCHEDULING, FeatureGates
 from karmada_tpu_torch.kernels import build
 from karmada_tpu_torch.models.batch import (
     AGGREGATED,
@@ -302,11 +329,15 @@ from karmada_tpu_torch.sched.core import (
     _schedule_body,
     _schedule_kernel,
     _sorted_pairs,
+    unpack_row,
 )
 from karmada_tpu_torch.server.scheduler_shim import SchedulerShimServer, decision_json
 from karmada_tpu_torch.simulation import Simulator, apply_scenario_objects
 from karmada_tpu_torch.simulation.preflight import QuotaPreflight
 from karmada_tpu_torch.parallel.mesh import Mesh, MeshScheduleKernel, make_mesh
+from karmada_tpu_torch.runtime.controller import Runtime
+from karmada_tpu_torch.sched.scheduler import SchedulerDaemon, placement_json
+from karmada_tpu_torch.store.store import Store
 from karmada_tpu_torch.sched.pipeline import StageTimer
 from karmada_tpu_torch.testing.cpumesh import virtual_mesh
 from karmada_tpu_torch.testing.shim_contract import CONTRACT_CASES
@@ -328,9 +359,14 @@ ALU_OPS_PER_S = 67e12
 N_CLUSTERS = 5000
 N_BINDINGS = 10000
 TIMED_ROUNDS = 60  # p90 then has 6 samples beyond it (110 until the simulation cells)
-VARIANT_ROUNDS = 20  # timed rounds of the whole-fleet Duplicated variant
-SPREAD_ROUNDS = 20  # timed rounds of each spread cell but the window cell
-WINDOW_ROUNDS = 8  # the window cell's (about 4.7 s a round, host-bound: the run's time limit)
+VARIANT_ROUNDS = 10  # timed rounds of the whole-fleet Duplicated variant
+# the timed rounds of the cells below were cut (spread, tier and estimator
+# cells 20 to 6, the window cell 8 to 3, churn, whatif and the whole-fleet
+# Duplicated variant 20 to 10, whatif_churn5k and wide_40k 3 to 2, the
+# pipeline's runs 3 to 2) to keep the whole run inside its time budget when
+# the daemon cells came
+SPREAD_ROUNDS = 6  # timed rounds of each spread cell but the window cell
+WINDOW_ROUNDS = 3  # the window cell's (about 4.7 s a round, host-bound: the run's time limit)
 SPREAD_BINDINGS = 5000  # BASELINE config 4: 5k clusters x 5k bindings
 WINDOW_BINDINGS = 1000
 WINDOW_NAMES = 64  # clusters named by each window-cell affinity
@@ -340,11 +376,11 @@ COMBO_SCRATCH_ROWS = 512  # rows of the combo_select check past its shared-memor
 SELECTION_EDGE_WIDTHS = (4999, 5008, 13, 1)  # packed_selection: no multiple of 32 (5 008 of 16)
 SELECTION_WIDE_REGIONS = 60_000  # its choice read in place (past 48 KB a row)
 WIDE_C = 16384  # the dense tail's and group_score's width check
-TIER_ROUNDS = 20  # timed rounds of each tier cell
+TIER_ROUNDS = 6  # timed rounds of each tier cell
 CONFIG3_CLUSTERS = 1000  # BASELINE config 3: 1k clusters x 1k bindings
 CONFIG3_BINDINGS = 1000
 CONFIG3_ROUNDS = 60
-ESTIMATOR_ROUNDS = 20  # timed rounds of estimator_flagship, degraded and tiers_estimator
+ESTIMATOR_ROUNDS = 6  # timed rounds of estimator_flagship and degraded
 DEGRADED_CLUSTERS = 500
 DEGRADED_BINDINGS = 1000
 ESTIMATOR_FIXTURE = (5000, 100_000)  # server_test.go's 5 000 nodes / 100 000 pods
@@ -353,18 +389,18 @@ PLAIN_ESTIMATE_ROWS = 256  # row chunk of the plain fleet estimate on the card
 TIER_PRIORITIES = (0, 1000, 100000, 1000000)
 PREEMPTORS = 256
 PREEMPT_FREE_CPU = 0.25  # bench.py run_preempt's preempt leg: 0.25 cpu free per cluster
-CHURN_ROUNDS = 20  # timed rounds of the churn cell
+CHURN_ROUNDS = 10  # timed rounds of the churn cell
 CHUNK_ROUNDS = 10  # timed rounds of churn_incremental, churn_dirty and flagship_k256
 INCREMENTAL_DIRTY = 0.05  # config 5b: 5 % of the bindings dirtied per round
 DIRTY_CLUSTERS = 50  # churn_dirty: 1 % of the fleet changes status per round
 QUEUED_REFRESH_TURNS = 3  # churn_dirty: refreshes on an idle stream and behind queued work
 QUEUED_WORK_MS = 20.0  # the device work queued ahead of those refreshes
-PIPELINE_RUNS = 3  # runs of each pipeline leg, interleaved
+PIPELINE_RUNS = 2  # runs of each pipeline leg, interleaved
 RETRY_EVERY = 8  # one churn binding in 8 under ordered affinity terms (pipeline cell)
 PIPELINE_ROUNDS = 5  # timed rounds per run
 WIDE_CLUSTERS = 20_000  # the reference's 40k x 20k scale point
 WIDE_BINDINGS = 40_000
-WIDE_ROUNDS = 3
+WIDE_ROUNDS = 2
 WIDE_SAMPLE = 2048  # wide_40k rows held against the cpu round
 WIDE_TAIL_KS = (192, 256, 512)  # the K > 128 tail's random checks
 WIDE_TAIL_ROWS = 2048
@@ -378,11 +414,11 @@ SYNC_CHECK_SAMPLE = 64  # the sync check compares one row in 64 whole
 WHATIF_CLUSTERS = 500  # bench.py:521 build_whatif's defaults
 WHATIF_BINDINGS = 1000
 WHATIF_SCENARIOS = 16
-WHATIF_ROUNDS = 20
+WHATIF_ROUNDS = 10
 SIM_SPREAD_ROWS = 32  # whatif_mixed's region-spread rows (the fallback)
 CHURN5K_CLUSTERS = N_CLUSTERS  # build_whatif at BASELINE config 5's size
 CHURN5K_BINDINGS = N_BINDINGS
-CHURN5K_ROUNDS = 3
+CHURN5K_ROUNDS = 2
 CHURN5K_SAMPLE = 256  # whatif_churn5k rows held against the cpu Simulator
 # sim_filter / sim_load's seeded checks (S, B, C, with answers): the whatif
 # solve's shape and one whatif_churn5k chunk's
@@ -399,6 +435,15 @@ MESH_GRIDS = ((2, 2), (2, 3))  # the tile filter's random cuts; 2 x 3 pads C to 
 MESH_SHIFT = 2  # columns the shifted 2 x 2 cut moves its tiles (first columns off a multiple of 4)
 MESH_ROUNDS = 10  # timed rounds of mesh_flagship
 MESH_SAMPLE = 2000  # mesh_flagship rows held against the cpu mesh round
+DAEMON_CHURN_ROUNDS = 5  # daemon_flagship's churn settles (5 % of the bindings drift each)
+# daemon_flagship's heartbeat: clusters whose status changes, cut from
+# churn_dirty's 50 — each cluster event re-lists all 10 000 bindings in
+# _on_cluster (the reference's fan-out), about 4.7 s a cluster on the card's
+# host
+HEARTBEAT_CLUSTERS = 2
+DAEMON_SAMPLE = 2000  # daemon_flagship's cold-round rows held against the cpu round
+STREAM_BURSTS = 20  # daemon_stream: 10 000 bindings arrive in 20 bursts of 500
+STREAM_GAP_S = 0.05  # 50 ms apart
 DEVICE = "cuda"
 
 FLEET = ("alive", "capacity", "has_summary", "taint_key", "taint_value", "taint_effect", "api_ok")
@@ -1225,6 +1270,80 @@ def decision_view(d):
             list(d.feasible), None if spec is None else decision_view(spec))
 
 
+_NAMES = {}  # a fleet's names, as a tuple -> a small id (dict lookups compare contents)
+_NAMES_OF = {}  # id(names list) -> (the list, its small id)
+
+
+def _names_id(names) -> int:
+    hit = _NAMES_OF.get(id(names))
+    if hit is None or hit[0] is not names:
+        hit = (names, _NAMES.setdefault(tuple(names), len(_NAMES)))
+        _NAMES_OF[id(names)] = hit
+    return hit[1]
+
+
+def _target_arrays(d):
+    """(names, cluster indices, replicas) of a decision's targets from the
+    decode's arrays, without building the TargetCluster list; None when
+    the targets were assigned as a list."""
+    src = d._targets_src
+    if src is None:
+        return None
+    if src[0] == "pairs":
+        _, names, idxs, reps = src
+        return names, np.asarray(idxs, np.int64), np.asarray(reps, np.int64)
+    _, names, packed, n_cols, rep = src
+    idxs = unpack_row(packed, n_cols).astype(np.int64)
+    return names, idxs, np.full(len(idxs), int(rep), np.int64)
+
+
+def fast_view(d):
+    """decision_view's content keyed on the decode's arrays: the fleet's
+    names (by content) with the cluster indices and replicas, which equal
+    another decision's exactly when its target and feasible lists do (the
+    names are distinct). A decision whose lists were assigned keys on the
+    lists, so two forms of one content can differ here: `first_difference`
+    confirms every difference on decision_view."""
+    arrays = _target_arrays(d)
+    if arrays is None:
+        targets = None if d._targets is None else ("list", tuple(
+            (t.name, t.replicas) for t in d._targets))
+    else:
+        names, idxs, reps = arrays
+        targets = ("arrays", _names_id(names), idxs.tobytes(), reps.tobytes())
+    src = d._feasible_src
+    if src is None:
+        feasible = ("list", tuple(d.feasible))
+    else:
+        idxs = unpack_row(src[2], src[3]) if src[0] == "mask" else src[2]
+        feasible = ("arrays", _names_id(src[1]), np.asarray(idxs, np.int64).tobytes())
+    spec = d.speculative
+    return (d.key, d.error, d.affinity_name, targets, feasible,
+            None if spec is None else fast_view(spec))
+
+
+def first_difference(got, want):
+    """The first row at which two decision lists differ (their lengths
+    too), or None: compared on fast_view, each difference found there
+    confirmed on decision_view (the exact lists), so the answer is
+    decision_view's."""
+    if len(got) != len(want):
+        return min(len(got), len(want))
+    for i, (a, b) in enumerate(zip(got, want)):
+        if fast_view(a) != fast_view(b) and decision_view(a) != decision_view(b):
+            return i
+    return None
+
+
+def replicas_of(d) -> int:
+    """The replicas a decision places, from the decode's arrays where it
+    has them (no TargetCluster list built)."""
+    arrays = _target_arrays(d)
+    if arrays is None:
+        return sum(t.replicas for t in (d.targets or []))
+    return int(arrays[2].sum())
+
+
 ALL_PATH_LAUNCHES = {}  # launches over every drive() of the run, by kernel
 
 
@@ -1278,14 +1397,13 @@ def hold_against_cpu(label, clusters, bindings, decisions, cpu_run=None, **sched
     cpu_sched = ArrayScheduler(clusters, device="cpu", **sched_kw)
     want = cpu_run(cpu_sched) if cpu_run else cpu_sched.schedule(bindings)
     cpu_s = time.perf_counter() - t0
-    got = [decision_view(d) for d in decisions]
-    want = [decision_view(d) for d in want]
-    if got != want:
-        bad = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+    bad = first_difference(decisions, want)
+    if bad is not None:
         raise AssertionError(f"{label}: card and cpu decisions differ at row {bad}: "
-                             f"{got[bad]} vs {want[bad]}")
+                             f"{decision_view(decisions[bad]) if bad < len(decisions) else None} "
+                             f"vs {decision_view(want[bad]) if bad < len(want) else None}")
     placed = sum(1 for d in decisions if d.ok)
-    reps = sum(t.replicas for d in decisions if d.ok for t in d.targets)
+    reps = sum(replicas_of(d) for d in decisions if d.ok)
     errs = sorted({d.error.split(" ")[0] for d in decisions if d.error})
     log(f"{label}: decisions identical to the cpu round on all {len(decisions)} rows "
         f"({placed} placed, {reps} replicas, error kinds {errs}); cpu round {cpu_s:.1f} s")
@@ -3913,11 +4031,11 @@ def chunk_expect(sched, n_rows, per_chunk):
 
 
 def same_decisions(label, got, want):
-    a = [decision_view(d) for d in got]
-    b = [decision_view(d) for d in want]
-    if a != b:
-        bad = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
-        raise AssertionError(f"{label}: decisions differ at row {bad}: {a[bad]} vs {b[bad]}")
+    bad = first_difference(got, want)
+    if bad is not None:
+        raise AssertionError(f"{label}: decisions differ at row {bad}: "
+                             f"{decision_view(got[bad]) if bad < len(got) else None} vs "
+                             f"{decision_view(want[bad]) if bad < len(want) else None}")
 
 
 def pipeline_stats_line(stats):
@@ -5718,9 +5836,522 @@ def run_shim_contract(dev):
         f"({', '.join(c.__name__[5:] for c in CONTRACT_CASES)})")
 
 
+# --------------------------------------------------------------------------
+# the scheduler daemon (sched/scheduler.py, sched/streaming.py) on the
+# port's own store and runtime: daemon_flagship, daemon_stream, daemon_tiers
+# --------------------------------------------------------------------------
+
+
+def sorted_fleet(clusters):
+    """The fleet as the daemon encodes it (`_ensure_fleet` sorts by name)."""
+    return sorted(clusters, key=lambda c: c.name)
+
+
+def daemon_over(dev, clusters, bindings, **daemon_kw):
+    """A port Store holding `clusters`, a SchedulerDaemon over it on the
+    card, then `bindings` created in the store (each one watch event: an
+    enqueue). The order matters at this width: the daemon's Cluster watch
+    replays every stored cluster through _on_cluster, which re-lists every
+    stored binding (the reference's fan-out), so bindings stored before
+    the daemon would cost 5 000 re-lists of 10 000 copies. Returns
+    (store, runtime, daemon, seconds)."""
+    t0 = time.perf_counter()
+    store = Store()
+    for c in clusters:
+        store.create(c)
+    runtime = Runtime()
+    daemon = SchedulerDaemon(store, runtime, device=dev, **daemon_kw)
+    for rb in bindings:
+        store.create(rb)
+    return store, runtime, daemon, time.perf_counter() - t0
+
+
+class DaemonRounds:
+    """The daemon's rounds as the runtime drives them: each call of its
+    batch reconcile timed (host clock, the card synchronised after it) with
+    the round's stats (`last_round_stats`: stage seconds, replayed /
+    solved, jit_compiles) when it solved anything. A failing round fails
+    the cell: the runtime would otherwise retry its keys one by one, so
+    every later call raises at once and `settle` raises."""
+
+    def __init__(self, daemon):
+        self.daemon = daemon
+        self.rounds = []
+        self.failure = None
+        inner = daemon.controller.reconcile_batch
+
+        def reconcile(keys):
+            if self.failure is not None:
+                raise RuntimeError("an earlier daemon round failed") from self.failure
+            prev = daemon._array.last_round_stats if daemon._array is not None else None
+            t0 = time.perf_counter()
+            try:
+                out = inner(keys)
+                torch.cuda.synchronize()
+            except BaseException as e:  # noqa: BLE001 - re-raised; settle() fails below
+                self.failure = e
+                raise
+            stats = daemon._array.last_round_stats if daemon._array is not None else None
+            self.rounds.append({
+                "keys": len(keys), "seconds": time.perf_counter() - t0,
+                "stats": copy.deepcopy(stats) if stats is not None and stats is not prev
+                else None})
+            return out
+
+        daemon.controller.reconcile_batch = reconcile
+
+    def settle(self, runtime, label):
+        n0 = len(self.rounds)
+        t0 = time.perf_counter()
+        runtime.settle()
+        wall = time.perf_counter() - t0
+        if self.failure is not None or self.daemon.controller.errors:
+            raise AssertionError(f"{label}: a daemon round failed: {self.failure!r} "
+                                 f"{dict(list(self.daemon.controller.errors.items())[:3])}")
+        return self.rounds[n0:], wall
+
+
+def round_line(r) -> str:
+    st = r["stats"]
+    if st is None:
+        return f"{r['keys']} keys, nothing to solve, {r['seconds']:.4f} s"
+    stages = " / ".join(f"{k} {v:.4f}" for k, v in sorted(st.get("stage_seconds", {}).items()))
+    return (f"{r['keys']} keys, e2e {r['seconds']:.4f} s (stages {stages}), replayed "
+            f"{st.get('replayed')} solved {st.get('solved')}, chunks {st.get('chunks')}, "
+            f"jit_compiles {st.get('jit_compiles')} ({st.get('jit_compile_seconds')} s), "
+            f"libraries already built {st.get('jit_persistent_cache_hits')}")
+
+
+def solved_rounds(rounds):
+    return [r for r in rounds if r["stats"] is not None]
+
+
+def check_no_builds(label, rounds):
+    built = [r["stats"]["jit_compiles"] for r in solved_rounds(rounds)]
+    if any(built):
+        raise AssertionError(f"{label}: rounds after the first built kernel libraries: {built}")
+
+
+def expected_outcome(rb, dec):
+    """What the daemon's patch leaves on a binding for decision `dec`: the
+    targets (the binding's own when the decision failed) and the Scheduled
+    condition's status and message."""
+    if dec.ok:
+        return (tuple(sorted((t.name, t.replicas) for t in dec.targets)), "True",
+                "Binding has been scheduled successfully.")
+    return (tuple(sorted((t.name, t.replicas) for t in rb.spec.clusters)), "False", dec.error)
+
+
+def stored_outcome(rb):
+    cond = next((c for c in rb.status.conditions if c.type == CONDITION_SCHEDULED), None)
+    return (tuple(sorted((t.name, t.replicas) for t in rb.spec.clusters)),
+            None if cond is None else cond.status, None if cond is None else cond.message)
+
+
+def hold_daemon_round(label, daemon, inputs, direct):
+    """Every binding in `inputs` (the store's copies read before the round)
+    that needed scheduling: the store now holds the decision of a direct
+    `schedule()` of the same bindings on the card (`direct`, an
+    ArrayScheduler over the same fleet); the rest are unchanged. Returns
+    (the solved inputs, their direct decisions)."""
+    store = daemon.store
+    solve = [rb for rb in inputs if daemon._needs_schedule(rb)]
+    decisions = direct.schedule(solve) if solve else []
+    want = {rb.metadata.key(): expected_outcome(rb, d) for rb, d in zip(solve, decisions)}
+    keep = {rb.metadata.key(): stored_outcome(rb) for rb in inputs
+            if rb.metadata.key() not in want}
+    now = store.get_batch("ResourceBinding",
+                          [(rb.metadata.name, rb.metadata.namespace) for rb in inputs])
+    bad = [(rb.metadata.key(), stored_outcome(rb), want.get(rb.metadata.key(),
+                                                            keep.get(rb.metadata.key())))
+           for rb in now if stored_outcome(rb) != want.get(rb.metadata.key(),
+                                                           keep.get(rb.metadata.key()))]
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} bindings differ from the direct card round, "
+                             f"first {bad[0]}")
+    placed = sum(1 for d in decisions if d.ok)
+    log(f"{label}: every binding as the direct card schedule() of the same bindings "
+        f"({len(solve)} solved, {placed} placed, {len(inputs) - len(solve)} unchanged)")
+    return solve, decisions
+
+
+def edit_replicas(store, keys):
+    """churn_drift's step on the store: each binding's replicas drift by
+    -1, 0 or +1 in turn (a spec change bumps its generation)."""
+    for k, key in enumerate(keys):
+        ns, _, name = key.partition("/")
+        rb = store.get("ResourceBinding", name, ns)
+        rb.spec.replicas = max(1, rb.spec.replicas + (k % 3) - 1)
+        store.update(rb)
+
+
+def run_daemon_flagship(dev, smi, path_launches):
+    """daemon_flagship: the compact flagship (build_flagship, seed 0, the
+    bindings' uids set) in a port Store under a SchedulerDaemon on the
+    card. The prewarm (the dry round, the kernel-build pass), the cold
+    settle, DAEMON_CHURN_ROUNDS churn rounds (5 % of the bindings drift
+    their replicas, config 5b's recipe), one heartbeat round
+    (HEARTBEAT_CLUSTERS clusters change status in the store: _on_cluster,
+    then set_clusters(dirty_names=) and scatter_rows) and one churn round
+    under a side stream; every round against a direct schedule() on the
+    card, the cold round's 2 000-row sample against the CPU round.
+    Returns the cold round's outcome by binding key (daemon_stream's
+    contract)."""
+    clusters, bindings = build_flagship()
+    store, runtime, daemon, took = daemon_over(dev, clusters, bindings)
+    log(f"daemon_flagship: store of {len(clusters)} clusters and {len(bindings)} bindings under "
+        f"the daemon built in {took:.2f} s")
+    t0 = time.perf_counter()
+    daemon.prewarm(wait_aot=True)
+    stats = dict(daemon.last_prewarm_stats)
+    log(f"daemon_flagship: prewarm (dry round + kernel-build pass) {time.perf_counter() - t0:.3f} s, "
+        f"stats {stats}")
+    if stats.get("jit_compiles") != 0 or stats.get("epoch") != daemon._array.fleet_epoch:
+        raise AssertionError(f"daemon_flagship: the prewarm pass built libraries or covered "
+                             f"another epoch: {stats}")
+    direct = ArrayScheduler(sorted_fleet(clusters), device=dev)
+    log_rounds = DaemonRounds(daemon)
+    inputs = store.list("ResourceBinding")
+    kernels.reset_launches()
+    cold, wall = log_rounds.settle(runtime, "daemon_flagship cold")
+    cold_launches = kernels.launch_counts()
+    for r in cold:
+        log(f"daemon_flagship cold settle round: {round_line(r)}")
+    log(f"daemon_flagship cold settle on {smi}: {wall:.4f} s, {len(cold)} runtime steps, "
+        f"launches {({n: c for n, c in cold_launches.items() if c})}")
+    solve, decisions = hold_daemon_round("daemon_flagship cold", daemon, inputs, direct)
+    sample = sorted(np.random.default_rng(11).choice(len(solve), DAEMON_SAMPLE, replace=False))
+    cpu = ArrayScheduler(sorted_fleet(clusters), device="cpu").schedule([solve[i] for i in sample])
+    bad = first_difference([decisions[i] for i in sample], cpu)
+    if bad is not None:
+        raise AssertionError(f"daemon_flagship: the card's decisions differ from the cpu round "
+                             f"at sample row {bad}")
+    log(f"daemon_flagship: a {DAEMON_SAMPLE}-row sample equal to the cpu round")
+    cold_outcome = {rb.metadata.key(): stored_outcome(rb) for rb in store.list("ResourceBinding")}
+    launches = dict(cold_launches)
+
+    # churn rounds: the next 5 % of the keys each round (a cursor walks them)
+    keys = [rb.metadata.key() for rb in inputs]
+    n_dirty = max(1, int(len(keys) * INCREMENTAL_DIRTY))
+    timed = []
+
+    def churn_round(label, cursor, stream=None):
+        dirty = [keys[(cursor + k) % len(keys)] for k in range(n_dirty)]
+        edit_replicas(store, dirty)
+        snap = store.get_batch("ResourceBinding", [(k.partition("/")[2], k.partition("/")[0])
+                                                   for k in dirty])
+        kernels.reset_launches()
+        with torch.cuda.stream(stream):
+            rounds, wall = log_rounds.settle(runtime, label)
+        for n, c in kernels.launch_counts().items():
+            launches[n] = launches.get(n, 0) + c
+        timed.append(wall)
+        for r in rounds:
+            log(f"{label} round: {round_line(r)}")
+        check_no_builds(label, rounds)
+        hold_daemon_round(label, daemon, snap, direct)
+        return (cursor + n_dirty) % len(keys)
+
+    cursor = 0
+    for i in range(DAEMON_CHURN_ROUNDS):
+        cursor = churn_round(f"daemon_flagship churn {i}", cursor)
+
+    # the heartbeat: member status writes reach the fleet through _on_cluster
+    (fleet, dirty_names), = status_churn(sorted_fleet(clusters), 1, n_dirty=HEARTBEAT_CLUSTERS)
+    array = daemon._array
+    calls = []
+    set_clusters = array.set_clusters
+
+    def record(cs, dirty_names=None):
+        calls.append(None if dirty_names is None else set(dirty_names))
+        return set_clusters(cs, dirty_names=dirty_names)
+
+    array.set_clusters = record
+    snap = store.list("ResourceBinding")
+    t0 = time.perf_counter()
+    for c in fleet:
+        if c.name in dirty_names:
+            store.update(c)
+    events_s = time.perf_counter() - t0
+    kernels.reset_launches()
+    rounds, wall = log_rounds.settle(runtime, "daemon_flagship heartbeat")
+    hb = kernels.launch_counts()
+    for n, c in hb.items():
+        launches[n] = launches.get(n, 0) + c
+    array.set_clusters = set_clusters
+    if calls != [dirty_names] or hb["scatter_rows"] != 1 or daemon._array is not array:
+        raise AssertionError(f"daemon_flagship heartbeat: set_clusters got {calls}, "
+                             f"scatter_rows launched {hb['scatter_rows']} times (expected "
+                             f"[{dirty_names}] and 1)")
+    for r in rounds:
+        log(f"daemon_flagship heartbeat round: {round_line(r)}")
+    log(f"daemon_flagship heartbeat on {smi}: {len(dirty_names)} cluster status writes "
+        f"{events_s:.4f} s (each re-lists the {len(keys)} bindings in _on_cluster), settle "
+        f"{wall:.4f} s; set_clusters(dirty_names={sorted(dirty_names)}), one scatter_rows")
+    check_no_builds("daemon_flagship heartbeat", rounds)
+    direct = ArrayScheduler(sorted_fleet(fleet), device=dev)
+    hold_daemon_round("daemon_flagship heartbeat", daemon, snap, direct)
+
+    side = torch.cuda.Stream(dev)
+    churn_round("daemon_flagship side-stream churn", cursor, stream=side)
+    p50, p99 = (float(np.percentile(timed, q)) for q in (50, 99))
+    log(f"daemon_flagship on {smi}: churn settles (5 % drift, incl. the side-stream one) p50 "
+        f"{p50:.4f} s p99 {p99:.4f} s over {len(timed)}; launches {launches}")
+    for n in ("candidate_select", "candidate_tail", "scatter_rows"):
+        if not launches.get(n):
+            raise AssertionError(f"daemon_flagship: {n} never launched")
+    add_launches(path_launches, launches, ("candidate_select", "candidate_tail", "scatter_rows"))
+    return bindings, clusters, cold_outcome
+
+
+def run_daemon_stream(dev, smi, path_launches, clusters, bindings, cold_outcome):
+    """daemon_stream: the same fleet and bindings (the same uids), the
+    bindings created by a feeder thread in STREAM_BURSTS bursts 50 ms
+    apart while daemon.streaming(...).serve(quiescent=True) admits them;
+    the final placements must equal daemon_flagship's cold round (the
+    streaming-versus-batch parity contract)."""
+    store, _, daemon, _ = daemon_over(dev, clusters, [])
+    daemon._ensure_fleet()
+    svc = daemon.streaming()
+    sizes = []
+    failures = []
+    form, launch = svc._form_batch, daemon._launch_routed
+
+    def form_batch(array):
+        mb = form(array)
+        if mb is not None:
+            sizes.append(len(mb.bindings))
+        return mb
+
+    def launch_routed(*a, **kw):
+        try:
+            return launch(*a, **kw)
+        except BaseException as e:  # noqa: BLE001 - the cell fails below
+            failures.append(e)
+            svc.stop()
+            raise
+
+    svc._form_batch = form_batch
+    daemon._launch_routed = launch_routed
+    per = len(bindings) // STREAM_BURSTS
+    done = threading.Event()
+    arrived = threading.Event()
+
+    def feed():
+        for b in range(STREAM_BURSTS):
+            for rb in bindings[b * per:(b + 1) * per]:
+                store.create(rb)
+            arrived.set()
+            time.sleep(STREAM_GAP_S)
+        done.set()
+
+    kernels.reset_launches()
+    feeder = threading.Thread(target=feed, name="stream-feeder", daemon=True)
+    t0 = time.perf_counter()
+    feeder.start()
+    serves = 0
+    while True:
+        serves += 1
+        svc.serve(quiescent=True)
+        if failures:
+            raise AssertionError(f"daemon_stream: a micro-batch launch failed: {failures[0]!r}")
+        if done.is_set() and not svc._ready():
+            break
+        arrived.wait(STREAM_GAP_S)
+        arrived.clear()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    feeder.join()
+    launches = kernels.launch_counts()
+    stats = svc.stats_snapshot()
+    lat = svc.latencies()
+    p50, p99 = (float(np.percentile(lat, q)) for q in (50, 99))
+    log(f"daemon_stream on {smi}: {len(bindings)} bindings in {STREAM_BURSTS} bursts of {per}, "
+        f"{STREAM_GAP_S * 1e3:.0f} ms apart; {wall:.4f} s from the first burst to quiescence "
+        f"({serves} serve calls); {len(sizes)} micro-batches, sizes p50 "
+        f"{float(np.percentile(sizes, 50)):.0f} max {max(sizes)} min {min(sizes)}; placement "
+        f"latency p50 {p50:.4f} s p99 {p99:.4f} s over {len(lat)}; stats {stats}; launches "
+        f"{({n: c for n, c in launches.items() if c})}")
+    if stats["jit_compiles"] or stats["failed"]:
+        raise AssertionError(f"daemon_stream: builds or failed placements: {stats}")
+    got = {rb.metadata.key(): stored_outcome(rb) for rb in store.list("ResourceBinding")}
+    if got != cold_outcome:
+        bad = next(k for k in cold_outcome if got.get(k) != cold_outcome[k])
+        raise AssertionError(f"daemon_stream: {bad} is {got.get(bad)}, the batch daemon's cold "
+                             f"round gave {cold_outcome[bad]}")
+    log(f"daemon_stream: all {len(got)} placements equal daemon_flagship's cold round")
+    add_launches(path_launches, launches, ("candidate_select", "candidate_tail"))
+
+
+def daemon_tiered_round(label, dev, smi, daemon, clusters):
+    """One daemon round through launch_tiered, recorded and held: its
+    batch, placed snapshot and decisions (the speculative ones included)
+    against a direct launch_tiered + materialize_chunk on the card; every
+    preemption plan of its pass against plan_preemption on the same
+    snapshot (one ledger across the pass's calls, as in the daemon); the
+    committed plans' merged victim cuts against the graceful-eviction
+    tasks in the store, and the committed preemptors' targets against
+    their plans'. Returns (launch counts, committed plans)."""
+    array = daemon._ensure_fleet()
+    store = daemon.store
+    got = {"decisions": []}
+    plans = []
+    commits = []
+    launch, materialize = preemption.launch_tiered, array.materialize_chunk
+    p_spec, p_plan, commit = (preemption.plan_from_speculative, preemption.plan_preemption,
+                              daemon._commit_preemption)
+
+    def launch_tiered(arr, chunk, extra=None, placed=None):
+        got["bindings"], got["placed"] = list(chunk), None if placed is None else list(placed)
+        return launch(arr, chunk, extra, placed=placed)
+
+    def materialize_chunk(pending):
+        out = materialize(pending)
+        got["decisions"].extend(decision_view(d) for d in out)
+        return out
+
+    def plan_from_speculative(arr, placed, pairs, ledger=None):
+        out = p_spec(arr, placed, pairs, ledger=ledger)
+        plans.append((list(placed), [rb for rb, _ in pairs], out))
+        return out
+
+    def plan_preemption(arr, placed, rbs, ledger=None):
+        out = p_plan(arr, placed, rbs, ledger=ledger)
+        plans.append((list(placed), list(rbs), out))
+        return out
+
+    def commit_preemption(feasible):
+        ok = commit(feasible)
+        commits.append((ok, [plan for _rb, _dec, plan in feasible]))
+        return ok
+
+    log_rounds = DaemonRounds(daemon)
+    kernels.reset_launches()
+    n0 = preemption.LAUNCHES.tiered
+    preemption.launch_tiered, array.materialize_chunk = launch_tiered, materialize_chunk
+    preemption.plan_from_speculative = plan_from_speculative
+    preemption.plan_preemption = plan_preemption
+    daemon._commit_preemption = commit_preemption
+    try:
+        t0 = time.perf_counter()
+        if not daemon.controller.step():
+            raise AssertionError(f"{label}: the round found no work")
+        wall = time.perf_counter() - t0
+    finally:
+        preemption.launch_tiered, preemption.plan_from_speculative = launch, p_spec
+        preemption.plan_preemption = p_plan
+        array.materialize_chunk = materialize
+        daemon._commit_preemption = commit
+    if log_rounds.failure is not None or daemon.controller.errors:
+        raise AssertionError(f"{label}: the round failed: {log_rounds.failure!r}")
+    launches = kernels.launch_counts()
+    (r,) = log_rounds.rounds
+    log(f"{label} on {smi}: one round {wall:.4f} s ({round_line(r)}); tiered launches "
+        f"{preemption.LAUNCHES.tiered - n0}; launches "
+        f"{({n: c for n, c in launches.items() if c})}; preemption planner calls {len(plans)}, "
+        f"commits (outcome, plans) {[(ok, len(p)) for ok, p in commits]}")
+    if preemption.LAUNCHES.tiered - n0 < 1 or "bindings" not in got:
+        raise AssertionError(f"{label}: the round did not take launch_tiered")
+    check_no_builds(label, log_rounds.rounds)
+    direct = ArrayScheduler(sorted_fleet(clusters), device=dev)
+    want = direct.materialize_chunk(preemption.launch_tiered(direct, got["bindings"],
+                                                             placed=got["placed"]))
+    if got["decisions"] != [decision_view(d) for d in want]:
+        bad = next(i for i, (a, b) in enumerate(zip(got["decisions"], want))
+                   if a != decision_view(b))
+        raise AssertionError(f"{label}: row {bad} differs from the direct launch_tiered: "
+                             f"{got['decisions'][bad]} vs {decision_view(want[bad])}")
+    spec = sum(1 for d in want if d.speculative is not None)
+    log(f"{label}: all {len(want)} decisions (and {spec} speculative ones) equal a direct "
+        "launch_tiered + materialize_chunk of the daemon's batch")
+    ledger = preemption.PlanLedger(np.asarray(direct.fleet.capacity, np.int64))
+    for placed, rbs, out in plans:
+        again = preemption.plan_preemption(direct, placed, rbs, ledger=ledger)
+        if [plan_view(p) for p in out] != [plan_view(p) for p in again]:
+            bad = next(i for i, (a, b) in enumerate(zip(out, again))
+                       if plan_view(a) != plan_view(b))
+            raise AssertionError(f"{label}: plan {bad} differs from plan_preemption on the same "
+                                 f"snapshot: {plan_view(out[bad])} vs {plan_view(again[bad])}")
+    committed = [p for ok, ps in commits if ok for p in ps]
+    cuts = {}
+    seen = set()
+    for plan in committed:
+        if id(plan.victims) in seen:
+            continue
+        seen.add(id(plan.victims))
+        for v in plan.victims:
+            cuts[(v.key, v.cluster)] = cuts.get((v.key, v.cluster), 0) + v.replicas
+    tasks = {}
+    for rb in store.list("ResourceBinding"):
+        for t in rb.spec.graceful_eviction_tasks:
+            if t.reason == EVICTION_REASON_PREEMPTED:
+                k = (rb.metadata.key(), t.from_cluster)
+                tasks[k] = tasks.get(k, 0) + t.replicas
+    if tasks != cuts:
+        raise AssertionError(f"{label}: the graceful-eviction tasks ({len(tasks)} pairs) differ "
+                             f"from the committed plans' cuts ({len(cuts)} pairs)")
+    for plan in committed:
+        ns, _, name = plan.key.partition("/")
+        rb = store.get("ResourceBinding", name, ns)
+        if stored_outcome(rb)[0] != tuple(sorted((t.name, t.replicas) for t in plan.targets)):
+            raise AssertionError(f"{label}: {plan.key} is placed at {stored_outcome(rb)[0]}, its "
+                                 "plan's targets differ")
+    n_plans = sum(len(out) for _p, _r, out in plans)
+    log(f"{label}: {n_plans} preemption plans ({sum(p.feasible for _p, _r, out in plans for p in out)} "
+        f"feasible) equal plan_preemption's on the same snapshot; {len(committed)} committed: "
+        f"their {sum(cuts.values())} victim replicas over {len(cuts)} (binding, cluster) pairs "
+        "equal the graceful-eviction tasks in the store, and each preemptor is placed at its "
+        "plan's targets")
+    return launches, committed
+
+
+def run_daemon_tiers(dev, smi, path_launches):
+    """daemon_tiers: the tiers_compact batch (build_tiers without the
+    Duplicated quarter: four priorities, one row in 16
+    PreemptLowerPriority, the fleet tightened to 1.5x over-asked) under a
+    daemon with the PriorityBasedScheduling gate on and preemption on,
+    one round; then preempt_plan's recipe through a daemon (build_preempt:
+    its placed bindings already scheduled in the store at 0.25 cpu free a
+    cluster, then the 256 preemptors arrive: one round whose preemption
+    pass must commit). Both rounds held by daemon_tiered_round."""
+    gates = FeatureGates({PRIORITY_BASED_SCHEDULING: True})
+    clusters, bindings, _placed = build_tiers(duplicated=False)
+    store, _, daemon, _ = daemon_over(dev, clusters, bindings, gates=gates)
+    launches, _ = daemon_tiered_round("daemon_tiers", dev, smi, daemon, clusters)
+    add_launches(path_launches, launches, ("candidate_select", "candidate_tail") + TIER_COUNTS)
+    del store, daemon, bindings
+    gc.collect()
+
+    clusters, placed, pre = build_preempt()
+    for rb in placed:  # already scheduled: applied placement and replicas as placed
+        rb.spec.replicas = rb.spec.assigned_replicas()
+        rb.metadata.annotations[POLICY_PLACEMENT_ANNOTATION] = placement_json(rb.spec.placement)
+    store, runtime, daemon, _ = daemon_over(dev, clusters, placed, gates=gates)
+    rounds, wall = DaemonRounds(daemon).settle(runtime, "daemon_preempt placed")
+    log(f"daemon_preempt: {len(placed)} placed bindings settled in {wall:.4f} s "
+        f"({len(rounds)} runtime steps, {len(solved_rounds(rounds))} solving)")
+    for rb in pre:
+        store.create(rb)
+    launches, committed = daemon_tiered_round("daemon_preempt", dev, smi, daemon, clusters)
+    if not committed:
+        raise AssertionError("daemon_preempt: the preemption pass committed no plan")
+    add_launches(path_launches, launches, ("candidate_select", "candidate_tail") + TIER_COUNTS)
+
+
+def run_daemon_cells(dev, smi, path_launches):
+    bindings, clusters, cold = run_daemon_flagship(dev, smi, path_launches)
+    gc.collect()
+    run_daemon_stream(dev, smi, path_launches, clusters, bindings, cold)
+    del bindings, clusters, cold
+    gc.collect()
+    run_daemon_tiers(dev, smi, path_launches)
+    gc.collect()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="On-card smoke test of the PyTorch/CUDA port.")
-    ap.add_argument("--only", choices=("kernels", "sim", "graft", "mesh", "tiers", "refresh"),
+    ap.add_argument("--only", choices=("kernels", "sim", "graft", "mesh", "tiers", "refresh",
+                                       "daemon"),
                     help="build every kernel, run one group of phases, print no result line")
     opts = ap.parse_args(sys.argv[1:] if argv is None else argv)
     only = opts.only
@@ -5751,6 +6382,12 @@ def main(argv=None) -> int:
                         {"candidate_select": 1, "candidate_tail": 2})
         log(f"--only refresh: scatter_rows and churn_dirty passed ({json.dumps(results)}; "
             f"launches {path_launches}); no other kernel or cell was run")
+        return 0
+    if only == "daemon":
+        path_launches = {}
+        run_daemon_cells(dev, smi, path_launches)
+        log(f"--only daemon: the daemon cells passed (launches {path_launches}); no other "
+            "kernel or cell was run")
         return 0
     if only == "sim":
         results, path_launches = {}, {}
@@ -5881,6 +6518,7 @@ def main(argv=None) -> int:
     run_churn_cells(dev, smi, path_launches, compact_ms)
     run_wide_cells(dev, smi, path_launches, flag, results, select_err)
     run_sim_cells(dev, smi, path_launches)
+    run_daemon_cells(dev, smi, path_launches)
 
     # every kernel of a main path launched there; staleness_penalty serves
     # callers that hold an answer matrix on the card, and no path does: the

@@ -28,6 +28,33 @@ from ..api.work import ReplicaRequirements, ResourceBinding
 UNAUTHENTIC_REPLICA = -1
 
 
+class SchedulerEstimatorRegistry(Protocol):
+    """What the scheduler daemon requires of an estimator registry — typed,
+    so degraded-mode detection reads a declared attribute instead of
+    duck-probing with getattr (the probe silently went dark whenever a
+    registry forgot the attribute).
+
+    `last_sweep_open` lists the member clusters whose circuit breaker was
+    OPEN during the most recent `batch_estimates` sweep (empty while the
+    fleet is healthy — the default for a registry that never degrades).
+    Under the pipelined round executor each chunk-shard sweep resets it, so
+    callers snapshot it immediately after the sweep that produced it."""
+
+    last_sweep_open: list[str]
+
+    def batch_estimates(
+        self,
+        bindings: Sequence["ResourceBinding"],
+        clusters: Sequence[str],
+    ) -> Optional[np.ndarray]:
+        ...
+
+    def sweep_round(self):
+        """Context manager scoping N chunk-shard sweeps as ONE round (the
+        pipelined executor's prefetch stage) — see EstimatorRegistry."""
+        ...
+
+
 class ReplicaEstimator(Protocol):
     def max_available_replicas(
         self,
@@ -253,17 +280,22 @@ class MemberEstimators:
     round's distinct requests [U, R] and each row's index into it, and the
     card evaluates each distinct request once.
 
-    The per-cluster fan-out pool scales with each sweep's fan-out width
-    (floor DEFAULT_MIN_WORKERS, cap DEFAULT_MAX_WORKERS).
+    `max_workers` pins the per-cluster fan-out pool size; the default
+    (None) scales with each sweep's fan-out width (floor
+    DEFAULT_MIN_WORKERS, cap DEFAULT_MAX_WORKERS), growing as members join.
     `device`: None means the CUDA card (RuntimeError without one); "cpu"
     runs the fleet sweep's plain version."""
 
     DEFAULT_MIN_WORKERS = 16
     DEFAULT_MAX_WORKERS = 64
 
-    def __init__(self, members: dict, breakers=None, device=None):
+    def __init__(self, members: dict, breakers=None,
+                 max_workers: Optional[int] = None, device=None):
         self.members = members
         self.breakers = breakers  # faults.BreakerRegistry, shared
+        if max_workers is not None and max_workers <= 0:
+            raise ValueError(f"max_workers={max_workers}: must be positive")
+        self.max_workers = max_workers
         self.device = resolve_device(device)
         self._pool: Optional[ThreadPoolExecutor] = None
         self._pool_width = 0
@@ -275,10 +307,12 @@ class MemberEstimators:
         self._no_node_cols = None  # bool[C] clusters without node state
 
     def _pool_for(self, width: int) -> ThreadPoolExecutor:
-        """The fan-out pool, (re)sized for a sweep over `width` clusters: it
-        grows with the widest sweep seen, replacing the executor only when
-        it must widen."""
-        want = min(self.DEFAULT_MAX_WORKERS, max(self.DEFAULT_MIN_WORKERS, width))
+        """The fan-out pool, (re)sized for a sweep over `width` clusters:
+        explicit max_workers pins it; the default grows with the widest
+        sweep seen, replacing the executor only when it must widen."""
+        want = self.max_workers or min(
+            self.DEFAULT_MAX_WORKERS, max(self.DEFAULT_MIN_WORKERS, width)
+        )
         if self._pool is None or want > self._pool_width:
             if self._pool is not None:
                 self._pool.shutdown(wait=False)

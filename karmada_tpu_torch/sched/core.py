@@ -715,6 +715,7 @@ class ArrayScheduler:
         *,
         encoder: Optional[FleetEncoder] = None,
         bucket_cols: bool = True,
+        plugin_registry=None,
     ):
         """`device`: None means the CUDA card (RuntimeError without one);
         "cpu" runs the plain PyTorch path. `mesh`: a parallel.mesh.Mesh;
@@ -732,8 +733,14 @@ class ArrayScheduler:
         fleet encoder (its resource vocabulary; default `FleetEncoder()`).
         `bucket_cols`: pad the fleet axis to the shape_bucket lattice with
         dead clusters (the default); False solves at the exact fleet width.
-        Both are keyword-only: the reference takes `encoder` as its second
-        positional argument, where this constructor has `plugins`."""
+        `plugin_registry`: the plugin registry whose names `plugins`
+        filters (None: the default one; the port registers no out-of-tree
+        plugin, so any registry holds the in-tree set only). All three
+        are keyword-only: the reference takes `encoder` as its second
+        positional argument, where this constructor has `plugins`.
+        Oversized rounds do not re-place the fleet over several cards
+        yet: `_maybe_autoshard` raises where the reference would
+        (KARMADA_TPU_AUTOSHARD=0 turns the check off)."""
         from .candidates import resolve_candidate_k
 
         self.mesh = mesh
@@ -753,10 +760,11 @@ class ArrayScheduler:
                 )
         self.encoder = encoder or FleetEncoder()
         self.bucket_cols = bucket_cols
-        self.plugin_registry = plugin_mod.PluginRegistry()
+        self.plugin_registry = plugin_registry or plugin_mod.PluginRegistry()
         self.enabled_plugins = self.plugin_registry.filter(plugins)
         self._plugin_bits = plugin_mod.plugin_bits(self.enabled_plugins)
         self.max_bc_elems = resolve_max_bc_elems()
+        self.autoshard = resolve_autoshard()
         self.candidate_k = resolve_candidate_k(candidate_k)
         self.last_candidate_stats: dict = {}
         self._staging = PinnedStaging()
@@ -941,6 +949,29 @@ class ArrayScheduler:
         # upload and one launch through the placement's launcher
         self._fleet_scatter.refresh(np.asarray(idx, np.int64), fleet)
         return True
+
+    def _maybe_autoshard(self, n_rows: int) -> bool:
+        """The reference's oversized-round selector, up to the point where
+        it re-places the fleet: False when autoshard is off, when a mesh
+        was given, when the round fits `max_bc_elems`, or when fewer than
+        two devices of the round's kind are visible (the CPU counts as
+        one). Past those returns the reference builds a mesh over every
+        visible device, which the port does not yet do: it raises
+        NotImplementedError (queue A item 11, multi-GPU)."""
+        if not self.autoshard or self.mesh is not None:
+            return False
+        if n_rows * len(self.fleet.names) <= self.max_bc_elems:
+            return False
+        visible = torch.cuda.device_count() if self.device.type == "cuda" else 1
+        if visible < 2:
+            return False
+        raise NotImplementedError(
+            f"an oversized round ({n_rows} x {len(self.fleet.names)} over "
+            f"max_bc_elems {self.max_bc_elems}) with {visible} cards visible "
+            "would re-place the fleet over a mesh of them: not ported yet "
+            "(queue A item 11, multi-GPU); set KARMADA_TPU_AUTOSHARD=0 to "
+            "run it chunked on one card"
+        )
 
     def _max_rows_per_round(self, n_cols: int) -> int:
         """Row cap per launched round under the [B,C] budget, floored to a

@@ -460,6 +460,9 @@ def launch_tiered(array: ArrayScheduler, bindings: Sequence, extra_avail=None,
         "kernel_rows": kernel_rows, "std_rows": std_rows,
         "state": state, "std_state": std_state, "armed": armed,
         "n_tiers": state["n_tiers"] if state else 1,
+        # the chunk API's replay split: tiered rows never replay (their
+        # decisions depend on the batch's composition)
+        "replayed": 0, "solved": len(bindings),
     }
 
 
