@@ -1,6 +1,6 @@
 """On-card smoke test of the PyTorch/CUDA port (karmada_tpu_torch).
 
-    python3 chip_smoke.py [--only kernels|sim|graft|mesh|tiers|refresh|daemon]
+    python3 chip_smoke.py [--only kernels|sim|graft|mesh|tiers|refresh|daemon|plugins]
 
 Needs one CUDA card (an H100 is the target) and nvcc; exits non-zero with no
 result line otherwise. Phases, each of which raises on failure:
@@ -102,6 +102,17 @@ result line otherwise. Phases, each of which raises on failure:
    both of its routes (the shared-memory one up to 12 288 columns, the
    re-reading one at any width) and without its output window, sim_load
    at R = 4, 9 and 17, and tier_consume and fleet_estimate at R = 17;
+   candidate_select (both routes) and dense_filter with the out-of-tree
+   plugin terms (extra_mask with about 1/8 of the pairs off, extra_score
+   over the whole int32 range) at the compact and dense flagships'
+   10 240 x 5 120, candidate_select also on edge terms at 2 048 rows
+   (scores within 200 of INT32_MAX and INT32_MIN, so the locality score
+   wraps; every third row masked whole; each row's mask keeping its first
+   k feasible columns; one score everywhere with the locality plugin
+   off; both terms off a 16-byte boundary), dense_filter also with the
+   score alone, at 4 999 and 13 columns and with answers, mask and score
+   off alignment, each timed with the terms beside its time without them
+   (an A/B in turns) and bound with the terms' bytes;
    and the A/B timings: the redesigned dense_tail (every mode) and
    sim_load in turns with the re-reading route and torch.bmm, printed as
    `A/B ...` lines and one {"ab": ...} line (`--only kernels` stops here);
@@ -229,6 +240,15 @@ result line otherwise. Phases, each of which raises on failure:
    bindings already scheduled in the store, the 256 preemptors arriving
    at 0.25 cpu free a cluster, one round whose preemption pass must
    commit, held the same way, each preemptor at its plan's targets);
+   then the plugin cells, each with a hashed FilterPlugin (1/16 of the
+   (binding, cluster) pairs banned) and ScorePlugin (scores over the
+   whole int32 range) registered (testing/plugins.py), 3 timed rounds
+   with exact launches, its decisions against the CPU round with the
+   same registry, its solve stage under the sync check, the terms'
+   build and upload timed, and its decisions shown to differ from the
+   same round without the plugins on a stated share of the rows:
+   plugins_compact (the compact flagship), plugins_dense (the dense
+   flagship) and plugins_spread (config 4);
 5. every kernel's launches over every main path's rounds, the `kernels`
    JSON line, then the card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
@@ -239,7 +259,8 @@ phases 3 and 4, `graft` those of the dense-input program and the scheduler
 shim, `mesh` those of the mesh solve (with the single-device dense
 flagship round they are held against), `tiers` the tier kernels' checks of
 phase 3, `refresh` scatter_rows' check of phase 3 and the churn_dirty cell
-with the refresh's checks, `daemon` the three daemon cells of phase 4.
+with the refresh's checks, `daemon` the three daemon cells of phase 4,
+`plugins` the plugin terms' checks of phase 3 and the plugin cells.
 """
 from __future__ import annotations
 
@@ -318,7 +339,7 @@ from karmada_tpu_torch.models.batch import (
 )
 from karmada_tpu_torch.models.nodes import NodeEncoder
 from karmada_tpu_torch.sched.candidates import DENSE_SOLVE_ANNOTATION, effective_k
-from karmada_tpu_torch.sched.plugins import ALL_PLUGIN_BITS
+from karmada_tpu_torch.sched.plugins import ALL_PLUGIN_BITS, BIT_LOCALITY, PluginRegistry
 from karmada_tpu_torch.sched import candidates as cand_mod
 from karmada_tpu_torch.sched import preemption, spread_batch
 from karmada_tpu_torch.sched.pipeline import chunk_spans, plan_chunk_rows
@@ -340,6 +361,7 @@ from karmada_tpu_torch.sched.scheduler import SchedulerDaemon, placement_json
 from karmada_tpu_torch.store.store import Store
 from karmada_tpu_torch.sched.pipeline import StageTimer
 from karmada_tpu_torch.testing.cpumesh import virtual_mesh
+from karmada_tpu_torch.testing.plugins import hash_registry
 from karmada_tpu_torch.testing.shim_contract import CONTRACT_CASES
 from karmada_tpu_torch.testing.fixtures import (
     build_estimator,
@@ -6348,10 +6370,286 @@ def run_daemon_cells(dev, smi, path_launches):
     gc.collect()
 
 
+# --------------------------------------------------------------------------
+# out-of-tree scheduler plugins (a FilterPlugin and a ScorePlugin): their
+# terms in candidate_select (B1) and dense_filter (B3), and three cells
+# --------------------------------------------------------------------------
+
+I32_MIN, I32_MAX = -2**31, 2**31 - 1
+PLUGIN_ROUNDS = 3  # timed rounds of each plugin cell
+PLUGIN_EDGE_ROWS = 2048  # rows of the plugin terms' edge cases
+PLUGIN_SELECT_EDGES = ("wrap", "rows all masked", "feasible count = k", "equal scores",
+                       "off alignment")
+# (cell, its build function, launches per round, least share of rows whose decisions
+# differ from the same round without the plugins)
+PLUGIN_CELLS = (
+    ("plugins_compact", build_flagship, {"candidate_select": 1, "candidate_tail": 2}, 0.5),
+    ("plugins_dense", functools.partial(build_flagship, dense=True),
+     {"dense_filter": 1, "dense_tail": 2, "feas_idx": 1}, 0.25),
+    ("plugins_spread", build_spread, {**_SPREAD_DENSE, "spread_tail": 1}, 0.25),
+)
+
+
+def plugin_registry() -> PluginRegistry:
+    """The plugin cells' registry: a HashBan (a hashed 1/16 of the
+    (binding, cluster) pairs banned) and a HashScore (int32 scores over
+    the whole range)."""
+    return hash_registry(PluginRegistry, share=16)
+
+
+def plugin_terms(g, dev, B, C):
+    """Seeded plugin terms at [B, C]: a mask with about 1/8 of the pairs
+    off and int32 scores over the whole range (INT32_MAX and INT32_MIN in
+    the first two columns)."""
+    mask = torch.rand((B, C), device=dev, generator=g) >= 0.125
+    score = torch.randint(I32_MIN, I32_MAX, (B, C), device=dev, generator=g, dtype=torch.int32)
+    score[:, :2] = torch.tensor([I32_MAX, I32_MIN], dtype=torch.int32, device=dev)
+    return mask, score
+
+
+def plugin_select_edge(rng, g, dev, case, B, C, k):
+    """Random select inputs with plugin terms at one edge: "wrap" (scores
+    within 200 of INT32_MAX and INT32_MIN, so the locality score's 100
+    wraps), "rows all masked" (every third row's mask all off: F = 0),
+    "feasible count = k" (the mask keeps each row's first k feasible
+    columns: F = k where the in-tree filters leave k), "equal scores" (one
+    score everywhere, the locality plugin off: the column order decides),
+    "off alignment" (both terms one element past an allocation's start).
+    Returns (args, mask, score, plugin bits)."""
+    args = random_select_inputs(rng, dev, B, C)
+    bits = ALL_PLUGIN_BITS
+    mask, score = plugin_terms(g, dev, B, C)
+    if case == "wrap":
+        near = torch.randint(0, 200, (B, C), device=dev, generator=g, dtype=torch.int32)
+        score = torch.where(torch.rand((B, C), device=dev, generator=g) < 0.5,
+                            I32_MAX - near, I32_MIN + near)
+    elif case == "rows all masked":
+        mask[::3] = False
+    elif case == "feasible count = k":
+        inner = kernels.dense_filter_plain(*args, plugin_bits=bits)[0]
+        mask = ~inner | (inner.to(torch.int32).cumsum(1) <= k)
+    elif case == "equal scores":
+        bits = ALL_PLUGIN_BITS & ~BIT_LOCALITY
+        score = torch.full((B, C), 7, dtype=torch.int32, device=dev)
+    elif case == "off alignment":
+        mask, score = off_alignment(mask), off_alignment(score)
+    return args, mask, score, bits
+
+
+def check_plugin_kernels(sched, bindings, d_sched, d_bindings, dev, results, smi):
+    """Phase 3 for the plugin terms: candidate_select (both routes) and
+    dense_filter with extra_mask / extra_score against their plain
+    versions, exactly, at the flagships' shapes and on edge inputs; each
+    kernel's time with the terms beside its time without them, and the
+    bound with the terms' bytes. Adds `plugins_*` keys to the kernels'
+    results (creating the entries under `--only plugins`)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(80)
+    rng = np.random.default_rng(80)
+    sel_args, k, _t, _tails = flagship_kernel_inputs(sched, bindings)
+    B, C = sel_args[7].shape[0], sel_args[0].shape[0]
+    bits = sched._plugin_bits
+    mask, score = plugin_terms(g, dev, B, C)
+    kw = {"extra_mask": mask, "extra_score": score}
+    want = kernels.select_plain(*sel_args, k=k, plugin_bits=bits, **kw)
+    err = 0
+    for route in ("auto", "wide"):
+        err = max(err, compare(f"candidate_select[flagship, plugin terms, {route}]",
+                               kernels._select_launch(*sel_args, k=k, plugin_bits=bits,
+                                                      route=route, **kw), want, SELECT_OUT))
+    wrapped = int((want[2] < 0).sum())
+    log(f"candidate_select with plugin terms at the compact flagship's {B} x {C}, k={k} (a "
+        f"1/8 mask, int32 scores over the whole range; {wrapped} negative window scores): "
+        "both routes equal the plain version exactly")
+    for case in PLUGIN_SELECT_EDGES:
+        a, m, sc, b = plugin_select_edge(rng, g, dev, case, PLUGIN_EDGE_ROWS, C, k)
+        w = kernels.select_plain(*a, k=k, plugin_bits=b, extra_mask=m, extra_score=sc)
+        for route in ("auto", "wide"):
+            err = max(err, compare(f"candidate_select[plugin edge '{case}', {route}]",
+                                   kernels._select_launch(*a, k=k, plugin_bits=b, route=route,
+                                                          extra_mask=m, extra_score=sc),
+                                   w, SELECT_OUT))
+        counts = w[6]
+        if case == "feasible count = k":
+            wide = kernels.dense_filter_plain(*a, plugin_bits=b)[0].sum(1) >= k
+            if not wide.any() or not bool((counts[wide] == k).all()):
+                raise AssertionError(f"plugin edge '{case}': a row with k in-tree feasible "
+                                     "columns is not at F = k")
+        if case == "rows all masked" and int(counts[::3].max()) != 0:
+            raise AssertionError(f"plugin edge '{case}': a masked row kept a feasible column")
+        log(f"candidate_select plugin edge '{case}' ({PLUGIN_EDGE_ROWS} x {C}, k={k}): both "
+            f"routes equal the plain version (feasible count {int(counts.min())}.."
+            f"{int(counts.max())}, {int((counts == k).sum())} rows at F = k)")
+        del a, m, sc, w
+
+    sel = kernels._select_launch(*sel_args, k=k, plugin_bits=bits, **kw)
+    turns = {"without terms": lambda: kernels._select_launch(*sel_args, k=k, plugin_bits=bits),
+             "with terms": lambda: kernels._select_launch(*sel_args, k=k, plugin_bits=bits, **kw),
+             "with terms, device-memory route": lambda: kernels._select_launch(
+                 *sel_args, k=k, plugin_bits=bits, route="wide", **kw)}
+    sel_t = {n: min(xs) for n, xs in ab_time("candidate_select, plugin terms",
+                                             turns, 10).items()}
+    sel_plain = cuda_ms(lambda: kernels.select_plain(*sel_args, k=k, plugin_bits=bits, **kw), 3)
+    sb, sb_by = select_bound(sel_args + [mask, score], sel, k)
+    term_mb = nbytes([mask, score]) / 1e6
+    log(f"timing (compact flagship, {smi}): candidate_select {sel_t['with terms']:.4f} "
+        f"ms with the plugin terms, {sel_t['without terms']:.4f} ms without (device-memory "
+        f"route {sel_t['with terms, device-memory route']:.4f} ms with them); plain "
+        f"{sel_plain:.3f} ms; bound with the terms' {term_mb:.1f} MB ({nbytes([mask]) / 1e6:.1f} "
+        f"MB mask, {nbytes([score]) / 1e6:.1f} MB score: "
+        f"{nbytes([mask, score]) / HBM_BYTES_PER_S * 1e3:.4f} ms of HBM alone) "
+        f"{sb:.4f} ms {sb_by}")
+    del sel, want, mask, score, kw
+
+    # ---- dense_filter: extra_score, with and without extra_mask ----
+    filt_args = dense_kernel_inputs(d_sched, d_bindings)[0]
+    B, C = filt_args[7].shape[0], filt_args[0].shape[0]
+    bits = d_sched._plugin_bits
+    mask, score = plugin_terms(g, dev, B, C)
+    err_f = 0
+    for tag, m in (("score", None), ("mask and score", mask)):
+        err_f = max(err_f, compare(
+            f"dense_filter[dense flagship, {tag}]",
+            kernels._dense_filter_launch(*filt_args, plugin_bits=bits, extra_mask=m,
+                                         extra_score=score),
+            kernels.dense_filter_plain(*filt_args, plugin_bits=bits, extra_mask=m,
+                                       extra_score=score), FILTER_OUT))
+    for rb, rc in DENSE_FILTER_SCALAR_SHAPES:
+        a = random_select_inputs(rng, dev, rb, rc)
+        m, sc = plugin_terms(g, dev, rb, rc)
+        for tag, mm in (("score", None), ("mask and score", m)):
+            err_f = max(err_f, compare(
+                f"dense_filter[random {rb} x {rc}, {tag}]",
+                kernels._dense_filter_launch(*a, plugin_bits=31, extra_mask=mm, extra_score=sc),
+                kernels.dense_filter_plain(*a, plugin_bits=31, extra_mask=mm, extra_score=sc),
+                FILTER_OUT))
+    rb, rc = DENSE_FILTER_SCALAR_SHAPES[0][0], 4096
+    a = random_select_inputs(rng, dev, rb, rc)
+    a[-1] = off_alignment(a[-1])
+    m, sc = (off_alignment(x) for x in plugin_terms(g, dev, rb, rc))
+    err_f = max(err_f, compare(
+        f"dense_filter[random {rb} x {rc}, answers, mask and score off alignment]",
+        kernels._dense_filter_launch(*a, plugin_bits=31, extra_mask=m, extra_score=sc),
+        kernels.dense_filter_plain(*a, plugin_bits=31, extra_mask=m, extra_score=sc),
+        FILTER_OUT))
+    del a, m, sc
+    log(f"dense_filter with extra_score, with and without extra_mask, at the dense flagship's "
+        f"{B} x {C}, at {DENSE_FILTER_SCALAR_SHAPES} and with answers, mask and score off "
+        "alignment: equal to the plain version exactly")
+    kw = {"extra_mask": mask, "extra_score": score}
+    filt = kernels._dense_filter_launch(*filt_args, plugin_bits=bits, **kw)
+    f_t = {n: min(xs) for n, xs in ab_time("dense_filter, plugin terms", {
+        "without terms": lambda: kernels._dense_filter_launch(*filt_args, plugin_bits=bits),
+        "with terms": lambda: kernels._dense_filter_launch(*filt_args, plugin_bits=bits, **kw),
+    }, 10).items()}
+    f_plain = cuda_ms(lambda: kernels.dense_filter_plain(*filt_args, plugin_bits=bits, **kw), 3)
+    fb, fb_by = dense_filter_bound(filt_args + [mask, score], filt)
+    log(f"timing (dense flagship, {smi}): dense_filter {f_t['with terms']:.4f} ms with "
+        f"the plugin terms, {f_t['without terms']:.4f} ms without; plain {f_plain:.3f} ms; "
+        f"bound with the terms' {nbytes([mask, score]) / 1e6:.1f} MB {fb:.4f} ms {fb_by}")
+    del filt, mask, score, kw
+    csrc = "karmada_tpu_torch/kernels/csrc/"
+    for name, src, replaces, e, t, plain, bnd, by in (
+            ("candidate_select", "candidate_select.cu", "karmada_tpu/sched/candidates.py:210",
+             err, sel_t, sel_plain, sb, sb_by),
+            ("dense_filter", "dense_filter.cu", "karmada_tpu/sched/core.py:452",
+             err_f, f_t, f_plain, fb, fb_by)):
+        r = results.setdefault(name, dict(
+            source=csrc + src, replaces=replaces, max_abs_err=e, ms=t["with terms"],
+            plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None))
+        r["max_abs_err"] = max(r["max_abs_err"], e)
+        r.update(plugins_ms=t["with terms"], plugins_no_terms_ms=t["without terms"],
+                 plugins_plain_ms=plain, plugins_bound_ms=bnd, plugins_bound_by=by)
+        if "with terms, device-memory route" in t:
+            r["plugins_wide_ms"] = t["with terms, device-memory route"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def timed_plugin_terms(label, sched, bindings, smi):
+    """One more round with its plugin terms timed on the host: the plugins'
+    calls and the fill into the pinned buffer, and the copy's enqueue, per
+    upload of the round (a compact round re-solving its wide spread rows
+    uploads twice); then the largest upload's copy out of the pinned
+    buffer, timed alone by CUDA events."""
+    build_s, uploads = [], []
+    orig_terms, orig_upload = sched._plugin_terms, sched._upload_plugin_terms
+
+    def terms(*a, **kw):
+        t0 = time.perf_counter()
+        out = orig_terms(*a, **kw)
+        build_s.append(time.perf_counter() - t0)
+        return out
+
+    def upload(bindings_, n_rows):
+        t0, built = time.perf_counter(), len(build_s)
+        out = orig_upload(bindings_, n_rows)
+        # the fill's calls to the plugins excluded
+        uploads.append((time.perf_counter() - t0 - sum(build_s[built:]), nbytes(out[0])))
+        return out
+
+    sched._plugin_terms, sched._upload_plugin_terms = terms, upload
+    try:
+        sched.schedule(bindings)
+        torch.cuda.synchronize()
+    finally:
+        del sched._plugin_terms, sched._upload_plugin_terms
+    largest = max(n for _, n in uploads)
+    staged = sched._term_staging._buf[:largest]
+    copy_ms = cuda_ms(lambda: staged.to(sched.device, non_blocking=True), 5)
+    log(f"{label}: plugin terms of one round on {smi}: {len(uploads)} upload(s), "
+        f"{sum(n for _, n in uploads) / 1e6:.1f} MB in all; building them (the plugins' calls "
+        f"and the fill, {len(build_s)} call(s)) {sum(build_s):.4f} s, enqueueing their copies "
+        f"{sum(h for h, _ in uploads):.4f} s (host clock); the largest copy ({largest / 1e6:.1f} "
+        f"MB, pinned to the card) {copy_ms:.3f} ms by CUDA events "
+        f"({largest / copy_ms / 1e6:.1f} GB/s)")
+
+
+def run_plugin_cells(dev, smi, results):
+    """Phase 4's plugin cells at full width (PLUGIN_CELLS): each registers
+    plugin_registry()'s two plugins, runs PLUGIN_ROUNDS timed rounds with
+    exact launches, holds its decisions against the port's CPU round with
+    the same registry and its solve stage under the sync check, and shows
+    that the terms matter: its decisions differ from the same round's
+    without the plugins on at least the cell's stated share of rows. Adds
+    each cell's launches to the kernels' results as `plugins_launches`."""
+    for label, build_cell, expect, share in PLUGIN_CELLS:
+        clusters, bindings = build_cell()
+        plain = ArrayScheduler(clusters, device=dev).schedule(bindings)
+        sched = ArrayScheduler(clusters, device=dev, plugin_registry=plugin_registry())
+        decisions, launches, times = drive(label, sched, bindings, PLUGIN_ROUNDS, expect, smi)
+        for n, c in launches.items():
+            if c and n in results:
+                results[n]["plugins_launches"] = results[n].get("plugins_launches", 0) + c
+        round_breakdown(label, sched, bindings, None, float(np.percentile(times, 50)))
+        timed_plugin_terms(label, sched, bindings, smi)
+        hold_against_cpu(label, clusters, bindings, decisions, plugin_registry=plugin_registry())
+        check_solve_syncs(label, sched, bindings, decisions)
+        # rows whose decode arrays differ; decision_view (the exact lists,
+        # costly on wide rows) confirms them until the stated share is met
+        need = int(np.ceil(share * len(decisions)))
+        moved = [i for i, (a, b) in enumerate(zip(decisions, plain))
+                 if fast_view(a) != fast_view(b)]
+        confirmed = 0
+        for i in moved:
+            confirmed += decision_view(decisions[i]) != decision_view(plain[i])
+            if confirmed >= need:
+                break
+        if confirmed < need:
+            raise AssertionError(f"{label}: only {confirmed} of {len(decisions)} rows differ "
+                                 f"from the round without the plugins ({need} required)")
+        log(f"{label}: {len(moved)} of {len(decisions)} rows ({len(moved) / len(decisions):.3f}) "
+            f"decide otherwise than the same round without the plugins by their decode arrays, "
+            f"{confirmed} confirmed on the exact lists (at least {share} of the rows required)")
+        del sched, clusters, bindings, decisions, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="On-card smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--only", choices=("kernels", "sim", "graft", "mesh", "tiers", "refresh",
-                                       "daemon"),
+                                       "daemon", "plugins"),
                     help="build every kernel, run one group of phases, print no result line")
     opts = ap.parse_args(sys.argv[1:] if argv is None else argv)
     only = opts.only
@@ -6422,6 +6720,16 @@ def main(argv=None) -> int:
             f"(launches {path_launches}); no earlier kernel or cell was run")
         print(json.dumps({"ab": AB}), flush=True)
         return 0
+    if only == "plugins":
+        check_plugin_kernels(sched, bindings, d_sched, d_bindings, dev, results, smi)
+        del sched, d_sched
+        gc.collect()
+        torch.cuda.empty_cache()
+        run_plugin_cells(dev, smi, results)
+        log(f"--only plugins: the plugin terms' kernel checks and the plugin cells passed "
+            f"({json.dumps(results)}); no other kernel or cell was run")
+        print(json.dumps({"ab": AB}), flush=True)
+        return 0
     if only == "mesh":
         path_launches = {}
         check_mesh_tile_filter(dev, results, shape_bucket(len(d_bindings)),
@@ -6436,6 +6744,7 @@ def main(argv=None) -> int:
     # ---- phase 3: kernels against their plain versions on the card ----
     compact_ms = check_compact_kernels(sched, bindings, dev, results)
     dense_ms = check_dense_kernels(d_sched, d_bindings, dev, results)
+    check_plugin_kernels(sched, bindings, d_sched, d_bindings, dev, results, smi)
     check_dense_input_filter(dev, results, shape_bucket(len(d_bindings)),
                              len(d_sched.fleet.names))
     check_mesh_tile_filter(dev, results, shape_bucket(len(d_bindings)), len(d_sched.fleet.names))
@@ -6519,6 +6828,7 @@ def main(argv=None) -> int:
     run_wide_cells(dev, smi, path_launches, flag, results, select_err)
     run_sim_cells(dev, smi, path_launches)
     run_daemon_cells(dev, smi, path_launches)
+    run_plugin_cells(dev, smi, results)
 
     # every kernel of a main path launched there; staleness_penalty serves
     # callers that hold an answer matrix on the card, and no path does: the
@@ -6538,7 +6848,7 @@ def main(argv=None) -> int:
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"], "device_ms": r.get("device_ms"), "matches_plain": True,
          **{k: v for k, v in r.items()
-            if k == "host_ms" or k.startswith(("window_", "estimator_", "drain_"))}}
+            if k == "host_ms" or k.startswith(("window_", "estimator_", "drain_", "plugins_"))}}
         for n, r in results.items()
     ]}
     print(json.dumps(line), flush=True)

@@ -243,12 +243,16 @@ def select_plain(
     replicas, unknown_request, gvk, tol_tables, tol_idx,
     aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
     req_unique, req_idx, extra_avail, *, k: int, plugin_bits: int,
+    extra_mask=None, extra_score=None,
 ):
     """Plain version of the candidate-select kernel (the reference's
     `_candidate_select_kernel`). Returns (cand_idx i32[B,K], c_feas bool,
     c_score i32, c_avail i32, c_prev i32, c_tie i32, feas_count i32[B],
     packed u8[B,ceil(C/8)]). `extra_avail` is None or i32[B,C] (-1 = no
-    answer)."""
+    answer). `extra_mask` (bool[B,C]) and `extra_score` (i32[B,C]), each
+    None when absent, are the out-of-tree plugins' terms: the mask ANDed
+    into feasibility, the score added with the int32 wrap, before the
+    selection (the reference's filter_phase)."""
     from ..sched.candidates import compact_estimate
 
     C = alive.shape[0]
@@ -258,6 +262,7 @@ def select_plain(
         tol_tables, tol_idx, aff_masks[aff_idx.long()], eviction_ok, prev_member,
         plugin_bits=plugin_bits,
     )
+    feasible, score = _plugin_terms_plain(feasible, score, extra_mask, extra_score)
     key = (feasible.to(I64) << 33) + score.to(I64)
     cand = torch.sort(core.top_k_ordered(key, k), dim=-1).values
     c_extra = None if extra_avail is None else extra_avail.gather(-1, cand)
@@ -270,6 +275,17 @@ def select_plain(
         prev_replicas.gather(-1, cand), core.tie_at(seeds, cand),
         feasible.sum(-1).to(I32), core.pack_bits(feasible),
     )
+
+
+def _plugin_terms_plain(feasible, score, extra_mask, extra_score):
+    """The out-of-tree plugin terms on the in-tree filter's output: the
+    mask ANDed into feasibility, the score added (torch's int32 add wraps,
+    as the reference's does)."""
+    if extra_mask is not None:
+        feasible = feasible & extra_mask
+    if extra_score is not None:
+        score = score + extra_score
+    return feasible, score
 
 
 def select_window_plain(feasible, score, k: int):
@@ -307,14 +323,16 @@ def dense_filter_plain(
     replicas, unknown_request, gvk, tol_tables, tol_idx,
     aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
     req_unique, req_idx, extra_avail, *, plugin_bits: int, extra_mask=None,
+    extra_score=None,
 ):
     """Plain version of the dense-filter kernel (the reference's
     `_filter_kernel_compact`): over the full [B, C] grid. Returns (feasible
     bool[B,C], score i32, avail i32, prev_replicas i32, tie i32,
     feas_count i32[B]). `extra_avail` is None or i32[B,C] (-1 = no
     answer), min-merged into avail. `extra_mask` is None or bool[B,C],
-    ANDed into feasible after the plugin filters (the reference's
-    filter_phase `extra_mask`)."""
+    ANDed into feasible after the plugin filters, and `extra_score` None
+    or i32[B,C], added to the score with the int32 wrap (the reference's
+    filter_phase `extra_mask` / `extra_score`)."""
     C = alive.shape[0]
     prev_member, prev_replicas, eviction_ok = core.sparse_rows(prev_idx, prev_rep, evict_idx, C)
     feasible, score, avail = core.filter_estimate_phase(
@@ -323,8 +341,7 @@ def dense_filter_plain(
         aff_masks[aff_idx.long()], eviction_ok, prev_member, req_unique, req_idx,
         plugin_bits=plugin_bits,
     )
-    if extra_mask is not None:
-        feasible = feasible & extra_mask
+    feasible, score = _plugin_terms_plain(feasible, score, extra_mask, extra_score)
     if extra_avail is not None:
         avail = torch.where(extra_avail >= 0, torch.minimum(avail, extra_avail), avail)
     tie = core.tie_at(seeds, torch.arange(C, device=alive.device)[None, :])
@@ -923,10 +940,11 @@ def _check_filter_args(
     alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
     replicas, unknown_request, gvk, tol_tables, tol_idx,
     aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
-    req_unique, req_idx, extra_avail,
+    req_unique, req_idx, extra_avail, extra_mask=None, extra_score=None,
 ):
     """Check the fleet and factored-batch inputs shared by candidate_select
-    and dense_filter; returns (C, R, T, G, B, Kt, Kp, Ke)."""
+    and dense_filter, and the optional [B, C] terms (answers, plugin mask
+    and score); returns (C, R, T, G, B, Kt, Kp, Ke)."""
     dev = alive.device
     C, R = capacity.shape
     T = taint_key.shape[1]
@@ -951,8 +969,10 @@ def _check_filter_args(
         ("req_idx", req_idx, I32, (B,)),
     ):
         _check(name, t, dt, shape, dev)
-    if extra_avail is not None:
-        _check("extra_avail", extra_avail, I32, (B, C), dev)
+    for name, t, dt in (("extra_avail", extra_avail, I32), ("extra_mask", extra_mask, BOOL),
+                        ("extra_score", extra_score, I32)):
+        if t is not None:
+            _check(name, t, dt, (B, C), dev)
     return C, R, T, G, B, Kt, Kp, Ke
 
 
@@ -977,6 +997,7 @@ def candidate_select(
     replicas, unknown_request, gvk, tol_tables, tol_idx,
     aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
     req_unique, req_idx, extra_avail, *, k: int, plugin_bits: int,
+    extra_mask=None, extra_score=None,
 ):
     """Candidate select over the fleet and a padded batch (see
     select_plain for the contract)."""
@@ -984,12 +1005,13 @@ def candidate_select(
             api_ok, replicas, unknown_request, gvk, tol_tables, tol_idx,
             aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
             req_unique, req_idx, extra_avail)
+    kw = dict(k=k, plugin_bits=plugin_bits, extra_mask=extra_mask, extra_score=extra_score)
     dev = alive.device
     if dev.type == "cpu":
-        return select_plain(*args, k=k, plugin_bits=plugin_bits)
+        return select_plain(*args, **kw)
     if dev.type != "cuda":
         raise ValueError(f"candidate_select: unsupported device {dev}")
-    out = _select_launch(*args, k=k, plugin_bits=plugin_bits)
+    out = _select_launch(*args, **kw)
     _launched(select_route(alive.shape[0], tol_tables.shape[2], prev_idx.shape[1],
                            evict_idx.shape[1]))
     return out
@@ -999,18 +1021,20 @@ def _select_launch(
     alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
     replicas, unknown_request, gvk, tol_tables, tol_idx,
     aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
-    req_unique, req_idx, extra_avail, *, k: int, plugin_bits: int, route: str = "auto",
+    req_unique, req_idx, extra_avail, *, k: int, plugin_bits: int,
+    extra_mask=None, extra_score=None, route: str = "auto",
 ):
     """Check, allocate and launch candidate_select_kernel on its route:
     select_route's with route "auto", the device-memory one at any width
     with "wide" (both exact). The wide route's keys go to a uint32 [B, C]
-    scratch (allocated as int32)."""
+    scratch (allocated as int32). The plugin terms go as null pointers
+    when absent."""
     dev = alive.device
     C, R, T, G, B, Kt, Kp, Ke = _check_filter_args(
         alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
         replicas, unknown_request, gvk, tol_tables, tol_idx,
         aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
-        req_unique, req_idx, extra_avail,
+        req_unique, req_idx, extra_avail, extra_mask, extra_score,
     )
     if not 0 < k <= C:
         raise ValueError(f"candidate_select: k={k} must be in (0, C={C}]")
@@ -1035,8 +1059,8 @@ def _select_launch(
         *_ptrs(replicas, unknown_request, gvk, tol_tables, tol_idx, aff_masks, aff_idx,
                prev_idx, prev_rep, evict_idx, seeds, req_unique, req_idx),
         B, Kt, Kp, Ke, k, plugin_bits, extra_avail is not None,
-        *_ptrs(extra_avail, cand, c_feas, c_score, c_avail, c_prev, c_tie, feas_count,
-               packed, keys),
+        *_ptrs(extra_avail, extra_mask, extra_score, cand, c_feas, c_score, c_avail, c_prev,
+               c_tie, feas_count, packed, keys),
         _stream(dev),
     )
     _raise_on(rc, "candidate_select")
@@ -1147,6 +1171,7 @@ def dense_filter(
     replicas, unknown_request, gvk, tol_tables, tol_idx,
     aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
     req_unique, req_idx, extra_avail, *, plugin_bits: int, extra_mask=None,
+    extra_score=None,
 ):
     """Dense filter + estimate over the fleet and a padded batch (see
     dense_filter_plain for the contract)."""
@@ -1154,12 +1179,13 @@ def dense_filter(
             api_ok, replicas, unknown_request, gvk, tol_tables, tol_idx,
             aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
             req_unique, req_idx, extra_avail)
+    kw = dict(plugin_bits=plugin_bits, extra_mask=extra_mask, extra_score=extra_score)
     dev = alive.device
     if dev.type == "cpu":
-        return dense_filter_plain(*args, plugin_bits=plugin_bits, extra_mask=extra_mask)
+        return dense_filter_plain(*args, **kw)
     if dev.type != "cuda":
         raise ValueError(f"dense_filter: unsupported device {dev}")
-    out = _dense_filter_launch(*args, plugin_bits=plugin_bits, extra_mask=extra_mask)
+    out = _dense_filter_launch(*args, **kw)
     _launched("dense_filter")
     return out
 
@@ -1169,6 +1195,7 @@ def _dense_filter_launch(
     replicas, unknown_request, gvk, tol_tables, tol_idx,
     aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
     req_unique, req_idx, extra_avail, *, plugin_bits: int, extra_mask=None,
+    extra_score=None,
 ):
     """Check, allocate (the outputs, score / avail / prev / tie as the four
     planes of one i32[4,B,C] allocation, and in one allocation the factored
@@ -1182,10 +1209,8 @@ def _dense_filter_launch(
         alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
         replicas, unknown_request, gvk, tol_tables, tol_idx,
         aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
-        req_unique, req_idx, extra_avail,
+        req_unique, req_idx, extra_avail, extra_mask, extra_score,
     )
-    if extra_mask is not None:
-        _check("extra_mask", extra_mask, BOOL, (B, C), dev)
     U, Tt = req_unique.shape[0], tol_tables.shape[0]
     feasible = torch.empty((B, C), dtype=BOOL, device=dev)
     score, avail, prev, tie = torch.empty((4, B, C), dtype=I32, device=dev).unbind(0)
@@ -1201,7 +1226,7 @@ def _dense_filter_launch(
         *_ptrs(replicas, unknown_request, gvk, tol_tables, tol_idx, aff_masks, aff_idx,
                prev_idx, prev_rep, evict_idx, seeds, req_unique, req_idx),
         B, Kt, Kp, Ke, U, Tt, plugin_bits, extra_avail is not None,
-        _ptr(extra_avail), _ptr(extra_mask), est_u, col_ok, col_ok + Tt * C,
+        *_ptrs(extra_avail, extra_mask, extra_score), est_u, col_ok, col_ok + Tt * C,
         *_ptrs(feasible, score, avail, prev, tie, feas_count),
         _stream(dev),
     )
@@ -1641,10 +1666,10 @@ def _bind(lib: str, entry: str, argtypes):
 # arguments in the entry's order)
 _VP, _CI, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FILTER_HEAD = [_VP] * 7 + [_CI] * 4 + [_VP] * 13
-_SELECT_ARGTYPES = _FILTER_HEAD + [_CI] * 7 + [_VP] * 11
+_SELECT_ARGTYPES = _FILTER_HEAD + [_CI] * 7 + [_VP] * 13
 _SELECT_WINDOW_ARGTYPES = [_VP, _VP, _CI, _CI, _CI, _VP, _VP, _VP, _VP]
 _TAIL_ARGTYPES = [_VP] * 6 + [_CI] + [_VP] * 4 + [_CI] * 4 + [_VP] * 7
-_DENSE_FILTER_ARGTYPES = _FILTER_HEAD + [_CI] * 8 + [_VP] * 12
+_DENSE_FILTER_ARGTYPES = _FILTER_HEAD + [_CI] * 8 + [_VP] * 13
 _PACK_ROWS_ARGTYPES = [_VP, _CI, _VP, _CI, _VP, _VP]
 _FEAS_IDX_ARGTYPES = [_VP, _CI, _VP, _CI, _CI, _VP, _VP]
 _GROUP_SCORE_ARGTYPES = [_VP] * 4 + [_CI, _VP, _CI] + [_VP] * 8 + [_CI] * 3 + [_VP] * 5

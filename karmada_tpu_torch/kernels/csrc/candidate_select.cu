@@ -5,7 +5,10 @@
 // candidates.py:177 `_compact_estimate` fused in). For each binding row b
 // and cluster column c: the in-tree filters (alive, taints against the
 // row's tolerations, API enablement, affinity mask, eviction list) and the
-// locality score; the top K columns by (feasible desc, score desc, column
+// locality score, then the out-of-tree plugins' terms when given (the
+// reference's filter_phase, core.py:178-186: extra_mask[b, c] ANDed into
+// the feasibility, extra_score[b, c] added to the score with the int32
+// wrap); the top K columns by (feasible desc, score desc, column
 // asc), in column order; then, at the K winners, feasibility, score,
 // previous replicas, the GeneralEstimator answer (min over requested
 // resources of cap // req, with the reference's clamps in its order), the
@@ -17,7 +20,11 @@
 // shared by every row and stay in L2; per row only the affinity-mask row,
 // C bytes, and O(K) outputs), so the floor is the C/8 packed bytes plus
 // [B,K] outputs over memory bandwidth, well under a millisecond at
-// 10240 x 5120; what is left is the filter chain per (row, column).
+// 10240 x 5120; what is left is the filter chain per (row, column). The
+// plugin terms, when given, add 5 bytes a (row, column) read in pass 1
+// (about 0.08 ms at 10240 x 5120) and spread the scores over the int32
+// range, so the radix select takes up to four passes where in-tree scores
+// (0 or 100) end in one.
 //
 // The design: one block per row (256 threads, 512 past 8 192 columns), and
 // nothing is sorted.
@@ -72,6 +79,9 @@ constexpr int kWideCols = 8192;
 constexpr uint32_t kFlip = 0x80000000u;  // int32 order as uint32 order
 
 struct SelParams : FilterArgs {
+  // the out-of-tree plugin terms, each null when absent
+  const uint8_t* extra_mask;   // [B,C] ANDed into the feasibility
+  const int32_t* extra_score;  // [B,C] added to the score (int32 wrap)
   int K;
   int nbytes;  // ceil(C / 8)
   int nwords;  // ceil(C / 32)
@@ -94,11 +104,27 @@ struct SelShared {
   int equal[kMaxWarps];
 };
 
+// eval_col with the plugin terms of (b, c): the feasibility ANDed with
+// extra_mask, the score plus extra_score as the reference's wrapping int32
+// add (done in uint32: a signed overflow is undefined in C++). A null term
+// is not read.
+__device__ __forceinline__ ColEval eval_terms(const SelParams& p, int b, int c,
+                                              const int32_t* tol, const int32_t* pidx,
+                                              const int32_t* prep, const int32_t* ev) {
+  ColEval e = eval_col(p, b, c, tol, pidx, prep, ev);
+  const int64_t at = (int64_t)b * p.C + c;
+  if (p.extra_mask != nullptr) e.feasible = e.feasible && p.extra_mask[at] != 0;
+  if (p.extra_score != nullptr) {
+    e.score = (int32_t)((uint32_t)e.score + (uint32_t)p.extra_score[at]);
+  }
+  return e;
+}
+
 // The window outputs of winner column c at slot t of row b.
 __device__ __forceinline__ void write_window(const SelParams& p, int b, int t, int c,
                                              const int32_t* tol, const int32_t* pidx,
                                              const int32_t* prep, const int32_t* ev) {
-  const ColEval e = eval_col(p, b, c, tol, pidx, prep, ev);
+  const ColEval e = eval_terms(p, b, c, tol, pidx, prep, ev);
   const int64_t o = (int64_t)b * p.K + t;
   p.cand_idx[o] = c;
   p.c_feas[o] = e.feasible ? 1 : 0;
@@ -203,7 +229,7 @@ candidate_select_kernel(SelParams p) {
     const int c = base + tid;
     bool f = false;
     if (c < p.C) {
-      const ColEval e = eval_col(p, b, c, tol, pidx, prep, ev);
+      const ColEval e = eval_terms(p, b, c, tol, pidx, prep, ev);
       f = e.feasible;
       keys[c] = (uint32_t)e.score ^ kFlip;
     }
@@ -293,6 +319,8 @@ int launch(const SelParams& p, size_t smem, cudaStream_t stream) {
 
 // `keys` null: the in-block route (the row's keys in shared memory);
 // otherwise a uint32 [B, C] scratch for the device-memory route.
+// `extra_mask` (bool [B, C]) and `extra_score` (int32 [B, C]) are the
+// out-of-tree plugin terms, each null when absent.
 extern "C" int candidate_select_launch(
     const void* alive, const void* capacity, const void* has_summary,
     const void* taint_key, const void* taint_value, const void* taint_effect,
@@ -302,7 +330,8 @@ extern "C" int candidate_select_launch(
     const void* aff_idx, const void* prev_idx, const void* prev_rep,
     const void* evict_idx, const void* seeds, const void* req_unique,
     const void* req_idx, int B, int Kt, int Kp, int Ke, int K, int plugin_bits,
-    int has_extra, const void* extra_avail, void* cand_idx, void* c_feas,
+    int has_extra, const void* extra_avail, const void* extra_mask,
+    const void* extra_score, void* cand_idx, void* c_feas,
     void* c_score, void* c_avail, void* c_prev, void* c_tie, void* feas_count,
     void* packed, void* keys, void* stream) {
   if (B <= 0 || K <= 0 || K > C) return (int)cudaErrorInvalidValue;
@@ -312,6 +341,8 @@ extern "C" int candidate_select_launch(
       replicas, unknown_request, gvk, tol_tables, tol_idx, aff_masks, aff_idx, prev_idx,
       prev_rep, evict_idx, seeds, req_unique, req_idx, B, Kt, Kp, Ke, plugin_bits, has_extra,
       extra_avail);
+  p.extra_mask = static_cast<const uint8_t*>(extra_mask);
+  p.extra_score = static_cast<const int32_t*>(extra_score);
   p.K = K;
   p.nbytes = (C + 7) / 8;
   p.nwords = (C + 31) / 32;

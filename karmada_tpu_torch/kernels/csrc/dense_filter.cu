@@ -13,9 +13,12 @@
 // dropped), and the splitmix64 tie over the global cluster id; plus the
 // row's feasible count. An optional per-row mask (bool [B, C], the
 // reference's `extra_mask` of filter_phase,
-// karmada_tpu/sched/core.py:178-179: the spread
-// selection of a per-row re-solve when the ClusterAffinity plugin is off)
-// is ANDed into the feasibility before the count.
+// karmada_tpu/sched/core.py:178-179: the out-of-tree plugins' mask, and
+// the spread selection of a per-row re-solve when the ClusterAffinity
+// plugin is off) is ANDed into the feasibility before the count, and an
+// optional score term (int32 [B, C], its `extra_score`, core.py:185-186:
+// the out-of-tree plugins' score) is added to the score as a wrapping
+// int32 add.
 //
 // What bounds every entry on an H100: each writes four i32 and one bool
 // output per element (or three i32, or one i32 and one bool) and reads at
@@ -47,9 +50,10 @@
 //   prev entry wins through a 64-bit atomicMax on (k + 1) << 32 |
 //   replicas), then every thread reads its columns from the tables (4-byte
 //   loads of col_ok, api_t, the affinity row and the mask, 16-byte loads of
-//   est_u and of the answers), applies the row's own clamps (replicas,
-//   unknown_request, the answers' min-merge), sets the score (100 on a prev
-//   column with the locality plugin on) and the tie (splitmix64 at the
+//   est_u, of the answers and of the score term), applies the row's own
+//   clamps (replicas, unknown_request, the answers' min-merge), sets the
+//   score (100 on a prev column with the locality plugin on, plus the
+//   score term) and the tie (splitmix64 at the
 //   global column id), and writes feasible as one 32-bit word and score,
 //   avail, prev and tie as 16-byte stores; the feasible count is a warp sum
 //   and one atomic a warp. kVec = false (C % 4 != 0, a tile's first column
@@ -163,10 +167,10 @@ constexpr int kTileCols = 4 * kThreads;
 constexpr int kGroupRows = 32;
 constexpr int kFillBlocks = 8 * 132;  // about eight blocks on each of the 132 SMs
 
-// The main pass's modes: dense_filter (the score, extra_mask, the tie at
-// the column id), sim_filter (no score or mask, the tie at tie_idx[s, c]),
-// mesh_tile_filter (dense_filter's, plus extra_score, global prev / evict
-// ids and the tie at col0 + c).
+// The main pass's modes: dense_filter (the score, extra_mask and
+// extra_score, the tie at the column id), sim_filter (no score or mask, the
+// tie at tie_idx[s, c]), mesh_tile_filter (dense_filter's, plus global
+// prev / evict ids and the tie at col0 + c).
 enum Mode : int { kDense = 0, kSim = 1, kTile = 2 };
 
 // The tables the main pass reads instead of redoing per row what depends
@@ -183,7 +187,7 @@ struct Tables {
 struct Terms {
   const int32_t* avail;  // [B,ld_avail] answers, -1 = none (shared by every scenario)
   const uint8_t* mask;   // [B,ld_mask] ANDed into feasible (not sim_filter)
-  const int32_t* score;  // [B,ld_score] added to the score (mesh_tile_filter)
+  const int32_t* score;  // [B,ld_score] added to the score (not sim_filter)
   int64_t ld_avail, ld_mask, ld_score;
   int col0;  // 0 but for a mesh tile
 };
@@ -332,7 +336,7 @@ filter_main_kernel(FilterArgs p, const int64_t* tie_idx, Terms x, Tables f, Main
         int4 extra = make_int4(-1, -1, -1, -1);
         if (x.avail != nullptr) extra = load4<kVec>(x.avail + (int64_t)b * x.ld_avail + c, n);
         int4 plus = make_int4(0, 0, 0, 0);
-        if (kMode == kTile && x.score != nullptr) {
+        if (kMode != kSim && x.score != nullptr) {
           plus = load4<kVec>(x.score + (int64_t)b * x.ld_score + c, n);
         }
         const int32_t reps = p.replicas[b];
@@ -735,7 +739,8 @@ dense_input_group_kernel(FilterArgs p, DenseRows d, int qt) {
 
 // The fleet tables and the factored batch of B rows (U distinct requests,
 // Tt toleration tables), extra_avail (i32 [B,C], -1 = no answer) and
-// extra_mask (bool [B,C]), each null when absent, the factored tables'
+// extra_mask (bool [B,C]) and extra_score (i32 [B,C]), each null when
+// absent, the factored tables'
 // scratch (est_u i32 [U,C], col_ok and api_t u8 [Tt,C] and [G,C]) and the
 // outputs. Builds the tables (zeroing the feasible counts), then runs the
 // main pass: two launches on the stream.
@@ -748,9 +753,9 @@ extern "C" int dense_filter_launch(
     const void* aff_idx, const void* prev_idx, const void* prev_rep,
     const void* evict_idx, const void* seeds, const void* req_unique,
     const void* req_idx, int B, int Kt, int Kp, int Ke, int U, int Tt, int plugin_bits,
-    int has_extra, const void* extra_avail, const void* extra_mask, void* est_u, void* col_ok,
-    void* api_t, void* feasible, void* score, void* avail, void* prev, void* tie,
-    void* feas_count, void* stream) {
+    int has_extra, const void* extra_avail, const void* extra_mask, const void* extra_score,
+    void* est_u, void* col_ok, void* api_t, void* feasible, void* score, void* avail,
+    void* prev, void* tie, void* feas_count, void* stream) {
   if (B <= 0 || C <= 0 || U <= 0 || Tt <= 0) return (int)cudaErrorInvalidValue;
   const FilterArgs p = filter_common::make_filter_args(
       alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok, C, R, T, G,
@@ -762,7 +767,8 @@ extern "C" int dense_filter_launch(
   const MainOut o{static_cast<uint8_t*>(feasible), static_cast<int32_t*>(score),
                   static_cast<int32_t*>(avail),    static_cast<int32_t*>(prev),
                   static_cast<int32_t*>(tie),      static_cast<int32_t*>(feas_count)};
-  const Terms x{p.extra_avail, static_cast<const uint8_t*>(extra_mask), nullptr, C, C, 0, 0};
+  const Terms x{p.extra_avail, static_cast<const uint8_t*>(extra_mask),
+                static_cast<const int32_t*>(extra_score), C, C, C, 0};
   return launch_factored<kDense>(p, f, o, nullptr, x, 1, static_cast<cudaStream_t>(stream));
 }
 

@@ -64,6 +64,17 @@ class Gauge:
         with _mutate_lock:
             self._values[_label_key(labels)] = v
 
+    def inc(self, amount: float = 1.0, **labels: str) -> None:
+        k = _label_key(labels)
+        with _mutate_lock:
+            self._values[k] = self._values.get(k, 0.0) + amount
+
+    def remove(self, **labels: str) -> None:
+        """Drop a label series (per-client gauges must not keep one stale
+        row per disconnected watcher)."""
+        with _mutate_lock:
+            self._values.pop(_label_key(labels), None)
+
     def value(self, **labels: str) -> float:
         return self._values.get(_label_key(labels), 0.0)
 

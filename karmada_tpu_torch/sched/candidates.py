@@ -158,13 +158,14 @@ def compact_estimate(
 def launch_candidates(array, bindings: Sequence, extra_avail=None, term_indices=None) -> dict:
     """LAUNCH half of the compact round: classify + permute rows by class,
     encode, run the candidate-select kernel (ONE [B, C] launch, the
-    estimator answers `extra_avail` min-merged at the window), then the
+    estimator answers `extra_avail` min-merged at the window, the
+    out-of-tree plugins' mask and score applied to every column), then the
     division-tail kernel per row class over [rows, K] windows. No device
     sync here."""
     if not bindings:
         return {"candidates": True, "n_real": 0}
     with stage_span("encode", array.stage_timer):
-        bindings, cls, order, raw, t, (s_batched, _cfg, s_fallback), extra = (
+        bindings, cls, order, raw, t, (s_batched, _cfg, s_fallback), extra, _terms = (
             array._encode_round(bindings, extra_avail, term_indices))
         spread_rows = sorted(set(s_batched) | set(s_fallback))
         k = effective_k(array, raw, len(array.fleet.names))
@@ -208,6 +209,7 @@ def _solve_candidates(array, bindings, cls, order, raw, t, spread_rows, extra, k
         t["prev_idx"], t["prev_rep"], t["evict_idx"], t["seeds"],
         t["req_unique"], t["req_idx"], t["extra_avail"],
         k=k, plugin_bits=array._plugin_bits,
+        extra_mask=t["extra_mask"], extra_score=t["extra_score"],
     )
     candidate_k_gauge.set(float(k), bucket=str(k))
 

@@ -28,6 +28,10 @@ Priority tiers and preemption (sched/preemption.py) ride the same seam:
 (`extra_avail`, estimator/client.py) ride every round: permuted with the
 rows, padded with the -1 no-answer sentinel, uploaded through one reusable
 pinned buffer and min-merged into the estimate by the filter kernels.
+The enabled out-of-tree plugins' terms (sched/plugins.py) ride them too:
+built on the host into a second pinned buffer, uploaded with the batch,
+the mask ANDed into feasibility and the score added by candidate_select
+and dense_filter (the mesh round pads them to the mesh).
 
 Rounds over the per-launch row cap run as equal row chunks, serially by
 default, or with `pipeline=True` through the chunk pipeline
@@ -129,14 +133,15 @@ class ScheduleDecision:
     before anything consumes them. Consumers see plain lists via the
     `targets`/`feasible` properties; assigning a list works too."""
 
-    __slots__ = ("key", "error", "affinity_name", "speculative",
+    __slots__ = ("key", "error", "affinity_name", "score", "speculative",
                  "_targets", "_targets_src", "_feasible", "_feasible_src")
 
     def __init__(self, key: str, targets=None, error: str = "",
-                 feasible=None, affinity_name: str = ""):
+                 feasible=None, score=None, affinity_name: str = ""):
         self.key = key
         self.error = error  # non-empty ⇒ unschedulable / fit error
         self.affinity_name = affinity_name  # applied ordered-affinity term
+        self.score = score
         # the victim-augmented decision of a tiered launch's speculative
         # pass (sched/preemption.py): a short placement's preemption plan
         # reads it instead of paying a second launch
@@ -559,7 +564,8 @@ class PinnedStaging:
     round uploads from two threads (the caller's, and the writer's
     affinity-retry sub-rounds), so the wait, the fill, the copy and its
     event are one step under a lock. On the CPU the padded matrix is a new
-    tensor."""
+    tensor. A second instance stages the out-of-tree plugin terms
+    (`upload_terms`: a bool and an i32 plane, 262 MB at the flagship)."""
 
     def __init__(self) -> None:
         self._buf: Optional[torch.Tensor] = None
@@ -588,6 +594,15 @@ class PinnedStaging:
         copied.record(torch.cuda.current_stream(device))
         return out, copied
 
+    def _host(self, nbytes: int) -> torch.Tensor:
+        """The first `nbytes` of the pinned buffer, once the last copy out
+        of it has finished (under the lock)."""
+        if self._buf is None or self._buf.numel() < nbytes:
+            self._buf = self._pinned(nbytes)
+        elif self._copied is not None:
+            self._copied.synchronize()
+        return self._buf[:nbytes]
+
     def upload(self, extra: np.ndarray, n_rows: int, n_cols: int, device) -> torch.Tensor:
         """`extra` (i32[n, c], n <= n_rows, c <= n_cols) padded with -1 to
         [n_rows, n_cols], on `device`."""
@@ -595,13 +610,32 @@ class PinnedStaging:
             return self._fill(torch.empty((n_rows, n_cols), dtype=torch.int32), extra)
         nbytes = 4 * n_rows * n_cols
         with self._lock:
-            if self._buf is None or self._buf.numel() < nbytes:
-                self._buf = self._pinned(nbytes)
-            elif self._copied is not None:
-                self._copied.synchronize()
-            host = self._fill(self._buf[:nbytes].view(torch.int32).view(n_rows, n_cols), extra)
+            host = self._fill(self._host(nbytes).view(torch.int32).view(n_rows, n_cols), extra)
             out, self._copied = self._copy(host, device)
             return out
+
+    def upload_terms(self, fill, n_rows: int, n_cols: int, device):
+        """The out-of-tree plugin terms, bool and i32 [n_rows, n_cols],
+        written by `fill(mask, score)` into host arrays (on a card the two
+        planes of the pinned buffer, the score's at a 16-byte boundary)
+        and put on `device` in one copy. Returns (mask, score) on the
+        device and (mask, score) on the host; the host arrays stay valid
+        until the next upload."""
+        n = n_rows * n_cols
+        if device.type != "cuda":
+            mask, score = np.empty((n_rows, n_cols), bool), np.empty((n_rows, n_cols), np.int32)
+            fill(mask, score)
+            return (torch.from_numpy(mask), torch.from_numpy(score)), (mask, score)
+        at = -(-n // 16) * 16
+        with self._lock:
+            host = self._host(at + 4 * n)
+            view = host.numpy()
+            mask = view[:n].view(bool).reshape(n_rows, n_cols)
+            score = view[at:].view(np.int32).reshape(n_rows, n_cols)
+            fill(mask, score)
+            out, self._copied = self._copy(host, device)
+        return ((out[:n].view(torch.bool).view(n_rows, n_cols),
+                 out[at:].view(torch.int32).view(n_rows, n_cols)), (mask, score))
 
 
 def caller_stream(device) -> Optional[torch.cuda.Stream]:
@@ -734,9 +768,11 @@ class ArrayScheduler:
         `bucket_cols`: pad the fleet axis to the shape_bucket lattice with
         dead clusters (the default); False solves at the exact fleet width.
         `plugin_registry`: the plugin registry whose names `plugins`
-        filters (None: the default one; the port registers no out-of-tree
-        plugin, so any registry holds the in-tree set only). All three
-        are keyword-only: the reference takes `encoder` as its second
+        filters (None: a registry of the in-tree plugins alone); its
+        enabled out-of-tree plugins' mask and score terms ride every round
+        (`_plugin_terms`) and switch off replay, the pipeline and the
+        tiered launches, as in the reference. All three are
+        keyword-only: the reference takes `encoder` as its second
         positional argument, where this constructor has `plugins`.
         Oversized rounds do not re-place the fleet over several cards
         yet: `_maybe_autoshard` raises where the reference would
@@ -768,10 +804,11 @@ class ArrayScheduler:
         self.candidate_k = resolve_candidate_k(candidate_k)
         self.last_candidate_stats: dict = {}
         self._staging = PinnedStaging()
-        # out-of-tree plugins: the port has none (registering one raises),
-        # and the tier routing, the replay cache and the pipeline read this
-        # as the reference does
-        self._oot_plugins: list = []
+        # the enabled out-of-tree plugins: their host-computed terms ride
+        # every round; the tier routing, the replay cache and the pipeline
+        # read this as the reference does
+        self._oot_plugins = self.plugin_registry.out_of_tree(self.enabled_plugins)
+        self._term_staging = PinnedStaging()
         # the chunk pipeline: the driving pipeline installs its stage timer
         # for one round (pipeline_context); last_pipeline_stats carries the
         # stage/overlap numbers of the last chunked round (None when the
@@ -1310,12 +1347,15 @@ class ArrayScheduler:
     def _encode_round(self, bindings: Sequence, extra_avail=None, term_indices=None):
         """The shared prefix of the compact and dense rounds: classify the
         rows (spread rows are class 0), permute them class-contiguous,
-        encode, pad and upload the batch and the answer matrix. Returns
-        (bindings, cls, order, raw, t, spread, extra) in the permuted row
-        order, `t` the batch tensors by field (with "extra_avail", the
-        padded answers on the device, or None), `spread` the (batched,
-        cfg_of, fallback) spread rows and `extra` the permuted answers on
-        the host (unpadded, or None)."""
+        encode, pad and upload the batch, the answer matrix and the
+        out-of-tree plugin terms. Returns (bindings, cls, order, raw, t,
+        spread, extra, terms) in the permuted row order, `t` the batch
+        tensors by field (with "extra_avail", the padded answers on the
+        device, and "extra_mask" / "extra_score", the plugin terms there;
+        each None when absent), `spread` the (batched, cfg_of, fallback)
+        spread rows, `extra` the permuted answers on the host (unpadded,
+        or None) and `terms` the plugin terms on the host ((mask, score)
+        over the padded batch, or None)."""
         batched, cfg_of, fallback = self._classify_spread(bindings)
         spread_set = set(batched) | set(fallback)
         cls = np.asarray(
@@ -1342,7 +1382,48 @@ class ArrayScheduler:
         batch = self._pad(raw)
         t = batch_from_numpy({name: getattr(batch, name) for name in _BATCH_FIELDS}, self.device)
         t["extra_avail"] = self._upload_extra(extra_avail, len(batch.replicas))
-        return bindings, cls, order, raw, t, (batched_p, cfg_p, fallback_p), extra_avail
+        (t["extra_mask"], t["extra_score"]), terms = self._upload_plugin_terms(
+            bindings, len(batch.replicas))
+        return bindings, cls, order, raw, t, (batched_p, cfg_p, fallback_p), extra_avail, terms
+
+    def _plugin_terms(self, bindings: Sequence, padded_B: int, out=None):
+        """The enabled out-of-tree plugins' host-computed terms (the
+        reference's `_plugin_terms`, scheduler.go:241-244): (mask bool[
+        padded_B, C], score i32[padded_B, C]), the masks ANDed and the
+        scores summed with the int32 wrap; (None, None) when no plugin is
+        enabled. Plugins see only the real cluster names: pad columns and
+        padding rows stay all-feasible with score 0. `out`, when given, is
+        the (mask, score) pair to write into."""
+        if not self._oot_plugins:
+            return None, None
+        C = len(self.fleet.names)
+        Cr = self.n_real_clusters
+        names = self.fleet.names[:Cr]
+        n = len(bindings)
+        if out is None:
+            mask, score = np.ones((padded_B, C), bool), np.zeros((padded_B, C), np.int32)
+        else:
+            mask, score = out
+            mask.fill(True)
+            score.fill(0)
+        for p in self._oot_plugins:
+            if hasattr(p, "mask"):
+                mask[:n, :Cr] &= np.asarray(p.mask(bindings, names), bool)
+            if hasattr(p, "score"):
+                score[:n, :Cr] += np.asarray(p.score(bindings, names), np.int32)
+        return mask, score
+
+    def _upload_plugin_terms(self, bindings: Sequence, n_rows: int):
+        """The plugin terms of a round's (permuted) bindings over its padded
+        rows, built into the term staging buffer and uploaded with the
+        round's other inputs: ((mask, score) on the device, (mask, score)
+        on the host), or ((None, None), None) without an enabled plugin —
+        then nothing is built or uploaded."""
+        if not self._oot_plugins:
+            return (None, None), None
+        return self._term_staging.upload_terms(
+            lambda mask, score: self._plugin_terms(bindings, n_rows, out=(mask, score)),
+            n_rows, len(self.fleet.names), self.device)
 
     def _upload_extra(self, extra_avail, n_rows: int) -> Optional[torch.Tensor]:
         """Answers i32[n, c] on the device, padded with -1 to [n_rows, C]
@@ -1379,12 +1460,12 @@ class ArrayScheduler:
         if not bindings:
             return {"n_real": 0}
         with stage_span("encode", self.stage_timer):
-            bindings, cls, order, raw, t, spread, extra = self._encode_round(
+            bindings, cls, order, raw, t, spread, extra, terms = self._encode_round(
                 bindings, extra_avail, term_indices)
         with stage_span("solve", self.stage_timer):
-            return self._solve_partitioned(bindings, cls, order, raw, t, spread, extra)
+            return self._solve_partitioned(bindings, cls, order, raw, t, spread, extra, terms)
 
-    def _solve_partitioned(self, bindings, cls, order, raw, t, spread, extra) -> dict:
+    def _solve_partitioned(self, bindings, cls, order, raw, t, spread, extra, terms) -> dict:
         """The dense round's kernel dispatch (the `solve` stage)."""
         from .. import kernels
 
@@ -1415,7 +1496,8 @@ class ArrayScheduler:
             t["tol_tables"], t["tol_idx"], t["aff_masks"], t["aff_idx"],
             t["prev_idx"], t["prev_rep"], t["evict_idx"], t["seeds"],
             t["req_unique"], t["req_idx"], t["extra_avail"],
-            plugin_bits=self._plugin_bits,
+            plugin_bits=self._plugin_bits, extra_mask=t["extra_mask"],
+            extra_score=t["extra_score"],
         )
 
         # ---- phase 2: division tails per sub-class, read through row ids ----
@@ -1447,8 +1529,8 @@ class ArrayScheduler:
 
         # ---- phase 2: spread group scoring ----
         spread_pre = self._spread_prelaunch(
-            bindings, raw, extra, batched_rows, batched_cfg, dev_feasible, dev_score, dev_avail,
-            dev_prev,
+            bindings, raw, extra, terms, batched_rows, batched_cfg, dev_feasible, dev_score,
+            dev_avail, dev_prev,
         )
 
         return {
@@ -1594,13 +1676,16 @@ class ArrayScheduler:
         """Replicas per target of a duplicated / non-workload row."""
         return 0 if int(raw.strategy[b]) == NON_WORKLOAD else int(bindings[b].spec.replicas)
 
-    def _spread_prelaunch(self, bindings, raw, extra, batched_rows, batched_cfg,
+    def _spread_prelaunch(self, bindings, raw, extra, terms, batched_rows, batched_cfg,
                           dev_feasible, dev_score, dev_avail, dev_prev):
         """LAUNCH the batched spread rows' group scoring (no sync): rows whose
         scoring inputs are identical share one representative — policy-heavy
         batches collapse many-fold, so only the representatives are scored,
         each read from the filter outputs through its row id. The overlay
-        expands (weight, value, feas_count) back through `score_inv`."""
+        expands (weight, value, feas_count) back through `score_inv`.
+        `terms` are the round's plugin terms on the host ((mask, score), or
+        None): each batched row's mask bytes are kept under "oot_mask" for
+        the overlay's packed-mask key."""
         if not batched_rows:
             return None
         from .. import kernels
@@ -1617,9 +1702,18 @@ class ArrayScheduler:
             reps[j] = bindings[b].spec.replicas
             dupf[j] = cfg.duplicated
 
-        # the reference's key: rows whose estimator answers differ never
-        # share a representative (its out-of-tree plugin masks and scores
-        # are absent in the port)
+        def row_bytes(x, b):
+            # a per-row term that feeds the filter outputs (estimator
+            # answers, out-of-tree plugin masks / scores): rows differing
+            # in it must never share a scoring representative
+            if x is None:
+                return None
+            if x.ndim == 2 and x.shape[0] == 1:
+                return b"same"  # broadcast sentinel: identical for all rows
+            return x[b].tobytes()
+
+        mask, score = (None, None) if terms is None else terms
+        oot_mask = [row_bytes(mask, b) for b in batched_rows]
         rep_of: dict[tuple, int] = {}
         rep_js: list[int] = []
         inv = np.empty(S, np.int64)
@@ -1631,7 +1725,7 @@ class ArrayScheduler:
                 raw.evict_idx[b].tobytes(),
                 raw.prev_idx[b].tobytes(), raw.prev_rep[b].tobytes(),
                 int(need[j]), int(target[j]), bool(dupf[j]),
-                None if extra is None else extra[b].tobytes(), None, None,
+                row_bytes(extra, b), oot_mask[j], row_bytes(score, b),
             )
             r = rep_of.get(key)
             if r is None:
@@ -1648,7 +1742,7 @@ class ArrayScheduler:
             *(to_device(x[js], dev) for x in (reps, need, target, dupf)),
             lay["perm"], lay["seg_start"], lay["seg_end"], lay["rank_p"],
         )
-        return {"score_inv": inv, "wvf": (W, V, fc)}
+        return {"score_inv": inv, "wvf": (W, V, fc), "oot_mask": oot_mask}
 
     def _spread_overlay(self, p, feas_count, unsched, avail_sum,
                         row_err, row_target_src, row_feas_src) -> None:
@@ -1699,7 +1793,10 @@ class ArrayScheduler:
             ]
             if ok_js:
                 # rows sharing (filters, eviction set, chosen regions) have
-                # IDENTICAL masks: only representative rows are packed
+                # IDENTICAL masks: only representative rows are packed. The
+                # feasible row folds in the per-row out-of-tree mask, so its
+                # bytes join the key
+                oot_mask = pre["oot_mask"]
                 rep_of: dict[tuple, int] = {}
                 rep_js: list[int] = []
                 rep_idx_of_j: dict[int, int] = {}
@@ -1709,7 +1806,7 @@ class ArrayScheduler:
                     k = (
                         int(raw.aff_idx[b]), int(raw.tol_idx[b]),
                         int(raw.gvk[b]), raw.evict_idx[b].tobytes(),
-                        chosen[j].tobytes(),
+                        chosen[j].tobytes(), oot_mask[j],
                     )
                     r = rep_of.get(k)
                     if r is None:
@@ -1811,18 +1908,26 @@ class ArrayScheduler:
             return
         aff_rows = raw.aff_masks[raw.aff_idx[np.asarray(live_rows)]]
         sel = np.stack(sel_masks)
-        extra_mask = None
-        if self._plugin_bits & plugin_mod.BIT_AFFINITY:
+        affinity_on = bool(self._plugin_bits & plugin_mod.BIT_AFFINITY)
+        if affinity_on:
             aff_rows = aff_rows & sel
-        else:
+        sub_batch = self._pad(_restrict_rows(raw, live_rows, aff_rows))
+        # the live rows' own plugin terms (the reference's re-solve asks the
+        # plugins again, for these rows only)
+        s_mask, s_score = self._plugin_terms([bindings[b] for b in live_rows],
+                                             len(sub_batch.replicas))
+        if not affinity_on:
             # the filter ignores the affinity table without ClusterAffinity,
             # so the selection (a SelectClusters restriction, not an
             # affinity term) rides the extra_mask channel, as in the
             # reference
-            extra_mask = sel
+            if s_mask is None:
+                s_mask = sel
+            else:
+                s_mask[:len(live_rows)] &= sel
         sub_extra = None if p["extra"] is None else p["extra"][live_rows]
-        s_out = self.run_kernel(self._pad(_restrict_rows(raw, live_rows, aff_rows)),
-                                extra_avail=sub_extra, extra_mask=extra_mask)
+        s_out = self.run_kernel(sub_batch, extra_avail=sub_extra, extra_mask=s_mask,
+                                extra_score=s_score)
         s_feas, s_result, s_unsched, s_avail_sum = (
             s_out[k].cpu().numpy()[: len(live_rows)] for k in (0, 2, 3, 4))
         for j, b in enumerate(live_rows):
@@ -1846,9 +1951,10 @@ class ArrayScheduler:
         the dense tail over all of them (it places Duplicated rows too)
         with the output window of `_batch_topk`. `extra_avail` (i32[rows,
         c], or None) are the rows' estimator answers; `extra_mask`
-        (bool[rows, C], or None) is ANDed into each row's feasibility, rows
-        past it keeping theirs. `extra_score` comes only from out-of-tree
-        plugins, which the port does not run yet. The batch comes padded
+        (bool[rows, C], or None) is ANDed into each row's feasibility and
+        `extra_score` (i32[rows, C], or None: the out-of-tree plugins'
+        score) added to each row's score with the int32 wrap, rows past
+        them keeping theirs. The batch comes padded
         (`_pad`), as the reference's callers pass it. Returns the
         reference's ten device outputs (feasible, score, result,
         unschedulable, avail_sum, avail, feas_count, nnz, top_idx, top_val)
@@ -1857,18 +1963,18 @@ class ArrayScheduler:
         from .. import kernels
         from ..convert import batch_from_numpy
 
-        if extra_score is not None:
-            raise NotImplementedError(
-                "run_kernel: extra_score (out-of-tree plugin scores) is ROADMAP queue A item 8")
         if self.mesh is not None and not self.mesh_partitioned:
             return self._mesh_solver()(batch, extra_avail, extra_mask=extra_mask,
-                                       plugin_bits=self._plugin_bits)
+                                       extra_score=extra_score, plugin_bits=self._plugin_bits)
         t = batch_from_numpy({name: getattr(batch, name) for name in _BATCH_FIELDS}, self.device)
-        mask_dev = None
-        if extra_mask is not None:
-            full = np.ones((len(batch.replicas), extra_mask.shape[1]), bool)
-            full[: len(extra_mask)] = extra_mask
-            mask_dev = to_device(full, self.device)
+        # the terms padded to the batch's rows (True / 0), up in one copy
+        padded = {}
+        for name, x, fill, dtype in (("mask", extra_mask, True, bool),
+                                     ("score", extra_score, 0, np.int32)):
+            if x is not None:
+                padded[name] = np.full((len(batch.replicas), x.shape[1]), fill, dtype)
+                padded[name][: len(x)] = x
+        on_dev = dict(zip(padded, to_device_packed(list(padded.values()), self.device)))
         f = self._fleet_dev
         feas, score, avail, prev, tie, feas_count = kernels.dense_filter(
             f["alive"], f["capacity"], f["has_summary"], f["taint_key"],
@@ -1877,7 +1983,8 @@ class ArrayScheduler:
             t["tol_tables"], t["tol_idx"], t["aff_masks"], t["aff_idx"],
             t["prev_idx"], t["prev_rep"], t["evict_idx"], t["seeds"],
             t["req_unique"], t["req_idx"], self._upload_extra(extra_avail, len(batch.replicas)),
-            plugin_bits=self._plugin_bits, extra_mask=mask_dev,
+            plugin_bits=self._plugin_bits, extra_mask=on_dev.get("mask"),
+            extra_score=on_dev.get("score"),
         )
         rows = torch.arange(len(batch.replicas), dtype=I32, device=self.device)
         C = feas.shape[1]
@@ -1909,10 +2016,11 @@ class ArrayScheduler:
             with self._encode_lock:
                 raw = self.batch_encoder.encode(bindings, term_indices=term_indices)
             batch = self._pad(raw)
-        n_rows = len(batch.replicas)
+            n_rows = len(batch.replicas)
+            extra_mask, extra_score = self._plugin_terms(bindings, n_rows)
         with stage_span("solve", self.stage_timer):
             outs, dev_prev, dev_tie = self._mesh_solver().run(
-                batch, extra_avail, plugin_bits=self._plugin_bits)
+                batch, extra_avail, extra_mask, extra_score, plugin_bits=self._plugin_bits)
             # the batch's rows of the mesh outputs (the fleet is already
             # mesh-wide: _fleet_width), contiguous row slices
             dev_feasible, dev_score, dev_result, dev_avail, dev_prev, dev_tie = (
@@ -1920,8 +2028,9 @@ class ArrayScheduler:
             t = batch_from_numpy({n: getattr(batch, n) for n in ("strategy", "replicas", "fresh")},
                                  self.device)
             spread_pre = self._spread_prelaunch(
-                bindings, raw, extra_avail, batched_rows, batched_cfg,
-                dev_feasible, dev_score, dev_avail, dev_prev)
+                bindings, raw, extra_avail,
+                None if extra_mask is None else (extra_mask, extra_score),
+                batched_rows, batched_cfg, dev_feasible, dev_score, dev_avail, dev_prev)
         with stage_span("materialize", self.stage_timer):
             host = [x.cpu().numpy() for x in outs[3:5] + outs[6:]]
             if spread_pre is not None:

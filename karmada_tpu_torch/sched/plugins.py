@@ -1,14 +1,20 @@
-"""Scheduler plugin registry: the `--plugins` enable/disable surface.
+"""Scheduler plugin registry: the `--plugins` enable/disable surface and the
+out-of-tree extension seam.
 
 The six in-tree plugins (plugins/registry.go:30-39) are FUSED mask/score
-terms inside the candidate-select kernel, so "enabling" a plugin selects
-which terms the kernel evaluates (the `plugin_bits` argument). Out-of-tree
-plugins (host-computed [B,C] mask/score terms, scheduler.go:241-244) belong
-to a later slice of the port: registering one raises NotImplementedError.
+terms inside the filter kernels, so "enabling" a plugin selects which terms
+the kernels evaluate (the `plugin_bits` argument). Out-of-tree plugins
+(FilterPlugin, ScorePlugin; registered with `PluginRegistry.register`)
+return host-computed [B, C] mask and score terms that ride into every round
+as extra kernel inputs: the mask ANDed into each row's feasibility, the
+score added to the in-tree score (a wrapping int32 add) — the reference's
+out-of-tree registry merge (scheduler.go:241-244).
 """
 from __future__ import annotations
 
 from typing import Iterable, Optional, Sequence
+
+import numpy as np
 
 # In-tree plugin names (plugins/registry.go:30-39).
 API_ENABLEMENT = "APIEnablement"
@@ -52,18 +58,47 @@ def plugin_bits(enabled: Iterable[str]) -> int:
     return bits
 
 
+class FilterPlugin:
+    """Out-of-tree filter seam (framework/interface.go:62-69): return a
+    bool[B, C] feasibility mask for the round's bindings x clusters."""
+
+    name = "filter"
+
+    def mask(self, bindings: Sequence, cluster_names: Sequence[str]) -> np.ndarray:
+        raise NotImplementedError
+
+
+class ScorePlugin:
+    """Out-of-tree score seam (framework/interface.go:183-194): return an
+    i32[B, C] score term, summed with the in-tree scores
+    (generic_scheduler.go:166-172 sums plugins)."""
+
+    name = "score"
+
+    def score(self, bindings: Sequence, cluster_names: Sequence[str]) -> np.ndarray:
+        raise NotImplementedError
+
+
 class PluginRegistry:
-    """In-tree names with the reference's Filter semantics
-    (runtime/registry.go:38-103)."""
+    """In-tree names + registered out-of-tree plugins, with the reference's
+    Register/Unregister/Filter semantics (runtime/registry.go:38-103)."""
+
+    def __init__(self) -> None:
+        self._out_of_tree: dict[str, object] = {}
 
     def register(self, plugin) -> None:
-        raise NotImplementedError(
-            "out-of-tree scheduler plugins are not ported yet (a later slice "
-            "of the PyTorch port)"
-        )
+        name = plugin.name
+        if name in IN_TREE or name in self._out_of_tree:
+            raise ValueError(f"a plugin named {name} already exists")
+        self._out_of_tree[name] = plugin
+
+    def unregister(self, name: str) -> None:
+        if name not in self._out_of_tree:
+            raise ValueError(f"no plugin named {name} exists")
+        del self._out_of_tree[name]
 
     def factory_names(self) -> list[str]:
-        return sorted(IN_TREE)
+        return sorted((*IN_TREE, *self._out_of_tree))
 
     def filter(self, names: Optional[Sequence[str]]) -> set[str]:
         """registry.Filter(names): '*' enables everything, 'foo' enables
@@ -87,3 +122,7 @@ class PluginRegistry:
             if name.startswith("-") and enabled:
                 enabled.discard(name.lstrip("-"))
         return enabled
+
+    def out_of_tree(self, enabled: set[str]) -> list:
+        """The enabled out-of-tree plugins, in name order."""
+        return [p for n, p in sorted(self._out_of_tree.items()) if n in enabled]

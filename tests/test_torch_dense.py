@@ -388,11 +388,11 @@ def test_dense_round_chunks_match_one_round(monkeypatch):
 
 
 def test_dense_round_raises_on_unported_paths():
-    """Out-of-tree plugins still raise on a dense round, naming their
-    slice; a spread row that needs the per-row re-solve without the
-    ClusterAffinity plugin (which raised until the extra_mask channel was
-    ported) and registered-estimator answers (which raised until the
-    estimator slice) now decide as the JAX package."""
+    """Paths that raised in earlier slices of the port now decide as the
+    JAX package on a dense round: a spread row that needs the per-row
+    re-solve without the ClusterAffinity plugin (until the extra_mask
+    channel was ported), registered-estimator answers (until the
+    estimator slice) and out-of-tree plugins (until the plugin slice)."""
     clusters, bindings = flagship_mix(n_bindings=8)
     plugins = ["*", "-ClusterAffinity"]
     port = TorchScheduler(from_reference_objects(clusters), candidate_k=0, device="cpu",
@@ -412,5 +412,14 @@ def test_dense_round_raises_on_unported_paths():
         bindings, extra_avail=extra)
     got = port.schedule(from_reference_objects(bindings), extra_avail=extra)
     assert [_decision_view(d) for d in got] == [_decision_view(d) for d in want]
-    with pytest.raises(NotImplementedError, match="out-of-tree"):
-        port.plugin_registry.register(object())
+    from karmada_tpu.sched import plugins as jplugins
+    from karmada_tpu_torch.sched import plugins as tplugins
+    from karmada_tpu_torch.testing.plugins import hash_registry
+
+    port = TorchScheduler(from_reference_objects(clusters), candidate_k=0, device="cpu",
+                          plugins=plugins, plugin_registry=hash_registry(tplugins.PluginRegistry))
+    want = jcore.ArrayScheduler(clusters, candidate_k=0, plugins=plugins,
+                                plugin_registry=hash_registry(jplugins.PluginRegistry)).schedule(
+        bindings, extra_avail=extra)
+    got = port.schedule(from_reference_objects(bindings), extra_avail=extra)
+    assert [_decision_view(d) for d in got] == [_decision_view(d) for d in want]

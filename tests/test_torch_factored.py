@@ -145,24 +145,27 @@ def test_dense_filter_tables_match_reference(C, bits, variant):
 def test_dense_filter_launch_marshals_the_tables(fake_card):
     """The launch passes U and Tt, one scratch for the three tables (est_u
     [U, C] i32, then col_ok [Tt, C] and api_t [G, C] bytes, back to back),
-    the answers and the mask, then the six outputs: one C entry of 44
-    arguments."""
+    the answers, the mask and the plugin score, then the six outputs: one
+    C entry of 45 arguments, an absent term as a null pointer."""
     C, B = 64, 5
     args = chip_smoke.random_select_inputs(np.random.default_rng(3), CPU_DEV, B, C)
     mask = torch.ones((B, C), dtype=torch.bool)
-    out = kernels._dense_filter_launch(*args, plugin_bits=ALL_PLUGIN_BITS, extra_mask=mask)
+    score = torch.zeros((B, C), dtype=torch.int32)
+    out = kernels._dense_filter_launch(*args, plugin_bits=ALL_PLUGIN_BITS, extra_mask=mask,
+                                       extra_score=score)
     (name, cargs), = fake_card
-    assert name == "dense_filter_launch" and len(cargs) == 44
+    assert name == "dense_filter_launch" and len(cargs) == 45
     U, Tt, G = args[18].shape[0], args[10].shape[0], args[6].shape[1]
     assert cargs[7:11] == (C, 4, 4, G) and cargs[24:32] == (B, 6, 8, 2, U, Tt, ALL_PLUGIN_BITS,
                                                              True)
     assert cargs[32] == args[-1].data_ptr() and cargs[33] == mask.data_ptr()
-    est_u, col_ok, api_t = cargs[34:37]
+    assert cargs[34] == score.data_ptr()
+    est_u, col_ok, api_t = cargs[35:38]
     assert col_ok - est_u == 4 * U * C and api_t - col_ok == Tt * C
-    assert cargs[37:43] == tuple(t.data_ptr() for t in out)
+    assert cargs[38:44] == tuple(t.data_ptr() for t in out)
     kernels._dense_filter_launch(*args[:-1], None, plugin_bits=0)
     _, cargs = fake_card[-1]
-    assert cargs[31] is False and cargs[32] is None and cargs[33] is None
+    assert cargs[31] is False and cargs[32:35] == (None, None, None)
 
 
 # --------------------------------------------------------------------------

@@ -195,3 +195,36 @@ def test_render_with_exemplars_matches_reference(exemplars):
     assert port == ref
     assert (port[-1] == "# EOF") is exemplars
     assert any('# {trace_id="t2"} 0.004' in ln for ln in port) is exemplars
+
+
+def test_gauge_inc_and_remove_match_reference():
+    """Gauge.inc (a label series' value plus the amount, 1 by default) and
+    Gauge.remove (the series dropped; an absent one ignored): the same
+    values and the same render as the reference's, on a fresh registry and
+    on the process-wide shard_queue_depth series the shard daemon removes."""
+    def trace(m):
+        reg = m.metrics.MetricsRegistry()
+        g = reg.gauge("karmada_test_gauge", "a gauge")
+        out = []
+        g.inc(shard="a")
+        g.inc(2.5, shard="a")
+        g.inc(-1.0, shard="b")
+        g.set(4.0, shard="c")
+        g.inc(shard="c")
+        out.append([g.value(shard=s) for s in "abcd"])
+        g.remove(shard="b")
+        g.remove(shard="never-set")
+        out.append([g.value(shard=s) for s in "abcd"])
+        out.append(reg.render())
+        depth = m.metrics.shard_queue_depth
+        depth.inc(3.0, shard="test-gauge-inc")
+        depth.inc(shard="test-gauge-inc")
+        out.append(depth.value(shard="test-gauge-inc"))
+        depth.remove(shard="test-gauge-inc")
+        out.append(depth.value(shard="test-gauge-inc"))
+        return out
+
+    ref, port = (trace(_mods(p)) for p in PKGS)
+    assert port == ref
+    assert ref[0] == [3.5, -1.0, 5.0, 0.0] and ref[1] == [3.5, 0.0, 5.0, 0.0]
+    assert ref[3:] == [4.0, 0.0]

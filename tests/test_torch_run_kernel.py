@@ -74,10 +74,23 @@ def test_run_kernel_matches_reference_by_position(encoded, terms):
 
 
 def test_run_kernel_extra_score_raises(encoded):
-    _ref, port, jb, tb = encoded
-    score = np.zeros((len(jb.replicas), len(port.fleet.names)), np.int32)
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        port.run_kernel(tb, None, None, score)
+    """run_kernel(batch, extra_avail, extra_mask, extra_score), the
+    out-of-tree plugins' score among its terms (it raised before the
+    plugin slice): the ten outputs equal the reference's, scores that wrap
+    the int32 range included, with the score alone and with every term."""
+    ref, port, jb, tb = encoded
+    B, C = len(jb.replicas), len(port.fleet.names)
+    rng = np.random.default_rng(12)
+    score = rng.integers(-2**31, 2**31 - 1, (B, C), dtype=np.int64).astype(np.int32)
+    score[:, :4] = 2**31 - 1  # the locality score's 100 wraps these
+    for args in ((None, None, score),
+                 (rng.integers(-1, 9, (B, C)).astype(np.int32), rng.random((B, C)) < 0.8,
+                  score)):
+        want = [np.asarray(x) for x in ref.run_kernel(jb, *args)]
+        got = [x.numpy() for x in port.run_kernel(tb, *args)]
+        for name, g, w in zip(OUTS, got, want):
+            np.testing.assert_array_equal(g, w, err_msg=name)
+        assert (want[1] < -2**31 + 100).any()  # a wrapped score
 
 
 @pytest.mark.parametrize("overlap", [True, False])

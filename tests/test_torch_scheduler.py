@@ -235,3 +235,22 @@ def test_port_imports_no_jax():
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_schedule_decision_score_matches_reference():
+    """ScheduleDecision's `score` slot and keyword (default None), in the
+    reference's position: after `feasible`, before `affinity_name`."""
+    import inspect
+
+    from karmada_tpu_torch.sched.core import ScheduleDecision as TDecision
+
+    JDecision = jcore.ScheduleDecision
+    assert list(inspect.signature(TDecision).parameters) == list(
+        inspect.signature(JDecision).parameters)
+    assert set(TDecision.__slots__) == set(JDecision.__slots__)
+    for cls in (JDecision, TDecision):
+        d = cls("ns/a", None, "", ["c0"], 7, "term")
+        assert (d.score, d.affinity_name, d.feasible) == (7, "term", ["c0"])
+        assert cls("ns/b").score is None
+        d.score = 3
+        assert d.score == 3
