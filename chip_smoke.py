@@ -1,6 +1,6 @@
 """On-card smoke test of the PyTorch/CUDA port (karmada_tpu_torch).
 
-    python3 chip_smoke.py [--only kernels|sim|graft|mesh|tiers|refresh|daemon|plugins]
+    python3 chip_smoke.py [--only kernels|sim|graft|mesh|tiers|refresh|daemon|plugins|wire]
 
 Needs one CUDA card (an H100 is the target) and nvcc; exits non-zero with no
 result line otherwise. Phases, each of which raises on failure:
@@ -249,6 +249,25 @@ result line otherwise. Phases, each of which raises on failure:
    same round without the plugins on a stated share of the rows:
    plugins_compact (the compact flagship), plugins_dense (the dense
    flagship) and plugins_spread (config 4);
+   last, the wire cells: the scheduler as its own process, `python -m
+   karmada_tpu_torch.sched --server URL` children on the card (spawned
+   with testing/daemon.py), attached to a port ControlPlaneServer that
+   this process serves over a stub plane (testing/daemon.py's MiniPlane:
+   a Store, a LeaseCoordinator on the wall clock), one direct card round
+   of daemon_flagship's fleet and bindings (a 2 000-row sample against
+   the CPU round) serving both: wire_flagship (the boot to `attached` and
+   the leader line, the cluster watch replay and the first list, the cold
+   placement of every binding and one churn round of 5 %, each binding
+   against the direct card round, the child's /metrics with jit_compiles
+   0, nvidia-smi's compute apps) and wire_failover (the same inputs,
+   children a and b with the default 10 s lease, b under a seeded HTTP
+   error rule: a places the cold round, is stopped, b takes over within
+   the TTL and one renew interval and places a churn round, a resumes and
+   loses its lease; no write under a's token lands after b's acquisition,
+   every final placement as the direct card round); B1 and B2 must launch
+   in each child wherever it placed, read from its /metrics
+   (karmada_kernel_launches_total), which the launch counts here do not
+   see;
 5. every kernel's launches over every main path's rounds, the `kernels`
    JSON line, then the card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
@@ -260,7 +279,8 @@ shim, `mesh` those of the mesh solve (with the single-device dense
 flagship round they are held against), `tiers` the tier kernels' checks of
 phase 3, `refresh` scatter_rows' check of phase 3 and the churn_dirty cell
 with the refresh's checks, `daemon` the three daemon cells of phase 4,
-`plugins` the plugin terms' checks of phase 3 and the plugin cells.
+`plugins` the plugin terms' checks of phase 3 and the plugin cells,
+`wire` the two wire cells.
 """
 from __future__ import annotations
 
@@ -270,7 +290,9 @@ import copy
 import functools
 import gc
 import json
+import os
 import re
+import signal
 import subprocess
 import sys
 import threading
@@ -356,7 +378,23 @@ from karmada_tpu_torch.server.scheduler_shim import SchedulerShimServer, decisio
 from karmada_tpu_torch.simulation import Simulator, apply_scenario_objects
 from karmada_tpu_torch.simulation.preflight import QuotaPreflight
 from karmada_tpu_torch.parallel.mesh import Mesh, MeshScheduleKernel, make_mesh
+from karmada_tpu_torch.api.coordination import (
+    DEFAULT_LEASE_DURATION,
+    LEADER_LEASE_NAMESPACE,
+    LEASE_SCHEDULER,
+)
+from karmada_tpu_torch.coordination import LeaseCoordinator
 from karmada_tpu_torch.runtime.controller import Runtime
+from karmada_tpu_torch.server.apiserver import ControlPlaneServer
+from karmada_tpu_torch.store.store import ConflictError
+from karmada_tpu_torch.testing.daemon import (
+    MiniPlane,
+    line_time,
+    output_lines,
+    reaping,
+    spawn_scheduler,
+    wait_for_line,
+)
 from karmada_tpu_torch.sched.scheduler import SchedulerDaemon, placement_json
 from karmada_tpu_torch.store.store import Store
 from karmada_tpu_torch.sched.pipeline import StageTimer
@@ -6646,10 +6684,641 @@ def run_plugin_cells(dev, smi, results):
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# the scheduler as its own process over the wire: a port ControlPlaneServer
+# over a stub plane in this process, `python -m karmada_tpu_torch.sched`
+# children on the card (wire_flagship, wire_failover)
+# --------------------------------------------------------------------------
+
+WIRE_LEASE_S = 10.0  # wire_failover's --lease-duration, the process's default: a 3 s
+#   lease expires under a full-width cold round (renew gaps to 5.5 s; PERF.md section 4)
+WIRE_RENEW_S = WIRE_LEASE_S / 3  # the elector's default renew (and retry) interval
+WIRE_JITTER = 0.2  # the elector's retry jitter (coordination/elector.py)
+WIRE_FAULT_RATE = 0.02  # b's seeded BOUNDARY_HTTP rule: this share of its HTTP calls fails,
+#   from its call number len(fleet) on: its boot replay lists the bindings once a cluster,
+#   and each failed list re-attaches the Cluster watch (at 2 % from the first call, 100
+#   re-attaches took the replay from about 15 s to 128 s; PERF.md section 7)
+WIRE_FAULT_SEED = 7
+WIRE_CACHE_EVENTS = 32_768  # the server's watch ring: every object of a cell twice over
+WIRE_BOOT_S = 300.0  # deadline of a child's boot (torch import, CUDA context, attach)
+WIRE_PHASE_S = 900.0  # deadline of a cold placement or a replay
+WIRE_CHURN_S = 300.0  # deadline of a churn round's re-placement
+WIRE_QUIET_S = 2.0  # a child is idle once the server saw no read or write from it this long
+WIRE_CREATE_CHUNK = 256  # bindings a store.create_batch (RemoteStore's batch chunk)
+WIRE_COMPACT = ("candidate_select", "candidate_tail")  # B1, B2: every compact round's
+WIRE_CHILD_LAUNCHES = {}  # window -> a child's kernel launches in it (its /metrics)
+
+
+class RecordingCoordinator(LeaseCoordinator):
+    """The stub plane's lease coordinator, recording each fence check
+    (monotonic time, token, passed), each acquisition and each renew."""
+
+    def __init__(self, store, clock):
+        super().__init__(store, clock)
+        self.fences = []
+        self.acquired = []
+        self.renewed = []
+
+    def check_fence(self, name, token, namespace=LEADER_LEASE_NAMESPACE):
+        t = time.monotonic()
+        try:
+            super().check_fence(name, token, namespace=namespace)
+        except ConflictError:
+            self.fences.append((t, token, False))
+            raise
+        self.fences.append((t, token, True))
+
+    def acquire(self, name, identity, duration=DEFAULT_LEASE_DURATION,
+                namespace=LEADER_LEASE_NAMESPACE):
+        lease, ok = super().acquire(name, identity, duration, namespace=namespace)
+        if ok and (not self.acquired or self.acquired[-1][1] != identity
+                   or self.acquired[-1][2] != lease.spec.fencing_token):
+            self.acquired.append((time.monotonic(), identity, lease.spec.fencing_token))
+        return lease, ok
+
+    def renew(self, name, identity, token, namespace=LEADER_LEASE_NAMESPACE):
+        lease = super().renew(name, identity, token, namespace=namespace)
+        self.renewed.append((time.monotonic(), identity, token))
+        return lease
+
+
+class WireServer:
+    """A port ControlPlaneServer over a MiniPlane (testing/daemon.py: a
+    Store, a RecordingCoordinator on the wall clock, so the leases expire
+    in real time) holding `fleet` (created after the server starts, in
+    name order, so the watch ring holds every cluster event and a
+    re-attaching watch resumes from `since=`), with its list pages timed
+    and each binding's latest outcome tracked from the store's own watch."""
+
+    def __init__(self, fleet):
+        self.plane = MiniPlane(coordinator=RecordingCoordinator)
+        self.srv = ControlPlaneServer(self.plane, watch_cache_capacity=WIRE_CACHE_EVENTS)
+        self.srv.start()
+        self.pages = []  # (t0, t1, kind, first page, items)
+        cache = self.srv._watch_cache
+        inner = cache.list_page
+
+        def list_page(kind, namespace, limit, token=None):
+            t0 = time.monotonic()
+            out = inner(kind, namespace, limit, token)
+            self.pages.append((t0, time.monotonic(), kind, not token, len(out[1])))
+            return out
+
+        cache.list_page = list_page
+        self.requests = {}  # (method, path) -> count
+        self.last_request = time.monotonic()
+        route = self.srv._route
+
+        def tracked(h, method):
+            path = h.path.split("?", 1)[0]
+            self.requests[(method, path)] = self.requests.get((method, path), 0) + 1
+            if not path.startswith(("/leases", "/watch")):
+                self.last_request = time.monotonic()
+            return route(h, method)
+
+        self.srv._route = tracked
+        self.outcomes = {}  # binding key -> stored_outcome of its latest event
+        self.scheduled = set()
+        self.plane.store.watch("ResourceBinding", self._on_binding, replay=False)
+        for c in fleet:
+            self.plane.store.create(c)
+
+    def _on_binding(self, event, rb):
+        out = stored_outcome(rb)
+        self.outcomes[rb.metadata.key()] = out
+        if out[1] is not None:
+            self.scheduled.add(rb.metadata.key())
+
+    @property
+    def url(self) -> str:
+        return self.srv.url
+
+    def create(self, objs):
+        """Create `objs` in the stub store in batches of WIRE_CREATE_CHUNK
+        (each one store lock hold, as one POST /objects/batch would be)."""
+        for i in range(0, len(objs), WIRE_CREATE_CHUNK):
+            self.plane.store.create_batch(objs[i:i + WIRE_CREATE_CHUNK])
+
+    def wait_quiet(self, label, timeout=WIRE_PHASE_S):
+        """Wait until no child has read or written (leases and watches
+        aside) for WIRE_QUIET_S: its queue has drained, the clean re-reads
+        of its own patches' events included. Returns the seconds waited."""
+        return wait_for(f"{label} quiet", lambda: time.monotonic() - self.last_request
+                        >= WIRE_QUIET_S, timeout)
+
+    def request_counts(self) -> dict:
+        return {f"{m} {p}": n for (m, p), n in sorted(self.requests.items())}
+
+    def first_pages(self, kind) -> int:
+        return sum(1 for _, _, k, first, _ in list(self.pages) if k == kind and first)
+
+    def first_list(self, kind, n_items):
+        """(seconds, pages) of the first full crawl of `kind`."""
+        pages = [p for p in list(self.pages) if p[2] == kind]
+        starts = [i for i, p in enumerate(pages) if p[3]]
+        for s in starts:
+            got, crawl = 0, []
+            for p in pages[s:]:
+                if crawl and p[3]:
+                    break
+                crawl.append(p)
+                got += p[4]
+            if got >= n_items:
+                return crawl[-1][1] - crawl[0][0], len(crawl)
+        return None, 0
+
+    def stop(self):
+        self.srv.stop()
+
+
+def renew_gaps(coord, identity):
+    """Seconds between one holder's consecutive lease writes (acquire or
+    renew) as the stub plane's coordinator recorded them."""
+    ts = sorted(t for t, who, _ in coord.acquired + coord.renewed if who == identity)
+    return [b - a for a, b in zip(ts, ts[1:])]
+
+
+def wait_for(label, pred, timeout, every=0.1):
+    t0 = time.monotonic()
+    while not pred():
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError(f"{label}: not reached within {timeout:.0f} s")
+        time.sleep(every)
+    return time.monotonic() - t0
+
+
+def child_env(**extra):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (os.path.dirname(os.path.abspath(__file__)), env.get("PYTHONPATH")) if p)
+    env.update(extra)
+    return env
+
+
+def child_tail(proc, n=8) -> str:
+    return " | ".join(line.rstrip() for line in output_lines(proc)[-n:])
+
+
+def compute_apps():
+    """nvidia-smi's compute apps as [(pid, used memory)]."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return [tuple(x.strip() for x in line.split(",", 1)) for line in out.splitlines()
+            if line.strip()]
+
+
+def compute_mode() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def check_compute_apps(label, before, children):
+    """The children's CUDA contexts as nvidia-smi lists them. Where
+    nvidia-smi reports pids of another pid namespace (a container's card
+    machine reports 1 for every context), a child's pid cannot be read
+    there: the check is then that the list grew by one context a child."""
+    apps = compute_apps()
+    pids = [pid for pid, _ in apps]
+    mine = {str(p.pid) for p in children}
+    log(f"{label}: nvidia-smi --query-compute-apps=pid,used_memory: {apps} (before the "
+        f"children: {before}; children's pids {sorted(mine)})")
+    if mine <= set(pids):
+        return apps
+    if any(pid.isdigit() and int(pid) > 1 and os.path.exists(f"/proc/{pid}") for pid in pids):
+        raise AssertionError(f"{label}: nvidia-smi lists pids of this namespace, but not the "
+                             f"children's {sorted(mine)}: {apps}")
+    if len(apps) != len(before) + len(children):
+        raise AssertionError(f"{label}: nvidia-smi lists {len(apps)} CUDA contexts with "
+                             f"{len(children)} children up, {len(before)} before: {apps}")
+    log(f"{label}: nvidia-smi reports pids outside this pid namespace ({sorted(set(pids))}); "
+        f"its list grew by {len(children)} context(s), one per child")
+    return apps
+
+
+def scrape(url) -> str:
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        return resp.read().decode()
+
+
+def metric_value(text, name) -> float:
+    m = re.search(rf"^{re.escape(name)}(?:{{[^}}]*}})? (\S+)", text, re.M)
+    return float(m.group(1)) if m else 0.0
+
+
+def latency_histogram(text):
+    buckets = [(m.group(1), int(float(m.group(2)))) for m in re.finditer(
+        r'^karmada_placement_latency_seconds_bucket\{le="([^"]+)"\} (\S+)', text, re.M)]
+    return {"count": int(metric_value(text, "karmada_placement_latency_seconds_count")),
+            "sum_s": metric_value(text, "karmada_placement_latency_seconds_sum"),
+            "buckets": buckets}
+
+
+def round_stats(text) -> dict:
+    """The child's streaming counters from one /metrics scrape: micro-batches
+    and their rows, their end-to-end seconds, and seconds by round stage."""
+    out = {"batches": metric_value(text, "karmada_microbatch_size_count"),
+           "rows": metric_value(text, "karmada_microbatch_size_sum"),
+           "e2e_s": metric_value(text, "karmada_scheduler_e2e_scheduling_duration_seconds_sum")}
+    for m in re.finditer(r'^karmada_schedule_stage_seconds_sum\{[^}]*stage="([^"]+)"[^}]*\} '
+                         r'(\S+)', text, re.M):
+        out[m.group(1)] = out.get(m.group(1), 0.0) + float(m.group(2))
+    return out
+
+
+def stats_delta(before, after) -> str:
+    return ", ".join(f"{k} {after.get(k, 0.0) - before.get(k, 0.0):.3f}".rstrip("0").rstrip(".")
+                     for k in sorted(set(before) | set(after)))
+
+
+def histogram_quantile(hist, q):
+    """The upper bound of the bucket holding quantile q (Prometheus'
+    histogram_quantile without the interpolation)."""
+    n = hist["count"]
+    for le, c in hist["buckets"]:
+        if n and c >= q * n:
+            return le
+    return None
+
+
+def wire_codecs() -> dict:
+    from karmada_tpu_torch.metrics import wire_connections
+
+    return {f"{c}/{loop}": wire_connections.value(codec=c, loop=loop)
+            for c in ("bin", "json") for loop in ("loop", "thread")
+            if wire_connections.value(codec=c, loop=loop)}
+
+
+def scheduler_child(url, identity, *args, env=None):
+    return spawn_scheduler(url, "--identity", identity, *args, timeout=WIRE_BOOT_S,
+                           env=env or child_env(), label=f"scheduler {identity}")
+
+
+def boot_line(label, proc, t_spawn, identity):
+    t_att = line_time(proc, r"karmada-tpu scheduler attached to ")
+    t_lead = line_time(proc, rf"leader: {identity} acquired lease ")
+    wait_for_line(proc, r"^device: cuda", timeout=5)
+    log(f"{label}: child pid {proc.pid} ({identity}) attached {t_att - t_spawn:.3f} s after "
+        f"spawn, leader line "
+        f"{'none (standby)' if t_lead is None else f'{t_lead - t_spawn:.3f} s'}; "
+        f"boot lines: {child_tail(proc, 10)}")
+    return t_att, t_lead
+
+
+def wait_replays(label, server, n_procs, n_clusters):
+    """Each child's Cluster watch replays the fleet through _on_cluster,
+    which lists the store's bindings once a cluster (the reference's
+    fan-out): the bindings are created only after every replay, so each
+    of those lists is one empty page."""
+    took = wait_for(f"{label} cluster replay",
+                    lambda: server.first_pages("ResourceBinding") >= n_procs * n_clusters,
+                    WIRE_PHASE_S)
+    secs, pages = server.first_list("Cluster", n_clusters)
+    log(f"{label}: {n_procs} cluster watch replay(s) of {n_clusters} clusters done "
+        f"{took:.3f} s after attach ({server.first_pages('ResourceBinding')} binding lists); "
+        f"the first full Cluster list took {secs if secs is None else round(secs, 4)} s in "
+        f"{pages} pages; watch codecs negotiated {wire_codecs()}")
+
+
+def kernel_launches(text) -> dict:
+    """A child's kernel launches by kernel, from one /metrics scrape."""
+    return {m.group(1): int(float(m.group(2))) for m in re.finditer(
+        r'^karmada_kernel_launches_total\{kernel="([^"]+)"\} (\S+)', text, re.M)}
+
+
+def launch_window(label, before, after):
+    """A child's launches between two scrapes: every compact round runs B1
+    and B2, so a window in which the child placed bindings without both
+    did not run the ported rounds on the card."""
+    got = {k: after[k] - before.get(k, 0) for k in sorted(after) if after[k] - before.get(k, 0)}
+    WIRE_CHILD_LAUNCHES[label] = got
+    log(f"{label}: the child's kernel launches in this window (its /metrics "
+        f"karmada_kernel_launches_total): {got}")
+    missing = [n for n in WIRE_COMPACT if not got.get(n)]
+    if missing:
+        raise AssertionError(f"{label}: the child placed bindings without launching {missing} "
+                             f"({got})")
+    return got
+
+
+def hold_wire(label, server, snap, direct, deadline):
+    """Wait until every binding in `snap` (the bindings as the scheduler
+    reads them) holds what a direct schedule() of the same bindings on the
+    card gives (those that need no scheduling keep their outcome); returns
+    (seconds, the expected outcomes by key)."""
+    solve = [rb for rb in snap if SchedulerDaemon._needs_schedule(None, rb)]
+    decisions = direct.schedule(solve) if solve else []
+    want = {rb.metadata.key(): expected_outcome(rb, d) for rb, d in zip(solve, decisions)}
+    for rb in snap:
+        want.setdefault(rb.metadata.key(), stored_outcome(rb))
+    took = hold_outcomes(label, server, want, deadline)
+    log(f"{label}: every one of {len(snap)} bindings as the direct card schedule() "
+        f"({len(solve)} solved, {sum(d.ok for d in decisions)} placed)")
+    return took, want
+
+
+def churn_edit(store, keys, cursor):
+    """edit_replicas' drift on the next 5 % of `keys`, written to the stub
+    store in batches of WIRE_CREATE_CHUNK (a user's bulk apply); returns
+    the edited bindings as the scheduler reads them (each with its
+    placement from before the edit), the inputs of the direct round that
+    holds the re-placement."""
+    n = max(1, int(len(keys) * INCREMENTAL_DIRTY))
+    dirty = [keys[(cursor + k) % len(keys)] for k in range(n)]
+    edited = store.get_batch("ResourceBinding", [(key.partition("/")[2],
+                                                  key.partition("/")[0]) for key in dirty])
+    for k, rb in enumerate(edited):
+        rb.spec.replicas = max(1, rb.spec.replicas + (k % 3) - 1)
+    for i in range(0, len(edited), WIRE_CREATE_CHUNK):
+        store.update_batch(copy.deepcopy(edited[i:i + WIRE_CREATE_CHUNK]))
+    return edited
+
+
+def hold_outcomes(label, server, want, deadline):
+    """Wait until every binding in `want` holds its expected outcome: poll
+    the outcomes the stub store's watch delivered (no copies of the
+    store's objects), then read those bindings from the store itself, which
+    must agree. Returns the seconds it took."""
+    keys = [(k.partition("/")[2], k.partition("/")[0]) for k in want]
+    t0 = time.monotonic()
+    while True:
+        seen = server.outcomes
+        bad = [(k, seen.get(k), v) for k, v in want.items() if seen.get(k) != v]
+        if not bad:
+            bad = [(rb.metadata.key(), stored_outcome(rb), want[rb.metadata.key()])
+                   for rb in server.plane.store.get_batch("ResourceBinding", keys)
+                   if stored_outcome(rb) != want[rb.metadata.key()]]
+            if not bad:
+                return time.monotonic() - t0
+        if time.monotonic() - t0 > deadline:
+            raise AssertionError(f"{label}: {len(bad)} of {len(want)} bindings differ from "
+                                 f"the direct card round after {deadline:.0f} s, first {bad[0]}")
+        time.sleep(0.2)
+
+
+def wire_inputs(dev):
+    """The inputs of both wire cells: the compact flagship (build_flagship,
+    seed 0: 5 000 clusters, 10 000 bindings, daemon_flagship's inputs), a
+    direct card round of it, and that round's outcome for each binding (a
+    DAEMON_SAMPLE-row sample held against the CPU round)."""
+    clusters, bindings = build_flagship()
+    fleet = sorted_fleet(clusters)
+    direct = ArrayScheduler(fleet, device=dev)
+    decisions = direct.schedule(bindings)
+    want = {rb.metadata.key(): expected_outcome(rb, d) for rb, d in zip(bindings, decisions)}
+    sample = sorted(np.random.default_rng(11).choice(len(bindings), DAEMON_SAMPLE, replace=False))
+    cpu = ArrayScheduler(fleet, device="cpu").schedule([bindings[i] for i in sample])
+    bad = first_difference([decisions[i] for i in sample], cpu)
+    if bad is not None:
+        raise AssertionError(f"wire cells: the direct card round differs from the cpu round at "
+                             f"sample row {bad}")
+    log(f"wire cells: the direct card round of {len(bindings)} bindings over {len(fleet)} "
+        f"clusters, a {DAEMON_SAMPLE}-row sample of it equal to the cpu round")
+    return SimpleNamespace(fleet=fleet, bindings=bindings, direct=direct, want=want)
+
+
+def run_wire_flagship(dev, smi, inp):
+    """wire_flagship: the wire cells' inputs in a stub plane served by a
+    port ControlPlaneServer here, one `python -m karmada_tpu_torch.sched
+    --server URL --metrics-port 0` child on the card: its boot, the cold
+    placement and one churn round (5 % of the bindings drift their
+    replicas), each binding against the direct card round, its /metrics
+    scrape (B1 and B2 launched in each window) and nvidia-smi's compute
+    apps."""
+    label = "wire_flagship"
+    cell_t0 = time.perf_counter()
+    fleet, bindings, want = inp.fleet, inp.bindings, inp.want
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = compute_apps()
+    server = WireServer(fleet)
+    try:
+        with reaping() as reg:
+            t_spawn = time.monotonic()
+            proc = scheduler_child(server.url, "flagship", "--metrics-port", "0")
+            reg(proc)
+            boot_line(label, proc, t_spawn, "flagship")
+            metrics_url = wait_for_line(proc, r"metrics: serving on (\S+)", timeout=5).group(1)
+            wait_replays(label, server, 1, len(fleet))
+            check_compute_apps(label, before, [proc])
+            text = scrape(metrics_url)
+            stats0, launches0 = round_stats(text), kernel_launches(text)
+            t0 = time.monotonic()
+            server.create(bindings)
+            created = time.monotonic() - t0
+            placed = wait_for(f"{label} cold placement",
+                              lambda: len(server.scheduled) >= len(bindings), WIRE_PHASE_S)
+            cold = time.monotonic() - t0
+            hold_outcomes(f"{label} cold", server, want, 60.0)
+            log(f"{label} cold: every one of {len(want)} bindings as the direct card "
+                f"schedule()")
+            log(f"{label} on {smi}: {len(bindings)} bindings created in batches of "
+                f"{WIRE_CREATE_CHUNK} in {created:.3f} s, every one Scheduled {cold:.3f} s "
+                f"after the first create (watched from the stub store; {placed:.3f} s of "
+                f"waiting)")
+            quiet = server.wait_quiet(label)
+            gaps = renew_gaps(server.plane.coordinator, "flagship")
+            log(f"{label}: the child idle {quiet:.3f} s later (the clean re-reads of its own "
+                f"patches' events); requests so far {server.request_counts()}; its lease "
+                f"(10 s, renewed every 3.33 s +- 20 %): {len(gaps)} gaps between renews as the "
+                f"plane saw them, max {max(gaps, default=0):.3f} s")
+            text = scrape(metrics_url)
+            stats1, launches1 = round_stats(text), kernel_launches(text)
+            log(f"{label}: the child's rounds for the cold placement (its /metrics): "
+                f"{stats_delta(stats0, stats1)}")
+            launch_window(f"{label} cold", launches0, launches1)
+            keys = [rb.metadata.key() for rb in bindings]
+            t1 = time.monotonic()
+            snap = churn_edit(server.plane.store, keys, 0)
+            _, churn_want = hold_wire(f"{label} churn", server, snap, inp.direct, WIRE_CHURN_S)
+            log(f"{label} churn on {smi}: {len(snap)} bindings drift, every one re-placed "
+                f"{time.monotonic() - t1:.3f} s after the first edit")
+            hold_outcomes(f"{label} after the churn", server, {**want, **churn_want}, 60.0)
+            log(f"{label}: after the churn every one of {len(want)} bindings as the direct "
+                f"card round")
+            server.wait_quiet(f"{label} churn")
+            text = scrape(metrics_url)
+            log(f"{label}: the child's rounds for the churn (its /metrics): "
+                f"{stats_delta(stats1, round_stats(text))}")
+            launch_window(f"{label} churn", launches1, kernel_launches(text))
+            hist = latency_histogram(text)
+            renew = [(m.group(1), int(float(m.group(2)))) for m in re.finditer(
+                r'^karmada_leader_election_renew_duration_seconds_bucket\{[^}]*le="([^"]+)"'
+                r'[^}]*\} (\S+)', text, re.M)]
+            log(f"{label}: the child's lease renew round trips (its /metrics): {renew}")
+            compiles = metric_value(text, "karmada_jit_cache_misses_total")
+            hits = metric_value(text, "karmada_jit_persistent_cache_hits_total")
+            log(f"{label}: the child's /metrics: placement latency count {hist['count']} sum "
+                f"{hist['sum_s']:.3f} s, p50 <= {histogram_quantile(hist, 0.5)} s, p99 <= "
+                f"{histogram_quantile(hist, 0.99)} s, buckets {hist['buckets']}; jit_compiles "
+                f"{compiles:g}, jit_persistent_cache_hits {hits:g}")
+            if compiles != 0 or hits <= 0 or hist["count"] < len(bindings):
+                raise AssertionError(f"{label}: the child built kernels ({compiles:g}), loaded "
+                                     f"none from disk ({hits:g}) or observed fewer than "
+                                     f"{len(bindings)} placements ({hist['count']})")
+            log(f"{label}: child output tail: {child_tail(proc)}")
+        after = compute_apps()
+        log(f"{label}: the child reaped; nvidia-smi compute apps {after}")
+    finally:
+        server.stop()
+    log(f"{label}: the cell took {time.perf_counter() - cell_t0:.1f} s")
+
+
+def run_wire_failover(dev, smi, inp):
+    """wire_failover: the wire cells' inputs at full width in a fresh stub
+    plane, two children on the card with `--identity a` / `b` and the
+    default 10 s lease, b under a seeded BOUNDARY_HTTP error rule
+    (KARMADA_TPU_FAULT_PLAN). a leads and places the cold round while b
+    stands by warm; a is stopped (SIGSTOP), one churn round is written, b
+    takes over and places it; a resumes (SIGCONT), its renew bounces and it
+    prints `lost lease`. The token must have advanced, no fenced write
+    under a's token may pass after b's acquisition, each child must have
+    launched B1 and B2 while it placed, and every binding must end as the
+    direct card round has it."""
+    label = "wire_failover"
+    cell_t0 = time.perf_counter()
+    fleet, bindings, want = inp.fleet, inp.bindings, dict(inp.want)
+    mode = compute_mode()
+    log(f"{label}: nvidia-smi compute_mode {mode}")
+    if "Exclusive_Process" in mode:
+        raise AssertionError(f"{label}: the card is in {mode} compute mode; two scheduler "
+                             "processes cannot share it")
+    plan = faults.FaultPlan(seed=WIRE_FAULT_SEED, rules=[faults.FaultRule(
+        boundary=faults.BOUNDARY_HTTP, kind="error", rate=WIRE_FAULT_RATE, after=len(fleet))])
+    lease_args = ("--lease-duration", f"{WIRE_LEASE_S:g}", "--metrics-port", "0")
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = compute_apps()
+    server = WireServer(fleet)
+    coord = server.plane.coordinator
+    a = None
+    try:
+        with reaping() as reg:
+            t_spawn = time.monotonic()
+            a = scheduler_child(server.url, "a", *lease_args)
+            reg(a)
+            boot_line(label, a, t_spawn, "a")
+            a_metrics = wait_for_line(a, r"metrics: serving on (\S+)", timeout=5).group(1)
+            t_spawn = time.monotonic()
+            b = scheduler_child(server.url, "b", *lease_args,
+                                env=child_env(**{faults.ENV_FAULT_PLAN: plan.to_json()}))
+            reg(b)
+            boot_line(label, b, t_spawn, "b")
+            b_metrics = wait_for_line(b, r"metrics: serving on (\S+)", timeout=5).group(1)
+            if "faults: chaos plan installed" not in "".join(output_lines(b)):
+                raise AssertionError(f"{label}: b did not install its fault plan: "
+                                     f"{child_tail(b)}")
+            wait_replays(label, server, 2, len(fleet))
+            check_compute_apps(label, before, [a, b])
+            a_launches = kernel_launches(scrape(a_metrics))
+            t0 = time.monotonic()
+            server.create(bindings)
+            wait_for(f"{label} cold placement", lambda: len(server.scheduled) >= len(bindings),
+                     WIRE_PHASE_S)
+            cold = time.monotonic() - t0
+            hold_outcomes(f"{label} cold (a)", server, want, 60.0)
+            tokens = sorted({tok for _, tok, ok in coord.fences if ok})
+            gaps = renew_gaps(coord, "a")
+            log(f"{label} on {smi}: a placed the cold round ({len(bindings)} bindings over "
+                f"{len(fleet)} clusters) in {cold:.3f} s; fenced writes passed under tokens "
+                f"{tokens}; the lease's holders {[(who, tok) for _, who, tok in coord.acquired]}; "
+                f"a's renews {len(gaps) + 1}, gaps between them max {max(gaps, default=0):.3f} "
+                f"s, p99 {float(np.percentile(gaps, 99)) if gaps else 0:.3f} s")
+            if tokens != [1] or line_time(b, r"leader: b acquired") is not None:
+                raise AssertionError(f"{label}: the cold round's writes passed under tokens "
+                                     f"{tokens}, or b led: {child_tail(b, 20)}")
+            launch_window(f"{label} cold (a)", a_launches, kernel_launches(scrape(a_metrics)))
+            b_launches = kernel_launches(scrape(b_metrics))
+
+            n_a = len(output_lines(a))
+            t_stop = time.monotonic()
+            os.kill(a.pid, signal.SIGSTOP)
+            t1 = time.monotonic()
+            snap = churn_edit(server.plane.store, [rb.metadata.key() for rb in bindings], 0)
+            m = wait_for_line(b, r"leader: b acquired lease karmada-scheduler "
+                                 r"\(fencing token (\d+)\)", timeout=120)
+            t_take = line_time(b, r"leader: b acquired lease")
+            takeover = t_take - t_stop
+            b_acq = next(t for t, who, _ in coord.acquired if who == "b")
+            last_a = max(t for t, who, _ in coord.renewed + coord.acquired
+                         if who == "a" and t < b_acq)
+            # each of b's lease calls that its fault plan failed costs one
+            # retry interval (the elector logs it)
+            failed = sum(1 for t, line in list(b._spawn_stamps)
+                         if t_stop <= t <= t_take and "lease call failed" in line)
+            limit = WIRE_LEASE_S + WIRE_RENEW_S * (1 + WIRE_JITTER) * (1 + failed)
+            log(f"{label}: SIGSTOP to a, {len(snap)} bindings drift; b took over "
+                f"{takeover:.3f} s after the stop (fencing token {m.group(1)}; a's last "
+                f"renew {b_acq - last_a:.3f} s before b's acquisition; TTL {WIRE_LEASE_S:g} s "
+                f"+ one renew interval {WIRE_RENEW_S:.2f} s with the elector's "
+                f"{WIRE_JITTER:.0%} jitter{f' per attempt, {failed} of b failed by its plan' if failed else ''}"
+                f" = {limit:.1f} s)")
+            if int(m.group(1)) != 2 or takeover > limit:
+                raise AssertionError(f"{label}: takeover {takeover:.3f} s (limit {limit:.1f}) "
+                                     f"with token {m.group(1)}")
+            _, churn_want = hold_wire(f"{label} churn (b)", server, snap, inp.direct,
+                                      WIRE_CHURN_S)
+            want = {**want, **churn_want}
+            log(f"{label} churn on {smi}: b re-placed every drifted binding "
+                f"{time.monotonic() - t1:.3f} s after the first edit")
+            launch_window(f"{label} takeover and churn (b)", b_launches,
+                          kernel_launches(scrape(b_metrics)))
+
+            t_cont = time.monotonic()
+            os.kill(a.pid, signal.SIGCONT)
+            lost = wait_for_line(a, r"leader: a lost lease karmada-scheduler \((.*)\)",
+                                 timeout=60, start=n_a)
+            t_lost = line_time(a, r"leader: a lost lease", after=t_cont)
+            lease = server.plane.store.get("LeaderLease", LEASE_SCHEDULER, LEADER_LEASE_NAMESPACE)
+            late = [(t - b_acq, tok) for t, tok, ok in coord.fences
+                    if ok and tok != lease.spec.fencing_token and t > b_acq]
+            bounced = sum(1 for t, tok, ok in coord.fences if not ok and tok == 1 and t > b_acq)
+            log(f"{label}: SIGCONT to a; a printed `lost lease` {t_lost - t_cont:.3f} s later "
+                f"({lost.group(1)}); lease {lease.spec.holder_identity} token "
+                f"{lease.spec.fencing_token}; writes under token 1 after b's acquisition: "
+                f"{len(late)} passed, {bounced} bounced with 409")
+            if lease.spec.fencing_token != 2 or lease.spec.holder_identity != "b" or late:
+                raise AssertionError(f"{label}: lease {lease.spec.holder_identity} token "
+                                     f"{lease.spec.fencing_token}, late writes {late[:5]}")
+            time.sleep(WIRE_RENEW_S)  # a stands by again: nothing more may land
+            now = {rb.metadata.key(): stored_outcome(rb)
+                   for rb in server.plane.store.list("ResourceBinding")}
+            bad = [k for k, v in want.items() if now.get(k) != v]
+            if bad or len(now) != len(want):
+                raise AssertionError(f"{label}: {len(bad)} final placements differ from the "
+                                     f"direct card round, first {bad[:1]}")
+            errors = sum(1 for line in output_lines(b) if "injected fault" in line)
+            log(f"{label}: all {len(now)} final placements as the direct card round; b under "
+                f"its fault plan ({WIRE_FAULT_RATE:g} of its HTTP calls fail from its call "
+                f"{len(fleet)} on; {errors} of its output lines report an injected failure); "
+                f"requests {server.request_counts()}")
+            log(f"{label}: b's output tail: {child_tail(b, 4)}")
+            log(f"{label}: a's output tail: {child_tail(a, 4)}")
+    finally:
+        if a is not None and a.poll() is None:
+            os.kill(a.pid, signal.SIGCONT)
+        server.stop()
+    log(f"{label}: the cell took {time.perf_counter() - cell_t0:.1f} s")
+
+
+def run_wire_cells(dev, smi):
+    t0 = time.perf_counter()
+    inp = wire_inputs(dev)
+    run_wire_flagship(dev, smi, inp)
+    gc.collect()
+    run_wire_failover(dev, smi, inp)
+    del inp
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"the wire cells took {time.perf_counter() - t0:.1f} s; the children's kernel launches "
+        f"(their /metrics, not in the kernels line): {json.dumps(WIRE_CHILD_LAUNCHES)}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="On-card smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--only", choices=("kernels", "sim", "graft", "mesh", "tiers", "refresh",
-                                       "daemon", "plugins"),
+                                       "daemon", "plugins", "wire"),
                     help="build every kernel, run one group of phases, print no result line")
     opts = ap.parse_args(sys.argv[1:] if argv is None else argv)
     only = opts.only
@@ -6680,6 +7349,10 @@ def main(argv=None) -> int:
                         {"candidate_select": 1, "candidate_tail": 2})
         log(f"--only refresh: scatter_rows and churn_dirty passed ({json.dumps(results)}; "
             f"launches {path_launches}); no other kernel or cell was run")
+        return 0
+    if only == "wire":
+        run_wire_cells(dev, smi)
+        log("--only wire: the wire cells passed; no other kernel or cell was run")
         return 0
     if only == "daemon":
         path_launches = {}
@@ -6829,6 +7502,9 @@ def main(argv=None) -> int:
     run_sim_cells(dev, smi, path_launches)
     run_daemon_cells(dev, smi, path_launches)
     run_plugin_cells(dev, smi, results)
+    # last: the wire cells' server threads and children share the host, so
+    # no in-process cell's timed round runs beside them
+    run_wire_cells(dev, smi)
 
     # every kernel of a main path launched there; staleness_penalty serves
     # callers that hold an answer matrix on the card, and no path does: the

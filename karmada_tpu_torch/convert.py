@@ -3,8 +3,9 @@ device.
 
 `from_reference_objects` copies an API object of the JAX package (a
 Cluster, ResourceBinding, Placement, NodeSpec, Scenario,
-FederatedResourceQuota, AdmissionRequest, ...) into the port's
-dataclass of the same name, field by field, keeping the uid. Tie-breaks are seeded by the
+FederatedResourceQuota, AdmissionRequest, LeaderLease, Event, ...) into
+the port's dataclass of the same name, field by field, keeping the uid;
+an `Unstructured` manifest becomes the port's `Unstructured`. Tie-breaks are seeded by the
 binding UID (models/batch.py uid_seed), so converted objects make both
 packages solve the same problem. It matches classes by NAME and never
 imports the JAX package.
@@ -19,18 +20,22 @@ entry's `args`).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
 import torch
 
-from .api import cluster, meta, policy, search, simulation, work
+from . import events
+from .api import cluster, coordination, meta, policy, search, simulation, work
+from .api.unstructured import Unstructured
 from .models import nodes
 from .webhook import admission
 
 _PORT_CLASSES = {
     name: obj
-    for mod in (meta, cluster, policy, work, nodes, simulation, search, admission)
+    for mod in (meta, cluster, policy, work, nodes, simulation, search, admission,
+                coordination, events)
     for name, obj in vars(mod).items()
     if isinstance(obj, type) and dataclasses.is_dataclass(obj)
 }
@@ -40,6 +45,8 @@ def from_reference_objects(obj):
     """Deep copy of `obj` in which every dataclass instance is rebuilt as
     the port's class of the same name (lists, tuples and dicts are walked;
     other values are copied as they are)."""
+    if type(obj).__name__ == "Unstructured":
+        return Unstructured(copy.deepcopy(obj.to_dict()))
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         name = type(obj).__name__
         cls = _PORT_CLASSES.get(name)

@@ -74,6 +74,20 @@ class UnschedulableReplicaEstimator(Protocol):
         ...
 
 
+def parse_estimator_flags(specs: list[str]) -> dict[str, str]:
+    """`--estimator CLUSTER=HOST:PORT` values (repeatable daemon flag) →
+    address map. Register the resulting GrpcSchedulerEstimator ONCE in a
+    registry — the client fans out per cluster itself via the address map;
+    per-cluster registration would multiply every sweep's RPC load."""
+    addresses: dict[str, str] = {}
+    for spec in specs:
+        cluster, sep, addr = spec.partition("=")
+        if not sep or not cluster or not addr:
+            raise SystemExit(f"--estimator {spec!r}: want CLUSTER=HOST:PORT")
+        addresses[cluster] = addr
+    return addresses
+
+
 class EstimatorRegistry:
     """replicaEstimators / unschedulableReplicaEstimators registries
     (interface.go:38-55). The GeneralEstimator is fused into the schedule

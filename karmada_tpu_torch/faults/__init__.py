@@ -1,25 +1,47 @@
-"""Fault-tolerance pieces of the estimator path (the port's copy of
-faults/): deterministic fault injection at the estimator boundary, the
-per-member circuit breakers, and degraded-mode estimator staleness."""
+"""Fault-tolerance plane (the port's copy of faults/): deterministic chaos
+injection at the HTTP, estimator and apply boundaries (env-gated for
+daemon processes), the unified retry/breaker policy, and degraded-mode
+estimator staleness."""
 from .plan import (
+    BOUNDARY_APPLY,
     BOUNDARY_GRPC,
+    BOUNDARY_HTTP,
+    ENV_FAULT_PLAN,
     FaultAction,
     FaultInjector,
     FaultPlan,
     FaultRule,
     InjectedFault,
+    PROCESS_KINDS,
+    ProcessEvent,
+    ProcessFaultRule,
     active,
     check,
     install,
+    install_from_env,
     reset,
 )
-from .policy import CLOSED, HALF_OPEN, OPEN, BreakerRegistry, CircuitBreaker
-from .staleness import MAX_STALENESS_AGE, StalenessTracker, apply_staleness_penalty
+from .policy import (
+    CLOSED,
+    HALF_OPEN,
+    OPEN,
+    Backoff,
+    BreakerRegistry,
+    CircuitBreaker,
+    RetryPolicy,
+)
+from .staleness import (
+    MAX_STALENESS_AGE,
+    StalenessTracker,
+    apply_staleness_penalty,
+)
 
 __all__ = [
-    "BOUNDARY_GRPC",
+    "BOUNDARY_APPLY", "BOUNDARY_GRPC", "BOUNDARY_HTTP", "ENV_FAULT_PLAN",
     "FaultAction", "FaultInjector", "FaultPlan", "FaultRule", "InjectedFault",
-    "active", "check", "install", "reset",
-    "CLOSED", "HALF_OPEN", "OPEN", "BreakerRegistry", "CircuitBreaker",
+    "PROCESS_KINDS", "ProcessEvent", "ProcessFaultRule",
+    "active", "check", "install", "install_from_env", "reset",
+    "CLOSED", "HALF_OPEN", "OPEN",
+    "Backoff", "BreakerRegistry", "CircuitBreaker", "RetryPolicy",
     "MAX_STALENESS_AGE", "StalenessTracker", "apply_staleness_penalty",
 ]

@@ -1,17 +1,30 @@
-"""Per-member circuit breakers (the port's copy of the breaker half of
-faults/policy.py; the retry and backoff policies serve I/O paths the port
-does not have).
+"""Unified retry + circuit-breaker policy for every member-facing I/O path
+(the port's copy of faults/policy.py).
 
-`CircuitBreaker`: per-member closed -> open -> half-open probe machine.
-While open, callers fast-fail (the batched solve must never stall on a dark
-member); after `open_seconds` one probe is admitted, and its outcome closes
-or re-opens the breaker. Time is injectable (`clock` returns monotonic
-seconds), so the state machine unit-tests with fake clocks.
+One place for the three fault-tolerance primitives the reference spreads over
+client-go workqueue rate limiters, per-cluster gRPC connection management,
+and taint-based failover:
+
+  - `RetryPolicy`: exponential backoff with FULL jitter (delay is uniform in
+    [0, min(cap, base·mult^attempt)] — the AWS-architecture-blog shape that
+    de-synchronizes retry storms) under a total deadline budget.
+  - `Backoff`: the stateful per-stream variant (replaces `RemoteStore`'s
+    hand-rolled watch backoff).
+  - `CircuitBreaker`: per-member closed → open → half-open probe machine.
+    While open, callers fast-fail (the batched solve must never stall on a
+    dark member); after `open_seconds` one probe is admitted, and its
+    outcome closes or re-opens the breaker.
+
+All time is injectable (`clock` returns monotonic seconds) and all jitter is
+injectable (`rng` returns uniform [0,1)), so the state machines unit-test
+with fake clocks and chaos runs stay deterministic.
 """
 from __future__ import annotations
 
+import random
 import threading
 import time
+from dataclasses import dataclass
 from typing import Callable, Optional
 
 # breaker states (gauge values: the wire encoding of karmada_breaker_state)
@@ -19,6 +32,73 @@ CLOSED = "closed"
 OPEN = "open"
 HALF_OPEN = "half_open"
 _STATE_GAUGE = {CLOSED: 0.0, HALF_OPEN: 1.0, OPEN: 2.0}
+
+
+@dataclass(frozen=True)
+class RetryPolicy:
+    """Declarative retry envelope: attempts × backoff under a deadline."""
+
+    base_delay: float = 0.1
+    max_delay: float = 5.0
+    multiplier: float = 2.0
+    max_attempts: int = 5
+    deadline: float = 30.0  # total budget across attempts + sleeps
+
+    def delay(self, attempt: int, u: Optional[float] = None) -> float:
+        """Full-jitter delay for `attempt` (0-based): uniform in
+        [0, min(max_delay, base·mult^attempt)]."""
+        cap = min(self.max_delay, self.base_delay * self.multiplier ** attempt)
+        if u is None:
+            u = random.random()
+        return u * cap
+
+    def run(self, fn: Callable, retryable: Callable[[Exception], bool],
+            sleep: Callable[[float], None] = time.sleep,
+            clock: Callable[[], float] = time.monotonic,
+            rng: Callable[[], float] = random.random):
+        """Call `fn` until it succeeds, a non-retryable error escapes, the
+        attempt budget is spent, or the next sleep would overrun the
+        deadline. The last error re-raises."""
+        t0 = clock()
+        attempt = 0
+        while True:
+            try:
+                return fn()
+            except Exception as e:  # noqa: BLE001 - classified below
+                if not retryable(e) or attempt + 1 >= self.max_attempts:
+                    raise
+                d = self.delay(attempt, rng())
+                if clock() - t0 + d > self.deadline:
+                    raise
+                sleep(d)
+                attempt += 1
+
+
+class Backoff:
+    """Stateful exponential backoff with full jitter — the per-stream shape
+    (watch reconnects): `next()` returns the sleep for the current failure
+    streak and advances it; `reset()` on success."""
+
+    def __init__(self, base: float = 0.5, cap: float = 30.0,
+                 multiplier: float = 2.0,
+                 rng: Callable[[], float] = random.random):
+        self.base = base
+        self.cap = cap
+        self.multiplier = multiplier
+        self._rng = rng
+        self._current = base
+
+    def next(self) -> float:
+        d = self._current * self._rng()
+        self._current = min(self._current * self.multiplier, self.cap)
+        return d
+
+    def peek_cap(self) -> float:
+        """Upper bound of the next sleep (what a jitterless loop would use)."""
+        return self._current
+
+    def reset(self) -> None:
+        self._current = self.base
 
 
 class CircuitBreaker:

@@ -140,7 +140,8 @@ A wrapper runs the plain version only for tensors that lie on the CPU. For
 CUDA tensors it checks device, dtype, shape and contiguity, launches the
 kernel on PyTorch's current stream, raises when the launch reports an
 error, and adds one to its kernel's launch count (`launch_counts()`,
-`reset_launches()`). There is no fallback. Every launch binds its C
+`reset_launches()`; the process's /metrics shows the same launches as
+`karmada_kernel_launches_total`). There is no fallback. Every launch binds its C
 prototype once, at its first call (`_bind`).
 """
 from __future__ import annotations
@@ -152,6 +153,7 @@ import numpy as np
 import torch
 
 from ..faults.staleness import MAX_STALENESS_AGE
+from ..metrics import kernel_launches
 from ..sched import core
 from ..ops import filters as filter_ops
 from ..sched.plugins import (
@@ -184,6 +186,7 @@ _launches = dict.fromkeys(KERNEL_NAMES, 0)
 def _launched(name: str, n: int = 1) -> None:
     with _launch_lock:
         _launches[name] += n
+    kernel_launches.inc(n, kernel=name)
 
 
 def _resource_blocks(R: int, block: int) -> int:

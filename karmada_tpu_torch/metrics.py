@@ -295,6 +295,13 @@ jit_persistent_cache_hits = registry.counter(
     "karmada_jit_persistent_cache_hits_total",
     "Kernel libraries found already built on disk",
 )
+# hand-written kernel launches, counted where each wrapper launches its
+# kernel (kernels/__init__.py; unlike its `launch_counts()`, never reset):
+# a scrape of a scheduler process shows which kernels its rounds ran
+kernel_launches = registry.counter(
+    "karmada_kernel_launches_total",
+    "Hand-written CUDA kernel launches in this process, by kernel",
+)
 
 # control-plane write path (store/store.py transactional batch writes):
 # how long writers queue on the store's one mutation lock, how long the
@@ -392,6 +399,65 @@ simulation_duration = registry.histogram(
     "End-to-end what-if simulation latency in seconds",
 )
 
+
+# control-plane read path (store/watchcache.py + the apiserver fan-out):
+# every watch stream is a cursor into ONE shared revisioned ring
+watch_clients = registry.gauge(
+    "karmada_watch_clients",
+    "Watch streams currently attached to the apiserver",
+)
+watch_events_sent = registry.counter(
+    "karmada_watch_events_sent_total",
+    "Events written to watch streams, by serving path",
+)
+watch_client_lag = registry.gauge(
+    "karmada_watch_client_lag",
+    "Per-client watch backlog (ring events not yet delivered)",
+)
+watch_resyncs = registry.counter(
+    "karmada_watch_resyncs_total",
+    "Snapshot+replay fallbacks served, by reason (compacted/lagged)",
+)
+list_pages = registry.counter(
+    "karmada_list_pages_total",
+    "Paginated list pages served from the watch cache",
+)
+
+# async wire plane (server/eventloop.py + server/wirecodec.py)
+wire_connections = registry.gauge(
+    "karmada_wire_connections",
+    "Active watch/stream connections, by codec (json/bin) and serving "
+    "path (loop/thread)",
+)
+wire_bytes_sent = registry.counter(
+    "karmada_wire_bytes_sent_total",
+    "Bytes written to watch streams, by codec and encoding (full/delta)",
+)
+wire_queue_evictions = registry.counter(
+    "karmada_wire_queue_evictions_total",
+    "Slow-client backlog evictions on the event loop (bounded per-socket "
+    "queue + compacted cursor -> in-stream resync)",
+)
+reads_served = registry.counter(
+    "karmada_reads_served_total",
+    "Object/watch reads served, by replication role "
+    "(leader/follower/single)",
+)
+
+# leader election (coordination/elector.py); mirrors client-go's
+# leader_election_master_status + rest of the election metric family
+leader_election_is_leader = registry.gauge(
+    "karmada_leader_election_is_leader",
+    "1 while this process holds the named lease, else 0",
+)
+leader_election_transitions = registry.counter(
+    "karmada_leader_election_transitions_total",
+    "Times this process acquired leadership of the named lease",
+)
+leader_election_renew_duration = registry.histogram(
+    "karmada_leader_election_renew_duration_seconds",
+    "Lease renew round-trip latency in seconds",
+)
 
 class timed:
     """Context manager observing wall time into a histogram."""

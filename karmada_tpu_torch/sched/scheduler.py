@@ -66,6 +66,15 @@ from .core import ArrayScheduler, ScheduleDecision
 from .queue import GangCoordinator, PrioritySchedulingQueue
 
 
+def read_bindings(store, keys: list[str]) -> list[Optional[ResourceBinding]]:
+    """The bindings of `keys` ("namespace/name"), None where gone: one
+    `get_batch` (one lock hold in process; one request per 256 keys over
+    the wire). The reference's drains read each key with `try_get`; the
+    objects read are the same."""
+    return store.get_batch("ResourceBinding",
+                           [(k.partition("/")[2], k.partition("/")[0]) for k in keys])
+
+
 def placement_json(placement) -> str:
     if placement is None:
         return ""
@@ -219,6 +228,9 @@ class SchedulerDaemon:
         self.pipeline = pipeline
         self._array: Optional[ArrayScheduler] = None
         self._fleet_dirty = True
+        # Cluster events seen (port-only): the standby loop re-warms once
+        # they stop arriving, not on every tick of a replay
+        self.cluster_events = 0
         self._prewarmed_epoch = -1
         if aot_prewarm is None:
             import os
@@ -362,6 +374,7 @@ class SchedulerDaemon:
         else:
             self._dirty_clusters = None  # membership changed: full rebuild
         self._fleet_dirty = True
+        self.cluster_events += 1
         for rb in self.store.list("ResourceBinding"):
             self._on_binding("MODIFIED", rb)
 
@@ -724,9 +737,7 @@ class SchedulerDaemon:
     def _schedule_batch(self, keys: list[str]) -> list[str]:
         bindings = []
         observed: list = []
-        for key in keys:
-            ns, _, name = key.partition("/")
-            rb = self.store.try_get("ResourceBinding", name, ns)
+        for key, rb in zip(keys, read_bindings(self.store, keys)):
             gate = self._admission_gate(rb)
             if gate == "schedule":
                 bindings.append(rb)

@@ -414,14 +414,16 @@ class StreamingScheduler:
         # per-shard span attribution: queue_wait records WHICH shard's
         # queue held the key (empty for the unsharded singleton)
         shard_attr = {"shard": daemon.shard_id} if daemon.shard_id else {}
-        for key in keys:
-            # epoch BEFORE the spec read: an event landing in between
-            # discards a decision that was in fact computed on the fresh
-            # spec (one cheap re-solve via the replay cache) — the safe
-            # direction; the reverse order could patch a stale decision
-            epoch = daemon.admission.epoch(key)
-            ns, _, name = key.partition("/")
-            rb = daemon.store.try_get("ResourceBinding", name, ns)
+        # every epoch BEFORE the spec reads: an event landing in between
+        # discards a decision that was in fact computed on the fresh spec
+        # (one cheap re-solve via the replay cache) — the safe direction;
+        # the reverse order could patch a stale decision. The reads are
+        # one batch (read_bindings) where the reference reads key by key
+        from .scheduler import read_bindings
+
+        epochs_of = [daemon.admission.epoch(key) for key in keys]
+        fresh = read_bindings(daemon.store, keys)
+        for key, epoch, rb in zip(keys, epochs_of, fresh):
             # the gate itself is SHARED with the batch round's
             # _schedule_batch (decision-parity contract); only the
             # admission/queue bookkeeping around it is streaming's

@@ -322,7 +322,11 @@ def test_fault_plan_decisions_match_reference(kind):
             ja, ta = jplan.decide("grpc", target, n), tplan.decide("grpc", target, n)
             assert (ta.error, ta.latency) == (ja.error, ja.latency), (target, n)
     with pytest.raises(ValueError, match="boundary"):
-        tfaults.FaultPlan(rules=[tfaults.FaultRule(boundary="http")]).validate()
+        tfaults.FaultPlan(rules=[tfaults.FaultRule(boundary="gprc")]).validate()
+    # the HTTP and apply boundaries are the reference's too
+    for boundary in ("http", "apply"):
+        tfaults.FaultPlan(rules=[tfaults.FaultRule(boundary=boundary)]).validate()
+        jfaults.FaultPlan(rules=[jfaults.FaultRule(boundary=boundary)]).validate()
 
 
 def test_member_estimators_default_device_raises(monkeypatch):

@@ -520,3 +520,19 @@ def test_tier_launcher_cuts_each_output_once(fake_lib):
     assert len({c.data_ptr() for c in caps}) == len(caps)
     assert len({c.untyped_storage().data_ptr() for c in caps}) == 2
     assert all(c.shape == (64, 4) and c.is_contiguous() for c in caps)
+
+
+def test_counted_launches_reach_the_metrics_registry():
+    """A launch the wrapper counts also lands in the process's /metrics as
+    karmada_kernel_launches_total{kernel=...} (what chip_smoke's wire cells
+    read from a scheduler process), which reset_launches() leaves alone."""
+    from karmada_tpu_torch.metrics import kernel_launches, registry
+
+    before = kernel_launches.value(kernel="candidate_tail")
+    counted = kernels.launch_counts()["candidate_tail"]
+    kernels._launched("candidate_tail", 3)
+    assert kernels.launch_counts()["candidate_tail"] == counted + 3
+    kernels.reset_launches()
+    assert kernel_launches.value(kernel="candidate_tail") == before + 3
+    assert f'karmada_kernel_launches_total{{kernel="candidate_tail"}} {before + 3}' \
+        in registry.render()
