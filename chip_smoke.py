@@ -1,6 +1,7 @@
 """On-card smoke test of the PyTorch/CUDA port (karmada_tpu_torch).
 
-    python3 chip_smoke.py [--only kernels|sim|graft|mesh|tiers|refresh|daemon|plugins|wire]
+    python3 chip_smoke.py [--only kernels|sim|graft|mesh|tiers|refresh|daemon|desched|plugins|
+                           shards|wire]
 
 Needs one CUDA card (an H100 is the target) and nvcc; exits non-zero with no
 result line otherwise. Phases, each of which raises on failure:
@@ -129,13 +130,13 @@ result line otherwise. Phases, each of which raises on failure:
    on the card, B3's filter outputs and B4's tail rows, and the kernel on
    the arguments the program passed it), shim_flagship (the compact
    flagship's 5 000 clusters and 10 000 specs over HTTP to
-   SchedulerShimServer, 5 timed rounds split wire + parse / round /
+   SchedulerShimServer, 3 timed rounds split wire + parse / round /
    encode + send, every result against the in-process card round and a
    2 048-row sample against the cpu round; any non-200 fails) and
    shim_contract (the shim contract's cases on the card); then the mesh
    cells: mesh_flagship (the dense flagship's bindings through
    ArrayScheduler(mesh=virtual_mesh(4, card), candidate_k=0) in the
-   monolithic mode, a 2 x 2 virtual mesh: 10 timed rounds with four tile
+   monolithic mode, a 2 x 2 virtual mesh: 5 timed rounds with four tile
    filters and two tails each, split by CUDA events into tile filters /
    gathers / tails and by a stage timer into the host's encode /
    dispatch / materialize; targets and errors against the single-device
@@ -156,11 +157,11 @@ result line otherwise. Phases, each of which raises on failure:
    BASELINE config 4 (bench.py build_spread: region spread over 5 000
    clusters x 5 000 bindings) and config 4b (build_spread_skewed); config
    4's mix with affinities of 64 clusters (the window cell: solved in the
-   candidate window; 3 timed rounds, the others 6); and the drain cell (a synthetic cell built to cross
+   candidate window; 2 timed rounds, the others 3); and the drain cell (a synthetic cell built to cross
    combo_select's 4 096-distinct-row gate: config 4's fleet, 5 000
    bindings under one region-spread policy, each evicting a cluster in
    each of its own random half of the regions); every spread cell with
-   its exact launches per round; then the tier cells, 6 rounds each:
+   its exact launches per round; then the tier cells, 3 rounds each:
    tiers_dense (the flagship batch at four priorities, one row in 16
    PreemptLowerPriority, over the flagship fleet tightened so the divided
    rows ask 1.5x its free cpu: preemption.launch_tiered +
@@ -175,14 +176,14 @@ result line otherwise. Phases, each of which raises on failure:
    the timed round being the registry's sweep plus the round given its
    answers: config3 (BASELINE config 3, bench.py build_dynamic: 1 000
    clusters x 1 000 dynamic bindings, in-process member estimators over
-   shard_nodes pools, 60 rounds), estimator_flagship (the compact
+   shard_nodes pools, 20 rounds), estimator_flagship (the compact
    flagship with member estimators on all 5 000 clusters), degraded
    (bench.py build_degraded: a breaker open every other round, the
    staleness overlay feeding the round, launch parity between the legs)
    and tiers_estimator (the tiers_compact batch with answers through
    launch_tiered, a speculative pass in every tier; one round's
    tier_estimate and tier_consume launches held against their plain
-   versions, tier_consume's timed as in phase 3), 6 rounds each, the
+   versions, tier_consume's timed as in phase 3), 4 rounds each, the
    profiled round's device time also by event; answer matrices held
    against the per-cluster host path, decisions against the CPU round
    given the same answers; then the chunk surface:
@@ -220,14 +221,14 @@ result line otherwise. Phases, each of which raises on failure:
    scheduler daemon on the port's own Store and Runtime: daemon_flagship
    (the compact flagship's 5 000 clusters and 10 000 bindings in a Store
    under SchedulerDaemon on the card: the prewarm, the cold
-   Runtime.settle(), five churn settles with 5 % of the bindings drifting
-   their replicas, one heartbeat settle after 2 clusters' status writes —
+   Runtime.settle(), two churn settles with 5 % of the bindings drifting
+   their replicas, one heartbeat settle after one cluster's status write —
    _on_cluster, set_clusters(dirty_names=) and one scatter_rows — and one
    churn settle under a side stream; each round's e2e, stage seconds,
    replayed / solved and jit_compiles (0 in every round), every binding
    against a direct schedule() on the card, a 2 000-row sample against the
-   cpu round), daemon_stream (the same bindings created by a feeder thread
-   in 20 bursts of 500, 50 ms apart, admitted by
+   cpu round), daemon_stream (the first 5 000 bindings created by a feeder
+   thread in 10 bursts of 500, 50 ms apart, admitted by
    daemon.streaming().serve(quiescent=True): micro-batch sizes, placement
    latency p50 / p99, stale discards, jit_compiles; every placement equal
    to daemon_flagship's cold round) and daemon_tiers (the tiers_compact
@@ -242,7 +243,7 @@ result line otherwise. Phases, each of which raises on failure:
    commit, held the same way, each preemptor at its plan's targets);
    then the plugin cells, each with a hashed FilterPlugin (1/16 of the
    (binding, cluster) pairs banned) and ScorePlugin (scores over the
-   whole int32 range) registered (testing/plugins.py), 3 timed rounds
+   whole int32 range) registered (testing/plugins.py), 2 timed rounds
    with exact launches, its decisions against the CPU round with the
    same registry, its solve stage under the sync check, the terms'
    build and upload timed, and its decisions shown to differ from the
@@ -259,15 +260,34 @@ result line otherwise. Phases, each of which raises on failure:
    the leader line, the cluster watch replay and the first list, the cold
    placement of every binding and one churn round of 5 %, each binding
    against the direct card round, the child's /metrics with jit_compiles
-   0, nvidia-smi's compute apps) and wire_failover (the same inputs,
-   children a and b with the default 10 s lease, b under a seeded HTTP
+   0, nvidia-smi's compute apps) and wire_failover (the same fleet and
+   the first WIRE_FAILOVER_BINDINGS of the bindings, its subject being
+   the takeover: children a and b with the default 10 s lease, b under a
+   seeded HTTP
    error rule: a places the cold round, is stopped, b takes over within
    the TTL and one renew interval and places a churn round, a resumes and
    loses its lease; no write under a's token lands after b's acquisition,
    every final placement as the direct card round); B1 and B2 must launch
    in each child wherever it placed, read from its /metrics
    (karmada_kernel_launches_total), which the launch counts here do not
-   see;
+   see; between the daemon and the wire cells: desched_flagship (on
+   daemon_flagship's store and daemon, right after that cell: on 50
+   seeded clusters every eligible binding placed there reports half its
+   replicas there ready in aggregated_status and the member estimators
+   hold the rest pending past the 300 s threshold on a stepped clock;
+   Descheduler.deschedule_dryrun() on the card (B13) against the same dry
+   run on the CPU, deschedule_once() against the CPU twin's proposals,
+   then the daemon's settle against a direct card round over the shrunk
+   bindings) and, after the plugin cells, shards_flagship (daemon_flagship's
+   inputs under ShardPlane(store, 4, elect=True) on the card, leases
+   in-process, each stack's serve thread in its own CUDA stream: one
+   cluster's status write once the leaders have placed their fleets (each
+   shard's dirty refresh, B17, in its first round), the cold placement, a
+   churn of 500 drifted bindings, resize(3) with a second churn of 500 in
+   flight, then four cross-shard gang cohorts of 12 with one
+   seeded stale-rv race; every placement as the direct card round, no
+   binding patched twice in an admission epoch, the shard objects' owned
+   counts summing to the bindings, each cohort one rv-checked batch);
 5. every kernel's launches over every main path's rounds, the `kernels`
    JSON line, then the card's name and power limit, then the last line
    {"ok": true, "device": {...}}.
@@ -280,6 +300,7 @@ flagship round they are held against), `tiers` the tier kernels' checks of
 phase 3, `refresh` scatter_rows' check of phase 3 and the churn_dirty cell
 with the refresh's checks, `daemon` the three daemon cells of phase 4,
 `plugins` the plugin terms' checks of phase 3 and the plugin cells,
+`desched` daemon_flagship and desched_flagship, `shards` shards_flagship,
 `wire` the two wire cells.
 """
 from __future__ import annotations
@@ -384,7 +405,7 @@ from karmada_tpu_torch.api.coordination import (
     LEASE_SCHEDULER,
 )
 from karmada_tpu_torch.coordination import LeaseCoordinator
-from karmada_tpu_torch.runtime.controller import Runtime
+from karmada_tpu_torch.runtime.controller import Clock, Runtime
 from karmada_tpu_torch.server.apiserver import ControlPlaneServer
 from karmada_tpu_torch.store.store import ConflictError
 from karmada_tpu_torch.testing.daemon import (
@@ -396,6 +417,12 @@ from karmada_tpu_torch.testing.daemon import (
     wait_for_line,
 )
 from karmada_tpu_torch.sched.scheduler import SchedulerDaemon, placement_json
+from karmada_tpu_torch.sched.shards import ShardPlane, shard_of_binding, shard_of_gang
+from karmada_tpu_torch.api.sharding import KIND_SCHEDULER_SHARD, SHARD_NAMESPACE
+from karmada_tpu_torch.api.work import AggregatedStatusItem, NodeClaim
+from karmada_tpu_torch.descheduler.descheduler import Descheduler, eligible
+from karmada_tpu_torch.metrics import shard_handoffs, xshard_gang_commits
+from karmada_tpu_torch.server import codec as wire_codec
 from karmada_tpu_torch.store.store import Store
 from karmada_tpu_torch.sched.pipeline import StageTimer
 from karmada_tpu_torch.testing.cpumesh import virtual_mesh
@@ -418,15 +445,20 @@ ALU_OPS_PER_S = 67e12
 
 N_CLUSTERS = 5000
 N_BINDINGS = 10000
-TIMED_ROUNDS = 60  # p90 then has 6 samples beyond it (110 until the simulation cells)
-VARIANT_ROUNDS = 10  # timed rounds of the whole-fleet Duplicated variant
-# the timed rounds of the cells below were cut (spread, tier and estimator
-# cells 20 to 6, the window cell 8 to 3, churn, whatif and the whole-fleet
-# Duplicated variant 20 to 10, whatif_churn5k and wide_40k 3 to 2, the
-# pipeline's runs 3 to 2) to keep the whole run inside its time budget when
-# the daemon cells came
-SPREAD_ROUNDS = 6  # timed rounds of each spread cell but the window cell
-WINDOW_ROUNDS = 3  # the window cell's (about 4.7 s a round, host-bound: the run's time limit)
+# The timed rounds were cut twice to keep the whole run inside its time
+# budget: when the daemon cells came (spread, tier and estimator cells 20 to
+# 6, the window cell 8 to 3, churn, whatif and the whole-fleet Duplicated
+# variant 20 to 10, whatif_churn5k and wide_40k 3 to 2, the pipeline's runs
+# 3 to 2), and when the shards and desched cells came (the flagships',
+# config 1's, config 2's and config 3's 60 to 20, spread and tier cells 6 to
+# 3, estimator cells 6 to 4, the window cell 3 to 2, churn, the chunk cells,
+# whatif, mesh_flagship and the whole-fleet Duplicated variant 10 to 5, the
+# shim's 5 to 3, the plugin cells' 3 to 2, daemon_flagship's churn settles 5
+# to 2 and its heartbeat 2 clusters to 1)
+TIMED_ROUNDS = 20  # timed rounds of the compact and dense flagships and configs 1 and 2
+VARIANT_ROUNDS = 5  # timed rounds of the whole-fleet Duplicated variant
+SPREAD_ROUNDS = 3  # timed rounds of each spread cell but the window cell
+WINDOW_ROUNDS = 2  # the window cell's (about 4.4 s a round, host-bound: the run's time limit)
 SPREAD_BINDINGS = 5000  # BASELINE config 4: 5k clusters x 5k bindings
 WINDOW_BINDINGS = 1000
 WINDOW_NAMES = 64  # clusters named by each window-cell affinity
@@ -436,11 +468,11 @@ COMBO_SCRATCH_ROWS = 512  # rows of the combo_select check past its shared-memor
 SELECTION_EDGE_WIDTHS = (4999, 5008, 13, 1)  # packed_selection: no multiple of 32 (5 008 of 16)
 SELECTION_WIDE_REGIONS = 60_000  # its choice read in place (past 48 KB a row)
 WIDE_C = 16384  # the dense tail's and group_score's width check
-TIER_ROUNDS = 6  # timed rounds of each tier cell
+TIER_ROUNDS = 3  # timed rounds of each tier cell
 CONFIG3_CLUSTERS = 1000  # BASELINE config 3: 1k clusters x 1k bindings
 CONFIG3_BINDINGS = 1000
-CONFIG3_ROUNDS = 60
-ESTIMATOR_ROUNDS = 6  # timed rounds of estimator_flagship and degraded
+CONFIG3_ROUNDS = 20
+ESTIMATOR_ROUNDS = 4  # timed rounds of estimator_flagship and degraded
 DEGRADED_CLUSTERS = 500
 DEGRADED_BINDINGS = 1000
 ESTIMATOR_FIXTURE = (5000, 100_000)  # server_test.go's 5 000 nodes / 100 000 pods
@@ -449,8 +481,8 @@ PLAIN_ESTIMATE_ROWS = 256  # row chunk of the plain fleet estimate on the card
 TIER_PRIORITIES = (0, 1000, 100000, 1000000)
 PREEMPTORS = 256
 PREEMPT_FREE_CPU = 0.25  # bench.py run_preempt's preempt leg: 0.25 cpu free per cluster
-CHURN_ROUNDS = 10  # timed rounds of the churn cell
-CHUNK_ROUNDS = 10  # timed rounds of churn_incremental, churn_dirty and flagship_k256
+CHURN_ROUNDS = 5  # timed rounds of the churn cell
+CHUNK_ROUNDS = 5  # timed rounds of churn_incremental, churn_dirty and flagship_k256
 INCREMENTAL_DIRTY = 0.05  # config 5b: 5 % of the bindings dirtied per round
 DIRTY_CLUSTERS = 50  # churn_dirty: 1 % of the fleet changes status per round
 QUEUED_REFRESH_TURNS = 3  # churn_dirty: refreshes on an idle stream and behind queued work
@@ -474,7 +506,7 @@ SYNC_CHECK_SAMPLE = 64  # the sync check compares one row in 64 whole
 WHATIF_CLUSTERS = 500  # bench.py:521 build_whatif's defaults
 WHATIF_BINDINGS = 1000
 WHATIF_SCENARIOS = 16
-WHATIF_ROUNDS = 10
+WHATIF_ROUNDS = 5
 SIM_SPREAD_ROWS = 32  # whatif_mixed's region-spread rows (the fallback)
 CHURN5K_CLUSTERS = N_CLUSTERS  # build_whatif at BASELINE config 5's size
 CHURN5K_BINDINGS = N_BINDINGS
@@ -486,24 +518,39 @@ SIM_CHECK_SHAPES = ((17, 1024, 512, False), (17, 1024, 512, True), (5, 10240, 51
 SIM_LOAD_RESOURCES = (4, 9, 17)  # sim_load's resource counts in phase 3
 K256 = 256  # flagship_k256's candidate window
 GRAFT_ROUNDS = 20  # timed calls of the dense-input program at the flagship
-SHIM_ROUNDS = 5  # timed /v1/scheduleBatch rounds of shim_flagship
+SHIM_ROUNDS = 3  # timed /v1/scheduleBatch rounds of shim_flagship
 SHIM_SAMPLE = 2048  # shim_flagship rows held against the cpu round
 NARROW_INPUT_SHAPE = (300, 100)  # the dense-input filter's narrow check (C < 128)
 ODD_INPUT_SHAPE = (333, 257)  # rows no multiple of its 32-row group, an odd width
 INPUT_REPEATS = 4  # distinct rows of its repeated-row check (the flagship's requests)
 MESH_GRIDS = ((2, 2), (2, 3))  # the tile filter's random cuts; 2 x 3 pads C to a multiple of 3
 MESH_SHIFT = 2  # columns the shifted 2 x 2 cut moves its tiles (first columns off a multiple of 4)
-MESH_ROUNDS = 10  # timed rounds of mesh_flagship
+MESH_ROUNDS = 5  # timed rounds of mesh_flagship
 MESH_SAMPLE = 2000  # mesh_flagship rows held against the cpu mesh round
-DAEMON_CHURN_ROUNDS = 5  # daemon_flagship's churn settles (5 % of the bindings drift each)
+DAEMON_CHURN_ROUNDS = 2  # daemon_flagship's churn settles (5 % of the bindings drift each)
 # daemon_flagship's heartbeat: clusters whose status changes, cut from
 # churn_dirty's 50 — each cluster event re-lists all 10 000 bindings in
 # _on_cluster (the reference's fan-out), about 4.7 s a cluster on the card's
 # host
-HEARTBEAT_CLUSTERS = 2
+HEARTBEAT_CLUSTERS = 1
 DAEMON_SAMPLE = 2000  # daemon_flagship's cold-round rows held against the cpu round
-STREAM_BURSTS = 20  # daemon_stream: 10 000 bindings arrive in 20 bursts of 500
+# daemon_stream: the first 5 000 bindings arrive in 10 bursts of 500 (cut from
+# all 10 000 in 20 bursts to make room for the shards and desched cells)
+STREAM_BURSTS = 10
+STREAM_BURST = 500
 STREAM_GAP_S = 0.05  # 50 ms apart
+SHARDS = 4  # shards_flagship's plane: four streaming leaders in this process
+SHARDS_RESIZED = 3  # ... then resized to three with a churn in flight
+# the in-process shard leases (karmada-sched-shard-<i>): their renews run on
+# elector threads that share the GIL with four leaders' cold rounds
+SHARDS_LEASE_S = 30.0
+SHARDS_CREATE_CHUNK = 1000  # bindings a store.create_batch
+SHARDS_HEARTBEAT = 1  # clusters whose status changes before the bindings arrive (B17)
+SHARDS_GANGS = 4  # cross-shard cohorts (the reference's bench.py:4413-4572 recipe)
+SHARDS_GANG_SIZE = 12
+SHARDS_PHASE_S = 600.0  # deadline of a phase's settle
+DESCHED_CLUSTERS = 50  # desched_flagship: clusters whose pods stop starting
+DESCHED_THRESHOLD_S = 300.0  # the descheduler's unschedulable threshold (its default)
 DEVICE = "cuda"
 
 FLEET = ("alive", "capacity", "has_summary", "taint_key", "taint_value", "taint_effect", "api_ok")
@@ -6037,12 +6084,17 @@ def hold_daemon_round(label, daemon, inputs, direct):
 
 def edit_replicas(store, keys):
     """churn_drift's step on the store: each binding's replicas drift by
-    -1, 0 or +1 in turn (a spec change bumps its generation)."""
+    -1, 0 or +1 in turn (a spec change bumps its generation). Returns the
+    edited bindings as written (their new specs, their placements before
+    the round)."""
+    out = []
     for k, key in enumerate(keys):
         ns, _, name = key.partition("/")
         rb = store.get("ResourceBinding", name, ns)
         rb.spec.replicas = max(1, rb.spec.replicas + (k % 3) - 1)
         store.update(rb)
+        out.append(rb)
+    return out
 
 
 def run_daemon_flagship(dev, smi, path_launches):
@@ -6055,8 +6107,9 @@ def run_daemon_flagship(dev, smi, path_launches):
     then set_clusters(dirty_names=) and scatter_rows) and one churn round
     under a side stream; every round against a direct schedule() on the
     card, the cold round's 2 000-row sample against the CPU round.
-    Returns the cold round's outcome by binding key (daemon_stream's
-    contract)."""
+    Returns its inputs, the cold round's outcome by binding key
+    (daemon_stream's contract), and the store, runtime, daemon and round
+    log, which desched_flagship goes on with."""
     clusters, bindings = build_flagship()
     store, runtime, daemon, took = daemon_over(dev, clusters, bindings)
     log(f"daemon_flagship: store of {len(clusters)} clusters and {len(bindings)} bindings under "
@@ -6161,15 +6214,17 @@ def run_daemon_flagship(dev, smi, path_launches):
         if not launches.get(n):
             raise AssertionError(f"daemon_flagship: {n} never launched")
     add_launches(path_launches, launches, ("candidate_select", "candidate_tail", "scatter_rows"))
-    return bindings, clusters, cold_outcome
+    return SimpleNamespace(bindings=bindings, clusters=clusters, cold_outcome=cold_outcome,
+                           store=store, runtime=runtime, daemon=daemon, log_rounds=log_rounds)
 
 
 def run_daemon_stream(dev, smi, path_launches, clusters, bindings, cold_outcome):
-    """daemon_stream: the same fleet and bindings (the same uids), the
-    bindings created by a feeder thread in STREAM_BURSTS bursts 50 ms
-    apart while daemon.streaming(...).serve(quiescent=True) admits them;
-    the final placements must equal daemon_flagship's cold round (the
-    streaming-versus-batch parity contract)."""
+    """daemon_stream: the same fleet and the first STREAM_BURSTS x
+    STREAM_BURST bindings (the same uids), created by a feeder thread in
+    STREAM_BURSTS bursts 50 ms apart while daemon.streaming(...).serve(
+    quiescent=True) admits them; each final placement must equal
+    daemon_flagship's cold round's (the streaming-versus-batch parity
+    contract: rows are independent, so a subset places as in the whole)."""
     store, _, daemon, _ = daemon_over(dev, clusters, [])
     daemon._ensure_fleet()
     svc = daemon.streaming()
@@ -6193,7 +6248,9 @@ def run_daemon_stream(dev, smi, path_launches, clusters, bindings, cold_outcome)
 
     svc._form_batch = form_batch
     daemon._launch_routed = launch_routed
-    per = len(bindings) // STREAM_BURSTS
+    per = STREAM_BURST
+    bindings = bindings[:STREAM_BURSTS * per]
+    cold_outcome = {rb.metadata.key(): cold_outcome[rb.metadata.key()] for rb in bindings}
     done = threading.Event()
     arrived = threading.Event()
 
@@ -6398,9 +6455,16 @@ def run_daemon_tiers(dev, smi, path_launches):
     add_launches(path_launches, launches, ("candidate_select", "candidate_tail") + TIER_COUNTS)
 
 
-def run_daemon_cells(dev, smi, path_launches):
-    bindings, clusters, cold = run_daemon_flagship(dev, smi, path_launches)
+def run_daemon_cells(dev, smi, path_launches, desched_only=False):
+    """daemon_flagship, desched_flagship on its store and daemon, then
+    daemon_stream and daemon_tiers (`desched_only`: the first two)."""
+    df = run_daemon_flagship(dev, smi, path_launches)
+    run_desched_flagship(dev, smi, path_launches, df)
+    bindings, clusters, cold = df.bindings, df.clusters, df.cold_outcome
+    del df
     gc.collect()
+    if desched_only:
+        return
     run_daemon_stream(dev, smi, path_launches, clusters, bindings, cold)
     del bindings, clusters, cold
     gc.collect()
@@ -6409,12 +6473,574 @@ def run_daemon_cells(dev, smi, path_launches):
 
 
 # --------------------------------------------------------------------------
+# the descheduler (desched_flagship) and the sharded plane (shards_flagship)
+# --------------------------------------------------------------------------
+
+
+def workload_key(rb) -> str:
+    """The member estimators' key for a binding's workload (the estimator
+    client's `get_unschedulable_replicas` key)."""
+    r = rb.spec.resource
+    return f"{r.kind}/{r.namespace}/{r.name}"
+
+
+def report_json(report) -> str:
+    """A SimulationReport's wire encoding, its wall-clock stamps left out."""
+    enc = wire_codec.encode(report)
+    for k in ("uid", "creation_timestamp"):
+        enc["metadata"].pop(k, None)
+    return json.dumps(enc, sort_keys=True)
+
+
+def timed_dryrun(desched, diff_limit):
+    """One `deschedule_dryrun()` split at its seams (host clock): the
+    Simulator's construction (the fleet encode), its simulate() (the
+    scenario fleet, the batch encode, the solve synchronised, the decode)
+    and the rest (the sweep's proposals and min_unschedulable, the diff).
+    Returns (report, seconds by stage)."""
+    from karmada_tpu_torch import simulation
+    from karmada_tpu_torch.simulation import engine
+
+    secs = dict.fromkeys(("fleet encode", "batch encode", "solve", "simulate"), 0.0)
+    base = simulation.Simulator
+
+    def add(key, t0):
+        secs[key] += time.perf_counter() - t0
+
+    class TimedSimulator(base):
+        def __init__(self, *a, **kw):
+            t0 = time.perf_counter()
+            super().__init__(*a, **kw)
+            add("fleet encode", t0)
+            encode = self.batch_encoder.encode
+
+            def batch_encode(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return encode(*a, **kw)
+                finally:
+                    add("batch encode", t0)
+
+            self.batch_encoder.encode = batch_encode
+
+        def simulate(self, *a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return super().simulate(*a, **kw)
+            finally:
+                add("simulate", t0)
+
+    solve = engine._sim_solve
+
+    def timed_solve(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            out = solve(*a, **kw)
+            torch.cuda.synchronize()
+            return out
+        finally:
+            add("solve", t0)
+
+    simulation.Simulator, engine._sim_solve = TimedSimulator, timed_solve
+    try:
+        t0 = time.perf_counter()
+        report = desched.deschedule_dryrun(diff_limit=diff_limit)
+        total = time.perf_counter() - t0
+    finally:
+        simulation.Simulator, engine._sim_solve = base, solve
+    secs["decode and the rest of simulate"] = (secs.pop("simulate") - secs["batch encode"]
+                                               - secs["solve"])
+    secs["proposals and diff"] = total - sum(secs.values())
+    secs["total"] = total
+    return report, secs
+
+
+def run_desched_flagship(dev, smi, path_launches, df):
+    """desched_flagship on daemon_flagship's store and daemon (no second
+    cold settle): every eligible placed binding reports its ready replicas
+    (`aggregated_status`, written in one batch): all of them, except on
+    DESCHED_CLUSTERS seeded clusters among those hosting an eligible
+    placement, where it reports half ready and the
+    member's estimator (estimator_members' shard_nodes pools) holds the
+    rest pending from t0 on a stepped clock, which then moves past the
+    300 s threshold. The registry is asked only about clusters where ready
+    < assigned, all among those 50, so members are built for them alone. `deschedule_dryrun()` on the card (B13:
+    sim_filter, dense_tail, sim_load) against the same dry run on the CPU;
+    `deschedule_once()` against the CPU twin's proposals; then the daemon
+    settles and every re-placed binding is held against a direct card
+    round over the shrunk bindings."""
+    label = "desched_flagship"
+    store, runtime, daemon = df.store, df.runtime, df.daemon
+    fleet = sorted_fleet(store.list("Cluster"))
+    t_setup = time.perf_counter()
+    placed = [rb for rb in store.list("ResourceBinding") if rb.spec.clusters and eligible(rb)]
+    hosting = sorted({t.name for rb in placed for t in rb.spec.clusters})
+    picked = sorted(np.random.default_rng(23).choice(hosting, DESCHED_CLUSTERS, replace=False))
+    members = estimator_members(picked)
+    clock = Clock(fixed=1_000_000.0)
+    nowhere = NodeClaim(node_selector={"karmada-tpu.io/desched": "nowhere"})
+    reported, touched = [], 0
+    for rb in placed:
+        ready = {t.name: t.replicas // 2 if t.name in members else t.replicas
+                 for t in rb.spec.clusters}
+        rb.status.aggregated_status = [AggregatedStatusItem(cluster_name=n, status={
+            "readyReplicas": r}) for n, r in ready.items()]
+        reported.append(rb)
+        hit = [t for t in rb.spec.clusters if t.name in members]
+        if not hit:
+            continue
+        req = rb.spec.replica_requirements.resource_request
+        for t in hit:
+            est = members[t.name].node_estimator
+            est.clock = clock
+            # pods no node can take (a selector no node carries): the
+            # estimator holds them pending from t0
+            est.place(workload_key(rb), t.replicas - ready[t.name], req, now=clock.now(),
+                      claim=nowhere)
+        touched += 1
+    store.update_batch(reported)
+    clock.advance(DESCHED_THRESHOLD_S + 1.0)
+    registry = EstimatorRegistry()
+    registry.register_unschedulable_estimator("members", MemberEstimators(members, device=dev))
+    card = Descheduler(store, registry, clock=clock, device=dev)
+    cpu = Descheduler(store, registry, clock=clock, device="cpu")
+    log(f"{label}: {len(reported)} eligible placed bindings report their ready replicas, "
+        f"{touched} of them half on {len(picked)} clusters with the rest pending "
+        f"{DESCHED_THRESHOLD_S + 1:.0f} s ({time.perf_counter() - t_setup:.2f} s of setup)")
+
+    kernels.reset_launches()
+    report, stages = timed_dryrun(card, 1 << 20)
+    launches = kernels.launch_counts()
+    cpu_report = cpu.deschedule_dryrun(diff_limit=1 << 20)
+    if report_json(report) != report_json(cpu_report):
+        raise AssertionError(f"{label}: the card's dry-run report differs from the cpu's")
+    (row,) = report.scenarios
+    b13 = {n: launches[n] for n in ("sim_filter", "dense_tail", "sim_load")}
+    if not all(b13.values()) or report.bindings < 1:
+        raise AssertionError(f"{label}: the dry run evicted {report.bindings} bindings with "
+                             f"launches {b13}")
+    log(f"{label} dry run on {smi}: {report.bindings} shrunk bindings over {report.clusters} "
+        f"clusters, displaced {row.displaced}, unplaceable {row.unplaceable}, overcommitted "
+        f"{len(row.overcommitted)}, {len(row.diffs)} diffs, batched solves "
+        f"{report.batched_solves}: every field equal to the cpu dry run's; stages "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in stages.items()) + f"; B13 launches {b13}")
+    add_launches(path_launches, launches, tuple(b13))
+
+    proposals = {}
+    for rb in reported:  # the stored bindings' content: the twin's inputs
+        if eligible(rb):
+            targets = cpu._proposed_targets(rb)
+            if targets is not None:
+                proposals[rb.metadata.key()] = tuple(sorted((t.name, t.replicas)
+                                                            for t in targets))
+    t0 = time.perf_counter()
+    n = card.deschedule_once()
+    sweep_s = time.perf_counter() - t0
+    keys = sorted(proposals)
+    shrunk = store.get_batch("ResourceBinding", [(k.partition("/")[2], k.partition("/")[0])
+                                                 for k in keys])
+    got = {rb.metadata.key(): tuple(sorted((t.name, t.replicas) for t in rb.spec.clusters))
+           for rb in shrunk}
+    if n != len(proposals) or got != proposals:
+        raise AssertionError(f"{label}: the sweep shrank {n} bindings, the cpu twin proposes "
+                             f"{len(proposals)}; {sum(got[k] != proposals[k] for k in keys)} "
+                             "spec.clusters differ")
+    log(f"{label} sweep: {n} bindings shrunk in {sweep_s:.4f} s, every spec.clusters equal to "
+        "the cpu twin's proposal")
+
+    kernels.reset_launches()
+    rounds, wall = df.log_rounds.settle(runtime, f"{label} settle")
+    launches = kernels.launch_counts()
+    for r in rounds:
+        log(f"{label} settle round: {round_line(r)}")
+    check_no_builds(label, rounds)
+    direct = ArrayScheduler(fleet, device=dev)
+    solve, _ = hold_daemon_round(f"{label} settle", daemon, shrunk, direct)
+    if len(solve) != n:
+        raise AssertionError(f"{label}: the daemon re-placed {len(solve)} of {n} shrunk bindings")
+    log(f"{label} settle on {smi}: {wall:.4f} s, {len(rounds)} runtime steps; launches "
+        f"{({k: v for k, v in launches.items() if v})}")
+    for k in ("candidate_select", "candidate_tail"):
+        if not launches.get(k):
+            raise AssertionError(f"{label}: {k} never launched in the re-placement")
+    add_launches(path_launches, launches, ("candidate_select", "candidate_tail"))
+
+
+class PlacementWatch:
+    """A store watch over the ResourceBindings: each binding's latest
+    object (the store hands its watchers the committed objects, which it
+    never mutates) and first placement rv (a gang's must be contiguous);
+    the keys whose placement or Scheduled condition changed, in order; and
+    the Scheduled patches counted by (key, admission epoch) — a Scheduled
+    patch is a write that leaves Scheduled=True and moves the binding's
+    last-scheduled time or that condition, its epoch the spec generation
+    the patch observed (a placement write bumps the generation, so two
+    patches of one epoch carry the same observed generation; the follow-up
+    writes of the observed generation alone are bookkeeping, not
+    patches)."""
+
+    def __init__(self, store):
+        self._lock = threading.Lock()
+        self.latest = {}
+        self.first_rv = {}
+        self.patches = {}
+        self.changed = []
+        self._last = {}
+        self.scheduled = set()
+        store.watch("ResourceBinding", self._on_event, replay=False)
+
+    def _on_event(self, event, rb):
+        key = rb.metadata.key()
+        cond = next(((c.status, c.message) for c in rb.status.conditions
+                     if c.type == CONDITION_SCHEDULED), None)
+        mark = (rb.status.last_scheduled_time, cond,
+                tuple((t.name, t.replicas) for t in rb.spec.clusters))
+        with self._lock:
+            self.latest[key] = rb
+            prev = self._last.get(key)
+            self._last[key] = mark
+            if prev is not None and mark != prev:
+                self.changed.append(key)
+                if mark[:2] != prev[:2] and cond is not None and cond[0] == "True":
+                    k = (key, rb.status.scheduler_observed_generation)
+                    self.patches[k] = self.patches.get(k, 0) + 1
+            if cond is not None:
+                self.scheduled.add(key)
+            if rb.spec.clusters and key not in self.first_rv:
+                self.first_rv[key] = rb.metadata.resource_version
+
+    def snapshot(self):
+        """(every binding's latest object, the position in the log of
+        changes): a phase's inputs before it starts."""
+        with self._lock:
+            return dict(self.latest), len(self.changed)
+
+    def changed_since(self, mark):
+        with self._lock:
+            return set(self.changed[mark:])
+
+    def doubles(self):
+        with self._lock:
+            return {k: n for k, n in self.patches.items() if n > 1}
+
+
+def shard_state(plane) -> str:
+    """Each shard's streaming stats and stage seconds."""
+    out = []
+    for st in plane.stacks:
+        snap = st.service.stats_snapshot()
+        timer = st.service._timer
+        stages = dict(timer.totals) if timer is not None else {}
+        out.append(f"shard {st.index}: batches {snap['batches']} admitted {snap['admitted']} "
+                   f"placed {snap['placed']} stale {snap['stale_discarded']} jit_compiles "
+                   f"{snap['jit_compiles']}, stages "
+                   + " / ".join(f"{k} {v:.3f}" for k, v in sorted(stages.items())))
+    return "; ".join(out)
+
+
+def plane_progress(plane):
+    """Every shard's formed and patched micro-batches and queue length."""
+    out = []
+    for st in plane.stacks:
+        snap = st.service.stats_snapshot()
+        out.append((snap["formed"], snap["batches"], len(st.daemon.controller.queue)))
+    return out
+
+
+def settle_plane(label, plane, done, timeout=SHARDS_PHASE_S):
+    """Wait until every shard is quiescent twice, 0.25 s apart, with no
+    micro-batch formed or patched between (a drain that has emptied a
+    queue but not yet counted its batch looks quiescent for an instant),
+    and `done()` holds; its seconds."""
+    t0 = time.perf_counter()
+    while True:
+        left = timeout - (time.perf_counter() - t0)
+        if left <= 0:
+            raise AssertionError(f"{label}: the plane did not settle in {timeout:.0f} s "
+                                 f"({shard_state(plane)})")
+        if plane.quiesce(left):
+            seen = plane_progress(plane)
+            time.sleep(0.25)
+            if plane.quiesce(0.05) and plane_progress(plane) == seen and done():
+                return time.perf_counter() - t0
+        time.sleep(0.05)
+
+
+def hold_no_doubles(label, watch):
+    bad = watch.doubles()
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} bindings patched twice in one admission "
+                             f"epoch, first {next(iter(bad.items()))}")
+
+
+def shard_owned(plane, label):
+    """Each shard's status object, published now; their owned counts."""
+    for st in plane.stacks:
+        st.daemon.publish_status(leader=st.elector.identity, token=st.token, force=True)
+    objs = sorted(plane.store.list(KIND_SCHEDULER_SHARD, SHARD_NAMESPACE),
+                  key=lambda o: o.metadata.name)
+    return {o.metadata.name: (o.status.bindings, o.status.leader, o.status.shards_total)
+            for o in objs}
+
+
+def gang_cohorts(total, first_index):
+    """SHARDS_GANGS cohorts of SHARDS_GANG_SIZE members (the reference
+    bench's gang bindings: 2 replicas of 0.1 cpu, dynamic weight), each
+    spanning at least two shards of `total` (uids re-drawn until it
+    does)."""
+    cohorts = []
+    seq = first_index
+    for g in range(SHARDS_GANGS):
+        for salt in range(64):
+            gname = f"xgang-{g}-{salt}"
+            rbs = [_binding(seq + j, 2, _dyn_placement(aggregated=False), 0.1)
+                   for j in range(SHARDS_GANG_SIZE)]
+            for rb in rbs:
+                rb.spec.gang_name, rb.spec.gang_size = gname, SHARDS_GANG_SIZE
+            if len({shard_of_binding(rb, total) for rb in rbs}) >= 2:
+                break
+        seq += SHARDS_GANG_SIZE
+        cohorts.append((gname, rbs))
+    return cohorts
+
+
+def run_shard_gangs(dev, smi, plane, watch, direct, first_index):
+    """The cross-shard gangs on the running plane: SHARDS_GANGS cohorts
+    spanning shards; the first cohort's coordinator, once its cohort is
+    complete, first sees one member's rv moved (the seeded stale-rv race):
+    that commit aborts, no member is placed, the cohort re-admits uncharged
+    and commits later. Every cohort commits as one rv-checked batch
+    (contiguous first-placement rvs), at the direct card round's
+    targets."""
+    label = "shards_flagship gangs"
+    store, total = plane.store, plane.total
+    cohorts = gang_cohorts(total, first_index)
+    race_name, race = cohorts[0]
+    race_keys = [rb.metadata.key() for rb in race]
+    coord = plane.stacks[shard_of_gang(race[0].metadata.namespace, race_name, total)].daemon
+    resolve = coord.xshards._resolve
+    raced = {}
+
+    def seeded_resolve(gang_ns, gname, props):
+        if gname == race_name and not raced and len(
+                {e.key for p in props for e in p.spec.entries}) >= SHARDS_GANG_SIZE:
+            victim = store.get("ResourceBinding", race[0].metadata.name,
+                               race[0].metadata.namespace)
+            victim.metadata.labels = dict(victim.metadata.labels or {}, raced="yes")
+            store.update(victim)
+            raced["outcome"] = resolve(gang_ns, gname, props)
+            raced["placed"] = [k for k in race_keys if k in watch.first_rv]
+            return raced["outcome"]
+        return resolve(gang_ns, gname, props)
+
+    before = {o: xshard_gang_commits.value(outcome=o)
+              for o in ("committed", "aborted", "rejected", "timeout")}
+    coord.xshards._resolve = seeded_resolve
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        store.create_batch([rb for _, rbs in cohorts for rb in rbs])
+        wall = settle_plane(label, plane, lambda: xshard_gang_commits.value(
+            outcome="committed") - before["committed"] >= SHARDS_GANGS)
+    finally:
+        coord.xshards._resolve = resolve
+    launches = kernels.launch_counts()
+    delta = {o: xshard_gang_commits.value(outcome=o) - v for o, v in before.items()}
+    if raced.get("outcome") != "aborted" or raced["placed"] or delta != {
+            "committed": SHARDS_GANGS, "aborted": 1, "rejected": 0, "timeout": 0}:
+        raise AssertionError(f"{label}: race {raced}, outcomes {delta}")
+    members = [rb for _, rbs in cohorts for rb in rbs]
+    decisions = direct.schedule(members)
+    for (gname, rbs), start in zip(cohorts, range(0, len(members), SHARDS_GANG_SIZE)):
+        rvs = sorted(watch.first_rv[rb.metadata.key()] for rb in rbs)
+        if rvs[-1] - rvs[0] != len(rvs) - 1:
+            raise AssertionError(f"{label}: {gname}'s first placements are not one batch: {rvs}")
+        now = store.get_batch("ResourceBinding", [(rb.metadata.name, rb.metadata.namespace)
+                                                  for rb in rbs])
+        want = [expected_outcome(rb, d) for rb, d in zip(rbs, decisions[start:])]
+        if [stored_outcome(rb) for rb in now] != want:
+            raise AssertionError(f"{label}: {gname} is not placed as the direct card round")
+    charged = [k for st in plane.stacks for k in race_keys
+               if getattr(st.daemon.controller.queue, "_retries", {}).get(k)]
+    if charged:
+        raise AssertionError(f"{label}: the aborted cohort was charged retries: {charged}")
+    hold_no_doubles(label, watch)
+    log(f"{label} on {smi}: {SHARDS_GANGS} cohorts of {SHARDS_GANG_SIZE} over {total} shards "
+        f"in {wall:.4f} s; outcomes {delta}; the raced cohort ({race_name}) aborted with none "
+        "of its members placed, re-admitted uncharged and committed; every cohort one batch "
+        "(contiguous first-placement rvs) at the direct card round's targets; launches "
+        f"{({k: v for k, v in launches.items() if v})}")
+    return launches
+
+
+def run_shards_flagship(dev, smi, path_launches):
+    """shards_flagship: daemon_flagship's inputs (build_flagship, seed 0,
+    uids set) in a port Store under `ShardPlane(store, SHARDS, elect=True)`
+    on the card, its leases in-process (karmada-sched-shard-<i> on a
+    LeaseCoordinator over the store). The plane is built after the
+    clusters are stored (each leader's Cluster watch replay then lists no
+    binding) and started; once every leader has placed its fleet,
+    SHARDS_HEARTBEAT clusters write a status change (each shard's
+    `_on_cluster` re-lists the bindings: none yet, where at 10 000 stored
+    bindings it took 32.2 s for one cluster across four shards), so each
+    shard's first round takes the dirty-column refresh (B17). Then the
+    bindings are created: the cold placement; one churn of 500 drifted
+    bindings (config 5b's recipe); `plane.resize(SHARDS_RESIZED)` with a
+    second churn of 500 in flight, then `quiesce`; then the cross-shard
+    gangs. Held: every placement as the direct card round over the same
+    specs (the cold round over every binding, each churn over the
+    bindings it edited and every binding whose placement or condition
+    moved meanwhile), no binding patched twice in an admission epoch, the
+    shard status objects' owned counts summing to the bindings."""
+    label = "shards_flagship"
+    cell_t0 = time.perf_counter()
+    clusters, bindings = build_flagship()
+    store = Store()
+    for c in clusters:
+        store.create(c)
+    watch = PlacementWatch(store)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem0 = torch.cuda.memory_allocated(dev)
+    handoffs0 = {r: shard_handoffs.value(reason=r) for r in ("resize", "takeover")}
+    t0 = time.perf_counter()
+    plane = ShardPlane(store, SHARDS, elect=True, lease_duration=SHARDS_LEASE_S, device=dev,
+                       identity="chip-smoke")
+    built = time.perf_counter() - t0
+    launches = {}
+
+    def count(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def phase(name, edits, direct, move=None):
+        """One churn phase: `edits` keys drift (and `move()` runs while they
+        are in flight); returns its seconds once the plane settles, every
+        binding it edited or that moved meanwhile held."""
+        snap, mark = watch.snapshot()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        edited = edit_replicas(store, edits)
+        out = move() if move is not None else None
+        settle_plane(f"{label} {name}", plane, lambda: True)
+        wall = time.perf_counter() - t0
+        got = kernels.launch_counts()
+        count(got)
+        snap.update((rb.metadata.key(), rb) for rb in edited)
+        keys = sorted(watch.changed_since(mark) | {rb.metadata.key() for rb in edited})
+        hold_daemon_round(f"{label} {name}", plane.stacks[0].daemon, [snap[k] for k in keys],
+                          direct)
+        hold_no_doubles(f"{label} {name}", watch)
+        return wall, got, out
+
+    try:
+        t0 = time.perf_counter()
+        plane.start()
+        if not plane.wait_leading(60.0):
+            raise AssertionError(f"{label}: not every shard leads")
+        wait_for(f"{label} fleets", lambda: all(st.daemon._array is not None
+                                                for st in plane.stacks), 120.0, every=0.05)
+        log(f"{label}: {SHARDS} stacks built in {built:.2f} s (each leader's Cluster watch "
+            f"replay of {len(clusters)} clusters), started, leading and their fleets placed in "
+            f"{time.perf_counter() - t0:.2f} s; streams "
+            f"{[type(st.stream).__name__ for st in plane.stacks]}")
+        (fleet, dirty_names), = status_churn(sorted_fleet(clusters), 1, n_dirty=SHARDS_HEARTBEAT)
+        t0 = time.perf_counter()
+        for c in fleet:
+            if c.name in dirty_names:
+                store.update(c)
+        log(f"{label}: {len(dirty_names)} cluster status write(s) before the bindings, "
+            f"{time.perf_counter() - t0:.3f} s ({sorted(dirty_names)})")
+        direct = ArrayScheduler(sorted_fleet(fleet), device=dev)
+
+        # ---- the cold placement ----
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        for i in range(0, len(bindings), SHARDS_CREATE_CHUNK):
+            store.create_batch(bindings[i:i + SHARDS_CREATE_CHUNK])
+        created = time.perf_counter() - t0
+        settle_plane(f"{label} cold", plane, lambda: len(watch.scheduled) >= len(bindings))
+        cold_s = time.perf_counter() - t0
+        got = kernels.launch_counts()
+        count(got)
+        log(f"{label} cold on {smi}: {len(bindings)} bindings created in {created:.3f} s, all "
+            f"Scheduled and the plane quiescent {cold_s:.4f} s after the first create; "
+            f"launches {({k: v for k, v in got.items() if v})}; {shard_state(plane)}")
+        for k in ("candidate_select", "candidate_tail"):
+            if not got.get(k):
+                raise AssertionError(f"{label}: {k} never launched in the cold placement")
+        if got.get("scatter_rows", 0) < SHARDS:
+            raise AssertionError(f"{label}: {got.get('scatter_rows', 0)} dirty refreshes for "
+                                 f"{SHARDS} shards")
+        hold_daemon_round(f"{label} cold", plane.stacks[0].daemon, bindings, direct)
+        hold_no_doubles(f"{label} cold", watch)
+        owned = shard_owned(plane, label)
+        if sum(b for b, _, _ in owned.values()) != len(bindings):
+            raise AssertionError(f"{label}: the shards own {owned}")
+        log(f"{label}: shard objects (owned, leader, total) {owned}")
+
+        # ---- churn: 500 drift ----
+        keys = [rb.metadata.key() for rb in bindings]
+        n_dirty = max(1, int(len(keys) * INCREMENTAL_DIRTY))
+        churn_s, got, _ = phase("churn", keys[:n_dirty], direct)
+        log(f"{label} churn on {smi}: {n_dirty} drifted bindings settled in {churn_s:.4f} s; "
+            f"launches {({k: v for k, v in got.items() if v})}; {shard_state(plane)}")
+
+        # ---- resize with a second churn in flight ----
+        t_resize = []
+
+        def resize():
+            t0 = time.perf_counter()
+            moved = plane.resize(SHARDS_RESIZED)
+            t_resize.append(time.perf_counter() - t0)
+            return moved
+
+        resize_s, got, moved = phase("resize", keys[n_dirty:2 * n_dirty], direct, resize)
+        owned = shard_owned(plane, label)
+        if len(owned) != SHARDS_RESIZED or sum(b for b, _, _ in owned.values()) != len(bindings):
+            raise AssertionError(f"{label}: after the resize the shards own {owned}")
+        handoffs = {r: shard_handoffs.value(reason=r) - v for r, v in handoffs0.items()}
+        log(f"{label} resize {SHARDS} -> {SHARDS_RESIZED} on {smi} with {n_dirty} drifted "
+            f"bindings in flight: {moved} keys moved (resize() returned in {t_resize[0]:.3f} "
+            f"s), settled {resize_s:.4f} s after the first edit; shard objects {owned}; "
+            f"handoffs {handoffs}; launches {({k: v for k, v in got.items() if v})}; "
+            f"{shard_state(plane)}")
+
+        # ---- the cross-shard gangs ----
+        t0 = time.perf_counter()
+        count(run_shard_gangs(dev, smi, plane, watch, direct, len(bindings)))
+        gangs_s = time.perf_counter() - t0
+        staged = sum(b.numel() for st in plane.stacks if st.daemon._array is not None
+                     for b in (st.daemon._array._staging._buf,
+                               st.daemon._array._term_staging._buf) if b is not None)
+        with open("/proc/self/status") as f:
+            rss = next((line.split(":", 1)[1].strip() for line in f
+                        if line.startswith("VmRSS")), "not read")
+        log(f"{label} memory on {smi}: device peak {torch.cuda.max_memory_allocated(dev) - mem0} "
+            f"bytes over the {mem0} held before the plane ({SHARDS} fleets and their rounds); "
+            f"pinned staging {staged} bytes over the shards; host RSS {rss}; fairness waits "
+            f"{plane.fairness.waits} (no estimator registered)")
+    finally:
+        plane.close()
+    if store.list(KIND_SCHEDULER_SHARD, SHARD_NAMESPACE):
+        raise AssertionError(f"{label}: close() left shard status objects")
+    for k in ("candidate_select", "candidate_tail", "scatter_rows"):
+        if not launches.get(k):
+            raise AssertionError(f"{label}: {k} never launched")
+    add_launches(path_launches, launches, ("candidate_select", "candidate_tail", "scatter_rows"))
+    log(f"{label}: cold {cold_s:.1f} s, churn {churn_s:.1f} s, resize {resize_s:.1f} s, gangs "
+        f"{gangs_s:.1f} s; the cell {time.perf_counter() - cell_t0:.1f} s; launches "
+        f"{({k: v for k, v in launches.items() if v})}")
+
+
+# --------------------------------------------------------------------------
 # out-of-tree scheduler plugins (a FilterPlugin and a ScorePlugin): their
 # terms in candidate_select (B1) and dense_filter (B3), and three cells
 # --------------------------------------------------------------------------
 
 I32_MIN, I32_MAX = -2**31, 2**31 - 1
-PLUGIN_ROUNDS = 3  # timed rounds of each plugin cell
+PLUGIN_ROUNDS = 2  # timed rounds of each plugin cell
 PLUGIN_EDGE_ROWS = 2048  # rows of the plugin terms' edge cases
 PLUGIN_SELECT_EDGES = ("wrap", "rows all masked", "feasible count = k", "equal scores",
                        "off alignment")
@@ -6699,6 +7325,9 @@ WIRE_FAULT_RATE = 0.02  # b's seeded BOUNDARY_HTTP rule: this share of its HTTP 
 #   and each failed list re-attaches the Cluster watch (at 2 % from the first call, 100
 #   re-attaches took the replay from about 15 s to 128 s; PERF.md section 7)
 WIRE_FAULT_SEED = 7
+# wire_failover's cold round: the first 2 500 bindings on the full fleet (its
+# subject is the takeover; wire_flagship keeps the 10 000 over the wire)
+WIRE_FAILOVER_BINDINGS = 2500
 WIRE_CACHE_EVENTS = 32_768  # the server's watch ring: every object of a cell twice over
 WIRE_BOOT_S = 300.0  # deadline of a child's boot (torch import, CUDA context, attach)
 WIRE_PHASE_S = 900.0  # deadline of a cold placement or a replay
@@ -7166,8 +7795,9 @@ def run_wire_flagship(dev, smi, inp):
 
 
 def run_wire_failover(dev, smi, inp):
-    """wire_failover: the wire cells' inputs at full width in a fresh stub
-    plane, two children on the card with `--identity a` / `b` and the
+    """wire_failover: the wire cells' fleet and their first
+    WIRE_FAILOVER_BINDINGS bindings in a fresh stub plane, two children on
+    the card with `--identity a` / `b` and the
     default 10 s lease, b under a seeded BOUNDARY_HTTP error rule
     (KARMADA_TPU_FAULT_PLAN). a leads and places the cold round while b
     stands by warm; a is stopped (SIGSTOP), one churn round is written, b
@@ -7178,7 +7808,8 @@ def run_wire_failover(dev, smi, inp):
     direct card round has it."""
     label = "wire_failover"
     cell_t0 = time.perf_counter()
-    fleet, bindings, want = inp.fleet, inp.bindings, dict(inp.want)
+    fleet, bindings = inp.fleet, inp.bindings[:WIRE_FAILOVER_BINDINGS]
+    want = {rb.metadata.key(): inp.want[rb.metadata.key()] for rb in bindings}
     mode = compute_mode()
     log(f"{label}: nvidia-smi compute_mode {mode}")
     if "Exclusive_Process" in mode:
@@ -7318,7 +7949,7 @@ def run_wire_cells(dev, smi):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="On-card smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--only", choices=("kernels", "sim", "graft", "mesh", "tiers", "refresh",
-                                       "daemon", "plugins", "wire"),
+                                       "daemon", "desched", "plugins", "shards", "wire"),
                     help="build every kernel, run one group of phases, print no result line")
     opts = ap.parse_args(sys.argv[1:] if argv is None else argv)
     only = opts.only
@@ -7354,11 +7985,18 @@ def main(argv=None) -> int:
         run_wire_cells(dev, smi)
         log("--only wire: the wire cells passed; no other kernel or cell was run")
         return 0
-    if only == "daemon":
+    if only in ("daemon", "desched"):
         path_launches = {}
-        run_daemon_cells(dev, smi, path_launches)
-        log(f"--only daemon: the daemon cells passed (launches {path_launches}); no other "
-            "kernel or cell was run")
+        run_daemon_cells(dev, smi, path_launches, desched_only=only == "desched")
+        cells = "daemon cells" if only == "daemon" else "daemon_flagship and desched_flagship"
+        log(f"--only {only}: the {cells} passed (launches {path_launches}); no other kernel "
+            "or cell was run")
+        return 0
+    if only == "shards":
+        path_launches = {}
+        run_shards_flagship(dev, smi, path_launches)
+        log(f"--only shards: the shards_flagship cell passed (launches {path_launches}); no "
+            "other kernel or cell was run")
         return 0
     if only == "sim":
         results, path_launches = {}, {}
@@ -7502,6 +8140,11 @@ def main(argv=None) -> int:
     run_sim_cells(dev, smi, path_launches)
     run_daemon_cells(dev, smi, path_launches)
     run_plugin_cells(dev, smi, results)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_shards_flagship(dev, smi, path_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
     # last: the wire cells' server threads and children share the host, so
     # no in-process cell's timed round runs beside them
     run_wire_cells(dev, smi)

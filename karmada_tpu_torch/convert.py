@@ -3,7 +3,9 @@ device.
 
 `from_reference_objects` copies an API object of the JAX package (a
 Cluster, ResourceBinding, Placement, NodeSpec, Scenario,
-FederatedResourceQuota, AdmissionRequest, LeaderLease, Event, ...) into
+FederatedResourceQuota, AdmissionRequest, LeaderLease, Event,
+SchedulerShard, ShardGangProposal, the estimator plugins' ResourceQuota,
+...) into
 the port's dataclass of the same name, field by field, keeping the uid;
 an `Unstructured` manifest becomes the port's `Unstructured`. Tie-breaks are seeded by the
 binding UID (models/batch.py uid_seed), so converted objects make both
@@ -27,15 +29,16 @@ import numpy as np
 import torch
 
 from . import events
-from .api import cluster, coordination, meta, policy, search, simulation, work
+from .api import cluster, coordination, meta, policy, search, sharding, simulation, work
 from .api.unstructured import Unstructured
+from .estimator import plugins
 from .models import nodes
 from .webhook import admission
 
 _PORT_CLASSES = {
     name: obj
     for mod in (meta, cluster, policy, work, nodes, simulation, search, admission,
-                coordination, events)
+                coordination, events, sharding, plugins)
     for name, obj in vars(mod).items()
     if isinstance(obj, type) and dataclasses.is_dataclass(obj)
 }

@@ -18,6 +18,7 @@ host min-merge and degraded-mode overlay, then the upload inside
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import nullcontext
 from typing import Optional, Protocol, Sequence
 
 import numpy as np
@@ -313,6 +314,12 @@ class MemberEstimators:
         self.device = resolve_device(device)
         self._pool: Optional[ThreadPoolExecutor] = None
         self._pool_width = 0
+        # optional sched.shards.fairness.ClusterFairnessBudget: with N
+        # in-process shard leaders sweeping concurrently, this caps each
+        # member cluster's AGGREGATE estimator concurrency so one hot
+        # shard cannot starve its siblings' legs (installed by ShardPlane;
+        # the fleet route's one launch takes no leg, as in the reference)
+        self.fairness = None
         self._fleet_key = None
         # (alloc, requested, pod_count, allowed, cluster_id on the device,
         # the cluster count, claimless_ok on the device)
@@ -357,9 +364,13 @@ class MemberEstimators:
         br = self.breakers.for_member(cluster) if self.breakers is not None else None
         if br is not None and not br.allow():
             return sentinel
+        # cross-shard fairness (sched/shards/fairness.py): hold one of the
+        # cluster's aggregate concurrency slots for the duration of the leg
+        leg = self.fairness.leg(cluster) if self.fairness is not None else nullcontext()
         try:
-            faults.check(faults.BOUNDARY_GRPC, cluster)
-            out = fn()
+            with leg:
+                faults.check(faults.BOUNDARY_GRPC, cluster)
+                out = fn()
         except faults.InjectedFault as e:
             estimator_rpc_errors.inc(cluster=cluster, code=e.code)
             if br is not None:

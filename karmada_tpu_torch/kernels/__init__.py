@@ -1649,19 +1649,25 @@ def tier_consume(cap, placed, unsched, request, rows, *, cand_idx=None):
 
 
 _bound = {}
+_bind_lock = threading.Lock()
 
 
 def _bind(lib: str, entry: str, argtypes):
     """The C entry point `entry` of kernel library `lib`, its ctypes
-    prototype set once, at its first call."""
+    prototype set once, at its first call (under a lock: the sharded
+    plane's leaders launch from several threads)."""
     fn = _bound.get(entry)
     if fn is None:
         from .build import library
 
-        fn = getattr(library(lib), entry)
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
-        _bound[entry] = fn
+        handle = library(lib)
+        with _bind_lock:
+            fn = _bound.get(entry)
+            if fn is None:
+                fn = getattr(handle, entry)
+                fn.restype = ctypes.c_int
+                fn.argtypes = argtypes
+                _bound[entry] = fn
     return fn
 
 

@@ -330,12 +330,28 @@ writes_coalesced = registry.counter(
     "round-trip, by call-site path",
 )
 
-# sharded scheduler plane: the per-shard queue depth a sharded daemon
-# publishes after each micro-batch drain
+# -- sharded scheduler plane (sched/shards/) --------------------------------
+shard_bindings = registry.gauge(
+    "karmada_shard_bindings",
+    "Bindings the rendezvous shard map currently assigns to each shard "
+    "slot (labeled by shard; rows retire with the shard)",
+)
 shard_queue_depth = registry.gauge(
     "karmada_shard_queue_depth",
     "Per-shard scheduling queue depth after each micro-batch drain "
     "(labeled by shard; rows retire with the shard)",
+)
+shard_handoffs = registry.counter(
+    "karmada_shard_handoffs_total",
+    "Keyspace handoffs between shards, by reason: resize (the shard map "
+    "changed width) or takeover (a shard leader changed)",
+)
+xshard_gang_commits = registry.counter(
+    "karmada_xshard_gang_commits_total",
+    "Cross-shard gang commit outcomes at the coordinator: committed (one "
+    "rv-checked batch landed the whole cohort), aborted (a member's "
+    "stale-rv veto re-admitted the gang uncharged), rejected (jointly "
+    "infeasible), timeout (the cohort never assembled)",
 )
 
 # degraded rounds are schedule rounds that completed while at least one

@@ -25,8 +25,13 @@ The device: the card by default (`--platform` unset or `cuda`); without
 one the process exits non-zero with the RuntimeError, it never carries on
 on the CPU. `--platform cpu` runs the plain PyTorch path.
 
+Sharded plane (`--scheduler-shards N --shard-index i`): the process serves
+one slot of the rendezvous shard map (sched/shards/ShardedDaemon), admits
+only the bindings whose ns/uid hashes to it, elects on the
+`karmada-sched-shard-<i>` lease, and runs the slot's cross-shard gang
+coordinator while it leads. Run one process per slot.
+
 Not ported yet, each exiting with an error that names its queue item:
-`--scheduler-shards > 1` (the sharded plane, ROADMAP queue A item 10),
 `--estimator` (the gRPC wire to the scheduler-estimators, item 9) and
 `--enable-pprof` (the profile server, item 13).
 
@@ -80,10 +85,14 @@ def main() -> None:
                          "filter and score plugins)")
     ap.add_argument("--scheduler-name", default="default-scheduler")
     ap.add_argument("--scheduler-shards", type=int, default=1,
-                    help="total shard slots in the scheduler plane (only 1 "
-                         "is ported)")
+                    help="total shard slots in the scheduler plane; this "
+                         "process serves the slot named by --shard-index "
+                         "and admits only the bindings whose ns/uid "
+                         "rendezvous-hashes to it")
     ap.add_argument("--shard-index", type=int, default=0,
-                    help="which shard slot this process serves (0-based)")
+                    help="which shard slot this process serves (0-based; "
+                         "leader-elects on the karmada-sched-shard-<i> "
+                         "lease). Run one process per slot")
     ap.add_argument("--interval", type=float, default=0.2,
                     help="max-sleep fallback between wakeups: the daemon "
                          "wakes on every enqueue (condition variable), so "
@@ -152,14 +161,12 @@ def main() -> None:
                          "half-open probe")
     args = ap.parse_args()
 
+    sharded = args.scheduler_shards > 1
     if args.scheduler_shards < 1:
         ap.error("--scheduler-shards must be >= 1")
     if not 0 <= args.shard_index < args.scheduler_shards:
         ap.error(f"--shard-index {args.shard_index} out of range for "
                  f"--scheduler-shards {args.scheduler_shards}")
-    if args.scheduler_shards > 1:
-        _unported(ap, "--scheduler-shards > 1: the sharded scheduler plane "
-                      "(sched/shards/, ShardedDaemon)", 10)
     if args.platform not in ("", "cpu", "cuda"):
         ap.error(f"--platform {args.platform!r}: want cpu or cuda")
     device = "cpu" if args.platform == "cpu" else None
@@ -200,44 +207,78 @@ def main() -> None:
     )
     runtime = Runtime()
     plugins = [p.strip() for p in args.plugins.split(",") if p.strip()]
+    daemon_kwargs = dict(
+        scheduler_name=args.scheduler_name, plugins=plugins,
+        pipeline=False if args.no_pipeline else None,
+        aot_prewarm=False if args.no_aot_prewarm else None,
+        device=device,
+    )
     try:
         # device=None (the card) raises RuntimeError here without one
-        daemon = SchedulerDaemon(
-            store, runtime, scheduler_name=args.scheduler_name,
-            plugins=plugins,
-            pipeline=False if args.no_pipeline else None,
-            aot_prewarm=False if args.no_aot_prewarm else None,
-            device=device,
-        )
+        if sharded:
+            from .shards import ShardedDaemon
+
+            daemon = ShardedDaemon(
+                store, runtime, args.shard_index, args.scheduler_shards,
+                **daemon_kwargs,
+            )
+        else:
+            daemon = SchedulerDaemon(store, runtime, **daemon_kwargs)
     except BaseException:
         store.close()
         raise
+    if sharded:
+        print(f"sharded plane: serving shard {args.shard_index} of "
+              f"{args.scheduler_shards}", flush=True)
     print(f"device: {daemon.device}", flush=True)
     metrics_srv = start_metrics_server(
         args.metrics_port, token=token,
         scrape_token_file=args.scrape_token_file,
     )
 
-    lease_name = args.lease_name or (
-        LEASE_SCHEDULER if args.scheduler_name == "default-scheduler"
-        else f"karmada-scheduler-{args.scheduler_name}"
-    )
+    if sharded:
+        from ..api.sharding import shard_lease_name
+
+        lease_name = args.lease_name or shard_lease_name(args.shard_index)
+    else:
+        lease_name = args.lease_name or (
+            LEASE_SCHEDULER if args.scheduler_name == "default-scheduler"
+            else f"karmada-scheduler-{args.scheduler_name}"
+        )
     identity = args.identity or default_identity()
     leading = threading.Event()
+    lease_token = [0]
     elector = None
     if args.no_leader_elect:
         leading.set()
+        if sharded:
+            daemon.xshards.start()
+            daemon.publish_status(leader=identity, force=True)
     else:
         def started(token_: int) -> None:
             store.set_fence(lease_name, token_)
             daemon.abandon_prewarm()  # the leader's first round must not
             #   share the host with a background kernel build
+            lease_token[0] = token_
+            if sharded:
+                # takeover: the coordinator resumes pending cross-shard
+                # cohorts, and the re-list re-places whatever the deposed
+                # leader had in flight (its patches bounce on the fence)
+                daemon.xshards.start()
+                daemon.relist()
             leading.set()
+            if sharded:
+                daemon.publish_status(leader=identity, token=token_,
+                                      force=True)
             print(f"leader: {identity} acquired lease {lease_name} "
                   f"(fencing token {token_})", flush=True)
 
         def stopped(reason: str) -> None:
             leading.clear()
+            lease_token[0] = 0
+            if sharded:
+                daemon.xshards.stop()
+                daemon.publish_status(force=True)
             store.clear_fence()
             print(f"leader: {identity} lost lease {lease_name} ({reason})",
                   flush=True)
@@ -283,7 +324,11 @@ def main() -> None:
                     # store error at serve()'s entry backs off and retries
                     try:
                         service.serve(
-                            should_stop=lambda: not leading.is_set())
+                            should_stop=lambda: not leading.is_set(),
+                            idle=(lambda: daemon.publish_status(
+                                leader=identity, token=lease_token[0]))
+                            if sharded else None,
+                        )
                     except Exception:  # noqa: BLE001 - survive transients
                         import logging
 
@@ -298,6 +343,9 @@ def main() -> None:
 
                         logging.getLogger(__name__).exception(
                             "scheduling drain")
+                    if sharded:
+                        daemon.publish_status(leader=identity,
+                                              token=lease_token[0])
                     wake.wait(args.interval)
                     wake.clear()
             else:
@@ -314,6 +362,8 @@ def main() -> None:
             service.stop()
         if elector is not None:
             elector.stop(release=True)
+        if sharded:
+            daemon.xshards.stop()
         if metrics_srv is not None:
             metrics_srv.stop()
         store.close()

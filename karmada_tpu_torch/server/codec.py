@@ -46,7 +46,7 @@ _UNPORTED_TAGS = {
 }
 _UNPORTED_MODULES = {
     "apps": 12, "autoscaling": 12, "interpreter": 12, "networking": 12,
-    "remedy": 12, "sharding": 10,
+    "remedy": 12,
 }
 
 

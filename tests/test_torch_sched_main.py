@@ -7,9 +7,14 @@ twin of tests/test_daemons.py's scheduler-daemon case over a port
   `--metrics-port 0` serves /metrics;
 - without `--platform cpu`, on a machine without a card, the process
   exits non-zero with the RuntimeError and never carries on on the CPU;
-- `--scheduler-shards 2`, `--estimator m=host:1` and `--enable-pprof`
-  exit non-zero naming their ROADMAP queue items, a malformed
-  `--estimator` with the reference's SystemExit text;
+- the per-process sharded topology: two children, `--scheduler-shards 2
+  --shard-index i`, each leading its `karmada-sched-shard-<i>` lease,
+  place the seeded set (and a gang spanning both slots, committed by its
+  coordinator as one batch) as the in-process round does, each binding
+  once, their status objects' owned counts summing to the set;
+- `--estimator m=host:1` and `--enable-pprof` exit non-zero naming their
+  ROADMAP queue items, a malformed `--estimator` with the reference's
+  SystemExit text;
 - a `KARMADA_TPU_FAULT_PLAN` plan installs at boot, and a malformed one
   aborts the process.
 
@@ -126,10 +131,18 @@ def test_places_seeded_bindings_as_the_in_process_round(plane):
         assert got == want and len(want) > 30
         lease = cp.store.get("LeaderLease", "karmada-scheduler", "karmada-system")
         assert lease.spec.holder_identity == "solo" and lease.spec.fencing_token == 1
-        with urlopen(metrics_url, timeout=30) as resp:
-            text = resp.read().decode()
+        # the child observes each latency just after its batch write lands,
+        # so under load a scrape can precede the last observations: read
+        # until the count settles (or the deadline passes)
+        deadline = time.monotonic() + 30.0
+        while True:
+            with urlopen(metrics_url, timeout=30) as resp:
+                text = resp.read().decode()
+            count = re.search(r"^karmada_placement_latency_seconds_count (\S+)$", text, re.M)
+            if (count and float(count.group(1)) >= len(want)) or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
         assert 'karmada_leader_election_is_leader{identity="solo",lease="karmada-scheduler"} 1' in text
-        count = re.search(r"^karmada_placement_latency_seconds_count (\S+)$", text, re.M)
         assert count and float(count.group(1)) >= len(want)
         assert proc.poll() is None
 
@@ -144,8 +157,97 @@ def test_without_platform_cpu_and_no_card_exits_with_the_runtime_error(plane):
     assert "attached to" not in out and "leader:" not in out
 
 
+def test_two_shard_processes_serve_their_slots(plane):
+    """`--scheduler-shards 2 --shard-index i`, one child per slot over the
+    wire: each leads its own shard lease, admits only its slice, and the
+    slices together place every binding as the in-process CPU round, once;
+    a gang whose members hash to both slots commits through the wire's
+    ShardGangProposal objects as one rv-checked batch."""
+    from karmada_tpu_torch.api.sharding import KIND_SHARD_GANG_PROPOSAL, SHARD_NAMESPACE
+    from karmada_tpu_torch.sched.shards import shard_of_binding
+
+    from tests.test_parallel import dyn_placement, make_binding
+
+    from karmada_tpu_torch.convert import from_reference_objects
+
+    cp, srv = plane
+    clusters, bindings = seeded_objects()
+    for salt in range(200):
+        gang = from_reference_objects([make_binding(f"gang{salt}-m{j}", 2, dyn_placement(),
+                                                    cpu=0.25) for j in range(3)])
+        for rb in gang:
+            rb.spec.gang_name, rb.spec.gang_size = f"gang{salt}", 3
+        if len({shard_of_binding(rb, 2) for rb in gang}) == 2:
+            break
+    else:
+        raise AssertionError("no gang spans both slots")
+    for c in clusters:
+        cp.store.create(c)
+    placed_at = {}  # key -> the rv of each empty -> placed write
+
+    def on_binding(event, rb):
+        key = rb.metadata.key()
+        if not rb.spec.clusters:
+            placed_at.setdefault(key, []).append(None)
+        elif not placed_at.get(key) or placed_at[key][-1] is None:
+            placed_at.setdefault(key, []).append(rb.metadata.resource_version)
+
+    cp.store.watch("ResourceBinding", on_binding)
+    with reaping() as reg:
+        procs = []
+        for i in range(2):
+            proc = spawn_scheduler(srv.url, "--platform", "cpu", "--metrics-port", "-1",
+                                   "--scheduler-shards", "2", "--shard-index", str(i),
+                                   "--identity", f"s{i}", timeout=SPAWN_TIMEOUT)
+            reg(proc)
+            procs.append(proc)
+            wait_for_line(proc, rf"leader: s{i} acquired lease karmada-sched-shard-{i} "
+                                r"\(fencing token 1\)", timeout=SPAWN_TIMEOUT)
+            assert f"sharded plane: serving shard {i} of 2" in "".join(output_lines(proc))
+        everything = bindings + gang
+        for rb in everything:
+            cp.store.create(rb)
+
+        def settled():
+            rbs = cp.store.list("ResourceBinding")
+            return len(rbs) == len(everything) and all(
+                rb.spec.clusters or rb.status.conditions for rb in rbs)
+
+        deadline = time.monotonic() + SPAWN_TIMEOUT
+        while not settled() and time.monotonic() < deadline:
+            time.sleep(0.2)
+        assert settled(), "".join(output_lines(procs[0])[-10:] + output_lines(procs[1])[-10:])
+        direct = ArrayScheduler(sorted(clusters, key=lambda c: c.name), device="cpu")
+        want = {rb.metadata.name: tuple(sorted((t.name, t.replicas) for t in d.targets))
+                for rb, d in zip(everything, direct.schedule(everything)) if d.ok}
+        got = {rb.metadata.name: tuple(sorted((t.name, t.replicas)
+                                              for t in rb.spec.clusters))
+               for rb in cp.store.list("ResourceBinding") if rb.spec.clusters}
+        assert got == want and all(m.metadata.name in got for m in gang)
+        # each binding placed once; the gang's first placements are one
+        # batch (later bookkeeping writes of the observed generation are
+        # each shard's own)
+        assert all(len(v) == 2 and v[0] is None for v in placed_at.values()), placed_at
+        rvs = sorted(placed_at[m.metadata.key()][1] for m in gang)
+        assert rvs[-1] - rvs[0] == len(rvs) - 1, rvs
+        assert not cp.store.list(KIND_SHARD_GANG_PROPOSAL, SHARD_NAMESPACE)
+        for i in range(2):
+            lease = cp.store.get("LeaderLease", f"karmada-sched-shard-{i}", "karmada-system")
+            assert lease.spec.holder_identity == f"s{i}"
+        deadline = time.monotonic() + 30.0
+        while time.monotonic() < deadline:
+            objs = cp.store.list("SchedulerShard", SHARD_NAMESPACE)
+            if len(objs) == 2 and sum(o.status.bindings for o in objs) == len(everything):
+                break
+            time.sleep(0.2)
+        assert sorted((o.metadata.name, o.status.leader, o.status.shards_total)
+                      for o in objs) == [("scheduler-shard-0", "s0", 2),
+                                         ("scheduler-shard-1", "s1", 2)]
+        assert sum(o.status.bindings for o in objs) == len(everything)
+        assert all(p.poll() is None for p in procs)
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--scheduler-shards", "2"], "item 10"),
     (["--estimator", "m=host:1"], "item 9"),
     (["--enable-pprof"], "item 13"),
 ])
