@@ -99,7 +99,13 @@ result line otherwise. Phases, each of which raises on failure:
    2 x 2 tiles shifted by two columns (first columns and term views off
    a multiple of 4), prev and evict ids in other tiles and at the
    sentinel, answers with -1s, a random mask and score, with the terms
-   and without; dense_tail on
+   and without; candidate_merge (csrc/candidate_merge.cu, the
+   partitioned mesh's window merge) on seeded tie-heavy windows of 5 120
+   rows at 2, 3 and 4 shards of 128 and at three unequal widths for K =
+   8, 128 and 256, and candidate_select in its col0 mode on each 2 x 2
+   tile of the compact flagship (the affinity table and answers as
+   column views), each row group's merged tile windows against the
+   single-device select; dense_tail on
    both of its routes (the shared-memory one up to 12 288 columns, the
    re-reading one at any width) and without its output window, sim_load
    at R = 4, 9 and 17, and tier_consume and fleet_estimate at R = 17;
@@ -145,7 +151,23 @@ result line otherwise. Phases, each of which raises on failure:
    single-device B3 + B4 on the whole batch, and the tile filter on the
    arguments one round passed it, with its time and bound), one 2 x 3
    round at the same width (C padded to 5 121) held the same way, and the
-   cell over every card when there are several; that dense
+   cell over every card when there are several; then the partitioned mesh
+   cells, ArrayScheduler(mesh=virtual_mesh(4, card)) in its default mode,
+   each against the direct card round on every decision and the cpu
+   partitioned round on a 2 000-row sample (the tier round: its whole
+   batch), split by CUDA events per kernel and by a stage timer into
+   encode / dispatch / decode: mesh_part_flagship (the compact flagship:
+   B1 on four 5 120 x 2 560 tiles, a candidate_merge a row group, the
+   tails; 3 timed rounds, then candidate_merge and the tile selects on
+   one round's captured arguments against their plain versions, with
+   candidate_merge's time, bound and torch.topk + sort), mesh_part_dense
+   (the dense flagship: the tile filter and the gather, then the dense
+   round's tails; 2 timed rounds), mesh_part_tiers (tiers_compact's batch,
+   one round: the select on the tiles, the tier kernels over the whole
+   fleet), whatif_sharded (the
+   whatif simulation with four copies of the card visible and its budget
+   cut: the scenario axis sharded) and graft_entry.dryrun_multichip(4);
+   that dense
    flagship with the
    Duplicated quarter placed over the whole fleet (packed mask rows); the
    compact flagship, the dense flagship and that variant each run one
@@ -295,9 +317,9 @@ result line otherwise. Phases, each of which raises on failure:
 `--only GROUP` builds every kernel, runs one group of phases and prints no
 result line: `kernels` phase 3, `sim` the simulation plane's checks of
 phases 3 and 4, `graft` those of the dense-input program and the scheduler
-shim, `mesh` those of the mesh solve (with the single-device dense
-flagship round they are held against), `tiers` the tier kernels' checks of
-phase 3, `refresh` scatter_rows' check of phase 3 and the churn_dirty cell
+shim, `mesh` those of the mesh solve and the partitioned mesh rounds (with
+the single-device flagship rounds they are held against), `tiers` the tier
+kernels' checks of phase 3, `refresh` scatter_rows' check of phase 3 and the churn_dirty cell
 with the refresh's checks, `daemon` the three daemon cells of phase 4,
 `plugins` the plugin terms' checks of phase 3 and the plugin cells,
 `desched` daemon_flagship and desched_flagship, `shards` shards_flagship,
@@ -398,7 +420,13 @@ from karmada_tpu_torch.sched.core import (
 from karmada_tpu_torch.server.scheduler_shim import SchedulerShimServer, decision_json
 from karmada_tpu_torch.simulation import Simulator, apply_scenario_objects
 from karmada_tpu_torch.simulation.preflight import QuotaPreflight
-from karmada_tpu_torch.parallel.mesh import Mesh, MeshScheduleKernel, make_mesh
+from karmada_tpu_torch.parallel.mesh import (
+    Mesh,
+    MeshScheduleKernel,
+    make_mesh,
+    row_bounds,
+    stitch_packed,
+)
 from karmada_tpu_torch.api.coordination import (
     DEFAULT_LEASE_DURATION,
     LEADER_LEASE_NAMESPACE,
@@ -425,7 +453,7 @@ from karmada_tpu_torch.metrics import shard_handoffs, xshard_gang_commits
 from karmada_tpu_torch.server import codec as wire_codec
 from karmada_tpu_torch.store.store import Store
 from karmada_tpu_torch.sched.pipeline import StageTimer
-from karmada_tpu_torch.testing.cpumesh import virtual_mesh
+from karmada_tpu_torch.testing.cpumesh import virtual_devices, virtual_mesh
 from karmada_tpu_torch.testing.plugins import hash_registry
 from karmada_tpu_torch.testing.shim_contract import CONTRACT_CASES
 from karmada_tpu_torch.testing.fixtures import (
@@ -527,6 +555,11 @@ MESH_GRIDS = ((2, 2), (2, 3))  # the tile filter's random cuts; 2 x 3 pads C to 
 MESH_SHIFT = 2  # columns the shifted 2 x 2 cut moves its tiles (first columns off a multiple of 4)
 MESH_ROUNDS = 5  # timed rounds of mesh_flagship
 MESH_SAMPLE = 2000  # mesh_flagship rows held against the cpu mesh round
+MERGE_SHARDS = (2, 3, 4)  # candidate_merge's seeded checks: shards of 128 ...
+MERGE_KS = (8, 128, 256)  # ... and output windows over three unequal widths
+PART_ROUNDS = 3  # timed rounds of mesh_part_flagship
+PART_DENSE_ROUNDS = 2  # timed rounds of mesh_part_dense
+SHARDED_SIM_BUDGET = 1 << 21  # whatif_sharded's [S, B, C] budget: a quarter of its volume
 DAEMON_CHURN_ROUNDS = 2  # daemon_flagship's churn settles (5 % of the bindings drift each)
 # daemon_flagship's heartbeat: clusters whose status changes, cut from
 # churn_dirty's 50 — each cluster event re-lists all 10 000 bindings in
@@ -2566,9 +2599,9 @@ def captured_tier_calls():
             {"use_extra": kw.get("use_extra", True), "reclaim": reclaim.clone()}))
         return pair(self, cap, reclaim, rows, **kw)
 
-    def rec_con(self, *args):
+    def rec_con(self, *args, **kw):
         calls["tier_consume"].append(TierCall("tier_consume", self, [_clone(a) for a in args], {}))
-        return con(self, *args)
+        return con(self, *args, **kw)
 
     cls.launch_estimate, cls.launch_estimate_pair, cls.launch_consume = rec_est, rec_pair, rec_con
     try:
@@ -5156,7 +5189,7 @@ def run_sim_cells(dev, smi, path_launches):
     log(f"preflight on {smi}: the stranding caps denied on the card as on the cpu "
         f"({messages[0]!r}), the allowing caps admitted, one solve each; a spec-unchanged "
         "update ran none")
-    path_launches.update(counted)
+    add_launches(path_launches, counted, tuple(counted))
 
 
 # --------------------------------------------------------------------------
@@ -5929,6 +5962,400 @@ def run_mesh_cells(dev, smi, path_launches, results, clusters, bindings, card_de
         add_launches(path_launches, launches, ("mesh_tile_filter", "dense_tail"))
     else:
         log("mesh_flagship: one card visible; only the virtual meshes ran")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
+# the partitioned mesh rounds (the reference's default mesh mode): B1 on
+# every tile from its column offset, the window merge, and the compact,
+# dense and tiered rounds over a 2 x 2 virtual mesh of the card
+# --------------------------------------------------------------------------
+
+
+def tile_select_args(args, bounds, width, r, j):
+    """candidate_select's arguments for tile (r, j) of a batch's full-width
+    ones (FLEET + SELECT_BATCH + the answers): the fleet's column shard,
+    the row group's rows, the affinity table and the answers as column
+    views read in place. Returns (arguments, the tile's first column)."""
+    lo, hi = bounds[r]
+    c0 = j * width
+    fleet = [a[c0:c0 + width] for a in args[:7]]
+    batch = [a if n in ("tol_tables", "req_unique") else
+             a[:, c0:c0 + width] if n == "aff_masks" else a[lo:hi]
+             for n, a in zip(SELECT_BATCH, args[7:20])]
+    extra = None if args[20] is None else args[20][lo:hi, c0:c0 + width]
+    return fleet + batch + [extra], c0
+
+
+def random_merge_windows(rng, dev, B, widths):
+    """Seeded tie-heavy shard windows of the given widths, in column order:
+    each window's columns an ascending draw from its own shard's range
+    (three times its width), feasibility at 70 %, scores from three values
+    (so most winners are decided by the column order), the other fields and
+    the feasible counts random."""
+    windows, c0 = [], 0
+    for w in widths:
+        span = 3 * w
+        cols = np.sort(np.argsort(rng.random((B, span)), axis=1)[:, :w], axis=1) + c0
+        fields = [cols.astype(np.int32), rng.random((B, w)) < 0.7,
+                  rng.choice(np.array([0, 100, -7], np.int32), (B, w))]
+        fields += [rng.integers(-2**31, 2**31 - 1, (B, w), dtype=np.int64).astype(np.int32)
+                   for _ in range(3)]
+        fields.append(rng.integers(0, span, B).astype(np.int32))
+        windows.append(tuple(torch.from_numpy(np.ascontiguousarray(f)).to(dev) for f in fields))
+        c0 += span
+    return windows
+
+
+def merge_bound(windows, outs):
+    """Bytes the merge must move: every window entry's key (c_feas and
+    c_score, 5 bytes) read once, the other four fields (cand_idx, c_avail,
+    c_prev, c_tie, 16 bytes) of the K winners a row read once, every
+    shard's feasible counts read once, every output written once.
+    Operations: per entry the key and about eight compares of the select
+    and the compaction walk."""
+    B, k = outs[0].shape
+    keys = sum(nbytes(w[1:3]) for w in windows)
+    winners = B * k * sum(x.element_size() for x in (outs[0], outs[3], outs[4], outs[5]))
+    moved = keys + winners + sum(nbytes(w[6:7]) for w in windows) + nbytes(outs)
+    return bound(moved, 8 * sum(w[0].numel() for w in windows))
+
+
+def merge_library(windows, k):
+    """The merge by one library call: torch.topk over the row's
+    concatenated keys, then a sort of the winners' columns (the keys
+    built once, outside the timed call)."""
+    key = torch.cat([(w[1].to(torch.int64) << 33) + w[2] for w in windows], dim=1)
+    cand = torch.cat([w[0] for w in windows], dim=1)
+
+    def call():
+        top = torch.topk(key, k, dim=1).indices
+        return torch.sort(cand.gather(1, top), dim=1).values
+    return call
+
+
+def check_partitioned_kernels(sched, bindings, dev, results):
+    """Phase 3 for the partitioned compact round: candidate_merge against
+    its plain version on seeded tie-heavy windows (MERGE_SHARDS shards of
+    128, and unequal widths at MERGE_KS), then B1 in its col0 mode against
+    select_plain(col0=) on each 2 x 2 tile of the compact flagship's batch
+    (the affinity table and a random extra_avail read as column views),
+    and the merge of each row group's tile windows against the
+    single-device select (and the stitched packed masks against its
+    packed output): all exact. candidate_merge's times come with the
+    mesh_part_flagship cell."""
+    rng = np.random.default_rng(24)
+    Bl = shape_bucket(len(bindings)) // 2
+    err = 0
+    for c in MERGE_SHARDS:
+        w = random_merge_windows(rng, dev, Bl, [128] * c)
+        err = max(err, compare(f"candidate_merge[random, {c} x 128]",
+                               kernels._candidate_merge_launch(w, 128),
+                               kernels.candidate_merge_plain(w, 128), SELECT_OUT[:7]))
+    for K in MERGE_KS:
+        widths = [K, max(1, K // 2 + 3), 5]
+        w = random_merge_windows(rng, dev, Bl, widths)
+        err = max(err, compare(f"candidate_merge[random, widths {widths}, K {K}]",
+                               kernels._candidate_merge_launch(w, K),
+                               kernels.candidate_merge_plain(w, K), SELECT_OUT[:7]))
+    sel_args, k, _t, _tails = flagship_kernel_inputs(sched, bindings)
+    B, C = sel_args[7].shape[0], sel_args[0].shape[0]
+    bits = sched._plugin_bits
+    bounds, width = row_bounds(B, 2), C // 2
+    sel_err = 0
+    for extra in (None, flagship_answers(np.random.default_rng(21), B, C, dev)):
+        args = sel_args[:-1] + [extra]
+        full = kernels._select_launch(*args, k=k, plugin_bits=bits)
+        for r in range(2):
+            tiles = []
+            for j in range(2):
+                a, c0 = tile_select_args(args, bounds, width, r, j)
+                kw = dict(k=min(k, width), plugin_bits=bits, col0=c0)
+                got = kernels._select_launch(*a, **kw)
+                sel_err = max(sel_err, compare(
+                    f"candidate_select[flagship tile ({r}, {j}), col0 {c0}, "
+                    f"answers {extra is not None}]", got, kernels.select_plain(*a, **kw),
+                    SELECT_OUT))
+                tiles.append(got)
+            lo, hi = bounds[r]
+            merged = kernels._candidate_merge_launch([x[:7] for x in tiles], k)
+            packed = stitch_packed([x[7] for x in tiles], [width, width], dev)
+            err = max(err, compare(f"candidate_merge[flagship row group {r}] against the "
+                                   "single-device select", list(merged) + [packed],
+                                   [x[lo:hi] for x in full], SELECT_OUT))
+    if "candidate_select" in results:
+        r = results["candidate_select"]
+        r["max_abs_err"] = max(r["max_abs_err"], sel_err)
+    results["candidate_merge"] = dict(
+        source="karmada_tpu_torch/kernels/csrc/candidate_merge.cu",
+        replaces="karmada_tpu/sched/candidates.py:210", max_abs_err=err, ms=None,
+        plain_ms=None, bound_ms=None, bound_by=None, library_ms=None)
+    log(f"candidate_merge equals its plain version on seeded tie-heavy windows ({Bl} rows: "
+        f"{MERGE_SHARDS} shards of 128, unequal widths at K = {MERGE_KS}); candidate_select in "
+        f"its col0 mode equals select_plain(col0=) on each 2 x 2 tile of the compact flagship "
+        f"({bounds[0][1]} x {width} each, k {min(k, width)}, with and without answers, the "
+        "table and answers as column views), and each row group's merged windows and stitched "
+        "packed masks equal the single-device select's rows (tolerance 0)")
+
+
+@contextlib.contextmanager
+def kernel_marks(marks, names):
+    """CUDA events around every call of the kernels `names` (their public
+    wrappers): marks[-1] gets (name, start, end) per call."""
+    saved = {n: getattr(kernels, n) for n in names}
+
+    def marked(n, fn):
+        def call(*a, **kw):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            marks[-1].append((n, start, end))
+            return out
+        return call
+
+    for n, fn in saved.items():
+        setattr(kernels, n, marked(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(kernels, n, fn)
+
+
+def part_split(marks, names):
+    """The device time of the marked rounds by kernel (p50 over rounds,
+    ms): each kernel's summed spans, and the time between the first and
+    the last mark that no marked kernel covered (uploads, gathers,
+    stitches, concatenations)."""
+    per = {n: [] for n in names + ("first_to_last", "between")}
+    for m in marks:
+        if not m:
+            continue
+        total = m[0][1].elapsed_time(m[-1][2])
+        spans = {n: sum(s.elapsed_time(e) for kk, s, e in m if kk == n) for n in names}
+        for n in names:
+            per[n].append(spans[n])
+        per["first_to_last"].append(total)
+        per["between"].append(total - sum(spans.values()))
+    return {n: float(np.percentile(v, 50)) for n, v in per.items() if v}
+
+
+def part_cell(label, dev, smi, clusters, bindings, card_decisions, rounds, expect, marked,
+              **sched_kw):
+    """One partitioned mesh cell: ArrayScheduler(clusters,
+    mesh=virtual_mesh(4, card)) in the default mode, a warm round and
+    `rounds` timed ones (launches checked per round, CUDA events split by
+    the `marked` kernels, a stage timer the host's encode / dispatch /
+    decode), every decision against the direct card round (all fields: the
+    partitioned round decides as the single-device one) and a MESH_SAMPLE-
+    row sample against the cpu partitioned round. Returns (launches, the
+    scheduler)."""
+    sched = ArrayScheduler(clusters, mesh=virtual_mesh(4, dev), device=dev, **sched_kw)
+    marks, stages = [], []
+
+    def run():
+        marks.append([])
+        timer = StageTimer()
+        with sched.pipeline_context(timer):
+            out = sched.schedule(bindings)
+        stages.append(timer.totals)
+        return out
+
+    with kernel_marks(marks, marked):
+        decisions, launches, times = drive(label, sched, bindings, rounds, expect, smi, run=run)
+    torch.cuda.synchronize()
+    p50 = float(np.percentile(times, 50))
+    dev_split = part_split(marks[1:], marked)
+    host = {k: float(np.percentile([s.get(k, 0.0) for s in stages[1:]], 50))
+            for k in ("encode", "solve", "materialize")}
+    log(f"{label} breakdown: host p50 encode {host['encode']:.4f} s, dispatch (solve) "
+        f"{host['solve']:.4f} s, decode (materialize: wait, copy back, decode) "
+        f"{host['materialize']:.4f} s of the p50 round {p50:.4f} s; device p50 by CUDA events "
+        + ", ".join(f"{n} {v:.3f} ms" for n, v in dev_split.items())
+        + " (virtual: the tiles in turn on one card)")
+    bad = first_difference(decisions, card_decisions)
+    if bad is not None:
+        raise AssertionError(f"{label}: row {bad} differs from the direct card round: "
+                             f"{decision_view(decisions[bad])} vs "
+                             f"{decision_view(card_decisions[bad])}")
+    idx = np.sort(np.random.default_rng(9).choice(len(bindings), MESH_SAMPLE, replace=False))
+    cpu = ArrayScheduler(clusters, mesh=mesh_of("cpu", (2, 2)), device="cpu", **sched_kw)
+    t0 = time.perf_counter()
+    want = cpu.schedule([bindings[i] for i in idx])
+    cpu_s = time.perf_counter() - t0
+    bad = [int(i) for i, w in zip(idx, want) if decision_view(decisions[i]) != decision_view(w)]
+    if bad:
+        raise AssertionError(f"{label}: sample rows {bad[:5]} differ from the cpu partitioned "
+                             "mesh round")
+    log(f"{label} ({len(clusters)} clusters x {len(bindings)} bindings, fleet width "
+        f"{len(sched.fleet.names)}, mesh {sched.mesh.shape} virtual, "
+        f"{sum(d.ok for d in decisions)} placed): every decision equals the direct card round, a {MESH_SAMPLE}-row sample "
+        f"the cpu partitioned mesh round ({cpu_s:.1f} s)")
+    return launches, sched
+
+
+def run_part_flagship(dev, smi, path_launches, results, clusters, bindings, card_decisions):
+    """mesh_part_flagship: the compact flagship's batch over a 2 x 2
+    virtual mesh of the card, partitioned (four tiles of 5 120 x 2 560, K
+    128): PART_ROUNDS timed rounds split by CUDA events into tiles, merge,
+    tails and the rest, then candidate_merge and the tiles' selects on the
+    arguments one round passes them (captured) against their plain
+    versions, with candidate_merge's times, bound and library call."""
+    expect = {"candidate_select": 4, "candidate_merge": 2, "candidate_tail": 2}
+    launches, sched = part_cell("mesh_part_flagship", dev, smi, clusters, bindings,
+                                card_decisions, PART_ROUNDS, expect,
+                                ("candidate_select", "candidate_merge", "candidate_tail"))
+    add_launches(path_launches, launches, tuple(expect))
+    with captured_launches(["candidate_merge", "select"]) as cap:
+        sched.schedule(bindings)
+    torch.cuda.synchronize()
+    merges, selects = cap["candidate_merge"], cap["select"]
+    err = 0
+    for i, (a, kw) in enumerate(selects):
+        err = max(err, compare(f"candidate_select[mesh_part_flagship tile {i}, captured]",
+                               kernels._select_launch(*a, **kw),
+                               kernels.select_plain(*a, **kw), SELECT_OUT))
+    for i, (a, kw) in enumerate(merges):
+        err = max(err, compare(f"candidate_merge[mesh_part_flagship row group {i}, captured]",
+                               kernels._candidate_merge_launch(*a, **kw),
+                               kernels.candidate_merge_plain(*a, **kw), SELECT_OUT[:7]))
+    k = merges[0][0][1]
+
+    def run_merges(fn):
+        return lambda: [fn(*a, **kw) for a, kw in merges]
+
+    m_ms = cuda_ms(run_merges(kernels._candidate_merge_launch), 20)
+    m_dev, m_by = profiled_calls_ms(run_merges(kernels._candidate_merge_launch), 20)
+    m_plain = cuda_ms(run_merges(kernels.candidate_merge_plain), 3)
+    libs = [merge_library(a[0], a[1]) for a, _ in merges]
+    m_lib = cuda_ms(lambda: [f() for f in libs], 20)
+    outs = [kernels._candidate_merge_launch(*a, **kw) for a, kw in merges]
+    mb, mb_by = 0.0, "bytes"
+    for (a, _), o in zip(merges, outs):
+        b_ms, mb_by = merge_bound(a[0], o)
+        mb += b_ms
+    r = results["candidate_merge"]
+    r.update(max_abs_err=max(r["max_abs_err"], err), ms=m_ms, plain_ms=m_plain, bound_ms=mb,
+             bound_by=mb_by, library_ms=m_lib, device_ms=m_dev)
+    if "candidate_select" in results:
+        results["candidate_select"]["max_abs_err"] = max(
+            results["candidate_select"]["max_abs_err"], err)
+    log(f"candidate_merge on one mesh_part_flagship round's {len(merges)} row groups (captured, "
+        f"{merges[0][0][0][0][0].shape[0]} rows x {len(merges[0][0][0])} windows of "
+        f"{[w[0].shape[1] for w in merges[0][0][0]]}, K {k}) and the round's {len(selects)} "
+        f"tile selects: equal to their plain versions; merge {m_ms:.4f} ms a round, device "
+        f"{m_dev:.4f} ({_events_text(m_by)}) (plain {m_plain:.3f}, bound {mb:.4f} {mb_by}, "
+        f"torch.topk + sort {m_lib:.4f})")
+    del merges, selects, cap, outs, libs, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_part_tiers(dev, smi, path_launches):
+    """mesh_part_tiers: tiers_compact's batch over the 2 x 2 virtual mesh,
+    partitioned, one round: launches as tier_expect's compact round with
+    the select on the four tiles and a merge a row group; decisions and
+    speculative decisions against the direct card round and the cpu
+    partitioned mesh round (the whole batch: tiers consume capacity across
+    rows, so a sample would be another batch)."""
+    clusters, bindings, placed = build_tiers(duplicated=False)
+    one = ArrayScheduler(clusters, device=dev)
+    direct = tier_round(one, bindings, placed)
+    sched = ArrayScheduler(clusters, mesh=virtual_mesh(4, dev), device=dev)
+    expect = tier_expect(sched, bindings, placed, True)
+    # the select on the four tiles and a merge a row group; the tier
+    # kernels over the whole fleet, as on one device
+    expect.update(candidate_select=4, candidate_merge=2)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decisions = tier_round(sched, bindings, placed)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    for n, c in launches.items():
+        ALL_PATH_LAUNCHES[n] = ALL_PATH_LAUNCHES.get(n, 0) + c
+        if c != expect.get(n, 0):
+            raise AssertionError(f"mesh_part_tiers: {n} launched {c} times, expected "
+                                 f"{expect.get(n, 0)}")
+    add_launches(path_launches, launches, tuple(expect))
+    bad = first_difference(decisions, direct)
+    if bad is not None:
+        raise AssertionError(f"mesh_part_tiers: row {bad} differs from the direct card round")
+    cpu = ArrayScheduler(clusters, mesh=mesh_of("cpu", (2, 2)), device="cpu")
+    t0 = time.perf_counter()
+    want = tier_round(cpu, bindings, placed)
+    cpu_s = time.perf_counter() - t0
+    bad = first_difference(decisions, want)
+    if bad is not None:
+        raise AssertionError(f"mesh_part_tiers: row {bad} differs from the cpu partitioned round")
+    spec = sum(d.speculative is not None for d in decisions)
+    log(f"mesh_part_tiers on {smi} ({len(bindings)} rows, one round {round_s:.4f} s, launches "
+        f"{ {n: c for n, c in launches.items() if c} }): {sum(d.ok for d in decisions)} placed, "
+        f"{spec} speculative decisions; every decision equals the direct card round and the cpu "
+        f"partitioned mesh round ({cpu_s:.1f} s)")
+
+
+def run_part_whatif(dev, smi, path_launches):
+    """whatif_sharded: the whatif cell's simulation (build_whatif: 500
+    clusters x 1 000 bindings, 16 scenarios) with the [S, B, C] budget cut
+    to SHARDED_SIM_BUDGET and four copies of the card visible
+    (`virtual_devices(4, card)`): the scenario axis shards over them (two
+    chunks, the first cut into four slices of four scenarios), B13 on each
+    slice's device, the outcomes back in scenario order; every outcome
+    against the direct card simulation (one unsharded solve)."""
+    clusters, bindings, scenarios = build_whatif()
+    base, outs = Simulator(clusters, device=dev).simulate(bindings, scenarios)
+    sim = Simulator(clusters, max_bc_elems=SHARDED_SIM_BUDGET, device=dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with virtual_devices(4, dev):
+        s_base, s_outs = sim.simulate(bindings, scenarios)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    for n, c in launches.items():
+        ALL_PATH_LAUNCHES[n] = ALL_PATH_LAUNCHES.get(n, 0) + c
+    add_launches(path_launches, launches, ("sim_filter", "dense_tail", "sim_load"))
+    if not sim.last_stats["mesh"]:
+        raise AssertionError("whatif_sharded: the scenario axis did not shard")
+    same_outcomes("whatif_sharded", [s_base] + s_outs, [base] + outs)
+    log(f"whatif_sharded on {smi}: {len(scenarios)} scenarios over 4 virtual devices in "
+        f"{sim.last_stats['batched_solves']} chunks, {wall:.4f} s (wall; launches "
+        f"{ {n: c for n, c in launches.items() if c} }); every outcome equals the direct card "
+        "simulation's")
+
+
+def run_part_cells(dev, smi, path_launches, results, flagship, dense):
+    """The partitioned mesh cells: mesh_part_flagship, mesh_part_dense (the
+    dense flagship, dense-solve on every binding, PART_DENSE_ROUNDS timed
+    rounds), mesh_part_tiers, whatif_sharded and
+    graft_entry.dryrun_multichip(4) on the card. `flagship` and `dense` are (clusters, bindings, the direct card
+    round's decisions)."""
+    run_part_flagship(dev, smi, path_launches, results, *flagship)
+    expect = {"mesh_tile_filter": 4, "dense_tail": 2, "feas_idx": 1}
+    launches, _ = part_cell("mesh_part_dense", dev, smi, *dense, PART_DENSE_ROUNDS, expect,
+                            ("mesh_tile_filter", "dense_tail", "feas_idx"))
+    add_launches(path_launches, launches, tuple(expect))
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_part_tiers(dev, smi, path_launches)
+    run_part_whatif(dev, smi, path_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(4)
+    torch.cuda.synchronize()
+    launches = {n: c for n, c in kernels.launch_counts().items() if c}
+    for n, c in launches.items():
+        ALL_PATH_LAUNCHES[n] = ALL_PATH_LAUNCHES.get(n, 0) + c
+    log(f"dryrun_multichip(4) on the card: passed in {time.perf_counter() - t0:.1f} s (512 "
+        f"clusters x 256 bindings over a 2 x 2 virtual mesh: run_kernel, the partitioned round "
+        f"with 48 sampled rows held against the single-device round, the autoshard leg; "
+        f"launches {launches})")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -8045,11 +8472,16 @@ def main(argv=None) -> int:
         path_launches = {}
         check_mesh_tile_filter(dev, results, shape_bucket(len(d_bindings)),
                                len(d_sched.fleet.names))
+        check_partitioned_kernels(sched, bindings, dev, results)
+        c_decisions = sched.schedule(bindings)
         d_decisions = d_sched.schedule(d_bindings)
-        del d_sched
+        del sched, d_sched
         run_mesh_cells(dev, smi, path_launches, results, d_clusters, d_bindings, d_decisions)
-        log(f"--only mesh: the tile filter and the mesh cells passed (launches "
-            f"{path_launches}); no other kernel or cell was run")
+        run_part_cells(dev, smi, path_launches, results, (clusters, bindings, c_decisions),
+                       (d_clusters, d_bindings, d_decisions))
+        log(f"--only mesh: the tile filter, the window merge and the mesh cells passed "
+            f"({json.dumps(results)}; launches {path_launches}); no other kernel or cell was "
+            "run")
         return 0
 
     # ---- phase 3: kernels against their plain versions on the card ----
@@ -8059,6 +8491,7 @@ def main(argv=None) -> int:
     check_dense_input_filter(dev, results, shape_bucket(len(d_bindings)),
                              len(d_sched.fleet.names))
     check_mesh_tile_filter(dev, results, shape_bucket(len(d_bindings)), len(d_sched.fleet.names))
+    check_partitioned_kernels(sched, bindings, dev, results)
     # one round each of configs 4, 4b and drain (their bindings are built
     # again in phase 4, so no earlier cell's garbage collections walk them)
     check_spread_kernels(dev, results)
@@ -8077,15 +8510,15 @@ def main(argv=None) -> int:
 
     # ---- phase 4: the main paths ----
     path_launches = {}
-    decisions, launches, times = drive(
+    c_decisions, launches, times = drive(
         "compact flagship round", sched, bindings, TIMED_ROUNDS,
         {"candidate_select": 1, "candidate_tail": 2}, smi)
     path_launches.update({n: launches[n] for n in ("candidate_select", "candidate_tail")})
     log(f"candidate stats {sched.last_candidate_stats}")
     round_breakdown("compact flagship", sched, bindings, compact_ms,
                     float(np.percentile(times, 50)))
-    hold_against_cpu("compact flagship", clusters, bindings, decisions)
-    check_solve_syncs("compact flagship", sched, bindings, decisions)
+    hold_against_cpu("compact flagship", clusters, bindings, c_decisions)
+    check_solve_syncs("compact flagship", sched, bindings, c_decisions)
 
     decisions, launches, times = drive(
         "dense flagship round (reason policy)", d_sched, d_bindings, TIMED_ROUNDS,
@@ -8098,6 +8531,8 @@ def main(argv=None) -> int:
     run_graft_cells(dev, smi, path_launches, results, d_sched, d_bindings, flag)
     del d_sched
     run_mesh_cells(dev, smi, path_launches, results, d_clusters, d_bindings, decisions)
+    run_part_cells(dev, smi, path_launches, results, (clusters, bindings, c_decisions),
+                   (d_clusters, d_bindings, decisions))
 
     w_clusters, w_bindings = build_flagship(dense=True, whole_fleet_dup=True)
     w_sched = ArrayScheduler(w_clusters, device=dev)

@@ -7,14 +7,17 @@ real workload for it.
 `entry()` returns `sched.core._schedule_kernel` and its 24 tensors, already
 on the device, built from the dense views of a mixed-strategy batch
 (models/batch.py) over a synthetic fleet, as the reference's
-`__graft_entry__.entry()` builds them. The reference's
-`dryrun_multichip` (the mesh program on virtual devices) is not ported
-yet: it comes with the multi-GPU slice's remaining part; the mesh round
-itself is `ArrayScheduler(mesh=...)` (parallel/mesh.py).
+`__graft_entry__.entry()` builds them. `dryrun_multichip(n, device)` is
+the reference's multi-chip dry run: the partitioned mesh round over a
+virtual mesh of n copies of the device, checked inside against the
+single-device round.
+
+    dryrun_multichip(8, device="cpu")   # device=None: the CUDA card
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from . import resolve_device
 from .api.meta import CPU, ObjectMeta, new_uid
@@ -145,3 +148,60 @@ def entry(device=None, n_clusters: int = 16, n_bindings: int = 12):
     dev = resolve_device(device)
     sched, batch, _ = _example_problem(n_clusters, n_bindings, device=dev)
     return _schedule_kernel, schedule_args(sched, batch, dev)
+
+
+def dryrun_multichip(n_devices: int, device=None) -> None:
+    """The multi-chip dry run (the reference's `dryrun_multichip`) on a
+    virtual mesh of `n_devices` copies of `device` (None: the CUDA card,
+    RuntimeError without one) at a non-trivial shape: 512 clusters x 256
+    mixed-strategy bindings (Duplicated, static-weight, dynamic,
+    Aggregated and region-spread rows). It runs the full partitioned
+    round sharded over the (bindings, clusters) mesh: `run_kernel` (the
+    tile filter on every tile, the gather, the dense tail; some placement
+    asserted), then `schedule` (the compact round: the select on every
+    tile and the window merge), with sampled parity against the
+    single-device round asserted inside; then the autoshard leg: a
+    mesh-less scheduler whose [B, C] budget is shrunk below the round's
+    footprint, with `n_devices` copies of the device visible, must route
+    itself onto the mesh and decide as the single-device round."""
+    from .parallel.mesh import make_mesh, virtual_devices
+
+    dev = resolve_device(device)
+    sched, _, bindings = _example_problem(512, 256, device=dev)
+    clusters = sched.clusters[: sched.n_real_clusters]
+    mesh_sched = ArrayScheduler(clusters, mesh=make_mesh([dev] * n_devices))
+    batch = mesh_sched._pad(mesh_sched.batch_encoder.encode(bindings))
+    out = mesh_sched.run_kernel(batch)
+    assert bool(out[0].any()), "dryrun produced no feasible placements"
+    assert int(out[2].to(torch.int64).sum()) > 0, "dryrun assigned no replicas"
+
+    decisions = mesh_sched.schedule(bindings)
+    assert any(d.ok and d.targets for d in decisions), "no decision decoded"
+
+    # sampled parity with the single-device solve: same targets, same errors
+    want = sched.schedule(bindings)
+    sample = np.random.default_rng(0).choice(len(bindings), size=min(48, len(bindings)),
+                                             replace=False)
+    _hold_sample("sharded", decisions, want, sample)
+
+    # the autoshard leg: an oversized round re-places itself onto the mesh
+    auto = ArrayScheduler(clusters, device=dev)
+    auto.max_bc_elems = 4096  # << 256 x 512: the oversized class
+    with virtual_devices(n_devices, dev):
+        auto_dec = auto.schedule(bindings)
+    assert auto.mesh is not None, "autoshard did not engage the mesh path"
+    _hold_sample("autoshard", auto_dec, want, sample)
+
+
+def _hold_sample(label: str, got, want, sample) -> None:
+    """Assert the sampled rows decide alike: ok, error and targets."""
+    for b in sample:
+        d, w = got[int(b)], want[int(b)]
+        assert d.ok == w.ok, (
+            f"{label} row {b}: mesh ok={d.ok} single ok={w.ok} ({d.error!r} vs {w.error!r})")
+        if not d.ok:
+            assert d.error == w.error, f"{label} row {b}"
+            continue
+        got_t = {t.name: t.replicas for t in d.targets}
+        want_t = {t.name: t.replicas for t in w.targets}
+        assert got_t == want_t, f"{label} row {b}: {got_t} != single-device {want_t}"

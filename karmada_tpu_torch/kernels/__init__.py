@@ -3,8 +3,14 @@ version.
 
 Compact candidate round:
 - `candidate_select` (csrc/candidate_select.cu): filters + locality score
-  over [B, C], the top-K window, and everything gathered to [B, K]; the
-  plain version is `select_plain`.
+  over [B, C], the top-K window, and everything gathered to [B, K]; or,
+  with `col0`, over one mesh tile's columns (global ids and ties, the
+  affinity table, answers and terms read as column views); the plain
+  version is `select_plain`.
+- `candidate_merge` (csrc/candidate_merge.cu): the partitioned mesh's
+  merge of a row group's shard windows into the row's top K, in column
+  order, the feasible counts summed; the plain version is
+  `candidate_merge_plain`.
 - `candidate_tail` (csrc/candidate_tail.cu): the replica-division tail over
   [rows, K] windows plus the compact output window, one warp a row whose
   three orders are register sorts over the warp; the plain version is
@@ -177,7 +183,7 @@ KERNEL_NAMES = (
     "spread_tail", "combo_select", "tier_estimate", "tier_consume", "tier_consume_window",
     "fleet_estimate",
     "staleness_penalty", "scatter_rows", "sim_filter", "sim_load", "dense_input_filter",
-    "mesh_tile_filter",
+    "mesh_tile_filter", "candidate_merge",
 )
 _launch_lock = threading.Lock()
 _launches = dict.fromkeys(KERNEL_NAMES, 0)
@@ -205,6 +211,11 @@ MAX_TAIL_K = 128
 MAX_SELECT_SMEM = 225_280
 # the dense tail sorts its output window in shared memory
 MAX_DENSE_TOPK = 128
+# candidate_merge takes up to this many shard windows a launch
+# (candidate_merge.cu kMaxShards) and stages a row's W = sum K_s keys in
+# shared memory, 8 bytes each, up to MAX_MERGE_WIDTH of them
+MAX_MERGE_SHARDS = 16
+MAX_MERGE_WIDTH = 16384
 FEAS_IDX_PAD = 1 << 30  # feas_idx's value past a row's feasible count
 # combo_select's sentinels (the reference's `NEG` and its masked discovery key)
 COMBO_NEG = -(1 << 62)
@@ -246,7 +257,7 @@ def select_plain(
     replicas, unknown_request, gvk, tol_tables, tol_idx,
     aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
     req_unique, req_idx, extra_avail, *, k: int, plugin_bits: int,
-    extra_mask=None, extra_score=None,
+    extra_mask=None, extra_score=None, col0: int = 0,
 ):
     """Plain version of the candidate-select kernel (the reference's
     `_candidate_select_kernel`). Returns (cand_idx i32[B,K], c_feas bool,
@@ -255,11 +266,16 @@ def select_plain(
     answer). `extra_mask` (bool[B,C]) and `extra_score` (i32[B,C]), each
     None when absent, are the out-of-tree plugins' terms: the mask ANDed
     into feasibility, the score added with the int32 wrap, before the
-    selection (the reference's filter_phase)."""
+    selection (the reference's filter_phase). A mesh tile passes its first
+    global column `col0`: the fleet tensors and the [P, C] / [B, C] inputs
+    are then the tile's columns (views allowed), `prev_idx` / `evict_idx`
+    hold global ids (those outside [col0, col0 + C) drop), and the tie and
+    `cand_idx` are at the global columns."""
     from ..sched.candidates import compact_estimate
 
     C = alive.shape[0]
-    prev_member, prev_replicas, eviction_ok = core.sparse_rows(prev_idx, prev_rep, evict_idx, C)
+    prev_member, prev_replicas, eviction_ok = core.sparse_rows(
+        prev_idx.long() - col0, prev_rep, evict_idx.long() - col0, C)
     feasible, score = core.filter_phase(
         alive, taint_key, taint_value, taint_effect, api_ok, gvk,
         tol_tables, tol_idx, aff_masks[aff_idx.long()], eviction_ok, prev_member,
@@ -274,10 +290,31 @@ def select_plain(
         cand, c_extra,
     )
     return (
-        cand.to(I32), feasible.gather(-1, cand), score.gather(-1, cand), c_avail,
-        prev_replicas.gather(-1, cand), core.tie_at(seeds, cand),
+        (cand + col0).to(I32), feasible.gather(-1, cand), score.gather(-1, cand), c_avail,
+        prev_replicas.gather(-1, cand), core.tie_at(seeds, cand + col0),
         feasible.sum(-1).to(I32), core.pack_bits(feasible),
     )
+
+
+def candidate_merge_plain(windows, k: int):
+    """Plain version of the window-merge kernel (csrc/candidate_merge.cu):
+    `windows` lists a row group's c shard windows in column order, each
+    (cand_idx i32[B,K_s] global ids in column order, c_feas bool, c_score
+    i32, c_avail i32, c_prev i32, c_tie i32, feas_count i32[B]). Returns
+    the row's top k entries over all of them by (feasible desc, score desc,
+    column asc), in column order, the six fields carried along, and the
+    feasible counts summed: candidate_select's first seven outputs."""
+    cat = [torch.cat([w[i] for w in windows], dim=1) for i in range(6)]
+    W = cat[0].shape[1]
+    if not 0 < k <= W:
+        raise ValueError(f"candidate_merge: k={k} must be in (0, {W}]")
+    # the concatenation is in column order, so positions order the ties
+    key = (cat[1].to(I64) << 33) + cat[2].to(I64)
+    pos = torch.sort(core.top_k_ordered(key, k), dim=-1).values
+    feas_count = windows[0][6].to(I64)
+    for w in windows[1:]:
+        feas_count = feas_count + w[6]
+    return tuple(x.gather(-1, pos) for x in cat) + (feas_count.to(I32),)
 
 
 def _plugin_terms_plain(feasible, score, extra_mask, extra_score):
@@ -943,11 +980,12 @@ def _check_filter_args(
     alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
     replicas, unknown_request, gvk, tol_tables, tol_idx,
     aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
-    req_unique, req_idx, extra_avail, extra_mask=None, extra_score=None,
+    req_unique, req_idx, extra_avail, extra_mask=None, extra_score=None, *, views=False,
 ):
     """Check the fleet and factored-batch inputs shared by candidate_select
     and dense_filter, and the optional [B, C] terms (answers, plugin mask
-    and score); returns (C, R, T, G, B, Kt, Kp, Ke)."""
+    and score); returns (C, R, T, G, B, Kt, Kp, Ke). With `views` the
+    affinity table is left to the caller (it may be a column view)."""
     dev = alive.device
     C, R = capacity.shape
     T = taint_key.shape[1]
@@ -965,13 +1003,15 @@ def _check_filter_args(
         ("taint_effect", taint_effect, I32, (C, T)), ("api_ok", api_ok, BOOL, (C, G)),
         ("replicas", replicas, I32, (B,)), ("unknown_request", unknown_request, BOOL, (B,)),
         ("gvk", gvk, I32, (B,)), ("tol_tables", tol_tables, I32, (Tt, 4, Kt)),
-        ("tol_idx", tol_idx, I32, (B,)), ("aff_masks", aff_masks, BOOL, (P, C)),
+        ("tol_idx", tol_idx, I32, (B,)),
+        ("aff_masks", aff_masks, BOOL, (P, C)),
         ("aff_idx", aff_idx, I32, (B,)), ("prev_idx", prev_idx, I32, (B, Kp)),
         ("prev_rep", prev_rep, I32, (B, Kp)), ("evict_idx", evict_idx, I32, (B, Ke)),
         ("seeds", seeds, I64, (B,)), ("req_unique", req_unique, I64, (U, R)),
         ("req_idx", req_idx, I32, (B,)),
     ):
-        _check(name, t, dt, shape, dev)
+        if not (views and name == "aff_masks"):
+            _check(name, t, dt, shape, dev)
     for name, t, dt in (("extra_avail", extra_avail, I32), ("extra_mask", extra_mask, BOOL),
                         ("extra_score", extra_score, I32)):
         if t is not None:
@@ -1000,15 +1040,17 @@ def candidate_select(
     replicas, unknown_request, gvk, tol_tables, tol_idx,
     aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
     req_unique, req_idx, extra_avail, *, k: int, plugin_bits: int,
-    extra_mask=None, extra_score=None,
+    extra_mask=None, extra_score=None, col0: int = 0,
 ):
-    """Candidate select over the fleet and a padded batch (see
-    select_plain for the contract)."""
+    """Candidate select over the fleet and a padded batch, or over one
+    mesh tile's columns from global column `col0` (see select_plain for
+    the contract)."""
     args = (alive, capacity, has_summary, taint_key, taint_value, taint_effect,
             api_ok, replicas, unknown_request, gvk, tol_tables, tol_idx,
             aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
             req_unique, req_idx, extra_avail)
-    kw = dict(k=k, plugin_bits=plugin_bits, extra_mask=extra_mask, extra_score=extra_score)
+    kw = dict(k=k, plugin_bits=plugin_bits, extra_mask=extra_mask, extra_score=extra_score,
+              col0=col0)
     dev = alive.device
     if dev.type == "cpu":
         return select_plain(*args, **kw)
@@ -1025,22 +1067,32 @@ def _select_launch(
     replicas, unknown_request, gvk, tol_tables, tol_idx,
     aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
     req_unique, req_idx, extra_avail, *, k: int, plugin_bits: int,
-    extra_mask=None, extra_score=None, route: str = "auto",
+    extra_mask=None, extra_score=None, col0: int = 0, route: str = "auto",
 ):
     """Check, allocate and launch candidate_select_kernel on its route:
     select_route's with route "auto", the device-memory one at any width
     with "wide" (both exact). The wide route's keys go to a uint32 [B, C]
     scratch (allocated as int32). The plugin terms go as null pointers
-    when absent."""
+    when absent. The affinity table, the answers and the terms may be
+    column views (a mesh tile's, from global column `col0`): they are read
+    in place through their row strides."""
     dev = alive.device
     C, R, T, G, B, Kt, Kp, Ke = _check_filter_args(
         alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok,
         replicas, unknown_request, gvk, tol_tables, tol_idx,
         aff_masks, aff_idx, prev_idx, prev_rep, evict_idx, seeds,
-        req_unique, req_idx, extra_avail, extra_mask, extra_score,
+        req_unique, req_idx, None, views=True,
     )
+    ld_aff, ld_extra, ld_mask, ld_score = (
+        C if t is None else max(_check_rows_view(name, t, dt, (n, C), dev), C)
+        for name, t, dt, n in (("aff_masks", aff_masks, BOOL, aff_masks.shape[0]),
+                               ("extra_avail", extra_avail, I32, B),
+                               ("extra_mask", extra_mask, BOOL, B),
+                               ("extra_score", extra_score, I32, B)))
     if not 0 < k <= C:
         raise ValueError(f"candidate_select: k={k} must be in (0, C={C}]")
+    if col0 < 0:
+        raise ValueError(f"candidate_select: col0 {col0} < 0")
     if route not in ("auto", "wide"):
         raise ValueError(f"candidate_select: unknown route {route!r}")
     wide = route == "wide" or select_route(C, Kt, Kp, Ke) == "candidate_select_wide"
@@ -1063,8 +1115,8 @@ def _select_launch(
                prev_idx, prev_rep, evict_idx, seeds, req_unique, req_idx),
         B, Kt, Kp, Ke, k, plugin_bits, extra_avail is not None,
         *_ptrs(extra_avail, extra_mask, extra_score, cand, c_feas, c_score, c_avail, c_prev,
-               c_tie, feas_count, packed, keys),
-        _stream(dev),
+               c_tie, feas_count, packed),
+        col0, ld_aff, ld_extra, ld_mask, ld_score, _ptr(keys), _stream(dev),
     )
     _raise_on(rc, "candidate_select")
     return cand, c_feas, c_score, c_avail, c_prev, c_tie, feas_count, packed
@@ -1094,6 +1146,53 @@ def _select_window_launch(feasible, score, k: int, *, route: str = "auto"):
         _ptr(keys), _stream(dev))
     _raise_on(rc, "select_window")
     return cand, feas_count
+
+
+def candidate_merge(windows, k: int):
+    """The top-k merge of a row group's shard windows (see
+    candidate_merge_plain for the contract)."""
+    dev = windows[0][0].device
+    if dev.type == "cpu":
+        return candidate_merge_plain(windows, k)
+    if dev.type != "cuda":
+        raise ValueError(f"candidate_merge: unsupported device {dev}")
+    out = _candidate_merge_launch(windows, k)
+    _launched("candidate_merge")
+    return out
+
+
+def _candidate_merge_launch(windows, k: int):
+    """Check the windows (c of them, up to MAX_MERGE_SHARDS, on one device,
+    each i32 / bool [B, K_s] and a [B] count, contiguous), allocate the
+    outputs and launch candidate_merge once for the row group."""
+    c = len(windows)
+    if not 0 < c <= MAX_MERGE_SHARDS:
+        raise ValueError(f"candidate_merge: {c} windows, expected 1..{MAX_MERGE_SHARDS}")
+    dev = windows[0][0].device
+    B = windows[0][0].shape[0]
+    table = (_MergeShard * c)()
+    W = 0
+    for j, w in enumerate(windows):
+        Ks = w[0].shape[1]
+        for name, t, dt in zip(("cand_idx", "c_feas", "c_score", "c_avail", "c_prev", "c_tie"),
+                               w[:6], (I32, BOOL, I32, I32, I32, I32)):
+            _check(f"{name}[{j}]", t, dt, (B, Ks), dev)
+        _check(f"feas_count[{j}]", w[6], I32, (B,), dev)
+        table[j] = _MergeShard(*_ptrs(*w[:7]), Ks)
+        W += Ks
+    if not 0 < k <= W:
+        raise ValueError(f"candidate_merge: k={k} must be in (0, {W}]")
+    if W > MAX_MERGE_WIDTH:
+        raise ValueError(f"candidate_merge: {W} window entries a row, past {MAX_MERGE_WIDTH}")
+    out = tuple(torch.empty((B, k), dtype=dt, device=dev)
+                for dt in (I32, BOOL, I32, I32, I32, I32))
+    feas_count = torch.empty((B,), dtype=I32, device=dev)
+    if B == 0:
+        return out + (feas_count,)
+    rc = _bind("candidate_merge", "candidate_merge_launch", _MERGE_ARGTYPES)(
+        ctypes.addressof(table), c, B, k, *_ptrs(*out, feas_count), _stream(dev))
+    _raise_on(rc, "candidate_merge")
+    return out + (feas_count,)
 
 
 def candidate_tail(
@@ -1675,7 +1774,8 @@ def _bind(lib: str, entry: str, argtypes):
 # arguments in the entry's order)
 _VP, _CI, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FILTER_HEAD = [_VP] * 7 + [_CI] * 4 + [_VP] * 13
-_SELECT_ARGTYPES = _FILTER_HEAD + [_CI] * 7 + [_VP] * 13
+_SELECT_ARGTYPES = _FILTER_HEAD + [_CI] * 7 + [_VP] * 11 + [_CI] + [_CL] * 4 + [_VP] * 2
+_MERGE_ARGTYPES = [_VP, _CI, _CI, _CI] + [_VP] * 8
 _SELECT_WINDOW_ARGTYPES = [_VP, _VP, _CI, _CI, _CI, _VP, _VP, _VP, _VP]
 _TAIL_ARGTYPES = [_VP] * 6 + [_CI] + [_VP] * 4 + [_CI] * 4 + [_VP] * 7
 _DENSE_FILTER_ARGTYPES = _FILTER_HEAD + [_CI] * 8 + [_VP] * 13
@@ -1719,6 +1819,14 @@ def _tier_consume_launch(cap, placed, unsched, request, rows, *, cand_idx=None):
     else:
         _check("placed", placed, I32, (n, C), dev)
     return _TierConsume(request, C, cand_idx)(cap, placed, unsched, rows)
+
+
+class _MergeShard(ctypes.Structure):
+    """candidate_merge.cu's MergeShard: one shard window's seven device
+    pointers and its width."""
+    _fields_ = [(name, _VP) for name in (
+        "cand_idx", "c_feas", "c_score", "c_avail", "c_prev", "c_tie", "feas_count")] + [
+        ("K", _CI)]
 
 
 class _TierRound(ctypes.Structure):

@@ -33,9 +33,9 @@ from ..metrics import jit_cache_misses, jit_compile_seconds, jit_persistent_cach
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("candidate_select", "candidate_tail", "dense_filter", "dense_tail", "dense_mask",
-           "group_score", "combo_select", "tiers", "fleet_estimate", "staleness", "scatter_rows",
-           "sim_load")
+SOURCES = ("candidate_select", "candidate_merge", "candidate_tail", "dense_filter", "dense_tail",
+           "dense_mask", "group_score", "combo_select", "tiers", "fleet_estimate", "staleness",
+           "scatter_rows", "sim_load")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

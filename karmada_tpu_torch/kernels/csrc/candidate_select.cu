@@ -52,6 +52,16 @@
 // wider rows keep the same code with the scores in a uint32 [B, C] scratch
 // in device memory and the feasibility read back from the packed output.
 //
+// A mesh tile (the partitioned mesh round, parallel/mesh.py) selects over
+// its own columns: the fleet tensors are the column shard's, col0 its first
+// global column. The rules are mesh_tile_filter's (dense_filter.cu): the
+// prev / evict ids stay global and are made local as they are staged (an
+// id outside [col0, col0 + C), the drop sentinel included, is skipped), the
+// tie is splitmix64 at col0 + c, and cand_idx holds global column ids; the
+// affinity table, the answers and the plugin terms are column views read in
+// place through their row strides. col0 = 0 with strides C is the whole
+// fleet, bit for bit the launch without them.
+//
 // Built by karmada_tpu_torch/kernels/build.py with nvcc for sm_90a and
 // called through the plain C entry point at the bottom (ctypes).
 
@@ -80,8 +90,10 @@ constexpr uint32_t kFlip = 0x80000000u;  // int32 order as uint32 order
 
 struct SelParams : FilterArgs {
   // the out-of-tree plugin terms, each null when absent
-  const uint8_t* extra_mask;   // [B,C] ANDed into the feasibility
-  const int32_t* extra_score;  // [B,C] added to the score (int32 wrap)
+  const uint8_t* extra_mask;   // [B,ld_mask] ANDed into the feasibility
+  const int32_t* extra_score;  // [B,ld_score] added to the score (int32 wrap)
+  int64_t ld_mask, ld_score;
+  int col0;  // the first global column (a mesh tile's), else 0
   int K;
   int nbytes;  // ceil(C / 8)
   int nwords;  // ceil(C / 32)
@@ -112,10 +124,11 @@ __device__ __forceinline__ ColEval eval_terms(const SelParams& p, int b, int c,
                                               const int32_t* tol, const int32_t* pidx,
                                               const int32_t* prep, const int32_t* ev) {
   ColEval e = eval_col(p, b, c, tol, pidx, prep, ev);
-  const int64_t at = (int64_t)b * p.C + c;
-  if (p.extra_mask != nullptr) e.feasible = e.feasible && p.extra_mask[at] != 0;
+  if (p.extra_mask != nullptr) {
+    e.feasible = e.feasible && p.extra_mask[(int64_t)b * p.ld_mask + c] != 0;
+  }
   if (p.extra_score != nullptr) {
-    e.score = (int32_t)((uint32_t)e.score + (uint32_t)p.extra_score[at]);
+    e.score = (int32_t)((uint32_t)e.score + (uint32_t)p.extra_score[(int64_t)b * p.ld_score + c]);
   }
   return e;
 }
@@ -126,12 +139,12 @@ __device__ __forceinline__ void write_window(const SelParams& p, int b, int t, i
                                              const int32_t* prep, const int32_t* ev) {
   const ColEval e = eval_terms(p, b, c, tol, pidx, prep, ev);
   const int64_t o = (int64_t)b * p.K + t;
-  p.cand_idx[o] = c;
+  p.cand_idx[o] = p.col0 + c;
   p.c_feas[o] = e.feasible ? 1 : 0;
   p.c_score[o] = e.score;
   p.c_prev[o] = e.prev;
   p.c_avail[o] = estimate(p, b, c);
-  p.c_tie[o] = tie_value(p.seeds[b], c);
+  p.c_tie[o] = tie_value(p.seeds[b], p.col0 + c);
 }
 
 // The top K of a row in column order: v*, the K-th largest (feasible,
@@ -216,7 +229,7 @@ candidate_select_kernel(SelParams p) {
   uint32_t* keys = kInBlock ? fw + p.nwords : p.keys + (int64_t)b * p.C;
   uint8_t* prow = p.packed + (int64_t)b * p.nbytes;
 
-  filter_common::load_row_lists(p, b, tol, pidx, prep, ev);
+  filter_common::load_row_lists(p, b, tol, pidx, prep, ev, p.col0);
   for (int d = tid; d < 256; d += blockDim.x) s.sel.hist[d] = 0;  // smem_select's bins
   if (tid == 0) s.count = 0;
   __syncthreads();
@@ -320,7 +333,10 @@ int launch(const SelParams& p, size_t smem, cudaStream_t stream) {
 // `keys` null: the in-block route (the row's keys in shared memory);
 // otherwise a uint32 [B, C] scratch for the device-memory route.
 // `extra_mask` (bool [B, C]) and `extra_score` (int32 [B, C]) are the
-// out-of-tree plugin terms, each null when absent.
+// out-of-tree plugin terms, each null when absent. `col0` is a mesh tile's
+// first global column (0 for the whole fleet); `ld_aff`, `ld_extra`,
+// `ld_mask` and `ld_score` are the row strides of the affinity table, the
+// answers and the two terms (C when they are not column views).
 extern "C" int candidate_select_launch(
     const void* alive, const void* capacity, const void* has_summary,
     const void* taint_key, const void* taint_value, const void* taint_effect,
@@ -333,16 +349,26 @@ extern "C" int candidate_select_launch(
     int has_extra, const void* extra_avail, const void* extra_mask,
     const void* extra_score, void* cand_idx, void* c_feas,
     void* c_score, void* c_avail, void* c_prev, void* c_tie, void* feas_count,
-    void* packed, void* keys, void* stream) {
-  if (B <= 0 || K <= 0 || K > C) return (int)cudaErrorInvalidValue;
+    void* packed, int col0, long long ld_aff, long long ld_extra, long long ld_mask,
+    long long ld_score, void* keys, void* stream) {
+  if (B <= 0 || K <= 0 || K > C || col0 < 0) return (int)cudaErrorInvalidValue;
+  if (ld_aff < C || (has_extra && ld_extra < C) || (extra_mask != nullptr && ld_mask < C) ||
+      (extra_score != nullptr && ld_score < C)) {
+    return (int)cudaErrorInvalidValue;
+  }
   SelParams p;
   static_cast<FilterArgs&>(p) = filter_common::make_filter_args(
       alive, capacity, has_summary, taint_key, taint_value, taint_effect, api_ok, C, R, T, G,
       replicas, unknown_request, gvk, tol_tables, tol_idx, aff_masks, aff_idx, prev_idx,
       prev_rep, evict_idx, seeds, req_unique, req_idx, B, Kt, Kp, Ke, plugin_bits, has_extra,
       extra_avail);
+  p.ld_aff = ld_aff;
+  p.ld_extra = ld_extra;
   p.extra_mask = static_cast<const uint8_t*>(extra_mask);
   p.extra_score = static_cast<const int32_t*>(extra_score);
+  p.ld_mask = ld_mask;
+  p.ld_score = ld_score;
+  p.col0 = col0;
   p.K = K;
   p.nbytes = (C + 7) / 8;
   p.nwords = (C + 31) / 32;

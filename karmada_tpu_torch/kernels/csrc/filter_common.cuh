@@ -76,21 +76,34 @@ struct FilterArgs {
   const uint64_t* seeds;           // [B]
   const int64_t* req_unique;       // [U,R]
   const int32_t* req_idx;          // [B]
-  const int32_t* extra_avail;      // [B,C] or null
+  const int32_t* extra_avail;      // [B,ld_extra] or null
   int B, Kt, Kp, Ke, plugin_bits;
+  // row strides of aff_masks and extra_avail (C but for a mesh tile's
+  // column views, candidate_select.cu's col0 mode)
+  int64_t ld_aff, ld_extra;
 };
 
+// A global prev / evict id as a column of the columns [col0, col0 + C):
+// -1 (never a column) outside them, the drop sentinel included.
+__device__ __forceinline__ int32_t local_id(int32_t id, int col0, int C) {
+  const int64_t v = (int64_t)id - col0;
+  return v >= 0 && v < C ? (int32_t)v : -1;
+}
+
 // Row b's toleration table row and prev/evict lists, copied into shared
-// memory by the whole block (the caller synchronises after).
+// memory by the whole block (the caller synchronises after); the ids are
+// made local to the columns [col0, col0 + C) as they are staged.
 __device__ inline void load_row_lists(const FilterArgs& p, int b, int32_t* tol,
-                                      int32_t* pidx, int32_t* prep, int32_t* ev) {
+                                      int32_t* pidx, int32_t* prep, int32_t* ev, int col0) {
   const int32_t* tol_row = p.tol_tables + (int64_t)p.tol_idx[b] * 4 * p.Kt;
   for (int i = threadIdx.x; i < 4 * p.Kt; i += blockDim.x) tol[i] = tol_row[i];
   for (int i = threadIdx.x; i < p.Kp; i += blockDim.x) {
-    pidx[i] = p.prev_idx[(int64_t)b * p.Kp + i];
+    pidx[i] = local_id(p.prev_idx[(int64_t)b * p.Kp + i], col0, p.C);
     prep[i] = p.prev_rep[(int64_t)b * p.Kp + i];
   }
-  for (int i = threadIdx.x; i < p.Ke; i += blockDim.x) ev[i] = p.evict_idx[(int64_t)b * p.Ke + i];
+  for (int i = threadIdx.x; i < p.Ke; i += blockDim.x) {
+    ev[i] = local_id(p.evict_idx[(int64_t)b * p.Ke + i], col0, p.C);
+  }
 }
 
 struct ColEval {
@@ -134,6 +147,7 @@ __device__ inline bool taints_tolerated(const int32_t* key_c, const int32_t* val
 // Filters + locality score for column c of row b. `tol` is the row's
 // [4,Kt] toleration table row, `pidx`/`prep`/`ev` its prev/evict lists,
 // all in shared memory. A prev column listed twice takes its LAST entry.
+// The affinity row is read through its row stride ld_aff.
 __device__ inline ColEval eval_col(const FilterArgs& p, int b, int c, const int32_t* tol,
                                    const int32_t* pidx, const int32_t* prep,
                                    const int32_t* ev) {
@@ -153,7 +167,7 @@ __device__ inline ColEval eval_col(const FilterArgs& p, int b, int c, const int3
     ok = ok && api;
   }
   if (p.plugin_bits & kBitAffinity) {
-    ok = ok && p.aff_masks[(int64_t)p.aff_idx[b] * p.C + c] != 0;
+    ok = ok && p.aff_masks[(int64_t)p.aff_idx[b] * p.ld_aff + c] != 0;
   }
   if (p.plugin_bits & kBitEviction) {
     for (int k = 0; k < p.Ke; ++k) {
@@ -218,7 +232,7 @@ __device__ inline int32_t estimate(const FilterArgs& p, int b, int c) {
   int32_t avail = (int32_t)(uint32_t)(uint64_t)est;
   if (p.unknown_request[b]) avail = 0;
   if (p.extra_avail != nullptr) {
-    const int32_t e = p.extra_avail[(int64_t)b * p.C + c];
+    const int32_t e = p.extra_avail[(int64_t)b * p.ld_extra + c];
     if (e >= 0 && e < avail) avail = e;
   }
   return avail;
@@ -343,6 +357,8 @@ inline FilterArgs make_filter_args(
   p.Kp = Kp;
   p.Ke = Ke;
   p.plugin_bits = plugin_bits;
+  p.ld_aff = C;
+  p.ld_extra = C;
   return p;
 }
 

@@ -17,18 +17,47 @@ reference's virtual CPU devices do. The gather is a copy of each tile
 onto the device of its row group — a peer copy between cards, a
 concatenation on one device.
 
-`MeshScheduleKernel` is the monolithic mesh round's solve: the hand-written
-`mesh_tile_filter` kernel on every (row group, column shard) tile with the
-shard's global column offset, the gather, then the `dense_tail` kernel over
-each row group's full rows. It returns the reference's ten outputs, in its
-order, with the row groups concatenated on `mesh.devices[0, 0]`.
+The partitioned mesh rounds (the reference's default mode, where GSPMD
+partitions the single-device programs over a column-sharded fleet) run the
+single-device rounds with their one [B, C] kernel cut into tiles:
 
-The multi-host half (`initialize_multihost` over `torch.distributed`) and
-the partitioned mesh rounds are later slices.
+- `ShardedFleet` holds the seven fleet tensors cut by column shard, shard
+  j's slice on every device of mesh column j, and each shard's first
+  global column `col0` (the fleet is padded to a multiple of the clusters
+  axis: `ArrayScheduler._fleet_width`);
+- `partitioned_select` (the compact round): candidate_select in its col0
+  mode on every tile, then per row group one `candidate_merge` of the c
+  shard windows into the row's top K, in column order, the feasible
+  counts summed and the packed feasible masks stitched; the row groups
+  concatenated on `mesh.devices[0, 0]` give candidate_select's eight
+  outputs, bit for bit;
+- `partitioned_filter` (the dense round, the dense tiered round and
+  `run_kernel`): `mesh_tile_filter` on every tile, the tiles of a row
+  group gathered along the clusters axis, the row groups concatenated on
+  `mesh.devices[0, 0]`: dense_filter's six outputs, bit for bit.
+
+The rest of each round (the division tails, the masks, the spread kernels,
+the tier kernels, the decode) runs as on one device over these outputs, on
+`mesh.devices[0, 0]`: the tier kernels' inputs are the merged [B, K]
+windows or the gathered rows, which sit there.
+
+`MeshScheduleKernel` is the monolithic mesh round's solve (the reference's
+explicit shard_map mode, `mesh_partitioned = False`): the tile filter, the
+gather, then the `dense_tail` kernel over each row group's full rows. It
+returns the reference's ten outputs, in its order, rows and clusters
+padded to the mesh, with the row groups concatenated on
+`mesh.devices[0, 0]`.
+
+`visible_devices` is what an oversized round spreads over (autoshard, the
+scenario-sharded simulation): every CUDA card, or one CPU device; the
+`virtual_devices` context shows its thread n copies of one device
+instead. The multi-host half (`initialize_multihost` over
+`torch.distributed`) is a later slice.
 """
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Optional, Sequence
 
 import numpy as np
@@ -107,6 +136,52 @@ def make_mesh(devices: Optional[Sequence] = None) -> Mesh:
     return Mesh(grid.reshape(b, c))
 
 
+# n copies of one device that `visible_devices` shows to the current
+# thread instead of the real ones (`virtual_devices` sets it)
+_view = threading.local()
+
+
+@contextlib.contextmanager
+def virtual_devices(n_devices: int, device="cpu"):
+    """Show `n_devices` copies of `device` (None: the CUDA card) as the
+    visible devices to this thread while the block runs, the previous view
+    coming back after it: the counterpart of the reference's
+    `force_cpu_mesh`, so that autoshard and the scenario-sharded
+    simulation engage on one device. Other threads keep their own view."""
+    if n_devices < 1:
+        raise ValueError(f"virtual_devices: {n_devices} devices")
+    dev = _mesh_device(device)
+    prev = getattr(_view, "devices", None)
+    _view.devices = (n_devices, dev)
+    try:
+        yield
+    finally:
+        _view.devices = prev
+
+
+def visible_devices(device) -> list[torch.device]:
+    """The devices an oversized round on `device` may spread over (the
+    reference's `jax.devices()`): every CUDA card for a card, the one CPU
+    device for the CPU; inside this thread's `virtual_devices(n, d)`, n
+    copies of d."""
+    view = getattr(_view, "devices", None)
+    if view is not None:
+        n, d = view
+        return [d] * n
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def row_bounds(n_rows: int, n_groups: int) -> list[tuple[int, int]]:
+    """The bindings axis's row groups over n_rows rows: equal blocks of
+    ceil(n_rows / n_groups) rows, the last ones shorter or empty (GSPMD's
+    uneven split)."""
+    per = -(-n_rows // n_groups) if n_rows else 0
+    return [(min(r * per, n_rows), min((r + 1) * per, n_rows)) for r in range(n_groups)]
+
+
 def initialize_multihost(coordinator: Optional[str] = None,
                          num_processes: Optional[int] = None,
                          process_id: Optional[int] = None) -> None:
@@ -170,10 +245,239 @@ def _upload(a: np.ndarray, device) -> torch.Tensor:
     return to_device(a.view(np.int64) if a.dtype == np.uint64 else a, device)
 
 
-def _on_device(device):
+def on_device(device):
     """Make `device` the current CUDA device (kernels launch on the current
     device's stream); nothing on the CPU."""
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+class ShardedFleet:
+    """The fleet placed column-sharded over a mesh (the reference's
+    `_place_fleet_sharded`): C, already a multiple of the clusters axis,
+    cut into c shards of `width` columns, shard j (first global column
+    `col0[j]`) on every device of mesh column j, one copy a device. The
+    batch is not placed here: the rounds cut the uploaded batch per tile
+    (`_TileInputs`)."""
+
+    def __init__(self, mesh: Mesh, fleet: FleetArrays):
+        c = mesh.shape[AXIS_CLUSTERS]
+        C = fleet.alive.shape[0]
+        if C % c:
+            raise ValueError(f"ShardedFleet: {C} clusters over {c} column shards")
+        self.mesh = mesh
+        self.width = C // c
+        self.col0 = [j * self.width for j in range(c)]
+        arrays = {n: getattr(fleet, n) for n in _FLEET_FIELDS}
+        placed: dict = {}
+        self._tiles: dict = {}
+        for (r, j), dev in np.ndenumerate(mesh.devices):
+            key = (dev, j)
+            if key not in placed:
+                lo, hi = self.col0[j], self.col0[j] + self.width
+                placed[key] = {n: _upload(a[lo:hi], dev) for n, a in arrays.items()}
+            self._tiles[r, j] = placed[key]
+
+    def tile(self, r: int, j: int, capacity=None) -> list:
+        """The seven fleet tensors of tile (r, j), in the reference's order;
+        `capacity` (i64 [C, R] on any device, or None) replaces the
+        fleet's (a tiered round's capacity override), cut to the shard."""
+        f = self._tiles[r, j]
+        out = [f[n] for n in _FLEET_FIELDS]
+        if capacity is not None:
+            lo = self.col0[j]
+            dev = self.mesh.devices[r, j]
+            out[1] = capacity[lo:lo + self.width].to(dev)
+        return out
+
+
+class _TileInputs:
+    """A round's uploaded batch tensors (the dict `t` of ArrayScheduler.
+    _encode_round, on the round's device) cut for the tiles of a mesh: a
+    row group's rows of every per-row field and the shared tables on the
+    tile's device (views on the round's device, one copy a device
+    elsewhere), and the [P, C] / [B, C] inputs as column views of them."""
+
+    def __init__(self, mesh: Mesh, t: dict, bounds):
+        self.mesh, self.t, self.bounds = mesh, t, bounds
+        self.home = t["replicas"].device
+        self._moved: dict = {}
+
+    def _on(self, key, dev, x):
+        """`x` (a view on the round's device) on `dev`, copied once."""
+        if _same(dev, self.home):
+            return x
+        k = (str(dev),) + key
+        if k not in self._moved:
+            self._moved[k] = x.to(dev)
+        return self._moved[k]
+
+    def table(self, name: str, dev) -> torch.Tensor:
+        return self._on((name,), dev, self.t[name])
+
+    def rows(self, name: str, r: int, dev) -> Optional[torch.Tensor]:
+        """Row group r of field `name` (None stays None) on `dev`."""
+        if self.t.get(name) is None:
+            return None
+        lo, hi = self.bounds[r]
+        return self._on((name, r), dev, self.t[name][lo:hi])
+
+    def term(self, name: str, r: int, j: int, col0: int, width: int, dev):
+        """Tile (r, j)'s column view of a [B, C] term, or None."""
+        x = self.rows(name, r, dev)
+        return None if x is None else x[:, col0:col0 + width]
+
+
+def _same(a: torch.device, b: torch.device) -> bool:
+    return a == b or (a.type == b.type == "cuda" and (a.index or 0) == (b.index or 0))
+
+
+def _tile_batch(inp: _TileInputs, r: int, dev) -> list:
+    """The batch arguments of a tile's filter or select, in the kernels'
+    order, from `replicas` to `req_idx`, the affinity table excepted (it
+    is cut per column shard)."""
+    rows = {n: inp.rows(n, r, dev) for n in ("replicas", "unknown_request", "gvk", "tol_idx",
+                                                "aff_idx", "prev_idx", "prev_rep", "evict_idx",
+                                                "seeds", "req_idx")}
+    return [rows["replicas"], rows["unknown_request"], rows["gvk"],
+            inp.table("tol_tables", dev), rows["tol_idx"], None, rows["aff_idx"],
+            rows["prev_idx"], rows["prev_rep"], rows["evict_idx"], rows["seeds"],
+            inp.table("req_unique", dev), rows["req_idx"]]
+
+
+def stitch_packed(parts: Sequence[torch.Tensor], widths: Sequence[int], device) -> torch.Tensor:
+    """Row-wise bit-packed masks of consecutive column ranges (u8 [B,
+    ceil(w/8)] each, bit j of byte i = column 8i + j, padding bits zero)
+    as one packed mask over all of them, on `device`. A range that starts
+    on a byte boundary lands as its bytes; otherwise its bytes are shifted
+    by the start's bit offset and ORed into the two bytes each one
+    straddles (no unpacked [B, C] mask is made)."""
+    B = parts[0].shape[0]
+    C = sum(widths)
+    out = torch.zeros((B, (C + 7) // 8), dtype=torch.uint8, device=device)
+    c0 = 0
+    for p, w in zip(parts, widths):
+        p = p.to(device)
+        q, o = divmod(c0, 8)
+        n = p.shape[1]
+        if o == 0:
+            out[:, q:q + n] |= p
+        else:
+            wide = p.to(torch.int16) << o
+            out[:, q:q + n] |= (wide & 0xFF).to(torch.uint8)
+            m = min(n, out.shape[1] - q - 1)
+            out[:, q + 1:q + 1 + m] |= (wide[:, :m] >> 8).to(torch.uint8)
+        c0 += w
+    return out
+
+
+def _gather_row_group(tiles: list, home) -> tuple:
+    """One row group's tile-filter outputs (in column order) gathered along
+    the clusters axis on `home`: feasible, score, avail, prev and tie as
+    [B_l, C], the feasible counts summed."""
+    cat = tuple(torch.cat([p[k].to(home) for p in tiles], dim=1) for k in range(5))
+    feas_count = tiles[0][5].to(home)
+    for p in tiles[1:]:
+        feas_count = feas_count + p[5].to(home)
+    return cat + (feas_count,)
+
+
+def _concat_rows(groups: list, first) -> tuple:
+    """Row groups' outputs concatenated on the mesh's first device."""
+    if len(groups) == 1:
+        return tuple(x.to(first) for x in groups[0])
+    with on_device(first):
+        return tuple(torch.cat([g[k].to(first) for g in groups]) for k in range(len(groups[0])))
+
+
+def partitioned_filter(mesh: Mesh, shards: ShardedFleet, t: dict, *, plugin_bits: int,
+                       capacity=None):
+    """dense_filter's six outputs over the round's padded batch `t` (see
+    `_TileInputs`), computed by `mesh_tile_filter` on every (row group,
+    column shard) tile and gathered: each tile's affinity table is its
+    column shard (one copy a shard and device: the kernel reads a
+    contiguous table), the answers, mask and score column views; the
+    tiles of a row group are concatenated along the clusters axis on the
+    row group's first device, the row groups on `mesh.devices[0, 0]`.
+    `capacity` (i64 [C, R], or None) replaces the fleet's."""
+    from .. import kernels
+
+    B = t["replicas"].shape[0]
+    bounds = row_bounds(B, mesh.shape[AXIS_BINDINGS])
+    inp = _TileInputs(mesh, t, bounds)
+    W = shards.width
+    aff: dict = {}
+    tiles: dict = {}
+    for (r, j), dev in np.ndenumerate(mesh.devices):
+        c0 = shards.col0[j]
+        key = (str(dev), j)
+        if key not in aff:
+            aff[key] = inp.table("aff_masks", dev)[:, c0:c0 + W].contiguous()
+        args = _tile_batch(inp, r, dev)
+        args[5] = aff[key]
+        terms = [inp.term(n, r, j, c0, W, dev) for n in ("extra_avail", "extra_mask",
+                                                          "extra_score")]
+        with on_device(dev):
+            tiles[r, j] = kernels.mesh_tile_filter(
+                *shards.tile(r, j, capacity), *args, *terms, col0=c0, plugin_bits=plugin_bits)
+    groups = []
+    for r in range(mesh.shape[AXIS_BINDINGS]):
+        home = mesh.devices[r, 0]
+        with on_device(home):
+            groups.append(_gather_row_group(
+                [tiles[r, j] for j in range(mesh.shape[AXIS_CLUSTERS])], home))
+    return _concat_rows(groups, mesh.devices[0, 0])
+
+
+def partitioned_select(mesh: Mesh, shards: ShardedFleet, t: dict, *, k: int, plugin_bits: int,
+                       capacity=None, packed: bool = True):
+    """candidate_select's eight outputs over the round's padded batch `t`
+    (see `_TileInputs`): candidate_select in its col0 mode on every
+    (row group, column shard) tile, over the tile's columns, each window
+    min(k, width) wide, the affinity table, answers, mask and score read
+    as column views; then per row group one `candidate_merge` of its c
+    windows on the row group's first device (with one column shard the
+    tile's window is the row group's), the packed feasible masks stitched
+    (`stitch_packed`; with `packed` False they are not, and the eighth
+    output is None); the row groups concatenated on `mesh.devices[0, 0]`.
+    No [B, C] buffer is made. `capacity` (i64 [C, R], or None) replaces
+    the fleet's."""
+    from .. import kernels
+
+    B = t["replicas"].shape[0]
+    bounds = row_bounds(B, mesh.shape[AXIS_BINDINGS])
+    inp = _TileInputs(mesh, t, bounds)
+    W = shards.width
+    n_c = mesh.shape[AXIS_CLUSTERS]
+    tiles: dict = {}
+    for (r, j), dev in np.ndenumerate(mesh.devices):
+        c0 = shards.col0[j]
+        args = _tile_batch(inp, r, dev)
+        args[5] = inp.table("aff_masks", dev)[:, c0:c0 + W]
+        extra, mask, score = (inp.term(n, r, j, c0, W, dev)
+                              for n in ("extra_avail", "extra_mask", "extra_score"))
+        with on_device(dev):
+            tiles[r, j] = kernels.candidate_select(
+                *shards.tile(r, j, capacity), *args, extra, k=min(k, W),
+                plugin_bits=plugin_bits, extra_mask=mask, extra_score=score, col0=c0)
+    groups = []
+    for r in range(mesh.shape[AXIS_BINDINGS]):
+        home = mesh.devices[r, 0]
+        parts = [tiles[r, j] for j in range(n_c)]
+        with on_device(home):
+            if n_c == 1:
+                merged = parts[0][:7]
+            else:
+                merged = kernels.candidate_merge([tuple(x.to(home) for x in p[:7])
+                                                  for p in parts], k)
+            pk = (stitch_packed([p[7] for p in parts], [W] * n_c, home) if packed
+                  else None)
+        groups.append(tuple(merged) + (pk,))
+    first = mesh.devices[0, 0]
+    out = _concat_rows([g[:7] for g in groups], first)
+    pk = None
+    if packed:
+        pk = _concat_rows([g[7:] for g in groups], first)[0]
+    return out + (pk,)
 
 
 class MeshScheduleKernel:
@@ -282,7 +586,7 @@ class MeshScheduleKernel:
             term_r = put(("terms", r), dev, lambda: {
                 n: _upload(a[r * Bl:(r + 1) * Bl], dev) for n, a in terms.items()})
             views = {n: a[:, j * Cl:(j + 1) * Cl] for n, a in term_r.items()}
-            with _on_device(dev):
+            with on_device(dev):
                 tiles[r, j] = kernels.mesh_tile_filter(
                     *(f[n] for n in _FLEET_FIELDS),
                     t["replicas"], t["unknown_request"], t["gvk"],
@@ -301,13 +605,9 @@ class MeshScheduleKernel:
             home = self.mesh.devices[r, 0]
             t = row_block(r, home)
             w_dev = put(("weights",), home, lambda: _upload(weights, home))
-            with _on_device(home):
-                parts = [tiles[r, j] for j in range(self.mesh_c)]
-                feasible, score, avail, prev, tie = (
-                    torch.cat([p[k].to(home) for p in parts], dim=1) for k in range(5))
-                feas_count = parts[0][5].to(home)
-                for p in parts[1:]:
-                    feas_count = feas_count + p[5].to(home)
+            with on_device(home):
+                feasible, score, avail, prev, tie, feas_count = _gather_row_group(
+                    [tiles[r, j] for j in range(self.mesh_c)], home)
                 result, unsched, avail_sum, nnz, top_idx, top_val = kernels.dense_tail(
                     feasible, avail, prev, tie,
                     torch.arange(Bl, dtype=torch.int32, device=home),
@@ -318,11 +618,5 @@ class MeshScheduleKernel:
                            nnz, top_idx, top_val, prev, tie))
 
         # ---- the row groups on the first device ----
-        first = self.mesh.devices[0, 0]
-        if len(groups) == 1:
-            out = groups[0]
-        else:
-            with _on_device(first):
-                out = tuple(torch.cat([g[k].to(first) for g in groups])
-                            for k in range(len(groups[0])))
+        out = _concat_rows(groups, self.mesh.devices[0, 0])
         return out[:10], out[10], out[11]

@@ -181,7 +181,6 @@ def _solve_candidates(array, bindings, cls, order, raw, t, spread_rows, extra, k
 
     n_real = len(bindings)
     dev = array.device
-    f = array._fleet_dev
 
     # the round's row ids (the tails' padded lists, the mask and spread
     # rows) go up in one pinned copy before the select, so the host never
@@ -201,16 +200,7 @@ def _solve_candidates(array, bindings, cls, order, raw, t, spread_rows, extra, k
     spread_ids = rest.pop(0) if spread_rows else None
 
     (cand_idx, c_feas, c_score, c_avail, c_prev, c_tie, dev_fc,
-     dev_packed) = kernels.candidate_select(
-        f["alive"], f["capacity"], f["has_summary"], f["taint_key"],
-        f["taint_value"], f["taint_effect"], f["api_ok"],
-        t["replicas"], t["unknown_request"], t["gvk"],
-        t["tol_tables"], t["tol_idx"], t["aff_masks"], t["aff_idx"],
-        t["prev_idx"], t["prev_rep"], t["evict_idx"], t["seeds"],
-        t["req_unique"], t["req_idx"], t["extra_avail"],
-        k=k, plugin_bits=array._plugin_bits,
-        extra_mask=t["extra_mask"], extra_score=t["extra_score"],
-    )
+     dev_packed) = array._candidate_select(t, k, packed=bool(mask_rows))
     candidate_k_gauge.set(float(k), bucket=str(k))
 
     # ---- division tails per sub-class over [rows, K] ----
@@ -503,17 +493,8 @@ def launch_tiered_compact(array, t, tier_rows, capacity, tiers, reclaim, spec_ti
     Returns (feas_count, main outputs, speculative outputs, cand_idx)."""
     from .preemption import run_tiers
 
-    f = array._fleet_dev
     (cand_idx, c_feas, _c_score, c_avail, c_prev, c_tie, feas_count,
-     _packed) = kernels.candidate_select(
-        f["alive"], capacity, f["has_summary"], f["taint_key"],
-        f["taint_value"], f["taint_effect"], f["api_ok"],
-        t["replicas"], t["unknown_request"], t["gvk"],
-        t["tol_tables"], t["tol_idx"], t["aff_masks"], t["aff_idx"],
-        t["prev_idx"], t["prev_rep"], t["evict_idx"], t["seeds"],
-        t["req_unique"], t["req_idx"], t["extra_avail"],
-        k=k, plugin_bits=array._plugin_bits,
-    )
+     _packed) = array._candidate_select(t, k, capacity=capacity, packed=False)
     tiers.window_mode(cand_idx)
 
     def estimate(cap, rows, rows64, first, use_extra):

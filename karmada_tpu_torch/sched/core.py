@@ -46,13 +46,20 @@ status-only fleet change re-encodes only the dirty clusters and writes
 their rows into the resident fleet tensors (`set_clusters(...,
 dirty_names)`, the scatter_rows kernel).
 
-Over a device mesh (`mesh=`, parallel/mesh.py) the monolithic mesh round
-runs (`mesh_partitioned = False`, as the reference's explicit shard_map
-mode): the mesh kernel solves every row (the tile filter on each
-(row group, column shard) tile, the gather along the cluster axis, the
-dense tail over the full rows) and the round decodes its compact outputs,
-the spread overlay reading the gathered rows. The reference's default,
-the partitioned mesh rounds, raise NotImplementedError.
+Over a device mesh (`mesh=`, parallel/mesh.py) the rounds run partitioned
+by default, as the reference's do: the fleet is placed column-sharded
+(`ShardedFleet`) and each round's one [B, C] kernel runs on every
+(row group, column shard) tile — the compact round's candidate select with
+the tile's column offset, then one candidate_merge a row group; the dense
+round's filter as the tile filter, then the gather along the cluster axis
+— and the rest of the round (tails, masks, spread, tiers, decode) runs as
+on one device on `mesh.devices[0, 0]`, with the same decisions. With
+`mesh_partitioned = False` the monolithic mesh round runs instead (the
+reference's explicit shard_map mode): the mesh kernel solves every row
+(the tile filter, the gather, the dense tail over the full rows) and the
+round decodes its compact outputs, the spread overlay reading the gathered
+rows. An oversized round without a mesh re-places the fleet over every
+visible device (`_maybe_autoshard`, `autoshard=`).
 """
 from __future__ import annotations
 
@@ -750,13 +757,14 @@ class ArrayScheduler:
         encoder: Optional[FleetEncoder] = None,
         bucket_cols: bool = True,
         plugin_registry=None,
+        autoshard: Optional[bool] = None,
     ):
         """`device`: None means the CUDA card (RuntimeError without one);
         "cpu" runs the plain PyTorch path. `mesh`: a parallel.mesh.Mesh;
         the round then runs on `mesh.devices[0, 0]` (a `device` that
-        differs raises) and the solve over the mesh, in the monolithic
-        mode (set `mesh_partitioned = False`; the partitioned mode, the
-        reference's default, is not ported and raises). `plugins`: the `--plugins`
+        differs raises) and the solve over the mesh, partitioned (the
+        reference's default; `mesh_partitioned = False` selects the
+        monolithic mode). `plugins`: the `--plugins`
         enable/disable list (default ["*"]). `candidate_k`: the candidate
         window (None reads KARMADA_TPU_CANDIDATE_K, default 128).
         `pipeline`: chunked rounds run as the software pipeline
@@ -771,20 +779,23 @@ class ArrayScheduler:
         filters (None: a registry of the in-tree plugins alone); its
         enabled out-of-tree plugins' mask and score terms ride every round
         (`_plugin_terms`) and switch off replay, the pipeline and the
-        tiered launches, as in the reference. All three are
-        keyword-only: the reference takes `encoder` as its second
-        positional argument, where this constructor has `plugins`.
-        Oversized rounds do not re-place the fleet over several cards
-        yet: `_maybe_autoshard` raises where the reference would
-        (KARMADA_TPU_AUTOSHARD=0 turns the check off)."""
+        tiered launches, as in the reference. `autoshard`: when no mesh
+        was given and a round's [B, C] footprint exceeds `max_bc_elems`,
+        re-place the fleet over a mesh of every visible device and run
+        partitioned (`_maybe_autoshard`, decision-identical); None reads
+        KARMADA_TPU_AUTOSHARD (0/off/false disables it), the default is
+        on. The last four are keyword-only: the reference takes `encoder`
+        as its second positional argument, where this constructor has
+        `plugins`."""
         from .candidates import resolve_candidate_k
 
         self.mesh = mesh
         self._mesh_kernel = None
         self._fleet_scatter = None  # the placed fleet's refresh launcher
-        # as the reference: mesh rounds default to the partitioned mode
-        # (not ported: the round raises); False selects the monolithic one
+        # as the reference: mesh rounds default to the partitioned mode;
+        # False selects the monolithic one
         self.mesh_partitioned = True
+        self._fleet_shards = None  # the column-sharded fleet, placed at first use
         if mesh is None:
             self.device = resolve_device(device)
         else:
@@ -800,7 +811,7 @@ class ArrayScheduler:
         self.enabled_plugins = self.plugin_registry.filter(plugins)
         self._plugin_bits = plugin_mod.plugin_bits(self.enabled_plugins)
         self.max_bc_elems = resolve_max_bc_elems()
-        self.autoshard = resolve_autoshard()
+        self.autoshard = resolve_autoshard(autoshard)
         self.candidate_k = resolve_candidate_k(candidate_k)
         self.last_candidate_stats: dict = {}
         self._staging = PinnedStaging()
@@ -915,11 +926,14 @@ class ArrayScheduler:
     def _place_fleet(self) -> None:
         """Upload the fleet tensors whole to the round's device (they live
         there across rounds) and bind the dirty-column refresh's launcher
-        to them (the previous one retired: its tensors are gone), and
-        refresh the mesh kernel's column shards when it exists."""
+        to them (the previous one retired: its tensors are gone); under a
+        mesh drop the column-sharded placement (the next partitioned round
+        places it again, `_sharded_fleet`) and refresh the mesh kernel's
+        column shards when it exists."""
         from .. import kernels
         from ..convert import batch_from_numpy
 
+        self._fleet_shards = None
         self._fleet_dev = batch_from_numpy(
             {n: getattr(self.fleet, n) for n in _FLEET_FIELDS}, self.device)
         if self._fleet_scatter is not None:
@@ -928,6 +942,72 @@ class ArrayScheduler:
             {n: self._fleet_dev[n] for n in _FLEET_FIELDS})
         if self._mesh_kernel is not None:
             self._mesh_kernel.set_fleet(self.fleet)
+
+    def _sharded_fleet(self):
+        """The fleet placed column-sharded over the mesh (`ShardedFleet`,
+        the partitioned rounds' tiles read it), built at the first
+        partitioned round after each placement, as the monolithic mode
+        builds its mesh kernel at first use."""
+        if self._fleet_shards is None:
+            from ..parallel.mesh import ShardedFleet
+
+            self._fleet_shards = ShardedFleet(self.mesh, self.fleet)
+        return self._fleet_shards
+
+    def _dense_filter(self, t: dict, capacity=None):
+        """The round's dense filter (B3) over the uploaded batch `t` (with
+        its "extra_avail" / "extra_mask" / "extra_score", each None or
+        absent): dense_filter over the resident fleet, or under the
+        partitioned mesh the tile filter on every tile and the gather
+        (parallel/mesh.py `partitioned_filter`), dense_filter's six
+        outputs either way. `capacity` (i64 [C, R], or None) replaces the
+        fleet's."""
+        from .. import kernels
+
+        if self.mesh is not None and self.mesh_partitioned:
+            from ..parallel.mesh import partitioned_filter
+
+            return partitioned_filter(self.mesh, self._sharded_fleet(), t,
+                                      plugin_bits=self._plugin_bits, capacity=capacity)
+        f = self._fleet_dev
+        return kernels.dense_filter(
+            f["alive"], f["capacity"] if capacity is None else capacity, f["has_summary"],
+            f["taint_key"], f["taint_value"], f["taint_effect"], f["api_ok"],
+            t["replicas"], t["unknown_request"], t["gvk"],
+            t["tol_tables"], t["tol_idx"], t["aff_masks"], t["aff_idx"],
+            t["prev_idx"], t["prev_rep"], t["evict_idx"], t["seeds"],
+            t["req_unique"], t["req_idx"], t.get("extra_avail"),
+            plugin_bits=self._plugin_bits, extra_mask=t.get("extra_mask"),
+            extra_score=t.get("extra_score"),
+        )
+
+    def _candidate_select(self, t: dict, k: int, capacity=None, packed: bool = True):
+        """The compact round's candidate select (B1) over the uploaded batch
+        `t` (as `_dense_filter` takes it): candidate_select over the
+        resident fleet, or under the partitioned mesh candidate_select on
+        every tile from its column offset and one candidate_merge a row
+        group (parallel/mesh.py `partitioned_select`; with `packed` False
+        it stitches no packed mask and its eighth output is None):
+        candidate_select's eight outputs either way."""
+        from .. import kernels
+
+        if self.mesh is not None and self.mesh_partitioned:
+            from ..parallel.mesh import partitioned_select
+
+            return partitioned_select(self.mesh, self._sharded_fleet(), t, k=k,
+                                      plugin_bits=self._plugin_bits, capacity=capacity,
+                                      packed=packed)
+        f = self._fleet_dev
+        return kernels.candidate_select(
+            f["alive"], f["capacity"] if capacity is None else capacity, f["has_summary"],
+            f["taint_key"], f["taint_value"], f["taint_effect"], f["api_ok"],
+            t["replicas"], t["unknown_request"], t["gvk"],
+            t["tol_tables"], t["tol_idx"], t["aff_masks"], t["aff_idx"],
+            t["prev_idx"], t["prev_rep"], t["evict_idx"], t["seeds"],
+            t["req_unique"], t["req_idx"], t.get("extra_avail"),
+            k=k, plugin_bits=self._plugin_bits,
+            extra_mask=t.get("extra_mask"), extra_score=t.get("extra_score"),
+        )
 
     def _mesh_solver(self):
         """The mesh kernel, built at first use with the fleet placed."""
@@ -977,9 +1057,11 @@ class ArrayScheduler:
         self.batch_encoder.clusters = clusters
         self.batch_encoder.affinity_cache.clusters = clusters
         if self.mesh is not None:
-            # under a mesh the refreshed tensors are placed whole again (as
-            # the reference re-places its sharded fleet); the host side —
-            # encode_cols, the kept batch encoder — is the same
+            # under a mesh the refreshed tensors are placed again, whole
+            # and, at the next partitioned round, sharded (as the reference
+            # re-places its sharded fleet);
+            # the host side — encode_cols, the kept batch encoder — is the
+            # same
             self._place_fleet()
             return True
         # the dirty rows into the resident tensors, in place: one pinned
@@ -988,27 +1070,35 @@ class ArrayScheduler:
         return True
 
     def _maybe_autoshard(self, n_rows: int) -> bool:
-        """The reference's oversized-round selector, up to the point where
-        it re-places the fleet: False when autoshard is off, when a mesh
-        was given, when the round fits `max_bc_elems`, or when fewer than
-        two devices of the round's kind are visible (the CPU counts as
-        one). Past those returns the reference builds a mesh over every
-        visible device, which the port does not yet do: it raises
-        NotImplementedError (queue A item 11, multi-GPU)."""
+        """Route an oversized round through the partitioned mesh (the
+        reference's selector): when autoshard is on, no mesh was given,
+        the round's B x C exceeds `max_bc_elems` and at least two devices
+        are visible (`parallel.mesh.visible_devices`: every card, the CPU
+        counting as one), build `make_mesh` over them, re-place the fleet
+        sharded (padded to a multiple of the clusters axis; the round runs
+        on the mesh's first device) and return True. The mesh multiplies
+        the row budget by its bindings axis (`_max_rows_per_round`), so
+        the round runs in fewer launches, with the same decisions.
+
+        Engagement is one-way, as in the reference: re-placing bumps the
+        fleet epoch, so cached decisions re-solve once on the sharded path,
+        and de-escalating would re-place (and re-solve) on every flip.
+        Replay, the dirty-column refresh and the pipeline keep working
+        under the mesh."""
         if not self.autoshard or self.mesh is not None:
             return False
         if n_rows * len(self.fleet.names) <= self.max_bc_elems:
             return False
-        visible = torch.cuda.device_count() if self.device.type == "cuda" else 1
-        if visible < 2:
+        from ..parallel.mesh import make_mesh, visible_devices
+
+        devices = visible_devices(self.device)
+        if len(devices) < 2:
             return False
-        raise NotImplementedError(
-            f"an oversized round ({n_rows} x {len(self.fleet.names)} over "
-            f"max_bc_elems {self.max_bc_elems}) with {visible} cards visible "
-            "would re-place the fleet over a mesh of them: not ported yet "
-            "(queue A item 11, multi-GPU); set KARMADA_TPU_AUTOSHARD=0 to "
-            "run it chunked on one card"
-        )
+        self.mesh = make_mesh(devices)
+        self._mesh_kernel = None
+        self.device = self.mesh.devices[0, 0]
+        self.set_clusters(self.clusters[: self.n_real_clusters])
+        return True
 
     def _max_rows_per_round(self, n_cols: int) -> int:
         """Row cap per launched round under the [B,C] budget, floored to a
@@ -1188,6 +1278,7 @@ class ArrayScheduler:
                     f"({len(bindings)}, <= {C})"
                 )
             extra_avail = extra_avail.astype(np.int32, copy=False)
+        self._maybe_autoshard(len(bindings))
         max_rows = self._max_rows_per_round(len(self.fleet.names))
         if len(bindings) > max_rows:
             return self._schedule_chunked(bindings, extra_avail, max_rows)
@@ -1314,18 +1405,13 @@ class ArrayScheduler:
     def _launch_once(self, bindings: Sequence, extra_avail=None, term_indices=None) -> dict:
         """Encode + kernel dispatch for one round (no device sync): the
         compact candidate round, or the dense round when `dense_reason`
-        names one. The monolithic mesh round computes eagerly: its pending
-        carries the finished decisions."""
+        names one; under the partitioned mesh their [B, C] kernel runs on
+        the mesh's tiles (`_dense_filter`, `_candidate_select`). The
+        monolithic mesh round computes eagerly: its pending carries the
+        finished decisions."""
         from . import candidates as cand_mod
 
-        if self.mesh is not None:
-            if self.mesh_partitioned:
-                raise NotImplementedError(
-                    "ArrayScheduler: the partitioned mesh rounds (the reference's default "
-                    "mesh mode) are not ported yet (ROADMAP queue A item 11, the mesh's "
-                    "remaining part); set mesh_partitioned = False for the monolithic mesh "
-                    "round"
-                )
+        if self.mesh is not None and not self.mesh_partitioned:
             return {"decisions": self._schedule_once_monolithic(
                 bindings, extra_avail, term_indices)}
         self.last_candidate_stats = {}
@@ -1473,7 +1559,6 @@ class ArrayScheduler:
         C = len(self.fleet.names)
         dev = self.device
         batched_rows, batched_cfg, fallback_rows = spread
-        f = self._fleet_dev
 
         # the round's row ids (the tails' padded lists, the mask rows) go up
         # in one pinned copy before the filter, so the host never waits on it
@@ -1489,16 +1574,7 @@ class ArrayScheduler:
             row_ids.append(np.asarray(mask_rows, np.int32))
         row_ids = to_device_packed(row_ids, dev) if row_ids else []
 
-        dev_feasible, dev_score, dev_avail, dev_prev, dev_tie, dev_fc = kernels.dense_filter(
-            f["alive"], f["capacity"], f["has_summary"], f["taint_key"],
-            f["taint_value"], f["taint_effect"], f["api_ok"],
-            t["replicas"], t["unknown_request"], t["gvk"],
-            t["tol_tables"], t["tol_idx"], t["aff_masks"], t["aff_idx"],
-            t["prev_idx"], t["prev_rep"], t["evict_idx"], t["seeds"],
-            t["req_unique"], t["req_idx"], t["extra_avail"],
-            plugin_bits=self._plugin_bits, extra_mask=t["extra_mask"],
-            extra_score=t["extra_score"],
-        )
+        dev_feasible, dev_score, dev_avail, dev_prev, dev_tie, dev_fc = self._dense_filter(t)
 
         # ---- phase 2: division tails per sub-class, read through row ids ----
         tails = []
@@ -1959,7 +2035,9 @@ class ArrayScheduler:
         reference's ten device outputs (feasible, score, result,
         unschedulable, avail_sum, avail, feas_count, nnz, top_idx, top_val)
         over the batch's rows (under a monolithic mesh, the mesh kernel's,
-        rows and columns padded to the mesh)."""
+        rows and columns padded to the mesh; under the partitioned mesh the
+        filter runs on the mesh's tiles and the outputs are the
+        single-device ones, as the reference's are)."""
         from .. import kernels
         from ..convert import batch_from_numpy
 
@@ -1969,23 +2047,14 @@ class ArrayScheduler:
         t = batch_from_numpy({name: getattr(batch, name) for name in _BATCH_FIELDS}, self.device)
         # the terms padded to the batch's rows (True / 0), up in one copy
         padded = {}
-        for name, x, fill, dtype in (("mask", extra_mask, True, bool),
-                                     ("score", extra_score, 0, np.int32)):
+        for name, x, fill, dtype in (("extra_mask", extra_mask, True, bool),
+                                     ("extra_score", extra_score, 0, np.int32)):
             if x is not None:
                 padded[name] = np.full((len(batch.replicas), x.shape[1]), fill, dtype)
                 padded[name][: len(x)] = x
-        on_dev = dict(zip(padded, to_device_packed(list(padded.values()), self.device)))
-        f = self._fleet_dev
-        feas, score, avail, prev, tie, feas_count = kernels.dense_filter(
-            f["alive"], f["capacity"], f["has_summary"], f["taint_key"],
-            f["taint_value"], f["taint_effect"], f["api_ok"],
-            t["replicas"], t["unknown_request"], t["gvk"],
-            t["tol_tables"], t["tol_idx"], t["aff_masks"], t["aff_idx"],
-            t["prev_idx"], t["prev_rep"], t["evict_idx"], t["seeds"],
-            t["req_unique"], t["req_idx"], self._upload_extra(extra_avail, len(batch.replicas)),
-            plugin_bits=self._plugin_bits, extra_mask=on_dev.get("mask"),
-            extra_score=on_dev.get("score"),
-        )
+        t.update(zip(padded, to_device_packed(list(padded.values()), self.device)))
+        t["extra_avail"] = self._upload_extra(extra_avail, len(batch.replicas))
+        feas, score, avail, prev, tie, feas_count = self._dense_filter(t)
         rows = torch.arange(len(batch.replicas), dtype=I32, device=self.device)
         C = feas.shape[1]
         result, unsched, avail_sum, nnz, top_idx, top_val = kernels.dense_tail(

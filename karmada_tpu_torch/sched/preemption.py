@@ -199,16 +199,7 @@ def _launch_dense_tiers(array, t, tier_rows, capacity, tiers, reclaim, spec_tier
     estimator answers `t["extra_avail"]` (or None) min-merge into every
     main pass and never into the speculative one. Returns (feas_count,
     main outputs, speculative outputs)."""
-    f = array._fleet_dev
-    feas, _score, avail, prev, tie, feas_count = kernels.dense_filter(
-        f["alive"], capacity, f["has_summary"], f["taint_key"],
-        f["taint_value"], f["taint_effect"], f["api_ok"],
-        t["replicas"], t["unknown_request"], t["gvk"],
-        t["tol_tables"], t["tol_idx"], t["aff_masks"], t["aff_idx"],
-        t["prev_idx"], t["prev_rep"], t["evict_idx"], t["seeds"],
-        t["req_unique"], t["req_idx"], t["extra_avail"],
-        plugin_bits=array._plugin_bits,
-    )
+    feas, _score, avail, prev, tie, feas_count = array._dense_filter(t, capacity=capacity)
     tiers.rows_mode(avail)
 
     def estimate(cap, rows, _rows64, first, use_extra):
@@ -435,12 +426,6 @@ def launch_tiered(array: ArrayScheduler, bindings: Sequence, extra_avail=None,
     standard round inside the same pending. `extra_avail`: None, or the
     estimator answers i32[len(bindings), c] (EstimatorRegistry.
     batch_estimates), split over the two row sets."""
-    if array.mesh is not None:
-        raise NotImplementedError(
-            "launch_tiered: tiered rounds over a mesh run partitioned in the reference; the "
-            "partitioned mesh rounds are not ported yet (ROADMAP queue A item 11, the mesh's "
-            "remaining part)"
-        )
     bindings = list(bindings)
     if extra_avail is not None:
         extra_avail = np.asarray(extra_avail, np.int32)

@@ -16,9 +16,13 @@ cluster would place.
 Memory envelope: one solve keeps about six [S,B,C] buffers of 1-4 bytes
 alive, so S·B·C is capped by the same `max_bc_elems` budget the live
 scheduler uses, and the scenario axis is cut into sequential chunks of
-`budget // (B·C)` scenarios. The reference shards an oversized scenario
-axis over several devices instead; the port raises NotImplementedError
-there until the multi-GPU slice (ROADMAP queue A item 11).
+`budget // (B·C)` scenarios. With autoshard on, more than one device
+visible (parallel/mesh.py `visible_devices`) and an oversized volume, the
+scenario axis shards over the devices instead, as the reference's 1-d
+"scenarios" mesh does: the budget scales by the device count, each chunk
+(a multiple of the device count) is cut into equal scenario slices, one a
+device, `_sim_solve` runs on each, and the outputs come back in scenario
+order (`last_stats["mesh"]` True).
 
 Rows the dense solve does not cover end to end (spread constraints,
 ordered multi-term affinities — both host-driven search loops) take a
@@ -385,47 +389,73 @@ class Simulator:
         tie_idx = np.cumsum(present, axis=1).astype(np.int64)
         return stacks, present, tie_idx
 
-    # -- the batched launch (scenario chunking) ---------------------------
+    # -- the batched launch (scenario chunking + device sharding) ---------
 
     def _launch_chunks(self, stacks, tie_idx, active, batch, extra_np,
                        request_dense, topk, has_agg):
         """Yield (scenario_slice, host_outputs, result_dev) per solve,
         honoring the S·B·C memory budget: `budget // (B·C)` scenarios a
-        solve. The batch uploads once and serves every chunk."""
+        solve. With autoshard on, more than one device visible and an
+        oversized volume, each solve's scenarios shard over the devices
+        (the budget times the device count, the chunk a multiple of it):
+        equal slices of it, one a device, each solved there, the outputs
+        concatenated in scenario order; `result_dev` is then indexable by
+        the chunk's scenario (each entry on its slice's device). The batch
+        uploads once a device and serves every chunk."""
+        from ..parallel.mesh import on_device, row_bounds, visible_devices
+
         S = tie_idx.shape[0]
         Bp = len(batch.replicas)
         C = tie_idx.shape[1]
         budget = self.max_bc_elems
-        n_dev = torch.cuda.device_count() if self.device.type == "cuda" else 1
-        if self.autoshard and n_dev > 1 and S * Bp * C > budget:
-            raise NotImplementedError(
-                f"simulation: {S}x{Bp}x{C} scenario elements exceed the budget of {budget} "
-                f"with {n_dev} cards visible; the scenario-sharded multi-device route comes "
-                "with the multi-GPU slice (ROADMAP queue A item 11): pass autoshard=False or "
-                "set KARMADA_TPU_AUTOSHARD=0 to chunk on one card"
-            )
-        per = max(1, budget // max(Bp * C, 1))
-        self.last_stats["mesh"] = False
+        devices = visible_devices(self.device)
+        sharded = self.autoshard and len(devices) > 1 and S * Bp * C > budget
+        if not sharded:
+            devices = [self.device]
+        nd = len(devices)
+        per = max(1, budget * nd // max(Bp * C, 1))
+        if sharded:
+            per = max((per // nd) * nd, nd)
+        self.last_stats["mesh"] = sharded
 
-        dev = self.device
-        t = batch_from_numpy({name: getattr(batch, name) for name in _BATCH_FIELDS}, dev)
-        extra = None if extra_np is None else to_device(extra_np, dev)
-        request = to_device(request_dense, dev)
+        on: dict = {}  # the batch on each device, uploaded once
+
+        def batch_on(dev):
+            if str(dev) not in on:
+                on[str(dev)] = (
+                    batch_from_numpy({name: getattr(batch, name) for name in _BATCH_FIELDS}, dev),
+                    None if extra_np is None else to_device(extra_np, dev),
+                    to_device(request_dense, dev))
+            return on[str(dev)]
+
+        def solve(dev, s0, s1):
+            t, extra, request = batch_on(dev)
+            with on_device(dev):
+                return _sim_solve(
+                    *(to_device(a[s0:s1], dev) for a in stacks),
+                    to_device(tie_idx[s0:s1], dev), to_device(active[s0:s1], dev),
+                    t["replicas"], t["unknown_request"], t["gvk"], t["strategy"], t["fresh"],
+                    t["tol_tables"], t["tol_idx"], t["aff_masks"], t["aff_idx"],
+                    t["weight_tables"], t["weight_idx"], t["prev_idx"], t["prev_rep"],
+                    t["evict_idx"], t["seeds"], t["req_unique"], t["req_idx"], extra, request,
+                    topk=topk, has_agg=has_agg,
+                )
+
         for s0 in range(0, S, per):
             s1 = min(s0 + per, S)
-            fleet = [to_device(a[s0:s1], dev) for a in stacks]
-            out = _sim_solve(
-                *fleet, to_device(tie_idx[s0:s1], dev), to_device(active[s0:s1], dev),
-                t["replicas"], t["unknown_request"], t["gvk"], t["strategy"], t["fresh"],
-                t["tol_tables"], t["tol_idx"], t["aff_masks"], t["aff_idx"],
-                t["weight_tables"], t["weight_idx"], t["prev_idx"], t["prev_rep"],
-                t["evict_idx"], t["seeds"], t["req_unique"], t["req_idx"], extra, request,
-                topk=topk, has_agg=has_agg,
-            )
+            if not sharded:
+                out = solve(devices[0], s0, s1)
+                host = tuple(o.cpu().numpy() for o in out[:8])
+                result = out[8]
+            else:
+                outs = [solve(dev, s0 + lo, s0 + hi)
+                        for dev, (lo, hi) in zip(devices, row_bounds(s1 - s0, nd)) if hi > lo]
+                host = tuple(np.concatenate([o[k].cpu().numpy() for o in outs])
+                             for k in range(8))
+                result = [r for o in outs for r in o[8]]
             simulation_solves.inc(mode="batched")
             self.last_stats["batched_solves"] += 1
-            host = tuple(o.cpu().numpy() for o in out[:8])
-            yield slice(s0, s1), host, out[8]
+            yield slice(s0, s1), host, result
 
     # -- public API -------------------------------------------------------
 

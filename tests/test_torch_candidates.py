@@ -430,19 +430,21 @@ def test_tail_launch_takes_any_window(K, entry, fake_card):
 
 @pytest.mark.parametrize("C,wide", [(5120, False), (20_480, False), (60_000, True)])
 def test_select_launch_takes_any_width(C, wide, fake_card):
-    """candidate_select's launch refuses no width: one C entry of 44
+    """candidate_select's launch refuses no width: one C entry of 49
     arguments (the plugin mask and score after the answers, null when
-    absent), its key scratch null on the in-block route and an int32
-    [B, C] tensor past MAX_SELECT_SMEM (wide_40k's 20 480 columns stay in
-    the block)."""
+    absent; the column offset and the four row strides after the outputs,
+    0 and C for the whole fleet), its key scratch null on the in-block
+    route and an int32 [B, C] tensor past MAX_SELECT_SMEM (wide_40k's
+    20 480 columns stay in the block)."""
     import chip_smoke
 
     args = chip_smoke.random_select_inputs(np.random.default_rng(C), "cpu", 4, C)
     kernels._select_launch(*args, k=128, plugin_bits=31)
     (name, cargs), = fake_card
     assert name == "candidate_select_launch"
-    assert len(cargs) == 44
+    assert len(cargs) == 49
     assert cargs[31] == args[-1].data_ptr() and cargs[32:34] == (None, None)
+    assert cargs[42:47] == (0, C, C, C, C)
     assert (cargs[-2] is not None) == wide
 
 

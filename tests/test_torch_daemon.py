@@ -396,15 +396,17 @@ def test_prewarm_runs_dry_round_and_records_counts():
     assert side.daemon._aot_epoch == -1
 
 
-def test_maybe_autoshard_early_returns_match_reference(monkeypatch):
+def test_maybe_autoshard_early_returns_match_reference():
     """`_maybe_autoshard` keeps the reference's early returns (the round
     within max_bc_elems, autoshard off: False in both packages; one device
-    visible: False in the port, whose CPU is one device) and raises where
-    the reference re-places the fleet over several devices (the tests'
-    JAX backend shows eight)."""
+    visible: False in the port, whose CPU is one device) and, with eight
+    devices visible (the tests' JAX backend shows eight; the port's CPU
+    through `virtual_devices(8)`), re-places the fleet over a mesh of the
+    reference's shape, once, and decides as the reference."""
     from karmada_tpu.sched.core import ArrayScheduler as JaxScheduler
 
     from karmada_tpu_torch.sched.core import ArrayScheduler as TorchScheduler
+    from karmada_tpu_torch.testing.cpumesh import virtual_devices
 
     ref, port = JaxScheduler(_fleet()), TorchScheduler(conv(_fleet()), device="cpu")
     width = len(port.fleet.names)
@@ -416,11 +418,18 @@ def test_maybe_autoshard_early_returns_match_reference(monkeypatch):
         arr.autoshard = True
     assert port._maybe_autoshard(2) is False  # one device visible
     assert ref._maybe_autoshard(2) is True and ref.mesh is not None
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    port.device = torch.device("cuda")
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
-        port._maybe_autoshard(2)
-    assert port.mesh is None
+    epoch = port.fleet_epoch
+    with virtual_devices(8, "cpu"):
+        assert port._maybe_autoshard(2) is True
+        assert port._maybe_autoshard(2) is False  # one way: the mesh stays
+    assert port.mesh.shape == dict(ref.mesh.shape) and port.mesh_partitioned
+    assert port.fleet_epoch == epoch + 1 and len(port.fleet.names) == len(ref.fleet.names)
+    bindings = jpre.mixed_priority_bindings(n=6)
+    want = [(d.ok, d.error, sorted((t.name, t.replicas) for t in d.targets or []))
+            for d in ref.schedule(bindings)]
+    got = [(d.ok, d.error, sorted((t.name, t.replicas) for t in d.targets or []))
+           for d in port.schedule(conv(bindings))]
+    assert got == want
 
 
 def test_estimator_registry_protocol_and_pool_width_match_reference():

@@ -142,6 +142,19 @@ def launch_dense_input_filter():
     kernels._dense_input_filter_launch(*chip_smoke.random_dense_input_args(7, CPU, 6, 100))
 
 
+def launch_candidate_merge():
+    kernels._candidate_merge_launch([_merge_window(4, 100, c0) for c0 in (0, 100, 200)], 128)
+
+
+def _merge_window(B, K, c0):
+    """One shard's window (ids from column c0 on) and feasible counts."""
+    rng = np.random.default_rng(c0)
+    i32 = [torch.from_numpy(rng.integers(0, 9, (B, K)).astype(np.int32)) for _ in range(4)]
+    return (torch.arange(c0, c0 + K, dtype=torch.int32).expand(B, K).contiguous(),
+            torch.from_numpy(rng.random((B, K)) < 0.5), *i32,
+            torch.full((B,), 7, dtype=torch.int32))
+
+
 def launch_mesh_tile_filter():
     (args, kw), *_ = chip_smoke.random_tile_inputs(8, CPU, 8, 100, (2, 2))
     kernels._mesh_tile_filter_launch(*args, **kw)
@@ -165,6 +178,7 @@ WRAPPERS = {
     launch_sim_filter: ("dense_filter", "sim_filter_launch"),
     launch_dense_input_filter: ("dense_filter", "dense_input_filter_launch"),
     launch_mesh_tile_filter: ("dense_filter", "mesh_tile_filter_launch"),
+    launch_candidate_merge: ("candidate_merge", "candidate_merge_launch"),
 }
 
 
@@ -224,6 +238,7 @@ def test_every_c_entry_has_a_bound_prototype():
         "sim_filter_launch": kernels._SIM_FILTER_ARGTYPES,
         "dense_input_filter_launch": kernels._DENSE_INPUT_FILTER_ARGTYPES,
         "mesh_tile_filter_launch": kernels._MESH_TILE_FILTER_ARGTYPES,
+        "candidate_merge_launch": kernels._MERGE_ARGTYPES,
         "dense_tail_launch": kernels._DENSE_TAIL_ARGTYPES,
         "spread_tail_launch": kernels._SPREAD_TAIL_ARGTYPES,
         "window_tail_launch": kernels._WINDOW_TAIL_ARGTYPES,

@@ -652,20 +652,24 @@ def test_monolithic_round_dirty_columns():
 
 
 def test_mesh_round_modes_and_device():
-    """The partitioned mode (the default, not ported) and the tiered launch
-    over a mesh raise; a device other than the mesh's first raises; the
-    round's device is the mesh's first."""
+    """Both modes run: the partitioned mode (the default) and the
+    monolithic one decide as the reference's partitioned mesh round, and
+    the tiered launch runs over the mesh in either; a device other than
+    the mesh's first raises; the round's device is the mesh's first."""
     clusters, bindings = _ragged()
     port = TorchScheduler(from_reference_objects(clusters), mesh=virtual_mesh(8, "cpu"))
     assert port.device == torch.device("cpu") and port.mesh_partitioned
     assert len(port.fleet.names) % 2 == 0
     pb = from_reference_objects(bindings)
-    with pytest.raises(NotImplementedError, match="mesh_partitioned = False"):
-        port.schedule(pb)
-    with pytest.raises(NotImplementedError, match="partitioned mesh rounds"):
-        preemption.launch_tiered(port, pb)
+    want = _views(jcore.ArrayScheduler(clusters, mesh=ref_make_mesh(jax.devices()))
+                  .schedule(bindings))
+    assert _views(port.schedule(pb)) == want
+    tiered = port.materialize_chunk(preemption.launch_tiered(port, pb))
     with pytest.raises(ValueError, match="first device"):
         TorchScheduler(from_reference_objects(clusters), mesh=virtual_mesh(8, "cpu"),
                        device="meta")
     port.mesh_partitioned = False
-    assert all(d.ok for d in port.schedule(pb))
+    got = port.schedule(pb)
+    assert all(d.ok for d in got)
+    assert [v[:4] for v in _views(got)] == [v[:4] for v in want]
+    assert _views(port.materialize_chunk(preemption.launch_tiered(port, pb))) == _views(tiered)

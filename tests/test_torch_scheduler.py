@@ -254,3 +254,17 @@ def test_schedule_decision_score_matches_reference():
         assert cls("ns/b").score is None
         d.score = 3
         assert d.score == 3
+
+
+@pytest.mark.parametrize("keyword,env", [(None, ""), (None, "0"), (None, "off"), (True, "0"),
+                                         (False, ""), (False, "1")])
+def test_autoshard_keyword_matches_reference(keyword, env, monkeypatch):
+    """ArrayScheduler(autoshard=) takes the reference's default and
+    precedence: the keyword when given, else KARMADA_TPU_AUTOSHARD
+    (0/off/false disable), else on."""
+    monkeypatch.setenv("KARMADA_TPU_AUTOSHARD", env)
+    clusters = synthetic_fleet(8, seed=1)
+    ref = jcore.ArrayScheduler(clusters, autoshard=keyword)
+    port = TorchScheduler(from_reference_objects(clusters), autoshard=keyword, device="cpu")
+    assert port.autoshard is ref.autoshard
+    assert port.autoshard is (keyword if keyword is not None else env not in ("0", "off"))

@@ -393,15 +393,29 @@ def test_scenario_chunking_equals_one_solve(fleet, budget, solves):
 
 
 def test_oversized_solve_on_several_cards_refuses(fleet, monkeypatch):
-    """With more than one card visible, autoshard on and an oversized
-    volume, the solve raises (the scenario-sharded route is the multi-GPU
-    slice's) instead of running something else; autoshard off chunks."""
+    """With more than one device visible (two copies of the CPU through
+    `virtual_devices`), autoshard on and an oversized volume, the solve no
+    longer refuses: the scenario axis shards over the devices, as the
+    reference's does over its CPU devices (`last_stats["mesh"]` True, the
+    budget doubled, two solves of two scenarios each), and the outcomes
+    equal the reference's; with autoshard off it chunks on one device."""
+    from karmada_tpu_torch.testing.cpumesh import virtual_devices
+
     clusters, names = fleet
+    bindings, scenarios = mixed_bindings(names, n=4), scenario_set(names)[:2]
+    jsim = JSimulator(clusters, max_bc_elems=64)
+    jbase, jouts = jsim.simulate(bindings, scenarios)
+    assert jsim.last_stats["mesh"] is True
     sim = Simulator(conv(clusters), max_bc_elems=64, device="cpu")
-    sim.device = torch.device("cuda")
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
-        sim.simulate(conv(mixed_bindings(names, n=4)), conv(scenario_set(names)[:2]))
+    with virtual_devices(2, "cpu"):
+        base, outs = sim.simulate(conv(bindings), conv(scenarios))
+    assert sim.last_stats["mesh"] is True and sim.last_stats["batched_solves"] == 2
+    assert_outcomes_equal([base] + outs, [jbase] + jouts)
+    off = Simulator(conv(clusters), max_bc_elems=64, autoshard=False, device="cpu")
+    with virtual_devices(2, "cpu"):
+        base, outs = off.simulate(conv(bindings), conv(scenarios))
+    assert off.last_stats["mesh"] is False and off.last_stats["batched_solves"] == 3
+    assert_outcomes_equal([base] + outs, [jbase] + jouts)
 
 
 @pytest.mark.parametrize("scenario,match", [
